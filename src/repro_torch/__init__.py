@@ -1,0 +1,24 @@
+"""Flowformer on PyTorch and CUDA: the port of the JAX package ``repro``.
+
+The JAX package stays the reference; this package runs the same model on
+an NVIDIA H100.  Plain tensor code is PyTorch, and each Pallas kernel of
+the reference is a CUDA kernel written by hand for ``sm_90a``
+(``csrc/``), built with ``nvcc`` on first use and bound with ``ctypes``.
+
+Importing the package builds nothing and needs no GPU.  Entry points take
+``device=`` and default to ``"cuda"``; they raise when no GPU is present
+unless the caller asks for ``device="cpu"``, where every kernel wrapper
+runs its plain PyTorch version.
+
+Layout (each module mirrors its counterpart in ``repro``):
+
+    config.py, configs/     ModelConfig and the flowformer_lm configs
+    core/                   FlowConfig, phi maps, GQA grouping
+    attention/              FlowState, plain strategies, backend registry
+    kernels/flow_fused/     K1: strict-causal flow attention (prefill)
+    kernels/flow_decode/    K3: one batched decode step, in place
+    csrc/                   the CUDA sources of K1 and K3
+    layers/, models/lm.py   the decoder-only LM
+    serving/                Scheduler, Worker and Engine
+    interop.py              JAX param trees (as numpy) -> torch params
+"""

@@ -1,0 +1,50 @@
+"""Pluggable Flow-Attention execution for the port.
+
+Call sites build one ``ExecutionPlan`` and use the canonical ops through
+the bound executor, never naming an execution path::
+
+    from repro_torch import attention
+
+    ex = attention.resolve(attention.ExecutionPlan(flow=cfg))
+    out = ex.forward(q, k, v)
+    out, state = ex.prefill(q, k, v, lengths=lengths)
+    state, out = ex.decode_step(state, q, k, v)
+
+``FlowConfig.backend="auto"`` resolves to the CUDA kernels on a GPU
+(``cuda_fused``, ``cuda_decode``), and raises there for a shape no kernel
+takes, and to their plain PyTorch versions on the CPU (``fused_causal``,
+``recurrent``); ``"plain"`` keeps to the plain versions on any device; a
+registered name pins one.  ``explain(plan, shapes, platform=)`` names
+each backend's verdict and reason.
+"""
+from repro_torch.attention.plan import (
+    BoundExecutor,
+    ExecutionPlan,
+    PlanExplanation,
+)
+from repro_torch.attention.plan import explain_plan as explain
+from repro_torch.attention.plan import resolve_plan as resolve
+from repro_torch.attention.recurrent import FlowState, init_state
+from repro_torch.attention.registry import (
+    Backend,
+    ResolutionError,
+    ShapeInfo,
+    register_backend,
+)
+from repro_torch.attention import backends as _backends  # registers the builtins
+from repro_torch.core.flow_attention import FlowConfig
+
+__all__ = [
+    "Backend",
+    "BoundExecutor",
+    "ExecutionPlan",
+    "FlowConfig",
+    "FlowState",
+    "PlanExplanation",
+    "ResolutionError",
+    "ShapeInfo",
+    "explain",
+    "init_state",
+    "register_backend",
+    "resolve",
+]

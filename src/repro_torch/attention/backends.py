@@ -1,0 +1,151 @@
+"""The registered Flow-Attention backends of the port.
+
+Registration order is the ``backend="auto"`` preference order:
+
+    cuda_fused > fused_causal > cuda_decode > recurrent
+
+``cuda_fused`` and ``cuda_decode`` are the hand-written CUDA kernels
+(``kernels/flow_fused``, ``kernels/flow_decode``) and apply only on a CUDA
+device; ``fused_causal`` and ``recurrent`` are their plain PyTorch
+versions.  On the CPU the plain versions apply; on a CUDA device they
+apply only when pinned (``backend="plain"`` or by name).  So ``auto``
+resolves to the kernels on a GPU, and a shape no kernel takes raises
+there with the kernel's own reason instead of running the plain version
+unseen.
+"""
+from __future__ import annotations
+
+from repro_torch.attention import fused, recurrent
+from repro_torch.attention.registry import Backend, register_backend
+from repro_torch.kernels._lib import HEAD_DIMS
+
+
+def _check_strict_causal(cfg, shapes, op):
+    if not cfg.causal:
+        return "causal-only backend"
+    if op != "decode" and shapes.n != shapes.m:
+        return f"causal requires N == M, got N={shapes.n} M={shapes.m}"
+    if not cfg.strict_causal:
+        return "implements the strict-causal cumulative competition only"
+    if not cfg.use_competition:
+        return "the carried state includes the competition normalizer"
+    return None
+
+
+def _check_plain(cfg, name, platform):
+    if platform == "cuda" and cfg.backend not in ("plain", name):
+        return ("plain PyTorch version: on a CUDA device it runs only when "
+                "pinned (backend='plain' or by name)")
+    return None
+
+
+def _check_kernel(shapes, platform):
+    if platform != "cuda":
+        return f"CUDA kernel needs a CUDA device (platform={platform!r})"
+    if shapes.d != shapes.dv or shapes.d not in HEAD_DIMS:
+        return (f"kernel takes D == Dv in {HEAD_DIMS}, got "
+                f"D={shapes.d} Dv={shapes.dv}")
+    return None
+
+
+def _check_scan(cfg, shapes, op):
+    if cfg.chunk_size <= 0:
+        return "chunk_size <= 0"
+    return _check_strict_causal(cfg, shapes, op)
+
+
+def _check_decode(cfg, shapes, op):
+    if shapes.n != 1:
+        return f"decode consumes one position, got N={shapes.n}"
+    return _check_strict_causal(cfg, shapes, op)
+
+
+class FusedCausal(Backend):
+    """Strict-causal flows + cumulative competition + aggregation in one
+    chunked scan whose carry is the decode ``FlowState`` (plain PyTorch)."""
+
+    provides = frozenset({"forward", "prefill", "prefill_packed"})
+
+    def supports(self, cfg, shapes, platform, *, op="forward"):
+        why = (_check_scan(cfg, shapes, op)
+               or _check_plain(cfg, self.name, platform))
+        if why:
+            return False, why
+        return True, "fused strict-causal scan"
+
+    def forward(self, q, k, v, cfg):
+        k, v = fused.expand_kv(q, k, v, cfg)
+        return fused.fused_causal_forward(q, k, v, cfg)
+
+    def prefill(self, q, k, v, cfg, *, lengths=None):
+        k, v = fused.expand_kv(q, k, v, cfg)
+        return fused.fused_causal_forward(q, k, v, cfg, return_state=True,
+                                          lengths=lengths)
+
+
+class CudaFused(FusedCausal):
+    """The whole strict-causal pipeline in the flow_fused CUDA kernel: one
+    CTA per (row, kv head) with the FlowState in shared memory; packed
+    prefill masks each row past its length so the final carry is the
+    boundary FlowState."""
+
+    def supports(self, cfg, shapes, platform, *, op="forward"):
+        why = _check_scan(cfg, shapes, op) or _check_kernel(shapes, platform)
+        if why:
+            return False, why
+        return True, "flow_fused CUDA kernel"
+
+    def forward(self, q, k, v, cfg):
+        from repro_torch.kernels.flow_fused import flow_fused_forward
+
+        k, v = fused.expand_kv(q, k, v, cfg)
+        return flow_fused_forward(q, k, v, cfg)[0]
+
+    def prefill(self, q, k, v, cfg, *, lengths=None):
+        from repro_torch.kernels.flow_fused import flow_fused_forward
+
+        k, v = fused.expand_kv(q, k, v, cfg)
+        return flow_fused_forward(q, k, v, cfg, return_state=True,
+                                  lengths=lengths)
+
+
+class Recurrent(Backend):
+    """The O(d^2) recurrence one token at a time (plain PyTorch); returns a
+    new state."""
+
+    provides = frozenset({"decode"})
+
+    def supports(self, cfg, shapes, platform, *, op="forward"):
+        why = (_check_decode(cfg, shapes, op)
+               or _check_plain(cfg, self.name, platform))
+        if why:
+            return False, why
+        return True, "O(d^2) recurrence"
+
+    def decode_step(self, state, q, k, v, cfg):
+        k, v = fused.expand_kv(q, k, v, cfg)
+        return recurrent.decode_step(state, q, k, v, cfg)
+
+
+class CudaDecode(Recurrent):
+    """One flow_decode CUDA launch advances the whole (slots, Hkv) state
+    pool in place: the serving hot loop."""
+
+    def supports(self, cfg, shapes, platform, *, op="forward"):
+        why = (_check_decode(cfg, shapes, op)
+               or _check_kernel(shapes, platform))
+        if why:
+            return False, why
+        return True, "flow_decode CUDA kernel, state updated in place"
+
+    def decode_step(self, state, q, k, v, cfg):
+        from repro_torch.kernels.flow_decode import flow_decode_step
+
+        k, v = fused.expand_kv(q, k, v, cfg)
+        return flow_decode_step(state, q, k, v, cfg)
+
+
+register_backend("cuda_fused", CudaFused())
+register_backend("fused_causal", FusedCausal())
+register_backend("cuda_decode", CudaDecode())
+register_backend("recurrent", Recurrent())

@@ -1,0 +1,134 @@
+"""ExecutionPlan: the execution context bound once, not threaded per call.
+
+The counterpart of ``repro/attention/plan.py``, reduced to this slice:
+``flow`` (the ``FlowConfig``) and ``packed`` (the plan serves
+right-padded multi-prompt prefill).  The platform is the device of the
+tensors each op is given.  ``resolve(plan)`` returns a ``BoundExecutor``
+whose ops resolve through the registry once per call signature (op,
+shapes, device) and reuse that backend afterwards; ``explain(plan,
+shapes, platform=)`` reports every backend's verdict per op with its
+reason.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+from repro_torch.attention import registry
+from repro_torch.attention.registry import Backend, ShapeInfo
+from repro_torch.core.flow_attention import FlowConfig
+
+_STATE_OPS = ("prefill", "prefill_packed", "decode")
+
+
+def _op_cfg(cfg: FlowConfig, op: str) -> FlowConfig:
+    if op in _STATE_OPS:
+        return dataclasses.replace(cfg, causal=True, strict_causal=True)
+    return cfg
+
+
+@dataclasses.dataclass(frozen=True)
+class ExecutionPlan:
+    """Static execution context for Flow-Attention."""
+
+    flow: FlowConfig | None = None
+    packed: bool = False
+
+    def describe(self) -> str:
+        """One-line summary of the plan's non-default fields."""
+        bits = [f"backend={self.flow.backend!r}" if self.flow else "flow=?"]
+        if self.packed:
+            bits.append("packed")
+        return "ExecutionPlan(" + ", ".join(bits) + ")"
+
+
+class BoundExecutor:
+    """The canonical ops bound to one ``ExecutionPlan``.
+
+    Each op resolves its backend on the first call with a given (shapes,
+    device) and reuses it on every later call with the same ones, so a
+    serving loop that binds its executor once chooses no backend per step.
+    """
+
+    def __init__(self, plan: ExecutionPlan):
+        """Bind ``plan`` (its ``flow`` must be set) for per-op resolution."""
+        if plan.flow is None:
+            raise ValueError("ExecutionPlan.flow is unset")
+        self.plan = plan
+        self._cfgs = {op: _op_cfg(plan.flow, op)
+                      for op in ("forward",) + _STATE_OPS}
+        self._bound: dict = {}
+
+    def backend(self, op: str, shapes: ShapeInfo, platform: str) -> Backend:
+        """Resolve and return the backend the plan binds for ``op``."""
+        return registry.resolve(self._cfgs[op], shapes, platform, op=op)
+
+    def _bind(self, op, q, k, v):
+        key = (op, q.shape, k.shape, v.shape, q.device.type)
+        hit = self._bound.get(key)
+        if hit is None:
+            be = self.backend(op, ShapeInfo.from_qkv(q, k, v), q.device.type)
+            hit = self._bound[key] = (be, self._cfgs[op])
+        return hit
+
+    def forward(self, q, k, v):
+        """Full-sequence Flow-Attention: (B,Hq,N,D) -> (B,Hq,N,Dv)."""
+        be, cfg = self._bind("forward", q, k, v)
+        return be.forward(q, k, v, cfg)
+
+    def prefill(self, q, k, v, *, lengths=None):
+        """Consume a prompt; return (per-position outputs, decode FlowState).
+
+        ``lengths`` (B,) serves a right-padded batch of prompts in one call
+        (the ``prefill_packed`` op).
+        """
+        op = "prefill" if lengths is None else "prefill_packed"
+        be, cfg = self._bind(op, q, k, v)
+        return be.prefill(q, k, v, cfg, lengths=lengths)
+
+    def decode_step(self, state, q, k, v):
+        """Advance one token on the O(d^2) recurrent state."""
+        be, cfg = self._bind("decode", q, k, v)
+        return be.decode_step(state, q, k, v, cfg)
+
+
+def resolve_plan(plan: ExecutionPlan) -> BoundExecutor:
+    """Bind an ``ExecutionPlan`` to an executor."""
+    return BoundExecutor(plan)
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanExplanation:
+    """Per-op resolution triage: ``sections`` is
+    ``((op, ((name, applicable, reason), ...)), ...)``."""
+
+    plan: ExecutionPlan
+    platform: str
+    sections: tuple
+
+    def __str__(self) -> str:
+        """Render the triage: plan header, then per-op OK/no rows."""
+        lines = [f"{self.plan.describe()} on {self.platform!r}"]
+        for op, rows in self.sections:
+            lines.append(f" op={op!r}:")
+            lines.extend(f"  {'OK ' if ok else 'no '} {name}: {why}"
+                         for name, ok, why in rows)
+        return "\n".join(lines)
+
+
+def explain_plan(plan: ExecutionPlan, shapes: ShapeInfo, *, platform: str,
+                 op: str | None = None) -> PlanExplanation:
+    """Every backend's verdict with its reason on ``platform`` ("cuda" or
+    "cpu") at ``shapes``, for ``op`` or for every op the plan implies
+    (forward, prefill, prefill_packed if packed, decode)."""
+    if plan.flow is None:
+        raise ValueError("explain(plan) needs plan.flow")
+    if op is None:
+        ops = ["forward", "prefill"] + (["prefill_packed"] if plan.packed
+                                        else []) + ["decode"]
+    else:
+        ops = [op]
+    sections = tuple(
+        (one, tuple(registry.explain(_op_cfg(plan.flow, one), shapes,
+                                     platform, op=one)))
+        for one in ops)
+    return PlanExplanation(plan=plan, platform=platform, sections=sections)

@@ -1,0 +1,144 @@
+"""Execution-strategy registry for Flow-Attention (the port's slice).
+
+The counterpart of ``repro/attention/registry.py``.  A ``Backend`` packages
+one execution strategy behind the canonical ops (``forward`` / ``prefill``
+/ ``decode_step``) and self-reports its applicability — platform,
+causality, shapes, competition flags — in ``supports()``.  ``resolve()``
+turns ``FlowConfig.backend`` into a backend deterministically:
+
+* ``backend="auto"`` — the first applicable backend in registration order.
+* ``backend="plain"`` — auto, restricted to the plain PyTorch backends (no
+  CUDA kernel): the reference path the kernels are held against.
+* ``backend=<name>`` — that backend exactly; resolution raises with the
+  backend's own reason if it does not apply.  An op the named backend
+  does not provide at all (decode for a prefill strategy) falls back to
+  auto order, so pinning a prefill strategy never breaks serving.
+
+A failed resolution raises ``ResolutionError`` carrying every candidate's
+rejection reason in the message and as structured ``.rejections``.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core.flow_attention import FlowConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeInfo:
+    """Static call-site shapes a backend inspects in ``supports()``."""
+
+    b: int
+    hq: int
+    hkv: int
+    n: int  # query length
+    m: int  # key/value length
+    d: int
+    dv: int
+
+    @classmethod
+    def from_qkv(cls, q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor) -> "ShapeInfo":
+        """Build the static shape record from q/k/v tensors."""
+        return cls(b=q.shape[0], hq=q.shape[1], n=q.shape[2], d=q.shape[3],
+                   hkv=k.shape[1], m=k.shape[2], dv=v.shape[3])
+
+
+class Backend:
+    """One Flow-Attention execution strategy.
+
+    Subclasses set ``provides`` and override ``supports`` plus the ops they
+    implement.  ``supports`` is a pure function of its arguments, so
+    resolution is deterministic.
+    """
+
+    name: str = "?"
+    #: subset of {"forward", "prefill", "prefill_packed", "decode"}
+    provides: frozenset = frozenset({"forward"})
+
+    def supports(self, cfg: FlowConfig, shapes: ShapeInfo, platform: str,
+                 *, op: str = "forward"):
+        """Return (applicable: bool, reason: str)."""
+        raise NotImplementedError
+
+    def forward(self, q, k, v, cfg: FlowConfig):
+        """Full-sequence Flow-Attention -> (B, Hq, N, Dv)."""
+        raise NotImplementedError(f"{self.name} does not provide forward")
+
+    def prefill(self, q, k, v, cfg: FlowConfig, *, lengths=None):
+        """Consume a prompt -> (per-position outputs, decode FlowState)."""
+        raise NotImplementedError(f"{self.name} does not provide prefill")
+
+    def decode_step(self, state, q, k, v, cfg: FlowConfig):
+        """Advance one token -> (FlowState, out (B, Hq, 1, Dv))."""
+        raise NotImplementedError(f"{self.name} does not provide decode_step")
+
+
+class ResolutionError(ValueError):
+    """No backend applied; ``rejections`` is ``((name, reason), ...)``."""
+
+    def __init__(self, message: str, rejections=()):
+        """Store the message plus the per-candidate rejections."""
+        super().__init__(message)
+        self.rejections = tuple(rejections)
+
+
+_REGISTRY: dict[str, Backend] = {}
+_ORDER: list[str] = []
+
+
+def register_backend(name: str, impl: Backend):
+    """Register ``impl`` under ``name``, last in auto order."""
+    if name in _REGISTRY:
+        raise ValueError(f"backend {name!r} already registered")
+    impl.name = name
+    _REGISTRY[name] = impl
+    _ORDER.append(name)
+    return impl
+
+
+def _candidates(cfg: FlowConfig, op: str) -> list:
+    """Candidate backend names, in order, for ``cfg.backend`` and ``op``."""
+    sel = cfg.backend
+    if sel == "auto":
+        return list(_ORDER)
+    if sel == "plain":
+        return [n for n in _ORDER if not n.startswith("cuda_")]
+    if sel not in _REGISTRY:
+        raise ValueError(f"unknown FlowConfig.backend {sel!r}; expected "
+                         f"'auto', 'plain' or one of {tuple(_ORDER)}")
+    if op not in _REGISTRY[sel].provides:
+        return list(_ORDER)
+    return [sel]
+
+
+def _judge(be: Backend, cfg: FlowConfig, shapes: ShapeInfo, platform: str,
+           op: str):
+    if op not in be.provides:
+        return False, f"does not provide {op}"
+    return be.supports(cfg, shapes, platform, op=op)
+
+
+def resolve(cfg: FlowConfig, shapes: ShapeInfo, platform: str, *,
+            op: str = "forward") -> Backend:
+    """Deterministically pick the backend that runs ``op``."""
+    rejections = []
+    for name in _candidates(cfg, op):
+        ok, why = _judge(_REGISTRY[name], cfg, shapes, platform, op)
+        if ok:
+            return _REGISTRY[name]
+        rejections.append((name, why))
+    raise ResolutionError(
+        f"no applicable Flow-Attention backend for op={op!r} on "
+        f"platform={platform!r} with {shapes}:\n  "
+        + "\n  ".join(f"{n}: {w}" for n, w in rejections), rejections)
+
+
+def explain(cfg: FlowConfig, shapes: ShapeInfo, platform: str, *,
+            op: str = "forward") -> list:
+    """``[(name, applicable, reason)]`` for every registered backend."""
+    _candidates(cfg, op)  # rejects an unknown backend name
+    return [(name, *_judge(_REGISTRY[name], cfg, shapes, platform, op))
+            for name in _ORDER]

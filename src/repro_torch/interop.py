@@ -1,0 +1,85 @@
+"""Carry a JAX parameter tree across to the port, and back.
+
+``params_from_numpy`` takes the reference's param pytree with numpy
+leaves (the caller converts, e.g. ``jax.tree.map(np.asarray, params)``;
+this module imports nothing of JAX) and builds the port's parameter dict:
+
+  * ``tree["scan"]`` holds one stacked dict per pattern position, with a
+    leading ``n_rep`` axis (``repro/models/lm.py:91-101``); it is
+    unstacked in layer order as ``_blocks_list`` does, then
+    ``tree["tail"]`` follows;
+  * ``tree["blocks"]`` (the ``scan_layers=False`` / n_rep <= 1 layout) is
+    taken as it is;
+  * the untied ``head`` is carried; dense weights stay (d_in, d_out).
+
+``params_to_numpy`` is the inverse, restacking into the reference's layout
+by the rule ``repro.models.lm.init`` uses.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.models.lm import tree_map
+
+
+def _blocks_of(tree: dict, cfg: ModelConfig) -> list:
+    if "blocks" in tree:
+        return list(tree["blocks"])
+    stacked = tree["scan"]
+    n_rep = np.shape(next(iter(_leaves(stacked[0]))))[0]
+    blocks = [tree_map(lambda x, r=r: x[r], stacked[j])
+              for r in range(n_rep) for j in range(len(cfg.pattern))]
+    return blocks + list(tree.get("tail", []))
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def params_from_numpy(tree: dict, cfg: ModelConfig) -> dict:
+    """The port's parameter dict (CPU tensors) from a numpy param tree."""
+    blocks = _blocks_of(tree, cfg)
+    if len(blocks) != cfg.n_layers:
+        raise ValueError(f"tree has {len(blocks)} blocks, cfg {cfg.n_layers}")
+    p = {"embed": tree["embed"], "blocks": blocks,
+         "final_norm": tree["final_norm"]}
+    if not cfg.tie_embeddings:
+        p["head"] = tree["head"]
+    return tree_map(lambda x: torch.from_numpy(np.array(x, copy=True)), p)
+
+
+def params_to_numpy(params: dict, cfg: ModelConfig) -> dict:
+    """The reference's param tree layout with numpy leaves."""
+    p = tree_map(lambda x: x.detach().cpu().numpy(), params)
+    out = {"embed": p["embed"]}
+    period = len(cfg.pattern)
+    n_rep, tail = divmod(cfg.n_layers, period)
+    if cfg.scan_layers and n_rep > 1:
+        blocks = p["blocks"]
+        out["scan"] = []
+        for j in range(period):
+            group = [blocks[r * period + j] for r in range(n_rep)]
+            out["scan"].append(_stack(group))
+        out["tail"] = blocks[n_rep * period:]
+    else:
+        out["blocks"] = p["blocks"]
+    out["final_norm"] = p["final_norm"]
+    if "head" in p:
+        out["head"] = p["head"]
+    return out
+
+
+def _stack(group: list):
+    first = group[0]
+    if isinstance(first, dict):
+        return {k: _stack([g[k] for g in group]) for k in first}
+    return np.stack(group)

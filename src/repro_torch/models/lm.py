@@ -1,0 +1,163 @@
+"""Decoder-only language model (flow-attention stacks).
+
+The counterpart of ``repro/models/lm.py`` for the stacks this slice
+serves: every layer is ``norm1 -> mixer -> residual -> norm2 -> FFN ->
+residual``, with the mixer resolved from ``cfg.block_kind`` through
+``layers/mixer.py``.  Parameters are a plain dict of tensors
+
+    {"embed": {"table"}, "blocks": [per-layer dicts], "final_norm", "head"}
+
+(the JAX package's stacked ``scan`` layout is unstacked by
+``interop.params_from_numpy``).  Dense weights are stored (d_in, d_out).
+
+Entry points:
+  init / forward                      parameters and the full forward
+  init_caches / prefill / decode      serving on per-layer FlowStates
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.layers.embeddings import embed, embedding_init, unembed
+from repro_torch.layers.ffn import ffn, ffn_init
+from repro_torch.layers.mixer import get_mixer, resolve_mixers
+from repro_torch.layers.norms import apply_norm, norm_init
+from repro_torch.layers.rope import default_positions
+from repro_torch.utils import resolve_device
+
+
+def _require_supported(cfg: ModelConfig):
+    if cfg.moe is not None or cfg.rope == "mrope":
+        raise NotImplementedError("MoE and mrope stacks are not ported yet")
+
+
+def _block_init(gen: torch.Generator, kind: str, cfg: ModelConfig) -> dict:
+    mx = get_mixer(kind)
+    p = {"norm1": norm_init(cfg.d_model, cfg.norm),
+         mx.params_field: mx.init_params(gen, cfg)}
+    if cfg.d_ff > 0:
+        p["norm2"] = norm_init(cfg.d_model, cfg.norm)
+        p["ffn"] = ffn_init(gen, cfg.d_model, cfg.d_ff, cfg.act)
+    return p
+
+
+def tree_map(fn, tree):
+    """Apply ``fn`` to every tensor of a nested dict/list parameter tree."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def init(cfg: ModelConfig, generator: torch.Generator, device="cuda") -> dict:
+    """Random parameters with the reference's shapes and initializer
+    families (truncated normal, std 0.02, for the tables; LeCun normal for
+    dense weights), drawn on the CPU from ``generator`` and moved to
+    ``device``."""
+    _require_supported(cfg)
+    dev = resolve_device(device)
+    p = {"embed": embedding_init(generator, cfg.vocab_size, cfg.d_model),
+         "blocks": [_block_init(generator, cfg.block_kind(i), cfg)
+                    for i in range(cfg.n_layers)],
+         "final_norm": norm_init(cfg.d_model, cfg.norm)}
+    if not cfg.tie_embeddings:
+        p["head"] = embedding_init(generator, cfg.vocab_size, cfg.d_model)
+    return tree_map(lambda x: x.to(dev), p)
+
+
+def for_serving(params: dict, device, dtype) -> dict:
+    """``params`` on ``device`` with the matrices (tables and dense weights)
+    stored in the activation ``dtype``.  Every matmul casts its weight to
+    the activation dtype anyway, so this only moves the cast out of the
+    loop; norm parameters stay fp32."""
+    dev = resolve_device(device)
+    return tree_map(lambda x: x.to(dev, dtype if x.ndim >= 2 else x.dtype),
+                    params)
+
+
+def _head(params, cfg: ModelConfig):
+    return params["embed"] if cfg.tie_embeddings else params["head"]
+
+
+def _ffn_residual(bp, x, cfg: ModelConfig):
+    if "ffn" in bp:
+        x = x + ffn(bp["ffn"], apply_norm(bp["norm2"], x, cfg.norm), cfg.act)
+    return x
+
+
+def forward(params, inputs: torch.Tensor, cfg: ModelConfig, *,
+            positions=None, dtype=torch.bfloat16, plan=None):
+    """inputs: int tokens (B, N).  Returns (logits (B, N, vocab) fp32,
+    aux loss 0.0)."""
+    _require_supported(cfg)
+    b, n = inputs.shape
+    x = embed(params["embed"], inputs, dtype)
+    if positions is None:
+        positions = default_positions(b, n, device=inputs.device)
+    for mx, bp in zip(resolve_mixers(cfg), params["blocks"]):
+        h = apply_norm(bp["norm1"], x, cfg.norm)
+        x = x + mx.forward(bp[mx.params_field], h, cfg, positions=positions,
+                           plan=plan)
+        x = _ffn_residual(bp, x, cfg)
+    x = apply_norm(params["final_norm"], x, cfg.norm)
+    logits = unembed(_head(params, cfg), x, softcap=cfg.logit_softcap)
+    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def init_caches(cfg: ModelConfig, batch: int, max_len: int, *, plan=None,
+                device=None) -> list:
+    """Per-layer decode states (a FlowState per flow layer)."""
+    return [mx.state_init(cfg, batch, max_len, device=device, plan=plan)
+            for mx in resolve_mixers(cfg)]
+
+
+def prefill(params, inputs: torch.Tensor, cfg: ModelConfig, max_len: int, *,
+            dtype=torch.bfloat16, lengths=None, plan=None):
+    """Consume a prompt; return (last-token logits (B, 1, vocab), caches).
+
+    ``lengths`` (B,) packs right-padded prompts into one call: every layer
+    is causal or position-wise, so padding never reaches true positions,
+    each row's state lands at its own boundary, and the logits are taken
+    at position ``lengths[i] - 1`` of each row.
+    """
+    _require_supported(cfg)
+    b, n = inputs.shape
+    x = embed(params["embed"], inputs, dtype)
+    positions = default_positions(b, n, device=inputs.device)
+    caches = []
+    for mx, bp in zip(resolve_mixers(cfg), params["blocks"]):
+        h = apply_norm(bp["norm1"], x, cfg.norm)
+        y, cache = mx.prefill(bp[mx.params_field], h, cfg, max_len,
+                              positions=positions, lengths=lengths, plan=plan)
+        caches.append(cache)
+        x = _ffn_residual(bp, x + y, cfg)
+    x = apply_norm(params["final_norm"], x, cfg.norm)
+    if lengths is None:
+        x_last = x[:, -1:]
+    else:  # each row's boundary token, not the padded tail
+        li = lengths.to(device=x.device, dtype=torch.long).clamp(min=1) - 1
+        x_last = x[torch.arange(b, device=x.device), li][:, None]
+    return unembed(_head(params, cfg), x_last, softcap=cfg.logit_softcap), caches
+
+
+def decode(params, token: torch.Tensor, caches: list, cfg: ModelConfig, pos,
+           *, dtype=torch.bfloat16, plan=None):
+    """One decode step.  token: (B, 1) int; pos: int or (B,) absolute
+    position of this token per slot.  Returns (logits (B, 1, vocab),
+    caches); on the GPU the caches are the given FlowStates updated in
+    place."""
+    _require_supported(cfg)
+    b = token.shape[0]
+    x = embed(params["embed"], token, dtype)
+    positions = default_positions(b, 1, pos, device=token.device)
+    new_caches = []
+    for mx, bp, state in zip(resolve_mixers(cfg), params["blocks"], caches):
+        h = apply_norm(bp["norm1"], x, cfg.norm)
+        y, cache = mx.decode_step(bp[mx.params_field], h, state, cfg,
+                                  positions=positions, plan=plan)
+        new_caches.append(cache)
+        x = _ffn_residual(bp, x + y, cfg)
+    x = apply_norm(params["final_norm"], x, cfg.norm)
+    return unembed(_head(params, cfg), x, softcap=cfg.logit_softcap), new_caches

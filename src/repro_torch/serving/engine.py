@@ -1,0 +1,102 @@
+"""Serving engine: continuous batching over constant-size flow states.
+
+The counterpart of ``repro/serving/engine.py`` for this slice: plain
+greedy or temperature decoding with packed admission and slot churn.
+Every slot costs the same O(d^2) state whatever its context length, so
+admission is a scatter into the slot pool and nothing is ever evicted.
+
+``Engine`` is the thin facade over the host ``Scheduler`` (queue, slot
+table, bookkeeping) and the device ``Worker`` (state pool, packed prefill,
+batched decode and sample).  Speculative decoding, paged and quantized
+pools, and the per-request prefill fallback are not ported yet.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.serving.scheduler import Request, Scheduler, budget_met
+from repro_torch.serving.worker import Worker
+
+__all__ = ["Engine", "Request"]
+
+
+class Engine:
+    """Single-device engine: ``submit`` requests, then ``step`` or ``run``."""
+
+    def __init__(self, params, cfg: ModelConfig, *, slots: int = 8,
+                 max_len: int = 4096, seed: int = 0, plan=None,
+                 dtype=torch.bfloat16, device="cuda"):
+        """Build the scheduler/worker pair.  ``device`` defaults to
+        ``"cuda"`` and raises when no GPU is present; pass ``"cpu"`` to
+        serve on the CPU with the plain PyTorch versions."""
+        self.scheduler = Scheduler(slots)
+        self.worker = Worker(params, cfg, slots=slots, max_len=max_len,
+                             seed=seed, plan=plan, dtype=dtype, device=device)
+
+    @property
+    def queue(self):
+        """The scheduler's FIFO admission queue."""
+        return self.scheduler.queue
+
+    @property
+    def active(self):
+        """The scheduler's slot table (``Request | None`` per slot)."""
+        return self.scheduler.active
+
+    def submit(self, req: Request):
+        """Enqueue a request for admission on a future ``step()``."""
+        self.scheduler.submit(req)
+
+    def _admit(self):
+        """Fill free slots from the queue.
+
+        Each round is one packed prefill, one install and one batched
+        first-token sample.  A request whose budget is met by its first
+        token retires without occupying its slot, and the freed slot is
+        offered to the queue again in the same call.
+        """
+        sched = self.scheduler
+        while True:
+            free = sched.free_slots()
+            if not free or not sched.queue:
+                return
+            batch = [sched.queue.popleft()
+                     for _ in range(min(len(free), len(sched.queue)))]
+            slot_ids = free[:len(batch)]
+            temps = np.array([r.temperature for r in batch], np.float32)
+            first = self.worker.prefill([r.prompt for r in batch], slot_ids,
+                                        temps)
+            for req, slot, tok in zip(batch, slot_ids, first):
+                req.generated.append(int(tok))
+                if budget_met(req, int(tok)):
+                    sched.retire(req)
+                else:
+                    sched.activate(slot, req)
+
+    def step(self) -> int:
+        """One continuous-batching iteration; returns the number of live
+        slots it decoded."""
+        self._admit()
+        sched = self.scheduler
+        live = sched.live_mask()
+        n_live = int(live.sum())
+        if n_live == 0:
+            return 0
+        tokens = self.worker.step(sched.last_tokens(), sched.pos, sched.temps,
+                                  live)
+        sched.record_step(tokens, live)
+        return n_live
+
+    def take_finished(self) -> list[Request]:
+        """Drain retired requests, in retirement order."""
+        return self.scheduler.take_finished()
+
+    def run(self, max_steps: int = 10_000) -> list[Request]:
+        """Drive the loop until every queued request retires (or
+        ``max_steps``); drain and return the retired requests."""
+        for _ in range(max_steps):
+            if self.step() == 0 and not self.queue:
+                break
+        return self.take_finished()

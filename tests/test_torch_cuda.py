@@ -1,0 +1,140 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked ``cuda``: a CUDA kernel has no CPU mode, so without a GPU every
+test here skips with that reason.  On a machine with one:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerance: |kernel - plain| <= 1e-4 + 1e-4 |plain| in fp32 (the same fp32
+terms summed in another order, no TF32 on either side).
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(2)
+
+from repro_torch import attention  # noqa: E402
+from repro_torch.attention.fused import fused_causal_forward  # noqa: E402
+from repro_torch.attention.recurrent import FlowState, decode_step  # noqa: E402
+from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.core.flow_attention import FlowConfig  # noqa: E402
+from repro_torch.kernels import LAUNCHES, reset_launches  # noqa: E402
+from repro_torch.kernels.flow_decode import flow_decode_call, flow_decode_step  # noqa: E402
+from repro_torch.kernels.flow_fused import flow_fused_forward  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
+from repro_torch.serving.engine import Engine, Request  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: a CUDA kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+@pytest.mark.parametrize("phi,g,n,chunk,d", [
+    ("sigmoid", 1, 37, 8, 32), ("elu1", 2, 100, 64, 64),
+    ("relu", 1, 300, 128, 128), ("sigmoid", 4, 16, 16, 64)])
+def test_flow_fused_kernel_matches_plain(gen, phi, g, n, chunk, d):
+    b, hkv = 3, 2
+    q = torch.randn((b, hkv * g, n, d), generator=gen, device="cuda")
+    k = torch.randn((b, hkv, n, d), generator=gen, device="cuda")
+    v = torch.randn((b, hkv, n, d), generator=gen, device="cuda")
+    lengths = torch.tensor([n, 1, max(1, n // 3)], dtype=torch.int32,
+                           device="cuda")
+    cfg = FlowConfig(phi=phi, causal=True, strict_causal=True,
+                     chunk_size=chunk)
+    reset_launches()
+    out, st = flow_fused_forward(q, k, v, cfg, return_state=True,
+                                 lengths=lengths)
+    assert LAUNCHES["flow_fused"] == 1
+    ref, ref_st = fused_causal_forward(q, k, v, cfg, return_state=True,
+                                       lengths=lengths)
+    torch.testing.assert_close(out, ref, **TOL)
+    for a, b_ in zip(st, ref_st):
+        torch.testing.assert_close(a, b_, **TOL)
+
+
+@pytest.mark.parametrize("phi,g,d", [("sigmoid", 1, 64), ("elu1", 2, 32),
+                                     ("relu", 1, 128)])
+def test_flow_decode_kernel_matches_plain_in_place(gen, phi, g, d):
+    slots, hkv = 5, 2
+    cfg = FlowConfig(phi=phi, causal=True, strict_causal=True)
+    pool = FlowState(
+        t=torch.tensor([3, 40, 7, 1, 99], dtype=torch.int32, device="cuda"),
+        q_sum=torch.rand((slots, hkv, d), generator=gen, device="cuda") * 9,
+        k_sum=torch.rand((slots, hkv, d), generator=gen, device="cuda") * 9,
+        ko_sum=torch.rand((slots, hkv, d), generator=gen, device="cuda") * 9,
+        qi_sum=torch.rand((slots, hkv, d), generator=gen, device="cuda") * 9,
+        z=torch.rand((slots, hkv), generator=gen, device="cuda") * 9 + 1,
+        s=torch.randn((slots, hkv, d, d), generator=gen, device="cuda"))
+    plain = FlowState(*(x.clone() for x in pool))
+    ptrs = [x.data_ptr() for x in pool]
+    reset_launches()
+    for _ in range(4):
+        q = torch.randn((slots, hkv * g, 1, d), generator=gen, device="cuda")
+        k = torch.randn((slots, hkv, 1, d), generator=gen, device="cuda")
+        v = torch.randn((slots, hkv, 1, d), generator=gen, device="cuda")
+        same, out = flow_decode_step(pool, q, k, v, cfg)
+        plain, ref = decode_step(plain, q, k, v, cfg)
+        assert all(a is b_ for a, b_ in zip(same, pool))
+        torch.testing.assert_close(out, ref, **TOL)
+    assert LAUNCHES["flow_decode"] == 4
+    assert [x.data_ptr() for x in pool] == ptrs
+    for a, b_ in zip(pool, plain):
+        torch.testing.assert_close(a, b_, **TOL)
+
+
+def test_decode_wrapper_refuses_a_copy_of_the_pool(gen):
+    bh, d = 4, 64
+    state = [torch.zeros((bh, d), device="cuda") for _ in range(4)]
+    z = torch.zeros((bh,), device="cuda")
+    s = torch.zeros((d, bh, d), device="cuda").transpose(0, 1)  # not contiguous
+    q = torch.randn((bh, 1, d), generator=gen, device="cuda")
+    t = torch.ones((bh,), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        flow_decode_call(t, q, q[:, 0], q[:, 0], *state, z, s, hkv=1)
+
+
+@pytest.mark.parametrize("d,dv", [(96, 96), (64, 32)])
+def test_auto_raises_on_a_head_dim_no_kernel_takes(gen, d, dv):
+    ex = attention.resolve(attention.ExecutionPlan(flow=FlowConfig()))
+    q = torch.randn((2, 2, 16, d), generator=gen, device="cuda")
+    v = torch.randn((2, 2, 16, dv), generator=gen, device="cuda")
+    reset_launches()
+    with pytest.raises(attention.ResolutionError, match="kernel takes"):
+        ex.prefill(q, q, v, lengths=torch.tensor([16, 3], device="cuda"))
+    pool = attention.init_state(2, 2, d, dv, device="cuda")
+    with pytest.raises(attention.ResolutionError, match="kernel takes"):
+        ex.decode_step(pool, q[:, :, :1], q[:, :, :1], v[:, :, :1])
+    assert LAUNCHES == {"flow_fused": 0, "flow_decode": 0}
+
+
+def test_engine_kernels_match_plain_greedy(gen):
+    cfg = get_smoke_config("flowformer_lm")
+    params = lm.init(cfg, torch.Generator().manual_seed(0), device="cuda")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 40, 17, 9, 64)]
+    runs = {}
+    for backend in ("auto", "plain"):
+        c = dataclasses.replace(cfg, attention=dataclasses.replace(
+            cfg.attention, backend=backend))
+        engine = Engine(params, c, slots=2, max_len=128, dtype=torch.float32)
+        for uid, p in enumerate(prompts):
+            engine.submit(Request(uid=uid, prompt=p, max_new_tokens=6))
+        reset_launches()
+        runs[backend] = {r.uid: r.generated for r in engine.run()}
+        rounds, steps = (engine.worker.admission_rounds,
+                         engine.worker.decode_steps)
+        want = ({"flow_fused": 2 * rounds, "flow_decode": 2 * steps}
+                if backend == "auto" else {"flow_fused": 0, "flow_decode": 0})
+        assert LAUNCHES == want
+    assert runs["auto"] == runs["plain"]

@@ -1,0 +1,173 @@
+"""The port stands alone: no JAX, no reference package, no silent CPU.
+
+``repro_torch`` and ``chip_smoke.py`` import ``torch``, ``numpy`` and the
+standard library only; importing the package builds no kernel; entry
+points refuse to run on the CPU unless asked; and the backend registry
+resolves to the CUDA kernels on a CUDA platform, never to a plain version
+there unless pinned, and to the plain versions elsewhere.
+"""
+import ast
+import dataclasses
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(2)
+
+from repro_torch import attention  # noqa: E402
+from repro_torch.attention import ExecutionPlan, FlowConfig, ShapeInfo  # noqa: E402
+from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.kernels import LAUNCHES, reset_launches  # noqa: E402
+from repro_torch.kernels.flow_decode import flow_decode_step  # noqa: E402
+from repro_torch.kernels.flow_fused import flow_fused_call  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
+from repro_torch.serving.engine import Engine, Request  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+
+def test_import_leaves_jax_and_reference_out():
+    code = (
+        "import sys, pkgutil, importlib, repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import repro_torch.serving.engine\n"
+        "from repro_torch.kernels import _lib\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'repro' or m.startswith('repro.')]\n"
+        "assert not bad, bad\n"
+        "assert not _lib._FUNCS, 'importing built or loaded a kernel'\n"
+        "print('clean')\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"})
+    assert res.returncode == 0 and "clean" in res.stdout, res.stderr
+
+
+def imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
+                         + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_module_imports_jax_or_reference(path):
+    bad = [m for m in imported_modules(path)
+           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_entry_points_refuse_cpu_unless_asked():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    cfg = get_smoke_config("flowformer_lm")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm.init(cfg, torch.Generator().manual_seed(0))
+    params = lm.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(params, cfg, slots=2, max_len=32)
+
+
+def test_cpu_wrappers_run_the_plain_version_uncounted():
+    reset_launches()
+    q = torch.randn((2, 1, 8, 32))
+    k, v = torch.randn((2, 8, 32)), torch.randn((2, 8, 32))
+    out, sums = flow_fused_call(q, k, v, torch.tensor([8, 3], dtype=torch.int32),
+                                chunk=8)
+    assert out.shape == (2, 1, 8, 32) and len(sums) == 6
+    pool = attention.init_state(2, 1, 32)
+    same, out = flow_decode_step(pool, q[:, :, :1], k[:, None, :1],
+                                 v[:, None, :1], FlowConfig(causal=True,
+                                                            strict_causal=True))
+    assert all(a is b for a, b in zip(same, pool)) and pool.t.tolist() == [1, 1]
+    assert LAUNCHES == {"flow_fused": 0, "flow_decode": 0}
+
+
+def test_cpu_serving_counts_no_launch():
+    cfg = get_smoke_config("flowformer_lm")
+    params = lm.init(cfg, torch.Generator().manual_seed(1), device="cpu")
+    engine = Engine(params, cfg, slots=2, max_len=32, device="cpu")
+    reset_launches()
+    rng = np.random.default_rng(0)
+    for uid in range(3):
+        engine.submit(Request(uid=uid, prompt=rng.integers(
+            0, cfg.vocab_size, 6 + uid).astype(np.int32), max_new_tokens=3))
+    assert len(engine.run()) == 3
+    assert engine.worker.decode_steps > 0
+    assert LAUNCHES == {"flow_fused": 0, "flow_decode": 0}
+
+
+SHAPES = {"prefill_packed": ShapeInfo(b=16, hq=8, hkv=8, n=512, m=512, d=64,
+                                      dv=64),
+          "decode": ShapeInfo(b=16, hq=8, hkv=8, n=1, m=1, d=64, dv=64)}
+
+
+@pytest.mark.parametrize("backend,platform,want", [
+    ("auto", "cuda", {"prefill_packed": "cuda_fused", "decode": "cuda_decode"}),
+    ("auto", "cpu", {"prefill_packed": "fused_causal", "decode": "recurrent"}),
+    ("plain", "cuda", {"prefill_packed": "fused_causal", "decode": "recurrent"}),
+    ("cuda_fused", "cuda", {"prefill_packed": "cuda_fused",
+                            "decode": "cuda_decode"}),
+    ("fused_causal", "cuda", {"prefill_packed": "fused_causal",
+                              "decode": "cuda_decode"}),
+])
+def test_registry_resolution(backend, platform, want):
+    plan = ExecutionPlan(flow=FlowConfig(backend=backend), packed=True)
+    ex = attention.resolve(plan)
+    for op, name in want.items():
+        assert ex.backend(op, SHAPES[op], platform).name == name, op
+
+
+def test_explain_names_a_reason_per_rejected_backend():
+    plan = ExecutionPlan(flow=FlowConfig(), packed=True)
+    text = str(attention.explain(plan, SHAPES["decode"], platform="cpu",
+                                 op="decode"))
+    assert "no  cuda_decode: CUDA kernel needs a CUDA device" in text
+    assert "no  cuda_fused: does not provide decode" in text
+    assert "OK  recurrent" in text
+    bad = ExecutionPlan(flow=FlowConfig(backend="cuda_fused"), packed=True)
+    with pytest.raises(attention.ResolutionError, match="CUDA device"):
+        attention.resolve(bad).backend("prefill_packed",
+                                       SHAPES["prefill_packed"], "cpu")
+
+
+@pytest.mark.parametrize("op", ["prefill_packed", "decode"])
+@pytest.mark.parametrize("d,dv", [(96, 96), (64, 32)])
+def test_auto_on_cuda_refuses_a_shape_no_kernel_takes(op, d, dv):
+    shapes = dataclasses.replace(SHAPES[op], d=d, dv=dv)
+    with pytest.raises(attention.ResolutionError,
+                       match="kernel takes D == Dv") as err:
+        attention.resolve(ExecutionPlan(flow=FlowConfig())).backend(
+            op, shapes, "cuda")
+    plain = {"prefill_packed": "fused_causal", "decode": "recurrent"}[op]
+    assert "pinned" in dict(err.value.rejections)[plain]
+    for pin in ("plain", plain):
+        ex = attention.resolve(ExecutionPlan(flow=FlowConfig(backend=pin)))
+        assert ex.backend(op, shapes, "cuda").name == plain
+
+
+def test_executor_resolves_once_per_call_signature(monkeypatch):
+    calls = []
+    real = attention.registry.resolve
+    monkeypatch.setattr(attention.registry, "resolve",
+                        lambda *a, **kw: calls.append(kw["op"]) or real(*a, **kw))
+    ex = attention.resolve(ExecutionPlan(flow=FlowConfig(chunk_size=8)))
+    state = attention.init_state(2, 1, 16)
+    q = torch.randn((2, 1, 1, 16))
+    for _ in range(3):
+        state, _ = ex.decode_step(state, q, q, q)
+    ex.prefill(q.expand(2, 1, 8, 16), q.expand(2, 1, 8, 16),
+               q.expand(2, 1, 8, 16), lengths=torch.tensor([8, 5]))
+    ex.decode_step(state, q[:1], q[:1], q[:1])
+    assert calls == ["decode", "prefill_packed", "decode"]
