@@ -13,6 +13,11 @@ any failure raises, so the exit code is non-zero:
   3. K1 ``flow_fused`` against its plain version at the packed-prefill
      shapes of the serving path (16 rows x 8 kv heads, N = 512, D = 64,
      bf16 and fp32), plus a G = 2, N = 200, chunk-64 case;
+  3b. K2 ``flow_fused_bwd`` against its plain version (autograd through
+     K1's) at the training shape (16 rows x 8 kv heads, G = 1, N = 512,
+     D = 64, chunk 128, bf16 and fp32) and at G = 2, N = 200 padded to 256
+     (chunk 64) with random cotangents on all six state outputs, for each
+     phi;
   4. K3 ``flow_decode`` against its plain version: 16 (the serving pool)
      and 64 slots x 8 kv heads, 32 steps from a non-zero state, updated
      in place;
@@ -23,20 +28,37 @@ any failure raises, so the exit code is non-zero:
      kernel, and its share of the step's wall time;
   6. the same Engine in fp32, once on the kernels and once on the plain
      PyTorch path: the greedy tokens must be identical;
-  7. per kernel, its time with CUDA events beside its plain version's and
-     its bound, as one ``{"kernels": [...]}`` line;
-  8. the last line: ``{"ok": true, "device": {...}}``.
+  7. training at full width (``launch/train.py::train``, bf16, 5 steps
+     of 16 x 512 tokens from ``lm_loader(seed=0)``, random weights from a
+     seed): finite losses, and exactly 2 x 6 K1 (forward and remat
+     recompute) and 6 K2 launches per step and nothing else; then
+     ``torch.profiler`` over two steps: device time by kernel and busy
+     share;
+  8. the same trainer in fp32 at full width and 2 layers, once on the
+     kernels and once on the plain PyTorch path, 3 steps: the losses
+     agree, and every wq/wk/wv gradient of the first step is non-zero
+     and agrees with the plain path's;
+  9. per kernel, its time with CUDA events beside its plain version's and
+     its bound, as one ``{"kernels": [...]}`` line (``launches`` is the
+     count over the main-path runs of phases 5 and 7), and K1's time at
+     the training shape;
+  10. the last line: ``{"ok": true, "device": {...}}``.
 
 Tolerances (|kernel - plain| <= atol + rtol * |plain|, elementwise):
 fp32 outputs and every fp32 state piece rtol 1e-4, atol 1e-4 -- both sides
 sum the same fp32 terms in another order, no TF32 anywhere; bf16 outputs
 rtol 1e-2, atol 1e-2 -- both compute in fp32 from the same bf16 inputs and
-round once to bf16, whose spacing is 2^-7 relative.
+round once to bf16, whose spacing is 2^-7 relative.  K2's gradients are
+held to the same two tolerances.  fp32 training, kernels vs plain: losses
+rtol 1e-4, and each attention weight's gradient within 1e-4 of that
+leaf's max |grad| -- the same fp32 sums in another order, carried
+through the residual stream and three Adam steps.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -176,6 +198,52 @@ def check_flow_fused() -> dict:
                             getattr(ref_st, name), STATE_TOL)
                     for name in STATE_FIELDS)
         print(f"[K1] {tag}: out {e:.3e}, state {worst:.3e}", flush=True)
+    return {"max_abs_err": errs[torch.bfloat16]}
+
+
+def k2_case(dtype, bh, g, n, d, chunk, n_valid, phi, seed, state_cot):
+    """Inputs of one K2 check: q, k, v, g_out on the card, K1's totals,
+    and the six state cotangents (random, or zeros as in training)."""
+    from repro_torch.kernels.flow_fused import flow_fused_call
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    mk = lambda *s: torch.randn(s, generator=gen, device=DEVICE).to(dtype)  # noqa: E731
+    q, k, v, g_out = mk(bh, g, n, d), mk(bh, n, d), mk(bh, n, d), mk(bh, g, n, d)
+    lens = torch.full((bh,), n_valid, dtype=torch.int32, device=DEVICE)
+    with torch.no_grad():
+        _, totals = flow_fused_call(q, k, v, lens, chunk=chunk, phi=phi)
+    g_sums = [torch.randn(x.shape, generator=gen, device=DEVICE) if state_cot
+              else torch.zeros_like(x) for x in totals]
+    return (q, k, v, lens, totals, g_out, g_sums), dict(chunk=chunk, phi=phi)
+
+
+def check_flow_fused_bwd() -> dict:
+    """Phase 3b: K2 against its plain version (autograd through K1's);
+    returns the main-path (bf16) gradients' max |error|."""
+    from repro_torch.kernels.flow_fused import (flow_fused_bwd_call,
+                                                flow_fused_bwd_ref)
+
+    cases = [(dtype, (16 * 8, 1, 512, 64, 128, 512, "sigmoid", False))
+             for dtype in (torch.bfloat16, torch.float32)]
+    cases += [(torch.float32, (4 * 8, 2, 256, 64, 64, 200, phi, True))
+              for phi in ("sigmoid", "elu1", "relu")]
+    errs = {}
+    for i, (dtype, (bh, g, n, d, chunk, n_valid, phi, cot)) in enumerate(cases):
+        args, kw = k2_case(dtype, bh, g, n, d, chunk, n_valid, phi,
+                           SEED + 10 + i, cot)
+        with torch.no_grad():
+            got = flow_fused_bwd_call(*args, **kw)
+        want = flow_fused_bwd_ref(*args[:4], *args[5:], **kw)
+        torch.cuda.synchronize()
+        tag = (f"flow_fused_bwd {str(dtype)[6:]} BH={bh} G={g} N={n} "
+               f"valid={n_valid} {phi}")
+        err = max(max_err(f"{tag} {name}", a, b, TOL[dtype])
+                  for name, a, b in zip(("dq", "dk", "dv"), got, want))
+        for name, a in zip(("dq", "dk", "dv"), got):
+            if a[..., n_valid:, :].any():
+                raise AssertionError(f"{tag} {name}: non-zero past n_valid")
+        errs[dtype] = max(errs.get(dtype, 0.0), err)
+        print(f"[K2] {tag}: grads {err:.3e}", flush=True)
     return {"max_abs_err": errs[torch.bfloat16]}
 
 
@@ -372,9 +440,9 @@ def serve_fp32_both_paths(params, cfg):
             engine.submit(r)
         reset_launches()
         runs[backend] = {r.uid: r for r in engine.run()}
-        counts = sorted(LAUNCHES.values())
-        if (backend == "auto" and counts[0] == 0) or (
-                backend == "plain" and counts[-1] > 0):
+        serving = [LAUNCHES["flow_fused"], LAUNCHES["flow_decode"]]
+        if (backend == "auto" and min(serving) == 0) or (
+                backend == "plain" and max(LAUNCHES.values()) > 0):
             raise AssertionError(f"backend={backend}: launches {LAUNCHES}")
     for uid, r in runs["plain"].items():
         got = runs["auto"][uid].generated
@@ -396,6 +464,129 @@ def serve_fp32_both_paths(params, cfg):
     n_tok = sum(len(r.generated) for r in runs["plain"].values())
     print(f"[fp32] kernels and plain path agree on all {n_tok} greedy "
           f"tokens of {len(runs['plain'])} requests", flush=True)
+
+
+def train_full_width(cfg) -> dict:
+    """Phase 7: the trainer at full width in bf16; launch counts and rates."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.train import train
+
+    steps, batch, seq = 5, 16, 512
+    torch.cuda.synchronize()
+    reset_launches()
+    out = train(cfg, steps=steps, batch=batch, seq=seq, seed=SEED,
+                device=DEVICE)
+    launches = dict(LAUNCHES)
+    hist = out["history"]
+    if len(hist) != steps or not all(math.isfinite(x) for x in hist):
+        raise AssertionError(f"training losses {hist}")
+    n = cfg.n_layers * steps
+    want = {"flow_fused": 2 * n, "flow_fused_bwd": n, "flow_decode": 0}
+    if launches != want:
+        raise AssertionError(f"training launched {launches}, want {want}")
+    step_ms = 1e3 * statistics.median(out["step_s"][1:])
+    stats = {"steps": steps, "batch": batch, "seq": seq,
+             "first_step_ms": 1e3 * out["step_s"][0], "step_ms": step_ms,
+             "tokens_per_s": batch * seq / step_ms * 1e3,
+             "history": hist, "launches": launches}
+    print("[train bf16] " + json.dumps(stats), flush=True)
+    return stats
+
+
+def profile_train(cfg, step_ms: float) -> dict:
+    """Phase 7b: device time of a full-width bf16 training step by kernel,
+    from ``torch.profiler`` over two steps (the weights are on the card
+    before the window opens), and its share of phase 7's unprofiled step
+    time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.train import train
+    from repro_torch.models import lm
+
+    steps = 2
+    params = lm.init(cfg, torch.Generator().manual_seed(SEED + 1),
+                     device=DEVICE)  # uploaded before the window opens
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        train(cfg, steps=steps, batch=16, seq=512, seed=SEED + 1,
+              device=DEVICE, params=params)
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dev_us = lambda e: getattr(e, "self_device_time_total",  # noqa: E731
+                               getattr(e, "self_cuda_time_total", 0.0))
+    busy = sum(dev_us(e) for e in dev) / 1e3 / steps
+    by_name = lambda key: sum(dev_us(e) for e in dev  # noqa: E731
+                              if key in e.key) / 1e3 / steps
+    stats = {"steps": steps, "device_ms_per_step": busy,
+             "kernels_per_step": sum(e.count for e in dev) / steps,
+             "step_ms_unprofiled": step_ms, "device_busy_share": busy / step_ms,
+             "k1_ms_per_step": by_name("flow_fused_fwd_kernel"),
+             "k2_ms_per_step": by_name("flow_fused_bwd_kernel"),
+             "device_ms_per_step_by_kernel": {
+                 e.key[:80]: dev_us(e) / 1e3 / steps
+                 for e in sorted(dev, key=dev_us, reverse=True)[:8]}}
+    print("[profile train] " + json.dumps(stats), flush=True)
+    return stats
+
+
+def train_fp32_both_paths(cfg):
+    """Phase 8: fp32 training at full width and 2 layers, kernels vs the
+    plain PyTorch path: per-step losses, and the first step's attention
+    gradients (non-zero on the kernels: K2 reached wq/wk/wv)."""
+    from repro_torch.data.loader import lm_loader
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.train import train
+    from repro_torch.layers.attention import executor_of, plan_of
+    from repro_torch.models import lm
+    from repro_torch.utils import tree_map
+
+    cfg = dataclasses.replace(cfg, n_layers=2)
+    steps, batch, seq = 3, 16, 512
+    params = lm.init(cfg, torch.Generator().manual_seed(SEED + 2),
+                     device=DEVICE)
+    first = {k: torch.from_numpy(v).to(DEVICE) for k, v in
+             next(lm_loader(SEED, batch=batch, seq=seq,
+                            vocab=cfg.vocab_size)).items()}
+    hist, grads = {}, {}
+    for backend in ("auto", "plain"):
+        c = dataclasses.replace(cfg, attention=dataclasses.replace(
+            cfg.attention, backend=backend))
+        leaves = tree_map(lambda x: x.detach().clone().requires_grad_(True),
+                          params)
+        loss, _ = lm.loss_fn(leaves, first, c, dtype=torch.float32,
+                             plan=executor_of(c, plan_of(c, needs_grad=True)))
+        loss.backward()
+        grads[backend] = {f"layer {i} {w}": blk["attn"][w]["w"].grad
+                          for i, blk in enumerate(leaves["blocks"])
+                          for w in ("wq", "wk", "wv")}
+        torch.cuda.synchronize()
+        reset_launches()
+        hist[backend] = train(c, steps=steps, batch=batch, seq=seq,
+                              seed=SEED, device=DEVICE, dtype=torch.float32,
+                              params=params)["history"]
+        n = cfg.n_layers * steps
+        want = ({"flow_fused": 2 * n, "flow_fused_bwd": n, "flow_decode": 0}
+                if backend == "auto" else
+                {"flow_fused": 0, "flow_fused_bwd": 0, "flow_decode": 0})
+        if dict(LAUNCHES) != want:
+            raise AssertionError(f"backend={backend}: launches {LAUNCHES}, "
+                                 f"want {want}")
+    for i, (a, b) in enumerate(zip(hist["auto"], hist["plain"])):
+        if not abs(a - b) <= 1e-4 * abs(b):
+            raise AssertionError(f"fp32 step {i} loss: kernels {a}, plain {b}")
+    worst = 0.0
+    for name, g in grads["auto"].items():
+        ref = grads["plain"][name]
+        scale, err = float(ref.abs().max()), float((g - ref).abs().max())
+        if not float(g.abs().max()) > 0 or not err <= 1e-4 * scale:
+            raise AssertionError(f"fp32 step 1 {name} grad: |diff| {err:.3e}, "
+                                 f"max |plain| {scale:.3e}, max |kernels| "
+                                 f"{float(g.abs().max()):.3e}")
+        worst = max(worst, err / scale)
+    print(f"[train fp32] kernels vs plain, 2 layers x {steps} steps: losses "
+          f"{hist['auto']} vs {hist['plain']}; wq/wk/wv grads of step 1 "
+          f"non-zero, worst |diff| / max |grad| {worst:.3e}", flush=True)
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -447,6 +638,16 @@ def flow_ops_per_position(g: int, d: int, dv: int) -> int:
     return 2 * (g + 1) * d * dv + 7 * (g + 1) * d
 
 
+def bwd_ops_per_position(g: int, d: int, dv: int) -> int:
+    """fp32 operations of K2 for one position of one (row, kv head), in
+    the same recurrent form: the recompute (``flow_ops_per_position``)
+    plus the pull-back -- 2 G D Dv each for dY S^T and q_in^T dY, 2 D Dv
+    each for dS^T k and dS (v e), and 2 D Dv for rebuilding S's carry-in:
+    6 (G+1) D Dv in all -- plus 14 (G+1) D for pulling back the four flow
+    sums and four flow dot products, and 3 G Dv for g_out . Y and dY."""
+    return 6 * (g + 1) * d * dv + 21 * (g + 1) * d + 3 * g * dv
+
+
 def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
     t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / FP32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
@@ -454,14 +655,46 @@ def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
 
 
 def time_kernels(launches: dict, errs: dict) -> list:
-    """Phase 7: time each kernel and its plain version at the serving
-    path's shapes (bf16 activations, 16 slots x 8 kv heads, D = 64)."""
+    """Phase 9: time each kernel and its plain version at its main path's
+    shapes (bf16 activations, 16 rows or slots x 8 kv heads, D = 64): K1
+    and K3 at the serving path's, K2 at the training path's; and K1 at
+    the training shape too."""
     from repro_torch.attention.recurrent import decode_step
     from repro_torch.core.flow_attention import FlowConfig
     from repro_torch.kernels.flow_decode import flow_decode_call
-    from repro_torch.kernels.flow_fused import flow_fused_call, flow_fused_ref
+    from repro_torch.kernels.flow_fused import (flow_fused_bwd_call,
+                                                flow_fused_bwd_ref,
+                                                flow_fused_call, flow_fused_ref)
 
     rows = []
+    # K2: one layer's attention backward of the training step
+    (q, k, v, lens, totals, g_out, g_sums), kw = k2_case(
+        torch.bfloat16, 16 * 8, 1, 512, 64, 128, 512, "sigmoid", SEED + 20,
+        False)
+    bh, g, n, d = q.shape
+    st_bytes = bh * (4 * d + 1 + d * d) * 4
+    b_k2 = (bh * n * (g * d + 2 * d + g * d) * 2 + bh * n * (g * d + 2 * d) * 2
+            + 2 * st_bytes + bh * 4)
+    bound_ms, by = bound(b_k2, bh * n * bwd_ops_per_position(g, d, d))
+    with torch.no_grad():
+        k2_ms = time_ms(lambda: flow_fused_bwd_call(q, k, v, lens, totals,
+                                                    g_out, g_sums, **kw))
+        k1_train_ms = time_ms(lambda: flow_fused_call(q, k, v, lens,
+                                                      chunk=128))
+    b_k1 = bh * n * (g * d + 2 * d) * 2 * 2 + st_bytes + bh * 4
+    k1_bound, k1_by = bound(b_k1, bh * n * flow_ops_per_position(g, d, d))
+    print(f"[K1 training shape] 16 rows x 8 heads, N = 512 all valid, bf16: "
+          f"{k1_train_ms:.4f} ms, bound {k1_bound:.5f} ms ({k1_by})",
+          flush=True)
+    k2_row = {
+        "name": "flow_fused_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/flow_fused_bwd.cu",
+        "replaces": "src/repro/kernels/flow_fused/bwd.py:178",
+        "launches": launches["flow_fused_bwd"],
+        "max_abs_err": errs["flow_fused_bwd"], "ms": k2_ms,
+        "plain_ms": time_ms(lambda: flow_fused_bwd_ref(
+            q, k, v, lens, g_out, g_sums, **kw)),
+        "bound_ms": bound_ms, "bound_by": by, "library_ms": None}
     with torch.inference_mode():
         # K1: one packed admission of 16 prompts padded to N = 512
         q, k, v, lens = k1_inputs(torch.bfloat16)
@@ -504,6 +737,7 @@ def time_kernels(launches: dict, errs: dict) -> list:
             "ms": time_ms(lambda: flow_decode_call(*args, hkv=hkv)),
             "plain_ms": time_ms(lambda: decode_step(pool, tq, tk, tv, cfg)),
             "bound_ms": bound_ms, "bound_by": by, "library_ms": None})
+    rows.insert(1, k2_row)
     return rows
 
 
@@ -512,6 +746,7 @@ def main() -> int:
     smi = card()
     build_kernels()
     errs = {"flow_fused": check_flow_fused()["max_abs_err"],
+            "flow_fused_bwd": check_flow_fused_bwd()["max_abs_err"],
             "flow_decode": check_flow_decode()["max_abs_err"]}
 
     from repro_torch.configs import get_config
@@ -522,7 +757,13 @@ def main() -> int:
     stats = serve_full_width(params, cfg)
     profile_decode(params, cfg, 1e3 * stats["decode_s"] / stats["decode_steps"])
     serve_fp32_both_paths(params, cfg)
-    rows = time_kernels(stats["launches"], errs)
+    del params
+    trained = train_full_width(cfg)
+    profile_train(cfg, trained["step_ms"])
+    train_fp32_both_paths(cfg)
+    launches = {name: stats["launches"][name] + trained["launches"][name]
+                for name in stats["launches"]}
+    rows = time_kernels(launches, errs)
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,11 +14,15 @@ Layout (each module mirrors its counterpart in ``repro``):
 
     config.py, configs/     ModelConfig and the flowformer_lm configs
     core/                   FlowConfig, phi maps, GQA grouping
-    attention/              FlowState, plain strategies, backend registry
-    kernels/flow_fused/     K1: strict-causal flow attention (prefill)
+    attention/              FlowState, plain strategies, backend registry,
+                            FlowFusedDot (autograd over K1 and K2)
+    kernels/flow_fused/     K1: strict-causal flow attention; K2: its
+                            backward (bwd.py)
     kernels/flow_decode/    K3: one batched decode step, in place
-    csrc/                   the CUDA sources of K1 and K3
-    layers/, models/lm.py   the decoder-only LM
+    csrc/                   the CUDA sources of K1, K2 and K3
+    layers/, models/lm.py   the decoder-only LM and its loss
     serving/                Scheduler, Worker and Engine
+    training/, data/        AdamW, schedules, the train step; lm_loader
+    launch/train.py         the training entry point
     interop.py              JAX param trees (as numpy) -> torch params
 """

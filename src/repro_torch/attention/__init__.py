@@ -15,7 +15,9 @@ the bound executor, never naming an execution path::
 takes, and to their plain PyTorch versions on the CPU (``fused_causal``,
 ``recurrent``); ``"plain"`` keeps to the plain versions on any device; a
 registered name pins one.  ``explain(plan, shapes, platform=)`` names
-each backend's verdict and reason.
+each backend's verdict and reason.  ``ExecutionPlan(needs_grad=True)``
+(or ``resolve_for_training``) admits only backends that differentiate the
+op: on a GPU the forward then runs K1 and its backward K2.
 """
 from repro_torch.attention.plan import (
     BoundExecutor,
@@ -23,6 +25,7 @@ from repro_torch.attention.plan import (
     PlanExplanation,
 )
 from repro_torch.attention.plan import explain_plan as explain
+from repro_torch.attention.plan import resolve_for_training
 from repro_torch.attention.plan import resolve_plan as resolve
 from repro_torch.attention.recurrent import FlowState, init_state
 from repro_torch.attention.registry import (
@@ -47,4 +50,5 @@ __all__ = [
     "init_state",
     "register_backend",
     "resolve",
+    "resolve_for_training",
 ]

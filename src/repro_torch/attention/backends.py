@@ -12,6 +12,13 @@ apply only when pinned (``backend="plain"`` or by name).  So ``auto``
 resolves to the kernels on a GPU, and a shape no kernel takes raises
 there with the kernel's own reason instead of running the plain version
 unseen.
+
+Gradient capability mirrors the reference's ``differentiable`` sets: the
+plain versions are differentiated by autograd; ``cuda_fused``
+differentiates forward and prefill through ``attention/vjp.py::
+FlowFusedDot`` (K1 forward, K2 backward) but not packed prefill, which is
+forward-only serving as in the reference; ``cuda_decode`` updates the
+pool in place and differentiates nothing.
 """
 from __future__ import annotations
 
@@ -65,6 +72,7 @@ class FusedCausal(Backend):
     chunked scan whose carry is the decode ``FlowState`` (plain PyTorch)."""
 
     provides = frozenset({"forward", "prefill", "prefill_packed"})
+    differentiable = frozenset({"forward", "prefill", "prefill_packed"})
 
     def supports(self, cfg, shapes, platform, *, op="forward"):
         why = (_check_scan(cfg, shapes, op)
@@ -87,7 +95,10 @@ class CudaFused(FusedCausal):
     """The whole strict-causal pipeline in the flow_fused CUDA kernel: one
     CTA per (row, kv head) with the FlowState in shared memory; packed
     prefill masks each row past its length so the final carry is the
-    boundary FlowState."""
+    boundary FlowState.  Forward and prefill differentiate through the
+    reverse-scan backward kernel K2."""
+
+    differentiable = frozenset({"forward", "prefill"})
 
     def supports(self, cfg, shapes, platform, *, op="forward"):
         why = _check_scan(cfg, shapes, op) or _check_kernel(shapes, platform)
@@ -114,6 +125,7 @@ class Recurrent(Backend):
     new state."""
 
     provides = frozenset({"decode"})
+    differentiable = frozenset({"forward", "prefill", "decode"})
 
     def supports(self, cfg, shapes, platform, *, op="forward"):
         why = (_check_decode(cfg, shapes, op)
@@ -130,6 +142,8 @@ class Recurrent(Backend):
 class CudaDecode(Recurrent):
     """One flow_decode CUDA launch advances the whole (slots, Hkv) state
     pool in place: the serving hot loop."""
+
+    differentiable = frozenset()
 
     def supports(self, cfg, shapes, platform, *, op="forward"):
         why = (_check_decode(cfg, shapes, op)

@@ -1,13 +1,14 @@
 """ExecutionPlan: the execution context bound once, not threaded per call.
 
 The counterpart of ``repro/attention/plan.py``, reduced to this slice:
-``flow`` (the ``FlowConfig``) and ``packed`` (the plan serves
-right-padded multi-prompt prefill).  The platform is the device of the
-tensors each op is given.  ``resolve(plan)`` returns a ``BoundExecutor``
-whose ops resolve through the registry once per call signature (op,
-shapes, device) and reuse that backend afterwards; ``explain(plan,
-shapes, platform=)`` reports every backend's verdict per op with its
-reason.
+``flow`` (the ``FlowConfig``), ``packed`` (the plan serves right-padded
+multi-prompt prefill) and ``needs_grad`` (a training step will
+differentiate through every op, so only differentiable backends apply).
+The platform is the device of the tensors each op is given.
+``resolve(plan)`` returns a ``BoundExecutor`` whose ops resolve through
+the registry once per call signature (op, shapes, device) and reuse that
+backend afterwards; ``explain(plan, shapes, platform=)`` reports every
+backend's verdict per op with its reason.
 """
 from __future__ import annotations
 
@@ -32,12 +33,15 @@ class ExecutionPlan:
 
     flow: FlowConfig | None = None
     packed: bool = False
+    needs_grad: bool = False
 
     def describe(self) -> str:
         """One-line summary of the plan's non-default fields."""
         bits = [f"backend={self.flow.backend!r}" if self.flow else "flow=?"]
         if self.packed:
             bits.append("packed")
+        if self.needs_grad:
+            bits.append("needs_grad")
         return "ExecutionPlan(" + ", ".join(bits) + ")"
 
 
@@ -60,7 +64,8 @@ class BoundExecutor:
 
     def backend(self, op: str, shapes: ShapeInfo, platform: str) -> Backend:
         """Resolve and return the backend the plan binds for ``op``."""
-        return registry.resolve(self._cfgs[op], shapes, platform, op=op)
+        return registry.resolve(self._cfgs[op], shapes, platform, op=op,
+                                needs_grad=self.plan.needs_grad)
 
     def _bind(self, op, q, k, v):
         key = (op, q.shape, k.shape, v.shape, q.device.type)
@@ -96,6 +101,15 @@ def resolve_plan(plan: ExecutionPlan) -> BoundExecutor:
     return BoundExecutor(plan)
 
 
+def resolve_for_training(plan: ExecutionPlan, shapes: ShapeInfo,
+                         platform: str) -> Backend:
+    """The forward backend autograd will differentiate, ``needs_grad``
+    forced on: a training step calls this when it is built, so a
+    forward-only pin raises there with every backend's reason."""
+    plan = dataclasses.replace(plan, needs_grad=True)
+    return BoundExecutor(plan).backend("forward", shapes, platform)
+
+
 @dataclasses.dataclass(frozen=True)
 class PlanExplanation:
     """Per-op resolution triage: ``sections`` is
@@ -129,6 +143,7 @@ def explain_plan(plan: ExecutionPlan, shapes: ShapeInfo, *, platform: str,
         ops = [op]
     sections = tuple(
         (one, tuple(registry.explain(_op_cfg(plan.flow, one), shapes,
-                                     platform, op=one)))
+                                     platform, op=one,
+                                     needs_grad=plan.needs_grad)))
         for one in ops)
     return PlanExplanation(plan=plan, platform=platform, sections=sections)

@@ -14,6 +14,10 @@ turns ``FlowConfig.backend`` into a backend deterministically:
   does not provide at all (decode for a prefill strategy) falls back to
   auto order, so pinning a prefill strategy never breaks serving.
 
+``needs_grad=True`` also asks the backend to declare the op
+differentiable (``Backend.differentiable``), so a training step built on a
+forward-only kernel fails at build time with that backend's reason.
+
 A failed resolution raises ``ResolutionError`` carrying every candidate's
 rejection reason in the message and as structured ``.rejections``.
 """
@@ -57,11 +61,23 @@ class Backend:
     name: str = "?"
     #: subset of {"forward", "prefill", "prefill_packed", "decode"}
     provides: frozenset = frozenset({"forward"})
+    #: subset of ``provides`` that autograd differentiates: plain PyTorch
+    #: code or a ``torch.autograd.Function`` whose backward is a kernel.
+    #: Forward-only kernels leave it empty; ``resolve(..., needs_grad=True)``
+    #: skips them.
+    differentiable: frozenset = frozenset()
 
     def supports(self, cfg: FlowConfig, shapes: ShapeInfo, platform: str,
                  *, op: str = "forward"):
         """Return (applicable: bool, reason: str)."""
         raise NotImplementedError
+
+    def grad_support(self, op: str = "forward"):
+        """(ok, reason): whether autograd flows through ``op``."""
+        if op in self.differentiable:
+            return True, f"differentiable {op}"
+        return False, (f"no backward for {op} (forward-only; differentiable "
+                       f"ops: {sorted(self.differentiable) or 'none'})")
 
     def forward(self, q, k, v, cfg: FlowConfig):
         """Full-sequence Flow-Attention -> (B, Hq, N, Dv)."""
@@ -115,30 +131,38 @@ def _candidates(cfg: FlowConfig, op: str) -> list:
 
 
 def _judge(be: Backend, cfg: FlowConfig, shapes: ShapeInfo, platform: str,
-           op: str):
+           op: str, needs_grad: bool):
     if op not in be.provides:
         return False, f"does not provide {op}"
+    if needs_grad:
+        ok, why = be.grad_support(op)
+        if not ok:
+            return False, why
     return be.supports(cfg, shapes, platform, op=op)
 
 
 def resolve(cfg: FlowConfig, shapes: ShapeInfo, platform: str, *,
-            op: str = "forward") -> Backend:
-    """Deterministically pick the backend that runs ``op``."""
+            op: str = "forward", needs_grad: bool = False) -> Backend:
+    """Deterministically pick the backend that runs ``op``; with
+    ``needs_grad`` only a backend that differentiates ``op``."""
     rejections = []
     for name in _candidates(cfg, op):
-        ok, why = _judge(_REGISTRY[name], cfg, shapes, platform, op)
+        ok, why = _judge(_REGISTRY[name], cfg, shapes, platform, op,
+                         needs_grad)
         if ok:
             return _REGISTRY[name]
         rejections.append((name, why))
     raise ResolutionError(
-        f"no applicable Flow-Attention backend for op={op!r} on "
-        f"platform={platform!r} with {shapes}:\n  "
+        f"no applicable Flow-Attention backend for op={op!r}"
+        + (" with gradients" if needs_grad else "")
+        + f" on platform={platform!r} with {shapes}:\n  "
         + "\n  ".join(f"{n}: {w}" for n, w in rejections), rejections)
 
 
 def explain(cfg: FlowConfig, shapes: ShapeInfo, platform: str, *,
-            op: str = "forward") -> list:
+            op: str = "forward", needs_grad: bool = False) -> list:
     """``[(name, applicable, reason)]`` for every registered backend."""
     _candidates(cfg, op)  # rejects an unknown backend name
-    return [(name, *_judge(_REGISTRY[name], cfg, shapes, platform, op))
+    return [(name, *_judge(_REGISTRY[name], cfg, shapes, platform, op,
+                           needs_grad))
             for name in _ORDER]

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig
-from repro_torch.models.lm import tree_map
+from repro_torch.utils import tree_map
 
 
 def _blocks_of(tree: dict, cfg: ModelConfig) -> list:

@@ -1,5 +1,9 @@
-"""K1: strict-causal Flow-Attention forward (packed prefill) on Hopper."""
+"""K1 (strict-causal Flow-Attention forward) and K2 (its backward) on Hopper."""
+from repro_torch.kernels.flow_fused.bwd import flow_fused_bwd_call
 from repro_torch.kernels.flow_fused.ops import flow_fused_call, flow_fused_forward
-from repro_torch.kernels.flow_fused.ref import flow_fused_ref
+from repro_torch.kernels.flow_fused.ref import (flow_fused_bwd_ref,
+                                                flow_fused_bwd_scan,
+                                                flow_fused_ref)
 
-__all__ = ["flow_fused_call", "flow_fused_forward", "flow_fused_ref"]
+__all__ = ["flow_fused_bwd_call", "flow_fused_bwd_ref", "flow_fused_bwd_scan",
+           "flow_fused_call", "flow_fused_forward", "flow_fused_ref"]

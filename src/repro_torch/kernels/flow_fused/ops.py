@@ -5,6 +5,13 @@
 reassembles the output and the boundary ``FlowState`` around it, as
 ``repro/kernels/flow_fused/ops.py`` does around the TPU kernel.  CPU
 tensors run the plain version (``ref.py``); CUDA tensors launch the kernel.
+
+The dense path (``lengths=None``) goes through ``attention/vjp.py::
+FlowFusedDot``, whose backward is the K2 kernel (``bwd.py``).  The packed
+path (per-row ``lengths``) is forward-only serving prefill, as in the
+reference.  The kernel's output records no autograd history, so the CUDA
+path refuses inputs that autograd would differentiate rather than cut the
+gradient silently.
 """
 from __future__ import annotations
 
@@ -25,23 +32,13 @@ _ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_float,
                                                             ctypes.c_void_p]
 
 
-def flow_fused_call(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    lens: torch.Tensor, *, chunk: int = 128, eps: float = 1e-6,
-                    phi: str = "sigmoid", use_alloc: bool = True):
-    """Fused strict-causal Flow-Attention over a chunk-padded flat batch.
-
-    q: (BH, G, N, D); k: (BH, N, D); v: (BH, N, Dv); lens: (BH,) int32
-    with 1 <= lens <= N; N % chunk == 0.  Returns (out (BH, G, N, Dv),
-    (q_sum, k_sum, ko_sum, qi_sum) each (BH, D) fp32, z (BH,) fp32,
-    s (BH, D, Dv) fp32).
-    """
+def check_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               lens: torch.Tensor, phi: str):
+    """Raise unless (q, k, v, lens) are what the flow_fused kernels take:
+    one CUDA device, contiguous, fp32 or bf16 alike, flat shapes, D == Dv
+    in ``HEAD_DIMS``.  Returns (BH, G, N, D)."""
     bh, g, n, d = q.shape
     dv = v.shape[-1]
-    if n % chunk:
-        raise ValueError(f"N={n} is not a multiple of chunk={chunk}")
-    if q.device.type == "cpu":
-        return flow_fused_ref(q, k, v, lens, chunk=chunk, eps=eps, phi=phi,
-                              use_alloc=use_alloc)
     if q.device.type != "cuda":
         raise ValueError(f"flow_fused runs on cuda or cpu, not {q.device}")
     for name, x in (("k", k), ("v", v), ("lens", lens)):
@@ -62,6 +59,39 @@ def flow_fused_call(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"kernel takes D == Dv in {HEAD_DIMS}, got {d}/{dv}")
     if phi not in PHI_CODES:
         raise ValueError(f"unknown phi {phi!r}")
+    return bh, g, n, d
+
+
+def refuse_autograd(*xs: torch.Tensor, why: str):
+    """Raise where autograd would record the call: grad mode on and an
+    input that requires grad.  Inside ``FlowFusedDot`` (an
+    ``autograd.Function``) grad mode is off."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
+        raise RuntimeError(f"{why}; differentiate through "
+                           "flow_fused_forward without lengths (FlowFusedDot, "
+                           "backward kernel K2)")
+
+
+def flow_fused_call(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    lens: torch.Tensor, *, chunk: int = 128, eps: float = 1e-6,
+                    phi: str = "sigmoid", use_alloc: bool = True):
+    """Fused strict-causal Flow-Attention over a chunk-padded flat batch.
+
+    q: (BH, G, N, D); k: (BH, N, D); v: (BH, N, Dv); lens: (BH,) int32
+    with 1 <= lens <= N; N % chunk == 0.  Returns (out (BH, G, N, Dv),
+    (q_sum, k_sum, ko_sum, qi_sum) each (BH, D) fp32, z (BH,) fp32,
+    s (BH, D, Dv) fp32).  On CUDA it raises for inputs autograd would
+    differentiate (``refuse_autograd``).
+    """
+    if q.shape[2] % chunk:
+        raise ValueError(f"N={q.shape[2]} is not a multiple of chunk={chunk}")
+    if q.device.type == "cpu":
+        return flow_fused_ref(q, k, v, lens, chunk=chunk, eps=eps, phi=phi,
+                              use_alloc=use_alloc)
+    bh, g, n, d = check_flat(q, k, v, lens, phi)
+    dv = d
+    refuse_autograd(q, k, v, why="the flow_fused kernel's output has no "
+                    "autograd graph")
 
     f32 = dict(dtype=torch.float32, device=q.device)
     out = torch.empty((bh, g, n, dv), dtype=q.dtype, device=q.device)
@@ -87,8 +117,9 @@ def flow_fused_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q: (B, Hq, N, D); k/v: (B, Hkv, N, D/Dv), Hq divisible by Hkv (shared
     GQA).  ``lengths`` (B,) gives each row's valid length for packed
-    prefill.  Returns ``(out, state)``; ``state`` is the boundary
-    ``FlowState`` when ``return_state`` else None.
+    prefill; that path is forward-only and raises for inputs autograd
+    would differentiate.  Returns ``(out, state)``; ``state`` is the
+    boundary ``FlowState`` when ``return_state`` else None.
     """
     b, hq, n, d = q.shape
     hkv = k.shape[1]
@@ -99,14 +130,20 @@ def flow_fused_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qf = pad_seq(_group(q, hkv).reshape(b * hkv, grp, n, d), n_pad, 2)
     kf = pad_seq(k.reshape(b * hkv, n, d), n_pad, 1)
     vf = pad_seq(v.reshape(b * hkv, n, dv), n_pad, 1)
+    qf, kf, vf = qf.contiguous(), kf.contiguous(), vf.contiguous()
     if lengths is None:
+        from repro_torch.attention.vjp import FlowFusedDot  # lazy: cycle
+
         t = torch.full((b,), n, dtype=torch.int32, device=q.device)
+        out, *sums = FlowFusedDot.apply(qf, kf, vf, n, c, cfg.eps, cfg.phi,
+                                        cfg.use_allocation)
     else:
+        refuse_autograd(q, k, v, why="packed prefill (lengths=) is "
+                        "forward-only serving, as in the reference")
         t = lengths.to(device=q.device, dtype=torch.int32).clamp(1, n)
-    lens = t.repeat_interleave(hkv)
-    out, sums = flow_fused_call(qf.contiguous(), kf.contiguous(),
-                                vf.contiguous(), lens, chunk=c, eps=cfg.eps,
-                                phi=cfg.phi, use_alloc=cfg.use_allocation)
+        out, sums = flow_fused_call(qf, kf, vf, t.repeat_interleave(hkv),
+                                    chunk=c, eps=cfg.eps, phi=cfg.phi,
+                                    use_alloc=cfg.use_allocation)
     out = _ungroup(out[:, :, :n].reshape(b, hkv, grp, n, dv))
     if not return_state:
         return out, None

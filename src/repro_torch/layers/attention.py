@@ -49,11 +49,12 @@ def flow_cfg_of(cfg: ModelConfig, causal: bool) -> FlowConfig:
     )
 
 
-def plan_of(cfg: ModelConfig, *, causal: bool = True,
-            packed: bool = False) -> ExecutionPlan:
+def plan_of(cfg: ModelConfig, *, causal: bool = True, packed: bool = False,
+            needs_grad: bool = False) -> ExecutionPlan:
     """Build the model-level ``ExecutionPlan`` once; ``flow`` comes from
-    ``cfg.attention``."""
-    return ExecutionPlan(flow=flow_cfg_of(cfg, causal), packed=packed)
+    ``cfg.attention``; ``needs_grad`` for a training step."""
+    return ExecutionPlan(flow=flow_cfg_of(cfg, causal), packed=packed,
+                         needs_grad=needs_grad)
 
 
 def executor_of(cfg: ModelConfig, plan: ExecutionPlan | None = None, *,

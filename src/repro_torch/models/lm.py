@@ -11,12 +11,18 @@ residual``, with the mixer resolved from ``cfg.block_kind`` through
 ``interop.params_from_numpy``).  Dense weights are stored (d_in, d_out).
 
 Entry points:
-  init / forward                      parameters and the full forward
+  init / forward / loss_fn            parameters, the full forward, the
+                                      next-token loss (training)
   init_caches / prefill / decode      serving on per-layer FlowStates
+
+With ``cfg.remat`` each block of a differentiated forward runs under
+``torch.utils.checkpoint`` (non-reentrant): its activations are recomputed
+in the backward, as the reference's ``jax.checkpoint`` per block does.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.layers.embeddings import embed, embedding_init, unembed
@@ -24,7 +30,7 @@ from repro_torch.layers.ffn import ffn, ffn_init
 from repro_torch.layers.mixer import get_mixer, resolve_mixers
 from repro_torch.layers.norms import apply_norm, norm_init
 from repro_torch.layers.rope import default_positions
-from repro_torch.utils import resolve_device
+from repro_torch.utils import resolve_device, tree_map
 
 
 def _require_supported(cfg: ModelConfig):
@@ -40,15 +46,6 @@ def _block_init(gen: torch.Generator, kind: str, cfg: ModelConfig) -> dict:
         p["norm2"] = norm_init(cfg.d_model, cfg.norm)
         p["ffn"] = ffn_init(gen, cfg.d_model, cfg.d_ff, cfg.act)
     return p
-
-
-def tree_map(fn, tree):
-    """Apply ``fn`` to every tensor of a nested dict/list parameter tree."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
 
 
 def init(cfg: ModelConfig, generator: torch.Generator, device="cuda") -> dict:
@@ -87,6 +84,13 @@ def _ffn_residual(bp, x, cfg: ModelConfig):
     return x
 
 
+def _block(mx, bp, x, cfg: ModelConfig, positions, plan):
+    h = apply_norm(bp["norm1"], x, cfg.norm)
+    x = x + mx.forward(bp[mx.params_field], h, cfg, positions=positions,
+                       plan=plan)
+    return _ffn_residual(bp, x, cfg)
+
+
 def forward(params, inputs: torch.Tensor, cfg: ModelConfig, *,
             positions=None, dtype=torch.bfloat16, plan=None):
     """inputs: int tokens (B, N).  Returns (logits (B, N, vocab) fp32,
@@ -96,14 +100,37 @@ def forward(params, inputs: torch.Tensor, cfg: ModelConfig, *,
     x = embed(params["embed"], inputs, dtype)
     if positions is None:
         positions = default_positions(b, n, device=inputs.device)
+    remat = cfg.remat and torch.is_grad_enabled()
     for mx, bp in zip(resolve_mixers(cfg), params["blocks"]):
-        h = apply_norm(bp["norm1"], x, cfg.norm)
-        x = x + mx.forward(bp[mx.params_field], h, cfg, positions=positions,
-                           plan=plan)
-        x = _ffn_residual(bp, x, cfg)
+        if remat:
+            x = checkpoint(_block, mx, bp, x, cfg, positions, plan,
+                           use_reentrant=False)
+        else:
+            x = _block(mx, bp, x, cfg, positions, plan)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     logits = unembed(_head(params, cfg), x, softcap=cfg.logit_softcap)
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def loss_fn(params, batch: dict, cfg: ModelConfig, *, dtype=torch.bfloat16,
+            plan=None):
+    """batch: {"inputs": (B, N) tokens, "targets": (B, N) int, "mask":
+    (B, N) optional}.  Returns (loss, metrics): the mean next-token
+    cross-entropy over the mask, plus the aux loss."""
+    logits, aux = forward(params, batch["inputs"], cfg, dtype=dtype,
+                          positions=batch.get("positions"), plan=plan)
+    targets = batch["targets"].long()
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones(targets.shape, dtype=torch.float32,
+                          device=targets.device)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
+    ce = (nll * mask).sum() / mask.sum().clamp(min=1.0)
+    loss = ce + aux
+    metrics = {"loss": loss, "ce": ce, "aux": aux,
+               "ppl": torch.exp(ce.clamp(max=20.0)), "tokens": mask.sum()}
+    return loss, metrics
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, *, plan=None,

@@ -1,7 +1,8 @@
-"""Small shared helpers: devices and parameter initializers.
+"""Small shared helpers: devices, parameter initializers, tree helpers.
 
 Initializers draw from an explicit CPU ``torch.Generator`` (never the
 global RNG), so the same seed gives the same weights on every device.
+Parameter trees are nested dicts and lists of tensors.
 """
 from __future__ import annotations
 
@@ -33,3 +34,30 @@ def lecun_normal(gen: torch.Generator, shape, in_axis: int = -2):
     """Normal with std 1/sqrt(fan_in), fan_in = ``shape[in_axis]``."""
     fan_in = shape[in_axis] if len(shape) >= 2 else shape[0]
     return torch.randn(shape, generator=gen) * (1.0 / math.sqrt(fan_in))
+
+
+def tree_map(fn, tree):
+    """Apply ``fn`` to every tensor of a nested dict/list parameter tree."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    """The tensors of a parameter tree, in ``tree_map``'s order."""
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+def tree_cast(tree, dtype):
+    """Cast every floating-point leaf to ``dtype``; others stay."""
+    return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x,
+                    tree)
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in fp32."""
+    return torch.sqrt(sum(x.float().square().sum() for x in tree_leaves(tree)))

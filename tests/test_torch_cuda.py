@@ -6,7 +6,8 @@ test here skips with that reason.  On a machine with one:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerance: |kernel - plain| <= 1e-4 + 1e-4 |plain| in fp32 (the same fp32
-terms summed in another order, no TF32 on either side).
+terms summed in another order, no TF32 on either side); training losses
+rtol 1e-4 and attention gradients within 1e-4 of each leaf's max |grad|.
 """
 import dataclasses
 
@@ -23,8 +24,15 @@ from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.core.flow_attention import FlowConfig  # noqa: E402
 from repro_torch.kernels import LAUNCHES, reset_launches  # noqa: E402
 from repro_torch.kernels.flow_decode import flow_decode_call, flow_decode_step  # noqa: E402
-from repro_torch.kernels.flow_fused import flow_fused_forward  # noqa: E402
+from repro_torch.kernels.flow_fused import (flow_fused_bwd_call,  # noqa: E402
+                                            flow_fused_bwd_ref,
+                                            flow_fused_call,
+                                            flow_fused_forward)
+from repro_torch.data.loader import lm_loader  # noqa: E402
+from repro_torch.launch.train import train  # noqa: E402
+from repro_torch.layers.attention import executor_of, plan_of  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
+from repro_torch.utils import tree_map  # noqa: E402
 from repro_torch.serving.engine import Engine, Request  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -114,7 +122,7 @@ def test_auto_raises_on_a_head_dim_no_kernel_takes(gen, d, dv):
     pool = attention.init_state(2, 2, d, dv, device="cuda")
     with pytest.raises(attention.ResolutionError, match="kernel takes"):
         ex.decode_step(pool, q[:, :, :1], q[:, :, :1], v[:, :, :1])
-    assert LAUNCHES == {"flow_fused": 0, "flow_decode": 0}
+    assert LAUNCHES == {"flow_fused": 0, "flow_fused_bwd": 0, "flow_decode": 0}
 
 
 def test_engine_kernels_match_plain_greedy(gen):
@@ -134,7 +142,78 @@ def test_engine_kernels_match_plain_greedy(gen):
         runs[backend] = {r.uid: r.generated for r in engine.run()}
         rounds, steps = (engine.worker.admission_rounds,
                          engine.worker.decode_steps)
-        want = ({"flow_fused": 2 * rounds, "flow_decode": 2 * steps}
-                if backend == "auto" else {"flow_fused": 0, "flow_decode": 0})
+        want = ({"flow_fused": 2 * rounds, "flow_fused_bwd": 0,
+                 "flow_decode": 2 * steps} if backend == "auto"
+                else {"flow_fused": 0, "flow_fused_bwd": 0, "flow_decode": 0})
         assert LAUNCHES == want
     assert runs["auto"] == runs["plain"]
+
+
+@pytest.mark.parametrize("phi,g,n,chunk,n_valid,d", [
+    ("sigmoid", 1, 40, 8, 37, 32), ("elu1", 2, 128, 64, 100, 64),
+    ("relu", 1, 384, 128, 300, 128), ("sigmoid", 4, 64, 16, 64, 64)])
+def test_flow_fused_bwd_kernel_matches_plain(gen, phi, g, n, chunk, n_valid,
+                                             d):
+    bh = 6
+    mk = lambda *s: torch.randn(s, generator=gen, device="cuda")  # noqa: E731
+    q, k, v, g_out = mk(bh, g, n, d), mk(bh, n, d), mk(bh, n, d), mk(bh, g, n, d)
+    lens = torch.full((bh,), n_valid, dtype=torch.int32, device="cuda")
+    _, totals = flow_fused_call(q, k, v, lens, chunk=chunk, phi=phi)
+    g_sums = [mk(*x.shape) for x in totals]
+    reset_launches()
+    got = flow_fused_bwd_call(q, k, v, lens, totals, g_out, g_sums,
+                              chunk=chunk, phi=phi)
+    assert LAUNCHES["flow_fused_bwd"] == 1
+    want = flow_fused_bwd_ref(q, k, v, lens, g_out, g_sums, chunk=chunk,
+                              phi=phi)
+    for a, b_ in zip(got, want):
+        torch.testing.assert_close(a, b_, **TOL)
+        assert not a[..., n_valid:, :].any()
+
+
+def test_flow_fused_call_refuses_autograd_outside_flow_fused_dot(gen):
+    q = torch.randn((2, 1, 16, 32), generator=gen, device="cuda",
+                    requires_grad=True)
+    k = torch.randn((2, 16, 32), generator=gen, device="cuda")
+    lens = torch.full((2,), 16, dtype=torch.int32, device="cuda")
+    with pytest.raises(RuntimeError, match="no autograd graph"):
+        flow_fused_call(q, k, k, lens, chunk=16)
+    with torch.no_grad():
+        flow_fused_call(q, k, k, lens, chunk=16)
+    cfg = FlowConfig(causal=True, strict_causal=True, chunk_size=16)
+    reset_launches()
+    out, _ = flow_fused_forward(q[:, None, 0], k[:, None], k[:, None], cfg)
+    out.sum().backward()
+    assert LAUNCHES["flow_fused"] == 1 and LAUNCHES["flow_fused_bwd"] == 1
+    assert q.grad.abs().sum() > 0
+
+
+def test_training_kernels_match_plain_fp32(gen):
+    cfg = get_smoke_config("flowformer_lm")
+    params = lm.init(cfg, torch.Generator().manual_seed(0), device="cuda")
+    batch = {k: torch.from_numpy(v).cuda() for k, v in
+             next(lm_loader(0, batch=2, seq=32, vocab=cfg.vocab_size)).items()}
+    hist, grads = {}, {}
+    for backend in ("auto", "plain"):
+        c = dataclasses.replace(cfg, attention=dataclasses.replace(
+            cfg.attention, backend=backend))
+        leaves = tree_map(lambda x: x.detach().clone().requires_grad_(True),
+                          params)
+        loss, _ = lm.loss_fn(leaves, batch, c, dtype=torch.float32,
+                             plan=executor_of(c, plan_of(c, needs_grad=True)))
+        loss.backward()
+        grads[backend] = [blk["attn"][w]["w"].grad for blk in leaves["blocks"]
+                          for w in ("wq", "wk", "wv")]
+        reset_launches()
+        hist[backend] = train(c, steps=3, batch=2, seq=32, dtype=torch.float32,
+                              params=params)["history"]
+        n = cfg.n_layers * 3
+        want = ({"flow_fused": 2 * n, "flow_fused_bwd": n, "flow_decode": 0}
+                if backend == "auto" else
+                {"flow_fused": 0, "flow_fused_bwd": 0, "flow_decode": 0})
+        assert LAUNCHES == want
+    np.testing.assert_allclose(hist["auto"], hist["plain"], rtol=1e-4)
+    for a, b_ in zip(grads["auto"], grads["plain"]):
+        scale = float(b_.abs().max())
+        assert scale > 0 and float(a.abs().max()) > 0
+        assert float((a - b_).abs().max()) <= 1e-4 * scale

@@ -2,9 +2,10 @@
 
 ``repro_torch`` and ``chip_smoke.py`` import ``torch``, ``numpy`` and the
 standard library only; importing the package builds no kernel; entry
-points refuse to run on the CPU unless asked; and the backend registry
+points refuse to run on the CPU unless asked; the backend registry
 resolves to the CUDA kernels on a CUDA platform, never to a plain version
-there unless pinned, and to the plain versions elsewhere.
+there unless pinned, and to the plain versions elsewhere; and a training
+plan (``needs_grad``) admits only backends that differentiate the op.
 """
 import ast
 import dataclasses
@@ -23,7 +24,8 @@ from repro_torch.attention import ExecutionPlan, FlowConfig, ShapeInfo  # noqa: 
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.kernels import LAUNCHES, reset_launches  # noqa: E402
 from repro_torch.kernels.flow_decode import flow_decode_step  # noqa: E402
-from repro_torch.kernels.flow_fused import flow_fused_call  # noqa: E402
+from repro_torch.kernels.flow_fused import flow_fused_call, flow_fused_forward  # noqa: E402
+from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.serving.engine import Engine, Request  # noqa: E402
 
@@ -77,6 +79,8 @@ def test_entry_points_refuse_cpu_unless_asked():
     params = lm.init(cfg, torch.Generator().manual_seed(0), device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Engine(params, cfg, slots=2, max_len=32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train(cfg, steps=1, batch=1, seq=8)
 
 
 def test_cpu_wrappers_run_the_plain_version_uncounted():
@@ -91,7 +95,7 @@ def test_cpu_wrappers_run_the_plain_version_uncounted():
                                  v[:, None, :1], FlowConfig(causal=True,
                                                             strict_causal=True))
     assert all(a is b for a, b in zip(same, pool)) and pool.t.tolist() == [1, 1]
-    assert LAUNCHES == {"flow_fused": 0, "flow_decode": 0}
+    assert LAUNCHES == {"flow_fused": 0, "flow_fused_bwd": 0, "flow_decode": 0}
 
 
 def test_cpu_serving_counts_no_launch():
@@ -105,7 +109,7 @@ def test_cpu_serving_counts_no_launch():
             0, cfg.vocab_size, 6 + uid).astype(np.int32), max_new_tokens=3))
     assert len(engine.run()) == 3
     assert engine.worker.decode_steps > 0
-    assert LAUNCHES == {"flow_fused": 0, "flow_decode": 0}
+    assert LAUNCHES == {"flow_fused": 0, "flow_fused_bwd": 0, "flow_decode": 0}
 
 
 SHAPES = {"prefill_packed": ShapeInfo(b=16, hq=8, hkv=8, n=512, m=512, d=64,
@@ -171,3 +175,46 @@ def test_executor_resolves_once_per_call_signature(monkeypatch):
                q.expand(2, 1, 8, 16), lengths=torch.tensor([8, 5]))
     ex.decode_step(state, q[:1], q[:1], q[:1])
     assert calls == ["decode", "prefill_packed", "decode"]
+
+
+TRAIN = ShapeInfo(b=16, hq=8, hkv=8, n=512, m=512, d=64, dv=64)
+
+
+@pytest.mark.parametrize("backend,platform,want", [
+    ("auto", "cuda", "cuda_fused"), ("auto", "cpu", "fused_causal"),
+    ("plain", "cuda", "fused_causal"), ("cuda_fused", "cuda", "cuda_fused")])
+def test_training_resolves_a_differentiable_forward(backend, platform, want):
+    plan = ExecutionPlan(flow=FlowConfig(causal=True, strict_causal=True,
+                                         backend=backend))
+    assert attention.resolve_for_training(plan, TRAIN, platform).name == want
+    assert "needs_grad" in dataclasses.replace(plan, needs_grad=True).describe()
+
+
+@pytest.mark.parametrize("pin,op,shapes,reason", [
+    ("cuda_decode", "decode", SHAPES["decode"], "no backward for decode"),
+    ("cuda_fused", "prefill_packed", SHAPES["prefill_packed"],
+     "no backward for prefill_packed")])
+def test_needs_grad_refuses_forward_only_ops(pin, op, shapes, reason):
+    plan = ExecutionPlan(flow=FlowConfig(backend=pin), packed=True)
+    assert attention.resolve(plan).backend(op, shapes, "cuda").name == pin
+    ex = attention.resolve(dataclasses.replace(plan, needs_grad=True))
+    with pytest.raises(attention.ResolutionError, match=reason) as err:
+        ex.backend(op, shapes, "cuda")
+    assert "with gradients" in str(err.value)
+    assert dict(err.value.rejections)[pin].startswith(reason)
+    text = str(attention.explain(dataclasses.replace(plan, needs_grad=True),
+                                 shapes, platform="cuda", op=op))
+    assert f"no  {pin}: {reason}" in text
+
+
+def test_packed_prefill_refuses_autograd():
+    q = torch.randn((2, 2, 8, 16), requires_grad=True)
+    k, v = torch.randn((2, 1, 8, 16)), torch.randn((2, 1, 8, 16))
+    cfg = FlowConfig(causal=True, strict_causal=True, chunk_size=8)
+    with pytest.raises(RuntimeError, match="packed prefill .* forward-only"):
+        flow_fused_forward(q, k, v, cfg, lengths=torch.tensor([8, 3]))
+    with torch.no_grad():
+        flow_fused_forward(q, k, v, cfg, lengths=torch.tensor([8, 3]))
+    out, _ = flow_fused_forward(q, k, v, cfg)  # dense: FlowFusedDot
+    out.sum().backward()
+    assert q.grad is not None and q.grad.abs().sum() > 0
