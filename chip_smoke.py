@@ -18,6 +18,11 @@ any failure raises, so the exit code is non-zero:
      D = 64, chunk 128, bf16 and fp32) and at G = 2, N = 200 padded to 256
      (chunk 64) with random cotangents on all six state outputs, for each
      phi;
+  3c. K6 ``flow_nc_fused``, K7a ``flow_nc_qside`` and K7b
+     ``flow_nc_qside_bwd`` against their plain versions at the LRA training
+     shape (32 rows x 4 heads, N = M = 4096, D = 64, bf16 and fp32; K6 with
+     competition on and off, K7b with random cotangents), and at G = 2,
+     N = 200, M = 136 (through the grouping wrapper, with gradients);
   4. K3 ``flow_decode`` against its plain version: 16 (the serving pool)
      and 64 slots x 8 kv heads, 32 steps from a non-zero state, updated
      in place;
@@ -38,21 +43,36 @@ any failure raises, so the exit code is non-zero:
      kernels and once on the plain PyTorch path, 3 steps: the losses
      agree, and every wq/wk/wv gradient of the first step is non-zero
      and agrees with the plain path's;
-  9. per kernel, its time with CUDA events beside its plain version's and
-     its bound, as one ``{"kernels": [...]}`` line (``launches`` is the
-     count over the main-path runs of phases 5 and 7), and K1's time at
-     the training shape;
-  10. the last line: ``{"ok": true, "device": {...}}``.
+  10. the LRA classifier at full width (``launch/classify.py::
+     train_eval_classifier``, flowformer_lra, bf16, 5 steps of 32 x 4096
+     ListOps tokens, random weights from a seed), then its evaluation over
+     64 held-out examples: finite losses, and exactly 4 K6, 4 K7a and 4
+     K7b launches per step and 4 K6 per eval batch and nothing else; then
+     ``torch.profiler`` over two steps: device time by kernel and busy
+     share;
+  11. the same classifier in fp32 at full width and 2 layers, once on the
+     kernels and once on the plain PyTorch path, 3 steps: the losses
+     agree, and every wq/wk/wv gradient of the first step is non-zero and
+     agrees with the plain path's;
+  9. (after 11) per kernel, its time with CUDA events beside its plain
+     version's and its bound, as one ``{"kernels": [...]}`` line
+     (``launches`` is the count over the main-path runs of phases 5 and 7
+     for K1-K3 and of phase 10 for K6, K7a, K7b), and K1's time at the
+     training shape;
+  12. the last line: ``{"ok": true, "device": {...}}``.
 
 Tolerances (|kernel - plain| <= atol + rtol * |plain|, elementwise):
 fp32 outputs and every fp32 state piece rtol 1e-4, atol 1e-4 -- both sides
 sum the same fp32 terms in another order, no TF32 anywhere; bf16 outputs
 rtol 1e-2, atol 1e-2 -- both compute in fp32 from the same bf16 inputs and
 round once to bf16, whose spacing is 2^-7 relative.  K2's gradients are
-held to the same two tolerances.  fp32 training, kernels vs plain: losses
-rtol 1e-4, and each attention weight's gradient within 1e-4 of that
-leaf's max |grad| -- the same fp32 sums in another order, carried
-through the residual stream and three Adam steps.
+held to the same two tolerances, as are K6's, K7a's and K7b's outputs
+and cotangents (K7b's key-side cotangents are fp32 in both dtypes, summed
+from the same rounded inputs); these are also held to rtol x max |plain|,
+since at the LRA shape they are ~1e-3, below atol.  fp32 training, kernels vs plain (the LM
+and the classifier): losses rtol 1e-4, and each attention weight's
+gradient within 1e-4 of that leaf's max |grad| -- the same fp32 sums in
+another order, carried through the residual stream and three Adam steps.
 """
 from __future__ import annotations
 
@@ -136,6 +156,19 @@ def max_err(name: str, got: torch.Tensor, want: torch.Tensor, tol) -> float:
             f"{name}: |diff| {diff.flatten()[i]:.3e} at flat index {i} "
             f"exceeds atol {atol} + rtol {rtol} * |{want.flatten()[i]:.4e}|")
     return float(diff.max())
+
+
+def max_err_scaled(name: str, got: torch.Tensor, want: torch.Tensor,
+                   tol) -> float:
+    """``max_err``, and also |got - want| <= rtol * max |want| everywhere:
+    at the LRA shape the non-causal outputs and cotangents are ~1e-3, so
+    atol alone would not see an error of their own size."""
+    err = max_err(name, got, want, tol)
+    scale = float(want.float().abs().max())
+    if not err <= tol[0] * scale:
+        raise AssertionError(f"{name}: |diff| {err:.3e} exceeds rtol {tol[0]}"
+                             f" * max |want| {scale:.3e}")
+    return err
 
 
 def ragged_lens(rng, rows: int, lo: int, hi: int) -> np.ndarray:
@@ -311,6 +344,91 @@ def check_flow_decode() -> dict:
     return {"max_abs_err": errs[torch.bfloat16]}
 
 
+LRA_ROWS, LRA_HEADS, LRA_N, LRA_D = 32, 4, 4096, 64
+
+
+def nc_inputs(dtype, bh, nq, m, d, seed):
+    """q (BH, NQ, D), k, v (BH, M, D) and a cotangent g (BH, NQ, D)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    mk = lambda *s: torch.randn(s, generator=gen, device=DEVICE).to(dtype)  # noqa: E731
+    return mk(bh, nq, d), mk(bh, m, d), mk(bh, m, d), mk(bh, nq, d)
+
+
+def check_flow_nc() -> dict:
+    """Phase 3c: K6, K7a and K7b against their plain versions; returns
+    each one's max |error| at the LRA shape in bf16 (the main path's)."""
+    from repro_torch.attention.pipeline import nc_forward
+    from repro_torch.attention.vjp import nc_key_side
+    from repro_torch.core.flow_attention import FlowConfig
+    from repro_torch.kernels.flow_nc import (flow_attention_nc,
+                                             flow_nc_fused_call,
+                                             flow_nc_fused_ref,
+                                             flow_nc_qside_bwd_call,
+                                             flow_nc_qside_bwd_ref,
+                                             flow_nc_qside_call,
+                                             flow_nc_qside_ref)
+
+    def qside_errs(tag, q, g, k_sum, ko_sum, kv, tol, **kw):
+        e7a = max_err_scaled(f"flow_nc_qside {tag} out",
+                             flow_nc_qside_call(q, k_sum, ko_sum, kv, **kw),
+                             flow_nc_qside_ref(q, k_sum, ko_sum, kv, **kw),
+                             tol)
+        got = flow_nc_qside_bwd_call(q, k_sum, ko_sum, kv, g, **kw)
+        want = flow_nc_qside_bwd_ref(q, k_sum, ko_sum, kv, g, **kw)
+        e7b = max(max_err_scaled(f"flow_nc_qside_bwd {tag} {name}", a, b,
+                                 tol)
+                  for name, a, b in zip(("dq", "dk_sum", "dko_sum", "dkv"),
+                                        got, want))
+        return e7a, e7b
+
+    errs = {}
+    bh, n, d = LRA_ROWS * LRA_HEADS, LRA_N, LRA_D
+    with torch.no_grad():
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, g = nc_inputs(dtype, bh, n, n, d, SEED + 30)
+            tag = f"{str(dtype)[6:]} BH={bh} N=M={n}"
+            e6 = max(max_err_scaled(f"flow_nc_fused {tag} comp={comp} out",
+                                    flow_nc_fused_call(q, k, v, use_comp=comp),
+                                    flow_nc_fused_ref(q, k, v, use_comp=comp),
+                                    TOL[dtype]) for comp in (True, False))
+            e7a, e7b = qside_errs(tag, q, g, *nc_key_side(q, k, v, 1e-6, True),
+                                  TOL[dtype], n_sinks=n, m_sources=n)
+            torch.cuda.synchronize()
+            print(f"[K6/K7] {tag}: K6 {e6:.3e}, K7a {e7a:.3e}, K7b {e7b:.3e}",
+                  flush=True)
+            if dtype == torch.bfloat16:
+                errs = {"flow_nc_fused": e6, "flow_nc_qside": e7a,
+                        "flow_nc_qside_bwd": e7b}
+        # G = 2 (shared GQA), N = 200 sinks per head, M = 136 sources
+        b, hkv, grp, n, m = 4, 8, 2, 200, 136
+        q, k, v, g = nc_inputs(torch.float32, b, hkv * grp * n, hkv * m, d,
+                               SEED + 31)
+        q = q.reshape(b, hkv * grp, n, d)
+        k, v = k.reshape(b, hkv, m, d), v.reshape(b, hkv, m, d)
+        qf, g = q.reshape(b * hkv, grp * n, d), g.reshape(b * hkv, grp * n, d)
+        tag = "fp32 G=2 N=200 M=136"
+        kf, vf = k.reshape(b * hkv, m, d), v.reshape(b * hkv, m, d)
+        e7 = qside_errs(tag, qf, g, *nc_key_side(qf, kf, vf, 1e-6, True),
+                        TOL[torch.float32], n_sinks=grp * n, m_sources=m)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    plain = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    cfg = FlowConfig()
+    out = flow_attention_nc(*leaves, cfg)
+    want = nc_forward(*plain, cfg)
+    e6 = max_err_scaled(f"flow_nc_fused {tag} out", out.detach(),
+                        want.detach(), TOL[torch.float32])
+    cot = g.reshape(out.shape)
+    got_g = torch.autograd.grad(out, leaves, cot)
+    want_g = torch.autograd.grad(want, plain, cot)
+    eg = max(max_err_scaled(f"flow_attention_nc {tag} d{name}", a, b_,
+                            TOL[torch.float32])
+             for name, a, b_ in zip("qkv", got_g, want_g))
+    torch.cuda.synchronize()
+    print(f"[K6/K7] {tag}: K6 {e6:.3e}, K7a {e7[0]:.3e}, K7b {e7[1]:.3e}, "
+          f"grads through FlowNCFused {eg:.3e}", flush=True)
+    return errs
+
+
 def requests(rng, n, vocab, lens, budgets):
     from repro_torch.serving.engine import Request
 
@@ -469,6 +587,7 @@ def serve_fp32_both_paths(params, cfg):
 def train_full_width(cfg) -> dict:
     """Phase 7: the trainer at full width in bf16; launch counts and rates."""
     from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels._lib import KERNELS
     from repro_torch.launch.train import train
 
     steps, batch, seq = 5, 16, 512
@@ -481,7 +600,8 @@ def train_full_width(cfg) -> dict:
     if len(hist) != steps or not all(math.isfinite(x) for x in hist):
         raise AssertionError(f"training losses {hist}")
     n = cfg.n_layers * steps
-    want = {"flow_fused": 2 * n, "flow_fused_bwd": n, "flow_decode": 0}
+    want = {**dict.fromkeys(KERNELS, 0), "flow_fused": 2 * n,
+            "flow_fused_bwd": n}
     if launches != want:
         raise AssertionError(f"training launched {launches}, want {want}")
     step_ms = 1e3 * statistics.median(out["step_s"][1:])
@@ -536,6 +656,7 @@ def train_fp32_both_paths(cfg):
     gradients (non-zero on the kernels: K2 reached wq/wk/wv)."""
     from repro_torch.data.loader import lm_loader
     from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels._lib import KERNELS
     from repro_torch.launch.train import train
     from repro_torch.layers.attention import executor_of, plan_of
     from repro_torch.models import lm
@@ -566,9 +687,9 @@ def train_fp32_both_paths(cfg):
                               seed=SEED, device=DEVICE, dtype=torch.float32,
                               params=params)["history"]
         n = cfg.n_layers * steps
-        want = ({"flow_fused": 2 * n, "flow_fused_bwd": n, "flow_decode": 0}
-                if backend == "auto" else
-                {"flow_fused": 0, "flow_fused_bwd": 0, "flow_decode": 0})
+        want = dict.fromkeys(KERNELS, 0)
+        if backend == "auto":
+            want.update(flow_fused=2 * n, flow_fused_bwd=n)
         if dict(LAUNCHES) != want:
             raise AssertionError(f"backend={backend}: launches {LAUNCHES}, "
                                  f"want {want}")
@@ -585,6 +706,155 @@ def train_fp32_both_paths(cfg):
                                  f"{float(g.abs().max()):.3e}")
         worst = max(worst, err / scale)
     print(f"[train fp32] kernels vs plain, 2 layers x {steps} steps: losses "
+          f"{hist['auto']} vs {hist['plain']}; wq/wk/wv grads of step 1 "
+          f"non-zero, worst |diff| / max |grad| {worst:.3e}", flush=True)
+
+
+def train_classifier_full_width(cfg) -> dict:
+    """Phase 10: the LRA classifier at full width in bf16, then its
+    evaluation; launch counts and rates."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels._lib import KERNELS
+    from repro_torch.launch.classify import (EVAL_BATCH, listops_data,
+                                             train_eval_classifier)
+
+    steps, batch, n_eval = 5, LRA_ROWS, 64
+    train_data, eval_data = listops_data(512, n_eval, seq=LRA_N, seed=SEED)
+    torch.cuda.synchronize()
+    reset_launches()
+    out = train_eval_classifier(cfg, train_data, eval_data, n_classes=10,
+                                steps=steps, batch=batch, seed=SEED,
+                                device=DEVICE)
+    launches = dict(LAUNCHES)
+    hist = out["history"]
+    if len(hist) != steps or not all(math.isfinite(x) for x in hist + [
+            out["loss"]]) or not 0.0 <= out["acc"] <= 1.0:
+        raise AssertionError(f"classifier losses {hist}, eval {out['loss']}, "
+                             f"acc {out['acc']}")
+    n, eval_batches = cfg.n_layers * steps, -(-n_eval // EVAL_BATCH)
+    want = {**dict.fromkeys(KERNELS, 0),
+            "flow_nc_fused": n + cfg.n_layers * eval_batches,
+            "flow_nc_qside": n, "flow_nc_qside_bwd": n}
+    if launches != want:
+        raise AssertionError(f"classifier launched {launches}, want {want}")
+    step_ms = 1e3 * statistics.median(out["step_s"][1:])
+    stats = {"steps": steps, "batch": batch, "seq": LRA_N,
+             "first_step_ms": 1e3 * out["step_s"][0], "step_ms": step_ms,
+             "tokens_per_s": batch * LRA_N / step_ms * 1e3,
+             "eval_examples": n_eval, "eval_ms": 1e3 * out["eval_s"],
+             "eval_loss": out["loss"], "eval_acc": out["acc"],
+             "history": hist, "launches": launches}
+    print("[classify bf16] " + json.dumps(stats), flush=True)
+    return stats
+
+
+def profile_classifier(cfg, step_ms: float) -> dict:
+    """Phase 10b: device time of a full-width bf16 classifier step by
+    kernel, from ``torch.profiler`` over two steps after one outside the
+    window, and its share of phase 10's unprofiled step time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.classify import listops_data, make_classifier_step
+    from repro_torch.models import classifier
+    from repro_torch.training.train_state import init_train_state
+
+    steps = 2
+    step_fn, tcfg = make_classifier_step(cfg, steps=10)
+    state = init_train_state(classifier.init(
+        cfg, torch.Generator().manual_seed(SEED + 1), n_classes=10,
+        device=DEVICE), tcfg)
+    data, _ = listops_data(LRA_ROWS * (steps + 1), 0, seq=LRA_N, seed=SEED + 1)
+    batches = [{k: torch.from_numpy(v[i * LRA_ROWS:(i + 1) * LRA_ROWS]).to(
+        DEVICE) for k, v in data.items()} for i in range(steps + 1)]
+    state, metrics = step_fn(state, batches[0])
+    float(metrics["loss"])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for bt in batches[1:]:
+            state, metrics = step_fn(state, bt)
+            float(metrics["loss"])
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dev_us = lambda e: getattr(e, "self_device_time_total",  # noqa: E731
+                               getattr(e, "self_cuda_time_total", 0.0))
+    busy = sum(dev_us(e) for e in dev) / 1e3 / steps
+    by_name = lambda key: sum(dev_us(e) for e in dev  # noqa: E731
+                              if key in e.key) / 1e3 / steps
+    stats = {"steps": steps, "device_ms_per_step": busy,
+             "kernels_per_step": sum(e.count for e in dev) / steps,
+             "step_ms_unprofiled": step_ms, "device_busy_share": busy / step_ms,
+             "k6_ms_per_step": by_name("flow_nc_fused_kernel"),
+             "k7a_ms_per_step": by_name("flow_nc_qside_kernel"),
+             "k7b_ms_per_step": by_name("flow_nc_qside_bwd_kernel")
+             + by_name("flow_nc_reduce_kernel"),
+             "device_ms_per_step_by_kernel": {
+                 e.key[:80]: dev_us(e) / 1e3 / steps
+                 for e in sorted(dev, key=dev_us, reverse=True)[:14]}}
+    print("[profile classify] " + json.dumps(stats), flush=True)
+    return stats
+
+
+def train_classifier_fp32_both_paths(cfg):
+    """Phase 11: the classifier in fp32 at full width and 2 layers, kernels
+    vs the plain PyTorch path: per-step losses, and the first step's
+    attention gradients (non-zero on the kernels: K7a/K7b reached wq, wk,
+    wv)."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels._lib import KERNELS
+    from repro_torch.launch.classify import listops_data, train_eval_classifier
+    from repro_torch.layers.attention import executor_of, plan_of
+    from repro_torch.models import classifier
+    from repro_torch.utils import tree_map
+
+    cfg = dataclasses.replace(cfg, n_layers=2)
+    steps, batch = 3, LRA_ROWS
+    params = classifier.init(cfg, torch.Generator().manual_seed(SEED + 2),
+                             n_classes=10, device=DEVICE)
+    train_data, eval_data = listops_data(256, 64, seq=LRA_N, seed=SEED + 2)
+    first = {k: torch.from_numpy(v[:batch]).to(DEVICE)
+             for k, v in train_data.items()}
+    hist, grads = {}, {}
+    for backend in ("auto", "plain"):
+        c = dataclasses.replace(cfg, attention=dataclasses.replace(
+            cfg.attention, backend=backend))
+        leaves = tree_map(lambda x: x.detach().clone().requires_grad_(True),
+                          params)
+        plan = executor_of(c, plan_of(c, causal=False, needs_grad=True),
+                           causal=False)
+        loss, _ = classifier.loss_fn(leaves, first, c, dtype=torch.float32,
+                                     plan=plan)
+        loss.backward()
+        grads[backend] = {f"layer {i} {w}": blk["attn"][w]["w"].grad
+                          for i, blk in enumerate(leaves["blocks"])
+                          for w in ("wq", "wk", "wv")}
+        torch.cuda.synchronize()
+        reset_launches()
+        hist[backend] = train_eval_classifier(
+            c, train_data, eval_data, n_classes=10, steps=steps, batch=batch,
+            seed=SEED, device=DEVICE, dtype=torch.float32,
+            params=params)["history"]
+        n = cfg.n_layers * steps
+        want = dict.fromkeys(KERNELS, 0)
+        if backend == "auto":
+            want.update(flow_nc_fused=n + cfg.n_layers, flow_nc_qside=n,
+                        flow_nc_qside_bwd=n)
+        if dict(LAUNCHES) != want:
+            raise AssertionError(f"backend={backend}: launches {LAUNCHES}, "
+                                 f"want {want}")
+    for i, (a, b) in enumerate(zip(hist["auto"], hist["plain"])):
+        if not abs(a - b) <= 1e-4 * abs(b):
+            raise AssertionError(f"fp32 classifier step {i} loss: kernels {a}, "
+                                 f"plain {b}")
+    worst = 0.0
+    for name, g in grads["auto"].items():
+        ref = grads["plain"][name]
+        scale, err = float(ref.abs().max()), float((g - ref).abs().max())
+        if not float(g.abs().max()) > 0 or not err <= 1e-4 * scale:
+            raise AssertionError(f"fp32 classifier step 1 {name} grad: |diff| "
+                                 f"{err:.3e}, max |plain| {scale:.3e}, max "
+                                 f"|kernels| {float(g.abs().max()):.3e}")
+        worst = max(worst, err / scale)
+    print(f"[classify fp32] kernels vs plain, 2 layers x {steps} steps: losses "
           f"{hist['auto']} vs {hist['plain']}; wq/wk/wv grads of step 1 "
           f"non-zero, worst |diff| / max |grad| {worst:.3e}", flush=True)
 
@@ -646,6 +916,25 @@ def bwd_ops_per_position(g: int, d: int, dv: int) -> int:
     6 (G+1) D Dv in all -- plus 14 (G+1) D for pulling back the four flow
     sums and four flow dot products, and 3 G Dv for g_out . Y and dY."""
     return 6 * (g + 1) * d * dv + 21 * (g + 1) * d + 3 * g * dv
+
+
+def nc_fused_ops(nq: int, m: int, d: int, dv: int) -> int:
+    """fp32 operations of K6 for one (row, kv head): per source row D for
+    k_sum, 4 D for its outflow dot and ko_sum, 2 D for cons_src, Dv for
+    v * e and 2 D Dv for kv; per sink row D for q_sum, 4 D for its inflow
+    dot and qi_sum, 4 D for the two phase-D dots, 2 D Dv for phi @ kv and
+    Dv for the scale."""
+    return (m * (2 * d * dv + 7 * d + dv) + nq * (2 * d * dv + 9 * d + dv))
+
+
+def nc_qside_ops(n: int, d: int, dv: int, backward: bool) -> int:
+    """fp32 operations of K7a (2 D Dv for phi @ kv, 4 D for the two flow
+    dots, Dv for the scale per row) or K7b (6 D Dv for phi @ kv, u @ kv^T
+    and phi^T u; 18 D for the flow dots, dI, the dq chain and the dk_sum /
+    dko_sum sums; 3 Dv for dalloc and u per row)."""
+    if backward:
+        return n * (6 * d * dv + 18 * d + 3 * dv)
+    return n * (2 * d * dv + 4 * d + dv)
 
 
 def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
@@ -738,6 +1027,55 @@ def time_kernels(launches: dict, errs: dict) -> list:
             "plain_ms": time_ms(lambda: decode_step(pool, tq, tk, tv, cfg)),
             "bound_ms": bound_ms, "bound_by": by, "library_ms": None})
     rows.insert(1, k2_row)
+    rows += time_nc_kernels(launches, errs)
+    return rows
+
+
+def time_nc_kernels(launches: dict, errs: dict) -> list:
+    """Phase 9, K6/K7a/K7b: one layer's attention of the LRA training step
+    (bf16, 32 rows x 4 heads, N = M = 4096, D = 64)."""
+    from repro_torch.attention.vjp import nc_key_side
+    from repro_torch.kernels.flow_nc import (flow_nc_fused_call,
+                                             flow_nc_fused_ref,
+                                             flow_nc_qside_bwd_call,
+                                             flow_nc_qside_bwd_ref,
+                                             flow_nc_qside_call,
+                                             flow_nc_qside_ref)
+
+    bh, n, d = LRA_ROWS * LRA_HEADS, LRA_N, LRA_D
+    q, k, v, g = nc_inputs(torch.bfloat16, bh, n, n, d, SEED + 40)
+    kw = dict(n_sinks=n, m_sources=n)
+    state_bytes = bh * (2 * d + d * d) * 4
+    cases = [
+        ("flow_nc_fused", "src/repro_torch/csrc/flow_nc_fused.cu",
+         "src/repro/kernels/flow_nc/fused.py:159",
+         lambda: flow_nc_fused_call(q, k, v),
+         lambda: flow_nc_fused_ref(q, k, v),
+         bh * n * 4 * d * 2, bh * nc_fused_ops(n, n, d, d)),
+        ("flow_nc_qside", "src/repro_torch/csrc/flow_nc_qside.cu",
+         "src/repro/kernels/flow_nc/flow_nc.py:64",
+         lambda: flow_nc_qside_call(q, *key, **kw),
+         lambda: flow_nc_qside_ref(q, *key, **kw),
+         bh * n * 2 * d * 2 + state_bytes,
+         bh * nc_qside_ops(n, d, d, False)),
+        ("flow_nc_qside_bwd", "src/repro_torch/csrc/flow_nc_qside.cu",
+         "src/repro/kernels/flow_nc/bwd.py:107",
+         lambda: flow_nc_qside_bwd_call(q, *key, g, **kw),
+         lambda: flow_nc_qside_bwd_ref(q, *key, g, **kw),
+         bh * n * 3 * d * 2 + 2 * state_bytes,
+         bh * nc_qside_ops(n, d, d, True)),
+    ]
+    rows = []
+    with torch.no_grad():
+        key = nc_key_side(q, k, v, 1e-6, True)
+        for name, source, replaces, run, plain, bytes_moved, ops in cases:
+            bound_ms, by = bound(bytes_moved, ops)
+            rows.append({
+                "name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches[name],
+                "max_abs_err": errs[name], "ms": time_ms(run),
+                "plain_ms": time_ms(plain), "bound_ms": bound_ms,
+                "bound_by": by, "library_ms": None})
     return rows
 
 
@@ -747,6 +1085,7 @@ def main() -> int:
     build_kernels()
     errs = {"flow_fused": check_flow_fused()["max_abs_err"],
             "flow_fused_bwd": check_flow_fused_bwd()["max_abs_err"],
+            **check_flow_nc(),
             "flow_decode": check_flow_decode()["max_abs_err"]}
 
     from repro_torch.configs import get_config
@@ -761,8 +1100,12 @@ def main() -> int:
     trained = train_full_width(cfg)
     profile_train(cfg, trained["step_ms"])
     train_fp32_both_paths(cfg)
+    lra = get_config("flowformer_lra")
+    classified = train_classifier_full_width(lra)
+    profile_classifier(lra, classified["step_ms"])
+    train_classifier_fp32_both_paths(lra)
     launches = {name: stats["launches"][name] + trained["launches"][name]
-                for name in stats["launches"]}
+                + classified["launches"][name] for name in stats["launches"]}
     rows = time_kernels(launches, errs)
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

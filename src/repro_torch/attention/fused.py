@@ -43,17 +43,6 @@ def pad_seq(x: torch.Tensor, n_pad: int, dim: int) -> torch.Tensor:
     return torch.cat([x, x.new_zeros(shape)], dim=dim)
 
 
-def expand_kv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              cfg: FlowConfig):
-    """Apply ``gqa_mode="expand"`` by repeating kv heads to query heads."""
-    hq, hkv = q.shape[1], k.shape[1]
-    if cfg.gqa_mode == "expand" and hq != hkv:
-        rep = hq // hkv
-        k = k.repeat_interleave(rep, dim=1)
-        v = v.repeat_interleave(rep, dim=1)
-    return k, v
-
-
 def fused_causal_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          cfg: FlowConfig, *, return_state: bool = False,
                          lengths: torch.Tensor | None = None):

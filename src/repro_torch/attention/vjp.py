@@ -1,4 +1,5 @@
-"""Autograd for the flow_fused kernels: ``FlowFusedDot``.
+"""Autograd for the port's kernels: ``FlowFusedDot``, ``FlowNCQside`` and
+``FlowNCFused``.
 
 The counterpart of ``repro/attention/vjp.py::flow_fused_dot``.  The
 forward is K1 (``kernels/flow_fused/ops.py::flow_fused_call``) on a dense,
@@ -7,8 +8,15 @@ the backward is K2 (``kernels/flow_fused/bwd.py::flow_fused_bwd_call``), a
 reverse scan that rebuilds each tile's carry-in from the six state totals.
 So the saved tensors are q, k, v and the O(d^2) totals, nothing
 (B, H, N)-sized.  The state outputs are differentiable, as in the
-reference: their cotangents seed the scan (zeros where unused).  On CPU
-tensors both calls run their plain versions.
+reference: their cotangents seed the scan (zeros where unused).
+
+The non-causal pair mirrors ``repro/attention/vjp.py:144-236``:
+``FlowNCQside`` is K7a forward and K7b backward; ``FlowNCFused`` runs K6
+forward and differentiates ``_nc_decomposed`` in its backward -- the cheap
+O(M D) key-side reductions in plain fp32 PyTorch under autograd, feeding
+``FlowNCQside`` for the O(N D Dv) sink side.  K7a's recomputed output in
+that backward is discarded, as in the reference.  On CPU tensors every
+call runs its plain version.
 """
 from __future__ import annotations
 
@@ -16,6 +24,9 @@ import torch
 
 from repro_torch.kernels.flow_fused.bwd import flow_fused_bwd_call
 from repro_torch.kernels.flow_fused.ops import flow_fused_call
+from repro_torch.kernels.flow_nc.ops import (flow_nc_fused_call,
+                                             flow_nc_qside_bwd_call,
+                                             flow_nc_qside_call)
 
 
 class FlowFusedDot(torch.autograd.Function):
@@ -44,3 +55,81 @@ class FlowFusedDot(torch.autograd.Function):
                                          g_out.to(q.dtype).contiguous(),
                                          g_sums, **ctx.args)
         return dq, dk, dv, None, None, None, None, None
+
+
+class FlowNCQside(torch.autograd.Function):
+    """``FlowNCQside.apply(q, k_sum, ko_sum, kv, n_sinks, m_sources, eps)``
+    -> (BH, N, Dv): the non-causal sink side, K7a forward and K7b backward.
+
+    q: (BH, N, D); k_sum/ko_sum: (BH, D) and kv: (BH, D, Dv) fp32.
+    """
+
+    @staticmethod
+    def forward(ctx, q, k_sum, ko_sum, kv, n_sinks: int, m_sources: int,
+                eps: float):
+        ctx.save_for_backward(q, k_sum, ko_sum, kv)
+        ctx.args = dict(n_sinks=n_sinks, m_sources=m_sources, eps=eps)
+        return flow_nc_qside_call(q, k_sum, ko_sum, kv, **ctx.args)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k_sum, ko_sum, kv = ctx.saved_tensors
+        dq, dk_sum, dko_sum, dkv = flow_nc_qside_bwd_call(
+            q, k_sum, ko_sum, kv, g.to(q.dtype).contiguous(), **ctx.args)
+        return dq, dk_sum, dko_sum, dkv, None, None, None
+
+
+def nc_key_side(q, k, v, eps: float, use_comp: bool):
+    """K6's key side in plain fp32 PyTorch: (k_sum, ko_sum (BH, D), kv
+    (BH, D, Dv)), the reductions the sink side (K7a) reads."""
+    m = k.shape[1]
+    pq = torch.sigmoid(q.float())
+    pk = torch.sigmoid(k.float())
+    vf = v.float()
+    k_sum = pk.sum(dim=1)  # (BH, D)
+    q_sum = pq.sum(dim=1)
+    src_out = 1.0 / torch.einsum("bmd,bd->bm", pk + eps, q_sum + eps)
+    ko_sum = (pk * src_out[..., None]).sum(dim=1)
+    sink_in = 1.0 / torch.einsum("bnd,bd->bn", pq + eps, k_sum + eps)
+    qi_sum = (pq * sink_in[..., None]).sum(dim=1)
+    if use_comp:
+        cons_src = torch.einsum("bmd,bd->bm", pk + eps,
+                                qi_sum + eps).clamp(-1.0, 1.0)
+        v_hat = vf * (torch.softmax(cons_src, dim=-1) * float(m))[..., None]
+    else:
+        v_hat = vf
+    kv = torch.einsum("bmd,bme->bde", pk, v_hat)
+    return k_sum, ko_sum, kv.contiguous()
+
+
+def _nc_decomposed(q, k, v, eps: float, use_comp: bool):
+    """K6's math decomposed: the key side (``nc_key_side``, natively
+    differentiable) feeding ``FlowNCQside``.  Used only to differentiate
+    ``FlowNCFused``; the forward runs K6."""
+    return FlowNCQside.apply(q, *nc_key_side(q, k, v, eps, use_comp),
+                             q.shape[1], k.shape[1], eps)
+
+
+class FlowNCFused(torch.autograd.Function):
+    """``FlowNCFused.apply(q, k, v, eps, use_comp)`` -> (BH, NQ, Dv): the
+    whole non-causal pair, K6 forward; the backward pulls ``g`` through
+    ``_nc_decomposed`` (K7a, then K7b).
+
+    q: (BH, NQ, D) raw; k: (BH, M, D); v: (BH, M, Dv).  Saves q, k, v
+    only.
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, eps: float, use_comp: bool):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (eps, use_comp)
+        return flow_nc_fused_call(q, k, v, eps=eps, use_comp=use_comp)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            inputs = [x.detach().requires_grad_(True) for x in (q, k, v)]
+            out = _nc_decomposed(*inputs, *ctx.args)
+            dq, dk, dv = torch.autograd.grad(out, inputs, g.to(out.dtype))
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None

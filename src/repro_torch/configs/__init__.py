@@ -8,7 +8,7 @@ from __future__ import annotations
 import dataclasses
 import importlib
 
-PORTED_CONFIGS = ("flowformer_lm",)
+PORTED_CONFIGS = ("flowformer_lm", "flowformer_lra")
 
 
 def _module(name: str):

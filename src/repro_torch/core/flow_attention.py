@@ -60,3 +60,18 @@ def _group(q: torch.Tensor, n_kv: int) -> torch.Tensor:
 def _ungroup(x: torch.Tensor) -> torch.Tensor:
     b, hkv, g, n, d = x.shape
     return x.reshape(b, hkv * g, n, d)
+
+
+def flow_attention_nc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      cfg: FlowConfig = FlowConfig()) -> torch.Tensor:
+    """Non-causal Flow-Attention through the backend registry.
+
+    q: (B, Hq, N, D); k: (B, Hkv, M, D); v: (B, Hkv, M, Dv) with Hkv | Hq.
+    Returns (B, Hq, N, Dv).  On a GPU ``auto`` runs the flow_nc CUDA
+    kernel; the plain version runs on the CPU or when pinned.
+    """
+    from repro_torch import attention  # lazy: the registry imports this module
+
+    if cfg.causal:
+        cfg = dataclasses.replace(cfg, causal=False)
+    return attention.resolve(attention.ExecutionPlan(flow=cfg)).forward(q, k, v)

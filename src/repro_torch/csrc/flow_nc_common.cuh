@@ -1,0 +1,215 @@
+// flow_nc_common.cuh — pieces shared by the non-causal Flow-Attention
+// kernels for Hopper (sm_90a): flow_nc_fused.cu (K6) and flow_nc_qside.cu
+// (K7a, K7b).
+//
+// Every kernel here streams rows of a (rows, D) matrix (q, k, v or a
+// cotangent) and multiplies staged tiles of them with a D x D fp32 state
+// (kv, or its cotangent) held in shared memory.  Two thread layouts of a
+// 256-thread block serve all of them:
+//
+//  * streaming: each thread loads 16 bytes (VEC elements) of one row, LG
+//    consecutive lanes cover a row, RP rows per pass of the block.  Row
+//    dot products reduce over the LG lanes with shuffles, so the flows of
+//    a row need no shared memory; column sums stay in registers per
+//    thread and are reduced over the row groups once, in a fixed order.
+//  * products: thread (ty, tx) owns the 4-wide column block tx*4.. of a
+//    D-wide output and RT rows of a kTile-row tile (tile x state), or RA
+//    rows of the D x D state (tile^T x tile).  Operands are read from
+//    shared memory as float4; every product is fp32 FMA on the CUDA cores
+//    (no tensor cores, no TF32), each sum in a fixed order, so results are
+//    deterministic and match the plain PyTorch versions to fp32
+//    reassociation.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace flow_nc {
+
+constexpr int kThreads = 256;
+constexpr int kTile = 64;  // rows staged in shared memory at a time
+
+__device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
+
+template <typename T, int D>
+struct Layout {
+  static_assert(D == 32 || D == 64 || D == 128, "head dim must be 32, 64 or 128");
+  static constexpr int VEC = 16 / (int)sizeof(T);  // elements per 16-byte load
+  static constexpr int LG = D / VEC;               // lanes per streamed row
+  static constexpr int RP = kThreads / LG;         // rows per streaming pass
+  static constexpr int TX = D / 4;                 // products: 4-wide column blocks
+  static constexpr int TY = kThreads / TX;
+  static constexpr int RT = kTile / TY;            // tile rows per thread
+  static constexpr int RA = D / TY;                // state rows per thread
+  static_assert(LG <= 32 && 32 % LG == 0 && kTile % RP == 0, "streaming layout");
+  static_assert(TX <= 32 && kTile % TY == 0 && D % TY == 0, "product layout");
+  static_assert(RP * D <= 2 * kTile * D && 2 * TY * D <= kTile * D, "reduction buffers");
+};
+
+// 16 bytes of a row in device memory, as VEC floats
+__device__ __forceinline__ void load16(const float* p, float* x) {
+  const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+  x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+}
+__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* x) {
+  const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    x[2 * i] = f.x;
+    x[2 * i + 1] = f.y;
+  }
+}
+
+// four consecutive outputs of a row (bf16: round to nearest even, as torch's
+// .to(bfloat16))
+__device__ __forceinline__ void store4(float* p, const float* x) {
+  *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float* x) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(x[0], x[1]);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(x[2], x[3]);
+  uint2 u;
+  u.x = *reinterpret_cast<const unsigned*>(&lo);
+  u.y = *reinterpret_cast<const unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+// n (a multiple of 4) floats into shared memory
+template <int N>
+__device__ __forceinline__ void store_smem(float* dst, const float* x) {
+#pragma unroll
+  for (int i = 0; i < N; i += 4)
+    *reinterpret_cast<float4*>(dst + i) = make_float4(x[i], x[i + 1], x[i + 2], x[i + 3]);
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+
+// sum over the W consecutive lanes that share a row (W a power of two <= 32)
+template <int W>
+__device__ __forceinline__ float group_sum(float x) {
+#pragma unroll
+  for (int off = W / 2; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// dst[c] = sum over row groups of the streaming partials part[] (VEC columns
+// col0.. per thread), in row-group order; red_s holds RP * D floats.
+template <typename T, int D>
+__device__ __forceinline__ void reduce_cols(const float* part, float* red_s, float* dst) {
+  using L = Layout<T, D>;
+  const int tid = threadIdx.x;
+  store_smem<L::VEC>(red_s + (tid / L::LG) * D + (tid % L::LG) * L::VEC, part);
+  __syncthreads();
+  if (tid < D) {
+    float s = 0.f;
+    for (int j = 0; j < L::RP; ++j) s += red_s[j * D + tid];
+    dst[tid] = s;
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ void fma_row(const float4 x, const float4 (&b)[4], float (&acc)[4]) {
+  acc[0] = fmaf(x.x, b[0].x, acc[0]); acc[1] = fmaf(x.x, b[0].y, acc[1]);
+  acc[2] = fmaf(x.x, b[0].z, acc[2]); acc[3] = fmaf(x.x, b[0].w, acc[3]);
+  acc[0] = fmaf(x.y, b[1].x, acc[0]); acc[1] = fmaf(x.y, b[1].y, acc[1]);
+  acc[2] = fmaf(x.y, b[1].z, acc[2]); acc[3] = fmaf(x.y, b[1].w, acc[3]);
+  acc[0] = fmaf(x.z, b[2].x, acc[0]); acc[1] = fmaf(x.z, b[2].y, acc[1]);
+  acc[2] = fmaf(x.z, b[2].z, acc[2]); acc[3] = fmaf(x.z, b[2].w, acc[3]);
+  acc[0] = fmaf(x.w, b[3].x, acc[0]); acc[1] = fmaf(x.w, b[3].y, acc[1]);
+  acc[2] = fmaf(x.w, b[3].z, acc[2]); acc[3] = fmaf(x.w, b[3].w, acc[3]);
+}
+
+// acc[i][j] += sum_a A[(ty*RT + i)*D + a] * B[a*D + tx*4 + j]: RT rows of a
+// staged (kTile, D) tile times a D x D matrix, both in shared memory.
+template <int D, int RT>
+__device__ __forceinline__ void rows_times_mat(const float* A, const float* B, int ty, int tx,
+                                               float (&acc)[RT][4]) {
+#pragma unroll 2
+  for (int a = 0; a < D; a += 4) {
+    float4 b[4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) b[kk] = ld4(B + (a + kk) * D + tx * 4);
+#pragma unroll
+    for (int i = 0; i < RT; ++i) fma_row(ld4(A + (ty * RT + i) * D + a), b, acc[i]);
+  }
+}
+
+// acc[i][j] += sum_t A[t*D + ty*RA + i] * B[t*D + tx*4 + j] over the kTile
+// rows of two staged (kTile, D) tiles: a (RA, 4) block of A^T B.
+template <int D, int RA>
+__device__ __forceinline__ void tile_t_times_tile(const float* A, const float* B, int ty, int tx,
+                                                  float (&acc)[RA][4]) {
+#pragma unroll 2
+  for (int t = 0; t < kTile; ++t) {
+    const float4 b = ld4(B + t * D + tx * 4);
+    float a[RA];
+    if constexpr (RA % 4 == 0) {
+#pragma unroll
+      for (int i = 0; i < RA; i += 4) {
+        const float4 x = ld4(A + t * D + ty * RA + i);
+        a[i] = x.x; a[i + 1] = x.y; a[i + 2] = x.z; a[i + 3] = x.w;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < RA; ++i) a[i] = A[t * D + ty * RA + i];
+    }
+#pragma unroll
+    for (int i = 0; i < RA; ++i) {
+      acc[i][0] = fmaf(a[i], b.x, acc[i][0]); acc[i][1] = fmaf(a[i], b.y, acc[i][1]);
+      acc[i][2] = fmaf(a[i], b.z, acc[i][2]); acc[i][3] = fmaf(a[i], b.w, acc[i][3]);
+    }
+  }
+}
+
+// The sink side over rows [r_begin, r_end) of one (batch * kv head), given
+// the key-side reductions in shared memory (kv_s D x D, ksum_s, kosum_s):
+//   phi = sigmoid(q);  I = (phi+eps).(k_sum+eps);  C = (phi+eps).(ko_sum+eps)
+//   out = sigmoid(C * sink_scale) * ((phi / I) @ kv) * out_scale
+// K6's phase D (out_scale = m / z, the deferred softmax normalizer) and K7a
+// (out_scale = 1).  tile_s (kTile x D) and rs_s (kTile) are scratch; the
+// block is synchronized on entry and on return.
+template <typename T, int D>
+__device__ void sink_rows(const T* __restrict__ q, T* __restrict__ out, int r_begin, int r_end,
+                          const float* kv_s, const float* ksum_s, const float* kosum_s,
+                          float* tile_s, float* rs_s, float eps, float sink_scale,
+                          float out_scale) {
+  using L = Layout<T, D>;
+  const int tid = threadIdx.x;
+  const int cg = tid % L::LG, rg = tid / L::LG, col0 = cg * L::VEC;
+  const int tx = tid % L::TX, ty = tid / L::TX;
+  for (int t0 = r_begin; t0 < r_end; t0 += kTile) {
+    for (int p = 0; p < kTile; p += L::RP) {
+      const int tr = p + rg, r = t0 + tr;
+      float x[L::VEC] = {};
+      if (r < r_end) load16(q + (size_t)r * D + col0, x);
+      float inc = 0.f, con = 0.f;
+#pragma unroll
+      for (int i = 0; i < L::VEC; ++i) {
+        x[i] = sigmoid(x[i]);
+        inc = fmaf(x[i] + eps, ksum_s[col0 + i] + eps, inc);
+        con = fmaf(x[i] + eps, kosum_s[col0 + i] + eps, con);
+      }
+      inc = group_sum<L::LG>(inc);
+      con = group_sum<L::LG>(con);
+      store_smem<L::VEC>(tile_s + tr * D + col0, x);
+      if (cg == 0) rs_s[tr] = sigmoid(con * sink_scale) / inc * out_scale;
+    }
+    __syncthreads();
+    float acc[L::RT][4] = {};
+    rows_times_mat<D, L::RT>(tile_s, kv_s, ty, tx, acc);
+#pragma unroll
+    for (int i = 0; i < L::RT; ++i) {
+      const int t = ty * L::RT + i, r = t0 + t;
+      if (r < r_end) {
+        const float s = rs_s[t];
+        const float y[4] = {acc[i][0] * s, acc[i][1] * s, acc[i][2] * s, acc[i][3] * s};
+        store4(out + (size_t)r * D + tx * 4, y);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+}  // namespace flow_nc

@@ -14,6 +14,12 @@ this module imports nothing of JAX) and builds the port's parameter dict:
 
 ``params_to_numpy`` is the inverse, restacking into the reference's layout
 by the rule ``repro.models.lm.init`` uses.
+
+A classifier tree (``repro/models/classifier.py``: ``embed`` or
+``in_proj``, a list of ``blocks``, ``final_norm`` and a dense ``head``
+with a bias) is never stacked, whatever ``cfg.scan_layers`` says, so both
+directions carry it as it is.  The tree itself tells the two apart: only a
+classifier has ``in_proj`` or a dense ``head``.
 """
 from __future__ import annotations
 
@@ -45,8 +51,22 @@ def _leaves(tree):
         yield tree
 
 
+def is_classifier(tree: dict) -> bool:
+    """True for a classifier's parameter tree (its head is dense)."""
+    return "in_proj" in tree or "w" in tree.get("head", {})
+
+
+def _as_tensor(x):
+    return torch.from_numpy(np.array(x, copy=True))
+
+
 def params_from_numpy(tree: dict, cfg: ModelConfig) -> dict:
     """The port's parameter dict (CPU tensors) from a numpy param tree."""
+    if is_classifier(tree):
+        if len(tree["blocks"]) != cfg.n_layers:
+            raise ValueError(f"tree has {len(tree['blocks'])} blocks, cfg "
+                             f"{cfg.n_layers}")
+        return tree_map(_as_tensor, dict(tree))
     blocks = _blocks_of(tree, cfg)
     if len(blocks) != cfg.n_layers:
         raise ValueError(f"tree has {len(blocks)} blocks, cfg {cfg.n_layers}")
@@ -54,12 +74,14 @@ def params_from_numpy(tree: dict, cfg: ModelConfig) -> dict:
          "final_norm": tree["final_norm"]}
     if not cfg.tie_embeddings:
         p["head"] = tree["head"]
-    return tree_map(lambda x: torch.from_numpy(np.array(x, copy=True)), p)
+    return tree_map(_as_tensor, p)
 
 
 def params_to_numpy(params: dict, cfg: ModelConfig) -> dict:
     """The reference's param tree layout with numpy leaves."""
     p = tree_map(lambda x: x.detach().cpu().numpy(), params)
+    if is_classifier(p):
+        return p
     out = {"embed": p["embed"]}
     period = len(cfg.pattern)
     n_rep, tail = divmod(cfg.n_layers, period)

@@ -1,9 +1,12 @@
 """Build, load and count the port's CUDA kernels.
 
-Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
-for ``sm_90a`` into ``_build/lib<name>-<hash>.so`` inside the package (the
-hash covers the source and the flags, so an edited source rebuilds), then
-loaded with ``ctypes``.  Nothing here runs at import.
+Each ``csrc/<name>.cu`` (one per entry of ``SOURCES``) has a plain C
+interface and is compiled by ``nvcc`` for ``sm_90a`` into
+``_build/lib<name>-<hash>.so`` inside the package (the hash covers the
+source, the shared ``csrc/*.cuh`` headers and the flags, so an edited
+source rebuilds), then loaded with ``ctypes``.  ``KERNELS`` names the
+kernels whose launches are counted: one source may hold several
+(``flow_nc_qside.cu`` holds K7a and K7b).  Nothing here runs at import.
 """
 from __future__ import annotations
 
@@ -19,7 +22,10 @@ import torch
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-KERNELS = ("flow_fused", "flow_fused_bwd", "flow_decode")
+SOURCES = ("flow_fused", "flow_fused_bwd", "flow_decode", "flow_nc_fused",
+           "flow_nc_qside")
+KERNELS = ("flow_fused", "flow_fused_bwd", "flow_decode", "flow_nc_fused",
+           "flow_nc_qside", "flow_nc_qside_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -49,17 +55,18 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    src = (CSRC_DIR / f"{name}.cu").read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
-def build(names=KERNELS) -> dict[str, str]:
-    """Compile every named kernel whose library is missing.
+def build(names=SOURCES) -> dict[str, str]:
+    """Compile every named source whose library is missing.
 
     All ``nvcc`` processes start together and are waited on together.
     Returns the compiler's output (``-Xptxas -v`` register and shared
-    memory report) per kernel built; raises if any build fails.
+    memory report) per source built; raises if any build fails.
     """
     BUILD_DIR.mkdir(exist_ok=True)
     jobs = {}
@@ -86,8 +93,8 @@ def build(names=KERNELS) -> dict[str, str]:
 
 
 def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
-    """The C entry point ``symbol`` of kernel library ``name`` (built on
-    first use), returning an ``int`` cudaError_t."""
+    """The C entry point ``symbol`` of the library built from source
+    ``name`` (built on first use), returning an ``int`` cudaError_t."""
     key = f"{name}:{symbol}"
     fn = _FUNCS.get(key)
     if fn is None:
@@ -102,6 +109,15 @@ def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
         fn.error_string = err
         _FUNCS[key] = fn
     return fn
+
+
+def refuse_autograd(*xs: torch.Tensor, why: str, instead: str):
+    """Raise where autograd would record a kernel call whose output has no
+    autograd graph: grad mode on and an input that requires grad.  Inside
+    an ``autograd.Function`` grad mode is off.  ``instead`` names the
+    differentiable route."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
+        raise RuntimeError(f"{why}; differentiate through {instead}")
 
 
 def check(fn, err: int, what: str):

@@ -62,14 +62,7 @@ def check_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return bh, g, n, d
 
 
-def refuse_autograd(*xs: torch.Tensor, why: str):
-    """Raise where autograd would record the call: grad mode on and an
-    input that requires grad.  Inside ``FlowFusedDot`` (an
-    ``autograd.Function``) grad mode is off."""
-    if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
-        raise RuntimeError(f"{why}; differentiate through "
-                           "flow_fused_forward without lengths (FlowFusedDot, "
-                           "backward kernel K2)")
+_DENSE = "flow_fused_forward without lengths (FlowFusedDot, backward kernel K2)"
 
 
 def flow_fused_call(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -81,7 +74,7 @@ def flow_fused_call(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with 1 <= lens <= N; N % chunk == 0.  Returns (out (BH, G, N, Dv),
     (q_sum, k_sum, ko_sum, qi_sum) each (BH, D) fp32, z (BH,) fp32,
     s (BH, D, Dv) fp32).  On CUDA it raises for inputs autograd would
-    differentiate (``refuse_autograd``).
+    differentiate (``_lib.refuse_autograd``).
     """
     if q.shape[2] % chunk:
         raise ValueError(f"N={q.shape[2]} is not a multiple of chunk={chunk}")
@@ -90,8 +83,8 @@ def flow_fused_call(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               use_alloc=use_alloc)
     bh, g, n, d = check_flat(q, k, v, lens, phi)
     dv = d
-    refuse_autograd(q, k, v, why="the flow_fused kernel's output has no "
-                    "autograd graph")
+    _lib.refuse_autograd(q, k, v, why="the flow_fused kernel's output has "
+                         "no autograd graph", instead=_DENSE)
 
     f32 = dict(dtype=torch.float32, device=q.device)
     out = torch.empty((bh, g, n, dv), dtype=q.dtype, device=q.device)
@@ -138,8 +131,9 @@ def flow_fused_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out, *sums = FlowFusedDot.apply(qf, kf, vf, n, c, cfg.eps, cfg.phi,
                                         cfg.use_allocation)
     else:
-        refuse_autograd(q, k, v, why="packed prefill (lengths=) is "
-                        "forward-only serving, as in the reference")
+        _lib.refuse_autograd(q, k, v, why="packed prefill (lengths=) is "
+                             "forward-only serving, as in the reference",
+                             instead=_DENSE)
         t = lengths.to(device=q.device, dtype=torch.int32).clamp(1, n)
         out, sums = flow_fused_call(qf, kf, vf, t.repeat_interleave(hkv),
                                     chunk=c, eps=cfg.eps, phi=cfg.phi,

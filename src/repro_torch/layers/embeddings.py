@@ -2,6 +2,7 @@
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.utils import trunc_normal
 
@@ -11,7 +12,12 @@ def embedding_init(gen: torch.Generator, vocab: int, d: int) -> dict:
 
 
 def embed(params: dict, ids: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
-    return params["table"][ids.long()].to(dtype)
+    """Rows of the table for ``ids``, cast to ``dtype``.  Through
+    ``F.embedding``: the same gather as indexing, but its backward sums
+    repeated ids by sorted segments, where an indexing gather's backward
+    adds the rows of one id one after another (half of a classifier step
+    on the H100, a padded batch being mostly one id)."""
+    return F.embedding(ids.long(), params["table"]).to(dtype)
 
 
 def unembed(params: dict, x: torch.Tensor, *, softcap: float = 0.0):

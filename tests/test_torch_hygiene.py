@@ -23,9 +23,15 @@ from repro_torch import attention  # noqa: E402
 from repro_torch.attention import ExecutionPlan, FlowConfig, ShapeInfo  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.kernels import LAUNCHES, reset_launches  # noqa: E402
+from repro_torch.kernels._lib import KERNELS  # noqa: E402
 from repro_torch.kernels.flow_decode import flow_decode_step  # noqa: E402
 from repro_torch.kernels.flow_fused import flow_fused_call, flow_fused_forward  # noqa: E402
+from repro_torch.kernels.flow_nc import (flow_nc_fused_call,  # noqa: E402
+                                         flow_nc_qside_bwd_call,
+                                         flow_nc_qside_call)
+from repro_torch.launch.classify import train_eval_classifier  # noqa: E402
 from repro_torch.launch.train import train  # noqa: E402
+from repro_torch.models import classifier  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.serving.engine import Engine, Request  # noqa: E402
 
@@ -95,7 +101,22 @@ def test_cpu_wrappers_run_the_plain_version_uncounted():
                                  v[:, None, :1], FlowConfig(causal=True,
                                                             strict_causal=True))
     assert all(a is b for a, b in zip(same, pool)) and pool.t.tolist() == [1, 1]
-    assert LAUNCHES == {"flow_fused": 0, "flow_fused_bwd": 0, "flow_decode": 0}
+    assert LAUNCHES == dict.fromkeys(KERNELS, 0)
+
+
+def test_cpu_flow_nc_wrappers_run_the_plain_version_uncounted():
+    reset_launches()
+    q, k = torch.randn((2, 12, 32)), torch.randn((2, 7, 32))
+    assert flow_nc_fused_call(q, k, k).shape == (2, 12, 32)
+    sums = torch.rand((2, 32)) * 7
+    kv = torch.randn((2, 32, 32))
+    assert flow_nc_qside_call(q, sums, sums, kv, n_sinks=12,
+                              m_sources=7).shape == (2, 12, 32)
+    grads = flow_nc_qside_bwd_call(q, sums, sums, kv, q, n_sinks=12,
+                                   m_sources=7)
+    assert [tuple(g.shape) for g in grads] == [(2, 12, 32), (2, 32), (2, 32),
+                                              (2, 32, 32)]
+    assert LAUNCHES == dict.fromkeys(KERNELS, 0)
 
 
 def test_cpu_serving_counts_no_launch():
@@ -109,7 +130,7 @@ def test_cpu_serving_counts_no_launch():
             0, cfg.vocab_size, 6 + uid).astype(np.int32), max_new_tokens=3))
     assert len(engine.run()) == 3
     assert engine.worker.decode_steps > 0
-    assert LAUNCHES == {"flow_fused": 0, "flow_fused_bwd": 0, "flow_decode": 0}
+    assert LAUNCHES == dict.fromkeys(KERNELS, 0)
 
 
 SHAPES = {"prefill_packed": ShapeInfo(b=16, hq=8, hkv=8, n=512, m=512, d=64,
@@ -218,3 +239,48 @@ def test_packed_prefill_refuses_autograd():
     out, _ = flow_fused_forward(q, k, v, cfg)  # dense: FlowFusedDot
     out.sum().backward()
     assert q.grad is not None and q.grad.abs().sum() > 0
+
+
+def test_classifier_entry_points_refuse_cpu_unless_asked():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    cfg = get_smoke_config("flowformer_lra")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        classifier.init(cfg, torch.Generator().manual_seed(0), n_classes=3)
+    data = {"inputs": np.zeros((2, 8), np.int32),
+            "labels": np.zeros((2,), np.int32)}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_eval_classifier(cfg, data, data, n_classes=3, steps=1, batch=1)
+
+
+NC = ShapeInfo(b=32, hq=4, hkv=4, n=4096, m=4096, d=64, dv=64)
+
+
+@pytest.mark.parametrize("backend,platform,want", [
+    ("auto", "cuda", "cuda_nc"), ("auto", "cpu", "nc"), ("plain", "cuda", "nc"),
+    ("cuda_nc", "cuda", "cuda_nc"), ("nc", "cuda", "nc")])
+def test_non_causal_resolution(backend, platform, want):
+    plan = ExecutionPlan(flow=FlowConfig(causal=False, backend=backend))
+    assert attention.resolve(plan).backend("forward", NC, platform).name == want
+    assert attention.resolve_for_training(plan, NC, platform).name == want
+
+
+@pytest.mark.parametrize("change,reason", [
+    (dict(use_allocation=False), "kernel hard-codes the allocation sigmoid"),
+    (dict(phi="elu1"), "kernel hard-codes sigmoid phi"),
+    (dict(gqa_mode="expand"), "kernel implements shared-GQA semantics only")])
+def test_auto_on_cuda_refuses_what_the_nc_kernel_does_not_take(change, reason):
+    cfg = FlowConfig(causal=False, **change)
+    shapes = dataclasses.replace(NC, hq=8)
+    with pytest.raises(attention.ResolutionError, match=reason) as err:
+        attention.resolve(ExecutionPlan(flow=cfg)).backend("forward", shapes,
+                                                           "cuda")
+    why = dict(err.value.rejections)
+    assert why["cuda_nc"].startswith(reason) and "pinned" in why["nc"]
+    assert why["cuda_fused"] == "causal-only backend"
+    pinned = dataclasses.replace(cfg, backend="plain")
+    assert attention.resolve(ExecutionPlan(flow=pinned)).backend(
+        "forward", shapes, "cuda").name == "nc"
+    text = str(attention.explain(ExecutionPlan(flow=cfg), shapes,
+                                 platform="cuda", op="forward"))
+    assert f"no  cuda_nc: {reason}" in text
