@@ -23,6 +23,13 @@ any failure raises, so the exit code is non-zero:
      shape (32 rows x 4 heads, N = M = 4096, D = 64, bf16 and fp32; K6 with
      competition on and off, K7b with random cotangents), and at G = 2,
      N = 200, M = 136 (through the grouping wrapper, with gradients);
+  3d. K5a ``flow_chunk`` and K5b ``flow_chunk_dkv`` against their plain
+     versions at the paper-causal training shape (16 rows x 8 kv heads,
+     G = 1, N = 512, D = 64, fp32; operands as the causal pipeline makes
+     them), K5a also on the swapped operands of the backward's dq, and at
+     G = 2, N = 200 padded to the chunk, D = 32 and 128, through the glue
+     and autograd (``FlowChunkDot``) against autograd of the plain cumsum
+     dot;
   4. K3 ``flow_decode`` against its plain version: 16 (the serving pool)
      and 64 slots x 8 kv heads, 32 steps from a non-zero state, updated
      in place;
@@ -39,10 +46,19 @@ any failure raises, so the exit code is non-zero:
      recompute) and 6 K2 launches per step and nothing else; then
      ``torch.profiler`` over two steps: device time by kernel and busy
      share;
+  7c. training the paper-faithful causal variant (``attention.
+     strict_causal=False``, made with ``dataclasses.replace`` as
+     ``benchmarks/common.py::with_kind`` does) at full width, as phase 7:
+     finite losses, and exactly 3 x 6 K5a (forward, remat recompute and
+     the backward's dq) and 6 K5b launches per step and nothing else; then
+     ``torch.profiler`` over two steps;
   8. the same trainer in fp32 at full width and 2 layers, once on the
      kernels and once on the plain PyTorch path, 3 steps: the losses
      agree, and every wq/wk/wv gradient of the first step is non-zero
      and agrees with the plain path's;
+  8b. phase 8 for the paper-causal variant (the plain path: the
+     ``chunked`` scan), and for 1 step without competition
+     (``use_competition=False``);
   10. the LRA classifier at full width (``launch/classify.py::
      train_eval_classifier``, flowformer_lra, bf16, 5 steps of 32 x 4096
      ListOps tokens, random weights from a seed), then its evaluation over
@@ -57,8 +73,8 @@ any failure raises, so the exit code is non-zero:
   9. (after 11) per kernel, its time with CUDA events beside its plain
      version's and its bound, as one ``{"kernels": [...]}`` line
      (``launches`` is the count over the main-path runs of phases 5 and 7
-     for K1-K3 and of phase 10 for K6, K7a, K7b), and K1's time at the
-     training shape;
+     for K1-K3, of phase 10 for K6, K7a, K7b and of phase 7c for K5a,
+     K5b), and K1's time at the training shape;
   12. the last line: ``{"ok": true, "device": {...}}``.
 
 Tolerances (|kernel - plain| <= atol + rtol * |plain|, elementwise):
@@ -69,8 +85,13 @@ round once to bf16, whose spacing is 2^-7 relative.  K2's gradients are
 held to the same two tolerances, as are K6's, K7a's and K7b's outputs
 and cotangents (K7b's key-side cotangents are fp32 in both dtypes, summed
 from the same rounded inputs); these are also held to rtol x max |plain|,
-since at the LRA shape they are ~1e-3, below atol.  fp32 training, kernels vs plain (the LM
-and the classifier): losses rtol 1e-4, and each attention weight's
+since at the LRA shape they are ~1e-3, below atol.  K5a and K5b, fp32:
+|kernel - plain| <= atol + rtol * |plain| + rtol * max |plain| with rtol
+and atol 1e-4 -- the causal dot sums N D terms as large as its largest
+outputs, so an output that cancels (the dq of a unit cotangent) keeps an
+error of the terms' size, whatever the order.  fp32 training, kernels vs
+plain (the LM, both causal variants, and the classifier): losses rtol
+1e-4, and each attention weight's
 gradient within 1e-4 of that leaf's max |grad| -- the same fp32 sums in
 another order, carried through the residual stream and three Adam steps.
 """
@@ -278,6 +299,72 @@ def check_flow_fused_bwd() -> dict:
         errs[dtype] = max(errs.get(dtype, 0.0), err)
         print(f"[K2] {tag}: grads {err:.3e}", flush=True)
     return {"max_abs_err": errs[torch.bfloat16]}
+
+
+def dot_close(name: str, got: torch.Tensor, want: torch.Tensor,
+              tol=TOL[torch.float32]) -> float:
+    """Max |got - want|; raises where it exceeds atol + rtol * |want| +
+    rtol * max |want| (the causal dot's tolerance, see the docstring)."""
+    rtol, atol = tol
+    scale = float(want.abs().max())
+    return max_err(name, got, want, (rtol, atol + rtol * scale))
+
+
+def chunk_operands(bh, g, n, d, dv, seed):
+    """The causal dot's operands as ``pipeline.causal_forward`` makes them
+    (sigmoid phi): q_in = phi(q) * pos / I (BH, G, N, D), phi(k) (BH, N,
+    D), v (BH, N, Dv) and a unit cotangent (BH, G, N, Dv); fp32."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    mk = lambda *s: torch.randn(s, generator=gen, device=DEVICE)  # noqa: E731
+    pq, pk = torch.sigmoid(mk(bh, g, n, d)), torch.sigmoid(mk(bh, n, d))
+    pos = torch.arange(1, n + 1, device=DEVICE, dtype=torch.float32)
+    inflow = torch.einsum("bgnd,bnd->bgn", pq, torch.cumsum(pk, 1))
+    q = (pq * (pos / inflow)[..., None]).contiguous()
+    return q, pk.contiguous(), mk(bh, n, dv), mk(bh, g, n, dv)
+
+
+def check_flow_chunk() -> dict:
+    """Phase 3d: K5a and K5b against their plain versions; returns each
+    one's max |error| at the paper-causal training shape."""
+    from repro_torch.attention._cuda import chunked_causal_dot_cuda
+    from repro_torch.attention.dots import causal_dot_grouped
+    from repro_torch.kernels.flow_chunk import (flow_chunk_call,
+                                                flow_chunk_dkv_call,
+                                                flow_chunk_dkv_ref,
+                                                flow_chunk_ref)
+
+    with torch.no_grad():
+        q, k, v, g = chunk_operands(16 * 8, 1, 512, 64, 64, SEED + 50)
+        tag = "fp32 BH=128 G=1 N=512 D=64"
+        e5a = dot_close(f"flow_chunk {tag} out", flow_chunk_call(q, k, v),
+                        flow_chunk_ref(q, k, v))
+        edq = dot_close(f"flow_chunk {tag} dq (g, v, k)",
+                        flow_chunk_call(g, v, k), flow_chunk_ref(g, v, k))
+        e5b = max(dot_close(f"flow_chunk_dkv {tag} {name}", a, b)
+                  for name, a, b in zip(("dk", "dv"),
+                                        flow_chunk_dkv_call(q, k, v, g),
+                                        flow_chunk_dkv_ref(q, k, v, g)))
+        torch.cuda.synchronize()
+    print(f"[K5] {tag}: K5a {e5a:.3e}, K5a dq {edq:.3e}, K5b {e5b:.3e}",
+          flush=True)
+    b, hkv, grp, n = 4, 8, 2, 200
+    for d in (32, 128):
+        q, k, v, g = chunk_operands(b * hkv, grp, n, d, d, SEED + 51 + d)
+        q, g = q.reshape(b, hkv, grp, n, d), g.reshape(b, hkv, grp, n, d)
+        k, v = k.reshape(b, hkv, n, d), v.reshape(b, hkv, n, d)
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        plain = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out = chunked_causal_dot_cuda(*leaves, chunk=128)  # N padded to 256
+        want = causal_dot_grouped(*plain, chunk_size=0, use_kernel=False)
+        tag = f"fp32 G=2 N=200 D={d}"
+        e = dot_close(f"flow_chunk {tag} out", out.detach(), want.detach())
+        eg = max(dot_close(f"FlowChunkDot {tag} d{name}", a, b_)
+                 for name, a, b_ in zip("qkv", torch.autograd.grad(
+                     out, leaves, g), torch.autograd.grad(want, plain, g)))
+        torch.cuda.synchronize()
+        print(f"[K5] {tag}: out {e:.3e}, grads through FlowChunkDot "
+              f"{eg:.3e}", flush=True)
+    return {"flow_chunk": e5a, "flow_chunk_dkv": e5b}
 
 
 def decode_pool(slots, hkv, d, seed):
@@ -613,11 +700,54 @@ def train_full_width(cfg) -> dict:
     return stats
 
 
-def profile_train(cfg, step_ms: float) -> dict:
-    """Phase 7b: device time of a full-width bf16 training step by kernel,
-    from ``torch.profiler`` over two steps (the weights are on the card
-    before the window opens), and its share of phase 7's unprofiled step
-    time."""
+K12 = {"k1_ms_per_step": "flow_fused_fwd_kernel",
+       "k2_ms_per_step": "flow_fused_bwd_kernel"}
+
+
+def paper_causal(cfg, **over):
+    """The paper-faithful causal variant of ``cfg`` (``lm_table4.py``'s
+    "paper-faithful causal" row), made as ``with_kind`` makes it."""
+    return dataclasses.replace(cfg, attention=dataclasses.replace(
+        cfg.attention, strict_causal=False, **over))
+
+
+def train_paper_causal_full_width(cfg) -> dict:
+    """Phase 7c: phase 7 for the paper-causal variant; every attention
+    forward, its remat recompute and its dq run K5a, its dk and dv K5b."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels._lib import KERNELS
+    from repro_torch.launch.train import train
+
+    cfg = paper_causal(cfg)
+    steps, batch, seq = 5, 16, 512
+    torch.cuda.synchronize()
+    reset_launches()
+    out = train(cfg, steps=steps, batch=batch, seq=seq, seed=SEED,
+                device=DEVICE)
+    launches = dict(LAUNCHES)
+    hist = out["history"]
+    if len(hist) != steps or not all(math.isfinite(x) for x in hist):
+        raise AssertionError(f"paper-causal training losses {hist}")
+    n = cfg.n_layers * steps
+    want = {**dict.fromkeys(KERNELS, 0), "flow_chunk": 3 * n,
+            "flow_chunk_dkv": n}
+    if launches != want:
+        raise AssertionError(f"paper-causal training launched {launches}, "
+                             f"want {want}")
+    step_ms = 1e3 * statistics.median(out["step_s"][1:])
+    stats = {"steps": steps, "batch": batch, "seq": seq,
+             "first_step_ms": 1e3 * out["step_s"][0], "step_ms": step_ms,
+             "tokens_per_s": batch * seq / step_ms * 1e3,
+             "history": hist, "launches": launches}
+    print("[train paper-causal bf16] " + json.dumps(stats), flush=True)
+    return stats
+
+
+def profile_train(cfg, step_ms: float, kernels=K12, tag="train") -> dict:
+    """Phase 7b (and 7c): device time of a full-width bf16 training step
+    by kernel, from ``torch.profiler`` over two steps (the weights are on
+    the card before the window opens), and its share of phase 7's (7c's)
+    unprofiled step time; ``kernels`` names the path's kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -632,7 +762,9 @@ def profile_train(cfg, step_ms: float) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         train(cfg, steps=steps, batch=16, seq=512, seed=SEED + 1,
               device=DEVICE, params=params)
-    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    events = prof.key_averages()
+    dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    host = [e for e in events if e.device_type == DeviceType.CPU]
     dev_us = lambda e: getattr(e, "self_device_time_total",  # noqa: E731
                                getattr(e, "self_cuda_time_total", 0.0))
     busy = sum(dev_us(e) for e in dev) / 1e3 / steps
@@ -641,19 +773,24 @@ def profile_train(cfg, step_ms: float) -> dict:
     stats = {"steps": steps, "device_ms_per_step": busy,
              "kernels_per_step": sum(e.count for e in dev) / steps,
              "step_ms_unprofiled": step_ms, "device_busy_share": busy / step_ms,
-             "k1_ms_per_step": by_name("flow_fused_fwd_kernel"),
-             "k2_ms_per_step": by_name("flow_fused_bwd_kernel"),
+             **{label: by_name(key) for label, key in kernels.items()},
              "device_ms_per_step_by_kernel": {
                  e.key[:80]: dev_us(e) / 1e3 / steps
-                 for e in sorted(dev, key=dev_us, reverse=True)[:8]}}
-    print("[profile train] " + json.dumps(stats), flush=True)
+                 for e in sorted(dev, key=dev_us, reverse=True)[:8]},
+             "host_ms_per_step_by_op_profiled": {
+                 e.key[:80]: e.self_cpu_time_total / 1e3 / steps
+                 for e in sorted(host, key=lambda e: e.self_cpu_time_total,
+                                 reverse=True)[:8]}}
+    print(f"[profile {tag}] " + json.dumps(stats), flush=True)
     return stats
 
 
-def train_fp32_both_paths(cfg):
-    """Phase 8: fp32 training at full width and 2 layers, kernels vs the
-    plain PyTorch path: per-step losses, and the first step's attention
-    gradients (non-zero on the kernels: K2 reached wq/wk/wv)."""
+def train_fp32_both_paths(cfg, steps=3, per_layer_step=None, tag="train"):
+    """Phase 8 (and 8b): fp32 training at full width and 2 layers, kernels
+    vs the plain PyTorch path: per-step losses, and the first step's
+    attention gradients (non-zero on the kernels: K2, or K5a and K5b,
+    reached wq/wk/wv).  ``per_layer_step`` gives each kernel's launches
+    per layer and step (default: 2 K1 and 1 K2)."""
     from repro_torch.data.loader import lm_loader
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.kernels._lib import KERNELS
@@ -663,7 +800,8 @@ def train_fp32_both_paths(cfg):
     from repro_torch.utils import tree_map
 
     cfg = dataclasses.replace(cfg, n_layers=2)
-    steps, batch, seq = 3, 16, 512
+    batch, seq = 16, 512
+    per_layer_step = per_layer_step or {"flow_fused": 2, "flow_fused_bwd": 1}
     params = lm.init(cfg, torch.Generator().manual_seed(SEED + 2),
                      device=DEVICE)
     first = {k: torch.from_numpy(v).to(DEVICE) for k, v in
@@ -689,25 +827,40 @@ def train_fp32_both_paths(cfg):
         n = cfg.n_layers * steps
         want = dict.fromkeys(KERNELS, 0)
         if backend == "auto":
-            want.update(flow_fused=2 * n, flow_fused_bwd=n)
+            want.update({k: per * n for k, per in per_layer_step.items()})
         if dict(LAUNCHES) != want:
-            raise AssertionError(f"backend={backend}: launches {LAUNCHES}, "
-                                 f"want {want}")
+            raise AssertionError(f"{tag} backend={backend}: launches "
+                                 f"{LAUNCHES}, want {want}")
     for i, (a, b) in enumerate(zip(hist["auto"], hist["plain"])):
         if not abs(a - b) <= 1e-4 * abs(b):
-            raise AssertionError(f"fp32 step {i} loss: kernels {a}, plain {b}")
+            raise AssertionError(f"{tag} fp32 step {i} loss: kernels {a}, "
+                                 f"plain {b}")
     worst = 0.0
     for name, g in grads["auto"].items():
         ref = grads["plain"][name]
         scale, err = float(ref.abs().max()), float((g - ref).abs().max())
         if not float(g.abs().max()) > 0 or not err <= 1e-4 * scale:
-            raise AssertionError(f"fp32 step 1 {name} grad: |diff| {err:.3e}, "
-                                 f"max |plain| {scale:.3e}, max |kernels| "
-                                 f"{float(g.abs().max()):.3e}")
+            raise AssertionError(f"{tag} fp32 step 1 {name} grad: |diff| "
+                                 f"{err:.3e}, max |plain| {scale:.3e}, max "
+                                 f"|kernels| {float(g.abs().max()):.3e}")
         worst = max(worst, err / scale)
-    print(f"[train fp32] kernels vs plain, 2 layers x {steps} steps: losses "
+    print(f"[{tag} fp32] kernels vs plain, 2 layers x {steps} steps: losses "
           f"{hist['auto']} vs {hist['plain']}; wq/wk/wv grads of step 1 "
           f"non-zero, worst |diff| / max |grad| {worst:.3e}", flush=True)
+
+
+K5 = {"flow_chunk": 3, "flow_chunk_dkv": 1}
+
+
+def train_paper_fp32_both_paths(cfg):
+    """Phase 8b: phase 8 for the paper-causal variant (3 steps) and for
+    the variant without competition (1 step), on K5a and K5b."""
+    train_fp32_both_paths(paper_causal(cfg), per_layer_step=K5,
+                          tag="train paper-causal")
+    no_comp = dataclasses.replace(cfg, attention=dataclasses.replace(
+        cfg.attention, use_competition=False))
+    train_fp32_both_paths(no_comp, steps=1, per_layer_step=K5,
+                          tag="train no-competition")
 
 
 def train_classifier_full_width(cfg) -> dict:
@@ -918,6 +1071,19 @@ def bwd_ops_per_position(g: int, d: int, dv: int) -> int:
     return 6 * (g + 1) * d * dv + 21 * (g + 1) * d + 3 * g * dv
 
 
+def chunk_ops(g: int, d: int, dv: int) -> int:
+    """fp32 operations of K5a for one position of one (row, kv head) in
+    the recurrent form: 2 G D Dv for q @ S and 2 D Dv for S += k^T v."""
+    return 2 * (g + 1) * d * dv
+
+
+def chunk_dkv_ops(g: int, d: int, dv: int) -> int:
+    """fp32 operations of K5b for one position of one (row, kv head) in
+    the recurrent form: 2 D Dv each for U v and U^T k, and 2 G D Dv for
+    U += q^T g."""
+    return 2 * (g + 2) * d * dv
+
+
 def nc_fused_ops(nq: int, m: int, d: int, dv: int) -> int:
     """fp32 operations of K6 for one (row, kv head): per source row D for
     k_sum, 4 D for its outflow dot and ko_sum, 2 D for cons_src, Dv for
@@ -1028,6 +1194,48 @@ def time_kernels(launches: dict, errs: dict) -> list:
             "bound_ms": bound_ms, "bound_by": by, "library_ms": None})
     rows.insert(1, k2_row)
     rows += time_nc_kernels(launches, errs)
+    rows += time_chunk_kernels(launches, errs)
+    return rows
+
+
+def time_chunk_kernels(launches: dict, errs: dict) -> list:
+    """Phase 9, K5a/K5b: one layer's causal dot of the paper-causal
+    training step (fp32, 16 rows x 8 kv heads, G = 1, N = 512, D = 64).
+    The plain version is the chunked scan, and for K5b the backward of
+    autograd through it (dk and dv only: q does not require grad)."""
+    from repro_torch.attention.chunked import chunked_causal_dot_grouped
+    from repro_torch.kernels.flow_chunk import (flow_chunk_call,
+                                                flow_chunk_dkv_call)
+
+    bh, g, n, d = 16 * 8, 1, 512, 64
+    q, k, v, cot = chunk_operands(bh, g, n, d, d, SEED + 60)
+    kl, vl = k.clone().requires_grad_(True), v.clone().requires_grad_(True)
+    graph = chunked_causal_dot_grouped(q, kl, vl, 128)
+    io = 4 * bh * n * (g * d + d + d + g * d)  # q, k, v read; out written
+    io_dkv = 4 * bh * n * (g * d + 2 * d + g * d + 2 * d)  # + g; dk, dv
+    cases = [
+        ("flow_chunk", "src/repro_torch/csrc/flow_chunk.cu",
+         "src/repro/kernels/flow_chunk/flow_chunk.py:72",
+         lambda: flow_chunk_call(q, k, v),
+         lambda: chunked_causal_dot_grouped(q, k, v, 128),
+         io, bh * n * chunk_ops(g, d, d)),
+        ("flow_chunk_dkv", "src/repro_torch/csrc/flow_chunk_bwd.cu",
+         "src/repro/kernels/flow_chunk/bwd.py:114",
+         lambda: flow_chunk_dkv_call(q, k, v, cot),
+         lambda: torch.autograd.grad(graph, (kl, vl), cot,
+                                     retain_graph=True),
+         io_dkv, bh * n * chunk_dkv_ops(g, d, d)),
+    ]
+    rows = []
+    for name, source, replaces, run, plain, bytes_moved, ops in cases:
+        bound_ms, by = bound(bytes_moved, ops)
+        with torch.no_grad():
+            ms = time_ms(run)
+        rows.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": time_ms(plain),
+            "bound_ms": bound_ms, "bound_by": by, "library_ms": None})
     return rows
 
 
@@ -1086,6 +1294,7 @@ def main() -> int:
     errs = {"flow_fused": check_flow_fused()["max_abs_err"],
             "flow_fused_bwd": check_flow_fused_bwd()["max_abs_err"],
             **check_flow_nc(),
+            **check_flow_chunk(),
             "flow_decode": check_flow_decode()["max_abs_err"]}
 
     from repro_torch.configs import get_config
@@ -1100,12 +1309,19 @@ def main() -> int:
     trained = train_full_width(cfg)
     profile_train(cfg, trained["step_ms"])
     train_fp32_both_paths(cfg)
+    paper = train_paper_causal_full_width(cfg)
+    profile_train(paper_causal(cfg), paper["step_ms"],
+                  kernels={"k5a_ms_per_step": "flow_chunk_kernel",
+                           "k5b_ms_per_step": "flow_chunk_dkv_kernel"},
+                  tag="train paper-causal")
+    train_paper_fp32_both_paths(cfg)
     lra = get_config("flowformer_lra")
     classified = train_classifier_full_width(lra)
     profile_classifier(lra, classified["step_ms"])
     train_classifier_fp32_both_paths(lra)
     launches = {name: stats["launches"][name] + trained["launches"][name]
-                + classified["launches"][name] for name in stats["launches"]}
+                + classified["launches"][name] + paper["launches"][name]
+                for name in stats["launches"]}
     rows = time_kernels(launches, errs)
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

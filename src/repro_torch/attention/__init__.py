@@ -12,14 +12,16 @@ the bound executor, never naming an execution path::
 
 ``FlowConfig.backend="auto"`` resolves to the CUDA kernels on a GPU
 (``cuda_nc`` for non-causal plans; ``cuda_fused``, ``cuda_decode`` for
-causal ones), and raises there for a shape or mode no kernel takes, and
-to their plain PyTorch versions on the CPU (``nc``, ``fused_causal``,
-``recurrent``); ``"plain"`` keeps to the plain versions on any device; a
-registered name pins one.  ``explain(plan, shapes, platform=)`` names
+strict-causal ones; ``cuda_chunk`` for the paper-faithful causal mode
+and the no-competition ablation), and raises there for a shape or mode
+no kernel takes, and to their plain PyTorch versions on the CPU (``nc``,
+``fused_causal``, ``chunked`` or ``cumsum``, ``recurrent``); ``"plain"``
+keeps to the plain versions on any device; a registered name pins one.  ``explain(plan, shapes, platform=)`` names
 each backend's verdict and reason.  ``ExecutionPlan(needs_grad=True)``
 (or ``resolve_for_training``) admits only backends that differentiate the
-op: on a GPU a causal forward then runs K1 and its backward K2, a
-non-causal one K6 and its backward K7a and K7b.
+op: on a GPU a strict-causal forward then runs K1 and its backward K2,
+a paper-causal one K5a and its backward K5a and K5b, a non-causal one K6
+and its backward K7a and K7b.
 """
 from repro_torch.attention.plan import (
     BoundExecutor,

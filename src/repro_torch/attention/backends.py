@@ -2,18 +2,24 @@
 
 Registration order is the ``backend="auto"`` preference order:
 
-    cuda_nc > nc > cuda_fused > fused_causal > cuda_decode > recurrent
+    cuda_nc > nc > cuda_fused > cuda_chunk > fused_causal > chunked
+    > cumsum > cuda_decode > recurrent
 
-``cuda_nc``, ``cuda_fused`` and ``cuda_decode`` are the hand-written CUDA
-kernels (``kernels/flow_nc``, ``kernels/flow_fused``,
-``kernels/flow_decode``) and apply only on a CUDA device; ``nc``,
-``fused_causal`` and ``recurrent`` are their plain PyTorch versions.  The
-non-causal pair serves ``causal=False`` plans only, the others causal
-ones.  On the CPU the plain versions apply; on a CUDA device they
-apply only when pinned (``backend="plain"`` or by name).  So ``auto``
-resolves to the kernels on a GPU, and a shape no kernel takes raises
-there with the kernel's own reason instead of running the plain version
-unseen.
+``cuda_nc``, ``cuda_fused``, ``cuda_chunk`` and ``cuda_decode`` are the
+hand-written CUDA kernels (``kernels/flow_nc``, ``kernels/flow_fused``,
+``kernels/flow_chunk``, ``kernels/flow_decode``) and apply only on a CUDA
+device; ``nc``, ``fused_causal``, ``chunked``, ``cumsum`` and
+``recurrent`` are plain PyTorch.  The non-causal pair serves
+``causal=False`` plans only, the others causal ones.  ``cuda_fused`` and
+``fused_causal`` carry the strict-causal competition in their scan;
+``cuda_chunk``, ``chunked`` and ``cumsum`` run the unfused pipeline
+(``pipeline.causal_forward``) around a causal dot -- K5a, the chunked
+scan, a cumsum -- and so also serve the paper-faithful causal mode
+(``strict_causal=False``) and the no-competition ablation.  On the CPU the
+plain versions apply; on a CUDA device they apply only when pinned
+(``backend="plain"`` or by name).  So ``auto`` resolves to the kernels on
+a GPU, and a shape no kernel takes raises there with the kernel's own
+reason instead of running the plain version unseen.
 
 Gradient capability mirrors the reference's ``differentiable`` sets: the
 plain versions are differentiated by autograd; ``cuda_nc`` differentiates
@@ -21,25 +27,45 @@ its forward through ``attention/vjp.py::FlowNCFused`` (K6 forward, K7a
 and K7b backward); ``cuda_fused``
 differentiates forward and prefill through ``attention/vjp.py::
 FlowFusedDot`` (K1 forward, K2 backward) but not packed prefill, which is
-forward-only serving as in the reference; ``cuda_decode`` updates the
-pool in place and differentiates nothing.
+forward-only serving as in the reference; ``cuda_chunk`` differentiates
+all three through ``FlowChunkDot`` (K5a forward; K5a and K5b backward);
+``cuda_decode`` updates the pool in place and differentiates nothing.
 """
 from __future__ import annotations
 
+import functools
+
 from repro_torch.attention import fused, pipeline, recurrent
+from repro_torch.attention.chunked import chunked_causal_dot_grouped
+from repro_torch.attention.dots import causal_dot_grouped
 from repro_torch.attention.registry import Backend, register_backend
 from repro_torch.kernels._lib import HEAD_DIMS
+from repro_torch.kernels.flow_chunk.ops import check_dims
 
 
-def _check_strict_causal(cfg, shapes, op):
+def _check_causal_self(cfg, shapes, op="forward"):
     if not cfg.causal:
         return "causal-only backend"
     if op != "decode" and shapes.n != shapes.m:
         return f"causal requires N == M, got N={shapes.n} M={shapes.m}"
+    return None
+
+
+def _check_strict_causal(cfg, shapes, op):
+    why = _check_causal_self(cfg, shapes, op)
+    if why:
+        return why
     if not cfg.strict_causal:
         return "implements the strict-causal cumulative competition only"
     if not cfg.use_competition:
         return "the carried state includes the competition normalizer"
+    return None
+
+
+def _check_state_ops(cfg, op):
+    if op in ("prefill", "prefill_packed") and not (
+            cfg.strict_causal and cfg.use_competition):
+        return "recurrent state requires strict_causal competition"
     return None
 
 
@@ -57,6 +83,12 @@ def _check_kernel(shapes, platform):
         return (f"kernel takes D == Dv in {HEAD_DIMS}, got "
                 f"D={shapes.d} Dv={shapes.dv}")
     return None
+
+
+def _check_chunk_kernel(shapes, platform):
+    if platform != "cuda":
+        return f"CUDA kernel needs a CUDA device (platform={platform!r})"
+    return check_dims(shapes.d, shapes.dv)
 
 
 def _check_nc_kernel(cfg, shapes):
@@ -174,6 +206,79 @@ class CudaFused(FusedCausal):
                                   lengths=lengths)
 
 
+def _cumsum_dot(qg, k, v):
+    return causal_dot_grouped(qg, k, v, chunk_size=0, use_kernel=False)
+
+
+class Cumsum(Backend):
+    """The causal pipeline on full-length cumsums (plain PyTorch): every
+    causal mode at every shape, the causal half of the reference's
+    ``xla_cumsum``.  O(N D Dv) memory in the dot."""
+
+    provides = frozenset({"forward", "prefill", "prefill_packed"})
+    differentiable = frozenset({"forward", "prefill", "prefill_packed"})
+    verdict = "universal causal fallback"
+
+    def supports(self, cfg, shapes, platform, *, op="forward"):
+        why = (_check_causal_self(cfg, shapes) or _check_state_ops(cfg, op)
+               or self._check_dot(cfg, shapes, platform))
+        if why:
+            return False, why
+        return True, self.verdict
+
+    def _check_dot(self, cfg, shapes, platform):
+        return _check_plain(cfg, self.name, platform)
+
+    def _dot(self, cfg):
+        return _cumsum_dot
+
+    def forward(self, q, k, v, cfg):
+        return pipeline.causal_forward(q, k, v, cfg, self._dot(cfg))
+
+    def prefill(self, q, k, v, cfg, *, lengths=None):
+        return pipeline.causal_forward(q, k, v, cfg, self._dot(cfg),
+                                       return_state=True, lengths=lengths)
+
+
+class Chunked(Cumsum):
+    """The causal pipeline on the plain chunked scan
+    (``attention/chunked.py``): N a multiple of the chunk, and longer."""
+
+    verdict = "chunked scan"
+
+    def _check_dot(self, cfg, shapes, platform):
+        c = cfg.chunk_size
+        if c <= 0:
+            return "chunk_size <= 0"
+        if shapes.n % c or shapes.n <= c:
+            return f"N={shapes.n} not chunkable by chunk_size={c}"
+        return _check_plain(cfg, self.name, platform)
+
+    def _dot(self, cfg):
+        return functools.partial(chunked_causal_dot_grouped,
+                                 chunk_size=cfg.chunk_size)
+
+
+class CudaChunk(Cumsum):
+    """The causal pipeline on the flow_chunk CUDA kernel K5a (one block
+    per (row, kv head) and Dv slice, the (D, Dv) state in shared memory),
+    differentiated through ``FlowChunkDot`` (K5a for dq, K5b for dk and
+    dv).  Any N: the glue pads to the chunk."""
+
+    verdict = "flow_chunk CUDA kernels"
+
+    def _check_dot(self, cfg, shapes, platform):
+        if cfg.chunk_size <= 0:
+            return "chunk_size <= 0"
+        return _check_chunk_kernel(shapes, platform)
+
+    def _dot(self, cfg):
+        from repro_torch.attention._cuda import chunked_causal_dot_cuda
+
+        return functools.partial(chunked_causal_dot_cuda,
+                                 chunk=cfg.chunk_size)
+
+
 class Recurrent(Backend):
     """The O(d^2) recurrence one token at a time (plain PyTorch); returns a
     new state."""
@@ -216,6 +321,9 @@ class CudaDecode(Recurrent):
 register_backend("cuda_nc", CudaNC())
 register_backend("nc", NonCausal())
 register_backend("cuda_fused", CudaFused())
+register_backend("cuda_chunk", CudaChunk())
 register_backend("fused_causal", FusedCausal())
+register_backend("chunked", Chunked())
+register_backend("cumsum", Cumsum())
 register_backend("cuda_decode", CudaDecode())
 register_backend("recurrent", Recurrent())

@@ -1,16 +1,23 @@
-"""Unfused non-causal Flow-Attention and the GQA expansion.
+"""Unfused Flow-Attention math shared by the plain and causal-dot backends.
 
 The counterpart of ``repro/attention/pipeline.py`` for this port's slices:
-``expand_kv`` (``gqa_mode="expand"``) and ``nc_forward``, the plain
-PyTorch non-causal Flow-Attention of paper Eq. 4/7/8.  ``nc_forward`` is
-the plain ``nc`` backend and the path the flow_nc CUDA kernels are held
-against.
+``expand_kv`` (``gqa_mode="expand"``), ``nc_forward`` (the plain non-causal
+Flow-Attention of paper Eq. 4/7/8; the ``nc`` backend and the path the
+flow_nc CUDA kernels are held against) and ``causal_forward`` (paper Alg.
+2 in all three causal modes).  ``causal_forward`` takes the causal
+aggregation ``out_i = q'_i . sum_{j<=i} phiK_j^T V_hat_j`` as a ``dot_fn``
+argument, so the cumsum, chunked-scan and K5a backends share the flow
+math.  ``causal_verify`` waits for speculative decoding.
 """
 from __future__ import annotations
+
+from typing import Callable
 
 import torch
 
 from repro_torch.core.flow_attention import FlowConfig, _group, _ungroup, phi_map
+
+DotFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 
 
 def expand_kv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -73,3 +80,109 @@ def nc_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     agg = torch.einsum("bhgnd,bhde->bhgne", qg * sink_in[..., None], kv)
     out = agg * alloc[..., None]
     return _ungroup(out).to(out_dtype)
+
+
+def causal_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   cfg: FlowConfig, dot_fn: DotFn, *,
+                   return_state: bool = False,
+                   lengths: torch.Tensor | None = None):
+    """Causal Flow-Attention (paper Alg. 2) with an injected aggregation.
+
+    q: (B, Hq, N, D); k: (B, Hkv, N, D); v: (B, Hkv, N, Dv); N == M.
+    ``dot_fn(qg, k, v)`` computes the grouped causal dot (B,Hkv,G,N,D) x
+    (B,Hkv,N,D) x (B,Hkv,N,Dv) -> (B,Hkv,G,N,Dv); it is handed fp32
+    operands.  With ``return_state=True`` (requires strict causal
+    competition) also returns the O(d^2) ``FlowState`` that decode
+    continues from; ``lengths`` (B,) then gathers each right-padded row's
+    state at its own boundary ``lengths[i] - 1``.  Outputs at padded
+    positions are garbage by construction.
+    """
+    out_dtype = q.dtype
+    eps = cfg.eps
+    b, hq, n, d = q.shape
+    if k.shape[2] != n:
+        raise ValueError("causal flow attention requires N == M")
+    if return_state and not (cfg.strict_causal and cfg.use_competition):
+        raise ValueError("recurrent decode state requires strict_causal "
+                         "competition")
+    if lengths is not None and not return_state:
+        raise ValueError("per-row lengths only affect the returned FlowState")
+    k, v = expand_kv(q, k, v, cfg)
+    hkv = k.shape[1]
+
+    phi_q = phi_map(q.float(), cfg.phi)
+    phi_k = phi_map(k.float(), cfg.phi)
+    vf = v.float()
+
+    qg = _group(phi_q, hkv)  # (B,Hkv,G,N,D)
+    g = qg.shape[2]
+
+    # position counts ("normal" in the official code): G sinks per position
+    pos = torch.arange(1, n + 1, dtype=torch.float32, device=q.device)
+    normal_q = pos * g
+    normal_k = pos
+
+    # (1) incoming / outgoing flows from inclusive cumsums
+    k_csum = torch.cumsum(phi_k, dim=2)  # (B,Hkv,N,D)
+    q_csum = torch.cumsum(qg.sum(dim=2), dim=2)  # summed over the group
+    sink_in = 1.0 / torch.einsum("bhgnd,bhnd->bhgn", qg + eps, k_csum + eps)
+    sink_in = sink_in * normal_k  # official: rescale by count of sources
+    src_out = 1.0 / torch.einsum("bhnd,bhnd->bhn", phi_k + eps, q_csum + eps)
+    src_out = src_out * normal_q
+
+    # (2) conservation refinement
+    ko_csum = torch.cumsum(phi_k * src_out[..., None], dim=2)
+    cons_sink = torch.einsum("bhgnd,bhnd->bhgn", qg + eps,
+                             ko_csum + eps) / normal_q
+    qi_csum = torch.cumsum((qg * sink_in[..., None]).sum(dim=2), dim=2)
+    cons_src = torch.einsum("bhnd,bhnd->bhn", phi_k + eps,
+                            qi_csum + eps) / normal_k
+    cons_src = cons_src.clamp(-1.0, 1.0)
+
+    # (3) competition & allocation
+    if cfg.use_allocation:
+        alloc = torch.sigmoid(cons_sink)  # (B,Hkv,G,N)
+    else:
+        alloc = torch.ones_like(cons_sink)
+
+    q_in = qg * sink_in[..., None]  # value-normalized queries
+    if not cfg.use_competition:
+        out = dot_fn(q_in, phi_k, vf) * alloc[..., None]
+        return _ungroup(out).to(out_dtype)
+
+    if not cfg.strict_causal:
+        # paper-faithful: softmax over the full length, scaled by N
+        comp = torch.softmax(cons_src, dim=-1) * float(n)  # (B,Hkv,N)
+        out = dot_fn(q_in, phi_k, vf * comp[..., None]) * alloc[..., None]
+        return _ungroup(out).to(out_dtype)
+
+    # strict: cumulative softmax, weight_{i,j} = exp(cs_j) / Z_i * normal_k_i
+    e = torch.exp(cons_src)  # bounded in [1/e, e] by the clamp
+    z = torch.cumsum(e, dim=-1)  # (B,Hkv,N)
+    v_w = vf * e[..., None]
+    agg = dot_fn(q_in, phi_k, v_w)
+    out = agg * (normal_k / z)[:, :, None, :, None] * alloc[..., None]
+    out = _ungroup(out).to(out_dtype)
+    if not return_state:
+        return out
+    from repro_torch.attention.recurrent import FlowState  # lazy: cycle
+
+    if lengths is None:
+        t = torch.full((b,), n, dtype=torch.int32, device=q.device)
+        li = torch.full((b,), n - 1, dtype=torch.long, device=q.device)
+        k_mask = phi_k
+    else:
+        t = lengths.to(device=q.device, dtype=torch.int32)
+        li = (t.clamp(min=1) - 1).long()  # (B,) boundary index per row
+        valid = (torch.arange(n, device=q.device) < t[:, None]).float()
+        k_mask = phi_k * valid[:, None, :, None]
+    rows = torch.arange(b, device=q.device)
+
+    def gat(a):  # (B, Hkv, N, ...) -> (B, Hkv, ...) at each row's boundary
+        return a[rows, :, li]
+
+    state = FlowState(
+        t=t, q_sum=gat(q_csum), k_sum=gat(k_csum), ko_sum=gat(ko_csum),
+        qi_sum=gat(qi_csum), z=gat(z),
+        s=torch.einsum("bhnd,bhne->bhde", k_mask, v_w))
+    return out, state

@@ -1,5 +1,5 @@
-"""Autograd for the port's kernels: ``FlowFusedDot``, ``FlowNCQside`` and
-``FlowNCFused``.
+"""Autograd for the port's kernels: ``FlowFusedDot``, ``FlowNCQside``,
+``FlowNCFused`` and ``FlowChunkDot``.
 
 The counterpart of ``repro/attention/vjp.py::flow_fused_dot``.  The
 forward is K1 (``kernels/flow_fused/ops.py::flow_fused_call``) on a dense,
@@ -15,13 +15,21 @@ The non-causal pair mirrors ``repro/attention/vjp.py:144-236``:
 forward and differentiates ``_nc_decomposed`` in its backward -- the cheap
 O(M D) key-side reductions in plain fp32 PyTorch under autograd, feeding
 ``FlowNCQside`` for the O(N D Dv) sink side.  K7a's recomputed output in
-that backward is discarded, as in the reference.  On CPU tensors every
-call runs its plain version.
+that backward is discarded, as in the reference.
+
+``FlowChunkDot`` mirrors ``repro/attention/vjp.py:67-92``: K5a forward
+(``out[g, i] = q[g, i] . sum_{j<=i} k_j^T v_j``); its backward runs K5a
+again with k and v swapped for ``dq = flow_chunk_call(g, v, k)`` (the
+carried state then accumulates v^T k = S^T) and K5b for dk and dv.  It
+saves q, k and v only.  On CPU tensors every call runs its plain
+version.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.flow_chunk.ops import (flow_chunk_call,
+                                                flow_chunk_dkv_call)
 from repro_torch.kernels.flow_fused.bwd import flow_fused_bwd_call
 from repro_torch.kernels.flow_fused.ops import flow_fused_call
 from repro_torch.kernels.flow_nc.ops import (flow_nc_fused_call,
@@ -133,3 +141,24 @@ class FlowNCFused(torch.autograd.Function):
             out = _nc_decomposed(*inputs, *ctx.args)
             dq, dk, dv = torch.autograd.grad(out, inputs, g.to(out.dtype))
         return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
+
+
+class FlowChunkDot(torch.autograd.Function):
+    """``FlowChunkDot.apply(q, k, v)`` -> (BH, G, N, Dv): the causal dot,
+    K5a forward; backward K5a on (g, v, k) for dq and K5b for dk, dv.
+
+    q: (BH, G, N, D); k: (BH, N, D); v: (BH, N, Dv).
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return flow_chunk_call(q, k, v)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        g = g.to(q.dtype).contiguous()
+        dq = flow_chunk_call(g, v, k)
+        dk, dv = flow_chunk_dkv_call(q, k, v, g)
+        return dq, dk, dv

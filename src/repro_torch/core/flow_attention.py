@@ -75,3 +75,34 @@ def flow_attention_nc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if cfg.causal:
         cfg = dataclasses.replace(cfg, causal=False)
     return attention.resolve(attention.ExecutionPlan(flow=cfg)).forward(q, k, v)
+
+
+def flow_attention_causal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          cfg: FlowConfig = FlowConfig(causal=True), *,
+                          return_state: bool = False):
+    """Causal Flow-Attention (self-attention: N == M) through the registry.
+
+    q: (B, Hq, N, D); k: (B, Hkv, N, D); v: (B, Hkv, N, Dv).  Returns
+    (B, Hq, N, Dv); with ``return_state=True`` (requires strict causal
+    competition) also the O(d^2) ``FlowState`` that decoding continues
+    from.
+    """
+    from repro_torch import attention  # lazy: the registry imports this module
+
+    if not cfg.causal:
+        cfg = dataclasses.replace(cfg, causal=True)
+    ex = attention.resolve(attention.ExecutionPlan(flow=cfg))
+    if return_state:
+        if not (cfg.strict_causal and cfg.use_competition):
+            raise ValueError("recurrent decode state requires strict_causal "
+                             "competition")
+        return ex.prefill(q, k, v)
+    return ex.forward(q, k, v)
+
+
+def flow_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   cfg: FlowConfig) -> torch.Tensor:
+    """Flow-Attention in the mode ``cfg`` names, through the registry."""
+    from repro_torch import attention  # lazy: the registry imports this module
+
+    return attention.resolve(attention.ExecutionPlan(flow=cfg)).forward(q, k, v)

@@ -7,8 +7,10 @@ Random weights from ``--seed`` (or given ``params``), batches from
 ``data.loader.lm_loader(seed)``, AdamW on fp32 master parameters with a
 warmup-cosine schedule, bf16 compute.  The attention backend is resolved
 once, for gradients: on a GPU every attention forward runs kernel K1 and
-every attention backward kernel K2.  Checkpointing, elastic restart and
-meshes are not ported yet.
+every attention backward kernel K2; in the paper-faithful causal mode
+(``attention.strict_causal=False``) and without competition, every
+forward runs K5a and every backward K5a (dq) and K5b (dk, dv).
+Checkpointing, elastic restart and meshes are not ported yet.
 """
 from __future__ import annotations
 

@@ -8,7 +8,10 @@ test here skips with that reason.  On a machine with one:
 Tolerance: |kernel - plain| <= 1e-4 + 1e-4 |plain| in fp32 (the same fp32
 terms summed in another order, no TF32 on either side), 1e-2 + 1e-2 |plain|
 in bf16 (both round once from fp32); training losses rtol 1e-4 and
-attention gradients within 1e-4 of each leaf's max |grad|.
+attention gradients within 1e-4 of each leaf's max |grad|.  The causal
+dot (K5a, K5b) is held to 1e-4 + 1e-4 |plain| + 1e-4 max |plain|: it sums
+N D terms whose size is that of its largest outputs, so an output that
+cancels keeps an error of the terms' size.
 """
 import dataclasses
 
@@ -19,12 +22,16 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
 from repro_torch import attention  # noqa: E402
+from repro_torch.attention._cuda import chunked_causal_dot_cuda  # noqa: E402
 from repro_torch.attention.fused import fused_causal_forward  # noqa: E402
 from repro_torch.attention.recurrent import FlowState, decode_step  # noqa: E402
-from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.core.flow_attention import FlowConfig  # noqa: E402
 from repro_torch.kernels import LAUNCHES, reset_launches  # noqa: E402
 from repro_torch.kernels._lib import KERNELS  # noqa: E402
+from repro_torch.kernels.flow_chunk import (flow_chunk_call,  # noqa: E402
+                                            flow_chunk_dkv_call,
+                                            flow_chunk_dkv_ref, flow_chunk_ref)
 from repro_torch.kernels.flow_decode import flow_decode_call, flow_decode_step  # noqa: E402
 from repro_torch.kernels.flow_fused import (flow_fused_bwd_call,  # noqa: E402
                                             flow_fused_bwd_ref,
@@ -121,7 +128,7 @@ def test_decode_wrapper_refuses_a_copy_of_the_pool(gen):
         flow_decode_call(t, q, q[:, 0], q[:, 0], *state, z, s, hkv=1)
 
 
-@pytest.mark.parametrize("d,dv", [(96, 96), (64, 32)])
+@pytest.mark.parametrize("d,dv", [(96, 96), (64, 48)])
 def test_auto_raises_on_a_head_dim_no_kernel_takes(gen, d, dv):
     ex = attention.resolve(attention.ExecutionPlan(flow=FlowConfig()))
     q = torch.randn((2, 2, 16, d), generator=gen, device="cuda")
@@ -306,3 +313,86 @@ def test_classifier_training_kernels_match_plain_fp32(gen):
         scale = float(b_.abs().max())
         assert scale > 0 and float(a.abs().max()) > 0
         assert float((a - b_).abs().max()) <= 1e-4 * scale
+
+
+def assert_dot_close(got, want):
+    """K5a/K5b tolerance: 1e-4 + 1e-4 |plain| + 1e-4 max |plain|."""
+    bound = 1e-4 + 1e-4 * want.abs() + 1e-4 * want.abs().max()
+    assert bool(((got - want).abs() <= bound).all()), float(
+        (got - want).abs().max())
+
+
+def dot_operands(gen, bh, g, n, d, dv):
+    """The pipeline's dot operands: q_in = phi(q) * pos / I (sigmoid phi),
+    k = phi(k), v and the cotangent standard normal."""
+    mk = lambda *s: torch.randn(s, generator=gen, device="cuda")  # noqa: E731
+    pq, pk = torch.sigmoid(mk(bh, g, n, d)), torch.sigmoid(mk(bh, n, d))
+    pos = torch.arange(1, n + 1, device="cuda", dtype=torch.float32)
+    inflow = torch.einsum("bgnd,bnd->bgn", pq, torch.cumsum(pk, 1))
+    q = (pq * (pos / inflow)[..., None]).contiguous()
+    return q, pk.contiguous(), mk(bh, n, dv), mk(bh, g, n, dv)
+
+
+@pytest.mark.parametrize("g,n,d,dv", [(1, 512, 64, 64), (2, 200, 32, 32),
+                                      (2, 200, 128, 128), (3, 130, 64, 32),
+                                      (1, 1, 32, 128)])
+def test_flow_chunk_kernels_match_plain(gen, g, n, d, dv):
+    q, k, v, cot = dot_operands(gen, 6, g, n, d, dv)
+    reset_launches()
+    assert_dot_close(flow_chunk_call(q, k, v), flow_chunk_ref(q, k, v))
+    assert_dot_close(flow_chunk_call(cot, v, k), flow_chunk_ref(cot, v, k))
+    for a, b_ in zip(flow_chunk_dkv_call(q, k, v, cot),
+                     flow_chunk_dkv_ref(q, k, v, cot)):
+        assert_dot_close(a, b_)
+    assert LAUNCHES == {**dict.fromkeys(KERNELS, 0), "flow_chunk": 2,
+                        "flow_chunk_dkv": 1}
+    with pytest.raises(ValueError, match="fp32 only"):
+        flow_chunk_call(q.bfloat16(), k.bfloat16(), v.bfloat16())
+
+
+def test_flow_chunk_call_refuses_autograd_outside_flow_chunk_dot(gen):
+    q, k, v, _ = dot_operands(gen, 2, 2, 40, 32, 64)
+    q.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no autograd graph"):
+        flow_chunk_call(q, k, v)
+    with torch.no_grad():
+        flow_chunk_call(q, k, v)
+    reset_launches()
+    out = chunked_causal_dot_cuda(q[None], k[None], v[None], chunk=16)
+    out.sum().backward()
+    assert LAUNCHES["flow_chunk"] == 2 and LAUNCHES["flow_chunk_dkv"] == 1
+    assert q.grad.abs().sum() > 0
+
+
+def paper_causal(cfg, **over):
+    return dataclasses.replace(cfg, attention=dataclasses.replace(
+        cfg.attention, strict_causal=False, **over))
+
+
+def test_paper_causal_training_step_runs_k5a_and_k5b_only(gen):
+    """Full depth: 6 layers x (forward, remat recompute, dq) K5a and 6
+    K5b per step, and no other kernel."""
+    cfg = paper_causal(get_config("flowformer_lm"))
+    reset_launches()
+    out = train(cfg, steps=1, batch=2, seq=128, dtype=torch.bfloat16)
+    assert np.isfinite(out["history"]).all()
+    assert LAUNCHES == {**dict.fromkeys(KERNELS, 0), "flow_chunk": 18,
+                        "flow_chunk_dkv": 6}
+
+
+def test_paper_causal_training_kernels_match_plain_fp32(gen):
+    cfg = paper_causal(get_smoke_config("flowformer_lm"), chunk_size=16)
+    params = lm.init(cfg, torch.Generator().manual_seed(0), device="cuda")
+    hist = {}
+    for backend in ("auto", "plain"):
+        c = dataclasses.replace(cfg, attention=dataclasses.replace(
+            cfg.attention, backend=backend))
+        reset_launches()
+        hist[backend] = train(c, steps=3, batch=2, seq=64, dtype=torch.float32,
+                              params=params)["history"]
+        n = cfg.n_layers * 3
+        want = dict.fromkeys(KERNELS, 0)
+        if backend == "auto":
+            want.update(flow_chunk=3 * n, flow_chunk_dkv=n)
+        assert LAUNCHES == want
+    np.testing.assert_allclose(hist["auto"], hist["plain"], rtol=1e-4)

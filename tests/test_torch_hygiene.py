@@ -24,6 +24,7 @@ from repro_torch.attention import ExecutionPlan, FlowConfig, ShapeInfo  # noqa: 
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.kernels import LAUNCHES, reset_launches  # noqa: E402
 from repro_torch.kernels._lib import KERNELS  # noqa: E402
+from repro_torch.kernels.flow_chunk import flow_chunk_call, flow_chunk_dkv_call  # noqa: E402
 from repro_torch.kernels.flow_decode import flow_decode_step  # noqa: E402
 from repro_torch.kernels.flow_fused import flow_fused_call, flow_fused_forward  # noqa: E402
 from repro_torch.kernels.flow_nc import (flow_nc_fused_call,  # noqa: E402
@@ -119,6 +120,17 @@ def test_cpu_flow_nc_wrappers_run_the_plain_version_uncounted():
     assert LAUNCHES == dict.fromkeys(KERNELS, 0)
 
 
+def test_cpu_flow_chunk_wrappers_run_the_plain_version_uncounted():
+    reset_launches()
+    q, k = torch.randn((2, 2, 12, 32)), torch.randn((2, 12, 32))
+    v = torch.randn((2, 12, 64))
+    assert flow_chunk_call(q, k, v).shape == (2, 2, 12, 64)
+    dk, dv = flow_chunk_dkv_call(q, k, v, torch.randn((2, 2, 12, 64)))
+    assert dk.shape == (2, 12, 32) and dv.shape == (2, 12, 64)
+    assert {"flow_chunk", "flow_chunk_dkv"} <= set(KERNELS)
+    assert LAUNCHES == dict.fromkeys(KERNELS, 0)
+
+
 def test_cpu_serving_counts_no_launch():
     cfg = get_smoke_config("flowformer_lm")
     params = lm.init(cfg, torch.Generator().manual_seed(1), device="cpu")
@@ -168,7 +180,7 @@ def test_explain_names_a_reason_per_rejected_backend():
 
 
 @pytest.mark.parametrize("op", ["prefill_packed", "decode"])
-@pytest.mark.parametrize("d,dv", [(96, 96), (64, 32)])
+@pytest.mark.parametrize("d,dv", [(96, 96), (64, 48)])
 def test_auto_on_cuda_refuses_a_shape_no_kernel_takes(op, d, dv):
     shapes = dataclasses.replace(SHAPES[op], d=d, dv=dv)
     with pytest.raises(attention.ResolutionError,
