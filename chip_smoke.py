@@ -33,13 +33,32 @@ any failure raises, so the exit code is non-zero:
   4. K3 ``flow_decode`` against its plain version: 16 (the serving pool)
      and 64 slots x 8 kv heads, 32 steps from a non-zero state, updated
      in place;
+  4b. K4 ``flow_decode_q`` against its plain version on an int8 pool (phase
+     4's pool, quantized): 16 and 64 slots x 8 kv heads, D = 64, bf16 and
+     fp32 tokens, 32 steps; at every step the plain version starts from a
+     copy of the kernel's pre-step pool (teacher-forced), and the pool is
+     updated in place; the largest payload gap (in LSB) of a free-running
+     plain pool after 32 steps is printed, not gated;
   5. the Engine serving the full-width flowformer_lm (random weights from a
      seed) in bf16: 48 requests through 16 slots; every K1/K3 launch is
      counted and must equal 6 x admission rounds / 6 x decode steps;
      then ``torch.profiler`` reads the device time of a decode step by
      kernel, and its share of the step's wall time;
+  5c. phase 5 with ``state_dtype="int8"``: the same 48 requests, bf16, 16
+     slots, every pool an int8 ``QuantizedPool``; K1 = 6 x admission
+     rounds, K4 = 6 x decode steps, K3 never; decode and prefill tokens/s
+     and the fp32 and int8 pools' bytes; then ``torch.profiler`` over
+     decode steps as in 5b;
   6. the same Engine in fp32, once on the kernels and once on the plain
      PyTorch path: the greedy tokens must be identical;
+  6b. the int8 Engine in fp32 at full width, 12 requests as in phase 6, on
+     the kernels; before every decode step the plain path
+     (``backend="plain"``) takes the same step from a copy of the same
+     pool with the same tokens and positions: the logits, every layer's
+     new pool, and each greedy token where the plain step's top-2 margin
+     exceeds twice the logits' tolerance must agree.  Free-running
+     kernel-vs-plain token agreement is printed, not gated: one-LSB
+     payload flips compound over steps and can part near-ties;
   7. training at full width (``launch/train.py::train``, bf16, 5 steps
      of 16 x 512 tokens from ``lm_loader(seed=0)``, random weights from a
      seed): finite losses, and exactly 2 x 6 K1 (forward and remat
@@ -73,8 +92,9 @@ any failure raises, so the exit code is non-zero:
   9. (after 11) per kernel, its time with CUDA events beside its plain
      version's and its bound, as one ``{"kernels": [...]}`` line
      (``launches`` is the count over the main-path runs of phases 5 and 7
-     for K1-K3, of phase 10 for K6, K7a, K7b and of phase 7c for K5a,
-     K5b), and K1's time at the training shape;
+     for K1-K3, of phase 5c for K4 (K1's count includes 5c's), of phase
+     10 for K6, K7a, K7b and of phase 7c for K5a, K5b), K1's time at the
+     training shape, and K3 and K4 at 16 and 1,024 slots x 8 kv heads;
   12. the last line: ``{"ok": true, "device": {...}}``.
 
 Tolerances (|kernel - plain| <= atol + rtol * |plain|, elementwise):
@@ -94,6 +114,14 @@ plain (the LM, both causal variants, and the classifier): losses rtol
 1e-4, and each attention weight's
 gradient within 1e-4 of that leaf's max |grad| -- the same fp32 sums in
 another order, carried through the residual stream and three Adam steps.
+K4 (and phase 6b's pools): outputs as K3's, z rtol 1e-5 and atol 1e-5, t
+exact, scales rtol 1e-5, payloads within one LSB with at most a share of
+1e-3 of the entries differing -- the amax is exact but the values are
+summed in another order, so a value within ~1e-5 of a half-integer may
+round the other way (a few in 1e5), while rounding by truncation differs
+in about half of the entries and a stale scale in far more.  Phase 6b's
+logits: rtol 1e-4 and atol 1e-4 x max |logit| -- within one step ``out``
+uses the fp32 S before requantization, so only fp32 order differs.
 """
 from __future__ import annotations
 
@@ -431,6 +459,118 @@ def check_flow_decode() -> dict:
     return {"max_abs_err": errs[torch.bfloat16]}
 
 
+SUM_NAMES = ("k_sum", "q_sum", "ko_sum", "qi_sum")  # flow_decode_q's order
+
+
+def int8_pool(state):
+    """A FlowState quantized with the serving recipe (per-(slot, head)
+    int8, z exempt)."""
+    from repro_torch.serving.quant import quantize_state, spec_of
+
+    return quantize_state(state, spec_of("int8"), granularity="head",
+                          exempt=("z",))
+
+
+def clone_pool(pool):
+    return pool.with_state(type(pool.payload)(*(x.clone() for x in pool.payload)),
+                           type(pool.scale)(*(x.clone() for x in pool.scale)))
+
+
+def flat_q_pool(pool):
+    """An int8 pool's tensors as views in flow_decode_q's flat layout."""
+    st, sc = pool.payload, pool.scale
+    bh, d = st.s.shape[0] * st.s.shape[1], st.s.shape[2]
+    return (tuple(getattr(st, n).view(bh, d) for n in SUM_NAMES),
+            st.s.view(bh, d, st.s.shape[3]),
+            tuple(getattr(sc, n).view(bh, 1) for n in SUM_NAMES),
+            sc.s.view(bh, 1), st.z.view(bh))
+
+
+def plain_q_step(pool, q, k, v, cfg):
+    """K4's plain version (``flow_decode_q_ref``) on a copy of ``pool``:
+    returns (the new pool, out (B, Hq, 1, Dv)); ``pool`` is untouched."""
+    from repro_torch.kernels.flow_decode import flow_decode_q_ref
+
+    new = clone_pool(pool)
+    b, hkv, d, dv = new.payload.s.shape
+    bh, g = b * hkv, q.shape[1] // hkv
+    new.payload.t.add_(1)
+    pays, s_pay, scs, s_sc, z = flat_q_pool(new)
+    out, *res = flow_decode_q_ref(
+        new.payload.t, q.reshape(bh, g, d), k.reshape(bh, d),
+        v.reshape(bh, dv), pays, s_pay, scs, s_sc, z, hkv=hkv, eps=cfg.eps,
+        phi=cfg.phi, use_alloc=cfg.use_allocation)
+    for dst, src in zip((*pays, s_pay, *scs, s_sc, z),
+                        (*res[0], res[1], *res[2], res[3], res[4])):
+        dst.copy_(src)
+    return new, out.reshape(b, hkv * g, 1, dv)
+
+
+def q_pool_close(name: str, got, want) -> tuple[int, float]:
+    """Raise unless int8 pool ``got`` is within K4's tolerances of ``want``;
+    returns (largest payload gap in LSB, share of payload entries that
+    differ)."""
+    p, w = got.payload, want.payload
+    if not torch.equal(p.t, w.t):
+        raise AssertionError(f"{name}: t differs")
+    max_err(f"{name} z", p.z, w.z, (1e-5, 1e-5))
+    gap, n, differ = 0, 0, 0
+    for field in SUM_NAMES + ("s",):
+        diff = (getattr(p, field).int() - getattr(w, field).int()).abs()
+        gap = max(gap, int(diff.max()))
+        n, differ = n + diff.numel(), differ + int((diff > 0).sum())
+        max_err(f"{name} {field} scale", getattr(got.scale, field),
+                getattr(want.scale, field), (1e-5, 0.0))
+    if gap > 1 or differ > 1e-3 * n:
+        raise AssertionError(f"{name}: payloads {gap} LSB apart, {differ} of "
+                             f"{n} entries differ")
+    return gap, differ / n
+
+
+def check_flow_decode_q() -> dict:
+    """Phase 4b: K4 against its plain version over 32 teacher-forced steps,
+    on the serving run's 16-slot pool and on 64 slots, int8; returns the
+    bf16 output's max |error|."""
+    from repro_torch.core.flow_attention import FlowConfig
+    from repro_torch.kernels.flow_decode import flow_decode_q_step
+
+    hkv, g, d, steps = 8, 1, 64, 32
+    cfg = FlowConfig(causal=True, strict_causal=True)
+    errs = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    with torch.inference_mode():
+        for slots, dtype in ((16, torch.bfloat16), (16, torch.float32),
+                             (64, torch.bfloat16), (64, torch.float32)):
+            pool = int8_pool(decode_pool(slots, hkv, d, SEED + 2))
+            free = clone_pool(pool)  # the plain version on its own outputs
+            ptrs = [x.data_ptr() for x in pool.payload + pool.scale]
+            gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
+            tag = f"flow_decode_q {str(dtype)[6:]} {slots} slots"
+            err, flips = 0.0, 0.0
+            for step in range(steps):
+                q, k, v = decode_token(gen, slots, hkv, g, d, dtype)
+                want, ref = plain_q_step(pool, q, k, v, cfg)
+                free, _ = plain_q_step(free, q, k, v, cfg)
+                same, out = flow_decode_q_step(pool, q, k, v, cfg)
+                torch.cuda.synchronize()
+                if same is not pool:
+                    raise AssertionError(f"{tag}: returned a new pool")
+                err = max(err, max_err(f"{tag} out step {step}", out, ref,
+                                       TOL[dtype]))
+                flips = max(flips, q_pool_close(f"{tag} step {step}", pool,
+                                                want)[1])
+            if [x.data_ptr() for x in pool.payload + pool.scale] != ptrs:
+                raise AssertionError(f"{tag}: the pool moved")
+            drift = max(int((getattr(pool.payload, n).int()
+                             - getattr(free.payload, n).int()).abs().max())
+                        for n in SUM_NAMES + ("s",))
+            errs[dtype] = max(errs[dtype], err)
+            print(f"[K4] {tag} x {steps} steps (teacher-forced): out "
+                  f"{err:.3e}, payload share differing <= {flips:.2e}, pool "
+                  f"updated in place; free-running plain pool after {steps} "
+                  f"steps: {drift} LSB apart (not gated)", flush=True)
+    return {"max_abs_err": errs[torch.bfloat16]}
+
+
 LRA_ROWS, LRA_HEADS, LRA_N, LRA_D = 32, 4, 4096, 64
 
 
@@ -525,13 +665,16 @@ def requests(rng, n, vocab, lens, budgets):
         for i in range(n)]
 
 
-def serve_full_width(params, cfg) -> dict:
-    """Phase 5: the bf16 Engine at full width; launch counts and rates."""
+def serve_full_width(params, cfg, state_dtype=None) -> dict:
+    """Phase 5 (5c with ``state_dtype="int8"``): the bf16 Engine at full
+    width; launch counts, rates and the pools' bytes."""
     from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import lm
     from repro_torch.serving.engine import Engine
+    from repro_torch.serving.quant import pool_bytes
 
     engine = Engine(params, cfg, slots=16, max_len=512, seed=SEED,
-                    device=DEVICE)
+                    state_dtype=state_dtype, device=DEVICE)
     reqs = requests(np.random.default_rng(SEED + 4), 48, cfg.vocab_size,
                     (16, 384), (32, 64))
     for r in reqs:
@@ -565,9 +708,12 @@ def serve_full_width(params, cfg) -> dict:
     if launches["flow_fused"] != n_layers * rounds:
         raise AssertionError(f"flow_fused launched {launches['flow_fused']}"
                              f" times, want {n_layers} x {rounds} rounds")
-    if launches["flow_decode"] != n_layers * steps:
-        raise AssertionError(f"flow_decode launched {launches['flow_decode']}"
-                             f" times, want {n_layers} x {steps} steps")
+    decode, idle = (("flow_decode_q", "flow_decode") if state_dtype == "int8"
+                    else ("flow_decode", "flow_decode_q"))
+    if launches[decode] != n_layers * steps or launches[idle]:
+        raise AssertionError(f"{decode} launched {launches[decode]} times, "
+                             f"want {n_layers} x {steps} steps; {idle} "
+                             f"{launches[idle]} times, want 0")
     prompt_tokens = sum(len(r.prompt) for r in reqs)
     decode_tokens = sum(len(r.generated) - 1 for r in reqs)
     stats = {
@@ -578,24 +724,32 @@ def serve_full_width(params, cfg) -> dict:
         "prefill_tok_per_s": prompt_tokens / spent["prefill"],
         "decode_tok_per_s": decode_tokens / spent["step"],
         "launches": launches,
+        "pool_bytes": pool_bytes(worker.caches),
     }
-    print("[engine bf16] " + json.dumps(stats), flush=True)
+    if state_dtype is None:
+        print("[engine bf16] " + json.dumps(stats), flush=True)
+        return stats
+    stats["fp32_pool_bytes"] = pool_bytes(lm.init_caches(
+        cfg, 16, 512, device=DEVICE))
+    print(f"[engine bf16, {state_dtype} pools] " + json.dumps(stats),
+          flush=True)
     return stats
 
 
-def profile_decode(params, cfg, step_ms: float) -> dict:
-    """Phase 5b: where a decode step's time goes, from ``torch.profiler``
-    over a window of full-pool decode steps: device time by kernel, the
-    kernels launched, and host time by operator.  Every step decodes all
-    16 slots, live or not, so its device work is that of phase 5, whose
-    unprofiled mean step time gives the device's busy share."""
+def profile_decode(params, cfg, step_ms: float, state_dtype=None) -> dict:
+    """Phase 5b (5c's with ``state_dtype``): where a decode step's time
+    goes, from ``torch.profiler`` over a window of full-pool decode steps:
+    device time by kernel, the kernels launched, and host time by
+    operator.  Every step decodes all 16 slots, live or not, so its device
+    work is that of phase 5 (5c), whose unprofiled mean step time gives the
+    device's busy share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serving.engine import Engine
 
     engine = Engine(params, cfg, slots=16, max_len=512, seed=SEED,
-                    device=DEVICE)
+                    state_dtype=state_dtype, device=DEVICE)
     for r in requests(np.random.default_rng(SEED + 8), 16, cfg.vocab_size,
                       (128, 128), (12, 12)):
         engine.submit(r)
@@ -624,7 +778,8 @@ def profile_decode(params, cfg, step_ms: float) -> dict:
         "host_ms_per_step_by_op_profiled": {
             e.key[:80]: e.self_cpu_time_total / 1e3 / steps
             for e in top_host}}
-    print("[profile decode] " + json.dumps(stats), flush=True)
+    tag = "decode" if state_dtype is None else f"decode, {state_dtype} pools"
+    print(f"[profile {tag}] " + json.dumps(stats), flush=True)
     return stats
 
 
@@ -669,6 +824,95 @@ def serve_fp32_both_paths(params, cfg):
     n_tok = sum(len(r.generated) for r in runs["plain"].values())
     print(f"[fp32] kernels and plain path agree on all {n_tok} greedy "
           f"tokens of {len(runs['plain'])} requests", flush=True)
+
+
+def serve_int8_fp32_against_plain(params, cfg):
+    """Phase 6b: the int8 Engine in fp32 at full width on the kernels;
+    before every decode step the plain path takes the same step from a
+    copy of the same pools, with the same tokens and positions."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.layers.attention import executor_of
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import Engine
+
+    plain_cfg = dataclasses.replace(cfg, attention=dataclasses.replace(
+        cfg.attention, backend="plain"))
+    engine = Engine(params, cfg, slots=8, max_len=256, seed=SEED,
+                    dtype=torch.float32, state_dtype="int8", device=DEVICE)
+    worker = engine.worker
+    plain_ex = executor_of(plain_cfg, worker.plan)
+    for r in requests(np.random.default_rng(SEED + 5), 12, cfg.vocab_size,
+                      (16, 128), (16, 16)):
+        engine.submit(r)
+    real_decode, real_step, seen = lm.decode, worker.step, {}
+    checked = {"steps": 0, "tokens": 0, "near_ties": 0, "logit_err": 0.0,
+               "payload_share": 0.0}
+
+    def recording_decode(*a, **kw):
+        seen["logits"], caches = real_decode(*a, **kw)
+        return seen["logits"], caches
+
+    def checked_step(tokens, pos, temps, live):
+        with torch.inference_mode():
+            before = [clone_pool(c) for c in worker.caches]
+            want, want_pools = real_decode(
+                worker.params, torch.as_tensor(tokens, dtype=torch.int32,
+                                               device=DEVICE)[:, None],
+                before, plain_cfg, torch.as_tensor(pos, dtype=torch.int32,
+                                                   device=DEVICE),
+                plan=plain_ex, dtype=torch.float32)
+        toks = real_step(tokens, pos, temps, live)
+        step = checked["steps"]
+        got, want = seen["logits"][:, -1].float(), want[:, -1].float()
+        scale = float(want.abs().max())
+        checked["logit_err"] = max(checked["logit_err"], max_err(
+            f"int8 fp32 step {step} logits", got, want, (1e-4, 1e-4 * scale)))
+        for i, (pool, ref) in enumerate(zip(worker.caches, want_pools)):
+            checked["payload_share"] = max(checked["payload_share"], q_pool_close(
+                f"int8 fp32 step {step} layer {i}", pool, ref)[1])
+        top = torch.topk(want, 2, dim=-1)
+        margin = (top.values[:, 0] - top.values[:, 1]).cpu().numpy()
+        tol = (1e-4 * scale + 1e-4 * top.values[:, 0].abs()).cpu().numpy()
+        plain_tok = top.indices[:, 0].cpu().numpy()
+        for row in np.flatnonzero(live):
+            if margin[row] <= 2 * tol[row]:
+                checked["near_ties"] += 1
+            elif toks[row] != plain_tok[row]:
+                raise AssertionError(
+                    f"int8 fp32 step {step} slot {row}: kernels {toks[row]}, "
+                    f"plain {plain_tok[row]}, margin {margin[row]:.3e}")
+            else:
+                checked["tokens"] += 1
+        checked["steps"] += 1
+        return toks
+
+    worker.step = checked_step
+    lm.decode = recording_decode
+    reset_launches()
+    try:
+        kernel_run = {r.uid: r.generated for r in engine.run()}
+    finally:
+        lm.decode = real_decode
+    want = {"flow_fused": cfg.n_layers * worker.admission_rounds,
+            "flow_decode_q": cfg.n_layers * worker.decode_steps}
+    if {k: v for k, v in LAUNCHES.items() if v} != want:
+        raise AssertionError(f"int8 fp32 launches {LAUNCHES}, want {want}")
+    plain = Engine(params, plain_cfg, slots=8, max_len=256, seed=SEED,
+                   dtype=torch.float32, state_dtype="int8", device=DEVICE)
+    for r in requests(np.random.default_rng(SEED + 5), 12, cfg.vocab_size,
+                      (16, 128), (16, 16)):
+        plain.submit(r)
+    plain_run = {r.uid: r.generated for r in plain.run()}
+    same = sum(a == b for uid, gen in plain_run.items()
+               for a, b in zip(gen, kernel_run[uid]))
+    total = sum(len(gen) for gen in plain_run.values())
+    print(f"[int8 fp32] kernels vs plain step by step over "
+          f"{checked['steps']} steps: logits {checked['logit_err']:.3e}, "
+          f"pools within tolerance (payload share differing <= "
+          f"{checked['payload_share']:.2e}), {checked['tokens']} greedy "
+          f"tokens equal to the plain argmax ({checked['near_ties']} near "
+          f"ties skipped); free-running, {same} of {total} tokens agree "
+          "(not gated)", flush=True)
 
 
 def train_full_width(cfg) -> dict:
@@ -1192,10 +1436,76 @@ def time_kernels(launches: dict, errs: dict) -> list:
             "ms": time_ms(lambda: flow_decode_call(*args, hkv=hkv)),
             "plain_ms": time_ms(lambda: decode_step(pool, tq, tk, tv, cfg)),
             "bound_ms": bound_ms, "bound_by": by, "library_ms": None})
+        rows.append(time_flow_decode_q(launches, errs))
     rows.insert(1, k2_row)
     rows += time_nc_kernels(launches, errs)
     rows += time_chunk_kernels(launches, errs)
     return rows
+
+
+def q_step_bytes(slots: int, hkv: int, g: int, d: int, act: int) -> int:
+    """Bytes one K4 launch must move: the int8 payloads and fp32 scales
+    and z read and written, q, k, v read and out written in the activation
+    dtype (``act`` bytes), t read."""
+    bh = slots * hkv
+    pool = bh * (4 * d + d * d + 5 * 4 + 4)
+    return 2 * pool + bh * (g * d + 2 * d + g * d) * act + slots * 4
+
+
+def q_step_ops(g: int, d: int) -> int:
+    """Operations of K4 for one (slot, kv head): K3's recurrence
+    (``flow_ops_per_position``) plus 3 per payload element (dequantizing
+    multiply, amax, requantizing divide)."""
+    return flow_ops_per_position(g, d, d) + 3 * (4 * d + d * d)
+
+
+def time_flow_decode_q(launches: dict, errs: dict) -> dict:
+    """Phase 9, K4: one layer's decode step of the 16-slot int8 pool (bf16
+    tokens, 8 kv heads, D = 64); then K3 and K4 at 16 and 1,024 slots, so
+    that the int8 pool's byte saving is measured, not assumed."""
+    from repro_torch.kernels.flow_decode import (flow_decode_call,
+                                                 flow_decode_q_call,
+                                                 flow_decode_q_ref)
+
+    hkv, d = 8, 64
+    sizes, row = {}, None
+    for slots in (16, 1024):
+        pool = decode_pool(slots, hkv, d, SEED + 6)
+        qpool = int8_pool(pool)
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
+        tq, tk, tv = decode_token(gen, slots, hkv, 1, d, torch.bfloat16)
+        bh = slots * hkv
+        tok = (tq.reshape(bh, 1, d), tk.reshape(bh, d), tv.reshape(bh, d))
+        flat = [x.view((bh,) + x.shape[2:]) for x in
+                (pool.k_sum, pool.q_sum, pool.ko_sum, pool.qi_sum, pool.z,
+                 pool.s)]
+        qflat = flat_q_pool(qpool)
+        k3 = time_ms(lambda: flow_decode_call(pool.t, *tok, *flat, hkv=hkv))
+        k4 = time_ms(lambda: flow_decode_q_call(qpool.payload.t, *tok, *qflat,
+                                                hkv=hkv))
+        k3_bytes = 2 * bh * (4 * d + 1 + d * d) * 4 + bh * 4 * d * 2 + slots * 4
+        k4_bytes = q_step_bytes(slots, hkv, 1, d, 2)
+        sizes[slots] = {"k3_ms": k3, "k3_bound_ms": bound(
+            k3_bytes, bh * flow_ops_per_position(1, d, d))[0], "k4_ms": k4,
+            "k4_bound_ms": bound(k4_bytes, bh * q_step_ops(1, d))[0],
+            "k3_mb": k3_bytes / 1e6, "k4_mb": k4_bytes / 1e6}
+        if slots == 16:
+            bound_ms, by = bound(k4_bytes, bh * q_step_ops(1, d))
+            plain = [x.clone() for x in (*qflat[0], qflat[1], *qflat[2],
+                                         qflat[3], qflat[4])]
+            row = {
+                "name": "flow_decode_q", "route": "cuda",
+                "source": "src/repro_torch/csrc/flow_decode_q.cu",
+                "replaces": "src/repro/kernels/flow_decode/quant.py:158",
+                "launches": launches["flow_decode_q"],
+                "max_abs_err": errs["flow_decode_q"], "ms": k4,
+                "plain_ms": time_ms(lambda: flow_decode_q_ref(
+                    qpool.payload.t, *tok, tuple(plain[:4]), plain[4],
+                    tuple(plain[5:9]), plain[9], plain[10], hkv=hkv)),
+                "bound_ms": bound_ms, "bound_by": by, "library_ms": None}
+    print("[K3 vs K4, 8 kv heads, D = 64, bf16 tokens] " + json.dumps(sizes),
+          flush=True)
+    return row
 
 
 def time_chunk_kernels(launches: dict, errs: dict) -> list:
@@ -1295,7 +1605,8 @@ def main() -> int:
             "flow_fused_bwd": check_flow_fused_bwd()["max_abs_err"],
             **check_flow_nc(),
             **check_flow_chunk(),
-            "flow_decode": check_flow_decode()["max_abs_err"]}
+            "flow_decode": check_flow_decode()["max_abs_err"],
+            "flow_decode_q": check_flow_decode_q()["max_abs_err"]}
 
     from repro_torch.configs import get_config
     from repro_torch.models import lm
@@ -1304,7 +1615,11 @@ def main() -> int:
     params = lm.init(cfg, torch.Generator().manual_seed(SEED), device=DEVICE)
     stats = serve_full_width(params, cfg)
     profile_decode(params, cfg, 1e3 * stats["decode_s"] / stats["decode_steps"])
+    quantized = serve_full_width(params, cfg, state_dtype="int8")
+    profile_decode(params, cfg, 1e3 * quantized["decode_s"]
+                   / quantized["decode_steps"], state_dtype="int8")
     serve_fp32_both_paths(params, cfg)
+    serve_int8_fp32_against_plain(params, cfg)
     del params
     trained = train_full_width(cfg)
     profile_train(cfg, trained["step_ms"])
@@ -1319,9 +1634,9 @@ def main() -> int:
     classified = train_classifier_full_width(lra)
     profile_classifier(lra, classified["step_ms"])
     train_classifier_fp32_both_paths(lra)
-    launches = {name: stats["launches"][name] + trained["launches"][name]
-                + classified["launches"][name] + paper["launches"][name]
-                for name in stats["launches"]}
+    launches = {name: sum(run["launches"][name] for run in (
+        stats, quantized, trained, classified, paper))
+        for name in stats["launches"]}
     rows = time_kernels(launches, errs)
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

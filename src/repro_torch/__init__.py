@@ -18,11 +18,14 @@ Layout (each module mirrors its counterpart in ``repro``):
                             FlowFusedDot (autograd over K1 and K2)
     kernels/flow_fused/     K1: strict-causal flow attention; K2: its
                             backward (bwd.py)
-    kernels/flow_decode/    K3: one batched decode step, in place
-    csrc/                   the CUDA sources of K1, K2 and K3
+    kernels/flow_decode/    K3: one batched decode step, in place; K4: the
+                            same on an int8 pool (quant.py)
+    csrc/                   the CUDA sources of the kernels
     layers/, models/lm.py   the decoder-only LM and its loss
-    serving/                Scheduler, Worker and Engine
+    serving/                Scheduler, Worker and Engine; int8 state
+                            pools (quant.py)
     training/, data/        AdamW, schedules, the train step; lm_loader
-    launch/train.py         the training entry point
+    launch/                 train.py, classify.py, serve.py: the entry
+                            points
     interop.py              JAX param trees (as numpy) -> torch params
 """

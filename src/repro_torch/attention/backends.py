@@ -30,6 +30,13 @@ FlowFusedDot`` (K1 forward, K2 backward) but not packed prefill, which is
 forward-only serving as in the reference; ``cuda_chunk`` differentiates
 all three through ``FlowChunkDot`` (K5a forward; K5a and K5b backward);
 ``cuda_decode`` updates the pool in place and differentiates nothing.
+
+Quantized serving pools (``ExecutionPlan.state_dtype`` int8) reach only
+the decode backends, the two that declare ``quant_capable`` as in the
+reference: ``cuda_decode`` runs K4 (``kernels/flow_decode/quant.py``) on
+the int8 pool in place, ``recurrent`` dequantizes, takes the fp32 step and
+requantizes with the pool's recipe.  fp8 pools are refused off the TPU by
+both, with ``serving/quant.py::platform_support``'s reason.
 """
 from __future__ import annotations
 
@@ -41,6 +48,8 @@ from repro_torch.attention.dots import causal_dot_grouped
 from repro_torch.attention.registry import Backend, register_backend
 from repro_torch.kernels._lib import HEAD_DIMS
 from repro_torch.kernels.flow_chunk.ops import check_dims
+from repro_torch.serving.quant import (QuantizedPool, dequantize_state,
+                                       platform_support, quantize_like)
 
 
 def _check_causal_self(cfg, shapes, op="forward"):
@@ -293,14 +302,30 @@ class Recurrent(Backend):
             return False, why
         return True, "O(d^2) recurrence"
 
+    def quant_capable(self, platform, dtype, op="decode"):
+        if op != "decode":
+            return super().quant_capable(platform, dtype, op)
+        ok, why = platform_support(dtype, platform)
+        if not ok:
+            return False, why
+        return True, f"dequantize -> fp32 recurrence -> requantize ({why})"
+
     def decode_step(self, state, q, k, v, cfg):
         k, v = pipeline.expand_kv(q, k, v, cfg)
+        if isinstance(state, QuantizedPool):
+            # the plain version of the quantized hot path: the kernel's
+            # per-(slot, head) scales, the update in fp32
+            new, out = recurrent.decode_step(dequantize_state(state), q, k, v,
+                                             cfg)
+            return quantize_like(state, new), out
         return recurrent.decode_step(state, q, k, v, cfg)
 
 
 class CudaDecode(Recurrent):
     """One flow_decode CUDA launch advances the whole (slots, Hkv) state
-    pool in place: the serving hot loop."""
+    pool in place: the serving hot loop.  An int8 ``QuantizedPool`` goes to
+    flow_decode_q (K4) instead, dequantized, advanced and requantized in
+    the kernel."""
 
     differentiable = frozenset()
 
@@ -311,10 +336,22 @@ class CudaDecode(Recurrent):
             return False, why
         return True, "flow_decode CUDA kernel, state updated in place"
 
+    def quant_capable(self, platform, dtype, op="decode"):
+        if op != "decode":
+            return Backend.quant_capable(self, platform, dtype, op)
+        ok, why = platform_support(dtype, platform)
+        if not ok:
+            return False, why
+        return True, ("in-kernel dequantize / fp32 accumulate / requantize "
+                      f"(flow_decode_q; {why})")
+
     def decode_step(self, state, q, k, v, cfg):
-        from repro_torch.kernels.flow_decode import flow_decode_step
+        from repro_torch.kernels.flow_decode import (flow_decode_q_step,
+                                                     flow_decode_step)
 
         k, v = pipeline.expand_kv(q, k, v, cfg)
+        if isinstance(state, QuantizedPool):
+            return flow_decode_q_step(state, q, k, v, cfg)
         return flow_decode_step(state, q, k, v, cfg)
 
 

@@ -2,8 +2,10 @@
 
 The counterpart of ``repro/attention/plan.py``, reduced to this slice:
 ``flow`` (the ``FlowConfig``), ``packed`` (the plan serves right-padded
-multi-prompt prefill) and ``needs_grad`` (a training step will
-differentiate through every op, so only differentiable backends apply).
+multi-prompt prefill), ``needs_grad`` (a training step will
+differentiate through every op, so only differentiable backends apply)
+and ``state_dtype`` (the serving state pools' dtype: int8 or fp8 pools
+make ``decode`` resolve only to backends that are ``quant_capable``).
 The platform is the device of the tensors each op is given.
 ``resolve(plan)`` returns a ``BoundExecutor`` whose ops resolve through
 the registry once per call signature (op, shapes, device) and reuse that
@@ -17,8 +19,21 @@ import dataclasses
 from repro_torch.attention import registry
 from repro_torch.attention.registry import Backend, ShapeInfo
 from repro_torch.core.flow_attention import FlowConfig
+from repro_torch.serving.quant import QUANT_DTYPES, STATE_DTYPES
 
 _STATE_OPS = ("prefill", "prefill_packed", "decode")
+
+
+def _quant_of(plan, op: str) -> str | None:
+    """The quantized state dtype ``op`` must serve, or None.
+
+    Only ``decode`` consumes the pool: forward and prefill run on
+    activations and produce full-precision boundary states that are
+    quantized at install.  bf16 and fp32 state dtypes are storage choices,
+    not quantization, and never reach the registry.
+    """
+    sd = plan.state_dtype
+    return sd if (sd in QUANT_DTYPES and op == "decode") else None
 
 
 def _op_cfg(cfg: FlowConfig, op: str) -> FlowConfig:
@@ -34,6 +49,17 @@ class ExecutionPlan:
     flow: FlowConfig | None = None
     packed: bool = False
     needs_grad: bool = False
+    #: serving state-pool dtype, distinct from the activation dtype: None,
+    #: "bf16" or "fp32" keep the fp32 FlowState; "int8" or "fp8" wrap every
+    #: pool in a ``serving.quant.QuantizedPool`` and make decode resolution
+    #: demand ``quant_capable`` from backends and mixers
+    state_dtype: str | None = None
+
+    def __post_init__(self):
+        if self.state_dtype is not None and \
+                self.state_dtype not in STATE_DTYPES:
+            raise ValueError(f"unknown state_dtype {self.state_dtype!r}; "
+                             f"expected one of {STATE_DTYPES}")
 
     def describe(self) -> str:
         """One-line summary of the plan's non-default fields."""
@@ -42,6 +68,8 @@ class ExecutionPlan:
             bits.append("packed")
         if self.needs_grad:
             bits.append("needs_grad")
+        if self.state_dtype:
+            bits.append(f"state_dtype={self.state_dtype}")
         return "ExecutionPlan(" + ", ".join(bits) + ")"
 
 
@@ -65,10 +93,12 @@ class BoundExecutor:
     def backend(self, op: str, shapes: ShapeInfo, platform: str) -> Backend:
         """Resolve and return the backend the plan binds for ``op``."""
         return registry.resolve(self._cfgs[op], shapes, platform, op=op,
-                                needs_grad=self.plan.needs_grad)
+                                needs_grad=self.plan.needs_grad,
+                                quant=_quant_of(self.plan, op))
 
     def _bind(self, op, q, k, v):
-        key = (op, q.shape, k.shape, v.shape, q.device.type)
+        key = (op, q.shape, k.shape, v.shape, q.device.type,
+               _quant_of(self.plan, op))
         hit = self._bound.get(key)
         if hit is None:
             be = self.backend(op, ShapeInfo.from_qkv(q, k, v), q.device.type)
@@ -91,7 +121,9 @@ class BoundExecutor:
         return be.prefill(q, k, v, cfg, lengths=lengths)
 
     def decode_step(self, state, q, k, v):
-        """Advance one token on the O(d^2) recurrent state."""
+        """Advance one token on the O(d^2) recurrent state (a FlowState,
+        or a ``QuantizedPool`` of one when the plan's state_dtype is int8
+        or fp8)."""
         be, cfg = self._bind("decode", q, k, v)
         return be.decode_step(state, q, k, v, cfg)
 
@@ -144,6 +176,7 @@ def explain_plan(plan: ExecutionPlan, shapes: ShapeInfo, *, platform: str,
     sections = tuple(
         (one, tuple(registry.explain(_op_cfg(plan.flow, one), shapes,
                                      platform, op=one,
-                                     needs_grad=plan.needs_grad)))
+                                     needs_grad=plan.needs_grad,
+                                     quant=_quant_of(plan, one))))
         for one in ops)
     return PlanExplanation(plan=plan, platform=platform, sections=sections)

@@ -17,6 +17,9 @@ turns ``FlowConfig.backend`` into a backend deterministically:
 ``needs_grad=True`` also asks the backend to declare the op
 differentiable (``Backend.differentiable``), so a training step built on a
 forward-only kernel fails at build time with that backend's reason.
+``quant="int8"`` (or ``"fp8"``) asks for an op that serves a quantized
+state pool (``serving/quant.py::QuantizedPool``) in place: only backends
+whose ``quant_capable`` accepts it apply.
 
 A failed resolution raises ``ResolutionError`` carrying every candidate's
 rejection reason in the message and as structured ``.rejections``.
@@ -79,6 +82,18 @@ class Backend:
         return False, (f"no backward for {op} (forward-only; differentiable "
                        f"ops: {sorted(self.differentiable) or 'none'})")
 
+    def quant_capable(self, platform: str, dtype: str, op: str = "decode"):
+        """(ok, reason): can ``op`` serve a quantized state pool directly?
+
+        A quantized plan (``ExecutionPlan.state_dtype`` of int8 or fp8)
+        hands the op a ``QuantizedPool`` instead of a ``FlowState``.  The
+        default declines, so resolution rejects with a named reason rather
+        than silently dequantizing through an unaware backend.
+        """
+        return False, (
+            f"no quantized-state path for {op} (would silently dequantize "
+            f"the {dtype} pool; pick a quant-capable strategy)")
+
     def forward(self, q, k, v, cfg: FlowConfig):
         """Full-sequence Flow-Attention -> (B, Hq, N, Dv)."""
         raise NotImplementedError(f"{self.name} does not provide forward")
@@ -131,38 +146,48 @@ def _candidates(cfg: FlowConfig, op: str) -> list:
 
 
 def _judge(be: Backend, cfg: FlowConfig, shapes: ShapeInfo, platform: str,
-           op: str, needs_grad: bool):
+           op: str, needs_grad: bool, quant: str | None = None):
+    """The one triage order of ``resolve`` and ``explain``: provides ->
+    gradients -> quantized-state capability -> supports."""
     if op not in be.provides:
         return False, f"does not provide {op}"
     if needs_grad:
         ok, why = be.grad_support(op)
         if not ok:
             return False, why
+    if quant is not None:
+        ok, why = be.quant_capable(platform, quant, op=op)
+        if not ok:
+            return False, why
     return be.supports(cfg, shapes, platform, op=op)
 
 
 def resolve(cfg: FlowConfig, shapes: ShapeInfo, platform: str, *,
-            op: str = "forward", needs_grad: bool = False) -> Backend:
+            op: str = "forward", needs_grad: bool = False,
+            quant: str | None = None) -> Backend:
     """Deterministically pick the backend that runs ``op``; with
-    ``needs_grad`` only a backend that differentiates ``op``."""
+    ``needs_grad`` only a backend that differentiates ``op``, with
+    ``quant`` only one that serves a ``quant`` state pool."""
     rejections = []
     for name in _candidates(cfg, op):
         ok, why = _judge(_REGISTRY[name], cfg, shapes, platform, op,
-                         needs_grad)
+                         needs_grad, quant)
         if ok:
             return _REGISTRY[name]
         rejections.append((name, why))
     raise ResolutionError(
         f"no applicable Flow-Attention backend for op={op!r}"
         + (" with gradients" if needs_grad else "")
+        + (f" with {quant} state pools" if quant is not None else "")
         + f" on platform={platform!r} with {shapes}:\n  "
         + "\n  ".join(f"{n}: {w}" for n, w in rejections), rejections)
 
 
 def explain(cfg: FlowConfig, shapes: ShapeInfo, platform: str, *,
-            op: str = "forward", needs_grad: bool = False) -> list:
+            op: str = "forward", needs_grad: bool = False,
+            quant: str | None = None) -> list:
     """``[(name, applicable, reason)]`` for every registered backend."""
     _candidates(cfg, op)  # rejects an unknown backend name
     return [(name, *_judge(_REGISTRY[name], cfg, shapes, platform, op,
-                           needs_grad))
+                           needs_grad, quant))
             for name in _ORDER]

@@ -15,6 +15,11 @@ this module imports nothing of JAX) and builds the port's parameter dict:
 ``params_to_numpy`` is the inverse, restacking into the reference's layout
 by the rule ``repro.models.lm.init`` uses.
 
+``flow_pool_from_numpy`` carries a reference ``serving.quant.QuantizedPool``
+of a FlowState (given as its numpy ``payload`` and ``scale`` trees, e.g.
+``jax.tree.map(np.asarray, pool.payload)``) into the port's
+``QuantizedPool``, so a test can feed both sides the same int8 pool.
+
 A classifier tree (``repro/models/classifier.py``: ``embed`` or
 ``in_proj``, a list of ``blocks``, ``final_norm`` and a dense ``head``
 with a bias) is never stacked, whatever ``cfg.scan_layers`` says, so both
@@ -26,7 +31,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.attention.recurrent import FlowState
 from repro_torch.config import ModelConfig
+from repro_torch.serving.quant import QuantizedPool, spec_of
 from repro_torch.utils import tree_map
 
 
@@ -105,3 +112,20 @@ def _stack(group: list):
     if isinstance(first, dict):
         return {k: _stack([g[k] for g in group]) for k in first}
     return np.stack(group)
+
+
+def flow_pool_from_numpy(payload, scale, state_dtype: str = "int8", *,
+                         device="cpu") -> QuantizedPool:
+    """The port's ``QuantizedPool`` of a reference FlowState pool.
+
+    ``payload`` and ``scale`` are FlowState-shaped sequences of numpy
+    arrays (fields t, q_sum, k_sum, ko_sum, qi_sum, z, s, as both packages
+    order them); the recipe is the serving one (head granularity, ``z``
+    exempt), as ``repro.serving.quant.maybe_quantize`` builds it.  Values
+    are copied bit for bit.
+    """
+    def state(tree):
+        return FlowState(*(_as_tensor(x).to(device) for x in tree))
+
+    return QuantizedPool(state(payload), state(scale), spec_of(state_dtype),
+                         "head", ("z",))

@@ -22,10 +22,10 @@ import torch
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("flow_fused", "flow_fused_bwd", "flow_decode", "flow_nc_fused",
-           "flow_nc_qside", "flow_chunk", "flow_chunk_bwd")
-KERNELS = ("flow_fused", "flow_fused_bwd", "flow_decode", "flow_nc_fused",
-           "flow_nc_qside", "flow_nc_qside_bwd", "flow_chunk",
+SOURCES = ("flow_fused", "flow_fused_bwd", "flow_decode", "flow_decode_q",
+           "flow_nc_fused", "flow_nc_qside", "flow_chunk", "flow_chunk_bwd")
+KERNELS = ("flow_fused", "flow_fused_bwd", "flow_decode", "flow_decode_q",
+           "flow_nc_fused", "flow_nc_qside", "flow_nc_qside_bwd", "flow_chunk",
            "flow_chunk_dkv")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -1,9 +1,12 @@
-"""Wrapper of the flow_decode CUDA kernel (``csrc/flow_decode.cu``).
+"""Wrappers of the flow_decode CUDA kernels (``csrc/flow_decode.cu``, K3,
+and ``csrc/flow_decode_q.cu``, K4).
 
 ``flow_decode_call`` works on the kernel's flat (BH, ...) layout and
 updates the six state tensors in place; ``flow_decode_step`` views a
 (B, Hkv, ...) ``FlowState`` pool and a (B, Hq, 1, D) token that way, as
-``repro/kernels/flow_decode/ops.py`` does around the TPU kernel.  The state
+``repro/kernels/flow_decode/ops.py`` does around the TPU kernel;
+``flow_decode_q_step`` does the same for an int8 ``QuantizedPool`` around
+K4 (``quant.py::flow_decode_q_call``).  The state
 must be contiguous fp32 views of the pool: the wrapper never copies it,
 since a copy would silently drop the in-place update.  CPU tensors run the
 plain version (``ref.py``) and copy its result into the state; CUDA
@@ -19,9 +22,11 @@ from repro_torch.attention.recurrent import FlowState
 from repro_torch.core.flow_attention import FlowConfig
 from repro_torch.kernels import _lib
 from repro_torch.kernels._lib import DTYPE_CODES, HEAD_DIMS, LAUNCHES, PHI_CODES
+from repro_torch.kernels.flow_decode.quant import flow_decode_q_call
 from repro_torch.kernels.flow_decode.ref import flow_decode_ref
 
-__all__ = ["LAUNCHES", "flow_decode_call", "flow_decode_step"]
+__all__ = ["LAUNCHES", "flow_decode_call", "flow_decode_q_step",
+           "flow_decode_step"]
 
 _ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_float,
                                                             ctypes.c_void_p]
@@ -109,3 +114,40 @@ def flow_decode_step(state: FlowState, q: torch.Tensor, k: torch.Tensor,
         state.z.view(bh), state.s.view(bh, d, dv),
         hkv=hkv, eps=cfg.eps, phi=cfg.phi, use_alloc=cfg.use_allocation)
     return state, out.reshape(b, hq, 1, dv)
+
+
+def flow_decode_q_step(pool, q: torch.Tensor, k: torch.Tensor,
+                       v: torch.Tensor, cfg: FlowConfig):
+    """Advance one token for every slot of an int8 ``QuantizedPool``, in
+    place (K4).
+
+    ``pool`` is a ``serving.quant.QuantizedPool`` whose payload and scale
+    trees are FlowStates (head granularity, ``z`` exempt), as
+    ``repro/kernels/flow_decode/ops.py::flow_decode_q_step`` takes it.
+    q: (B, Hq, 1, D); k: (B, Hkv, 1, D); v: (B, Hkv, 1, Dv).  Returns
+    ``(pool, out (B, Hq, 1, Dv))`` where ``pool`` holds the very tensors it
+    was given.  Every slot advances, live or not.
+    """
+    if pool.granularity != "head" or pool.exempt != ("z",):
+        raise ValueError(
+            "flow_decode_q_step expects the serving FlowState pool recipe "
+            f"(head granularity, z exempt); got {pool.granularity!r}/"
+            f"{pool.exempt!r}")
+    st, sc = pool.payload, pool.scale
+    b, hq, one, d = q.shape
+    if one != 1:
+        raise ValueError("decode_step consumes exactly one position")
+    hkv = k.shape[1]
+    g = hq // hkv
+    dv = v.shape[-1]
+    bh = b * hkv
+    st.t.add_(1)  # per-slot counts after this token
+    out = flow_decode_q_call(
+        st.t, q.reshape(bh, g, d).contiguous(),
+        k.reshape(bh, d).contiguous(), v.reshape(bh, dv).contiguous(),
+        (st.k_sum.view(bh, d), st.q_sum.view(bh, d), st.ko_sum.view(bh, d),
+         st.qi_sum.view(bh, d)), st.s.view(bh, d, dv),
+        (sc.k_sum.view(bh, 1), sc.q_sum.view(bh, 1), sc.ko_sum.view(bh, 1),
+         sc.qi_sum.view(bh, 1)), sc.s.view(bh, 1), st.z.view(bh),
+        hkv=hkv, eps=cfg.eps, phi=cfg.phi, use_alloc=cfg.use_allocation)
+    return pool, out.reshape(b, hq, 1, dv)

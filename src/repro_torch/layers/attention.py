@@ -5,7 +5,9 @@ The counterpart of the flow branch of ``repro/layers/attention.py``.  Modes:
   * full     — whole sequence, no cache (``attention``);
   * prefill  — whole prompt, returns the decode state; with ``lengths`` a
                right-padded batch of prompts with per-row boundary states;
-  * decode   — one token on the O(d^2) ``FlowState``.
+  * decode   — one token on the O(d^2) ``FlowState``, or on a
+               ``QuantizedPool`` of one when the plan's ``state_dtype`` is
+               int8 (the pool passes to the executor unchanged).
 
 Which kernel or scan realizes the math is resolved by the
 ``repro_torch.attention`` registry from the ``ExecutionPlan`` built once
@@ -25,6 +27,7 @@ from repro_torch.core.flow_attention import FlowConfig
 from repro_torch.layers import mixer as mixer_lib
 from repro_torch.layers.linear import dense, dense_init
 from repro_torch.layers.rope import apply_rope
+from repro_torch.serving import quant as quant_lib
 
 
 def _require_flow(cfg: ModelConfig):
@@ -50,11 +53,14 @@ def flow_cfg_of(cfg: ModelConfig, causal: bool) -> FlowConfig:
 
 
 def plan_of(cfg: ModelConfig, *, causal: bool = True, packed: bool = False,
-            needs_grad: bool = False) -> ExecutionPlan:
+            needs_grad: bool = False,
+            state_dtype: str | None = None) -> ExecutionPlan:
     """Build the model-level ``ExecutionPlan`` once; ``flow`` comes from
-    ``cfg.attention``; ``needs_grad`` for a training step."""
+    ``cfg.attention``; ``needs_grad`` for a training step; ``state_dtype``
+    the serving state pools' dtype (None, "bf16" and "fp32" keep the fp32
+    FlowState, "int8" and "fp8" quantize every pool)."""
     return ExecutionPlan(flow=flow_cfg_of(cfg, causal), packed=packed,
-                         needs_grad=needs_grad)
+                         needs_grad=needs_grad, state_dtype=state_dtype)
 
 
 def executor_of(cfg: ModelConfig, plan: ExecutionPlan | None = None, *,
@@ -157,6 +163,12 @@ class AttentionMixer(mixer_lib.Mixer):
 
     params_field = "attn"
 
+    def quant_capable(self, cfg, platform, dtype):
+        ok, why = quant_lib.platform_support(dtype, platform)
+        if not ok:
+            return False, why
+        return True, f"quantized FlowState pool ({why})"
+
     def init_params(self, gen, cfg):
         return attn_init(gen, cfg)
 
@@ -165,7 +177,10 @@ class AttentionMixer(mixer_lib.Mixer):
                          plan=plan)
 
     def state_init(self, cfg, batch, max_len, *, device=None, plan=None):
-        return _attn_cache_init(cfg, batch, device=device)
+        # a flow state stays fp32 under a bf16/fp32 state_dtype; int8/fp8
+        # wrap it in a QuantizedPool
+        return quant_lib.maybe_quantize(
+            _attn_cache_init(cfg, batch, device=device), plan)
 
     def prefill(self, params, x, cfg, max_len, *, positions=None,
                 lengths=None, plan=None):

@@ -15,13 +15,18 @@ of a decoder block and exposes
     decode_step(params, x, state, cfg, ...)        one token on the state
 
 ``plan`` is an ``ExecutionPlan`` or a ``BoundExecutor`` bound once.
-``resolve_mixers(cfg)`` gives the mixer of each layer from
-``cfg.block_kind``; the built-in kinds register on import of their layer
+``resolve_mixers(cfg, plan, platform)`` gives the mixer of each layer from
+``cfg.block_kind`` and enforces the plan's demands with the reference's
+rejection contract: a quantized ``state_dtype`` demands ``quant_capable``
+of every layer's mixer, and a refusal raises ``MixerResolutionError``
+naming the capability in the mixer's own words (``.rejections`` carries
+them structured).  The built-in kinds register on import of their layer
 modules (``layers/attention.py`` registers ``attn``).
 """
 from __future__ import annotations
 
 from repro_torch.config import ModelConfig
+from repro_torch.serving.quant import QUANT_DTYPES, state_dtype_of
 
 
 class Mixer:
@@ -29,6 +34,15 @@ class Mixer:
 
     kind: str = "?"
     params_field: str = "?"
+
+    def quant_capable(self, cfg: ModelConfig, platform: str, dtype: str):
+        """(ok, reason): can the decode state live in a quantized pool
+        (``serving.quant.QuantizedPool``, ``ExecutionPlan.state_dtype``)?
+        The default declines, so resolution rejects with a named reason
+        instead of a kind silently dequantizing a pool it does not
+        understand."""
+        return False, (f"no quantized-state decode path (would silently "
+                       f"dequantize the {dtype} pool)")
 
     def init_params(self, gen, cfg: ModelConfig) -> dict:
         raise NotImplementedError(f"{self.kind} does not provide init_params")
@@ -72,6 +86,45 @@ def get_mixer(kind: str) -> Mixer:
             f"{tuple(sorted(_REGISTRY))}") from None
 
 
-def resolve_mixers(cfg: ModelConfig) -> tuple:
-    """The ``Mixer`` of each layer of ``cfg`` (indexable by layer id)."""
-    return tuple(get_mixer(cfg.block_kind(i)) for i in range(cfg.n_layers))
+class MixerResolutionError(ValueError):
+    """A mixer cannot satisfy the plan; ``rejections`` is
+    ``((kind, capability, reason), ...)``."""
+
+    def __init__(self, message: str, rejections=()):
+        """Store the message plus the per-capability rejections."""
+        super().__init__(message)
+        self.rejections = tuple(rejections)
+
+
+def _quant_dtype_of(plan) -> str | None:
+    """The plan's quantized state dtype, or None for full-precision pools
+    (bf16/fp32 state dtypes are storage choices, not quantization)."""
+    sd = state_dtype_of(plan)
+    return sd if sd in QUANT_DTYPES else None
+
+
+def _check_demands(mixer: Mixer, cfg: ModelConfig, plan, platform):
+    """Raise unless ``mixer`` meets ``plan``'s demands.  Of the reference's
+    plan demands (``repro/layers/mixer.py::_plan_demands``) this port's
+    plan carries one: a quantized state dtype demands ``quant_capable``."""
+    qd = _quant_dtype_of(plan)
+    if qd is None:
+        return
+    ok, why = mixer.quant_capable(cfg, platform, qd)
+    if not ok:
+        plan = getattr(plan, "plan", plan)  # a BoundExecutor's plan
+        raise MixerResolutionError(
+            f"mixer {mixer.kind!r} cannot satisfy {plan.describe()}:\n  "
+            f"missing quant_capable: {why}",
+            ((mixer.kind, "quant_capable", why),))
+
+
+def resolve_mixers(cfg: ModelConfig, plan=None,
+                   platform: str | None = None) -> tuple:
+    """The ``Mixer`` of each layer of ``cfg`` (indexable by layer id);
+    with ``plan``, each layer's mixer must meet the plan's demands on
+    ``platform`` ("cuda" or "cpu")."""
+    mixers = tuple(get_mixer(cfg.block_kind(i)) for i in range(cfg.n_layers))
+    for mx in dict.fromkeys(mixers):
+        _check_demands(mx, cfg, plan, platform)
+    return mixers

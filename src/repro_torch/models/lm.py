@@ -135,9 +135,14 @@ def loss_fn(params, batch: dict, cfg: ModelConfig, *, dtype=torch.bfloat16,
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, *, plan=None,
                 device=None) -> list:
-    """Per-layer decode states (a FlowState per flow layer)."""
+    """Per-layer decode states: a FlowState per flow layer, or a
+    ``QuantizedPool`` of one when ``plan`` (an ``ExecutionPlan`` or a
+    ``BoundExecutor``) has an int8 or fp8 ``state_dtype``.  A layer whose
+    mixer cannot hold a quantized pool on ``device`` raises
+    ``MixerResolutionError`` here."""
+    platform = torch.device(device if device is not None else "cpu").type
     return [mx.state_init(cfg, batch, max_len, device=device, plan=plan)
-            for mx in resolve_mixers(cfg)]
+            for mx in resolve_mixers(cfg, plan, platform)]
 
 
 def prefill(params, inputs: torch.Tensor, cfg: ModelConfig, max_len: int, *,

@@ -7,8 +7,9 @@ admission is a scatter into the slot pool and nothing is ever evicted.
 
 ``Engine`` is the thin facade over the host ``Scheduler`` (queue, slot
 table, bookkeeping) and the device ``Worker`` (state pool, packed prefill,
-batched decode and sample).  Speculative decoding, paged and quantized
-pools, and the per-request prefill fallback are not ported yet.
+batched decode and sample).  ``state_dtype="int8"`` serves from int8
+FlowState pools (``serving/quant.py``).  Speculative decoding, paged and
+fp8 pools, and the per-request prefill fallback are not ported yet.
 """
 from __future__ import annotations
 
@@ -27,13 +28,18 @@ class Engine:
 
     def __init__(self, params, cfg: ModelConfig, *, slots: int = 8,
                  max_len: int = 4096, seed: int = 0, plan=None,
-                 dtype=torch.bfloat16, device="cuda"):
-        """Build the scheduler/worker pair.  ``device`` defaults to
-        ``"cuda"`` and raises when no GPU is present; pass ``"cpu"`` to
-        serve on the CPU with the plain PyTorch versions."""
+                 dtype=torch.bfloat16, state_dtype: str | None = None,
+                 device="cuda"):
+        """Build the scheduler/worker pair.  ``dtype`` is the activation
+        dtype; ``state_dtype`` the state pools' ("bf16" or "fp32" keep the
+        fp32 FlowState, "int8" stores int8 payloads with fp32
+        per-(slot, head) scales; fp8 is refused off the TPU).  ``device``
+        defaults to ``"cuda"`` and raises when no GPU is present; pass
+        ``"cpu"`` to serve on the CPU with the plain PyTorch versions."""
         self.scheduler = Scheduler(slots)
         self.worker = Worker(params, cfg, slots=slots, max_len=max_len,
-                             seed=seed, plan=plan, dtype=dtype, device=device)
+                             seed=seed, plan=plan, dtype=dtype,
+                             state_dtype=state_dtype, device=device)
 
     @property
     def queue(self):

@@ -12,6 +12,12 @@ The counterpart of ``repro/serving/worker.py`` for this slice.  The
   the ``flow_decode`` kernel, which updates the pool in place) and one
   batched sample.  The only host transfer per step is the sampled token
   vector.
+
+With ``state_dtype="int8"`` every layer's pool is a ``QuantizedPool``
+(``serving/quant.py``): int8 payloads plus fp32 per-(slot, head) scales.
+Admission quantizes each batch's fp32 boundary states once and scatters
+payload and scale into the slots; on a GPU each decode step runs the
+``flow_decode_q`` kernel (K4) on the pool in place.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ from repro_torch.attention import ExecutionPlan, FlowState
 from repro_torch.config import ModelConfig
 from repro_torch.layers.attention import executor_of
 from repro_torch.models import lm
+from repro_torch.serving.quant import QuantizedPool, quantize_like
 from repro_torch.utils import resolve_device
 
 
@@ -56,9 +63,17 @@ def _bucket_len(n: int, max_len: int) -> int:
     return max(min(b, max_len), n)
 
 
-def _install_layer(dst: FlowState, src: FlowState, slot_ids: torch.Tensor):
+def _install_layer(dst, src: FlowState, slot_ids: torch.Tensor):
     """Write an admission batch's boundary states into their pool slots,
-    every field of the FlowState (t included), in place."""
+    every field of the FlowState (t included), in place.  A quantized pool
+    takes the batch's fp32 states quantized ONCE with its recipe (fresh
+    per-(row, head) scales), payload and scale scattered alike, so the
+    pool's tensors never move."""
+    if isinstance(dst, QuantizedPool):
+        src = quantize_like(dst, src)
+        _install_layer(dst.payload, src.payload, slot_ids)
+        _install_layer(dst.scale, src.scale, slot_ids)
+        return
     for d, s in zip(dst, src):
         d[slot_ids] = s.to(d.dtype)
 
@@ -68,14 +83,16 @@ class Worker:
 
     def __init__(self, params, cfg: ModelConfig, *, slots: int, max_len: int,
                  seed: int = 0, plan: ExecutionPlan | None = None,
-                 dtype=torch.bfloat16, device="cuda"):
+                 dtype=torch.bfloat16, state_dtype: str | None = None,
+                 device="cuda"):
         """Move the parameters to ``device`` and build the state pool.
 
         ``dtype`` is the serving activation dtype (fp32 makes generations
         comparable token for token with an fp32 reference); the flow state
-        is fp32 whatever it is.  ``device`` defaults to ``"cuda"`` and
-        raises when no GPU is present; pass ``"cpu"`` for the plain
-        PyTorch versions.
+        is fp32 whatever it is, unless ``state_dtype`` (which outranks the
+        plan's) is "int8": then every pool is an int8 ``QuantizedPool``.
+        ``device`` defaults to ``"cuda"`` and raises when no GPU is
+        present; pass ``"cpu"`` for the plain PyTorch versions.
         """
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -84,8 +101,12 @@ class Worker:
         self.dtype = dtype
         self.params = lm.for_serving(params, self.device, dtype)
         # bound once: every admission and step reuses the resolved backends
+        base = plan or ExecutionPlan()
         self.executor = executor_of(cfg, dataclasses.replace(
-            plan or ExecutionPlan(), packed=True))
+            base, packed=True, state_dtype=state_dtype
+            if state_dtype is not None else base.state_dtype))
+        #: the serving plan every admission and step runs under
+        self.plan = self.executor.plan
         self.caches = lm.init_caches(cfg, slots, max_len, plan=self.executor,
                                      device=self.device)
         self._gen = torch.Generator(device=self.device)

@@ -11,7 +11,11 @@ in bf16 (both round once from fp32); training losses rtol 1e-4 and
 attention gradients within 1e-4 of each leaf's max |grad|.  The causal
 dot (K5a, K5b) is held to 1e-4 + 1e-4 |plain| + 1e-4 max |plain|: it sums
 N D terms whose size is that of its largest outputs, so an output that
-cancels keeps an error of the terms' size.
+cancels keeps an error of the terms' size.  The int8 decode (K4): outputs
+as K3's, z rtol 1e-5 atol 1e-5, t exact, scales rtol 1e-5, payloads
+within one LSB with at most a share of 1e-3 differing (the amax is exact,
+the values are summed in another order, so a value within ~1e-5 of a
+half-integer may round the other way).
 """
 import dataclasses
 
@@ -32,7 +36,10 @@ from repro_torch.kernels._lib import KERNELS  # noqa: E402
 from repro_torch.kernels.flow_chunk import (flow_chunk_call,  # noqa: E402
                                             flow_chunk_dkv_call,
                                             flow_chunk_dkv_ref, flow_chunk_ref)
-from repro_torch.kernels.flow_decode import flow_decode_call, flow_decode_step  # noqa: E402
+from repro_torch.kernels.flow_decode import (flow_decode_call,  # noqa: E402
+                                             flow_decode_q_call,
+                                             flow_decode_q_step,
+                                             flow_decode_step)
 from repro_torch.kernels.flow_fused import (flow_fused_bwd_call,  # noqa: E402
                                             flow_fused_bwd_ref,
                                             flow_fused_call,
@@ -51,6 +58,8 @@ from repro_torch.layers.attention import executor_of, plan_of  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.utils import tree_map  # noqa: E402
 from repro_torch.serving.engine import Engine, Request  # noqa: E402
+from repro_torch.serving.quant import (dequantize_state,  # noqa: E402
+                                       quantize_like, quantize_state, spec_of)
 
 pytestmark = pytest.mark.cuda
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -396,3 +405,103 @@ def test_paper_causal_training_kernels_match_plain_fp32(gen):
             want.update(flow_chunk=3 * n, flow_chunk_dkv=n)
         assert LAUNCHES == want
     np.testing.assert_allclose(hist["auto"], hist["plain"], rtol=1e-4)
+
+
+def int8_pool(gen, slots, hkv, d):
+    """A non-zero int8 FlowState pool on the card (the serving recipe)."""
+    st = FlowState(
+        t=torch.tensor([3, 40, 7, 1, 99][:slots], dtype=torch.int32,
+                       device="cuda"),
+        q_sum=torch.rand((slots, hkv, d), generator=gen, device="cuda") * 9,
+        k_sum=torch.rand((slots, hkv, d), generator=gen, device="cuda") * 9,
+        ko_sum=torch.rand((slots, hkv, d), generator=gen, device="cuda") * 9,
+        qi_sum=torch.rand((slots, hkv, d), generator=gen, device="cuda") * 9,
+        z=torch.rand((slots, hkv), generator=gen, device="cuda") * 9 + 1,
+        s=torch.randn((slots, hkv, d, d), generator=gen, device="cuda"))
+    return quantize_state(st, spec_of("int8"), granularity="head",
+                          exempt=("z",))
+
+
+def assert_int8_pool_close(pool, want):
+    p, w = pool.payload, want.payload
+    assert torch.equal(p.t, w.t)
+    torch.testing.assert_close(p.z, w.z, rtol=1e-5, atol=1e-5)
+    n = differ = 0
+    for name in ("q_sum", "k_sum", "ko_sum", "qi_sum", "s"):
+        diff = (getattr(p, name).int() - getattr(w, name).int()).abs()
+        assert int(diff.max()) <= 1, name
+        n, differ = n + diff.numel(), differ + int((diff > 0).sum())
+        torch.testing.assert_close(getattr(pool.scale, name),
+                                   getattr(want.scale, name), rtol=1e-5,
+                                   atol=0)
+    assert differ <= 1e-3 * n, f"{differ} of {n} payload entries differ"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("phi", ["sigmoid", "elu1", "relu"])
+@pytest.mark.parametrize("g,d", [(1, 32), (2, 32), (1, 64), (2, 64),
+                                 (1, 128), (2, 128)])
+def test_flow_decode_q_kernel_matches_plain_in_place(gen, g, d, phi, dtype):
+    """Four steps; at each the plain version (dequantize, the fp32 step,
+    requantize) starts from a copy of the kernel's pre-step pool."""
+    slots, hkv = 5, 2
+    cfg = FlowConfig(phi=phi, causal=True, strict_causal=True)
+    pool = int8_pool(gen, slots, hkv, d)
+    ptrs = [x.data_ptr() for x in pool.payload + pool.scale]
+    tol = TOL if dtype == torch.float32 else dict(rtol=1e-2, atol=1e-2)
+    reset_launches()
+    for _ in range(4):
+        q = torch.randn((slots, hkv * g, 1, d), generator=gen,
+                        device="cuda").to(dtype)
+        k = torch.randn((slots, hkv, 1, d), generator=gen,
+                        device="cuda").to(dtype)
+        v = torch.randn((slots, hkv, 1, d), generator=gen,
+                        device="cuda").to(dtype)
+        before = pool.with_state(FlowState(*(x.clone() for x in pool.payload)),
+                                 FlowState(*(x.clone() for x in pool.scale)))
+        same, out = flow_decode_q_step(pool, q, k, v, cfg)
+        new, ref = decode_step(dequantize_state(before), q, k, v, cfg)
+        assert same is pool and out.dtype == dtype
+        torch.testing.assert_close(out, ref, **tol)
+        assert_int8_pool_close(pool, quantize_like(before, new))
+    assert LAUNCHES == {**dict.fromkeys(KERNELS, 0), "flow_decode_q": 4}
+    assert [x.data_ptr() for x in pool.payload + pool.scale] == ptrs
+
+
+def test_flow_decode_q_wrapper_refuses_a_copy_or_another_payload(gen):
+    bh, d = 4, 64
+    pays = [torch.zeros((bh, d), dtype=torch.int8, device="cuda")
+            for _ in range(4)]
+    scales = [torch.ones((bh, 1), device="cuda") for _ in range(5)]
+    z = torch.ones((bh,), device="cuda")
+    s = torch.zeros((d, bh, d), dtype=torch.int8,
+                    device="cuda").transpose(0, 1)  # not contiguous
+    q = torch.randn((bh, 1, d), generator=gen, device="cuda")
+    t = torch.ones((bh,), dtype=torch.int32, device="cuda")
+    reset_launches()
+    with pytest.raises(ValueError, match="contiguous"):
+        flow_decode_q_call(t, q, q[:, 0], q[:, 0], pays, s, scales[:4],
+                           scales[4], z, hkv=1)
+    with pytest.raises(ValueError, match="int8 payloads only"):
+        flow_decode_q_call(t, q, q[:, 0], q[:, 0], pays,
+                           s.contiguous().float(), scales[:4], scales[4], z,
+                           hkv=1)
+    assert LAUNCHES["flow_decode_q"] == 0
+
+
+def test_int8_engine_runs_k4_and_never_k3(gen):
+    cfg = get_smoke_config("flowformer_lm")
+    params = lm.init(cfg, torch.Generator().manual_seed(0), device="cuda")
+    engine = Engine(params, cfg, slots=2, max_len=128, dtype=torch.float32,
+                    state_dtype="int8")
+    rng = np.random.default_rng(0)
+    for uid, n in enumerate((5, 40, 17, 9)):
+        engine.submit(Request(uid=uid, prompt=rng.integers(
+            0, cfg.vocab_size, n).astype(np.int32), max_new_tokens=6))
+    reset_launches()
+    done = engine.run()
+    assert len(done) == 4 and all(len(r.generated) == 6 for r in done)
+    w = engine.worker
+    assert LAUNCHES == {**dict.fromkeys(KERNELS, 0),
+                        "flow_fused": cfg.n_layers * w.admission_rounds,
+                        "flow_decode_q": cfg.n_layers * w.decode_steps}

@@ -4,11 +4,14 @@
 standard library only; importing the package builds no kernel; entry
 points refuse to run on the CPU unless asked; the backend registry
 resolves to the CUDA kernels on a CUDA platform, never to a plain version
-there unless pinned, and to the plain versions elsewhere; and a training
-plan (``needs_grad``) admits only backends that differentiate the op.
+there unless pinned, and to the plain versions elsewhere; a training
+plan (``needs_grad``) admits only backends that differentiate the op; and
+a quantized serving plan (``state_dtype``) admits only ``quant_capable``
+backends and mixers, refusing fp8 off the TPU by name.
 """
 import ast
 import dataclasses
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -25,16 +28,21 @@ from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.kernels import LAUNCHES, reset_launches  # noqa: E402
 from repro_torch.kernels._lib import KERNELS  # noqa: E402
 from repro_torch.kernels.flow_chunk import flow_chunk_call, flow_chunk_dkv_call  # noqa: E402
-from repro_torch.kernels.flow_decode import flow_decode_step  # noqa: E402
+from repro_torch.kernels.flow_decode import (flow_decode_q_step,  # noqa: E402
+                                             flow_decode_step)
 from repro_torch.kernels.flow_fused import flow_fused_call, flow_fused_forward  # noqa: E402
 from repro_torch.kernels.flow_nc import (flow_nc_fused_call,  # noqa: E402
                                          flow_nc_qside_bwd_call,
                                          flow_nc_qside_call)
 from repro_torch.launch.classify import train_eval_classifier  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch.train import train  # noqa: E402
+from repro_torch.layers import mixer as mixer_lib  # noqa: E402
+from repro_torch.layers.attention import plan_of  # noqa: E402
 from repro_torch.models import classifier  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.serving.engine import Engine, Request  # noqa: E402
+from repro_torch.serving.quant import QuantizedPool, maybe_quantize  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -296,3 +304,112 @@ def test_auto_on_cuda_refuses_what_the_nc_kernel_does_not_take(change, reason):
     text = str(attention.explain(ExecutionPlan(flow=cfg), shapes,
                                  platform="cuda", op="forward"))
     assert f"no  cuda_nc: {reason}" in text
+
+
+def quant_plan(backend="auto", state_dtype="int8"):
+    return ExecutionPlan(flow=FlowConfig(backend=backend), packed=True,
+                         state_dtype=state_dtype)
+
+
+@pytest.mark.parametrize("platform", ["cuda", "cpu"])
+def test_fp8_pools_are_refused_off_the_tpu(platform):
+    reason = f"fp8 e4m3 state pools are TPU-only (platform={platform})"
+    with pytest.raises(attention.ResolutionError, match="TPU-only") as err:
+        attention.resolve(quant_plan(state_dtype="fp8")).backend(
+            "decode", SHAPES["decode"], platform)
+    assert "with fp8 state pools" in str(err.value)
+    why = dict(err.value.rejections)
+    assert why["cuda_decode"].startswith(reason)
+    assert why["recurrent"].startswith(reason)
+    with pytest.raises(attention.ResolutionError, match="TPU-only"):
+        attention.registry.resolve(FlowConfig(causal=True, strict_causal=True),
+                                   SHAPES["decode"], platform, op="decode",
+                                   quant="fp8")
+    cfg = get_smoke_config("flowformer_lm")
+    with pytest.raises(mixer_lib.MixerResolutionError,
+                       match=re.escape(f"missing quant_capable: {reason}")
+                       ) as err:
+        lm.init_caches(cfg, 2, 32, plan=plan_of(cfg, state_dtype="fp8"),
+                       device=platform)
+    assert err.value.rejections[0][:2] == ("attn", "quant_capable")
+
+
+@pytest.mark.parametrize("backend,platform,want,prefill", [
+    ("auto", "cuda", "cuda_decode", "cuda_fused"),
+    ("auto", "cpu", "recurrent", "fused_causal"),
+    ("plain", "cuda", "recurrent", "fused_causal"),
+    ("recurrent", "cuda", "recurrent", "cuda_fused"),
+    ("cuda_decode", "cuda", "cuda_decode", "cuda_fused")])
+def test_int8_decode_resolution(backend, platform, want, prefill):
+    ex = attention.resolve(quant_plan(backend))
+    assert ex.backend("decode", SHAPES["decode"], platform).name == want
+    # prefill never sees the pool dtype: it makes fp32 boundary states
+    assert ex.backend("prefill_packed", SHAPES["prefill_packed"],
+                      platform).name == prefill
+    text = str(attention.explain(quant_plan(backend), SHAPES["decode"],
+                                 platform=platform, op="decode"))
+    assert "state_dtype=int8" in text and f"OK  {want}" in text
+
+
+def test_plain_recurrent_refuses_an_int8_pool_on_cuda_unless_pinned():
+    shapes = dataclasses.replace(SHAPES["decode"], d=96, dv=96)
+    with pytest.raises(attention.ResolutionError,
+                       match="with int8 state pools") as err:
+        attention.resolve(quant_plan()).backend("decode", shapes, "cuda")
+    why = dict(err.value.rejections)
+    assert "pinned" in why["recurrent"] and "kernel takes" in why["cuda_decode"]
+    for pin in ("plain", "recurrent"):
+        assert attention.resolve(quant_plan(pin)).backend(
+            "decode", shapes, "cuda").name == "recurrent"
+
+
+def test_a_backend_without_quant_capable_is_rejected_by_name(monkeypatch):
+    class BareDecode(attention.Backend):
+        provides = frozenset({"decode"})
+
+        def supports(self, cfg, shapes, platform, *, op="forward"):
+            return True, "decodes anything"
+
+    impl = BareDecode()
+    impl.name = "bare_decode"
+    monkeypatch.setitem(attention.registry._REGISTRY, "bare_decode", impl)
+    monkeypatch.setattr(attention.registry, "_ORDER",
+                        attention.registry._ORDER + ["bare_decode"])
+    assert attention.resolve(ExecutionPlan(flow=FlowConfig(
+        backend="bare_decode"))).backend("decode", SHAPES["decode"],
+                                         "cpu") is impl
+    with pytest.raises(attention.ResolutionError) as err:
+        attention.resolve(quant_plan("bare_decode")).backend(
+            "decode", SHAPES["decode"], "cpu")
+    assert dict(err.value.rejections)["bare_decode"] == (
+        "no quantized-state path for decode (would silently dequantize the "
+        "int8 pool; pick a quant-capable strategy)")
+    # the mixer protocol declines the same way by default
+    ok, why = mixer_lib.Mixer().quant_capable(get_smoke_config(
+        "flowformer_lm"), "cpu", "int8")
+    assert not ok and "silently dequantize the int8 pool" in why
+
+
+def test_serve_cli_refuses_cpu_unless_asked():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--smoke", "--state-dtype", "int8"])
+
+
+def test_cpu_flow_decode_q_wrapper_runs_the_plain_version_uncounted():
+    reset_launches()
+    cfg = get_smoke_config("flowformer_lm")
+    state = attention.init_state(2, 1, 32)
+    state = state._replace(s=torch.randn((2, 1, 32, 32)), t=state.t + 3)
+    pool = maybe_quantize(state, plan_of(cfg, state_dtype="int8"))
+    tensors = list(pool.payload + pool.scale)
+    q = torch.randn((2, 2, 1, 32))
+    same, out = flow_decode_q_step(pool, q, q[:, :1], q[:, 1:],
+                                   FlowConfig(causal=True, strict_causal=True))
+    assert isinstance(same, QuantizedPool) and out.shape == (2, 2, 1, 32)
+    assert all(a is b for a, b in zip(same.payload + same.scale, tensors))
+    assert pool.payload.t.tolist() == [4, 4]
+    assert pool.payload.s.dtype == torch.int8 and pool.payload.s.any()
+    assert "flow_decode_q" in KERNELS
+    assert LAUNCHES == dict.fromkeys(KERNELS, 0)
