@@ -30,6 +30,16 @@ any failure raises, so the exit code is non-zero:
      G = 2, N = 200 padded to the chunk, D = 32 and 128, through the glue
      and autograd (``FlowChunkDot``) against autograd of the plain cumsum
      dot;
+  3e. K10a ``ssd_chunk`` (with and without carry-ins) and K10b
+     ``ssd_chunk_bwd`` against their plain versions at the mamba2_1p3b
+     training shape (B = 4 x H = 64 rows, N = 4,096, P = 64, S = 128,
+     chunk 128, fp32; B and C shared by the heads through a stride-0 view)
+     and at ``ssd_scan``'s chunk rule's N = 96 (chunk 96) and N = 200
+     (chunk 8), and at strong decay (dta = -50, N = 512): K10a's y and
+     carry-ins against the plain chunked scan, K10b through
+     ``SSDChunkDot`` against autograd through it, random cotangents; K9
+     ``boundary_gather`` at the admission shape (16 rows, Lb 512, W 4,096
+     and 128, bf16 and fp32, lengths including 0, 1, 2, 3 and 512);
   4. K3 ``flow_decode`` against its plain version: 16 (the serving pool)
      and 64 slots x 8 kv heads, 32 steps from a non-zero state, updated
      in place;
@@ -89,12 +99,45 @@ any failure raises, so the exit code is non-zero:
      kernels and once on the plain PyTorch path, 3 steps: the losses
      agree, and every wq/wk/wv gradient of the first step is non-zero and
      agrees with the plain path's;
-  9. (after 11) per kernel, its time with CUDA events beside its plain
+  13. the Engine serving the full-width mamba2_1p3b (48 layers of SSD,
+     random weights from a seed) in bf16, phase 5's traffic: exactly 3 K9
+     launches per layer and admission round and nothing else; decode and
+     prefill tokens/s; ``pool_bytes`` = 16 x 101,916,672; then
+     ``torch.profiler`` over decode steps as in 5b;
+  14. the same Engine in fp32, 12 requests of mixed lengths, against a
+     per-request greedy oracle on the card (unpacked ``lm.prefill``, whose
+     conv history is ``_causal_conv``'s tail, then ``lm.decode``),
+     teacher-forced, twice: with fp32 conv histories in both paths
+     (``layers.ssd.CONV_DTYPE`` bound) the greedy tokens must be identical
+     and every logit within rtol 1e-4, atol 1e-4 x max |logit| of the
+     oracle's; with the configuration's bf16 histories the logits of the
+     t-th token within rtol and atol (1e-4 + 1.5e-3 t) x max |logit|, and
+     the tokens where the oracle's margin clears that (see
+     ``serve_ssd_fp32_against_oracle``);
+  15. training the full-width mamba2_1p3b (bf16, 5 steps of 4 x 4,096:
+     the sequence length of the reference's ``train_4k`` shape, its
+     global batch of 256 cut to 4 for one card): finite losses, exactly
+     2 x 48 K10a with carry-ins (the forward and its remat recompute:
+     ``torch.utils.checkpoint`` reruns each block's forward in the
+     backward) and 48 K10b per step and nothing else; one no-grad
+     evaluation forward: exactly 48 K10a without carry-ins; then
+     ``torch.profiler`` over two steps;
+  16. the same trainer in fp32 at full width and 2 layers, 3 steps of 4 x
+     4,096, on the kernels and on the plain path (``ssd_scan`` bound with
+     ``interpret=True`` in ``layers.ssd``, restored after): the losses
+     agree, and every in_x/in_b/in_c/in_dt/a_log/dt_bias gradient of the
+     first step is non-zero and agrees with the plain path's;
+  9. (after 16) per kernel, its time with CUDA events beside its plain
      version's and its bound, as one ``{"kernels": [...]}`` line
      (``launches`` is the count over the main-path runs of phases 5 and 7
      for K1-K3, of phase 5c for K4 (K1's count includes 5c's), of phase
-     10 for K6, K7a, K7b and of phase 7c for K5a, K5b), K1's time at the
-     training shape, and K3 and K4 at 16 and 1,024 slots x 8 kv heads;
+     10 for K6, K7a, K7b, of phase 7c for K5a, K5b, of phase 13 for K9
+     and of phase 15 for K10a and K10b), K1's time at the training shape,
+     K3 and K4 at 16 and 1,024 slots x 8 kv heads, K9 at one admission's
+     x stream (16 x 512 x 4,096 bf16; its library yardstick the padded
+     ``torch.take_along_dim``), K10a and K10b at one layer of phase 15
+     (their plain versions' ~500-1,000 launches overflow the launch queue,
+     so those are timed as one replay of a CUDA graph, ``graph_ms``);
   12. the last line: ``{"ok": true, "device": {...}}``.
 
 Tolerances (|kernel - plain| <= atol + rtol * |plain|, elementwise):
@@ -121,7 +164,16 @@ summed in another order, so a value within ~1e-5 of a half-integer may
 round the other way (a few in 1e5), while rounding by truncation differs
 in about half of the entries and a stale scale in far more.  Phase 6b's
 logits: rtol 1e-4 and atol 1e-4 x max |logit| -- within one step ``out``
-uses the fp32 S before requantization, so only fp32 order differs.
+uses the fp32 S before requantization, so only fp32 order differs.  K10a
+and K10b, fp32: |kernel - plain| <= atol + rtol |plain| + rtol max |plain|
+with rtol and atol 1e-4 -- a chunk sums C S products (and K10b's dcum
+C^2 of them) as large as the outputs, in another order.  K9: exact (a
+gather).  Phase 16: losses rtol 1e-4 and each listed gradient within
+1e-4 of that leaf's max |grad|, as phase 8.  Phase 14 with bf16 conv
+histories: the t-th token's logits within (1e-4 + 1.5e-3 t) x max |logit|
+-- a history element rounded to the neighbouring bf16 value (the two
+paths sum it at other GEMM shapes) moves the state, and the gap grew by
+~4.5e-4 of max |logit| per token on an H100.
 """
 from __future__ import annotations
 
@@ -987,11 +1039,12 @@ def train_paper_causal_full_width(cfg) -> dict:
     return stats
 
 
-def profile_train(cfg, step_ms: float, kernels=K12, tag="train") -> dict:
-    """Phase 7b (and 7c): device time of a full-width bf16 training step
-    by kernel, from ``torch.profiler`` over two steps (the weights are on
-    the card before the window opens), and its share of phase 7's (7c's)
-    unprofiled step time; ``kernels`` names the path's kernels."""
+def profile_train(cfg, step_ms: float, kernels=K12, tag="train", batch=16,
+                  seq=512) -> dict:
+    """Phase 7b (and 7c, 15b): device time of a full-width bf16 training
+    step by kernel, from ``torch.profiler`` over two steps (the weights are
+    on the card before the window opens), and its share of phase 7's (7c's,
+    15's) unprofiled step time; ``kernels`` names the path's kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1004,7 +1057,7 @@ def profile_train(cfg, step_ms: float, kernels=K12, tag="train") -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        train(cfg, steps=steps, batch=16, seq=512, seed=SEED + 1,
+        train(cfg, steps=steps, batch=batch, seq=seq, seed=SEED + 1,
               device=DEVICE, params=params)
     events = prof.key_averages()
     dev = [e for e in events if e.device_type == DeviceType.CUDA]
@@ -1255,6 +1308,433 @@ def train_classifier_fp32_both_paths(cfg):
           f"{hist['auto']} vs {hist['plain']}; wq/wk/wv grads of step 1 "
           f"non-zero, worst |diff| / max |grad| {worst:.3e}", flush=True)
 
+# --- the mamba2_1p3b slice: K9, K10a, K10b -----------------------------------
+
+SSD_SHAPE = dict(bsz=4, heads=64, n=4096, p=64, s=128)  # the training shape
+SSD_K10 = {"k10a_ms_per_step": "ssd_chunk_kernel",
+           "k10b_ms_per_step": "ssd_chunk_bwd_kernel"}
+#: phase 14 with bf16 conv histories: the logits' tolerance grows by this
+#: share of max |logit| per generated token.  The admission's logits use no
+#: history (1e-4 holds); after it the drift grew by ~4.5e-4 per step on an
+#: H100 (1.1e-3 at the 3rd token, 7.0e-3 at the 16th), the tolerance by
+#: about three times that.
+SSD_BF16_CONV_DRIFT = 1.5e-3
+
+
+def ssd_operands(bsz, heads, n, p, s, seed, strong=False):
+    """x (BH, N, P), dta (BH, N, 1), bmat and cmat (B, N, S), fp32 on the
+    card, in the ranges of the training path (dta = dt A <= 0; -50 per
+    position for strong decay)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    mk = lambda *sh: torch.randn(sh, generator=gen, device=DEVICE)  # noqa: E731
+    x = mk(bsz * heads, n, p) * 0.5
+    dta = (torch.full((bsz * heads, n, 1), -50.0, device=DEVICE) if strong
+           else -torch.rand((bsz * heads, n, 1), generator=gen,
+                            device=DEVICE) * 0.2)
+    return x, dta, mk(bsz, n, s) * 0.5, mk(bsz, n, s) * 0.5
+
+
+def heads_view(t, heads):
+    """(B, N, S) -> the (B, H, N, S) view with head stride 0."""
+    return t[:, None].expand(t.shape[0], heads, *t.shape[1:])
+
+
+def check_ssd() -> dict:
+    """Phase 3e: K10a (both variants), K10b (through ``SSDChunkDot``) and
+    K9 against their plain versions; returns each one's max |error| at
+    the main path's shape."""
+    from repro_torch.kernels.gather import boundary_gather, boundary_gather_ref
+    from repro_torch.kernels.ssd_chunk import (SSDChunkDot, ssd_chunk_call,
+                                               ssd_chunk_chunked)
+    from repro_torch.kernels.ssd_chunk.ops import scan_chunk
+
+    errs = {}
+    cases = [(SSD_SHAPE["bsz"], SSD_SHAPE["heads"], SSD_SHAPE["n"], False),
+             (2, 8, 96, False), (2, 8, 200, False),
+             (2, 8, 512, True)]
+    for i, (bsz, heads, n, strong) in enumerate(cases):
+        p, s = SSD_SHAPE["p"], SSD_SHAPE["s"]
+        chunk = scan_chunk(n, 128)
+        x, dta, bm, cm = ssd_operands(bsz, heads, n, p, s, SEED + 70 + i,
+                                      strong)
+        b4, c4 = heads_view(bm, heads), heads_view(cm, heads)
+        tag = (f"fp32 B={bsz} H={heads} N={n} chunk={chunk}"
+               + (" dta=-50" if strong else ""))
+        with torch.no_grad():
+            y, hins = ssd_chunk_call(x, dta, b4, c4, chunk=chunk,
+                                     return_hins=True)
+            y0 = ssd_chunk_call(x, dta, b4, c4, chunk=chunk)
+            ry, rh = ssd_chunk_chunked(x, dta, b4, c4, chunk)
+            torch.cuda.synchronize()
+            e_h = max(dot_close(f"ssd_chunk_hins {tag} y", y, ry),
+                      dot_close(f"ssd_chunk_hins {tag} hins", hins, rh))
+            e_y = dot_close(f"ssd_chunk {tag} y", y0, ry)
+        g = torch.randn(x.shape, generator=torch.Generator(
+            device=DEVICE).manual_seed(SEED + 80 + i), device=DEVICE)
+        grads = {}
+        for route in ("kernel", "plain"):
+            leaves = [t.clone().requires_grad_(True) for t in (x, dta, bm, cm)]
+            args = (leaves[0], leaves[1], heads_view(leaves[2], heads),
+                    heads_view(leaves[3], heads))
+            out = (SSDChunkDot.apply(*args, chunk) if route == "kernel"
+                   else ssd_chunk_chunked(*args, chunk)[0])
+            grads[route] = torch.autograd.grad(out, leaves, g)
+            del out, leaves, args
+        torch.cuda.synchronize()
+        e_b = max(dot_close(f"ssd_chunk_bwd {tag} d{name}", a, b)
+                  for name, a, b in zip(("x", "dta", "b", "c"),
+                                        grads["kernel"], grads["plain"]))
+        print(f"[K10] {tag}: K10a {e_y:.3e}, K10a+hins {e_h:.3e}, K10b "
+              f"{e_b:.3e}", flush=True)
+        if i == 0:
+            errs.update(ssd_chunk=e_y, ssd_chunk_hins=e_h, ssd_chunk_bwd=e_b)
+        del grads, x, dta, bm, cm, b4, c4, y, hins, y0, ry, rh, g
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 90)
+    lens = ragged_lens(np.random.default_rng(SEED + 90), 16, 0, 512)
+    lens[:5] = (0, 1, 2, 3, 512)
+    lengths = torch.tensor(lens, device=DEVICE)
+    for w in (4096, 128):
+        for dtype in (torch.bfloat16, torch.float32):
+            xb = torch.randn((16, 512, w), generator=gen,
+                             device=DEVICE).to(dtype)
+            with torch.inference_mode():
+                got = boundary_gather(xb, lengths, 4)
+                want = boundary_gather_ref(xb, lengths, 4)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"boundary_gather W={w} {dtype}: not "
+                                     "exact")
+    print("[K9] 16 rows x Lb 512, W 4096 and 128, bf16 and fp32, lengths "
+          f"{sorted(set(lens.tolist()))[:6]}...: exact", flush=True)
+    errs["boundary_gather"] = 0.0
+    return errs
+
+
+def ssd_state_bytes_per_slot(cfg) -> int:
+    """The decode state of one slot: per layer h (H, P, S) fp32 and three
+    bf16 conv histories of K - 1 rows (x: d_inner wide, B and C: S)."""
+    s = cfg.ssd
+    d_in = s.expand * cfg.d_model
+    h = (d_in // s.head_dim) * s.head_dim * s.d_state * 4
+    conv = (s.conv_width - 1) * (d_in + 2 * s.d_state) * 2
+    return cfg.n_layers * (h + conv)
+
+
+def serve_ssd_full_width(params, cfg) -> dict:
+    """Phase 13: the bf16 Engine serving the full-width mamba2_1p3b; K9
+    launches, rates and the pools' bytes."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels._lib import KERNELS
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.quant import pool_bytes
+
+    engine = Engine(params, cfg, slots=16, max_len=512, seed=SEED,
+                    device=DEVICE)
+    reqs = requests(np.random.default_rng(SEED + 4), 48, cfg.vocab_size,
+                    (16, 384), (32, 64))
+    for r in reqs:
+        engine.submit(r)
+    worker, spent = engine.worker, {"prefill": 0.0, "step": 0.0}
+
+    def timed(fn, key):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            res = fn(*a, **kw)  # ends in a device-to-host copy: synchronized
+            spent[key] += time.perf_counter() - t0
+            return res
+        return run
+
+    worker.prefill = timed(worker.prefill, "prefill")
+    worker.step = timed(worker.step, "step")
+    torch.cuda.synchronize()
+    reset_launches()
+    done = engine.run()
+    launches = dict(LAUNCHES)
+    if len(done) != len(reqs):
+        raise AssertionError(f"{len(done)} of {len(reqs)} requests retired")
+    for r in done:
+        if not r.done or len(r.generated) != r.max_new_tokens or not all(
+                0 <= tok < cfg.vocab_size for tok in r.generated):
+            raise AssertionError(f"request {r.uid}: {r.generated}")
+    rounds, steps = worker.admission_rounds, worker.decode_steps
+    want = {**dict.fromkeys(KERNELS, 0),
+            "boundary_gather": 3 * cfg.n_layers * rounds}
+    if launches != want:
+        raise AssertionError(f"mamba2 serving launched {launches}, want "
+                             f"{want}")
+    per_slot = ssd_state_bytes_per_slot(cfg)
+    n_bytes = pool_bytes(worker.caches)
+    if n_bytes != 16 * per_slot:
+        raise AssertionError(f"pool_bytes {n_bytes} != 16 x {per_slot}")
+    prompt_tokens = sum(len(r.prompt) for r in reqs)
+    decode_tokens = sum(len(r.generated) - 1 for r in reqs)
+    stats = {
+        "requests": len(reqs), "admission_rounds": rounds,
+        "decode_steps": steps, "prompt_tokens": prompt_tokens,
+        "decode_tokens": decode_tokens,
+        "prefill_s": spent["prefill"], "decode_s": spent["step"],
+        "prefill_tok_per_s": prompt_tokens / spent["prefill"],
+        "decode_tok_per_s": decode_tokens / spent["step"],
+        "decode_ms_per_step": 1e3 * spent["step"] / steps,
+        "launches": launches, "pool_bytes": n_bytes,
+        "pool_bytes_per_slot": n_bytes // 16}
+    print("[engine mamba2 bf16] " + json.dumps(stats), flush=True)
+    return stats
+
+
+def serve_ssd_fp32_against_oracle(params, cfg, conv_dtype=torch.float32,
+                                  drift=0.0):
+    """Phase 14: the fp32 Engine (packed admission through K9) against a
+    per-request greedy oracle on the card: unpacked ``lm.prefill`` (the
+    conv history from ``_causal_conv``'s tail, no K9), then ``lm.decode``,
+    teacher-forced with the Engine's tokens.  Every logit the Engine
+    computed for a request's t-th token must lie within rtol_t, atol
+    rtol_t x max |logit| of the oracle's, rtol_t = 1e-4 + ``drift`` t.
+
+    ``layers.ssd.CONV_DTYPE`` is bound to ``conv_dtype`` for both paths
+    (restored after).  With fp32 histories (no drift) only fp32 order
+    differs, and the greedy tokens must be identical: the check sees the
+    packing itself.  With the configuration's bf16 histories the two paths
+    round fp32 values that their GEMMs summed at other shapes (8-slot
+    batches and 16-row packed prefills against one row); a history element
+    can land on the neighbouring bf16 value, and the logits drift apart
+    step by step (``SSD_BF16_CONV_DRIFT``), so a token is held only where
+    the oracle's top-2 margin exceeds twice the tolerance of its top
+    logit."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.layers import ssd as ssd_layer
+    from repro_torch.models import lm
+
+    exact = conv_dtype == torch.float32
+    bound_dtype = ssd_layer.CONV_DTYPE
+    ssd_layer.CONV_DTYPE = conv_dtype
+    try:
+        got, seen, reqs, weights = _serve_recording_logits(params, cfg)
+        reset_launches()
+        oracle = {}
+        for r in reqs:  # teacher-forced with the Engine's tokens
+            with torch.inference_mode():
+                logits, caches = lm.prefill(
+                    weights, torch.tensor(r.prompt[None], device=DEVICE), cfg,
+                    max_len=256, dtype=torch.float32)
+                oracle[r.uid] = [logits[0, -1]]
+                for t, tok in enumerate(got[r.uid][:-1]):
+                    logits, caches = lm.decode(
+                        weights, torch.tensor([[tok]], device=DEVICE), caches,
+                        cfg, len(r.prompt) + t, dtype=torch.float32)
+                    oracle[r.uid].append(logits[0, -1])
+    finally:
+        ssd_layer.CONV_DTYPE = bound_dtype
+    if LAUNCHES["boundary_gather"]:
+        raise AssertionError("the unpacked oracle launched K9")
+    tag = f"mamba2 fp32, {str(conv_dtype)[6:]} conv histories"
+    by_step, n_tok, near_ties = {}, 0, 0
+    for r in reqs:
+        gen = got[r.uid]
+        if len(seen[r.uid]) != len(gen):
+            raise AssertionError(f"request {r.uid}: {len(seen[r.uid])} "
+                                 f"logit rows for {len(gen)} tokens")
+        for t, (want, have) in enumerate(zip(oracle[r.uid], seen[r.uid])):
+            scale, rtol = float(want.abs().max()), 1e-4 + drift * t
+            top = torch.topk(want, 2)
+            margin = float(top.values[0] - top.values[1])
+            if gen[t] != int(top.indices[0]):
+                tie = margin <= 2 * rtol * (scale + float(top.values[0].abs()))
+                if exact or not tie:
+                    raise AssertionError(
+                        f"{tag}, request {r.uid} token {t}: Engine {gen[t]}, "
+                        f"oracle {int(top.indices[0])}, oracle top-2 margin "
+                        f"{margin:.3e}")
+                near_ties += 1
+            err = max_err(f"{tag}, request {r.uid} token {t} logits", have,
+                          want, (rtol, rtol * scale))
+            by_step[t] = max(by_step.get(t, 0.0), err / scale)
+            n_tok += 1
+    print(f"[{tag}] packed admission (K9) vs the per-request oracle: "
+          f"{n_tok - near_ties} of {n_tok} greedy tokens of {len(reqs)} "
+          f"requests agree ({near_ties} near ties); logits within "
+          f"{max(by_step.values()):.3e} of max |logit| (rtol 1e-4 + "
+          f"{drift:g} t), by step "
+          f"{[float(f'{by_step[t]:.2e}') for t in sorted(by_step)]}",
+          flush=True)
+
+
+def _serve_recording_logits(params, cfg):
+    """Phase 14's Engine run: 12 requests of mixed lengths through 8 fp32
+    slots; returns the generations, each request's logits row of every
+    step (admission included), the requests and the Engine's weights."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import Engine
+
+    engine = Engine(params, cfg, slots=8, max_len=256, seed=SEED,
+                    dtype=torch.float32, device=DEVICE)
+    worker, sched = engine.worker, engine.scheduler
+    reqs = requests(np.random.default_rng(SEED + 5), 12, cfg.vocab_size,
+                    (16, 128), (16, 16))
+    for r in reqs:
+        engine.submit(r)
+    uid_of = {id(r.prompt): r.uid for r in reqs}
+    seen = {r.uid: [] for r in reqs}
+    real = {"prefill": lm.prefill, "decode": lm.decode}
+    last = {}
+
+    def recording(name):
+        def run(*a, **kw):
+            last["logits"], caches = real[name](*a, **kw)
+            return last["logits"], caches
+        return run
+
+    real_prefill, real_step = worker.prefill, worker.step
+
+    def admit(prompts, slot_ids, temps):
+        first = real_prefill(prompts, slot_ids, temps)
+        for row, prompt in enumerate(prompts):
+            seen[uid_of[id(prompt)]].append(last["logits"][row, -1].clone())
+        return first
+
+    def step(tokens, pos, temps, live):
+        toks = real_step(tokens, pos, temps, live)
+        for slot in np.flatnonzero(live):
+            seen[sched.active[slot].uid].append(
+                last["logits"][slot, -1].clone())
+        return toks
+
+    worker.prefill, worker.step = admit, step
+    lm.prefill, lm.decode = recording("prefill"), recording("decode")
+    reset_launches()
+    try:
+        got = {r.uid: r.generated for r in engine.run()}
+    finally:
+        lm.prefill, lm.decode = real["prefill"], real["decode"]
+    if LAUNCHES["boundary_gather"] != 3 * cfg.n_layers * (
+            worker.admission_rounds):
+        raise AssertionError(f"fp32 mamba2 serving launches {LAUNCHES}")
+    return got, seen, reqs, worker.params
+
+
+def train_ssd_full_width(cfg) -> dict:
+    """Phase 15: the trainer at full width in bf16, 5 steps of 4 x 4,096;
+    K10a with carry-ins twice per layer and step (the forward and its
+    remat recompute), K10b once, nothing else; then one no-grad
+    evaluation forward of a batch: K10a without carry-ins once per layer."""
+    from repro_torch.data.loader import lm_loader
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels._lib import KERNELS
+    from repro_torch.launch.train import train
+    from repro_torch.models import lm
+
+    steps, batch, seq = 5, SSD_SHAPE["bsz"], SSD_SHAPE["n"]
+    torch.cuda.synchronize()
+    reset_launches()
+    out = train(cfg, steps=steps, batch=batch, seq=seq, seed=SEED,
+                device=DEVICE)
+    launches = dict(LAUNCHES)
+    hist = out["history"]
+    if len(hist) != steps or not all(math.isfinite(x) for x in hist):
+        raise AssertionError(f"mamba2 training losses {hist}")
+    n = cfg.n_layers * steps
+    want = {**dict.fromkeys(KERNELS, 0), "ssd_chunk_hins": 2 * n,
+            "ssd_chunk_bwd": n}
+    if launches != want:
+        raise AssertionError(f"mamba2 training launched {launches}, want "
+                             f"{want}")
+    evaluated = {k: torch.from_numpy(v).to(DEVICE) for k, v in next(lm_loader(
+        SEED + 3, batch=batch, seq=seq, vocab=cfg.vocab_size)).items()}
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        loss, _ = lm.loss_fn(out["state"].master, evaluated, cfg)
+        eval_loss = float(loss)
+    eval_ms = 1e3 * (time.perf_counter() - t0)
+    want = {**dict.fromkeys(KERNELS, 0), "ssd_chunk": cfg.n_layers}
+    if dict(LAUNCHES) != want or not math.isfinite(eval_loss):
+        raise AssertionError(f"mamba2 evaluation launched {LAUNCHES}, loss "
+                             f"{eval_loss}")
+    step_ms = 1e3 * statistics.median(out["step_s"][1:])
+    stats = {"steps": steps, "batch": batch, "seq": seq,
+             "first_step_ms": 1e3 * out["step_s"][0], "step_ms": step_ms,
+             "tokens_per_s": batch * seq / step_ms * 1e3,
+             "history": hist, "launches": launches,
+             "eval_loss": eval_loss, "eval_forward_ms": eval_ms,
+             "eval_launches": {"ssd_chunk": cfg.n_layers},
+             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print("[train mamba2 bf16] " + json.dumps(stats), flush=True)
+    stats["launches"] = {**launches, "ssd_chunk": cfg.n_layers}
+    return stats
+
+
+def train_ssd_fp32_both_paths(cfg, steps=3):
+    """Phase 16: fp32 training at full width and 2 layers, 4 x 4,096, on
+    the kernels and on the plain path -- ``ssd_scan`` bound with
+    ``interpret=True`` in ``layers.ssd``'s namespace, as the reference
+    runs its kernel off the TPU -- per-step losses and the first step's
+    in_x/in_b/in_c/in_dt/a_log/dt_bias gradients."""
+    import functools
+
+    from repro_torch.data.loader import lm_loader
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels._lib import KERNELS
+    from repro_torch.launch.train import train
+    from repro_torch.layers import ssd as ssd_layer
+    from repro_torch.models import lm
+    from repro_torch.utils import tree_map
+
+    cfg = dataclasses.replace(cfg, n_layers=2)
+    batch, seq = SSD_SHAPE["bsz"], SSD_SHAPE["n"]
+    params = lm.init(cfg, torch.Generator().manual_seed(SEED + 2),
+                     device=DEVICE)
+    first = {k: torch.from_numpy(v).to(DEVICE) for k, v in
+             next(lm_loader(SEED, batch=batch, seq=seq,
+                            vocab=cfg.vocab_size)).items()}
+    names = ("in_x", "in_b", "in_c", "in_dt", "a_log", "dt_bias")
+    kernel_scan, hist, grads = ssd_layer.ssd_scan, {}, {}
+    for route in ("kernels", "plain"):
+        if route == "plain":
+            ssd_layer.ssd_scan = functools.partial(kernel_scan, interpret=True)
+        try:
+            leaves = tree_map(lambda x: x.detach().clone().requires_grad_(
+                True), params)
+            loss, _ = lm.loss_fn(leaves, first, cfg, dtype=torch.float32)
+            loss.backward()
+            grads[route] = {
+                f"layer {i} {w}": (blk["ssd"][w]["w"] if isinstance(
+                    blk["ssd"][w], dict) else blk["ssd"][w]).grad
+                for i, blk in enumerate(leaves["blocks"]) for w in names}
+            del leaves, loss
+            torch.cuda.synchronize()
+            reset_launches()
+            hist[route] = train(cfg, steps=steps, batch=batch, seq=seq,
+                                seed=SEED, device=DEVICE, dtype=torch.float32,
+                                params=params)["history"]
+        finally:
+            ssd_layer.ssd_scan = kernel_scan
+        n = cfg.n_layers * steps
+        want = dict.fromkeys(KERNELS, 0)
+        if route == "kernels":
+            want.update(ssd_chunk_hins=2 * n, ssd_chunk_bwd=n)
+        if dict(LAUNCHES) != want:
+            raise AssertionError(f"mamba2 fp32 {route}: launches {LAUNCHES}, "
+                                 f"want {want}")
+    for i, (a, b) in enumerate(zip(hist["kernels"], hist["plain"])):
+        if not abs(a - b) <= 1e-4 * abs(b):
+            raise AssertionError(f"mamba2 fp32 step {i} loss: kernels {a}, "
+                                 f"plain {b}")
+    worst = 0.0
+    for name, g in grads["kernels"].items():
+        ref = grads["plain"][name]
+        scale, err = float(ref.abs().max()), float((g - ref).abs().max())
+        if not float(g.abs().max()) > 0 or not err <= 1e-4 * scale:
+            raise AssertionError(f"mamba2 fp32 step 1 {name} grad: |diff| "
+                                 f"{err:.3e}, max |plain| {scale:.3e}, max "
+                                 f"|kernels| {float(g.abs().max()):.3e}")
+        worst = max(worst, err / scale)
+    print(f"[train mamba2 fp32] kernels vs plain, 2 layers x {steps} steps of "
+          f"{batch} x {seq}: losses {hist['kernels']} vs {hist['plain']}; "
+          f"{'/'.join(names)} grads of step 1 non-zero, worst |diff| / max "
+          f"|grad| {worst:.3e}", flush=True)
+
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     """Median device ms of one run of ``fn``, by CUDA events around each run.
@@ -1265,7 +1745,9 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     so its launches run back to back and the wrappers' host time does not
     show in the device time.  One run at a time: a plain version's hundreds
     of launches stay inside the driver's launch queue.  A run whose enqueue
-    outlasted its sleep is repeated with a sleep twice as long.
+    outlasted its sleep is repeated with a sleep twice as long.  A run of
+    more launches than the launch queue holds blocks its own enqueue on the
+    sleeping device, so no sleep covers it: time it with ``graph_ms``.
     """
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
     t0 = time.perf_counter()
@@ -1296,6 +1778,28 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         else:
             cycles *= 2
     return statistics.median(times)
+
+
+def graph_ms(fn) -> float:
+    """Device ms of one run of ``fn`` when the run has more launches than
+    the launch queue holds (the plain SSD chunk scan at the training
+    shape: ~500 forward, ~1,000 backward), so that ``time_ms``'s sleep
+    cannot cover its enqueue and a plain timing would count the host's
+    pace: the run is captured once into a CUDA graph (after two warm-up
+    runs on a side stream) and one replay, a single host call, is timed
+    by ``time_ms`` (L2 flushed)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = time_ms(graph.replay)
+    del graph
+    return ms
 
 
 def flow_ops_per_position(g: int, d: int, dv: int) -> int:
@@ -1597,16 +2101,152 @@ def time_nc_kernels(launches: dict, errs: dict) -> list:
     return rows
 
 
+def ssd_chunk_ops(c: int, p: int, s: int) -> int:
+    """fp32 operations of K10a for one chunk of one (batch, head) row, the
+    causal triangle only (the C (C + 1) / 2 pairs j <= i that the masked
+    scan needs): C (C + 1) S for c b^T, C (C + 1) P for the panel times x,
+    2 C P S for c h^T and 2 C P S for the carry update.  About 7.36e6 at
+    C = 128, P = 64, S = 128.  Counted as the TPU computes ``_ssd_step``,
+    with the C x C panels whole, it would be 2 C^2 (S + P) + 4 C P S,
+    about 1.05e7: a bound from that count would flatter the kernel by
+    ~1.4x, since the upper triangle is work the function does not need."""
+    return c * (c + 1) * (s + p) + 4 * c * p * s
+
+
+def ssd_chunk_bwd_ops(c: int, p: int, s: int) -> int:
+    """fp32 operations of K10b for one chunk, the pull-back of
+    ``csrc/ssd_chunk_bwd.cu`` over the causal triangle only: C (C + 1) S
+    each for c b^T, (dM o D)^T c and (dM o D) b; C (C + 1) P each for
+    gy x^T and M^T gy; 2 C P S each for b gh^T, x gh, gy h and the
+    carry's cotangent.  About 1.68e7 at C = 128, P = 64, S = 128 (2.52e7
+    with the C x C panels whole, as the TPU computes them; the kernel
+    also computes gy x^T twice, which is not counted)."""
+    return c * (c + 1) * (3 * s + 2 * p) + 8 * c * p * s
+
+
+def time_ssd_kernels(launches: dict, errs: dict) -> list:
+    """Phase 9, K9/K10a/K10b: K9 at one packed admission's x stream (16
+    rows x Lb 512, W 4,096, bf16); K10a and K10b at one layer of the
+    training step (fp32, B = 4 x H = 64 rows, N = 4,096, P = 64, S = 128,
+    chunk 128).  K10b's plain version is the backward of autograd through
+    the plain chunked scan: a graph replay of the forward and backward,
+    less the forward's replay."""
+    from repro_torch.kernels.gather import boundary_gather, boundary_gather_ref
+    from repro_torch.kernels.ssd_chunk import (ssd_chunk_bwd_call,
+                                               ssd_chunk_call,
+                                               ssd_chunk_chunked)
+
+    # the training phases leave the allocator's cache holding most of the
+    # card in blocks of their sizes; a plain version that then has to free
+    # cached blocks to allocate synchronizes the device on every run
+    torch.cuda.empty_cache()
+    rows = []
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 95)
+    xb = torch.randn((16, 512, 4096), generator=gen,
+                     device=DEVICE).to(torch.bfloat16)
+    lens = torch.tensor(ragged_lens(np.random.default_rng(SEED + 95), 16, 16,
+                                    384), device=DEVICE)
+    padded = torch.cat([torch.zeros((16, 3, 4096), dtype=xb.dtype,
+                                    device=DEVICE), xb], dim=1)
+    idx = (lens.long()[:, None] + torch.arange(3, device=DEVICE))[..., None]
+    with torch.inference_mode():
+        bound_ms, by = bound(2 * 16 * 3 * 4096 * 2 + 16 * 4, 0)
+        rows.append({
+            "name": "boundary_gather", "route": "cuda",
+            "source": "src/repro_torch/csrc/boundary_gather.cu",
+            "replaces": "src/repro/kernels/gather/boundary.py:67",
+            "launches": launches["boundary_gather"],
+            "max_abs_err": errs["boundary_gather"],
+            "ms": time_ms(lambda: boundary_gather(xb, lens, 4)),
+            "plain_ms": time_ms(lambda: boundary_gather_ref(xb, lens, 4)),
+            "bound_ms": bound_ms, "bound_by": by,
+            "library_ms": time_ms(lambda: torch.take_along_dim(padded, idx,
+                                                               dim=1)),
+            "library": "pad + gather: torch.take_along_dim on the "
+                       "zero-padded stream (the pad made once, untimed)"})
+    del xb, padded
+    bsz, heads, n, p, s = (SSD_SHAPE[k] for k in ("bsz", "heads", "n", "p",
+                                                   "s"))
+    bh, chunk = bsz * heads, 128
+    x, dta, bm, cm = ssd_operands(bsz, heads, n, p, s, SEED + 96)
+    b4, c4 = heads_view(bm, heads), heads_view(cm, heads)
+    g = torch.randn(x.shape, generator=gen, device=DEVICE)
+    ops = bh * (n // chunk) * ssd_chunk_ops(chunk, p, s)
+    ops_bwd = bh * (n // chunk) * ssd_chunk_bwd_ops(chunk, p, s)
+    io = 4 * (bh * n * (2 * p + 1) + 2 * bsz * n * s)  # x, dta, b, c; y
+    hins_bytes = 4 * bh * (n // chunk) * p * s
+    # bwd: x, dta, b, c, hins, g read; dx, ddta and per-row db, dc written
+    io_bwd = (4 * (bh * n * (3 * p + 2) + 2 * bsz * n * s + 2 * bh * n * s)
+              + hins_bytes)
+    with torch.no_grad():
+        _, hins = ssd_chunk_call(x, dta, b4, c4, chunk=chunk, return_hins=True)
+    leaves = [t.clone().requires_grad_(True) for t in (x, dta, bm, cm)]
+
+    def plain_fwd_bwd():
+        # the forward runs on the graph's capture stream too: autograd runs
+        # each backward op on its forward op's stream
+        y, _ = ssd_chunk_chunked(leaves[0], leaves[1],
+                                 heads_view(leaves[2], heads),
+                                 heads_view(leaves[3], heads), chunk)
+        return torch.autograd.grad(y, leaves, g)
+
+    cases = [
+        ("ssd_chunk", "src/repro/kernels/ssd_chunk/ssd_chunk.py:138",
+         lambda: ssd_chunk_call(x, dta, b4, c4, chunk=chunk),
+         lambda: ssd_chunk_chunked(x, dta, b4, c4, chunk), io, ops),
+        ("ssd_chunk_hins", "src/repro/kernels/ssd_chunk/ssd_chunk.py:145",
+         lambda: ssd_chunk_call(x, dta, b4, c4, chunk=chunk,
+                                return_hins=True),
+         lambda: ssd_chunk_chunked(x, dta, b4, c4, chunk), io + hins_bytes,
+         ops),
+        ("ssd_chunk_bwd", "src/repro/kernels/ssd_chunk/bwd.py:77",
+         lambda: ssd_chunk_bwd_call(x, dta, b4, c4, hins, g, chunk=chunk),
+         plain_fwd_bwd, io_bwd, ops_bwd),
+    ]
+    for name, replaces, run, plain, bytes_moved, n_ops in cases:
+        bound_ms, by = bound(bytes_moved, n_ops)
+        with torch.no_grad():
+            ms = time_ms(run)
+        plain_ms = graph_ms(plain)
+        if name == "ssd_chunk":
+            plain_fwd_ms = plain_ms
+        if name == "ssd_chunk_bwd":  # the replay ran the forward too
+            print(f"[K10 time] plain forward and backward {plain_ms:.4f} ms",
+                  flush=True)
+            plain_ms -= plain_fwd_ms
+        print(f"[K10 time] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms (one CUDA graph replay), bound {bound_ms:.4f} ms",
+              flush=True)
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/" + (
+                "ssd_chunk_bwd.cu" if name == "ssd_chunk_bwd"
+                else "ssd_chunk.cu"),
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": errs[name], "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": by, "library_ms": None})
+    return rows
+
+
 def main() -> int:
     setup()
     smi = card()
+    t0 = time.perf_counter()
+
+    def mark(what):
+        print(f"[time] {what}: {time.perf_counter() - t0:.1f} s since the "
+              "build began", flush=True)
+
     build_kernels()
     errs = {"flow_fused": check_flow_fused()["max_abs_err"],
             "flow_fused_bwd": check_flow_fused_bwd()["max_abs_err"],
             **check_flow_nc(),
             **check_flow_chunk(),
             "flow_decode": check_flow_decode()["max_abs_err"],
-            "flow_decode_q": check_flow_decode_q()["max_abs_err"]}
+            "flow_decode_q": check_flow_decode_q()["max_abs_err"],
+            **check_ssd()}
+    mark("kernel checks")
 
     from repro_torch.configs import get_config
     from repro_torch.models import lm
@@ -1621,6 +2261,7 @@ def main() -> int:
     serve_fp32_both_paths(params, cfg)
     serve_int8_fp32_against_plain(params, cfg)
     del params
+    mark("flowformer_lm serving")
     trained = train_full_width(cfg)
     profile_train(cfg, trained["step_ms"])
     train_fp32_both_paths(cfg)
@@ -1630,14 +2271,35 @@ def main() -> int:
                            "k5b_ms_per_step": "flow_chunk_dkv_kernel"},
                   tag="train paper-causal")
     train_paper_fp32_both_paths(cfg)
+    mark("flowformer_lm training")
     lra = get_config("flowformer_lra")
     classified = train_classifier_full_width(lra)
     profile_classifier(lra, classified["step_ms"])
     train_classifier_fp32_both_paths(lra)
+    mark("flowformer_lra training")
+    mamba = get_config("mamba2_1p3b")
+    params = lm.init(mamba, torch.Generator().manual_seed(SEED),
+                     device=DEVICE)
+    served = serve_ssd_full_width(params, mamba)
+    profile_decode(params, mamba, served["decode_ms_per_step"])
+    serve_ssd_fp32_against_oracle(params, mamba)
+    serve_ssd_fp32_against_oracle(params, mamba, torch.bfloat16,
+                                  drift=SSD_BF16_CONV_DRIFT)
+    del params
+    torch.cuda.empty_cache()
+    mark("mamba2_1p3b serving")
+    ssd_trained = train_ssd_full_width(mamba)
+    profile_train(mamba, ssd_trained["step_ms"], kernels=SSD_K10,
+                  tag="train mamba2", batch=SSD_SHAPE["bsz"],
+                  seq=SSD_SHAPE["n"])
+    train_ssd_fp32_both_paths(get_config("mamba2_1p3b"))
+    mark("mamba2_1p3b training")
     launches = {name: sum(run["launches"][name] for run in (
-        stats, quantized, trained, classified, paper))
+        stats, quantized, trained, classified, paper, served, ssd_trained))
         for name in stats["launches"]}
-    rows = time_kernels(launches, errs)
+    torch.cuda.empty_cache()
+    rows = time_kernels(launches, errs) + time_ssd_kernels(launches, errs)
+    mark("kernel times")
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

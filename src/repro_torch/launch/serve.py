@@ -1,9 +1,13 @@
-"""Serving entry point: continuous batching with constant-memory flow states.
+"""Serving entry point: continuous batching with constant-memory states.
 
 The counterpart of ``repro/launch/serve.py`` on one GPU::
 
     python -m repro_torch.launch.serve --arch flowformer-lm --smoke \\
         --requests 16 --max-new 32
+    python -m repro_torch.launch.serve --arch mamba2_1p3b
+
+(an SSD stack: packed admission gathers each row's conv history with the
+K9 kernel; prefill and decode run the plain chunked scan and recurrence).
 
 int8 FlowState pools (int8 payloads with fp32 per-(slot, head) scales;
 every decode step on the flow_decode_q kernel, K4)::
@@ -13,7 +17,9 @@ every decode step on the flow_decode_q kernel, K4)::
 Random weights from seed 0, random prompts from ``numpy`` seed 0.  The
 paths not ported yet are refused by name: softmax-family attention
 (``--attn``), paged KV pools (``--paged``), speculative decoding
-(``--draft``, ``--speculate-k``) and fleet serving (``--fleet``).
+(``--draft``, ``--speculate-k``) and fleet serving (``--fleet``).  A
+mixer that cannot meet the serving plan (an SSD stack with int8 pools,
+whose mixer is not ``quant_capable`` here) exits with the mixer's reason.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ import torch
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.layers.attention import plan_of
+from repro_torch.layers.mixer import MixerResolutionError
 from repro_torch.models import lm
 from repro_torch.serving.engine import Engine, Request
 from repro_torch.serving.quant import STATE_DTYPES, pool_bytes
@@ -93,10 +100,15 @@ def main(argv=None) -> dict:
     plan = plan_of(cfg, packed=True, state_dtype=args.state_dtype)
     dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[args.dtype]
     max_len = args.prompt_len + args.max_new + 8
-    engine = Engine(params, cfg, slots=args.slots, max_len=max_len, plan=plan,
-                    dtype=dtype, device=args.device)
+    try:
+        engine = Engine(params, cfg, slots=args.slots, max_len=max_len,
+                        plan=plan, dtype=dtype, device=args.device)
+    except MixerResolutionError as err:
+        raise SystemExit(f"[serve] {err}") from None
     worker = engine.worker
-    print(f"[serve] attention plan: {worker.plan.describe()}")
+    mixers = sorted({cfg.block_kind(i) for i in range(cfg.n_layers)})
+    print(f"[serve] mixers: {', '.join(mixers)}; attention plan: "
+          f"{worker.plan.describe()}")
     print(f"[serve] dtypes: activations={args.dtype} "
           f"state_pools={args.state_dtype or args.dtype}")
     n_bytes = pool_bytes(worker.caches)

@@ -1,7 +1,9 @@
-"""Train the flow LM on one GPU: the counterpart of ``repro/launch/train.py``.
+"""Train the LM on one GPU: the counterpart of ``repro/launch/train.py``.
 
     python -m repro_torch.launch.train --arch flowformer-lm --steps 5 \\
         --batch 16 --seq 512
+    python -m repro_torch.launch.train --arch mamba2_1p3b --steps 5 \\
+        --batch 4 --seq 4096
 
 Random weights from ``--seed`` (or given ``params``), batches from
 ``data.loader.lm_loader(seed)``, AdamW on fp32 master parameters with a
@@ -9,7 +11,9 @@ warmup-cosine schedule, bf16 compute.  The attention backend is resolved
 once, for gradients: on a GPU every attention forward runs kernel K1 and
 every attention backward kernel K2; in the paper-faithful causal mode
 (``attention.strict_causal=False``) and without competition, every
-forward runs K5a and every backward K5a (dq) and K5b (dk, dv).
+forward runs K5a and every backward K5a (dq) and K5b (dk, dv).  An SSD
+stack (``mamba2_1p3b``) has no attention: every SSD forward and its remat
+recompute run K10a with carry-ins, every backward K10b.
 Checkpointing, elastic restart and meshes are not ported yet.
 """
 from __future__ import annotations
@@ -55,7 +59,10 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int, seed: int = 0,
     n_params = sum(x.numel() for x in tree_leaves(params))
     print(f"[train] {cfg.name}: {n_params:,} params on {dev}, "
           f"{str(dtype)[6:]} compute, microbatch={tcfg.microbatch}")
-    print(f"[train] attention {xplan.describe()} -> {be.name}")
+    mixers = sorted({cfg.block_kind(i) for i in range(cfg.n_layers)})
+    print(f"[train] attention {xplan.describe()} -> "
+          + (be.name if be is not None else
+             f"no attention backend (mixers: {', '.join(mixers)})"))
 
     loss = functools.partial(lm.loss_fn, cfg=cfg, dtype=dtype,
                              plan=executor_of(cfg, xplan))
@@ -84,7 +91,7 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int, seed: int = 0,
 
 def main():
     ap = argparse.ArgumentParser(
-        description="Train the flow LM on one GPU (random weights, synthetic "
+        description="Train the LM on one GPU (random weights, synthetic "
         "zipf_text batches).  Checkpointing (--ckpt-dir), elastic restart "
         "and device meshes are not ported yet.")
     ap.add_argument("--arch", default="flowformer-lm")

@@ -28,6 +28,7 @@ from repro_torch.layers import mixer as mixer_lib
 from repro_torch.layers.linear import dense, dense_init
 from repro_torch.layers.rope import apply_rope
 from repro_torch.serving import quant as quant_lib
+from repro_torch.utils import resolve_device
 
 
 def _require_flow(cfg: ModelConfig):
@@ -128,11 +129,12 @@ def attention(params, x: torch.Tensor, cfg: ModelConfig, *, causal: bool,
     return dense(params["wo"], _merge_heads(out))
 
 
-def _attn_cache_init(cfg: ModelConfig, batch: int, device=None):
-    """Decode state for one flow layer: the O(d^2) FlowState, fp32."""
+def _attn_cache_init(cfg: ModelConfig, batch: int, device="cuda"):
+    """Decode state for one flow layer: the O(d^2) FlowState, fp32, on
+    ``device`` (the card unless the caller asks for the CPU)."""
     _require_flow(cfg)
     return init_state(batch, cfg.kv_heads, cfg.dim_head, cfg.dim_head,
-                      device=device)
+                      device=resolve_device(device))
 
 
 def _attention_prefill(params, x: torch.Tensor, cfg: ModelConfig, *,
@@ -176,7 +178,7 @@ class AttentionMixer(mixer_lib.Mixer):
         return attention(params, x, cfg, causal=True, positions=positions,
                          plan=plan)
 
-    def state_init(self, cfg, batch, max_len, *, device=None, plan=None):
+    def state_init(self, cfg, batch, max_len, *, device="cuda", plan=None):
         # a flow state stays fp32 under a bf16/fp32 state_dtype; int8/fp8
         # wrap it in a QuantizedPool
         return quant_lib.maybe_quantize(

@@ -6,7 +6,9 @@ of a decoder block and exposes
 
     init_params(gen, cfg)                          parameter dict
     forward(params, x, cfg, positions, plan)       full sequence
-    state_init(cfg, batch, max_len, device, plan)  decode state
+    state_init(cfg, batch, max_len, device, plan)  decode state, on the card
+                                                   unless ``device`` says
+                                                   otherwise
     prefill(params, x, cfg, max_len, lengths, ...) prompt -> (out, state);
                                                    ``lengths`` (B,) packs
                                                    right-padded prompts
@@ -17,11 +19,14 @@ of a decoder block and exposes
 ``plan`` is an ``ExecutionPlan`` or a ``BoundExecutor`` bound once.
 ``resolve_mixers(cfg, plan, platform)`` gives the mixer of each layer from
 ``cfg.block_kind`` and enforces the plan's demands with the reference's
-rejection contract: a quantized ``state_dtype`` demands ``quant_capable``
-of every layer's mixer, and a refusal raises ``MixerResolutionError``
-naming the capability in the mixer's own words (``.rejections`` carries
-them structured).  The built-in kinds register on import of their layer
-modules (``layers/attention.py`` registers ``attn``).
+rejection contract: a packed plan demands ``packable``, a training plan
+(``needs_grad``) ``differentiable`` and a quantized ``state_dtype``
+``quant_capable`` of every layer's mixer, and a refusal raises
+``MixerResolutionError`` naming each missing capability in the mixer's
+own words (``.rejections`` carries them structured).  ``block_ffn``
+says whether a layer of the kind has an FFN sublayer after the mixer.
+The built-in kinds register on import of their layer modules
+(``layers/attention.py`` registers ``attn``, ``layers/ssd.py`` ``ssd``).
 """
 from __future__ import annotations
 
@@ -34,6 +39,17 @@ class Mixer:
 
     kind: str = "?"
     params_field: str = "?"
+    block_ffn: bool = True
+
+    def packable(self, cfg: ModelConfig):
+        """(ok, reason): can one right-padded prefill return per-row
+        boundary states?"""
+        return True, "per-row boundary states from one padded call"
+
+    def differentiable(self, cfg: ModelConfig, platform: str):
+        """(ok, reason): can a training step differentiate the forward on
+        ``platform``?"""
+        return True, "natively differentiable"
 
     def quant_capable(self, cfg: ModelConfig, platform: str, dtype: str):
         """(ok, reason): can the decode state live in a quantized pool
@@ -52,7 +68,7 @@ class Mixer:
         raise NotImplementedError(f"{self.kind} does not provide forward")
 
     def state_init(self, cfg: ModelConfig, batch: int, max_len: int, *,
-                   device=None, plan=None):
+                   device="cuda", plan=None):
         raise NotImplementedError(f"{self.kind} does not provide state_init")
 
     def prefill(self, params, x, cfg: ModelConfig, max_len: int, *,
@@ -77,6 +93,7 @@ def register_mixer(kind: str, impl: Mixer) -> Mixer:
 
 def get_mixer(kind: str) -> Mixer:
     import repro_torch.layers.attention  # noqa: F401  registers attn
+    import repro_torch.layers.ssd  # noqa: F401  registers ssd
 
     try:
         return _REGISTRY[kind]
@@ -106,17 +123,27 @@ def _quant_dtype_of(plan) -> str | None:
 def _check_demands(mixer: Mixer, cfg: ModelConfig, plan, platform):
     """Raise unless ``mixer`` meets ``plan``'s demands.  Of the reference's
     plan demands (``repro/layers/mixer.py::_plan_demands``) this port's
-    plan carries one: a quantized state dtype demands ``quant_capable``."""
-    qd = _quant_dtype_of(plan)
-    if qd is None:
+    plan carries three: ``packed`` demands ``packable``, ``needs_grad``
+    ``differentiable`` and a quantized state dtype ``quant_capable``."""
+    if plan is None:
         return
-    ok, why = mixer.quant_capable(cfg, platform, qd)
-    if not ok:
-        plan = getattr(plan, "plan", plan)  # a BoundExecutor's plan
+    plan = getattr(plan, "plan", plan)  # a BoundExecutor's plan
+    demands = []
+    if plan.packed:
+        demands.append(("packable", mixer.packable(cfg)))
+    if plan.needs_grad:
+        demands.append(("differentiable", mixer.differentiable(cfg, platform)))
+    qd = _quant_dtype_of(plan)
+    if qd is not None:
+        demands.append(("quant_capable",
+                        mixer.quant_capable(cfg, platform, qd)))
+    rejections = [(mixer.kind, cap, why)
+                  for cap, (ok, why) in demands if not ok]
+    if rejections:
         raise MixerResolutionError(
             f"mixer {mixer.kind!r} cannot satisfy {plan.describe()}:\n  "
-            f"missing quant_capable: {why}",
-            ((mixer.kind, "quant_capable", why),))
+            + "\n  ".join(f"missing {cap}: {why}"
+                          for _, cap, why in rejections), rejections)
 
 
 def resolve_mixers(cfg: ModelConfig, plan=None,

@@ -1,9 +1,11 @@
-"""Decoder-only language model (flow-attention stacks).
+"""Decoder-only language model (flow-attention and Mamba-2 SSD stacks).
 
-The counterpart of ``repro/models/lm.py`` for the stacks this slice
-serves: every layer is ``norm1 -> mixer -> residual -> norm2 -> FFN ->
-residual``, with the mixer resolved from ``cfg.block_kind`` through
-``layers/mixer.py``.  Parameters are a plain dict of tensors
+The counterpart of ``repro/models/lm.py`` for the stacks the port
+serves: every layer is ``norm1 -> mixer -> residual``, followed by
+``norm2 -> FFN -> residual`` where the config has an FFN and the mixer
+wants one (``block_ffn``; an SSD block is the whole layer), with the
+mixer resolved from ``cfg.block_kind`` through ``layers/mixer.py``.
+Parameters are a plain dict of tensors
 
     {"embed": {"table"}, "blocks": [per-layer dicts], "final_norm", "head"}
 
@@ -13,7 +15,7 @@ residual``, with the mixer resolved from ``cfg.block_kind`` through
 Entry points:
   init / forward / loss_fn            parameters, the full forward, the
                                       next-token loss (training)
-  init_caches / prefill / decode      serving on per-layer FlowStates
+  init_caches / prefill / decode      serving on per-layer decode states
 
 With ``cfg.remat`` each block of a differentiated forward runs under
 ``torch.utils.checkpoint`` (non-reentrant): its activations are recomputed
@@ -42,7 +44,7 @@ def _block_init(gen: torch.Generator, kind: str, cfg: ModelConfig) -> dict:
     mx = get_mixer(kind)
     p = {"norm1": norm_init(cfg.d_model, cfg.norm),
          mx.params_field: mx.init_params(gen, cfg)}
-    if cfg.d_ff > 0:
+    if cfg.d_ff > 0 and mx.block_ffn:
         p["norm2"] = norm_init(cfg.d_model, cfg.norm)
         p["ffn"] = ffn_init(gen, cfg.d_model, cfg.d_ff, cfg.act)
     return p
@@ -134,13 +136,14 @@ def loss_fn(params, batch: dict, cfg: ModelConfig, *, dtype=torch.bfloat16,
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, *, plan=None,
-                device=None) -> list:
-    """Per-layer decode states: a FlowState per flow layer, or a
-    ``QuantizedPool`` of one when ``plan`` (an ``ExecutionPlan`` or a
-    ``BoundExecutor``) has an int8 or fp8 ``state_dtype``.  A layer whose
-    mixer cannot hold a quantized pool on ``device`` raises
-    ``MixerResolutionError`` here."""
-    platform = torch.device(device if device is not None else "cpu").type
+                device="cuda") -> list:
+    """Per-layer decode states on ``device`` (the card unless the caller
+    asks for the CPU): a FlowState per flow layer, an ``SSDState`` per SSD
+    layer, or a ``QuantizedPool`` of one when ``plan`` (an
+    ``ExecutionPlan`` or a ``BoundExecutor``) has an int8 or fp8
+    ``state_dtype``.  A layer whose mixer cannot meet the plan on
+    ``device`` raises ``MixerResolutionError`` here."""
+    platform = torch.device(device).type
     return [mx.state_init(cfg, batch, max_len, device=device, plan=plan)
             for mx in resolve_mixers(cfg, plan, platform)]
 

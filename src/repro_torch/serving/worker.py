@@ -1,16 +1,18 @@
 """Device-resident serving data plane: packed prefill + batched decode/sample.
 
-The counterpart of ``repro/serving/worker.py`` for this slice.  The
+The counterpart of ``repro/serving/worker.py`` for the port.  The
 ``Worker`` owns the parameters and the slot-batched pool of per-layer
-``FlowState``s, and two device computations:
+decode states (a ``FlowState`` per flow layer, an ``SSDState`` per SSD
+layer), and two device computations:
 
 * ``prefill`` — packed admission: every prompt of the admission batch is
   right-padded into one (R, Lb) prefill (``lm.prefill(..., lengths=)``),
   the per-row boundary states are written into their slots, and the first
   tokens are sampled for the whole batch.
 * ``step`` — one decode of every slot (on a GPU the flow layers resolve to
-  the ``flow_decode`` kernel, which updates the pool in place) and one
-  batched sample.  The only host transfer per step is the sampled token
+  the ``flow_decode`` kernel, which updates the pool in place; the SSD
+  layers run the plain recurrence and return new states) and one batched
+  sample.  The only host transfer per step is the sampled token
   vector.
 
 With ``state_dtype="int8"`` every layer's pool is a ``QuantizedPool``
@@ -26,7 +28,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.attention import ExecutionPlan, FlowState
+from repro_torch.attention import ExecutionPlan
 from repro_torch.config import ModelConfig
 from repro_torch.layers.attention import executor_of
 from repro_torch.models import lm
@@ -63,19 +65,23 @@ def _bucket_len(n: int, max_len: int) -> int:
     return max(min(b, max_len), n)
 
 
-def _install_layer(dst, src: FlowState, slot_ids: torch.Tensor):
+def _install_layer(dst, src, slot_ids: torch.Tensor):
     """Write an admission batch's boundary states into their pool slots,
-    every field of the FlowState (t included), in place.  A quantized pool
-    takes the batch's fp32 states quantized ONCE with its recipe (fresh
-    per-(row, head) scales), payload and scale scattered alike, so the
-    pool's tensors never move."""
+    in place: every tensor of the state tree (a FlowState, t included, or
+    an SSDState with its tuple of conv histories), recursing through
+    tuples and NamedTuples as the reference's generic branch does.  A
+    quantized pool takes the batch's fp32 states quantized ONCE with its
+    recipe (fresh per-(row, head) scales), payload and scale scattered
+    alike, so the pool's tensors never move."""
     if isinstance(dst, QuantizedPool):
         src = quantize_like(dst, src)
         _install_layer(dst.payload, src.payload, slot_ids)
         _install_layer(dst.scale, src.scale, slot_ids)
-        return
-    for d, s in zip(dst, src):
-        d[slot_ids] = s.to(d.dtype)
+    elif isinstance(dst, torch.Tensor):
+        dst[slot_ids] = src.to(dst.dtype)
+    else:
+        for d, s in zip(dst, src, strict=True):
+            _install_layer(d, s, slot_ids)
 
 
 class Worker:

@@ -37,9 +37,12 @@ def lecun_normal(gen: torch.Generator, shape, in_axis: int = -2):
 
 
 def tree_map(fn, tree):
-    """Apply ``fn`` to every tensor of a nested dict/list parameter tree."""
+    """Apply ``fn`` to every tensor of a nested dict/list/tuple tree
+    (NamedTuples such as decode states keep their type)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, v) for v in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v) for v in tree)
     return fn(tree)

@@ -15,7 +15,10 @@ cancels keeps an error of the terms' size.  The int8 decode (K4): outputs
 as K3's, z rtol 1e-5 atol 1e-5, t exact, scales rtol 1e-5, payloads
 within one LSB with at most a share of 1e-3 differing (the amax is exact,
 the values are summed in another order, so a value within ~1e-5 of a
-half-integer may round the other way).
+half-integer may round the other way).  The SSD chunk scan and its
+backward (K10a, K10b), fp32: 1e-4 + 1e-4 |plain| + 1e-4 max |plain|, as
+the causal dot (a chunk sums C S products as large as its outputs); the
+boundary gather (K9): exact.
 """
 import dataclasses
 
@@ -60,6 +63,12 @@ from repro_torch.utils import tree_map  # noqa: E402
 from repro_torch.serving.engine import Engine, Request  # noqa: E402
 from repro_torch.serving.quant import (dequantize_state,  # noqa: E402
                                        quantize_like, quantize_state, spec_of)
+
+from repro_torch.kernels.gather import boundary_gather, boundary_gather_ref  # noqa: E402
+from repro_torch.kernels.ssd_chunk import (SSDChunkDot,  # noqa: E402
+                                           ssd_chunk_bwd_call,
+                                           ssd_chunk_call, ssd_chunk_chunked)
+from repro_torch.layers import ssd as ssd_layer  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -505,3 +514,130 @@ def test_int8_engine_runs_k4_and_never_k3(gen):
     assert LAUNCHES == {**dict.fromkeys(KERNELS, 0),
                         "flow_fused": cfg.n_layers * w.admission_rounds,
                         "flow_decode_q": cfg.n_layers * w.decode_steps}
+
+
+def ssd_close(got, want):
+    """The SSD kernels' tolerance (see the module docstring)."""
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 + 1e-4 * scale)
+    assert torch.isfinite(got).all()
+
+
+@pytest.mark.parametrize("rows,n,w,dtype", [
+    (3, 32, 24, torch.float32), (16, 512, 4096, torch.bfloat16),
+    (16, 512, 128, torch.float32), (5, 7, 3, torch.bfloat16)])
+def test_boundary_gather_kernel_matches_plain_exactly(gen, rows, n, w, dtype):
+    xb = torch.randn((rows, n, w), generator=gen, device="cuda").to(dtype)
+    lens = [0, 1, 2, 3, n] + [int(i) for i in torch.randint(
+        0, n + 1, (rows,), generator=gen, device="cuda")]
+    lengths = torch.tensor(lens[:rows], dtype=torch.int32, device="cuda")
+    reset_launches()
+    got = boundary_gather(xb, lengths, 4)
+    assert LAUNCHES["boundary_gather"] == 1
+    assert torch.equal(got, boundary_gather_ref(xb, lengths, 4))
+
+
+def ssd_operands(gen, bsz, h, n, p, s, decay):
+    """x, dta, bmat, cmat; ``decay`` "strong" sets dta = -50, "ties" puts
+    decays below the spacing of the cumsum and zeros among them (where a
+    clamped difference's derivative would depend on summation order)."""
+    mk = lambda *sh: torch.randn(sh, generator=gen, device="cuda")  # noqa: E731
+    x = mk(bsz * h, n, p) * 0.5
+    dta = (torch.full((bsz * h, n, 1), -50.0, device="cuda")
+           if decay == "strong" else
+           -torch.rand((bsz * h, n, 1), generator=gen, device="cuda") * 0.2)
+    if decay == "ties":
+        dta[:, 5::7] = -1e-9
+        dta[:, 3::11] = 0.0
+    return x, dta, mk(bsz, n, s) * 0.5, mk(bsz, n, s) * 0.5
+
+
+@pytest.mark.parametrize("bsz,h,n,p,s,chunk,decay", [
+    (1, 2, 64, 32, 32, 32, "mild"), (2, 3, 96, 64, 128, 96, "mild"),
+    (1, 2, 200, 32, 32, 8, "mild"), (2, 2, 256, 64, 128, 128, "strong"),
+    (2, 4, 512, 64, 128, 128, "ties"), (4, 64, 4096, 64, 128, 128, "mild")])
+def test_ssd_chunk_kernels_match_plain(gen, bsz, h, n, p, s, chunk, decay):
+    x, dta, bm, cm = ssd_operands(gen, bsz, h, n, p, s, decay)
+    b4, c4 = bm[:, None].expand(bsz, h, n, s), cm[:, None].expand(bsz, h, n, s)
+    reset_launches()
+    y, hins = ssd_chunk_call(x, dta, b4, c4, chunk=chunk, return_hins=True)
+    y0 = ssd_chunk_call(x, dta, b4, c4, chunk=chunk)
+    ry, rh = ssd_chunk_chunked(x, dta, b4, c4, chunk)
+    ssd_close(y, ry)
+    ssd_close(hins, rh)
+    assert torch.equal(y0, y)
+    g = torch.randn(x.shape, generator=gen, device="cuda")
+    got = ssd_chunk_bwd_call(x, dta, b4, c4, hins, g, chunk=chunk)
+    leaves = [t.clone().requires_grad_(True) for t in (x, dta, bm, cm)]
+    want_y, _ = ssd_chunk_chunked(
+        leaves[0], leaves[1], leaves[2][:, None].expand(bsz, h, n, s),
+        leaves[3][:, None].expand(bsz, h, n, s), chunk)
+    want = torch.autograd.grad(want_y, leaves, g)
+    ssd_close(got[0], want[0])
+    ssd_close(got[1], want[1])
+    ssd_close(got[2].sum(1), want[2])  # db per (b*h) row, summed over heads
+    ssd_close(got[3].sum(1), want[3])
+    assert LAUNCHES == {**dict.fromkeys(KERNELS, 0), "ssd_chunk": 1,
+                        "ssd_chunk_hins": 1, "ssd_chunk_bwd": 1}
+
+
+def test_ssd_chunk_dot_gradients_match_plain(gen):
+    bsz, h, n, p, s, chunk = 2, 4, 256, 64, 128, 128
+    x, dta, bm, cm = ssd_operands(gen, bsz, h, n, p, s, "mild")
+    g = torch.randn(x.shape, generator=gen, device="cuda")
+    grads = {}
+    for route in ("kernel", "plain"):
+        leaves = [t.clone().requires_grad_(True) for t in (x, dta, bm, cm)]
+        b4 = leaves[2][:, None].expand(bsz, h, n, s)
+        c4 = leaves[3][:, None].expand(bsz, h, n, s)
+        y = (SSDChunkDot.apply(leaves[0], leaves[1], b4, c4, chunk)
+             if route == "kernel" else
+             ssd_chunk_chunked(leaves[0], leaves[1], b4, c4, chunk)[0])
+        grads[route] = torch.autograd.grad(y, leaves, g)
+    for a, b_ in zip(grads["kernel"], grads["plain"]):
+        ssd_close(a, b_)
+    with pytest.raises(RuntimeError, match="SSDChunkDot"):
+        ssd_chunk_call(x.requires_grad_(True), dta,
+                       bm[:, None].expand(bsz, h, n, s),
+                       cm[:, None].expand(bsz, h, n, s), chunk=chunk)
+
+
+def test_ssd_block_has_no_plain_fallback_on_cuda(gen):
+    cfg = get_smoke_config("mamba2_1p3b")
+    params = lm.init(cfg, torch.Generator().manual_seed(0), device="cuda")
+    bp = params["blocks"][0]["ssd"]
+    x = torch.randn((2, 64, cfg.d_model), generator=gen, device="cuda")
+    reset_launches()
+    with torch.no_grad():
+        out = ssd_layer.ssd_block(bp, x, cfg)
+    assert LAUNCHES == {**dict.fromkeys(KERNELS, 0), "ssd_chunk": 1}
+    with torch.no_grad():
+        want = ssd_layer.ssd_block(
+            tree_map(lambda t: t.cpu(), bp), x.cpu(), cfg)
+    ssd_close(out.cpu(), want)
+    narrow = dataclasses.replace(cfg, ssd=dataclasses.replace(
+        cfg.ssd, head_dim=16))
+    params = lm.init(narrow, torch.Generator().manual_seed(0), device="cuda")
+    with pytest.raises(ValueError, match=r"kernel takes \(P, S\) in"):
+        ssd_layer.ssd_block(params["blocks"][0]["ssd"], x, narrow)
+
+
+def test_ssd_engine_runs_k9_per_admission_and_matches_the_cpu(gen):
+    cfg = get_smoke_config("mamba2_1p3b")
+    params = lm.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 40, 17, 9, 64)]
+    runs = {}
+    for device in ("cuda", "cpu"):
+        engine = Engine(params, cfg, slots=2, max_len=128,
+                        dtype=torch.float32, device=device)
+        for uid, p in enumerate(prompts):
+            engine.submit(Request(uid=uid, prompt=p, max_new_tokens=6))
+        reset_launches()
+        runs[device] = {r.uid: r.generated for r in engine.run()}
+        if device == "cuda":
+            assert LAUNCHES == {**dict.fromkeys(KERNELS, 0),
+                                "boundary_gather": 3 * cfg.n_layers
+                                * engine.worker.admission_rounds}
+    assert runs["cuda"] == runs["cpu"]

@@ -43,6 +43,12 @@ from repro_torch.models import classifier  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.serving.engine import Engine, Request  # noqa: E402
 from repro_torch.serving.quant import QuantizedPool, maybe_quantize  # noqa: E402
+from repro_torch.config import ShapeSpec  # noqa: E402
+from repro_torch.kernels.gather import boundary_gather  # noqa: E402
+from repro_torch.kernels.ssd_chunk import (ssd_chunk_bwd_call,  # noqa: E402
+                                           ssd_chunk_call, ssd_scan)
+from repro_torch.launch.steps import check_flow_trainable  # noqa: E402
+from repro_torch.utils import tree_leaves  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -96,6 +102,16 @@ def test_entry_points_refuse_cpu_unless_asked():
         Engine(params, cfg, slots=2, max_len=32)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train(cfg, steps=1, batch=1, seq=8)
+    # decode pools: the card unless the caller asks for the CPU
+    ssd_cfg = get_smoke_config("mamba2_1p3b")
+    for c in (cfg, ssd_cfg):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            lm.init_caches(c, 2, 32)
+        mx = mixer_lib.get_mixer(c.block_kind(0))
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            mx.state_init(c, 2, 32)
+        pools = lm.init_caches(c, 2, 32, device="cpu")
+        assert all(t.device.type == "cpu" for t in tree_leaves(pools))
 
 
 def test_cpu_wrappers_run_the_plain_version_uncounted():
@@ -413,3 +429,54 @@ def test_cpu_flow_decode_q_wrapper_runs_the_plain_version_uncounted():
     assert pool.payload.s.dtype == torch.int8 and pool.payload.s.any()
     assert "flow_decode_q" in KERNELS
     assert LAUNCHES == dict.fromkeys(KERNELS, 0)
+
+
+def test_cpu_ssd_wrappers_run_the_plain_version_uncounted():
+    reset_launches()
+    xb = torch.randn((3, 10, 8))
+    assert boundary_gather(xb, torch.tensor([10, 2, 0]), 4).shape == (3, 3, 8)
+    x, dta = torch.randn((4, 16, 8)), -torch.rand((4, 16, 1))
+    bm = torch.randn((2, 16, 4))[:, None].expand(2, 2, 16, 4)
+    y, hins = ssd_chunk_call(x, dta, bm, bm, chunk=8, return_hins=True)
+    assert y.shape == (4, 16, 8) and hins.shape == (4, 2, 8, 4)
+    grads = ssd_chunk_bwd_call(x, dta, bm, bm, hins, y, chunk=8)
+    assert [tuple(g.shape) for g in grads] == [(4, 16, 8), (4, 16, 1),
+                                              (2, 2, 16, 4), (2, 2, 16, 4)]
+    xh = torch.randn((2, 12, 2, 8), requires_grad=True)
+    out = ssd_scan(xh, torch.rand((2, 12, 2)), torch.randn((2, 12, 4)),
+                   torch.randn((2, 12, 4)), -torch.ones(2), chunk=8)
+    out.sum().backward()  # chunk 8 halves to 4 for N = 12
+    assert out.shape == (2, 12, 2, 8) and xh.grad.abs().sum() > 0
+    assert {"boundary_gather", "ssd_chunk", "ssd_chunk_hins",
+            "ssd_chunk_bwd"} <= set(KERNELS)
+    assert LAUNCHES == dict.fromkeys(KERNELS, 0)
+
+
+@pytest.mark.parametrize("platform", ["cuda", "cpu"])
+def test_attention_free_stack_resolves_no_attention_backend(platform):
+    cfg = get_smoke_config("mamba2_1p3b")
+    assert check_flow_trainable(cfg, ShapeSpec("t", 64, 2, "train"),
+                                platform) is None
+    flow = get_smoke_config("flowformer_lm")
+    assert check_flow_trainable(flow, ShapeSpec("t", 512, 16, "train"),
+                                platform).name == {
+        "cuda": "cuda_fused", "cpu": "fused_causal"}[platform]
+
+
+def test_serve_refuses_int8_pools_for_an_ssd_stack_by_name():
+    with pytest.raises(SystemExit, match="missing quant_capable") as err:
+        serve.main(["--arch", "mamba2_1p3b", "--smoke", "--device", "cpu",
+                    "--state-dtype", "int8"])
+    assert "mixer 'ssd'" in str(err.value)
+
+
+def test_main_path_never_passes_interpret():
+    """``interpret=`` (the plain version on any device) is for tests and
+    the card's plain-path checks: no call inside the package passes it."""
+    calls = []
+    for path in sorted(PORT.rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Call) and any(
+                    kw.arg == "interpret" for kw in node.keywords):
+                calls.append(f"{path.relative_to(ROOT)}:{node.lineno}")
+    assert not calls, calls

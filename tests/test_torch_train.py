@@ -185,9 +185,12 @@ def test_loss_fn_grads_match_reference(model, backend):
         assert err <= 1e-5 * scale, f"{path}: {err:.3e} of max {scale:.3e}"
 
 
-def test_train_step_matches_reference_over_three_steps(model):
+@pytest.mark.parametrize("fused_value_grad", [True, False])
+def test_train_step_matches_reference_over_three_steps(model,
+                                                       fused_value_grad):
     jcfg, jparams, cfg = model
-    kw = dict(peak_lr=3e-4, warmup=1, total_steps=3, fused_value_grad=True)
+    kw = dict(peak_lr=3e-4, warmup=1, total_steps=3,
+              fused_value_grad=fused_value_grad)
     j_step = jax.jit(j_make_step(
         functools.partial(jlm.loss_fn, cfg=jcfg, dtype=jnp.float32),
         JTrainConfig(compute_dtype=jnp.float32, **kw)))
@@ -215,16 +218,18 @@ def test_train_step_matches_reference_over_three_steps(model):
                                    err_msg=f"master{path} after 3 steps")
 
 
-def test_microbatched_step_equals_one_batch(model):
+@pytest.mark.parametrize("fused_value_grad", [True, False])
+def test_microbatched_step_equals_one_batch(model, fused_value_grad):
     """Accumulating two microbatches gives the whole batch's mean
-    gradient (fp32, the same tolerance as the parity above)."""
+    gradient (fp32, the same tolerance as the parity above), with the
+    metrics from the gradient pass or from a separate no-grad pass."""
     _, jparams, cfg = model
     master = to_port(jparams, cfg)
     batch = batch_of(lm_loader(3, batch=4, seq=16, vocab=cfg.vocab_size))
     out = {}
     for micro in (0, 2):
         tcfg = TrainConfig(compute_dtype=F32, microbatch=micro, warmup=1,
-                           fused_value_grad=True)
+                           fused_value_grad=fused_value_grad)
         step = make_train_step(functools.partial(lm.loss_fn, cfg=cfg,
                                                  dtype=F32), tcfg)
         state = init_train_state(master, tcfg)
