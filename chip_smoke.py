@@ -40,6 +40,12 @@ any failure raises, so the exit code is non-zero:
      ``SSDChunkDot`` against autograd through it, random cotangents; K9
      ``boundary_gather`` at the admission shape (16 rows, Lb 512, W 4,096
      and 128, bf16 and fp32, lengths including 0, 1, 2, 3 and 512);
+  3f. K8a ``paged_gather`` and K8b ``paged_gather_quant`` against their
+     plain versions at the serving shape (the dense-equivalent pool of
+     128 pages x 8 kv heads x 64 positions, D = Dv = 64; 16 slots x 8
+     pages) and at Hkv 2, page 8, D 16, Dv 32, with pools and outputs in
+     bf16 and fp32 (K8b: int8 payloads, fp32 scales); tables shuffled,
+     partly mapped, with a row of sentinels (a dead slot);
   4. K3 ``flow_decode`` against its plain version: 16 (the serving pool)
      and 64 slots x 8 kv heads, 32 steps from a non-zero state, updated
      in place;
@@ -69,6 +75,24 @@ any failure raises, so the exit code is non-zero:
      exceeds twice the logits' tolerance must agree.  Free-running
      kernel-vs-plain token agreement is printed, not gated: one-LSB
      payload flips compound over steps and can part near-ties;
+  17. the Engine serving the softmax baseline of the full-width
+     flowformer_lm (``attention.kind="softmax"``, made as the reference's
+     ``--attn softmax`` makes it, phase 5's weights) in bf16 from a paged
+     pool of 64 pages of 64 (half the dense-equivalent 128, so admission
+     waits), phase 5's traffic: exactly 6 K8a launches per decode step
+     and nothing else; decode and prefill tokens/s, the admission passes
+     the pool held back, ``pool_bytes`` beside the dense pools', and every
+     page free after the drain; then ``torch.profiler`` over decode steps
+     as in 5b;
+  17b. phase 17 from int8 pools: exactly 6 K8b per decode step, no K8a;
+  18. the paged Engine in fp32 at full width, phase 6's 12 requests: on
+     the kernels and on the plain path (the layer's gathers bound with
+     ``interpret=True``), from fp32 and from int8 pools of 24 pages, the
+     greedy tokens must be identical; then paged (the dense-equivalent
+     pool, so both runs take the same steps) against the dense Engine,
+     step by step: logits within rtol 1e-4 and atol 1e-4 x max |logit|,
+     and equal greedy tokens wherever the dense run's top-2 margin clears
+     twice that;
   7. training at full width (``launch/train.py::train``, bf16, 5 steps
      of 16 x 512 tokens from ``lm_loader(seed=0)``, random weights from a
      seed): finite losses, and exactly 2 x 6 K1 (forward and remat
@@ -131,9 +155,13 @@ any failure raises, so the exit code is non-zero:
      version's and its bound, as one ``{"kernels": [...]}`` line
      (``launches`` is the count over the main-path runs of phases 5 and 7
      for K1-K3, of phase 5c for K4 (K1's count includes 5c's), of phase
-     10 for K6, K7a, K7b, of phase 7c for K5a, K5b, of phase 13 for K9
-     and of phase 15 for K10a and K10b), K1's time at the training shape,
-     K3 and K4 at 16 and 1,024 slots x 8 kv heads, K9 at one admission's
+     10 for K6, K7a, K7b, of phase 7c for K5a, K5b, of phases 17 and 17b
+     for K8a and K8b, of phase 13 for K9 and of phase 15 for K10a and
+     K10b), K1's time at the training shape,
+     K3 and K4 at 16 and 1,024 slots x 8 kv heads, K8a and K8b at one
+     layer's gather of phase 17's step with every slot's 8 pages mapped
+     (their library yardstick ``torch.index_select`` of the pools by the
+     flattened table, without the relayout), K9 at one admission's
      x stream (16 x 512 x 4,096 bf16; its library yardstick the padded
      ``torch.take_along_dim``), K10a and K10b at one layer of phase 15
      (their plain versions' ~500-1,000 launches overflow the launch queue,
@@ -169,7 +197,11 @@ and K10b, fp32: |kernel - plain| <= atol + rtol |plain| + rtol max |plain|
 with rtol and atol 1e-4 -- a chunk sums C S products (and K10b's dcum
 C^2 of them) as large as the outputs, in another order.  K9: exact (a
 gather).  Phase 16: losses rtol 1e-4 and each listed gradient within
-1e-4 of that leaf's max |grad|, as phase 8.  Phase 14 with bf16 conv
+1e-4 of that leaf's max |grad|, as phase 8.  K8a and K8b: exact (a
+copy, and one fp32 product rounded once); phase 18's kernel and plain
+paths: identical tokens (the gathers are exact); paged against dense:
+logits as phase 6b's (the same products over the same gathered length,
+max_len 256 = 4 pages).  Phase 14 with bf16 conv
 histories: the t-th token's logits within (1e-4 + 1.5e-3 t) x max |logit|
 -- a history element rounded to the neighbouring bf16 value (the two
 paths sum it at other GEMM shapes) moves the state, and the gap grew by
@@ -731,18 +763,8 @@ def serve_full_width(params, cfg, state_dtype=None) -> dict:
                     (16, 384), (32, 64))
     for r in reqs:
         engine.submit(r)
-    worker, spent = engine.worker, {"prefill": 0.0, "step": 0.0}
-
-    def timed(fn, key):
-        def run(*a, **kw):
-            t0 = time.perf_counter()
-            res = fn(*a, **kw)  # ends in a device-to-host copy: synchronized
-            spent[key] += time.perf_counter() - t0
-            return res
-        return run
-
-    worker.prefill = timed(worker.prefill, "prefill")
-    worker.step = timed(worker.step, "step")
+    worker = engine.worker
+    spent = timed_worker(worker)
     torch.cuda.synchronize()
     reset_launches()
     done = engine.run()
@@ -788,20 +810,22 @@ def serve_full_width(params, cfg, state_dtype=None) -> dict:
     return stats
 
 
-def profile_decode(params, cfg, step_ms: float, state_dtype=None) -> dict:
+def profile_decode(params, cfg, step_ms: float, state_dtype=None,
+                   paged=None) -> dict:
     """Phase 5b (5c's with ``state_dtype``): where a decode step's time
     goes, from ``torch.profiler`` over a window of full-pool decode steps:
     device time by kernel, the kernels launched, and host time by
     operator.  Every step decodes all 16 slots, live or not, so its device
-    work is that of phase 5 (5c), whose unprofiled mean step time gives the
-    device's busy share."""
+    work is that of phase 5 (5c; 17 and 17b with ``paged``, whose pool of
+    a PagedSpec gathers every slot's whole page row), whose unprofiled
+    mean step time gives the device's busy share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serving.engine import Engine
 
     engine = Engine(params, cfg, slots=16, max_len=512, seed=SEED,
-                    state_dtype=state_dtype, device=DEVICE)
+                    paged=paged, state_dtype=state_dtype, device=DEVICE)
     for r in requests(np.random.default_rng(SEED + 8), 16, cfg.vocab_size,
                       (128, 128), (12, 12)):
         engine.submit(r)
@@ -830,7 +854,8 @@ def profile_decode(params, cfg, step_ms: float, state_dtype=None) -> dict:
         "host_ms_per_step_by_op_profiled": {
             e.key[:80]: e.self_cpu_time_total / 1e3 / steps
             for e in top_host}}
-    tag = "decode" if state_dtype is None else f"decode, {state_dtype} pools"
+    tag = "decode" + ("" if paged is None else " softmax paged") + (
+        "" if state_dtype is None else f", {state_dtype} pools")
     print(f"[profile {tag}] " + json.dumps(stats), flush=True)
     return stats
 
@@ -1434,18 +1459,8 @@ def serve_ssd_full_width(params, cfg) -> dict:
                     (16, 384), (32, 64))
     for r in reqs:
         engine.submit(r)
-    worker, spent = engine.worker, {"prefill": 0.0, "step": 0.0}
-
-    def timed(fn, key):
-        def run(*a, **kw):
-            t0 = time.perf_counter()
-            res = fn(*a, **kw)  # ends in a device-to-host copy: synchronized
-            spent[key] += time.perf_counter() - t0
-            return res
-        return run
-
-    worker.prefill = timed(worker.prefill, "prefill")
-    worker.step = timed(worker.step, "step")
+    worker = engine.worker
+    spent = timed_worker(worker)
     torch.cuda.synchronize()
     reset_launches()
     done = engine.run()
@@ -1587,8 +1602,8 @@ def _serve_recording_logits(params, cfg):
 
     real_prefill, real_step = worker.prefill, worker.step
 
-    def admit(prompts, slot_ids, temps):
-        first = real_prefill(prompts, slot_ids, temps)
+    def admit(prompts, slot_ids, temps, **kw):
+        first = real_prefill(prompts, slot_ids, temps, **kw)
         for row, prompt in enumerate(prompts):
             seen[uid_of[id(prompt)]].append(last["logits"][row, -1].clone())
         return first
@@ -1734,6 +1749,360 @@ def train_ssd_fp32_both_paths(cfg, steps=3):
           f"{batch} x {seq}: losses {hist['kernels']} vs {hist['plain']}; "
           f"{'/'.join(names)} grads of step 1 non-zero, worst |diff| / max "
           f"|grad| {worst:.3e}", flush=True)
+
+
+# --- the softmax baseline from paged KV pools: K8a, K8b -----------------------
+PAGE = 64  # the serving page size (``--page-size``'s default)
+PAGED_POOL = 64  # pages: half the dense-equivalent 16 x 512 / 64 = 128
+#: (P, Hkv, page, D, Dv, B, MP): the serving shape (the dense-equivalent
+#: pool), and a narrow one with D != Dv
+PAGED_SHAPES = ((128, 8, PAGE, 64, 64, 16, 8), (32, 2, 8, 16, 32, 5, 6))
+
+
+def softmax_cfg(cfg):
+    """The Transformer baseline of ``cfg``: ``attention.kind="softmax"``,
+    made as the reference's ``--attn softmax`` makes it."""
+    return dataclasses.replace(cfg, attention=dataclasses.replace(
+        cfg.attention, kind="softmax"))
+
+
+def paged_operands(p, hkv, page, d, dv, b, mp, seed):
+    """bf16/fp32-ready pools, int8 payloads with fp32 scales, and a
+    shuffled, partly mapped table: distinct pages, the sentinel P on the
+    second half of row 0 and on the whole of row B - 1 (a dead slot)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    kc = torch.randn((p, hkv, page, d), generator=gen, device=DEVICE)
+    vc = torch.randn((p, hkv, page, dv), generator=gen, device=DEVICE)
+    table = torch.randperm(p, generator=gen, device=DEVICE)[:b * mp]
+    table = table.view(b, mp).to(torch.int32).contiguous()
+    table[0, mp // 2:] = p
+    table[-1] = p
+    kq, vq = ((x * 40).round().clamp(-127, 127).to(torch.int8)
+              for x in (kc, vc))
+    ks, vs = (torch.rand(x.shape[:3] + (1,), generator=gen, device=DEVICE)
+              for x in (kc, vc))
+    return kc, vc, table, kq, vq, ks, vs
+
+
+def check_paged_gather() -> dict:
+    """Phase 3f: K8a and K8b against their plain versions, exactly, at the
+    serving shape and a narrow one, bf16 and fp32 pools and outputs."""
+    from repro_torch.kernels.gather import (paged_gather, paged_gather_quant,
+                                            paged_gather_quant_ref,
+                                            paged_gather_ref)
+
+    for shape in PAGED_SHAPES:
+        kc, vc, table, kq, vq, ks, vs = paged_operands(*shape, SEED + 100)
+        for dtype in (torch.bfloat16, torch.float32):
+            with torch.inference_mode():
+                pools = (kc.to(dtype), vc.to(dtype))
+                cases = {
+                    "paged_gather": (paged_gather(*pools, table),
+                                     paged_gather_ref(*pools, table)),
+                    "paged_gather_quant": (
+                        paged_gather_quant(kq, vq, ks, vs, table,
+                                           out_dtype=dtype),
+                        paged_gather_quant_ref(kq, vq, ks, vs, table,
+                                               out_dtype=dtype))}
+            torch.cuda.synchronize()
+            for name, (got, want) in cases.items():
+                for part, a, b in zip("kv", got, want):
+                    if a.dtype != dtype or not torch.equal(a, b):
+                        raise AssertionError(f"{name} {part} {shape} {dtype}:"
+                                             " not exact")
+    print(f"[K8] K8a and K8b at (P, Hkv, page, D, Dv, B, MP) {PAGED_SHAPES}, "
+          "bf16 and fp32, sentinel rows: exact", flush=True)
+    return {"paged_gather": 0.0, "paged_gather_quant": 0.0}
+
+
+def timed_worker(worker) -> dict:
+    """Wrap the worker's prefill and step with host clocks; each ends in a
+    device-to-host copy, so each is synchronized.  Returns the seconds
+    spent, filled as the engine runs."""
+    spent = {"prefill": 0.0, "step": 0.0}
+
+    def timed(fn, key):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            res = fn(*a, **kw)
+            spent[key] += time.perf_counter() - t0
+            return res
+        return run
+
+    worker.prefill = timed(worker.prefill, "prefill")
+    worker.step = timed(worker.step, "step")
+    return spent
+
+
+def serve_paged_full_width(params, cfg, state_dtype=None) -> dict:
+    """Phase 17 (17b with ``state_dtype="int8"``): the bf16 Engine serving
+    the softmax baseline from a 64-page pool, phase 5's traffic; launch
+    counts, rates, admission rounds the pool cut short, the pools'
+    bytes, and every page back on the free list after the drain."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.layers.attention import plan_of
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import Engine, PagedSpec
+    from repro_torch.serving.quant import pool_bytes, trash_bytes
+
+    engine = Engine(params, cfg, slots=16, max_len=512, seed=SEED,
+                    paged=PagedSpec(PAGE, PAGED_POOL),
+                    state_dtype=state_dtype, device=DEVICE)
+    reqs = requests(np.random.default_rng(SEED + 4), 48, cfg.vocab_size,
+                    (16, 384), (32, 64))
+    for r in reqs:
+        engine.submit(r)
+    worker = engine.worker
+    spent = timed_worker(worker)
+    # each admission pass (one per step while requests wait) that the pool
+    # stopped before the queue or the free slots ran out
+    held, can_admit = [0], worker.can_admit
+
+    def counted(*a, **kw):
+        ok = can_admit(*a, **kw)
+        held[0] += not ok
+        return ok
+
+    worker.can_admit = counted
+    torch.cuda.synchronize()
+    reset_launches()
+    done = engine.run()
+    launches = dict(LAUNCHES)
+    if len(done) != len(reqs):
+        raise AssertionError(f"{len(done)} of {len(reqs)} requests retired")
+    for r in done:
+        if not r.done or len(r.generated) != r.max_new_tokens:
+            raise AssertionError(f"request {r.uid}: {len(r.generated)} of "
+                                 f"{r.max_new_tokens} tokens")
+        if not all(0 <= tok < cfg.vocab_size for tok in r.generated):
+            raise AssertionError(f"request {r.uid}: token out of range")
+    rounds, steps = worker.admission_rounds, worker.decode_steps
+    name = "paged_gather_quant" if state_dtype == "int8" else "paged_gather"
+    want = {name: cfg.n_layers * steps}
+    if {k: v for k, v in launches.items() if v} != want:
+        raise AssertionError(f"paged launches {launches}, want {want}")
+    alloc = worker.allocator
+    if alloc.free_pages != alloc.num_pages != PAGED_POOL or \
+            not (alloc.table == alloc.sentinel).all():
+        raise AssertionError(f"{alloc.free_pages} of {alloc.num_pages} pages "
+                             "free after the drain")
+    if not held[0]:
+        raise AssertionError("the pool never held admission back")
+    per_token = cfg.kv_heads * cfg.dim_head * 2  # k and v
+    width = 1 + 4 / cfg.dim_head if state_dtype == "int8" else 2
+    pages = int(cfg.n_layers * PAGED_POOL * PAGE * per_token * width)
+    paged_bytes = pool_bytes(worker.caches)
+    pos_bytes = cfg.n_layers * 16 * 4 * (2 if state_dtype == "int8" else 1)
+    if paged_bytes != pages + pos_bytes:
+        raise AssertionError(f"pool_bytes {paged_bytes}, want {pages} + "
+                             f"{pos_bytes}")
+    dense = lm.init_caches(cfg, 16, 512, plan=plan_of(
+        cfg, state_dtype=state_dtype), dtype=torch.bfloat16, device=DEVICE)
+    dense_bytes = pool_bytes(dense)
+    del dense
+    prompt_tokens = sum(len(r.prompt) for r in reqs)
+    decode_tokens = sum(len(r.generated) - 1 for r in reqs)
+    stats = {
+        "requests": len(reqs), "admission_rounds": rounds,
+        "admission_passes_held_by_the_pool": held[0],
+        "decode_steps": steps, "prompt_tokens": prompt_tokens,
+        "decode_tokens": decode_tokens,
+        "prefill_s": spent["prefill"], "decode_s": spent["step"],
+        "prefill_tok_per_s": prompt_tokens / spent["prefill"],
+        "decode_tok_per_s": decode_tokens / spent["step"],
+        "launches": launches, "pool_pages": alloc.num_pages,
+        "free_pages_after_drain": alloc.free_pages,
+        "pool_bytes": paged_bytes, "page_bytes": pages,
+        "pos_bytes": pos_bytes, "trash_page_bytes": trash_bytes(worker.caches),
+        "dense_pool_bytes": dense_bytes}
+    tag = "" if state_dtype is None else f", {state_dtype} pools"
+    print(f"[engine softmax paged bf16{tag}] " + json.dumps(stats), flush=True)
+    return stats
+
+
+def bind_plain_gathers():
+    """Bind ``interpret=True`` into the attention layer's page-table
+    gathers (the plain path on the card); returns the restoring call."""
+    import functools
+
+    from repro_torch.layers import attention as attn_layer
+
+    real = attn_layer.paged_gather, attn_layer.paged_gather_quant
+    attn_layer.paged_gather = functools.partial(real[0], interpret=True)
+    attn_layer.paged_gather_quant = functools.partial(real[1],
+                                                      interpret=True)
+
+    def restore():
+        attn_layer.paged_gather, attn_layer.paged_gather_quant = real
+    return restore
+
+
+def _paged_fp32_run(params, cfg, paged, state_dtype, record=None):
+    """Phase 6's 12 requests through an fp32 Engine (8 slots, max_len 256);
+    with ``record`` (a list), each decode step's (slot uids, logits,
+    tokens)."""
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import Engine
+
+    engine = Engine(params, cfg, slots=8, max_len=256, seed=SEED, paged=paged,
+                    dtype=torch.float32, state_dtype=state_dtype,
+                    device=DEVICE)
+    for r in requests(np.random.default_rng(SEED + 5), 12, cfg.vocab_size,
+                      (16, 128), (16, 16)):
+        engine.submit(r)
+    real_decode, real_step, seen = lm.decode, engine.worker.step, {}
+
+    def recording_decode(*a, **kw):
+        seen["logits"], caches = real_decode(*a, **kw)
+        return seen["logits"], caches
+
+    def recording_step(*a, **kw):
+        uids = [None if r is None else r.uid for r in engine.active]
+        toks = real_step(*a, **kw)
+        record.append((uids, seen["logits"][:, -1].float(), toks))
+        return toks
+
+    if record is not None:
+        engine.worker.step = recording_step
+        lm.decode = recording_decode
+    try:
+        done = {r.uid: r.generated for r in engine.run()}
+    finally:
+        lm.decode = real_decode
+    return engine, done
+
+
+def serve_paged_fp32(params, cfg):
+    """Phase 18: the paged Engine in fp32 at full width.  (a) On the
+    kernels and on the plain path (``bind_plain_gathers``), fp32 and int8
+    pools of 24 pages (admission waits): identical greedy tokens.  (b)
+    Paged (the dense-equivalent pool, so admission never waits and both
+    runs take the same steps) against the dense Engine, step by step:
+    logits within rtol 1e-4 and atol 1e-4 x max |logit|, and equal tokens
+    wherever the dense run's top-2 margin clears twice that."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.serving.engine import PagedSpec
+
+    for state_dtype in (None, "int8"):
+        runs = {}
+        name = "paged_gather_quant" if state_dtype else "paged_gather"
+        for path in ("kernels", "plain"):
+            restore = bind_plain_gathers() if path == "plain" else None
+            reset_launches()
+            try:
+                engine, runs[path] = _paged_fp32_run(
+                    params, cfg, PagedSpec(PAGE, 24), state_dtype)
+            finally:
+                if restore:
+                    restore()
+            want = ({name: cfg.n_layers * engine.worker.decode_steps}
+                    if path == "kernels" else {})
+            if {k: v for k, v in LAUNCHES.items() if v} != want:
+                raise AssertionError(f"paged fp32 {path} launches {LAUNCHES}"
+                                     f", want {want}")
+        if runs["kernels"] != runs["plain"]:
+            raise AssertionError(f"paged fp32 ({state_dtype or 'fp32'} "
+                                 "pools): kernels and plain tokens differ")
+    n_tok = sum(len(g) for g in runs["plain"].values())
+    steps = {}
+    for kind, paged in (("dense", None), ("paged", PagedSpec(PAGE, 0))):
+        steps[kind] = []
+        _paged_fp32_run(params, cfg, paged, None, record=steps[kind])
+    if len(steps["dense"]) != len(steps["paged"]):
+        raise AssertionError("paged and dense runs took different steps")
+    err, checked, ties, parted = 0.0, 0, 0, set()
+    for i, ((uids, got, toks), (duids, want, dtoks)) in enumerate(
+            zip(steps["paged"], steps["dense"])):
+        if uids != duids:
+            raise AssertionError(f"step {i}: slots {uids} != {duids}")
+        scale = float(want.abs().max())
+        rows = [j for j, u in enumerate(uids)
+                if u is not None and u not in parted]
+        if not rows:
+            continue
+        err = max(err, max_err(f"paged vs dense step {i} logits",
+                               got[rows], want[rows], (1e-4, 1e-4 * scale)))
+        top = torch.topk(want[rows], 2, dim=-1).values
+        margin = (top[:, 0] - top[:, 1]).cpu().numpy()
+        tol = (1e-4 * scale + 1e-4 * top[:, 0].abs()).cpu().numpy()
+        for row, m, t in zip(rows, margin, tol):
+            if toks[row] == dtoks[row]:
+                checked += 1
+            elif m <= 2 * t:
+                ties += 1
+                parted.add(uids[row])  # a near tie: later logits part
+            else:
+                raise AssertionError(
+                    f"step {i} slot {row}: paged {toks[row]}, dense "
+                    f"{dtoks[row]}, margin {m:.3e}")
+    print(f"[paged fp32] kernels and plain path agree on all {n_tok} greedy "
+          f"tokens (fp32 and int8 pools of 24 pages); paged vs dense over "
+          f"{len(steps['paged'])} steps: logits within {err:.3e}, {checked} "
+          f"greedy tokens equal, {ties} near ties", flush=True)
+
+
+def paged_bytes(b, mp, hkv, page, d, dv, act, quant):
+    """Bytes one K8a (``quant`` False) or K8b launch must move: the table
+    read, each gathered page read once (int8 payloads plus fp32 scales
+    for K8b) and the outputs written in ``act`` bytes per element."""
+    rows = b * mp * hkv * page
+    read = rows * ((d + dv) + 2 * 4) if quant else rows * (d + dv) * act
+    return b * mp * 4 + read + rows * (d + dv) * act
+
+
+def time_paged_kernels(launches: dict, errs: dict) -> list:
+    """Phase 9, K8a/K8b: one layer's gather of a paged decode step at the
+    serving shape (16 slots x 8 pages of 64 x 8 kv heads, D = Dv = 64, bf16
+    out), every table entry a distinct page of the dense-equivalent
+    128-page pool.  The library yardstick indexes the pools (and K8b's
+    scales) by the clamped, flattened table with ``torch.index_select``,
+    without the head-major relayout (or the dequantization)."""
+    from repro_torch.kernels.gather import (paged_gather, paged_gather_quant,
+                                            paged_gather_quant_ref,
+                                            paged_gather_ref)
+
+    p, hkv, page, d, dv, b, mp = PAGED_SHAPES[0]
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 110)
+    kc, vc = (torch.randn((p, hkv, page, d), generator=gen,
+                          device=DEVICE).to(torch.bfloat16) for _ in "kv")
+    table = torch.randperm(p, generator=gen, device=DEVICE).view(b, mp).to(
+        torch.int32).contiguous()
+    idx = table.long().clamp(0, p - 1).flatten()
+    kq, vq = ((x.float() * 40).round().clamp(-127, 127).to(torch.int8)
+              for x in (kc, vc))
+    ks, vs = (torch.rand((p, hkv, page, 1), generator=gen, device=DEVICE)
+              for _ in "kv")
+    bf16 = torch.bfloat16
+    cases = [
+        ("paged_gather", "src/repro/kernels/gather/paged.py:69",
+         lambda: paged_gather(kc, vc, table),
+         lambda: paged_gather_ref(kc, vc, table),
+         lambda: [torch.index_select(x, 0, idx) for x in (kc, vc)],
+         paged_bytes(b, mp, hkv, page, d, dv, 2, False),
+         "index_select of the K and V pools by the clamped, flattened "
+         "table (no head-major relayout)"),
+        ("paged_gather_quant", "src/repro/kernels/gather/paged.py:134",
+         lambda: paged_gather_quant(kq, vq, ks, vs, table, out_dtype=bf16),
+         lambda: paged_gather_quant_ref(kq, vq, ks, vs, table,
+                                        out_dtype=bf16),
+         lambda: [torch.index_select(x, 0, idx) for x in (kq, vq, ks, vs)],
+         paged_bytes(b, mp, hkv, page, d, dv, 2, True),
+         "index_select of the int8 K and V pools and their scales by the "
+         "clamped, flattened table (no relayout, no dequantization)"),
+    ]
+    rows = []
+    with torch.inference_mode():
+        for name, replaces, run, plain, library, n_bytes, what in cases:
+            bound_ms, by = bound(n_bytes, 0)
+            rows.append({
+                "name": name, "route": "cuda",
+                "source": "src/repro_torch/csrc/paged_gather.cu",
+                "replaces": replaces, "launches": launches[name],
+                "max_abs_err": errs[name], "ms": time_ms(run),
+                "plain_ms": time_ms(plain), "bound_ms": bound_ms,
+                "bound_by": by, "library_ms": time_ms(library),
+                "library": what})
+    return rows
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -2245,7 +2614,8 @@ def main() -> int:
             **check_flow_chunk(),
             "flow_decode": check_flow_decode()["max_abs_err"],
             "flow_decode_q": check_flow_decode_q()["max_abs_err"],
-            **check_ssd()}
+            **check_ssd(),
+            **check_paged_gather()}
     mark("kernel checks")
 
     from repro_torch.configs import get_config
@@ -2260,8 +2630,21 @@ def main() -> int:
                    / quantized["decode_steps"], state_dtype="int8")
     serve_fp32_both_paths(params, cfg)
     serve_int8_fp32_against_plain(params, cfg)
-    del params
     mark("flowformer_lm serving")
+    from repro_torch.serving.engine import PagedSpec
+
+    # the softmax baseline has the flow model's leaves: the same weights
+    soft, spec = softmax_cfg(cfg), PagedSpec(PAGE, PAGED_POOL)
+    paged = serve_paged_full_width(params, soft)
+    profile_decode(params, soft, 1e3 * paged["decode_s"]
+                   / paged["decode_steps"], paged=spec)
+    paged_q = serve_paged_full_width(params, soft, state_dtype="int8")
+    profile_decode(params, soft, 1e3 * paged_q["decode_s"]
+                   / paged_q["decode_steps"], state_dtype="int8", paged=spec)
+    serve_paged_fp32(params, soft)
+    del params
+    torch.cuda.empty_cache()
+    mark("softmax baseline serving")
     trained = train_full_width(cfg)
     profile_train(cfg, trained["step_ms"])
     train_fp32_both_paths(cfg)
@@ -2295,10 +2678,12 @@ def main() -> int:
     train_ssd_fp32_both_paths(get_config("mamba2_1p3b"))
     mark("mamba2_1p3b training")
     launches = {name: sum(run["launches"][name] for run in (
-        stats, quantized, trained, classified, paper, served, ssd_trained))
+        stats, quantized, trained, classified, paper, served, ssd_trained,
+        paged, paged_q))
         for name in stats["launches"]}
     torch.cuda.empty_cache()
-    rows = time_kernels(launches, errs) + time_ssd_kernels(launches, errs)
+    rows = (time_kernels(launches, errs) + time_paged_kernels(launches, errs)
+            + time_ssd_kernels(launches, errs))
     mark("kernel times")
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -2,7 +2,8 @@
 
 The counterpart of ``repro/attention/plan.py``, reduced to this slice:
 ``flow`` (the ``FlowConfig``), ``packed`` (the plan serves right-padded
-multi-prompt prefill), ``needs_grad`` (a training step will
+multi-prompt prefill), ``paged`` (a ``serving.paged.PagedSpec``: softmax
+KV caches live in a page pool), ``needs_grad`` (a training step will
 differentiate through every op, so only differentiable backends apply)
 and ``state_dtype`` (the serving state pools' dtype: int8 or fp8 pools
 make ``decode`` resolve only to backends that are ``quant_capable``).
@@ -15,6 +16,7 @@ backend's verdict per op with its reason.
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 from repro_torch.attention import registry
 from repro_torch.attention.registry import Backend, ShapeInfo
@@ -48,9 +50,13 @@ class ExecutionPlan:
 
     flow: FlowConfig | None = None
     packed: bool = False
+    #: a ``serving.paged.PagedSpec`` for softmax baseline caches; layers
+    #: that cannot page (``Mixer.paged_capable``) have it stripped
+    paged: Any = None
     needs_grad: bool = False
     #: serving state-pool dtype, distinct from the activation dtype: None,
-    #: "bf16" or "fp32" keep the fp32 FlowState; "int8" or "fp8" wrap every
+    #: "bf16" or "fp32" keep the fp32 FlowState (and set the softmax KV
+    #: caches' storage dtype); "int8" or "fp8" wrap every
     #: pool in a ``serving.quant.QuantizedPool`` and make decode resolution
     #: demand ``quant_capable`` from backends and mixers
     state_dtype: str | None = None
@@ -66,6 +72,8 @@ class ExecutionPlan:
         bits = [f"backend={self.flow.backend!r}" if self.flow else "flow=?"]
         if self.packed:
             bits.append("packed")
+        if self.paged is not None:
+            bits.append(f"paged[{getattr(self.paged, 'page_size', '?')}]")
         if self.needs_grad:
             bits.append("needs_grad")
         if self.state_dtype:

@@ -13,12 +13,18 @@ this module imports nothing of JAX) and builds the port's parameter dict:
   * the untied ``head`` is carried; dense weights stay (d_in, d_out).
 
 ``params_to_numpy`` is the inverse, restacking into the reference's layout
-by the rule ``repro.models.lm.init`` uses.
+by the rule ``repro.models.lm.init`` uses.  The softmax baseline has the
+same leaves (``wq``, ``wk``, ``wv``, ``wo`` per attention block), so both
+directions carry it unchanged.
 
 ``flow_pool_from_numpy`` carries a reference ``serving.quant.QuantizedPool``
 of a FlowState (given as its numpy ``payload`` and ``scale`` trees, e.g.
 ``jax.tree.map(np.asarray, pool.payload)``) into the port's
 ``QuantizedPool``, so a test can feed both sides the same int8 pool.
+``kv_pool_from_numpy`` does the same for the softmax caches: a reference
+``KVCache`` or ``PagedKVCache`` (given as its numpy (k, v, pos) leaves,
+with ``scale`` leaves for an int8 ``QuantizedPool`` of one).  A paged
+pool of P pages gains the port's trash page (zeros) at index P.
 
 A classifier tree (``repro/models/classifier.py``: ``embed`` or
 ``in_proj``, a list of ``blocks``, ``final_norm`` and a dense ``head``
@@ -33,6 +39,8 @@ import torch
 
 from repro_torch.attention.recurrent import FlowState
 from repro_torch.config import ModelConfig
+from repro_torch.layers.attention import KVCache
+from repro_torch.serving.paged import PagedKVCache
 from repro_torch.serving.quant import QuantizedPool, spec_of
 from repro_torch.utils import tree_map
 
@@ -129,3 +137,25 @@ def flow_pool_from_numpy(payload, scale, state_dtype: str = "int8", *,
 
     return QuantizedPool(state(payload), state(scale), spec_of(state_dtype),
                          "head", ("z",))
+
+
+def kv_pool_from_numpy(payload, scale=None, state_dtype: str = "int8", *,
+                       paged: bool = False, device="cpu"):
+    """The port's ``KVCache`` (or, with ``paged``, ``PagedKVCache``) of a
+    reference softmax cache, given as its numpy (k, v, pos) leaves; with
+    ``scale`` (the reference ``QuantizedPool``'s scale leaves, same
+    layout) a ``QuantizedPool`` of it with the serving recipe (token
+    granularity).  A paged pool's k and v (and their scales) get the
+    trash page, zeros, appended at index P.  Values are copied bit for
+    bit."""
+    def cache(tree):
+        k, v, pos = (_as_tensor(x).to(device) for x in tree)
+        if not paged:
+            return KVCache(k, v, pos)
+        trash = lambda x: torch.cat([x, torch.zeros_like(x[:1])])  # noqa: E731
+        return PagedKVCache(trash(k), trash(v), pos)
+
+    if scale is None:
+        return cache(payload)
+    return QuantizedPool(cache(payload), cache(scale), spec_of(state_dtype),
+                         "token")

@@ -7,7 +7,8 @@ source, the shared ``csrc/*.cuh`` headers and the flags, so an edited
 source rebuilds), then loaded with ``ctypes``.  ``KERNELS`` names the
 kernels whose launches are counted: one source may hold several
 (``flow_nc_qside.cu`` holds K7a and K7b; ``ssd_chunk.cu`` K10a with and
-without carry-ins, counted apart).  Nothing here runs at import.
+without carry-ins, counted apart; ``paged_gather.cu`` K8a and K8b).
+Nothing here runs at import.
 """
 from __future__ import annotations
 
@@ -25,11 +26,11 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("flow_fused", "flow_fused_bwd", "flow_decode", "flow_decode_q",
            "flow_nc_fused", "flow_nc_qside", "flow_chunk", "flow_chunk_bwd",
-           "boundary_gather", "ssd_chunk", "ssd_chunk_bwd")
+           "boundary_gather", "ssd_chunk", "ssd_chunk_bwd", "paged_gather")
 KERNELS = ("flow_fused", "flow_fused_bwd", "flow_decode", "flow_decode_q",
            "flow_nc_fused", "flow_nc_qside", "flow_nc_qside_bwd", "flow_chunk",
            "flow_chunk_dkv", "boundary_gather", "ssd_chunk", "ssd_chunk_hins",
-           "ssd_chunk_bwd")
+           "ssd_chunk_bwd", "paged_gather", "paged_gather_quant")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

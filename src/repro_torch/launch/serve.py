@@ -14,16 +14,26 @@ every decode step on the flow_decode_q kernel, K4)::
 
     python -m repro_torch.launch.serve --state-dtype int8
 
+The softmax Transformer baseline (``--attn softmax``, the same weights'
+shapes), its KV caches paged into a shared pool (every decode step
+gathers each slot's pages with K8a, or with K8b from int8 pools)::
+
+    python -m repro_torch.launch.serve --attn softmax --paged \
+        [--page-size 64] [--num-pages 0] [--state-dtype int8]
+
 Random weights from seed 0, random prompts from ``numpy`` seed 0.  The
-paths not ported yet are refused by name: softmax-family attention
-(``--attn``), paged KV pools (``--paged``), speculative decoding
-(``--draft``, ``--speculate-k``) and fleet serving (``--fleet``).  A
-mixer that cannot meet the serving plan (an SSD stack with int8 pools,
-whose mixer is not ``quant_capable`` here) exits with the mixer's reason.
+paths not ported yet are refused by name: the local, linear and MLA
+attention branches (``--attn local|linear``), speculative decoding
+(``--draft``, ``--speculate-k``) and fleet serving (``--fleet``).
+``--paged`` on a stack with no softmax layer serves unpaged, as in the
+reference.  A mixer that cannot meet the serving plan (an SSD stack with
+int8 pools, whose mixer is not ``quant_capable`` here) exits with the
+mixer's reason.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -33,14 +43,13 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.layers.attention import plan_of
 from repro_torch.layers.mixer import MixerResolutionError
 from repro_torch.models import lm
-from repro_torch.serving.engine import Engine, Request
+from repro_torch.serving.engine import Engine, PagedSpec, Request
 from repro_torch.serving.quant import STATE_DTYPES, pool_bytes
 
 #: options of the reference CLI whose paths are not ported yet, with what
 #: each needs
 _NOT_PORTED = {
-    "attn": "the softmax, local, linear and MLA attention branches",
-    "paged": "paged KV pools and the paged-gather kernels (K8a, K8b)",
+    "attn": "the local, linear and MLA attention branches",
     "draft": "speculative decoding",
     "speculate_k": "speculative decoding",
     "fleet": "fleet serving",
@@ -48,7 +57,7 @@ _NOT_PORTED = {
 
 
 def _refuse_unported(args):
-    given = {"attn": args.attn not in (None, "flow"), "paged": args.paged,
+    given = {"attn": args.attn not in (None, "flow", "softmax"),
              "draft": args.draft is not None,
              "speculate_k": args.speculate_k != 0,
              "fleet": args.fleet is not None}
@@ -65,7 +74,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--arch", default="flowformer-lm")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--attn", default=None,
-                    help="attention kind; only flow is ported")
+                    help="attention kind: flow (the configuration's) or "
+                    "softmax; local and linear are not ported yet")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=16)
@@ -74,7 +84,11 @@ def main(argv=None) -> dict:
                     help="per-request sampling temperature (0 = greedy); "
                     "sampling is one batched draw per step either way")
     ap.add_argument("--paged", action="store_true",
-                    help="paged KV pools (not ported yet)")
+                    help="serve softmax KV caches from the paged pool "
+                    "instead of dense max_len caches")
+    ap.add_argument("--page-size", type=int, default=64)
+    ap.add_argument("--num-pages", type=int, default=0,
+                    help="paged pool size (0 = dense-equivalent worst case)")
     ap.add_argument("--dtype", default="bf16", choices=["bf16", "fp32"],
                     help="serving activation dtype")
     ap.add_argument("--state-dtype", default=None, choices=list(STATE_DTYPES),
@@ -94,10 +108,17 @@ def main(argv=None) -> dict:
     _refuse_unported(args)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.attn:
+        cfg = dataclasses.replace(cfg, attention=dataclasses.replace(
+            cfg.attention, kind=args.attn))
     params = lm.init(cfg, torch.Generator().manual_seed(0), device=args.device)
-    # one ExecutionPlan for the whole serving lifetime: packed admission
-    # and the state-pool dtype ride it instead of per-call kwargs
-    plan = plan_of(cfg, packed=True, state_dtype=args.state_dtype)
+    paged = (PagedSpec(page_size=args.page_size, num_pages=args.num_pages)
+             if args.paged else None)
+    # one ExecutionPlan for the whole serving lifetime: packed admission,
+    # the paged-cache option and the state-pool dtype ride it instead of
+    # per-call kwargs
+    plan = plan_of(cfg, packed=True, paged=paged,
+                   state_dtype=args.state_dtype)
     dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[args.dtype]
     max_len = args.prompt_len + args.max_new + 8
     try:
@@ -135,9 +156,14 @@ def main(argv=None) -> dict:
     total_tokens = sum(len(r.generated) for r in reqs)
     print(f"[serve] {args.requests} requests, {total_tokens} tokens in "
           f"{dt:.2f}s ({total_tokens / max(dt, 1e-9):.1f} tok/s, {steps} steps)")
+    alloc = worker.allocator
+    if alloc is not None:
+        print(f"[serve] paged KV: page_size={alloc.page_size} "
+              f"pool={alloc.num_pages} pages, {alloc.free_pages} free after "
+              "drain")
     print(f"[serve] sample generation: {reqs[0].generated[:16]}")
     return {"requests": reqs, "steps": steps, "seconds": dt,
-            "pool_bytes": n_bytes, "plan": worker.plan}
+            "pool_bytes": n_bytes, "plan": worker.plan, "allocator": alloc}
 
 
 if __name__ == "__main__":

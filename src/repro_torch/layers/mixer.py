@@ -6,29 +6,41 @@ of a decoder block and exposes
 
     init_params(gen, cfg)                          parameter dict
     forward(params, x, cfg, positions, plan)       full sequence
-    state_init(cfg, batch, max_len, device, plan)  decode state, on the card
-                                                   unless ``device`` says
-                                                   otherwise
+    state_init(cfg, batch, max_len, device,        decode state, on the card
+               dtype, plan)                        unless ``device`` says
+                                                   otherwise; caches that
+                                                   follow the activations
+                                                   take ``dtype``
     prefill(params, x, cfg, max_len, lengths, ...) prompt -> (out, state);
                                                    ``lengths`` (B,) packs
                                                    right-padded prompts
                                                    with per-row boundary
                                                    states
-    decode_step(params, x, state, cfg, ...)        one token on the state
+    decode_step(params, x, state, cfg, ...)        one token on the state;
+                                                   ``page_table`` maps
+                                                   slots to pool pages
 
 ``plan`` is an ``ExecutionPlan`` or a ``BoundExecutor`` bound once.
 ``resolve_mixers(cfg, plan, platform)`` gives the mixer of each layer from
 ``cfg.block_kind`` and enforces the plan's demands with the reference's
-rejection contract: a packed plan demands ``packable``, a training plan
-(``needs_grad``) ``differentiable`` and a quantized ``state_dtype``
-``quant_capable`` of every layer's mixer, and a refusal raises
-``MixerResolutionError`` naming each missing capability in the mixer's
-own words (``.rejections`` carries them structured).  ``block_ffn``
+rejection contract: a packed plan demands ``packable``, a paged plan
+``paged_capable``, a training plan (``needs_grad``) ``differentiable``
+and a quantized ``state_dtype`` ``quant_capable`` of every layer's mixer,
+and a refusal raises ``MixerResolutionError`` naming each missing
+capability in the mixer's own words (``.rejections`` carries them
+structured).  The paged spec is a model option: ``resolve_mixers``
+strips it from the layers that cannot page (``_narrow_layer_plan``), so
+a flow or SSD stack given ``paged=`` serves unpaged, while
+``resolve_mixer`` binds one kind to the plan as given and so refuses a
+paged plan for a kind that cannot page.  ``stack_capabilities`` gives
+the whole stack's verdict per capability.  ``block_ffn``
 says whether a layer of the kind has an FFN sublayer after the mixer.
 The built-in kinds register on import of their layer modules
 (``layers/attention.py`` registers ``attn``, ``layers/ssd.py`` ``ssd``).
 """
 from __future__ import annotations
+
+import dataclasses
 
 from repro_torch.config import ModelConfig
 from repro_torch.serving.quant import QUANT_DTYPES, state_dtype_of
@@ -45,6 +57,10 @@ class Mixer:
         """(ok, reason): can one right-padded prefill return per-row
         boundary states?"""
         return True, "per-row boundary states from one padded call"
+
+    def paged_capable(self, cfg: ModelConfig):
+        """(ok, reason): can the decode cache live in the paged KV pool?"""
+        return False, "constant-size decode state (nothing to page)"
 
     def differentiable(self, cfg: ModelConfig, platform: str):
         """(ok, reason): can a training step differentiate the forward on
@@ -68,7 +84,7 @@ class Mixer:
         raise NotImplementedError(f"{self.kind} does not provide forward")
 
     def state_init(self, cfg: ModelConfig, batch: int, max_len: int, *,
-                   device="cuda", plan=None):
+                   device="cuda", dtype=None, plan=None):
         raise NotImplementedError(f"{self.kind} does not provide state_init")
 
     def prefill(self, params, x, cfg: ModelConfig, max_len: int, *,
@@ -76,7 +92,7 @@ class Mixer:
         raise NotImplementedError(f"{self.kind} does not provide prefill")
 
     def decode_step(self, params, x, state, cfg: ModelConfig, *,
-                    positions=None, plan=None):
+                    positions=None, page_table=None, plan=None):
         raise NotImplementedError(f"{self.kind} does not provide decode_step")
 
 
@@ -120,17 +136,25 @@ def _quant_dtype_of(plan) -> str | None:
     return sd if sd in QUANT_DTYPES else None
 
 
+def _plan_of(plan):
+    """The ``ExecutionPlan`` of a plan or of a ``BoundExecutor``."""
+    return getattr(plan, "plan", plan)
+
+
 def _check_demands(mixer: Mixer, cfg: ModelConfig, plan, platform):
     """Raise unless ``mixer`` meets ``plan``'s demands.  Of the reference's
     plan demands (``repro/layers/mixer.py::_plan_demands``) this port's
-    plan carries three: ``packed`` demands ``packable``, ``needs_grad``
-    ``differentiable`` and a quantized state dtype ``quant_capable``."""
+    plan carries four: ``packed`` demands ``packable``, ``paged``
+    ``paged_capable``, ``needs_grad`` ``differentiable`` and a quantized
+    state dtype ``quant_capable``."""
     if plan is None:
         return
-    plan = getattr(plan, "plan", plan)  # a BoundExecutor's plan
+    plan = _plan_of(plan)
     demands = []
     if plan.packed:
         demands.append(("packable", mixer.packable(cfg)))
+    if plan.paged is not None:
+        demands.append(("paged_capable", mixer.paged_capable(cfg)))
     if plan.needs_grad:
         demands.append(("differentiable", mixer.differentiable(cfg, platform)))
     qd = _quant_dtype_of(plan)
@@ -146,12 +170,62 @@ def _check_demands(mixer: Mixer, cfg: ModelConfig, plan, platform):
                           for _, cap, why in rejections), rejections)
 
 
+def _narrow_layer_plan(mixer: Mixer, cfg: ModelConfig, plan):
+    """The model-level plan narrowed to one layer: the paged-pool spec
+    binds only layers that can page, so it is stripped (not rejected)
+    from the others; ``packed``, ``needs_grad`` and the state dtype are
+    whole-stack demands and stay.  A ``BoundExecutor`` whose plan needs no
+    narrowing is returned as it is."""
+    inner = _plan_of(plan)
+    if inner is not None and inner.paged is not None \
+            and not mixer.paged_capable(cfg)[0]:
+        return dataclasses.replace(inner, paged=None)
+    return plan
+
+
+def resolve_mixer(kind: str, cfg: ModelConfig, plan=None,
+                  platform: str | None = None) -> Mixer:
+    """The ``Mixer`` of ``kind`` bound to ``plan`` as given: every demand
+    it cannot meet raises ``MixerResolutionError`` with its reason (a
+    paged plan bound to ``ssd`` reports ``paged_capable: constant-size
+    decode state (nothing to page)``)."""
+    mixer = get_mixer(kind)
+    _check_demands(mixer, cfg, plan, platform)
+    return mixer
+
+
 def resolve_mixers(cfg: ModelConfig, plan=None,
                    platform: str | None = None) -> tuple:
     """The ``Mixer`` of each layer of ``cfg`` (indexable by layer id);
-    with ``plan``, each layer's mixer must meet the plan's demands on
-    ``platform`` ("cuda" or "cpu")."""
+    with ``plan``, each layer's mixer must meet the plan narrowed to it
+    (``_narrow_layer_plan``) on ``platform`` ("cuda" or "cpu")."""
     mixers = tuple(get_mixer(cfg.block_kind(i)) for i in range(cfg.n_layers))
     for mx in dict.fromkeys(mixers):
-        _check_demands(mx, cfg, plan, platform)
+        _check_demands(mx, cfg, _narrow_layer_plan(mx, cfg, plan), platform)
     return mixers
+
+
+def _capability(mixer: Mixer, cap: str, cfg: ModelConfig, platform: str):
+    if cap == "differentiable":
+        return mixer.differentiable(cfg, platform)
+    if cap == "quant_capable":
+        return mixer.quant_capable(cfg, platform, "int8")
+    return getattr(mixer, cap)(cfg)
+
+
+def stack_capabilities(cfg: ModelConfig, platform: str = "cuda") -> dict:
+    """The whole stack's verdict per capability, ``{cap: (ok, kind,
+    reason)}``: ``packable``, ``differentiable`` and ``quant_capable``
+    (judged at int8) when every layer has it, ``paged_capable`` when at
+    least one layer has it (is a page pool worth allocating).  Each
+    verdict carries the first offending (or supporting) kind's reason."""
+    kinds = sorted({cfg.block_kind(i) for i in range(cfg.n_layers)})
+    verdicts = {}
+    for cap, agg in (("packable", all), ("paged_capable", any),
+                     ("differentiable", all), ("quant_capable", all)):
+        rows = [(k, *_capability(get_mixer(k), cap, cfg, platform))
+                for k in kinds]
+        ok = agg(r[1] for r in rows)
+        pick = next((r for r in rows if r[1] != (agg is all)), rows[0])
+        verdicts[cap] = (ok, pick[0], pick[2])
+    return verdicts

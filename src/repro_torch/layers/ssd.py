@@ -266,7 +266,8 @@ class SSDMixer(mixer_lib.Mixer):
     def forward(self, params, x, cfg, *, positions=None, plan=None):
         return ssd_block(params, x, cfg)
 
-    def state_init(self, cfg, batch, max_len, *, device="cuda", plan=None):
+    def state_init(self, cfg, batch, max_len, *, device="cuda", dtype=None,
+                   plan=None):
         return _ssd_state_init(cfg, batch, device=device)
 
     def prefill(self, params, x, cfg, max_len, *, positions=None,
@@ -274,7 +275,7 @@ class SSDMixer(mixer_lib.Mixer):
         return _ssd_prefill(params, x, cfg, lengths=lengths)
 
     def decode_step(self, params, x, state, cfg, *, positions=None,
-                    plan=None):
+                    page_table=None, plan=None):
         return _ssd_decode(params, x, state, cfg)
 
 

@@ -1,4 +1,5 @@
-"""Decoder-only language model (flow-attention and Mamba-2 SSD stacks).
+"""Decoder-only language model (flow- and softmax-attention and Mamba-2
+SSD stacks).
 
 The counterpart of ``repro/models/lm.py`` for the stacks the port
 serves: every layer is ``norm1 -> mixer -> residual``, followed by
@@ -136,15 +137,19 @@ def loss_fn(params, batch: dict, cfg: ModelConfig, *, dtype=torch.bfloat16,
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, *, plan=None,
-                device="cuda") -> list:
+                dtype=None, device="cuda") -> list:
     """Per-layer decode states on ``device`` (the card unless the caller
-    asks for the CPU): a FlowState per flow layer, an ``SSDState`` per SSD
-    layer, or a ``QuantizedPool`` of one when ``plan`` (an
-    ``ExecutionPlan`` or a ``BoundExecutor``) has an int8 or fp8
-    ``state_dtype``.  A layer whose mixer cannot meet the plan on
+    asks for the CPU): a FlowState per flow layer, a ``KVCache`` per
+    softmax layer (a ``PagedKVCache`` pool when ``plan.paged`` is set), an
+    ``SSDState`` per SSD layer, or a ``QuantizedPool`` of one when
+    ``plan`` (an ``ExecutionPlan`` or a ``BoundExecutor``) has an int8 or
+    fp8 ``state_dtype``.  ``dtype`` is the serving activation dtype, which
+    KV caches follow (default bf16) unless the plan's ``state_dtype`` is
+    "bf16" or "fp32".  A layer whose mixer cannot meet the plan on
     ``device`` raises ``MixerResolutionError`` here."""
     platform = torch.device(device).type
-    return [mx.state_init(cfg, batch, max_len, device=device, plan=plan)
+    return [mx.state_init(cfg, batch, max_len, device=device, dtype=dtype,
+                          plan=plan)
             for mx in resolve_mixers(cfg, plan, platform)]
 
 
@@ -178,11 +183,13 @@ def prefill(params, inputs: torch.Tensor, cfg: ModelConfig, max_len: int, *,
 
 
 def decode(params, token: torch.Tensor, caches: list, cfg: ModelConfig, pos,
-           *, dtype=torch.bfloat16, plan=None):
+           *, dtype=torch.bfloat16, page_table=None, plan=None):
     """One decode step.  token: (B, 1) int; pos: int or (B,) absolute
-    position of this token per slot.  Returns (logits (B, 1, vocab),
-    caches); on the GPU the caches are the given FlowStates updated in
-    place."""
+    position of this token per slot; ``page_table`` (B, pages_per_slot)
+    int32 maps slots to pool pages when the caches are paged (one table
+    serves every layer).  Returns (logits (B, 1, vocab), caches); on the
+    GPU the FlowStates, and on every device the KV caches, are the given
+    ones updated in place."""
     _require_supported(cfg)
     b = token.shape[0]
     x = embed(params["embed"], token, dtype)
@@ -191,7 +198,8 @@ def decode(params, token: torch.Tensor, caches: list, cfg: ModelConfig, pos,
     for mx, bp, state in zip(resolve_mixers(cfg), params["blocks"], caches):
         h = apply_norm(bp["norm1"], x, cfg.norm)
         y, cache = mx.decode_step(bp[mx.params_field], h, state, cfg,
-                                  positions=positions, plan=plan)
+                                  positions=positions, page_table=page_table,
+                                  plan=plan)
         new_caches.append(cache)
         x = _ffn_residual(bp, x + y, cfg)
     x = apply_norm(params["final_norm"], x, cfg.norm)

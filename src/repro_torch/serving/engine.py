@@ -2,13 +2,19 @@
 
 The counterpart of ``repro/serving/engine.py`` for this slice: plain
 greedy or temperature decoding with packed admission and slot churn.
-Every slot costs the same O(d^2) state whatever its context length, so
-admission is a scatter into the slot pool and nothing is ever evicted.
+Every flow slot costs the same O(d^2) state whatever its context length,
+so admission is a scatter into the slot pool and nothing is ever evicted.
 
 ``Engine`` is the thin facade over the host ``Scheduler`` (queue, slot
 table, bookkeeping) and the device ``Worker`` (state pool, packed prefill,
 batched decode and sample).  ``state_dtype="int8"`` serves from int8
-FlowState pools (``serving/quant.py``).  Speculative decoding, paged and
+pools (``serving/quant.py``).  Softmax-mode engines (KV caches) serve
+through the same interface for the baseline comparison, and
+``paged=PagedSpec(...)`` (or ``True``) moves their dense ``max_len``
+caches into the page pool of ``serving/paged.py``: admission reserves
+each request's whole span, waits in FIFO order while the pool is full,
+and fails a request that could never fit without losing the requests
+batched before it; retirement returns the pages.  Speculative decoding,
 fp8 pools, and the per-request prefill fallback are not ported yet.
 """
 from __future__ import annotations
@@ -17,29 +23,37 @@ import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.serving.paged import PagedSpec
 from repro_torch.serving.scheduler import Request, Scheduler, budget_met
 from repro_torch.serving.worker import Worker
 
-__all__ = ["Engine", "Request"]
+__all__ = ["Engine", "PagedSpec", "Request"]
 
 
 class Engine:
     """Single-device engine: ``submit`` requests, then ``step`` or ``run``."""
 
     def __init__(self, params, cfg: ModelConfig, *, slots: int = 8,
-                 max_len: int = 4096, seed: int = 0, plan=None,
+                 max_len: int = 4096, seed: int = 0,
+                 paged: PagedSpec | bool | None = None, plan=None,
                  dtype=torch.bfloat16, state_dtype: str | None = None,
                  device="cuda"):
         """Build the scheduler/worker pair.  ``dtype`` is the activation
         dtype; ``state_dtype`` the state pools' ("bf16" or "fp32" keep the
-        fp32 FlowState, "int8" stores int8 payloads with fp32
-        per-(slot, head) scales; fp8 is refused off the TPU).  ``device``
+        fp32 FlowState and store KV caches in that width, "int8" stores
+        int8 payloads with fp32 per-(slot, head) or per-token scales; fp8
+        is refused off the TPU).  ``paged`` (a ``PagedSpec``, or True for
+        the default one) pages the softmax KV caches.  ``device``
         defaults to ``"cuda"`` and raises when no GPU is present; pass
         ``"cpu"`` to serve on the CPU with the plain PyTorch versions."""
+        if paged is True:
+            paged = PagedSpec()
+        self.max_len = max_len
         self.scheduler = Scheduler(slots)
         self.worker = Worker(params, cfg, slots=slots, max_len=max_len,
-                             seed=seed, plan=plan, dtype=dtype,
-                             state_dtype=state_dtype, device=device)
+                             paged=paged or None, seed=seed, plan=plan,
+                             dtype=dtype, state_dtype=state_dtype,
+                             device=device)
 
     @property
     def queue(self):
@@ -59,25 +73,52 @@ class Engine:
         """Fill free slots from the queue.
 
         Each round is one packed prefill, one install and one batched
-        first-token sample.  A request whose budget is met by its first
-        token retires without occupying its slot, and the freed slot is
-        offered to the queue again in the same call.
+        first-token sample.  A paged pool reserves each request's whole
+        span (prompt + decode budget, capped at ``max_len``): the round
+        stops at the first request the pool cannot take now, which waits
+        in FIFO order, and a request that can never fit is retired empty
+        with a ``ValueError`` once the requests batched before it are
+        admitted.  A request whose budget is met by its first token
+        retires without occupying its slot (its pages go back), and the
+        freed slot is offered to the queue again in the same call.
         """
-        sched = self.scheduler
+        sched, worker = self.scheduler, self.worker
         while True:
             free = sched.free_slots()
             if not free or not sched.queue:
                 return
-            batch = [sched.queue.popleft()
-                     for _ in range(min(len(free), len(sched.queue)))]
+            batch, spans, reserved = [], [], 0
+            while sched.queue and len(batch) < len(free):
+                req = sched.queue[0]
+                span = min(len(req.prompt) + req.max_new_tokens - 1,
+                           self.max_len)
+                need = worker.pages_needed(span)
+                if need > worker.total_pages:
+                    if batch:
+                        break  # admit the batch first; fail next round
+                    sched.queue.popleft()
+                    sched.retire(req)  # done, nothing generated
+                    raise ValueError(
+                        f"request {req.uid}: {len(req.prompt)} prompt + "
+                        f"{req.max_new_tokens} budget tokens need {need} "
+                        f"pages but the pool holds {worker.total_pages} "
+                        "total")
+                if not worker.can_admit(span, reserved):
+                    break  # the pool is full: FIFO order holds, retry later
+                reserved += need
+                batch.append(sched.queue.popleft())
+                spans.append(span)
+            if not batch:
+                return
             slot_ids = free[:len(batch)]
             temps = np.array([r.temperature for r in batch], np.float32)
-            first = self.worker.prefill([r.prompt for r in batch], slot_ids,
-                                        temps)
+            first = worker.prefill([r.prompt for r in batch], slot_ids,
+                                   temps, spans=spans)
             for req, slot, tok in zip(batch, slot_ids, first):
                 req.generated.append(int(tok))
                 if budget_met(req, int(tok)):
                     sched.retire(req)
+                    worker.release_slot(slot)
                 else:
                     sched.activate(slot, req)
 
@@ -92,7 +133,8 @@ class Engine:
             return 0
         tokens = self.worker.step(sched.last_tokens(), sched.pos, sched.temps,
                                   live)
-        sched.record_step(tokens, live)
+        for slot in sched.record_step(tokens, live):
+            self.worker.release_slot(slot)
         return n_live
 
     def take_finished(self) -> list[Request]:

@@ -14,7 +14,12 @@ platform supports it):
     rewritten whole every step and requantize with a fresh amax.
   * ``quantize_state`` / ``dequantize_state`` / ``quantize_like`` -- the
     boundary conversions (packed-prefill install).
-  * ``pool_bytes``     -- device bytes of a cache tree.
+  * ``pool_bytes``     -- device bytes of a cache tree, the paged pools'
+    trash pages counted apart (``trash_bytes``).
+
+Positional caches (the softmax branch's ``KVCache`` and ``PagedKVCache``)
+quantize per token: each appended K/V row gets its own scale once and is
+never re-rounded; their ``pos`` leaves stay raw int32.
 
 The reference's ``QuantTraj`` (speculative rollback) waits for
 speculative decoding.  Capability gating lives with the registries:
@@ -33,6 +38,7 @@ __all__ = [
     "QuantSpec", "QuantizedPool", "QUANT_DTYPES", "STATE_DTYPES", "spec_of",
     "platform_support", "state_dtype_of", "quantize_leaf", "quantize_state",
     "dequantize_state", "quantize_like", "maybe_quantize", "pool_bytes",
+    "trash_bytes",
 ]
 
 _FP8_DTYPE = getattr(torch, "float8_e4m3fn", None)
@@ -260,17 +266,33 @@ def maybe_quantize(state: Any, plan) -> Any:
         exempt=("z",) if name == "FlowState" else ())
 
 
-def _leaves(tree):
+def _leaves(tree, trash: bool = False):
+    """The tensors of a cache tree; a paged pool's trash page (its last
+    page) is yielded only with ``trash``, and then nothing else is."""
     if isinstance(tree, QuantizedPool):
-        yield from _leaves(tree.payload)
-        yield from _leaves(tree.scale)
+        yield from _leaves(tree.payload, trash)
+        yield from _leaves(tree.scale, trash)
+    elif type(tree).__name__ == "PagedKVCache":
+        if trash:
+            yield tree.k[-1:]
+            yield tree.v[-1:]
+        else:
+            yield from (tree.k[:-1], tree.v[:-1], tree.pos)
     elif isinstance(tree, torch.Tensor):
-        yield tree
+        if not trash:
+            yield tree
     elif isinstance(tree, (list, tuple)):
         for v in tree:
-            yield from _leaves(v)
+            yield from _leaves(v, trash)
 
 
 def pool_bytes(tree) -> int:
-    """Total device bytes of a cache tree (pools count payload + scales)."""
+    """Total device bytes of a cache tree (pools count payload + scales),
+    less the paged pools' trash pages, so that a paged pool of P pages
+    counts what the reference's does."""
     return sum(x.numel() * x.element_size() for x in _leaves(tree))
+
+
+def trash_bytes(tree) -> int:
+    """Device bytes of the paged pools' trash pages in a cache tree."""
+    return sum(x.numel() * x.element_size() for x in _leaves(tree, True))

@@ -18,7 +18,8 @@ the values are summed in another order, so a value within ~1e-5 of a
 half-integer may round the other way).  The SSD chunk scan and its
 backward (K10a, K10b), fp32: 1e-4 + 1e-4 |plain| + 1e-4 max |plain|, as
 the causal dot (a chunk sums C S products as large as its outputs); the
-boundary gather (K9): exact.
+boundary gather (K9) and the page-table gathers (K8a, K8b): exact (a
+copy, and one fp32 product rounded once).
 """
 import dataclasses
 
@@ -65,6 +66,12 @@ from repro_torch.serving.quant import (dequantize_state,  # noqa: E402
                                        quantize_like, quantize_state, spec_of)
 
 from repro_torch.kernels.gather import boundary_gather, boundary_gather_ref  # noqa: E402
+from repro_torch.kernels.gather import (paged_gather,  # noqa: E402
+                                        paged_gather_quant,
+                                        paged_gather_quant_ref,
+                                        paged_gather_ref)
+from repro_torch.layers import attention as attn_layer  # noqa: E402
+from repro_torch.serving.paged import PagedSpec  # noqa: E402
 from repro_torch.kernels.ssd_chunk import (SSDChunkDot,  # noqa: E402
                                            ssd_chunk_bwd_call,
                                            ssd_chunk_call, ssd_chunk_chunked)
@@ -641,3 +648,74 @@ def test_ssd_engine_runs_k9_per_admission_and_matches_the_cpu(gen):
                                 "boundary_gather": 3 * cfg.n_layers
                                 * engine.worker.admission_rounds}
     assert runs["cuda"] == runs["cpu"]
+
+
+def paged_case(gen, p, hkv, page, d, dv, b, mp):
+    """Pools and a shuffled, partly mapped table with sentinel ids (P, a
+    dead slot's row, and out-of-range ids on both sides)."""
+    kc = torch.randn((p, hkv, page, d), generator=gen, device="cuda")
+    vc = torch.randn((p, hkv, page, dv), generator=gen, device="cuda")
+    table = torch.stack([torch.randperm(p, generator=gen, device="cuda")[:mp]
+                         for _ in range(b)]).to(torch.int32)
+    table[0, mp // 2:] = p
+    table[-1] = p
+    table[1 % b, 0] = -3
+    return kc, vc, table
+
+
+PAGED_SHAPES = [(64, 8, 64, 64, 64, 16, 8), (24, 2, 8, 16, 32, 5, 6),
+                (9, 3, 4, 8, 24, 3, 3)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", PAGED_SHAPES)
+def test_paged_gather_kernels_match_plain_exactly(gen, shape, dtype):
+    kc, vc, table = paged_case(gen, *shape)
+    kc, vc = kc.to(dtype), vc.to(dtype)
+    reset_launches()
+    got = paged_gather(kc, vc, table)
+    assert LAUNCHES["paged_gather"] == 1
+    for a, b in zip(got, paged_gather_ref(kc, vc, table)):
+        assert a.dtype == dtype and torch.equal(a, b)
+    kq, vq = ((x.float() * 40).round().clamp(-127, 127).to(torch.int8)
+              for x in (kc, vc))
+    ks, vs = (torch.rand(x.shape[:3] + (1,), generator=gen, device="cuda")
+              for x in (kc, vc))
+    got = paged_gather_quant(kq, vq, ks, vs, table, out_dtype=dtype)
+    assert LAUNCHES["paged_gather_quant"] == 1
+    want = paged_gather_quant_ref(kq, vq, ks, vs, table, out_dtype=dtype)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and torch.equal(a, b)
+
+
+def test_paged_engine_kernels_match_plain_fp32(gen, monkeypatch):
+    base = get_smoke_config("flowformer_lm")
+    cfg = dataclasses.replace(base, attention=dataclasses.replace(
+        base.attention, kind="softmax"))
+    params = lm.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (9, 17, 5, 23, 12)]
+    runs = {}
+    for state_dtype in (None, "int8"):
+        for path in ("kernels", "plain"):
+            if path == "plain":
+                monkeypatch.setattr(attn_layer, "paged_gather", lambda *a, **k:
+                                    paged_gather(*a, **k, interpret=True))
+                monkeypatch.setattr(attn_layer, "paged_gather_quant",
+                                    lambda *a, **k: paged_gather_quant(
+                                        *a, **k, interpret=True))
+            engine = Engine(params, cfg, slots=2, max_len=64,
+                            paged=PagedSpec(8, 10), dtype=torch.float32,
+                            state_dtype=state_dtype, device="cuda")
+            for uid, p in enumerate(prompts):
+                engine.submit(Request(uid=uid, prompt=p, max_new_tokens=6))
+            reset_launches()
+            runs[path] = {r.uid: r.generated for r in engine.run()}
+            name = "paged_gather_quant" if state_dtype else "paged_gather"
+            want = cfg.n_layers * engine.worker.decode_steps \
+                if path == "kernels" else 0
+            assert LAUNCHES == {**dict.fromkeys(KERNELS, 0), name: want}
+            assert engine.worker.allocator.free_pages == 10
+        monkeypatch.undo()
+        assert runs["kernels"] == runs["plain"], state_dtype

@@ -44,7 +44,12 @@ from repro_torch.models import lm  # noqa: E402
 from repro_torch.serving.engine import Engine, Request  # noqa: E402
 from repro_torch.serving.quant import QuantizedPool, maybe_quantize  # noqa: E402
 from repro_torch.config import ShapeSpec  # noqa: E402
-from repro_torch.kernels.gather import boundary_gather  # noqa: E402
+from repro_torch.kernels.gather import (boundary_gather,  # noqa: E402
+                                        paged_gather, paged_gather_quant,
+                                        paged_gather_quant_ref,
+                                        paged_gather_ref)
+from repro_torch.serving.paged import PagedSpec  # noqa: E402
+from repro_torch.serving.worker import Worker  # noqa: E402
 from repro_torch.kernels.ssd_chunk import (ssd_chunk_bwd_call,  # noqa: E402
                                            ssd_chunk_call, ssd_scan)
 from repro_torch.launch.steps import check_flow_trainable  # noqa: E402
@@ -480,3 +485,48 @@ def test_main_path_never_passes_interpret():
                     kw.arg == "interpret" for kw in node.keywords):
                 calls.append(f"{path.relative_to(ROOT)}:{node.lineno}")
     assert not calls, calls
+
+
+def test_cpu_paged_gather_wrappers_run_the_plain_version_uncounted():
+    reset_launches()
+    gen = torch.Generator().manual_seed(0)
+    kc, vc = torch.randn((5, 2, 4, 8), generator=gen), torch.randn(
+        (5, 2, 4, 16), generator=gen)
+    table = torch.tensor([[3, 0, 5], [5, 5, 5]], dtype=torch.int32)
+    kg, vg = paged_gather(kc, vc, table)
+    assert kg.shape == (2, 2, 12, 8) and vg.shape == (2, 2, 12, 16)
+    for got, want in zip((kg, vg), paged_gather_ref(kc, vc, table)):
+        assert torch.equal(got, want)
+    kq, vq = (x.mul(20).round().clamp(-127, 127).to(torch.int8)
+              for x in (kc, vc))
+    ks = torch.rand((5, 2, 4, 1), generator=gen)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        got = paged_gather_quant(kq, vq, ks, ks, table, out_dtype=out_dtype)
+        want = paged_gather_quant_ref(kq, vq, ks, ks, table,
+                                      out_dtype=out_dtype)
+        assert all(torch.equal(a, b) and a.dtype == out_dtype
+                   for a, b in zip(got, want))
+    assert {"paged_gather", "paged_gather_quant"} <= set(KERNELS)
+    assert LAUNCHES == dict.fromkeys(KERNELS, 0)
+
+
+def test_paged_serving_refuses_cpu_unless_asked():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    base = get_smoke_config("flowformer_lm")
+    cfg = dataclasses.replace(base, attention=dataclasses.replace(
+        base.attention, kind="softmax"))
+    params = lm.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    spec = PagedSpec(page_size=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(params, cfg, slots=2, max_len=32, paged=spec)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Worker(params, cfg, slots=2, max_len=32, paged=spec)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm.init_caches(cfg, 2, 32, plan=plan_of(cfg, paged=spec))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--attn", "softmax", "--paged", "--smoke"])
+    engine = Engine(params, cfg, slots=2, max_len=32, paged=spec,
+                    device="cpu")
+    assert all(t.device.type == "cpu" for t in tree_leaves(
+        engine.worker.caches))

@@ -358,8 +358,9 @@ def test_serve_cli_int8_on_the_cpu_retires_every_request(capsys):
 
 
 @pytest.mark.parametrize("argv,needs", [
-    (["--attn", "softmax"], "attention branches"),
-    (["--paged"], "paged KV pools"), (["--draft", "self"], "speculative"),
+    (["--attn", "linear"], "attention branches"),
+    (["--attn", "local"], "attention branches"),
+    (["--draft", "self"], "speculative"),
     (["--speculate-k", "4"], "speculative"), (["--fleet", "prefill:1,decode:1"],
                                               "fleet serving")])
 def test_serve_cli_refuses_unported_paths_by_name(argv, needs):
