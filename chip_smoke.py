@@ -33,11 +33,13 @@ any failure raises, so the exit code is non-zero:
   3e. K10a ``ssd_chunk`` (with and without carry-ins) and K10b
      ``ssd_chunk_bwd`` against their plain versions at the mamba2_1p3b
      training shape (B = 4 x H = 64 rows, N = 4,096, P = 64, S = 128,
-     chunk 128, fp32; B and C shared by the heads through a stride-0 view)
-     and at ``ssd_scan``'s chunk rule's N = 96 (chunk 96) and N = 200
-     (chunk 8), and at strong decay (dta = -50, N = 512): K10a's y and
-     carry-ins against the plain chunked scan, K10b through
-     ``SSDChunkDot`` against autograd through it, random cotangents; K9
+     chunk 128, fp32; B and C shared by the heads: K10a reads them through
+     a stride-0 (B, H, N, S) view, ``SSDChunkDot`` takes the (B, N, S)
+     rows) and at ``ssd_scan``'s chunk rule's N = 96 (chunk 96) and
+     N = 200 (chunk 8), and at strong decay (dta = -50, N = 512): K10a's y
+     and carry-ins against the plain chunked scan, K10b through
+     ``SSDChunkDot`` against autograd through it (db and dc summed over
+     the heads), random cotangents; K9
      ``boundary_gather`` at the admission shape (16 rows, Lb 512, W 4,096
      and 128, bf16 and fp32, lengths including 0, 1, 2, 3 and 512);
   3f. K8a ``paged_gather`` and K8b ``paged_gather_quant`` against their
@@ -144,7 +146,8 @@ any failure raises, so the exit code is non-zero:
      2 x 48 K10a with carry-ins (the forward and its remat recompute:
      ``torch.utils.checkpoint`` reruns each block's forward in the
      backward) and 48 K10b per step and nothing else; one no-grad
-     evaluation forward: exactly 48 K10a without carry-ins; then
+     evaluation forward: exactly 48 K10a without carry-ins; the peak
+     memory of this phase (training and evaluation); then
      ``torch.profiler`` over two steps;
   16. the same trainer in fp32 at full width and 2 layers, 3 steps of 4 x
      4,096, on the kernels and on the plain path (``ssd_scan`` bound with
@@ -212,6 +215,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -268,8 +272,36 @@ def build_kernels() -> float:
         usage = [ln.strip() for ln in log.splitlines() if "Used" in ln]
         print(f"[build] {name}: {len(usage)} kernel variants; "
               + (usage[0] if usage else "cached"), flush=True)
+        if name.startswith("ssd_chunk"):
+            print(f"[build] {name}: " + json.dumps(ptxas_usage(log)),
+                  flush=True)
     print(f"[build] {secs:.1f} s", flush=True)
     return secs
+
+
+def ptxas_usage(log: str) -> dict:
+    """Registers, spill bytes and static shared memory per kernel variant
+    from nvcc's ``-Xptxas -v`` report, keyed by name<template args>."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            sym = m.group(1)
+            k = re.search(r"\d+(ssd_(?:fwd|bwd)_[a-z]+)((?:ILi\d+E(?:Li\d+E)*E)?)",
+                          sym)
+            args = re.findall(r"Li(\d+)E", k.group(2)) if k else []
+            name = (k.group(1) + (f"<{','.join(args)}>" if args else "")
+                    if k else sym)
+            out[name] = {}
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m and name:
+            out[name]["spill_bytes"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", ln)
+            out[name]["static_smem"] = int(sm.group(1)) if sm else 0
+    return out
 
 
 def max_err(name: str, got: torch.Tensor, want: torch.Tensor, tol) -> float:
@@ -1336,8 +1368,9 @@ def train_classifier_fp32_both_paths(cfg):
 # --- the mamba2_1p3b slice: K9, K10a, K10b -----------------------------------
 
 SSD_SHAPE = dict(bsz=4, heads=64, n=4096, p=64, s=128)  # the training shape
-SSD_K10 = {"k10a_ms_per_step": "ssd_chunk_kernel",
-           "k10b_ms_per_step": "ssd_chunk_bwd_kernel"}
+#: profile keys: every CUDA kernel of a K10a call is named ssd_fwd_*, of a
+#: K10b call ssd_bwd_*
+SSD_K10 = {"k10a_ms_per_step": "ssd_fwd_", "k10b_ms_per_step": "ssd_bwd_"}
 #: phase 14 with bf16 conv histories: the logits' tolerance grows by this
 #: share of max |logit| per generated token.  The admission's logits use no
 #: history (1e-4 holds); after it the drift grew by ~4.5e-4 per step on an
@@ -1399,12 +1432,10 @@ def check_ssd() -> dict:
         grads = {}
         for route in ("kernel", "plain"):
             leaves = [t.clone().requires_grad_(True) for t in (x, dta, bm, cm)]
-            args = (leaves[0], leaves[1], heads_view(leaves[2], heads),
-                    heads_view(leaves[3], heads))
-            out = (SSDChunkDot.apply(*args, chunk) if route == "kernel"
-                   else ssd_chunk_chunked(*args, chunk)[0])
+            out = (SSDChunkDot.apply(*leaves, chunk) if route == "kernel"
+                   else ssd_chunk_chunked(*leaves, chunk)[0])
             grads[route] = torch.autograd.grad(out, leaves, g)
-            del out, leaves, args
+            del out, leaves
         torch.cuda.synchronize()
         e_b = max(dot_close(f"ssd_chunk_bwd {tag} d{name}", a, b)
                   for name, a, b in zip(("x", "dta", "b", "c"),
@@ -1641,6 +1672,7 @@ def train_ssd_full_width(cfg) -> dict:
 
     steps, batch, seq = 5, SSD_SHAPE["bsz"], SSD_SHAPE["n"]
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()  # the peak of this phase alone
     reset_launches()
     out = train(cfg, steps=steps, batch=batch, seq=seq, seed=SEED,
                 device=DEVICE)
@@ -2470,27 +2502,30 @@ def time_nc_kernels(launches: dict, errs: dict) -> list:
     return rows
 
 
-def ssd_chunk_ops(c: int, p: int, s: int) -> int:
-    """fp32 operations of K10a for one chunk of one (batch, head) row, the
-    causal triangle only (the C (C + 1) / 2 pairs j <= i that the masked
-    scan needs): C (C + 1) S for c b^T, C (C + 1) P for the panel times x,
-    2 C P S for c h^T and 2 C P S for the carry update.  About 7.36e6 at
-    C = 128, P = 64, S = 128.  Counted as the TPU computes ``_ssd_step``,
-    with the C x C panels whole, it would be 2 C^2 (S + P) + 4 C P S,
-    about 1.05e7: a bound from that count would flatter the kernel by
-    ~1.4x, since the upper triangle is work the function does not need."""
-    return c * (c + 1) * (s + p) + 4 * c * p * s
+def ssd_chunk_ops(c: int, p: int, s: int, heads: int) -> int:
+    """Least fp32 operations of K10a for one chunk of one (batch, head)
+    row, b and c shared by ``heads`` heads: C (C + 1) S / H for c b^T
+    (formed once per batch row and chunk), C (C + 1) P for the masked
+    panel times x (the causal triangle, the C (C + 1) / 2 pairs j <= i
+    that the masked scan needs), 2 C P S for c h^T and 2 C P S for the
+    state.  About 5.28e6 at C = 128, P = 64, S = 128, H = 64.  Counted per
+    head (``heads`` = 1), as a kernel that forms c b^T for each head does,
+    it is C (C + 1) (S + P) + 4 C P S, about 7.36e6; with the C x C
+    panels whole, as the TPU computes ``_ssd_step``, 2 C^2 (S + P) +
+    4 C P S, about 1.05e7."""
+    return c * (c + 1) * s // heads + c * (c + 1) * p + 4 * c * p * s
 
 
-def ssd_chunk_bwd_ops(c: int, p: int, s: int) -> int:
-    """fp32 operations of K10b for one chunk, the pull-back of
-    ``csrc/ssd_chunk_bwd.cu`` over the causal triangle only: C (C + 1) S
-    each for c b^T, (dM o D)^T c and (dM o D) b; C (C + 1) P each for
-    gy x^T and M^T gy; 2 C P S each for b gh^T, x gh, gy h and the
-    carry's cotangent.  About 1.68e7 at C = 128, P = 64, S = 128 (2.52e7
-    with the C x C panels whole, as the TPU computes them; the kernel
-    also computes gy x^T twice, which is not counted)."""
-    return c * (c + 1) * (3 * s + 2 * p) + 8 * c * p * s
+def ssd_chunk_bwd_ops(c: int, p: int, s: int, heads: int) -> int:
+    """Least fp32 operations of K10b for one chunk of one row, b and c
+    shared by ``heads`` heads: C (C + 1) S / H each for c b^T, W^T c and
+    W b (W = sum over the heads of dM o D); C (C + 1) P each for gy x^T
+    and M^T gy; 2 C P S each for b gh^T, x gh, gy h and the carry's
+    cotangent.  About 1.06e7 at C = 128, P = 64, S = 128, H = 64.  Counted
+    per head (``heads`` = 1), C (C + 1) (3 S + 2 P) + 8 C P S, about
+    1.68e7 (2.52e7 with the C x C panels whole, as the TPU computes
+    them)."""
+    return 3 * c * (c + 1) * s // heads + 2 * c * (c + 1) * p + 8 * c * p * s
 
 
 def time_ssd_kernels(launches: dict, errs: dict) -> list:
@@ -2540,13 +2575,12 @@ def time_ssd_kernels(launches: dict, errs: dict) -> list:
     x, dta, bm, cm = ssd_operands(bsz, heads, n, p, s, SEED + 96)
     b4, c4 = heads_view(bm, heads), heads_view(cm, heads)
     g = torch.randn(x.shape, generator=gen, device=DEVICE)
-    ops = bh * (n // chunk) * ssd_chunk_ops(chunk, p, s)
-    ops_bwd = bh * (n // chunk) * ssd_chunk_bwd_ops(chunk, p, s)
+    ops = bh * (n // chunk) * ssd_chunk_ops(chunk, p, s, heads)
+    ops_bwd = bh * (n // chunk) * ssd_chunk_bwd_ops(chunk, p, s, heads)
     io = 4 * (bh * n * (2 * p + 1) + 2 * bsz * n * s)  # x, dta, b, c; y
     hins_bytes = 4 * bh * (n // chunk) * p * s
-    # bwd: x, dta, b, c, hins, g read; dx, ddta and per-row db, dc written
-    io_bwd = (4 * (bh * n * (3 * p + 2) + 2 * bsz * n * s + 2 * bh * n * s)
-              + hins_bytes)
+    # bwd: x, dta, b, c, hins, g read; dx, ddta and (B, N, S) db, dc written
+    io_bwd = 4 * (bh * n * (3 * p + 2) + 4 * bsz * n * s) + hins_bytes
     with torch.no_grad():
         _, hins = ssd_chunk_call(x, dta, b4, c4, chunk=chunk, return_hins=True)
     leaves = [t.clone().requires_grad_(True) for t in (x, dta, bm, cm)]
@@ -2583,9 +2617,14 @@ def time_ssd_kernels(launches: dict, errs: dict) -> list:
             print(f"[K10 time] plain forward and backward {plain_ms:.4f} ms",
                   flush=True)
             plain_ms -= plain_fwd_ms
+        # the per-head count: every C x C product formed for each head
+        per_head = bh * (n // chunk) * (
+            ssd_chunk_bwd_ops if name == "ssd_chunk_bwd" else ssd_chunk_ops)(
+                chunk, p, s, 1)
         print(f"[K10 time] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-              f"ms (one CUDA graph replay), bound {bound_ms:.4f} ms",
-              flush=True)
+              f"ms (one CUDA graph replay), bound {bound_ms:.4f} ms "
+              f"(per-head count: {bound(bytes_moved, per_head)[0]:.4f}"
+              " ms)", flush=True)
         rows.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/" + (
@@ -2595,7 +2634,34 @@ def time_ssd_kernels(launches: dict, errs: dict) -> list:
             "max_abs_err": errs[name], "ms": ms,
             "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": by, "library_ms": None})
+    print("[K10 kernels] device ms per call of each CUDA kernel: "
+          + json.dumps(k10_breakdown(x, dta, b4, c4, hins, g, chunk)),
+          flush=True)
     return rows
+
+
+def k10_breakdown(x, dta, b4, c4, hins, g, chunk) -> dict | str:
+    """Device ms per call of each CUDA kernel of a K10a (with carry-ins)
+    and a K10b call at the training shape, from ``torch.profiler`` over
+    three calls of each; "not measured" where the profiler saw none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.ssd_chunk import (ssd_chunk_bwd_call,
+                                               ssd_chunk_call)
+
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            ssd_chunk_call(x, dta, b4, c4, chunk=chunk, return_hins=True)
+            ssd_chunk_bwd_call(x, dta, b4, c4, hins, g, chunk=chunk)
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        m = re.search(r"ssd_(?:fwd|bwd)_[a-z]+", e.key)
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if m and us:
+            out[m.group(0)] = us / e.count / 1e3
+    return out or "not measured"
 
 
 def main() -> int:

@@ -4,7 +4,8 @@
 // its pl.pallas_call sites: :138 (_kernel) and :145 (_kernel_hins, which
 // also writes each chunk's carry-in for the backward).  Per (batch, head)
 // row, for x (N, P) pre-scaled by dt, log decays a = dt A (N), b and c
-// (N, S), and each chunk of C positions with carry-in h (P, S):
+// (N, S) shared by the heads of a batch row, and each chunk of C
+// positions with carry-in h (P, S):
 //
 //   cum    = inclusive cumsum of a over the chunk
 //   y_i    = sum_{j<=i} (c_i . b_j) exp(cum_i - cum_j) x_j
@@ -14,183 +15,228 @@
 // (_ssd_step, ssd_chunk.py:32-64, which clamps cum_i - cum_j at 0 where
 // this masks it: see decay() in ssd_chunk_common.cuh), all fp32.
 //
-// What bounds it on the H100: operations.  Over the causal triangle that
-// the masked scan needs (pairs j <= i) a chunk is C (C + 1) (S + P) +
-// 4 C P S, about 7.36e6 at C = 128, P = 64, S = 128 (1.05e7 with the C x C
-// panels whole, as the TPU computes them), against 4 C (2 P + 1) bytes
-// of x, y and dta per row (b and c are shared by the heads of a batch
-// row): ~110 operations per byte, five times the ~20 at which the card's
-// fp32 FMA rate (67 TFLOP/s) meets its memory.  The design computes
-// only the tiles on or below the diagonal (10 of 16 at C = 128).
+// What bounds it on the H100: operations.  The least work per (row,
+// chunk) is C (C + 1) S / H for c b^T (shared by the H heads of a batch
+// row), C (C + 1) P for the masked panel times x (the causal triangle)
+// and 4 C P S for c h^T and the state: 5.28e6 at C = 128, P = 64,
+// S = 128, H = 64, against ~2 KB of x, y and dta per position and head:
+// ~100 operations per byte, five times the ~20 at which the card's fp32
+// FMA rate (67 TFLOP/s) meets its memory.
 //
-// Design.  The TPU carried h in VMEM along a sequential grid axis; a GPU
-// grid has none.  So one 256-thread block owns one row and loops over its
-// chunks in order, h (P x S, 32 KB at 64 x 128) in shared memory.  A whole
-// chunk at C = 128 (x, b, c, the C x C panel and h) would take ~256 KB of
-// shared memory, over the 227 KB a block may have, so per chunk the block
-// stages x and b whole, then per 32-row query tile of c: the inter-chunk
-// term c h^T, and per 32 x 32 key tile on or below the diagonal the
-// masked panel (c b^T) o D (D rebuilt from the chunk's cumsum), then
-// panel @ x.  Last, x is scaled by the segment decays in place and h is
-// updated.  The carry-in is written at each chunk's start when hins is
-// given (the _kernel_hins variant).  Shared memory at P = 64, S = 128:
-// 151 KB, so one block per SM: 256 rows (B = 4, H = 64) fill 132 SMs in
-// two waves.  The cumsum is warp 0's scan (four positions per lane in
-// order, then the lanes' totals).  Any C from 1 to 128 that divides N
-// works.  Simple first: no tensor cores, no asynchronous copies, and every
-// head recomputes c b^T of its batch row.
+// Design: the chunk axis in parallel, four launches per call.
+//   ssd_fwd_gram: G^T = b c^T of each (batch, chunk), once for its H
+//     heads, into a 128 x 128 scratch panel that they read from L2.
+//   ssd_fwd_local: each (row, chunk)'s local state (x o seg)^T b, into the
+//     carry-in buffer, and exp(cum_last).
+//   ssd_fwd_pass: the state pass, h <- exp(cum_last) h + S_c over the
+//     chunks in order, in place: each buffer slot ends as its chunk's
+//     carry-in (the hins output, or scratch without it).
+//   ssd_fwd_out: per (row, chunk), y = exp(cum) o (c h^T) over the k-tiles
+//     of S (c m-major, h n-major: both as they lie in memory), then
+//     + (G o D) x over the k-tiles of the chunk on or below the diagonal
+//     (D built from the row's cumsum as each thread's G^T chunks land).
+//     Each thread owns rows from both ends of the chunk, so the causal
+//     product is balanced.
+// The per-(row, chunk) grids run chunk-major, so the blocks in flight
+// share their chunk's b, c and G^T in L2.  Shared memory per block at
+// P = 64, S = 128: 70 KB (gram), 52 KB (local), 54 KB (out).  Any C from
+// 1 to 128 that divides N works.  No tensor cores.
 #include "ssd_chunk_common.cuh"
 
 namespace {
 
 using namespace ssd;
 
-template <int P, int S>
-constexpr size_t fwd_smem_bytes() {
-  return sizeof(float) * (kMaxChunk * (P + 1) + kMaxChunk * (S + 1) + kT * (S + 1) +
-                          P * (S + 1) + kT * (kT + 1) + 3 * kMaxChunk);
-}
+struct FwdArgs {
+  const float* x;
+  const float* dta;
+  BC b, c;
+  float* y;
+  float* states;  // (BH, nc, P, S): local states, then carry-ins
+  float* e;       // (BH, nc): exp(cum_last)
+  float* gram;    // (B, nc, 128, 128): G^T
+  int batch, heads, n, chunk, nc;
+};
 
-template <int P, int S, bool HINS>
-__global__ void __launch_bounds__(kThreads)
-ssd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dta, Strided b, Strided c,
-                 float* __restrict__ y, float* __restrict__ hins, int n, int chunk) {
-  constexpr int LP = P + 1, LS = S + 1, LT = kT + 1;
-  using G = Own<kT, kT>;  // a query x key panel tile
-  using Y = Own<kT, P>;   // a query tile of y
-  using H = Own<P, S>;    // the carry
+template <int S>
+__global__ void __launch_bounds__(kThreads, 1) ssd_fwd_gram(FwdArgs a) {
   extern __shared__ float smem[];
-  float* x_s = smem;                  // the chunk's x, then x * seg
-  float* b_s = x_s + kMaxChunk * LP;  // the chunk's b
-  float* c_s = b_s + kMaxChunk * LS;  // one query tile of c
-  float* h_s = c_s + kT * LS;         // the carry
-  float* m_s = h_s + P * LS;          // one masked panel tile
-  float* cum = m_s + kT * LT;
-  float* ecum = cum + kMaxChunk;  // exp(cum)
-  float* seg = ecum + kMaxChunk;  // exp(cum_last - cum)
-
-  const int r = blockIdx.x, tid = threadIdx.x;
-  const int nc = n / chunk, nt = (chunk + kT - 1) / kT;
-  const float* xr = x + (size_t)r * n * P;
-  const float* ar = dta + (size_t)r * n;
-  float* yr = y + (size_t)r * n * P;
-  const int gm = (tid / G::TX) * G::RM, gx = tid % G::TX;
-  const int ym = (tid / Y::TX) * Y::RM, yx = tid % Y::TX;
-  const int hm = (tid / H::TX) * H::RM, hx = tid % H::TX;
-
-  for (int i = tid; i < P * LS; i += kThreads) h_s[i] = 0.f;
-  __syncthreads();
-  for (int ci = 0; ci < nc; ++ci) {
-    const int t0 = ci * chunk;
-    if (HINS) {  // the carry entering this chunk: K10b's residual
-      float* hd = hins + ((size_t)r * nc + ci) * P * S;
-      for (int i = tid; i < P * S; i += kThreads) hd[i] = h_s[(i / S) * LS + i % S];
-    }
-    load_rows<P>(x_s, xr + (size_t)t0 * P, P, nt * kT, chunk);
-    load_rows<S>(b_s, b.row(r, t0), b.sn, nt * kT, chunk);
-    chunk_cumsum(ar + t0, chunk, cum);
-    __syncthreads();
-    for (int i = tid; i < chunk; i += kThreads) {
-      ecum[i] = expf(cum[i]);
-      seg[i] = expf(cum[chunk - 1] - cum[i]);
-    }
-    for (int it = 0; it < nt; ++it) {
-      const int i0 = it * kT;
-      __syncthreads();  // c_s is free; ecum and seg are written
-      load_rows<S>(c_s, c.row(r, t0 + i0), c.sn, kT, chunk - i0);
-      __syncthreads();
-      float inter[Y::RM][4] = {}, intra[Y::RM][4] = {};
-      mm<Y::RM, 4, false, true>(inter, c_s, LS, h_s, LS, ym, yx, Y::TX, 0, S);  // c_i . h_p
-      for (int jt = 0; jt <= it; ++jt) {
-        const int j0 = jt * kT;
-        {  // m = (c b^T) o D on this tile
-          float acc[G::RM][4] = {};
-          mm<G::RM, 4, false, true>(acc, c_s, LS, b_s + j0 * LS, LS, gm, gx, G::TX, 0, S);
-#pragma unroll
-          for (int rr = 0; rr < G::RM; ++rr)
-#pragma unroll
-            for (int cc = 0; cc < 4; ++cc) {
-              const int col = gx + cc * G::TX;
-              m_s[(gm + rr) * LT + col] = acc[rr][cc] * decay(cum, i0 + gm + rr, j0 + col, chunk);
-            }
-        }
-        __syncthreads();
-        mm<Y::RM, 4, false, false>(intra, m_s, LT, x_s + j0 * LP, LP, ym, yx, Y::TX, 0, kT);
-        __syncthreads();
-      }
-#pragma unroll
-      for (int rr = 0; rr < Y::RM; ++rr) {
-        const int i = i0 + ym + rr;
-        if (i < chunk) {
-#pragma unroll
-          for (int cc = 0; cc < 4; ++cc)
-            yr[(size_t)(t0 + i) * P + yx + cc * Y::TX] = intra[rr][cc] + inter[rr][cc] * ecum[i];
-        }
-      }
-    }
-    __syncthreads();  // every read of x_s and h_s for y is done
-    for (int i = tid; i < chunk * P; i += kThreads) x_s[(i / P) * LP + i % P] *= seg[i / P];
-    __syncthreads();
-    {  // h = exp(cum_last) h + (x o seg)^T b, each thread on its own entries
-      float acc[H::RM][4] = {};
-      mm<H::RM, 4, true, false>(acc, x_s, LP, b_s, LS, hm, hx, H::TX, 0, chunk);
-      const float ec = expf(cum[chunk - 1]);
-#pragma unroll
-      for (int rr = 0; rr < H::RM; ++rr)
-#pragma unroll
-        for (int cc = 0; cc < 4; ++cc) {
-          float& hv = h_s[(hm + rr) * LS + hx + cc * H::TX];
-          hv = hv * ec + acc[rr][cc];
-        }
-    }
-    __syncthreads();
-  }
+  const int bt = blockIdx.x / a.nc, ci = blockIdx.x % a.nc;
+  gram_block<S>(a.b, a.c, bt, ci * a.chunk, a.chunk,
+                a.gram + (long long)blockIdx.x * kMaxChunk * kMaxChunk, smem);
 }
 
-template <int P, int S, bool HINS>
-cudaError_t launch(const float* x, const float* dta, Strided b, Strided c, float* y, float* hins,
-                   int bh, int n, int chunk, cudaStream_t stream) {
-  constexpr size_t bytes = fwd_smem_bytes<P, S>();
-  auto kern = ssd_chunk_kernel<P, S, HINS>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return err;
-  kern<<<bh, kThreads, bytes, stream>>>(x, dta, b, c, y, hins, n, chunk);
+template <int P, int S>
+__global__ void __launch_bounds__(kThreads, 2) ssd_fwd_local(FwdArgs a) {
+  extern __shared__ float smem[];
+  const int rows = a.batch * a.heads;  // chunk-major, as ssd_fwd_out
+  const int r = blockIdx.x % rows, ci = blockIdx.x / rows, rc = r * a.nc + ci, t0 = ci * a.chunk;
+  local_block<P, S, true>(a.x + ((long long)r * a.n + t0) * P, a.b.at(r / a.heads, t0), a.b.sn,
+                          a.dta + (long long)r * a.n + t0, a.chunk,
+                          a.states + (long long)rc * P * S, a.e + rc, smem);
+}
+
+template <int P, int S>
+__global__ void __launch_bounds__(kThreads) ssd_fwd_pass(FwdArgs a) {
+  state_pass(a.states, a.e, a.batch * a.heads, a.nc, P * S / 4);
+}
+
+template <int P, int S>
+__global__ void __launch_bounds__(kThreads, 2) ssd_fwd_out(FwdArgs a) {
+  using T = PanelTiles<P>;
+  constexpr int nt1 = S / kK;
+  using O = Own<kMaxChunk, P, 2, 1>;
+  extern __shared__ float smem[];
+  float* cum = smem + kStages * T::kStage;
+  float* ecum = cum + kMaxChunk;
+  const int rows = a.batch * a.heads;  // chunk-major: the blocks in flight share c and G^T
+  const int r = blockIdx.x % rows, ci = blockIdx.x / rows, rc = r * a.nc + ci;
+  const int t0 = ci * a.chunk, bt = r / a.heads, chunk = a.chunk;
+  const float* xr = a.x + ((long long)r * a.n + t0) * P;
+  const float* crow = a.c.at(bt, t0);
+  const float* hin = a.states + (long long)rc * P * S;
+  const float* gt = a.gram + ((long long)bt * a.nc + ci) * kMaxChunk * kMaxChunk;
+  if (threadIdx.x < 32) warp_cumsum(a.dta + (long long)r * a.n + t0, chunk, cum);
+  __syncthreads();
+  for (int i = threadIdx.x; i < kMaxChunk; i += kThreads) ecum[i] = i < chunk ? expf(cum[i]) : 0.f;
+  __syncthreads();
+  const O o;
+  const int ar[2] = {o.row(0), o.row(1)}, bc[1] = {o.col(0)};
+  const int nt = nt1 + (chunk + kK - 1) / kK;
+  float acc[8][4] = {};
+  run_tiles(
+      nt, smem, T::kStage,
+      [&](int kt, float* buf) {
+        if (kt < nt1) {  // c rows i and h rows p, over s
+          issue_rows<kK, kMaxChunk>(buf, crow + kt * kK, a.c.sn, chunk);
+          issue_rows<kK, P, true>(buf + T::kInterB, hin + kt * kK, S, P);
+        } else {  // G^T rows j and x rows j
+          const int j0 = (kt - nt1) * kK;
+          issue_rows<kMaxChunk>(buf, gt + j0 * kMaxChunk, kMaxChunk, kK);
+          issue_rows<P>(buf + T::kIntraB, xr + (long long)j0 * P, P, chunk - j0);
+        }
+      },
+      [&](int kt, float* buf) {
+        if (kt < nt1) return;
+        // (G o D)^T[j][i] = G^T[j][i] exp(cum_i - cum_j), masked
+        const int j0 = (kt - nt1) * kK;
+        land_rows<kMaxChunk>(buf, [&](int rr, int c, float4 v) {
+          const int j = j0 + rr;
+          return make_float4(v.x * decay(cum, c, j, chunk), v.y * decay(cum, c + 1, j, chunk),
+                             v.z * decay(cum, c + 2, j, chunk), v.w * decay(cum, c + 3, j, chunk));
+        });
+      },
+      [&](int kt, float* buf) {
+        if (!o.on) return;
+        if (kt < nt1) {  // rows past the chunk are zeros: no quad skips
+          tile_fma<2, 1, T::LA, kK, true, true>(acc, buf, buf + T::kInterB, ar, bc);
+          if (kt == nt1 - 1) {  // the inter-chunk term: exp(cum_i) (c_i . h)
+#pragma unroll
+            for (int u = 0; u < 2; ++u)
+#pragma unroll
+              for (int rr = 0; rr < 4; ++rr) {
+                const float s = ecum[ar[u] + rr];
+#pragma unroll
+                for (int q = 0; q < 4; ++q) acc[4 * u + rr][q] *= s;
+              }
+          }
+        } else {  // quads wholly above the diagonal (rows < j0) skip
+          const int j0 = (kt - nt1) * kK;
+          tile_fma_pair<1, kLM, T::LP>(acc, buf, buf + T::kIntraB, ar, bc,
+                                       ar[0] < chunk && j0 <= ar[0] + 3,
+                                       ar[1] < chunk && j0 <= ar[1] + 3);
+        }
+      });
+  if (!o.on) return;
+  float* yr = a.y + ((long long)r * a.n + t0) * P;
+#pragma unroll
+  for (int u = 0; u < 2; ++u)
+#pragma unroll
+    for (int rr = 0; rr < 4; ++rr) {
+      const int i = ar[u] + rr;
+      if (i < chunk)
+        st4(yr + (long long)i * P + bc[0], make_float4(acc[4 * u + rr][0], acc[4 * u + rr][1],
+                                                       acc[4 * u + rr][2], acc[4 * u + rr][3]));
+    }
+}
+
+template <class K>
+cudaError_t allow_smem(K kern, int floats) {
+  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)(floats * sizeof(float)));
+}
+
+template <int P, int S>
+cudaError_t launch(const FwdArgs& a, int bh, cudaStream_t st) {
+  cudaError_t err;
+  constexpr int f0 = gram_smem_floats<S>(), f1 = local_smem_floats<P, S>(),
+                f3 = PanelTiles<P>::kFloats;
+  if ((err = allow_smem(ssd_fwd_gram<S>, f0)) != cudaSuccess) return err;
+  if ((err = allow_smem(ssd_fwd_local<P, S>, f1)) != cudaSuccess) return err;
+  if ((err = allow_smem(ssd_fwd_out<P, S>, f3)) != cudaSuccess) return err;
+  ssd_fwd_gram<S><<<a.batch * a.nc, kThreads, f0 * sizeof(float), st>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  ssd_fwd_local<P, S><<<bh * a.nc, kThreads, f1 * sizeof(float), st>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const long long q = (long long)bh * P * S / 4;
+  ssd_fwd_pass<P, S><<<(unsigned)((q + kThreads - 1) / kThreads), kThreads, 0, st>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  ssd_fwd_out<P, S><<<bh * a.nc, kThreads, f3 * sizeof(float), st>>>(a);
   return cudaGetLastError();
 }
 
-template <int P, int S>
-cudaError_t launch_p_s(const float* x, const float* dta, Strided b, Strided c, float* y,
-                       float* hins, int bh, int n, int chunk, cudaStream_t stream) {
-  if (hins) return launch<P, S, true>(x, dta, b, c, y, hins, bh, n, chunk, stream);
-  return launch<P, S, false>(x, dta, b, c, y, hins, bh, n, chunk, stream);
+bool dims_ok(int bh, int batch, int n, int p, int s, int chunk) {
+  return bh >= 0 && batch >= 1 && bh % batch == 0 && n >= 0 && chunk >= 1 &&
+         chunk <= kMaxChunk && (n == 0 || n % chunk == 0) &&
+         ((p == 64 && s == 128) || (p == 32 && s == 32));
 }
 
 }  // namespace
 
+// Floats of scratch ssd_chunk_fwd needs: the G^T panels, exp(cum_last)
+// per (row, chunk) and, without hins, the states.  -1 for what it refuses.
+extern "C" long long ssd_chunk_fwd_workspace(int bh, int batch, int n, int p, int s, int chunk,
+                                             int hins) {
+  if (!dims_ok(bh, batch, n, p, s, chunk)) return -1;
+  const long long nc = n ? n / chunk : 0;
+  return align4(batch * nc * kMaxChunk * kMaxChunk) + align4(bh * nc) +
+         (hins ? 0 : (long long)bh * nc * p * s);
+}
+
 // x (BH, N, P), dta (BH, N, 1) and y (BH, N, P) fp32, contiguous and
-// 16-byte aligned; b and c fp32 with element (r, t, s) at
-// base + (r / heads) * s_b + (r % heads) * s_h + t * s_n + s (strides in
-// floats, multiples of 4); hins (BH, N / chunk, P, S) or null.  (P, S) in
-// {(64, 128), (32, 32)}, 1 <= chunk <= 128 dividing N.  One launch on
-// `stream`.  Returns a cudaError_t.
+// 16-byte aligned; b and c fp32 (B, N, S) rows shared by the BH / B heads
+// of a batch row (row t of batch i at base + i * s_b + t * s_n, strides in
+// floats, multiples of 4); hins (BH, N / chunk, P, S) or null; work
+// ssd_chunk_fwd_workspace floats, 16-byte aligned.  (P, S) in {(64, 128),
+// (32, 32)}, 1 <= chunk <= 128 dividing N.  Three launches on `stream`.
+// Returns a cudaError_t.
 extern "C" int ssd_chunk_fwd(const void* x, const void* dta, const void* b, const void* c,
-                             void* y, void* hins, int bh, int heads, int n, int p, int s,
-                             int chunk, int b_sb, int b_sh, int b_sn, int c_sb, int c_sh, int c_sn,
-                             void* stream) {
-  if (bh < 0 || heads < 1 || n < 0 || chunk < 1 || chunk > kMaxChunk || (n && n % chunk))
-    return (int)cudaErrorInvalidValue;
+                             void* y, void* hins, void* work, int bh, int batch, int n, int p,
+                             int s, int chunk, long long b_sb, long long b_sn, long long c_sb,
+                             long long c_sn, void* stream) {
+  if (!dims_ok(bh, batch, n, p, s, chunk)) return (int)cudaErrorInvalidValue;
   if (bh == 0 || n == 0) return (int)cudaSuccess;
-  const Strided bs{(const float*)b, b_sb, b_sh, b_sn, heads};
-  const Strided cs{(const float*)c, c_sb, c_sh, c_sn, heads};
-  const float *xf = (const float*)x, *af = (const float*)dta;
-  float *yf = (float*)y, *hf = (float*)hins;
+  FwdArgs a;
+  a.x = (const float*)x;
+  a.dta = (const float*)dta;
+  a.b = BC{(const float*)b, b_sb, b_sn};
+  a.c = BC{(const float*)c, c_sb, c_sn};
+  a.y = (float*)y;
+  a.batch = batch;
+  a.heads = bh / batch;
+  a.n = n;
+  a.chunk = chunk;
+  a.nc = n / chunk;
+  float* w = (float*)work;
+  a.gram = w;
+  w += align4((long long)batch * a.nc * kMaxChunk * kMaxChunk);
+  a.e = w;
+  w += align4((long long)bh * a.nc);
+  a.states = hins ? (float*)hins : w;
   cudaStream_t st = (cudaStream_t)stream;
   // the (P, S) pairs of the configs: mamba2_1p3b and its smoke config
-  if (p == 64 && s == 128)
-    return (int)launch_p_s<64, 128>(xf, af, bs, cs, yf, hf, bh, n, chunk, st);
-  if (p == 32 && s == 32)
-    return (int)launch_p_s<32, 32>(xf, af, bs, cs, yf, hf, bh, n, chunk, st);
-  return (int)cudaErrorInvalidValue;
+  if (p == 64) return (int)launch<64, 128>(a, bh, st);
+  return (int)launch<32, 32>(a, bh, st);
 }
 
 extern "C" const char* ssd_chunk_error_string(int err) {

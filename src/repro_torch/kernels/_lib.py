@@ -97,9 +97,11 @@ def build(names=SOURCES) -> dict[str, str]:
     return logs
 
 
-def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
+def function(name: str, symbol: str, argtypes,
+             restype=ctypes.c_int) -> ctypes._CFuncPtr:
     """The C entry point ``symbol`` of the library built from source
-    ``name`` (built on first use), returning an ``int`` cudaError_t."""
+    ``name`` (built on first use), returning ``restype`` (by default an
+    ``int`` cudaError_t)."""
     key = f"{name}:{symbol}"
     fn = _FUNCS.get(key)
     if fn is None:
@@ -107,7 +109,7 @@ def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
         lib = ctypes.CDLL(str(library_path(name)))
         fn = getattr(lib, symbol)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = restype
         err = getattr(lib, f"{name}_error_string")
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p

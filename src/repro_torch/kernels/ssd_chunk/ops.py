@@ -4,17 +4,19 @@ and K10b (``csrc/ssd_chunk_bwd.cu``), and the differentiable scan.
 * ``ssd_chunk_call`` (K10a): the decay-gated chunk scan; with
   ``return_hins`` it also writes each chunk's carry-in (the variant
   counted as ``ssd_chunk_hins``);
-* ``ssd_chunk_bwd_call`` (K10b): the reverse chunk scan for dx, ddta, db
-  and dc from the saved carry-ins;
+* ``ssd_chunk_bwd_call`` (K10b): dx, ddta, db and dc from the saved
+  carry-ins;
 * ``SSDChunkDot``: K10a with carry-ins forward, K10b backward -- the
   counterpart of ``repro/kernels/ssd_chunk/ops.py::ssd_chunk_dot``;
 * ``ssd_scan``: the head-batched scan of ``ssd_scan_pallas``.
 
-B and C are shared by the heads of a batch row.  The kernels read them
-through strides, so ``ssd_scan`` passes ``bmat[:, None].expand(B, H, N,
-S)``, a view with head stride 0: nothing (B*H, N, S)-sized is made in the
-forward.  K10b writes db and dc per (b*h) row; autograd's ``expand``
-backward sums them over the heads (no float atomics).
+B and C are shared by the heads of a batch row, and the kernels take
+them once: (B, N, S) with x (B*H, N, P), or a (B, H, N, S) view with head
+stride 0 (``bmat[:, None].expand(B, H, N, S)``).  Any other (B, H, N, S)
+tensor is refused, rather than read as head 0.  K10a forms c b^T once per
+(batch, chunk); K10b sums its db and dc over the heads in fixed orders and
+returns them (B, N, S).  One wrapper call launches four CUDA kernels
+(K10a) or seven (K10b) and counts one launch.
 
 CPU tensors run the plain versions (``ref.py``, ``bwd.py``), uncounted;
 CUDA tensors launch the kernels or raise.
@@ -33,9 +35,9 @@ from repro_torch.kernels.ssd_chunk.ref import ssd_chunk_chunked
 __all__ = ["LAUNCHES", "SSDChunkDot", "check_dims", "scan_chunk",
            "ssd_chunk_bwd_call", "ssd_chunk_call", "ssd_scan"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_FWD_ARGTYPES = [_P] * 6 + [_I] * 12 + [_P]
-_BWD_ARGTYPES = [_P] * 10 + [_I] * 12 + [_P]
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_FWD_ARGTYPES = [_P] * 7 + [_I] * 6 + [_L] * 4 + [_P]
+_BWD_ARGTYPES = [_P] * 11 + [_I] * 6 + [_L] * 4 + [_P]
 
 #: what the kernels take: the (head width P, state width S) pairs of the
 #: configs (mamba2_1p3b and its smoke config), chunks 1..128
@@ -62,26 +64,28 @@ def scan_chunk(n: int, chunk: int) -> int:
     return c
 
 
-def _bc_strides(t: torch.Tensor, bh: int, n: int, s: int):
-    """(heads, batch stride, head stride, position stride) of b or c, a
-    (BH, N, S) tensor or a (B, H, N, S) view; raises on what the kernel
-    does not take."""
-    if t.ndim == 3 and t.shape == (bh, n, s):
-        heads, (sb, sn, sl), sh = 1, t.stride(), 0
-    elif t.ndim == 4 and t.shape[0] * t.shape[1] == bh and t.shape[2:] == (n, s):
-        heads, (sb, sh, sn, sl) = t.shape[1], t.stride()
-    else:
-        raise ValueError(f"b/c must be ({bh}, {n}, {s}) or (B, H, {n}, {s}) "
-                         f"with B*H = {bh}, got {tuple(t.shape)}")
-    if sl != 1 or sb % 4 or sh % 4 or sn % 4 or t.data_ptr() % 16:
-        raise ValueError("b/c rows must be contiguous with 16-byte aligned "
-                         f"rows, got strides {t.stride()}")
-    return heads, sb, sh, sn
+def shared_bc(t: torch.Tensor, bh: int) -> torch.Tensor:
+    """The (B, N, S) rows of b or c that the bh / B heads of a batch row
+    share: ``t`` itself, or head 0 of a (B, H, N, S) view whose head
+    stride is 0; raises on any other (B, H, N, S) tensor."""
+    if t.ndim == 4:
+        if t.shape[0] * t.shape[1] != bh:
+            raise ValueError(f"b/c (B, H, N, S) needs B*H = {bh}, got "
+                             f"{tuple(t.shape)}")
+        if t.shape[1] > 1 and t.stride(1) != 0:
+            raise ValueError("b/c (B, H, N, S) must be a view with head "
+                             "stride 0 (shared by the heads), got strides "
+                             f"{t.stride()}: pass the (B, N, S) rows")
+        return t[:, 0]
+    if t.ndim != 3 or not t.shape[0] or bh % t.shape[0]:
+        raise ValueError(f"b/c must be (B, N, S) with B dividing {bh}, or "
+                         f"a (B, H, N, S) view, got {tuple(t.shape)}")
+    return t
 
 
 def _check(x, dta, b, c, chunk, *others):
     """Raise unless the operands are what the SSD kernels take; returns
-    (BH, N, P, S) and b's and c's stride descriptors."""
+    (BH, N, P, S) and the shared (B, N, S) b and c."""
     if x.device.type != "cuda":
         raise ValueError(f"ssd_chunk runs on cuda or cpu, not {x.device}")
     xs = (x, dta, b, c, *others)
@@ -105,19 +109,36 @@ def _check(x, dta, b, c, chunk, *others):
         raise ValueError(why)
     if n % chunk:
         raise ValueError(f"N = {n} is not a multiple of chunk = {chunk}")
-    bs, cs = _bc_strides(b, bh, n, s), _bc_strides(c, bh, n, s)
-    if bs[0] != cs[0]:
-        raise ValueError("b and c must share their head layout")
+    bs, cs = shared_bc(b, bh), shared_bc(c, bh)
+    if bs.shape != cs.shape or bs.shape[1:] != (n, s):
+        raise ValueError(f"b {tuple(b.shape)} and c {tuple(c.shape)} must "
+                         f"share their (B, {n}, {s}) rows")
+    for t in (bs, cs):
+        sb, sn, sl = t.stride()
+        if sl != 1 or sb % 4 or sn % 4 or t.data_ptr() % 16:
+            raise ValueError("b/c rows must be contiguous with 16-byte "
+                             f"aligned rows, got strides {t.stride()}")
     return (bh, n, p, s), bs, cs
+
+
+def _workspace(x, size: int) -> torch.Tensor:
+    """fp32 scratch of ``size`` floats (16-byte aligned, as the allocator
+    gives); ``size`` < 0 is the kernel's refusal."""
+    if size < 0:
+        raise ValueError("ssd_chunk kernels refuse these shapes")
+    return torch.empty(max(size, 4), dtype=torch.float32, device=x.device)
 
 
 def ssd_chunk_call(x: torch.Tensor, dta: torch.Tensor, b: torch.Tensor,
                    c: torch.Tensor, *, chunk: int = 128,
                    return_hins: bool = False):
-    """K10a.  x: (BH, N, P) pre-scaled by dt; dta: (BH, N, 1); b, c: (BH,
-    N, S) or (B, H, N, S) views.  Returns y (BH, N, P); with
-    ``return_hins`` also the carry-ins (BH, N / chunk, P, S), fp32."""
+    """K10a.  x: (BH, N, P) pre-scaled by dt; dta: (BH, N, 1); b, c: (B,
+    N, S) shared by the BH / B heads of each batch row, or (B, H, N, S)
+    views with head stride 0.  Returns y (BH, N, P); with ``return_hins``
+    also the carry-ins (BH, N / chunk, P, S), fp32."""
     if x.device.type == "cpu":
+        for t in (b, c):  # refused here as on the card
+            shared_bc(t, x.shape[0])
         y, hins = ssd_chunk_chunked(x, dta, b, c, chunk)
         return (y, hins) if return_hins else y
     (bh, n, p, s), bs, cs = _check(x, dta, b, c, chunk)
@@ -128,11 +149,16 @@ def ssd_chunk_call(x: torch.Tensor, dta: torch.Tensor, b: torch.Tensor,
     hins = (torch.empty((bh, n // chunk, p, s), dtype=torch.float32,
                         device=x.device) if return_hins else None)
     if bh and n:
+        size = _lib.function("ssd_chunk", "ssd_chunk_fwd_workspace",
+                             [_I] * 7, ctypes.c_longlong)
+        work = _workspace(x, size(bh, bs.shape[0], n, p, s, chunk,
+                                  int(return_hins)))
         fn = _lib.function("ssd_chunk", "ssd_chunk_fwd", _FWD_ARGTYPES)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), dta.data_ptr(), b.data_ptr(), c.data_ptr(),
+        err = fn(x.data_ptr(), dta.data_ptr(), bs.data_ptr(), cs.data_ptr(),
                  y.data_ptr(), hins.data_ptr() if return_hins else None,
-                 bh, bs[0], n, p, s, chunk, *bs[1:], *cs[1:], stream)
+                 work.data_ptr(), bh, bs.shape[0], n, p, s, chunk,
+                 *bs.stride()[:2], *cs.stride()[:2],
+                 torch.cuda.current_stream(x.device).cuda_stream)
         _lib.check(fn, err, "ssd_chunk")
         LAUNCHES["ssd_chunk_hins" if return_hins else "ssd_chunk"] += 1
     return (y, hins) if return_hins else y
@@ -143,24 +169,30 @@ def ssd_chunk_bwd_call(x: torch.Tensor, dta: torch.Tensor, b: torch.Tensor,
                        *, chunk: int = 128):
     """K10b: gradients of ``ssd_chunk_call`` w.r.t. (x, dta, b, c) for the
     cotangent g (BH, N, P), from the carry-ins hins (BH, N / chunk, P, S).
-    Returns (dx, ddta, db, dc); db and dc per (b*h) row, shaped like b
-    and c."""
+    Returns (dx, ddta, db, dc); db and dc are (B, N, S), summed over the
+    heads of each batch row."""
     if x.device.type == "cpu":
+        for t in (b, c):  # refused here as on the card
+            shared_bc(t, x.shape[0])
         return ssd_chunk_bwd_ref(x, dta, b, c, hins, g, chunk=chunk)
     (bh, n, p, s), bs, cs = _check(x, dta, b, c, chunk, hins, g)
     if hins.shape != (bh, n // chunk, p, s) or g.shape != x.shape:
         raise ValueError(f"hins {tuple(hins.shape)} or g {tuple(g.shape)} "
                          f"do not match x {tuple(x.shape)}, chunk {chunk}")
     dx, ddta = torch.empty_like(x), torch.empty_like(dta)
-    db = torch.empty(b.shape, dtype=torch.float32, device=x.device)
-    dc = torch.empty(c.shape, dtype=torch.float32, device=x.device)
+    db = torch.empty(bs.shape, dtype=torch.float32, device=x.device)
+    dc = torch.empty(cs.shape, dtype=torch.float32, device=x.device)
     if bh and n:
+        size = _lib.function("ssd_chunk_bwd", "ssd_chunk_bwd_workspace",
+                             [_I] * 6, ctypes.c_longlong)
+        work = _workspace(x, size(bh, bs.shape[0], n, p, s, chunk))
         fn = _lib.function("ssd_chunk_bwd", "ssd_chunk_bwd", _BWD_ARGTYPES)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), dta.data_ptr(), b.data_ptr(), c.data_ptr(),
+        err = fn(x.data_ptr(), dta.data_ptr(), bs.data_ptr(), cs.data_ptr(),
                  hins.data_ptr(), g.data_ptr(), dx.data_ptr(),
-                 ddta.data_ptr(), db.data_ptr(), dc.data_ptr(), bh, bs[0], n,
-                 p, s, chunk, *bs[1:], *cs[1:], stream)
+                 ddta.data_ptr(), db.data_ptr(), dc.data_ptr(),
+                 work.data_ptr(), bh, bs.shape[0], n, p, s, chunk,
+                 *bs.stride()[:2], *cs.stride()[:2],
+                 torch.cuda.current_stream(x.device).cuda_stream)
         _lib.check(fn, err, "ssd_chunk_bwd")
         LAUNCHES["ssd_chunk_bwd"] += 1
     return dx, ddta, db, dc
@@ -168,11 +200,16 @@ def ssd_chunk_bwd_call(x: torch.Tensor, dta: torch.Tensor, b: torch.Tensor,
 
 class SSDChunkDot(torch.autograd.Function):
     """Differentiable K10a: the forward keeps (x, dta, b, c) and the
-    carry-ins, nothing (B, H, N)-sized beyond them; the backward is K10b."""
+    carry-ins, nothing (B, H, N)-sized beyond them; the backward is K10b.
+    b and c are the (B, N, S) rows the heads share, so their gradients
+    come back summed over the heads."""
 
     @staticmethod
     def forward(ctx, x, dta, b, c, chunk: int):
         """y = ssd_chunk_call(x, dta, b, c) with the carry-ins saved."""
+        if b.ndim != 3 or c.ndim != 3:
+            raise ValueError("SSDChunkDot takes b and c as (B, N, S), got "
+                             f"{tuple(b.shape)} and {tuple(c.shape)}")
         y, hins = ssd_chunk_call(x, dta, b, c, chunk=chunk, return_hins=True)
         ctx.save_for_backward(x, dta, b, c, hins)
         ctx.chunk = chunk
@@ -202,17 +239,14 @@ def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, bmat: torch.Tensor,
     any device, under autograd, uncounted.
     """
     bsz, n, h, p = xh.shape
-    s = bmat.shape[-1]
     c = scan_chunk(n, chunk)
     x = (xh.float() * dt[..., None]).transpose(1, 2).reshape(bsz * h, n, p)
     dta = (dt * a[None, None, :]).transpose(1, 2).reshape(bsz * h, n, 1)
-    bm = bmat[:, None].expand(bsz, h, n, s)
-    cm = cmat[:, None].expand(bsz, h, n, s)
     if interpret:
-        y, _ = ssd_chunk_chunked(x, dta, bm, cm, c)
+        y, _ = ssd_chunk_chunked(x, dta, bmat, cmat, c)
     elif torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, dta, bm, cm)):
-        y = SSDChunkDot.apply(x, dta, bm, cm, c)
+            t.requires_grad for t in (x, dta, bmat, cmat)):
+        y = SSDChunkDot.apply(x, dta, bmat, cmat, c)
     else:
-        y = ssd_chunk_call(x, dta, bm, cm, chunk=c)
+        y = ssd_chunk_call(x, dta, bmat, cmat, chunk=c)
     return y.reshape(bsz, h, n, p).transpose(1, 2)

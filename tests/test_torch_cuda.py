@@ -562,7 +562,8 @@ def ssd_operands(gen, bsz, h, n, p, s, decay):
 @pytest.mark.parametrize("bsz,h,n,p,s,chunk,decay", [
     (1, 2, 64, 32, 32, 32, "mild"), (2, 3, 96, 64, 128, 96, "mild"),
     (1, 2, 200, 32, 32, 8, "mild"), (2, 2, 256, 64, 128, 128, "strong"),
-    (2, 4, 512, 64, 128, 128, "ties"), (4, 64, 4096, 64, 128, 128, "mild")])
+    (2, 4, 512, 64, 128, 128, "ties"), (4, 64, 4096, 64, 128, 128, "mild"),
+    (2, 8, 512, 32, 32, 128, "ties")])
 def test_ssd_chunk_kernels_match_plain(gen, bsz, h, n, p, s, chunk, decay):
     x, dta, bm, cm = ssd_operands(gen, bsz, h, n, p, s, decay)
     b4, c4 = bm[:, None].expand(bsz, h, n, s), cm[:, None].expand(bsz, h, n, s)
@@ -582,10 +583,29 @@ def test_ssd_chunk_kernels_match_plain(gen, bsz, h, n, p, s, chunk, decay):
     want = torch.autograd.grad(want_y, leaves, g)
     ssd_close(got[0], want[0])
     ssd_close(got[1], want[1])
-    ssd_close(got[2].sum(1), want[2])  # db per (b*h) row, summed over heads
-    ssd_close(got[3].sum(1), want[3])
+    assert got[2].shape == got[3].shape == (bsz, n, s)  # summed over heads
+    ssd_close(got[2], want[2])
+    ssd_close(got[3], want[3])
     assert LAUNCHES == {**dict.fromkeys(KERNELS, 0), "ssd_chunk": 1,
                         "ssd_chunk_hins": 1, "ssd_chunk_bwd": 1}
+
+
+@pytest.mark.parametrize("bsz,h,n,p,s,chunk", [
+    (2, 8, 512, 64, 128, 128), (2, 3, 200, 32, 32, 8)])
+def test_ssd_chunk_kernels_are_deterministic(gen, bsz, h, n, p, s, chunk):
+    """Two calls on the same inputs are bitwise equal: every sum over
+    heads, positions or column tiles runs in a fixed order."""
+    x, dta, bm, cm = ssd_operands(gen, bsz, h, n, p, s, "mild")
+    g = torch.randn(x.shape, generator=gen, device="cuda")
+    runs = []
+    for _ in range(2):
+        y, hins = ssd_chunk_call(x, dta, bm, cm, chunk=chunk,
+                                 return_hins=True)
+        runs.append((y, hins, ssd_chunk_call(x, dta, bm, cm, chunk=chunk),
+                     *ssd_chunk_bwd_call(x, dta, bm, cm, hins, g,
+                                         chunk=chunk)))
+    for a, b_ in zip(*runs):
+        assert torch.equal(a, b_)
 
 
 def test_ssd_chunk_dot_gradients_match_plain(gen):
@@ -597,7 +617,7 @@ def test_ssd_chunk_dot_gradients_match_plain(gen):
         leaves = [t.clone().requires_grad_(True) for t in (x, dta, bm, cm)]
         b4 = leaves[2][:, None].expand(bsz, h, n, s)
         c4 = leaves[3][:, None].expand(bsz, h, n, s)
-        y = (SSDChunkDot.apply(leaves[0], leaves[1], b4, c4, chunk)
+        y = (SSDChunkDot.apply(*leaves, chunk)
              if route == "kernel" else
              ssd_chunk_chunked(leaves[0], leaves[1], b4, c4, chunk)[0])
         grads[route] = torch.autograd.grad(y, leaves, g)

@@ -445,8 +445,9 @@ def test_cpu_ssd_wrappers_run_the_plain_version_uncounted():
     y, hins = ssd_chunk_call(x, dta, bm, bm, chunk=8, return_hins=True)
     assert y.shape == (4, 16, 8) and hins.shape == (4, 2, 8, 4)
     grads = ssd_chunk_bwd_call(x, dta, bm, bm, hins, y, chunk=8)
+    # db and dc summed over the heads that share b and c: (B, N, S)
     assert [tuple(g.shape) for g in grads] == [(4, 16, 8), (4, 16, 1),
-                                              (2, 2, 16, 4), (2, 2, 16, 4)]
+                                              (2, 16, 4), (2, 16, 4)]
     xh = torch.randn((2, 12, 2, 8), requires_grad=True)
     out = ssd_scan(xh, torch.rand((2, 12, 2)), torch.randn((2, 12, 4)),
                    torch.randn((2, 12, 4)), -torch.ones(2), chunk=8)

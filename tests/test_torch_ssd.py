@@ -47,8 +47,10 @@ from repro_torch.kernels._lib import KERNELS  # noqa: E402
 from repro_torch.kernels.gather import boundary_gather, boundary_gather_ref  # noqa: E402
 from repro_torch.kernels.ssd_chunk import (SSDChunkDot,  # noqa: E402
                                            ssd_chunk_bwd_call,
+                                           ssd_chunk_bwd_parallel,
                                            ssd_chunk_bwd_ref, ssd_chunk_call,
-                                           ssd_chunk_chunked, ssd_chunk_ref,
+                                           ssd_chunk_chunked,
+                                           ssd_chunk_parallel, ssd_chunk_ref,
                                            ssd_scan)
 from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.layers import ssd  # noqa: E402
@@ -136,6 +138,102 @@ def test_ssd_chunk_dot_matches_reference_vjp(strong):
     close("y", y.detach(), jy)
     for name, a, b in zip(("dx", "ddta", "db", "dc"), grads, jgrads):
         close(name, a, b)
+
+
+def shared_operands(bsz, heads, n, p, s, seed, strong=False):
+    """x, dta as ``operands`` for B*H rows; b and c (B, N, S), shared by
+    each batch row's heads."""
+    x, dta, _, _ = operands(bsz * heads, n, p, s, seed, strong)
+    rng = np.random.default_rng(seed + 1)
+    b = rng.standard_normal((bsz, n, s), np.float32) * 0.5
+    c = rng.standard_normal((bsz, n, s), np.float32) * 0.5
+    return x, dta, b, c
+
+
+def per_head(t, heads):
+    """The reference's per-row (B*H, N, S) copy of shared (B, N, S) rows."""
+    return np.repeat(t, heads, axis=0)
+
+
+@pytest.mark.parametrize("strong", [False, True])
+@pytest.mark.parametrize("chunk", [8, 32, 96, 128])
+def test_parallel_decomposition_matches_reference_kernels(chunk, strong):
+    """The kernels' decomposition in PyTorch (local states, the state
+    pass, c b^T once per batch row and chunk, W summed over the heads)
+    against the reference's Pallas kernels in interpret mode, which see
+    b and c repeated per head; db and dc against the reference's summed
+    over the heads."""
+    bsz, heads, p, s = 2, 3, 8, 16
+    n = 2 * chunk
+    x, dta, b, c = shared_operands(bsz, heads, n, p, s, seed=chunk + strong,
+                                   strong=strong)
+    g = np.random.default_rng(chunk + 7).standard_normal(x.shape, np.float32)
+    jops = (x, dta, per_head(b, heads), per_head(c, heads))
+    jy, jh = j_chunk_call(*map(jnp.asarray, jops), chunk=chunk,
+                          interpret=True, return_hins=True)
+    want = j_bwd_call(*map(jnp.asarray, jops), jh, jnp.asarray(g),
+                      chunk=chunk, interpret=True)
+    t = [torch.from_numpy(a) for a in (x, dta, b, c)]
+    y, hins = ssd_chunk_parallel(*t, chunk)
+    close("y", y, jy)
+    close("hins", hins, jh)
+    got = ssd_chunk_bwd_parallel(*t, hins, torch.from_numpy(g), chunk=chunk)
+    close("dx", got[0], want[0])
+    close("ddta", got[1], want[1])
+    for name, a, w in (("db", got[2], want[2]), ("dc", got[3], want[3])):
+        close(name, a, np.asarray(w).reshape(bsz, heads, n, s).sum(1))
+
+
+@pytest.mark.parametrize("strong", [False, True])
+def test_head_summed_grads_match_reference_vjp(strong):
+    """``ssd_chunk_bwd_ref`` (through ``ssd_chunk_bwd_call``) and
+    ``SSDChunkDot`` take (B, N, S) b and c and return db and dc summed
+    over the heads: against ``jax.vjp(ssd_chunk_dot)`` on the per-head
+    copies, summed over the heads."""
+    bsz, heads, n, p, s, chunk = 2, 4, 64, 16, 8, 16
+    x, dta, b, c = shared_operands(bsz, heads, n, p, s, seed=31,
+                                   strong=strong)
+    g = np.random.default_rng(32).standard_normal(x.shape, np.float32)
+    jops = (x, dta, per_head(b, heads), per_head(c, heads))
+    jy, pull = jax.vjp(lambda *a: j_chunk_dot(*a, chunk, True),
+                       *map(jnp.asarray, jops))
+    jgrads = [np.asarray(a) for a in pull(jnp.asarray(g))]
+    jgrads[2:] = [a.reshape(bsz, heads, n, s).sum(1) for a in jgrads[2:]]
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in (x, dta, b,
+                                                                 c)]
+    y = SSDChunkDot.apply(*leaves, chunk)
+    grads = torch.autograd.grad(y, leaves, torch.from_numpy(g))
+    close("y", y.detach(), jy)
+    _, hins = ssd_chunk_chunked(*(t.detach() for t in leaves), chunk)
+    direct = ssd_chunk_bwd_call(*(t.detach() for t in leaves), hins,
+                                torch.from_numpy(g), chunk=chunk)
+    for name, a, d, w in zip(("dx", "ddta", "db", "dc"), grads, direct,
+                             jgrads):
+        assert a.shape == d.shape == w.shape, name
+        close(name, a, w)
+        close(name + " (ssd_chunk_bwd_ref)", d, w)
+
+
+def test_wrappers_refuse_bc_with_a_head_stride():
+    """b and c are the heads' shared rows: a (B, H, N, S) view must have
+    head stride 0; any other is refused, not read as head 0."""
+    bsz, heads, n, p, s, chunk = 2, 3, 32, 16, 8, 16
+    x, dta, b, c = (torch.from_numpy(a) for a in shared_operands(
+        bsz, heads, n, p, s, seed=41))
+    view = b[:, None].expand(bsz, heads, n, s)
+    own = view.contiguous()  # (B, H, N, S) with head stride N * S
+    y, hins = ssd_chunk_call(x, dta, view, c, chunk=chunk, return_hins=True)
+    assert torch.equal(y, ssd_chunk_call(x, dta, b, c, chunk=chunk))
+    g = torch.ones_like(x)
+    db = ssd_chunk_bwd_call(x, dta, view, c, hins, g, chunk=chunk)[2]
+    assert db.shape == (bsz, n, s)
+    for bb, cc in ((own, c), (b, own.clone())):
+        with pytest.raises(ValueError, match="head stride 0"):
+            ssd_chunk_call(x, dta, bb, cc, chunk=chunk)
+        with pytest.raises(ValueError, match="head stride 0"):
+            ssd_chunk_bwd_call(x, dta, bb, cc, hins, g, chunk=chunk)
+    with pytest.raises(ValueError, match=r"\(B, N, S\)"):
+        SSDChunkDot.apply(x, dta, view, c, chunk)
 
 
 @pytest.mark.parametrize("n,chunk", [(64, 16), (96, 64), (40, 32)])
