@@ -160,8 +160,11 @@ any failure raises, so the exit code is non-zero:
      for K1-K3, of phase 5c for K4 (K1's count includes 5c's), of phase
      10 for K6, K7a, K7b, of phase 7c for K5a, K5b, of phases 17 and 17b
      for K8a and K8b, of phase 13 for K9 and of phase 15 for K10a and
-     K10b), K1's time at the training shape,
-     K3 and K4 at 16 and 1,024 slots x 8 kv heads, K8a and K8b at one
+     K10b), K1's time and bound at the training shape (in its row),
+     the device time of each CUDA kernel of one K1 call (serving and
+     training shape) and one K2 call (``k12_breakdown``: the ``flow_fwd_``
+     and ``flow_bwd_`` kernels) with their registers and spill bytes from
+     the build, K3 and K4 at 16 and 1,024 slots x 8 kv heads, K8a and K8b at one
      layer's gather of phase 17's step with every slot's 8 pages mapped
      (their library yardstick ``torch.index_select`` of the pools by the
      flattened table, without the relayout), K9 at one admission's
@@ -261,6 +264,11 @@ def card() -> str:
     return line
 
 
+#: registers and spills of the redesigned kernels' variants, per source,
+#: from the build (printed again beside phase 9's breakdowns)
+PTXAS: dict[str, dict] = {}
+
+
 def build_kernels() -> float:
     """Phase 2: compile every kernel (one nvcc per source, all at once)."""
     from repro_torch.kernels import build
@@ -272,24 +280,28 @@ def build_kernels() -> float:
         usage = [ln.strip() for ln in log.splitlines() if "Used" in ln]
         print(f"[build] {name}: {len(usage)} kernel variants; "
               + (usage[0] if usage else "cached"), flush=True)
-        if name.startswith("ssd_chunk"):
-            print(f"[build] {name}: " + json.dumps(ptxas_usage(log)),
-                  flush=True)
+        if name.startswith(("ssd_chunk", "flow_fused")):
+            PTXAS[name] = ptxas_usage(log)
+            print(f"[build] {name}: " + json.dumps(PTXAS[name]), flush=True)
     print(f"[build] {secs:.1f} s", flush=True)
     return secs
 
 
 def ptxas_usage(log: str) -> dict:
     """Registers, spill bytes and static shared memory per kernel variant
-    from nvcc's ``-Xptxas -v`` report, keyed by name<template args>."""
+    from nvcc's ``-Xptxas -v`` report, keyed by name<template args> (bf16
+    for an ``__nv_bfloat16`` argument, f32 for ``float``)."""
     out, name = {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
             sym = m.group(1)
-            k = re.search(r"\d+(ssd_(?:fwd|bwd)_[a-z]+)((?:ILi\d+E(?:Li\d+E)*E)?)",
+            k = re.search(r"\d+((?:ssd|flow)_(?:fwd|bwd)_[a-z0-9]+)(I\w*?E(?=v))?",
                           sym)
-            args = re.findall(r"Li(\d+)E", k.group(2)) if k else []
+            targs = (k.group(2) or "") if k else ""
+            args = (["bf16"] if "bfloat16" in targs
+                    else ["f32"] if targs.startswith("If") else [])
+            args += re.findall(r"Li(\d+)E", targs)
             name = (k.group(1) + (f"<{','.join(args)}>" if args else "")
                     if k else sym)
             out[name] = {}
@@ -1053,8 +1065,9 @@ def train_full_width(cfg) -> dict:
     return stats
 
 
-K12 = {"k1_ms_per_step": "flow_fused_fwd_kernel",
-       "k2_ms_per_step": "flow_fused_bwd_kernel"}
+# K1 launches the flow_fwd_* CUDA kernels and K2 the flow_bwd_* ones, and
+# no other kernel's name holds either prefix
+K12 = {"k1_ms_per_step": "flow_fwd_", "k2_ms_per_step": "flow_bwd_"}
 
 
 def paper_causal(cfg, **over):
@@ -2280,9 +2293,9 @@ def time_kernels(launches: dict, errs: dict) -> list:
     b_k2 = (bh * n * (g * d + 2 * d + g * d) * 2 + bh * n * (g * d + 2 * d) * 2
             + 2 * st_bytes + bh * 4)
     bound_ms, by = bound(b_k2, bh * n * bwd_ops_per_position(g, d, d))
+    train = (q, k, v, lens, totals, g_out, g_sums)
     with torch.no_grad():
-        k2_ms = time_ms(lambda: flow_fused_bwd_call(q, k, v, lens, totals,
-                                                    g_out, g_sums, **kw))
+        k2_ms = time_ms(lambda: flow_fused_bwd_call(*train, **kw))
         k1_train_ms = time_ms(lambda: flow_fused_call(q, k, v, lens,
                                                       chunk=128))
     b_k1 = bh * n * (g * d + 2 * d) * 2 * 2 + st_bytes + bh * 4
@@ -2317,7 +2330,10 @@ def time_kernels(launches: dict, errs: dict) -> list:
             "ms": time_ms(lambda: flow_fused_call(q, k, v, lens, chunk=128)),
             "plain_ms": time_ms(lambda: flow_fused_ref(q, k, v, lens,
                                                        chunk=128)),
-            "bound_ms": bound_ms, "bound_by": by, "library_ms": None})
+            "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
+            "training_ms": k1_train_ms, "training_bound_ms": k1_bound,
+            "training_bound_by": k1_by})
+        serve = (q, k, v, lens)
         # K3: one decode step of the 16-slot pool, one layer
         slots, hkv = 16, 8
         pool = decode_pool(slots, hkv, d, SEED + 6)
@@ -2343,6 +2359,12 @@ def time_kernels(launches: dict, errs: dict) -> list:
             "bound_ms": bound_ms, "bound_by": by, "library_ms": None})
         rows.append(time_flow_decode_q(launches, errs))
     rows.insert(1, k2_row)
+    print("[K1/K2 kernels] device ms per call of each CUDA kernel: "
+          + json.dumps(k12_breakdown(serve, train, kw)), flush=True)
+    print("[K1/K2 kernels] registers and spill bytes: " + json.dumps(
+        {name: PTXAS.get(name, "cached") for name in ("flow_fused",
+                                                      "flow_fused_bwd")}),
+          flush=True)
     rows += time_nc_kernels(launches, errs)
     rows += time_chunk_kernels(launches, errs)
     return rows
@@ -2638,6 +2660,42 @@ def time_ssd_kernels(launches: dict, errs: dict) -> list:
           + json.dumps(k10_breakdown(x, dta, b4, c4, hins, g, chunk)),
           flush=True)
     return rows
+
+
+def k12_breakdown(serve, train, kw) -> dict:
+    """Device ms per call of each CUDA kernel of K1 at the serving shape
+    (``serve`` = q, k, v, lens) and at the training shape, and of K2 at
+    the training shape (``train`` = its arguments, ``kw`` its keywords),
+    from ``torch.profiler`` over three calls of each.  Late in the script
+    a profiler session sometimes records no device time at all, so each
+    is tried up to three times; "not measured" where none saw any."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.flow_fused import (flow_fused_bwd_call,
+                                                flow_fused_call)
+
+    runs = {"k1_serving": lambda: flow_fused_call(*serve, chunk=128),
+            "k1_training": lambda: flow_fused_call(*train[:4], chunk=128),
+            "k2_training": lambda: flow_fused_bwd_call(*train, **kw)}
+    out = {}
+    for tag, run in runs.items():
+        times = {}
+        for _ in range(3):
+            with torch.no_grad(), profile(
+                    activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    run()
+                torch.cuda.synchronize()
+            for e in prof.key_averages():
+                m = re.search(r"flow_(?:fwd|bwd)_[a-z0-9]+", e.key)
+                us = getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0.0))
+                if m and us:
+                    times[m.group(0)] = us / e.count / 1e3
+            if times:
+                break
+        out[tag] = times or "not measured"
+    return out
 
 
 def k10_breakdown(x, dta, b4, c4, hins, g, chunk) -> dict | str:

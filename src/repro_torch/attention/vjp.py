@@ -4,11 +4,12 @@
 The counterpart of ``repro/attention/vjp.py::flow_fused_dot``.  The
 forward is K1 (``kernels/flow_fused/ops.py::flow_fused_call``) on a dense,
 chunk-padded flat batch whose positions from ``n_valid`` on are padding;
-the backward is K2 (``kernels/flow_fused/bwd.py::flow_fused_bwd_call``), a
-reverse scan that rebuilds each tile's carry-in from the six state totals.
-So the saved tensors are q, k, v and the O(d^2) totals, nothing
-(B, H, N)-sized.  The state outputs are differentiable, as in the
-reference: their cotangents seed the scan (zeros where unused).
+the backward is K2 (``kernels/flow_fused/bwd.py::flow_fused_bwd_call``),
+which recomputes the flows and the chunk states from q, k and v itself.
+So the saved tensors are q, k, v and the O(d^2) totals (checked, not read
+by K2), nothing (B, H, N)-sized.  The state outputs are differentiable, as
+in the reference: their cotangents seed K2's reverse passes (zeros where
+unused).
 
 The non-causal pair mirrors ``repro/attention/vjp.py:144-236``:
 ``FlowNCQside`` is K7a forward and K7b backward; ``FlowNCFused`` runs K6

@@ -2,335 +2,271 @@
 //
 // Replaces the TPU kernel repro/kernels/flow_fused/flow_fused.py::
 // flow_fused_call (the pl.pallas_call at :207, math in _chunk_step :56-141).
-// It computes, per (row * kv head), the whole strict-causal Flow-Attention
-// of paper Alg. 2 with per-row `lens` masking, and writes the boundary
-// FlowState (four (D,) flow sums, z, and the (D, Dv) state S) once at the end.
+// It computes, per (row * kv head), the strict-causal Flow-Attention of
+// paper Alg. 2 with per-row `lens` masking, and the boundary FlowState (four
+// (D,) flow sums, z, and the (D, Dv) state S) frozen at each row's length.
 //
-// What bounds it on the H100: the arithmetic.  The work is a chain of small
-// fp32 dot products and prefix sums (about 4*G*D*Dv + 2*D*Dv multiply-adds
-// per position for the aggregation, plus O((G+1)*D) for the flows); q, k, v
-// are read once and `out` written once, so at serving shapes the bytes take
-// less time than fp32 FMA at 67 TFLOP/s.  The kernel keeps fp32 FMA on the
-// CUDA cores (no tensor cores, no TF32), so the sums match the plain
-// PyTorch version to fp32 reassociation.
+// What bounds it on the H100: operations.  Per live position it needs
+// 2 (G + 1) D Dv operations for the aggregation (q_in S and S += phi(k)^T
+// (v e)) and ~7 (G + 1) D for the flows, all fp32 FMA on the CUDA cores
+// (no tensor cores, no TF32) at 67 TFLOP/s, against ~2 (G + 2) D bytes of
+// q, k, v and out: ~60 operations per byte at D = 64, three times what the
+// card's memory rate would need.
 //
-// Design: the TPU ran the chunk axis as a sequential grid axis with the six
-// running sums in VMEM scratch and "fixed" output blocks rewritten every
-// chunk.  A GPU grid has no sequential axis, so here one CTA owns one
-// (row, kv head) and loops over the sequence in tiles of kTile positions,
-// with S (D x Dv fp32) and the running sums resident in shared memory for
-// the whole sequence; nothing of the carry goes to device memory.  Per tile:
-// phi and masking on load, in-tile prefix sums (a plain sequential scan per
-// feature column; the reference's tril matmuls existed only so jax.vjp could
-// differentiate them), warp-reduced flow dot products, the causal in-tile
-// scores, the output rows, then S += K^T (V e).  Tiles wholly past the row's
-// length are not computed: their outputs are exactly zero and the sums are
-// frozen, so the kernel writes zeros there.  The tile is independent of the
-// wrapper's chunk size: any padded N works, since chunking only changes the
-// order of fp32 sums.  One CTA per (row, kv head) gives B*Hkv CTAs, about
-// one wave on 132 SMs at 16 rows x 8 heads; splitting Dv across CTAs (the
-// flows do not depend on V) is left for later work.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
+// Design: the chunk axis in parallel, four launches per call (the pieces
+// shared with K2 are in flow_fused_common.cuh).
+//   flow_fwd_flows: one block of 1024 threads per row walks its live
+//     super-chunks of T = 8192 / D positions (4096 / D or 2048 / D where a
+//     larger group does not fit) through the three flow levels, each a
+//     block-wide segmented scan and warp-reduced dot products with eight
+//     rows in flight per warp, and writes sink_in, the output scale r alloc
+//     (G, N) and e (N) per position, then the boundary sums and z.  With
+//     one block per row it is a chain of latencies, not of operations:
+//     1024 threads (four positions a thread per scan) and the largest
+//     super-chunk that fits keep the chain short.
+//   flow_fwd_state: per (row, chunk of C = 64 positions; 32 at D = 128) the
+//     chunk state phi(k)^T (v e), D x Dv, register-blocked; dead chunks
+//     skip.
+//   flow_fwd_pass: the exclusive pass over each row's live chunks in chunk
+//     order, in place, one thread per float4 of a row's state with eight
+//     chunks' loads in flight; the sum of them all is the boundary S.
+//   flow_fwd_out: per (row, chunk), for each group, the causal panel
+//     tril(q_in phi(k)^T), then out = (panel (v e) + q_in S_<c) r alloc
+//     over the whole of Dv; dead chunks write zeros.
+// The per-(row, chunk) grids run chunk-major.  Chunking only reorders fp32
+// sums: the kernel's C and T are its own, independent of the caller's
+// chunk.  Shared memory per block at D = 64, G = 1: 204 KB (flows), 32 KB
+// (state), 80 KB (out, two blocks an SM).
+#include "flow_fused_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 32;
+using namespace ff;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as torch's .to(bfloat16)
-}
-
-// phi kinds: 0 sigmoid, 1 elu + 1, 2 relu
-__device__ __forceinline__ float phi_fn(float x, int kind) {
-  if (kind == 0) return 1.f / (1.f + expf(-x));
-  if (kind == 1) return x > 0.f ? x + 1.f : expm1f(x) + 1.f;
-  return fmaxf(x, 0.f);
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-__host__ __device__ constexpr size_t smem_floats(int g, int d, int dv) {
-  return (size_t)d * dv              // S
-         + (size_t)g * kTile * d     // phi(q), then q_in
-         + (size_t)kTile * (d + 1)   // phi(k), rows padded against bank conflicts
-         + (size_t)kTile * dv        // v, then v * e
-         + 2 * (size_t)kTile * d     // two prefix-sum panels
-         + (size_t)g * kTile * kTile // causal scores
-         + 4 * (size_t)d + 4         // q/k/ko/qi running sums, z
-         + 2 * (size_t)g * kTile     // sink_in, alloc
-         + 2 * (size_t)kTile;        // src_out then e, pos / z
-}
-
-template <typename T, int D, int DV>
-__global__ void __launch_bounds__(kThreads)
-flow_fused_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const int* __restrict__ lens,
-                      T* __restrict__ out, float* __restrict__ q_sum_o,
-                      float* __restrict__ k_sum_o, float* __restrict__ ko_sum_o,
-                      float* __restrict__ qi_sum_o, float* __restrict__ z_o,
-                      float* __restrict__ s_o, int G, int N, int phi,
-                      int use_alloc, float eps) {
-  static_assert(2 * D <= kThreads, "one thread per feature column for each of two scans");
-  constexpr int PK = D + 1;
+template <typename TT, int D, int T>
+__global__ void __launch_bounds__(kFlowThreads) flow_fwd_flows(FlowArgs<TT> a) {
   extern __shared__ float smem[];
-  float* S = smem;
-  float* pq = S + D * DV;
-  float* pk = pq + G * kTile * D;
-  float* vw = pk + kTile * PK;
-  float* csA = vw + kTile * DV;
-  float* csB = csA + kTile * D;
-  float* sc = csB + kTile * D;
-  float* runs = sc + G * kTile * kTile;
-  float* sink = runs + 4 * D + 4;
-  float* alloc = sink + G * kTile;
-  float* rowT = alloc + G * kTile;
-  float* ratio = rowT + kTile;
-  float* q_run = runs;
-  float* k_run = runs + D;
-  float* ko_run = runs + 2 * D;
-  float* qi_run = runs + 3 * D;
-  float* z_run = runs + 4 * D;
-
-  const int row = blockIdx.x;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int len = min(lens[row], N);
-  const float fG = (float)G;
-  const T* qrow = q + (size_t)row * G * N * D;
-  const T* krow = k + (size_t)row * N * D;
-  const T* vrow = v + (size_t)row * N * DV;
-  T* orow = out + (size_t)row * G * N * DV;
-
-  for (int i = tid; i < D * DV; i += kThreads) S[i] = 0.f;
-  for (int i = tid; i < 4 * D + 4; i += kThreads) runs[i] = 0.f;
-  __syncthreads();
-
-  const int live_tiles = (len + kTile - 1) / kTile;
-  for (int tile = 0; tile < live_tiles; ++tile) {
-    const int p0 = tile * kTile;
-    // (0) phi on load; positions past the row's length contribute zero
-    for (int i = tid; i < G * kTile * D; i += kThreads) {
-      const int g = i / (kTile * D), r = i - g * kTile * D, t = r / D, d = r - t * D;
-      const int n = p0 + t;
-      pq[i] = n < len ? phi_fn(to_f32(qrow[((size_t)g * N + n) * D + d]), phi) : 0.f;
-    }
-    for (int i = tid; i < kTile * D; i += kThreads) {
-      const int t = i / D, d = i - t * D, n = p0 + t;
-      pk[t * PK + d] = n < len ? phi_fn(to_f32(krow[(size_t)n * D + d]), phi) : 0.f;
-    }
-    for (int i = tid; i < kTile * DV; i += kThreads) {
-      const int t = i / DV, e = i - t * DV, n = p0 + t;
-      vw[i] = n < N ? to_f32(vrow[(size_t)n * DV + e]) : 0.f;
-    }
-    __syncthreads();
-
-    // (1) inclusive prefix sums of phi(k) and of phi(q) summed over the group
-    if (tid < D) {
-      float acc = k_run[tid];
-      for (int t = 0; t < kTile; ++t) { acc += pk[t * PK + tid]; csA[t * D + tid] = acc; }
-      k_run[tid] = acc;
-    } else if (tid < 2 * D) {
-      const int d = tid - D;
-      float acc = q_run[d];
-      for (int t = 0; t < kTile; ++t) {
-        float x = 0.f;
-        for (int g = 0; g < G; ++g) x += pq[(g * kTile + t) * D + d];
-        acc += x;
-        csB[t * D + d] = acc;
-      }
-      q_run[d] = acc;
-    }
-    __syncthreads();
-
-    // (2) incoming flow per sink, outgoing flow per source
-    for (int r = warp; r < (G + 1) * kTile; r += kWarps) {
-      const bool is_q = r < G * kTile;
-      const int t = is_q ? r % kTile : r - G * kTile;
-      const float* a = is_q ? pq + r * D : pk + t * PK;
-      const float* c = is_q ? csA + t * D : csB + t * D;
-      float acc = 0.f;
-      for (int d = lane; d < D; d += 32) acc += (a[d] + eps) * (c[d] + eps);
-      acc = warp_sum(acc);
-      if (lane == 0) {
-        const float pos = (float)(p0 + t + 1);
-        if (is_q) sink[r] = pos / acc;
-        else rowT[t] = pos * fG / acc;
-      }
-    }
-    __syncthreads();
-
-    // (3) conservation prefix sums: ko over sources, qi over sinks
-    if (tid < D) {
-      float acc = ko_run[tid];
-      for (int t = 0; t < kTile; ++t) { acc += pk[t * PK + tid] * rowT[t]; csA[t * D + tid] = acc; }
-      ko_run[tid] = acc;
-    } else if (tid < 2 * D) {
-      const int d = tid - D;
-      float acc = qi_run[d];
-      for (int t = 0; t < kTile; ++t) {
-        float x = 0.f;
-        for (int g = 0; g < G; ++g) x += pq[(g * kTile + t) * D + d] * sink[g * kTile + t];
-        acc += x;
-        csB[t * D + d] = acc;
-      }
-      qi_run[d] = acc;
-    }
-    __syncthreads();
-
-    // (4) conserved flows: allocation per sink, competition weight per source
-    for (int r = warp; r < (G + 1) * kTile; r += kWarps) {
-      const bool is_q = r < G * kTile;
-      const int t = is_q ? r % kTile : r - G * kTile;
-      const float* a = is_q ? pq + r * D : pk + t * PK;
-      const float* c = is_q ? csA + t * D : csB + t * D;
-      float acc = 0.f;
-      for (int d = lane; d < D; d += 32) acc += (a[d] + eps) * (c[d] + eps);
-      acc = warp_sum(acc);
-      if (lane == 0) {
-        const float pos = (float)(p0 + t + 1);
-        if (is_q) {
-          const float cons_sink = acc / (pos * fG);
-          alloc[r] = use_alloc ? 1.f / (1.f + expf(-cons_sink)) : 1.f;
-        } else {
-          const float cons_src = fminf(fmaxf(acc / pos, -1.f), 1.f);
-          rowT[t] = p0 + t < len ? expf(cons_src) : 0.f;  // e, bounded in [1/e, e]
-        }
-      }
-    }
-    __syncthreads();
-
-    // (5) cumulative competition normalizer; q_in = phi(q) * sink_in; v * e
-    if (tid == 0) {
-      float acc = z_run[0];
-      for (int t = 0; t < kTile; ++t) { acc += rowT[t]; ratio[t] = (float)(p0 + t + 1) / acc; }
-      z_run[0] = acc;
-    }
-    for (int i = tid; i < G * kTile * D; i += kThreads) pq[i] *= sink[i / D];
-    for (int i = tid; i < kTile * DV; i += kThreads) vw[i] *= rowT[i / DV];
-    __syncthreads();
-
-    // (6) causal in-tile scores q_in[i] . phi(k)[j], j <= i
-    for (int i = tid; i < G * kTile * kTile; i += kThreads) {
-      const int g = i / (kTile * kTile), r = i - g * kTile * kTile, a = r / kTile, b = r - a * kTile;
-      float acc = 0.f;
-      if (b <= a) {
-        const float* x = pq + (g * kTile + a) * D;
-        const float* y = pk + b * PK;
-        for (int d = 0; d < D; ++d) acc += x[d] * y[d];
-      }
-      sc[i] = acc;
-    }
-    __syncthreads();
-
-    // (7) out = (intra-tile + carried-state aggregation) * (pos / z) * alloc
-    for (int i = tid; i < G * kTile * DV; i += kThreads) {
-      const int g = i / (kTile * DV), r = i - g * kTile * DV, a = r / DV, e = r - a * DV;
-      const int n = p0 + a;
-      if (n >= N) continue;
-      const float* srow = sc + (g * kTile + a) * kTile;
-      float intra = 0.f;
-      for (int b = 0; b <= a; ++b) intra += srow[b] * vw[b * DV + e];
-      const float* x = pq + (g * kTile + a) * D;
-      float inter = 0.f;
-      for (int d = 0; d < D; ++d) inter += x[d] * S[d * DV + e];
-      orow[((size_t)g * N + n) * DV + e] =
-          from_f32<T>((intra + inter) * ratio[a] * alloc[g * kTile + a]);
-    }
-    __syncthreads();
-
-    // (8) carried state: S += phi(k)^T (v * e)
-    for (int i = tid; i < D * DV; i += kThreads) {
-      const int d = i / DV, e = i - d * DV;
-      float acc = 0.f;
-      for (int t = 0; t < kTile; ++t) acc += pk[t * PK + d] * vw[t * DV + e];
-      S[i] += acc;
-    }
-    __syncthreads();
-  }
-
-  // positions in tiles wholly past the row's length: exactly zero output
-  const int n0 = live_tiles * kTile;
-  if (n0 < N) {
-    const int rest = N - n0;
-    for (int i = tid; i < G * rest * DV; i += kThreads) {
-      const int g = i / (rest * DV), r = i - g * rest * DV;
-      orow[((size_t)g * N + n0) * DV + r] = from_f32<T>(0.f);
-    }
-  }
-  // the boundary FlowState, written once
-  for (int d = tid; d < D; d += kThreads) {
-    q_sum_o[(size_t)row * D + d] = q_run[d];
-    k_sum_o[(size_t)row * D + d] = k_run[d];
-    ko_sum_o[(size_t)row * D + d] = ko_run[d];
-    qi_sum_o[(size_t)row * D + d] = qi_run[d];
-  }
-  if (tid == 0) z_o[row] = z_run[0];
-  for (int i = tid; i < D * DV; i += kThreads) s_o[(size_t)row * D * DV + i] = S[i];
+  flows_body<TT, D, T>(a, smem);
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* lens, void* out,
-                   void* q_sum, void* k_sum, void* ko_sum, void* qi_sum, void* z, void* s,
-                   int bh, int g, int n, int phi, int use_alloc, float eps,
-                   cudaStream_t stream) {
-  auto kern = flow_fused_fwd_kernel<T, D, D>;
-  const size_t bytes = smem_floats(g, D, D) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+template <typename TT, int D>
+__global__ void __launch_bounds__(kThreads) flow_fwd_state(StateArgs<TT, D> a, int rows) {
+  extern __shared__ float smem[];
+  const int2 rc = row_chunk(blockIdx.x, rows);
+  state_block<TT, D>(a, 0, rc.x, rc.y, smem);
+}
+
+__global__ void __launch_bounds__(kThreads) flow_fwd_pass(PassArgs a) { pass_body(a, false); }
+
+template <typename TT>
+struct OutArgs {
+  const TT *q, *k, *v;
+  const int* lens;
+  const float *sink, *scale, *e, *states;
+  TT* out;
+  int G, N, phi, rows;
+};
+
+template <int D>
+constexpr int out_smem_floats() {
+  constexpr int C = chunk_of<D>();
+  return 2 * C * D + C * D + D * D + C * C;
+}
+
+template <typename TT, int D>
+__global__ void __launch_bounds__(kThreads, 2) flow_fwd_out(OutArgs<TT> a) {
+  constexpr int C = chunk_of<D>(), DV = D;
+  extern __shared__ float smem[];
+  float* Q = smem;         // C x D: q_in of one group
+  float* K = Q + C * D;    // C x D: phi(k)
+  float* V = K + C * D;    // C x DV: v e
+  float* S = V + C * DV;   // D x DV: S_<c
+  float* P = S + D * DV;   // C x C: the causal panel
+  const int2 rc = row_chunk(blockIdx.x, a.rows);
+  const int row = rc.x, ci = rc.y, G = a.G, N = a.N, c0 = ci * C;
+  const int len = min(a.lens[row], N);
+  TT* orow = a.out + (size_t)row * G * N * DV;
+  if (c0 >= len) {  // a dead chunk: exactly zero
+    constexpr int Q4 = DV / 4;
+    for (int i = threadIdx.x; i < G * C * Q4; i += kThreads) {
+      const int g = i / (C * Q4), r = i - g * C * Q4, t = r / Q4, c = (r - t * Q4) * 4;
+      if (c0 + t < N) store4(orow + ((size_t)g * N + c0 + t) * DV + c, zero4());
+    }
+    return;
+  }
+  const TT* kr = a.k + (size_t)row * N * D;
+  const TT* vr = a.v + (size_t)row * N * DV;
+  const float* er = a.e + (size_t)row * N;
+  stage<C, D>(K, [&](int t, int c) {
+    const int n = c0 + t;
+    return n < len ? phi4(load4(kr + (size_t)n * D + c), a.phi) : zero4();
+  });
+  stage<C, DV>(V, [&](int t, int c) {
+    const int n = c0 + t;
+    return n < len ? scale4(load4(vr + (size_t)n * DV + c), er[n]) : zero4();
+  });
+  const int nc = (N + C - 1) / C;
+  const float* slot = a.states + ((size_t)row * nc + ci) * D * DV;
+  stage<D, DV>(S, [&](int t, int c) { return ld4(slot + t * DV + c); });
+  using OP = Own<C, C>;
+  using OY = Own<C, DV>;
+  const OP op;
+  const OY oy;
+  const int kmax = min(C, (oy.r0 + OY::RM + 3) & ~3);  // the panel's causal extent
+  for (int g = 0; g < G; ++g) {
+    const size_t rg = (size_t)row * G + g;
+    const TT* qr = a.q + rg * N * D;
+    stage<C, D>(Q, [&](int t, int c) {
+      const int n = c0 + t;
+      return n < len ? scale4(phi4(load4(qr + (size_t)n * D + c), a.phi), a.sink[rg * N + n])
+                     : zero4();
+    });
+    __syncthreads();
+    {
+      float acc[OP::RM][4];
+      zero_acc(acc);
+      mm_mn<OP::RM, D, D, D>(acc, Q, K, op.r0, op.c0);
+      put_tile<OP::RM, C, true>(P, acc, op.r0, op.c0);
+    }
+    __syncthreads();
+    float acc[OY::RM][4];
+    zero_acc(acc);
+    mm_mk<OY::RM, C, DV>(acc, P, V, oy.r0, oy.c0, kmax);
+    mm_mk<OY::RM, D, DV>(acc, Q, S, oy.r0, oy.c0, D);
+#pragma unroll
+    for (int i = 0; i < OY::RM; ++i) {
+      const int n = c0 + oy.r0 + i;
+      if (n >= N) continue;
+      const float s = n < len ? a.scale[rg * N + n] : 0.f;
+      store4(orow + ((size_t)g * N + n) * DV + oy.c0,
+             make_float4(acc[i][0] * s, acc[i][1] * s, acc[i][2] * s, acc[i][3] * s));
+    }
+    __syncthreads();  // Q and P are restaged for the next group
+  }
+}
+
+template <typename TT, int D, int T>
+cudaError_t flows_at(const FlowArgs<TT>& fa, int bh, cudaStream_t st) {
+  const size_t f = flow_smem_floats<D, T>(fa.G);
+  cudaError_t err = allow_smem(flow_fwd_flows<TT, D, T>, f);
   if (err != cudaSuccess) return err;
-  kern<<<bh, kThreads, bytes, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const int*)lens, (T*)out,
-      (float*)q_sum, (float*)k_sum, (float*)ko_sum, (float*)qi_sum, (float*)z,
-      (float*)s, g, n, phi, use_alloc, eps);
+  flow_fwd_flows<TT, D, T><<<bh, kFlowThreads, f * sizeof(float), st>>>(fa);
   return cudaGetLastError();
 }
 
-template <typename T>
+// Stage 1 at the super-chunk t (a flows_tile).
+template <typename TT, int D>
+cudaError_t flows(const FlowArgs<TT>& fa, int t, int bh, cudaStream_t st) {
+  if (t == 8192 / D) return flows_at<TT, D, 8192 / D>(fa, bh, st);
+  if (t == 4096 / D) return flows_at<TT, D, 4096 / D>(fa, bh, st);
+  return flows_at<TT, D, 2048 / D>(fa, bh, st);
+}
+
+struct Work {
+  float *sink, *scale, *e, *states;
+};
+
+// Floats of scratch for (bh, g, n, d): sink_in, the output scale, e and
+// the chunk states.
+long long work_floats(int bh, int g, int n, int d, Work& w, float* base) {
+  const int c = d >= 128 ? 32 : 64;
+  const long long nc = (n + c - 1) / c;
+  const long long sizes[4] = {align4((long long)bh * g * n), align4((long long)bh * g * n),
+                              align4((long long)bh * n), (long long)bh * nc * d * d};
+  float** slots[4] = {&w.sink, &w.scale, &w.e, &w.states};
+  long long off = 0;
+  for (int i = 0; i < 4; ++i) {
+    if (base) *slots[i] = base + off;
+    off += sizes[i];
+  }
+  return off;
+}
+
+template <typename TT, int D>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* lens, void* out,
+                   void* q_sum, void* k_sum, void* ko_sum, void* qi_sum, void* z, void* s,
+                   void* work, int bh, int g, int n, int phi, int use_alloc, float eps,
+                   cudaStream_t st) {
+  constexpr int C = chunk_of<D>();
+  int limit = 0;
+  cudaError_t err = smem_limit(&limit);
+  if (err != cudaSuccess) return err;
+  const int T = flows_tile<D>(g, limit);
+  if (T == 0) return cudaErrorInvalidValue;
+  Work w;
+  work_floats(bh, g, n, D, w, (float*)work);
+
+  FlowArgs<TT> fa{(const TT*)q, (const TT*)k, (const int*)lens, w.sink, w.scale, w.e, nullptr, T,
+                  (float*)q_sum, (float*)k_sum, (float*)ko_sum, (float*)qi_sum, (float*)z,
+                  g, n, phi, use_alloc, eps};
+  if ((err = flows<TT, D>(fa, T, bh, st)) != cudaSuccess) return err;
+
+  const int nc = (n + C - 1) / C;
+  StateArgs<TT, D> sa{(const TT*)q, (const TT*)k, (const TT*)v, nullptr, (const int*)lens,
+                      w.sink, w.scale, w.e, w.states, nullptr, g, n, phi};
+  constexpr int fs = state_smem_floats<D>();
+  if ((err = allow_smem(flow_fwd_state<TT, D>, fs)) != cudaSuccess) return err;
+  flow_fwd_state<TT, D><<<bh * nc, kThreads, fs * sizeof(float), st>>>(sa, bh);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  PassArgs pa{(const int*)lens, w.states, nullptr, (float*)s, nullptr, bh, n, C, D * D / 4};
+  const long long q4 = (long long)bh * D * D / 4;
+  flow_fwd_pass<<<(unsigned)((q4 + kThreads - 1) / kThreads), kThreads, 0, st>>>(pa);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  OutArgs<TT> oa{(const TT*)q, (const TT*)k, (const TT*)v, (const int*)lens, w.sink, w.scale,
+                 w.e, w.states, (TT*)out, g, n, phi, bh};
+  constexpr int fo = out_smem_floats<D>();
+  if ((err = allow_smem(flow_fwd_out<TT, D>, fo)) != cudaSuccess) return err;
+  flow_fwd_out<TT, D><<<bh * nc, kThreads, fo * sizeof(float), st>>>(oa);
+  return cudaGetLastError();
+}
+
+template <typename TT>
 cudaError_t dispatch(int d, const void* q, const void* k, const void* v, const void* lens,
-                     void* out, void* q_sum, void* k_sum, void* ko_sum, void* qi_sum,
-                     void* z, void* s, int bh, int g, int n, int phi, int use_alloc,
-                     float eps, cudaStream_t stream) {
+                     void* out, void* q_sum, void* k_sum, void* ko_sum, void* qi_sum, void* z,
+                     void* s, void* work, int bh, int g, int n, int phi, int use_alloc,
+                     float eps, cudaStream_t st) {
   switch (d) {
-    case 32: return launch<T, 32>(q, k, v, lens, out, q_sum, k_sum, ko_sum, qi_sum, z, s,
-                                  bh, g, n, phi, use_alloc, eps, stream);
-    case 64: return launch<T, 64>(q, k, v, lens, out, q_sum, k_sum, ko_sum, qi_sum, z, s,
-                                  bh, g, n, phi, use_alloc, eps, stream);
-    case 128: return launch<T, 128>(q, k, v, lens, out, q_sum, k_sum, ko_sum, qi_sum, z, s,
-                                    bh, g, n, phi, use_alloc, eps, stream);
+    case 32: return launch<TT, 32>(q, k, v, lens, out, q_sum, k_sum, ko_sum, qi_sum, z, s, work,
+                                   bh, g, n, phi, use_alloc, eps, st);
+    case 64: return launch<TT, 64>(q, k, v, lens, out, q_sum, k_sum, ko_sum, qi_sum, z, s, work,
+                                   bh, g, n, phi, use_alloc, eps, st);
+    case 128: return launch<TT, 128>(q, k, v, lens, out, q_sum, k_sum, ko_sum, qi_sum, z, s,
+                                     work, bh, g, n, phi, use_alloc, eps, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
+// Floats of scratch flow_fused_fwd needs for these shapes (16-byte aligned
+// slices); -1 for shapes it refuses.
+extern "C" long long flow_fused_fwd_workspace(int bh, int g, int n, int d) {
+  if (bh < 0 || g < 1 || n < 1 || (d != 32 && d != 64 && d != 128)) return -1;
+  Work dummy;
+  return work_floats(bh, g, n, d, dummy, nullptr);
+}
+
 // q (BH, G, N, D), k (BH, N, D), v (BH, N, Dv) in `dtype` (0 fp32, 1 bf16);
-// lens (BH,) int32 with 1 <= lens <= N.  Writes out (BH, G, N, Dv) in `dtype`,
-// q/k/ko/qi sums (BH, D), z (BH,) and s (BH, D, Dv) in fp32.  D == Dv in
-// {32, 64, 128}.  Returns a cudaError_t.
+// lens (BH,) int32 with 1 <= lens <= N; work flow_fused_fwd_workspace
+// floats.  Writes out (BH, G, N, Dv) in `dtype`, q/k/ko/qi sums (BH, D),
+// z (BH,) and s (BH, D, Dv) in fp32.  D == Dv in {32, 64, 128}.  Four
+// launches on `stream`; returns a cudaError_t.
 extern "C" int flow_fused_fwd(const void* q, const void* k, const void* v, const void* lens,
                               void* out, void* q_sum, void* k_sum, void* ko_sum,
-                              void* qi_sum, void* z, void* s, int bh, int g, int n, int d,
-                              int dv, int dtype, int phi, int use_alloc, float eps,
+                              void* qi_sum, void* z, void* s, void* work, int bh, int g, int n,
+                              int d, int dv, int dtype, int phi, int use_alloc, float eps,
                               void* stream) {
   if (d != dv || g < 1 || n < 1 || phi < 0 || phi > 2) return (int)cudaErrorInvalidValue;
   if (bh == 0) return (int)cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
-    return (int)dispatch<float>(d, q, k, v, lens, out, q_sum, k_sum, ko_sum, qi_sum, z, s,
+    return (int)dispatch<float>(d, q, k, v, lens, out, q_sum, k_sum, ko_sum, qi_sum, z, s, work,
                                 bh, g, n, phi, use_alloc, eps, st);
   if (dtype == 1)
-    return (int)dispatch<__nv_bfloat16>(d, q, k, v, lens, out, q_sum, k_sum, ko_sum, qi_sum,
-                                        z, s, bh, g, n, phi, use_alloc, eps, st);
+    return (int)dispatch<__nv_bfloat16>(d, q, k, v, lens, out, q_sum, k_sum, ko_sum, qi_sum, z,
+                                        s, work, bh, g, n, phi, use_alloc, eps, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -15,12 +15,12 @@ import torch
 
 from repro_torch.kernels import _lib
 from repro_torch.kernels._lib import DTYPE_CODES, LAUNCHES, PHI_CODES
-from repro_torch.kernels.flow_fused.ops import check_flat
+from repro_torch.kernels.flow_fused.ops import check_flat, workspace
 from repro_torch.kernels.flow_fused.ref import flow_fused_bwd_ref
 
 __all__ = ["flow_fused_bwd_call"]
 
-_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 8 + [ctypes.c_float,
+_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 8 + [ctypes.c_float,
                                                            ctypes.c_void_p]
 
 
@@ -42,10 +42,15 @@ def flow_fused_bwd_call(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q/k/v/lens as ``flow_fused_call`` takes them; ``totals`` are the six
     state outputs it returned and ``g_sums`` their cotangents, each
     (q/k/ko/qi sums (BH, D), z (BH,), s (BH, D, Dv)) fp32; ``g_out``
-    (BH, G, N, Dv) in the primal dtype.  Of the totals the kernel reads S
-    only: it carries the five small sums forward again itself, into a
-    scratch of ceil(N / 8) tiles of 4 D + 1 floats per row.  Returns
-    (dq, dk, dv) in the primal dtypes; positions past ``lens`` get zeros.
+    (BH, G, N, Dv) in the primal dtype.  The kernel reads none of the
+    totals (they are checked only): it recomputes the flows and the chunk
+    states itself.  Its scratch is one ``workspace`` per call: the
+    per-position flows, each super-chunk's carry-in of the five small sums
+    (4 D + 1 floats), the chunk states and their cotangents (D x Dv per
+    chunk each) and the chunk stage's d q_in, d phi(k) and per-position
+    scalars for the flows' pull-back.  One call is one count in
+    ``LAUNCHES`` and five CUDA kernels.  Returns (dq, dk, dv) in the
+    primal dtypes; positions past ``lens`` get zeros.
     """
     if q.shape[2] % chunk:
         raise ValueError(f"N={q.shape[2]} is not a multiple of chunk={chunk}")
@@ -62,14 +67,12 @@ def flow_fused_bwd_call(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_state("g_sums", g_sums, shapes, q.device)
 
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
-    carry = torch.empty((bh, -(-n // 8), 4 * d + 1), dtype=torch.float32,
-                        device=q.device)
+    work = workspace("flow_fused_bwd", q, bh, g, n, d)
     fn = _lib.function("flow_fused_bwd", "flow_fused_bwd", _ARGTYPES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
-             totals[5].data_ptr(), g_out.data_ptr(),
-             *(x.data_ptr() for x in g_sums), dq.data_ptr(), dk.data_ptr(),
-             dv.data_ptr(), carry.data_ptr(), bh, g, n, d, d,
+             g_out.data_ptr(), *(x.data_ptr() for x in g_sums), dq.data_ptr(),
+             dk.data_ptr(), dv.data_ptr(), work.data_ptr(), bh, g, n, d, d,
              DTYPE_CODES[q.dtype], PHI_CODES[phi], int(use_alloc), eps, stream)
     _lib.check(fn, err, "flow_fused_bwd")
     LAUNCHES["flow_fused_bwd"] += 1

@@ -28,8 +28,21 @@ from repro_torch.kernels.flow_fused.ref import flow_fused_ref
 
 __all__ = ["LAUNCHES", "flow_fused_call", "flow_fused_forward"]
 
-_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_float,
+_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [ctypes.c_float,
                                                             ctypes.c_void_p]
+
+
+def workspace(name: str, q: torch.Tensor, bh: int, g: int, n: int,
+              d: int) -> torch.Tensor:
+    """The fp32 scratch the kernels of source ``name`` (``flow_fused`` or
+    ``flow_fused_bwd``) need at these shapes, from the library's own
+    ``<symbol>_workspace`` count; the kernels allocate nothing."""
+    symbol = {"flow_fused": "flow_fused_fwd"}.get(name, name) + "_workspace"
+    size = _lib.function(name, symbol, [ctypes.c_int] * 4, ctypes.c_longlong)(
+        bh, g, n, d)
+    if size < 0:
+        raise ValueError(f"{name} refuses G={g}, N={n}, D={d}")
+    return torch.empty(max(size, 4), dtype=torch.float32, device=q.device)
 
 
 def check_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -74,7 +87,11 @@ def flow_fused_call(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with 1 <= lens <= N; N % chunk == 0.  Returns (out (BH, G, N, Dv),
     (q_sum, k_sum, ko_sum, qi_sum) each (BH, D) fp32, z (BH,) fp32,
     s (BH, D, Dv) fp32).  On CUDA it raises for inputs autograd would
-    differentiate (``_lib.refuse_autograd``).
+    differentiate (``_lib.refuse_autograd``); the kernel runs its own
+    chunk and super-chunk (``csrc/flow_fused.cu``), so ``chunk`` only sets
+    the padding, and its scratch (per-position flows, chunk states) is one
+    ``workspace``.  One call is one count in ``LAUNCHES`` and four CUDA
+    kernels.
     """
     if q.shape[2] % chunk:
         raise ValueError(f"N={q.shape[2]} is not a multiple of chunk={chunk}")
@@ -91,13 +108,14 @@ def flow_fused_call(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     sums = torch.empty((4, bh, d), **f32)
     z = torch.empty((bh,), **f32)
     s = torch.empty((bh, d, dv), **f32)
+    work = workspace("flow_fused", q, bh, g, n, d)
     fn = _lib.function("flow_fused", "flow_fused_fwd", _ARGTYPES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
              out.data_ptr(), sums[0].data_ptr(), sums[1].data_ptr(),
              sums[2].data_ptr(), sums[3].data_ptr(), z.data_ptr(),
-             s.data_ptr(), bh, g, n, d, dv, DTYPE_CODES[q.dtype],
-             PHI_CODES[phi], int(use_alloc), eps, stream)
+             s.data_ptr(), work.data_ptr(), bh, g, n, d, dv,
+             DTYPE_CODES[q.dtype], PHI_CODES[phi], int(use_alloc), eps, stream)
     _lib.check(fn, err, "flow_fused")
     LAUNCHES["flow_fused"] += 1
     return out, (sums[0], sums[1], sums[2], sums[3], z, s)

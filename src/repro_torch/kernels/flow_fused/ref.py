@@ -2,13 +2,19 @@
 
 ``flow_fused_ref`` is K1's: the math is ``attention/fused.py::
 fused_causal_forward``, whose (B, Hq, N, D) layout is the flat
-(BH, G, N, D) one with B = BH and one kv head per row.  K2 has two:
-``flow_fused_bwd_ref`` differentiates ``flow_fused_ref`` with autograd
-(the independent oracle), and ``flow_fused_bwd_scan`` is the reverse tile
-scan with the hand-written tile VJP that ``csrc/flow_fused_bwd.cu`` runs,
-step for step, so the derivation can be checked where no kernel runs.
+(BH, G, N, D) one with B = BH and one kv head per row.
+``flow_fused_bwd_ref`` is K2's: it differentiates ``flow_fused_ref`` with
+autograd (the independent oracle).  ``flow_fused_parallel`` and
+``flow_fused_bwd_parallel`` are the kernels' own decomposition (flows by
+levels over super-chunks, chunk states, a pass over the chunks, per-chunk
+products, and for K2 the reverse pass and the flows' pull-back), stage by
+stage as ``csrc/flow_fused.cu`` and ``csrc/flow_fused_bwd.cu`` run them,
+so the algebra can be checked where no kernel runs.  Nothing on a path
+calls them.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -88,116 +94,205 @@ def _tile_flows(pq, pk, m, p, grp, run, eps, use_alloc):
     return (k_cs, q_cs, sink_in, src_out, ko_cs, qi_cs, alloc, raw, e, z), end
 
 
-def flow_fused_bwd_scan(q, k, v, lens, totals, g_out, g_sums, *,
-                        tile: int = 32, eps: float = 1e-6,
-                        phi: str = "sigmoid", use_alloc: bool = True):
-    """K2's algorithm in PyTorch: gradients of the flow_fused forward.
 
-    q: (BH, G, N, D); k: (BH, N, D); v: (BH, N, Dv); lens (BH,);
-    ``totals`` the six state outputs K1 returned (the carry after each
-    row's last position), ``g_out`` (BH, G, N, Dv) and ``g_sums`` their
-    cotangents.  A forward pass over ``tile``-position tiles carries the
-    five small sums (q/k/ko/qi sums and z) and keeps each tile's carry-in;
-    then a reverse pass walks the tiles back to front.  Each tile
-    recomputes its forward quantities from its carry-in, rebuilds S's
-    carry-in by subtraction (S after the tile minus the tile's increment,
-    starting from the total), and pulls the output cotangent and the
-    carried state cotangent back through them by hand.  The carried
-    cotangents it hands the tile before are the incoming ones plus this
-    tile's contributions to its carry-in.  Returns (dq, dk, dv) in the
-    primal dtypes; positions past ``lens`` get exactly zero.
+
+def _operands(q, k, v, lens, n_pad, phi):
+    """phi(q) (BH, G, n_pad, D) and phi(k) (BH, n_pad, D), zero past each
+    row's length; fp32 v (BH, n_pad, Dv); the validity mask (BH, n_pad)
+    and the 1-based positions (n_pad,)."""
+    f32 = torch.float32
+    dev = q.device
+    pos = torch.arange(n_pad, dtype=f32, device=dev) + 1.0
+    valid = (torch.arange(n_pad, device=dev)[None, :]
+             < lens.to(dev)[:, None]).to(f32)
+    pq = phi_map(pad_seq(q.to(f32), n_pad, 2), phi) * valid[:, None, :, None]
+    pk = phi_map(pad_seq(k.to(f32), n_pad, 1), phi) * valid[..., None]
+    return pq, pk, pad_seq(v.to(f32), n_pad, 1), valid, pos
+
+
+def _flows(pq, pk, valid, pos, tile, eps, use_alloc):
+    """Stage 1 (``flow_fwd_flows``, ``flow_bwd_flows``): the three flow
+    levels, carried over super-chunks of ``tile`` positions.  Returns sink_in and the output
+    scale r * alloc (BH, G, N), both zero past each row's length, e
+    (BH, N), the boundary (q, k, ko, qi sums, z) and each super-chunk's
+    carry-in of those five."""
+    grp, n = pq.shape[1:3]
+    run = (torch.zeros_like(pk[:, 0]),) * 4 + (torch.zeros_like(pk[:, 0, 0]),)
+    sink, scale, es, carries = [], [], [], []
+    for t0 in range(0, n, tile):
+        sl = slice(t0, t0 + tile)
+        carries.append(run)
+        fl, run = _tile_flows(pq[:, :, sl], pk[:, sl], valid[:, sl], pos[sl],
+                              grp, run, eps, use_alloc)
+        live = valid[:, None, sl] > 0
+        sink.append(torch.where(live, fl[2], 0.0))
+        scale.append(torch.where(live, (pos[sl] / fl[9])[:, None] * fl[6], 0.0))
+        es.append(fl[8])
+    return (torch.cat(sink, 2), torch.cat(scale, 2), torch.cat(es, 1), run,
+            carries)
+
+
+def _chunk_states(a, b, chunk):
+    """Stage 2 (``flow_fwd_state``, ``flow_bwd_state``): per chunk of
+    positions, the sum over the group and the chunk of a^T b; a (BH, G, N,
+    D), b (BH, G, N, Dv) -> (BH, N / chunk, D, Dv)."""
+    bh, g, n, d = a.shape
+    nc = n // chunk
+    return torch.einsum("bgcjd,bgcje->bcde", a.reshape(bh, g, nc, chunk, d),
+                        b.reshape(bh, g, nc, chunk, -1))
+
+
+def _state_pass(delta, seed=None, reverse=False):
+    """Stage 3 (``flow_fwd_pass``, ``flow_bwd_pass``): slot c becomes the
+    sum of the chunk states before it (after it, with ``reverse``, starting
+    from ``seed``), summed in chunk order.  Returns the slots and the sum
+    over all chunks."""
+    h = torch.zeros_like(delta[:, 0]) if seed is None else seed
+    slots = torch.empty_like(delta)
+    order = range(delta.shape[1])
+    for c in (reversed(order) if reverse else order):
+        slots[:, c] = h
+        h = h + delta[:, c]
+    return slots, h
+
+
+def _chunked(x, chunk):
+    """(..., N, F) -> (..., N / chunk, chunk, F)."""
+    return x.reshape(*x.shape[:-2], x.shape[-2] // chunk, chunk, x.shape[-1])
+
+
+def flow_fused_parallel(q, k, v, lens, *, chunk: int = 64, tile: int = 64,
+                        eps: float = 1e-6, phi: str = "sigmoid",
+                        use_alloc: bool = True):
+    """K1's algorithm in PyTorch, stage by stage as ``csrc/flow_fused.cu``
+    runs it; the arguments and results of ``flow_fused_ref``.
+
+    ``tile`` is the flows' super-chunk and ``chunk`` the chunk of the
+    state and output stages, both the kernel's own: (1) the flows by
+    levels over super-chunks, (2) each chunk's state phi(k)^T (v e), (3)
+    the exclusive pass over the chunks, (4) per chunk out = (tril(q_in
+    phi(k)^T) (v e) + q_in S_<c) r alloc, with q_in = phi(q) sink_in.
+    """
+    grp, n = q.shape[1:3]
+    n_pad = padded_len(n, math.lcm(chunk, tile))
+    pq, pk, vf, valid, pos = _operands(q, k, v, lens, n_pad, phi)
+    sink, scale, e, run, _ = _flows(pq, pk, valid, pos, tile, eps, use_alloc)
+    qin = _chunked(pq * sink[..., None], chunk)  # (BH, G, nc, C, D)
+    vw = vf * e[..., None]
+    s_in, s = _state_pass(_chunk_states(pk[:, None], vw[:, None], chunk))
+    kc, vc = _chunked(pk, chunk), _chunked(vw, chunk)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=pk.dtype,
+                                device=pk.device))
+    sc = torch.einsum("bgcid,bcjd->bgcij", qin, kc) * tri
+    y = (torch.einsum("bgcij,bcje->bgcie", sc, vc)
+         + torch.einsum("bgcid,bcde->bgcie", qin, s_in))
+    out = y.reshape(*pq.shape[:3], -1) * scale[..., None]
+    return out[:, :, :n].to(q.dtype), (*run, s)
+
+
+def flow_fused_bwd_parallel(q, k, v, lens, g_out, g_sums, *, chunk: int = 64,
+                            tile: int = 32, eps: float = 1e-6,
+                            phi: str = "sigmoid", use_alloc: bool = True):
+    """K2's algorithm in PyTorch, stage by stage as
+    ``csrc/flow_fused_bwd.cu`` runs it; the arguments and results of
+    ``flow_fused_bwd_ref``.
+
+    ``tile`` is the pull-back's super-chunk, and so the spacing of the
+    carries the flows save (the kernel's flows may walk larger super-chunks:
+    that only reorders fp32 sums).  (1) the flows again, keeping the
+    carry-in of every ``tile`` positions; (2) each
+    chunk's state phi(k)^T (v e) and cotangent state q_in^T dY (dY =
+    g_out r alloc, summed over the group); (3) S_<c by the forward pass,
+    dS_>c by a reverse pass seeded with the S cotangent; (4) per chunk,
+    g_out . Y, d q_in, d phi(k), d(v e) and so dv; (5) back to front over
+    the super-chunks, the flows recomputed from their carry-ins and the
+    three levels pulled back by suffix sums seeded with the cotangents of
+    the four sums and z.  Nothing is rebuilt by subtraction.  Returns
+    (dq, dk, dv) in the primal dtypes, zero past ``lens``.
     """
     f32 = torch.float32
     grp, n = q.shape[1:3]
-    dev = q.device
-    n_pad = padded_len(n, tile)
-    pos_all = torch.arange(n_pad, dtype=f32, device=dev) + 1.0
-    valid = (torch.arange(n_pad, device=dev)[None, :]
-             < lens.to(dev)[:, None]).to(f32)  # (BH, n_pad)
-    pq_all = phi_map(pad_seq(q.to(f32), n_pad, 2), phi) * valid[:, None, :, None]
-    pk_all = phi_map(pad_seq(k.to(f32), n_pad, 1), phi) * valid[..., None]
-    v_all = pad_seq(v.to(f32), n_pad, 1)
-    go_all = pad_seq(g_out.to(f32), n_pad, 2)
-    s_in = totals[5].to(f32)
-    dq_c, dk_c, dko_c, dqi_c, dz_c, ds_c = (x.to(f32) for x in g_sums)
-    tri = torch.tril(torch.ones((tile, tile), dtype=f32, device=dev))
-    dq_all, dk_all, dv_all = (torch.zeros_like(x) for x in (pq_all, pk_all,
-                                                           v_all))
-    tiles = [slice(t0, t0 + tile) for t0 in range(0, n_pad, tile)]
-    # forward pass: each tile's small carry-in
-    run = tuple(torch.zeros_like(x, dtype=f32) for x in totals[:5])
-    carry_in = []
-    for sl in tiles:
-        carry_in.append(run)
-        _, run = _tile_flows(pq_all[:, :, sl], pk_all[:, sl], valid[:, sl],
-                             pos_all[sl], grp, run, eps, use_alloc)
-    for sl, run in zip(reversed(tiles), reversed(carry_in)):
-        pq, pk, vt, go = pq_all[:, :, sl], pk_all[:, sl], v_all[:, sl], go_all[:, :, sl]
-        m, p = valid[:, sl], pos_all[sl]
+    n_pad = padded_len(n, math.lcm(chunk, tile))
+    pq, pk, vf, valid, pos = _operands(q, k, v, lens, n_pad, phi)
+    go = pad_seq(g_out.to(f32), n_pad, 2)
+    # (1)
+    sink, scale, e, _, carries = _flows(pq, pk, valid, pos, tile, eps,
+                                        use_alloc)
+    qin = pq * sink[..., None]
+    vw = vf * e[..., None]
+    dy = go * scale[..., None]
+    # (2), (3)
+    s_in, _ = _state_pass(_chunk_states(pk[:, None], vw[:, None], chunk))
+    ds_out, _ = _state_pass(_chunk_states(qin, dy, chunk), g_sums[5].to(f32),
+                            reverse=True)
+    # (4)
+    qc, kc, vc, dyc = (_chunked(x, chunk) for x in (qin, pk, vw, dy))
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=f32, device=q.device))
+    sc = torch.einsum("bgcid,bcjd->bgcij", qc, kc) * tri
+    y = (torch.einsum("bgcij,bcje->bgcie", sc, vc)
+         + torch.einsum("bgcid,bcde->bgcie", qc, s_in))
+    o_dot = (_chunked(go, chunk) * y).sum(-1).reshape(pq.shape[:3])
+    dsc = torch.einsum("bgcie,bcje->bgcij", dyc, vc) * tri
+    dqin_all = (torch.einsum("bgcij,bcjd->bgcid", dsc, kc)
+                + torch.einsum("bgcie,bcde->bgcid", dyc, s_in)
+                ).reshape(pq.shape)
+    dpk_all = (torch.einsum("bgcij,bgcid->bcjd", dsc, qc)
+               + torch.einsum("bcje,bcde->bcjd", vc, ds_out)).reshape(pk.shape)
+    d_vw = (torch.einsum("bgcij,bgcie->bcje", sc, dyc)
+            + torch.einsum("bcjd,bcde->bcje", kc, ds_out)).reshape(vf.shape)
+    dv_all = d_vw * (e * valid)[..., None]
+    dvw_v = (d_vw * vf).sum(-1)
+    # (5)
+    dq_c, dk_c, dko_c, dqi_c, dz_c = (x.to(f32) for x in g_sums[:5])
+    dq_all, dk_all = torch.zeros_like(pq), torch.zeros_like(pk)
+    for t0, run in reversed(list(zip(range(0, n_pad, tile), carries))):
+        sl = slice(t0, t0 + tile)
+        pq_t, pk_t, m, p = pq[:, :, sl], pk[:, sl], valid[:, sl], pos[sl]
         pg = p * grp
-        # (1)-(3) the tile's flows, recomputed from its carry-in
-        (k_cs, q_cs, sink_in, src_out, ko_cs, qi_cs, alloc, raw, e,
-         z), _ = _tile_flows(pq, pk, m, p, grp, run, eps, use_alloc)
-        qin = pq * sink_in[..., None]
-        # (4) competition normalizer; S's carry-in by subtraction
+        (k_cs, q_cs, sink_in, src_out, ko_cs, qi_cs, alloc, raw, e_t,
+         z), _ = _tile_flows(pq_t, pk_t, m, p, grp, run, eps, use_alloc)
         r = p / z
-        vw = vt * e[..., None]
-        s_in = s_in - torch.einsum("btd,bte->bde", pk, vw)
-        # (5) the tile's output before ratio and allocation: Y = intra + inter
-        scores = torch.einsum("bgid,bjd->bgij", qin, pk) * tri
-        y = (torch.einsum("bgij,bje->bgie", scores, vw)
-             + torch.einsum("bgid,bde->bgie", qin, s_in))
-
-        # pull back out = Y * r * alloc
-        o_dot = (go * y).sum(-1)  # (BH, G, T)
-        d_r = (alloc * o_dot).sum(1)
-        d_alloc = r[:, None] * o_dot
-        dy = go * (r[:, None, :, None] * alloc[..., None])
-        # r = pos / z, z = z_in + cumsum(e): suffix sums plus the carry
+        # out = Y r alloc; r = pos / z, z = z_in + cumsum(e)
+        od = o_dot[:, :, sl]
+        d_r = (alloc * od).sum(1)
+        d_alloc = r[:, None] * od
         de = dz_c[:, None] + _suffix_sum(-d_r * r / z, 1)
         dz_c = de[:, 0]
-        # aggregation: Y = tril(qin pk^T) vw + qin S_in; S_out = S_in + pk^T vw
-        dsc = torch.einsum("bgie,bje->bgij", dy, vw) * tri
-        d_vw = (torch.einsum("btd,bde->bte", pk, ds_c)
-                + torch.einsum("bgij,bgie->bje", scores, dy))
-        d_qin = (torch.einsum("bgie,bde->bgid", dy, s_in)
-                 + torch.einsum("bgij,bjd->bgid", dsc, pk))
-        d_pk = (torch.einsum("bde,bte->btd", ds_c, vw)
-                + torch.einsum("bgij,bgid->bjd", dsc, qin))
-        ds_c = ds_c + torch.einsum("bgid,bgie->bde", qin, dy)
-        # competition: vw = v e, e = exp(clip(raw)) masked
-        de = de + (d_vw * vt).sum(-1)
-        dv_all[:, sl] = d_vw * e[..., None]
-        d_raw = de * e * ((raw >= -1.0) & (raw <= 1.0)).to(f32) / p
+        # e = exp(clip(raw)) masked; v e
+        de = de + dvw_v[:, sl]
+        d_raw = de * e_t * ((raw >= -1.0) & (raw <= 1.0)).to(f32) / p
         d_cs = (d_alloc * alloc * (1.0 - alloc) / pg if use_alloc
                 else torch.zeros_like(d_alloc))
         # conservation: raw . (qi_cs + eps), cons_sink . (ko_cs + eps)
-        d_pk = d_pk + d_raw[..., None] * (qi_cs + eps)
-        u_qi = dqi_c[:, None] + _suffix_sum(d_raw[..., None] * (pk + eps), 1)
+        d_pk = dpk_all[:, sl] + d_raw[..., None] * (qi_cs + eps)
+        u_qi = dqi_c[:, None] + _suffix_sum(d_raw[..., None] * (pk_t + eps), 1)
         dqi_c = u_qi[:, 0]
-        d_qin = d_qin + u_qi[:, None]
+        d_qin = dqin_all[:, :, sl] + u_qi[:, None]
         u_ko = dko_c[:, None] + _suffix_sum(
-            (d_cs[..., None] * (pq + eps)).sum(1), 1)
+            (d_cs[..., None] * (pq_t + eps)).sum(1), 1)
         dko_c = u_ko[:, 0]
         d_pq = d_cs[..., None] * (ko_cs[:, None] + eps)
         d_pk = d_pk + u_ko * src_out[..., None]
-        d_src_out = (u_ko * pk).sum(-1)
-        # flows: qin = pq sink_in, sink_in = pos / den, src_out = pos G / den
-        d_sink_in = (d_qin * pq).sum(-1)
+        d_src_out = (u_ko * pk_t).sum(-1)
+        # flows: q_in = phi(q) sink_in, sink_in = pos / den, src_out = pos G / den
+        d_sink_in = (d_qin * pq_t).sum(-1)
         d_pq = d_pq + d_qin * sink_in[..., None]
         d_sink_den = -d_sink_in * sink_in * sink_in / p
         d_src_den = -d_src_out * src_out * src_out / pg
         d_pq = d_pq + d_sink_den[..., None] * (k_cs[:, None] + eps)
         d_pk = d_pk + d_src_den[..., None] * (q_cs + eps)
         u_k = dk_c[:, None] + _suffix_sum(
-            (d_sink_den[..., None] * (pq + eps)).sum(1), 1)
+            (d_sink_den[..., None] * (pq_t + eps)).sum(1), 1)
         dk_c = u_k[:, 0]
         d_pk = d_pk + u_k
-        u_q = dq_c[:, None] + _suffix_sum(d_src_den[..., None] * (pk + eps), 1)
+        u_q = dq_c[:, None] + _suffix_sum(d_src_den[..., None] * (pk_t + eps), 1)
         dq_c = u_q[:, 0]
         d_pq = d_pq + u_q[:, None]
-        # phi, masked past each row's length
-        dq_all[:, :, sl] = d_pq * _phi_grad(pq, phi) * m[:, None, :, None]
-        dk_all[:, sl] = d_pk * _phi_grad(pk, phi) * m[..., None]
+        # phi, zero past each row's length
+        live = m > 0
+        dq_all[:, :, sl] = torch.where(live[:, None, :, None],
+                                       d_pq * _phi_grad(pq_t, phi), 0.0)
+        dk_all[:, sl] = torch.where(live[..., None],
+                                    d_pk * _phi_grad(pk_t, phi), 0.0)
     return (dq_all[:, :, :n].to(q.dtype), dk_all[:, :n].to(k.dtype),
             dv_all[:, :n].to(v.dtype))

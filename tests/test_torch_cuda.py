@@ -47,7 +47,8 @@ from repro_torch.kernels.flow_decode import (flow_decode_call,  # noqa: E402
 from repro_torch.kernels.flow_fused import (flow_fused_bwd_call,  # noqa: E402
                                             flow_fused_bwd_ref,
                                             flow_fused_call,
-                                            flow_fused_forward)
+                                            flow_fused_forward,
+                                            flow_fused_ref)
 from repro_torch.kernels.flow_nc import (flow_nc_fused_call,  # noqa: E402
                                          flow_nc_fused_ref,
                                          flow_nc_qside_bwd_call,
@@ -211,6 +212,70 @@ def test_flow_fused_bwd_kernel_matches_plain(gen, phi, g, n, chunk, n_valid,
     for a, b_ in zip(got, want):
         torch.testing.assert_close(a, b_, **TOL)
         assert not a[..., n_valid:, :].any()
+
+
+def packed_lens(rows, hkv, seed):
+    """Per (row, kv head) lengths as the Engine's packed admission gives
+    them (prompts of 16-384 in a 512-wide pack), with a row of 1 and a row
+    of 512."""
+    lens = np.random.default_rng(seed).integers(16, 385, rows)
+    lens[:2] = 1, 512
+    return torch.tensor(np.repeat(lens, hkv), dtype=torch.int32,
+                        device="cuda")
+
+
+@pytest.mark.parametrize("dtype,g", [(torch.bfloat16, 1), (torch.float32, 1),
+                                     (torch.float32, 4)])
+def test_flow_fused_kernels_match_plain_at_the_main_path_shape(gen, dtype, g):
+    """K1 and K2 at the packed-prefill shape of the serving path (16 rows x
+    8 kv heads, N = 512, D = 64), random cotangents on out and on all six
+    state outputs; bf16 held to 1e-2, fp32 and every state to 1e-4."""
+    bh, n, d = 16 * 8, 512, 64
+    tol = TOL if dtype == torch.float32 else dict(rtol=1e-2, atol=1e-2)
+    mk = lambda *s: torch.randn(s, generator=gen, device="cuda").to(dtype)  # noqa: E731
+    q, k, v, g_out = mk(bh, g, n, d), mk(bh, n, d), mk(bh, n, d), mk(bh, g, n, d)
+    lens = packed_lens(16, 8, g)
+    reset_launches()
+    with torch.no_grad():
+        out, sums = flow_fused_call(q, k, v, lens, chunk=128)
+        g_sums = [torch.randn(x.shape, generator=gen, device="cuda")
+                  for x in sums]
+        got = flow_fused_bwd_call(q, k, v, lens, sums, g_out, g_sums,
+                                  chunk=128)
+    assert LAUNCHES["flow_fused"] == 1 and LAUNCHES["flow_fused_bwd"] == 1
+    ref, ref_sums = flow_fused_ref(q, k, v, lens, chunk=128)
+    torch.testing.assert_close(out, ref, **tol)
+    for a, b_ in zip(sums, ref_sums):
+        torch.testing.assert_close(a, b_, **TOL)
+    want = flow_fused_bwd_ref(q, k, v, lens, g_out, g_sums, chunk=128)
+    for a, b_ in zip(got, want):
+        torch.testing.assert_close(a, b_, **tol)
+    for i, li in enumerate(lens.tolist()):
+        assert not out[i, :, li:].any()
+        assert not any(a[i, ..., li:, :].any() for a in got)
+
+
+@pytest.mark.parametrize("g,n,d,chunk", [(1, 512, 64, 128), (2, 200, 128, 8)])
+def test_flow_fused_kernels_are_deterministic(gen, g, n, d, chunk):
+    """Two calls on the same inputs are bitwise equal: every sum over
+    positions, chunks and the group runs in a fixed order, no atomics."""
+    bh = 24
+    mk = lambda *s: torch.randn(s, generator=gen, device="cuda")  # noqa: E731
+    q, k, v, g_out = mk(bh, g, n, d), mk(bh, n, d), mk(bh, n, d), mk(bh, g, n, d)
+    lens = torch.randint(1, n + 1, (bh,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    g_sums = None
+    runs = []
+    with torch.no_grad():
+        for _ in range(2):
+            out, sums = flow_fused_call(q, k, v, lens, chunk=chunk)
+            if g_sums is None:
+                g_sums = [torch.randn(x.shape, generator=gen, device="cuda")
+                          for x in sums]
+            runs.append((out, *sums, *flow_fused_bwd_call(
+                q, k, v, lens, sums, g_out, g_sums, chunk=chunk)))
+    for a, b_ in zip(*runs):
+        assert torch.equal(a, b_)
 
 
 def test_flow_fused_call_refuses_autograd_outside_flow_fused_dot(gen):

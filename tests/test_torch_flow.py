@@ -27,7 +27,8 @@ from repro_torch.attention import recurrent as trec  # noqa: E402
 from repro_torch.core.flow_attention import FlowConfig  # noqa: E402
 from repro_torch.kernels import LAUNCHES  # noqa: E402
 from repro_torch.kernels.flow_decode import flow_decode_call, flow_decode_step  # noqa: E402
-from repro_torch.kernels.flow_fused import flow_fused_call  # noqa: E402
+from repro_torch.kernels.flow_fused import (flow_fused_call,  # noqa: E402
+                                            flow_fused_parallel)
 
 RTOL, ATOL = 2e-4, 2e-5
 
@@ -75,6 +76,43 @@ def test_flow_fused_plain_matches_pallas_interpret(phi, g, n, chunk):
     out, sums = flow_fused_call(t(q), t(k), t(v), t(lens), chunk=c, phi=phi)
     assert LAUNCHES == before, "the CPU path must not count a launch"
     close(out, j_out, "out")
+    names = ("q_sum", "k_sum", "ko_sum", "qi_sum", "z", "s")
+    for name, a, b in zip(names, sums, j_sums):
+        close(a, np.reshape(b, a.shape), name)
+
+
+# (phi, G, use_alloc, N, kernel chunk, flows' super-chunk): the kernel's
+# decomposition at chunks 8-128, against the reference kernel (chunk 16)
+PARALLEL_CASES = [
+    ("sigmoid", 1, True, 48, 8, 16),
+    ("sigmoid", 4, False, 80, 32, 8),
+    ("elu1", 2, True, 144, 64, 32),
+    ("elu1", 1, False, 48, 128, 64),
+    ("relu", 1, True, 112, 32, 64),
+    ("relu", 2, False, 64, 64, 16),
+    ("relu", 4, True, 48, 128, 128),
+    ("sigmoid", 2, True, 144, 64, 128),
+]
+
+
+@pytest.mark.parametrize("phi,g,use_alloc,n,chunk,tile", PARALLEL_CASES)
+def test_flow_fused_parallel_matches_pallas_interpret(phi, g, use_alloc, n,
+                                                      chunk, tile):
+    rng = np.random.default_rng(len(phi) + 10 * g + n + chunk + tile)
+    bh, d = 4, 16
+    q, k, v = flat_inputs(rng, bh, g, n, d)
+    if phi == "relu":  # rows whose phi is all zero: near-zero denominators
+        q[:, :, 3::7] = -np.abs(q[:, :, 3::7])
+        k[:, 5::9] = -np.abs(k[:, 5::9])
+    lens = np.array([n, 1, 1 + n // 3, n - 5], np.int32)
+    j_out, j_sums = j_fused_call(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), jnp.asarray(lens), chunk=16,
+                                 phi=phi, use_alloc=use_alloc, interpret=True)
+    out, sums = flow_fused_parallel(t(q), t(k), t(v), t(lens), chunk=chunk,
+                                    tile=tile, phi=phi, use_alloc=use_alloc)
+    close(out, j_out, "out")
+    for i, li in enumerate(lens):
+        assert not out[i, :, li:].any(), f"row {i}: non-zero past lens"
     names = ("q_sum", "k_sum", "ko_sum", "qi_sum", "z", "s")
     for name, a, b in zip(names, sums, j_sums):
         close(a, np.reshape(b, a.shape), name)

@@ -5,9 +5,10 @@ The same numpy inputs and cotangents, made from a seed, go through
 Pallas forward and reverse-scan backward kernels in interpret mode) and
 through the port's three plain ways to the same gradients on CPU tensors:
 ``flow_fused_bwd_ref`` (autograd through K1's plain version),
-``flow_fused_bwd_scan`` (the reverse tile scan with the hand-written tile
-VJP that ``csrc/flow_fused_bwd.cu`` runs) and ``FlowFusedDot`` through
-``backward()``.  Cotangents are random on ``out`` and on all six state
+``flow_fused_bwd_parallel`` (the chunk-parallel decomposition with the
+hand-written pull-back that ``csrc/flow_fused_bwd.cu`` runs, at the
+kernel-chunk and super-chunk sizes of each case) and ``FlowFusedDot``
+through ``backward()``.  Cotangents are random on ``out`` and on all six state
 outputs; N is not a multiple of the chunk, so the padded tail must get
 zero gradients.  Everything is fp32.  Tolerance: rtol 2e-4, atol 2e-5 --
 the same fp32 terms summed in another order.
@@ -25,8 +26,8 @@ from repro.attention.vjp import flow_fused_dot  # noqa: E402
 from repro_torch.attention.vjp import FlowFusedDot  # noqa: E402
 from repro_torch.kernels import LAUNCHES  # noqa: E402
 from repro_torch.kernels.flow_fused import (flow_fused_bwd_call,  # noqa: E402
+                                            flow_fused_bwd_parallel,
                                             flow_fused_bwd_ref,
-                                            flow_fused_bwd_scan,
                                             flow_fused_call)
 
 RTOL, ATOL = 2e-4, 2e-5
@@ -43,8 +44,9 @@ def t(x):
     return torch.from_numpy(np.array(x, copy=True))
 
 
-# (phi, G, use_alloc, n_valid, chunk, scan tile): n_valid < N = n_valid
-# rounded up to the chunk; the scan's tile differs from the chunk
+# (phi, G, use_alloc, n_valid, chunk, tile): n_valid < N = n_valid rounded
+# up to the chunk; the parallel twin's chunk is ``tile`` and its flows'
+# super-chunk 128 // tile, so the two differ from each other and from N
 CASES = [
     ("sigmoid", 1, True, 50, 16, 32),
     ("sigmoid", 2, False, 61, 32, 8),
@@ -87,9 +89,9 @@ def test_flow_fused_backward_matches_jax_vjp(phi, g, use_alloc, n_valid,
         "bwd_ref": flow_fused_bwd_ref(t(q), t(k), t(v), lens, t(g_out),
                                       [t(x) for x in g_sums], chunk=chunk,
                                       **kw),
-        "bwd_scan": flow_fused_bwd_scan(t(q), t(k), t(v), lens, totals,
-                                        t(g_out), [t(x) for x in g_sums],
-                                        tile=tile, **kw),
+        "bwd_parallel": flow_fused_bwd_parallel(
+            t(q), t(k), t(v), lens, t(g_out), [t(x) for x in g_sums],
+            chunk=tile, tile=128 // tile, **kw),
         "bwd_call": flow_fused_bwd_call(t(q), t(k), t(v), lens, totals,
                                         t(g_out), [t(x) for x in g_sums],
                                         chunk=chunk, **kw),
