@@ -22,7 +22,11 @@ any failure raises, so the exit code is non-zero:
      ``flow_nc_qside_bwd`` against their plain versions at the LRA training
      shape (32 rows x 4 heads, N = M = 4096, D = 64, bf16 and fp32; K6 with
      competition on and off, K7b with random cotangents), and at G = 2,
-     N = 200, M = 136 (through the grouping wrapper, with gradients);
+     N = 200, M = 136 (through the grouping wrapper, with gradients); K6
+     also at G = 2 (NQ = 400, M = 136), at counts its 16-block clusters do
+     not divide (NQ = 4,001, M = 3,999), at NQ = M = 1 (blocks that own no
+     rows) and at logits of +-30 (sigmoid saturated), bf16 and fp32, and
+     two calls at the LRA shape bitwise equal;
   3d. K5a ``flow_chunk`` and K5b ``flow_chunk_dkv`` against their plain
      versions at the paper-causal training shape (16 rows x 8 kv heads,
      G = 1, N = 512, D = 64, fp32; operands as the causal pipeline makes
@@ -41,7 +45,10 @@ any failure raises, so the exit code is non-zero:
      ``SSDChunkDot`` against autograd through it (db and dc summed over
      the heads), random cotangents; K9
      ``boundary_gather`` at the admission shape (16 rows, Lb 512, W 4,096
-     and 128, bf16 and fp32, lengths including 0, 1, 2, 3 and 512);
+     and 128, bf16 and fp32, lengths including 0, 1, 2, 3 and 512), and
+     ``boundary_gather_many`` on one layer's three streams (W 4,096, 128
+     and 128) and on unaligned widths (W 3, 5 and 6: the 2- and 4-byte
+     paths), exact;
   3f. K8a ``paged_gather`` and K8b ``paged_gather_quant`` against their
      plain versions at the serving shape (the dense-equivalent pool of
      128 pages x 8 kv heads x 64 positions, D = Dv = 64; 16 slots x 8
@@ -126,8 +133,9 @@ any failure raises, so the exit code is non-zero:
      agree, and every wq/wk/wv gradient of the first step is non-zero and
      agrees with the plain path's;
   13. the Engine serving the full-width mamba2_1p3b (48 layers of SSD,
-     random weights from a seed) in bf16, phase 5's traffic: exactly 3 K9
-     launches per layer and admission round and nothing else; decode and
+     random weights from a seed) in bf16, phase 5's traffic: exactly 1 K9
+     launch per layer and admission round (``boundary_gather_many`` of the
+     x, B and C streams) and nothing else; decode and
      prefill tokens/s; ``pool_bytes`` = 16 x 101,916,672; then
      ``torch.profiler`` over decode steps as in 5b;
   14. the same Engine in fp32, 12 requests of mixed lengths, against a
@@ -169,7 +177,12 @@ any failure raises, so the exit code is non-zero:
      (their library yardstick ``torch.index_select`` of the pools by the
      flattened table, without the relayout), K9 at one admission's
      x stream (16 x 512 x 4,096 bf16; its library yardstick the padded
-     ``torch.take_along_dim``), K10a and K10b at one layer of phase 15
+     ``torch.take_along_dim``) and at one layer's three streams in one
+     launch, against three one-stream launches, three padded
+     ``take_along_dim``s and an empty kernel of the same build (the card's
+     launch floor), K6's phases by ablation (``k6_breakdown``: variant
+     builds that stop before phases B, C and D) and at 8-block clusters,
+     K10a and K10b at one layer of phase 15
      (their plain versions' ~500-1,000 launches overflow the launch queue,
      so those are timed as one replay of a CUDA graph, ``graph_ms``);
   12. the last line: ``{"ok": true, "device": {...}}``.
@@ -215,7 +228,9 @@ paths sum it at other GEMM shapes) moves the state, and the gap grew by
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import hashlib
 import json
 import math
 import re
@@ -233,9 +248,10 @@ SEED = 0
 DEVICE = "cuda"
 
 # H100 SXM published peaks (dense): HBM bytes/s, fp32 FLOP/s off the tensor
-# cores -- both kernels compute in fp32 FMA on the CUDA cores.
+# cores (every kernel's arithmetic but K6's products), TF32 FLOP/s on them.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+TF32_FLOPS = 495e12  # tensor cores, dense
 
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1e-2)}
 STATE_TOL = (1e-4, 1e-4)
@@ -269,18 +285,27 @@ def card() -> str:
 PTXAS: dict[str, dict] = {}
 
 
+#: K6's ablation variant (``k6_ablation_source``), started with the build
+K6_ABLATION: dict = {}
+#: the run-time ``use_comp`` values at which that variant stops before
+#: phases B, C and D
+K6_STOPS = {"B": -2, "C": -3, "D": -4}
+
+
 def build_kernels() -> float:
-    """Phase 2: compile every kernel (one nvcc per source, all at once)."""
+    """Phase 2: compile every kernel (one nvcc per source, all at once),
+    with K6's ablation variant alongside."""
     from repro_torch.kernels import build
 
     t0 = time.perf_counter()
+    K6_ABLATION.update(start_k6_ablation_build())
     logs = build()
     secs = time.perf_counter() - t0
     for name, log in logs.items():
         usage = [ln.strip() for ln in log.splitlines() if "Used" in ln]
         print(f"[build] {name}: {len(usage)} kernel variants; "
               + (usage[0] if usage else "cached"), flush=True)
-        if name.startswith(("ssd_chunk", "flow_fused")):
+        if name.startswith(("ssd_chunk", "flow_fused", "flow_nc_fused")):
             PTXAS[name] = ptxas_usage(log)
             print(f"[build] {name}: " + json.dumps(PTXAS[name]), flush=True)
     print(f"[build] {secs:.1f} s", flush=True)
@@ -296,12 +321,12 @@ def ptxas_usage(log: str) -> dict:
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
             sym = m.group(1)
-            k = re.search(r"\d+((?:ssd|flow)_(?:fwd|bwd)_[a-z0-9]+)(I\w*?E(?=v))?",
-                          sym)
+            k = re.search(r"\d+((?:ssd|flow)_(?:fwd|bwd)_[a-z0-9]+|"
+                          r"flow_nc_fused_kernel)(I\w*?E(?=v))?", sym)
             targs = (k.group(2) or "") if k else ""
             args = (["bf16"] if "bfloat16" in targs
                     else ["f32"] if targs.startswith("If") else [])
-            args += re.findall(r"Li(\d+)E", targs)
+            args += re.findall(r"L[ib](\d+)E", targs)
             name = (k.group(1) + (f"<{','.join(args)}>" if args else "")
                     if k else sym)
             out[name] = {}
@@ -314,6 +339,88 @@ def ptxas_usage(log: str) -> dict:
             sm = re.search(r"(\d+) bytes smem", ln)
             out[name]["static_smem"] = int(sm.group(1)) if sm else 0
     return out
+
+
+def k6_ablation_source(src: str) -> str:
+    """K6's source with an exit before each of its phases B, C and D, taken
+    when the kernel's ``use_comp`` is -2, -3 or -4: a run-time value, so
+    nothing before an exit is optimized away, and timing the variant at
+    each value (and at 1, the whole kernel) splits a call by phase.  A
+    cluster kernel first waits for its staged copies and meets the
+    cluster's other blocks, so no block leaves while another reads its
+    shared memory."""
+    sync = ("cp_async_wait<0>(); cluster.sync(); "
+            if "this_cluster()" in src else "")
+
+    def exit_before(m):
+        return (f"{m.group(1)}if (use_comp == {K6_STOPS[m.group(2)]}) "
+                f"{{ {sync}return; }}\n{m.group(0)}")
+
+    out, n = re.subn(r"^( *)// ---- phase ([BCD])\b.*$", exit_before, src,
+                     flags=re.M)
+    if n != 3:
+        raise RuntimeError(f"K6's source has {n} of the 3 phase markers")
+    return out
+
+
+def start_k6_ablation_build(source=None) -> dict:
+    """Start nvcc on ``k6_ablation_source`` of ``source`` (by default the
+    checkout's ``csrc/flow_nc_fused.cu``) into the build directory; returns
+    what ``k6_breakdown`` needs."""
+    from repro_torch.kernels import _lib
+
+    path = Path(source or _lib.CSRC_DIR / "flow_nc_fused.cu")
+    text = k6_ablation_source(path.read_text())
+    out_dir = _lib.BUILD_DIR / "k6_ablation"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tag = hashlib.sha256(text.encode()).hexdigest()[:16]
+    cu, so = out_dir / f"k6_{tag}.cu", out_dir / f"libk6_{tag}.so"
+    cu.write_text(text)
+    cmd = [_lib._nvcc(), *_lib.NVCC_FLAGS, "-I", str(_lib.CSRC_DIR), "-o",
+           str(so), str(cu)]
+    head = re.search(r"int flow_nc_fused_fwd\((.*?)\)", text, re.S)
+    return {"proc": subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True),
+            "so": so, "source": str(path),
+            "takes_cb": bool(head and "int cb" in head.group(1))}
+
+
+def k6_breakdown(q, k, v, ablation=None, cb=None) -> dict:
+    """Device ms of one K6 call on (q, k, v) by phase, from the ablation
+    variant (``start_k6_ablation_build``) timed by ``time_ms`` at each stop:
+    the loads and phase A (stop before B), B, C (with kv's cluster
+    reduction) and D as differences of the cumulative times; ``cb`` blocks
+    per cluster (by default the wrapper's)."""
+    from repro_torch.kernels._lib import DTYPE_CODES
+    from repro_torch.kernels.flow_nc.ops import CLUSTER_BLOCKS
+
+    build = ablation or K6_ABLATION
+    if "log" not in build:
+        build["log"], _ = build["proc"].communicate()
+    if build["proc"].returncode:
+        raise RuntimeError("K6's ablation variant did not build:\n"
+                           + build["log"])
+    lib = ctypes.CDLL(str(build["so"]))
+    fn = lib.flow_nc_fused_fwd
+    p_, i_, f_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [p_] * 4 + [i_] * (8 if build["takes_cb"] else 7) + [f_, p_]
+    bh, nq, d = q.shape
+    out = torch.empty_like(q)
+    cb = (cb or CLUSTER_BLOCKS,) if build["takes_cb"] else ()
+
+    def run(code):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh,
+                 nq, k.shape[1], d, d, DTYPE_CODES[q.dtype], *cb, code, 1e-6,
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"K6 ablation variant: cudaError {err}")
+
+    cum = {f"to_{ph}": time_ms(lambda c=code: run(c))
+           for ph, code in K6_STOPS.items()}
+    cum["full"] = time_ms(lambda: run(1))
+    return {"source": build["source"], "loads_and_A": cum["to_B"],
+            "B": cum["to_C"] - cum["to_B"], "C": cum["to_D"] - cum["to_C"],
+            "D": cum["full"] - cum["to_D"], "cumulative_ms": cum}
 
 
 def max_err(name: str, got: torch.Tensor, want: torch.Tensor, tol) -> float:
@@ -754,6 +861,26 @@ def check_flow_nc() -> dict:
             if dtype == torch.bfloat16:
                 errs = {"flow_nc_fused": e6, "flow_nc_qside": e7a,
                         "flow_nc_qside_bwd": e7b}
+                again = [flow_nc_fused_call(q, k, v) for _ in range(2)]
+                if not torch.equal(*again):
+                    raise AssertionError(f"flow_nc_fused {tag}: two calls "
+                                         "differ")
+        # K6 where its clusters split unevenly or own nothing, and saturated
+        for dtype in (torch.bfloat16, torch.float32):
+            for i, (bh_, nq, m, logit) in enumerate((
+                    (8, 400, 136, 1.0), (4, 4001, 3999, 1.0), (2, 1, 1, 1.0),
+                    (4, 256, 256, 30.0))):
+                q, k, v, _ = nc_inputs(dtype, bh_, nq, m, d, SEED + 32 + i)
+                if logit != 1.0:
+                    q, k = logit * q.sign(), logit * k.sign()
+                tag = f"{str(dtype)[6:]} BH={bh_} NQ={nq} M={m} logit={logit}"
+                e6 = max(max_err_scaled(
+                    f"flow_nc_fused {tag} comp={comp} out",
+                    flow_nc_fused_call(q, k, v, use_comp=comp),
+                    flow_nc_fused_ref(q, k, v, use_comp=comp), TOL[dtype])
+                    for comp in (True, False))
+                torch.cuda.synchronize()
+                print(f"[K6] {tag}: {e6:.3e}", flush=True)
         # G = 2 (shared GQA), N = 200 sinks per head, M = 136 sources
         b, hkv, grp, n, m = 4, 8, 2, 200, 136
         q, k, v, g = nc_inputs(torch.float32, b, hkv * grp * n, hkv * m, d,
@@ -1414,7 +1541,10 @@ def check_ssd() -> dict:
     """Phase 3e: K10a (both variants), K10b (through ``SSDChunkDot``) and
     K9 against their plain versions; returns each one's max |error| at
     the main path's shape."""
-    from repro_torch.kernels.gather import boundary_gather, boundary_gather_ref
+    from repro_torch.kernels.gather import (boundary_gather,
+                                            boundary_gather_many,
+                                            boundary_gather_many_ref,
+                                            boundary_gather_ref)
     from repro_torch.kernels.ssd_chunk import (SSDChunkDot, ssd_chunk_call,
                                                ssd_chunk_chunked)
     from repro_torch.kernels.ssd_chunk.ops import scan_chunk
@@ -1473,8 +1603,22 @@ def check_ssd() -> dict:
             if not torch.equal(got, want):
                 raise AssertionError(f"boundary_gather W={w} {dtype}: not "
                                      "exact")
+    # one layer's x, B and C streams in one launch; unaligned widths
+    for widths in ((4096, 128, 128), (3, 5, 6, 128)):
+        for dtype in (torch.bfloat16, torch.float32):
+            xs = tuple(torch.randn((16, 512, w), generator=gen,
+                                   device=DEVICE).to(dtype) for w in widths)
+            with torch.inference_mode():
+                got = boundary_gather_many(xs, lengths, 4)
+                want = boundary_gather_many_ref(xs, lengths, 4)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"boundary_gather_many W={widths} "
+                                     f"{dtype}: not exact")
     print("[K9] 16 rows x Lb 512, W 4096 and 128, bf16 and fp32, lengths "
-          f"{sorted(set(lens.tolist()))[:6]}...: exact", flush=True)
+          f"{sorted(set(lens.tolist()))[:6]}...; three streams (W 4096, 128, "
+          "128) and unaligned (W 3, 5, 6, 128) in one launch: exact",
+          flush=True)
     errs["boundary_gather"] = 0.0
     return errs
 
@@ -1517,7 +1661,7 @@ def serve_ssd_full_width(params, cfg) -> dict:
             raise AssertionError(f"request {r.uid}: {r.generated}")
     rounds, steps = worker.admission_rounds, worker.decode_steps
     want = {**dict.fromkeys(KERNELS, 0),
-            "boundary_gather": 3 * cfg.n_layers * rounds}
+            "boundary_gather": cfg.n_layers * rounds}
     if launches != want:
         raise AssertionError(f"mamba2 serving launched {launches}, want "
                              f"{want}")
@@ -1666,7 +1810,7 @@ def _serve_recording_logits(params, cfg):
         got = {r.uid: r.generated for r in engine.run()}
     finally:
         lm.prefill, lm.decode = real["prefill"], real["decode"]
-    if LAUNCHES["boundary_gather"] != 3 * cfg.n_layers * (
+    if LAUNCHES["boundary_gather"] != cfg.n_layers * (
             worker.admission_rounds):
         raise AssertionError(f"fp32 mamba2 serving launches {LAUNCHES}")
     return got, seen, reqs, worker.params
@@ -2476,10 +2620,24 @@ def time_chunk_kernels(launches: dict, errs: dict) -> list:
     return rows
 
 
+def nc_fused_tensor_core_bound(bh: int, nq: int, m: int, d: int,
+                               bytes_moved: float) -> float:
+    """K6's bound where its two products run on the tensor cores in
+    3xTF32 (three TF32 products each, 495 TFLOP/s) and the rest of
+    ``nc_fused_ops`` on the CUDA cores (67 TFLOP/s), in ms."""
+    products = bh * (nq + m) * 2 * d * d
+    rest = bh * nc_fused_ops(nq, m, d, d) - products
+    return 1e3 * max(bytes_moved / HBM_BYTES_PER_S,
+                     rest / FP32_FLOPS + 3 * products / TF32_FLOPS)
+
+
 def time_nc_kernels(launches: dict, errs: dict) -> list:
     """Phase 9, K6/K7a/K7b: one layer's attention of the LRA training step
-    (bf16, 32 rows x 4 heads, N = M = 4096, D = 64)."""
+    (bf16, 32 rows x 4 heads, N = M = 4096, D = 64); K6 also by phase
+    (``k6_breakdown``) and at 8-block clusters."""
     from repro_torch.attention.vjp import nc_key_side
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.flow_nc import ops as nc_ops
     from repro_torch.kernels.flow_nc import (flow_nc_fused_call,
                                              flow_nc_fused_ref,
                                              flow_nc_qside_bwd_call,
@@ -2521,6 +2679,34 @@ def time_nc_kernels(launches: dict, errs: dict) -> list:
                 "max_abs_err": errs[name], "ms": time_ms(run),
                 "plain_ms": time_ms(plain), "bound_ms": bound_ms,
                 "bound_by": by, "library_ms": None})
+        k6 = rows[0]
+        k6["tensor_core_bound_ms"] = nc_fused_tensor_core_bound(
+            bh, n, n, d, bh * n * 4 * d * 2)
+        # the same kernel at 8-block clusters (the portable size: one block
+        # of ~200 KB to an SM)
+        fn = _lib.function("flow_nc_fused", "flow_nc_fused_fwd",
+                           nc_ops._FUSED_ARGTYPES)
+        out = torch.empty_like(q)
+
+        def cb8():
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                     bh, n, n, d, d, 1, 8, 1, 1e-6,
+                     torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(fn.error_string(err).decode())
+
+        cb8()
+        torch.cuda.synchronize()
+        k6["cb8_max_abs_err"] = max_err_scaled(
+            "flow_nc_fused cb=8", out, flow_nc_fused_ref(q, k, v),
+            TOL[torch.bfloat16])
+        k6["cb8_ms"] = time_ms(cb8)
+        k6["k6_breakdown"] = k6_breakdown(q, k, v)
+    print("[K6] " + json.dumps({key_: k6[key_] for key_ in (
+        "ms", "bound_ms", "tensor_core_bound_ms", "cb8_ms",
+        "k6_breakdown")}), flush=True)
+    print("[K6] registers and spill bytes: " + json.dumps(
+        PTXAS.get("flow_nc_fused", "cached")), flush=True)
     return rows
 
 
@@ -2552,12 +2738,18 @@ def ssd_chunk_bwd_ops(c: int, p: int, s: int, heads: int) -> int:
 
 def time_ssd_kernels(launches: dict, errs: dict) -> list:
     """Phase 9, K9/K10a/K10b: K9 at one packed admission's x stream (16
-    rows x Lb 512, W 4,096, bf16); K10a and K10b at one layer of the
+    rows x Lb 512, W 4,096, bf16) and at the layer's x, B and C streams
+    (W 4,096, 128, 128) in one launch, against three one-stream launches,
+    three padded ``take_along_dim``s and an empty launch of the same build
+    (the launch floor); K10a and K10b at one layer of the
     training step (fp32, B = 4 x H = 64 rows, N = 4,096, P = 64, S = 128,
     chunk 128).  K10b's plain version is the backward of autograd through
     the plain chunked scan: a graph replay of the forward and backward,
     less the forward's replay."""
-    from repro_torch.kernels.gather import boundary_gather, boundary_gather_ref
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.gather import (boundary_gather,
+                                            boundary_gather_many,
+                                            boundary_gather_ref)
     from repro_torch.kernels.ssd_chunk import (ssd_chunk_bwd_call,
                                                ssd_chunk_call,
                                                ssd_chunk_chunked)
@@ -2572,12 +2764,26 @@ def time_ssd_kernels(launches: dict, errs: dict) -> list:
                      device=DEVICE).to(torch.bfloat16)
     lens = torch.tensor(ragged_lens(np.random.default_rng(SEED + 95), 16, 16,
                                     384), device=DEVICE)
-    padded = torch.cat([torch.zeros((16, 3, 4096), dtype=xb.dtype,
-                                    device=DEVICE), xb], dim=1)
+    # the layer's B and C streams (W 128), for the one-launch K9
+    streams = (xb, *(torch.randn((16, 512, 128), generator=gen,
+                                 device=DEVICE).to(torch.bfloat16)
+                     for _ in range(2)))
+    padded = [torch.cat([torch.zeros((16, 3, t.shape[2]), dtype=t.dtype,
+                                     device=DEVICE), t], dim=1)
+              for t in streams]
     idx = (lens.long()[:, None] + torch.arange(3, device=DEVICE))[..., None]
+    empty = _lib.function("boundary_gather", "boundary_gather_empty",
+                          [ctypes.c_void_p])
+
+    def launch_floor():
+        err = empty(torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"empty kernel: cudaError {err}")
+
     with torch.inference_mode():
         bound_ms, by = bound(2 * 16 * 3 * 4096 * 2 + 16 * 4, 0)
-        rows.append({
+        three_bytes = 2 * 16 * 3 * sum(t.shape[2] for t in streams) * 2
+        k9 = {
             "name": "boundary_gather", "route": "cuda",
             "source": "src/repro_torch/csrc/boundary_gather.cu",
             "replaces": "src/repro/kernels/gather/boundary.py:67",
@@ -2586,11 +2792,24 @@ def time_ssd_kernels(launches: dict, errs: dict) -> list:
             "ms": time_ms(lambda: boundary_gather(xb, lens, 4)),
             "plain_ms": time_ms(lambda: boundary_gather_ref(xb, lens, 4)),
             "bound_ms": bound_ms, "bound_by": by,
-            "library_ms": time_ms(lambda: torch.take_along_dim(padded, idx,
-                                                               dim=1)),
+            "library_ms": time_ms(lambda: torch.take_along_dim(
+                padded[0], idx, dim=1)),
             "library": "pad + gather: torch.take_along_dim on the "
-                       "zero-padded stream (the pad made once, untimed)"})
-    del xb, padded
+                       "zero-padded stream (the pad made once, untimed)",
+            "launch_floor_ms": time_ms(launch_floor),
+            "three_streams_ms": time_ms(lambda: boundary_gather_many(
+                streams, lens, 4)),
+            "three_launches_ms": time_ms(lambda: [
+                boundary_gather(t, lens, 4) for t in streams]),
+            "three_library_ms": time_ms(lambda: [
+                torch.take_along_dim(p, idx, dim=1) for p in padded]),
+            "three_streams_bound_ms": bound(three_bytes + 16 * 4, 0)[0]}
+        rows.append(k9)
+    print("[K9] one layer's x, B and C streams: " + json.dumps(
+        {key: k9[key] for key in ("three_streams_ms", "three_launches_ms",
+                                  "three_library_ms", "launch_floor_ms",
+                                  "three_streams_bound_ms")}), flush=True)
+    del xb, padded, streams
     bsz, heads, n, p, s = (SSD_SHAPE[k] for k in ("bsz", "heads", "n", "p",
                                                    "s"))
     bh, chunk = bsz * heads, 128

@@ -1,11 +1,11 @@
 // flow_nc_common.cuh — pieces shared by the non-causal Flow-Attention
-// kernels for Hopper (sm_90a): flow_nc_fused.cu (K6) and flow_nc_qside.cu
-// (K7a, K7b).
+// kernels for Hopper (sm_90a): flow_nc_qside.cu (K7a, K7b) and, for its
+// sigmoid, shuffle sums and bf16 stores, flow_nc_fused.cu (K6).
 //
-// Every kernel here streams rows of a (rows, D) matrix (q, k, v or a
-// cotangent) and multiplies staged tiles of them with a D x D fp32 state
-// (kv, or its cotangent) held in shared memory.  Two thread layouts of a
-// 256-thread block serve all of them:
+// K7a and K7b stream rows of a (rows, D) matrix (q or a cotangent) and
+// multiply staged tiles of them with a D x D fp32 state (kv, or its
+// cotangent) held in shared memory.  Two thread layouts of a 256-thread
+// block serve both:
 //
 //  * streaming: each thread loads 16 bytes (VEC elements) of one row, LG
 //    consecutive lanes cover a row, RP rows per pass of the block.  Row
@@ -92,22 +92,6 @@ __device__ __forceinline__ float group_sum(float x) {
 #pragma unroll
   for (int off = W / 2; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
   return x;
-}
-
-// dst[c] = sum over row groups of the streaming partials part[] (VEC columns
-// col0.. per thread), in row-group order; red_s holds RP * D floats.
-template <typename T, int D>
-__device__ __forceinline__ void reduce_cols(const float* part, float* red_s, float* dst) {
-  using L = Layout<T, D>;
-  const int tid = threadIdx.x;
-  store_smem<L::VEC>(red_s + (tid / L::LG) * D + (tid % L::LG) * L::VEC, part);
-  __syncthreads();
-  if (tid < D) {
-    float s = 0.f;
-    for (int j = 0; j < L::RP; ++j) s += red_s[j * D + tid];
-    dst[tid] = s;
-  }
-  __syncthreads();
 }
 
 __device__ __forceinline__ void fma_row(const float4 x, const float4 (&b)[4], float (&acc)[4]) {

@@ -33,10 +33,14 @@ __all__ = ["LAUNCHES", "flow_attention_nc", "flow_nc_fused_call",
            "flow_nc_qside_bwd_call", "flow_nc_qside_call"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_FUSED_ARGTYPES = [_P] * 4 + [_I] * 7 + [_F, _P]
+_FUSED_ARGTYPES = [_P] * 4 + [_I] * 8 + [_F, _P]
 _QSIDE_ARGTYPES = [_P] * 5 + [_I] * 5 + [_F, _F, _P]
 _QSIDE_BWD_ARGTYPES = [_P] * 10 + [_I] * 6 + [_F, _F, _P]
 
+#: blocks of K6's thread-block cluster per (batch * kv head): 16, the
+#: card's non-portable cluster size (the kernel opts in), at which the LRA
+#: shape's rows fit two blocks to an SM; 8 is the portable size
+CLUSTER_BLOCKS = 16
 #: rows of one (batch * head) per block of K7b; more rows than this are
 #: split over blocks whose partial reductions a second launch adds
 _BWD_ROWS_PER_SPLIT = 1024
@@ -81,7 +85,9 @@ def flow_nc_fused_call(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     allocation.
 
     q: (BH, NQ, D) raw; k: (BH, M, D); v: (BH, M, Dv), NQ counting the sinks
-    (G*N after grouping) -> (BH, NQ, Dv) in q's dtype.  On CUDA, D == Dv.
+    (G*N after grouping) -> (BH, NQ, Dv) in q's dtype.  On CUDA, D == Dv
+    and BH <= 65,535; one launch of ``CLUSTER_BLOCKS``-block clusters
+    (``flow_nc_fused_parallel`` is its decomposition).
     """
     if q.device.type == "cpu":
         return flow_nc_fused_ref(q, k, v, eps=eps, use_comp=use_comp)
@@ -92,6 +98,9 @@ def flow_nc_fused_call(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if k.shape != (bh, m, d) or v.shape != (bh, m, d) or m < 1:
         raise ValueError(f"bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
                          f"v{tuple(v.shape)} (the kernel takes D == Dv)")
+    if bh > 65535:
+        raise ValueError(f"BH = {bh}: the kernel's grid takes at most 65,535 "
+                         "(batch * kv head) rows")
     _lib.refuse_autograd(q, k, v, why="the flow_nc_fused kernel's output has "
                          "no autograd graph", instead="flow_attention_nc "
                          "(FlowNCFused, backward kernels K7a and K7b)")
@@ -99,7 +108,8 @@ def flow_nc_fused_call(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     fn = _lib.function("flow_nc_fused", "flow_nc_fused_fwd", _FUSED_ARGTYPES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, nq,
-             m, d, d, DTYPE_CODES[q.dtype], int(use_comp), eps, stream)
+             m, d, d, DTYPE_CODES[q.dtype], CLUSTER_BLOCKS, int(use_comp), eps,
+             stream)
     _lib.check(fn, err, "flow_nc_fused")
     LAUNCHES["flow_nc_fused"] += 1
     return out

@@ -6,6 +6,11 @@
   (exact: ``cons_src`` is clipped to [-1, 1], so ``exp`` needs no max
   subtraction), then the sink rows.  Sigmoid phi and allocation, as in
   ``repro/kernels/flow_nc/fused.py``.
+* ``flow_nc_fused_parallel`` (K6 as the CUDA kernel splits it): each
+  (batch * kv head) cut over ``cb`` blocks of a thread-block cluster, each
+  owning ceil(NQ / cb) sink and ceil(M / cb) source rows (the last ones
+  possibly none); every phase's totals are the blocks' partials summed in
+  rank order, ``kv`` included.
 * ``flow_nc_qside_ref`` (K7a): the sink side from the key-side reductions
   (``repro/kernels/flow_nc/ref.py``).
 * ``flow_nc_qside_bwd_ref`` (K7b): K7a's cotangents, the chain of
@@ -53,6 +58,61 @@ def flow_nc_fused_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     agg = torch.einsum("bnd,bde->bne", pq / incoming[..., None], kv)
     scale = float(m) / z  # the softmax normalizer, applied once
     return (agg * alloc[..., None] * scale[:, None, None]).to(q.dtype)
+
+
+def _rank_sum(parts):
+    """The partials of blocks 0, 1, ... added in that order."""
+    total = parts[0]
+    for part in parts[1:]:
+        total = total + part
+    return total
+
+
+def flow_nc_fused_parallel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           *, cb: int = 8, eps: float = 1e-6,
+                           use_comp: bool = True) -> torch.Tensor:
+    """``flow_nc_fused_ref`` computed as ``csrc/flow_nc_fused.cu`` splits
+    it: block r of a ``cb``-block cluster owns sink rows [r rq, (r+1) rq)
+    and source rows [r rk, (r+1) rk) (rq = ceil(NQ / cb), rk =
+    ceil(M / cb), clipped, so trailing blocks may own none).  Each phase
+    forms per-block partials (k_sum and q_sum; ko_sum and qi_sum; z and
+    kv), and every block takes the totals as the partials of blocks 0 ..
+    cb - 1 added in rank order; then each block writes its own sink rows.
+    """
+    nq, m = q.shape[1], k.shape[1]
+    rq, rk = -(-nq // cb), -(-m // cb)
+    pq = torch.sigmoid(q.float())
+    pk = torch.sigmoid(k.float())
+    vf = v.float()
+    qs = [pq[:, r * rq:(r + 1) * rq] for r in range(cb)]
+    ks = [pk[:, r * rk:(r + 1) * rk] for r in range(cb)]
+    vs = [vf[:, r * rk:(r + 1) * rk] for r in range(cb)]
+    # phase A
+    k_sum = _rank_sum([x.sum(dim=1) for x in ks])
+    q_sum = _rank_sum([x.sum(dim=1) for x in qs])
+    # phase B
+    ko_sum = _rank_sum([(x / torch.einsum("bmd,bd->bm", x + eps, q_sum + eps)
+                         [..., None]).sum(dim=1) for x in ks])
+    qi_sum = _rank_sum([(x / torch.einsum("bnd,bd->bn", x + eps, k_sum + eps)
+                         [..., None]).sum(dim=1) for x in qs])
+    # phase C: per-block z and kv partials
+    es = [torch.exp(torch.einsum("bmd,bd->bm", x + eps, qi_sum + eps)
+                    .clamp(-1.0, 1.0)) if use_comp
+          else torch.ones(x.shape[:2], dtype=torch.float32, device=x.device)
+          for x in ks]
+    z = _rank_sum([e.sum(dim=1) for e in es])
+    kv = _rank_sum([torch.einsum("bmd,bme->bde", x, y * e[..., None])
+                    for x, y, e in zip(ks, vs, es)])
+    # phase D: each block's sink rows
+    outs = []
+    for x in qs:
+        incoming = torch.einsum("bnd,bd->bn", x + eps, k_sum + eps)
+        conserved = torch.einsum("bnd,bd->bn", x + eps, ko_sum + eps)
+        alloc = torch.sigmoid(conserved * (float(nq) / float(m)))
+        agg = torch.einsum("bnd,bde->bne", x, kv)
+        scale = alloc / incoming * (float(m) / z)[:, None]
+        outs.append(agg * scale[..., None])
+    return torch.cat(outs, dim=1).to(q.dtype)
 
 
 def _qside_chain(q, k_sum, ko_sum, kv, n_sinks, m_sources, eps):

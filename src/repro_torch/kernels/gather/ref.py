@@ -3,7 +3,8 @@
 ``boundary_gather_ref`` is the off-TPU branch of ``repro/kernels/gather/
 boundary.py::boundary_gather`` (:52-58): zero-pad the whole (B, N, W)
 stream on the left by k - 1 rows and gather rows ``lengths[b] + j``,
-j < k - 1, of the padded stream.
+j < k - 1, of the padded stream.  ``boundary_gather_many_ref`` does so
+for each of several streams that share the lengths.
 
 ``paged_gather_ref`` and ``paged_gather_quant_ref`` are the off-TPU
 branches of ``repro/kernels/gather/paged.py::paged_gather`` (:42-48) and
@@ -29,6 +30,12 @@ def boundary_gather_ref(xb: torch.Tensor, lengths: torch.Tensor,
     idx = (lengths.to(device=xb.device, dtype=torch.long)[:, None]
            + torch.arange(k - 1, device=xb.device)[None, :])
     return torch.take_along_dim(xp, idx[..., None], dim=1)
+
+
+def boundary_gather_many_ref(streams, lengths: torch.Tensor,
+                             k: int) -> tuple:
+    """``boundary_gather_ref`` of each (B, N, W_i) stream, as a tuple."""
+    return tuple(boundary_gather_ref(x, lengths, k) for x in streams)
 
 
 def _head_major(g: torch.Tensor) -> torch.Tensor:

@@ -18,9 +18,10 @@ state.  Which code runs, as in the reference (``ssd.py:186``):
 
 Packed prefill (``lengths``) zeroes dt past each row's boundary, so the
 scan's carry freezes there and the final carry is each row's boundary
-state; the conv histories are gathered per row by K9
-(``rglru._boundary_conv_history``).  Conv histories are stored in
-``CONV_DTYPE``, bf16 whatever the activation dtype, as in the reference.
+state; the conv histories of the x, B and C streams are gathered per
+row by one K9 launch (``kernels.gather.boundary_gather_many``).  Conv
+histories are stored in ``CONV_DTYPE``, bf16 whatever the activation
+dtype, as in the reference.
 """
 from __future__ import annotations
 
@@ -31,11 +32,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
+from repro_torch.kernels.gather import boundary_gather_many
 from repro_torch.kernels.ssd_chunk import ssd_scan
 from repro_torch.layers import mixer as mixer_lib
 from repro_torch.layers.linear import dense, dense_init
 from repro_torch.layers.norms import apply_norm, norm_init
-from repro_torch.layers.rglru import _boundary_conv_history, _causal_conv
+from repro_torch.layers.rglru import _causal_conv
 from repro_torch.utils import lecun_normal, resolve_device
 
 
@@ -180,8 +182,7 @@ def _ssd_forward(params, x: torch.Tensor, cfg: ModelConfig,
         live = (torch.arange(n, device=x.device)[None, :]
                 < lengths[:, None])
         dt = dt * live[..., None]
-        new_hist = tuple(_boundary_conv_history(r, lengths, s.conv_width)
-                         for r in raw)
+        new_hist = boundary_gather_many(raw, lengths, s.conv_width)
     a = -torch.exp(params["a_log"])  # (H,)
     if state is None and x.device.type == "cuda":
         # the stateless path on the card: K10a / K10b (state discarded)

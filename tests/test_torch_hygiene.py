@@ -45,6 +45,7 @@ from repro_torch.serving.engine import Engine, Request  # noqa: E402
 from repro_torch.serving.quant import QuantizedPool, maybe_quantize  # noqa: E402
 from repro_torch.config import ShapeSpec  # noqa: E402
 from repro_torch.kernels.gather import (boundary_gather,  # noqa: E402
+                                        boundary_gather_many,
                                         paged_gather, paged_gather_quant,
                                         paged_gather_quant_ref,
                                         paged_gather_ref)
@@ -455,6 +456,25 @@ def test_cpu_ssd_wrappers_run_the_plain_version_uncounted():
     assert out.shape == (2, 12, 2, 8) and xh.grad.abs().sum() > 0
     assert {"boundary_gather", "ssd_chunk", "ssd_chunk_hins",
             "ssd_chunk_bwd"} <= set(KERNELS)
+    assert LAUNCHES == dict.fromkeys(KERNELS, 0)
+
+
+@pytest.mark.parametrize("streams,match", [
+    (lambda x: (), "1 to 4 streams"),
+    (lambda x: (x,) * 5, "1 to 4 streams"),
+    (lambda x: (x, x[:, :, :4].contiguous(), x[:2]), r"stream 2 has \(B, N\)"),
+    (lambda x: (x, x[:, :9]), r"stream 1 has \(B, N\)"),
+    (lambda x: (x, x, x.to(torch.bfloat16)), "stream 2 is torch.bfloat16"),
+    (lambda x: (x, x[0]), "stream 1 must be \\(B, N, W\\)")])
+def test_boundary_gather_many_refuses_mismatched_streams(streams, match):
+    """The multi-stream K9 wrapper names the stream at fault, on the CPU
+    path's arguments too, before anything runs."""
+    reset_launches()
+    with pytest.raises(ValueError, match=match):
+        boundary_gather_many(streams(torch.randn((3, 10, 8))),
+                             torch.tensor([10, 2, 0]), 4)
+    with pytest.raises(ValueError, match="lengths must have shape"):
+        boundary_gather_many((torch.randn((3, 10, 8)),), torch.tensor([1]), 4)
     assert LAUNCHES == dict.fromkeys(KERNELS, 0)
 
 

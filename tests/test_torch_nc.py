@@ -6,6 +6,8 @@ versions on the CPU:
 
 * ``flow_nc_fused_ref`` (K6) against ``flow_nc_fused_call``, with
   competition on and off, and against the plain ``nc`` path;
+* ``flow_nc_fused_parallel`` (K6 as the CUDA kernel splits it over a
+  cluster of 1-16 blocks) against ``flow_nc_fused_call`` at 1e-5;
 * ``flow_nc_qside_ref`` (K7a) against ``flow_nc_qside_call``;
 * ``flow_nc_qside_bwd_ref`` (K7b, written out by hand) against
   ``flow_nc_qside_bwd_call`` and against autograd of K7a's plain version;
@@ -42,6 +44,7 @@ from repro_torch.core.reference import flow_attention_nc_ref  # noqa: E402
 from repro_torch.kernels import LAUNCHES  # noqa: E402
 from repro_torch.kernels.flow_nc import (flow_attention_nc as kernel_nc,  # noqa: E402
                                          flow_nc_fused_call,
+                                         flow_nc_fused_parallel,
                                          flow_nc_fused_ref,
                                          flow_nc_qside_bwd_call,
                                          flow_nc_qside_bwd_ref,
@@ -90,6 +93,27 @@ def test_flow_nc_fused_ref_matches_pallas_and_plain_path(use_comp, nq, m):
     plain = nc_forward(T(q)[:, None], T(k)[:, None], T(v)[:, None],
                        FlowConfig(use_competition=use_comp))[:, 0]
     close(got, plain)
+
+
+@pytest.mark.parametrize("cb", [1, 3, 8, 16])
+@pytest.mark.parametrize("nq,m,logit", [(256, 256, 1.0), (400, 136, 1.0),
+                                        (1, 1, 1.0), (256, 256, 30.0)])
+@pytest.mark.parametrize("use_comp", [True, False])
+def test_flow_nc_fused_parallel_matches_pallas(cb, nq, m, logit, use_comp):
+    """K6's cluster decomposition: per-block partials of every phase summed
+    in rank order, blocks that own no rows (M = 136 or N = 1 at CB = 16)
+    included; NQ = 400 against M = 136 is G = 2 over N = 200; logit 30
+    puts q and k at +-30, where sigmoid saturates."""
+    rng = np.random.default_rng(nq + m + cb + int(logit) + use_comp)
+    q, k, v = randn(rng, 2, nq, 16), randn(rng, 2, m, 16), randn(rng, 2, m, 16)
+    if logit != 1.0:
+        q, k = logit * np.sign(q), logit * np.sign(k)
+    want = j_fused(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), eps=EPS,
+                   use_comp=use_comp, interpret=True)
+    got = flow_nc_fused_parallel(T(q), T(k), T(v), cb=cb, eps=EPS,
+                                 use_comp=use_comp)
+    assert got.shape == (2, nq, 16) and torch.isfinite(got).all()
+    close(got, want, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("n,m", [(96, 96), (200, 136)])

@@ -44,7 +44,10 @@ from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.interop import params_from_numpy, params_to_numpy  # noqa: E402
 from repro_torch.kernels import LAUNCHES, reset_launches  # noqa: E402
 from repro_torch.kernels._lib import KERNELS  # noqa: E402
-from repro_torch.kernels.gather import boundary_gather, boundary_gather_ref  # noqa: E402
+from repro_torch.kernels.gather import (boundary_gather,  # noqa: E402
+                                        boundary_gather_many,
+                                        boundary_gather_many_ref,
+                                        boundary_gather_ref)
 from repro_torch.kernels.ssd_chunk import (SSDChunkDot,  # noqa: E402
                                            ssd_chunk_bwd_call,
                                            ssd_chunk_bwd_parallel,
@@ -283,6 +286,32 @@ def test_boundary_gather_plain_matches_reference(lens, dtype):
                 boundary_gather_ref(tx, lengths, k)):
         assert got.dtype == tx.dtype and got.shape == (b, k - 1, w)
         np.testing.assert_array_equal(got.float().numpy(), want)
+    assert LAUNCHES == dict.fromkeys(KERNELS, 0)
+
+
+@pytest.mark.parametrize("streams", [1, 3, 4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_boundary_gather_many_plain_matches_reference(streams, dtype):
+    """Each stream exactly as the reference's XLA ``_boundary_conv_history``
+    gathers it, with lengths 0, 1, 2, 3 and N among the rows."""
+    n, k = 32, 4
+    lens = [0, 1, 2, 3, n, 17]
+    rng = np.random.default_rng(9)
+    xs = [rng.standard_normal((len(lens), n, w), np.float32)
+          for w in (24, 8, 8, 5)[:streams]]
+    tx = tuple(torch.from_numpy(x).to(getattr(torch, dtype)) for x in xs)
+    lengths = torch.tensor(lens, dtype=torch.int32)
+    reset_launches()
+    for got in (boundary_gather_many(tx, lengths, k),
+                boundary_gather_many(tx, lengths, k, interpret=True),
+                boundary_gather_many_ref(tx, lengths, k)):
+        assert isinstance(got, tuple) and len(got) == streams
+        for x, jx_np, g in zip(tx, xs, got):
+            jx = jnp.asarray(jx_np).astype(dtype)
+            want = j_history(jx, jnp.asarray(lens), k).astype(jnp.float32)
+            assert g.dtype == x.dtype and g.shape == (len(lens), k - 1,
+                                                      x.shape[2])
+            np.testing.assert_array_equal(g.float().numpy(), np.asarray(want))
     assert LAUNCHES == dict.fromkeys(KERNELS, 0)
 
 
