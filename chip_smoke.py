@@ -33,7 +33,9 @@ any failure raises, so the exit code is non-zero:
      them), K5a also on the swapped operands of the backward's dq, and at
      G = 2, N = 200 padded to the chunk, D = 32 and 128, through the glue
      and autograd (``FlowChunkDot``) against autograd of the plain cumsum
-     dot;
+     dot; K5a also against its own decomposition
+     (``flow_chunk_parallel``) at the training shape, and two K5a calls
+     there bitwise equal;
   3e. K10a ``ssd_chunk`` (with and without carry-ins) and K10b
      ``ssd_chunk_bwd`` against their plain versions at the mamba2_1p3b
      training shape (B = 4 x H = 64 rows, N = 4,096, P = 64, S = 128,
@@ -63,7 +65,9 @@ any failure raises, so the exit code is non-zero:
      fp32 tokens, 32 steps; at every step the plain version starts from a
      copy of the kernel's pre-step pool (teacher-forced), and the pool is
      updated in place; the largest payload gap (in LSB) of a free-running
-     plain pool after 32 steps is printed, not gated;
+     plain pool after 32 steps is printed, not gated; and two K4 steps
+     from clones of one pool (16 slots, bf16) bitwise equal in out,
+     payloads, scales and z;
   5. the Engine serving the full-width flowformer_lm (random weights from a
      seed) in bf16: 48 requests through 16 slots; every K1/K3 launch is
      counted and must equal 6 x admission rounds / 6 x decode steps;
@@ -172,9 +176,11 @@ any failure raises, so the exit code is non-zero:
      the device time of each CUDA kernel of one K1 call (serving and
      training shape) and one K2 call (``k12_breakdown``: the ``flow_fwd_``
      and ``flow_bwd_`` kernels) with their registers and spill bytes from
-     the build, K3 and K4 at 16 and 1,024 slots x 8 kv heads, K8a and K8b at one
-     layer's gather of phase 17's step with every slot's 8 pages mapped
-     (their library yardstick ``torch.index_select`` of the pools by the
+     the build, K3 and K4 at 16 and 1,024 slots x 8 kv heads (K4's
+     registers, spills and CTAs per SM beside), K5a's CUDA kernels at the
+     training shape (``k5_breakdown``: the ``chunk_fwd_`` kernels), K8a
+     and K8b at one layer's gather of phase 17's step with every slot's 8
+     pages mapped (their library yardstick ``torch.index_select`` of the pools by the
      flattened table, without the relayout), K9 at one admission's
      x stream (16 x 512 x 4,096 bf16; its library yardstick the padded
      ``torch.take_along_dim``) and at one layer's three streams in one
@@ -189,7 +195,10 @@ any failure raises, so the exit code is non-zero:
 
 Tolerances (|kernel - plain| <= atol + rtol * |plain|, elementwise):
 fp32 outputs and every fp32 state piece rtol 1e-4, atol 1e-4 -- both sides
-sum the same fp32 terms in another order, no TF32 anywhere; bf16 outputs
+sum the same fp32 terms in another order, no TF32 on either side but in
+K6's and K5a's products, which run in 3xTF32 (each operand split into a
+tf32 head and rest, three tensor-core products) and are held to the same
+tolerances; one plain TF32 product fails K5a's; bf16 outputs
 rtol 1e-2, atol 1e-2 -- both compute in fp32 from the same bf16 inputs and
 round once to bf16, whose spacing is 2^-7 relative.  K2's gradients are
 held to the same two tolerances, as are K6's, K7a's and K7b's outputs
@@ -305,11 +314,27 @@ def build_kernels() -> float:
         usage = [ln.strip() for ln in log.splitlines() if "Used" in ln]
         print(f"[build] {name}: {len(usage)} kernel variants; "
               + (usage[0] if usage else "cached"), flush=True)
-        if name.startswith(("ssd_chunk", "flow_fused", "flow_nc_fused")):
+        if name.startswith(("ssd_chunk", "flow_fused", "flow_nc_fused",
+                            "flow_chunk", "flow_decode_q")):
             PTXAS[name] = ptxas_usage(log)
             print(f"[build] {name}: " + json.dumps(PTXAS[name]), flush=True)
     print(f"[build] {secs:.1f} s", flush=True)
+    print("[build] flow_decode_q CTAs per SM (registers and shared memory): "
+          + json.dumps(k4_occupancy()), flush=True)
     return secs
+
+
+def k4_occupancy() -> dict:
+    """CTAs of K4 an SM holds at once, per (dtype, D) at G = 1, from the
+    library's ``flow_decode_q_occupancy`` (the CUDA occupancy calculator on
+    the built kernel)."""
+    from repro_torch.kernels import _lib
+
+    fn = _lib.function("flow_decode_q", "flow_decode_q_occupancy",
+                       [ctypes.c_int] * 3)
+    return {f"{dt}<{d}>": fn(d, code, 1) for dt, code in (("f32", 0),
+                                                          ("bf16", 1))
+            for d in (32, 64, 128)}
 
 
 def ptxas_usage(log: str) -> dict:
@@ -322,6 +347,7 @@ def ptxas_usage(log: str) -> dict:
         if m:
             sym = m.group(1)
             k = re.search(r"\d+((?:ssd|flow)_(?:fwd|bwd)_[a-z0-9]+|"
+                          r"chunk_fwd_[a-z]+|flow_decode_q_kernel|"
                           r"flow_nc_fused_kernel)(I\w*?E(?=v))?", sym)
             targs = (k.group(2) or "") if k else ""
             args = (["bf16"] if "bfloat16" in targs
@@ -594,13 +620,18 @@ def check_flow_chunk() -> dict:
     from repro_torch.kernels.flow_chunk import (flow_chunk_call,
                                                 flow_chunk_dkv_call,
                                                 flow_chunk_dkv_ref,
+                                                flow_chunk_parallel,
                                                 flow_chunk_ref)
 
     with torch.no_grad():
         q, k, v, g = chunk_operands(16 * 8, 1, 512, 64, 64, SEED + 50)
         tag = "fp32 BH=128 G=1 N=512 D=64"
-        e5a = dot_close(f"flow_chunk {tag} out", flow_chunk_call(q, k, v),
-                        flow_chunk_ref(q, k, v))
+        out = flow_chunk_call(q, k, v)
+        e5a = dot_close(f"flow_chunk {tag} out", out, flow_chunk_ref(q, k, v))
+        epar = dot_close(f"flow_chunk {tag} out vs flow_chunk_parallel", out,
+                         flow_chunk_parallel(q, k, v, 64))
+        if not torch.equal(flow_chunk_call(q, k, v), out):
+            raise AssertionError(f"flow_chunk {tag}: two calls differ")
         edq = dot_close(f"flow_chunk {tag} dq (g, v, k)",
                         flow_chunk_call(g, v, k), flow_chunk_ref(g, v, k))
         e5b = max(dot_close(f"flow_chunk_dkv {tag} {name}", a, b)
@@ -608,8 +639,9 @@ def check_flow_chunk() -> dict:
                                         flow_chunk_dkv_call(q, k, v, g),
                                         flow_chunk_dkv_ref(q, k, v, g)))
         torch.cuda.synchronize()
-    print(f"[K5] {tag}: K5a {e5a:.3e}, K5a dq {edq:.3e}, K5b {e5b:.3e}",
-          flush=True)
+    print(f"[K5] {tag}: K5a {e5a:.3e} (vs its chunk decomposition "
+          f"{epar:.3e}; two calls bitwise equal), K5a dq {edq:.3e}, K5b "
+          f"{e5b:.3e}", flush=True)
     b, hkv, grp, n = 4, 8, 2, 200
     for d in (32, 128):
         q, k, v, g = chunk_operands(b * hkv, grp, n, d, d, SEED + 51 + d)
@@ -803,6 +835,20 @@ def check_flow_decode_q() -> dict:
                   f"{err:.3e}, payload share differing <= {flips:.2e}, pool "
                   f"updated in place; free-running plain pool after {steps} "
                   f"steps: {drift} LSB apart (not gated)", flush=True)
+        # two steps from clones of one pool: bitwise equal
+        pool = int8_pool(decode_pool(16, hkv, d, SEED + 4))
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+        q, k, v = decode_token(gen, 16, hkv, g, d, torch.bfloat16)
+        runs = [flow_decode_q_step(clone_pool(pool), q, k, v, cfg)
+                for _ in range(2)]
+        (a, out_a), (b, out_b) = runs
+        if not (torch.equal(out_a, out_b) and all(
+                torch.equal(x, y) for x, y in zip(a.payload + a.scale,
+                                                  b.payload + b.scale))):
+            raise AssertionError("flow_decode_q: two steps from one pool "
+                                 "differ")
+        print("[K4] two steps from clones of one pool: out, payloads, scales "
+              "and z bitwise equal", flush=True)
     return {"max_abs_err": errs[torch.bfloat16]}
 
 
@@ -1195,6 +1241,8 @@ def train_full_width(cfg) -> dict:
 # K1 launches the flow_fwd_* CUDA kernels and K2 the flow_bwd_* ones, and
 # no other kernel's name holds either prefix
 K12 = {"k1_ms_per_step": "flow_fwd_", "k2_ms_per_step": "flow_bwd_"}
+# K5a launches the chunk_fwd_* CUDA kernels (K5b's is flow_chunk_dkv_kernel)
+K5A_KEY = "chunk_fwd_"
 
 
 def paper_causal(cfg, **over):
@@ -2509,8 +2557,10 @@ def time_kernels(launches: dict, errs: dict) -> list:
         {name: PTXAS.get(name, "cached") for name in ("flow_fused",
                                                       "flow_fused_bwd")}),
           flush=True)
-    rows += time_nc_kernels(launches, errs)
+    # K5a's profiler breakdown before K6's ablation builds and timings: late
+    # in the script a profiler session may see no device time at all
     rows += time_chunk_kernels(launches, errs)
+    rows += time_nc_kernels(launches, errs)
     return rows
 
 
@@ -2617,7 +2667,40 @@ def time_chunk_kernels(launches: dict, errs: dict) -> list:
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": errs[name], "ms": ms, "plain_ms": time_ms(plain),
             "bound_ms": bound_ms, "bound_by": by, "library_ms": None})
+    print("[K5a kernels] device ms per call of each CUDA kernel: "
+          + json.dumps(k5_breakdown(q, k, v)), flush=True)
+    print("[K4/K5a kernels] registers and spill bytes: " + json.dumps(
+        {name: PTXAS.get(name, "cached") for name in ("flow_decode_q",
+                                                      "flow_chunk")}),
+          flush=True)
     return rows
+
+
+def k5_breakdown(q, k, v) -> dict | str:
+    """Device ms per call of each CUDA kernel of K5a (``chunk_fwd_state``,
+    ``_pass``, ``_out``) at the given operands, from ``torch.profiler`` over
+    three calls, tried up to three times (a late profiler session may see
+    no device time); "not measured" where none saw any."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.flow_chunk import flow_chunk_call
+
+    for _ in range(3):
+        times = {}
+        with torch.no_grad(), profile(
+                activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                flow_chunk_call(q, k, v)
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            m = re.search(K5A_KEY + "[a-z]+", e.key)
+            us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+            if m and us:
+                times[m.group(0)] = us / e.count / 1e3
+        if times:
+            return times
+    return "not measured"
 
 
 def nc_fused_tensor_core_bound(bh: int, nq: int, m: int, d: int,
@@ -2993,7 +3076,7 @@ def main() -> int:
     train_fp32_both_paths(cfg)
     paper = train_paper_causal_full_width(cfg)
     profile_train(paper_causal(cfg), paper["step_ms"],
-                  kernels={"k5a_ms_per_step": "flow_chunk_kernel",
+                  kernels={"k5a_ms_per_step": K5A_KEY,
                            "k5b_ms_per_step": "flow_chunk_dkv_kernel"},
                   tag="train paper-causal")
     train_paper_fp32_both_paths(cfg)

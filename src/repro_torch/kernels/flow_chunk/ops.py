@@ -29,7 +29,7 @@ from repro_torch.kernels.flow_chunk.ref import flow_chunk_ref
 __all__ = ["LAUNCHES", "check_dims", "flow_chunk_call", "flow_chunk_dkv_call"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_FWD_ARGTYPES = [_P] * 4 + [_I] * 5 + [_P]
+_FWD_ARGTYPES = [_P] * 5 + [_I] * 5 + [_P]
 _DKV_ARGTYPES = [_P] * 6 + [_I] * 5 + [_P]
 
 
@@ -72,10 +72,24 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return bh, g, n, d, dv
 
 
+def workspace(q: torch.Tensor, bh: int, g: int, n: int, d: int,
+              dv: int) -> torch.Tensor:
+    """The fp32 scratch K5a needs at these shapes (its chunk states), from
+    the library's own ``flow_chunk_workspace`` count; the kernels allocate
+    nothing."""
+    size = _lib.function("flow_chunk", "flow_chunk_workspace", [_I] * 5,
+                         ctypes.c_longlong)(bh, g, n, d, dv)
+    if size < 0:
+        raise ValueError(f"flow_chunk refuses G={g}, N={n}, D={d}, Dv={dv}")
+    return torch.empty(max(size, 4), dtype=torch.float32, device=q.device)
+
+
 def flow_chunk_call(q: torch.Tensor, k: torch.Tensor,
                     v: torch.Tensor) -> torch.Tensor:
     """The causal dot (K5a).  q: (BH, G, N, D); k: (BH, N, D); v: (BH, N,
-    Dv) -> (BH, G, N, Dv) in q's dtype."""
+    Dv) -> (BH, G, N, Dv) in q's dtype.  One call is one count in
+    ``LAUNCHES`` and up to three CUDA kernels (chunk states, their prefix,
+    the per-chunk products) on one ``workspace``."""
     if q.device.type == "cpu":
         return flow_chunk_ref(q, k, v)
     bh, g, n, d, dv = _check(q, k, v)
@@ -85,10 +99,11 @@ def flow_chunk_call(q: torch.Tensor, k: torch.Tensor,
     out = torch.empty((bh, g, n, dv), dtype=q.dtype, device=q.device)
     if bh == 0:
         return out
+    work = workspace(q, bh, g, n, d, dv)
     fn = _lib.function("flow_chunk", "flow_chunk_fwd", _FWD_ARGTYPES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, g,
-             n, d, dv, stream)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             work.data_ptr(), bh, g, n, d, dv, stream)
     _lib.check(fn, err, "flow_chunk")
     LAUNCHES["flow_chunk"] += 1
     return out

@@ -62,6 +62,10 @@ def flow_decode_q_call(t, q, k, v, sum_payloads, s_payload, sum_scales,
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous (pool: a view of the "
                              "Worker's pool, never a copy)")
+    for name, x in zip(("q",) + names[1:8], (q,) + tensors[1:8]):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (the kernel's "
+                             "vector loads)")
     if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q/k/v must share fp32 or bf16, got "
                          f"{q.dtype}/{k.dtype}/{v.dtype}")

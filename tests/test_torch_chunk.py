@@ -5,6 +5,10 @@ flow_chunk Pallas kernels in interpret mode, its XLA scans and its
 pipeline) and through the port on CPU tensors, where the kernel wrappers
 run their plain versions:
 
+* ``flow_chunk_parallel`` (K5a's own decomposition: chunk states, their
+  prefix, per-chunk products) at chunks 16-64, G 1-3, N 1-512 ragged
+  against the chunk and D != Dv, forward and dq operands, against
+  ``repro.kernels.flow_chunk.flow_chunk_call``;
 * ``flow_chunk_ref``, ``chunked_causal_dot_grouped`` and the kernel glue
   ``chunked_causal_dot_cuda`` (N = 200 padded to the chunk) against
   ``repro.kernels.flow_chunk.flow_chunk_call``; ``flow_chunk_dkv_ref``
@@ -59,7 +63,8 @@ from repro_torch.core.reference import flow_attention_causal_ref  # noqa: E402
 from repro_torch.kernels import LAUNCHES  # noqa: E402
 from repro_torch.kernels.flow_chunk import (flow_chunk_call,  # noqa: E402
                                             flow_chunk_dkv_call,
-                                            flow_chunk_dkv_ref, flow_chunk_ref)
+                                            flow_chunk_dkv_ref,
+                                            flow_chunk_parallel, flow_chunk_ref)
 
 RTOL, ATOL = 2e-4, 2e-5
 
@@ -115,6 +120,36 @@ def test_flow_chunk_plain_versions_match_pallas(g, n, d, dv, chunk):
         close(dk, j_dk, f"{fn.__name__} dk")
         close(dv_, j_dv, f"{fn.__name__} dv")
     assert LAUNCHES == before, "the CPU path must not count a launch"
+
+
+# (chunk, G, N, Dk, Dv, swap): K5a's chunk-parallel twin; N ragged against
+# the chunk, and swap = the backward's dq (cotangent, v, k) operands
+PARALLEL_CASES = [
+    (16, 1, 1, 32, 128, False), (16, 2, 130, 64, 32, True),
+    (16, 3, 200, 64, 64, False), (16, 1, 512, 128, 128, False),
+    (32, 1, 512, 64, 64, False), (32, 2, 1, 128, 128, True),
+    (32, 3, 130, 32, 128, False), (32, 2, 200, 64, 32, False),
+    (64, 1, 200, 128, 128, False), (64, 2, 512, 64, 32, False),
+    (64, 3, 130, 64, 64, True), (64, 1, 512, 32, 128, True)]
+
+
+@pytest.mark.parametrize("chunk,g,n,d,dv,swap", PARALLEL_CASES)
+def test_flow_chunk_parallel_matches_pallas(chunk, g, n, d, dv, swap):
+    """``flow_chunk_parallel`` (chunk states, their exclusive prefix in
+    order, per-chunk products; the last chunk ragged) against the
+    reference kernel on the operands zero-padded to its chunk."""
+    rng = np.random.default_rng(n + 7 * g + d + dv + chunk)
+    q, k, v, cot = dot_operands(rng, (2,), g, n, d, dv)
+    if swap:
+        q, k, v = cot, v, k
+    n_pad = -(-n // chunk) * chunk
+    pad = lambda x: np.pad(x, [(0, 0)] * (x.ndim - 2)  # noqa: E731
+                           + [(0, n_pad - n), (0, 0)])
+    want = j_chunk_call(*(jnp.asarray(pad(x)) for x in (q, k, v)),
+                        chunk=chunk, interpret=True)
+    got = flow_chunk_parallel(t(q), t(k), t(v), chunk)
+    assert got.shape == q.shape[:-1] + (v.shape[-1],)
+    close(got, np.asarray(want)[:, :, :n], "flow_chunk_parallel")
 
 
 @pytest.mark.parametrize("g,n,d,dv,chunk", DOT_CASES)

@@ -6,9 +6,11 @@ test here skips with that reason.  On a machine with one:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerance: |kernel - plain| <= 1e-4 + 1e-4 |plain| in fp32 (the same fp32
-terms summed in another order, no TF32 on either side), 1e-2 + 1e-2 |plain|
-in bf16 (both round once from fp32; K6's products run in 3xTF32, whose
-error is that of fp32's order); training losses rtol 1e-4 and
+terms summed in another order; no TF32 on either side but in K6's and
+K5a's products, which run in 3xTF32 (each operand split into a tf32 head
+and rest, three tensor-core products) and are held to the same
+tolerances), 1e-2 + 1e-2 |plain| in bf16 (both
+round once from fp32); training losses rtol 1e-4 and
 attention gradients within 1e-4 of each leaf's max |grad|.  The causal
 dot (K5a, K5b) is held to 1e-4 + 1e-4 |plain| + 1e-4 max |plain|: it sums
 N D terms whose size is that of its largest outputs, so an output that
@@ -40,7 +42,8 @@ from repro_torch.kernels import LAUNCHES, reset_launches  # noqa: E402
 from repro_torch.kernels._lib import KERNELS  # noqa: E402
 from repro_torch.kernels.flow_chunk import (flow_chunk_call,  # noqa: E402
                                             flow_chunk_dkv_call,
-                                            flow_chunk_dkv_ref, flow_chunk_ref)
+                                            flow_chunk_dkv_ref,
+                                            flow_chunk_parallel, flow_chunk_ref)
 from repro_torch.kernels.flow_decode import (flow_decode_call,  # noqa: E402
                                              flow_decode_q_call,
                                              flow_decode_q_step,
@@ -474,6 +477,22 @@ def test_flow_chunk_kernels_match_plain(gen, g, n, d, dv):
         flow_chunk_call(q.bfloat16(), k.bfloat16(), v.bfloat16())
 
 
+@pytest.mark.parametrize("g,n,d,dv", [(1, 512, 64, 64), (2, 1, 64, 64),
+                                      (1, 1, 128, 32), (3, 130, 64, 32),
+                                      (2, 200, 128, 128), (1, 97, 32, 128)])
+def test_flow_chunk_kernel_matches_its_decomposition(gen, g, n, d, dv):
+    """K5a against ``flow_chunk_parallel`` at the kernel's own chunk (64,
+    32 at a width of 128), N = 1 and a ragged last chunk included, and on
+    the backward's dq operands; two calls bitwise equal."""
+    q, k, v, cot = dot_operands(gen, 4, g, n, d, dv)
+    chunk = 32 if max(d, dv) >= 128 else 64
+    out = flow_chunk_call(q, k, v)
+    assert_dot_close(out, flow_chunk_parallel(q, k, v, chunk))
+    assert_dot_close(flow_chunk_call(cot, v, k),
+                     flow_chunk_parallel(cot, v, k, chunk))
+    assert torch.equal(flow_chunk_call(q, k, v), out)
+
+
 def test_flow_chunk_call_refuses_autograd_outside_flow_chunk_dot(gen):
     q, k, v, _ = dot_operands(gen, 2, 2, 40, 32, 64)
     q.requires_grad_(True)
@@ -581,6 +600,29 @@ def test_flow_decode_q_kernel_matches_plain_in_place(gen, g, d, phi, dtype):
         assert_int8_pool_close(pool, quantize_like(before, new))
     assert LAUNCHES == {**dict.fromkeys(KERNELS, 0), "flow_decode_q": 4}
     assert [x.data_ptr() for x in pool.payload + pool.scale] == ptrs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,d", [(1, 64), (2, 32), (1, 128)])
+def test_flow_decode_q_kernel_is_deterministic(gen, g, d, dtype):
+    """Two steps from clones of one pool: out, payloads, scales and z
+    bitwise equal."""
+    slots, hkv = 5, 2
+    cfg = FlowConfig(causal=True, strict_causal=True)
+    pool = int8_pool(gen, slots, hkv, d)
+    q = torch.randn((slots, hkv * g, 1, d), generator=gen,
+                    device="cuda").to(dtype)
+    k = torch.randn((slots, hkv, 1, d), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((slots, hkv, 1, d), generator=gen, device="cuda").to(dtype)
+    runs = []
+    for _ in range(2):
+        copy = pool.with_state(FlowState(*(x.clone() for x in pool.payload)),
+                               FlowState(*(x.clone() for x in pool.scale)))
+        runs.append(flow_decode_q_step(copy, q, k, v, cfg))
+    (a, out_a), (b, out_b) = runs
+    assert torch.equal(out_a, out_b)
+    for x, y in zip(a.payload + a.scale, b.payload + b.scale):
+        assert torch.equal(x, y)
 
 
 def test_flow_decode_q_wrapper_refuses_a_copy_or_another_payload(gen):

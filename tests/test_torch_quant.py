@@ -47,6 +47,7 @@ from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.core.flow_attention import FlowConfig  # noqa: E402
 from repro_torch.interop import flow_pool_from_numpy, params_from_numpy  # noqa: E402
 from repro_torch.kernels.flow_decode import (flow_decode_q_ref,  # noqa: E402
+                                             flow_decode_q_split,
                                              flow_decode_q_step)
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.layers.attention import plan_of  # noqa: E402
@@ -210,14 +211,15 @@ def test_flow_decode_q_step_matches_reference_kernel(phi, hq, hkv):
         assert (err <= np.broadcast_to(sc + 1e-5, err.shape)).all(), name
 
 
-@pytest.mark.parametrize("phi,hq,hkv", CASES[:2] + CASES[-1:])
-def test_flow_decode_q_ref_matches_reference_call(phi, hq, hkv):
-    """At the kernel's flat (BH, ...) shapes, against the reference's
-    ``flow_decode_q_call`` (interpret mode)."""
-    st, q, k, v = decode_case(hq, hkv, seed=3)
+def flat_reference_step(phi, hq, hkv, seed, d, port_fn):
+    """One step at the kernel's flat (BH, ...) shapes through ``port_fn``
+    (``flow_decode_q_ref`` or ``flow_decode_q_split``) and through the
+    reference's ``flow_decode_q_call`` (interpret mode), held together with
+    the module's tolerances."""
+    st, q, k, v = decode_case(hq, hkv, seed=seed, d=d)
     _, jpool = both_pools(st)
     p, sc = jpool.payload, jpool.scale
-    b, _, _, d = q.shape
+    b = q.shape[0]
     bh, g = b * hkv, hq // hkv
     t = st["t"] + 1
     flat = lambda x, *s: np.asarray(x).reshape(bh, *s)  # noqa: E731
@@ -234,7 +236,7 @@ def test_flow_decode_q_ref_matches_reference_call(phi, hq, hkv):
         jnp.asarray(flat(p.z, 1)), eps=1e-6, phi=phi, use_allocation=True,
         qmax=127.0, is_int=True, interpret=True)
     tt = lambda x: torch.from_numpy(np.array(x))  # noqa: E731  writable
-    out, new_pays, s_pay, new_scs, s_sc, z = flow_decode_q_ref(
+    out, new_pays, s_pay, new_scs, s_sc, z = port_fn(
         tt(t), tt(qf), tt(kf), tt(vf), tuple(map(tt, pays)),
         tt(flat(p.s, d, d)), tuple(map(tt, scs)), tt(flat(sc.s, 1)),
         tt(flat(p.z)), hkv=hkv, phi=phi)
@@ -246,6 +248,22 @@ def test_flow_decode_q_ref_matches_reference_call(phi, hq, hkv):
         np.testing.assert_allclose(a.numpy(), np.asarray(b_), rtol=1e-5)
     np.testing.assert_allclose(z.numpy(), np.asarray(jres[5])[:, 0],
                                rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("phi,hq,hkv", CASES[:2] + CASES[-1:])
+def test_flow_decode_q_ref_matches_reference_call(phi, hq, hkv):
+    """At the kernel's flat (BH, ...) shapes, against the reference's
+    ``flow_decode_q_call`` (interpret mode)."""
+    flat_reference_step(phi, hq, hkv, 3, 16, flow_decode_q_ref)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("phi,hq,hkv", CASES)
+def test_flow_decode_q_split_matches_reference_call(phi, hq, hkv, d):
+    """K4's reordered algebra (``flow_decode_q_split``: the output from
+    deq(S) and phi(q) . phi(k) instead of the new S) against the
+    reference's ``flow_decode_q_call`` (interpret mode), G = 1 and 2."""
+    flat_reference_step(phi, hq, hkv, 5 + d, d, flow_decode_q_split)
 
 
 @pytest.mark.parametrize("phi", ["sigmoid", "relu"])
