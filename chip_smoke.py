@@ -56,10 +56,15 @@ any failure raises, so the exit code is non-zero:
      128 pages x 8 kv heads x 64 positions, D = Dv = 64; 16 slots x 8
      pages) and at Hkv 2, page 8, D 16, Dv 32, with pools and outputs in
      bf16 and fp32 (K8b: int8 payloads, fp32 scales); tables shuffled,
-     partly mapped, with a row of sentinels (a dead slot);
+     partly mapped, with a row of sentinels (a dead slot); also at page 5,
+     D 24, Dv 40 (runs the copy engine does not take: scales of 20 bytes,
+     widths not a multiple of 16); two K8b calls bitwise equal;
   4. K3 ``flow_decode`` against its plain version: 16 (the serving pool)
      and 64 slots x 8 kv heads, 32 steps from a non-zero state, updated
-     in place;
+     in place; at every step also against ``flow_decode_split`` (the
+     kernel's own order) from a copy of the kernel's pre-step pool; and
+     two K3 steps from clones of one pool (16 slots, bf16) bitwise equal
+     in out and in every state tensor;
   4b. K4 ``flow_decode_q`` against its plain version on an int8 pool (phase
      4's pool, quantized): 16 and 64 slots x 8 kv heads, D = 64, bf16 and
      fp32 tokens, 32 steps; at every step the plain version starts from a
@@ -96,7 +101,7 @@ any failure raises, so the exit code is non-zero:
      and nothing else; decode and prefill tokens/s, the admission passes
      the pool held back, ``pool_bytes`` beside the dense pools', and every
      page free after the drain; then ``torch.profiler`` over decode steps
-     as in 5b;
+     as in 5b, with the gather kernel's device ms per step;
   17b. phase 17 from int8 pools: exactly 6 K8b per decode step, no K8a;
   18. the paged Engine in fp32 at full width, phase 6's 12 requests: on
      the kernels and on the plain path (the layer's gathers bound with
@@ -176,12 +181,13 @@ any failure raises, so the exit code is non-zero:
      the device time of each CUDA kernel of one K1 call (serving and
      training shape) and one K2 call (``k12_breakdown``: the ``flow_fwd_``
      and ``flow_bwd_`` kernels) with their registers and spill bytes from
-     the build, K3 and K4 at 16 and 1,024 slots x 8 kv heads (K4's
-     registers, spills and CTAs per SM beside), K5a's CUDA kernels at the
-     training shape (``k5_breakdown``: the ``chunk_fwd_`` kernels), K8a
-     and K8b at one layer's gather of phase 17's step with every slot's 8
-     pages mapped (their library yardstick ``torch.index_select`` of the pools by the
-     flattened table, without the relayout), K9 at one admission's
+     the build, K3 and K4 at 16 and 1,024 slots x 8 kv heads (their
+     registers, spills and CTAs per SM beside, and K3's launch floor),
+     K5a's CUDA kernels at the training shape (``k5_breakdown``: the
+     ``chunk_fwd_`` kernels), K8a and K8b at one layer's gather of phase
+     17's step with every slot's 8 pages mapped (their library yardstick
+     ``torch.index_select`` of the pools by the flattened table, without
+     the relayout; K8b's launch floor beside), K9 at one admission's
      x stream (16 x 512 x 4,096 bf16; its library yardstick the padded
      ``torch.take_along_dim``) and at one layer's three streams in one
      launch, against three one-stream launches, three padded
@@ -265,6 +271,7 @@ TF32_FLOPS = 495e12  # tensor cores, dense
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1e-2)}
 STATE_TOL = (1e-4, 1e-4)
 STATE_FIELDS = ("q_sum", "k_sum", "ko_sum", "qi_sum", "z", "s")
+STATE_FLAT = ("k_sum", "q_sum", "ko_sum", "qi_sum", "z", "s")  # flow_decode's
 
 
 def setup():
@@ -315,23 +322,24 @@ def build_kernels() -> float:
         print(f"[build] {name}: {len(usage)} kernel variants; "
               + (usage[0] if usage else "cached"), flush=True)
         if name.startswith(("ssd_chunk", "flow_fused", "flow_nc_fused",
-                            "flow_chunk", "flow_decode_q")):
+                            "flow_chunk", "flow_decode", "paged_gather")):
             PTXAS[name] = ptxas_usage(log)
             print(f"[build] {name}: " + json.dumps(PTXAS[name]), flush=True)
     print(f"[build] {secs:.1f} s", flush=True)
-    print("[build] flow_decode_q CTAs per SM (registers and shared memory): "
-          + json.dumps(k4_occupancy()), flush=True)
+    for name in ("flow_decode", "flow_decode_q"):
+        print(f"[build] {name} CTAs per SM (registers and shared memory): "
+              + json.dumps(decode_occupancy(name)), flush=True)
     return secs
 
 
-def k4_occupancy() -> dict:
-    """CTAs of K4 an SM holds at once, per (dtype, D) at G = 1, from the
-    library's ``flow_decode_q_occupancy`` (the CUDA occupancy calculator on
-    the built kernel)."""
+def decode_occupancy(name: str) -> dict:
+    """CTAs of K3 (``name`` flow_decode) or K4 (flow_decode_q) an SM holds
+    at once, per (dtype, D) at G = 1, from the library's
+    ``<name>_occupancy`` (the CUDA occupancy calculator on the built
+    kernel)."""
     from repro_torch.kernels import _lib
 
-    fn = _lib.function("flow_decode_q", "flow_decode_q_occupancy",
-                       [ctypes.c_int] * 3)
+    fn = _lib.function(name, f"{name}_occupancy", [ctypes.c_int] * 3)
     return {f"{dt}<{d}>": fn(d, code, 1) for dt, code in (("f32", 0),
                                                           ("bf16", 1))
             for d in (32, 64, 128)}
@@ -347,8 +355,9 @@ def ptxas_usage(log: str) -> dict:
         if m:
             sym = m.group(1)
             k = re.search(r"\d+((?:ssd|flow)_(?:fwd|bwd)_[a-z0-9]+|"
-                          r"chunk_fwd_[a-z]+|flow_decode_q_kernel|"
-                          r"flow_nc_fused_kernel)(I\w*?E(?=v))?", sym)
+                          r"chunk_fwd_[a-z]+|flow_decode(?:_q)?_kernel|"
+                          r"flow_nc_fused_kernel|paged_gather"
+                          r"(?:_quant(?:_page)?)?_kernel)(I\w*?E(?=v))?", sym)
             targs = (k.group(2) or "") if k else ""
             args = (["bf16"] if "bfloat16" in targs
                     else ["f32"] if targs.startswith("If") else [])
@@ -683,13 +692,25 @@ def decode_token(gen, slots, hkv, g, d, dtype):
     return mk(slots, hkv * g, 1, d), mk(slots, hkv, 1, d), mk(slots, hkv, 1, d)
 
 
+def flat_pool(pool):
+    """A FlowState pool's state tensors as views in flow_decode's flat
+    layout (k, q, ko, qi sums, z, s)."""
+    bh = pool.s.shape[0] * pool.s.shape[1]
+    return [x.view((bh,) + x.shape[2:]) for x in
+            (pool.k_sum, pool.q_sum, pool.ko_sum, pool.qi_sum, pool.z,
+             pool.s)]
+
+
 def check_flow_decode() -> dict:
     """Phase 4: K3 against its plain version over 32 steps, on the serving
-    run's 16-slot pool and on 64 slots; returns the bf16 output's max
-    |error|."""
+    run's 16-slot pool and on 64 slots, and at each step against
+    ``flow_decode_split`` from a copy of the kernel's pre-step pool; then
+    two steps from clones of one pool, bitwise; returns the bf16 output's
+    max |error| against the plain version."""
     from repro_torch.attention.recurrent import FlowState, decode_step
     from repro_torch.core.flow_attention import FlowConfig
-    from repro_torch.kernels.flow_decode import flow_decode_step
+    from repro_torch.kernels.flow_decode import (flow_decode_split,
+                                                 flow_decode_step)
 
     hkv, g, d, steps = 8, 1, 64, 32
     cfg = FlowConfig(causal=True, strict_causal=True)
@@ -702,9 +723,14 @@ def check_flow_decode() -> dict:
             ptrs = [x.data_ptr() for x in pool]
             gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
             tag = f"flow_decode {str(dtype)[6:]} {slots} slots"
-            err = 0.0
+            err, err_split = 0.0, 0.0
+            bh = slots * hkv
             for step in range(steps):
                 q, k, v = decode_token(gen, slots, hkv, g, d, dtype)
+                before = [x.clone() for x in flat_pool(pool)]
+                split, split_st = flow_decode_split(
+                    pool.t + 1, q.reshape(bh, g, d), k.reshape(bh, d),
+                    v.reshape(bh, d), *before, hkv=hkv)
                 same, out = flow_decode_step(pool, q, k, v, cfg)
                 plain, ref = decode_step(plain, q, k, v, cfg)
                 torch.cuda.synchronize()
@@ -713,6 +739,12 @@ def check_flow_decode() -> dict:
                                          "tensors, not the pool")
                 err = max(err, max_err(f"{tag} out step {step}", out, ref,
                                        TOL[dtype]))
+                err_split = max(err_split, max_err(
+                    f"{tag} out step {step} vs split",
+                    out.reshape(split.shape), split, TOL[dtype]))
+                for name, a, b in zip(STATE_FLAT, flat_pool(pool), split_st):
+                    max_err(f"{tag} {name} step {step} vs split", a, b,
+                            STATE_TOL)
             if [x.data_ptr() for x in pool] != ptrs:
                 raise AssertionError(f"{tag}: the pool moved")
             if not torch.equal(pool.t, plain.t):
@@ -722,7 +754,22 @@ def check_flow_decode() -> dict:
                                 STATE_TOL) for name in STATE_FIELDS)
             errs[dtype] = max(errs[dtype], err)
             print(f"[K3] {tag} x {steps} steps: out {err:.3e}, state "
-                  f"{worst:.3e}, pool updated in place", flush=True)
+                  f"{worst:.3e}, pool updated in place; against "
+                  f"flow_decode_split (teacher-forced) out {err_split:.3e}",
+                  flush=True)
+        # two steps from clones of one pool: bitwise equal
+        pool = decode_pool(16, hkv, d, SEED + 4)
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+        q, k, v = decode_token(gen, 16, hkv, g, d, torch.bfloat16)
+        runs = [flow_decode_step(FlowState(*(x.clone() for x in pool)), q, k,
+                                 v, cfg) for _ in range(2)]
+        (a, out_a), (b, out_b) = runs
+        if not (torch.equal(out_a, out_b)
+                and all(torch.equal(x, y) for x, y in zip(a, b))):
+            raise AssertionError("flow_decode: two steps from one pool "
+                                 "differ")
+        print("[K3] two steps from clones of one pool: out and every state "
+              "tensor bitwise equal", flush=True)
     return {"max_abs_err": errs[torch.bfloat16]}
 
 
@@ -1071,6 +1118,9 @@ def profile_decode(params, cfg, step_ms: float, state_dtype=None,
         "host_ms_per_step_by_op_profiled": {
             e.key[:80]: e.self_cpu_time_total / 1e3 / steps
             for e in top_host}}
+    if paged is not None:  # K8a's kernel (17) or K8b's (17b)
+        stats["paged_gather_ms_per_step"] = sum(
+            dev_us(e) for e in dev if "paged_gather" in e.key) / 1e3 / steps
     tag = "decode" + ("" if paged is None else " softmax paged") + (
         "" if state_dtype is None else f", {state_dtype} pools")
     print(f"[profile {tag}] " + json.dumps(stats), flush=True)
@@ -1992,8 +2042,10 @@ def train_ssd_fp32_both_paths(cfg, steps=3):
 PAGE = 64  # the serving page size (``--page-size``'s default)
 PAGED_POOL = 64  # pages: half the dense-equivalent 16 x 512 / 64 = 128
 #: (P, Hkv, page, D, Dv, B, MP): the serving shape (the dense-equivalent
-#: pool), and a narrow one with D != Dv
-PAGED_SHAPES = ((128, 8, PAGE, 64, 64, 16, 8), (32, 2, 8, 16, 32, 5, 6))
+#: pool), a narrow one with D != Dv, and one whose runs K8b's copy engine
+#: does not take (page 5: 20 bytes of scales; widths not a multiple of 16)
+PAGED_SHAPES = ((128, 8, PAGE, 64, 64, 16, 8), (32, 2, 8, 16, 32, 5, 6),
+                (12, 2, 5, 24, 40, 3, 3))
 
 
 def softmax_cfg(cfg):
@@ -2023,7 +2075,8 @@ def paged_operands(p, hkv, page, d, dv, b, mp, seed):
 
 def check_paged_gather() -> dict:
     """Phase 3f: K8a and K8b against their plain versions, exactly, at the
-    serving shape and a narrow one, bf16 and fp32 pools and outputs."""
+    serving shape, a narrow one and an odd one, bf16 and fp32 pools and
+    outputs; two K8b calls bitwise equal."""
     from repro_torch.kernels.gather import (paged_gather, paged_gather_quant,
                                             paged_gather_quant_ref,
                                             paged_gather_ref)
@@ -2041,14 +2094,21 @@ def check_paged_gather() -> dict:
                                            out_dtype=dtype),
                         paged_gather_quant_ref(kq, vq, ks, vs, table,
                                                out_dtype=dtype))}
+                again = paged_gather_quant(kq, vq, ks, vs, table,
+                                           out_dtype=dtype)
             torch.cuda.synchronize()
             for name, (got, want) in cases.items():
                 for part, a, b in zip("kv", got, want):
                     if a.dtype != dtype or not torch.equal(a, b):
                         raise AssertionError(f"{name} {part} {shape} {dtype}:"
                                              " not exact")
+            if not all(torch.equal(a, b) for a, b in
+                       zip(again, cases["paged_gather_quant"][0])):
+                raise AssertionError(f"paged_gather_quant {shape} {dtype}: "
+                                     "two calls differ")
     print(f"[K8] K8a and K8b at (P, Hkv, page, D, Dv, B, MP) {PAGED_SHAPES}, "
-          "bf16 and fp32, sentinel rows: exact", flush=True)
+          "bf16 and fp32, sentinel rows: exact; two K8b calls bitwise "
+          "equal", flush=True)
     return {"paged_gather": 0.0, "paged_gather_quant": 0.0}
 
 
@@ -2339,7 +2399,27 @@ def time_paged_kernels(launches: dict, errs: dict) -> list:
                 "plain_ms": time_ms(plain), "bound_ms": bound_ms,
                 "bound_by": by, "library_ms": time_ms(library),
                 "library": what})
+        rows[-1]["launch_floor_ms"] = launch_floor_ms()
+    print("[K8] device ms: " + json.dumps(
+        {row["name"]: row["ms"] for row in rows}
+        | {"launch_floor_ms": rows[-1]["launch_floor_ms"]}), flush=True)
     return rows
+
+
+def launch_floor_ms() -> float:
+    """``time_ms`` of an empty kernel (``boundary_gather_empty``, built with
+    K9): the card's launch floor under the same timing."""
+    from repro_torch.kernels import _lib
+
+    empty = _lib.function("boundary_gather", "boundary_gather_empty",
+                          [ctypes.c_void_p])
+
+    def launch():
+        err = empty(torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"empty kernel: cudaError {err}")
+
+    return time_ms(launch)
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -2532,9 +2612,7 @@ def time_kernels(launches: dict, errs: dict) -> list:
         gen = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
         tq, tk, tv = decode_token(gen, slots, hkv, 1, d, torch.bfloat16)
         bh = slots * hkv
-        flat = [x.view((bh,) + x.shape[2:]) for x in
-                (pool.k_sum, pool.q_sum, pool.ko_sum, pool.qi_sum, pool.z,
-                 pool.s)]
+        flat = flat_pool(pool)
         args = (pool.t, tq.reshape(bh, 1, d), tk.reshape(bh, d),
                 tv.reshape(bh, d), *flat)
         cfg = FlowConfig(causal=True, strict_causal=True)
@@ -2549,7 +2627,11 @@ def time_kernels(launches: dict, errs: dict) -> list:
             "ms": time_ms(lambda: flow_decode_call(*args, hkv=hkv)),
             "plain_ms": time_ms(lambda: decode_step(pool, tq, tk, tv, cfg)),
             "bound_ms": bound_ms, "bound_by": by, "library_ms": None})
-        rows.append(time_flow_decode_q(launches, errs))
+        k4_row, sizes = time_flow_decode_q(launches, errs)
+        rows[-1].update(ms_1024_slots=sizes[1024]["k3_ms"],
+                        bound_ms_1024_slots=sizes[1024]["k3_bound_ms"],
+                        launch_floor_ms=launch_floor_ms())
+        rows.append(k4_row)
     rows.insert(1, k2_row)
     print("[K1/K2 kernels] device ms per call of each CUDA kernel: "
           + json.dumps(k12_breakdown(serve, train, kw)), flush=True)
@@ -2580,10 +2662,11 @@ def q_step_ops(g: int, d: int) -> int:
     return flow_ops_per_position(g, d, d) + 3 * (4 * d + d * d)
 
 
-def time_flow_decode_q(launches: dict, errs: dict) -> dict:
+def time_flow_decode_q(launches: dict, errs: dict) -> tuple[dict, dict]:
     """Phase 9, K4: one layer's decode step of the 16-slot int8 pool (bf16
     tokens, 8 kv heads, D = 64); then K3 and K4 at 16 and 1,024 slots, so
-    that the int8 pool's byte saving is measured, not assumed."""
+    that the int8 pool's byte saving is measured, not assumed.  Returns
+    K4's row and the times by slot count."""
     from repro_torch.kernels.flow_decode import (flow_decode_call,
                                                  flow_decode_q_call,
                                                  flow_decode_q_ref)
@@ -2597,9 +2680,7 @@ def time_flow_decode_q(launches: dict, errs: dict) -> dict:
         tq, tk, tv = decode_token(gen, slots, hkv, 1, d, torch.bfloat16)
         bh = slots * hkv
         tok = (tq.reshape(bh, 1, d), tk.reshape(bh, d), tv.reshape(bh, d))
-        flat = [x.view((bh,) + x.shape[2:]) for x in
-                (pool.k_sum, pool.q_sum, pool.ko_sum, pool.qi_sum, pool.z,
-                 pool.s)]
+        flat = flat_pool(pool)
         qflat = flat_q_pool(qpool)
         k3 = time_ms(lambda: flow_decode_call(pool.t, *tok, *flat, hkv=hkv))
         k4 = time_ms(lambda: flow_decode_q_call(qpool.payload.t, *tok, *qflat,
@@ -2626,7 +2707,7 @@ def time_flow_decode_q(launches: dict, errs: dict) -> dict:
                 "bound_ms": bound_ms, "bound_by": by, "library_ms": None}
     print("[K3 vs K4, 8 kv heads, D = 64, bf16 tokens] " + json.dumps(sizes),
           flush=True)
-    return row
+    return row, sizes
 
 
 def time_chunk_kernels(launches: dict, errs: dict) -> list:
@@ -2669,9 +2750,9 @@ def time_chunk_kernels(launches: dict, errs: dict) -> list:
             "bound_ms": bound_ms, "bound_by": by, "library_ms": None})
     print("[K5a kernels] device ms per call of each CUDA kernel: "
           + json.dumps(k5_breakdown(q, k, v)), flush=True)
-    print("[K4/K5a kernels] registers and spill bytes: " + json.dumps(
-        {name: PTXAS.get(name, "cached") for name in ("flow_decode_q",
-                                                      "flow_chunk")}),
+    print("[K3/K4/K5a/K8 kernels] registers and spill bytes: " + json.dumps(
+        {name: PTXAS.get(name, "cached") for name in (
+            "flow_decode", "flow_decode_q", "flow_chunk", "paged_gather")}),
           flush=True)
     return rows
 
@@ -2855,14 +2936,6 @@ def time_ssd_kernels(launches: dict, errs: dict) -> list:
                                      device=DEVICE), t], dim=1)
               for t in streams]
     idx = (lens.long()[:, None] + torch.arange(3, device=DEVICE))[..., None]
-    empty = _lib.function("boundary_gather", "boundary_gather_empty",
-                          [ctypes.c_void_p])
-
-    def launch_floor():
-        err = empty(torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"empty kernel: cudaError {err}")
-
     with torch.inference_mode():
         bound_ms, by = bound(2 * 16 * 3 * 4096 * 2 + 16 * 4, 0)
         three_bytes = 2 * 16 * 3 * sum(t.shape[2] for t in streams) * 2
@@ -2879,7 +2952,7 @@ def time_ssd_kernels(launches: dict, errs: dict) -> list:
                 padded[0], idx, dim=1)),
             "library": "pad + gather: torch.take_along_dim on the "
                        "zero-padded stream (the pad made once, untimed)",
-            "launch_floor_ms": time_ms(launch_floor),
+            "launch_floor_ms": launch_floor_ms(),
             "three_streams_ms": time_ms(lambda: boundary_gather_many(
                 streams, lens, 4)),
             "three_launches_ms": time_ms(lambda: [

@@ -6,8 +6,9 @@ from repro_torch.kernels.flow_decode.ops import (flow_decode_call,
 from repro_torch.kernels.flow_decode.quant import flow_decode_q_call
 from repro_torch.kernels.flow_decode.ref import (flow_decode_q_ref,
                                                  flow_decode_q_split,
-                                                 flow_decode_ref)
+                                                 flow_decode_ref,
+                                                 flow_decode_split)
 
 __all__ = ["flow_decode_call", "flow_decode_q_call", "flow_decode_q_ref",
            "flow_decode_q_split", "flow_decode_q_step", "flow_decode_ref",
-           "flow_decode_step"]
+           "flow_decode_split", "flow_decode_step"]

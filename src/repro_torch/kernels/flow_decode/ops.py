@@ -60,6 +60,11 @@ def flow_decode_call(t, q, k, v, k_sum, q_sum, ko_sum, qi_sum, z, s, *,
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous (state: a view of "
                              "the pool, never a copy)")
+    for name, x in zip(("q", "k", "v", "k_sum", "q_sum", "ko_sum", "qi_sum",
+                        "s"), (q, k, v, *state[:4], state[5])):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (the kernel's "
+                             "vector loads)")
     if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q/k/v must share fp32 or bf16, got "
                          f"{q.dtype}/{k.dtype}/{v.dtype}")

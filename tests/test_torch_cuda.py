@@ -47,6 +47,7 @@ from repro_torch.kernels.flow_chunk import (flow_chunk_call,  # noqa: E402
 from repro_torch.kernels.flow_decode import (flow_decode_call,  # noqa: E402
                                              flow_decode_q_call,
                                              flow_decode_q_step,
+                                             flow_decode_split,
                                              flow_decode_step)
 from repro_torch.kernels.flow_fused import (flow_fused_bwd_call,  # noqa: E402
                                             flow_fused_bwd_ref,
@@ -122,19 +123,33 @@ def test_flow_fused_kernel_matches_plain(gen, phi, g, n, chunk, d):
         torch.testing.assert_close(a, b_, **TOL)
 
 
-@pytest.mark.parametrize("phi,g,d", [("sigmoid", 1, 64), ("elu1", 2, 32),
-                                     ("relu", 1, 128)])
-def test_flow_decode_kernel_matches_plain_in_place(gen, phi, g, d):
-    slots, hkv = 5, 2
-    cfg = FlowConfig(phi=phi, causal=True, strict_causal=True)
-    pool = FlowState(
-        t=torch.tensor([3, 40, 7, 1, 99], dtype=torch.int32, device="cuda"),
+def decode_pool(gen, slots, hkv, d):
+    """A non-zero FlowState pool of at most 5 slots."""
+    return FlowState(
+        t=torch.tensor([3, 40, 7, 1, 99][:slots], dtype=torch.int32,
+                       device="cuda"),
         q_sum=torch.rand((slots, hkv, d), generator=gen, device="cuda") * 9,
         k_sum=torch.rand((slots, hkv, d), generator=gen, device="cuda") * 9,
         ko_sum=torch.rand((slots, hkv, d), generator=gen, device="cuda") * 9,
         qi_sum=torch.rand((slots, hkv, d), generator=gen, device="cuda") * 9,
         z=torch.rand((slots, hkv), generator=gen, device="cuda") * 9 + 1,
         s=torch.randn((slots, hkv, d, d), generator=gen, device="cuda"))
+
+
+def flat_state(pool):
+    """The pool's state tensors as flow_decode_call's flat views."""
+    bh = pool.s.shape[0] * pool.s.shape[1]
+    return [x.view((bh,) + x.shape[2:]) for x in
+            (pool.k_sum, pool.q_sum, pool.ko_sum, pool.qi_sum, pool.z,
+             pool.s)]
+
+
+@pytest.mark.parametrize("phi,g,d", [("sigmoid", 1, 64), ("elu1", 2, 32),
+                                     ("relu", 1, 128)])
+def test_flow_decode_kernel_matches_plain_in_place(gen, phi, g, d):
+    slots, hkv = 5, 2
+    cfg = FlowConfig(phi=phi, causal=True, strict_causal=True)
+    pool = decode_pool(gen, slots, hkv, d)
     plain = FlowState(*(x.clone() for x in pool))
     ptrs = [x.data_ptr() for x in pool]
     reset_launches()
@@ -150,6 +165,54 @@ def test_flow_decode_kernel_matches_plain_in_place(gen, phi, g, d):
     assert [x.data_ptr() for x in pool] == ptrs
     for a, b_ in zip(pool, plain):
         torch.testing.assert_close(a, b_, **TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("phi,g,d,use_alloc", [
+    ("sigmoid", 1, 64, True), ("elu1", 2, 32, True), ("relu", 1, 128, False),
+    ("sigmoid", 3, 128, True)])
+def test_flow_decode_kernel_matches_its_split_order(gen, phi, g, d,
+                                                    use_alloc, dtype):
+    """Four steps; at each ``flow_decode_split`` (the kernel's own fp32
+    order) starts from a copy of the kernel's pre-step pool."""
+    slots, hkv = 5, 2
+    bh = slots * hkv
+    pool = decode_pool(gen, slots, hkv, d)
+    tol = TOL if dtype == torch.float32 else dict(rtol=1e-2, atol=1e-2)
+    for _ in range(4):
+        q = torch.randn((bh, g, d), generator=gen, device="cuda").to(dtype)
+        k = torch.randn((bh, d), generator=gen, device="cuda").to(dtype)
+        v = torch.randn((bh, d), generator=gen, device="cuda").to(dtype)
+        before = [x.clone() for x in flat_state(pool)]
+        pool.t.add_(1)
+        want, want_st = flow_decode_split(pool.t, q, k, v, *before, hkv=hkv,
+                                          phi=phi, use_alloc=use_alloc)
+        out = flow_decode_call(pool.t, q, k, v, *flat_state(pool), hkv=hkv,
+                               phi=phi, use_alloc=use_alloc)
+        assert out.dtype == dtype
+        torch.testing.assert_close(out, want, **tol)
+        for a, b_ in zip(flat_state(pool), want_st):
+            torch.testing.assert_close(a, b_, **TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,d", [(1, 64), (2, 32), (1, 128)])
+def test_flow_decode_kernel_is_deterministic(gen, g, d, dtype):
+    """Two steps from clones of one pool: out and every state tensor
+    bitwise equal."""
+    slots, hkv = 5, 2
+    cfg = FlowConfig(causal=True, strict_causal=True)
+    pool = decode_pool(gen, slots, hkv, d)
+    q = torch.randn((slots, hkv * g, 1, d), generator=gen,
+                    device="cuda").to(dtype)
+    k = torch.randn((slots, hkv, 1, d), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((slots, hkv, 1, d), generator=gen, device="cuda").to(dtype)
+    runs = [flow_decode_step(FlowState(*(x.clone() for x in pool)), q, k, v,
+                             cfg) for _ in range(2)]
+    (a, out_a), (b, out_b) = runs
+    assert torch.equal(out_a, out_b)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
 
 
 def test_decode_wrapper_refuses_a_copy_of_the_pool(gen):
@@ -850,7 +913,7 @@ def paged_case(gen, p, hkv, page, d, dv, b, mp):
 
 
 PAGED_SHAPES = [(64, 8, 64, 64, 64, 16, 8), (24, 2, 8, 16, 32, 5, 6),
-                (9, 3, 4, 8, 24, 3, 3)]
+                (9, 3, 4, 8, 24, 3, 3), (7, 2, 5, 24, 40, 3, 3)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -872,6 +935,21 @@ def test_paged_gather_kernels_match_plain_exactly(gen, shape, dtype):
     want = paged_gather_quant_ref(kq, vq, ks, vs, table, out_dtype=dtype)
     for a, b in zip(got, want):
         assert a.dtype == dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [PAGED_SHAPES[0], PAGED_SHAPES[3]])
+def test_paged_gather_quant_kernel_is_deterministic(gen, shape, dtype):
+    """Two K8b calls on the same pools: bitwise equal."""
+    kc, vc, table = paged_case(gen, *shape)
+    kq, vq = ((x * 40).round().clamp(-127, 127).to(torch.int8)
+              for x in (kc, vc))
+    ks, vs = (torch.rand(x.shape[:3] + (1,), generator=gen, device="cuda")
+              for x in (kc, vc))
+    runs = [paged_gather_quant(kq, vq, ks, vs, table, out_dtype=dtype)
+            for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 def test_paged_engine_kernels_match_plain_fp32(gen, monkeypatch):

@@ -1,5 +1,5 @@
 """Port vs reference: the plain versions of the flow_fused (K1) and
-flow_decode (K3) kernels.
+flow_decode (K3) kernels, and K3's kernel order (``flow_decode_split``).
 
 The same numpy inputs, made from a seed, go through the JAX package (its
 Pallas kernels in interpret mode, and its plain XLA functions) and through
@@ -26,7 +26,9 @@ from repro_torch.attention import fused as tfused  # noqa: E402
 from repro_torch.attention import recurrent as trec  # noqa: E402
 from repro_torch.core.flow_attention import FlowConfig  # noqa: E402
 from repro_torch.kernels import LAUNCHES  # noqa: E402
-from repro_torch.kernels.flow_decode import flow_decode_call, flow_decode_step  # noqa: E402
+from repro_torch.kernels.flow_decode import (flow_decode_call,  # noqa: E402
+                                             flow_decode_split,
+                                             flow_decode_step)
 from repro_torch.kernels.flow_fused import (flow_fused_call,  # noqa: E402
                                             flow_fused_parallel)
 
@@ -186,6 +188,42 @@ def test_flow_decode_plain_matches_pallas_interpret(phi, g):
                            views):
             close(x, np.reshape(j[name], x.shape), f"{name} step {step}")
     assert LAUNCHES == before, "the CPU path must not count a launch"
+
+
+@pytest.mark.parametrize("use_alloc", [True, False], ids=["alloc", "no_alloc"])
+@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("g", [1, 2, 3])
+@pytest.mark.parametrize("phi", ["sigmoid", "elu1", "relu"])
+def test_flow_decode_split_matches_pallas_interpret(phi, g, d, use_alloc):
+    """K3's kernel order (``flow_decode_split``: the output from the old S
+    plus the token's own term) against the reference kernel in interpret
+    mode, 4 steps from a non-zero state, each side on its own state."""
+    rng = np.random.default_rng(30 + 7 * g + d)
+    b, hkv, steps = 3, 2, 4
+    bh = b * hkv
+    st = random_state(rng, b, hkv, d, 20)
+    st["t"] = np.array([20, 5, 33], np.int32)
+    names = ("k_sum", "q_sum", "ko_sum", "qi_sum", "z", "s")
+    j = {n: jnp.asarray(st[n]).reshape((bh,) + st[n].shape[2:]) for n in names}
+    j["z"] = j["z"].reshape(bh, 1)
+    state = [t(st[n]).reshape((bh,) + st[n].shape[2:]) for n in names]
+    counts = t(st["t"])
+    for step in range(steps):
+        q = rng.standard_normal((bh, g, d)).astype(np.float32)
+        k = rng.standard_normal((bh, d)).astype(np.float32)
+        v = rng.standard_normal((bh, d)).astype(np.float32)
+        tf = np.repeat(st["t"] + step + 1, hkv).astype(np.float32)[:, None]
+        j_out, *new = j_decode_call(
+            jnp.asarray(tf), jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+            *(j[n] for n in names), eps=1e-6, phi=phi,
+            use_allocation=use_alloc, interpret=True)
+        j.update(zip(names, new))
+        counts = counts + 1
+        out, state = flow_decode_split(counts, t(q), t(k), t(v), *state,
+                                       hkv=hkv, phi=phi, use_alloc=use_alloc)
+        close(out, j_out, f"out step {step}")
+        for name, x in zip(names, state):
+            close(x, np.reshape(j[name], x.shape), f"{name} step {step}")
 
 
 def test_decode_step_matches_reference_and_updates_in_place():

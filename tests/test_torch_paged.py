@@ -88,7 +88,10 @@ def as_np(x):
 # ---------------------------------------------------------------------------
 # K8a, K8b: the plain versions against the reference's Pallas kernels
 # ---------------------------------------------------------------------------
-GEOMETRIES = [(6, 2, 4, 8, 8, 3, 3), (5, 1, 8, 16, 32, 2, 4)]  # D = Dv, D != Dv
+# D = Dv, D != Dv, and a page size that is not a multiple of 4 with widths
+# that are not multiples of 16 (runs K8b's copy engine does not take)
+GEOMETRIES = [(6, 2, 4, 8, 8, 3, 3), (5, 1, 8, 16, 32, 2, 4),
+              (7, 2, 5, 24, 40, 3, 3)]
 J_DTYPES = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
 
 
@@ -108,7 +111,8 @@ def gather_case(seed, p, hkv, page, d, dv, b, mp):
 @pytest.mark.parametrize("interpret", [True, None], ids=["pallas", "xla"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
-@pytest.mark.parametrize("geom", GEOMETRIES, ids=["d_eq_dv", "d_ne_dv"])
+@pytest.mark.parametrize("geom", GEOMETRIES,
+                         ids=["d_eq_dv", "d_ne_dv", "odd"])
 def test_paged_gather_ref_matches_reference(geom, dtype, interpret):
     kc, vc, table = gather_case(1, *geom)
     jd = J_DTYPES[dtype]
@@ -125,7 +129,8 @@ def test_paged_gather_ref_matches_reference(geom, dtype, interpret):
 @pytest.mark.parametrize("interpret", [True, None], ids=["pallas", "xla"])
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
-@pytest.mark.parametrize("geom", GEOMETRIES, ids=["d_eq_dv", "d_ne_dv"])
+@pytest.mark.parametrize("geom", GEOMETRIES,
+                         ids=["d_eq_dv", "d_ne_dv", "odd"])
 def test_paged_gather_quant_ref_matches_reference(geom, out_dtype, interpret):
     kc, vc, table = gather_case(2, *geom)
     rng = np.random.default_rng(3)
