@@ -26,16 +26,21 @@ any failure raises, so the exit code is non-zero:
      also at G = 2 (NQ = 400, M = 136), at counts its 16-block clusters do
      not divide (NQ = 4,001, M = 3,999), at NQ = M = 1 (blocks that own no
      rows) and at logits of +-30 (sigmoid saturated), bf16 and fp32, and
-     two calls at the LRA shape bitwise equal;
+     two calls at the LRA shape bitwise equal; K7a and K7b also at D = 32
+     and 128 (16 rows, N = 1,000, M = 700), and K7b at every shape also
+     against its own decomposition (``flow_nc_qside_bwd_parallel`` at the
+     card's rows per block, its fp32 outputs also within
+     ``K7B_TWIN_RTOL``) with two calls bitwise equal;
   3d. K5a ``flow_chunk`` and K5b ``flow_chunk_dkv`` against their plain
      versions at the paper-causal training shape (16 rows x 8 kv heads,
      G = 1, N = 512, D = 64, fp32; operands as the causal pipeline makes
      them), K5a also on the swapped operands of the backward's dq, and at
      G = 2, N = 200 padded to the chunk, D = 32 and 128, through the glue
      and autograd (``FlowChunkDot``) against autograd of the plain cumsum
-     dot; K5a also against its own decomposition
-     (``flow_chunk_parallel``) at the training shape, and two K5a calls
-     there bitwise equal;
+     dot; K5a and K5b also against their own decompositions
+     (``flow_chunk_parallel``, ``flow_chunk_dkv_parallel``) at the training
+     shape, with two calls of each there bitwise equal, and K5b at G = 2,
+     N = 200, D = 32 and 128 too;
   3e. K10a ``ssd_chunk`` (with and without carry-ins) and K10b
      ``ssd_chunk_bwd`` against their plain versions at the mamba2_1p3b
      training shape (B = 4 x H = 64 rows, N = 4,096, P = 64, S = 128,
@@ -133,8 +138,9 @@ any failure raises, so the exit code is non-zero:
   10. the LRA classifier at full width (``launch/classify.py::
      train_eval_classifier``, flowformer_lra, bf16, 5 steps of 32 x 4096
      ListOps tokens, random weights from a seed), then its evaluation over
-     64 held-out examples: finite losses, and exactly 4 K6, 4 K7a and 4
-     K7b launches per step and 4 K6 per eval batch and nothing else; then
+     64 held-out examples: finite losses, and exactly 4 K6 and 4 K7b
+     launches per step (the backward runs no K7a) and 4 K6 per eval batch
+     and nothing else; then
      ``torch.profiler`` over two steps: device time by kernel and busy
      share;
   11. the same classifier in fp32 at full width and 2 layers, once on the
@@ -175,7 +181,7 @@ any failure raises, so the exit code is non-zero:
      version's and its bound, as one ``{"kernels": [...]}`` line
      (``launches`` is the count over the main-path runs of phases 5 and 7
      for K1-K3, of phase 5c for K4 (K1's count includes 5c's), of phase
-     10 for K6, K7a, K7b, of phase 7c for K5a, K5b, of phases 17 and 17b
+     10 for K6, K7a (none), K7b, of phase 7c for K5a, K5b, of phases 17 and 17b
      for K8a and K8b, of phase 13 for K9 and of phase 15 for K10a and
      K10b), K1's time and bound at the training shape (in its row),
      the device time of each CUDA kernel of one K1 call (serving and
@@ -183,8 +189,9 @@ any failure raises, so the exit code is non-zero:
      and ``flow_bwd_`` kernels) with their registers and spill bytes from
      the build, K3 and K4 at 16 and 1,024 slots x 8 kv heads (their
      registers, spills and CTAs per SM beside, and K3's launch floor),
-     K5a's CUDA kernels at the training shape (``k5_breakdown``: the
-     ``chunk_fwd_`` kernels), K8a and K8b at one layer's gather of phase
+     K5a's and K5b's CUDA kernels at the training shape
+     (``chunk_breakdown``: the ``chunk_fwd_`` and ``chunk_bwd_`` kernels;
+     K5b's in its row, ``k5b_breakdown``), K8a and K8b at one layer's gather of phase
      17's step with every slot's 8 pages mapped (their library yardstick
      ``torch.index_select`` of the pools by the flattened table, without
      the relayout; K8b's launch floor beside), K9 at one admission's
@@ -194,6 +201,8 @@ any failure raises, so the exit code is non-zero:
      ``take_along_dim``s and an empty kernel of the same build (the card's
      launch floor), K6's phases by ablation (``k6_breakdown``: variant
      builds that stop before phases B, C and D) and at 8-block clusters,
+     K6's and K7b's bounds where their products run in 3xTF32
+     (``tensor_core_bound_ms``, beside the fp32 ``bound_ms``),
      K10a and K10b at one layer of phase 15
      (their plain versions' ~500-1,000 launches overflow the launch queue,
      so those are timed as one replay of a CUDA graph, ``graph_ms``);
@@ -202,9 +211,12 @@ any failure raises, so the exit code is non-zero:
 Tolerances (|kernel - plain| <= atol + rtol * |plain|, elementwise):
 fp32 outputs and every fp32 state piece rtol 1e-4, atol 1e-4 -- both sides
 sum the same fp32 terms in another order, no TF32 on either side but in
-K6's and K5a's products, which run in 3xTF32 (each operand split into a
-tf32 head and rest, three tensor-core products) and are held to the same
-tolerances; one plain TF32 product fails K5a's; bf16 outputs
+the products of K5a, K5b, K6 and K7b, which run in 3xTF32 (each operand
+split into a tf32 head and rest, three tensor-core products) and are held
+to the same tolerances; one plain TF32 product fails K5a's, K5b's and
+K7b's, and K7b's fp32 outputs are also held to its twin within
+``K7B_TWIN_RTOL`` x max |twin| (6e-6), which catches a sum left to drift
+in the tensor cores' accumulators that TOL lets through; bf16 outputs
 rtol 1e-2, atol 1e-2 -- both compute in fp32 from the same bf16 inputs and
 round once to bf16, whose spacing is 2^-7 relative.  K2's gradients are
 held to the same two tolerances, as are K6's, K7a's and K7b's outputs
@@ -269,6 +281,11 @@ FP32_FLOPS = 67e12
 TF32_FLOPS = 495e12  # tensor cores, dense
 
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1e-2)}
+# K7b's fp32 outputs against its twin, which sums in the same order:
+# |kernel - twin| <= this x max |twin|.  Sound builds read at most 3.8e-6;
+# one whose per-block sums ran on in the tensor cores' accumulators read
+# 1.1e-5 to 1.3e-5, and passed TOL (PERF.md, PR 23)
+K7B_TWIN_RTOL = 6e-6
 STATE_TOL = (1e-4, 1e-4)
 STATE_FIELDS = ("q_sum", "k_sum", "ko_sum", "qi_sum", "z", "s")
 STATE_FLAT = ("k_sum", "q_sum", "ko_sum", "qi_sum", "z", "s")  # flow_decode's
@@ -321,7 +338,7 @@ def build_kernels() -> float:
         usage = [ln.strip() for ln in log.splitlines() if "Used" in ln]
         print(f"[build] {name}: {len(usage)} kernel variants; "
               + (usage[0] if usage else "cached"), flush=True)
-        if name.startswith(("ssd_chunk", "flow_fused", "flow_nc_fused",
+        if name.startswith(("ssd_chunk", "flow_fused", "flow_nc",
                             "flow_chunk", "flow_decode", "paged_gather")):
             PTXAS[name] = ptxas_usage(log)
             print(f"[build] {name}: " + json.dumps(PTXAS[name]), flush=True)
@@ -355,8 +372,8 @@ def ptxas_usage(log: str) -> dict:
         if m:
             sym = m.group(1)
             k = re.search(r"\d+((?:ssd|flow)_(?:fwd|bwd)_[a-z0-9]+|"
-                          r"chunk_fwd_[a-z]+|flow_decode(?:_q)?_kernel|"
-                          r"flow_nc_fused_kernel|paged_gather"
+                          r"chunk_(?:fwd|bwd)_[a-z]+|flow_decode(?:_q)?_kernel|"
+                          r"flow_nc_(?:fused|qside_bwd)_kernel|paged_gather"
                           r"(?:_quant(?:_page)?)?_kernel)(I\w*?E(?=v))?", sym)
             targs = (k.group(2) or "") if k else ""
             args = (["bf16"] if "bfloat16" in targs
@@ -599,6 +616,17 @@ def check_flow_fused_bwd() -> dict:
     return {"max_abs_err": errs[torch.bfloat16]}
 
 
+def twin_close(name: str, got: torch.Tensor, want: torch.Tensor,
+               rtol: float) -> float:
+    """|got - want| / max |want|; raises where it exceeds ``rtol``."""
+    scale = float(want.float().abs().max())
+    rel = float((got.float() - want.float()).abs().max()) / max(scale, 1e-30)
+    if not rel <= rtol:
+        raise AssertionError(f"{name}: |diff| / max |want| {rel:.3e} exceeds "
+                             f"{rtol}")
+    return rel
+
+
 def dot_close(name: str, got: torch.Tensor, want: torch.Tensor,
               tol=TOL[torch.float32]) -> float:
     """Max |got - want|; raises where it exceeds atol + rtol * |want| +
@@ -628,6 +656,7 @@ def check_flow_chunk() -> dict:
     from repro_torch.attention.dots import causal_dot_grouped
     from repro_torch.kernels.flow_chunk import (flow_chunk_call,
                                                 flow_chunk_dkv_call,
+                                                flow_chunk_dkv_parallel,
                                                 flow_chunk_dkv_ref,
                                                 flow_chunk_parallel,
                                                 flow_chunk_ref)
@@ -643,17 +672,38 @@ def check_flow_chunk() -> dict:
             raise AssertionError(f"flow_chunk {tag}: two calls differ")
         edq = dot_close(f"flow_chunk {tag} dq (g, v, k)",
                         flow_chunk_call(g, v, k), flow_chunk_ref(g, v, k))
+        dkv = flow_chunk_dkv_call(q, k, v, g)
         e5b = max(dot_close(f"flow_chunk_dkv {tag} {name}", a, b)
-                  for name, a, b in zip(("dk", "dv"),
-                                        flow_chunk_dkv_call(q, k, v, g),
+                  for name, a, b in zip(("dk", "dv"), dkv,
                                         flow_chunk_dkv_ref(q, k, v, g)))
+        print(f"[K5] {tag}: bound of |K5a - plain|, |K5b dk - plain|, "
+              "|K5b dv - plain|: 1e-4 + 1e-4 |plain| + 1e-4 x " + json.dumps(
+                  [float(x.abs().max()) for x in (flow_chunk_ref(q, k, v),
+                                                  *flow_chunk_dkv_ref(q, k, v,
+                                                                      g))]),
+              flush=True)
+        epar_b = max(dot_close(f"flow_chunk_dkv {tag} {name} vs "
+                               "flow_chunk_dkv_parallel", a, b)
+                     for name, a, b in zip(("dk", "dv"), dkv,
+                                           flow_chunk_dkv_parallel(q, k, v, g,
+                                                                   64)))
+        if not all(map(torch.equal, flow_chunk_dkv_call(q, k, v, g), dkv)):
+            raise AssertionError(f"flow_chunk_dkv {tag}: two calls differ")
         torch.cuda.synchronize()
     print(f"[K5] {tag}: K5a {e5a:.3e} (vs its chunk decomposition "
           f"{epar:.3e}; two calls bitwise equal), K5a dq {edq:.3e}, K5b "
-          f"{e5b:.3e}", flush=True)
+          f"{e5b:.3e} (vs its chunk decomposition {epar_b:.3e}; two calls "
+          "bitwise equal)", flush=True)
     b, hkv, grp, n = 4, 8, 2, 200
     for d in (32, 128):
         q, k, v, g = chunk_operands(b * hkv, grp, n, d, d, SEED + 51 + d)
+        with torch.no_grad():  # K5b on the flat operands, N = 200 unpadded
+            epar_b = max(dot_close(f"flow_chunk_dkv fp32 G=2 N=200 D={d} "
+                                   "vs flow_chunk_dkv_parallel", a, b_)
+                         for a, b_ in zip(flow_chunk_dkv_call(q, k, v, g),
+                                          flow_chunk_dkv_parallel(
+                                              q, k, v, g, 64 if d < 128
+                                              else 32)))
         q, g = q.reshape(b, hkv, grp, n, d), g.reshape(b, hkv, grp, n, d)
         k, v = k.reshape(b, hkv, n, d), v.reshape(b, hkv, n, d)
         leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
@@ -667,7 +717,8 @@ def check_flow_chunk() -> dict:
                      out, leaves, g), torch.autograd.grad(want, plain, g)))
         torch.cuda.synchronize()
         print(f"[K5] {tag}: out {e:.3e}, grads through FlowChunkDot "
-              f"{eg:.3e}", flush=True)
+              f"{eg:.3e}, K5b vs its chunk decomposition {epar_b:.3e}",
+              flush=True)
     return {"flow_chunk": e5a, "flow_chunk_dkv": e5b}
 
 
@@ -919,9 +970,31 @@ def check_flow_nc() -> dict:
                                              flow_nc_fused_call,
                                              flow_nc_fused_ref,
                                              flow_nc_qside_bwd_call,
+                                             flow_nc_qside_bwd_parallel,
                                              flow_nc_qside_bwd_ref,
                                              flow_nc_qside_call,
                                              flow_nc_qside_ref)
+    from repro_torch.kernels.flow_nc.ops import bwd_rows
+
+    def k7b_twin(tag, q, g, key, tol, **kw):
+        """K7b against its own decomposition at the card's rows per block,
+        at ``tol`` and, for its fp32 outputs, at ``K7B_TWIN_RTOL``; two
+        calls bitwise equal; returns the largest error."""
+        got = flow_nc_qside_bwd_call(q, *key, g, **kw)
+        rows = bwd_rows(q.shape[0], q.shape[1], q.shape[2], q.dtype)
+        twin = flow_nc_qside_bwd_parallel(q, *key, g, rows=rows, **kw)
+        err, rel = 0.0, {}
+        for name, a, b in zip(("dq", "dk_sum", "dko_sum", "dkv"), got, twin):
+            what = f"flow_nc_qside_bwd {tag} {name} vs flow_nc_qside_bwd_parallel"
+            err = max(err, max_err_scaled(what, a, b, tol))
+            if a.dtype == torch.float32:
+                rel[name] = twin_close(what, a, b, K7B_TWIN_RTOL)
+        print(f"[K7b] {tag}: |kernel - twin| / max |twin| per fp32 output "
+              f"(bound {K7B_TWIN_RTOL}): " + json.dumps(rel), flush=True)
+        again = flow_nc_qside_bwd_call(q, *key, g, **kw)
+        if not all(map(torch.equal, got, again)):
+            raise AssertionError(f"flow_nc_qside_bwd {tag}: two calls differ")
+        return err
 
     def qside_errs(tag, q, g, k_sum, ko_sum, kv, tol, **kw):
         e7a = max_err_scaled(f"flow_nc_qside {tag} out",
@@ -930,10 +1003,14 @@ def check_flow_nc() -> dict:
                              tol)
         got = flow_nc_qside_bwd_call(q, k_sum, ko_sum, kv, g, **kw)
         want = flow_nc_qside_bwd_ref(q, k_sum, ko_sum, kv, g, **kw)
+        names = ("dq", "dk_sum", "dko_sum", "dkv")
         e7b = max(max_err_scaled(f"flow_nc_qside_bwd {tag} {name}", a, b,
-                                 tol)
-                  for name, a, b in zip(("dq", "dk_sum", "dko_sum", "dkv"),
-                                        got, want))
+                                 tol) for name, a, b in zip(names, got, want))
+        print(f"[K7b] {tag}: max |error| and the scaled bound rtol x max "
+              "|plain| per output: " + json.dumps({
+                  name: [float((a.float() - b).abs().max()),
+                         tol[0] * float(b.float().abs().max())]
+                  for name, a, b in zip(names, got, want)}), flush=True)
         return e7a, e7b
 
     errs = {}
@@ -946,11 +1023,14 @@ def check_flow_nc() -> dict:
                                     flow_nc_fused_call(q, k, v, use_comp=comp),
                                     flow_nc_fused_ref(q, k, v, use_comp=comp),
                                     TOL[dtype]) for comp in (True, False))
-            e7a, e7b = qside_errs(tag, q, g, *nc_key_side(q, k, v, 1e-6, True),
-                                  TOL[dtype], n_sinks=n, m_sources=n)
+            key = nc_key_side(q, k, v, 1e-6, True)
+            e7a, e7b = qside_errs(tag, q, g, *key, TOL[dtype], n_sinks=n,
+                                  m_sources=n)
+            e7p = k7b_twin(tag, q, g, key, TOL[dtype], n_sinks=n, m_sources=n)
             torch.cuda.synchronize()
-            print(f"[K6/K7] {tag}: K6 {e6:.3e}, K7a {e7a:.3e}, K7b {e7b:.3e}",
-                  flush=True)
+            print(f"[K6/K7] {tag}: K6 {e6:.3e}, K7a {e7a:.3e}, K7b {e7b:.3e} "
+                  f"(vs its decomposition {e7p:.3e}; two calls bitwise "
+                  "equal)", flush=True)
             if dtype == torch.bfloat16:
                 errs = {"flow_nc_fused": e6, "flow_nc_qside": e7a,
                         "flow_nc_qside_bwd": e7b}
@@ -958,6 +1038,19 @@ def check_flow_nc() -> dict:
                 if not torch.equal(*again):
                     raise AssertionError(f"flow_nc_fused {tag}: two calls "
                                          "differ")
+        # K7a and K7b at D = 32 and 128, N ragged against K7b's tile
+        for d_ in (32, 128):
+            for dtype in (torch.bfloat16, torch.float32):
+                q, k, v, g = nc_inputs(dtype, 16, 1000, 700, d_, SEED + d_)
+                key = nc_key_side(q, k, v, 1e-6, True)
+                tag = f"{str(dtype)[6:]} BH=16 N=1000 M=700 D={d_}"
+                kw = dict(n_sinks=1000, m_sources=700)
+                e7 = qside_errs(tag, q, g, *key, TOL[dtype], **kw)
+                e7p = k7b_twin(tag, q, g, key, TOL[dtype], **kw)
+                torch.cuda.synchronize()
+                print(f"[K7] {tag}: K7a {e7[0]:.3e}, K7b {e7[1]:.3e} (vs its "
+                      f"decomposition {e7p:.3e}; two calls bitwise equal)",
+                      flush=True)
         # K6 where its clusters split unevenly or own nothing, and saturated
         for dtype in (torch.bfloat16, torch.float32):
             for i, (bh_, nq, m, logit) in enumerate((
@@ -1291,8 +1384,8 @@ def train_full_width(cfg) -> dict:
 # K1 launches the flow_fwd_* CUDA kernels and K2 the flow_bwd_* ones, and
 # no other kernel's name holds either prefix
 K12 = {"k1_ms_per_step": "flow_fwd_", "k2_ms_per_step": "flow_bwd_"}
-# K5a launches the chunk_fwd_* CUDA kernels (K5b's is flow_chunk_dkv_kernel)
-K5A_KEY = "chunk_fwd_"
+# K5a launches the chunk_fwd_* CUDA kernels and K5b the chunk_bwd_* ones
+K5A_KEY, K5B_KEY = "chunk_fwd_", "chunk_bwd_"
 
 
 def paper_causal(cfg, **over):
@@ -1479,7 +1572,7 @@ def train_classifier_full_width(cfg) -> dict:
     n, eval_batches = cfg.n_layers * steps, -(-n_eval // EVAL_BATCH)
     want = {**dict.fromkeys(KERNELS, 0),
             "flow_nc_fused": n + cfg.n_layers * eval_batches,
-            "flow_nc_qside": n, "flow_nc_qside_bwd": n}
+            "flow_nc_qside_bwd": n}
     if launches != want:
         raise AssertionError(f"classifier launched {launches}, want {want}")
     step_ms = 1e3 * statistics.median(out["step_s"][1:])
@@ -1542,7 +1635,7 @@ def profile_classifier(cfg, step_ms: float) -> dict:
 def train_classifier_fp32_both_paths(cfg):
     """Phase 11: the classifier in fp32 at full width and 2 layers, kernels
     vs the plain PyTorch path: per-step losses, and the first step's
-    attention gradients (non-zero on the kernels: K7a/K7b reached wq, wk,
+    attention gradients (non-zero on the kernels: K7b reached wq, wk,
     wv)."""
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.kernels._lib import KERNELS
@@ -1581,8 +1674,7 @@ def train_classifier_fp32_both_paths(cfg):
         n = cfg.n_layers * steps
         want = dict.fromkeys(KERNELS, 0)
         if backend == "auto":
-            want.update(flow_nc_fused=n + cfg.n_layers, flow_nc_qside=n,
-                        flow_nc_qside_bwd=n)
+            want.update(flow_nc_fused=n + cfg.n_layers, flow_nc_qside_bwd=n)
         if dict(LAUNCHES) != want:
             raise AssertionError(f"backend={backend}: launches {LAUNCHES}, "
                                  f"want {want}")
@@ -2749,32 +2841,36 @@ def time_chunk_kernels(launches: dict, errs: dict) -> list:
             "max_abs_err": errs[name], "ms": ms, "plain_ms": time_ms(plain),
             "bound_ms": bound_ms, "bound_by": by, "library_ms": None})
     print("[K5a kernels] device ms per call of each CUDA kernel: "
-          + json.dumps(k5_breakdown(q, k, v)), flush=True)
-    print("[K3/K4/K5a/K8 kernels] registers and spill bytes: " + json.dumps(
-        {name: PTXAS.get(name, "cached") for name in (
-            "flow_decode", "flow_decode_q", "flow_chunk", "paged_gather")}),
-          flush=True)
+          + json.dumps(chunk_breakdown(lambda: flow_chunk_call(q, k, v),
+                                       K5A_KEY)), flush=True)
+    rows[1]["k5b_breakdown"] = chunk_breakdown(
+        lambda: flow_chunk_dkv_call(q, k, v, cot), K5B_KEY)
+    print("[K5b kernels] device ms per call of each CUDA kernel: "
+          + json.dumps(rows[1]["k5b_breakdown"]), flush=True)
+    print("[K3/K4/K5a/K5b/K8 kernels] registers and spill bytes: "
+          + json.dumps({name: PTXAS.get(name, "cached") for name in (
+              "flow_decode", "flow_decode_q", "flow_chunk", "flow_chunk_bwd",
+              "paged_gather")}), flush=True)
     return rows
 
 
-def k5_breakdown(q, k, v) -> dict | str:
-    """Device ms per call of each CUDA kernel of K5a (``chunk_fwd_state``,
-    ``_pass``, ``_out``) at the given operands, from ``torch.profiler`` over
-    three calls, tried up to three times (a late profiler session may see
-    no device time); "not measured" where none saw any."""
+def chunk_breakdown(run, prefix: str) -> dict | str:
+    """Device ms per call of each CUDA kernel whose name starts with
+    ``prefix`` (K5a's ``chunk_fwd_state``, ``_pass``, ``_out``; K5b's
+    ``chunk_bwd_*``) in ``run``, from ``torch.profiler`` over three calls,
+    tried up to three times (a late profiler session may see no device
+    time); "not measured" where none saw any."""
     from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.kernels.flow_chunk import flow_chunk_call
 
     for _ in range(3):
         times = {}
         with torch.no_grad(), profile(
                 activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(3):
-                flow_chunk_call(q, k, v)
+                run()
             torch.cuda.synchronize()
         for e in prof.key_averages():
-            m = re.search(K5A_KEY + "[a-z]+", e.key)
+            m = re.search(prefix + "[a-z]+", e.key)
             us = getattr(e, "self_device_time_total",
                          getattr(e, "self_cuda_time_total", 0.0))
             if m and us:
@@ -2784,15 +2880,15 @@ def k5_breakdown(q, k, v) -> dict | str:
     return "not measured"
 
 
-def nc_fused_tensor_core_bound(bh: int, nq: int, m: int, d: int,
-                               bytes_moved: float) -> float:
-    """K6's bound where its two products run on the tensor cores in
-    3xTF32 (three TF32 products each, 495 TFLOP/s) and the rest of
-    ``nc_fused_ops`` on the CUDA cores (67 TFLOP/s), in ms."""
-    products = bh * (nq + m) * 2 * d * d
-    rest = bh * nc_fused_ops(nq, m, d, d) - products
+def tensor_core_bound(ops: float, products: float,
+                      bytes_moved: float) -> float:
+    """A kernel's bound in ms where ``products`` of its ``ops`` operations
+    run on the tensor cores in 3xTF32 (three TF32 products each, 495
+    TFLOP/s) and the rest on the CUDA cores (67 TFLOP/s): K6's two D x D
+    products a row, K7b's three."""
     return 1e3 * max(bytes_moved / HBM_BYTES_PER_S,
-                     rest / FP32_FLOPS + 3 * products / TF32_FLOPS)
+                     (ops - products) / FP32_FLOPS
+                     + 3 * products / TF32_FLOPS)
 
 
 def time_nc_kernels(launches: dict, errs: dict) -> list:
@@ -2844,8 +2940,12 @@ def time_nc_kernels(launches: dict, errs: dict) -> list:
                 "plain_ms": time_ms(plain), "bound_ms": bound_ms,
                 "bound_by": by, "library_ms": None})
         k6 = rows[0]
-        k6["tensor_core_bound_ms"] = nc_fused_tensor_core_bound(
-            bh, n, n, d, bh * n * 4 * d * 2)
+        k6["tensor_core_bound_ms"] = tensor_core_bound(
+            bh * nc_fused_ops(n, n, d, d), bh * 2 * n * 2 * d * d,
+            bh * n * 4 * d * 2)
+        rows[2]["tensor_core_bound_ms"] = tensor_core_bound(
+            bh * nc_qside_ops(n, d, d, True), bh * n * 6 * d * d,
+            bh * n * 3 * d * 2 + 2 * state_bytes)
         # the same kernel at 8-block clusters (the portable size: one block
         # of ~200 KB to an SM)
         fn = _lib.function("flow_nc_fused", "flow_nc_fused_fwd",
@@ -2871,6 +2971,10 @@ def time_nc_kernels(launches: dict, errs: dict) -> list:
         "k6_breakdown")}), flush=True)
     print("[K6] registers and spill bytes: " + json.dumps(
         PTXAS.get("flow_nc_fused", "cached")), flush=True)
+    print("[K7b] " + json.dumps({key_: rows[2][key_] for key_ in (
+        "ms", "bound_ms", "tensor_core_bound_ms")}) + "; registers and spill "
+          "bytes: " + json.dumps(PTXAS.get("flow_nc_qside", "cached")),
+          flush=True)
     return rows
 
 
@@ -3150,7 +3254,7 @@ def main() -> int:
     paper = train_paper_causal_full_width(cfg)
     profile_train(paper_causal(cfg), paper["step_ms"],
                   kernels={"k5a_ms_per_step": K5A_KEY,
-                           "k5b_ms_per_step": "flow_chunk_dkv_kernel"},
+                           "k5b_ms_per_step": K5B_KEY},
                   tag="train paper-causal")
     train_paper_fp32_both_paths(cfg)
     mark("flowformer_lm training")

@@ -21,7 +21,7 @@ each backend's verdict and reason.  ``ExecutionPlan(needs_grad=True)``
 (or ``resolve_for_training``) admits only backends that differentiate the
 op: on a GPU a strict-causal forward then runs K1 and its backward K2,
 a paper-causal one K5a and its backward K5a and K5b, a non-causal one K6
-and its backward K7a and K7b.
+and its backward K7b.
 """
 from repro_torch.attention.plan import (
     BoundExecutor,

@@ -23,8 +23,8 @@ reason instead of running the plain version unseen.
 
 Gradient capability mirrors the reference's ``differentiable`` sets: the
 plain versions are differentiated by autograd; ``cuda_nc`` differentiates
-its forward through ``attention/vjp.py::FlowNCFused`` (K6 forward, K7a
-and K7b backward); ``cuda_fused``
+its forward through ``attention/vjp.py::FlowNCFused`` (K6 forward, K7b
+backward); ``cuda_fused``
 differentiates forward and prefill through ``attention/vjp.py::
 FlowFusedDot`` (K1 forward, K2 backward) but not packed prefill, which is
 forward-only serving as in the reference; ``cuda_chunk`` differentiates
@@ -147,7 +147,7 @@ class NonCausal(Backend):
 class CudaNC(NonCausal):
     """The whole non-causal pair in the flow_nc_fused CUDA kernel (K6), one
     block per (batch, kv head) looping over the four phases; its backward
-    runs K7a and K7b."""
+    runs K7b."""
 
     def supports(self, cfg, shapes, platform, *, op="forward"):
         why = (_check_nc_kernel(cfg, shapes)

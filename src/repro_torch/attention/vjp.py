@@ -13,10 +13,12 @@ unused).
 
 The non-causal pair mirrors ``repro/attention/vjp.py:144-236``:
 ``FlowNCQside`` is K7a forward and K7b backward; ``FlowNCFused`` runs K6
-forward and differentiates ``_nc_decomposed`` in its backward -- the cheap
-O(M D) key-side reductions in plain fp32 PyTorch under autograd, feeding
-``FlowNCQside`` for the O(N D Dv) sink side.  K7a's recomputed output in
-that backward is discarded, as in the reference.
+forward, and its backward the gradient of ``_nc_decomposed`` without
+recomputing its output: the cheap O(M D) key-side reductions
+(``nc_key_side``) in plain fp32 PyTorch under autograd, K7b on them for the
+O(N D Dv) sink side, and the key-side cotangents K7b returns pulled back
+onto (q, k, v) by autograd.  The reference recomputes the sink side's
+output there and discards it; K7a is not launched in this backward.
 
 ``FlowChunkDot`` mirrors ``repro/attention/vjp.py:67-92``: K5a forward
 (``out[g, i] = q[g, i] . sum_{j<=i} k_j^T v_j``); its backward runs K5a
@@ -113,16 +115,18 @@ def nc_key_side(q, k, v, eps: float, use_comp: bool):
 
 def _nc_decomposed(q, k, v, eps: float, use_comp: bool):
     """K6's math decomposed: the key side (``nc_key_side``, natively
-    differentiable) feeding ``FlowNCQside``.  Used only to differentiate
-    ``FlowNCFused``; the forward runs K6."""
+    differentiable) feeding ``FlowNCQside``.  ``FlowNCFused.backward``
+    computes this function's gradient (the tests hold it to autograd
+    through this); the forward runs K6."""
     return FlowNCQside.apply(q, *nc_key_side(q, k, v, eps, use_comp),
                              q.shape[1], k.shape[1], eps)
 
 
 class FlowNCFused(torch.autograd.Function):
     """``FlowNCFused.apply(q, k, v, eps, use_comp)`` -> (BH, NQ, Dv): the
-    whole non-causal pair, K6 forward; the backward pulls ``g`` through
-    ``_nc_decomposed`` (K7a, then K7b).
+    whole non-causal pair, K6 forward; the backward pulls ``g`` back
+    through K7b and autograd of ``nc_key_side`` (the gradient of
+    ``_nc_decomposed``, without K7a).
 
     q: (BH, NQ, D) raw; k: (BH, M, D); v: (BH, M, Dv).  Saves q, k, v
     only.
@@ -137,11 +141,17 @@ class FlowNCFused(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v = ctx.saved_tensors
+        eps, use_comp = ctx.args
         with torch.enable_grad():
             inputs = [x.detach().requires_grad_(True) for x in (q, k, v)]
-            out = _nc_decomposed(*inputs, *ctx.args)
-            dq, dk, dv = torch.autograd.grad(out, inputs, g.to(out.dtype))
-        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
+            key = nc_key_side(*inputs, eps, use_comp)
+        dq, *d_key = flow_nc_qside_bwd_call(
+            q, *(x.detach() for x in key), g.to(q.dtype).contiguous(),
+            n_sinks=q.shape[1], m_sources=k.shape[1], eps=eps)
+        dq_key, dk, dv = torch.autograd.grad(key, inputs, d_key)
+        # q's two paths summed in q's dtype, as autograd sums them
+        return (dq + dq_key.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
+                None, None)
 
 
 class FlowChunkDot(torch.autograd.Function):

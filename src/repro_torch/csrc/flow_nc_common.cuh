@@ -1,11 +1,10 @@
 // flow_nc_common.cuh — pieces shared by the non-causal Flow-Attention
-// kernels for Hopper (sm_90a): flow_nc_qside.cu (K7a, K7b) and, for its
-// sigmoid, shuffle sums and bf16 stores, flow_nc_fused.cu (K6).
+// kernels for Hopper (sm_90a): flow_nc_qside.cu (K7a; K7b for its sigmoid)
+// and, for its shuffle sums and bf16 stores, flow_nc_fused.cu (K6).
 //
-// K7a and K7b stream rows of a (rows, D) matrix (q or a cotangent) and
-// multiply staged tiles of them with a D x D fp32 state (kv, or its
-// cotangent) held in shared memory.  Two thread layouts of a 256-thread
-// block serve both:
+// K7a (and K6's phase D, through sink_rows) stream rows of a (rows, D)
+// matrix and multiply staged tiles of them with a D x D fp32 kv held in
+// shared memory.  Two thread layouts of a 256-thread block serve it:
 //
 //  * streaming: each thread loads 16 bytes (VEC elements) of one row, LG
 //    consecutive lanes cover a row, RP rows per pass of the block.  Row
@@ -13,9 +12,8 @@
 //    a row need no shared memory; column sums stay in registers per
 //    thread and are reduced over the row groups once, in a fixed order.
 //  * products: thread (ty, tx) owns the 4-wide column block tx*4.. of a
-//    D-wide output and RT rows of a kTile-row tile (tile x state), or RA
-//    rows of the D x D state (tile^T x tile).  Operands are read from
-//    shared memory as float4; every product is fp32 FMA on the CUDA cores
+//    D-wide output and RT rows of a kTile-row tile (tile x state).
+//    Operands are read from shared memory as float4; every product is fp32 FMA on the CUDA cores
 //    (no tensor cores, no TF32), each sum in a fixed order, so results are
 //    deterministic and match the plain PyTorch versions to fp32
 //    reassociation.
@@ -40,10 +38,8 @@ struct Layout {
   static constexpr int TX = D / 4;                 // products: 4-wide column blocks
   static constexpr int TY = kThreads / TX;
   static constexpr int RT = kTile / TY;            // tile rows per thread
-  static constexpr int RA = D / TY;                // state rows per thread
   static_assert(LG <= 32 && 32 % LG == 0 && kTile % RP == 0, "streaming layout");
-  static_assert(TX <= 32 && kTile % TY == 0 && D % TY == 0, "product layout");
-  static_assert(RP * D <= 2 * kTile * D && 2 * TY * D <= kTile * D, "reduction buffers");
+  static_assert(TX <= 32 && kTile % TY == 0, "product layout");
 };
 
 // 16 bytes of a row in device memory, as VEC floats
@@ -117,33 +113,6 @@ __device__ __forceinline__ void rows_times_mat(const float* A, const float* B, i
     for (int kk = 0; kk < 4; ++kk) b[kk] = ld4(B + (a + kk) * D + tx * 4);
 #pragma unroll
     for (int i = 0; i < RT; ++i) fma_row(ld4(A + (ty * RT + i) * D + a), b, acc[i]);
-  }
-}
-
-// acc[i][j] += sum_t A[t*D + ty*RA + i] * B[t*D + tx*4 + j] over the kTile
-// rows of two staged (kTile, D) tiles: a (RA, 4) block of A^T B.
-template <int D, int RA>
-__device__ __forceinline__ void tile_t_times_tile(const float* A, const float* B, int ty, int tx,
-                                                  float (&acc)[RA][4]) {
-#pragma unroll 2
-  for (int t = 0; t < kTile; ++t) {
-    const float4 b = ld4(B + t * D + tx * 4);
-    float a[RA];
-    if constexpr (RA % 4 == 0) {
-#pragma unroll
-      for (int i = 0; i < RA; i += 4) {
-        const float4 x = ld4(A + t * D + ty * RA + i);
-        a[i] = x.x; a[i + 1] = x.y; a[i + 2] = x.z; a[i + 3] = x.w;
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < RA; ++i) a[i] = A[t * D + ty * RA + i];
-    }
-#pragma unroll
-    for (int i = 0; i < RA; ++i) {
-      acc[i][0] = fmaf(a[i], b.x, acc[i][0]); acc[i][1] = fmaf(a[i], b.y, acc[i][1]);
-      acc[i][2] = fmaf(a[i], b.z, acc[i][2]); acc[i][3] = fmaf(a[i], b.w, acc[i][3]);
-    }
   }
 }
 

@@ -22,7 +22,8 @@
 // TPU accumulated them in revisited output blocks along its sequential grid
 // axis; a GPU grid has no ordered axis, and float atomics would sum in a
 // different order on every run.  So K7b splits the rows of each (batch *
-// head) into `splits` contiguous chunks, one block each, writes each
+// head) into contiguous runs of `rows` (flow_nc_qside_bwd_rows: whole
+// tiles, as few blocks as fill the SMs once), one block each, writes each
 // block's partial sums to a scratch (BH, splits, 2 D + D Dv) the wrapper
 // allocates, and a second launch adds the partials in split order: a fixed
 // order of summation, so the result is the same on every run.
@@ -30,18 +31,32 @@
 // What bounds them on the H100: K7a does 2 D Dv operations per row against
 // 2 (D + Dv) bytes (bf16), K7b 6 D Dv against 2 (2 D + Dv): both above the
 // fp32 FMA rate's balance point with the card's memory (about 20
-// operations per byte), so the products bound them, done in fp32 FMA on the
-// CUDA cores for parity with the plain versions.
+// operations per byte), so the products bound them.  K7a does them in fp32
+// FMA on the CUDA cores; K7b on the tensor cores in 3xTF32
+// (tensor_core.cuh), which leaves about 0.09 ms of work at the LRA shape
+// against the 0.20 ms of its fp32 bound.  It takes ~0.36 ms there: the
+// products near the card's mma.sync rate while they run, and the
+// elementwise chain around them (the accurate sigmoid and IEEE divisions),
+// which twelve warps an SM do not hide (PERF.md).
 //
-// Design: rows are independent, so both kernels stream 64-row tiles of q
-// (and g) through shared memory with kv (and, for K7b, its transpose, so
-// that u @ kv^T reads rows too) resident beside them; K7a spreads each head
-// over blocks of 256 rows.
+// Design: rows are independent.  K7a streams 64-row tiles of q through
+// shared memory with kv resident beside them, each head over blocks of 256
+// rows.  K7b (see its kernel below) gives each warp 16-row blocks: its q
+// and g rows land by cp.async in the fp32 tiles that then hold phi and u;
+// the row dots are quad shuffles in the accumulators' layout; agg = phi @
+// kv and w = u @ kv^T run on the tensor cores, kv staged once in one
+// swizzled fp32 layout, read down its columns by the first product and
+// along its rows by the second, and split once into tf32 heads and rests
+// (split as it is read at D = 128, where both copies would not fit); then
+// phi^T [u | dI, dC] adds the tile to the block's dkv, dk_sum and dko_sum,
+// in registers.  Three blocks of 128 threads an SM at D = 64.
 #include "flow_nc_common.cuh"
+#include "tensor_core.cuh"
 
 namespace {
 
 using namespace flow_nc;
+using namespace tc;
 
 constexpr int kRowsPerBlock = 256;  // K7a rows per block
 
@@ -71,152 +86,364 @@ flow_nc_qside_kernel(const T* __restrict__ q, const float* __restrict__ k_sum,
                   kv_s, ksum_s, kosum_s, tile_s, rs_s, eps, sink_scale, 1.f);
 }
 
+// ---- K7b ----------------------------------------------------------------------
+
+// The fp32 tiles of K7b (kv, phi, u) have a stride of LD = D + 8 floats (8
+// mod 32) with columns swapped in 8s by bit 2 of the row: reads along a row
+// (two floats a lane) and down a column (one) are both free of bank
+// conflicts.  A row of q or g lands first in its phi or u row as raw bytes,
+// 16-byte chunks swapped the same way (fp32: the same layout).
+__device__ __forceinline__ int swz(int r, int c) { return c ^ ((r & 4) << 1); }
+
+template <typename T>
+__device__ __forceinline__ int raw_word(int r, int w) {
+  return sizeof(T) == 4 ? w ^ ((r & 4) << 1) : w ^ (r & 4);
+}
+
+// elements c, c + 1 (c even) of a raw row staged at `row`
+__device__ __forceinline__ float2 raw_pair(const float* row, int r, int c, float) {
+  return *reinterpret_cast<const float2*>(row + raw_word<float>(r, c));
+}
+__device__ __forceinline__ float2 raw_pair(const float* row, int r, int c, __nv_bfloat16) {
+  return __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(row + raw_word<__nv_bfloat16>(r, c / 2)));
+}
+
+// elements c, c + 1 of a row in device memory, in T
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// sum over the four lanes of a quad (t = lane % 4), in a fixed order
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// kv's tf32 head and rest at float offset i: read from the split copies,
+// or split as read
+template <bool PRESPLIT>
+__device__ __forceinline__ void kv_frag(const float* kv_s, const float* kv_lo, int i,
+                                        uint32_t& hi, uint32_t& lo) {
+  if constexpr (PRESPLIT) {
+    hi = __float_as_uint(kv_s[i]);
+    lo = __float_as_uint(kv_lo[i]);
+  } else {
+    split_tf32(kv_s[i], hi, lo);
+  }
+}
+
+template <int D>
+struct BwdCfg {
+  static constexpr int W = D >= 128 ? 8 : 4;  // warps: one per 16-row strip of dkv at least
+  static constexpr int THREADS = 32 * W;
+  static constexpr int TR = 16 * W;           // rows per tile, 16 a warp
+  static constexpr int LD = D + 8;
+  static constexpr int NK = D / 8;            // 8-wide k-steps and n-tiles over D
+  static constexpr int STRIPS = D / 16;       // 16-row strips of dkv
+  static constexpr int WS = W / STRIPS;       // warps sharing a strip's columns
+  static constexpr int NTS = NK / WS;         // a warp's 8-column tiles of dkv
+  // kv split once into tf32 heads and rests where both fit beside the
+  // tiles at three blocks an SM, else split as it is read (D = 128)
+  static constexpr bool PRESPLIT = D <= 64;
+  static constexpr int FLOATS = (PRESPLIT ? 2 : 1) * D * LD + 2 * TR * LD + 2 * D;
+  static constexpr int MIN_BLOCKS = D <= 64 ? 3 : 1;
+  static constexpr int PART = 2 * D + D * D;  // a block's partial, in floats
+  static_assert(WS * STRIPS == W && NTS * WS == NK, "dkv layout");
+};
+
+// One CTA owns rows [split rows, (split + 1) rows) of one (batch * head),
+// walked in tiles of TR rows.  Per tile each warp stages its 16 rows of q
+// and g with cp.async and runs them on the tensor cores (3xTF32):
+//   phi, I, C, alloc (the row dots with quad shuffles);
+//   agg I = phi @ kv;  dalloc = g . agg;  u = g alloc / I;
+//   w = u @ kv^T (u's accumulators are its A fragments);
+//   dI = -(w . phi) / I;  dC = dalloc alloc (1 - alloc) n/m;
+//   dq = (w + dI (k_sum + eps) + dC (ko_sum + eps)) phi (1 - phi),
+// leaving phi, u and [dI, dC] in shared memory.  Then every warp adds the
+// tile's rows to its block of [dkv | dk_sum, dko_sum] = phi^T [u | dI, dC]
+// (its 16-row strip of D and its share of the columns; dk_sum and dko_sum
+// as a ninth 8-column tile, A phi + eps and B [dI, dC] in u's padding
+// columns, whose other six columns are never stored), kept in registers across
+// the tiles.  At the end the CTA writes its partial to part[bh][split],
+// which a second launch adds in split order.
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(BwdCfg<D>::THREADS, BwdCfg<D>::MIN_BLOCKS)
 flow_nc_qside_bwd_kernel(const T* __restrict__ q, const float* __restrict__ k_sum,
                          const float* __restrict__ ko_sum, const float* __restrict__ kv,
                          const T* __restrict__ g, T* __restrict__ dq, float* __restrict__ part,
-                         int n, int rows_per_block, float eps, float sink_scale) {
-  using L = Layout<T, D>;
-  constexpr int VEC = L::VEC;
+                         int n, int rows, float eps, float sink_scale) {
+  using B = BwdCfg<D>;
+  constexpr int LD = B::LD, NK = B::NK, TR = B::TR;
+  constexpr int CH = D * (int)sizeof(T) / 16;  // 16-byte chunks of a raw row
   extern __shared__ float4 smem4[];
-  float* kv_s = reinterpret_cast<float*>(smem4);
-  float* kvt_s = kv_s + D * D;      // kv transposed
-  float* phi_s = kvt_s + D * D;     // phi(q) tile; then the reduction buffer
-  float* u_s = phi_s + kTile * D;   // g tile, then u = g * alloc / I
-  float* ksum_s = u_s + kTile * D;
-  float* kosum_s = ksum_s + D;
-  float* inc_s = kosum_s + D;       // I per tile row
-  float* alloc_s = inc_s + kTile;   // alloc per tile row
+  float* kv_s = reinterpret_cast<float*>(smem4);   // D x D: kv, then its heads
+  float* kv_lo = kv_s + D * LD;                     // D x D: the rests (PRESPLIT)
+  float* P = kv_lo + (B::PRESPLIT ? D * LD : 0);    // TR x D: raw q, then phi
+  float* Ut = P + TR * LD;                          // TR x D: raw g, then u; and
+  float* X = Ut + D;                                // its padding: [dI, dC] (stride LD)
+  float* kse = Ut + TR * LD;                        // k_sum + eps
+  float* kose = kse + D;                            // ko_sum + eps
 
   const size_t bh = blockIdx.y;
   const int split = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int cg = tid % L::LG, rg = tid / L::LG, col0 = cg * VEC;
-  const int tx = tid % L::TX, ty = tid / L::TX;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g8 = lane >> 2, t4 = lane & 3;
   const T* qb = q + bh * n * D;
   const T* gb = g + bh * n * D;
   T* dqb = dq + bh * n * D;
 
-  for (int i = tid; i < D * D; i += kThreads) {
-    const float x = kv[bh * D * D + i];
-    kv_s[i] = x;
-    kvt_s[(i % D) * D + i / D] = x;
+  const float* kvb = kv + bh * D * D;
+  for (int i = tid; i < D * D / 4; i += B::THREADS) {
+    const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+    cp_async16(kv_s + r * LD + swz(r, c), kvb + r * D + c);
   }
   if (tid < D) {
-    ksum_s[tid] = k_sum[bh * D + tid];
-    kosum_s[tid] = ko_sum[bh * D + tid];
+    kse[tid] = k_sum[bh * D + tid] + eps;
+    kose[tid] = ko_sum[bh * D + tid] + eps;
   }
-  __syncthreads();
+  if constexpr (B::PRESPLIT) {  // kv's heads and rests, once; the loop's first barrier
+                                // shows them
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    for (int i = tid; i < D * LD; i += B::THREADS) {
+      uint32_t hi, lo;
+      split_tf32(kv_s[i], hi, lo);
+      kv_s[i] = __uint_as_float(hi);
+      kv_lo[i] = __uint_as_float(lo);
+    }
+  }
 
-  float dkv[L::RA][4] = {};
-  float dks[4] = {}, dkos[4] = {};  // columns tx*4.. over this thread's rows
-  const int r_begin = split * rows_per_block;
-  const int r_end = min(n, r_begin + rows_per_block);
-  for (int t0 = r_begin; t0 < r_end; t0 += kTile) {
-    // stage phi(q) and g; the row flows I and alloc
-    for (int p = 0; p < kTile; p += L::RP) {
-      const int tr = p + rg, r = t0 + tr;
-      const bool valid = r < r_end;
-      float x[VEC] = {}, y[VEC] = {};
-      if (valid) {
-        load16(qb + (size_t)r * D + col0, x);
-        load16(gb + (size_t)r * D + col0, y);
-      }
-      float inc = 0.f, con = 0.f;
+  // the dkv phase's ownership: strip s (rows m0.. of D), column share c
+  const int m0 = 16 * (warp % B::STRIPS), share = warp / B::STRIPS, n0 = share * 8 * B::NTS;
+  const bool sums = share == 0;  // this warp also keeps dk_sum, dko_sum of its strip
+  float acc[B::NTS][4], ext[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) {
-        x[i] = sigmoid(x[i]);
-        inc = fmaf(x[i] + eps, ksum_s[col0 + i] + eps, inc);
-        con = fmaf(x[i] + eps, kosum_s[col0 + i] + eps, con);
-      }
-      inc = group_sum<L::LG>(inc);
-      con = group_sum<L::LG>(con);
-      if (!valid) {
+  for (int j = 0; j < B::NTS; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  const int r_begin = split * rows, r_end = min(n, r_begin + rows);
+  const int ra = 16 * warp + g8, rb = ra + 8;  // this thread's rows of a tile
+  for (int t0 = r_begin; t0 < r_end; t0 += TR) {
+    // this warp's 16 rows of q and g, raw, zeros at or past r_end
+    for (int i = lane; i < 16 * CH; i += 32) {
+      const int r = 16 * warp + i / CH, c = i % CH, row = t0 + r;
+      const bool ok = row < r_end;
+      const size_t src = ok ? (size_t)row * D * sizeof(T) + 16 * c : 0;
+      const int dst = r * LD + raw_word<T>(r, 4 * c);
+      cp_async16(P + dst, reinterpret_cast<const char*>(qb) + src, ok);
+      cp_async16(Ut + dst, reinterpret_cast<const char*>(gb) + src, ok);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    if (t0 == r_begin) __syncthreads();  // kv and the sums
+    else __syncwarp();
+
+    // phi in its A-fragment layout: ph[j] = (ra, c), (ra, c + 1), (rb, c),
+    // (rb, c + 1) at c = 8 j + 2 t4
+    float ph[NK][4];
 #pragma unroll
-        for (int i = 0; i < VEC; ++i) x[i] = 0.f;
-      }
-      store_smem<VEC>(phi_s + tr * D + col0, x);
-      store_smem<VEC>(u_s + tr * D + col0, y);
-      if (cg == 0) {
-        inc_s[tr] = valid ? inc : 1.f;
-        alloc_s[tr] = valid ? sigmoid(con * sink_scale) : 0.f;
+    for (int j = 0; j < NK; ++j) {
+      const float2 x = raw_pair(P + ra * LD, ra, 8 * j + 2 * t4, T());
+      const float2 y = raw_pair(P + rb * LD, rb, 8 * j + 2 * t4, T());
+      ph[j][0] = x.x; ph[j][1] = x.y; ph[j][2] = y.x; ph[j][3] = y.y;
+    }
+    __syncwarp();  // every lane has read its raw q: phi may overwrite it
+    float ia = 0.f, ib = 0.f, ca = 0.f, cb = 0.f;  // I and C of rows ra, rb
+#pragma unroll
+    for (int j = 0; j < NK; ++j) {
+      const int c = 8 * j + 2 * t4;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ph[j][e] = sigmoid(ph[j][e]);
+      ia = fmaf(ph[j][0] + eps, kse[c], ia);
+      ia = fmaf(ph[j][1] + eps, kse[c + 1], ia);
+      ib = fmaf(ph[j][2] + eps, kse[c], ib);
+      ib = fmaf(ph[j][3] + eps, kse[c + 1], ib);
+      ca = fmaf(ph[j][0] + eps, kose[c], ca);
+      ca = fmaf(ph[j][1] + eps, kose[c + 1], ca);
+      cb = fmaf(ph[j][2] + eps, kose[c], cb);
+      cb = fmaf(ph[j][3] + eps, kose[c + 1], cb);
+      *reinterpret_cast<float2*>(P + ra * LD + swz(ra, c)) = make_float2(ph[j][0], ph[j][1]);
+      *reinterpret_cast<float2*>(P + rb * LD + swz(rb, c)) = make_float2(ph[j][2], ph[j][3]);
+    }
+    ia = quad_sum(ia);
+    ib = quad_sum(ib);
+    const float al_a = sigmoid(quad_sum(ca) * sink_scale);
+    const float al_b = sigmoid(quad_sum(cb) * sink_scale);
+
+    // agg I = phi @ kv (kv read down its columns)
+    float u[NK][4];
+#pragma unroll
+    for (int j = 0; j < NK; ++j) u[j][0] = u[j][1] = u[j][2] = u[j][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < NK; ++ks) {
+      uint32_t ah[4], al[4];
+      split_tf32(ph[ks][0], ah[0], al[0]);  // (g, t): element 2t
+      split_tf32(ph[ks][2], ah[1], al[1]);  // (g + 8, t)
+      split_tf32(ph[ks][1], ah[2], al[2]);  // (g, t + 4): element 2t + 1
+      split_tf32(ph[ks][3], ah[3], al[3]);  // (g + 8, t + 4)
+      const int k0 = 8 * ks + 2 * t4;
+#pragma unroll
+      for (int nt = 0; nt < NK; ++nt) {
+        uint32_t bh_[2], bl_[2];
+        kv_frag<B::PRESPLIT>(kv_s, kv_lo, k0 * LD + swz(k0, 8 * nt + g8), bh_[0], bl_[0]);
+        kv_frag<B::PRESPLIT>(kv_s, kv_lo, (k0 + 1) * LD + swz(k0 + 1, 8 * nt + g8), bh_[1],
+                             bl_[1]);
+        mma_3xtf32(u[nt], ah, al, bh_, bl_);
       }
     }
-    __syncthreads();
-
-    // agg * I = phi @ kv; dalloc = g . agg; then u = g * alloc / I in place
-    float acc[L::RT][4] = {};
-    rows_times_mat<D, L::RT>(phi_s, kv_s, ty, tx, acc);
-    float dalloc[L::RT];
+    // dalloc = g . agg; u = g alloc / I, in place of agg and then of raw g
+    float gv[NK][4];
+    float da = 0.f, db = 0.f;
 #pragma unroll
-    for (int i = 0; i < L::RT; ++i) {
-      const int t = ty * L::RT + i;
-      float* up = u_s + t * D + tx * 4;
-      const float4 gv = ld4(up);
-      float s = gv.x * acc[i][0];
-      s = fmaf(gv.y, acc[i][1], s);
-      s = fmaf(gv.z, acc[i][2], s);
-      s = fmaf(gv.w, acc[i][3], s);
-      const float inc = inc_s[t];
-      dalloc[i] = group_sum<L::TX>(s) / inc;
-      const float c = alloc_s[t] / inc;
-      const float u[4] = {gv.x * c, gv.y * c, gv.z * c, gv.w * c};
-      store_smem<4>(up, u);
+    for (int j = 0; j < NK; ++j) {
+      const float2 x = raw_pair(Ut + ra * LD, ra, 8 * j + 2 * t4, T());
+      const float2 y = raw_pair(Ut + rb * LD, rb, 8 * j + 2 * t4, T());
+      gv[j][0] = x.x; gv[j][1] = x.y; gv[j][2] = y.x; gv[j][3] = y.y;
+      da = fmaf(gv[j][0], u[j][0], da);
+      da = fmaf(gv[j][1], u[j][1], da);
+      db = fmaf(gv[j][2], u[j][2], db);
+      db = fmaf(gv[j][3], u[j][3], db);
     }
-    __syncthreads();
+    const float dalloc_a = quad_sum(da) / ia;
+    const float dalloc_b = quad_sum(db) / ib;
+    const float sa = al_a / ia, sb = al_b / ib;
+    __syncwarp();  // every lane has read its raw g: u may overwrite it
+#pragma unroll
+    for (int j = 0; j < NK; ++j) {
+      const int c = 8 * j + 2 * t4;
+      u[j][0] = gv[j][0] * sa; u[j][1] = gv[j][1] * sa;
+      u[j][2] = gv[j][2] * sb; u[j][3] = gv[j][3] * sb;
+      *reinterpret_cast<float2*>(Ut + ra * LD + swz(ra, c)) = make_float2(u[j][0], u[j][1]);
+      *reinterpret_cast<float2*>(Ut + rb * LD + swz(rb, c)) = make_float2(u[j][2], u[j][3]);
+    }
+    const float dc_a = dalloc_a * al_a * (1.f - al_a) * sink_scale;
+    const float dc_b = dalloc_b * al_b * (1.f - al_b) * sink_scale;
 
-    // w = u @ kv^T; dI, dI_hat; dq; the dk_sum / dko_sum partials
-    float w[L::RT][4] = {};
-    rows_times_mat<D, L::RT>(u_s, kvt_s, ty, tx, w);
+    // w = u @ kv^T (kv read along its rows); u's accumulators are the A
+    // fragments, the reduction index permuted as the B rows below
+    float w[NK][4];
 #pragma unroll
-    for (int i = 0; i < L::RT; ++i) {
-      const int t = ty * L::RT + i, r = t0 + t;
-      const float4 ph = ld4(phi_s + t * D + tx * 4);
-      const float phv[4] = {ph.x, ph.y, ph.z, ph.w};
-      float s = 0.f;
+    for (int j = 0; j < NK; ++j) w[j][0] = w[j][1] = w[j][2] = w[j][3] = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s = fmaf(w[i][j], phv[j], s);
-      const float d_inc = -group_sum<L::TX>(s) / inc_s[t];
-      const float al = alloc_s[t];
-      const float d_con = dalloc[i] * al * (1.f - al) * sink_scale;
-      if (r < r_end) {
-        float dqv[4];
+    for (int ks = 0; ks < NK; ++ks) {
+      uint32_t ah[4], al[4];
+      split_tf32(u[ks][0], ah[0], al[0]);
+      split_tf32(u[ks][2], ah[1], al[1]);
+      split_tf32(u[ks][1], ah[2], al[2]);
+      split_tf32(u[ks][3], ah[3], al[3]);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int a = tx * 4 + j;
-          const float dphi = w[i][j] + d_inc * (ksum_s[a] + eps) + d_con * (kosum_s[a] + eps);
-          dqv[j] = dphi * phv[j] * (1.f - phv[j]);
-          dks[j] = fmaf(d_inc, phv[j] + eps, dks[j]);
-          dkos[j] = fmaf(d_con, phv[j] + eps, dkos[j]);
+      for (int nt = 0; nt < NK; ++nt) {
+        const int r = 8 * nt + g8, i = r * LD + swz(r, 8 * ks + 2 * t4);
+        const float2 x = *reinterpret_cast<const float2*>(kv_s + i);
+        uint32_t bh_[2], bl_[2];
+        if constexpr (B::PRESPLIT) {
+          const float2 y = *reinterpret_cast<const float2*>(kv_lo + i);
+          bh_[0] = __float_as_uint(x.x); bh_[1] = __float_as_uint(x.y);
+          bl_[0] = __float_as_uint(y.x); bl_[1] = __float_as_uint(y.y);
+        } else {
+          split_tf32(x.x, bh_[0], bl_[0]);
+          split_tf32(x.y, bh_[1], bl_[1]);
         }
-        store4(dqb + (size_t)r * D + tx * 4, dqv);
+        mma_3xtf32(w[nt], ah, al, bh_, bl_);
       }
     }
-
-    // dkv += phi^T u
-    tile_t_times_tile<D, L::RA>(phi_s, u_s, ty, tx, dkv);
-    __syncthreads();
-  }
-
-  // this block's partial sums: dk_sum and dko_sum over the row owners (ty),
-  // then dkv, into part[bh][split]
-  float* red_s = phi_s;  // 2 x TY x D
-  store_smem<4>(red_s + ty * D + tx * 4, dks);
-  store_smem<4>(red_s + (L::TY + ty) * D + tx * 4, dkos);
-  __syncthreads();
-  float* pb = part + (bh * gridDim.x + split) * (size_t)(2 * D + D * D);
-  if (tid < D) {
-    float a = 0.f, b = 0.f;
-    for (int j = 0; j < L::TY; ++j) {
-      a += red_s[j * D + tid];
-      b += red_s[(L::TY + j) * D + tid];
-    }
-    pb[tid] = a;
-    pb[D + tid] = b;
-  }
+    // dI = -(w . phi) / I; dq
+    float sa_ = 0.f, sb_ = 0.f;
 #pragma unroll
-  for (int i = 0; i < L::RA; ++i) store_smem<4>(pb + 2 * D + (ty * L::RA + i) * D + tx * 4, dkv[i]);
+    for (int j = 0; j < NK; ++j) {
+      const int c = 8 * j + 2 * t4;
+      const float2 x = *reinterpret_cast<const float2*>(P + ra * LD + swz(ra, c));
+      const float2 y = *reinterpret_cast<const float2*>(P + rb * LD + swz(rb, c));
+      ph[j][0] = x.x; ph[j][1] = x.y; ph[j][2] = y.x; ph[j][3] = y.y;
+      sa_ = fmaf(w[j][0], ph[j][0], sa_);
+      sa_ = fmaf(w[j][1], ph[j][1], sa_);
+      sb_ = fmaf(w[j][2], ph[j][2], sb_);
+      sb_ = fmaf(w[j][3], ph[j][3], sb_);
+    }
+    const float di_a = -quad_sum(sa_) / ia;
+    const float di_b = -quad_sum(sb_) / ib;
+    const bool va = t0 + ra < r_end, vb = t0 + rb < r_end;
+#pragma unroll
+    for (int j = 0; j < NK; ++j) {
+      const int c = 8 * j + 2 * t4;
+      float d[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float di = e < 2 ? di_a : di_b, dc = e < 2 ? dc_a : dc_b;
+        const float dphi = w[j][e] + di * kse[c + (e & 1)] + dc * kose[c + (e & 1)];
+        d[e] = dphi * ph[j][e] * (1.f - ph[j][e]);
+      }
+      if (va) store2(dqb + (size_t)(t0 + ra) * D + c, d[0], d[1]);
+      if (vb) store2(dqb + (size_t)(t0 + rb) * D + c, d[2], d[3]);
+    }
+    if (t4 == 0) {
+      X[ra * LD] = di_a;
+      X[ra * LD + 1] = dc_a;
+      X[rb * LD] = di_b;
+      X[rb * LD + 1] = dc_b;
+    }
+    __syncthreads();
+
+    // [dkv | dk_sum, dko_sum] += phi^T [u | dI, dC] over the tile's rows:
+    // A = phi^T read down phi's columns, B = u read down its columns.  The
+    // tile's sum takes fresh accumulators, then is added to the block's in
+    // fp32: the tensor cores truncate as they accumulate, and a sum carried
+    // through all of a block's tiles in them drifted by ~1e-5 of its size.
+    float tacc[B::NTS][4], text[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < B::NTS; ++j) tacc[j][0] = tacc[j][1] = tacc[j][2] = tacc[j][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < TR / 8; ++ks) {
+      const int r0 = 8 * ks + 2 * t4, r1 = r0 + 1;
+      const float a[4] = {P[r0 * LD + swz(r0, m0 + g8)], P[r0 * LD + swz(r0, m0 + g8 + 8)],
+                          P[r1 * LD + swz(r1, m0 + g8)], P[r1 * LD + swz(r1, m0 + g8 + 8)]};
+      uint32_t ah[4], al[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split_tf32(a[e], ah[e], al[e]);
+#pragma unroll
+      for (int nt = 0; nt < B::NTS; ++nt) {
+        const int col = n0 + 8 * nt + g8;
+        uint32_t bh_[2], bl_[2];
+        split_tf32(Ut[r0 * LD + swz(r0, col)], bh_[0], bl_[0]);
+        split_tf32(Ut[r1 * LD + swz(r1, col)], bh_[1], bl_[1]);
+        mma_3xtf32(tacc[nt], ah, al, bh_, bl_);
+      }
+      if (sums) {  // A = phi + eps: sum_i dI_i (phi_i + eps), sum_i dC_i (phi_i + eps)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) split_tf32(a[e] + eps, ah[e], al[e]);
+        uint32_t bh_[2], bl_[2];
+        split_tf32(X[r0 * LD + g8], bh_[0], bl_[0]);
+        split_tf32(X[r1 * LD + g8], bh_[1], bl_[1]);
+        mma_3xtf32(text, ah, al, bh_, bl_);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < B::NTS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] += tacc[j][e];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) ext[e] += text[e];
+    __syncthreads();  // phi, u and X are read: the next tile may land
+  }
+
+  // this CTA's partial: dk_sum, dko_sum, then dkv (row-major), into
+  // part[bh][split]
+  float* pb = part + (bh * gridDim.x + split) * (size_t)B::PART;
+#pragma unroll
+  for (int nt = 0; nt < B::NTS; ++nt) {
+    float* p = pb + 2 * D + (m0 + g8) * D + n0 + 8 * nt + 2 * t4;
+    *reinterpret_cast<float2*>(p) = make_float2(acc[nt][0], acc[nt][1]);
+    *reinterpret_cast<float2*>(p + 8 * D) = make_float2(acc[nt][2], acc[nt][3]);
+  }
+  if (sums && t4 == 0) {  // columns 0 and 1 of the ninth tile
+    pb[m0 + g8] = ext[0];
+    pb[D + m0 + g8] = ext[1];
+    pb[m0 + g8 + 8] = ext[2];
+    pb[D + m0 + g8 + 8] = ext[3];
+  }
 }
 
 // dk_sum, dko_sum, dkv of each (batch * head): its `splits` partials added
@@ -255,29 +482,58 @@ cudaError_t launch_fwd(const void* q, const void* k_sum, const void* ko_sum, con
 template <typename T, int D>
 cudaError_t launch_bwd(const void* q, const void* k_sum, const void* ko_sum, const void* kv,
                        const void* g, void* dq, void* part, void* dk_sum, void* dko_sum,
-                       void* dkv, int bh, int n, int splits, float sink_scale, float eps,
+                       void* dkv, int bh, int n, int rows, float sink_scale, float eps,
                        cudaStream_t stream) {
+  using B = BwdCfg<D>;
+  if (rows < B::TR || rows % B::TR) return cudaErrorInvalidValue;
   auto kern = flow_nc_qside_bwd_kernel<T, D>;
-  const size_t bytes =
-      (2 * (size_t)D * D + 2 * (size_t)kTile * D + 2 * D + 2 * kTile) * sizeof(float);
+  const size_t bytes = B::FLOATS * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)bytes);
   if (err != cudaSuccess) return err;
-  const int rows = (n + splits - 1) / splits;
-  const int rows_per_block = (rows + kTile - 1) / kTile * kTile;
-  const dim3 grid(splits, bh);
-  kern<<<grid, kThreads, bytes, stream>>>((const T*)q, (const float*)k_sum,
-                                          (const float*)ko_sum, (const float*)kv, (const T*)g,
-                                          (T*)dq, (float*)part, n, rows_per_block, eps,
-                                          sink_scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  const int splits = (n + rows - 1) / rows;
+  kern<<<dim3(splits, bh), B::THREADS, bytes, stream>>>(
+      (const T*)q, (const float*)k_sum, (const float*)ko_sum, (const float*)kv, (const T*)g,
+      (T*)dq, (float*)part, n, rows, eps, sink_scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
   flow_nc_reduce_kernel<<<bh, kThreads, 0, stream>>>((const float*)part, (float*)dk_sum,
                                                      (float*)dko_sum, (float*)dkv, splits, D);
   return cudaGetLastError();
 }
 
+// Rows of one (batch * head) per K7b block: whole tiles, as few blocks a
+// row as fill the card's SMs once (the blocks an SM holds, from the
+// occupancy calculator, times the SMs, over BH), at least one tile each.
+template <typename T, int D>
+int bwd_rows(int bh, int n) {
+  auto kern = flow_nc_qside_bwd_kernel<T, D>;
+  const size_t bytes = BwdCfg<D>::FLOATS * sizeof(float);
+  int occ = 0, dev = 0, sms = 0;
+  if (cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kern, BwdCfg<D>::THREADS, bytes) !=
+          cudaSuccess ||
+      cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || occ < 1)
+    return -1;
+  constexpr int TR = BwdCfg<D>::TR;
+  const int tiles = (n + TR - 1) / TR;
+  const int splits = max(1, min(tiles, occ * sms / bh));
+  return (tiles + splits - 1) / splits * TR;
+}
+
 }  // namespace
+
+#define FLOW_NC_DISPATCH(CALL)                                          \
+  if (dtype == 0) {                                                     \
+    if (d == 32) return (int)CALL(float, 32);                           \
+    if (d == 64) return (int)CALL(float, 64);                           \
+    if (d == 128) return (int)CALL(float, 128);                         \
+  } else if (dtype == 1) {                                              \
+    if (d == 32) return (int)CALL(__nv_bfloat16, 32);                   \
+    if (d == 64) return (int)CALL(__nv_bfloat16, 64);                   \
+    if (d == 128) return (int)CALL(__nv_bfloat16, 128);                 \
+  }
 
 // q (BH, N, D) in `dtype` (0 fp32, 1 bf16); k_sum, ko_sum (BH, D) and kv
 // (BH, D, Dv) fp32; out (BH, N, Dv) in `dtype`.  All contiguous and 16-byte
@@ -290,46 +546,44 @@ extern "C" int flow_nc_qside_fwd(const void* q, const void* k_sum, const void* k
   if (bh == 0) return (int)cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
 #define FLOW_NC_FWD(T, D) launch_fwd<T, D>(q, k_sum, ko_sum, kv, out, bh, n, sink_scale, eps, st)
-  if (dtype == 0) {
-    if (d == 32) return (int)FLOW_NC_FWD(float, 32);
-    if (d == 64) return (int)FLOW_NC_FWD(float, 64);
-    if (d == 128) return (int)FLOW_NC_FWD(float, 128);
-  } else if (dtype == 1) {
-    if (d == 32) return (int)FLOW_NC_FWD(__nv_bfloat16, 32);
-    if (d == 64) return (int)FLOW_NC_FWD(__nv_bfloat16, 64);
-    if (d == 128) return (int)FLOW_NC_FWD(__nv_bfloat16, 128);
-  }
+  FLOW_NC_DISPATCH(FLOW_NC_FWD)
 #undef FLOW_NC_FWD
   return (int)cudaErrorInvalidValue;
 }
 
+// Rows of one (batch * head) per block of flow_nc_qside_bwd on this device
+// (a multiple of its tile), or -1 where it refuses the shape; the caller
+// sizes its scratch with splits = ceil(N / rows).
+extern "C" int flow_nc_qside_bwd_rows(int bh, int n, int d, int dtype) {
+  if (bh < 1 || n < 1) return -1;
+#define FLOW_NC_ROWS(T, D) bwd_rows<T, D>(bh, n)
+  FLOW_NC_DISPATCH(FLOW_NC_ROWS)
+#undef FLOW_NC_ROWS
+  return -1;
+}
+
 // The cotangents of flow_nc_qside_fwd for g (BH, N, Dv) in `dtype`: dq
 // (BH, N, D) in `dtype`, dk_sum, dko_sum (BH, D) and dkv (BH, D, Dv) fp32;
-// part is a fp32 scratch of BH * splits * (2 D + D Dv) floats, 1 <= splits
-// <= N.  Two launches on `stream`.  Returns a cudaError_t.
+// rows from flow_nc_qside_bwd_rows; part is a fp32 scratch of BH * splits *
+// (2 D + D Dv) floats, splits = ceil(N / rows).  Two launches on `stream`.
+// Returns a cudaError_t.
 extern "C" int flow_nc_qside_bwd(const void* q, const void* k_sum, const void* ko_sum,
                                  const void* kv, const void* g, void* dq, void* part,
                                  void* dk_sum, void* dko_sum, void* dkv, int bh, int n, int d,
-                                 int dv, int splits, int dtype, float sink_scale, float eps,
+                                 int dv, int rows, int dtype, float sink_scale, float eps,
                                  void* stream) {
-  if (d != dv || n < 1 || splits < 1 || splits > n) return (int)cudaErrorInvalidValue;
+  if (d != dv || n < 1 || rows < 1) return (int)cudaErrorInvalidValue;
   if (bh == 0) return (int)cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
-#define FLOW_NC_BWD(T, D)                                                                    \
-  launch_bwd<T, D>(q, k_sum, ko_sum, kv, g, dq, part, dk_sum, dko_sum, dkv, bh, n, splits, \
+#define FLOW_NC_BWD(T, D)                                                                  \
+  launch_bwd<T, D>(q, k_sum, ko_sum, kv, g, dq, part, dk_sum, dko_sum, dkv, bh, n, rows, \
                    sink_scale, eps, st)
-  if (dtype == 0) {
-    if (d == 32) return (int)FLOW_NC_BWD(float, 32);
-    if (d == 64) return (int)FLOW_NC_BWD(float, 64);
-    if (d == 128) return (int)FLOW_NC_BWD(float, 128);
-  } else if (dtype == 1) {
-    if (d == 32) return (int)FLOW_NC_BWD(__nv_bfloat16, 32);
-    if (d == 64) return (int)FLOW_NC_BWD(__nv_bfloat16, 64);
-    if (d == 128) return (int)FLOW_NC_BWD(__nv_bfloat16, 128);
-  }
+  FLOW_NC_DISPATCH(FLOW_NC_BWD)
 #undef FLOW_NC_BWD
   return (int)cudaErrorInvalidValue;
 }
+
+#undef FLOW_NC_DISPATCH
 
 extern "C" const char* flow_nc_qside_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

@@ -4,7 +4,8 @@ and K5b (``csrc/flow_chunk_bwd.cu``).
 * ``flow_chunk_call`` (K5a): ``out[g, i] = q[g, i] . sum_{j<=i} k_j^T v_j``
   over a flat (BH, G, N, D) batch -- the forward, and dq with k and v
   swapped;
-* ``flow_chunk_dkv_call`` (K5b): the reverse scan for dk and dv.
+* ``flow_chunk_dkv_call`` (K5b): dk and dv, the same three stages with the
+  chunk order reversed.
 
 The kernels take fp32 only: the causal pipeline hands the dot fp32
 operands whatever the activation dtype (``attention/pipeline.py``), so
@@ -30,7 +31,7 @@ __all__ = ["LAUNCHES", "check_dims", "flow_chunk_call", "flow_chunk_dkv_call"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _FWD_ARGTYPES = [_P] * 5 + [_I] * 5 + [_P]
-_DKV_ARGTYPES = [_P] * 6 + [_I] * 5 + [_P]
+_DKV_ARGTYPES = [_P] * 7 + [_I] * 5 + [_P]
 
 
 def check_dims(d: int, dv: int) -> str | None:
@@ -72,15 +73,16 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return bh, g, n, d, dv
 
 
-def workspace(q: torch.Tensor, bh: int, g: int, n: int, d: int,
-              dv: int) -> torch.Tensor:
-    """The fp32 scratch K5a needs at these shapes (its chunk states), from
-    the library's own ``flow_chunk_workspace`` count; the kernels allocate
-    nothing."""
-    size = _lib.function("flow_chunk", "flow_chunk_workspace", [_I] * 5,
-                         ctypes.c_longlong)(bh, g, n, d, dv)
+def workspace(q: torch.Tensor, bh: int, g: int, n: int, d: int, dv: int,
+              source: str = "flow_chunk",
+              symbol: str = "flow_chunk_workspace") -> torch.Tensor:
+    """The fp32 scratch K5a (or, by ``source`` and ``symbol``, K5b) needs at
+    these shapes (its chunk states), from the library's own count; the
+    kernels allocate nothing."""
+    size = _lib.function(source, symbol, [_I] * 5, ctypes.c_longlong)(
+        bh, g, n, d, dv)
     if size < 0:
-        raise ValueError(f"flow_chunk refuses G={g}, N={n}, D={d}, Dv={dv}")
+        raise ValueError(f"{source} refuses G={g}, N={n}, D={d}, Dv={dv}")
     return torch.empty(max(size, 4), dtype=torch.float32, device=q.device)
 
 
@@ -114,8 +116,10 @@ def flow_chunk_dkv_call(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """dk and dv of the causal dot for its output cotangent g (K5b).
 
     q: (BH, G, N, D); k: (BH, N, D); v: (BH, N, Dv); g: (BH, G, N, Dv) ->
-    dk (BH, N, D), dv (BH, N, Dv).  One block per row walks the position
-    tiles last to first, so the sums are taken in a fixed order.
+    dk (BH, N, D), dv (BH, N, Dv).  One call is one count in ``LAUNCHES``
+    and up to three CUDA kernels (chunk states, their suffix, the
+    per-chunk products; ``bwd.py::flow_chunk_dkv_parallel`` is that
+    decomposition) on one ``workspace``, every sum in a fixed order.
     """
     if q.device.type == "cpu":
         return flow_chunk_dkv_ref(q, k, v, g)
@@ -126,10 +130,13 @@ def flow_chunk_dkv_call(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dk, dvv = torch.empty_like(k), torch.empty_like(v)
     if bh == 0:
         return dk, dvv
+    work = workspace(q, bh, grp, n, d, dv, "flow_chunk_bwd",
+                     "flow_chunk_dkv_workspace")
     fn = _lib.function("flow_chunk_bwd", "flow_chunk_dkv", _DKV_ARGTYPES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-             dk.data_ptr(), dvv.data_ptr(), bh, grp, n, d, dv, stream)
+             dk.data_ptr(), dvv.data_ptr(), work.data_ptr(), bh, grp, n, d, dv,
+             stream)
     _lib.check(fn, err, "flow_chunk_dkv")
     LAUNCHES["flow_chunk_dkv"] += 1
     return dk, dvv

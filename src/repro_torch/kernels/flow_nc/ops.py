@@ -7,7 +7,7 @@ K7a and K7b (``csrc/flow_nc_qside.cu``).
 * ``flow_attention_nc``: (B, Hq, N, D) inputs grouped into the kernels'
   flat (B*Hkv, G*N, D) layout -- the G query heads of a kv head form one
   sink population -- and through ``attention/vjp.py::FlowNCFused`` (K6
-  forward; backward through K7a and K7b), as
+  forward; backward through K7b), as
   ``repro/kernels/flow_nc/ops.py::flow_attention_nc_pallas`` does around
   the TPU kernels.
 
@@ -41,9 +41,6 @@ _QSIDE_BWD_ARGTYPES = [_P] * 10 + [_I] * 6 + [_F, _F, _P]
 #: card's non-portable cluster size (the kernel opts in), at which the LRA
 #: shape's rows fit two blocks to an SM; 8 is the portable size
 CLUSTER_BLOCKS = 16
-#: rows of one (batch * head) per block of K7b; more rows than this are
-#: split over blocks whose partial reductions a second launch adds
-_BWD_ROWS_PER_SPLIT = 1024
 
 
 def _check(device, **xs):
@@ -103,7 +100,7 @@ def flow_nc_fused_call(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          "(batch * kv head) rows")
     _lib.refuse_autograd(q, k, v, why="the flow_nc_fused kernel's output has "
                          "no autograd graph", instead="flow_attention_nc "
-                         "(FlowNCFused, backward kernels K7a and K7b)")
+                         "(FlowNCFused, backward kernel K7b)")
     out = torch.empty_like(q)
     fn = _lib.function("flow_nc_fused", "flow_nc_fused_fwd", _FUSED_ARGTYPES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -142,16 +139,30 @@ def flow_nc_qside_call(q: torch.Tensor, k_sum: torch.Tensor,
     return out
 
 
+def bwd_rows(bh: int, n: int, d: int, dtype: torch.dtype) -> int:
+    """Rows of one (batch * head) per K7b block on the current card, from
+    the library's ``flow_nc_qside_bwd_rows``: whole tiles, as few blocks as
+    fill its SMs once."""
+    rows = _lib.function("flow_nc_qside", "flow_nc_qside_bwd_rows", [_I] * 4)(
+        bh, n, d, DTYPE_CODES[dtype])
+    if rows < 1:
+        raise ValueError(f"flow_nc_qside_bwd refuses BH={bh}, N={n}, D={d}, "
+                         f"{dtype}")
+    return rows
+
+
 def flow_nc_qside_bwd_call(q: torch.Tensor, k_sum: torch.Tensor,
                            ko_sum: torch.Tensor, kv: torch.Tensor,
                            g: torch.Tensor, *, n_sinks: int, m_sources: int,
                            eps: float = 1e-6):
     """Cotangents of ``flow_nc_qside_call`` w.r.t. (q, k_sum, ko_sum, kv)
     for the output cotangent g (BH, N, Dv) in q's dtype (K7b).  Returns
-    (dq in q's dtype, dk_sum, dko_sum, dkv fp32).  The reductions over N
-    add per-block partials in a fixed order (a scratch of ceil(N / 1024)
-    partials of 2 D + D Dv floats per row of the batch), so the result is
-    the same on every run."""
+    (dq in q's dtype, dk_sum, dko_sum, dkv fp32).  Each block owns
+    ``bwd_rows`` rows of a (batch * head); the reductions over N add the
+    blocks' partials in a fixed order (``ref.py::flow_nc_qside_bwd_parallel``
+    is that decomposition), by a second launch over a scratch of
+    ceil(N / rows) partials of 2 D + D Dv floats per row of the batch, so
+    the result is the same on every run."""
     if q.device.type == "cpu":
         return flow_nc_qside_bwd_ref(q, k_sum, ko_sum, kv, g, n_sinks=n_sinks,
                                      m_sources=m_sources, eps=eps)
@@ -161,7 +172,8 @@ def flow_nc_qside_bwd_call(q: torch.Tensor, k_sum: torch.Tensor,
     bh, n, d = q.shape
     if g.shape != q.shape:
         raise ValueError(f"g has shape {tuple(g.shape)}, want {tuple(q.shape)}")
-    splits = -(-n // _BWD_ROWS_PER_SPLIT)
+    rows = bwd_rows(bh, n, d, q.dtype)
+    splits = -(-n // rows)
     f32 = dict(dtype=torch.float32, device=q.device)
     dq = torch.empty_like(q)
     part = torch.empty((bh, splits, 2 * d + d * d), **f32)
@@ -172,7 +184,7 @@ def flow_nc_qside_bwd_call(q: torch.Tensor, k_sum: torch.Tensor,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k_sum.data_ptr(), ko_sum.data_ptr(), kv.data_ptr(),
              g.data_ptr(), dq.data_ptr(), part.data_ptr(), dk_sum.data_ptr(),
-             dko_sum.data_ptr(), dkv.data_ptr(), bh, n, d, d, splits,
+             dko_sum.data_ptr(), dkv.data_ptr(), bh, n, d, d, rows,
              DTYPE_CODES[q.dtype], float(n_sinks) / float(m_sources), eps,
              stream)
     _lib.check(fn, err, "flow_nc_qside_bwd")
@@ -186,7 +198,7 @@ def flow_attention_nc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q: (B, Hq, N, D); k, v: (B, Hkv, M, D/Dv) -> (B, Hq, N, Dv).  Sigmoid
     phi and allocation; ``cfg.use_competition`` and ``cfg.eps`` are read.
-    Differentiable: the backward runs K7a and K7b (``FlowNCFused``).
+    Differentiable: the backward runs K7b (``FlowNCFused``).
     """
     from repro_torch.attention.vjp import FlowNCFused  # lazy: cycle
 

@@ -16,6 +16,9 @@
 * ``flow_nc_qside_bwd_ref`` (K7b): K7a's cotangents, the chain of
   ``repro/kernels/flow_nc/bwd.py`` written out by hand (no autograd), so
   that a test against autograd checks the formula.
+* ``flow_nc_qside_bwd_parallel`` (K7b as the CUDA kernel splits it): each
+  (batch * head)'s rows cut into blocks of ``rows``, each block's partial
+  dk_sum, dko_sum and dkv, the totals those partials added in block order.
 
 Everything is computed in fp32; outputs take q's dtype, the key-side
 cotangents fp32.
@@ -159,4 +162,35 @@ def flow_nc_qside_bwd_ref(q: torch.Tensor, k_sum: torch.Tensor,
     dk_sum = (dincoming * (phi + eps)).sum(dim=1)
     dko_sum = (dconserved * (phi + eps)).sum(dim=1)
     dkv = torch.einsum("bnd,bne->bde", q_in, dagg)
+    return dq.to(q.dtype), dk_sum, dko_sum, dkv
+
+
+def flow_nc_qside_bwd_parallel(q: torch.Tensor, k_sum: torch.Tensor,
+                               ko_sum: torch.Tensor, kv: torch.Tensor,
+                               g: torch.Tensor, *, n_sinks: int,
+                               m_sources: int, rows: int, eps: float = 1e-6):
+    """``flow_nc_qside_bwd_ref`` summed as ``csrc/flow_nc_qside.cu`` splits
+    it: block b owns rows [b rows, (b+1) rows) of each (batch * head) and
+    forms the partials sum_i dI_i (phi_i + eps), sum_i dC_i (phi_i + eps)
+    and phi_b^T u_b (u = g alloc / I) over its rows; each total is the
+    blocks' partials added in block order.  dq is per row, as there."""
+    phi, ks, kos, incoming, alloc, _, agg = _qside_chain(
+        q, k_sum, ko_sum, kv, n_sinks, m_sources, eps)
+    sink_scale = float(n_sinks) / float(m_sources)
+    g = g.float()
+    u = g * alloc / incoming  # (BH, N, Dv)
+    dalloc = (g * agg).sum(dim=-1, keepdim=True)
+    w = torch.einsum("bne,bde->bnd", u, kv.float())
+    dincoming = -(w * phi).sum(dim=-1, keepdim=True) / incoming
+    dconserved = dalloc * alloc * (1.0 - alloc) * sink_scale
+    dq = (w + dincoming * ks[:, None, :] + dconserved * kos[:, None, :]) \
+        * phi * (1.0 - phi)
+    blocks = range(0, q.shape[1], rows)
+    cut = lambda x: [x[:, b:b + rows] for b in blocks]  # noqa: E731
+    phis, us, dis, dcs = cut(phi), cut(u), cut(dincoming), cut(dconserved)
+    dk_sum = _rank_sum([(d * (p + eps)).sum(dim=1) for d, p in zip(dis, phis)])
+    dko_sum = _rank_sum([(d * (p + eps)).sum(dim=1)
+                         for d, p in zip(dcs, phis)])
+    dkv = _rank_sum([torch.einsum("bnd,bne->bde", p, x)
+                     for p, x in zip(phis, us)])
     return dq.to(q.dtype), dk_sum, dko_sum, dkv

@@ -11,7 +11,7 @@ eval loop.  The gradients are taken with respect to the fp32 master
 parameters, which the forward casts to ``dtype`` at each use, as the
 reference's loss does.  Attention is non-causal and resolved once, for
 gradients: on a GPU every attention forward runs kernel K6 and every
-attention backward K7a and K7b.  ``main`` trains ``flowformer_lra`` on
+attention backward K7b.  ``main`` trains ``flowformer_lra`` on
 ``listops`` (the LRA ListOps stand-in) with random weights from a seed.
 """
 from __future__ import annotations

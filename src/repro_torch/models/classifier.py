@@ -10,7 +10,7 @@ where given) -> linear head with bias.  Parameters are a plain dict
 
 with the blocks always a list (the reference's classifier never stacks its
 layers).  Attention runs ``causal=False`` through the registry: on a GPU
-every forward is kernel K6 and every backward K7a and K7b.
+every forward is kernel K6 and every backward K7b.
 """
 from __future__ import annotations
 

@@ -9,6 +9,9 @@ run their plain versions:
   prefix, per-chunk products) at chunks 16-64, G 1-3, N 1-512 ragged
   against the chunk and D != Dv, forward and dq operands, against
   ``repro.kernels.flow_chunk.flow_chunk_call``;
+* ``flow_chunk_dkv_parallel`` (K5b's own decomposition: chunk states, their
+  suffix, per-chunk transposed panels) at the same chunks, G, N and widths
+  against ``repro.kernels.flow_chunk.bwd.flow_chunk_dkv_call``;
 * ``flow_chunk_ref``, ``chunked_causal_dot_grouped`` and the kernel glue
   ``chunked_causal_dot_cuda`` (N = 200 padded to the chunk) against
   ``repro.kernels.flow_chunk.flow_chunk_call``; ``flow_chunk_dkv_ref``
@@ -63,6 +66,7 @@ from repro_torch.core.reference import flow_attention_causal_ref  # noqa: E402
 from repro_torch.kernels import LAUNCHES  # noqa: E402
 from repro_torch.kernels.flow_chunk import (flow_chunk_call,  # noqa: E402
                                             flow_chunk_dkv_call,
+                                            flow_chunk_dkv_parallel,
                                             flow_chunk_dkv_ref,
                                             flow_chunk_parallel, flow_chunk_ref)
 
@@ -150,6 +154,33 @@ def test_flow_chunk_parallel_matches_pallas(chunk, g, n, d, dv, swap):
     got = flow_chunk_parallel(t(q), t(k), t(v), chunk)
     assert got.shape == q.shape[:-1] + (v.shape[-1],)
     close(got, np.asarray(want)[:, :, :n], "flow_chunk_parallel")
+
+
+# (chunk, G, N, D, Dv): K5b's chunk-parallel twin, N ragged against the chunk
+DKV_PARALLEL_CASES = [
+    (16, 1, 1, 32, 128), (16, 2, 130, 64, 32), (16, 3, 200, 64, 64),
+    (16, 1, 512, 128, 128), (32, 1, 512, 64, 64), (32, 2, 1, 128, 128),
+    (32, 3, 130, 32, 128), (32, 2, 200, 64, 32), (64, 1, 200, 128, 128),
+    (64, 2, 512, 64, 32), (64, 3, 130, 64, 64), (64, 1, 512, 32, 128)]
+
+
+@pytest.mark.parametrize("chunk,g,n,d,dv", DKV_PARALLEL_CASES)
+def test_flow_chunk_dkv_parallel_matches_pallas(chunk, g, n, d, dv):
+    """``flow_chunk_dkv_parallel`` (chunk states summed over the group, their
+    exclusive suffix from the last chunk down, the transposed causal panels
+    per chunk; the last chunk ragged) against the reference kernel on the
+    operands zero-padded to its chunk."""
+    rng = np.random.default_rng(n + 5 * g + d + dv + chunk)
+    q, k, v, cot = dot_operands(rng, (2,), g, n, d, dv)
+    n_pad = -(-n // chunk) * chunk
+    pad = lambda x: np.pad(x, [(0, 0)] * (x.ndim - 2)  # noqa: E731
+                           + [(0, n_pad - n), (0, 0)])
+    want = j_dkv_call(*(jnp.asarray(pad(x)) for x in (q, k, v, cot)),
+                      chunk=chunk, interpret=True)
+    got = flow_chunk_dkv_parallel(t(q), t(k), t(v), t(cot), chunk)
+    assert got[0].shape == k.shape and got[1].shape == v.shape
+    close(got[0], np.asarray(want[0])[:, :n], "dk")
+    close(got[1], np.asarray(want[1])[:, :n], "dv")
 
 
 @pytest.mark.parametrize("g,n,d,dv,chunk", DOT_CASES)

@@ -7,9 +7,9 @@ test here skips with that reason.  On a machine with one:
 
 Tolerance: |kernel - plain| <= 1e-4 + 1e-4 |plain| in fp32 (the same fp32
 terms summed in another order; no TF32 on either side but in K6's and
-K5a's products, which run in 3xTF32 (each operand split into a tf32 head
-and rest, three tensor-core products) and are held to the same
-tolerances), 1e-2 + 1e-2 |plain| in bf16 (both
+the products of K5a, K5b, K6 and K7b, which run in 3xTF32 (each operand
+split into a tf32 head and rest, three tensor-core products) and are held
+to the same tolerances), 1e-2 + 1e-2 |plain| in bf16 (both
 round once from fp32); training losses rtol 1e-4 and
 attention gradients within 1e-4 of each leaf's max |grad|.  The causal
 dot (K5a, K5b) is held to 1e-4 + 1e-4 |plain| + 1e-4 max |plain|: it sums
@@ -42,6 +42,7 @@ from repro_torch.kernels import LAUNCHES, reset_launches  # noqa: E402
 from repro_torch.kernels._lib import KERNELS  # noqa: E402
 from repro_torch.kernels.flow_chunk import (flow_chunk_call,  # noqa: E402
                                             flow_chunk_dkv_call,
+                                            flow_chunk_dkv_parallel,
                                             flow_chunk_dkv_ref,
                                             flow_chunk_parallel, flow_chunk_ref)
 from repro_torch.kernels.flow_decode import (flow_decode_call,  # noqa: E402
@@ -58,6 +59,7 @@ from repro_torch.kernels.flow_nc import (flow_nc_fused_call,  # noqa: E402
                                          flow_nc_fused_parallel,
                                          flow_nc_fused_ref,
                                          flow_nc_qside_bwd_call,
+                                         flow_nc_qside_bwd_parallel,
                                          flow_nc_qside_bwd_ref,
                                          flow_nc_qside_call, flow_nc_qside_ref)
 from repro_torch.attention.vjp import FlowNCQside, nc_key_side  # noqa: E402
@@ -72,7 +74,7 @@ from repro_torch.serving.engine import Engine, Request  # noqa: E402
 from repro_torch.serving.quant import (dequantize_state,  # noqa: E402
                                        quantize_like, quantize_state, spec_of)
 
-from repro_torch.kernels.flow_nc.ops import CLUSTER_BLOCKS  # noqa: E402
+from repro_torch.kernels.flow_nc.ops import CLUSTER_BLOCKS, bwd_rows  # noqa: E402
 from repro_torch.kernels.gather import (boundary_gather,  # noqa: E402
                                         boundary_gather_many,
                                         boundary_gather_many_ref,
@@ -90,6 +92,7 @@ from repro_torch.layers import ssd as ssd_layer  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 TOL = dict(rtol=1e-4, atol=1e-4)
+K7B_TWIN_RTOL = 6e-6  # chip_smoke.K7B_TWIN_RTOL
 
 
 @pytest.fixture
@@ -401,7 +404,7 @@ def test_training_kernels_match_plain_fp32(gen):
 @pytest.mark.parametrize("dtype,d,bh,nq,m,comp", [
     (torch.float32, 64, 6, 200, 136, True), (torch.float32, 32, 4, 100, 70, False),
     (torch.bfloat16, 128, 3, 300, 129, True),
-    (torch.float32, 64, 2, 2100, 1500, True)])  # K7b over 3 row splits
+    (torch.float32, 64, 2, 2100, 1500, True)])  # K7b over many row splits
 def test_flow_nc_kernels_match_plain(gen, dtype, d, bh, nq, m, comp):
     tol = TOL if dtype == torch.float32 else dict(rtol=1e-2, atol=1e-2)
     mk = lambda *s: torch.randn(s, generator=gen, device="cuda").to(dtype)  # noqa: E731
@@ -450,6 +453,42 @@ def test_flow_nc_fused_cluster_kernel_matches_plain_and_parallel(
         torch.testing.assert_close(got, want, **tol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,bh,n,m", [(32, 4, 1000, 700), (64, 4, 4096, 4096),
+                                      (64, 3, 1, 1), (128, 2, 333, 136),
+                                      (64, 128, 4096, 4096)])
+def test_flow_nc_qside_bwd_kernel_matches_plain_and_parallel(gen, dtype, d,
+                                                             bh, n, m):
+    """K7b against its plain version and its own decomposition (per-block
+    partials at the card's rows per block, added in order), N ragged
+    against its tile, N = 1 and the LRA shape (22 tiles a block); also
+    within rtol x max |plain| (the cotangents are ~1e-3 at N = 4,096), its
+    fp32 outputs within K7B_TWIN_RTOL x max |twin| of the twin (chip_smoke's
+    bound: a sum left to drift in the tensor cores' accumulators read
+    1.1e-5 to 1.3e-5 there and passed rtol); two calls bitwise equal."""
+    rtol, atol = (1e-4, 1e-4) if dtype == torch.float32 else (1e-2, 1e-2)
+    mk = lambda *s: torch.randn(s, generator=gen, device="cuda").to(dtype)  # noqa: E731
+    q, k, v, g = mk(bh, n, d), mk(bh, m, d), mk(bh, m, d), mk(bh, n, d)
+    key = nc_key_side(q, k, v, 1e-6, True)
+    kw = dict(n_sinks=n, m_sources=m)
+    reset_launches()
+    got = flow_nc_qside_bwd_call(q, *key, g, **kw)
+    assert LAUNCHES["flow_nc_qside_bwd"] == 1
+    rows = bwd_rows(bh, n, d, dtype)
+    twin = flow_nc_qside_bwd_parallel(q, *key, g, rows=rows, **kw)
+    for want in (flow_nc_qside_bwd_ref(q, *key, g, **kw), twin):
+        for a, b_ in zip(got, want):
+            torch.testing.assert_close(a, b_, rtol=rtol, atol=atol)
+            assert float((a.float() - b_.float()).abs().max()) <= rtol * float(
+                b_.float().abs().max())
+    for a, b_ in zip(got, twin):
+        if a.dtype == torch.float32:
+            assert float((a - b_).abs().max()) <= K7B_TWIN_RTOL * float(
+                b_.abs().max())
+    again = flow_nc_qside_bwd_call(q, *key, g, **kw)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+
+
 def test_flow_nc_qside_call_refuses_autograd_outside_flow_nc_qside(gen):
     q = torch.randn((2, 16, 32), generator=gen, device="cuda",
                     requires_grad=True)
@@ -495,8 +534,7 @@ def test_classifier_training_kernels_match_plain_fp32(gen):
         want = dict.fromkeys(KERNELS, 0)
         if backend == "auto":
             n = cfg.n_layers * steps
-            want.update(flow_nc_fused=n + cfg.n_layers, flow_nc_qside=n,
-                        flow_nc_qside_bwd=n)
+            want.update(flow_nc_fused=n + cfg.n_layers, flow_nc_qside_bwd=n)
         assert LAUNCHES == want
     np.testing.assert_allclose(hist["auto"], hist["plain"], rtol=1e-4)
     for a, b_ in zip(grads["auto"], grads["plain"]):
@@ -554,6 +592,25 @@ def test_flow_chunk_kernel_matches_its_decomposition(gen, g, n, d, dv):
     assert_dot_close(flow_chunk_call(cot, v, k),
                      flow_chunk_parallel(cot, v, k, chunk))
     assert torch.equal(flow_chunk_call(q, k, v), out)
+
+
+@pytest.mark.parametrize("g,n,d,dv", [(1, 512, 64, 64), (2, 200, 32, 128),
+                                      (3, 130, 128, 32), (2, 1, 64, 64),
+                                      (3, 200, 128, 128), (1, 130, 64, 32)])
+def test_flow_chunk_dkv_kernel_matches_plain_and_its_decomposition(gen, g, n,
+                                                                   d, dv):
+    """K5b against its plain version and ``flow_chunk_dkv_parallel`` at the
+    kernel's own chunk (64, 32 at a width of 128), N = 1 and a ragged last
+    chunk included; two calls bitwise equal."""
+    q, k, v, cot = dot_operands(gen, 4, g, n, d, dv)
+    chunk = 32 if max(d, dv) >= 128 else 64
+    got = flow_chunk_dkv_call(q, k, v, cot)
+    for want in (flow_chunk_dkv_ref(q, k, v, cot),
+                 flow_chunk_dkv_parallel(q, k, v, cot, chunk)):
+        for a, b_ in zip(got, want):
+            assert_dot_close(a, b_)
+    assert all(torch.equal(a, b_) for a, b_ in zip(
+        flow_chunk_dkv_call(q, k, v, cot), got))
 
 
 def test_flow_chunk_call_refuses_autograd_outside_flow_chunk_dot(gen):

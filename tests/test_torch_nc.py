@@ -11,8 +11,14 @@ versions on the CPU:
 * ``flow_nc_qside_ref`` (K7a) against ``flow_nc_qside_call``;
 * ``flow_nc_qside_bwd_ref`` (K7b, written out by hand) against
   ``flow_nc_qside_bwd_call`` and against autograd of K7a's plain version;
+* ``flow_nc_qside_bwd_parallel`` (K7b as the CUDA kernel splits the rows:
+  per-block partials summed in block order) against
+  ``flow_nc_qside_bwd_call`` at N = 1, 200 and 4,096, the last block
+  ragged;
 * ``FlowNCFused`` gradients against ``jax.vjp`` of the reference's
-  ``flow_nc_fused`` custom VJP;
+  ``flow_nc_fused`` custom VJP, and its backward (K7b on the key side,
+  no K7a) against autograd through ``_nc_decomposed`` within 1e-6 of each
+  gradient's largest entry, fp32 and bf16;
 * G = 2 grouping against ``flow_attention_nc_pallas``;
 * every phi and both ablations through the plain ``nc`` backend (and the
   quadratic oracle) against ``repro.attention.pipeline.nc_forward``.
@@ -38,7 +44,8 @@ from repro.kernels.flow_nc.bwd import flow_nc_qside_bwd_call as j_qside_bwd  # n
 from repro.kernels.flow_nc.flow_nc import flow_nc_qside_call as j_qside  # noqa: E402
 from repro.kernels.flow_nc.fused import flow_nc_fused_call as j_fused  # noqa: E402
 from repro_torch.attention.pipeline import nc_forward  # noqa: E402
-from repro_torch.attention.vjp import FlowNCFused  # noqa: E402
+from repro_torch.attention import vjp  # noqa: E402
+from repro_torch.attention.vjp import FlowNCFused, _nc_decomposed  # noqa: E402
 from repro_torch.core.flow_attention import FlowConfig, flow_attention_nc  # noqa: E402
 from repro_torch.core.reference import flow_attention_nc_ref  # noqa: E402
 from repro_torch.kernels import LAUNCHES  # noqa: E402
@@ -47,6 +54,7 @@ from repro_torch.kernels.flow_nc import (flow_attention_nc as kernel_nc,  # noqa
                                          flow_nc_fused_parallel,
                                          flow_nc_fused_ref,
                                          flow_nc_qside_bwd_call,
+                                         flow_nc_qside_bwd_parallel,
                                          flow_nc_qside_bwd_ref,
                                          flow_nc_qside_call,
                                          flow_nc_qside_ref)
@@ -150,6 +158,28 @@ def test_flow_nc_qside_bwd_ref_matches(against, n, m):
                                       n_sinks=n, m_sources=m)[0])
 
 
+# (N, D, rows per block): one block, several, the last one ragged; N = 1
+QSIDE_BWD_SPLITS = [(1, 16, 64), (200, 16, 64), (200, 32, 128),
+                    (200, 64, 192), (4096, 64, 1408), (4096, 32, 4096)]
+
+
+@pytest.mark.parametrize("n,d,rows", QSIDE_BWD_SPLITS)
+def test_flow_nc_qside_bwd_parallel_matches_pallas(n, d, rows):
+    """K7b's decomposition: each block of ``rows`` rows forms its partial
+    dk_sum, dko_sum and dkv, and the totals add the partials in block
+    order; dq per row."""
+    rng = np.random.default_rng(n + d + rows)
+    q, k_sum, ko_sum, kv = key_side(rng, 2, n, 136, d)
+    g = randn(rng, 2, n, d)
+    want = j_qside_bwd(*map(jnp.asarray, (q, k_sum, ko_sum, kv, g)),
+                       n_sinks=n, m_sources=136, interpret=True)
+    got = flow_nc_qside_bwd_parallel(T(q), T(k_sum), T(ko_sum), T(kv), T(g),
+                                     n_sinks=n, m_sources=136, rows=rows)
+    assert got[0].shape == (2, n, d) and got[3].shape == (2, d, d)
+    for a, b in zip(got, want):
+        close(a, b)
+
+
 @pytest.mark.parametrize("use_comp", [True, False])
 def test_flow_nc_fused_grads_match_jax_vjp(use_comp):
     rng = np.random.default_rng(11 + use_comp)
@@ -162,6 +192,34 @@ def test_flow_nc_fused_grads_match_jax_vjp(use_comp):
     grads = torch.autograd.grad(got, leaves, T(g))
     for a, b in zip(grads, pull(jnp.asarray(g))):
         close(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("use_comp", [True, False])
+def test_flow_nc_fused_backward_is_the_decomposition_gradient(
+        dtype, use_comp, monkeypatch):
+    """``FlowNCFused.backward`` (K7b on ``nc_key_side``'s reductions, their
+    cotangents pulled back by autograd) against autograd through
+    ``_nc_decomposed`` (which runs K7a's ``FlowNCQside`` forward): dq, dk
+    and dv in the inputs' dtype, within 1e-6 of each one's largest entry;
+    and the backward never runs the sink side's forward."""
+    rng = np.random.default_rng(21 + use_comp)
+    q, k, v, g = (T(randn(rng, 3, 96, 16)).to(dtype) for _ in range(4))
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out = FlowNCFused.apply(*leaves, EPS, use_comp)
+    calls = []
+    monkeypatch.setattr(vjp, "flow_nc_qside_call",
+                        lambda *a, **kw: calls.append(1))
+    got = torch.autograd.grad(out, leaves, g)
+    assert not calls, "FlowNCFused.backward ran the sink side's forward"
+    monkeypatch.undo()
+    ref = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    want = torch.autograd.grad(_nc_decomposed(*ref, EPS, use_comp), ref, g)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype == dtype
+        scale = float(b.float().abs().max())
+        assert scale > 0
+        assert float((a.float() - b.float()).abs().max()) <= 1e-6 * scale
 
 
 def test_grouped_g2_matches_pallas_wrapper():
