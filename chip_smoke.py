@@ -116,6 +116,33 @@ any failure raises, so the exit code is non-zero:
      step by step: logits within rtol 1e-4 and atol 1e-4 x max |logit|,
      and equal greedy tokens wherever the dense run's top-2 margin clears
      twice that;
+  19. speculative serving: phase 5's Engine (its weights and 48 requests,
+     bf16, 16 slots) with ``draft="self"`` and ``speculate_k=4``; each
+     window is one propose (4 greedy decode steps from a copy of the flow
+     pools) and one fused verify (``lm.verify``, plain PyTorch on the
+     card, then the accepted prefix, the bonus token and the rollback):
+     every window commits at least one token a live slot, and exactly
+     6 K1 launches per admission round and 6 x 4 K3 per window run, and
+     nothing else; windows, committed tokens a window, propose and verify
+     ms a window, decode tokens/s;
+  19b. phase 19 from int8 pools: K4 in every propose step (6 x 4 a
+     window), no K3; verify dequantizes the pool once and the rollback
+     quantizes the gathered boundary once (``QuantTraj``);
+  19c. phase 19 with ``draft="tiny"`` (``ModelDraft``, a smoke-sized
+     flowformer_lm drafter with its own pool): K1 on both pools' admission
+     rounds, K3 on the drafter's 5 steps a window only;
+  20. fp32 greedy equality on the card, phase 6's 12 requests through the
+     speculative Engine against the plain Engine, token for token: flow
+     with the self draft (k = 4) and with the tiny draft (k = 2), int8 flow
+     with the self draft against the plain fp32 Engine, the paged softmax
+     Engine (K8a in propose and in verify's sequential decode; the
+     dense-equivalent pool) and the full-width mamba2_1p3b (K9 at
+     admission; its verify stacks 5 whole SSD states a slot, ~4 GB at 8
+     slots) with its conv histories bound to fp32, as phase 14 (with the
+     configuration's bf16 histories the runs are compared and printed,
+     not gated); the speculative runs' launches are printed.  The int8
+     case is held teacher-forced (``speculative_int8_against_fp32``):
+     int8 pools round where fp32 ones do not;
   7. training at full width (``launch/train.py::train``, bf16, 5 steps
      of 16 x 512 tokens from ``lm_loader(seed=0)``, random weights from a
      seed): finite losses, and exactly 2 x 6 K1 (forward and remat
@@ -183,7 +210,8 @@ any failure raises, so the exit code is non-zero:
      for K1-K3, of phase 5c for K4 (K1's count includes 5c's), of phase
      10 for K6, K7a (none), K7b, of phase 7c for K5a, K5b, of phases 17 and 17b
      for K8a and K8b, of phase 13 for K9 and of phase 15 for K10a and
-     K10b), K1's time and bound at the training shape (in its row),
+     K10b, each plus the speculative runs of phases 19, 19b, 19c and 20:
+     K1, K3, K4, K8a and K9), K1's time and bound at the training shape (in its row),
      the device time of each CUDA kernel of one K1 call (serving and
      training shape) and one K2 call (``k12_breakdown``: the ``flow_fwd_``
      and ``flow_bwd_`` kernels) with their registers and spill bytes from
@@ -1876,7 +1904,7 @@ def serve_ssd_full_width(params, cfg) -> dict:
 
 
 def serve_ssd_fp32_against_oracle(params, cfg, conv_dtype=torch.float32,
-                                  drift=0.0):
+                                  drift=0.0, speculate_k=0):
     """Phase 14: the fp32 Engine (packed admission through K9) against a
     per-request greedy oracle on the card: unpacked ``lm.prefill`` (the
     conv history from ``_causal_conv``'s tail, no K9), then ``lm.decode``,
@@ -1893,7 +1921,9 @@ def serve_ssd_fp32_against_oracle(params, cfg, conv_dtype=torch.float32,
     can land on the neighbouring bf16 value, and the logits drift apart
     step by step (``SSD_BF16_CONV_DRIFT``), so a token is held only where
     the oracle's top-2 margin exceeds twice the tolerance of its top
-    logit."""
+    logit.  With ``speculate_k`` (phase 20) the Engine decodes by
+    self-drafted windows, and each committed token's verify row is held
+    the same way."""
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.layers import ssd as ssd_layer
     from repro_torch.models import lm
@@ -1902,7 +1932,8 @@ def serve_ssd_fp32_against_oracle(params, cfg, conv_dtype=torch.float32,
     bound_dtype = ssd_layer.CONV_DTYPE
     ssd_layer.CONV_DTYPE = conv_dtype
     try:
-        got, seen, reqs, weights = _serve_recording_logits(params, cfg)
+        got, seen, reqs, weights = _serve_recording_logits(params, cfg,
+                                                           speculate_k)
         reset_launches()
         oracle = {}
         for r in reqs:  # teacher-forced with the Engine's tokens
@@ -1920,7 +1951,8 @@ def serve_ssd_fp32_against_oracle(params, cfg, conv_dtype=torch.float32,
         ssd_layer.CONV_DTYPE = bound_dtype
     if LAUNCHES["boundary_gather"]:
         raise AssertionError("the unpacked oracle launched K9")
-    tag = f"mamba2 fp32, {str(conv_dtype)[6:]} conv histories"
+    tag = f"mamba2 fp32, {str(conv_dtype)[6:]} conv histories" + (
+        f", speculative k={speculate_k}" if speculate_k else "")
     by_step, n_tok, near_ties = {}, 0, 0
     for r in reqs:
         gen = got[r.uid]
@@ -1943,7 +1975,9 @@ def serve_ssd_fp32_against_oracle(params, cfg, conv_dtype=torch.float32,
                           want, (rtol, rtol * scale))
             by_step[t] = max(by_step.get(t, 0.0), err / scale)
             n_tok += 1
-    print(f"[{tag}] packed admission (K9) vs the per-request oracle: "
+    print(f"[{tag}] packed admission (K9)"
+          + (" and verify windows" if speculate_k else "")
+          + " vs the per-request oracle: "
           f"{n_tok - near_ties} of {n_tok} greedy tokens of {len(reqs)} "
           f"requests agree ({near_ties} near ties); logits within "
           f"{max(by_step.values()):.3e} of max |logit| (rtol 1e-4 + "
@@ -1952,16 +1986,18 @@ def serve_ssd_fp32_against_oracle(params, cfg, conv_dtype=torch.float32,
           flush=True)
 
 
-def _serve_recording_logits(params, cfg):
+def _serve_recording_logits(params, cfg, speculate_k=0):
     """Phase 14's Engine run: 12 requests of mixed lengths through 8 fp32
-    slots; returns the generations, each request's logits row of every
-    step (admission included), the requests and the Engine's weights."""
+    slots (with ``speculate_k``, self-drafted verify windows); returns the
+    generations, each request's logits row of every committed token
+    (admission included), the requests and the Engine's weights."""
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.models import lm
     from repro_torch.serving.engine import Engine
 
     engine = Engine(params, cfg, slots=8, max_len=256, seed=SEED,
-                    dtype=torch.float32, device=DEVICE)
+                    dtype=torch.float32, speculate_k=speculate_k,
+                    device=DEVICE)
     worker, sched = engine.worker, engine.scheduler
     reqs = requests(np.random.default_rng(SEED + 5), 12, cfg.vocab_size,
                     (16, 128), (16, 16))
@@ -1969,7 +2005,7 @@ def _serve_recording_logits(params, cfg):
         engine.submit(r)
     uid_of = {id(r.prompt): r.uid for r in reqs}
     seen = {r.uid: [] for r in reqs}
-    real = {"prefill": lm.prefill, "decode": lm.decode}
+    real = {"prefill": lm.prefill, "decode": lm.decode, "verify": lm.verify}
     last = {}
 
     def recording(name):
@@ -1978,7 +2014,8 @@ def _serve_recording_logits(params, cfg):
             return last["logits"], caches
         return run
 
-    real_prefill, real_step = worker.prefill, worker.step
+    real_prefill, real_step, real_window = (worker.prefill, worker.step,
+                                            worker.verify)
 
     def admit(prompts, slot_ids, temps, **kw):
         first = real_prefill(prompts, slot_ids, temps, **kw)
@@ -1993,13 +2030,25 @@ def _serve_recording_logits(params, cfg):
                 last["logits"][slot, -1].clone())
         return toks
 
-    worker.prefill, worker.step = admit, step
+    def window(tokens, drafts, pos, temps, live):
+        uids = [None if r is None else r.uid for r in sched.active]
+        emitted, accepted = real_window(tokens, drafts, pos, temps, live)
+        for slot in np.flatnonzero(live):  # the rows of committed tokens
+            seen[uids[slot]].extend(last["logits"][slot, j].clone()
+                                    for j in range(accepted[slot] + 1))
+        return emitted, accepted
+
+    worker.prefill, worker.step, worker.verify = admit, step, window
     lm.prefill, lm.decode = recording("prefill"), recording("decode")
+    lm.verify = recording("verify")
     reset_launches()
     try:
         got = {r.uid: r.generated for r in engine.run()}
     finally:
         lm.prefill, lm.decode = real["prefill"], real["decode"]
+        lm.verify = real["verify"]
+    for uid, gen in got.items():  # a budget truncates a request's last
+        del seen[uid][len(gen):]  # window: its rows past the budget go
     if LAUNCHES["boundary_gather"] != cfg.n_layers * (
             worker.admission_rounds):
         raise AssertionError(f"fp32 mamba2 serving launches {LAUNCHES}")
@@ -2204,11 +2253,12 @@ def check_paged_gather() -> dict:
     return {"paged_gather": 0.0, "paged_gather_quant": 0.0}
 
 
-def timed_worker(worker) -> dict:
-    """Wrap the worker's prefill and step with host clocks; each ends in a
-    device-to-host copy, so each is synchronized.  Returns the seconds
-    spent, filled as the engine runs."""
-    spent = {"prefill": 0.0, "step": 0.0}
+def timed_calls(obj, names) -> dict:
+    """Wrap the methods ``names`` of ``obj`` with host clocks; each of the
+    serving calls wrapped ends in a device-to-host copy (or in nothing on
+    the device), so each is synchronized.  Returns the seconds spent per
+    name, filled as the engine runs."""
+    spent = dict.fromkeys(names, 0.0)
 
     def timed(fn, key):
         def run(*a, **kw):
@@ -2218,9 +2268,14 @@ def timed_worker(worker) -> dict:
             return res
         return run
 
-    worker.prefill = timed(worker.prefill, "prefill")
-    worker.step = timed(worker.step, "step")
+    for name in names:
+        setattr(obj, name, timed(getattr(obj, name), name))
     return spent
+
+
+def timed_worker(worker) -> dict:
+    """``timed_calls`` of the worker's prefill and step."""
+    return timed_calls(worker, ("prefill", "step"))
 
 
 def serve_paged_full_width(params, cfg, state_dtype=None) -> dict:
@@ -2428,6 +2483,293 @@ def serve_paged_fp32(params, cfg):
           f"tokens (fp32 and int8 pools of 24 pages); paged vs dense over "
           f"{len(steps['paged'])} steps: logits within {err:.3e}, {checked} "
           f"greedy tokens equal, {ties} near ties", flush=True)
+
+
+SPEC_K = 4  # drafted tokens a verify window (``--speculate-k 4``)
+#: phases 19 and 19b: the least share of a self draft's tokens the target
+#: must accept.  A self draft is the target's own greedy decode, so it
+#: differs from verify only by the window's fp32 order (bf16) and the
+#: rounding of int8 pools; an H100 read 1.0 (bf16) and 0.968 (int8 pools).
+#: A propose that drafted from the wrong positions, pages or state would
+#: accept almost nothing.
+SELF_DRAFT_MIN_ACCEPT = 0.9
+
+
+def serve_speculative_full_width(params, cfg, state_dtype=None,
+                                 draft="self") -> dict:
+    """Phase 19 (19b with ``state_dtype="int8"``, 19c with ``draft="tiny"``):
+    the bf16 Engine at full width, phase 5's weights and 48 requests, 16
+    slots, speculative with ``SPEC_K`` drafts a window.  Every window must
+    commit at least one token a live slot, a self draft must have at least
+    ``SELF_DRAFT_MIN_ACCEPT`` of its tokens accepted (19c's random drafter
+    is not held to a rate), and the kernels must run
+    exactly where the path puts them: K1 once a layer and admission round
+    (19c: on the drafter's pool too), K3 (19b: K4) once a layer and
+    propose step (19c: the drafter's k + 1 steps), nothing else (verify is
+    plain PyTorch on the card)."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.serving.engine import Engine
+
+    engine = Engine(params, cfg, slots=16, max_len=512, seed=SEED,
+                    state_dtype=state_dtype, draft=draft, speculate_k=SPEC_K,
+                    device=DEVICE)
+    reqs = requests(np.random.default_rng(SEED + 4), 48, cfg.vocab_size,
+                    (16, 384), (32, 64))
+    for r in reqs:
+        engine.submit(r)
+    worker, source = engine.worker, engine.draft
+    spent_worker = timed_calls(worker, ("prefill", "verify"))
+    spent_draft = timed_calls(source, ("admit", "propose"))
+    windows = {"n": 0, "live": 0, "committed": 0, "accepted": 0}
+    real_verify = worker.verify
+
+    def checked_verify(tokens, drafts, pos, temps, live):
+        emitted, accepted = real_verify(tokens, drafts, pos, temps, live)
+        acc = accepted[live]
+        if (acc < 0).any() or (acc > SPEC_K).any() or not (
+                (emitted[live] >= 0) & (emitted[live] < cfg.vocab_size)
+        ).all():
+            raise AssertionError(f"window {windows['n']}: accepted {acc}")
+        windows["n"] += 1
+        windows["live"] += int(live.sum())
+        windows["committed"] += int((acc + 1).sum())
+        windows["accepted"] += int(acc.sum())
+        return emitted, accepted
+
+    worker.verify = checked_verify
+    torch.cuda.synchronize()
+    reset_launches()
+    done = engine.run()
+    launches = dict(LAUNCHES)
+    if len(done) != len(reqs):
+        raise AssertionError(f"{len(done)} of {len(reqs)} requests retired")
+    for r in done:
+        if not r.done or len(r.generated) != r.max_new_tokens or not all(
+                0 <= tok < cfg.vocab_size for tok in r.generated):
+            raise AssertionError(f"request {r.uid}: {r.generated}")
+    n, layers = windows["n"], cfg.n_layers
+    if worker.verify_windows != n or worker.decode_steps or not n:
+        raise AssertionError(f"{worker.verify_windows} windows, "
+                             f"{worker.decode_steps} decode steps")
+    want = {"flow_fused": layers * worker.admission_rounds}
+    if draft == "tiny":
+        dlayers, pool = source.cfg.n_layers, source.pool
+        want["flow_fused"] += dlayers * pool.admission_rounds
+        want["flow_decode"] = dlayers * (SPEC_K + 1) * n
+    else:
+        decode = "flow_decode_q" if state_dtype == "int8" else "flow_decode"
+        want[decode] = layers * SPEC_K * n
+    if {k: v for k, v in launches.items() if v} != want:
+        raise AssertionError(f"speculative launches {launches}, want {want}")
+    share = windows["accepted"] / (SPEC_K * windows["live"])
+    if draft == "self" and share < SELF_DRAFT_MIN_ACCEPT:
+        raise AssertionError(f"self draft: {share:.4f} of the drafts "
+                             f"accepted, want >= {SELF_DRAFT_MIN_ACCEPT}")
+    spent = {**spent_worker, **spent_draft}
+    decode_tokens = sum(len(r.generated) - 1 for r in reqs)
+    window_s = spent["propose"] + spent["verify"]
+    stats = {
+        "requests": len(reqs), "draft": type(source).__name__,
+        "speculate_k": SPEC_K, "admission_rounds": worker.admission_rounds,
+        "windows": n, "live_slot_windows": windows["live"],
+        "committed_tokens_per_window": windows["committed"] / n,
+        "committed_tokens_per_live_slot_window":
+            windows["committed"] / windows["live"],
+        "accepted_draft_share": share,
+        "propose_ms_per_window": 1e3 * spent["propose"] / n,
+        "verify_ms_per_window": 1e3 * spent["verify"] / n,
+        "decode_tokens": decode_tokens,
+        "decode_tok_per_s": decode_tokens / window_s,
+        "prefill_s": spent["prefill"] + spent["admit"],
+        "k1_launches": launches["flow_fused"],
+        "k3_launches": launches["flow_decode"],
+        "k4_launches": launches["flow_decode_q"], "launches": launches}
+    tag = f"speculative bf16, {draft} draft" + (
+        "" if state_dtype is None else f", {state_dtype} pools")
+    print(f"[{tag}] " + json.dumps(stats), flush=True)
+    return stats
+
+
+def speculative_fp32_equal(params, cfg, tag, *, paged=None, draft="self",
+                           k=SPEC_K) -> dict:
+    """Phase 20: phase 6's 12 requests through the fp32 speculative Engine
+    and through the plain fp32 Engine, both on the kernels: the greedy
+    tokens must be identical (a request's first divergence and the plain
+    logits' top-2 margin there are printed before the run fails).  Returns
+    the speculative run's launches."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import Engine
+
+    runs = {}
+    for name in ("plain", "speculative"):
+        spec = name == "speculative"
+        engine = Engine(params, cfg, slots=8, max_len=256, seed=SEED,
+                        paged=paged, dtype=torch.float32,
+                        draft=draft if spec else None,
+                        speculate_k=k if spec else 0, device=DEVICE)
+        for r in requests(np.random.default_rng(SEED + 5), 12,
+                          cfg.vocab_size, (16, 128), (16, 16)):
+            engine.submit(r)
+        torch.cuda.synchronize()
+        reset_launches()
+        runs[name] = {r.uid: r for r in engine.run()}
+        if spec:
+            launches, windows = dict(LAUNCHES), engine.worker.verify_windows
+    for uid, r in runs["plain"].items():
+        got = runs["speculative"][uid].generated
+        if got == r.generated:
+            continue
+        j = next(i for i, (a, b) in enumerate(zip(got, r.generated))
+                 if a != b)
+        prefix = np.concatenate([r.prompt, np.asarray(r.generated[:j],
+                                                      np.int32)])
+        with torch.inference_mode():
+            logits, _ = lm.forward(lm.for_serving(params, DEVICE,
+                                                  torch.float32),
+                                   torch.tensor(prefix[None], device=DEVICE),
+                                   cfg, dtype=torch.float32)
+        top = torch.topk(logits[0, -1], 2).values
+        print(f"[speculative fp32, {tag}] request {uid} diverges at generated"
+              f" token {j}: speculative {got[j]}, plain {r.generated[j]}, "
+              f"top-2 margin {float(top[0] - top[1]):.3e} of max |logit| "
+              f"{float(logits[0, -1].abs().max()):.3e}", flush=True)
+        raise AssertionError(f"speculative fp32 ({tag}): greedy tokens "
+                             f"differ for request {uid}")
+    n_tok = sum(len(r.generated) for r in runs["plain"].values())
+    print(f"[speculative fp32, {tag}] speculative and plain agree on all "
+          f"{len(runs['plain'])} requests ({n_tok} greedy tokens) in "
+          f"{windows} windows; speculative launches "
+          f"{ {n: v for n, v in launches.items() if v} }", flush=True)
+    return {"launches": launches, "windows": windows}
+
+
+def ssd_speculative_fp32_equal(params, cfg) -> dict:
+    """Phase 20's mamba2 case, as phase 14 holds packed against unpacked
+    decoding: with ``layers.ssd.CONV_DTYPE`` bound to fp32 in both Engines
+    the greedy tokens must be identical.  With the configuration's bf16
+    histories a history element that the runs' GEMMs (other shapes in the
+    verify window) put on either side of a bf16 rounding boundary moves
+    the logits step by step, so the speculative Engine is held to phase
+    14's per-request oracle with phase 14's bound
+    (``serve_ssd_fp32_against_oracle``, ``SSD_BF16_CONV_DRIFT``): a token
+    may differ from the oracle's argmax only at a near tie.  Returns the
+    fp32-history speculative run's launches."""
+    from repro_torch.layers import ssd as ssd_layer
+
+    bound_dtype = ssd_layer.CONV_DTYPE
+    ssd_layer.CONV_DTYPE = torch.float32
+    try:
+        exact = speculative_fp32_equal(params, cfg,
+                                       "mamba2, fp32 conv histories")
+    finally:
+        ssd_layer.CONV_DTYPE = bound_dtype
+    serve_ssd_fp32_against_oracle(params, cfg, torch.bfloat16,
+                                  drift=SSD_BF16_CONV_DRIFT,
+                                  speculate_k=SPEC_K)
+    return exact
+
+
+#: phase 20's int8 speculative logits against the fp32 forward, x max
+#: |logit|: a window rounds each head of the pool to 1/254 of its amax at
+#: its accepted boundary (fp32 decoding never rounds); at smoke size on the
+#: CPU this moved the logits by up to 7.6e-3 of max |logit|
+INT8_SPEC_RTOL = 2e-2
+
+
+def speculative_int8_against_fp32(params, cfg) -> dict:
+    """Phase 20's int8 case: phase 6's 12 requests through the fp32
+    speculative Engine on int8 pools (self draft, k = 4) against fp32
+    plain decoding.  int8 pools round the state where fp32 ones do not,
+    so the tokens can part at a near tie and are held teacher-forced: each
+    committed token must be the argmax of the verify-logit row it came
+    from (the window's bookkeeping), every row must lie within
+    ``INT8_SPEC_RTOL`` x max |logit| of the fp32 forward's logits on the
+    same prefix, and the token must equal the fp32 argmax wherever the fp32
+    top-2 margin clears twice that; the first tokens (the admission's, on
+    fp32 boundary states) must equal the plain fp32 Engine's.  Returns the
+    speculative run's launches."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import Engine
+
+    plain = Engine(params, cfg, slots=8, max_len=256, seed=SEED,
+                   dtype=torch.float32, device=DEVICE)
+    engine = Engine(params, cfg, slots=8, max_len=256, seed=SEED,
+                    dtype=torch.float32, state_dtype="int8", draft="self",
+                    speculate_k=SPEC_K, device=DEVICE)
+    for e in (plain, engine):
+        for r in requests(np.random.default_rng(SEED + 5), 12,
+                          cfg.vocab_size, (16, 128), (16, 16)):
+            e.submit(r)
+    want = {r.uid: r.generated for r in plain.run()}
+    rows, seen = {}, {}
+    real_verify, real_window = lm.verify, engine.worker.verify
+
+    def recording_verify(*a, **kw):
+        seen["logits"], pending = real_verify(*a, **kw)
+        return seen["logits"], pending
+
+    def recording_window(tokens, drafts, pos, temps, live):
+        uids = [None if r is None else r.uid for r in engine.active]
+        emitted, accepted = real_window(tokens, drafts, pos, temps, live)
+        for i in np.flatnonzero(live):
+            rows.setdefault(uids[i], []).extend(
+                (seen["logits"][i, j].float(), int(emitted[i, j]))
+                for j in range(accepted[i] + 1))
+        return emitted, accepted
+
+    engine.worker.verify = recording_window
+    lm.verify = recording_verify
+    torch.cuda.synchronize()
+    reset_launches()
+    try:
+        done = {r.uid: r for r in engine.run()}
+    finally:
+        lm.verify = real_verify
+    launches = dict(LAUNCHES)
+    weights = lm.for_serving(params, DEVICE, torch.float32)
+    err, exact, ties, same = 0.0, 0, 0, 0
+    for uid, r in done.items():
+        gen = r.generated
+        if gen[0] != want[uid][0]:
+            raise AssertionError(f"int8 speculative request {uid}: first "
+                                 f"token {gen[0]}, plain {want[uid][0]}")
+        seq = np.concatenate([r.prompt, np.asarray(gen[:-1], np.int32)])
+        with torch.inference_mode():
+            logits, _ = lm.forward(weights, torch.tensor(
+                seq[None], device=DEVICE), cfg, dtype=torch.float32)
+        for t, (row, tok) in enumerate(rows[uid][:len(gen) - 1], start=1):
+            ref = logits[0, len(r.prompt) + t - 1]
+            scale = float(ref.abs().max())
+            if tok != gen[t] or tok != int(row.argmax()):
+                raise AssertionError(f"int8 speculative request {uid} token "
+                                     f"{t}: committed {gen[t]}, window {tok},"
+                                     f" its argmax {int(row.argmax())}")
+            err = max(err, max_err(f"int8 speculative request {uid} token "
+                                   f"{t} logits", row, ref,
+                                   (0.0, INT8_SPEC_RTOL * scale)) / scale)
+            top = torch.topk(ref, 2)
+            if float(top.values[0] - top.values[1]) > 2 * INT8_SPEC_RTOL \
+                    * scale:
+                if tok != int(top.indices[0]):
+                    raise AssertionError(
+                        f"int8 speculative request {uid} token {t}: {tok}, "
+                        f"fp32 argmax {int(top.indices[0])}")
+                exact += 1
+            else:
+                ties += 1
+        same += sum(a == b for a, b in zip(gen, want[uid]))
+    total = sum(len(g) for g in want.values())
+    print(f"[speculative fp32, int8 flow, self draft] teacher-forced "
+          f"against the fp32 forward: logits within {err:.3e} of max "
+          f"|logit| (bound {INT8_SPEC_RTOL:g}), {exact} tokens equal to the "
+          f"fp32 argmax, {ties} within its margin bound; free-running, "
+          f"{same} of {total} tokens equal to plain fp32 decoding (not "
+          f"gated) in {engine.worker.verify_windows} windows; speculative "
+          f"launches { {n: v for n, v in launches.items() if v} }",
+          flush=True)
+    return {"launches": launches}
 
 
 def paged_bytes(b, mp, hkv, page, d, dv, act, quant):
@@ -3245,9 +3587,20 @@ def main() -> int:
     profile_decode(params, soft, 1e3 * paged_q["decode_s"]
                    / paged_q["decode_steps"], state_dtype="int8", paged=spec)
     serve_paged_fp32(params, soft)
+    mark("softmax baseline serving")
+    speculative = [serve_speculative_full_width(params, cfg),
+                   serve_speculative_full_width(params, cfg, "int8"),
+                   serve_speculative_full_width(params, cfg, draft="tiny")]
+    speculative += [
+        speculative_fp32_equal(params, cfg, "flow, self draft"),
+        speculative_fp32_equal(params, cfg, "flow, tiny draft",
+                               draft="tiny", k=2),
+        speculative_int8_against_fp32(params, cfg),
+        speculative_fp32_equal(params, soft, "softmax paged, self draft",
+                               paged=PagedSpec(PAGE))]
     del params
     torch.cuda.empty_cache()
-    mark("softmax baseline serving")
+    mark("speculative serving")
     trained = train_full_width(cfg)
     profile_train(cfg, trained["step_ms"])
     train_fp32_both_paths(cfg)
@@ -3271,6 +3624,7 @@ def main() -> int:
     serve_ssd_fp32_against_oracle(params, mamba)
     serve_ssd_fp32_against_oracle(params, mamba, torch.bfloat16,
                                   drift=SSD_BF16_CONV_DRIFT)
+    speculative.append(ssd_speculative_fp32_equal(params, mamba))
     del params
     torch.cuda.empty_cache()
     mark("mamba2_1p3b serving")
@@ -3282,7 +3636,7 @@ def main() -> int:
     mark("mamba2_1p3b training")
     launches = {name: sum(run["launches"][name] for run in (
         stats, quantized, trained, classified, paper, served, ssd_trained,
-        paged, paged_q))
+        paged, paged_q, *speculative))
         for name in stats["launches"]}
     torch.cuda.empty_cache()
     rows = (time_kernels(launches, errs) + time_paged_kernels(launches, errs)

@@ -37,6 +37,19 @@ reference: ``cuda_decode`` runs K4 (``kernels/flow_decode/quant.py``) on
 the int8 pool in place, ``recurrent`` dequantizes, takes the fp32 step and
 requantizes with the pool's recipe.  fp8 pools are refused off the TPU by
 both, with ``serving/quant.py::platform_support``'s reason.
+
+Speculative decoding's ``verify`` op (score a drafted window from a
+FlowState, every position's boundary state returned for rollback) is
+provided, as in the reference, by the chunked-scan strategies
+``cuda_fused``, ``cuda_chunk``, ``chunked`` and ``cumsum``, each through
+``pipeline.causal_verify``: the window is a handful of tokens, so its
+carry-in cumsum pass is plain PyTorch tensor code on the card too (the
+reference's Pallas backends verify in plain XLA the same way).  A window
+meets no kernel or chunk shape check, every verify verdict says that no
+kernel runs (``VERIFY_VERDICT``), and an int8 pool is dequantized once at
+the window's entry (``_ChunkedVerifyQuant``).  ``recurrent`` also runs a
+forward and a prefill token by token (``recurrent.forward_by_scan``, the
+oracle), last in auto order and on a GPU only when pinned.
 """
 from __future__ import annotations
 
@@ -72,16 +85,48 @@ def _check_strict_causal(cfg, shapes, op):
 
 
 def _check_state_ops(cfg, op):
-    if op in ("prefill", "prefill_packed") and not (
+    if op in ("prefill", "prefill_packed", "verify") and not (
             cfg.strict_causal and cfg.use_competition):
         return "recurrent state requires strict_causal competition"
     return None
+
+
+VERIFY_VERDICT = ("pipeline.causal_verify: plain PyTorch carry-in verify "
+                  "(no kernel)")
+
+
+class _ChunkedVerifyQuant:
+    """Mixin: the chunked-verify backends' ``verify`` op, which also serves
+    quantized pools: ``pipeline.causal_verify`` dequantizes the pooled
+    carry-in once at entry and runs the whole window in fp32, so any
+    platform that can store the pool can verify from it."""
+
+    def quant_capable(self, platform, dtype, op="decode"):
+        if op != "verify":
+            return super().quant_capable(platform, dtype, op)
+        ok, why = platform_support(dtype, platform)
+        if not ok:
+            return False, why
+        return True, ("boundary dequantize into the fp32 carry-in verify "
+                      f"({why})")
+
+    def verify_step(self, state, q, k, v, cfg):
+        # a drafted window is a handful of tokens: the carry-in cumsum
+        # pass is the right realization at any scale a draft produces, and
+        # the trajectory it returns is what rollback gathers
+        return pipeline.causal_verify(state, q, k, v, cfg)
 
 
 def _check_plain(cfg, name, platform):
     if platform == "cuda" and cfg.backend not in ("plain", name):
         return ("plain PyTorch version: on a CUDA device it runs only when "
                 "pinned (backend='plain' or by name)")
+    return None
+
+
+def _check_device(platform):
+    if platform != "cuda":
+        return f"CUDA backend needs a CUDA device (platform={platform!r})"
     return None
 
 
@@ -186,16 +231,22 @@ class FusedCausal(Backend):
                                           lengths=lengths)
 
 
-class CudaFused(FusedCausal):
+class CudaFused(_ChunkedVerifyQuant, FusedCausal):
     """The whole strict-causal pipeline in the flow_fused CUDA kernel: one
     CTA per (row, kv head) with the FlowState in shared memory; packed
     prefill masks each row past its length so the final carry is the
     boundary FlowState.  Forward and prefill differentiate through the
-    reverse-scan backward kernel K2."""
+    reverse-scan backward kernel K2.  ``verify`` runs
+    ``pipeline.causal_verify``, plain PyTorch, at any head width."""
 
+    provides = frozenset({"forward", "prefill", "prefill_packed", "verify"})
     differentiable = frozenset({"forward", "prefill"})
 
     def supports(self, cfg, shapes, platform, *, op="forward"):
+        if op == "verify":
+            # causal_verify launches no kernel, so no kernel shape applies
+            why = _check_scan(cfg, shapes, op) or _check_device(platform)
+            return (False, why) if why else (True, VERIFY_VERDICT)
         why = _check_scan(cfg, shapes, op) or _check_kernel(shapes, platform)
         if why:
             return False, why
@@ -219,23 +270,23 @@ def _cumsum_dot(qg, k, v):
     return causal_dot_grouped(qg, k, v, chunk_size=0, use_kernel=False)
 
 
-class Cumsum(Backend):
+class Cumsum(_ChunkedVerifyQuant, Backend):
     """The causal pipeline on full-length cumsums (plain PyTorch): every
     causal mode at every shape, the causal half of the reference's
     ``xla_cumsum``.  O(N D Dv) memory in the dot."""
 
-    provides = frozenset({"forward", "prefill", "prefill_packed"})
+    provides = frozenset({"forward", "prefill", "prefill_packed", "verify"})
     differentiable = frozenset({"forward", "prefill", "prefill_packed"})
     verdict = "universal causal fallback"
 
     def supports(self, cfg, shapes, platform, *, op="forward"):
         why = (_check_causal_self(cfg, shapes) or _check_state_ops(cfg, op)
-               or self._check_dot(cfg, shapes, platform))
+               or self._check_dot(cfg, shapes, platform, op))
         if why:
             return False, why
-        return True, self.verdict
+        return True, VERIFY_VERDICT if op == "verify" else self.verdict
 
-    def _check_dot(self, cfg, shapes, platform):
+    def _check_dot(self, cfg, shapes, platform, op):
         return _check_plain(cfg, self.name, platform)
 
     def _dot(self, cfg):
@@ -255,11 +306,12 @@ class Chunked(Cumsum):
 
     verdict = "chunked scan"
 
-    def _check_dot(self, cfg, shapes, platform):
+    def _check_dot(self, cfg, shapes, platform, op):
         c = cfg.chunk_size
         if c <= 0:
             return "chunk_size <= 0"
-        if shapes.n % c or shapes.n <= c:
+        if op != "verify" and (shapes.n % c or shapes.n <= c):
+            # a drafted verify window never goes through the blocked dot
             return f"N={shapes.n} not chunkable by chunk_size={c}"
         return _check_plain(cfg, self.name, platform)
 
@@ -276,9 +328,11 @@ class CudaChunk(Cumsum):
 
     verdict = "flow_chunk CUDA kernels"
 
-    def _check_dot(self, cfg, shapes, platform):
+    def _check_dot(self, cfg, shapes, platform, op):
         if cfg.chunk_size <= 0:
             return "chunk_size <= 0"
+        if op == "verify":
+            return _check_device(platform)
         return _check_chunk_kernel(shapes, platform)
 
     def _dot(self, cfg):
@@ -290,13 +344,15 @@ class CudaChunk(Cumsum):
 
 class Recurrent(Backend):
     """The O(d^2) recurrence one token at a time (plain PyTorch); returns a
-    new state."""
+    new state.  Its forward and prefill run the same update token by token
+    (``recurrent.forward_by_scan``), an oracle for tiny shapes."""
 
-    provides = frozenset({"decode"})
+    provides = frozenset({"forward", "prefill", "decode"})
     differentiable = frozenset({"forward", "prefill", "decode"})
 
     def supports(self, cfg, shapes, platform, *, op="forward"):
-        why = (_check_decode(cfg, shapes, op)
+        why = ((_check_decode(cfg, shapes, op) if op == "decode"
+                else _check_strict_causal(cfg, shapes, op))
                or _check_plain(cfg, self.name, platform))
         if why:
             return False, why
@@ -309,6 +365,16 @@ class Recurrent(Backend):
         if not ok:
             return False, why
         return True, f"dequantize -> fp32 recurrence -> requantize ({why})"
+
+    def forward(self, q, k, v, cfg):
+        k, v = pipeline.expand_kv(q, k, v, cfg)
+        return recurrent.forward_by_scan(q, k, v, cfg)
+
+    def prefill(self, q, k, v, cfg, *, lengths=None):
+        if lengths is not None:
+            raise ValueError("the token scan returns the final state only")
+        k, v = pipeline.expand_kv(q, k, v, cfg)
+        return recurrent.forward_by_scan(q, k, v, cfg, return_state=True)
 
     def decode_step(self, state, q, k, v, cfg):
         k, v = pipeline.expand_kv(q, k, v, cfg)
@@ -327,6 +393,7 @@ class CudaDecode(Recurrent):
     flow_decode_q (K4) instead, dequantized, advanced and requantized in
     the kernel."""
 
+    provides = frozenset({"decode"})
     differentiable = frozenset()
 
     def supports(self, cfg, shapes, platform, *, op="forward"):

@@ -7,7 +7,9 @@ flow_nc CUDA kernels are held against) and ``causal_forward`` (paper Alg.
 2 in all three causal modes).  ``causal_forward`` takes the causal
 aggregation ``out_i = q'_i . sum_{j<=i} phiK_j^T V_hat_j`` as a ``dot_fn``
 argument, so the cumsum, chunked-scan and K5a backends share the flow
-math.  ``causal_verify`` waits for speculative decoding.
+math.  ``causal_verify`` scores a drafted window of speculative decoding
+from a carried ``FlowState`` in one pass and returns every position's
+boundary state (the trajectory rollback gathers).
 """
 from __future__ import annotations
 
@@ -186,3 +188,101 @@ def causal_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         qi_sum=gat(qi_csum), z=gat(z),
         s=torch.einsum("bhnd,bhne->bhde", k_mask, v_w))
     return out, state
+
+
+def causal_verify(state, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  cfg: FlowConfig):
+    """Score a drafted window of n tokens in one pass from ``state``.
+
+    The speculative-decoding verifier: continues the strict-causal
+    recurrence from a boundary ``FlowState`` over ``n = k_draft + 1``
+    window positions, producing every position's output and every
+    position's boundary state at once: the inclusive cumsums of the window
+    are the per-position states, so accept-prefix rollback is a gather
+    (``recurrent.select_state``), not a recompute.
+
+    q: (B, Hq, n, D); k: (B, Hkv, n, D); v: (B, Hkv, n, Dv), with per-row
+    start offsets from ``state.t`` (slots verify at their own depths).  An
+    int8 ``QuantizedPool`` carry-in is dequantized once here; the window
+    runs in fp32 whatever q's dtype.  Strict competition only.
+
+    Returns ``(out, traj)``: ``out`` (B, Hq, n, Dv) in q's dtype, position
+    j what ``decode_step`` emits after tokens 1..j (up to fp32 order), and
+    ``traj`` a ``FlowState`` whose leaves carry the window axis at index 1
+    (``t`` (B, n); sums (B, n, Hkv, D); ``z`` (B, n, Hkv); ``s`` (B, n,
+    Hkv, D, Dv)).  A window is a handful of tokens, so the aggregation is
+    a cumsum of rank-1 updates on the carried ``s``, with no causal dot.
+    """
+    from repro_torch.attention.recurrent import FlowState  # lazy: cycle
+    from repro_torch.serving.quant import QuantizedPool, dequantize_state
+
+    if isinstance(state, QuantizedPool):
+        # quantized pools verify in full precision: one dequantize here;
+        # the caller carries the pool's recipe beside the fp32 trajectory
+        # (``serving.quant.QuantTraj``), so rollback quantizes once
+        state = dequantize_state(state)
+    out_dtype = q.dtype
+    eps = cfg.eps
+    n = q.shape[2]
+    if k.shape[2] != n:
+        raise ValueError("verify requires N == M over the window")
+    if not (cfg.strict_causal and cfg.use_competition):
+        raise ValueError("verify continues a recurrent state: requires "
+                         "strict_causal competition")
+    k, v = expand_kv(q, k, v, cfg)
+    hkv = k.shape[1]
+
+    phi_q = phi_map(q.float(), cfg.phi)
+    phi_k = phi_map(k.float(), cfg.phi)
+    vf = v.float()
+
+    qg = _group(phi_q, hkv)  # (B,Hkv,G,n,D)
+    g = qg.shape[2]
+
+    # per-row position counts continue from the carried state.t
+    t_traj = state.t[:, None] + torch.arange(
+        1, n + 1, dtype=torch.int32, device=q.device)  # (B,n)
+    normal_k = t_traj.float()[:, None, :]  # (B,1,n) sources seen so far
+    normal_q = normal_k * g  # sinks seen so far (G per position)
+
+    # (1) incoming / outgoing flows: window cumsums offset by the carry
+    k_csum = state.k_sum[:, :, None, :] + torch.cumsum(phi_k, dim=2)
+    q_csum = state.q_sum[:, :, None, :] + torch.cumsum(qg.sum(dim=2), dim=2)
+    sink_in = normal_k[:, :, None, :] / torch.einsum(
+        "bhgnd,bhnd->bhgn", qg + eps, k_csum + eps)
+    src_out = normal_q / torch.einsum("bhnd,bhnd->bhn", phi_k + eps,
+                                      q_csum + eps)
+
+    # (2) conservation refinement
+    ko_csum = state.ko_sum[:, :, None, :] + torch.cumsum(
+        phi_k * src_out[..., None], dim=2)
+    cons_sink = torch.einsum("bhgnd,bhnd->bhgn", qg + eps,
+                             ko_csum + eps) / normal_q[:, :, None, :]
+    qi_csum = state.qi_sum[:, :, None, :] + torch.cumsum(
+        (qg * sink_in[..., None]).sum(dim=2), dim=2)
+    cons_src = torch.einsum("bhnd,bhnd->bhn", phi_k + eps,
+                            qi_csum + eps) / normal_k
+    cons_src = cons_src.clamp(-1.0, 1.0)
+
+    # (3) competition & allocation
+    alloc = (torch.sigmoid(cons_sink) if cfg.use_allocation
+             else torch.ones_like(cons_sink))
+    e = torch.exp(cons_src)  # (B,Hkv,n)
+    z = state.z[:, :, None] + torch.cumsum(e, dim=-1)
+    v_w = vf * e[..., None]
+
+    # (4) aggregation against the per-position state panel: the window is
+    # a handful of tokens, and rollback needs the trajectory anyway
+    s_traj = state.s[:, :, None] + torch.cumsum(
+        torch.einsum("bhnd,bhne->bhnde", phi_k, v_w), dim=2)
+    q_in = qg * sink_in[..., None]
+    agg = torch.einsum("bhgnd,bhnde->bhgne", q_in, s_traj)
+    scale = normal_k[:, :, None, :, None] / z[:, :, None, :, None]
+    out = agg * scale * alloc[..., None]
+
+    traj = FlowState(
+        t=t_traj,
+        q_sum=q_csum.transpose(1, 2), k_sum=k_csum.transpose(1, 2),
+        ko_sum=ko_csum.transpose(1, 2), qi_sum=qi_csum.transpose(1, 2),
+        z=z.transpose(1, 2), s=s_traj.transpose(1, 2))
+    return _ungroup(out).to(out_dtype), traj

@@ -4,9 +4,12 @@ The counterpart of ``repro/attention/plan.py``, reduced to this slice:
 ``flow`` (the ``FlowConfig``), ``packed`` (the plan serves right-padded
 multi-prompt prefill), ``paged`` (a ``serving.paged.PagedSpec``: softmax
 KV caches live in a page pool), ``needs_grad`` (a training step will
-differentiate through every op, so only differentiable backends apply)
-and ``state_dtype`` (the serving state pools' dtype: int8 or fp8 pools
-make ``decode`` resolve only to backends that are ``quant_capable``).
+differentiate through every op, so only differentiable backends apply),
+``speculate_k`` (drafted tokens a speculative verify window scores: mixer
+resolution demands ``verify_capable`` and the registry triages the
+``verify`` op) and ``state_dtype`` (the serving state pools' dtype: int8
+or fp8 pools make ``decode`` and ``verify`` resolve only to backends that
+are ``quant_capable``).
 The platform is the device of the tensors each op is given.
 ``resolve(plan)`` returns a ``BoundExecutor`` whose ops resolve through
 the registry once per call signature (op, shapes, device) and reuse that
@@ -23,19 +26,19 @@ from repro_torch.attention.registry import Backend, ShapeInfo
 from repro_torch.core.flow_attention import FlowConfig
 from repro_torch.serving.quant import QUANT_DTYPES, STATE_DTYPES
 
-_STATE_OPS = ("prefill", "prefill_packed", "decode")
+_STATE_OPS = ("prefill", "prefill_packed", "decode", "verify")
 
 
 def _quant_of(plan, op: str) -> str | None:
     """The quantized state dtype ``op`` must serve, or None.
 
-    Only ``decode`` consumes the pool: forward and prefill run on
-    activations and produce full-precision boundary states that are
-    quantized at install.  bf16 and fp32 state dtypes are storage choices,
-    not quantization, and never reach the registry.
+    Only the state-consuming ops (decode, verify) see the pool: forward and
+    prefill run on activations and produce full-precision boundary states
+    that are quantized at install.  bf16 and fp32 state dtypes are storage
+    choices, not quantization, and never reach the registry.
     """
     sd = plan.state_dtype
-    return sd if (sd in QUANT_DTYPES and op == "decode") else None
+    return sd if (sd in QUANT_DTYPES and op in ("decode", "verify")) else None
 
 
 def _op_cfg(cfg: FlowConfig, op: str) -> FlowConfig:
@@ -54,6 +57,10 @@ class ExecutionPlan:
     #: that cannot page (``Mixer.paged_capable``) have it stripped
     paged: Any = None
     needs_grad: bool = False
+    #: speculative decoding: drafted tokens scored per verify window (0 =
+    #: plain decode); mixer resolution then demands ``verify_capable`` and
+    #: ``explain`` triages the ``verify`` op
+    speculate_k: int = 0
     #: serving state-pool dtype, distinct from the activation dtype: None,
     #: "bf16" or "fp32" keep the fp32 FlowState (and set the softmax KV
     #: caches' storage dtype); "int8" or "fp8" wrap every
@@ -76,6 +83,8 @@ class ExecutionPlan:
             bits.append(f"paged[{getattr(self.paged, 'page_size', '?')}]")
         if self.needs_grad:
             bits.append("needs_grad")
+        if self.speculate_k:
+            bits.append(f"speculate_k={self.speculate_k}")
         if self.state_dtype:
             bits.append(f"state_dtype={self.state_dtype}")
         return "ExecutionPlan(" + ", ".join(bits) + ")"
@@ -135,6 +144,19 @@ class BoundExecutor:
         be, cfg = self._bind("decode", q, k, v)
         return be.decode_step(state, q, k, v, cfg)
 
+    def verify_step(self, state, q, k, v):
+        """Score a drafted window of n tokens from ``state`` in one pass.
+
+        q/k/v carry ``n = k_draft + 1`` positions continuing each row at
+        ``state.t`` (a FlowState, or a ``QuantizedPool`` of one).  Returns
+        ``(out, traj)``: ``out`` (B, Hq, n, Dv) matches what n sequential
+        ``decode_step`` calls would emit, and ``traj`` is a trajectory
+        ``FlowState`` (window axis at index 1) whose accepted boundary
+        ``recurrent.select_state`` gathers.
+        """
+        be, cfg = self._bind("verify", q, k, v)
+        return be.verify_step(state, q, k, v, cfg)
+
 
 def resolve_plan(plan: ExecutionPlan) -> BoundExecutor:
     """Bind an ``ExecutionPlan`` to an executor."""
@@ -173,12 +195,14 @@ def explain_plan(plan: ExecutionPlan, shapes: ShapeInfo, *, platform: str,
                  op: str | None = None) -> PlanExplanation:
     """Every backend's verdict with its reason on ``platform`` ("cuda" or
     "cpu") at ``shapes``, for ``op`` or for every op the plan implies
-    (forward, prefill, prefill_packed if packed, decode)."""
+    (forward, prefill, prefill_packed if packed, decode, verify if
+    speculative)."""
     if plan.flow is None:
         raise ValueError("explain(plan) needs plan.flow")
     if op is None:
-        ops = ["forward", "prefill"] + (["prefill_packed"] if plan.packed
-                                        else []) + ["decode"]
+        ops = (["forward", "prefill"]
+               + (["prefill_packed"] if plan.packed else []) + ["decode"]
+               + (["verify"] if plan.speculate_k else []))
     else:
         ops = [op]
     sections = tuple(

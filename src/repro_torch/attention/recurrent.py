@@ -11,6 +11,9 @@ The counterpart of ``repro/attention/recurrent.py``.  The whole per-head
 independent of context length.  The state is fp32 whatever the activation
 dtype.  ``decode_step`` here is the plain PyTorch version of the decode
 kernel (``kernels/flow_decode``); it is pure and allocates a new state.
+``forward_by_scan`` runs it token by token (the oracle of the ``recurrent``
+backend's forward and prefill), and ``select_state`` gathers one boundary
+per row from a verify trajectory (speculative rollback).
 """
 from __future__ import annotations
 
@@ -44,6 +47,26 @@ def init_state(batch: int, n_kv: int, d: int, dv: int | None = None, *,
         z=torch.zeros((batch, n_kv), dtype=f32, device=device),
         s=torch.zeros((batch, n_kv, d, dv), dtype=f32, device=device),
     )
+
+
+def gather_boundary(leaf: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Row b of ``leaf`` (B, n, ...) at window position ``idx[b]``, as a
+    contiguous (B, ...) tensor (the decode kernels want their pools
+    contiguous)."""
+    ii = idx.to(device=leaf.device, dtype=torch.long).reshape(
+        (-1,) + (1,) * (leaf.ndim - 1))
+    return torch.take_along_dim(leaf, ii, dim=1)[:, 0].contiguous()
+
+
+def select_state(traj: FlowState, idx: torch.Tensor) -> FlowState:
+    """Gather one boundary per batch row from a trajectory ``FlowState``.
+
+    ``traj`` leaves carry a position axis at index 1 (as returned by
+    ``pipeline.causal_verify``); ``idx`` (B,) int selects, per row, the
+    boundary after consuming ``idx + 1`` window tokens.  This is the whole
+    accept-prefix rollback: a gather, nothing recomputed.
+    """
+    return FlowState(*(gather_boundary(leaf, idx) for leaf in traj))
 
 
 def decode_step(state: FlowState, q: torch.Tensor, k: torch.Tensor,
@@ -102,3 +125,22 @@ def decode_step(state: FlowState, q: torch.Tensor, k: torch.Tensor,
     new_state = FlowState(t=t, q_sum=q_sum, k_sum=k_sum, ko_sum=ko_sum,
                           qi_sum=qi_sum, z=z, s=s)
     return new_state, out
+
+
+def forward_by_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    cfg: FlowConfig, *, return_state: bool = False):
+    """Token-by-token forward through ``decode_step`` (an oracle for tiny
+    shapes: O(N) sequential steps, never the fast path).
+
+    q: (B, Hq, N, D); k: (B, Hkv, N, D); v: (B, Hkv, N, Dv).  Returns out
+    (B, Hq, N, Dv), and the final ``FlowState`` with ``return_state``.
+    """
+    b, _, n, d = q.shape
+    state = init_state(b, k.shape[1], d, v.shape[-1], device=q.device)
+    outs = []
+    for j in range(n):
+        state, out = decode_step(state, q[:, :, j:j + 1], k[:, :, j:j + 1],
+                                 v[:, :, j:j + 1], cfg)
+        outs.append(out)
+    out = torch.cat(outs, dim=2)
+    return (out, state) if return_state else out

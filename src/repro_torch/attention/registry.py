@@ -19,7 +19,10 @@ differentiable (``Backend.differentiable``), so a training step built on a
 forward-only kernel fails at build time with that backend's reason.
 ``quant="int8"`` (or ``"fp8"``) asks for an op that serves a quantized
 state pool (``serving/quant.py::QuantizedPool``) in place: only backends
-whose ``quant_capable`` accepts it apply.
+whose ``quant_capable`` accepts it apply.  ``op="verify"`` (speculative
+decoding: score a drafted window from a ``FlowState`` and return every
+position's boundary state) asks each backend's ``verify_support``, so a
+backend without it is rejected with its own reason.
 
 A failed resolution raises ``ResolutionError`` carrying every candidate's
 rejection reason in the message and as structured ``.rejections``.
@@ -62,7 +65,9 @@ class Backend:
     """
 
     name: str = "?"
-    #: subset of {"forward", "prefill", "prefill_packed", "decode"}
+    #: subset of {"forward", "prefill", "prefill_packed", "decode",
+    #: "verify"} (``verify``: score a drafted window in one pass from a
+    #: FlowState, returning every position's boundary state)
     provides: frozenset = frozenset({"forward"})
     #: subset of ``provides`` that autograd differentiates: plain PyTorch
     #: code or a ``torch.autograd.Function`` whose backward is a kernel.
@@ -94,6 +99,17 @@ class Backend:
             f"no quantized-state path for {op} (would silently dequantize "
             f"the {dtype} pool; pick a quant-capable strategy)")
 
+    def verify_support(self, op: str = "verify"):
+        """(ok, reason): can the backend score a drafted window?  The
+        answer is declarative (``"verify" in provides``); resolution asks
+        it as it asks ``grad_support``, so a failed speculative plan
+        raises with each backend's own reason."""
+        if "verify" in self.provides:
+            return True, "carry-in chunked verify"
+        return False, ("no verify_step (cannot continue a FlowState over a "
+                       "drafted window; speculative decoding needs a "
+                       "chunked-scan strategy)")
+
     def forward(self, q, k, v, cfg: FlowConfig):
         """Full-sequence Flow-Attention -> (B, Hq, N, Dv)."""
         raise NotImplementedError(f"{self.name} does not provide forward")
@@ -105,6 +121,11 @@ class Backend:
     def decode_step(self, state, q, k, v, cfg: FlowConfig):
         """Advance one token -> (FlowState, out (B, Hq, 1, Dv))."""
         raise NotImplementedError(f"{self.name} does not provide decode_step")
+
+    def verify_step(self, state, q, k, v, cfg: FlowConfig):
+        """Score a drafted window in one pass -> (out, trajectory
+        FlowState)."""
+        raise NotImplementedError(f"{self.name} does not provide verify_step")
 
 
 class ResolutionError(ValueError):
@@ -147,10 +168,17 @@ def _candidates(cfg: FlowConfig, op: str) -> list:
 
 def _judge(be: Backend, cfg: FlowConfig, shapes: ShapeInfo, platform: str,
            op: str, needs_grad: bool, quant: str | None = None):
-    """The one triage order of ``resolve`` and ``explain``: provides ->
-    gradients -> quantized-state capability -> supports."""
+    """The one triage order of ``resolve`` and ``explain``: provides (a
+    backend without ``verify`` answers with its ``verify_support`` reason)
+    -> gradients -> quantized-state capability -> supports."""
     if op not in be.provides:
+        if op == "verify":
+            return be.verify_support(op)
         return False, f"does not provide {op}"
+    if op == "verify":
+        ok, why = be.verify_support(op)
+        if not ok:
+            return False, why
     if needs_grad:
         ok, why = be.grad_support(op)
         if not ok:

@@ -240,8 +240,11 @@ def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, bmat: torch.Tensor,
     """
     bsz, n, h, p = xh.shape
     c = scan_chunk(n, chunk)
-    x = (xh.float() * dt[..., None]).transpose(1, 2).reshape(bsz * h, n, p)
-    dta = (dt * a[None, None, :]).transpose(1, 2).reshape(bsz * h, n, 1)
+    # contiguous: at B = 1 the head-major reshape is a strided view
+    x = (xh.float() * dt[..., None]).transpose(1, 2).reshape(
+        bsz * h, n, p).contiguous()
+    dta = (dt * a[None, None, :]).transpose(1, 2).reshape(
+        bsz * h, n, 1).contiguous()
     if interpret:
         y, _ = ssd_chunk_chunked(x, dta, bmat, cmat, c)
     elif torch.is_grad_enabled() and any(

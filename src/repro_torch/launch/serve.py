@@ -21,10 +21,17 @@ gathers each slot's pages with K8a, or with K8b from int8 pools)::
     python -m repro_torch.launch.serve --attn softmax --paged \
         [--page-size 64] [--num-pages 0] [--state-dtype int8]
 
+Speculative decoding: each window drafts k tokens a slot (``--draft
+self``: the target's own greedy decode steps; ``tiny``: a smoke-sized
+flowformer_lm drafter) and one fused verify commits the accepted prefix
+plus a bonus token::
+
+    python -m repro_torch.launch.serve --draft self --speculate-k 4
+
 Random weights from seed 0, random prompts from ``numpy`` seed 0.  The
 paths not ported yet are refused by name: the local, linear and MLA
-attention branches (``--attn local|linear``), speculative decoding
-(``--draft``, ``--speculate-k``) and fleet serving (``--fleet``).
+attention branches (``--attn local|linear``) and fleet serving
+(``--fleet``, which the reference also refuses with ``--speculate-k``).
 ``--paged`` on a stack with no softmax layer serves unpaged, as in the
 reference.  A mixer that cannot meet the serving plan (an SSD stack with
 int8 pools, whose mixer is not ``quant_capable`` here) exits with the
@@ -50,16 +57,15 @@ from repro_torch.serving.quant import STATE_DTYPES, pool_bytes
 #: each needs
 _NOT_PORTED = {
     "attn": "the local, linear and MLA attention branches",
-    "draft": "speculative decoding",
-    "speculate_k": "speculative decoding",
     "fleet": "fleet serving",
 }
 
 
 def _refuse_unported(args):
+    if args.fleet and args.speculate_k:
+        raise SystemExit("--fleet serves plain decode only (speculative "
+                         "windows stay a single-engine feature)")
     given = {"attn": args.attn not in (None, "flow", "softmax"),
-             "draft": args.draft is not None,
-             "speculate_k": args.speculate_k != 0,
              "fleet": args.fleet is not None}
     for opt, on in given.items():
         if on:
@@ -97,9 +103,12 @@ def main(argv=None) -> dict:
                     "payload + fp32 per-(slot, head) scales) decoded by the "
                     "flow_decode_q kernel; fp8 is TPU-only and refused here")
     ap.add_argument("--draft", default=None, choices=["self", "tiny"],
-                    help="speculative decoding draft source (not ported yet)")
+                    help="speculative decoding draft source: 'self' "
+                    "(self-speculation from the target's own states) or "
+                    "'tiny' (a smoke-sized flowformer_lm drafter)")
     ap.add_argument("--speculate-k", type=int, default=0,
-                    help="drafted tokens per verify window (not ported yet)")
+                    help="drafted tokens per verify window (0 = plain "
+                    "decode; implies --draft self when unset)")
     ap.add_argument("--fleet", default=None, metavar="prefill:N,decode:M",
                     help="fleet serving (not ported yet)")
     ap.add_argument("--device", default="cuda",
@@ -116,14 +125,15 @@ def main(argv=None) -> dict:
              if args.paged else None)
     # one ExecutionPlan for the whole serving lifetime: packed admission,
     # the paged-cache option and the state-pool dtype ride it instead of
-    # per-call kwargs
+    # per-call kwargs; the Engine adds the speculative window
     plan = plan_of(cfg, packed=True, paged=paged,
                    state_dtype=args.state_dtype)
     dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[args.dtype]
     max_len = args.prompt_len + args.max_new + 8
     try:
         engine = Engine(params, cfg, slots=args.slots, max_len=max_len,
-                        plan=plan, dtype=dtype, device=args.device)
+                        plan=plan, dtype=dtype, draft=args.draft,
+                        speculate_k=args.speculate_k, device=args.device)
     except MixerResolutionError as err:
         raise SystemExit(f"[serve] {err}") from None
     worker = engine.worker
@@ -156,6 +166,11 @@ def main(argv=None) -> dict:
     total_tokens = sum(len(r.generated) for r in reqs)
     print(f"[serve] {args.requests} requests, {total_tokens} tokens in "
           f"{dt:.2f}s ({total_tokens / max(dt, 1e-9):.1f} tok/s, {steps} steps)")
+    if engine.draft is not None:
+        print(f"[serve] speculative: k={engine.speculate_k}, "
+              f"~{total_tokens / max(steps, 1):.2f} tokens committed per "
+              f"step ({type(engine.draft).__name__}, {worker.verify_windows} "
+              "verify windows)")
     alloc = worker.allocator
     if alloc is not None:
         print(f"[serve] paged KV: page_size={alloc.page_size} "
@@ -163,7 +178,8 @@ def main(argv=None) -> dict:
               "drain")
     print(f"[serve] sample generation: {reqs[0].generated[:16]}")
     return {"requests": reqs, "steps": steps, "seconds": dt,
-            "pool_bytes": n_bytes, "plan": worker.plan, "allocator": alloc}
+            "pool_bytes": n_bytes, "plan": worker.plan, "allocator": alloc,
+            "draft": engine.draft}
 
 
 if __name__ == "__main__":

@@ -7,7 +7,12 @@ The counterpart of ``repro/layers/attention.py`` for ``kind`` "flow" and
   * full     -- whole sequence, no cache (``attention``);
   * prefill  -- whole prompt, returns the decode cache; with ``lengths`` a
                right-padded batch of prompts with per-row boundary caches;
-  * decode   -- one token on the cache.
+  * decode   -- one token on the cache;
+  * verify   -- a drafted window of n tokens (speculative decoding): flow
+               scores it in one pass through the registry's ``verify`` op
+               and keeps the fp32 trajectory for rollback; softmax decodes
+               it token by token and keeps the final cache, whose ``pos``
+               rollback rewinds.
 
 Caches:
 
@@ -90,7 +95,8 @@ def plan_of(cfg: ModelConfig, *, causal: bool = True, packed: bool = False,
     (layers that cannot page serve unpaged); ``needs_grad`` for a
     training step; ``state_dtype`` the serving state pools' dtype (None,
     "bf16" and "fp32" keep the fp32 FlowState and set the KV caches'
-    dtype, "int8" and "fp8" quantize every pool)."""
+    dtype, "int8" and "fp8" quantize every pool).  The plan's
+    ``speculate_k`` is the serving ``Engine``'s to set."""
     return ExecutionPlan(flow=flow_cfg_of(cfg, causal), packed=packed,
                          paged=paged, needs_grad=needs_grad,
                          state_dtype=state_dtype)
@@ -356,6 +362,20 @@ class AttentionMixer(mixer_lib.Mixer):
             return False, "bounded ring buffer (nothing to page)"
         return False, "constant-size O(d^2) recurrent state (nothing to page)"
 
+    def verify_capable(self, cfg):
+        kind = cfg.attention.kind
+        if kind == "local":
+            return False, ("ring buffer overwrites history: a rejected "
+                           "draft cannot be rolled back")
+        if kind == "flow":
+            return True, ("registry verify op: one carry-in pass, "
+                          "trajectory FlowState rollback")
+        if kind == "linear":
+            return True, "trajectory rollback over sequential decode"
+        return True, ("positional cache: rollback is per-slot position "
+                      "arithmetic (stale writes are masked, then "
+                      "overwritten)")
+
     def quant_capable(self, cfg, platform, dtype):
         ok, why = quant_lib.platform_support(dtype, platform)
         if not ok:
@@ -394,6 +414,57 @@ class AttentionMixer(mixer_lib.Mixer):
                     page_table=None, plan=None):
         return _attention_decode(params, x, state, cfg, positions=positions,
                                  page_table=page_table, plan=plan)
+
+    def verify_step(self, params, x, state, cfg, *, positions=None,
+                    page_table=None, plan=None):
+        if cfg.attention.kind == "local":
+            raise mixer_lib.MixerResolutionError(
+                "local attention cannot satisfy speculative verify: missing "
+                "capability verify_capable: ring buffer overwrites history",
+                (("local", "verify_capable", "ring overwrite"),))
+        _require_ported(cfg)
+        if cfg.attention.kind == "flow":
+            # one carry-in pass through the registry's verify op: every
+            # position's output and the trajectory FlowState (window axis
+            # at index 1); the pool itself is read, never written
+            q, k, v = _project_qkv(params, x, cfg, positions)
+            out, traj = _flow_executor(cfg, True, plan).verify_step(
+                state, q, k, v)
+            if isinstance(state, quant_lib.QuantizedPool):
+                # verify dequantized once at entry; carry the fp32
+                # trajectory with the pool's recipe, so rollback quantizes
+                # once, at the accepted boundary
+                traj = quant_lib.QuantTraj(traj, state.spec,
+                                           state.granularity, state.exempt)
+            return dense(params["wo"], _merge_heads(out)), traj
+        # softmax, dense or paged: a positional cache rolls back by its
+        # position, so decode the window token by token and keep only the
+        # final cache (n snapshots of the cache would cost n x its bytes)
+        out, states = self.decode_window(params, x, state, cfg,
+                                         positions=positions,
+                                         page_table=page_table, plan=plan)
+        return out, states[-1]
+
+    def select_verified(self, pending, accepted, n, cfg, *, plan=None):
+        if isinstance(pending, quant_lib.QuantTraj):
+            # gather the accepted fp32 boundary first, then quantize: the
+            # rollback's single requantization
+            return pending.quantize(mixer_lib.select_from_trajectory(
+                pending.traj, accepted))
+        if cfg.attention.kind == "flow":
+            return mixer_lib.select_from_trajectory(pending, accepted)
+        # positional caches: the window wrote n rows at pos .. pos + n - 1;
+        # accepting a + 1 of them rewinds pos, so later decodes overwrite
+        # the stale tail and ``kv_len`` masks it until then
+        pool = pending if isinstance(pending, quant_lib.QuantizedPool) \
+            else None
+        store = pool.payload if pool is not None else pending
+        acc = accepted.to(device=store.pos.device, dtype=store.pos.dtype)
+        store = store._replace(pos=store.pos - (n - acc - 1))
+        # a quantized pool's scales are per token: the stale tail's are
+        # overwritten with its rows
+        return pool.with_state(store, pool.scale) if pool is not None \
+            else store
 
 
 mixer_lib.register_mixer("attn", AttentionMixer())

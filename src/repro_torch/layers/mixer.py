@@ -19,13 +19,18 @@ of a decoder block and exposes
     decode_step(params, x, state, cfg, ...)        one token on the state;
                                                    ``page_table`` maps
                                                    slots to pool pages
+    verify_step(params, x, state, cfg, ...)        n drafted tokens -> per-
+                                                   position outputs + the
+                                                   pending state
+    select_verified(pending, accepted, n, cfg)     accept-prefix rollback
 
 ``plan`` is an ``ExecutionPlan`` or a ``BoundExecutor`` bound once.
 ``resolve_mixers(cfg, plan, platform)`` gives the mixer of each layer from
 ``cfg.block_kind`` and enforces the plan's demands with the reference's
 rejection contract: a packed plan demands ``packable``, a paged plan
-``paged_capable``, a training plan (``needs_grad``) ``differentiable``
-and a quantized ``state_dtype`` ``quant_capable`` of every layer's mixer,
+``paged_capable``, a training plan (``needs_grad``) ``differentiable``,
+a speculative plan (``speculate_k``) ``verify_capable`` and a quantized
+``state_dtype`` ``quant_capable`` of every layer's mixer,
 and a refusal raises ``MixerResolutionError`` naming each missing
 capability in the mixer's own words (``.rejections`` carries them
 structured).  The paged spec is a model option: ``resolve_mixers``
@@ -42,8 +47,38 @@ from __future__ import annotations
 
 import dataclasses
 
+import torch
+
+from repro_torch.attention.recurrent import gather_boundary
 from repro_torch.config import ModelConfig
 from repro_torch.serving.quant import QUANT_DTYPES, state_dtype_of
+
+
+def _over(fn, *trees):
+    """``fn`` over the tensors of same-shaped state trees (tensors, tuples,
+    NamedTuples)."""
+    if isinstance(trees[0], torch.Tensor):
+        return fn(*trees)
+    parts = [_over(fn, *kids) for kids in zip(*trees)]
+    like = trees[0]
+    return type(like)(*parts) if hasattr(like, "_fields") else type(like)(parts)
+
+
+def select_from_trajectory(pending, accepted: torch.Tensor):
+    """Gather one boundary per batch row from a trajectory state tree.
+
+    Every tensor of ``pending`` carries a window-position axis at index 1
+    (``(B, n, ...)``); ``accepted`` (B,) int selects, per row, the state
+    after consuming ``accepted + 1`` window tokens: the generic
+    accept-prefix rollback of constant-size states, a gather and never a
+    recompute.
+    """
+    return _over(lambda leaf: gather_boundary(leaf, accepted), pending)
+
+
+def stack_trajectory(states: list):
+    """Stack same-shaped state trees along a new window axis at index 1."""
+    return _over(lambda *leaves: torch.stack(leaves, dim=1), *states)
 
 
 class Mixer:
@@ -66,6 +101,14 @@ class Mixer:
         """(ok, reason): can a training step differentiate the forward on
         ``platform``?"""
         return True, "natively differentiable"
+
+    def verify_capable(self, cfg: ModelConfig):
+        """(ok, reason): can the decode state score a drafted window and
+        roll back to the accepted prefix (speculative decoding)?  True by
+        default: any kind with ``decode_step`` gets the sequential-decode
+        verify with trajectory rollback; kinds whose caches destroy
+        history (overwriting ring buffers) decline."""
+        return True, "trajectory rollback over sequential decode"
 
     def quant_capable(self, cfg: ModelConfig, platform: str, dtype: str):
         """(ok, reason): can the decode state live in a quantized pool
@@ -94,6 +137,51 @@ class Mixer:
     def decode_step(self, params, x, state, cfg: ModelConfig, *,
                     positions=None, page_table=None, plan=None):
         raise NotImplementedError(f"{self.kind} does not provide decode_step")
+
+    def verify_step(self, params, x, state, cfg: ModelConfig, *,
+                    positions=None, page_table=None, plan=None):
+        """Score a drafted window of n tokens; return (out, pending).
+
+        ``x`` is (B, n, width): the last committed token then the drafted
+        candidates.  ``out`` (B, n, width) matches what n sequential
+        ``decode_step`` calls produce; ``pending`` is what
+        ``select_verified`` needs to roll the state to any accepted
+        prefix.  The default is those n sequential steps with every
+        intermediate state stacked along axis 1 into a trajectory: right
+        for a constant-size state whose decode returns a new state (the
+        SSD state); a kind whose decode updates its state in place
+        overrides it (the flow branch verifies in one pass instead).
+        """
+        out, states = self.decode_window(params, x, state, cfg,
+                                         positions=positions,
+                                         page_table=page_table, plan=plan)
+        return out, stack_trajectory(states)
+
+    def decode_window(self, params, x, state, cfg: ModelConfig, *,
+                      positions=None, page_table=None, plan=None):
+        """``decode_step`` over each of the window's n positions in turn;
+        returns (out (B, n, width), [the state after each position])."""
+        outs, states = [], []
+        st = state
+        for j in range(x.shape[1]):
+            pos_j = None if positions is None else positions[:, j:j + 1]
+            y, st = self.decode_step(params, x[:, j:j + 1], st, cfg,
+                                     positions=pos_j, page_table=page_table,
+                                     plan=plan)
+            outs.append(y)
+            states.append(st)
+        return torch.cat(outs, dim=1), states
+
+    def select_verified(self, pending, accepted, n: int, cfg: ModelConfig,
+                        *, plan=None):
+        """Roll the pending verify state to the accepted prefix.
+
+        ``accepted`` (B,) int in [0, n - 1]: the index of each row's last
+        consumed window token (``accepted + 1`` tokens advance).  The
+        default pairs with the default ``verify_step``: a trajectory
+        gather.
+        """
+        return select_from_trajectory(pending, accepted)
 
 
 _REGISTRY: dict[str, Mixer] = {}
@@ -144,9 +232,9 @@ def _plan_of(plan):
 def _check_demands(mixer: Mixer, cfg: ModelConfig, plan, platform):
     """Raise unless ``mixer`` meets ``plan``'s demands.  Of the reference's
     plan demands (``repro/layers/mixer.py::_plan_demands``) this port's
-    plan carries four: ``packed`` demands ``packable``, ``paged``
-    ``paged_capable``, ``needs_grad`` ``differentiable`` and a quantized
-    state dtype ``quant_capable``."""
+    plan carries five: ``packed`` demands ``packable``, ``paged``
+    ``paged_capable``, ``needs_grad`` ``differentiable``, ``speculate_k``
+    ``verify_capable`` and a quantized state dtype ``quant_capable``."""
     if plan is None:
         return
     plan = _plan_of(plan)
@@ -157,6 +245,8 @@ def _check_demands(mixer: Mixer, cfg: ModelConfig, plan, platform):
         demands.append(("paged_capable", mixer.paged_capable(cfg)))
     if plan.needs_grad:
         demands.append(("differentiable", mixer.differentiable(cfg, platform)))
+    if plan.speculate_k:
+        demands.append(("verify_capable", mixer.verify_capable(cfg)))
     qd = _quant_dtype_of(plan)
     if qd is not None:
         demands.append(("quant_capable",
@@ -215,14 +305,17 @@ def _capability(mixer: Mixer, cap: str, cfg: ModelConfig, platform: str):
 
 def stack_capabilities(cfg: ModelConfig, platform: str = "cuda") -> dict:
     """The whole stack's verdict per capability, ``{cap: (ok, kind,
-    reason)}``: ``packable``, ``differentiable`` and ``quant_capable``
-    (judged at int8) when every layer has it, ``paged_capable`` when at
-    least one layer has it (is a page pool worth allocating).  Each
-    verdict carries the first offending (or supporting) kind's reason."""
+    reason)}``: ``packable``, ``differentiable``, ``verify_capable``
+    (speculative decoding is all or nothing across a stack) and
+    ``quant_capable`` (judged at int8) when every layer has it,
+    ``paged_capable`` when at least one layer has it (is a page pool worth
+    allocating).  Each verdict carries the first offending (or
+    supporting) kind's reason."""
     kinds = sorted({cfg.block_kind(i) for i in range(cfg.n_layers)})
     verdicts = {}
     for cap, agg in (("packable", all), ("paged_capable", any),
-                     ("differentiable", all), ("quant_capable", all)):
+                     ("differentiable", all), ("verify_capable", all),
+                     ("quant_capable", all)):
         rows = [(k, *_capability(get_mixer(k), cap, cfg, platform))
                 for k in kinds]
         ok = agg(r[1] for r in rows)

@@ -17,6 +17,9 @@ Entry points:
   init / forward / loss_fn            parameters, the full forward, the
                                       next-token loss (training)
   init_caches / prefill / decode      serving on per-layer decode states
+  verify / select_verified            speculative decoding: score a drafted
+                                      window in one pass, roll every layer
+                                      back to the accepted prefix
 
 With ``cfg.remat`` each block of a differentiated forward runs under
 ``torch.utils.checkpoint`` (non-reentrant): its activations are recomputed
@@ -204,3 +207,46 @@ def decode(params, token: torch.Tensor, caches: list, cfg: ModelConfig, pos,
         x = _ffn_residual(bp, x + y, cfg)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     return unembed(_head(params, cfg), x, softcap=cfg.logit_softcap), new_caches
+
+
+def verify(params, tokens: torch.Tensor, caches: list, cfg: ModelConfig,
+           pos, *, dtype=torch.bfloat16, page_table=None, plan=None):
+    """Score a drafted window of n tokens in one pass (speculative
+    decoding).
+
+    tokens: (B, n) int, the last committed token then the n - 1 drafted
+    candidates; ``logits[:, j]`` scores the token at position
+    ``pos + j + 1``, as n sequential ``decode`` calls would.  pos: int or
+    (B,) absolute position of ``tokens[:, 0]`` per slot.  Returns (logits
+    (B, n, vocab), pending): every layer's post-window verify state (a
+    trajectory for constant-size states, the position-advanced cache for
+    KV layers); ``select_verified`` commits the accepted prefix.  The flow
+    layers' pools are only read; softmax layers write the window's K/V
+    rows in place, as ``decode`` does.
+    """
+    _require_supported(cfg)
+    b, n = tokens.shape
+    x = embed(params["embed"], tokens, dtype)
+    positions = default_positions(b, n, pos, device=tokens.device)
+    pending = []
+    for mx, bp, state in zip(resolve_mixers(cfg), params["blocks"], caches):
+        h = apply_norm(bp["norm1"], x, cfg.norm)
+        y, cache = mx.verify_step(bp[mx.params_field], h, state, cfg,
+                                  positions=positions, page_table=page_table,
+                                  plan=plan)
+        pending.append(cache)
+        x = _ffn_residual(bp, x + y, cfg)
+    x = apply_norm(params["final_norm"], x, cfg.norm)
+    return unembed(_head(params, cfg), x, softcap=cfg.logit_softcap), pending
+
+
+def select_verified(pending: list, accepted: torch.Tensor, n: int,
+                    cfg: ModelConfig, *, plan=None) -> list:
+    """Roll every layer's pending verify state to the accepted prefix.
+
+    accepted: (B,) int in [0, n - 1], the index of each row's last
+    consumed window token (``accepted + 1`` tokens advance the state).
+    Returns caches equal to having decoded only the accepted tokens.
+    """
+    return [mx.select_verified(p, accepted, n, cfg, plan=plan)
+            for mx, p in zip(resolve_mixers(cfg), pending)]

@@ -21,8 +21,9 @@ Positional caches (the softmax branch's ``KVCache`` and ``PagedKVCache``)
 quantize per token: each appended K/V row gets its own scale once and is
 never re-rounded; their ``pos`` leaves stay raw int32.
 
-The reference's ``QuantTraj`` (speculative rollback) waits for
-speculative decoding.  Capability gating lives with the registries:
+``QuantTraj`` carries a speculative verify window's fp32 trajectory
+beside the pool's recipe, so rollback gathers the accepted boundary
+first and quantizes once.  Capability gating lives with the registries:
 ``Backend.quant_capable`` and ``Mixer.quant_capable`` consult
 :func:`platform_support`, so resolution rejects fp8 off the TPU by name
 rather than emulating it.
@@ -38,7 +39,7 @@ __all__ = [
     "QuantSpec", "QuantizedPool", "QUANT_DTYPES", "STATE_DTYPES", "spec_of",
     "platform_support", "state_dtype_of", "quantize_leaf", "quantize_state",
     "dequantize_state", "quantize_like", "maybe_quantize", "pool_bytes",
-    "trash_bytes",
+    "trash_bytes", "QuantTraj",
 ]
 
 _FP8_DTYPE = getattr(torch, "float8_e4m3fn", None)
@@ -296,3 +297,28 @@ def pool_bytes(tree) -> int:
 def trash_bytes(tree) -> int:
     """Device bytes of the paged pools' trash pages in a cache tree."""
     return sum(x.numel() * x.element_size() for x in _leaves(tree, True))
+
+
+class QuantTraj:
+    """A full-precision verify trajectory plus the pool recipe to return to.
+
+    Flow verify runs the window in fp32 (``pipeline.causal_verify``
+    dequantizes the carried pool once), and the trajectory of
+    per-position boundary states stays fp32, so speculative rollback
+    gathers the accepted boundary first and quantizes once: quantizing
+    every position would round k states to throw k - 1 away.
+    """
+
+    __slots__ = ("traj", "spec", "granularity", "exempt")
+
+    def __init__(self, traj, spec: QuantSpec, granularity: str,
+                 exempt: tuple[str, ...] = ()):
+        self.traj = traj
+        self.spec = spec
+        self.granularity = granularity
+        self.exempt = tuple(exempt)
+
+    def quantize(self, state) -> QuantizedPool:
+        """Quantize a gathered boundary state back into pool form."""
+        return quantize_state(state, self.spec, granularity=self.granularity,
+                              exempt=self.exempt)

@@ -22,6 +22,14 @@ Admission quantizes each batch's fp32 boundary states once and scatters
 payload and scale into the slots; on a GPU each decode step runs the
 ``flow_decode_q`` kernel (K4) on the pool in place.
 
+``verify`` is the speculative window's step: one ``lm.verify`` scores
+each slot's last committed token and its k drafted candidates in one
+pass, the accepted prefix is chosen on the device (greedy prefix match,
+or rejection sampling at temperature > 0), one batched draw gives each
+slot's bonus or correction token, and ``lm.select_verified`` rolls every
+layer back to the accepted boundary.  Its only host transfer is the
+emitted tokens with the accepted counts.
+
 With ``paged=PagedSpec(...)`` a softmax stack's KV caches live in page
 pools (``serving/paged.py``): the host-side ``PageAllocator`` maps each
 admitted request's whole span, admission flattens the dense prefill
@@ -68,6 +76,54 @@ def sample_tokens(gen: torch.Generator | None, logits: torch.Tensor,
                                   generator=gen)[:, 0]
         tok = torch.where(hot, drawn, tok)
     return torch.where(live, tok, 0).to(torch.int32)
+
+
+def verify_tokens(gen: torch.Generator | None, logits: torch.Tensor,
+                  toks: torch.Tensor, temps: torch.Tensor,
+                  live: torch.Tensor):
+    """Accept a prefix of each slot's drafts and draw its next token.
+
+    logits: (S, n, V) verify logits, ``logits[:, j]`` scoring the token
+    after ``toks[:, j]``; toks: (S, n) the last committed token then the
+    n - 1 drafts; temps: (S,), greedy where <= 0; live: (S,) bool.
+    Greedy slots accept the drafts that match the argmax, up to the first
+    that does not.  Temperature slots accept draft j iff u_j < p(d_j),
+    with p = softmax(logits / T): the draft sources propose greedily, a
+    point mass, so the target probability is the whole threshold and the
+    scheme samples the target distribution exactly.  Every slot then
+    draws its bonus (all accepted) or correction token from the logits at
+    its boundary, a rejecting temperature slot with the rejected draft
+    masked out (the residual of a point-mass draft).  Returns (emitted
+    (S, n): the accepted drafts, then the drawn token at index
+    ``accepted``, zeros after and in dead slots; accepted (S,) int64).
+    """
+    logits = logits.float()
+    n, vocab = logits.shape[1], logits.shape[2]
+    drafts = toks[:, 1:].long()
+    match = (logits[:, :-1].argmax(dim=-1) == drafts).long()
+    accepted = match.cumprod(dim=1).sum(dim=1)  # (S,) in [0, n - 1]
+    hot = temps > 0
+    if gen is not None:
+        tsafe = torch.where(hot, temps, 1.0)[:, None, None]
+        probs = torch.softmax(logits[:, :-1] / tsafe, dim=-1)
+        p_draft = probs.gather(-1, drafts[..., None])[..., 0]  # (S, n-1)
+        u = torch.rand(drafts.shape, generator=gen, device=logits.device)
+        acc_hot = (u < p_draft).long().cumprod(dim=1).sum(dim=1)
+        accepted = torch.where(hot, acc_hot, accepted)
+    at = accepted[:, None]
+    bonus_logits = logits.gather(
+        1, at[:, :, None].expand(-1, 1, vocab))[:, 0]  # (S, V)
+    padded = torch.nn.functional.pad(drafts, (0, 1))
+    rejected = padded.gather(1, at)  # (S, 1)
+    cols = torch.arange(vocab, device=logits.device)[None, :]
+    mask = (hot & (accepted < n - 1))[:, None] & (cols == rejected)
+    bonus = sample_tokens(gen, bonus_logits.masked_fill(mask, -torch.inf),
+                          temps, live)
+    j = torch.arange(n, device=logits.device)[None, :]
+    emitted = torch.where(j < at, padded, 0)
+    emitted = torch.where(j == at, bonus[:, None].long(), emitted)
+    emitted = torch.where(live[:, None], emitted, 0)
+    return emitted.to(torch.int32), accepted
 
 
 def _bucket_len(n: int, max_len: int) -> int:
@@ -153,9 +209,11 @@ class Worker:
                                      dtype=dtype, device=self.device)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
-        #: admission rounds (packed prefills) and decode steps run so far
+        #: admission rounds (packed prefills), decode steps and speculative
+        #: verify windows run so far
         self.admission_rounds = 0
         self.decode_steps = 0
+        self.verify_windows = 0
 
     def _tensor(self, x, dtype):
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=self.device)
@@ -235,3 +293,41 @@ class Worker:
                                  self._tensor(live, torch.bool))
         self.decode_steps += 1
         return toks.cpu().numpy()
+
+    def verify(self, tokens: np.ndarray, drafts: np.ndarray, pos: np.ndarray,
+               temps: np.ndarray, live: np.ndarray):
+        """One fused speculative verify and sample over the whole slot pool.
+
+        tokens: (S,) each slot's last committed token; drafts: (S, k)
+        drafted candidates; pos: (S,) the absolute position of ``tokens``.
+        Returns ``(emitted (S, k + 1), accepted (S,))``: each live slot's
+        committed window, its accepted drafts then the bonus or correction
+        token at index ``accepted[i]``, with the caches already rolled
+        back to that boundary.  One transfer to the host a window,
+        whatever the slot count or k.  A paged pool first maps the pages
+        of positions ``pos .. pos + k``, which the window writes.
+        """
+        k = drafts.shape[1]
+        table = None
+        if self.allocator is not None:
+            for slot in np.flatnonzero(live):
+                self.allocator.ensure(int(slot), int(pos[slot]) + k)
+            table = self._tensor(self.allocator.table, torch.int32)
+        toks = np.concatenate([np.asarray(tokens, np.int32)[:, None],
+                               np.asarray(drafts, np.int32)], axis=1)
+        with torch.inference_mode():
+            toks_d = self._tensor(toks, torch.int32)
+            logits, pending = lm.verify(
+                self.params, toks_d, self.caches, self.cfg,
+                self._tensor(pos, torch.int32), page_table=table,
+                plan=self.executor, dtype=self.dtype)
+            emitted, accepted = verify_tokens(
+                self._gen if (temps > 0).any() else None, logits, toks_d,
+                self._tensor(temps, torch.float32),
+                self._tensor(live, torch.bool))
+            self.caches = lm.select_verified(pending, accepted, k + 1,
+                                             self.cfg, plan=self.executor)
+            out = torch.cat([emitted, accepted[:, None].to(torch.int32)],
+                            dim=1).cpu().numpy()
+        self.verify_windows += 1
+        return out[:, :-1], out[:, -1].astype(np.int64)

@@ -1040,3 +1040,81 @@ def test_paged_engine_kernels_match_plain_fp32(gen, monkeypatch):
             assert engine.worker.allocator.free_pages == 10
         monkeypatch.undo()
         assert runs["kernels"] == runs["plain"], state_dtype
+
+
+def speculative_traffic(engine, vocab):
+    rng = np.random.default_rng(3)
+    for uid, n in enumerate((5, 40, 17, 9, 23)):
+        engine.submit(Request(uid=uid, prompt=rng.integers(
+            0, vocab, n).astype(np.int32), max_new_tokens=7 + uid))
+    return {r.uid: r.generated for r in engine.run()}
+
+
+@pytest.mark.parametrize("draft,k", [("self", 4), ("tiny", 2)])
+def test_speculative_engine_greedy_equals_plain(gen, draft, k):
+    """fp32 greedy tokens of the speculative Engine (K1 prefill, K3 in the
+    proposes, the verify in plain PyTorch on the card) against the plain
+    Engine's (K1, K3), token for token."""
+    cfg = get_smoke_config("flowformer_lm")
+    params = lm.init(cfg, torch.Generator().manual_seed(0), device="cuda")
+    kw = dict(slots=3, max_len=128, dtype=torch.float32)
+    want = speculative_traffic(Engine(params, cfg, **kw), cfg.vocab_size)
+    engine = Engine(params, cfg, draft=draft, speculate_k=k, **kw)
+    reset_launches()
+    assert speculative_traffic(engine, cfg.vocab_size) == want
+    w = engine.worker
+    assert w.decode_steps == 0 and w.verify_windows > 0
+    assert LAUNCHES["flow_fused"] >= cfg.n_layers * w.admission_rounds
+    assert LAUNCHES["flow_decode"] > 0
+
+
+@pytest.mark.parametrize("state_dtype", [None, "int8"])
+def test_self_draft_propose_leaves_the_pools_bitwise_unchanged(gen,
+                                                               state_dtype):
+    from repro_torch.serving.draft import SelfDraft
+    from repro_torch.serving.quant import QuantizedPool, pool_bytes
+
+    cfg = get_smoke_config("flowformer_lm")
+    params = lm.init(cfg, torch.Generator().manual_seed(0), device="cuda")
+    engine = Engine(params, cfg, slots=2, max_len=128, dtype=torch.float32,
+                    state_dtype=state_dtype, speculate_k=4)
+    assert isinstance(engine.draft, SelfDraft)
+    rng = np.random.default_rng(4)
+    for uid, n in enumerate((12, 30)):
+        engine.submit(Request(uid=uid, prompt=rng.integers(
+            0, cfg.vocab_size, n).astype(np.int32), max_new_tokens=20))
+    engine.step()  # admission and one window
+    w, sched = engine.worker, engine.scheduler
+    pools = w.caches
+    assert all(isinstance(c, QuantizedPool) == (state_dtype == "int8")
+               for c in pools)
+    leaves = [(x, x.clone()) for c in pools for x in (
+        [*c.payload, *c.scale] if isinstance(c, QuantizedPool) else c)]
+    assert sum(x.numel() * x.element_size() for x, _ in leaves) == \
+        pool_bytes(pools)
+    name = "flow_decode_q" if state_dtype else "flow_decode"
+    reset_launches()
+    drafts = engine.draft.propose(sched.last_tokens(), sched.pos,
+                                  sched.live_mask())
+    torch.cuda.synchronize()
+    assert LAUNCHES[name] == 4 * cfg.n_layers and drafts.shape == (2, 4)
+    assert w.caches is pools
+    for x, before in leaves:
+        assert torch.equal(x, before)  # payloads, scales, t and z
+
+
+def test_ssd_scan_takes_a_single_row(gen):
+    """At B = 1 the head-major reshape of ``ssd_scan`` is a strided view;
+    the glue hands K10a contiguous operands (the stateless forward of one
+    sequence)."""
+    bsz, n, h, p, s = 1, 100, 4, 64, 128
+    xh = torch.randn((bsz, n, h, p), generator=gen, device="cuda")
+    dt = torch.rand((bsz, n, h), generator=gen, device="cuda") * 0.1
+    b = torch.randn((bsz, n, s), generator=gen, device="cuda")
+    c = torch.randn((bsz, n, s), generator=gen, device="cuda")
+    a = -torch.rand((h,), generator=gen, device="cuda")
+    reset_launches()
+    y = ssd_layer.ssd_scan(xh, dt, b, c, a, chunk=32)
+    assert LAUNCHES["ssd_chunk"] == 1
+    ssd_close(y, ssd_layer.ssd_scan(xh, dt, b, c, a, chunk=32,
+                                    interpret=True))

@@ -107,6 +107,8 @@ def test_entry_points_refuse_cpu_unless_asked():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Engine(params, cfg, slots=2, max_len=32)
     with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(params, cfg, slots=2, max_len=32, speculate_k=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         train(cfg, steps=1, batch=1, seq=8)
     # decode pools: the card unless the caller asks for the CPU
     ssd_cfg = get_smoke_config("mamba2_1p3b")
