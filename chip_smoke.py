@@ -30,7 +30,13 @@ any failure raises, so the exit code is non-zero:
      and 128 (16 rows, N = 1,000, M = 700), and K7b at every shape also
      against its own decomposition (``flow_nc_qside_bwd_parallel`` at the
      card's rows per block, its fp32 outputs also within
-     ``K7B_TWIN_RTOL``) with two calls bitwise equal;
+     ``K7B_TWIN_RTOL``) with two calls bitwise equal; K6, K7a and K7b
+     also on their small-head route, bf16 and fp32, 4 images x 16
+     heads at the vision encoder's stages (D = 6, 12, 24, 48 over N = M =
+     3,136, 784, 196, 49; the reference bench's D = 8 and 16 over 3,136
+     and 784) and at D = 24 with NQ = 400, M = 136: each against its plain
+     version and its twin (K6's cluster split, K7b's blocks), two calls of
+     each bitwise equal;
   3d. K5a ``flow_chunk`` and K5b ``flow_chunk_dkv`` against their plain
      versions at the paper-causal training shape (16 rows x 8 kv heads,
      G = 1, N = 512, D = 64, fp32; operands as the causal pipeline makes
@@ -174,6 +180,26 @@ any failure raises, so the exit code is non-zero:
      kernels and once on the plain PyTorch path, 3 steps: the losses
      agree, and every wq/wk/wv gradient of the first step is non-zero and
      agrees with the plain path's;
+  21. the vision encoder at full width and depth (``flowformer_vision``:
+     19 layers in stages of 3, 3, 10 and 3, channels 96-768, 16 heads of
+     6, 12, 24 and 48, 1,000 classes; ``launch/classify.py``'s vision
+     task) in bf16, 5 steps of 64 images of 224 x 224 x 3 (3,136 tokens
+     in stage 1; 64 is one card's cut of the paper's ImageNet batch),
+     random weights from a seed, then 64 held-out images: finite losses,
+     exactly 19 K6 and 19 K7b launches a step and 19 K6 an evaluation
+     batch, and nothing else; step ms, images/s, the phase's peak memory;
+     then ``torch.profiler`` over two steps: device time by kernel and
+     busy share;
+  21b. the same model in fp32 at full width with one block a stage, 3
+     steps of 16 images of 224 x 224, on the kernels and on the plain path
+     (``backend="plain"``): losses and the first step's wq/wk/wv gradients
+     agree within phase 11's bounds, and those gradients are non-zero;
+  22. the time-series encoder at full width (``flowformer_timeseries``: 2
+     layers, d 512, 8 heads of 64) in bf16, 5 steps of 32 series of 512
+     steps x 8 dims (the reference's full Table 6 run), then 64 held-out
+     series: finite losses, exactly 2 K6 and 2 K7b a step; step ms and
+     tokens/s; then the reference harness's override (96 wide, 4 heads of
+     24), 3 steps, the same counts on the small-head route;
   13. the Engine serving the full-width mamba2_1p3b (48 layers of SSD,
      random weights from a seed) in bf16, phase 5's traffic: exactly 1 K9
      launch per layer and admission round (``boundary_gather_many`` of the
@@ -208,7 +234,7 @@ any failure raises, so the exit code is non-zero:
      version's and its bound, as one ``{"kernels": [...]}`` line
      (``launches`` is the count over the main-path runs of phases 5 and 7
      for K1-K3, of phase 5c for K4 (K1's count includes 5c's), of phase
-     10 for K6, K7a (none), K7b, of phase 7c for K5a, K5b, of phases 17 and 17b
+     10, 21 and 22 for K6, K7a (none), K7b, of phase 7c for K5a, K5b, of phases 17 and 17b
      for K8a and K8b, of phase 13 for K9 and of phase 15 for K10a and
      K10b, each plus the speculative runs of phases 19, 19b, 19c and 20:
      K1, K3, K4, K8a and K9), K1's time and bound at the training shape (in its row),
@@ -230,7 +256,11 @@ any failure raises, so the exit code is non-zero:
      launch floor), K6's phases by ablation (``k6_breakdown``: variant
      builds that stop before phases B, C and D) and at 8-block clusters,
      K6's and K7b's bounds where their products run in 3xTF32
-     (``tensor_core_bound_ms``, beside the fp32 ``bound_ms``),
+     (``tensor_core_bound_ms``, beside the fp32 ``bound_ms``), K6, K7a and
+     K7b also at the vision encoder's first and last stage (64 images x 16
+     heads, bf16: D = 6 over 3,136 tokens, D = 48 over 49; keys
+     ``vision_stage1``, ``vision_stage4``, each with its bound and its
+     plain version's time),
      K10a and K10b at one layer of phase 15
      (their plain versions' ~500-1,000 launches overflow the launch queue,
      so those are timed as one replay of a CUDA graph, ``graph_ms``);
@@ -240,7 +270,8 @@ Tolerances (|kernel - plain| <= atol + rtol * |plain|, elementwise):
 fp32 outputs and every fp32 state piece rtol 1e-4, atol 1e-4 -- both sides
 sum the same fp32 terms in another order, no TF32 on either side but in
 the products of K5a, K5b, K6 and K7b, which run in 3xTF32 (each operand
-split into a tf32 head and rest, three tensor-core products) and are held
+split into a tf32 head and rest, three tensor-core products; K6's, K7a's
+and K7b's small-head route runs its products in fp32 FMA) and are held
 to the same tolerances; one plain TF32 product fails K5a's, K5b's and
 K7b's, and K7b's fp32 outputs are also held to its twin within
 ``K7B_TWIN_RTOL`` x max |twin| (6e-6), which catches a sum left to drift
@@ -401,7 +432,8 @@ def ptxas_usage(log: str) -> dict:
             sym = m.group(1)
             k = re.search(r"\d+((?:ssd|flow)_(?:fwd|bwd)_[a-z0-9]+|"
                           r"chunk_(?:fwd|bwd)_[a-z]+|flow_decode(?:_q)?_kernel|"
-                          r"flow_nc_(?:fused|qside_bwd)_kernel|paged_gather"
+                          r"flow_nc_(?:fused|qside|qside_bwd)_kernel(?:_small)?|"
+                          r"paged_gather"
                           r"(?:_quant(?:_page)?)?_kernel)(I\w*?E(?=v))?", sym)
             targs = (k.group(2) or "") if k else ""
             args = (["bf16"] if "bfloat16" in targs
@@ -979,6 +1011,12 @@ def check_flow_decode_q() -> dict:
 
 
 LRA_ROWS, LRA_HEADS, LRA_N, LRA_D = 32, 4, 4096, 64
+# the vision encoder at 224 x 224 (``flowformer_vision``): 16 heads whose
+# dims are 6, 12, 24, 48 over the stages' 3,136, 784, 196 and 49 tokens;
+# the reference bench's smaller widths (4 heads) give 8 and 16 too
+VISION_STAGES = ((6, 3136), (12, 784), (24, 196), (48, 49))
+SMALL_HEAD_CASES = VISION_STAGES + ((8, 3136), (16, 784))
+VISION_SIZE, VISION_BATCH, VISION_HEADS = 224, 64, 16
 
 
 def nc_inputs(dtype, bh, nq, m, d, seed):
@@ -996,13 +1034,14 @@ def check_flow_nc() -> dict:
     from repro_torch.core.flow_attention import FlowConfig
     from repro_torch.kernels.flow_nc import (flow_attention_nc,
                                              flow_nc_fused_call,
+                                             flow_nc_fused_parallel,
                                              flow_nc_fused_ref,
                                              flow_nc_qside_bwd_call,
                                              flow_nc_qside_bwd_parallel,
                                              flow_nc_qside_bwd_ref,
                                              flow_nc_qside_call,
                                              flow_nc_qside_ref)
-    from repro_torch.kernels.flow_nc.ops import bwd_rows
+    from repro_torch.kernels.flow_nc.ops import bwd_rows, cluster_blocks
 
     def k7b_twin(tag, q, g, key, tol, **kw):
         """K7b against its own decomposition at the card's rows per block,
@@ -1095,6 +1134,41 @@ def check_flow_nc() -> dict:
                     for comp in (True, False))
                 torch.cuda.synchronize()
                 print(f"[K6] {tag}: {e6:.3e}", flush=True)
+        # the small-head route: the vision encoder's stages, 4 images x 16
+        # heads, and NQ != M; K6 also against its cluster twin, K7b against
+        # its own (inside k7b_twin); two calls of each bitwise equal
+        for dtype in (torch.bfloat16, torch.float32):
+            for d_, nq, m in [(d_, n_, n_) for d_, n_ in SMALL_HEAD_CASES] + [
+                    (24, 400, 136)]:
+                q, k, v, g = nc_inputs(dtype, 4 * VISION_HEADS, nq, m, d_,
+                                       SEED + 50 + d_)
+                tag = f"{str(dtype)[6:]} BH=64 NQ={nq} M={m} D={d_}"
+                got = flow_nc_fused_call(q, k, v)
+                e6 = max(max_err_scaled(f"flow_nc_fused {tag} out vs {name}",
+                                        got, want, TOL[dtype])
+                         for name, want in (
+                             ("plain", flow_nc_fused_ref(q, k, v)),
+                             ("flow_nc_fused_parallel", flow_nc_fused_parallel(
+                                 q, k, v, cb=cluster_blocks(nq, m, d_)))))
+                key = nc_key_side(q, k, v, 1e-6, True)
+                kw = dict(n_sinks=nq, m_sources=m)
+                e7a, e7b = qside_errs(tag, q, g, *key, TOL[dtype], **kw)
+                e7p = k7b_twin(tag, q, g, key, TOL[dtype], **kw)
+                if not (torch.equal(got, flow_nc_fused_call(q, k, v))
+                        and torch.equal(flow_nc_qside_call(q, *key, **kw),
+                                        flow_nc_qside_call(q, *key, **kw))):
+                    raise AssertionError(f"flow_nc {tag}: two calls differ")
+                torch.cuda.synchronize()
+                print(f"[K6/K7 small heads] {tag}: K6 {e6:.3e} (vs plain and "
+                      f"twin), K7a {e7a:.3e}, K7b {e7b:.3e} (vs its "
+                      f"decomposition {e7p:.3e}); two calls of each bitwise "
+                      "equal", flush=True)
+                if dtype == torch.bfloat16 and (d_, nq) in VISION_STAGES:
+                    for name, e in (("flow_nc_fused", e6),
+                                    ("flow_nc_qside", e7a),
+                                    ("flow_nc_qside_bwd", e7b)):
+                        errs[f"{name}_vision"] = max(
+                            errs.get(f"{name}_vision", 0.0), e)
         # G = 2 (shared GQA), N = 200 sinks per head, M = 136 sources
         b, hkv, grp, n, m = 4, 8, 2, 200, 136
         q, k, v, g = nc_inputs(torch.float32, b, hkv * grp * n, hkv * m, d,
@@ -1576,11 +1650,56 @@ def train_paper_fp32_both_paths(cfg):
                           tag="train no-competition")
 
 
+def expect_launches(launches: dict, k6: int, k7b: int, what: str):
+    """Exactly ``k6`` K6 and ``k7b`` K7b launches and no other kernel's."""
+    from repro_torch.kernels._lib import KERNELS
+
+    want = {**dict.fromkeys(KERNELS, 0), "flow_nc_fused": k6,
+            "flow_nc_qside_bwd": k7b}
+    if launches != want:
+        raise AssertionError(f"{what} launched {launches}, want {want}")
+
+
+def first_step_grads(loss_fn, params, batch, cfg, backend, names):
+    """One fp32 step's gradients of the leaves ``names(leaves)`` lists,
+    with attention on ``backend``, bound once for gradients."""
+    from repro_torch.layers.attention import executor_of, plan_of
+    from repro_torch.utils import tree_map
+
+    c = dataclasses.replace(cfg, attention=dataclasses.replace(
+        cfg.attention, backend=backend))
+    leaves = tree_map(lambda x: x.detach().clone().requires_grad_(True),
+                      params)
+    plan = executor_of(c, plan_of(c, causal=False, needs_grad=True),
+                       causal=False)
+    loss, _ = loss_fn(leaves, batch, c, dtype=torch.float32, plan=plan)
+    loss.backward()
+    return c, {name: x.grad for name, x in names(leaves)}
+
+
+def losses_and_grads_agree(what: str, hist: dict, grads: dict):
+    """Phase 11's bounds: losses rtol 1e-4; each gradient non-zero on the
+    kernels and within 1e-4 of the plain path's max |grad|."""
+    for i, (a, b) in enumerate(zip(hist["auto"], hist["plain"])):
+        if not abs(a - b) <= 1e-4 * abs(b):
+            raise AssertionError(f"{what} step {i} loss: kernels {a}, plain "
+                                 f"{b}")
+    worst = 0.0
+    for name, g in grads["auto"].items():
+        ref = grads["plain"][name]
+        scale, err = float(ref.abs().max()), float((g - ref).abs().max())
+        if not float(g.abs().max()) > 0 or not err <= 1e-4 * scale:
+            raise AssertionError(f"{what} step 1 {name} grad: |diff| "
+                                 f"{err:.3e}, max |plain| {scale:.3e}, max "
+                                 f"|kernels| {float(g.abs().max()):.3e}")
+        worst = max(worst, err / scale)
+    return worst
+
+
 def train_classifier_full_width(cfg) -> dict:
     """Phase 10: the LRA classifier at full width in bf16, then its
     evaluation; launch counts and rates."""
     from repro_torch.kernels import LAUNCHES, reset_launches
-    from repro_torch.kernels._lib import KERNELS
     from repro_torch.launch.classify import (EVAL_BATCH, listops_data,
                                              train_eval_classifier)
 
@@ -1598,11 +1717,8 @@ def train_classifier_full_width(cfg) -> dict:
         raise AssertionError(f"classifier losses {hist}, eval {out['loss']}, "
                              f"acc {out['acc']}")
     n, eval_batches = cfg.n_layers * steps, -(-n_eval // EVAL_BATCH)
-    want = {**dict.fromkeys(KERNELS, 0),
-            "flow_nc_fused": n + cfg.n_layers * eval_batches,
-            "flow_nc_qside_bwd": n}
-    if launches != want:
-        raise AssertionError(f"classifier launched {launches}, want {want}")
+    expect_launches(launches, n + cfg.n_layers * eval_batches, n,
+                    "classifier")
     step_ms = 1e3 * statistics.median(out["step_s"][1:])
     stats = {"steps": steps, "batch": batch, "seq": LRA_N,
              "first_step_ms": 1e3 * out["step_s"][0], "step_ms": step_ms,
@@ -1666,11 +1782,8 @@ def train_classifier_fp32_both_paths(cfg):
     attention gradients (non-zero on the kernels: K7b reached wq, wk,
     wv)."""
     from repro_torch.kernels import LAUNCHES, reset_launches
-    from repro_torch.kernels._lib import KERNELS
     from repro_torch.launch.classify import listops_data, train_eval_classifier
-    from repro_torch.layers.attention import executor_of, plan_of
     from repro_torch.models import classifier
-    from repro_torch.utils import tree_map
 
     cfg = dataclasses.replace(cfg, n_layers=2)
     steps, batch = 3, LRA_ROWS
@@ -1679,20 +1792,13 @@ def train_classifier_fp32_both_paths(cfg):
     train_data, eval_data = listops_data(256, 64, seq=LRA_N, seed=SEED + 2)
     first = {k: torch.from_numpy(v[:batch]).to(DEVICE)
              for k, v in train_data.items()}
+    names = lambda p: [(f"layer {i} {w}", blk["attn"][w]["w"])  # noqa: E731
+                       for i, blk in enumerate(p["blocks"])
+                       for w in ("wq", "wk", "wv")]
     hist, grads = {}, {}
     for backend in ("auto", "plain"):
-        c = dataclasses.replace(cfg, attention=dataclasses.replace(
-            cfg.attention, backend=backend))
-        leaves = tree_map(lambda x: x.detach().clone().requires_grad_(True),
-                          params)
-        plan = executor_of(c, plan_of(c, causal=False, needs_grad=True),
-                           causal=False)
-        loss, _ = classifier.loss_fn(leaves, first, c, dtype=torch.float32,
-                                     plan=plan)
-        loss.backward()
-        grads[backend] = {f"layer {i} {w}": blk["attn"][w]["w"].grad
-                          for i, blk in enumerate(leaves["blocks"])
-                          for w in ("wq", "wk", "wv")}
+        c, grads[backend] = first_step_grads(classifier.loss_fn, params,
+                                             first, cfg, backend, names)
         torch.cuda.synchronize()
         reset_launches()
         hist[backend] = train_eval_classifier(
@@ -1700,28 +1806,218 @@ def train_classifier_fp32_both_paths(cfg):
             seed=SEED, device=DEVICE, dtype=torch.float32,
             params=params)["history"]
         n = cfg.n_layers * steps
-        want = dict.fromkeys(KERNELS, 0)
         if backend == "auto":
-            want.update(flow_nc_fused=n + cfg.n_layers, flow_nc_qside_bwd=n)
-        if dict(LAUNCHES) != want:
-            raise AssertionError(f"backend={backend}: launches {LAUNCHES}, "
-                                 f"want {want}")
-    for i, (a, b) in enumerate(zip(hist["auto"], hist["plain"])):
-        if not abs(a - b) <= 1e-4 * abs(b):
-            raise AssertionError(f"fp32 classifier step {i} loss: kernels {a}, "
-                                 f"plain {b}")
-    worst = 0.0
-    for name, g in grads["auto"].items():
-        ref = grads["plain"][name]
-        scale, err = float(ref.abs().max()), float((g - ref).abs().max())
-        if not float(g.abs().max()) > 0 or not err <= 1e-4 * scale:
-            raise AssertionError(f"fp32 classifier step 1 {name} grad: |diff| "
-                                 f"{err:.3e}, max |plain| {scale:.3e}, max "
-                                 f"|kernels| {float(g.abs().max()):.3e}")
-        worst = max(worst, err / scale)
+            expect_launches(dict(LAUNCHES), n + cfg.n_layers, n,
+                            f"backend={backend}")
+        else:
+            expect_launches(dict(LAUNCHES), 0, 0, f"backend={backend}")
+    worst = losses_and_grads_agree("fp32 classifier", hist, grads)
     print(f"[classify fp32] kernels vs plain, 2 layers x {steps} steps: losses "
           f"{hist['auto']} vs {hist['plain']}; wq/wk/wv grads of step 1 "
           f"non-zero, worst |diff| / max |grad| {worst:.3e}", flush=True)
+
+# --- the vision and time-series encoders: K6 and K7b at head dims 6-64 -------
+
+
+def vision_task(cfg, batch: int):
+    """The launcher's vision task arguments (``train_eval_classifier``'s
+    init, loss and attention shapes) for ``cfg`` at ``VISION_SIZE``."""
+    import functools
+
+    from repro_torch.models import vision
+
+    return dict(init_fn=functools.partial(vision.init, cfg),
+                loss_fn=vision.loss_fn,
+                attn_shapes=vision.attention_shapes(cfg, batch, VISION_SIZE))
+
+
+def train_vision_full_width(cfg) -> dict:
+    """Phase 21: the vision encoder at full width and depth in bf16 (5 steps
+    of VISION_BATCH images of 224 x 224), then its evaluation over 64
+    held-out images; launch counts, rates and the phase's peak memory."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.classify import (EVAL_BATCH, train_eval_classifier,
+                                             vision_data)
+
+    steps, batch, n_eval = 5, VISION_BATCH, 64
+    train_data, eval_data = vision_data(2 * batch, n_eval, size=VISION_SIZE,
+                                        n_classes=cfg.n_classes, seed=SEED)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    out = train_eval_classifier(cfg, train_data, eval_data, steps=steps,
+                                batch=batch, seed=SEED, device=DEVICE,
+                                **vision_task(cfg, batch))
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    hist = out["history"]
+    if len(hist) != steps or not all(math.isfinite(x) for x in hist + [
+            out["loss"]]) or not 0.0 <= out["acc"] <= 1.0:
+        raise AssertionError(f"vision losses {hist}, eval {out['loss']}, "
+                             f"acc {out['acc']}")
+    if out["backends"] != ["cuda_nc"] * 4:
+        raise AssertionError(f"vision attention bound {out['backends']}")
+    layers = sum(cfg.stage_layers)
+    expect_launches(launches, layers * (steps + -(-n_eval // EVAL_BATCH)),
+                    layers * steps, "vision")
+    step_ms = 1e3 * statistics.median(out["step_s"][1:])
+    stats = {"steps": steps, "batch": batch, "size": VISION_SIZE,
+             "batch_note": f"{batch} images a step: one card's cut of the "
+             "paper's ImageNet global batch",
+             "first_step_ms": 1e3 * out["step_s"][0], "step_ms": step_ms,
+             "images_per_s": batch / step_ms * 1e3,
+             "eval_images": n_eval, "eval_ms": 1e3 * out["eval_s"],
+             "eval_loss": out["loss"], "eval_acc": out["acc"],
+             "peak_memory_bytes": peak, "history": hist,
+             "launches": launches}
+    print("[vision bf16] " + json.dumps(stats), flush=True)
+    return stats
+
+
+def profile_vision(cfg, step_ms: float) -> dict:
+    """Phase 21's profile: device time of a full-width bf16 vision step by
+    kernel, from ``torch.profiler`` over two steps after one outside the
+    window, and its share of phase 21's unprofiled step time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.classify import make_classifier_step, vision_data
+    from repro_torch.models import vision
+    from repro_torch.training.train_state import init_train_state
+
+    steps, batch = 2, VISION_BATCH
+    step_fn, tcfg = make_classifier_step(cfg, steps=10,
+                                         loss_fn=vision.loss_fn)
+    state = init_train_state(vision.init(
+        cfg, torch.Generator().manual_seed(SEED + 1), device=DEVICE), tcfg)
+    data, _ = vision_data(batch * (steps + 1), 0, size=VISION_SIZE,
+                          n_classes=cfg.n_classes, seed=SEED + 1)
+    batches = [{k: torch.from_numpy(v[i * batch:(i + 1) * batch]).to(DEVICE)
+                for k, v in data.items()} for i in range(steps + 1)]
+    state, metrics = step_fn(state, batches[0])
+    float(metrics["loss"])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for bt in batches[1:]:
+            state, metrics = step_fn(state, bt)
+            float(metrics["loss"])
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dev_us = lambda e: getattr(e, "self_device_time_total",  # noqa: E731
+                               getattr(e, "self_cuda_time_total", 0.0))
+    busy = sum(dev_us(e) for e in dev) / 1e3 / steps
+    by_name = lambda key: sum(dev_us(e) for e in dev  # noqa: E731
+                              if key in e.key) / 1e3 / steps
+    stats = {"steps": steps, "batch": batch, "device_ms_per_step": busy,
+             "kernels_per_step": sum(e.count for e in dev) / steps,
+             "step_ms_unprofiled": step_ms, "device_busy_share": busy / step_ms,
+             "k6_ms_per_step": by_name("flow_nc_fused_kernel"),
+             "k7b_ms_per_step": by_name("flow_nc_qside_bwd_kernel")
+             + by_name("flow_nc_reduce_kernel"),
+             "gemm_ms_per_step": by_name("gemm") + by_name("Gemm")
+             + by_name("sm90_xmma"),
+             "device_ms_per_step_by_kernel": {
+                 e.key[:80]: dev_us(e) / 1e3 / steps
+                 for e in sorted(dev, key=dev_us, reverse=True)[:16]}}
+    print("[profile vision] " + json.dumps(stats), flush=True)
+    return stats
+
+
+def train_vision_fp32_both_paths(cfg):
+    """Phase 21b: the vision encoder in fp32 at full width with one block a
+    stage (D = 6, 12, 24, 48) at 224 x 224, 3 steps of 16 images, on the
+    kernels and on the plain path: losses, and the first step's wq/wk/wv
+    gradients (non-zero on the kernels: K7b reached them)."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.classify import train_eval_classifier, vision_data
+    from repro_torch.models import vision
+
+    cfg = dataclasses.replace(cfg, stage_layers=(1, 1, 1, 1))
+    steps, batch = 3, 16
+    params = vision.init(cfg, torch.Generator().manual_seed(SEED + 2),
+                         device=DEVICE)
+    train_data, eval_data = vision_data(4 * batch, batch, size=VISION_SIZE,
+                                        n_classes=cfg.n_classes, seed=SEED + 2)
+    first = {k: torch.from_numpy(v[:batch]).to(DEVICE)
+             for k, v in train_data.items()}
+    names = lambda p: [(f"stage {i} {w}", st["blocks"][0]["attn"][w]["w"])  # noqa: E731
+                       for i, st in enumerate(p["stages"])
+                       for w in ("wq", "wk", "wv")]
+    hist, grads = {}, {}
+    for backend in ("auto", "plain"):
+        c, grads[backend] = first_step_grads(vision.loss_fn, params, first,
+                                             cfg, backend, names)
+        torch.cuda.synchronize()
+        reset_launches()
+        hist[backend] = train_eval_classifier(
+            c, train_data, eval_data, steps=steps, batch=batch, seed=SEED,
+            device=DEVICE, dtype=torch.float32, params=params,
+            **vision_task(c, batch))["history"]
+        if backend == "auto":
+            expect_launches(dict(LAUNCHES), 4 * (steps + 1), 4 * steps,
+                            "fp32 vision")
+        else:
+            expect_launches(dict(LAUNCHES), 0, 0, "fp32 vision, plain")
+    worst = losses_and_grads_agree("fp32 vision", hist, grads)
+    print(f"[vision fp32] kernels vs plain, one block a stage x {steps} steps "
+          f"of {batch} x {VISION_SIZE}^2: losses {hist['auto']} vs "
+          f"{hist['plain']}; wq/wk/wv grads of step 1 non-zero, worst |diff| "
+          f"/ max |grad| {worst:.3e}", flush=True)
+
+
+#: the reference harness's override of the time-series config
+#: (``benchmarks/timeseries_table6.py:19-20``): 96 wide, 4 heads of 24
+TS_HARNESS = dict(d_model=96, n_heads=4, n_kv_heads=4, d_ff=192)
+
+
+def train_timeseries_full_width(cfg) -> dict:
+    """Phase 22: the time-series encoder at full width (2 layers, d 512, 8
+    heads of 64) in bf16, 5 steps of 32 series of 512 steps x 8 dims (the
+    reference's full Table 6 run), then its evaluation; then the
+    harness's D = 24 override for 3 steps.  Launch counts (2 K6 and 2 K7b
+    a step, 2 K6 an eval batch) and rates; ``launches`` is both runs'."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.classify import (EVAL_BATCH, TS_CLASSES,
+                                             timeseries_data,
+                                             train_eval_classifier)
+
+    batch, length, dims, n_eval = 32, 512, 8, 64
+    train_data, eval_data = timeseries_data(4 * batch, n_eval, length=length,
+                                            dims=dims, n_classes=TS_CLASSES,
+                                            seed=SEED)
+    runs, total = {}, dict.fromkeys(LAUNCHES, 0)
+    for tag, c, steps in (("full", cfg, 5),
+                          ("harness D=24", dataclasses.replace(
+                              cfg, **TS_HARNESS), 3)):
+        torch.cuda.synchronize()
+        reset_launches()
+        out = train_eval_classifier(c, train_data, eval_data,
+                                    n_classes=TS_CLASSES, in_dim=dims,
+                                    steps=steps, batch=batch, seed=SEED,
+                                    device=DEVICE)
+        launches = dict(LAUNCHES)
+        hist = out["history"]
+        if len(hist) != steps or not all(math.isfinite(x) for x in hist + [
+                out["loss"]]) or out["backends"] != ["cuda_nc"]:
+            raise AssertionError(f"time series {tag}: losses {hist}, eval "
+                                 f"{out['loss']}, bound {out['backends']}")
+        expect_launches(launches, c.n_layers * (
+            steps + -(-n_eval // EVAL_BATCH)), c.n_layers * steps,
+            f"time series {tag}")
+        step_ms = 1e3 * statistics.median(out["step_s"][1:])
+        runs[tag] = {"steps": steps, "batch": batch, "length": length,
+                     "dims": dims, "d_model": c.d_model,
+                     "head_dim": c.dim_head, "step_ms": step_ms,
+                     "first_step_ms": 1e3 * out["step_s"][0],
+                     "tokens_per_s": batch * length / step_ms * 1e3,
+                     "eval_ms": 1e3 * out["eval_s"], "eval_loss": out["loss"],
+                     "eval_acc": out["acc"], "history": hist,
+                     "launches": launches}
+        total = {k: total[k] + launches[k] for k in total}
+    print("[time series bf16] " + json.dumps(runs), flush=True)
+    return {**runs["full"], "harness": runs["harness D=24"],
+            "launches": total}
+
 
 # --- the mamba2_1p3b slice: K9, K10a, K10b -----------------------------------
 
@@ -3308,6 +3604,36 @@ def time_nc_kernels(launches: dict, errs: dict) -> list:
             TOL[torch.bfloat16])
         k6["cb8_ms"] = time_ms(cb8)
         k6["k6_breakdown"] = k6_breakdown(q, k, v)
+        # the small-head route at the vision encoder's first and last stage
+        # (64 images x 16 heads, bf16): D = 6 over 3,136 tokens, D = 48
+        # over 49, each row with its bound and its plain version's time
+        for stage, (d_, n_) in (("vision_stage1", VISION_STAGES[0]),
+                                ("vision_stage4", VISION_STAGES[-1])):
+            bh_ = VISION_BATCH * VISION_HEADS
+            qs, ks, vs, gs = nc_inputs(torch.bfloat16, bh_, n_, n_, d_,
+                                       SEED + 41)
+            key_s = nc_key_side(qs, ks, vs, 1e-6, True)
+            kws = dict(n_sinks=n_, m_sources=n_)
+            st_bytes = bh_ * (2 * d_ + d_ * d_) * 4
+            for row, run, plain, bytes_moved, ops in (
+                    (rows[0], lambda: flow_nc_fused_call(qs, ks, vs),
+                     lambda: flow_nc_fused_ref(qs, ks, vs),
+                     bh_ * n_ * 4 * d_ * 2, bh_ * nc_fused_ops(n_, n_, d_, d_)),
+                    (rows[1], lambda: flow_nc_qside_call(qs, *key_s, **kws),
+                     lambda: flow_nc_qside_ref(qs, *key_s, **kws),
+                     bh_ * n_ * 2 * d_ * 2 + st_bytes,
+                     bh_ * nc_qside_ops(n_, d_, d_, False)),
+                    (rows[2], lambda: flow_nc_qside_bwd_call(qs, *key_s, gs,
+                                                             **kws),
+                     lambda: flow_nc_qside_bwd_ref(qs, *key_s, gs, **kws),
+                     bh_ * n_ * 3 * d_ * 2 + 2 * st_bytes,
+                     bh_ * nc_qside_ops(n_, d_, d_, True))):
+                bound_ms, by = bound(bytes_moved, ops)
+                row[stage] = {"bh": bh_, "n": n_, "d": d_, "ms": time_ms(run),
+                              "plain_ms": time_ms(plain),
+                              "bound_ms": bound_ms, "bound_by": by,
+                              "max_abs_err": errs[f"{row['name']}_vision"]}
+            del qs, ks, vs, gs, key_s
     print("[K6] " + json.dumps({key_: k6[key_] for key_ in (
         "ms", "bound_ms", "tensor_core_bound_ms", "cb8_ms",
         "k6_breakdown")}), flush=True)
@@ -3317,6 +3643,9 @@ def time_nc_kernels(launches: dict, errs: dict) -> list:
         "ms", "bound_ms", "tensor_core_bound_ms")}) + "; registers and spill "
           "bytes: " + json.dumps(PTXAS.get("flow_nc_qside", "cached")),
           flush=True)
+    print("[K6/K7 small heads] " + json.dumps({
+        row["name"]: {st: row[st] for st in ("vision_stage1", "vision_stage4")}
+        for row in rows}), flush=True)
     return rows
 
 
@@ -3616,6 +3945,14 @@ def main() -> int:
     profile_classifier(lra, classified["step_ms"])
     train_classifier_fp32_both_paths(lra)
     mark("flowformer_lra training")
+    vis = get_config("flowformer_vision")
+    seen = train_vision_full_width(vis)
+    profile_vision(vis, seen["step_ms"])
+    train_vision_fp32_both_paths(vis)
+    mark("flowformer_vision training")
+    series = train_timeseries_full_width(get_config("flowformer_timeseries"))
+    torch.cuda.empty_cache()
+    mark("flowformer_timeseries training")
     mamba = get_config("mamba2_1p3b")
     params = lm.init(mamba, torch.Generator().manual_seed(SEED),
                      device=DEVICE)
@@ -3636,7 +3973,7 @@ def main() -> int:
     mark("mamba2_1p3b training")
     launches = {name: sum(run["launches"][name] for run in (
         stats, quantized, trained, classified, paper, served, ssd_trained,
-        paged, paged_q, *speculative))
+        paged, paged_q, seen, series, *speculative))
         for name in stats["launches"]}
     torch.cuda.empty_cache()
     rows = (time_kernels(launches, errs) + time_paged_kernels(launches, errs)

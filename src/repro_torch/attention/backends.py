@@ -59,7 +59,7 @@ from repro_torch.attention import fused, pipeline, recurrent
 from repro_torch.attention.chunked import chunked_causal_dot_grouped
 from repro_torch.attention.dots import causal_dot_grouped
 from repro_torch.attention.registry import Backend, register_backend
-from repro_torch.kernels._lib import HEAD_DIMS
+from repro_torch.kernels._lib import HEAD_DIMS, NC_HEAD_DIMS
 from repro_torch.kernels.flow_chunk.ops import check_dims
 from repro_torch.serving.quant import (QuantizedPool, dequantize_state,
                                        platform_support, quantize_like)
@@ -139,6 +139,17 @@ def _check_kernel(shapes, platform):
     return None
 
 
+def _check_nc_dims(shapes, platform):
+    """The non-causal kernels' device and head dims (K6, K7a, K7b:
+    ``NC_HEAD_DIMS``, wider than the causal kernels' ``HEAD_DIMS``)."""
+    if platform != "cuda":
+        return f"CUDA kernel needs a CUDA device (platform={platform!r})"
+    if shapes.d != shapes.dv or shapes.d not in NC_HEAD_DIMS:
+        return (f"kernel takes D == Dv in {NC_HEAD_DIMS}, got "
+                f"D={shapes.d} Dv={shapes.dv}")
+    return None
+
+
 def _check_chunk_kernel(shapes, platform):
     if platform != "cuda":
         return f"CUDA kernel needs a CUDA device (platform={platform!r})"
@@ -191,12 +202,13 @@ class NonCausal(Backend):
 
 class CudaNC(NonCausal):
     """The whole non-causal pair in the flow_nc_fused CUDA kernel (K6), one
-    block per (batch, kv head) looping over the four phases; its backward
-    runs K7b."""
+    thread-block cluster per (batch, kv head) through the four phases; its
+    backward runs K7b.  Head dims ``NC_HEAD_DIMS``: the vision and
+    time-series encoders' small heads (6-48) too."""
 
     def supports(self, cfg, shapes, platform, *, op="forward"):
         why = (_check_nc_kernel(cfg, shapes)
-               or _check_kernel(shapes, platform))
+               or _check_nc_dims(shapes, platform))
         if why:
             return False, why
         return True, "flow_nc CUDA kernels"

@@ -90,9 +90,33 @@ class FlowNCQside(torch.autograd.Function):
         return dq, dk_sum, dko_sum, dkv, None, None, None
 
 
+class _KvSum(torch.autograd.Function):
+    """``kv = pk^T v_hat`` per (batch * head): the sum over the M sources in
+    fp64, rounded to fp32 once; the pull-back, whose sums run over D, in
+    fp32.  ``FlowNCFused``'s backward adds two large pull-backs of q, K7b's
+    (which reads kv) and ``nc_key_side``'s, that nearly cancel: with kv
+    summed in fp32 by the card's GEMM they moved a vision step's stage-1 wq
+    gradient by 1.5e-4 of its size against an fp64 run (1.1e-5 with kv in
+    fp64; the plain path 1.7e-5; ``tools/nc_grad_precision.py`` on an H100:
+    16 images of 224 x 224, D = 6 over 3,136 tokens)."""
+
+    @staticmethod
+    def forward(ctx, pk, v_hat):
+        ctx.save_for_backward(pk, v_hat)
+        return torch.einsum("bmd,bme->bde", pk.double(),
+                            v_hat.double()).float()
+
+    @staticmethod
+    def backward(ctx, dkv):
+        pk, v_hat = ctx.saved_tensors
+        return (torch.einsum("bde,bme->bmd", dkv, v_hat),
+                torch.einsum("bmd,bde->bme", pk, dkv))
+
+
 def nc_key_side(q, k, v, eps: float, use_comp: bool):
     """K6's key side in plain fp32 PyTorch: (k_sum, ko_sum (BH, D), kv
-    (BH, D, Dv)), the reductions the sink side (K7a) reads."""
+    (BH, D, Dv)), the reductions the sink side (K7a) reads; kv's sum over
+    the sources in fp64 (``_KvSum``)."""
     m = k.shape[1]
     pq = torch.sigmoid(q.float())
     pk = torch.sigmoid(k.float())
@@ -109,7 +133,7 @@ def nc_key_side(q, k, v, eps: float, use_comp: bool):
         v_hat = vf * (torch.softmax(cons_src, dim=-1) * float(m))[..., None]
     else:
         v_hat = vf
-    kv = torch.einsum("bmd,bme->bde", pk, v_hat)
+    kv = _KvSum.apply(pk, v_hat)
     return k_sum, ko_sum, kv.contiguous()
 
 

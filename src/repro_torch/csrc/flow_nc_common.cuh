@@ -2,8 +2,13 @@
 // kernels for Hopper (sm_90a): flow_nc_qside.cu (K7a; K7b for its sigmoid)
 // and, for its shuffle sums and bf16 stores, flow_nc_fused.cu (K6).
 //
-// K7a (and K6's phase D, through sink_rows) stream rows of a (rows, D)
-// matrix and multiply staged tiles of them with a D x D fp32 kv held in
+// Two routes by head dim.  At D = 32, 64 and 128 the kernels below and in
+// the two sources (K6 and K7b on the tensor cores); at the small head dims
+// of the vision and time-series encoders, D = 6, 8, 12, 16, 24 and 48, the
+// `Small` route at the end of this file: one row a thread, fp32 FMA.
+//
+// K7a streams rows of a (rows, D)
+// matrix and multiplies staged tiles of them with a D x D fp32 kv held in
 // shared memory.  Two thread layouts of a 256-thread block serve it:
 //
 //  * streaming: each thread loads 16 bytes (VEC elements) of one row, LG
@@ -162,6 +167,141 @@ __device__ void sink_rows(const T* __restrict__ q, T* __restrict__ out, int r_be
       }
     }
     __syncthreads();
+  }
+}
+
+// ---- the small-head route ----------------------------------------------------
+//
+// D in {6, 8, 12, 16, 24, 48}.  A row is D * sizeof(T) bytes (12 in bf16 at
+// D = 6), not a whole number of 16-byte loads, and the tensor-core layouts
+// want D a multiple of 16.  Here each thread owns whole rows: D is even, so
+// a row's elements come in pairs of 4 bytes (bf16) or 8 (fp32), aligned
+// wherever the tensor's base is, and its dot products and its products
+// with a D x D matrix in shared memory (read by every lane at once) are
+// fp32 FMA on the CUDA cores in index order.  Every sum over rows runs in a
+// fixed order -- over a thread's rows, over a warp's lanes by a butterfly,
+// over the warps in order -- and no float atomics, so two calls give the
+// same bits.  The products at these widths are a few operations per byte
+// read (2 D per element), so the CUDA cores' fp32 rate is no bound here.
+
+template <int D>
+__host__ __device__ constexpr bool small_dim() {
+  return D == 6 || D == 8 || D == 12 || D == 16 || D == 24 || D == 48;
+}
+
+template <int D>
+struct Small {
+  static_assert(small_dim<D>(), "the small route takes D in {6, 8, 12, 16, 24, 48}");
+  static constexpr int THREADS = D >= 48 ? 128 : 256;  // rows of a tile, one a thread
+  static constexpr int WARPS = THREADS / 32;
+  // at most 128 registers a thread: two rows' D floats stay live at most
+  static constexpr int MIN_BLOCKS = 65536 / (THREADS * 128);
+};
+
+__device__ __forceinline__ float2 load_pair(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// elements c, c + 1 (c even) of a row, rounded to T (bf16: to nearest even,
+// as torch's .to(bfloat16))
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// the D elements of a row, in pairs
+template <typename T, int D>
+__device__ __forceinline__ void load_row(const T* p, float (&x)[D]) {
+#pragma unroll
+  for (int i = 0; i < D; i += 2) {
+    const float2 f = load_pair(p + i);
+    x[i] = f.x;
+    x[i + 1] = f.y;
+  }
+}
+
+template <typename T, int D>
+__device__ __forceinline__ void store_row(T* p, const float (&x)[D]) {
+#pragma unroll
+  for (int i = 0; i < D; i += 2) store2(p + i, x[i], x[i + 1]);
+}
+
+// dst[c] (c < N) = x[c] summed over the block's threads: over a warp's lanes
+// by a butterfly (every lane ends with the same bits), then over the warps
+// in order.  red holds WARPS * N floats.  Every thread must call it; it
+// synchronizes the block once, and threads c < N write dst after that.
+template <int N, int WARPS>
+__device__ __forceinline__ void block_sum(float (&x)[N], float* red, float* dst) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int c = 0; c < N; ++c)
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) x[c] += __shfl_xor_sync(0xffffffffu, x[c], off);
+  if (lane == 0)
+#pragma unroll
+    for (int c = 0; c < N; ++c) red[warp * N + c] = x[c];
+  __syncthreads();
+  if (threadIdx.x < N) {
+    float s = 0.f;
+    for (int w = 0; w < WARPS; ++w) s += red[w * N + threadIdx.x];
+    dst[threadIdx.x] = s;
+  }
+}
+
+// out[c] = sum_d x[d] m[d * D + c] for a D x D matrix m in shared memory
+// (the same address in every lane: a broadcast)
+template <int D>
+__device__ __forceinline__ void row_times_mat(const float (&x)[D], const float* m,
+                                              float (&out)[D]) {
+#pragma unroll
+  for (int c = 0; c < D; ++c) out[c] = 0.f;
+#pragma unroll
+  for (int d = 0; d < D; ++d)
+#pragma unroll
+    for (int c = 0; c < D; ++c) out[c] = fmaf(x[d], m[d * D + c], out[c]);
+}
+
+// Who sums which entries of an (R x C) sum over a tile's rows,
+// sum_r A(r, i) B(r, j): NP = R C entries over THREADS threads.  Where NP
+// fits G >= 2 times, G groups of NP threads each take every G-th row and the
+// groups' sums are added in group order (group_total); otherwise each
+// thread owns EPT entries, tid + i THREADS, over every row.
+template <int NP, int THREADS>
+struct Owners {
+  static constexpr int G = NP <= THREADS ? THREADS / NP : 1;
+  static constexpr int EPT = (NP + THREADS - 1) / THREADS;
+  int grp, p0;
+  __device__ __forceinline__ Owners()
+      : grp(G > 1 ? (int)threadIdx.x / NP : 0), p0(G > 1 ? (int)threadIdx.x % NP : (int)threadIdx.x) {}
+  __device__ __forceinline__ bool active() const { return grp < G; }
+  __device__ __forceinline__ int entry(int i) const { return p0 + i * THREADS; }
+};
+
+// The entries' totals: dst(p) gets entry p's sum (the G groups in order).
+// scratch holds THREADS floats; every thread must call it (one barrier
+// where G > 1); dst is written by the owners after it.
+template <int NP, int THREADS, typename Dst>
+__device__ __forceinline__ void group_total(const Owners<NP, THREADS>& o,
+                                            const float (&acc)[Owners<NP, THREADS>::EPT],
+                                            float* scratch, Dst dst) {
+  using O = Owners<NP, THREADS>;
+  if constexpr (O::G > 1) {
+    if (o.active()) scratch[threadIdx.x] = acc[0];
+    __syncthreads();
+    if ((int)threadIdx.x < NP) {
+      float s = 0.f;
+      for (int g = 0; g < O::G; ++g) s += scratch[g * NP + threadIdx.x];
+      dst((int)threadIdx.x, s);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < O::EPT; ++i)
+      if (o.entry(i) < NP) dst(o.entry(i), acc[i]);
   }
 }
 

@@ -61,6 +61,15 @@
 //    each own 16-row tiles of q, whose flow dots come from the same
 //    fragments.  Both products permute their reduction index so that each
 //    thread's operands are contiguous in a row (one or two 16-byte reads).
+//
+// The small head dims of the vision and time-series encoders (D = 6, 8, 12,
+// 16, 24, 48: a bf16 row of 12 or 24 bytes is no whole number of 16-byte
+// loads, and 8-wide tensor-core steps would be mostly padding) take a second
+// kernel, flow_nc_fused_kernel_small, over the same cluster split and the
+// same rank-order totals, with one row a thread and fp32 FMA (see its
+// section below); the C entry picks it by D, and the wrapper gives it as
+// many blocks a cluster as its rows need (ops.py::cluster_blocks: one at
+// 196 or 49 tokens).
 #include <cooperative_groups.h>
 #include <stdint.h>
 #include <string.h>
@@ -573,9 +582,213 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? 2 : 1)
   }
 }
 
-template <typename T, int D, bool RES>
-cudaError_t launch(const Args<T>& a, int bh, int cb, size_t bytes, cudaStream_t stream) {
-  auto kern = flow_nc_fused_kernel<T, D, RES>;
+// ---- the small-head route (D = 6, 8, 12, 16, 24, 48) ------------------------
+//
+// The same four steps over the same cluster split (block r owns sink rows
+// [r rq, (r+1) rq) and source rows [r rk, (r+1) rk); every total is the
+// blocks' partials summed in rank order through map_shared_rank), with one
+// row a thread and fp32 FMA (flow_nc_common.cuh, "the small-head route").
+// Each step reads its rows from device memory again (L2 holds a cluster's
+// rows between steps at the vision shapes).  phi, e and every division
+// take the accurate sigmoid, expf and IEEE division (K7b's chain), not the
+// tensor-core kernel's fast intrinsics: with those, a vision step's
+// stage-2 wq and wk gradients (D = 12) came out 8.2e-5 and 8.8e-5 of their
+// size off an fp64 run, against 2.0e-5 and 2.6e-5 for the plain path
+// (tools/nc_grad_precision.py on an H100).  The e-weighted kv is a sum over
+// the source rows of phi(k_j)^T (v_j e_j): tiles of THREADS rows land in
+// shared memory as fp32 phi(k) e and v, then the D x D entries are summed
+// over the tile by their owners (Owners: row groups where D x D is smaller
+// than the block), in registers across the tiles.
+
+// shared memory, in floats: the block's partials of the four D-sums, their
+// totals, the column-sum scratch, z's, kv's partial and total, the row
+// groups' scratch, then the tile of phi(k) e and v (tr rows each)
+template <int D>
+struct SmallSmem {
+  static constexpr int THREADS = Small<D>::THREADS, WARPS = Small<D>::WARPS;
+  static constexpr int kPartA = 0, kPartB = 2 * D, kTot = 4 * D, kRed = 8 * D;
+  static constexpr int kZw = kRed + 2 * WARPS * D, kZpart = kZw + WARPS;
+  static constexpr int kKvPart = (kZpart + 4) & ~3, kKv = kKvPart + D * D;
+  static constexpr int kGrp = kKv + D * D, kTile = kGrp + THREADS;
+  static size_t bytes(int tr) { return ((size_t)kTile + 2 * (size_t)tr * D) * sizeof(float); }
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(Small<D>::THREADS, Small<D>::MIN_BLOCKS)
+    flow_nc_fused_kernel_small(const Args<T> a, int tr) {
+  using S = SmallSmem<D>;
+  constexpr int THREADS = S::THREADS, WARPS = S::WARPS, NP = D * D;
+
+  cgrp::cluster_group cluster = cgrp::this_cluster();
+  const int rank = (int)cluster.block_rank(), cb = (int)cluster.num_blocks();
+  const float eps = a.eps;
+  const size_t bh = blockIdx.y;
+  const int q0 = rank * a.rq, k0 = rank * a.rk, tid = threadIdx.x;
+  const int nqb = max(0, min(a.nq - q0, a.rq)), nkb = max(0, min(a.m - k0, a.rk));
+  const T* qg = a.q + (bh * a.nq + q0) * D;
+  const T* kg = a.k + (bh * a.m + k0) * D;
+  const T* vg = a.v + (bh * a.m + k0) * D;
+
+  extern __shared__ float4 smem4[];
+  float* fs = reinterpret_cast<float*>(smem4);
+  float* tot = fs + S::kTot;
+  float* red = fs + S::kRed;
+
+  // -- A: k_sum, q_sum (one D-vector of sums live at a time)
+  {
+    float ks[D] = {};
+    for (int r = tid; r < nkb; r += THREADS) {
+      float x[D];
+      load_row<T, D>(kg + (size_t)r * D, x);
+#pragma unroll
+      for (int i = 0; i < D; ++i) ks[i] += sigmoid(x[i]);
+    }
+    block_sum<D, WARPS>(ks, red, fs + S::kPartA);
+    float qs[D] = {};
+    for (int r = tid; r < nqb; r += THREADS) {
+      float x[D];
+      load_row<T, D>(qg + (size_t)r * D, x);
+#pragma unroll
+      for (int i = 0; i < D; ++i) qs[i] += sigmoid(x[i]);
+    }
+    block_sum<D, WARPS>(qs, red + WARPS * D, fs + S::kPartA + D);
+    cluster.sync();
+    if (tid < 2 * D) {
+      float s = 0.f;
+      for (int j = 0; j < cb; ++j) s += cluster.map_shared_rank(fs + S::kPartA, j)[tid];
+      tot[tid] = s;  // k_sum, q_sum
+    }
+    __syncthreads();
+  }
+
+  // -- B: ko_sum, qi_sum
+  {
+    const float* ksum = tot;
+    const float* qsum = tot + D;
+    float kos[D] = {};
+    for (int r = tid; r < nkb; r += THREADS) {
+      float x[D];
+      load_row<T, D>(kg + (size_t)r * D, x);
+      float dot = 0.f;
+#pragma unroll
+      for (int i = 0; i < D; ++i) {
+        x[i] = sigmoid(x[i]);
+        dot = fmaf(x[i] + eps, qsum[i] + eps, dot);
+      }
+      const float src_out = 1.f / dot;
+#pragma unroll
+      for (int i = 0; i < D; ++i) kos[i] = fmaf(x[i], src_out, kos[i]);
+    }
+    block_sum<D, WARPS>(kos, red, fs + S::kPartB);
+    float qis[D] = {};
+    for (int r = tid; r < nqb; r += THREADS) {
+      float x[D];
+      load_row<T, D>(qg + (size_t)r * D, x);
+      float dot = 0.f;
+#pragma unroll
+      for (int i = 0; i < D; ++i) {
+        x[i] = sigmoid(x[i]);
+        dot = fmaf(x[i] + eps, ksum[i] + eps, dot);
+      }
+      const float sink_in = 1.f / dot;
+#pragma unroll
+      for (int i = 0; i < D; ++i) qis[i] = fmaf(x[i], sink_in, qis[i]);
+    }
+    block_sum<D, WARPS>(qis, red + WARPS * D, fs + S::kPartB + D);
+    cluster.sync();
+    if (tid < 2 * D) {
+      float s = 0.f;
+      for (int j = 0; j < cb; ++j) s += cluster.map_shared_rank(fs + S::kPartB, j)[tid];
+      tot[2 * D + tid] = s;  // ko_sum, qi_sum
+    }
+    __syncthreads();
+  }
+
+  // -- C: e_j, z and kv = sum_j phi(k_j)^T (v_j e_j), tile by tile
+  float z = 0.f;
+  float* kv = fs + S::kKv;
+  {
+    const float* qisum = tot + 3 * D;
+    float* pk = fs + S::kTile;  // tr x D: phi(k) e
+    float* vt = pk + tr * D;    // tr x D: v
+    const Owners<NP, THREADS> own;
+    float acc[Owners<NP, THREADS>::EPT] = {};
+    float zacc[1] = {0.f};
+    for (int t0 = 0; t0 < nkb; t0 += tr) {
+      const int rows = min(tr, nkb - t0);
+      if (tid < rows) {
+        float x[D], y[D];
+        load_row<T, D>(kg + (size_t)(t0 + tid) * D, x);
+        load_row<T, D>(vg + (size_t)(t0 + tid) * D, y);
+        float dot = 0.f;
+#pragma unroll
+        for (int i = 0; i < D; ++i) {
+          x[i] = sigmoid(x[i]);
+          dot = fmaf(x[i] + eps, qisum[i] + eps, dot);
+        }
+        const float e = a.use_comp ? expf(fminf(fmaxf(dot, -1.f), 1.f)) : 1.f;
+        zacc[0] += e;
+#pragma unroll
+        for (int i = 0; i < D; ++i) {
+          pk[tid * D + i] = x[i] * e;
+          vt[tid * D + i] = y[i];
+        }
+      }
+      __syncthreads();
+      if (own.active())
+#pragma unroll
+        for (int i = 0; i < Owners<NP, THREADS>::EPT; ++i) {
+          const int p = own.entry(i);
+          if (p >= NP) continue;
+          const int d = p / D, c = p % D;
+          for (int r = own.grp; r < rows; r += Owners<NP, THREADS>::G)
+            acc[i] = fmaf(pk[r * D + d], vt[r * D + c], acc[i]);
+        }
+      __syncthreads();  // the tile is read: the next may land
+    }
+    float* kvp = fs + S::kKvPart;
+    group_total(own, acc, fs + S::kGrp, [&](int p, float s) { kvp[p] = s; });
+    block_sum<1, WARPS>(zacc, fs + S::kZw, fs + S::kZpart);
+    cluster.sync();
+    for (int p = tid; p < NP; p += THREADS) {
+      float s = 0.f;
+      for (int j = 0; j < cb; ++j) s += cluster.map_shared_rank(kvp, j)[p];
+      kv[p] = s;
+    }
+    for (int j = 0; j < cb; ++j) z += cluster.map_shared_rank(fs + S::kZpart, j)[0];
+    // every block has read the others' partials (none leaves while another
+    // reads its shared memory), and kv is whole in this block
+    cluster.sync();
+  }
+
+  // -- D: the sink rows over the finished kv
+  {
+    const float* ksum = tot;
+    const float* kosum = tot + 2 * D;
+    const float out_scale = a.m_f / z;
+    for (int r = tid; r < nqb; r += THREADS) {
+      float x[D], y[D];
+      load_row<T, D>(qg + (size_t)r * D, x);
+      float inc = 0.f, con = 0.f;
+#pragma unroll
+      for (int i = 0; i < D; ++i) {
+        x[i] = sigmoid(x[i]);
+        inc = fmaf(x[i] + eps, ksum[i] + eps, inc);
+        con = fmaf(x[i] + eps, kosum[i] + eps, con);
+      }
+      const float scale = sigmoid(con * a.sink_scale) / inc * out_scale;
+      row_times_mat<D>(x, kv, y);
+#pragma unroll
+      for (int i = 0; i < D; ++i) y[i] *= scale;
+      store_row<T, D>(a.out + (bh * a.nq + q0 + r) * D, y);
+    }
+  }
+}
+
+// one launch of `kern` as clusters of cb blocks per (batch * kv head)
+template <typename Kern, typename... Xs>
+cudaError_t launch_cluster(Kern kern, int threads, int bh, int cb, size_t bytes,
+                           cudaStream_t stream, Xs... xs) {
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)bytes);
   if (err == cudaSuccess && cb > 8)
@@ -583,7 +796,7 @@ cudaError_t launch(const Args<T>& a, int bh, int cb, size_t bytes, cudaStream_t 
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(cb, bh, 1);
-  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
   cfg.dynamicSmemBytes = bytes;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
@@ -593,9 +806,14 @@ cudaError_t launch(const Args<T>& a, int bh, int cb, size_t bytes, cudaStream_t 
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kern, a);
+  err = cudaLaunchKernelEx(&cfg, kern, xs...);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+template <typename T, int D, bool RES>
+cudaError_t launch(const Args<T>& a, int bh, int cb, size_t bytes, cudaStream_t stream) {
+  return launch_cluster(flow_nc_fused_kernel<T, D, RES>, kThreads, bh, cb, bytes, stream, a);
 }
 
 template <typename T, int D>
@@ -603,20 +821,33 @@ cudaError_t dispatch_res(const void* q, const void* k, const void* v, void* out,
                          int m, int cb, int use_comp, float eps, cudaStream_t stream) {
   Args<T> a{(const T*)q, (const T*)k, (const T*)v, (T*)out, nq, m, (nq + cb - 1) / cb,
             (m + cb - 1) / cb, use_comp, eps, (float)((double)nq / (double)m), (float)m};
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
-  const size_t staged = smem_bytes<T, D>(true, a.rq, a.rk);
-  if (staged <= (size_t)optin) return launch<T, D, true>(a, bh, cb, staged, stream);
-  return launch<T, D, false>(a, bh, cb, smem_bytes<T, D>(false, a.rq, a.rk), stream);
+  if constexpr (small_dim<D>()) {
+    // tile rows: no more than a block owns
+    const int tr = a.rk < Small<D>::THREADS ? a.rk : Small<D>::THREADS;
+    return launch_cluster(flow_nc_fused_kernel_small<T, D>, Small<D>::THREADS, bh, cb,
+                          SmallSmem<D>::bytes(tr), stream, a, tr);
+  } else {
+    int dev = 0, optin = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return err;
+    const size_t staged = smem_bytes<T, D>(true, a.rq, a.rk);
+    if (staged <= (size_t)optin) return launch<T, D, true>(a, bh, cb, staged, stream);
+    return launch<T, D, false>(a, bh, cb, smem_bytes<T, D>(false, a.rq, a.rk), stream);
+  }
 }
 
 template <typename T>
 cudaError_t dispatch(int d, const void* q, const void* k, const void* v, void* out, int bh,
                      int nq, int m, int cb, int use_comp, float eps, cudaStream_t stream) {
   switch (d) {
+    case 6: return dispatch_res<T, 6>(q, k, v, out, bh, nq, m, cb, use_comp, eps, stream);
+    case 8: return dispatch_res<T, 8>(q, k, v, out, bh, nq, m, cb, use_comp, eps, stream);
+    case 12: return dispatch_res<T, 12>(q, k, v, out, bh, nq, m, cb, use_comp, eps, stream);
+    case 16: return dispatch_res<T, 16>(q, k, v, out, bh, nq, m, cb, use_comp, eps, stream);
+    case 24: return dispatch_res<T, 24>(q, k, v, out, bh, nq, m, cb, use_comp, eps, stream);
+    case 48: return dispatch_res<T, 48>(q, k, v, out, bh, nq, m, cb, use_comp, eps, stream);
     case 32: return dispatch_res<T, 32>(q, k, v, out, bh, nq, m, cb, use_comp, eps, stream);
     case 64: return dispatch_res<T, 64>(q, k, v, out, bh, nq, m, cb, use_comp, eps, stream);
     case 128: return dispatch_res<T, 128>(q, k, v, out, bh, nq, m, cb, use_comp, eps, stream);
@@ -627,9 +858,11 @@ cudaError_t dispatch(int d, const void* q, const void* k, const void* v, void* o
 }  // namespace
 
 // q (BH, NQ, D), k (BH, M, D), v (BH, M, Dv) in `dtype` (0 fp32, 1 bf16),
-// contiguous and 16-byte aligned; out (BH, NQ, Dv) in `dtype`.  D == Dv in
-// {32, 64, 128}; NQ, M >= 1; cb in [1, 16] blocks per cluster (above 8 the
-// card must allow non-portable cluster sizes).  Returns a cudaError_t.
+// contiguous, 16-byte aligned at their bases (a row may be any whole number
+// of element pairs); out (BH, NQ, Dv) in `dtype`.  D == Dv in {6, 8, 12, 16,
+// 24, 48} (the small-head route) or {32, 64, 128}; NQ, M >= 1; cb in [1, 16]
+// blocks per cluster (above 8 the card must allow non-portable cluster
+// sizes).  Returns a cudaError_t.
 extern "C" int flow_nc_fused_fwd(const void* q, const void* k, const void* v, void* out, int bh,
                                  int nq, int m, int d, int dv, int dtype, int cb, int use_comp,
                                  float eps, void* stream) {

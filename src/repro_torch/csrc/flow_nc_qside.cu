@@ -50,6 +50,12 @@
 // (split as it is read at D = 128, where both copies would not fit); then
 // phi^T [u | dI, dC] adds the tile to the block's dkv, dk_sum and dko_sum,
 // in registers.  Three blocks of 128 threads an SM at D = 64.
+//
+// The small head dims (D = 6, 8, 12, 16, 24, 48) take K7a's and K7b's
+// small-head kernels: the same chains, one row a thread in fp32 FMA on the
+// CUDA cores (flow_nc_common.cuh), K7b's reductions summed by owner threads
+// over each tile's rows in order and added across blocks by the same
+// reduce launch.  The C entries pick the route by D.
 #include "flow_nc_common.cuh"
 #include "tensor_core.cuh"
 
@@ -107,14 +113,6 @@ __device__ __forceinline__ float2 raw_pair(const float* row, int r, int c, float
 __device__ __forceinline__ float2 raw_pair(const float* row, int r, int c, __nv_bfloat16) {
   return __bfloat1622float2(
       *reinterpret_cast<const __nv_bfloat162*>(row + raw_word<__nv_bfloat16>(r, c / 2)));
-}
-
-// elements c, c + 1 of a row in device memory, in T
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
 // sum over the four lanes of a quad (t = lane % 4), in a fixed order
@@ -463,36 +461,243 @@ flow_nc_reduce_kernel(const float* __restrict__ part, float* __restrict__ dk_sum
   }
 }
 
+// ---- the small-head route (D = 6, 8, 12, 16, 24, 48) ------------------------
+//
+// One row a thread, fp32 FMA (flow_nc_common.cuh, "the small-head route").
+
+// kv (D x D), k_sum + eps and ko_sum + eps of one (batch * head) into shared
+// memory; the caller synchronizes
+template <int D, int THREADS>
+__device__ __forceinline__ void stage_key_side(const float* kv, const float* k_sum,
+                                               const float* ko_sum, float add, float* kv_s,
+                                               float* ks_s, float* kos_s) {
+  const size_t bh = blockIdx.y;
+  for (int i = threadIdx.x; i < D * D; i += THREADS) kv_s[i] = kv[bh * D * D + i];
+  if (threadIdx.x < D) {
+    ks_s[threadIdx.x] = k_sum[bh * D + threadIdx.x] + add;
+    kos_s[threadIdx.x] = ko_sum[bh * D + threadIdx.x] + add;
+  }
+}
+
+// K7a: block (x, bh) owns rows [x THREADS, (x + 1) THREADS), one a thread
+template <typename T, int D>
+__global__ void __launch_bounds__(Small<D>::THREADS, Small<D>::MIN_BLOCKS)
+flow_nc_qside_kernel_small(const T* __restrict__ q, const float* __restrict__ k_sum,
+                           const float* __restrict__ ko_sum, const float* __restrict__ kv,
+                           T* __restrict__ out, int n, float eps, float sink_scale) {
+  constexpr int THREADS = Small<D>::THREADS;
+  extern __shared__ float4 smem4[];
+  float* kv_s = reinterpret_cast<float*>(smem4);
+  float* ksum_s = kv_s + D * D;
+  float* kosum_s = ksum_s + D;
+  stage_key_side<D, THREADS>(kv, k_sum, ko_sum, 0.f, kv_s, ksum_s, kosum_s);
+  __syncthreads();
+  const size_t bh = blockIdx.y;
+  const int r = blockIdx.x * THREADS + threadIdx.x;
+  if (r >= n) return;
+  float x[D], y[D];
+  load_row<T, D>(q + (bh * n + r) * D, x);
+  float inc = 0.f, con = 0.f;
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+    x[i] = sigmoid(x[i]);
+    inc = fmaf(x[i] + eps, ksum_s[i] + eps, inc);
+    con = fmaf(x[i] + eps, kosum_s[i] + eps, con);
+  }
+  const float scale = sigmoid(con * sink_scale) / inc;
+  row_times_mat<D>(x, kv_s, y);
+#pragma unroll
+  for (int i = 0; i < D; ++i) y[i] *= scale;
+  store_row<T, D>(out + (bh * n + r) * D, y);
+}
+
+// K7b's shared memory, in floats: kv, k_sum + eps, ko_sum + eps, a tile of
+// phi (TR x D) and of X = [u | dI, dC] (TR x (D + 2)), the row groups'
+// scratch
+template <int D>
+struct SmallBwd {
+  static constexpr int THREADS = Small<D>::THREADS, TR = THREADS, W = D + 2;
+  static constexpr int NP = D * W;  // [dkv | dk_sum, dko_sum] entries, (d, c)
+  static constexpr int kKse = D * D, kKose = kKse + D, kPhi = kKose + D;
+  static constexpr int kX = kPhi + TR * D, kGrp = kX + TR * W;
+  static constexpr int FLOATS = kGrp + THREADS;
+  static constexpr int PART = 2 * D + D * D;  // a block's partial, in floats
+};
+
+// K7b: block (split, bh) owns rows [split rows, (split + 1) rows), walked in
+// tiles of TR rows, one a thread: phi, I, C, alloc; agg I = phi @ kv;
+// dalloc = g . agg; u = g alloc / I; w = u @ kv^T; dI = -(w . phi) / I;
+// dC = dalloc alloc (1 - alloc) n/m; dq = (w + dI (k_sum + eps) + dC
+// (ko_sum + eps)) phi (1 - phi).  The tile's phi and [u | dI, dC] land in
+// shared memory, and the owners of [dkv | dk_sum, dko_sum] = phi^T u |
+// (phi + eps)^T [dI, dC] add its rows in order, in registers across the
+// tiles; the block's partial goes to part[bh][split] for the reduce launch.
+template <typename T, int D>
+__global__ void __launch_bounds__(Small<D>::THREADS, Small<D>::MIN_BLOCKS)
+flow_nc_qside_bwd_kernel_small(const T* __restrict__ q, const float* __restrict__ k_sum,
+                               const float* __restrict__ ko_sum, const float* __restrict__ kv,
+                               const T* __restrict__ g, T* __restrict__ dq,
+                               float* __restrict__ part, int n, int rows, float eps,
+                               float sink_scale) {
+  using B = SmallBwd<D>;
+  constexpr int THREADS = B::THREADS, W = B::W, NP = B::NP;
+  using O = Owners<NP, THREADS>;
+  extern __shared__ float4 smem4[];
+  float* fs = reinterpret_cast<float*>(smem4);
+  const float* kv_s = fs;
+  const float* kse = fs + B::kKse;
+  const float* kose = fs + B::kKose;
+  float* ph_s = fs + B::kPhi;
+  float* x_s = fs + B::kX;
+  stage_key_side<D, THREADS>(kv, k_sum, ko_sum, eps, fs, fs + B::kKse, fs + B::kKose);
+  __syncthreads();
+
+  const size_t bh = blockIdx.y;
+  const int split = blockIdx.x, tid = threadIdx.x;
+  const T* qb = q + bh * n * D;
+  const T* gb = g + bh * n * D;
+  T* dqb = dq + bh * n * D;
+  const O own;
+  float acc[O::EPT] = {};
+  const int r_begin = split * rows, r_end = min(n, r_begin + rows);
+  for (int t0 = r_begin; t0 < r_end; t0 += B::TR) {
+    const int cnt = min(B::TR, r_end - t0);
+    if (tid < cnt) {
+      // two rows of D floats live at most: phi, and agg I then w; u goes
+      // to its row of X as it is formed and is read back from there
+      const size_t r = t0 + tid;
+      float ph[D], w[D];
+      float* xr = x_s + tid * W;
+      load_row<T, D>(qb + r * D, ph);
+      float ia = 0.f, ca = 0.f;
+#pragma unroll
+      for (int i = 0; i < D; ++i) {
+        ph[i] = sigmoid(ph[i]);
+        ia = fmaf(ph[i] + eps, kse[i], ia);
+        ca = fmaf(ph[i] + eps, kose[i], ca);
+        ph_s[tid * D + i] = ph[i];
+      }
+      const float al = sigmoid(ca * sink_scale);
+      row_times_mat<D>(ph, kv_s, w);  // agg I
+      const T* gr = gb + r * D;
+      const float s = al / ia;
+      float da = 0.f;
+#pragma unroll
+      for (int i = 0; i < D; i += 2) {
+        const float2 gv = load_pair(gr + i);
+        da = fmaf(gv.x, w[i], da);
+        da = fmaf(gv.y, w[i + 1], da);
+        xr[i] = gv.x * s;  // u = g alloc / I
+        xr[i + 1] = gv.y * s;
+      }
+      const float dalloc = da / ia;
+      // w = u @ kv^T
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        float t = 0.f;
+#pragma unroll
+        for (int c = 0; c < D; ++c) t = fmaf(xr[c], kv_s[d * D + c], t);
+        w[d] = t;
+      }
+      float sw = 0.f;
+#pragma unroll
+      for (int i = 0; i < D; ++i) sw = fmaf(w[i], ph[i], sw);
+      const float di = -sw / ia;
+      const float dc = dalloc * al * (1.f - al) * sink_scale;
+#pragma unroll
+      for (int i = 0; i < D; ++i)
+        w[i] = (w[i] + di * kse[i] + dc * kose[i]) * ph[i] * (1.f - ph[i]);
+      xr[D] = di;
+      xr[D + 1] = dc;
+      store_row<T, D>(dqb + r * D, w);
+    }
+    __syncthreads();
+    // the tile's rows summed afresh, then added to the block's sums: a sum
+    // over the tile's rows and one over the tiles, as the tensor-core
+    // kernel sums, rather than one flat sum over thousands of rows
+    if (own.active())
+#pragma unroll
+      for (int i = 0; i < O::EPT; ++i) {
+        const int p = own.entry(i);
+        if (p >= NP) continue;
+        const int d = p / W, c = p % W;
+        const float add = c < D ? 0.f : eps;  // dk_sum, dko_sum take phi + eps
+        float t_acc = 0.f;
+        for (int t = own.grp; t < cnt; t += O::G)
+          t_acc = fmaf(ph_s[t * D + d] + add, x_s[t * W + c], t_acc);
+        acc[i] += t_acc;
+      }
+    __syncthreads();  // the tile is read: the next may land
+  }
+  // this block's partial: dk_sum, dko_sum, then dkv (row-major)
+  float* pb = part + (bh * gridDim.x + split) * (size_t)B::PART;
+  group_total(own, acc, fs + B::kGrp, [&](int p, float v) {
+    const int d = p / W, c = p % W;
+    pb[c < D ? 2 * D + d * D + c : c == D ? d : D + d] = v;
+  });
+}
+
 template <typename T, int D>
 cudaError_t launch_fwd(const void* q, const void* k_sum, const void* ko_sum, const void* kv,
                        void* out, int bh, int n, float sink_scale, float eps,
                        cudaStream_t stream) {
-  auto kern = flow_nc_qside_kernel<T, D>;
-  const size_t bytes = ((size_t)D * D + (size_t)kTile * D + 2 * D + kTile) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((n + kRowsPerBlock - 1) / kRowsPerBlock, bh);
-  kern<<<grid, kThreads, bytes, stream>>>((const T*)q, (const float*)k_sum,
-                                          (const float*)ko_sum, (const float*)kv, (T*)out, n,
-                                          eps, sink_scale);
-  return cudaGetLastError();
+  if constexpr (small_dim<D>()) {
+    constexpr int THREADS = Small<D>::THREADS;
+    const size_t bytes = ((size_t)D * D + 2 * D) * sizeof(float);
+    const dim3 grid((n + THREADS - 1) / THREADS, bh);
+    flow_nc_qside_kernel_small<T, D><<<grid, THREADS, bytes, stream>>>(
+        (const T*)q, (const float*)k_sum, (const float*)ko_sum, (const float*)kv, (T*)out, n,
+        eps, sink_scale);
+    return cudaGetLastError();
+  } else {
+    auto kern = flow_nc_qside_kernel<T, D>;
+    const size_t bytes = ((size_t)D * D + (size_t)kTile * D + 2 * D + kTile) * sizeof(float);
+    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)bytes);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((n + kRowsPerBlock - 1) / kRowsPerBlock, bh);
+    kern<<<grid, kThreads, bytes, stream>>>((const T*)q, (const float*)k_sum,
+                                            (const float*)ko_sum, (const float*)kv, (T*)out, n,
+                                            eps, sink_scale);
+    return cudaGetLastError();
+  }
 }
+
+// K7b's kernel, block size, tile rows and shared memory bytes for D
+template <typename T, int D>
+struct BwdKernel {
+  static auto kern() {
+    if constexpr (small_dim<D>()) return flow_nc_qside_bwd_kernel_small<T, D>;
+    else return flow_nc_qside_bwd_kernel<T, D>;
+  }
+  static constexpr int threads() {
+    if constexpr (small_dim<D>()) return SmallBwd<D>::THREADS;
+    else return BwdCfg<D>::THREADS;
+  }
+  static constexpr int tile() {
+    if constexpr (small_dim<D>()) return SmallBwd<D>::TR;
+    else return BwdCfg<D>::TR;
+  }
+  static constexpr size_t bytes() {
+    if constexpr (small_dim<D>()) return SmallBwd<D>::FLOATS * sizeof(float);
+    else return BwdCfg<D>::FLOATS * sizeof(float);
+  }
+};
 
 template <typename T, int D>
 cudaError_t launch_bwd(const void* q, const void* k_sum, const void* ko_sum, const void* kv,
                        const void* g, void* dq, void* part, void* dk_sum, void* dko_sum,
                        void* dkv, int bh, int n, int rows, float sink_scale, float eps,
                        cudaStream_t stream) {
-  using B = BwdCfg<D>;
-  if (rows < B::TR || rows % B::TR) return cudaErrorInvalidValue;
-  auto kern = flow_nc_qside_bwd_kernel<T, D>;
-  const size_t bytes = B::FLOATS * sizeof(float);
+  using B = BwdKernel<T, D>;
+  if (rows < B::tile() || rows % B::tile()) return cudaErrorInvalidValue;
+  auto kern = B::kern();
+  const size_t bytes = B::bytes();
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)bytes);
   if (err != cudaSuccess) return err;
   const int splits = (n + rows - 1) / rows;
-  kern<<<dim3(splits, bh), B::THREADS, bytes, stream>>>(
+  kern<<<dim3(splits, bh), B::threads(), bytes, stream>>>(
       (const T*)q, (const float*)k_sum, (const float*)ko_sum, (const float*)kv, (const T*)g,
       (T*)dq, (float*)part, n, rows, eps, sink_scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
@@ -506,17 +711,18 @@ cudaError_t launch_bwd(const void* q, const void* k_sum, const void* ko_sum, con
 // occupancy calculator, times the SMs, over BH), at least one tile each.
 template <typename T, int D>
 int bwd_rows(int bh, int n) {
-  auto kern = flow_nc_qside_bwd_kernel<T, D>;
-  const size_t bytes = BwdCfg<D>::FLOATS * sizeof(float);
+  using B = BwdKernel<T, D>;
+  auto kern = B::kern();
+  const size_t bytes = B::bytes();
   int occ = 0, dev = 0, sms = 0;
   if (cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes) !=
           cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kern, BwdCfg<D>::THREADS, bytes) !=
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kern, B::threads(), bytes) !=
           cudaSuccess ||
       cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || occ < 1)
     return -1;
-  constexpr int TR = BwdCfg<D>::TR;
+  constexpr int TR = B::tile();
   const int tiles = (n + TR - 1) / TR;
   const int splits = max(1, min(tiles, occ * sms / bh));
   return (tiles + splits - 1) / splits * TR;
@@ -524,21 +730,31 @@ int bwd_rows(int bh, int n) {
 
 }  // namespace
 
-#define FLOW_NC_DISPATCH(CALL)                                          \
-  if (dtype == 0) {                                                     \
-    if (d == 32) return (int)CALL(float, 32);                           \
-    if (d == 64) return (int)CALL(float, 64);                           \
-    if (d == 128) return (int)CALL(float, 128);                         \
-  } else if (dtype == 1) {                                              \
-    if (d == 32) return (int)CALL(__nv_bfloat16, 32);                   \
-    if (d == 64) return (int)CALL(__nv_bfloat16, 64);                   \
-    if (d == 128) return (int)CALL(__nv_bfloat16, 128);                 \
+#define FLOW_NC_DIMS(CALL, T)                   \
+  switch (d) {                                  \
+    case 6: return (int)CALL(T, 6);             \
+    case 8: return (int)CALL(T, 8);             \
+    case 12: return (int)CALL(T, 12);           \
+    case 16: return (int)CALL(T, 16);           \
+    case 24: return (int)CALL(T, 24);           \
+    case 48: return (int)CALL(T, 48);           \
+    case 32: return (int)CALL(T, 32);           \
+    case 64: return (int)CALL(T, 64);           \
+    case 128: return (int)CALL(T, 128);         \
+    default: break;                             \
+  }
+#define FLOW_NC_DISPATCH(CALL)                  \
+  if (dtype == 0) {                             \
+    FLOW_NC_DIMS(CALL, float)                   \
+  } else if (dtype == 1) {                      \
+    FLOW_NC_DIMS(CALL, __nv_bfloat16)           \
   }
 
 // q (BH, N, D) in `dtype` (0 fp32, 1 bf16); k_sum, ko_sum (BH, D) and kv
 // (BH, D, Dv) fp32; out (BH, N, Dv) in `dtype`.  All contiguous and 16-byte
-// aligned; D == Dv in {32, 64, 128}; N >= 1.  sink_scale = n_sinks /
-// m_sources.  Returns a cudaError_t.
+// aligned at their bases; D == Dv in {6, 8, 12, 16, 24, 48} (the small-head
+// route) or {32, 64, 128}; N >= 1.  sink_scale = n_sinks / m_sources.
+// Returns a cudaError_t.
 extern "C" int flow_nc_qside_fwd(const void* q, const void* k_sum, const void* ko_sum,
                                  const void* kv, void* out, int bh, int n, int d, int dv,
                                  int dtype, float sink_scale, float eps, void* stream) {
@@ -584,6 +800,7 @@ extern "C" int flow_nc_qside_bwd(const void* q, const void* k_sum, const void* k
 }
 
 #undef FLOW_NC_DISPATCH
+#undef FLOW_NC_DIMS
 
 extern "C" const char* flow_nc_qside_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

@@ -2,7 +2,9 @@
 
 ``zipf_text`` is the language-modelling stand-in the LM training slice
 reads; ``listops`` and ``pixel_images`` are the LRA stand-ins (ListOps and
-pixel sequences) the classifier slice reads.  Each is a pure function of
+pixel sequences) the classifier slice reads, ``pixel_images`` with
+``channels=3`` also the ImageNet stand-in of the vision encoder, and
+``timeseries`` the UEA stand-in of the time-series encoder.  Each is a pure function of
 its seed and sizes, numpy only, so the port and the reference draw the
 same data.
 """
@@ -101,4 +103,27 @@ def pixel_images(seed: int, n: int, *, size: int = 32, n_classes: int = 10,
         xs[i, :, :, 0] = img
     if channels > 1:
         xs = np.repeat(xs[:, :, :, :1], channels, axis=-1)
+    return xs, ys
+
+
+# ---------------------------------------------------------------------------
+# Time series (UEA stand-in)
+# ---------------------------------------------------------------------------
+def timeseries(seed: int, n: int, *, length: int = 256, dims: int = 8,
+               n_classes: int = 6) -> tuple[np.ndarray, np.ndarray]:
+    rng = np.random.default_rng(seed)
+    ys = rng.integers(0, n_classes, size=n).astype(np.int32)
+    t = np.linspace(0, 1, length)
+    xs = np.zeros((n, length, dims), np.float32)
+    for i in range(n):
+        c = ys[i]
+        for d in range(dims):
+            f1 = 2 + c + d % 3
+            f2 = 5 + (c * 2) % 7
+            phase = rng.uniform(0, 2 * np.pi)
+            xs[i, :, d] = (
+                np.sin(2 * np.pi * f1 * t + phase)
+                + 0.5 * np.sin(2 * np.pi * f2 * t)
+                + rng.normal(0, 0.3, length)
+            )
     return xs, ys

@@ -31,6 +31,13 @@ A classifier tree (``repro/models/classifier.py``: ``embed`` or
 with a bias) is never stacked, whatever ``cfg.scan_layers`` says, so both
 directions carry it as it is.  The tree itself tells the two apart: only a
 classifier has ``in_proj`` or a dense ``head``.
+
+A vision tree (``repro/models/vision.py``: ``patch_embed``, a list of
+``stages`` each holding a Python list of ``blocks`` and, but for the last,
+a ``merge``, then ``final_norm`` and a dense ``classifier`` with a bias) is
+never stacked either; its ``patch_embed`` tells it apart, and both
+directions carry it as it is, its stages' block counts checked against
+``cfg.stage_layers``.
 """
 from __future__ import annotations
 
@@ -71,12 +78,23 @@ def is_classifier(tree: dict) -> bool:
     return "in_proj" in tree or "w" in tree.get("head", {})
 
 
+def is_vision(tree: dict) -> bool:
+    """True for the hierarchical vision model's parameter tree."""
+    return "patch_embed" in tree
+
+
 def _as_tensor(x):
     return torch.from_numpy(np.array(x, copy=True))
 
 
 def params_from_numpy(tree: dict, cfg: ModelConfig) -> dict:
     """The port's parameter dict (CPU tensors) from a numpy param tree."""
+    if is_vision(tree):
+        layers = tuple(len(st["blocks"]) for st in tree["stages"])
+        if layers != tuple(cfg.stage_layers):
+            raise ValueError(f"tree has stages of {layers} blocks, cfg "
+                             f"{tuple(cfg.stage_layers)}")
+        return tree_map(_as_tensor, dict(tree))
     if is_classifier(tree):
         if len(tree["blocks"]) != cfg.n_layers:
             raise ValueError(f"tree has {len(tree['blocks'])} blocks, cfg "
@@ -95,7 +113,7 @@ def params_from_numpy(tree: dict, cfg: ModelConfig) -> dict:
 def params_to_numpy(params: dict, cfg: ModelConfig) -> dict:
     """The reference's param tree layout with numpy leaves."""
     p = tree_map(lambda x: x.detach().cpu().numpy(), params)
-    if is_classifier(p):
+    if is_classifier(p) or is_vision(p):
         return p
     out = {"embed": p["embed"]}
     period = len(cfg.pattern)

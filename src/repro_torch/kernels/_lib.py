@@ -38,6 +38,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 PHI_CODES = {"sigmoid": 0, "elu1": 1, "relu": 2}
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
+#: the small-head route of the non-causal kernels (K6, K7a, K7b; the vision
+#: and time-series encoders' heads, on the CUDA cores): rows of one block
+#: at each D, one row a thread (``Small<D>::THREADS`` in
+#: ``csrc/flow_nc_common.cuh``)
+NC_SMALL_THREADS = {6: 256, 8: 256, 12: 256, 16: 256, 24: 256, 48: 128}
+#: the non-causal kernels' head dims: ``HEAD_DIMS`` on the tensor cores and
+#: the small-head route's
+NC_HEAD_DIMS = tuple(sorted((*HEAD_DIMS, *NC_SMALL_THREADS)))
 
 #: launches per kernel: each wrapper adds one where it launches its kernel
 LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}

@@ -24,13 +24,15 @@ import torch
 
 from repro_torch.core.flow_attention import FlowConfig, _group
 from repro_torch.kernels import _lib
-from repro_torch.kernels._lib import DTYPE_CODES, HEAD_DIMS, LAUNCHES
+from repro_torch.kernels._lib import (DTYPE_CODES, LAUNCHES, NC_HEAD_DIMS,
+                                     NC_SMALL_THREADS)
 from repro_torch.kernels.flow_nc.ref import (flow_nc_fused_ref,
                                              flow_nc_qside_bwd_ref,
                                              flow_nc_qside_ref)
 
-__all__ = ["LAUNCHES", "flow_attention_nc", "flow_nc_fused_call",
-           "flow_nc_qside_bwd_call", "flow_nc_qside_call"]
+__all__ = ["LAUNCHES", "cluster_blocks", "flow_attention_nc",
+           "flow_nc_fused_call", "flow_nc_qside_bwd_call",
+           "flow_nc_qside_call"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FUSED_ARGTYPES = [_P] * 4 + [_I] * 8 + [_F, _P]
@@ -43,9 +45,23 @@ _QSIDE_BWD_ARGTYPES = [_P] * 10 + [_I] * 6 + [_F, _F, _P]
 CLUSTER_BLOCKS = 16
 
 
+def cluster_blocks(nq: int, m: int, d: int) -> int:
+    """Blocks of K6's cluster per (batch * kv head) at NQ sinks, M sources
+    and head dim D: ``CLUSTER_BLOCKS`` on the tensor-core route; on the
+    small-head route as many as a block's one row a thread needs for the
+    longer side, at most ``CLUSTER_BLOCKS`` (the vision encoder's stages:
+    13, 4, 1 and 1 blocks), so that short rows take no cluster barriers
+    and no DSMEM exchange of a kv that every block would sum again."""
+    if d not in NC_SMALL_THREADS:
+        return CLUSTER_BLOCKS
+    return max(1, min(CLUSTER_BLOCKS, -(-max(nq, m) // NC_SMALL_THREADS[d])))
+
+
 def _check(device, **xs):
     """Raise unless every tensor is on ``device``, contiguous and 16-byte
-    aligned (the kernels load 16 bytes at a time)."""
+    aligned at its base (the kernels load 16 bytes at a time at D = 32, 64
+    and 128; at the small head dims a row is read in element pairs, so a
+    row of any whole number of pairs is read where it lies)."""
     for name, x in xs.items():
         if x.device != device:
             raise ValueError(f"{name} is on {x.device}, expected {device}")
@@ -54,16 +70,16 @@ def _check(device, **xs):
 
 
 def _check_rows(q: torch.Tensor, *others: torch.Tensor):
-    """q (BH, N, D) on CUDA in fp32 or bf16, D in ``HEAD_DIMS``; ``others``
-    in q's dtype."""
+    """q (BH, N, D) on CUDA in fp32 or bf16, D in ``NC_HEAD_DIMS``;
+    ``others`` in q's dtype."""
     if q.device.type != "cuda":
         raise ValueError(f"flow_nc runs on cuda or cpu, not {q.device}")
     if q.dtype not in DTYPE_CODES or any(x.dtype != q.dtype for x in others):
         raise ValueError("q, k, v and g must share fp32 or bf16, got "
                          + "/".join(str(x.dtype) for x in (q, *others)))
-    if q.ndim != 3 or q.shape[1] < 1 or q.shape[2] not in HEAD_DIMS:
-        raise ValueError(f"q must be (BH, N >= 1, D) with D in {HEAD_DIMS}, "
-                         f"got {tuple(q.shape)}")
+    if q.ndim != 3 or q.shape[1] < 1 or q.shape[2] not in NC_HEAD_DIMS:
+        raise ValueError(f"q must be (BH, N >= 1, D) with D in "
+                         f"{NC_HEAD_DIMS}, got {tuple(q.shape)}")
 
 
 def _check_key_side(q, k_sum, ko_sum, kv):
@@ -83,8 +99,9 @@ def flow_nc_fused_call(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     q: (BH, NQ, D) raw; k: (BH, M, D); v: (BH, M, Dv), NQ counting the sinks
     (G*N after grouping) -> (BH, NQ, Dv) in q's dtype.  On CUDA, D == Dv
-    and BH <= 65,535; one launch of ``CLUSTER_BLOCKS``-block clusters
-    (``flow_nc_fused_parallel`` is its decomposition).
+    and BH <= 65,535; one launch of ``cluster_blocks(NQ, M, D)``-block
+    clusters (``flow_nc_fused_parallel`` at that ``cb`` is its
+    decomposition).
     """
     if q.device.type == "cpu":
         return flow_nc_fused_ref(q, k, v, eps=eps, use_comp=use_comp)
@@ -105,8 +122,8 @@ def flow_nc_fused_call(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     fn = _lib.function("flow_nc_fused", "flow_nc_fused_fwd", _FUSED_ARGTYPES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, nq,
-             m, d, d, DTYPE_CODES[q.dtype], CLUSTER_BLOCKS, int(use_comp), eps,
-             stream)
+             m, d, d, DTYPE_CODES[q.dtype], cluster_blocks(nq, m, d),
+             int(use_comp), eps, stream)
     _lib.check(fn, err, "flow_nc_fused")
     LAUNCHES["flow_nc_fused"] += 1
     return out

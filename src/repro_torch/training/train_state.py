@@ -89,7 +89,7 @@ def make_train_step(loss_fn: Callable, tcfg: TrainConfig, *, decay=None):
     def train_step(state: TrainState, batch: dict):
         params = tree_map(lambda x: x.detach().requires_grad_(True),
                           tree_cast(state.master, tcfg.compute_dtype))
-        first = batch["inputs"]
+        first = next(iter(batch.values()))  # every leaf leads with the batch
         n_micro = tcfg.microbatch and max(1, first.shape[0] // tcfg.microbatch)
         if n_micro and n_micro > 1:
             mbs = [{k: v.chunk(n_micro)[i] for k, v in batch.items()}

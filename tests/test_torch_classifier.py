@@ -212,7 +212,7 @@ def leaf_pairs(port: dict, ref: dict):
 def test_classifier_grads_match_reference(models, monkeypatch, kind,
                                           ref_backend, port_backend):
     if port_backend == "cuda_nc":  # the kernel glue, on its plain versions
-        monkeypatch.setattr(backends, "_check_kernel", lambda s, p: None)
+        monkeypatch.setattr(backends, "_check_nc_dims", lambda s, p: None)
     batch = data(kind, 4, seed=2)
     jcfg = with_backend(j_smoke_config("flowformer_lra"), ref_backend)
     cfg = with_backend(get_smoke_config("flowformer_lra"), port_backend)

@@ -65,7 +65,8 @@ from repro_torch.kernels.flow_nc import (flow_nc_fused_call,  # noqa: E402
 from repro_torch.attention.vjp import FlowNCQside, nc_key_side  # noqa: E402
 from repro_torch.data.loader import lm_loader  # noqa: E402
 from repro_torch.launch.classify import listops_data, train_eval_classifier  # noqa: E402
-from repro_torch.models import classifier  # noqa: E402
+from repro_torch.models import classifier, vision  # noqa: E402
+from repro_torch.data.synthetic import pixel_images  # noqa: E402
 from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.layers.attention import executor_of, plan_of  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
@@ -74,7 +75,8 @@ from repro_torch.serving.engine import Engine, Request  # noqa: E402
 from repro_torch.serving.quant import (dequantize_state,  # noqa: E402
                                        quantize_like, quantize_state, spec_of)
 
-from repro_torch.kernels.flow_nc.ops import CLUSTER_BLOCKS, bwd_rows  # noqa: E402
+from repro_torch.kernels.flow_nc.ops import (CLUSTER_BLOCKS,  # noqa: E402
+                                            bwd_rows, cluster_blocks)
 from repro_torch.kernels.gather import (boundary_gather,  # noqa: E402
                                         boundary_gather_many,
                                         boundary_gather_many_ref,
@@ -487,6 +489,88 @@ def test_flow_nc_qside_bwd_kernel_matches_plain_and_parallel(gen, dtype, d,
                 b_.abs().max())
     again = flow_nc_qside_bwd_call(q, *key, g, **kw)
     assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,bh,nq,m", [
+    (6, 8, 3136, 3136), (12, 8, 784, 784), (24, 8, 196, 196), (48, 8, 49, 49),
+    (8, 4, 3136, 3136), (16, 4, 784, 784), (24, 4, 400, 136), (48, 3, 1, 1),
+    (6, 2, 1000, 1500)])
+def test_flow_nc_small_head_kernels_match_plain_and_twins(gen, dtype, d, bh,
+                                                          nq, m):
+    """K6, K7a and K7b at the vision encoder's head dims and stage lengths
+    (the small-head route: 6/12/24/48 at 3,136/784/196/49 tokens, the
+    reference bench's 8 and 16, NQ != M, N = M = 1): against the plain
+    versions and the twins (K6's cluster split at ``cluster_blocks``, K7b's
+    at the card's rows per block; K7b's fp32 outputs within K7B_TWIN_RTOL x
+    max |twin|), and two calls of each bitwise equal."""
+    tol = TOL if dtype == torch.float32 else dict(rtol=1e-2, atol=1e-2)
+    mk = lambda *s: torch.randn(s, generator=gen, device="cuda").to(dtype)  # noqa: E731
+    q, k, v, g = mk(bh, nq, d), mk(bh, m, d), mk(bh, m, d), mk(bh, nq, d)
+    reset_launches()
+    got = flow_nc_fused_call(q, k, v)
+    assert torch.equal(got, flow_nc_fused_call(q, k, v))
+    for want in (flow_nc_fused_ref(q, k, v),
+                 flow_nc_fused_parallel(q, k, v, cb=cluster_blocks(nq, m, d))):
+        torch.testing.assert_close(got, want, **tol)
+    key = nc_key_side(q, k, v, 1e-6, True)
+    kw = dict(n_sinks=nq, m_sources=m)
+    out = flow_nc_qside_call(q, *key, **kw)
+    assert torch.equal(out, flow_nc_qside_call(q, *key, **kw))
+    torch.testing.assert_close(out, flow_nc_qside_ref(q, *key, **kw), **tol)
+    got = flow_nc_qside_bwd_call(q, *key, g, **kw)
+    twin = flow_nc_qside_bwd_parallel(q, *key, g, rows=bwd_rows(
+        bh, nq, d, dtype), **kw)
+    for want in (flow_nc_qside_bwd_ref(q, *key, g, **kw), twin):
+        for a, b_ in zip(got, want):
+            torch.testing.assert_close(a, b_, **tol)
+            assert float((a.float() - b_.float()).abs().max()) <= tol[
+                "rtol"] * float(b_.float().abs().max())
+    for a, b_ in zip(got, twin):
+        if a.dtype == torch.float32:
+            assert float((a - b_).abs().max()) <= K7B_TWIN_RTOL * float(
+                b_.abs().max())
+    again = flow_nc_qside_bwd_call(q, *key, g, **kw)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+    assert LAUNCHES == {**dict.fromkeys(KERNELS, 0), "flow_nc_fused": 2,
+                        "flow_nc_qside": 2, "flow_nc_qside_bwd": 2}
+
+
+def test_vision_step_kernels_match_plain_fp32(gen):
+    """The vision encoder at full width and one block a stage (D = 6, 12,
+    24, 48; 64 x 64 images: 256, 64, 16 and 4 tokens), fp32: loss and every
+    wq/wk/wv gradient on the kernels (one K6 and one K7b a stage) against
+    the plain path."""
+    cfg = dataclasses.replace(get_config("flowformer_vision"),
+                              stage_layers=(1, 1, 1, 1))
+    params = vision.init(cfg, torch.Generator().manual_seed(0), device="cuda")
+    xs, ys = pixel_images(0, 4, size=64, n_classes=cfg.n_classes, channels=3)
+    batch = {"images": torch.from_numpy(xs).cuda(),
+             "labels": torch.from_numpy(ys).cuda()}
+    loss, grads = {}, {}
+    for backend in ("auto", "plain"):
+        c = dataclasses.replace(cfg, attention=dataclasses.replace(
+            cfg.attention, backend=backend))
+        leaves = tree_map(lambda x: x.detach().clone().requires_grad_(True),
+                          params)
+        reset_launches()
+        out, _ = vision.loss_fn(leaves, batch, c, dtype=torch.float32,
+                                plan=executor_of(c, plan_of(
+                                    c, causal=False, needs_grad=True),
+                                    causal=False))
+        out.backward()
+        want = dict.fromkeys(KERNELS, 0)
+        if backend == "auto":
+            want.update(flow_nc_fused=4, flow_nc_qside_bwd=4)
+        assert LAUNCHES == want
+        loss[backend] = float(out)
+        grads[backend] = [blk["attn"][w]["w"].grad for st in leaves["stages"]
+                          for blk in st["blocks"] for w in ("wq", "wk", "wv")]
+    assert abs(loss["auto"] - loss["plain"]) <= 1e-4 * abs(loss["plain"])
+    for a, b_ in zip(grads["auto"], grads["plain"]):
+        scale = float(b_.abs().max())
+        assert scale > 0 and float(a.abs().max()) > 0
+        assert float((a - b_).abs().max()) <= 1e-4 * scale
 
 
 def test_flow_nc_qside_call_refuses_autograd_outside_flow_nc_qside(gen):

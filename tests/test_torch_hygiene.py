@@ -34,12 +34,13 @@ from repro_torch.kernels.flow_fused import flow_fused_call, flow_fused_forward  
 from repro_torch.kernels.flow_nc import (flow_nc_fused_call,  # noqa: E402
                                          flow_nc_qside_bwd_call,
                                          flow_nc_qside_call)
+from repro_torch.launch import classify  # noqa: E402
 from repro_torch.launch.classify import train_eval_classifier  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.layers import mixer as mixer_lib  # noqa: E402
 from repro_torch.layers.attention import plan_of  # noqa: E402
-from repro_torch.models import classifier  # noqa: E402
+from repro_torch.models import classifier, vision  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.serving.engine import Engine, Request  # noqa: E402
 from repro_torch.serving.quant import QuantizedPool, maybe_quantize  # noqa: E402
@@ -110,6 +111,14 @@ def test_entry_points_refuse_cpu_unless_asked():
         Engine(params, cfg, slots=2, max_len=32, speculate_k=4)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train(cfg, steps=1, batch=1, seq=8)
+    # the vision model and the launcher's vision and time-series tasks
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        vision.init(get_smoke_config("flowformer_vision"),
+                    torch.Generator().manual_seed(0))
+    for arch in ("flowformer-vision", "flowformer-timeseries"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            classify.run(arch, smoke=True, steps=1, batch=1, n_train=2,
+                         n_eval=1)
     # decode pools: the card unless the caller asks for the CPU
     ssd_cfg = get_smoke_config("mamba2_1p3b")
     for c in (cfg, ssd_cfg):

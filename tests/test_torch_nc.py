@@ -21,7 +21,12 @@ versions on the CPU:
   gradient's largest entry, fp32 and bf16;
 * G = 2 grouping against ``flow_attention_nc_pallas``;
 * every phi and both ablations through the plain ``nc`` backend (and the
-  quadratic oracle) against ``repro.attention.pipeline.nc_forward``.
+  quadratic oracle) against ``repro.attention.pipeline.nc_forward``;
+* at every head dim of ``NC_HEAD_DIMS`` (the vision and time-series
+  encoders' 6-48 beside 32, 64 and 128): K6's plain version and its
+  cluster decomposition against ``repro.core.flow_attention.
+  flow_attention_nc``, K7a's against the reference's ``flow_nc_qside_ref``
+  and K7b's plain version and decomposition against ``jax.vjp`` of it.
 
 Tolerance: rtol 1e-4, atol 1e-5 (those of ``tests/test_kernels.py``):
 both sides sum the same fp32 terms in another order.
@@ -38,6 +43,8 @@ import jax.numpy as jnp  # noqa: E402
 from repro.attention import pipeline as j_pipeline  # noqa: E402
 from repro.attention.vjp import flow_nc_fused as j_flow_nc_fused  # noqa: E402
 from repro.core.flow_attention import FlowConfig as JFlowConfig  # noqa: E402
+from repro.core.flow_attention import flow_attention_nc as j_flow_nc  # noqa: E402
+from repro.kernels.flow_nc.ref import flow_nc_qside_ref as j_qside_ref  # noqa: E402
 from repro.core.reference import flow_attention_nc_ref as j_nc_oracle  # noqa: E402
 from repro.kernels.flow_nc import flow_attention_nc_pallas  # noqa: E402
 from repro.kernels.flow_nc.bwd import flow_nc_qside_bwd_call as j_qside_bwd  # noqa: E402
@@ -49,6 +56,7 @@ from repro_torch.attention.vjp import FlowNCFused, _nc_decomposed  # noqa: E402
 from repro_torch.core.flow_attention import FlowConfig, flow_attention_nc  # noqa: E402
 from repro_torch.core.reference import flow_attention_nc_ref  # noqa: E402
 from repro_torch.kernels import LAUNCHES  # noqa: E402
+from repro_torch.kernels._lib import NC_HEAD_DIMS  # noqa: E402
 from repro_torch.kernels.flow_nc import (flow_attention_nc as kernel_nc,  # noqa: E402
                                          flow_nc_fused_call,
                                          flow_nc_fused_parallel,
@@ -272,3 +280,42 @@ def test_plain_nc_grads_match_jax():
                                 T(g))
     for a, b in zip(grads, pull(jnp.asarray(g))):
         close(a, b)
+
+
+# ---------------------------------------------------------------------------
+# Every head dim the non-causal kernels take
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("d", NC_HEAD_DIMS)
+def test_nc_fused_plain_and_twin_match_reference_at_every_head_dim(d):
+    """K6's plain version and its cluster decomposition (16 blocks, the
+    wrapper's, and 3) against the reference's registry-routed non-causal
+    attention, NQ = 200 sinks over M = 136 sources."""
+    rng = np.random.default_rng(100 + d)
+    q, k, v = randn(rng, 2, 200, d), randn(rng, 2, 136, d), randn(rng, 2, 136, d)
+    want = np.asarray(j_flow_nc(*(jnp.asarray(x)[:, None] for x in (q, k, v)),
+                                JFlowConfig()))[:, 0]
+    close(flow_nc_fused_ref(T(q), T(k), T(v)), want)
+    for cb in (16, 3):
+        close(flow_nc_fused_parallel(T(q), T(k), T(v), cb=cb), want)
+
+
+@pytest.mark.parametrize("d", NC_HEAD_DIMS)
+def test_nc_qside_plain_versions_match_reference_at_every_head_dim(d):
+    """K7a's plain version against the reference's ``flow_nc_qside_ref``,
+    and K7b's (written out) and its block decomposition (rows of 128, the
+    small-head kernel's tile at D = 48, over N = 300: three blocks, the
+    last ragged) against ``jax.vjp`` of it."""
+    rng = np.random.default_rng(200 + d)
+    q, k_sum, ko_sum, kv = key_side(rng, 2, 300, 136, d)
+    g = randn(rng, 2, 300, d)
+    kw = dict(n_sinks=300, m_sources=136)
+    out, pull = jax.vjp(lambda *xs: j_qside_ref(*xs, **kw),
+                        *map(jnp.asarray, (q, k_sum, ko_sum, kv)))
+    close(flow_nc_qside_ref(T(q), T(k_sum), T(ko_sum), T(kv), **kw), out)
+    want = pull(jnp.asarray(g))
+    args = (T(q), T(k_sum), T(ko_sum), T(kv), T(g))
+    for got in (flow_nc_qside_bwd_ref(*args, **kw),
+                flow_nc_qside_bwd_parallel(*args, rows=128, **kw)):
+        assert got[0].shape == (2, 300, d) and got[3].shape == (2, d, d)
+        for a, b in zip(got, want):
+            close(a, b)
