@@ -12,12 +12,21 @@ any failure raises, so the exit code is non-zero:
   2. build the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a);
   3. K1 ``flow_fused`` against its plain version at the packed-prefill
      shapes of the serving path (16 rows x 8 kv heads, N = 512, D = 64,
-     bf16 and fp32), plus a G = 2, N = 200, chunk-64 case;
+     bf16 and fp32), plus a G = 2, N = 200, chunk-64 case, and the
+     Decision-Flowformer's routes through ``flow_fused_forward`` at
+     ``chunk_size=0`` with ragged lengths: N = 180 (padded to 192) at D =
+     64, fp32, and N = 60 (padded to 64) at D = 24 (stored 32 wide inside
+     the wrapper, the kernel told the real width), bf16 and fp32; and D =
+     24 at phase 24's shape (32 trajectories x 4 heads, G = 1, N = 60 of
+     64), bf16 and fp32, whose bf16 error the ``flow_fused_d24`` row
+     reports;
   3b. K2 ``flow_fused_bwd`` against its plain version (autograd through
      K1's) at the training shape (16 rows x 8 kv heads, G = 1, N = 512,
      D = 64, chunk 128, bf16 and fp32) and at G = 2, N = 200 padded to 256
      (chunk 64) with random cotangents on all six state outputs, for each
-     phi;
+     phi; at N = 180 of 192 (``chunk_size=0``, D = 64) and at D = 24 at
+     phase 24's shape (N = 60 of 64; bf16, and fp32 for each phi): zero
+     past the length;
   3c. K6 ``flow_nc_fused``, K7a ``flow_nc_qside`` and K7b
      ``flow_nc_qside_bwd`` against their plain versions at the LRA training
      shape (32 rows x 4 heads, N = M = 4096, D = 64, bf16 and fp32; K6 with
@@ -46,7 +55,9 @@ any failure raises, so the exit code is non-zero:
      dot; K5a and K5b also against their own decompositions
      (``flow_chunk_parallel``, ``flow_chunk_dkv_parallel``) at the training
      shape, with two calls of each there bitwise equal, and K5b at G = 2,
-     N = 200, D = 32 and 128 too;
+     N = 200, D = 32 and 128 too; and through the glue with gradients at
+     the Table 7 linear row's shape (``chunk_size=0``, N = 60, D = Dv = 24
+     padded to 32, and D = 24 beside Dv = 64);
   3e. K10a ``ssd_chunk`` (with and without carry-ins) and K10b
      ``ssd_chunk_bwd`` against their plain versions at the mamba2_1p3b
      training shape (B = 4 x H = 64 rows, N = 4,096, P = 64, S = 128,
@@ -104,6 +115,14 @@ any failure raises, so the exit code is non-zero:
      exceeds twice the logits' tolerance must agree.  Free-running
      kernel-vs-plain token agreement is printed, not gated: one-LSB
      payload flips compound over steps and can part near-ties;
+  25. the Engine serving the linear-attention baseline of the full-width
+     flowformer_lm (``attention.kind="linear"``, as the reference's
+     ``--attn linear`` makes it, phase 5's weights and traffic) in bf16,
+     from fp32 ``LinearState`` pools and from int8 ones: exactly 6 K5a
+     launches per admission round (each prefill's causal numerator), a
+     plain decode, and nothing else; then phase 6 for it: fp32 greedy
+     tokens on the kernels equal to the pinned plain path's
+     (``backend="plain"``: the plain causal dot);
   17. the Engine serving the softmax baseline of the full-width
      flowformer_lm (``attention.kind="softmax"``, made as the reference's
      ``--attn softmax`` makes it, phase 5's weights) in bf16 from a paged
@@ -200,6 +219,25 @@ any failure raises, so the exit code is non-zero:
      series: finite losses, exactly 2 K6 and 2 K7b a step; step ms and
      tokens/s; then the reference harness's override (96 wide, 4 heads of
      24), 3 steps, the same counts on the small-head route;
+  23. the Decision-Flowformer at full width and depth (``flowformer_dt``:
+     3 layers, d 256, 4 heads of 64, ``chunk_size=0``; offline RL, Table
+     7) through ``launch/decision.py::run`` in bf16 on fp32 masters: 5
+     AdamW steps of 64 trajectories of 60 steps (N = 180), then a
+     16-episode rollout of 60 forwards: finite losses and return, exactly
+     3 K1 and 3 K2 a step and 3 K1 a rollout forward, and nothing else;
+     step ms, trajectories/s, forwards/s; then ``torch.profiler`` over two
+     steps: device time by kernel and busy share;
+  23b. the same model in fp32 with one block, on the kernels and on the
+     plain path (``backend="plain"``): 3 steps of 64 x 60, losses and
+     every parameter gradient of the first step (non-zero on the kernels)
+     within phase 21b's bounds;
+  24. the Table 7 harness's model (2 layers, d 96, 4 heads of 24, d_ff
+     192, horizon 20, ``chunk_size=0``; ``launch.run(table7=True)``) for
+     each of flow (K1 and K2 at D = 24: 2 K1 and 2 K2 a step, 2 K1 a
+     rollout forward), linear (K5a and K5b at D = 24: 4 K5a and 2 K5b a
+     step, 2 K5a a forward) and softmax (plain, no kernel), bf16, 20 steps
+     of 32 and a 16-episode rollout; each row's return is printed (smoke
+     values of a cut run, not the paper's numbers);
   13. the Engine serving the full-width mamba2_1p3b (48 layers of SSD,
      random weights from a seed) in bf16, phase 5's traffic: exactly 1 K9
      launch per layer and admission round (``boundary_gather_many`` of the
@@ -234,7 +272,9 @@ any failure raises, so the exit code is non-zero:
      version's and its bound, as one ``{"kernels": [...]}`` line
      (``launches`` is the count over the main-path runs of phases 5 and 7
      for K1-K3, of phase 5c for K4 (K1's count includes 5c's), of phase
-     10, 21 and 22 for K6, K7a (none), K7b, of phase 7c for K5a, K5b, of phases 17 and 17b
+     10, 21 and 22 for K6, K7a (none), K7b, of phase 7c for K5a, K5b, of
+     phases 23 and 24 for K1, K2, K5a and K5b, of phase 25 for K5a, of
+     phases 17 and 17b
      for K8a and K8b, of phase 13 for K9 and of phase 15 for K10a and
      K10b, each plus the speculative runs of phases 19, 19b, 19c and 20:
      K1, K3, K4, K8a and K9), K1's time and bound at the training shape (in its row),
@@ -263,7 +303,12 @@ any failure raises, so the exit code is non-zero:
      plain version's time),
      K10a and K10b at one layer of phase 15
      (their plain versions' ~500-1,000 launches overflow the launch queue,
-     so those are timed as one replay of a CUDA graph, ``graph_ms``);
+     so those are timed as one replay of a CUDA graph, ``graph_ms``), and
+     rows ``flow_fused_d24``, ``flow_fused_bwd_d24``, ``flow_chunk_d24``
+     and ``flow_chunk_dkv_d24``: K1, K2, K5a and K5b on their D = 24 route
+     at one layer of phase 24 (32 trajectories x 4 heads, N = 60; bounds
+     at the real width; launches those of phase 24's flow and linear
+     rows);
   12. the last line: ``{"ok": true, "device": {...}}``.
 
 Tolerances (|kernel - plain| <= atol + rtol * |plain|, elementwise):
@@ -583,6 +628,11 @@ def k1_inputs(dtype, rows=16, hkv=8, g=1, n=512, d=64, seed=SEED):
             torch.tensor(lens, device=DEVICE))
 
 
+#: K1 and K2 at phase 24's flow row (BH, G, N, D, chunk, lens): 32
+#: trajectories x 4 heads of 24, N = 60 padded to K1's chunk of 64
+T7_K12_SHAPE = (32 * 4, 1, 64, 24, 64, 60)
+
+
 def check_flow_fused() -> dict:
     """Phase 3: K1 against its plain version; returns the main-path
     (bf16) output's max |error|."""
@@ -627,7 +677,59 @@ def check_flow_fused() -> dict:
                             getattr(ref_st, name), STATE_TOL)
                     for name in STATE_FIELDS)
         print(f"[K1] {tag}: out {e:.3e}, state {worst:.3e}", flush=True)
-    return {"max_abs_err": errs[torch.bfloat16]}
+        # the Decision-Flowformer's routes through the packed wrapper:
+        # chunk_size=0 (N padded to the kernel's chunk, lens masking the
+        # tail) at D = 64, N = 180, and the Table 7 harness's D = 24
+        # (stored 32 wide inside the wrapper) at N = 60
+        for d, n, dtypes in ((64, 180, (torch.float32,)),
+                             (24, 60, (torch.bfloat16, torch.float32))):
+            for dtype in dtypes:
+                gen = torch.Generator(device=DEVICE).manual_seed(SEED + d + n)
+                mk = lambda *sh: torch.randn(  # noqa: E731
+                    sh, generator=gen, device=DEVICE).to(dtype)
+                q, k, v = mk(4, 8, n, d), mk(4, 4, n, d), mk(4, 4, n, d)
+                lengths = torch.tensor([n, 1, n // 3, n - 7],
+                                       dtype=torch.int32, device=DEVICE)
+                cfg = FlowConfig(causal=True, strict_causal=True, chunk_size=0)
+                out, st = flow_fused_forward(q, k, v, cfg, return_state=True,
+                                             lengths=lengths)
+                ref_out, ref_st = fused_causal_forward(
+                    q, k, v, dataclasses.replace(cfg, chunk_size=n),
+                    return_state=True, lengths=lengths)
+                torch.cuda.synchronize()
+                tag = (f"flow_fused {str(dtype)[6:]} chunk_size=0 G=2 N={n} "
+                       f"D={d}")
+                e = max(max_err(f"{tag} out row {i}", out[i, :, :li],
+                                ref_out[i, :, :li], TOL[dtype])
+                        for i, li in enumerate(lengths.tolist()))
+                worst = max(max_err(f"{tag} {name}", getattr(st, name),
+                                    getattr(ref_st, name), STATE_TOL)
+                            for name in STATE_FIELDS)
+                print(f"[K1] {tag}: out {e:.3e}, state {worst:.3e}",
+                      flush=True)
+        # D = 24 at the shape phase 24's flow row gives K1 (through
+        # FlowFusedDot): 32 trajectories x 4 heads, G = 1, N = 60 padded
+        # to 64 (lens 60)
+        bh, g, n, d, chunk, n_valid = T7_K12_SHAPE
+        d24 = {}
+        for dtype in (torch.bfloat16, torch.float32):
+            gen = torch.Generator(device=DEVICE).manual_seed(SEED + 9)
+            mk = lambda *sh: torch.randn(  # noqa: E731
+                sh, generator=gen, device=DEVICE).to(dtype)
+            q, k, v = mk(bh, g, n, d), mk(bh, n, d), mk(bh, n, d)
+            lens = torch.full((bh,), n_valid, dtype=torch.int32,
+                              device=DEVICE)
+            out, sums = flow_fused_call(q, k, v, lens, chunk=chunk)
+            ref_out, ref_sums = flow_fused_ref(q, k, v, lens, chunk=chunk)
+            torch.cuda.synchronize()
+            tag = f"flow_fused {str(dtype)[6:]} BH=128 N=60 (64) D=24"
+            d24[dtype] = max_err(f"{tag} out", out, ref_out, TOL[dtype])
+            worst = max(max_err(f"{tag} {name}", a, b, STATE_TOL)
+                        for name, a, b in zip(STATE_FIELDS, sums, ref_sums))
+            print(f"[K1] {tag}: out {d24[dtype]:.3e}, state {worst:.3e}",
+                  flush=True)
+    return {"max_abs_err": errs[torch.bfloat16],
+            "d24": d24[torch.bfloat16]}
 
 
 def k2_case(dtype, bh, g, n, d, chunk, n_valid, phi, seed, state_cot):
@@ -636,12 +738,15 @@ def k2_case(dtype, bh, g, n, d, chunk, n_valid, phi, seed, state_cot):
     from repro_torch.kernels.flow_fused import flow_fused_call
 
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
-    mk = lambda *s: torch.randn(s, generator=gen, device=DEVICE).to(dtype)  # noqa: E731
+
+    def mk(*shape, dt=dtype):
+        return torch.randn(shape, generator=gen, device=DEVICE).to(dt)
+
     q, k, v, g_out = mk(bh, g, n, d), mk(bh, n, d), mk(bh, n, d), mk(bh, g, n, d)
     lens = torch.full((bh,), n_valid, dtype=torch.int32, device=DEVICE)
     with torch.no_grad():
         _, totals = flow_fused_call(q, k, v, lens, chunk=chunk, phi=phi)
-    g_sums = [torch.randn(x.shape, generator=gen, device=DEVICE) if state_cot
+    g_sums = [mk(*x.shape, dt=torch.float32) if state_cot
               else torch.zeros_like(x) for x in totals]
     return (q, k, v, lens, totals, g_out, g_sums), dict(chunk=chunk, phi=phi)
 
@@ -656,8 +761,18 @@ def check_flow_fused_bwd() -> dict:
              for dtype in (torch.bfloat16, torch.float32)]
     cases += [(torch.float32, (4 * 8, 2, 256, 64, 64, 200, phi, True))
               for phi in ("sigmoid", "elu1", "relu")]
+    # the Decision-Flowformer's routes: chunk_size=0 at D = 64 (N = 180
+    # padded to 192), and D = 24 (stored 32 wide inside the wrapper) at
+    # phase 24's shape
+    cases += [(torch.float32, (4 * 4, 1, 192, 64, 64, 180, "sigmoid", True))]
+    cases += [(dtype, (*T7_K12_SHAPE, phi, True))
+              for dtype, phi in ((torch.bfloat16, "sigmoid"),
+                                 (torch.float32, "sigmoid"),
+                                 (torch.float32, "elu1"),
+                                 (torch.float32, "relu"))]
     errs = {}
-    for i, (dtype, (bh, g, n, d, chunk, n_valid, phi, cot)) in enumerate(cases):
+    for i, (dtype, (bh, g, n, d, chunk, n_valid, phi, cot)) in \
+            enumerate(cases):
         args, kw = k2_case(dtype, bh, g, n, d, chunk, n_valid, phi,
                            SEED + 10 + i, cot)
         with torch.no_grad():
@@ -665,15 +780,17 @@ def check_flow_fused_bwd() -> dict:
         want = flow_fused_bwd_ref(*args[:4], *args[5:], **kw)
         torch.cuda.synchronize()
         tag = (f"flow_fused_bwd {str(dtype)[6:]} BH={bh} G={g} N={n} "
-               f"valid={n_valid} {phi}")
+               f"valid={n_valid} {phi} D={d}")
         err = max(max_err(f"{tag} {name}", a, b, TOL[dtype])
                   for name, a, b in zip(("dq", "dk", "dv"), got, want))
         for name, a in zip(("dq", "dk", "dv"), got):
             if a[..., n_valid:, :].any():
                 raise AssertionError(f"{tag} {name}: non-zero past n_valid")
-        errs[dtype] = max(errs.get(dtype, 0.0), err)
+        key = (dtype, "d24") if d == 24 else dtype
+        errs[key] = max(errs.get(key, 0.0), err)
         print(f"[K2] {tag}: grads {err:.3e}", flush=True)
-    return {"max_abs_err": errs[torch.bfloat16]}
+    return {"max_abs_err": errs[torch.bfloat16],
+            "d24": errs[torch.bfloat16, "d24"]}
 
 
 def twin_close(name: str, got: torch.Tensor, want: torch.Tensor,
@@ -779,7 +896,32 @@ def check_flow_chunk() -> dict:
         print(f"[K5] {tag}: out {e:.3e}, grads through FlowChunkDot "
               f"{eg:.3e}, K5b vs its chunk decomposition {epar_b:.3e}",
               flush=True)
-    return {"flow_chunk": e5a, "flow_chunk_dkv": e5b}
+    # the Table 7 harness's linear row: D = Dv = 24 padded to 32 by the
+    # glue, at chunk_size=0 (K5a's own chunk), N = 60; and D = 24 beside
+    # Dv = 64
+    d24 = {}
+    for d, dv in ((24, 24), (24, 64)):
+        q, k, v, g = chunk_operands(32 * 4, 1, 60, d, dv, SEED + 52 + dv)
+        shaped = lambda x: x.reshape(32, 4, *x.shape[1:])  # noqa: E731
+        q, g = shaped(q), shaped(g)
+        k, v = shaped(k), shaped(v)
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        plain = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out = chunked_causal_dot_cuda(*leaves, chunk=0)
+        want = causal_dot_grouped(*plain, chunk_size=0, use_kernel=False)
+        tag = f"fp32 chunk_size=0 G=1 N=60 D={d} Dv={dv}"
+        e = dot_close(f"flow_chunk {tag} out", out.detach(), want.detach())
+        gk = torch.autograd.grad(out, leaves, g)
+        gp = torch.autograd.grad(want, plain, g)
+        edq = dot_close(f"FlowChunkDot {tag} dq", gk[0], gp[0])
+        edkv = max(dot_close(f"FlowChunkDot {tag} d{name}", a, b_)
+                   for name, a, b_ in zip("kv", gk[1:], gp[1:]))
+        torch.cuda.synchronize()
+        if (d, dv) == (24, 24):
+            d24 = {"flow_chunk_d24": max(e, edq), "flow_chunk_dkv_d24": edkv}
+        print(f"[K5] {tag}: out {e:.3e}, dq (K5a) {edq:.3e}, dk/dv (K5b) "
+              f"{edkv:.3e}", flush=True)
+    return {"flow_chunk": e5a, "flow_chunk_dkv": e5b, **d24}
 
 
 def decode_pool(slots, hkv, d, seed):
@@ -1238,12 +1380,16 @@ def serve_full_width(params, cfg, state_dtype=None) -> dict:
         if not all(0 <= tok < cfg.vocab_size for tok in r.generated):
             raise AssertionError(f"request {r.uid}: token out of range")
     rounds, steps = worker.admission_rounds, worker.decode_steps
-    if launches["flow_fused"] != n_layers * rounds:
+    if cfg.attention.kind == "linear":  # K5a in each prefill, plain decode
+        expect_only(launches, {"flow_chunk": n_layers * rounds},
+                    f"linear serving, {state_dtype or 'fp32'} pools")
+    elif launches["flow_fused"] != n_layers * rounds:
         raise AssertionError(f"flow_fused launched {launches['flow_fused']}"
                              f" times, want {n_layers} x {rounds} rounds")
     decode, idle = (("flow_decode_q", "flow_decode") if state_dtype == "int8"
                     else ("flow_decode", "flow_decode_q"))
-    if launches[decode] != n_layers * steps or launches[idle]:
+    if cfg.attention.kind != "linear" and (
+            launches[decode] != n_layers * steps or launches[idle]):
         raise AssertionError(f"{decode} launched {launches[decode]} times, "
                              f"want {n_layers} x {steps} steps; {idle} "
                              f"{launches[idle]} times, want 0")
@@ -1259,13 +1405,14 @@ def serve_full_width(params, cfg, state_dtype=None) -> dict:
         "launches": launches,
         "pool_bytes": pool_bytes(worker.caches),
     }
+    tag = "engine bf16" + (", linear" if cfg.attention.kind == "linear"
+                           else "")
     if state_dtype is None:
-        print("[engine bf16] " + json.dumps(stats), flush=True)
+        print(f"[{tag}] " + json.dumps(stats), flush=True)
         return stats
     stats["fp32_pool_bytes"] = pool_bytes(lm.init_caches(
         cfg, 16, 512, device=DEVICE))
-    print(f"[engine bf16, {state_dtype} pools] " + json.dumps(stats),
-          flush=True)
+    print(f"[{tag}, {state_dtype} pools] " + json.dumps(stats), flush=True)
     return stats
 
 
@@ -1339,7 +1486,8 @@ def serve_fp32_both_paths(params, cfg):
             engine.submit(r)
         reset_launches()
         runs[backend] = {r.uid: r for r in engine.run()}
-        serving = [LAUNCHES["flow_fused"], LAUNCHES["flow_decode"]]
+        serving = ([LAUNCHES["flow_chunk"]] if cfg.attention.kind == "linear"
+                   else [LAUNCHES["flow_fused"], LAUNCHES["flow_decode"]])
         if (backend == "auto" and min(serving) == 0) or (
                 backend == "plain" and max(LAUNCHES.values()) > 0):
             raise AssertionError(f"backend={backend}: launches {LAUNCHES}")
@@ -1361,8 +1509,9 @@ def serve_fp32_both_paths(params, cfg):
               f"{float(top[0] - top[1]):.3e}", flush=True)
         raise AssertionError(f"fp32 greedy tokens differ for request {uid}")
     n_tok = sum(len(r.generated) for r in runs["plain"].values())
-    print(f"[fp32] kernels and plain path agree on all {n_tok} greedy "
-          f"tokens of {len(runs['plain'])} requests", flush=True)
+    print(f"[fp32 {cfg.attention.kind}] kernels and plain path agree on all "
+          f"{n_tok} greedy tokens of {len(runs['plain'])} requests",
+          flush=True)
 
 
 def serve_int8_fp32_against_plain(params, cfg):
@@ -1652,12 +1801,17 @@ def train_paper_fp32_both_paths(cfg):
 
 def expect_launches(launches: dict, k6: int, k7b: int, what: str):
     """Exactly ``k6`` K6 and ``k7b`` K7b launches and no other kernel's."""
+    expect_only(launches, {"flow_nc_fused": k6, "flow_nc_qside_bwd": k7b},
+                what)
+
+
+def expect_only(launches: dict, want: dict, what: str):
+    """Exactly the ``want`` launches and no other kernel's."""
     from repro_torch.kernels._lib import KERNELS
 
-    want = {**dict.fromkeys(KERNELS, 0), "flow_nc_fused": k6,
-            "flow_nc_qside_bwd": k7b}
-    if launches != want:
-        raise AssertionError(f"{what} launched {launches}, want {want}")
+    full = {**dict.fromkeys(KERNELS, 0), **want}
+    if launches != full:
+        raise AssertionError(f"{what} launched {launches}, want {full}")
 
 
 def first_step_grads(loss_fn, params, batch, cfg, backend, names):
@@ -2017,6 +2171,198 @@ def train_timeseries_full_width(cfg) -> dict:
     print("[time series bf16] " + json.dumps(runs), flush=True)
     return {**runs["full"], "harness": runs["harness D=24"],
             "launches": total}
+
+
+# --- the Decision-Flowformer (offline RL, Table 7) and the linear branch -----
+#: phase 23's shape: the paper's DT (``flowformer_dt``: 3 layers, d 256, 4
+#: heads of 64) on trajectories of 60 steps (N = 180), 64 a batch
+DT_BATCH, DT_STEPS = 64, 5
+#: phase 24's: the Table 7 harness (``benchmarks/rl_table7.py``: 2 layers,
+#: d 96, 4 heads of 24, horizon 20, batch 32), cut from 120 steps to 20
+T7_BATCH, T7_STEPS = 32, 20
+
+
+def dt_batch(horizon: int, batch: int, seed: int) -> dict:
+    """One batch of ``batch`` trajectories of ``horizon`` steps on the
+    card, as the launcher draws them."""
+    from repro_torch.launch import decision as launch
+
+    arrays = launch.batch_arrays(launch.trajectories(seed, batch,
+                                                     horizon=horizon))
+    return {k: torch.from_numpy(v).to(DEVICE) for k, v in arrays.items()}
+
+
+def train_dt_full_width() -> dict:
+    """Phase 23: ``flowformer_dt`` at full width and depth in bf16 on fp32
+    masters (``launch/decision.py::run``): 5 AdamW steps of 64
+    trajectories of 60 steps (N = 180), then a 16-episode rollout of 60
+    forwards; exactly 3 K1 and 3 K2 a step and 3 K1 a rollout forward, and
+    nothing else; step ms, trajectories/s, the rollout's forwards/s; then
+    ``torch.profiler`` over two steps: device time by kernel and busy
+    share."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import decision as launch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    out = launch.run("flow", steps=DT_STEPS, batch=DT_BATCH, device=DEVICE)
+    launches = dict(LAUNCHES)
+    cfg, hist, horizon = out["cfg"], out["history"], 60
+    if not all(math.isfinite(x) for x in hist) or not math.isfinite(
+            out["return"]):
+        raise AssertionError(f"DT: losses {hist}, return {out['return']}")
+    n = cfg.n_layers
+    expect_only(launches, {"flow_fused": n * (DT_STEPS + horizon),
+                           "flow_fused_bwd": n * DT_STEPS}, "DT phase 23")
+    step_ms = 1e3 * statistics.median(out["step_s"][1:])
+    stats = {"steps": DT_STEPS, "batch": DT_BATCH, "horizon": horizon,
+             "n_tokens": 3 * horizon, "d_model": cfg.d_model,
+             "head_dim": cfg.dim_head, "history": hist, "step_ms": step_ms,
+             "first_step_ms": 1e3 * out["step_s"][0],
+             "trajectories_per_s": DT_BATCH / step_ms * 1e3,
+             "rollout_s": out["rollout_s"],
+             "rollout_forwards_per_s": horizon / out["rollout_s"],
+             "return": out["return"],
+             "behavior_return": out["behavior_return"],
+             "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "launches": launches}
+    stats["profile"] = profile_dt(out["params"], cfg, step_ms)
+    print("[DT bf16] " + json.dumps({k: v for k, v in stats.items()
+                                     if k != "profile"}), flush=True)
+    return stats
+
+
+def profile_dt(params, cfg, step_ms: float) -> dict:
+    """Phase 23's profile: device time of a bf16 DT step by kernel, from
+    ``torch.profiler`` over two steps after one outside the window, and its
+    share of phase 23's unprofiled step time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import decision as launch
+    from repro_torch.layers.attention import executor_of, plan_of
+    from repro_torch.training.optimizer import adamw_init
+
+    step = launch.make_step(cfg, total=DT_STEPS, plan=executor_of(
+        cfg, plan_of(cfg, needs_grad=True)))
+    opt = adamw_init(params)
+    batch = dt_batch(60, DT_BATCH, SEED + 3)
+    params, opt, loss = step(params, opt, batch, 1)
+    float(loss)
+    steps = 2
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for s in range(steps):
+            params, opt, loss = step(params, opt, batch, 2 + s)
+            float(loss)
+    events = prof.key_averages()
+    dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    dev_us = lambda e: getattr(e, "self_device_time_total",  # noqa: E731
+                               getattr(e, "self_cuda_time_total", 0.0))
+    busy = sum(dev_us(e) for e in dev) / 1e3 / steps
+    stats = {"steps": steps, "device_ms_per_step": busy,
+             "kernels_per_step": sum(e.count for e in dev) / steps,
+             "step_ms_unprofiled": step_ms,
+             "device_busy_share": busy / step_ms,
+             **{label: sum(dev_us(e) for e in dev if key in e.key) / 1e3
+                / steps for label, key in K12.items()},
+             "device_ms_per_step_by_kernel": {
+                 e.key[:80]: dev_us(e) / 1e3 / steps
+                 for e in sorted(dev, key=dev_us, reverse=True)[:8]}}
+    print("[profile DT] " + json.dumps(stats), flush=True)
+    return stats
+
+
+def train_dt_fp32_both_paths():
+    """Phase 23b: ``flowformer_dt`` at full width with one block, fp32, 3
+    steps of 64 trajectories of 60 steps, on the kernels and on the plain
+    path (``backend="plain"``): losses, and every gradient of the first
+    step (each leaf non-zero on the kernels) within phase 21b's bounds."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import decision as launch
+    from repro_torch.layers.attention import executor_of, plan_of
+    from repro_torch.models import decision
+    from repro_torch.utils import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(get_config("flowformer_dt"), n_layers=1)
+    steps = 3
+    params = decision.init(cfg, torch.Generator().manual_seed(SEED + 2),
+                           state_dim=launch.STATE_DIM,
+                           action_dim=launch.ACTION_DIM, max_ep_len=60,
+                           device=DEVICE)
+    first = dt_batch(60, DT_BATCH, SEED + 4)
+    hist, grads = {}, {}
+    for backend in ("auto", "plain"):
+        c = dataclasses.replace(cfg, attention=dataclasses.replace(
+            cfg.attention, backend=backend))
+        leaves = tree_map(lambda x: x.detach().clone().requires_grad_(True),
+                          params)
+        reset_launches()
+        loss, _ = decision.loss_fn(leaves, first, c, dtype=torch.float32,
+                                   plan=executor_of(c, plan_of(
+                                       c, needs_grad=True)))
+        flat = torch.autograd.grad(loss, tree_leaves(leaves))
+        grads[backend] = {f"leaf {i}": g for i, g in enumerate(flat)}
+        hist[backend] = launch.run(
+            "flow", cfg=c, steps=steps, batch=DT_BATCH, device=DEVICE,
+            dtype=torch.float32, params=params, n_episodes=0)["history"]
+        want = ({"flow_fused": steps + 1, "flow_fused_bwd": steps + 1}
+                if backend == "auto" else {})
+        expect_only(dict(LAUNCHES), want, f"fp32 DT, {backend}")
+    worst = losses_and_grads_agree("fp32 DT", hist, grads)
+    print(f"[DT fp32] kernels vs plain, one block x {steps} steps of "
+          f"{DT_BATCH} x 60: losses {hist['auto']} vs {hist['plain']}; all "
+          f"{len(grads['auto'])} parameter gradients of step 1 non-zero, "
+          f"worst |diff| / max |grad| {worst:.3e}", flush=True)
+
+
+def train_table7() -> dict:
+    """Phase 24: the Table 7 harness's model (2 layers, d 96, 4 heads of
+    24, d_ff 192, horizon 20, ``chunk_size=0``) for each kind, bf16, 20
+    steps of 32 trajectories and a 16-episode rollout of 20 forwards:
+    flow on K1 and K2 at D = 24 (2 K1 and 2 K2 a step, 2 K1 a forward),
+    linear on K5a and K5b at D = 24 (2 x 2 K5a and 2 K5b a step, 2 K5a a
+    forward), softmax plain; each row's return (smoke values of a cut
+    run, not the paper's numbers)."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import decision as launch
+
+    rows, horizon = {}, launch.TABLE7_HORIZON
+    for kind in launch.KINDS:
+        torch.cuda.synchronize()
+        reset_launches()
+        out = launch.run(kind, table7=True, steps=T7_STEPS, batch=T7_BATCH,
+                         device=DEVICE)
+        launches = dict(LAUNCHES)
+        n = out["cfg"].n_layers
+        want = {"flow": {"flow_fused": n * (T7_STEPS + horizon),
+                         "flow_fused_bwd": n * T7_STEPS},
+                "linear": {"flow_chunk": n * (2 * T7_STEPS + horizon),
+                           "flow_chunk_dkv": n * T7_STEPS},
+                "softmax": {}}[kind]
+        expect_only(launches, want, f"Table 7 {kind}")
+        if out["cfg"].dim_head != 24 or not all(
+                math.isfinite(x) for x in out["history"] + [out["return"]]):
+            raise AssertionError(f"Table 7 {kind}: D {out['cfg'].dim_head}, "
+                                 f"losses {out['history']}, return "
+                                 f"{out['return']}")
+        rows[kind] = {"return": out["return"],
+                      "final_loss": out["history"][-1],
+                      "step_ms": 1e3 * statistics.median(out["step_s"][1:]),
+                      "rollout_s": out["rollout_s"], "launches": launches}
+    rows["behavior policy (dataset)"] = {
+        "return": out["behavior_return"]}
+    print("[Table 7, smoke values] " + json.dumps(rows), flush=True)
+    return rows
+
+
+def linear_cfg(cfg):
+    """The linear-attention baseline of ``cfg`` (as the reference's
+    ``--attn linear`` makes it): the same weights' shapes."""
+    return dataclasses.replace(cfg, attention=dataclasses.replace(
+        cfg.attention, kind="linear"))
 
 
 # --- the mamba2_1p3b slice: K9, K10a, K10b -----------------------------------
@@ -3492,6 +3838,85 @@ def time_chunk_kernels(launches: dict, errs: dict) -> list:
     return rows
 
 
+def time_d24_kernels(table7: dict, errs: dict) -> list:
+    """Phase 9, the D = 24 route of K1, K2, K5a and K5b: one layer of
+    phase 24's Table 7 step (32 trajectories x 4 heads, N = 60 padded to
+    64, D = 24; K1 and K2 bf16 through their wrappers, which store the
+    lanes 32 wide, K5a and K5b fp32 on the glue's padded operands as the
+    linear row's dot).  The plain versions run on the same inputs; the
+    bounds count the real width (the padding is the route's cost);
+    ``launches`` are phase 24's flow and linear rows'."""
+    from repro_torch.attention.chunked import chunked_causal_dot_grouped
+    from repro_torch.kernels.flow_chunk import (flow_chunk_call,
+                                                flow_chunk_dkv_call)
+    from repro_torch.kernels.flow_fused import (flow_fused_bwd_call,
+                                                flow_fused_bwd_ref,
+                                                flow_fused_call, flow_fused_ref)
+
+    bh, g, n, w, chunk, nv = T7_K12_SHAPE
+    d = 32  # the stored width of K5a's and K5b's padded operands
+    (q, k, v, lens, totals, g_out, g_sums), kw = k2_case(
+        torch.bfloat16, bh, g, n, w, chunk, nv, "sigmoid", SEED + 70, False)
+    st_bytes = bh * (4 * w + 1 + w * w) * 4
+    io = nv * bh * (g * w + 2 * w) * 2
+    flow_l, lin_l = table7["flow"]["launches"], table7["linear"]["launches"]
+    rows = []
+    with torch.no_grad():
+        for name, run, plain, bytes_moved, ops in (
+                ("flow_fused", lambda: flow_fused_call(q, k, v, lens, **kw),
+                 lambda: flow_fused_ref(q, k, v, lens, **kw),
+                 io + nv * bh * g * w * 2 + st_bytes + bh * 4,
+                 nv * bh * flow_ops_per_position(g, w, w)),
+                ("flow_fused_bwd", lambda: flow_fused_bwd_call(
+                    q, k, v, lens, totals, g_out, g_sums, **kw),
+                 lambda: flow_fused_bwd_ref(q, k, v, lens, g_out, g_sums,
+                                            **kw),
+                 2 * io + nv * bh * g * w * 2 + 2 * st_bytes + bh * 4,
+                 nv * bh * bwd_ops_per_position(g, w, w))):
+            bound_ms, by = bound(bytes_moved, ops)
+            rows.append({
+                "name": f"{name}_d24", "route": "cuda",
+                "source": f"src/repro_torch/csrc/{name}.cu",
+                "replaces": ("src/repro/kernels/flow_fused/flow_fused.py:207"
+                             if name == "flow_fused" else
+                             "src/repro/kernels/flow_fused/bwd.py:178"),
+                "launches": flow_l[name], "max_abs_err": errs[f"{name}_d24"],
+                "ms": time_ms(run), "plain_ms": time_ms(plain),
+                "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
+                "shape": "32 x 4 heads, N = 60 (64), D = 24 (32), bf16"})
+    cq, ck, cv, cot = chunk_operands(bh, g, n, d, d, SEED + 71)
+    for x in (cq, ck, cv, cot):
+        x[..., w:] = 0  # the glue's padding, after phi
+        x[..., nv:, :] = 0
+    kl, vl = ck.clone().requires_grad_(True), cv.clone().requires_grad_(True)
+    graph = chunked_causal_dot_grouped(cq, kl, vl, 64)
+    io = 4 * bh * nv * (g * w + w + w + g * w)
+    io_dkv = 4 * bh * nv * (g * w + 2 * w + g * w + 2 * w)
+    for name, source, replaces, run, plain, bytes_moved, ops in (
+            ("flow_chunk", "flow_chunk.cu", "flow_chunk/flow_chunk.py:72",
+             lambda: flow_chunk_call(cq, ck, cv),
+             lambda: chunked_causal_dot_grouped(cq, ck, cv, 64), io,
+             bh * nv * chunk_ops(g, w, w)),
+            ("flow_chunk_dkv", "flow_chunk_bwd.cu", "flow_chunk/bwd.py:114",
+             lambda: flow_chunk_dkv_call(cq, ck, cv, cot),
+             lambda: torch.autograd.grad(graph, (kl, vl), cot,
+                                         retain_graph=True), io_dkv,
+             bh * nv * chunk_dkv_ops(g, w, w))):
+        bound_ms, by = bound(bytes_moved, ops)
+        with torch.no_grad():
+            ms = time_ms(run)
+        rows.append({
+            "name": f"{name}_d24", "route": "cuda",
+            "source": f"src/repro_torch/csrc/{source}",
+            "replaces": f"src/repro/kernels/{replaces}",
+            "launches": lin_l[name], "max_abs_err": errs[f"{name}_d24"],
+            "ms": ms, "plain_ms": time_ms(plain), "bound_ms": bound_ms,
+            "bound_by": by, "library_ms": None,
+            "shape": "32 x 4 heads, N = 60 (64), D = Dv = 24 (32), fp32"})
+    print("[D = 24 route] " + json.dumps(rows), flush=True)
+    return rows
+
+
 def chunk_breakdown(run, prefix: str) -> dict | str:
     """Device ms per call of each CUDA kernel whose name starts with
     ``prefix`` (K5a's ``chunk_fwd_state``, ``_pass``, ``_out``; K5b's
@@ -3882,8 +4307,10 @@ def main() -> int:
               "build began", flush=True)
 
     build_kernels()
-    errs = {"flow_fused": check_flow_fused()["max_abs_err"],
-            "flow_fused_bwd": check_flow_fused_bwd()["max_abs_err"],
+    k1, k2 = check_flow_fused(), check_flow_fused_bwd()
+    errs = {"flow_fused": k1["max_abs_err"], "flow_fused_d24": k1["d24"],
+            "flow_fused_bwd": k2["max_abs_err"],
+            "flow_fused_bwd_d24": k2["d24"],
             **check_flow_nc(),
             **check_flow_chunk(),
             "flow_decode": check_flow_decode()["max_abs_err"],
@@ -3905,6 +4332,12 @@ def main() -> int:
     serve_fp32_both_paths(params, cfg)
     serve_int8_fp32_against_plain(params, cfg)
     mark("flowformer_lm serving")
+    # the linear-attention baseline has the flow model's leaves too
+    lin = linear_cfg(cfg)
+    lin_served = serve_full_width(params, lin)
+    lin_quant = serve_full_width(params, lin, state_dtype="int8")
+    serve_fp32_both_paths(params, lin)
+    mark("linear baseline serving")
     from repro_torch.serving.engine import PagedSpec
 
     # the softmax baseline has the flow model's leaves: the same weights
@@ -3953,6 +4386,11 @@ def main() -> int:
     series = train_timeseries_full_width(get_config("flowformer_timeseries"))
     torch.cuda.empty_cache()
     mark("flowformer_timeseries training")
+    dt = train_dt_full_width()
+    train_dt_fp32_both_paths()
+    table7 = train_table7()
+    torch.cuda.empty_cache()
+    mark("flowformer_dt training and Table 7")
     mamba = get_config("mamba2_1p3b")
     params = lm.init(mamba, torch.Generator().manual_seed(SEED),
                      device=DEVICE)
@@ -3973,11 +4411,13 @@ def main() -> int:
     mark("mamba2_1p3b training")
     launches = {name: sum(run["launches"][name] for run in (
         stats, quantized, trained, classified, paper, served, ssd_trained,
-        paged, paged_q, seen, series, *speculative))
+        paged, paged_q, seen, series, *speculative, lin_served, lin_quant,
+        dt, *(table7[kind] for kind in ("flow", "linear", "softmax"))))
         for name in stats["launches"]}
     torch.cuda.empty_cache()
     rows = (time_kernels(launches, errs) + time_paged_kernels(launches, errs)
-            + time_ssd_kernels(launches, errs))
+            + time_ssd_kernels(launches, errs)
+            + time_d24_kernels(table7, errs))
     mark("kernel times")
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -15,7 +15,17 @@ device; ``nc``, ``fused_causal``, ``chunked``, ``cumsum`` and
 ``cuda_chunk``, ``chunked`` and ``cumsum`` run the unfused pipeline
 (``pipeline.causal_forward``) around a causal dot -- K5a, the chunked
 scan, a cumsum -- and so also serve the paper-faithful causal mode
-(``strict_causal=False``) and the no-competition ablation.  On the CPU the
+(``strict_causal=False``) and the no-competition ablation.
+
+``chunk_size <= 0`` (``flowformer_dt``) has no chunk of its own: the plain
+``fused_causal`` and ``chunked`` refuse it, as the reference's chunked
+backends do, and ``cumsum`` stays the pinned floor.  The kernels take it
+at their own chunk: ``cuda_fused`` for the strict-causal competition (its
+result does not depend on the chunk; N is padded to K1's chunk and
+``lens`` masks the tail) and ``cuda_chunk`` for every causal mode (K5a's
+chunk; zero rows add nothing to the dot).  Both also take the head dims of
+``_lib.PADDED_HEAD_DIMS`` (the Table 7 harness's D = 24) by zero-padding
+to the stored width; the decode kernels do not.  On the CPU the
 plain versions apply; on a CUDA device they apply only when pinned
 (``backend="plain"`` or by name).  So ``auto`` resolves to the kernels on
 a GPU, and a shape no kernel takes raises there with the kernel's own
@@ -53,13 +63,14 @@ oracle), last in auto order and on a GPU only when pinned.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 from repro_torch.attention import fused, pipeline, recurrent
 from repro_torch.attention.chunked import chunked_causal_dot_grouped
 from repro_torch.attention.dots import causal_dot_grouped
 from repro_torch.attention.registry import Backend, register_backend
-from repro_torch.kernels._lib import HEAD_DIMS, NC_HEAD_DIMS
+from repro_torch.kernels._lib import HEAD_DIMS, NC_HEAD_DIMS, stored_width
 from repro_torch.kernels.flow_chunk.ops import check_dims
 from repro_torch.serving.quant import (QuantizedPool, dequantize_state,
                                        platform_support, quantize_like)
@@ -139,6 +150,15 @@ def _check_kernel(shapes, platform):
     return None
 
 
+def _check_fused_kernel(shapes, platform):
+    """``_check_kernel`` for K1 and K2, which also take the head dims of
+    ``_lib.PADDED_HEAD_DIMS`` at their stored width (the wrappers pad)."""
+    if shapes.d == shapes.dv:
+        wide = stored_width(shapes.d)
+        shapes = dataclasses.replace(shapes, d=wide, dv=wide)
+    return _check_kernel(shapes, platform)
+
+
 def _check_nc_dims(shapes, platform):
     """The non-causal kernels' device and head dims (K6, K7a, K7b:
     ``NC_HEAD_DIMS``, wider than the causal kernels' ``HEAD_DIMS``)."""
@@ -151,9 +171,11 @@ def _check_nc_dims(shapes, platform):
 
 
 def _check_chunk_kernel(shapes, platform):
+    """K5a's and K5b's device and head dims, a width of
+    ``_lib.PADDED_HEAD_DIMS`` at its stored width (the glue pads it)."""
     if platform != "cuda":
         return f"CUDA kernel needs a CUDA device (platform={platform!r})"
-    return check_dims(shapes.d, shapes.dv)
+    return check_dims(stored_width(shapes.d), stored_width(shapes.dv))
 
 
 def _check_nc_kernel(cfg, shapes):
@@ -248,8 +270,10 @@ class CudaFused(_ChunkedVerifyQuant, FusedCausal):
     CTA per (row, kv head) with the FlowState in shared memory; packed
     prefill masks each row past its length so the final carry is the
     boundary FlowState.  Forward and prefill differentiate through the
-    reverse-scan backward kernel K2.  ``verify`` runs
-    ``pipeline.causal_verify``, plain PyTorch, at any head width."""
+    reverse-scan backward kernel K2.  ``chunk_size <= 0`` and D = 24 run
+    on the kernels' padded routes (``kernels/flow_fused/ops.py``).
+    ``verify`` runs ``pipeline.causal_verify``, plain PyTorch, at any head
+    width."""
 
     provides = frozenset({"forward", "prefill", "prefill_packed", "verify"})
     differentiable = frozenset({"forward", "prefill"})
@@ -259,7 +283,9 @@ class CudaFused(_ChunkedVerifyQuant, FusedCausal):
             # causal_verify launches no kernel, so no kernel shape applies
             why = _check_scan(cfg, shapes, op) or _check_device(platform)
             return (False, why) if why else (True, VERIFY_VERDICT)
-        why = _check_scan(cfg, shapes, op) or _check_kernel(shapes, platform)
+        # K1 takes chunk_size <= 0 at its own chunk: no _check_scan
+        why = (_check_strict_causal(cfg, shapes, op)
+               or _check_fused_kernel(shapes, platform))
         if why:
             return False, why
         return True, "flow_fused CUDA kernel"
@@ -336,15 +362,16 @@ class CudaChunk(Cumsum):
     """The causal pipeline on the flow_chunk CUDA kernel K5a (one block
     per (row, kv head) and Dv slice, the (D, Dv) state in shared memory),
     differentiated through ``FlowChunkDot`` (K5a for dq, K5b for dk and
-    dv).  Any N: the glue pads to the chunk."""
+    dv).  Any N: the glue pads to the chunk, K5a's own at ``chunk_size <=
+    0``, and D or Dv = 24 to 32."""
 
     verdict = "flow_chunk CUDA kernels"
 
     def _check_dot(self, cfg, shapes, platform, op):
-        if cfg.chunk_size <= 0:
-            return "chunk_size <= 0"
         if op == "verify":
-            return _check_device(platform)
+            # the verify window is a chunked carry-in pass of its own
+            return ("chunk_size <= 0" if cfg.chunk_size <= 0
+                    else _check_device(platform))
         return _check_chunk_kernel(shapes, platform)
 
     def _dot(self, cfg):

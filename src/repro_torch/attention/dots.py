@@ -36,8 +36,10 @@ def causal_dot_grouped(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     qg: (B, Hkv, G, N, D); k: (B, Hkv, N, D); v: (B, Hkv, N, Dv) ->
     (B, Hkv, G, N, Dv).  ``use_kernel=None`` means "on a CUDA tensor":
-    K5a through ``FlowChunkDot`` (differentiable); False keeps to the
-    plain versions on any device.
+    K5a through ``FlowChunkDot`` (differentiable), padded to
+    ``chunk_size`` or, where it is <= 0, to K5a's own chunk
+    (``_lib.kernel_chunk``); False keeps to the plain versions on any
+    device, a cumsum at ``chunk_size <= 0``.
     """
     if use_kernel is None:
         use_kernel = qg.is_cuda

@@ -151,13 +151,27 @@ def register_backend(name: str, impl: Backend):
     return impl
 
 
+def _is_plain(name: str) -> bool:
+    """A plain PyTorch backend: one that launches no CUDA kernel."""
+    return not name.startswith("cuda_")
+
+
+def pins_plain(cfg: FlowConfig) -> bool:
+    """Whether ``cfg.backend`` keeps to plain PyTorch: ``"plain"``, or a
+    plain backend by name.  A path beside the registry with a kernel and a
+    plain version of its own (the linear attention branch's causal dot)
+    follows the same pin."""
+    return cfg.backend == "plain" or (cfg.backend in _REGISTRY
+                                      and _is_plain(cfg.backend))
+
+
 def _candidates(cfg: FlowConfig, op: str) -> list:
     """Candidate backend names, in order, for ``cfg.backend`` and ``op``."""
     sel = cfg.backend
     if sel == "auto":
         return list(_ORDER)
     if sel == "plain":
-        return [n for n in _ORDER if not n.startswith("cuda_")]
+        return [n for n in _ORDER if _is_plain(n)]
     if sel not in _REGISTRY:
         raise ValueError(f"unknown FlowConfig.backend {sel!r}; expected "
                          f"'auto', 'plain' or one of {tuple(_ORDER)}")

@@ -8,8 +8,8 @@ from __future__ import annotations
 import dataclasses
 import importlib
 
-PORTED_CONFIGS = ("flowformer_lm", "flowformer_lra", "flowformer_timeseries",
-                  "flowformer_vision", "mamba2_1p3b")
+PORTED_CONFIGS = ("flowformer_dt", "flowformer_lm", "flowformer_lra",
+                  "flowformer_timeseries", "flowformer_vision", "mamba2_1p3b")
 
 
 def _module(name: str):

@@ -37,6 +37,11 @@
 // sums: the kernel's C and T are its own, independent of the caller's
 // chunk.  Shared memory per block at D = 64, G = 1: 204 KB (flows), 32 KB
 // (state), 80 KB (out, two blocks an SM).
+//
+// D = 24 (the Table 7 harness's heads) runs the D = 32 instantiation on
+// rows the wrapper zero-pads to 32, with the real width dr = 24 passed
+// down: phi is 0 on lanes 24-31 and the flow dots skip them
+// (flow_fused_common.cuh), so the outputs there are exactly 0.
 #include "flow_fused_common.cuh"
 
 namespace {
@@ -64,7 +69,7 @@ struct OutArgs {
   const int* lens;
   const float *sink, *scale, *e, *states;
   TT* out;
-  int G, N, phi, rows;
+  int G, N, phi, rows, dr;
 };
 
 template <int D>
@@ -99,7 +104,7 @@ __global__ void __launch_bounds__(kThreads, 2) flow_fwd_out(OutArgs<TT> a) {
   const float* er = a.e + (size_t)row * N;
   stage<C, D>(K, [&](int t, int c) {
     const int n = c0 + t;
-    return n < len ? phi4(load4(kr + (size_t)n * D + c), a.phi) : zero4();
+    return n < len && c < a.dr ? phi4(load4(kr + (size_t)n * D + c), a.phi) : zero4();
   });
   stage<C, DV>(V, [&](int t, int c) {
     const int n = c0 + t;
@@ -118,8 +123,9 @@ __global__ void __launch_bounds__(kThreads, 2) flow_fwd_out(OutArgs<TT> a) {
     const TT* qr = a.q + rg * N * D;
     stage<C, D>(Q, [&](int t, int c) {
       const int n = c0 + t;
-      return n < len ? scale4(phi4(load4(qr + (size_t)n * D + c), a.phi), a.sink[rg * N + n])
-                     : zero4();
+      return n < len && c < a.dr
+                 ? scale4(phi4(load4(qr + (size_t)n * D + c), a.phi), a.sink[rg * N + n])
+                 : zero4();
     });
     __syncthreads();
     {
@@ -166,8 +172,8 @@ struct Work {
   float *sink, *scale, *e, *states;
 };
 
-// Floats of scratch for (bh, g, n, d): sink_in, the output scale, e and
-// the chunk states.
+// Floats of scratch for (bh, g, n, d), d the stored width: sink_in, the
+// output scale, e and the chunk states.
 long long work_floats(int bh, int g, int n, int d, Work& w, float* base) {
   const int c = d >= 128 ? 32 : 64;
   const long long nc = (n + c - 1) / c;
@@ -185,7 +191,7 @@ long long work_floats(int bh, int g, int n, int d, Work& w, float* base) {
 template <typename TT, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* lens, void* out,
                    void* q_sum, void* k_sum, void* ko_sum, void* qi_sum, void* z, void* s,
-                   void* work, int bh, int g, int n, int phi, int use_alloc, float eps,
+                   void* work, int bh, int g, int n, int phi, int use_alloc, float eps, int dr,
                    cudaStream_t st) {
   constexpr int C = chunk_of<D>();
   int limit = 0;
@@ -198,12 +204,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* lens
 
   FlowArgs<TT> fa{(const TT*)q, (const TT*)k, (const int*)lens, w.sink, w.scale, w.e, nullptr, T,
                   (float*)q_sum, (float*)k_sum, (float*)ko_sum, (float*)qi_sum, (float*)z,
-                  g, n, phi, use_alloc, eps};
+                  g, n, phi, use_alloc, eps, dr};
   if ((err = flows<TT, D>(fa, T, bh, st)) != cudaSuccess) return err;
 
   const int nc = (n + C - 1) / C;
   StateArgs<TT, D> sa{(const TT*)q, (const TT*)k, (const TT*)v, nullptr, (const int*)lens,
-                      w.sink, w.scale, w.e, w.states, nullptr, g, n, phi};
+                      w.sink, w.scale, w.e, w.states, nullptr, g, n, phi, dr};
   constexpr int fs = state_smem_floats<D>();
   if ((err = allow_smem(flow_fwd_state<TT, D>, fs)) != cudaSuccess) return err;
   flow_fwd_state<TT, D><<<bh * nc, kThreads, fs * sizeof(float), st>>>(sa, bh);
@@ -215,7 +221,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* lens
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   OutArgs<TT> oa{(const TT*)q, (const TT*)k, (const TT*)v, (const int*)lens, w.sink, w.scale,
-                 w.e, w.states, (TT*)out, g, n, phi, bh};
+                 w.e, w.states, (TT*)out, g, n, phi, bh, dr};
   constexpr int fo = out_smem_floats<D>();
   if ((err = allow_smem(flow_fwd_out<TT, D>, fo)) != cudaSuccess) return err;
   flow_fwd_out<TT, D><<<bh * nc, kThreads, fo * sizeof(float), st>>>(oa);
@@ -228,12 +234,13 @@ cudaError_t dispatch(int d, const void* q, const void* k, const void* v, const v
                      void* s, void* work, int bh, int g, int n, int phi, int use_alloc,
                      float eps, cudaStream_t st) {
   switch (d) {
+    case 24:  // rows stored 32 wide, zero past 24
     case 32: return launch<TT, 32>(q, k, v, lens, out, q_sum, k_sum, ko_sum, qi_sum, z, s, work,
-                                   bh, g, n, phi, use_alloc, eps, st);
+                                   bh, g, n, phi, use_alloc, eps, d, st);
     case 64: return launch<TT, 64>(q, k, v, lens, out, q_sum, k_sum, ko_sum, qi_sum, z, s, work,
-                                   bh, g, n, phi, use_alloc, eps, st);
+                                   bh, g, n, phi, use_alloc, eps, d, st);
     case 128: return launch<TT, 128>(q, k, v, lens, out, q_sum, k_sum, ko_sum, qi_sum, z, s,
-                                     work, bh, g, n, phi, use_alloc, eps, st);
+                                     work, bh, g, n, phi, use_alloc, eps, d, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -243,16 +250,18 @@ cudaError_t dispatch(int d, const void* q, const void* k, const void* v, const v
 // Floats of scratch flow_fused_fwd needs for these shapes (16-byte aligned
 // slices); -1 for shapes it refuses.
 extern "C" long long flow_fused_fwd_workspace(int bh, int g, int n, int d) {
-  if (bh < 0 || g < 1 || n < 1 || (d != 32 && d != 64 && d != 128)) return -1;
+  if (bh < 0 || g < 1 || n < 1 || (d != 24 && d != 32 && d != 64 && d != 128)) return -1;
   Work dummy;
-  return work_floats(bh, g, n, d, dummy, nullptr);
+  return work_floats(bh, g, n, stored_width(d), dummy, nullptr);
 }
 
 // q (BH, G, N, D), k (BH, N, D), v (BH, N, Dv) in `dtype` (0 fp32, 1 bf16);
 // lens (BH,) int32 with 1 <= lens <= N; work flow_fused_fwd_workspace
 // floats.  Writes out (BH, G, N, Dv) in `dtype`, q/k/ko/qi sums (BH, D),
-// z (BH,) and s (BH, D, Dv) in fp32.  D == Dv in {32, 64, 128}.  Four
-// launches on `stream`; returns a cudaError_t.
+// z (BH,) and s (BH, D, Dv) in fp32.  D == Dv in {24, 32, 64, 128}; at
+// D = 24 every row (and s) is stored 32 wide, q, k and v zero past 24, and
+// the outputs there are written 0.  Four launches on `stream`; returns a
+// cudaError_t.
 extern "C" int flow_fused_fwd(const void* q, const void* k, const void* v, const void* lens,
                               void* out, void* q_sum, void* k_sum, void* ko_sum,
                               void* qi_sum, void* z, void* s, void* work, int bh, int g, int n,

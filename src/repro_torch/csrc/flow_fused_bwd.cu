@@ -45,6 +45,10 @@
 // D = 64, G = 1: 204 KB (flows), 32 KB (state), 112 KB (chunk: dS_>c's
 // tile holds the panels once the group loop starts, so two blocks fit an
 // SM), 141 KB (pull).
+//
+// D = 24 runs the D = 32 instantiation on zero-padded rows, as K1 does
+// (flow_fused_common.cuh): phi of q and k is 0 on lanes 24-31, and dq and
+// dk are written 0 there.
 #include "flow_fused_common.cuh"
 
 namespace {
@@ -75,7 +79,7 @@ struct ChunkArgs {
   const float *sink, *scale, *e, *states, *dstates;
   TT* dv;
   float *dqin, *dpk, *odot, *dvv;  // (BH, G, N, D), (BH, N, D), (BH, G, N), (BH, N)
-  int G, N, phi, rows;
+  int G, N, phi, rows, dr;
 };
 
 template <int D>
@@ -121,7 +125,7 @@ __global__ void __launch_bounds__(kThreads, 2) flow_bwd_chunk(ChunkArgs<TT> a) {
   const float* er = a.e + (size_t)row * N;
   stage<C, D>(K, [&](int t, int c) {
     const int n = c0 + t;
-    return n < len ? phi4(load4(kr + (size_t)n * D + c), a.phi) : zero4();
+    return n < len && c < a.dr ? phi4(load4(kr + (size_t)n * D + c), a.phi) : zero4();
   });
   stage<C, DV>(V, [&](int t, int c) {
     const int n = c0 + t;
@@ -148,8 +152,9 @@ __global__ void __launch_bounds__(kThreads, 2) flow_bwd_chunk(ChunkArgs<TT> a) {
     const TT* gr = a.g_out + rg * N * DV;
     stage<C, D>(Q, [&](int t, int c) {
       const int n = c0 + t;
-      return n < len ? scale4(phi4(load4(qr + (size_t)n * D + c), a.phi), a.sink[rg * N + n])
-                     : zero4();
+      return n < len && c < a.dr
+                 ? scale4(phi4(load4(qr + (size_t)n * D + c), a.phi), a.sink[rg * N + n])
+                 : zero4();
     });
     stage<C, DV>(Y, [&](int t, int c) {
       const int n = c0 + t;
@@ -225,6 +230,7 @@ struct PullArgs {
   TT *dq, *dk;
   int G, N, phi, use_alloc;
   float eps;
+  int dr;
 };
 
 template <int D, int T>
@@ -285,7 +291,7 @@ __global__ void __launch_bounds__(kFlowThreads) flow_bwd_pull(PullArgs<TT> a) {
     // (0) the carry-in, phi of q and k, and what flow_bwd_chunk left
     for (int i = threadIdx.x; i < 4 * D + 1; i += kFlowThreads)
       m.run[i] = a.carry[((size_t)row * nt + it) * (4 * D + 1) + i];
-    load_phi<TT, D, T>(m, qrow, krow, G, N, len, p0, a.phi);
+    load_phi<TT, D, T>(m, qrow, krow, G, N, len, p0, a.phi, a.dr);
     if (it > 0) {  // the super-chunk before this one is next
       const int p1 = p0 - T;
       prefetch_superchunk<TT, D, T>(qrow, krow, G, N, len, p1);
@@ -311,7 +317,7 @@ __global__ void __launch_bounds__(kFlowThreads) flow_bwd_pull(PullArgs<TT> a) {
       dvv[t] = p0 + t < len ? a.dvv[(size_t)row * N + p0 + t] : 0.f;
     __syncthreads();
     // (1) the super-chunk's flows, recomputed
-    flow_levels<D, T>(m, G, p0, len, eps, a.use_alloc);
+    flow_levels<D, T>(m, G, p0, len, eps, a.use_alloc, a.dr);
     // (2) out = Y r alloc, r = pos / z: d z and d cons_sink
     for (int t = threadIdx.x; t < T; t += kFlowThreads) {
       const float r = (float)(p0 + t + 1) / m.z[t];
@@ -385,7 +391,7 @@ __global__ void __launch_bounds__(kFlowThreads) flow_bwd_pull(PullArgs<TT> a) {
         [&](int k, int t, int d, float u) {
           const int n = p0 + t;
           if (n >= N) return;
-          const bool ok = n < len;
+          const bool ok = n < len && d < a.dr;
           if (k == 0) {
             const float x = dk[t * D + d] + u + dso[t] * (m.qc[t * D + d] + eps);
             dkrow[(size_t)n * D + d] =
@@ -439,6 +445,7 @@ int tile_of(int g, int d) {
   int limit = 0;
   if (smem_limit(&limit) != cudaSuccess) return 0;
   switch (d) {
+    case 24:
     case 32: return bwd_tile<32>(g, limit);
     case 64: return bwd_tile<64>(g, limit);
     case 128: return bwd_tile<128>(g, limit);
@@ -466,7 +473,7 @@ cudaError_t pull_at(const PullArgs<TT>& pa, int bh, cudaStream_t st) {
 
 template <typename TT, int D>
 cudaError_t launch(const void* const* in, void* dq, void* dk, void* dv, void* work, int bh,
-                   int g, int n, int phi, int use_alloc, float eps, cudaStream_t st) {
+                   int g, int n, int phi, int use_alloc, float eps, int dr, cudaStream_t st) {
   constexpr int C = chunk_of<D>();
   int limit = 0;
   cudaError_t err = smem_limit(&limit);
@@ -481,10 +488,10 @@ cudaError_t launch(const void* const* in, void* dq, void* dk, void* dv, void* wo
   const float* gs = (const float*)in[10];
 
   FlowArgs<TT> fa{q, k, lens, w.sink, w.scale, w.e, w.carry, T, nullptr, nullptr, nullptr,
-                  nullptr, nullptr, g, n, phi, use_alloc, eps};
+                  nullptr, nullptr, g, n, phi, use_alloc, eps, dr};
   PullArgs<TT> pa{q, k, lens, w.carry, (const float*)in[5], (const float*)in[6],
                   (const float*)in[7], (const float*)in[8], (const float*)in[9], w.dqin, w.dpk,
-                  w.odot, w.dvv, (TT*)dq, (TT*)dk, g, n, phi, use_alloc, eps};
+                  w.odot, w.dvv, (TT*)dq, (TT*)dk, g, n, phi, use_alloc, eps, dr};
   err = TF == 8192 / D   ? flows_at<TT, D, 8192 / D>(fa, bh, st)
         : TF == 4096 / D ? flows_at<TT, D, 4096 / D>(fa, bh, st)
                          : flows_at<TT, D, 2048 / D>(fa, bh, st);
@@ -492,7 +499,7 @@ cudaError_t launch(const void* const* in, void* dq, void* dk, void* dv, void* wo
 
   const int nc = (n + C - 1) / C;
   StateArgs<TT, D> sa{q, k, v, g_out, lens, w.sink, w.scale, w.e, w.states, w.dstates, g, n,
-                      phi};
+                      phi, dr};
   constexpr int fs = state_smem_floats<D>();
   if ((err = allow_smem(flow_bwd_state<TT, D>, fs)) != cudaSuccess) return err;
   flow_bwd_state<TT, D><<<dim3(bh * nc, 2), kThreads, fs * sizeof(float), st>>>(sa, bh);
@@ -504,7 +511,7 @@ cudaError_t launch(const void* const* in, void* dq, void* dk, void* dv, void* wo
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   ChunkArgs<TT> ca{q, k, v, g_out, lens, w.sink, w.scale, w.e, w.states, w.dstates, (TT*)dv,
-                   w.dqin, w.dpk, w.odot, w.dvv, g, n, phi, bh};
+                   w.dqin, w.dpk, w.odot, w.dvv, g, n, phi, bh, dr};
   constexpr int fc = chunk_smem_floats<D>();
   if ((err = allow_smem(flow_bwd_chunk<TT, D>, fc)) != cudaSuccess) return err;
   flow_bwd_chunk<TT, D><<<bh * nc, kThreads, fc * sizeof(float), st>>>(ca);
@@ -517,9 +524,11 @@ template <typename TT>
 cudaError_t dispatch(int d, const void* const* in, void* dq, void* dk, void* dv, void* work,
                      int bh, int g, int n, int phi, int use_alloc, float eps, cudaStream_t st) {
   switch (d) {
-    case 32: return launch<TT, 32>(in, dq, dk, dv, work, bh, g, n, phi, use_alloc, eps, st);
-    case 64: return launch<TT, 64>(in, dq, dk, dv, work, bh, g, n, phi, use_alloc, eps, st);
-    case 128: return launch<TT, 128>(in, dq, dk, dv, work, bh, g, n, phi, use_alloc, eps, st);
+    case 24:  // rows stored 32 wide, zero past 24
+    case 32: return launch<TT, 32>(in, dq, dk, dv, work, bh, g, n, phi, use_alloc, eps, d, st);
+    case 64: return launch<TT, 64>(in, dq, dk, dv, work, bh, g, n, phi, use_alloc, eps, d, st);
+    case 128:
+      return launch<TT, 128>(in, dq, dk, dv, work, bh, g, n, phi, use_alloc, eps, d, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -533,15 +542,17 @@ extern "C" long long flow_fused_bwd_workspace(int bh, int g, int n, int d) {
   const int t = tile_of(g, d);
   if (t == 0) return -1;
   Work dummy;
-  return work_floats(bh, g, n, d, t, dummy, nullptr);
+  return work_floats(bh, g, n, stored_width(d), t, dummy, nullptr);
 }
 
 // q (BH, G, N, D), k (BH, N, D), v (BH, N, Dv) and g_out (BH, G, N, Dv) in
 // `dtype` (0 fp32, 1 bf16); lens (BH,) int32 with 1 <= lens <= N; the
 // cotangents of the six state outputs gq/gk/gko/gqi (BH, D), gz (BH,), gs
 // (BH, D, Dv), fp32; work flow_fused_bwd_workspace floats.  Writes dq, dk,
-// dv with the shapes and dtype of q, k, v.  D == Dv in {32, 64, 128}.  Five
-// launches on `stream`; returns a cudaError_t.
+// dv with the shapes and dtype of q, k, v.  D == Dv in {24, 32, 64, 128};
+// at D = 24 every row (and gs) is stored 32 wide, zero past 24, and dq,
+// dk and dv are written 0 there.  Five launches on `stream`; returns a
+// cudaError_t.
 extern "C" int flow_fused_bwd(const void* q, const void* k, const void* v, const void* lens,
                               const void* g_out, const void* gq, const void* gk,
                               const void* gko, const void* gqi, const void* gz, const void* gs,

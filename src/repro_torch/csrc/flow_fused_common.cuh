@@ -20,12 +20,24 @@
 // read -- along a row or down a column -- is a conflict-free 16-byte load
 // and no operand is transposed.  Every sum runs in a fixed order and
 // nothing uses atomics: two calls on the same inputs are bitwise equal.
+//
+// Head widths below the instantiations (the Table 7 harness's D = 24) run
+// the D = 32 instantiation on rows stored 32 wide, zero past the real
+// width dr (the wrapper pads them).  Every stage then treats the lanes at
+// and past dr as absent: phi of q and k is exactly 0 there (phi(0) is 0.5
+// for sigmoid and 1 for elu + 1, so padding alone would add to every
+// flow), the flow dots skip their eps terms, and K2 writes zero
+// gradients.  The real lanes' sums and their order are those of the
+// instantiation's.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
 namespace ff {
+
+// The stored row width of a real head width d: 32 for the padded d = 24.
+__host__ __device__ constexpr int stored_width(int d) { return d == 24 ? 32 : d; }
 
 constexpr int kFlowThreads = 1024;  // blocks of the flows and their pull-back
 constexpr int kFlowWarps = kFlowThreads / 32;
@@ -260,19 +272,20 @@ __device__ __forceinline__ void prefetch_l2(const void* p, size_t bytes) {
 }
 
 // phi(q) (G x T x D) and phi(k) (T x D) of the super-chunk at p0, zero at
-// and past the row's length.
+// and past the row's length and at and past the real width dr.
 template <typename TT, int D, int T>
 __device__ __forceinline__ void load_phi(const FlowSmem& m, const TT* qrow, const TT* krow, int G,
-                                         int N, int len, int p0, int phi) {
+                                         int N, int len, int p0, int phi, int dr) {
   constexpr int Q = D / 4;
   for (int i = threadIdx.x; i < G * T * Q; i += kFlowThreads) {
     const int g = i / (T * Q), r = i - g * T * Q, t = r / Q, d = (r - t * Q) * 4, n = p0 + t;
     st4(m.pq + (g * T + t) * D + d,
-        n < len ? phi4(load4(qrow + ((size_t)g * N + n) * D + d), phi) : zero4());
+        n < len && d < dr ? phi4(load4(qrow + ((size_t)g * N + n) * D + d), phi) : zero4());
   }
   for (int i = threadIdx.x; i < T * Q; i += kFlowThreads) {
     const int t = i / Q, d = (i - t * Q) * 4, n = p0 + t;
-    st4(m.pk + t * D + d, n < len ? phi4(load4(krow + (size_t)n * D + d), phi) : zero4());
+    st4(m.pk + t * D + d,
+        n < len && d < dr ? phi4(load4(krow + (size_t)n * D + d), phi) : zero4());
   }
 }
 
@@ -294,9 +307,11 @@ __device__ __forceinline__ void prefetch_superchunk(const TT* qrow, const TT* kr
 //      = (phi(k) + eps).(qi_cs + eps) / pos, e = exp(clip(raw, -1, 1)),
 //      zero at and past the length;
 //   3. z = z_in + cumsum(e).
-// Starts after a barrier that follows load_phi; ends with a barrier.
+// The dots run over the real lanes d < dr only.  Starts after a barrier
+// that follows load_phi; ends with a barrier.
 template <int D, int T>
-__device__ void flow_levels(const FlowSmem& m, int G, int p0, int len, float eps, int use_alloc) {
+__device__ void flow_levels(const FlowSmem& m, int G, int p0, int len, float eps, int use_alloc,
+                            int dr) {
   const float fG = (float)G;
   float* q_run = m.run;
   float* k_run = m.run + D;
@@ -316,6 +331,7 @@ __device__ void flow_levels(const FlowSmem& m, int G, int p0, int len, float eps
   warp_dots<D>(
       (G + 1) * T,
       [&](int r, int d) {
+        if (d >= dr) return 0.f;
         if (r < G * T) return (m.pq[r * D + d] + eps) * (m.kc[(r % T) * D + d] + eps);
         const int t = r - G * T;
         return (m.pk[t * D + d] + eps) * (m.qc[t * D + d] + eps);
@@ -342,6 +358,7 @@ __device__ void flow_levels(const FlowSmem& m, int G, int p0, int len, float eps
   warp_dots<D>(
       (G + 1) * T,
       [&](int r, int d) {
+        if (d >= dr) return 0.f;
         if (r < G * T) return (m.pq[r * D + d] + eps) * (m.koc[(r % T) * D + d] + eps);
         const int t = r - G * T;
         return (m.pk[t * D + d] + eps) * (m.qic[t * D + d] + eps);
@@ -376,6 +393,7 @@ struct FlowArgs {
   float *q_sum, *k_sum, *ko_sum, *qi_sum, *z;  // (BH, D) x 4, (BH,) or null
   int G, N, phi, use_alloc;
   float eps;
+  int dr;  // the real head width (D but on the padded route)
 };
 
 // Stage 1 (flow_fwd_flows, flow_bwd_flows): one block of kFlowThreads per
@@ -395,14 +413,14 @@ __device__ void flows_body(const FlowArgs<TT>& a, float* smem) {
   for (int i = threadIdx.x; i < 4 * D + 1; i += kFlowThreads) m.run[i] = 0.f;
   for (int it = 0; it < live; ++it) {
     const int p0 = it * T;
-    load_phi<TT, D, T>(m, qrow, krow, G, N, len, p0, a.phi);
+    load_phi<TT, D, T>(m, qrow, krow, G, N, len, p0, a.phi, a.dr);
     if (it + 1 < live) prefetch_superchunk<TT, D, T>(qrow, krow, G, N, len, p0 + T);
     __syncthreads();
     const size_t nev = (N + a.every - 1) / a.every;
     if (a.carry)
       for (int i = threadIdx.x; i < 4 * D + 1; i += kFlowThreads)
         a.carry[((size_t)row * nev + p0 / a.every) * (4 * D + 1) + i] = m.run[i];
-    flow_levels<D, T>(m, G, p0, len, a.eps, a.use_alloc);
+    flow_levels<D, T>(m, G, p0, len, a.eps, a.use_alloc, a.dr);
     if (a.carry)  // the carries inside the super-chunk, from the level panels
       for (int j = a.every; j < T && p0 + j < N; j += a.every)
         for (int i = threadIdx.x; i < 4 * D + 1; i += kFlowThreads) {
@@ -606,7 +624,7 @@ struct StateArgs {
   const int* lens;
   const float *sink, *scale, *e;
   float *states, *dstates;  // (BH, nc, D, D) each
-  int G, N, phi;
+  int G, N, phi, dr;
 };
 
 template <typename TT, int D>
@@ -628,7 +646,7 @@ __device__ __forceinline__ void state_block(const StateArgs<TT, D>& a, int mode,
       const TT* vr = a.v + (size_t)row * N * DV;
       stage<C, D>(A, [&](int t, int c) {
         const int n = c0 + t;
-        return n < len ? phi4(load4(kr + (size_t)n * D + c), a.phi) : zero4();
+        return n < len && c < a.dr ? phi4(load4(kr + (size_t)n * D + c), a.phi) : zero4();
       });
       stage<C, DV>(B, [&](int t, int c) {
         const int n = c0 + t;
@@ -641,8 +659,9 @@ __device__ __forceinline__ void state_block(const StateArgs<TT, D>& a, int mode,
       const TT* gr = a.g_out + rg * N * DV;
       stage<C, D>(A, [&](int t, int c) {
         const int n = c0 + t;
-        return n < len ? scale4(phi4(load4(qr + (size_t)n * D + c), a.phi), a.sink[rg * N + n])
-                       : zero4();
+        return n < len && c < a.dr
+                   ? scale4(phi4(load4(qr + (size_t)n * D + c), a.phi), a.sink[rg * N + n])
+                   : zero4();
       });
       stage<C, DV>(B, [&](int t, int c) {
         const int n = c0 + t;

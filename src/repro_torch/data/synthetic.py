@@ -4,9 +4,10 @@
 reads; ``listops`` and ``pixel_images`` are the LRA stand-ins (ListOps and
 pixel sequences) the classifier slice reads, ``pixel_images`` with
 ``channels=3`` also the ImageNet stand-in of the vision encoder, and
-``timeseries`` the UEA stand-in of the time-series encoder.  Each is a pure function of
-its seed and sizes, numpy only, so the port and the reference draw the
-same data.
+``timeseries`` the UEA stand-in of the time-series encoder, and
+``trajectories`` the D4RL stand-in of the Decision-Flowformer.  Each is a
+pure function of its seed and sizes, numpy only, so the port and the
+reference draw the same data.
 """
 from __future__ import annotations
 
@@ -127,3 +128,35 @@ def timeseries(seed: int, n: int, *, length: int = 256, dims: int = 8,
                 + rng.normal(0, 0.3, length)
             )
     return xs, ys
+
+
+# ---------------------------------------------------------------------------
+# Offline-RL trajectories (D4RL stand-in)
+# ---------------------------------------------------------------------------
+def trajectories(seed: int, n: int, *, horizon: int = 60, state_dim: int = 17,
+                 action_dim: int = 6) -> dict[str, np.ndarray]:
+    """Noisy linear-control rollouts.  Reward = -0.05 ||s||^2 - 0.1 ||a||^2;
+    the behavior policy is a noised stabilizing controller, so trajectories
+    with a higher return-to-go carry better actions."""
+    rng = np.random.default_rng(seed)
+    a_mat = np.eye(state_dim) * 0.95
+    b_mat = rng.normal(0, 0.3, (state_dim, action_dim)) / np.sqrt(action_dim)
+    k_gain = rng.normal(0, 0.2, (action_dim, state_dim))
+
+    states = np.zeros((n, horizon, state_dim), np.float32)
+    actions = np.zeros((n, horizon, action_dim), np.float32)
+    rewards = np.zeros((n, horizon), np.float32)
+    s = rng.normal(0, 1, (n, state_dim))
+    noise_scale = rng.uniform(0.05, 1.0, (n, 1))  # per-trajectory quality
+    for t in range(horizon):
+        a = -s @ k_gain.T + rng.normal(0, 1, (n, action_dim)) * noise_scale
+        a = np.tanh(a)
+        r = -(s**2).sum(-1) * 0.05 - 0.1 * (a**2).sum(-1)
+        states[:, t] = s
+        actions[:, t] = a
+        rewards[:, t] = r
+        s = s @ a_mat.T + a @ b_mat.T + rng.normal(0, 0.05, (n, state_dim))
+    rtg = np.flip(np.cumsum(np.flip(rewards, 1), 1), 1).copy()
+    timesteps = np.tile(np.arange(horizon, dtype=np.int32), (n, 1))
+    return {"states": states, "actions": actions, "rewards": rewards,
+            "rtg": rtg[..., None], "timesteps": timesteps}

@@ -38,6 +38,12 @@ a ``merge``, then ``final_norm`` and a dense ``classifier`` with a bias) is
 never stacked either; its ``patch_embed`` tells it apart, and both
 directions carry it as it is, its stages' block counts checked against
 ``cfg.stage_layers``.
+
+A Decision-Flowformer tree (``repro/models/decision.py``: ``embed_rtg``,
+``embed_state``, ``embed_action``, ``embed_t``, a list of ``blocks``,
+``final_norm`` and a dense ``action_head`` with a bias) is never stacked
+either; its ``embed_rtg`` tells it apart, and both directions carry it as
+it is, its block count checked against ``cfg.n_layers``.
 """
 from __future__ import annotations
 
@@ -83,6 +89,11 @@ def is_vision(tree: dict) -> bool:
     return "patch_embed" in tree
 
 
+def is_decision(tree: dict) -> bool:
+    """True for the Decision-Flowformer's parameter tree."""
+    return "embed_rtg" in tree
+
+
 def _as_tensor(x):
     return torch.from_numpy(np.array(x, copy=True))
 
@@ -95,7 +106,7 @@ def params_from_numpy(tree: dict, cfg: ModelConfig) -> dict:
             raise ValueError(f"tree has stages of {layers} blocks, cfg "
                              f"{tuple(cfg.stage_layers)}")
         return tree_map(_as_tensor, dict(tree))
-    if is_classifier(tree):
+    if is_classifier(tree) or is_decision(tree):
         if len(tree["blocks"]) != cfg.n_layers:
             raise ValueError(f"tree has {len(tree['blocks'])} blocks, cfg "
                              f"{cfg.n_layers}")
@@ -113,7 +124,7 @@ def params_from_numpy(tree: dict, cfg: ModelConfig) -> dict:
 def params_to_numpy(params: dict, cfg: ModelConfig) -> dict:
     """The reference's param tree layout with numpy leaves."""
     p = tree_map(lambda x: x.detach().cpu().numpy(), params)
-    if is_classifier(p) or is_vision(p):
+    if is_classifier(p) or is_vision(p) or is_decision(p):
         return p
     out = {"embed": p["embed"]}
     period = len(cfg.pattern)

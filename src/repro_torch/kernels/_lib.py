@@ -38,6 +38,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 PHI_CODES = {"sigmoid": 0, "elu1": 1, "relu": 2}
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
+#: head dims the causal kernels of forward and training (K1, K2, K5a, K5b)
+#: take by zero-padding to a wider instantiation, and that width: the
+#: Table 7 harness's D = 24 runs the D = 32 one (K1 and K2 told the real
+#: width, so that phi is 0 on the padded lanes; K5a and K5b given
+#: operands that phi was applied to before the padding)
+PADDED_HEAD_DIMS = {24: 32}
 #: the small-head route of the non-causal kernels (K6, K7a, K7b; the vision
 #: and time-series encoders' heads, on the CUDA cores): rows of one block
 #: at each D, one row a thread (``Small<D>::THREADS`` in
@@ -46,6 +52,32 @@ NC_SMALL_THREADS = {6: 256, 8: 256, 12: 256, 16: 256, 24: 256, 48: 128}
 #: the non-causal kernels' head dims: ``HEAD_DIMS`` on the tensor cores and
 #: the small-head route's
 NC_HEAD_DIMS = tuple(sorted((*HEAD_DIMS, *NC_SMALL_THREADS)))
+
+
+def stored_width(d: int) -> int:
+    """The width a head dim of ``d`` is stored at for the causal kernels:
+    ``PADDED_HEAD_DIMS``' width, else ``d`` itself."""
+    return PADDED_HEAD_DIMS.get(d, d)
+
+
+def pad_lanes(x: torch.Tensor) -> torch.Tensor:
+    """``x`` zero-padded along its last axis to ``stored_width``; a width
+    stored as it is comes back unchanged."""
+    d = x.shape[-1]
+    return torch.nn.functional.pad(x, (0, stored_width(d) - d)) \
+        if stored_width(d) != d else x
+
+
+def kernel_chunk(n: int, chunk: int, d: int, dv: int) -> int:
+    """The chunk N is padded to for the causal kernels (K1 and K2, K5a and
+    K5b): ``chunk`` capped at N, or where the caller has none (``chunk <=
+    0``: ``flowformer_dt``) the kernels' own -- 64 positions, 32 where a
+    stored width is 128 (``chunk_of`` in ``csrc/flow_fused_common.cuh``
+    and ``csrc/flow_chunk_common.cuh``) -- never a chunk of 1."""
+    if chunk <= 0:
+        return 32 if max(stored_width(d), stored_width(dv)) >= 128 else 64
+    return max(1, min(chunk, n))
+
 
 #: launches per kernel: each wrapper adds one where it launches its kernel
 LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}

@@ -12,9 +12,11 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import _lib
-from repro_torch.kernels._lib import DTYPE_CODES, LAUNCHES, PHI_CODES
+from repro_torch.kernels._lib import (DTYPE_CODES, LAUNCHES, PHI_CODES,
+                                      pad_lanes, stored_width)
 from repro_torch.kernels.flow_fused.ops import check_flat, workspace
 from repro_torch.kernels.flow_fused.ref import flow_fused_bwd_ref
 
@@ -50,7 +52,10 @@ def flow_fused_bwd_call(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     chunk each) and the chunk stage's d q_in, d phi(k) and per-position
     scalars for the flows' pull-back.  One call is one count in
     ``LAUNCHES`` and five CUDA kernels.  Returns (dq, dk, dv) in the
-    primal dtypes; positions past ``lens`` get zeros.
+    primal dtypes; positions past ``lens`` get zeros.  A D of
+    ``PADDED_HEAD_DIMS`` runs on its stored width, as ``flow_fused_call``
+    does: q, k, v, ``g_out`` and ``g_sums`` zero-padded, the gradients
+    sliced back to D.
     """
     if q.shape[2] % chunk:
         raise ValueError(f"N={q.shape[2]} is not a multiple of chunk={chunk}")
@@ -66,6 +71,11 @@ def flow_fused_bwd_call(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_state("totals", totals, shapes, q.device)
     _check_state("g_sums", g_sums, shapes, q.device)
 
+    w = stored_width(d)
+    if w != d:  # the kernel reads no totals, only the cotangents
+        q, k, v, g_out = (pad_lanes(x) for x in (q, k, v, g_out))
+        g_sums = (*(pad_lanes(x) for x in g_sums[:4]), g_sums[4],
+                  F.pad(g_sums[5], (0, w - d, 0, w - d)))
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     work = workspace("flow_fused_bwd", q, bh, g, n, d)
     fn = _lib.function("flow_fused_bwd", "flow_fused_bwd", _ARGTYPES)
@@ -76,4 +86,6 @@ def flow_fused_bwd_call(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              DTYPE_CODES[q.dtype], PHI_CODES[phi], int(use_alloc), eps, stream)
     _lib.check(fn, err, "flow_fused_bwd")
     LAUNCHES["flow_fused_bwd"] += 1
+    if w != d:
+        return tuple(x[..., :d].contiguous() for x in (dq, dk, dv))
     return dq, dk, dv

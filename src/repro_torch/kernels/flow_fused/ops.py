@@ -12,6 +12,18 @@ path (per-row ``lengths``) is forward-only serving prefill, as in the
 reference.  The kernel's output records no autograd history, so the CUDA
 path refuses inputs that autograd would differentiate rather than cut the
 gradient silently.
+
+Two routes serve shapes the kernel's instantiations do not:
+
+* a head dim in ``_lib.PADDED_HEAD_DIMS`` (the Table 7 harness's D = 24):
+  ``flow_fused_call`` and ``flow_fused_bwd_call`` zero-pad their operands
+  to the stored width (32) and hand the C entry the real width, so phi is
+  0 on the padded lanes; the results are sliced back to D.  Every caller,
+  and the plain versions, see D alone;
+* ``chunk_size <= 0`` (``flowformer_dt``): in strict-causal mode the
+  result does not depend on the chunk, so N is padded to a multiple of the
+  kernels' own chunk (``_lib.kernel_chunk``: 60 -> 64, 180 -> 192) and
+  ``lens`` masks the tail.
 """
 from __future__ import annotations
 
@@ -19,11 +31,13 @@ import ctypes
 
 import torch
 
-from repro_torch.attention.fused import effective_chunk, pad_seq, padded_len
+from repro_torch.attention.fused import pad_seq, padded_len
 from repro_torch.attention.recurrent import FlowState
 from repro_torch.core.flow_attention import FlowConfig, _group, _ungroup
 from repro_torch.kernels import _lib
-from repro_torch.kernels._lib import DTYPE_CODES, HEAD_DIMS, LAUNCHES, PHI_CODES
+from repro_torch.kernels._lib import (DTYPE_CODES, HEAD_DIMS, LAUNCHES,
+                                      PADDED_HEAD_DIMS, PHI_CODES,
+                                      kernel_chunk, pad_lanes, stored_width)
 from repro_torch.kernels.flow_fused.ref import flow_fused_ref
 
 __all__ = ["LAUNCHES", "flow_fused_call", "flow_fused_forward"]
@@ -47,9 +61,9 @@ def workspace(name: str, q: torch.Tensor, bh: int, g: int, n: int,
 
 def check_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                lens: torch.Tensor, phi: str):
-    """Raise unless (q, k, v, lens) are what the flow_fused kernels take:
+    """Raise unless (q, k, v, lens) are what the flow_fused wrappers take:
     one CUDA device, contiguous, fp32 or bf16 alike, flat shapes, D == Dv
-    in ``HEAD_DIMS``.  Returns (BH, G, N, D)."""
+    in ``HEAD_DIMS`` or ``PADDED_HEAD_DIMS``.  Returns (BH, G, N, D)."""
     bh, g, n, d = q.shape
     dv = v.shape[-1]
     if q.device.type != "cuda":
@@ -68,8 +82,9 @@ def check_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape != (bh, n, d) or v.shape != (bh, n, dv):
         raise ValueError(f"bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
                          f"v{tuple(v.shape)}")
-    if d != dv or d not in HEAD_DIMS:
-        raise ValueError(f"kernel takes D == Dv in {HEAD_DIMS}, got {d}/{dv}")
+    if d != dv or stored_width(d) not in HEAD_DIMS:
+        raise ValueError(f"kernel takes D == Dv in {HEAD_DIMS} or "
+                         f"{tuple(PADDED_HEAD_DIMS)}, got {d}/{dv}")
     if phi not in PHI_CODES:
         raise ValueError(f"unknown phi {phi!r}")
     return bh, g, n, d
@@ -86,12 +101,13 @@ def flow_fused_call(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q: (BH, G, N, D); k: (BH, N, D); v: (BH, N, Dv); lens: (BH,) int32
     with 1 <= lens <= N; N % chunk == 0.  Returns (out (BH, G, N, Dv),
     (q_sum, k_sum, ko_sum, qi_sum) each (BH, D) fp32, z (BH,) fp32,
-    s (BH, D, Dv) fp32).  On CUDA it raises for inputs autograd would
-    differentiate (``_lib.refuse_autograd``); the kernel runs its own
-    chunk and super-chunk (``csrc/flow_fused.cu``), so ``chunk`` only sets
-    the padding, and its scratch (per-position flows, chunk states) is one
-    ``workspace``.  One call is one count in ``LAUNCHES`` and four CUDA
-    kernels.
+    s (BH, D, Dv) fp32).  A D of ``PADDED_HEAD_DIMS`` runs on its stored
+    width (see the module's docstring).  On CUDA it raises for inputs
+    autograd would differentiate (``_lib.refuse_autograd``); the kernel
+    runs its own chunk and super-chunk (``csrc/flow_fused.cu``), so
+    ``chunk`` only sets the padding, and its scratch (per-position flows,
+    chunk states) is one ``workspace``.  One call is one count in
+    ``LAUNCHES`` and four CUDA kernels.
     """
     if q.shape[2] % chunk:
         raise ValueError(f"N={q.shape[2]} is not a multiple of chunk={chunk}")
@@ -99,25 +115,29 @@ def flow_fused_call(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flow_fused_ref(q, k, v, lens, chunk=chunk, eps=eps, phi=phi,
                               use_alloc=use_alloc)
     bh, g, n, d = check_flat(q, k, v, lens, phi)
-    dv = d
     _lib.refuse_autograd(q, k, v, why="the flow_fused kernel's output has "
                          "no autograd graph", instead=_DENSE)
+    w = stored_width(d)
+    q, k, v = (pad_lanes(x) for x in (q, k, v))
 
     f32 = dict(dtype=torch.float32, device=q.device)
-    out = torch.empty((bh, g, n, dv), dtype=q.dtype, device=q.device)
-    sums = torch.empty((4, bh, d), **f32)
+    out = torch.empty((bh, g, n, w), dtype=q.dtype, device=q.device)
+    sums = torch.empty((4, bh, w), **f32)
     z = torch.empty((bh,), **f32)
-    s = torch.empty((bh, d, dv), **f32)
+    s = torch.empty((bh, w, w), **f32)
     work = workspace("flow_fused", q, bh, g, n, d)
     fn = _lib.function("flow_fused", "flow_fused_fwd", _ARGTYPES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
              out.data_ptr(), sums[0].data_ptr(), sums[1].data_ptr(),
              sums[2].data_ptr(), sums[3].data_ptr(), z.data_ptr(),
-             s.data_ptr(), work.data_ptr(), bh, g, n, d, dv,
+             s.data_ptr(), work.data_ptr(), bh, g, n, d, d,
              DTYPE_CODES[q.dtype], PHI_CODES[phi], int(use_alloc), eps, stream)
     _lib.check(fn, err, "flow_fused")
     LAUNCHES["flow_fused"] += 1
+    if w != d:  # the real lanes of the padded route
+        out = out[..., :d].contiguous()
+        sums, s = sums[..., :d].contiguous(), s[:, :d, :d].contiguous()
     return out, (sums[0], sums[1], sums[2], sums[3], z, s)
 
 
@@ -129,14 +149,15 @@ def flow_fused_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q: (B, Hq, N, D); k/v: (B, Hkv, N, D/Dv), Hq divisible by Hkv (shared
     GQA).  ``lengths`` (B,) gives each row's valid length for packed
     prefill; that path is forward-only and raises for inputs autograd
-    would differentiate.  Returns ``(out, state)``; ``state`` is the
+    would differentiate.  N is padded to ``_lib.kernel_chunk``'s multiple
+    and sliced off again.  Returns ``(out, state)``; ``state`` is the
     boundary ``FlowState`` when ``return_state`` else None.
     """
     b, hq, n, d = q.shape
     hkv = k.shape[1]
     dv = v.shape[-1]
     grp = hq // hkv
-    c = effective_chunk(n, cfg.chunk_size)
+    c = kernel_chunk(n, cfg.chunk_size, d, dv)
     n_pad = padded_len(n, c)
     qf = pad_seq(_group(q, hkv).reshape(b * hkv, grp, n, d), n_pad, 2)
     kf = pad_seq(k.reshape(b * hkv, n, d), n_pad, 1)

@@ -28,10 +28,17 @@ plus a bonus token::
 
     python -m repro_torch.launch.serve --draft self --speculate-k 4
 
+The linear-attention baseline (``--attn linear``: elu + 1 features, an
+O(d^2) state a slot; each admission's causal numerator on K5a, decode in
+plain einsums, int8 pools dequantized and requantized around the fp32
+update)::
+
+    python -m repro_torch.launch.serve --attn linear [--state-dtype int8]
+
 Random weights from seed 0, random prompts from ``numpy`` seed 0.  The
-paths not ported yet are refused by name: the local, linear and MLA
-attention branches (``--attn local|linear``) and fleet serving
-(``--fleet``, which the reference also refuses with ``--speculate-k``).
+paths not ported yet are refused by name: the local and MLA attention
+branches (``--attn local``) and fleet serving (``--fleet``, which the
+reference also refuses with ``--speculate-k``).
 ``--paged`` on a stack with no softmax layer serves unpaged, as in the
 reference.  A mixer that cannot meet the serving plan (an SSD stack with
 int8 pools, whose mixer is not ``quant_capable`` here) exits with the
@@ -56,7 +63,7 @@ from repro_torch.serving.quant import STATE_DTYPES, pool_bytes
 #: options of the reference CLI whose paths are not ported yet, with what
 #: each needs
 _NOT_PORTED = {
-    "attn": "the local, linear and MLA attention branches",
+    "attn": "the local and MLA attention branches",
     "fleet": "fleet serving",
 }
 
@@ -65,7 +72,7 @@ def _refuse_unported(args):
     if args.fleet and args.speculate_k:
         raise SystemExit("--fleet serves plain decode only (speculative "
                          "windows stay a single-engine feature)")
-    given = {"attn": args.attn not in (None, "flow", "softmax"),
+    given = {"attn": args.attn not in (None, "flow", "softmax", "linear"),
              "fleet": args.fleet is not None}
     for opt, on in given.items():
         if on:
@@ -80,8 +87,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--arch", default="flowformer-lm")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--attn", default=None,
-                    help="attention kind: flow (the configuration's) or "
-                    "softmax; local and linear are not ported yet")
+                    help="attention kind: flow (the configuration's), "
+                    "softmax or linear; local is not ported yet")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=16)

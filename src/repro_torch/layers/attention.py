@@ -1,8 +1,9 @@
-"""Attention layer: the flow branch (the paper's mechanism) and the
-softmax branch (the Transformer baseline it replaces).
+"""Attention layer: the flow branch (the paper's mechanism), the softmax
+branch (the Transformer baseline it replaces) and the linear branch (the
+paper's ablation baseline, Katharopoulos et al.).
 
-The counterpart of ``repro/layers/attention.py`` for ``kind`` "flow" and
-"softmax" (``local``, ``linear`` and MLA are refused by name).  Modes:
+The counterpart of ``repro/layers/attention.py`` for ``kind`` "flow",
+"softmax" and "linear" (``local`` and MLA are refused by name).  Modes:
 
   * full     -- whole sequence, no cache (``attention``);
   * prefill  -- whole prompt, returns the decode cache; with ``lengths`` a
@@ -10,15 +11,19 @@ The counterpart of ``repro/layers/attention.py`` for ``kind`` "flow" and
   * decode   -- one token on the cache;
   * verify   -- a drafted window of n tokens (speculative decoding): flow
                scores it in one pass through the registry's ``verify`` op
-               and keeps the fp32 trajectory for rollback; softmax decodes
-               it token by token and keeps the final cache, whose ``pos``
-               rollback rewinds.
+               and keeps the fp32 trajectory for rollback; linear decodes
+               it token by token and stacks the states into a trajectory;
+               softmax decodes it token by token and keeps the final
+               cache, whose ``pos`` rollback rewinds.
 
 Caches:
 
   * flow     -- the O(d^2) ``FlowState``, or a ``QuantizedPool`` of one
                when the plan's ``state_dtype`` is int8 (the pool passes to
                the executor unchanged);
+  * linear   -- the O(d^2) ``LinearState`` (fp32 s and z per query head),
+               or a ``QuantizedPool`` of one that each decode dequantizes,
+               updates in fp32 and requantizes with a fresh amax;
   * softmax  -- a dense ``KVCache`` (B, Hkv, L, D) written at each slot's
                position, or a ``PagedKVCache`` page pool when the plan is
                paged (``serving/paged.py``), either one optionally a
@@ -31,11 +36,21 @@ Caches:
                and K8b (``paged_gather_quant``) on int8 pools, which
                dequantizes inline.
 
+The linear branch applies elu + 1 in fp32 and computes its causal
+numerator with ``attention.dots.causal_dot_grouped``: on a CUDA tensor the
+causal dot K5a (and K5b in its backward), as the reference's reaches its
+Pallas chunk dot on the TPU; its decode is plain einsums, as the
+reference's is plain XLA.
+
 Which flow kernel or scan realizes the math is resolved by the
 ``repro_torch.attention`` registry from the ``ExecutionPlan`` built once
-(``plan_of``); this layer never names a flow execution path.  A caller
-that runs many steps binds the plan once (``executor_of``) and passes the
-``BoundExecutor`` as ``plan``, so no step re-resolves a backend.
+(``plan_of``); this layer never names a flow execution path.  The linear
+branch's causal dot takes its choice from the same plan: the plain dot
+where the plan pins plain PyTorch (``registry.pins_plain``:
+``backend="plain"`` or a plain backend by name), K5a on a CUDA tensor
+otherwise.  A caller that runs many steps binds the plan once
+(``executor_of``) and passes the ``BoundExecutor`` as ``plan``, so no step
+re-resolves a backend.
 """
 from __future__ import annotations
 
@@ -46,8 +61,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.attention import BoundExecutor, ExecutionPlan, init_state
+from repro_torch.attention.dots import causal_dot_grouped
+from repro_torch.attention.registry import pins_plain
 from repro_torch.config import ModelConfig
-from repro_torch.core.flow_attention import FlowConfig
+from repro_torch.core.flow_attention import FlowConfig, phi_map
 from repro_torch.kernels.gather import paged_gather, paged_gather_quant
 from repro_torch.layers import mixer as mixer_lib
 from repro_torch.layers.linear import dense, dense_init
@@ -56,7 +73,7 @@ from repro_torch.serving import quant as quant_lib
 from repro_torch.serving.paged import PagedKVCache, PagedSpec, pages_for
 from repro_torch.utils import resolve_device
 
-_PORTED = ("flow", "softmax")
+_PORTED = ("flow", "softmax", "linear")
 
 
 class KVCache(NamedTuple):
@@ -65,12 +82,18 @@ class KVCache(NamedTuple):
     pos: torch.Tensor  # (B,) int32 -- tokens written per slot
 
 
+class LinearState(NamedTuple):
+    s: torch.Tensor  # (B, Hq, D, Dv) fp32
+    z: torch.Tensor  # (B, Hq, D) fp32
+    pos: torch.Tensor  # (B,) int32
+
+
 def _require_ported(cfg: ModelConfig):
     if cfg.attention.kind not in _PORTED or cfg.mla is not None:
         raise NotImplementedError(
             f"attention kind {cfg.attention.kind!r}"
             + (" with MLA" if cfg.mla is not None else "")
-            + " is not ported yet (flow and softmax attention only)")
+            + " is not ported yet (flow, softmax and linear attention only)")
 
 
 def flow_cfg_of(cfg: ModelConfig, causal: bool) -> FlowConfig:
@@ -187,13 +210,59 @@ def _softmax_attn(q, k, v, *, causal: bool, softcap: float = 0.0,
     return out.reshape(b, hq, n, -1)
 
 
+def _repeat_kv(x: torch.Tensor, hq: int) -> torch.Tensor:
+    """(B, Hkv, ...) -> (B, Hq, ...): each kv head for its query heads."""
+    return x if x.shape[1] == hq else x.repeat_interleave(hq // x.shape[1], 1)
+
+
+def _linear_attn(q, k, v, *, causal: bool, phi: str = "elu1",
+                 chunk_size: int = 128, eps: float = 1e-6,
+                 use_kernel: bool | None = None) -> torch.Tensor:
+    """Katharopoulos et al. linear attention, the paper's ablation
+    baseline.  q: (B, Hq, N, D); k: (B, Hkv, N, D); v: (B, Hkv, N, Dv).
+    phi in fp32; causal: the numerator by the grouped causal dot (the
+    query heads of a group share their kv head's sums, as the reference's
+    repeated heads do; K5a on a CUDA tensor unless ``use_kernel`` is
+    False), the denominator by a cumsum; non-causal: three einsums."""
+    b, hq, n, d = q.shape
+    hkv = k.shape[1]
+    pq = phi_map(q.float(), phi)
+    pk = phi_map(k.float(), phi)
+    vf = v.float()
+    if causal:
+        num = causal_dot_grouped(pq.reshape(b, hkv, hq // hkv, n, d), pk, vf,
+                                 chunk_size, use_kernel=use_kernel
+                                 ).reshape(b, hq, n, -1)
+        den = torch.einsum("bhnd,bhnd->bhn", pq,
+                           torch.cumsum(_repeat_kv(pk, hq), dim=2))
+    else:
+        pk, vf = _repeat_kv(pk, hq), _repeat_kv(vf, hq)
+        kv = torch.einsum("bhmd,bhme->bhde", pk, vf)
+        num = torch.einsum("bhnd,bhde->bhne", pq, kv)
+        den = torch.einsum("bhnd,bhd->bhn", pq, pk.sum(dim=2))
+    return (num / (den[..., None] + eps)).to(q.dtype)
+
+
+def _linear_kernel(cfg: ModelConfig, plan) -> bool | None:
+    """The linear branch's causal dot, from the plan: the plain dot
+    (False) where it pins plain PyTorch, else K5a on a CUDA tensor
+    (None)."""
+    flow = _flow_executor(cfg, True, plan).plan.flow
+    return False if pins_plain(flow) else None
+
+
 def attention(params, x: torch.Tensor, cfg: ModelConfig, *, causal: bool,
               positions=None, plan: ExecutionPlan | BoundExecutor | None = None):
     """Full-sequence attention.  x: (B, N, d_model)."""
     _require_ported(cfg)
     q, k, v = _project_qkv(params, x, cfg, positions)
-    if cfg.attention.kind == "flow":
+    kind = cfg.attention.kind
+    if kind == "flow":
         out = _flow_executor(cfg, causal, plan).forward(q, k, v)
+    elif kind == "linear":
+        out = _linear_attn(q, k, v, causal=causal,
+                           chunk_size=cfg.attention.chunk_size,
+                           use_kernel=_linear_kernel(cfg, plan))
     else:
         out = _softmax_attn(q, k, v, causal=causal,
                             softcap=cfg.attention.softcap)
@@ -204,7 +273,8 @@ def _attn_cache_init(cfg: ModelConfig, batch: int, max_len: int,
                      dtype=torch.bfloat16, *, paged: PagedSpec | None = None,
                      device="cuda"):
     """Decode cache for one layer on ``device`` (the card unless the caller
-    asks for the CPU): the O(d^2) FlowState, fp32, for flow; for softmax a
+    asks for the CPU): the O(d^2) FlowState, fp32, for flow; the
+    ``LinearState`` (fp32, per query head) for linear; for softmax a
     dense ``KVCache`` of ``max_len`` positions in ``dtype``, or with
     ``paged`` a ``PagedKVCache`` of ``paged.num_pages`` pages (0: the
     dense-equivalent ``batch * ceil(max_len / page_size)``) plus the trash
@@ -215,6 +285,10 @@ def _attn_cache_init(cfg: ModelConfig, batch: int, max_len: int,
     if cfg.attention.kind == "flow":
         return init_state(batch, nkv, hd, hd, device=dev)
     pos = torch.zeros((batch,), dtype=torch.int32, device=dev)
+    if cfg.attention.kind == "linear":
+        f32 = dict(dtype=torch.float32, device=dev)
+        return LinearState(torch.zeros((batch, cfg.n_heads, hd, hd), **f32),
+                           torch.zeros((batch, cfg.n_heads, hd), **f32), pos)
     if paged is not None:
         p = paged.num_pages or batch * pages_for(max_len, paged.page_size)
         shape = (p + 1, nkv, paged.page_size, hd)
@@ -232,8 +306,9 @@ def _attention_prefill(params, x: torch.Tensor, cfg: ModelConfig,
     right-padded batch of prompts: causality keeps every true position
     exact, each row's cache state lands at its own boundary, and outputs
     at padded positions are never read.  Flow returns the FlowState;
+    linear the ``LinearState`` of phi(k) masked past each row's length;
     softmax a dense ``KVCache`` padded to ``max_len`` in the activation
-    dtype, ``pos`` = ``lengths`` (or N)."""
+    dtype; ``pos`` = ``lengths`` (or N)."""
     _require_ported(cfg)
     q, k, v = _project_qkv(params, x, cfg, positions)
     if cfg.attention.kind == "flow":
@@ -244,6 +319,18 @@ def _attention_prefill(params, x: torch.Tensor, cfg: ModelConfig,
     pos0 = (torch.full((b,), n, dtype=torch.int32, device=x.device)
             if lengths is None
             else lengths.to(device=x.device, dtype=torch.int32))
+    if cfg.attention.kind == "linear":
+        out = _linear_attn(q, k, v, causal=True,
+                           chunk_size=cfg.attention.chunk_size,
+                           use_kernel=_linear_kernel(cfg, plan))
+        pk = phi_map(_repeat_kv(k, cfg.n_heads).float(), "elu1")
+        if lengths is not None:
+            valid = torch.arange(n, device=x.device)[None, :] < pos0[:, None]
+            pk = pk * valid.float()[:, None, :, None]
+        s = torch.einsum("bhnd,bhne->bhde", pk,
+                         _repeat_kv(v, cfg.n_heads).float())
+        return (dense(params["wo"], _merge_heads(out)),
+                LinearState(s, pk.sum(dim=2), pos0))
     out = _softmax_attn(q, k, v, causal=True, softcap=cfg.attention.softcap)
     pad = (0, 0, 0, max_len - n)
     cache = KVCache(F.pad(k, pad).to(x.dtype), F.pad(v, pad).to(x.dtype), pos0)
@@ -263,6 +350,8 @@ def _attention_decode(params, x: torch.Tensor, cache, cfg: ModelConfig, *,
         new_state, out = _flow_executor(cfg, True, plan).decode_step(
             cache, q, k, v)
         return dense(params["wo"], _merge_heads(out)), new_state
+    if cfg.attention.kind == "linear":
+        return _linear_decode(params, x, q, k, v, cache, cfg)
     pool = cache if isinstance(cache, quant_lib.QuantizedPool) else None
     store = pool.payload if pool is not None else cache
     if isinstance(store, PagedKVCache):
@@ -284,6 +373,27 @@ def _attention_decode(params, x: torch.Tensor, cache, cfg: ModelConfig, *,
     out = _softmax_attn(q, ka, va, causal=False,
                         softcap=cfg.attention.softcap, kv_len=kv_len[:, None])
     return dense(params["wo"], _merge_heads(out)), new_cache
+
+
+def _linear_decode(params, x, q, k, v, cache, cfg: ModelConfig):
+    """The linear branch's decode: s += phi(k) v^T, z += phi(k), out =
+    phi(q) s / (phi(q) . z + 1e-6), in fp32 einsums.  An int8
+    ``QuantizedPool`` is dequantized, updated in fp32 and requantized whole
+    with a fresh per-(slot, head) amax: the state is rewritten every step."""
+    pool = cache if isinstance(cache, quant_lib.QuantizedPool) else None
+    st = quant_lib.dequantize_state(pool) if pool is not None else cache
+    pq = phi_map(q.float(), "elu1")[:, :, 0]
+    pk = _repeat_kv(phi_map(k.float(), "elu1")[:, :, 0], cfg.n_heads)
+    vv = _repeat_kv(v[:, :, 0].float(), cfg.n_heads)
+    s = st.s + torch.einsum("bhd,bhe->bhde", pk, vv)
+    z = st.z + pk
+    num = torch.einsum("bhd,bhde->bhe", pq, s)
+    den = torch.einsum("bhd,bhd->bh", pq, z) + 1e-6
+    out = (num / den[..., None])[:, :, None].to(x.dtype)
+    new_state = LinearState(s, z, st.pos + 1)
+    if pool is not None:
+        new_state = quant_lib.quantize_like(pool, new_state)
+    return dense(params["wo"], _merge_heads(out)), new_state
 
 
 def _write_rows(pool, store, index, k, v):
@@ -371,17 +481,27 @@ class AttentionMixer(mixer_lib.Mixer):
             return True, ("registry verify op: one carry-in pass, "
                           "trajectory FlowState rollback")
         if kind == "linear":
-            return True, "trajectory rollback over sequential decode"
+            return True, "trajectory rollback over scanned decode"
         return True, ("positional cache: rollback is per-slot position "
                       "arithmetic (stale writes are masked, then "
                       "overwritten)")
 
     def quant_capable(self, cfg, platform, dtype):
+        kind = cfg.attention.kind
+        if kind == "local":
+            return False, ("bounded window ring stays full-precision "
+                           "(window-sized cache: negligible bytes to win, "
+                           "and ring realignment would re-round history)")
         ok, why = quant_lib.platform_support(dtype, platform)
         if not ok:
             return False, why
-        if cfg.attention.kind == "flow":
+        if kind == "flow":
             return True, f"quantized FlowState pool ({why})"
+        if kind == "linear":
+            return True, ("dequantize/requantize around the O(d^2) update "
+                          f"({why})")
+        if cfg.mla is not None:
+            return True, f"per-token quantized latent rows ({why})"
         return True, f"per-token quantized KV rows ({why})"
 
     def init_params(self, gen, cfg):
@@ -437,6 +557,12 @@ class AttentionMixer(mixer_lib.Mixer):
                 traj = quant_lib.QuantTraj(traj, state.spec,
                                            state.granularity, state.exempt)
             return dense(params["wo"], _merge_heads(out)), traj
+        if cfg.attention.kind == "linear":
+            # a constant-size state: the generic scanned-decode trajectory
+            # (each step's pool, int8 ones as they were requantized)
+            return super().verify_step(params, x, state, cfg,
+                                       positions=positions,
+                                       page_table=page_table, plan=plan)
         # softmax, dense or paged: a positional cache rolls back by its
         # position, so decode the window token by token and keep only the
         # final cache (n snapshots of the cache would cost n x its bytes)
@@ -451,7 +577,7 @@ class AttentionMixer(mixer_lib.Mixer):
             # rollback's single requantization
             return pending.quantize(mixer_lib.select_from_trajectory(
                 pending.traj, accepted))
-        if cfg.attention.kind == "flow":
+        if cfg.attention.kind in ("flow", "linear"):
             return mixer_lib.select_from_trajectory(pending, accepted)
         # positional caches: the window wrote n rows at pos .. pos + n - 1;
         # accepting a + 1 of them rewinds pos, so later decodes overwrite

@@ -51,14 +51,18 @@ import torch
 
 from repro_torch.attention.recurrent import gather_boundary
 from repro_torch.config import ModelConfig
-from repro_torch.serving.quant import QUANT_DTYPES, state_dtype_of
+from repro_torch.serving.quant import (QUANT_DTYPES, QuantizedPool,
+                                       state_dtype_of)
 
 
 def _over(fn, *trees):
     """``fn`` over the tensors of same-shaped state trees (tensors, tuples,
-    NamedTuples)."""
+    NamedTuples, and ``QuantizedPool``s, payload and scale alike)."""
     if isinstance(trees[0], torch.Tensor):
         return fn(*trees)
+    if isinstance(trees[0], QuantizedPool):
+        return trees[0].with_state(_over(fn, *(t.payload for t in trees)),
+                                   _over(fn, *(t.scale for t in trees)))
     parts = [_over(fn, *kids) for kids in zip(*trees)]
     like = trees[0]
     return type(like)(*parts) if hasattr(like, "_fields") else type(like)(parts)

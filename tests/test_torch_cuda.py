@@ -34,6 +34,7 @@ torch.set_num_threads(2)
 
 from repro_torch import attention  # noqa: E402
 from repro_torch.attention._cuda import chunked_causal_dot_cuda  # noqa: E402
+from repro_torch.attention.dots import causal_dot_grouped  # noqa: E402
 from repro_torch.attention.fused import fused_causal_forward  # noqa: E402
 from repro_torch.attention.recurrent import FlowState, decode_step  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
@@ -1202,3 +1203,139 @@ def test_ssd_scan_takes_a_single_row(gen):
     assert LAUNCHES["ssd_chunk"] == 1
     ssd_close(y, ssd_layer.ssd_scan(xh, dt, b, c, a, chunk=32,
                                     interpret=True))
+
+
+# ---------------------------------------------------------------------------
+# K1/K2 at chunk_size=0 and D = 24, K5a/K5b at D = 24, the Decision-Flowformer
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("phi", ["sigmoid", "elu1", "relu"])
+@pytest.mark.parametrize("n,d", [(60, 24), (180, 24), (180, 64)])
+def test_flow_fused_padded_routes_match_plain(gen, phi, n, d):
+    """K1 at ``chunk_size=0`` (N padded to 64) and D = 24 (rows padded to
+    32) with ``lens`` against the plain scan at the real shapes; K2 through
+    ``FlowFusedDot`` against autograd of the plain scan."""
+    b, hkv, g = 3, 2, 2
+    q = torch.randn((b, hkv * g, n, d), generator=gen, device="cuda")
+    k = torch.randn((b, hkv, n, d), generator=gen, device="cuda")
+    v = torch.randn((b, hkv, n, d), generator=gen, device="cuda")
+    lengths = torch.tensor([n, 1, n // 3], dtype=torch.int32, device="cuda")
+    cfg = FlowConfig(phi=phi, causal=True, strict_causal=True, chunk_size=0)
+    plain = dataclasses.replace(cfg, chunk_size=n)
+    reset_launches()
+    out, st = flow_fused_forward(q, k, v, cfg, return_state=True,
+                                 lengths=lengths)
+    ref, ref_st = fused_causal_forward(q, k, v, plain, return_state=True,
+                                       lengths=lengths)
+    for i, li in enumerate(lengths.tolist()):
+        torch.testing.assert_close(out[i, :, :li], ref[i, :, :li], **TOL)
+    for a, b_ in zip(st, ref_st):
+        torch.testing.assert_close(a, b_, **TOL)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    refs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    got = flow_fused_forward(*leaves, cfg)[0]
+    want = fused_causal_forward(*refs, plain)
+    cot = torch.randn(got.shape, generator=gen, device="cuda")
+    torch.testing.assert_close(got, want, **TOL)
+    for a, b_ in zip(torch.autograd.grad(got, leaves, cot),
+                     torch.autograd.grad(want, refs, cot)):
+        scale = float(b_.abs().max())
+        assert float((a - b_).abs().max()) <= 1e-4 * scale + 1e-6
+    assert LAUNCHES["flow_fused"] == 2 and LAUNCHES["flow_fused_bwd"] == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flow_fused_d24_writes_zero_lanes_and_is_deterministic(gen, dtype):
+    """K1 and K2 at D = 24: the wrappers pad to 32 and slice back, so the
+    results are D = 24 wide, bitwise repeatable, zero past ``lens`` for
+    the gradients, and equal to the plain versions at D = 24."""
+    bh, g, n = 8, 2, 192
+    mk = lambda *s: torch.randn(s, generator=gen,  # noqa: E731
+                                device="cuda").to(dtype)
+    q, k, v, g_out = mk(bh, g, n, 24), mk(bh, n, 24), mk(bh, n, 24), \
+        mk(bh, g, n, 24)
+    lens = torch.full((bh,), 150, dtype=torch.int32, device="cuda")
+    out, sums = flow_fused_call(q, k, v, lens, chunk=64)
+    again = flow_fused_call(q, k, v, lens, chunk=64)
+    assert torch.equal(out, again[0])
+    assert all(torch.equal(a, b) for a, b in zip(sums, again[1]))
+    assert out.shape == q.shape and sums[5].shape == (bh, 24, 24)
+    ref_out, ref_sums = flow_fused_ref(q, k, v, lens, chunk=64)
+    tol = TOL if dtype == torch.float32 else dict(rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(out, ref_out, **tol)
+    g_sums = [torch.zeros_like(x) for x in sums]
+    grads = flow_fused_bwd_call(q, k, v, lens, sums, g_out, g_sums, chunk=64)
+    again = flow_fused_bwd_call(q, k, v, lens, sums, g_out, g_sums, chunk=64)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    want = flow_fused_bwd_ref(q, k, v, lens, g_out, g_sums, chunk=64)
+    for a, b in zip(grads, want):
+        assert a.shape[-1] == 24 and not a[..., 150:, :].any()
+        torch.testing.assert_close(a, b, **tol)
+
+
+@pytest.mark.parametrize("d,dv", [(24, 24), (24, 64), (64, 24)])
+def test_flow_chunk_kernels_at_d24_match_plain(gen, d, dv):
+    """K5a and K5b through the glue at D or Dv = 24 (padded to 32) and at
+    ``chunk_size=0`` (K5a's own chunk), against the plain cumsum dot."""
+    b, h, g, n = 2, 3, 2, 180
+    qg = torch.sigmoid(torch.randn((b, h, g, n, d), generator=gen,
+                                   device="cuda"))
+    k = torch.sigmoid(torch.randn((b, h, n, d), generator=gen, device="cuda"))
+    v = torch.randn((b, h, n, dv), generator=gen, device="cuda")
+    cot = torch.randn((b, h, g, n, dv), generator=gen, device="cuda")
+    leaves = [x.clone().requires_grad_(True) for x in (qg, k, v)]
+    refs = [x.clone().requires_grad_(True) for x in (qg, k, v)]
+    reset_launches()
+    out = chunked_causal_dot_cuda(*leaves, chunk=0)
+    want = causal_dot_grouped(*refs, chunk_size=0, use_kernel=False)
+    scale = float(want.abs().max())
+    torch.testing.assert_close(out, want, rtol=1e-4, atol=1e-4 + 1e-4 * scale)
+    for a, b_ in zip(torch.autograd.grad(out, leaves, cot),
+                     torch.autograd.grad(want, refs, cot)):
+        s = float(b_.abs().max())
+        torch.testing.assert_close(a, b_, rtol=1e-4, atol=1e-4 + 1e-4 * s)
+    assert LAUNCHES["flow_chunk"] == 2 and LAUNCHES["flow_chunk_dkv"] == 1
+
+
+@pytest.mark.parametrize("kind,width", [("flow", "paper"), ("flow", "table7"),
+                                        ("linear", "table7")])
+def test_decision_step_on_the_kernels_matches_plain(gen, kind, width):
+    """One fp32 Decision-Flowformer step (N = 60 or 180) on the kernels
+    against ``backend="plain"``: the loss at rtol 1e-4, every gradient
+    within 1e-4 of its leaf's max |grad|, and the kernels launched."""
+    from repro_torch.launch import decision as launch
+    from repro_torch.models import decision
+    from repro_torch.utils import tree_leaves
+
+    base = get_config("flowformer_dt")
+    cfg = launch.with_kind(launch.table7_config(base) if width == "table7"
+                           else dataclasses.replace(base, n_layers=1), kind)
+    horizon = 20 if width == "table7" else 60
+    batch = launch.batch_arrays(launch.trajectories(0, 8, horizon=horizon))
+    batch = {k_: torch.from_numpy(x).cuda() for k_, x in batch.items()}
+    params = decision.init(cfg, torch.Generator().manual_seed(0),
+                           state_dim=17, action_dim=6, max_ep_len=horizon)
+    losses, grads = {}, {}
+    for backend in ("auto", "plain"):
+        c = dataclasses.replace(cfg, attention=dataclasses.replace(
+            cfg.attention, backend=backend))
+        leaves = tree_map(lambda x: x.detach().clone().requires_grad_(True),
+                          params)
+        reset_launches()
+        loss, _ = decision.loss_fn(leaves, batch, c, dtype=torch.float32,
+                                   plan=executor_of(c, plan_of(
+                                       c, needs_grad=True)))
+        grads[backend] = torch.autograd.grad(loss, tree_leaves(leaves))
+        losses[backend] = float(loss)
+        launched = {k_: n_ for k_, n_ in LAUNCHES.items() if n_}
+        if backend == "plain":
+            assert not launched
+        elif kind == "flow":
+            assert launched == {"flow_fused": cfg.n_layers,
+                                "flow_fused_bwd": cfg.n_layers}
+        else:
+            assert launched == {"flow_chunk": 2 * cfg.n_layers,
+                                "flow_chunk_dkv": cfg.n_layers}
+    assert abs(losses["auto"] - losses["plain"]) <= 1e-4 * abs(losses["plain"])
+    for a, b_ in zip(grads["auto"], grads["plain"]):
+        scale = float(b_.abs().max())
+        assert float((a - b_).abs().max()) <= 1e-4 * scale + 1e-12

@@ -562,3 +562,83 @@ def test_paged_serving_refuses_cpu_unless_asked():
                     device="cpu")
     assert all(t.device.type == "cpu" for t in tree_leaves(
         engine.worker.caches))
+
+
+def test_decision_entry_points_refuse_cpu_unless_asked():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from repro_torch.launch import decision as launch
+    from repro_torch.models import decision
+
+    cfg = get_smoke_config("flowformer_dt")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        decision.init(cfg, torch.Generator().manual_seed(0), state_dim=17,
+                      action_dim=6, max_ep_len=20)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch.run("flow", table7=True, steps=1, batch=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch.main(["--table7", "--steps", "1"])
+
+
+@pytest.mark.parametrize("d", [64, 24])
+@pytest.mark.parametrize("n", [60, 180])
+def test_chunk_size_zero_resolves_to_the_fused_kernel_on_cuda(d, n):
+    """``flowformer_dt`` (strict causal, ``chunk_size=0``) and the Table 7
+    harness's D = 24 reach K1 under ``auto`` on the card, forward and
+    prefill, and for training too; the plain backends still refuse the
+    card unless pinned, and ``fused_causal`` and ``chunked`` refuse
+    ``chunk_size <= 0`` as the reference's chunked backends do."""
+    cfg = FlowConfig(causal=True, strict_causal=True, chunk_size=0)
+    shapes = ShapeInfo(b=4, hq=4, hkv=4, n=n, m=n, d=d, dv=d)
+    for needs_grad in (False, True):
+        ex = attention.resolve(ExecutionPlan(flow=cfg, needs_grad=needs_grad))
+        for op in ("forward", "prefill"):
+            assert ex.backend(op, shapes, "cuda").name == "cuda_fused", op
+    ex = attention.resolve(ExecutionPlan(flow=cfg, packed=True))
+    assert ex.backend("prefill_packed", shapes, "cuda").name == "cuda_fused"
+    for pin in ("fused_causal", "chunked"):
+        with pytest.raises(attention.ResolutionError, match="chunk_size <= 0"):
+            attention.resolve(ExecutionPlan(flow=dataclasses.replace(
+                cfg, backend=pin))).backend("forward", shapes, "cuda")
+    from repro_torch.attention import backends
+
+    ok, why = backends.Cumsum().supports(cfg, shapes, "cuda")
+    assert not ok and "pinned" in why
+    for pin in ("plain", "cumsum"):
+        ex = attention.resolve(ExecutionPlan(flow=dataclasses.replace(
+            cfg, backend=pin)))
+        assert ex.backend("forward", shapes, "cuda").name == "cumsum"
+    # the paper-causal mode reaches K5a at its own chunk; the decode
+    # kernels keep refusing D = 24
+    paper = dataclasses.replace(cfg, strict_causal=False)
+    assert attention.resolve(ExecutionPlan(flow=paper)).backend(
+        "forward", shapes, "cuda").name == "cuda_chunk"
+    if d == 24:
+        with pytest.raises(attention.ResolutionError, match="D == Dv in"):
+            attention.resolve(ExecutionPlan(flow=cfg)).backend(
+                "decode", dataclasses.replace(shapes, n=1, m=1), "cuda")
+
+
+def test_linear_is_accepted_and_local_and_mla_are_refused_by_name():
+    from repro_torch.config import MLAConfig
+    from repro_torch.layers import attention as attn
+
+    base = get_smoke_config("flowformer_lm")
+    kind = lambda k: dataclasses.replace(base, attention=dataclasses.replace(  # noqa: E731
+        base.attention, kind=k))
+    params = attn.attn_init(torch.Generator().manual_seed(0), kind("linear"))
+    x = torch.randn((2, 5, base.d_model))
+    assert attn.attention(params, x, kind("linear"), causal=True).shape == \
+        x.shape
+    assert isinstance(attn._attn_cache_init(kind("linear"), 2, 8,
+                                            device="cpu"), attn.LinearState)
+    for cfg, what in ((kind("local"), "'local' is not ported"),
+                      (dataclasses.replace(kind("softmax"), mla=MLAConfig()),
+                       "with MLA is not ported")):
+        with pytest.raises(NotImplementedError, match=what):
+            attn.attn_init(torch.Generator().manual_seed(0), cfg)
+        with pytest.raises(NotImplementedError, match=what):
+            attn.attention(params, x, cfg, causal=True)
+    for flag in ("local", "mla"):
+        with pytest.raises(SystemExit, match="local and MLA attention"):
+            serve.main(["--attn", flag, "--smoke", "--device", "cpu"])

@@ -623,9 +623,9 @@ def test_serve_cli_softmax_paged_on_the_cpu(capsys, extra):
         "drain" in text
 
 
-@pytest.mark.parametrize("kind", ["linear", "local"])
+@pytest.mark.parametrize("kind", ["mla", "local"])
 def test_serve_cli_still_refuses_the_other_branches(kind):
-    with pytest.raises(SystemExit, match="local, linear and MLA attention"):
+    with pytest.raises(SystemExit, match="local and MLA attention"):
         serve.main(["--attn", kind, "--smoke", "--device", "cpu"])
 
 

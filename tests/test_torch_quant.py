@@ -376,7 +376,7 @@ def test_serve_cli_int8_on_the_cpu_retires_every_request(capsys):
 
 
 @pytest.mark.parametrize("argv,needs", [
-    (["--attn", "linear"], "attention branches"),
+    (["--attn", "local", "--state-dtype", "int8"], "attention branches"),
     (["--attn", "local"], "attention branches"),
     (["--attn", "mla"], "attention branches"),
     (["--fleet", "prefill:1,decode:1", "--speculate-k", "4"],

@@ -237,9 +237,8 @@ def test_local_rings_are_refused_by_name():
     with pytest.raises(mixer_lib.MixerResolutionError,
                        match="verify_capable"):
         mx.verify_step({}, torch.zeros((1, 2, 8)), None, cfg)
-    with pytest.raises(NotImplementedError, match="'linear' is not ported"):
-        mx.verify_step({}, torch.zeros((1, 2, 8)), None,
-                       with_kind(cfg, "linear"))
+    assert mx.verify_capable(with_kind(cfg, "linear")) == (
+        True, "trajectory rollback over scanned decode")
     for arch, kind in VARIANTS.values():
         c = get_smoke_config(arch)
         caps = mixer_lib.stack_capabilities(

@@ -51,7 +51,8 @@ from repro_torch.core.flow_attention import FlowConfig  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.interop import params_from_numpy, params_to_numpy  # noqa: E402
 from repro_torch.kernels import LAUNCHES  # noqa: E402
-from repro_torch.kernels._lib import HEAD_DIMS, NC_HEAD_DIMS  # noqa: E402
+from repro_torch.kernels._lib import (HEAD_DIMS, NC_HEAD_DIMS,  # noqa: E402
+                                      PADDED_HEAD_DIMS)
 from repro_torch.launch import classify  # noqa: E402
 from repro_torch.models import vision  # noqa: E402
 from repro_torch.utils import tree_leaves  # noqa: E402
@@ -214,7 +215,8 @@ def test_vision_logits_loss_and_grads_match_reference(
 @pytest.mark.parametrize("d", NC_HEAD_DIMS)
 def test_cuda_nc_resolves_at_every_nc_head_dim(d):
     """On a CUDA device the non-causal kernels take every head dim of the
-    nc tuple (forward and training); the causal kernels keep theirs."""
+    nc tuple (forward and training); the causal kernels keep theirs, and
+    their padded route's D = 24 (``PADDED_HEAD_DIMS``)."""
     shapes = ShapeInfo(b=64, hq=16, hkv=16, n=49, m=49, d=d, dv=d)
     plan = attention.ExecutionPlan(flow=FlowConfig(causal=False))
     assert attention.resolve(plan).backend("forward", shapes,
@@ -223,7 +225,7 @@ def test_cuda_nc_resolves_at_every_nc_head_dim(d):
         "cuda_nc"
     causal = attention.ExecutionPlan(flow=FlowConfig(causal=True,
                                                      strict_causal=True))
-    if d in HEAD_DIMS:
+    if d in HEAD_DIMS or d in PADDED_HEAD_DIMS:
         assert attention.resolve(causal).backend(
             "forward", shapes, "cuda").name == "cuda_fused"
     else:
