@@ -81,6 +81,17 @@ any failure raises, so the exit code is non-zero:
      partly mapped, with a row of sentinels (a dead slot); also at page 5,
      D 24, Dv 40 (runs the copy engine does not take: scales of 20 bytes,
      widths not a multiple of 16); two K8b calls bitwise equal;
+  3g. the kernels at the shapes of phases 26 and 27, against their plain
+     versions, bf16 and fp32 (``check_whisper_granite_shapes``): K6 at
+     Whisper's decode cross-attention (8 clips x 12 heads, NQ = 1 against
+     M = 1,500; also against its cluster twin, 15 of 16 blocks owning no
+     sink), its training cross-attention (NQ = 448), its encoder (NQ = M
+     = 1,500) and the long encode (12 heads, NQ = M = 32,768); K7b at the
+     cross-attention's and the encoder's backward (also against its
+     twin); K1 and K2 at the decoder's training shape (96 rows, N = 448
+     padded to 512, D = 64); K1 at granite's packed prefill (16 rows x 8
+     kv heads, G = 4, N = 384, D = 128, ragged lengths); K3 over 32 steps
+     at granite's pool (G = 4, D = 128) and Whisper's (8 x 12, D = 64);
   4. K3 ``flow_decode`` against its plain version: 16 (the serving pool)
      and 64 slots x 8 kv heads, 32 steps from a non-zero state, updated
      in place; at every step also against ``flow_decode_split`` (the
@@ -238,6 +249,31 @@ any failure raises, so the exit code is non-zero:
      step, 2 K5a a forward) and softmax (plain, no kernel), bf16, 20 steps
      of 32 and a 16-episode rollout; each row's return is printed (smoke
      values of a cut run, not the paper's numbers);
+  26. ``whisper_small`` at full width and depth (12 + 12 layers, d 768,
+     12 heads of 64, vocab 51,865; random weights from a seed; stub frame
+     embeddings drawn from the seed, the conv stem being out of scope as
+     in the reference), bf16: encode 8 clips of 1,500 frames (exactly one
+     K6 a layer), greedy-decode 64 tokens a clip from ``init_dec_caches``
+     (exactly a K3 and a K6 at one sink row a decoder layer and step),
+     encode one clip of 32,768 frames (the config's ``max_seq_len``; its
+     time and peak memory); each encode shape warmed up once, then timed
+     5 times (the median); then 5 AdamW steps of 8 x (1,500 frames, 448
+     tokens) on fp32 masters (exactly 24 K6, 24 K7b, 12 K1 and 12 K2 a
+     step and nothing else); encode ms, decode tokens/s, step ms, peak
+     GB; ``torch.profiler`` over decode steps, an encode and two steps;
+  26b. the same in fp32 with one encoder and one decoder layer, on the
+     kernels and on the plain path (``backend="plain"``): 4 clips' 32
+     greedy tokens equal; 3 steps' losses and every gradient of the first
+     step within phase 21b's bounds; K6 at NQ = 1, M = 1,500 on the
+     layer's own projections of the memory against its plain version;
+  27. ``granite_8b`` at full width (d 4,096, 32 query heads over 8 kv
+     heads of 128, d_ff 14,336 swiglu, vocab 49,152, rmsnorm, untied
+     head), its depth cut to 2 of 36 layers (0.84 B parameters), served
+     as phase 5 in bf16: K1 and K3 at G = 4, D = 128, exactly one K1 a
+     layer and admission round and one K3 a layer and decode step; then
+     ``torch.profiler`` over decode steps;
+  27b. phase 6 for it: fp32 greedy tokens on the kernels equal to the
+     plain path's;
   13. the Engine serving the full-width mamba2_1p3b (48 layers of SSD,
      random weights from a seed) in bf16, phase 5's traffic: exactly 1 K9
      launch per layer and admission round (``boundary_gather_many`` of the
@@ -308,7 +344,13 @@ any failure raises, so the exit code is non-zero:
      and ``flow_chunk_dkv_d24``: K1, K2, K5a and K5b on their D = 24 route
      at one layer of phase 24 (32 trajectories x 4 heads, N = 60; bounds
      at the real width; launches those of phase 24's flow and linear
-     rows);
+     rows); and rows ``flow_nc_fused_nq1`` (K6 at one Whisper decode
+     step's cross-attention of a layer: 8 x 12, NQ = 1, M = 1,500, bf16;
+     its bound counts what one sink row needs, ``nc_one_sink_ops``, no
+     D x D product; launches phase 26's decode's), ``flow_fused_g4_d128`` (K1 at one
+     granite admission: 16 x 8 kv heads, G = 4, N = 384, D = 128) and
+     ``flow_decode_g4_d128`` (K3 at granite's pool), launches phase 27's;
+     the base rows' launches count phases 26 and 27 too;
   12. the last line: ``{"ok": true, "device": {...}}``.
 
 Tolerances (|kernel - plain| <= atol + rtol * |plain|, elementwise):
@@ -351,7 +393,8 @@ gather).  Phase 16: losses rtol 1e-4 and each listed gradient within
 copy, and one fp32 product rounded once); phase 18's kernel and plain
 paths: identical tokens (the gathers are exact); paged against dense:
 logits as phase 6b's (the same products over the same gathered length,
-max_len 256 = 4 pages).  Phase 14 with bf16 conv
+max_len 256 = 4 pages).  Phases 26b and 27b: as phases 21b and 6 (the K6 check at NQ = 1 as
+3c's).  Phase 14 with bf16 conv
 histories: the t-th token's logits within (1e-4 + 1.5e-3 t) x max |logit|
 -- a history element rounded to the neighbouring bf16 value (the two
 paths sum it at other GEMM shapes) moves the state, and the gap grew by
@@ -361,6 +404,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import hashlib
 import json
 import math
@@ -1416,6 +1460,66 @@ def serve_full_width(params, cfg, state_dtype=None) -> dict:
     return stats
 
 
+def device_profile(window, step_ms: float, keys: dict, tag: str, *,
+                   top: int = 8, host: bool = False) -> dict:
+    """Where the device time of a window of steps goes, from
+    ``torch.profiler``: ``window()`` runs the steps and returns how many it
+    ran.  The stats give the device time a step by kernel (the ``top``
+    kernels), the kernels launched a step, and the device's busy share of
+    ``step_ms``, the unprofiled time of one step.  ``keys`` maps labels to
+    a kernel-name substring, or a tuple of them, whose device time a step
+    is summed; ``host`` adds the profiled host time by operator."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        steps = window()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    dev = [e for e in events if e.device_type == DeviceType.CUDA]
+
+    def dev_ms(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0)) / 1e3 / steps
+
+    def by_name(key):
+        names = (key,) if isinstance(key, str) else key
+        return sum(dev_ms(e) for e in dev if any(k in e.key for k in names))
+
+    busy = sum(dev_ms(e) for e in dev)
+    stats = {"steps": steps, "device_ms_per_step": busy,
+             "kernels_per_step": sum(e.count for e in dev) / steps,
+             "step_ms_unprofiled": step_ms,
+             "device_busy_share": busy / step_ms,
+             **{label: by_name(key) for label, key in keys.items()},
+             "device_ms_per_step_by_kernel": {
+                 e.key[:80]: dev_ms(e)
+                 for e in sorted(dev, key=dev_ms, reverse=True)[:top]}}
+    if host:
+        cpu = sorted((e for e in events if e.device_type == DeviceType.CPU),
+                     key=lambda e: e.self_cpu_time_total, reverse=True)
+        stats["host_ms_per_step_by_op_profiled"] = {
+            e.key[:80]: e.self_cpu_time_total / 1e3 / steps
+            for e in cpu[:top]}
+    print(f"[profile {tag}] " + json.dumps(stats), flush=True)
+    return stats
+
+
+def repeat(run, steps: int):
+    """A profile window of ``steps`` calls of ``run``."""
+    def window():
+        for _ in range(steps):
+            run()
+        return steps
+    return window
+
+
+#: kernel-name substrings of the cuBLAS GEMMs on an H100
+GEMM_KEYS = ("gemm", "Gemm", "sm90_xmma", "nvjet")
+
+
 def profile_decode(params, cfg, step_ms: float, state_dtype=None,
                    paged=None) -> dict:
     """Phase 5b (5c's with ``state_dtype``): where a decode step's time
@@ -1425,9 +1529,6 @@ def profile_decode(params, cfg, step_ms: float, state_dtype=None,
     work is that of phase 5 (5c; 17 and 17b with ``paged``, whose pool of
     a PagedSpec gathers every slot's whole page row), whose unprofiled
     mean step time gives the device's busy share."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.serving.engine import Engine
 
     engine = Engine(params, cfg, slots=16, max_len=512, seed=SEED,
@@ -1436,37 +1537,19 @@ def profile_decode(params, cfg, step_ms: float, state_dtype=None,
                       (128, 128), (12, 12)):
         engine.submit(r)
     engine.step()  # the admission round stays outside the window
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def window():
         steps = 0
         while engine.step():
             steps += 1
-    events = prof.key_averages()
-    dev = [e for e in events if e.device_type == DeviceType.CUDA]
-    host = [e for e in events if e.device_type == DeviceType.CPU]
-    dev_us = lambda e: getattr(e, "self_device_time_total",  # noqa: E731
-                               getattr(e, "self_cuda_time_total", 0.0))
-    busy = sum(dev_us(e) for e in dev) / 1e3 / steps
-    top_dev = sorted(dev, key=dev_us, reverse=True)[:6]
-    top_host = sorted(host, key=lambda e: e.self_cpu_time_total,
-                      reverse=True)[:8]
-    stats = {
-        "steps": steps, "device_ms_per_step": busy,
-        "kernels_per_step": sum(e.count for e in dev) / steps,
-        "step_ms_unprofiled": step_ms, "device_busy_share": busy / step_ms,
-        "device_ms_per_step_by_kernel": {
-            e.key[:80]: dev_us(e) / 1e3 / steps for e in top_dev},
-        "host_ms_per_step_by_op_profiled": {
-            e.key[:80]: e.self_cpu_time_total / 1e3 / steps
-            for e in top_host}}
-    if paged is not None:  # K8a's kernel (17) or K8b's (17b)
-        stats["paged_gather_ms_per_step"] = sum(
-            dev_us(e) for e in dev if "paged_gather" in e.key) / 1e3 / steps
+        return steps
+
+    # K8a's kernel (17) or K8b's (17b)
+    keys = {} if paged is None else {"paged_gather_ms_per_step":
+                                     "paged_gather"}
     tag = "decode" + ("" if paged is None else " softmax paged") + (
         "" if state_dtype is None else f", {state_dtype} pools")
-    print(f"[profile {tag}] " + json.dumps(stats), flush=True)
-    return stats
+    return device_profile(window, step_ms, keys, tag, host=True)
 
 
 def serve_fp32_both_paths(params, cfg):
@@ -1684,41 +1767,18 @@ def profile_train(cfg, step_ms: float, kernels=K12, tag="train", batch=16,
     step by kernel, from ``torch.profiler`` over two steps (the weights are
     on the card before the window opens), and its share of phase 7's (7c's,
     15's) unprofiled step time; ``kernels`` names the path's kernels."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.launch.train import train
     from repro_torch.models import lm
 
-    steps = 2
     params = lm.init(cfg, torch.Generator().manual_seed(SEED + 1),
                      device=DEVICE)  # uploaded before the window opens
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        train(cfg, steps=steps, batch=batch, seq=seq, seed=SEED + 1,
+
+    def window():
+        train(cfg, steps=2, batch=batch, seq=seq, seed=SEED + 1,
               device=DEVICE, params=params)
-    events = prof.key_averages()
-    dev = [e for e in events if e.device_type == DeviceType.CUDA]
-    host = [e for e in events if e.device_type == DeviceType.CPU]
-    dev_us = lambda e: getattr(e, "self_device_time_total",  # noqa: E731
-                               getattr(e, "self_cuda_time_total", 0.0))
-    busy = sum(dev_us(e) for e in dev) / 1e3 / steps
-    by_name = lambda key: sum(dev_us(e) for e in dev  # noqa: E731
-                              if key in e.key) / 1e3 / steps
-    stats = {"steps": steps, "device_ms_per_step": busy,
-             "kernels_per_step": sum(e.count for e in dev) / steps,
-             "step_ms_unprofiled": step_ms, "device_busy_share": busy / step_ms,
-             **{label: by_name(key) for label, key in kernels.items()},
-             "device_ms_per_step_by_kernel": {
-                 e.key[:80]: dev_us(e) / 1e3 / steps
-                 for e in sorted(dev, key=dev_us, reverse=True)[:8]},
-             "host_ms_per_step_by_op_profiled": {
-                 e.key[:80]: e.self_cpu_time_total / 1e3 / steps
-                 for e in sorted(host, key=lambda e: e.self_cpu_time_total,
-                                 reverse=True)[:8]}}
-    print(f"[profile {tag}] " + json.dumps(stats), flush=True)
-    return stats
+        return 2
+
+    return device_profile(window, step_ms, kernels, tag, host=True)
 
 
 def train_fp32_both_paths(cfg, steps=3, per_layer_step=None, tag="train"):
@@ -1888,9 +1948,6 @@ def profile_classifier(cfg, step_ms: float) -> dict:
     """Phase 10b: device time of a full-width bf16 classifier step by
     kernel, from ``torch.profiler`` over two steps after one outside the
     window, and its share of phase 10's unprofiled step time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.launch.classify import listops_data, make_classifier_step
     from repro_torch.models import classifier
     from repro_torch.training.train_state import init_train_state
@@ -1905,29 +1962,19 @@ def profile_classifier(cfg, step_ms: float) -> dict:
         DEVICE) for k, v in data.items()} for i in range(steps + 1)]
     state, metrics = step_fn(state, batches[0])
     float(metrics["loss"])
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def window():
+        nonlocal state
         for bt in batches[1:]:
             state, metrics = step_fn(state, bt)
             float(metrics["loss"])
-    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    dev_us = lambda e: getattr(e, "self_device_time_total",  # noqa: E731
-                               getattr(e, "self_cuda_time_total", 0.0))
-    busy = sum(dev_us(e) for e in dev) / 1e3 / steps
-    by_name = lambda key: sum(dev_us(e) for e in dev  # noqa: E731
-                              if key in e.key) / 1e3 / steps
-    stats = {"steps": steps, "device_ms_per_step": busy,
-             "kernels_per_step": sum(e.count for e in dev) / steps,
-             "step_ms_unprofiled": step_ms, "device_busy_share": busy / step_ms,
-             "k6_ms_per_step": by_name("flow_nc_fused_kernel"),
-             "k7a_ms_per_step": by_name("flow_nc_qside_kernel"),
-             "k7b_ms_per_step": by_name("flow_nc_qside_bwd_kernel")
-             + by_name("flow_nc_reduce_kernel"),
-             "device_ms_per_step_by_kernel": {
-                 e.key[:80]: dev_us(e) / 1e3 / steps
-                 for e in sorted(dev, key=dev_us, reverse=True)[:14]}}
-    print("[profile classify] " + json.dumps(stats), flush=True)
-    return stats
+        return len(batches) - 1
+
+    keys = {"k6_ms_per_step": "flow_nc_fused_kernel",
+            "k7a_ms_per_step": "flow_nc_qside_kernel",
+            "k7b_ms_per_step": ("flow_nc_qside_bwd_kernel",
+                                 "flow_nc_reduce_kernel")}
+    return device_profile(window, step_ms, keys, "classify", top=14)
 
 
 def train_classifier_fp32_both_paths(cfg):
@@ -2033,9 +2080,6 @@ def profile_vision(cfg, step_ms: float) -> dict:
     """Phase 21's profile: device time of a full-width bf16 vision step by
     kernel, from ``torch.profiler`` over two steps after one outside the
     window, and its share of phase 21's unprofiled step time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.launch.classify import make_classifier_step, vision_data
     from repro_torch.models import vision
     from repro_torch.training.train_state import init_train_state
@@ -2051,30 +2095,19 @@ def profile_vision(cfg, step_ms: float) -> dict:
                 for k, v in data.items()} for i in range(steps + 1)]
     state, metrics = step_fn(state, batches[0])
     float(metrics["loss"])
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def window():
+        nonlocal state
         for bt in batches[1:]:
             state, metrics = step_fn(state, bt)
             float(metrics["loss"])
-    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    dev_us = lambda e: getattr(e, "self_device_time_total",  # noqa: E731
-                               getattr(e, "self_cuda_time_total", 0.0))
-    busy = sum(dev_us(e) for e in dev) / 1e3 / steps
-    by_name = lambda key: sum(dev_us(e) for e in dev  # noqa: E731
-                              if key in e.key) / 1e3 / steps
-    stats = {"steps": steps, "batch": batch, "device_ms_per_step": busy,
-             "kernels_per_step": sum(e.count for e in dev) / steps,
-             "step_ms_unprofiled": step_ms, "device_busy_share": busy / step_ms,
-             "k6_ms_per_step": by_name("flow_nc_fused_kernel"),
-             "k7b_ms_per_step": by_name("flow_nc_qside_bwd_kernel")
-             + by_name("flow_nc_reduce_kernel"),
-             "gemm_ms_per_step": by_name("gemm") + by_name("Gemm")
-             + by_name("sm90_xmma"),
-             "device_ms_per_step_by_kernel": {
-                 e.key[:80]: dev_us(e) / 1e3 / steps
-                 for e in sorted(dev, key=dev_us, reverse=True)[:16]}}
-    print("[profile vision] " + json.dumps(stats), flush=True)
-    return stats
+        return len(batches) - 1
+
+    keys = {"k6_ms_per_step": "flow_nc_fused_kernel",
+            "k7b_ms_per_step": ("flow_nc_qside_bwd_kernel",
+                                 "flow_nc_reduce_kernel"),
+            "gemm_ms_per_step": GEMM_KEYS}
+    return device_profile(window, step_ms, keys, "vision", top=16)
 
 
 def train_vision_fp32_both_paths(cfg):
@@ -2237,9 +2270,6 @@ def profile_dt(params, cfg, step_ms: float) -> dict:
     """Phase 23's profile: device time of a bf16 DT step by kernel, from
     ``torch.profiler`` over two steps after one outside the window, and its
     share of phase 23's unprofiled step time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.launch import decision as launch
     from repro_torch.layers.attention import executor_of, plan_of
     from repro_torch.training.optimizer import adamw_init
@@ -2250,28 +2280,15 @@ def profile_dt(params, cfg, step_ms: float) -> dict:
     batch = dt_batch(60, DT_BATCH, SEED + 3)
     params, opt, loss = step(params, opt, batch, 1)
     float(loss)
-    steps = 2
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for s in range(steps):
-            params, opt, loss = step(params, opt, batch, 2 + s)
+
+    def window():
+        nonlocal params, opt
+        for i in range(2):
+            params, opt, loss = step(params, opt, batch, 2 + i)
             float(loss)
-    events = prof.key_averages()
-    dev = [e for e in events if e.device_type == DeviceType.CUDA]
-    dev_us = lambda e: getattr(e, "self_device_time_total",  # noqa: E731
-                               getattr(e, "self_cuda_time_total", 0.0))
-    busy = sum(dev_us(e) for e in dev) / 1e3 / steps
-    stats = {"steps": steps, "device_ms_per_step": busy,
-             "kernels_per_step": sum(e.count for e in dev) / steps,
-             "step_ms_unprofiled": step_ms,
-             "device_busy_share": busy / step_ms,
-             **{label: sum(dev_us(e) for e in dev if key in e.key) / 1e3
-                / steps for label, key in K12.items()},
-             "device_ms_per_step_by_kernel": {
-                 e.key[:80]: dev_us(e) / 1e3 / steps
-                 for e in sorted(dev, key=dev_us, reverse=True)[:8]}}
-    print("[profile DT] " + json.dumps(stats), flush=True)
-    return stats
+        return 2
+
+    return device_profile(window, step_ms, K12, "DT")
 
 
 def train_dt_fp32_both_paths():
@@ -2363,6 +2380,567 @@ def linear_cfg(cfg):
     ``--attn linear`` makes it): the same weights' shapes."""
     return dataclasses.replace(cfg, attention=dataclasses.replace(
         cfg.attention, kind="linear"))
+
+
+# --- the Whisper encoder-decoder and the dense LM archs ----------------------
+
+#: phase 26's shapes: the real model's 30-second window (1,500 encoder
+#: frames, 448 decoder positions), 8 clips; 64 greedy tokens a clip; one
+#: encode at the config's ``max_seq_len`` (the assigned 32k prefill shape)
+WHISPER_CLIPS, WHISPER_FRAMES, WHISPER_DEC = 8, 1500, 448
+WHISPER_TOKENS, WHISPER_LONG, WHISPER_STEPS = 64, 32768, 5
+#: timed encodes at each of phase 26's encode shapes, after one warm-up;
+#: the median is reported
+WHISPER_ENCODES = 5
+#: Whisper's <|startoftranscript|> token, the decoder's first input
+WHISPER_SOT = 50258
+#: phase 26b: clips, greedy tokens and AdamW steps of the fp32 comparison
+WHISPER_FP32_CLIPS, WHISPER_FP32_TOKENS, WHISPER_FP32_STEPS = 4, 32, 3
+#: phase 27: granite_8b at full width, its depth cut from 36 layers to 2
+GRANITE_LAYERS = 2
+
+
+def whisper_frames(clips: int, n: int, d: int, seed: int) -> torch.Tensor:
+    """Stub frame embeddings (clips, n, d) fp32 on the card, from the seed
+    (the conv stem is out of scope, as in the reference)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    return torch.randn((clips, n, d), generator=gen, device=DEVICE)
+
+
+def whisper_batch(cfg, clips: int, seed: int) -> dict:
+    """One training batch: ``whisper_frames`` and next-token pairs of
+    WHISPER_DEC text tokens drawn with numpy from the seed."""
+    toks = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (clips, WHISPER_DEC + 1))
+    toks = torch.from_numpy(toks).to(DEVICE)
+    return {"frames": whisper_frames(clips, WHISPER_FRAMES, cfg.d_model,
+                                     seed),
+            "inputs": toks[:, :-1], "targets": toks[:, 1:]}
+
+
+def whisper_start(cfg, clips: int) -> torch.Tensor:
+    return torch.full((clips, 1), min(WHISPER_SOT, cfg.vocab_size - 1),
+                      dtype=torch.long, device=DEVICE)
+
+
+K6_KEYS = {"k6_ms": "flow_nc_fused_kernel",
+           "k7b_ms": "flow_nc_qside_bwd_kernel",
+           "k7b_reduce_ms": "flow_nc_reduce_kernel",
+           "gemm_ms": GEMM_KEYS}
+
+
+def serve_whisper_full_width(params, cfg) -> dict:
+    """Phase 26, serving: ``whisper_small`` at full width and depth in
+    bf16.  Encode WHISPER_CLIPS clips of WHISPER_FRAMES stub frames (one
+    K6 a layer), greedy-decode WHISPER_TOKENS tokens a clip from
+    ``init_dec_caches`` (a K3 and a K6 at one sink row a decoder layer a
+    step), and encode one clip of WHISPER_LONG frames; each encode shape
+    warmed up once, then timed WHISPER_ENCODES times (the median is
+    reported); exactly those launches and nothing else; encode ms, decode
+    tokens/s, peak memory; then ``torch.profiler`` over a decode step and
+    an encode."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import encdec, lm
+
+    sp = lm.for_serving(params, DEVICE, torch.bfloat16)
+    ex = encdec.executors(cfg)
+    n_enc, n_dec = cfg.n_encoder_layers or cfg.n_layers, cfg.n_layers
+    clips, toks = WHISPER_CLIPS, WHISPER_TOKENS
+    frames = whisper_frames(clips, WHISPER_FRAMES, cfg.d_model, SEED + 40)
+    start = whisper_start(cfg, clips)
+    def timed(run):
+        """WHISPER_ENCODES timed calls of ``run``: (seconds each, the last
+        result)."""
+        took = []
+        for _ in range(WHISPER_ENCODES):
+            t0 = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize()
+            took.append(time.perf_counter() - t0)
+        return took, out
+
+    with torch.inference_mode():
+        # warm-up outside the counted runs, at the timed shapes: the first
+        # GEMMs' and kernels' set-up
+        long_frames = whisper_frames(1, WHISPER_LONG, cfg.d_model, SEED + 41)
+        encdec.encode(sp, long_frames, cfg, plan=ex)
+        mem = encdec.encode(sp, frames, cfg, plan=ex)
+        encdec.greedy_decode(sp, mem, start, cfg, 2, plan=ex)
+        del mem
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        encode_s, memory = timed(lambda: encdec.encode(sp, frames, cfg,
+                                                       plan=ex))
+        enc_launches = dict(LAUNCHES)
+        expect_only(enc_launches, {"flow_nc_fused": WHISPER_ENCODES * n_enc},
+                    "Whisper encode")
+        reset_launches()
+        t0 = time.perf_counter()
+        tokens, logits = encdec.greedy_decode(sp, memory, start, cfg, toks,
+                                              plan=ex)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        dec_launches = dict(LAUNCHES)
+        expect_only(dec_launches, {"flow_decode": n_dec * toks,
+                                   "flow_nc_fused": n_dec * toks},
+                    "Whisper greedy decode")
+        peak = torch.cuda.max_memory_allocated()
+        if tokens.shape != (clips, toks) or not bool(
+                ((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
+            raise AssertionError(f"Whisper tokens {tuple(tokens.shape)}")
+        if not (torch.isfinite(memory).all() and torch.isfinite(logits).all()):
+            raise AssertionError("Whisper: non-finite memory or logits")
+        del logits
+        # one clip at the config's max_seq_len
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        long_s, long_mem = timed(lambda: encdec.encode(sp, long_frames, cfg,
+                                                       plan=ex))
+        long_launches = dict(LAUNCHES)
+        expect_only(long_launches, {"flow_nc_fused": WHISPER_ENCODES * n_enc},
+                    f"Whisper encode of {WHISPER_LONG} frames")
+        long_peak = torch.cuda.max_memory_allocated()
+        if not torch.isfinite(long_mem).all():
+            raise AssertionError("Whisper: non-finite long memory")
+        del long_mem, long_frames
+        launches = {name: enc_launches[name] + dec_launches[name]
+                    + long_launches[name] for name in enc_launches}
+        encode_ms = 1e3 * statistics.median(encode_s)
+        stats = {"clips": clips, "frames": WHISPER_FRAMES,
+                 "encode_ms": encode_ms,
+                 "encode_ms_each": [1e3 * t for t in encode_s],
+                 "encode_frames_per_s": clips * WHISPER_FRAMES / encode_ms
+                 * 1e3,
+                 "greedy_tokens_per_clip": toks, "decode_s": decode_s,
+                 "decode_ms_per_step": 1e3 * decode_s / toks,
+                 "decode_tok_per_s": clips * toks / decode_s,
+                 "peak_gb": peak / 1e9, "long_frames": WHISPER_LONG,
+                 "long_encode_ms": 1e3 * statistics.median(long_s),
+                 "long_encode_ms_each": [1e3 * t for t in long_s],
+                 "long_encode_peak_gb": long_peak / 1e9,
+                 "decode_launches": dec_launches, "launches": launches,
+                 "first_tokens": tokens[0, :8].tolist()}
+        print("[Whisper bf16 serving] " + json.dumps(stats), flush=True)
+        caches = encdec.init_dec_caches(cfg, clips, toks + 1, device=DEVICE)
+        tok = start
+        stats["profile_decode"] = device_profile(
+            repeat(lambda: encdec.decode_step(sp, tok, memory, caches, cfg, 3,
+                                              plan=ex), 4),
+            stats["decode_ms_per_step"],
+            {**K6_KEYS, "k3_ms": "flow_decode_kernel"}, "Whisper decode step")
+        stats["profile_encode"] = device_profile(
+            repeat(lambda: encdec.encode(sp, frames, cfg, plan=ex), 2),
+            stats["encode_ms"], K6_KEYS, "Whisper encode")
+    return stats
+
+
+def train_whisper_full_width(cfg) -> dict:
+    """Phase 26, training: ``whisper_small`` at full width and depth,
+    WHISPER_STEPS AdamW steps of WHISPER_CLIPS x (WHISPER_FRAMES frames,
+    WHISPER_DEC tokens) in bf16 on fp32 masters (``make_train_step`` on
+    ``launch.steps.model_loss_fn``, attention bound once for gradients):
+    finite losses, and exactly (12 + 12) K6 and K7b (encoder and
+    cross-attention) and 12 K1 and K2 (decoder self-attention) a step and
+    nothing else; step ms, peak memory; then ``torch.profiler`` over two
+    steps."""
+    from repro_torch.config import ShapeSpec
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.layers.attention import plan_of
+    from repro_torch.models import encdec
+    from repro_torch.training.train_state import (TrainConfig,
+                                                  init_train_state,
+                                                  make_train_step)
+    from repro_torch.utils import tree_map
+
+    n_enc, n_dec = cfg.n_encoder_layers or cfg.n_layers, cfg.n_layers
+    steps, clips = WHISPER_STEPS, WHISPER_CLIPS
+    xplan = plan_of(cfg, needs_grad=True)
+    shape = ShapeSpec("whisper_train", WHISPER_DEC, clips, "train")
+    be = steps_lib.check_flow_trainable(cfg, shape, "cuda", xplan)
+    params = encdec.init(cfg, torch.Generator().manual_seed(SEED + 1),
+                         device=DEVICE)
+    tcfg = TrainConfig(total_steps=steps, warmup=max(5, steps // 10),
+                       fused_value_grad=True, compute_dtype=torch.bfloat16)
+    loss = steps_lib.model_loss_fn(cfg, dtype=torch.bfloat16, plan=xplan)
+    step_fn = make_train_step(loss, tcfg,
+                              decay=tree_map(lambda x: x.ndim >= 2, params))
+    state = init_train_state(params, tcfg)
+    batches = [whisper_batch(cfg, clips, SEED + 42 + i)
+               for i in range(steps)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    hist, step_s = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, b)
+        hist.append(float(metrics["loss"]))
+        step_s.append(time.perf_counter() - t0)
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(x) for x in hist):
+        raise AssertionError(f"Whisper losses {hist}")
+    nc = steps * (n_enc + n_dec)
+    expect_only(launches, {"flow_nc_fused": nc, "flow_nc_qside_bwd": nc,
+                           "flow_fused": steps * n_dec,
+                           "flow_fused_bwd": steps * n_dec},
+                "Whisper training")
+    step_ms = 1e3 * statistics.median(step_s[1:])
+    stats = {"steps": steps, "clips": clips, "frames": WHISPER_FRAMES,
+             "dec_tokens": WHISPER_DEC, "backend": be.name, "history": hist,
+             "first_step_ms": 1e3 * step_s[0], "step_ms": step_ms,
+             "clips_per_s": clips / step_ms * 1e3,
+             "peak_gb": peak / 1e9, "launches": launches}
+    print("[Whisper bf16 training] " + json.dumps(stats), flush=True)
+    b = batches[0]
+    stats["profile"] = device_profile(
+        repeat(lambda: float(step_fn(state, b)[1]["loss"]), 2), step_ms,
+        {**K6_KEYS, "k1_ms": K12["k1_ms_per_step"],
+         "k2_ms": K12["k2_ms_per_step"]}, "Whisper training step")
+    return stats
+
+
+def whisper_fp32_both_paths(cfg) -> dict:
+    """Phase 26b: ``whisper_small`` at full width with one encoder and one
+    decoder layer, fp32, on the kernels and on the plain path
+    (``backend="plain"``): WHISPER_FP32_CLIPS clips of WHISPER_FRAMES
+    frames greedy-decoded for WHISPER_FP32_TOKENS tokens, the tokens
+    equal; WHISPER_FP32_STEPS AdamW steps of those clips with WHISPER_DEC
+    tokens, the losses and every gradient of the first step within phase
+    21b's bounds (each leaf non-zero on the kernels); and K6 at one sink
+    row against the memory (the decode's cross-attention, NQ = 1, M =
+    WHISPER_FRAMES, on the layer's own projections) against its plain
+    version, bf16 and fp32."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.flow_nc import (flow_nc_fused_call,
+                                             flow_nc_fused_ref)
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.layers.attention import _split_heads, plan_of
+    from repro_torch.layers.linear import dense
+    from repro_torch.layers.norms import apply_norm
+    from repro_torch.models import encdec
+    from repro_torch.training.train_state import (TrainConfig,
+                                                  init_train_state,
+                                                  make_train_step)
+    from repro_torch.utils import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(cfg, n_layers=1, n_encoder_layers=1)
+    clips, toks, steps = (WHISPER_FP32_CLIPS, WHISPER_FP32_TOKENS,
+                          WHISPER_FP32_STEPS)
+    f32 = torch.float32
+    params = encdec.init(cfg, torch.Generator().manual_seed(SEED + 2),
+                         device=DEVICE)
+    batch = whisper_batch(cfg, clips, SEED + 50)
+    start = whisper_start(cfg, clips)
+    hist, grads, tokens, memory = {}, {}, {}, {}
+    for backend in ("auto", "plain"):
+        c = dataclasses.replace(cfg, attention=dataclasses.replace(
+            cfg.attention, backend=backend))
+        ex = encdec.executors(c, plan_of(c, needs_grad=True))
+        leaves = tree_map(lambda x: x.detach().clone().requires_grad_(True),
+                          params)
+        reset_launches()
+        loss, _ = encdec.loss_fn(leaves, batch, c, dtype=f32, plan=ex)
+        flat = torch.autograd.grad(loss, tree_leaves(leaves))
+        grads[backend] = {f"leaf {i}": g for i, g in enumerate(flat)}
+        tcfg = TrainConfig(total_steps=10, warmup=5, fused_value_grad=True,
+                           compute_dtype=f32)
+        step_fn = make_train_step(
+            steps_lib.model_loss_fn(c, dtype=f32, plan=ex), tcfg,
+            decay=tree_map(lambda x: x.ndim >= 2, params))
+        state = init_train_state(tree_map(torch.clone, params), tcfg)
+        hist[backend] = []
+        for _ in range(steps):
+            state, metrics = step_fn(state, batch)
+            hist[backend].append(float(metrics["loss"]))
+        with torch.inference_mode():  # serving binds without needs_grad
+            serve = encdec.executors(c)
+            memory[backend] = encdec.encode(params, batch["frames"], c,
+                                            dtype=f32, plan=serve)
+            tokens[backend], _ = encdec.greedy_decode(
+                params, memory[backend], start, c, toks, dtype=f32,
+                plan=serve)
+        want = ({"flow_nc_fused": 2 * (steps + 1) + 1 + toks,
+                 "flow_nc_qside_bwd": 2 * (steps + 1),
+                 "flow_fused": steps + 1, "flow_fused_bwd": steps + 1,
+                 "flow_decode": toks} if backend == "auto" else {})
+        expect_only(dict(LAUNCHES), want, f"fp32 Whisper, {backend}")
+    if not torch.equal(tokens["auto"], tokens["plain"]):
+        diff = (tokens["auto"] != tokens["plain"]).nonzero()[0].tolist()
+        raise AssertionError(f"fp32 Whisper greedy tokens differ first at "
+                             f"clip {diff[0]}, token {diff[1]}")
+    worst = losses_and_grads_agree("fp32 Whisper", hist, grads)
+    # K6 at the decode's cross-attention shape, on the layer's projections
+    # of the memory and of the start token's normed embedding
+    bp = params["decoder"][0]
+    x = apply_norm(bp["norm_x"],
+                   params["embed"]["table"][start[:, 0]][:, None], cfg.norm)
+    q = _split_heads(dense(bp["cross_attn"]["wq"], x), cfg.n_heads)
+    k = _split_heads(dense(bp["cross_attn"]["wk"], memory["auto"]),
+                     cfg.kv_heads)
+    v = _split_heads(dense(bp["cross_attn"]["wv"], memory["auto"]),
+                     cfg.kv_heads)
+    hd, m = cfg.dim_head, memory["auto"].shape[1]
+    k6 = {}
+    with torch.inference_mode():
+        for dtype in (torch.bfloat16, f32):
+            qf = q.reshape(-1, 1, hd).to(dtype).contiguous()
+            kf = k.reshape(-1, m, hd).to(dtype).contiguous()
+            vf = v.reshape(-1, m, hd).to(dtype).contiguous()
+            k6[str(dtype)[6:]] = max_err_scaled(
+                f"flow_nc_fused {str(dtype)[6:]} NQ=1 M={m} (decode)",
+                flow_nc_fused_call(qf, kf, vf),
+                flow_nc_fused_ref(qf, kf, vf), TOL[dtype])
+    n_tok = tokens["auto"].numel()
+    print(f"[Whisper fp32] kernels vs plain, one encoder and one decoder "
+          f"layer: {n_tok} greedy tokens of {clips} clips equal; losses "
+          f"{hist['auto']} vs {hist['plain']} over {steps} steps of {clips} "
+          f"x ({WHISPER_FRAMES}, {WHISPER_DEC}); all {len(grads['auto'])} "
+          f"gradients of step 1 non-zero, worst |diff| / max |grad| "
+          f"{worst:.3e}; K6 at NQ = 1, M = {m} on the layer's projections: "
+          + json.dumps(k6), flush=True)
+    return {"worst_grad": worst, "k6_nq1": k6}
+
+
+def serve_granite_full_width(cfg) -> dict:
+    """Phases 27 and 27b: ``granite_8b`` at full width (d 4096, 32 query
+    heads over 8 kv heads of 128, d_ff 14,336 swiglu, vocab 49,152,
+    rmsnorm, untied head) with its depth cut to GRANITE_LAYERS of 36:
+    phase 5's traffic through the bf16 Engine (K1 and K3 at G = 4, D =
+    128: exactly one K1 a layer and admission round and one K3 a layer and
+    decode step), then ``torch.profiler`` over decode steps; then phase
+    6's fp32 greedy requests on the kernels and on the plain path, tokens
+    equal."""
+    from repro_torch.models import lm
+    from repro_torch.utils import tree_leaves
+
+    cfg = dataclasses.replace(cfg, n_layers=GRANITE_LAYERS)
+    params = lm.init(cfg, torch.Generator().manual_seed(SEED),
+                     device=DEVICE)
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    stats = serve_full_width(params, cfg)
+    stats["n_params"] = n_params
+    stats["depth"] = f"{GRANITE_LAYERS} of 36 layers"
+    stats["profile"] = profile_decode(
+        params, cfg, 1e3 * stats["decode_s"] / stats["decode_steps"])
+    print(f"[granite_8b serving] {n_params:,} parameters, "
+          f"{stats['depth']}: decode {stats['decode_tok_per_s']:.1f} tok/s, "
+          f"prefill {stats['prefill_tok_per_s']:.1f} tok/s", flush=True)
+    serve_fp32_both_paths(params, cfg)
+    del params
+    torch.cuda.empty_cache()
+    return stats
+
+
+def check_whisper_granite_shapes() -> dict:
+    """Phase 3g: the kernels at the shapes phases 26 and 27 give them,
+    against their plain versions, bf16 and fp32: K6 at Whisper's decode
+    cross-attention (8 clips x 12 heads, NQ = 1 against M = 1,500; also
+    against its cluster twin, 15 of 16 blocks owning no sink), its
+    training cross-attention (NQ = 448, M = 1,500), its encoder (NQ = M =
+    1,500) and the long encode (12 heads, NQ = M = 32,768); K7b at the
+    cross-attention's and the encoder's backward (NQ = 448 and 1,500
+    against M = 1,500; also against its twin); K1 and K2 at the decoder's
+    training shape (96 rows, G = 1, N = 448 padded to 512, D = 64); K1 at
+    granite's packed prefill (16 rows x 8 kv heads, G = 4, N = 384, D =
+    128, ragged lengths 16-384); K3 over 32 steps at granite's pool (16
+    slots x 8 kv heads, G = 4, D = 128) and Whisper's (8 slots x 12
+    heads, G = 1, D = 64).  Returns the bf16 errors of the new rows."""
+    from repro_torch.attention.recurrent import FlowState, decode_step
+    from repro_torch.attention.vjp import nc_key_side
+    from repro_torch.core.flow_attention import FlowConfig
+    from repro_torch.kernels.flow_decode import flow_decode_step
+    from repro_torch.kernels.flow_fused import (flow_fused_bwd_call,
+                                                flow_fused_bwd_ref,
+                                                flow_fused_call, flow_fused_ref)
+    from repro_torch.kernels.flow_nc import (flow_nc_fused_call,
+                                             flow_nc_fused_parallel,
+                                             flow_nc_fused_ref,
+                                             flow_nc_qside_bwd_call,
+                                             flow_nc_qside_bwd_parallel,
+                                             flow_nc_qside_bwd_ref)
+    from repro_torch.kernels.flow_nc.ops import bwd_rows, cluster_blocks
+
+    errs = {}
+    bh = WHISPER_CLIPS * 12
+    with torch.no_grad():
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype)[6:]
+            for bh_, nq, m in ((bh, 1, WHISPER_FRAMES),
+                               (bh, WHISPER_DEC, WHISPER_FRAMES),
+                               (bh, WHISPER_FRAMES, WHISPER_FRAMES),
+                               (12, WHISPER_LONG, WHISPER_LONG)):
+                q, k, v, g = nc_inputs(dtype, bh_, nq, m, 64, SEED + 60 + nq)
+                tag = f"{name} BH={bh_} NQ={nq} M={m}"
+                got = flow_nc_fused_call(q, k, v)
+                e6 = max_err_scaled(f"flow_nc_fused {tag} out", got,
+                                    flow_nc_fused_ref(q, k, v), TOL[dtype])
+                line = f"[K6] {tag}: {e6:.3e}"
+                if nq == 1:
+                    twin = flow_nc_fused_parallel(
+                        q, k, v, cb=cluster_blocks(nq, m, 64))
+                    e_twin = max_err_scaled(f"flow_nc_fused {tag} vs twin",
+                                            got, twin, TOL[dtype])
+                    line += f" (vs its cluster twin {e_twin:.3e})"
+                    if dtype == torch.bfloat16:
+                        errs["flow_nc_fused_nq1"] = e6
+                if nq in (WHISPER_DEC, WHISPER_FRAMES) and bh_ == bh:
+                    kw = dict(n_sinks=nq, m_sources=m)
+                    key = nc_key_side(q, k, v, 1e-6, True)
+                    got_b = flow_nc_qside_bwd_call(q, *key, g, **kw)
+                    want_b = flow_nc_qside_bwd_ref(q, *key, g, **kw)
+                    twin_b = flow_nc_qside_bwd_parallel(
+                        q, *key, g, rows=bwd_rows(bh_, nq, 64, dtype), **kw)
+                    names = ("dq", "dk_sum", "dko_sum", "dkv")
+                    e7 = max(max_err_scaled(f"flow_nc_qside_bwd {tag} {n_}",
+                                            a, b, TOL[dtype])
+                             for n_, a, b in zip(names, got_b, want_b))
+                    rel = {n_: twin_close(f"flow_nc_qside_bwd {tag} {n_} "
+                                          "vs twin", a, b, K7B_TWIN_RTOL)
+                           for n_, a, b in zip(names, got_b, twin_b)
+                           if a.dtype == torch.float32}
+                    line += (f"; K7b {e7:.3e}, |kernel - twin| / max |twin| "
+                             + json.dumps(rel))
+                torch.cuda.synchronize()
+                print(line, flush=True)
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype)[6:]
+            # K1 at granite's packed prefill: G = 4, D = 128
+            q, k, v, lens = k1_inputs(dtype, rows=16, hkv=8, g=4, n=384,
+                                      d=128, seed=SEED + 61)
+            out, sums = flow_fused_call(q, k, v, lens, chunk=128)
+            ref_out, ref_sums = flow_fused_ref(q, k, v, lens, chunk=128)
+            tag = f"flow_fused {name} BH=128 G=4 N=384 D=128"
+            e1 = max_err(f"{tag} out", out, ref_out, TOL[dtype])
+            worst = max(max_err(f"{tag} {n_}", a, b, STATE_TOL)
+                        for n_, a, b in zip(STATE_FIELDS, sums, ref_sums))
+            torch.cuda.synchronize()
+            print(f"[K1] {tag}: out {e1:.3e}, state {worst:.3e}", flush=True)
+            if dtype == torch.bfloat16:
+                errs["flow_fused_g4_d128"] = e1
+            # K1 and K2 at Whisper's decoder training shape
+            args, kw = k2_case(dtype, bh, 1, 512, 64, 128, WHISPER_DEC,
+                               "sigmoid", SEED + 62, False)
+            q, k, v, lens = args[:4]
+            out, _ = flow_fused_call(q, k, v, lens, chunk=128)
+            ref_out, _ = flow_fused_ref(q, k, v, lens, chunk=128)
+            e1 = max_err(f"flow_fused {name} BH={bh} N=448 (512)", out,
+                         ref_out, TOL[dtype])
+            got = flow_fused_bwd_call(*args, **kw)
+            want = flow_fused_bwd_ref(*args[:4], *args[5:], **kw)
+            e2 = max(max_err(f"flow_fused_bwd {name} BH={bh} N=448 {n_}", a,
+                             b, TOL[dtype])
+                     for n_, a, b in zip(("dq", "dk", "dv"), got, want))
+            torch.cuda.synchronize()
+            print(f"[K1/K2] {name} BH={bh} G=1 N=448 (512) D=64: K1 out "
+                  f"{e1:.3e}, K2 grads {e2:.3e}", flush=True)
+    # K3 over 32 steps at granite's and Whisper's pools
+    cfg = FlowConfig(causal=True, strict_causal=True)
+    with torch.inference_mode():
+        for slots, hkv, g, d in ((16, 8, 4, 128), (WHISPER_CLIPS, 12, 1, 64)):
+            for dtype in (torch.bfloat16, torch.float32):
+                pool = decode_pool(slots, hkv, d, SEED + 63)
+                plain = FlowState(*(x.clone() for x in pool))
+                gen = torch.Generator(device=DEVICE).manual_seed(SEED + 64)
+                tag = (f"flow_decode {str(dtype)[6:]} {slots} slots x {hkv} "
+                       f"kv heads G={g} D={d}")
+                err = 0.0
+                for step in range(32):
+                    q, k, v = decode_token(gen, slots, hkv, g, d, dtype)
+                    _, out = flow_decode_step(pool, q, k, v, cfg)
+                    plain, ref = decode_step(plain, q, k, v, cfg)
+                    err = max(err, max_err(f"{tag} out step {step}", out,
+                                           ref, TOL[dtype]))
+                worst = max(max_err(f"{tag} {n_} after 32 steps",
+                                    getattr(pool, n_), getattr(plain, n_),
+                                    STATE_TOL) for n_ in STATE_FIELDS)
+                torch.cuda.synchronize()
+                print(f"[K3] {tag} x 32 steps: out {err:.3e}, state "
+                      f"{worst:.3e}", flush=True)
+                if dtype == torch.bfloat16 and g == 4:
+                    errs["flow_decode_g4_d128"] = err
+    return errs
+
+
+def time_whisper_granite_kernels(whisper: dict, granite: dict,
+                                 errs: dict) -> list:
+    """Phase 9, the new shapes: K6 at one Whisper decode step's
+    cross-attention of one layer (8 clips x 12 heads, NQ = 1, M = 1,500,
+    bf16), K1 at one granite admission of 16 prompts (8 kv heads, G = 4,
+    N = 384, D = 128, bf16, phase 3g's ragged lengths) and K3 at one
+    granite decode step of the 16-slot pool (G = 4, D = 128); each beside
+    its plain version and its bound; ``launches`` are phase 26's greedy
+    decode's (K6) and phase 27's (K1, K3)."""
+    from repro_torch.attention.recurrent import decode_step
+    from repro_torch.core.flow_attention import FlowConfig
+    from repro_torch.kernels.flow_decode import flow_decode_call
+    from repro_torch.kernels.flow_fused import flow_fused_call, flow_fused_ref
+    from repro_torch.kernels.flow_nc import (flow_nc_fused_call,
+                                             flow_nc_fused_ref)
+
+    rows = []
+    bh, m, d = WHISPER_CLIPS * 12, WHISPER_FRAMES, 64
+    with torch.inference_mode():
+        q, k, v, _ = nc_inputs(torch.bfloat16, bh, 1, m, d, SEED + 65)
+        b_k6 = bh * (1 + 2 * m + 1) * d * 2
+        bound_ms, by = bound(b_k6, bh * nc_one_sink_ops(m, d, d))
+        rows.append({
+            "name": "flow_nc_fused_nq1", "route": "cuda",
+            "source": "src/repro_torch/csrc/flow_nc_fused.cu",
+            "replaces": "src/repro/kernels/flow_nc/fused.py:159",
+            "launches": whisper["decode_launches"]["flow_nc_fused"],
+            "max_abs_err": errs["flow_nc_fused_nq1"],
+            "ms": time_ms(lambda: flow_nc_fused_call(q, k, v)),
+            "plain_ms": time_ms(lambda: flow_nc_fused_ref(q, k, v)),
+            "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
+            "shape": "8 clips x 12 heads, NQ = 1, M = 1,500, D = 64, bf16"})
+        q, k, v, lens = k1_inputs(torch.bfloat16, rows=16, hkv=8, g=4,
+                                  n=384, d=128, seed=SEED + 61)
+        bh_, g, n, d = q.shape
+        valid = int(lens.sum())
+        st_bytes = bh_ * (4 * d + 1 + d * d) * 4
+        b_k1 = (valid * (g * d + 2 * d) * 2 + bh_ * g * n * d * 2 + st_bytes
+                + bh_ * 4)
+        bound_ms, by = bound(b_k1, valid * flow_ops_per_position(g, d, d))
+        rows.append({
+            "name": "flow_fused_g4_d128", "route": "cuda",
+            "source": "src/repro_torch/csrc/flow_fused.cu",
+            "replaces": "src/repro/kernels/flow_fused/flow_fused.py:207",
+            "launches": granite["launches"]["flow_fused"],
+            "max_abs_err": errs["flow_fused_g4_d128"],
+            "ms": time_ms(lambda: flow_fused_call(q, k, v, lens, chunk=128)),
+            "plain_ms": time_ms(lambda: flow_fused_ref(q, k, v, lens,
+                                                       chunk=128)),
+            "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
+            "shape": "16 prompts x 8 kv heads, G = 4, N = 384, D = 128, "
+                     "bf16"})
+        slots, hkv, g, d = 16, 8, 4, 128
+        pool = decode_pool(slots, hkv, d, SEED + 66)
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 67)
+        tq, tk, tv = decode_token(gen, slots, hkv, g, d, torch.bfloat16)
+        bh_ = slots * hkv
+        args = (pool.t, tq.reshape(bh_, g, d), tk.reshape(bh_, d),
+                tv.reshape(bh_, d), *flat_pool(pool))
+        cfg = FlowConfig(causal=True, strict_causal=True)
+        b_k3 = (2 * bh_ * (4 * d + 1 + d * d) * 4
+                + bh_ * (2 * g * d + 2 * d) * 2 + slots * 4)
+        bound_ms, by = bound(b_k3, bh_ * flow_ops_per_position(g, d, d))
+        rows.append({
+            "name": "flow_decode_g4_d128", "route": "cuda",
+            "source": "src/repro_torch/csrc/flow_decode.cu",
+            "replaces": "src/repro/kernels/flow_decode/flow_decode.py:137",
+            "launches": granite["launches"]["flow_decode"],
+            "max_abs_err": errs["flow_decode_g4_d128"],
+            "ms": time_ms(lambda: flow_decode_call(*args, hkv=hkv)),
+            "plain_ms": time_ms(lambda: decode_step(pool, tq, tk, tv, cfg)),
+            "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
+            "shape": "16 slots x 8 kv heads, G = 4, D = 128, bf16 tokens"})
+    print("[Whisper and granite shapes] " + json.dumps(rows), flush=True)
+    return rows
 
 
 # --- the mamba2_1p3b slice: K9, K10a, K10b -----------------------------------
@@ -3603,6 +4181,17 @@ def nc_fused_ops(nq: int, m: int, d: int, dv: int) -> int:
     return (m * (2 * d * dv + 7 * d + dv) + nq * (2 * d * dv + 9 * d + dv))
 
 
+def nc_one_sink_ops(m: int, d: int, dv: int) -> int:
+    """fp32 operations that the non-causal pair needs for one (row, kv
+    head) at a single sink row, where no D x Dv product is needed:
+    phi(q) . (phi(k)^T v_hat) is the sum of v_hat_j weighted by phi(q) .
+    phi(k_j), which is the outflow dot.  Per source row D for k_sum, 2 D
+    for the outflow dot, 2 D for ko_sum, 2 D for cons_src, Dv for v * e
+    and 2 Dv for the weighted sum; at the sink 9 D for its dots and sums
+    and Dv for the scale."""
+    return m * (7 * d + 3 * dv) + 9 * d + dv
+
+
 def nc_qside_ops(n: int, d: int, dv: int, backward: bool) -> int:
     """fp32 operations of K7a (2 D Dv for phi @ kv, 4 D for the two flow
     dots, Dv for the scale per row) or K7b (6 D Dv for phi @ kv, u @ kv^T
@@ -4316,7 +4905,8 @@ def main() -> int:
             "flow_decode": check_flow_decode()["max_abs_err"],
             "flow_decode_q": check_flow_decode_q()["max_abs_err"],
             **check_ssd(),
-            **check_paged_gather()}
+            **check_paged_gather(),
+            **check_whisper_granite_shapes()}
     mark("kernel checks")
 
     from repro_torch.configs import get_config
@@ -4391,6 +4981,21 @@ def main() -> int:
     table7 = train_table7()
     torch.cuda.empty_cache()
     mark("flowformer_dt training and Table 7")
+    whisper = get_config("whisper_small")
+    from repro_torch.models import encdec
+
+    params = encdec.init(whisper, torch.Generator().manual_seed(SEED),
+                         device=DEVICE)
+    heard = serve_whisper_full_width(params, whisper)
+    del params
+    torch.cuda.empty_cache()
+    taught = train_whisper_full_width(whisper)
+    torch.cuda.empty_cache()
+    whisper_fp32_both_paths(whisper)
+    torch.cuda.empty_cache()
+    mark("whisper_small serving and training")
+    granite = serve_granite_full_width(get_config("granite_8b"))
+    mark("granite_8b serving")
     mamba = get_config("mamba2_1p3b")
     params = lm.init(mamba, torch.Generator().manual_seed(SEED),
                      device=DEVICE)
@@ -4412,12 +5017,14 @@ def main() -> int:
     launches = {name: sum(run["launches"][name] for run in (
         stats, quantized, trained, classified, paper, served, ssd_trained,
         paged, paged_q, seen, series, *speculative, lin_served, lin_quant,
-        dt, *(table7[kind] for kind in ("flow", "linear", "softmax"))))
+        dt, *(table7[kind] for kind in ("flow", "linear", "softmax")),
+        heard, taught, granite))
         for name in stats["launches"]}
     torch.cuda.empty_cache()
     rows = (time_kernels(launches, errs) + time_paged_kernels(launches, errs)
             + time_ssd_kernels(launches, errs)
-            + time_d24_kernels(table7, errs))
+            + time_d24_kernels(table7, errs)
+            + time_whisper_granite_kernels(heard, granite, errs))
     mark("kernel times")
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

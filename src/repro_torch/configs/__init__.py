@@ -8,12 +8,15 @@ from __future__ import annotations
 import dataclasses
 import importlib
 
-PORTED_CONFIGS = ("flowformer_dt", "flowformer_lm", "flowformer_lra",
-                  "flowformer_timeseries", "flowformer_vision", "mamba2_1p3b")
+PORTED_CONFIGS = ("deepseek_coder_33b", "flowformer_dt", "flowformer_lm",
+                  "flowformer_lra", "flowformer_timeseries",
+                  "flowformer_vision", "granite_8b", "mamba2_1p3b",
+                  "nemotron_4_15b", "whisper_small")
 
 
 def _module(name: str):
-    name = name.replace("-", "_")
+    # the reference's canonical names: "granite-8b", "mamba2-1.3b", ...
+    name = name.replace("-", "_").replace(".", "p")
     if name not in PORTED_CONFIGS:
         raise ValueError(f"config {name!r} is not ported yet; "
                          f"ported: {PORTED_CONFIGS}")

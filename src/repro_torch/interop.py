@@ -44,6 +44,16 @@ A Decision-Flowformer tree (``repro/models/decision.py``: ``embed_rtg``,
 ``final_norm`` and a dense ``action_head`` with a bias) is never stacked
 either; its ``embed_rtg`` tells it apart, and both directions carry it as
 it is, its block count checked against ``cfg.n_layers``.
+
+An encoder-decoder tree (``repro/models/encdec.py``: ``embed``,
+``enc_pos``, a list of ``encoder`` layers, ``enc_norm``, a list of
+``decoder`` layers, ``final_norm`` and ``head``) is never stacked either;
+its ``encoder`` tells it apart, and both directions carry it as it is,
+its layer counts checked against ``cfg.n_encoder_layers`` (or
+``cfg.n_layers`` where that is 0) and ``cfg.n_layers``.
+
+The FFN's leaves follow ``cfg.act``: a swiglu block also carries
+``w_gate`` beside ``w_in`` and ``w_out``, in every layout.
 """
 from __future__ import annotations
 
@@ -94,6 +104,19 @@ def is_decision(tree: dict) -> bool:
     return "embed_rtg" in tree
 
 
+def is_encdec(tree: dict) -> bool:
+    """True for the encoder-decoder's parameter tree."""
+    return "encoder" in tree
+
+
+def _check_encdec(tree: dict, cfg: ModelConfig):
+    want = (cfg.n_encoder_layers or cfg.n_layers, cfg.n_layers)
+    got = (len(tree["encoder"]), len(tree["decoder"]))
+    if got != want:
+        raise ValueError(f"tree has {got[0]} encoder and {got[1]} decoder "
+                         f"layers, cfg {want[0]} and {want[1]}")
+
+
 def _as_tensor(x):
     return torch.from_numpy(np.array(x, copy=True))
 
@@ -105,6 +128,9 @@ def params_from_numpy(tree: dict, cfg: ModelConfig) -> dict:
         if layers != tuple(cfg.stage_layers):
             raise ValueError(f"tree has stages of {layers} blocks, cfg "
                              f"{tuple(cfg.stage_layers)}")
+        return tree_map(_as_tensor, dict(tree))
+    if is_encdec(tree):
+        _check_encdec(tree, cfg)
         return tree_map(_as_tensor, dict(tree))
     if is_classifier(tree) or is_decision(tree):
         if len(tree["blocks"]) != cfg.n_layers:
@@ -124,6 +150,9 @@ def params_from_numpy(tree: dict, cfg: ModelConfig) -> dict:
 def params_to_numpy(params: dict, cfg: ModelConfig) -> dict:
     """The reference's param tree layout with numpy leaves."""
     p = tree_map(lambda x: x.detach().cpu().numpy(), params)
+    if is_encdec(p):
+        _check_encdec(p, cfg)
+        return p
     if is_classifier(p) or is_vision(p) or is_decision(p):
         return p
     out = {"embed": p["embed"]}

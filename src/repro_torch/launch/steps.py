@@ -1,16 +1,41 @@
-"""Train-step planning for the LM, the counterpart of the parts of
-``repro/launch/steps.py`` that one device needs: the attention shapes of
-a training step, the build-time check that every layer's mixer and the
-attention backend are differentiable, and the microbatch rule of
-``RunPlan.choose``.  Meshes, sharding and the serve steps wait for the
-distribution slice.
+"""Step planning, the counterpart of the parts of ``repro/launch/steps.py``
+that one device needs: the attention shapes of a training step, the
+build-time check that every layer's mixer and the attention backend are
+differentiable, the microbatch rule of ``RunPlan.choose``, and the
+encoder-decoder's steps (``model_loss_fn``, ``prefill_step``,
+``decode_step``) as plain functions of (params, batch).  The LM's loss
+and serve steps are ``models/lm.py``'s own; meshes and sharding wait for
+the distribution slice.
 """
 from __future__ import annotations
+
+import functools
+
+import torch
 
 from repro_torch import attention
 from repro_torch.config import ModelConfig, ShapeSpec
 from repro_torch.layers.attention import flow_cfg_of, plan_of
 from repro_torch.layers.mixer import resolve_mixers
+
+
+def _encdec(cfg: ModelConfig):
+    """``models.encdec``, after checking that ``cfg`` is an
+    encoder-decoder."""
+    from repro_torch.models import encdec
+
+    if cfg.family != "encdec":
+        raise ValueError(f"{cfg.name}: the step builders here serve the "
+                         f"encoder-decoder, not family {cfg.family!r}")
+    return encdec
+
+
+def model_loss_fn(cfg: ModelConfig, *, dtype=torch.bfloat16, plan=None):
+    """``loss_fn(params, batch)`` of the encoder-decoder in ``dtype``, its
+    attention bound once from ``plan``."""
+    encdec = _encdec(cfg)
+    return functools.partial(encdec.loss_fn, cfg=cfg, dtype=dtype,
+                             plan=encdec.executors(cfg, plan))
 
 
 def training_shapes(cfg: ModelConfig, shape: ShapeSpec) -> attention.ShapeInfo:
@@ -42,11 +67,18 @@ def check_flow_trainable(cfg: ModelConfig, shape: ShapeSpec, platform: str,
         return None
     if cfg.attention.kind != "flow":
         raise NotImplementedError("only flow attention is ported")
-    plan = attention.ExecutionPlan(flow=flow_cfg_of(cfg, causal=True),
-                                   packed=xplan.packed,
-                                   needs_grad=xplan.needs_grad)
-    return attention.resolve_for_training(plan, training_shapes(cfg, shape),
-                                          platform)
+
+    def resolve(causal):
+        plan = attention.ExecutionPlan(flow=flow_cfg_of(cfg, causal=causal),
+                                       packed=xplan.packed,
+                                       needs_grad=xplan.needs_grad)
+        return attention.resolve_for_training(
+            plan, training_shapes(cfg, shape), platform)
+
+    be = resolve(True)
+    if cfg.family == "encdec":  # the encoder side trains non-causally too
+        resolve(False)
+    return be
 
 
 def microbatch_for(cfg: ModelConfig, shape: ShapeSpec) -> int:
@@ -58,3 +90,29 @@ def microbatch_for(cfg: ModelConfig, shape: ShapeSpec) -> int:
     while batch * shape.seq_len > budget and batch > 1:
         batch //= 2
     return 0 if batch >= shape.global_batch else batch
+
+
+def prefill_step(cfg: ModelConfig, *, dtype=torch.bfloat16, plan=None):
+    """The serve step that consumes the inputs: ``encdec.encode`` of
+    ``batch["frames"]``, which returns the memory."""
+    encdec = _encdec(cfg)
+    ex = encdec.executors(cfg, plan)
+
+    def step(params, batch):
+        return encdec.encode(params, batch["frames"], cfg, dtype=dtype,
+                             plan=ex)
+    return step
+
+
+def decode_step(cfg: ModelConfig, *, dtype=torch.bfloat16, plan=None):
+    """The one-token serve step: ``encdec.decode_step`` of
+    ``batch["token"]`` on ``batch["memory"]``, ``batch["caches"]`` and
+    ``batch["pos"]``, returning (logits, caches)."""
+    encdec = _encdec(cfg)
+    ex = encdec.executors(cfg, plan)
+
+    def step(params, batch):
+        return encdec.decode_step(params, batch["token"], batch["memory"],
+                                  batch["caches"], cfg, batch["pos"],
+                                  dtype=dtype, plan=ex)
+    return step

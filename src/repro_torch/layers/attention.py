@@ -5,7 +5,9 @@ paper's ablation baseline, Katharopoulos et al.).
 The counterpart of ``repro/layers/attention.py`` for ``kind`` "flow",
 "softmax" and "linear" (``local`` and MLA are refused by name).  Modes:
 
-  * full     -- whole sequence, no cache (``attention``);
+  * full     -- whole sequence, no cache (``attention``); with
+               ``kv_input`` the encoder-decoder's cross-attention, queries
+               from the decoder against keys and values of the memory;
   * prefill  -- whole prompt, returns the decode cache; with ``lengths`` a
                right-padded batch of prompts with per-row boundary caches;
   * decode   -- one token on the cache;
@@ -172,12 +174,16 @@ def _apply_positions(q, k, cfg: ModelConfig, positions):
     raise NotImplementedError(f"rope={cfg.rope!r} is not ported yet")
 
 
-def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig, positions):
-    """Per-head q, k, v with positional encoding applied."""
+def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig, positions,
+                 kv_input: torch.Tensor | None = None):
+    """Per-head q, k, v with positional encoding applied; with
+    ``kv_input``, k and v from it and no positions (cross-attention)."""
+    src = x if kv_input is None else kv_input
     q = _split_heads(dense(params["wq"], x), cfg.n_heads)
-    k = _split_heads(dense(params["wk"], x), cfg.kv_heads)
-    v = _split_heads(dense(params["wv"], x), cfg.kv_heads)
-    q, k = _apply_positions(q, k, cfg, positions)
+    k = _split_heads(dense(params["wk"], src), cfg.kv_heads)
+    v = _split_heads(dense(params["wv"], src), cfg.kv_heads)
+    if kv_input is None:
+        q, k = _apply_positions(q, k, cfg, positions)
     return q, k, v
 
 
@@ -252,10 +258,14 @@ def _linear_kernel(cfg: ModelConfig, plan) -> bool | None:
 
 
 def attention(params, x: torch.Tensor, cfg: ModelConfig, *, causal: bool,
-              positions=None, plan: ExecutionPlan | BoundExecutor | None = None):
-    """Full-sequence attention.  x: (B, N, d_model)."""
+              positions=None, kv_input: torch.Tensor | None = None,
+              plan: ExecutionPlan | BoundExecutor | None = None):
+    """Full-sequence attention.  x: (B, N, d_model).  ``kv_input`` (B, M,
+    d_model) is the cross-attention memory (the encoder-decoder): q comes
+    from ``x``, k and v from the memory, and no positions are applied, so
+    the flow executor runs the rectangular case N != M (non-causal)."""
     _require_ported(cfg)
-    q, k, v = _project_qkv(params, x, cfg, positions)
+    q, k, v = _project_qkv(params, x, cfg, positions, kv_input)
     kind = cfg.attention.kind
     if kind == "flow":
         out = _flow_executor(cfg, causal, plan).forward(q, k, v)

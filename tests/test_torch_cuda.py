@@ -1339,3 +1339,136 @@ def test_decision_step_on_the_kernels_matches_plain(gen, kind, width):
     for a, b_ in zip(grads["auto"], grads["plain"]):
         scale = float(b_.abs().max())
         assert float((a - b_).abs().max()) <= 1e-4 * scale + 1e-12
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nq", [1, 448])
+def test_flow_nc_fused_at_whisper_cross_attention(gen, nq, dtype):
+    """K6 at Whisper's cross-attention: one sink row (decode; 15 of the 16
+    blocks of each cluster own none) or 448 (training) against the 1,500
+    encoder frames, D = 64, against its plain version and its twin."""
+    bh, m, d = 24, 1500, 64
+    q = torch.randn((bh, nq, d), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((bh, m, d), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((bh, m, d), generator=gen, device="cuda").to(dtype)
+    reset_launches()
+    out = flow_nc_fused_call(q, k, v)
+    assert LAUNCHES["flow_nc_fused"] == 1
+    for want in (flow_nc_fused_ref(q, k, v),
+                 flow_nc_fused_parallel(q, k, v,
+                                        cb=cluster_blocks(nq, m, d))):
+        # bf16: atol scaled by max |want| (as chip_smoke's max_err_scaled),
+        # since at NQ = 1 the outputs are a sigmoid times a weighted mean
+        # of 1,500 rows of v, ~0.02; capped at the unscaled 1e-2
+        scale = float(want.float().abs().max())
+        tol = TOL if dtype == torch.float32 else dict(
+            rtol=1e-2, atol=1e-2 * min(1.0, scale))
+        torch.testing.assert_close(out.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flow_nc_qside_bwd_at_whisper_cross_attention(gen, dtype):
+    """K7b at the cross-attention's backward: 448 decoder sinks against
+    the key side of 1,500 frames, against its plain version."""
+    bh, n, m, d = 24, 448, 1500, 64
+    q = torch.randn((bh, n, d), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((bh, m, d), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((bh, m, d), generator=gen, device="cuda").to(dtype)
+    g = torch.randn((bh, n, d), generator=gen, device="cuda").to(dtype)
+    key = nc_key_side(q, k, v, 1e-6, True)
+    kw = dict(n_sinks=n, m_sources=m)
+    reset_launches()
+    got = flow_nc_qside_bwd_call(q, *key, g, **kw)
+    assert LAUNCHES["flow_nc_qside_bwd"] == 1
+    want = flow_nc_qside_bwd_ref(q, *key, g, **kw)
+    tol = TOL if dtype == torch.float32 else dict(rtol=1e-2, atol=1e-2)
+    for a, b_ in zip(got, want):
+        scale = float(b_.float().abs().max())
+        torch.testing.assert_close(a.float(), b_.float(), rtol=tol["rtol"],
+                                   atol=tol["atol"] + tol["rtol"] * scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flow_fused_and_decode_at_g4_d128(gen, dtype):
+    """K1 (packed prefill, ragged lengths) and 8 K3 steps at granite_8b's
+    grouping: 8 kv heads of 128, G = 4, against their plain versions."""
+    b, hkv, g, n, d = 4, 8, 4, 384, 128
+    cfg = FlowConfig(causal=True, strict_causal=True, chunk_size=128)
+    q = torch.randn((b, hkv * g, n, d), generator=gen, device="cuda")
+    k = torch.randn((b, hkv, n, d), generator=gen, device="cuda")
+    v = torch.randn((b, hkv, n, d), generator=gen, device="cuda")
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    lengths = torch.tensor([384, 1, 100, 257], dtype=torch.int32,
+                           device="cuda")
+    tol = TOL if dtype == torch.float32 else dict(rtol=1e-2, atol=1e-2)
+    reset_launches()
+    out, st = flow_fused_forward(q, k, v, cfg, return_state=True,
+                                 lengths=lengths)
+    ref, ref_st = fused_causal_forward(q, k, v, cfg, return_state=True,
+                                       lengths=lengths)
+    for i, li in enumerate(lengths.tolist()):
+        torch.testing.assert_close(out[i, :, :li].float(),
+                                   ref[i, :, :li].float(), **tol)
+    for a, b_ in zip(st, ref_st):
+        torch.testing.assert_close(a, b_, **TOL)
+    plain = FlowState(*(x.clone() for x in st))
+    for _ in range(8):
+        tq = torch.randn((b, hkv * g, 1, d), generator=gen,
+                         device="cuda").to(dtype)
+        tk = torch.randn((b, hkv, 1, d), generator=gen,
+                         device="cuda").to(dtype)
+        tv = torch.randn((b, hkv, 1, d), generator=gen,
+                         device="cuda").to(dtype)
+        _, got = flow_decode_step(st, tq, tk, tv, cfg)
+        plain, want = decode_step(plain, tq, tk, tv, cfg)
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+    for a, b_ in zip(st, plain):
+        torch.testing.assert_close(a, b_, **TOL)
+    assert LAUNCHES["flow_fused"] == 1 and LAUNCHES["flow_decode"] == 8
+
+
+def test_whisper_on_the_kernels_matches_plain(gen):
+    """The smoke Whisper in fp32 on the card: the loss and every gradient
+    on the kernels (K6, K7b, K1, K2) against ``backend="plain"``, and 6
+    greedy tokens (K3 and K6 at one sink row a step) equal."""
+    from repro_torch.models import encdec
+    from repro_torch.utils import tree_leaves
+
+    cfg = get_smoke_config("whisper_small")
+    params = encdec.init(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 33))).cuda()
+    batch = {"frames": torch.randn((2, 96, cfg.d_model), generator=gen,
+                                   device="cuda"),
+             "inputs": toks[:, :-1], "targets": toks[:, 1:]}
+    losses, grads, chosen = {}, {}, {}
+    for backend in ("auto", "plain"):
+        c = dataclasses.replace(cfg, attention=dataclasses.replace(
+            cfg.attention, backend=backend))
+        leaves = tree_map(lambda x: x.detach().clone().requires_grad_(True),
+                          params)
+        reset_launches()
+        loss, _ = encdec.loss_fn(leaves, batch, c, dtype=torch.float32,
+                                 plan=encdec.executors(c, plan_of(
+                                     c, needs_grad=True)))
+        grads[backend] = torch.autograd.grad(loss, tree_leaves(leaves))
+        losses[backend] = float(loss)
+        with torch.no_grad():
+            mem = encdec.encode(params, batch["frames"], c,
+                                dtype=torch.float32)
+            chosen[backend], _ = encdec.greedy_decode(
+                params, mem, toks[:, :1], c, 6, dtype=torch.float32)
+        launched = {k_: n_ for k_, n_ in LAUNCHES.items() if n_}
+        if backend == "plain":
+            assert not launched
+        else:
+            # loss: 2 encoder and 2 cross K6 and K7b, 2 K1 and K2; encode:
+            # 2 K6; 6 decode steps: a K3 and a K6 per decoder layer
+            assert launched == {"flow_nc_fused": 4 + 2 + 12,
+                                "flow_nc_qside_bwd": 4, "flow_fused": 2,
+                                "flow_fused_bwd": 2, "flow_decode": 12}
+    assert abs(losses["auto"] - losses["plain"]) <= 1e-4 * abs(losses["plain"])
+    for a, b_ in zip(grads["auto"], grads["plain"]):
+        scale = float(b_.abs().max())
+        assert float((a - b_).abs().max()) <= 1e-4 * scale
+    assert torch.equal(chosen["auto"], chosen["plain"])

@@ -40,7 +40,7 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.layers import mixer as mixer_lib  # noqa: E402
 from repro_torch.layers.attention import plan_of  # noqa: E402
-from repro_torch.models import classifier, vision  # noqa: E402
+from repro_torch.models import classifier, encdec, vision  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.serving.engine import Engine, Request  # noqa: E402
 from repro_torch.serving.quant import QuantizedPool, maybe_quantize  # noqa: E402
@@ -129,6 +129,15 @@ def test_entry_points_refuse_cpu_unless_asked():
             mx.state_init(c, 2, 32)
         pools = lm.init_caches(c, 2, 32, device="cpu")
         assert all(t.device.type == "cpu" for t in tree_leaves(pools))
+    # the encoder-decoder's parameters and decoder pools
+    wcfg = get_smoke_config("whisper_small")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        encdec.init(wcfg, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        encdec.init_dec_caches(wcfg, 2, 32)
+    pools = encdec.init_dec_caches(wcfg, 2, 32, device="cpu")
+    assert len(pools) == wcfg.n_layers
+    assert all(t.device.type == "cpu" for t in tree_leaves(pools))
 
 
 def test_cpu_wrappers_run_the_plain_version_uncounted():
