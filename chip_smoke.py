@@ -92,6 +92,16 @@ any failure raises, so the exit code is non-zero:
      padded to 512, D = 64); K1 at granite's packed prefill (16 rows x 8
      kv heads, G = 4, N = 384, D = 128, ragged lengths); K3 over 32 steps
      at granite's pool (G = 4, D = 128) and Whisper's (8 x 12, D = 64);
+  3h. K1 and K3 at the shapes of phases 28 and 29 and at Nemotron-4-
+     340B's, against their plain versions, bf16 and fp32
+     (``check_wide_shapes``): K1 on ragged lengths (16 prompts, N = 384)
+     at (D, Dv) = (192, 128) with 16 heads, G = 1 (DeepSeek-V2-Lite's MLA),
+     (192, 192) with 8 kv heads, G = 12 (Nemotron-4-340B) and (128, 128)
+     with 8 kv heads, G = 8 (Qwen2-VL); K3 over 32 steps from a non-zero
+     state at each of those 16-slot pools, at every step also against
+     ``flow_decode_split``, and two steps from clones of one pool bitwise
+     equal; DeepSeek-V2-Lite's full-width MoE at 16 x 384 and 16 x 1
+     tokens: two calls bitwise equal (the fixed-order combine);
   4. K3 ``flow_decode`` against its plain version: 16 (the serving pool)
      and 64 slots x 8 kv heads, 32 steps from a non-zero state, updated
      in place; at every step also against ``flow_decode_split`` (the
@@ -274,6 +284,26 @@ any failure raises, so the exit code is non-zero:
      ``torch.profiler`` over decode steps;
   27b. phase 6 for it: fp32 greedy tokens on the kernels equal to the
      plain path's;
+  28. ``deepseek_v2_lite_16b`` at full width (d 2,048; 16 MLA heads, q
+     and k 192 wide (nope 128 + rope 64), v 128, kv LoRA 512; 64 routed
+     experts top-6 plus 2 shared, d_ff_expert 1,408; vocab 102,400;
+     random weights drawn on the card from a seed), its depth cut to 2 of
+     27 layers (~1.59 B parameters), served as phase 5 in bf16: K1 and K3
+     at D = 192, Dv = 128, exactly one K1 a layer and admission round and
+     one K3 a layer and decode step; decode and prefill tokens/s; then
+     ``torch.profiler`` over decode steps (the device's busy share);
+  28b. phase 6 for it: fp32 greedy tokens and, at every layer's MoE, every
+     live token's chosen experts (the valid positions of a prefill, the
+     live slots of a decode step) on the kernels equal to the plain
+     path's; a difference prints the plain router's top-k margin there;
+  29, 29b. the same for ``qwen2_vl_72b`` at full width (d 8,192, 64 query
+     heads over 8 kv heads of 128: K1 and K3 at G = 8; M-RoPE; d_ff 29,568
+     swiglu; vocab 152,064), 2 of 80 layers (~4.28 B parameters), token
+     ids through the table as the reference's Engine serves them;
+  30. ``granite_moe_3b_a800m`` at full width (d 1,536, 24 heads over 8
+     kv heads of 64: G = 3; 40 experts top-8, d_ff_expert 512; vocab
+     49,155), 2 of 32 layers, served as phase 5 in bf16 with its K1 and K3
+     counts;
   13. the Engine serving the full-width mamba2_1p3b (48 layers of SSD,
      random weights from a seed) in bf16, phase 5's traffic: exactly 1 K9
      launch per layer and admission round (``boundary_gather_many`` of the
@@ -350,7 +380,13 @@ any failure raises, so the exit code is non-zero:
      D x D product; launches phase 26's decode's), ``flow_fused_g4_d128`` (K1 at one
      granite admission: 16 x 8 kv heads, G = 4, N = 384, D = 128) and
      ``flow_decode_g4_d128`` (K3 at granite's pool), launches phase 27's;
-     the base rows' launches count phases 26 and 27 too;
+     rows ``flow_fused_d192_dv128``, ``flow_decode_d192_dv128`` (K1 at
+     one DeepSeek-V2-Lite admission of 16 prompts x 16 heads, N = 384, and
+     K3 at its 16-slot pool; launches phase 28's), ``flow_fused_g8_d128``,
+     ``flow_decode_g8_d128`` (Qwen2-VL's 8 kv heads, G = 8; phase 29's)
+     and ``flow_fused_d192_g12``, ``flow_decode_d192_g12`` (Nemotron-4-
+     340B's 8 kv heads of 192, G = 12; no model run reaches them, so 0
+     launches); the base rows' launches count phases 26-30 too;
   12. the last line: ``{"ok": true, "device": {...}}``.
 
 Tolerances (|kernel - plain| <= atol + rtol * |plain|, elementwise):
@@ -394,7 +430,9 @@ copy, and one fp32 product rounded once); phase 18's kernel and plain
 paths: identical tokens (the gathers are exact); paged against dense:
 logits as phase 6b's (the same products over the same gathered length,
 max_len 256 = 4 pages).  Phases 26b and 27b: as phases 21b and 6 (the K6 check at NQ = 1 as
-3c's).  Phase 14 with bf16 conv
+3c's).  Phases 28b and 29b: as phase 6, and every live token's chosen
+experts exactly equal (a near-tied router choice is not excused).  Phase
+14 with bf16 conv
 histories: the t-th token's logits within (1e-4 + 1.5e-3 t) x max |logit|
 -- a history element rounded to the neighbouring bf16 value (the two
 paths sum it at other GEMM shapes) moves the state, and the gap grew by
@@ -505,9 +543,15 @@ def decode_occupancy(name: str) -> dict:
     from repro_torch.kernels import _lib
 
     fn = _lib.function(name, f"{name}_occupancy", [ctypes.c_int] * 3)
-    return {f"{dt}<{d}>": fn(d, code, 1) for dt, code in (("f32", 0),
-                                                          ("bf16", 1))
-            for d in (32, 64, 128)}
+    out = {f"{dt}<{d}>": fn(d, code, 1) for dt, code in (("f32", 0),
+                                                         ("bf16", 1))
+           for d in (32, 64, 128)}
+    if name == "flow_decode":  # K3 at phase 3h's pairs and groups
+        wide = _lib.function(name, f"{name}_occupancy_dv", [ctypes.c_int] * 4)
+        out.update({f"{dt}<{d},{dv}> G={g}": wide(d, dv, code, g)
+                    for dt, code in (("f32", 0), ("bf16", 1))
+                    for _, _, _, g, d, dv in WIDE_SHAPES})
+    return out
 
 
 def ptxas_usage(log: str) -> dict:
@@ -660,15 +704,16 @@ def ragged_lens(rng, rows: int, lo: int, hi: int) -> np.ndarray:
     return rng.integers(lo, hi + 1, rows).astype(np.int32)
 
 
-def k1_inputs(dtype, rows=16, hkv=8, g=1, n=512, d=64, seed=SEED):
-    """q (BH,G,N,D), k, v (BH,N,D) and lens (BH,) on the card; each row's
-    length is drawn like the Engine's prompts (16..384)."""
+def k1_inputs(dtype, rows=16, hkv=8, g=1, n=512, d=64, seed=SEED, dv=None):
+    """q (BH,G,N,D), k (BH,N,D), v (BH,N,Dv; Dv = D unless given) and lens
+    (BH,) on the card; each row's length is drawn like the Engine's prompts
+    (16..384)."""
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     bh = rows * hkv
     mk = lambda *s: torch.randn(s, generator=gen, device=DEVICE).to(dtype)  # noqa: E731
     lens = np.repeat(ragged_lens(np.random.default_rng(seed), rows, 16, 384),
                      hkv)
-    return (mk(bh, g, n, d), mk(bh, n, d), mk(bh, n, d),
+    return (mk(bh, g, n, d), mk(bh, n, d), mk(bh, n, dv or d),
             torch.tensor(lens, device=DEVICE))
 
 
@@ -968,8 +1013,9 @@ def check_flow_chunk() -> dict:
     return {"flow_chunk": e5a, "flow_chunk_dkv": e5b, **d24}
 
 
-def decode_pool(slots, hkv, d, seed):
-    """A non-zero FlowState pool: counts 16..384, sums of that magnitude."""
+def decode_pool(slots, hkv, d, seed, dv=None):
+    """A non-zero FlowState pool: counts 16..384, sums of that magnitude;
+    S is D x Dv (Dv = D unless given)."""
     from repro_torch.attention.recurrent import FlowState
 
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
@@ -981,12 +1027,13 @@ def decode_pool(slots, hkv, d, seed):
         t=t, q_sum=u(slots, hkv, d) * tf, k_sum=u(slots, hkv, d) * tf,
         ko_sum=u(slots, hkv, d) * tf, qi_sum=u(slots, hkv, d) * tf,
         z=u(slots, hkv) * tf[:, :, 0] + 1.0,
-        s=torch.randn((slots, hkv, d, d), generator=gen, device=DEVICE))
+        s=torch.randn((slots, hkv, d, dv or d), generator=gen, device=DEVICE))
 
 
-def decode_token(gen, slots, hkv, g, d, dtype):
+def decode_token(gen, slots, hkv, g, d, dtype, dv=None):
     mk = lambda *s: torch.randn(s, generator=gen, device=DEVICE).to(dtype)  # noqa: E731
-    return mk(slots, hkv * g, 1, d), mk(slots, hkv, 1, d), mk(slots, hkv, 1, d)
+    return (mk(slots, hkv * g, 1, d), mk(slots, hkv, 1, d),
+            mk(slots, hkv, 1, dv or d))
 
 
 def flat_pool(pool):
@@ -1552,13 +1599,76 @@ def profile_decode(params, cfg, step_ms: float, state_dtype=None,
     return device_profile(window, step_ms, keys, tag, host=True)
 
 
+def recording_routes(engine, record: list):
+    """Record every MoE call's chosen experts of the live tokens while
+    ``engine`` runs: ``lm.moe`` wrapped to append (expert ids sorted per
+    token, top-(k+1) router probabilities) of the tokens that a request
+    reads -- the valid positions of a packed prefill (``lm.prefill``'s
+    ``lengths``), the live slots of a decode step (``Worker.step``'s
+    ``live``).  Returns the function that undoes the wrapping."""
+    from repro_torch.layers import moe as moe_lib
+    from repro_torch.models import lm
+
+    real_moe, real_prefill, worker = lm.moe, lm.prefill, engine.worker
+    real_step, live = worker.step, {}
+
+    def moe(p, x, act, mcfg, **kw):
+        probs, _, idx = moe_lib.route(p, x.reshape(-1, x.shape[-1]), mcfg)
+        keep = live["mask"].to(x.device)
+        top = torch.topk(probs[keep], mcfg.top_k + 1, dim=-1).values
+        record.append((torch.sort(idx[keep], dim=-1).values.cpu(), top.cpu()))
+        return real_moe(p, x, act, mcfg, **kw)
+
+    def prefill(p, inputs, c, max_len, *, lengths=None, **kw):
+        n = inputs.shape[1]
+        lens = (torch.full((inputs.shape[0],), n) if lengths is None
+                else lengths.cpu())
+        live["mask"] = (torch.arange(n)[None, :] < lens[:, None]).reshape(-1)
+        return real_prefill(p, inputs, c, max_len, lengths=lengths, **kw)
+
+    def step(tokens, pos, temps, is_live):
+        live["mask"] = torch.as_tensor(np.asarray(is_live, dtype=bool))
+        return real_step(tokens, pos, temps, is_live)
+
+    lm.moe, lm.prefill, worker.step = moe, prefill, step
+
+    def undo():
+        lm.moe, lm.prefill = real_moe, real_prefill
+        worker.step = real_step
+    return undo
+
+
+def routes_agree(tag: str, kernel: list, plain: list) -> int:
+    """Raise at the first live token whose chosen experts differ between
+    the kernel run and the plain run, with the plain run's router top-k
+    margin there (the k-th minus the (k+1)-th probability); returns the
+    token-layer routings compared."""
+    if len(kernel) != len(plain):
+        raise AssertionError(f"{tag}: {len(kernel)} MoE calls on the "
+                             f"kernels, {len(plain)} on the plain path")
+    seen = 0
+    for call, ((ka, _), (pa, ptop)) in enumerate(zip(kernel, plain)):
+        bad = (ka != pa).any(dim=-1).nonzero()
+        if len(bad):
+            i = int(bad[0, 0])
+            margin = float(ptop[i, -2] - ptop[i, -1])
+            print(f"[fp32 experts] {tag}: MoE call {call}, live token {i}: "
+                  f"kernels {ka[i].tolist()}, plain {pa[i].tolist()}, plain "
+                  f"router top-k margin {margin:.3e}", flush=True)
+            raise AssertionError(f"{tag}: chosen experts differ at MoE call "
+                                 f"{call}, token {i}")
+        seen += len(ka)
+    return seen
+
+
 def serve_fp32_both_paths(params, cfg):
-    """Phase 6: fp32 greedy tokens, kernels vs the plain PyTorch path."""
+    """Phase 6: fp32 greedy tokens, kernels vs the plain PyTorch path; on a
+    MoE stack also every live token's chosen experts at every layer."""
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.models import lm
     from repro_torch.serving.engine import Engine
 
-    runs, cfgs = {}, {}
+    runs, cfgs, routes = {}, {}, {}
     for backend in ("auto", "plain"):
         cfgs[backend] = c = dataclasses.replace(
             cfg, attention=dataclasses.replace(cfg.attention, backend=backend))
@@ -1568,12 +1678,24 @@ def serve_fp32_both_paths(params, cfg):
                           cfg.vocab_size, (16, 128), (16, 16)):
             engine.submit(r)
         reset_launches()
-        runs[backend] = {r.uid: r for r in engine.run()}
+        routes[backend] = []
+        undo = (recording_routes(engine, routes[backend])
+                if cfg.moe is not None else (lambda: None))
+        try:
+            runs[backend] = {r.uid: r for r in engine.run()}
+        finally:
+            undo()
         serving = ([LAUNCHES["flow_chunk"]] if cfg.attention.kind == "linear"
                    else [LAUNCHES["flow_fused"], LAUNCHES["flow_decode"]])
         if (backend == "auto" and min(serving) == 0) or (
                 backend == "plain" and max(LAUNCHES.values()) > 0):
             raise AssertionError(f"backend={backend}: launches {LAUNCHES}")
+    if cfg.moe is not None:
+        n_routed = routes_agree(cfg.name, routes["auto"], routes["plain"])
+        print(f"[fp32 experts] {cfg.name}: every live token's {cfg.moe.top_k}"
+              f" experts equal on the kernels and the plain path, "
+              f"{n_routed} token-layer routings over "
+              f"{len(routes['plain'])} MoE calls", flush=True)
     for uid, r in runs["plain"].items():
         got = runs["auto"][uid].generated
         if got == r.generated:
@@ -2940,6 +3062,243 @@ def time_whisper_granite_kernels(whisper: dict, granite: dict,
             "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
             "shape": "16 slots x 8 kv heads, G = 4, D = 128, bf16 tokens"})
     print("[Whisper and granite shapes] " + json.dumps(rows), flush=True)
+    return rows
+
+
+# --- the MoE, MLA and M-RoPE archs: K1 and K3 at D = 192, D != Dv, G = 8, 12 --
+
+#: the depth cut of phases 28-30: 2 of 27 (DeepSeek-V2-Lite), 80
+#: (Qwen2-VL-72B) and 32 (Granite-MoE-3B) layers; widths stay as published
+WIDE_LAYERS = 2
+#: phase 3h's and the new rows' shapes: (tag, prompts or slots, kv heads, G,
+#: D, Dv) of DeepSeek-V2-Lite's MLA heads, Nemotron-4-340B's and
+#: Qwen2-VL-72B's; N = 384 for K1
+WIDE_SHAPES = (("d192_dv128", 16, 16, 1, 192, 128),
+               ("d192_g12", 16, 8, 12, 192, 192),
+               ("g8_d128", 16, 8, 8, 128, 128))
+
+
+def wide_arch(name: str):
+    """The config of ``name`` at full width, its depth cut to
+    WIDE_LAYERS."""
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(name), n_layers=WIDE_LAYERS)
+
+
+def check_wide_shapes() -> dict:
+    """Phase 3h: K1 and K3 at the shapes of phases 28 and 29 and at
+    Nemotron-4-340B's, against their plain versions, bf16 and fp32: K1 on
+    ragged lengths (16 prompts, N = 384) at (D, Dv) = (192, 128) with 16
+    heads, G = 1 (DeepSeek-V2-Lite's MLA), (192, 192) with 8 kv heads, G =
+    12 (Nemotron-4-340B) and (128, 128) with 8 kv heads, G = 8 (Qwen2-VL);
+    K3 over 32 steps from a non-zero state at each of those pools (16
+    slots), at each step also against ``flow_decode_split`` from a copy of
+    the kernel's pre-step pool, and two steps from clones of one pool
+    bitwise equal at each; then DeepSeek-V2-Lite's MoE at full width (64
+    experts top-6, 2 shared, d 2,048, d_ff 1,408) at a prefill's and a
+    decode step's tokens: two calls bitwise equal (the fixed-order
+    combine), bf16 and fp32.  Returns the bf16 errors of the new rows."""
+    from repro_torch.attention.recurrent import FlowState, decode_step
+    from repro_torch.core.flow_attention import FlowConfig
+    from repro_torch.kernels.flow_decode import (flow_decode_split,
+                                                 flow_decode_step)
+    from repro_torch.kernels.flow_fused import flow_fused_call, flow_fused_ref
+    from repro_torch.layers import moe
+    from repro_torch.utils import tree_cast
+
+    errs = {}
+    cfg = FlowConfig(causal=True, strict_causal=True)
+    with torch.inference_mode():
+        for tag, rows, hkv, g, d, dv in WIDE_SHAPES:
+            for dtype in (torch.bfloat16, torch.float32):
+                name = str(dtype)[6:]
+                q, k, v, lens = k1_inputs(dtype, rows=rows, hkv=hkv, g=g,
+                                          n=384, d=d, seed=SEED + 70, dv=dv)
+                out, sums = flow_fused_call(q, k, v, lens, chunk=128)
+                ref_out, ref_sums = flow_fused_ref(q, k, v, lens, chunk=128)
+                what = (f"flow_fused {name} BH={rows * hkv} G={g} N=384 "
+                        f"D={d} Dv={dv}")
+                e1 = max_err(f"{what} out", out, ref_out, TOL[dtype])
+                worst = max(max_err(f"{what} {n_}", a, b, STATE_TOL)
+                            for n_, a, b in zip(STATE_FIELDS, sums, ref_sums))
+                torch.cuda.synchronize()
+                print(f"[K1] {what}: out {e1:.3e}, state {worst:.3e}",
+                      flush=True)
+                pool = decode_pool(rows, hkv, d, SEED + 71, dv=dv)
+                plain = FlowState(*(x.clone() for x in pool))
+                gen = torch.Generator(device=DEVICE).manual_seed(SEED + 72)
+                what = (f"flow_decode {name} {rows} slots x {hkv} kv heads "
+                        f"G={g} D={d} Dv={dv}")
+                bh = rows * hkv
+                e3, e_split = 0.0, 0.0
+                for step in range(32):
+                    tq, tk, tv = decode_token(gen, rows, hkv, g, d, dtype,
+                                              dv=dv)
+                    before = [x.clone() for x in flat_pool(pool)]
+                    split, split_st = flow_decode_split(
+                        pool.t + 1, tq.reshape(bh, g, d), tk.reshape(bh, d),
+                        tv.reshape(bh, dv), *before, hkv=hkv)
+                    _, got = flow_decode_step(pool, tq, tk, tv, cfg)
+                    plain, want = decode_step(plain, tq, tk, tv, cfg)
+                    e3 = max(e3, max_err(f"{what} out step {step}", got,
+                                         want, TOL[dtype]))
+                    e_split = max(e_split, max_err(
+                        f"{what} out step {step} vs split",
+                        got.reshape(split.shape), split, TOL[dtype]))
+                    for n_, a, b in zip(STATE_FLAT, flat_pool(pool),
+                                        split_st):
+                        max_err(f"{what} {n_} step {step} vs split", a, b,
+                                STATE_TOL)
+                worst = max(max_err(f"{what} {n_} after 32 steps",
+                                    getattr(pool, n_), getattr(plain, n_),
+                                    STATE_TOL) for n_ in STATE_FIELDS)
+                # two steps from clones of one pool: bitwise equal
+                tq, tk, tv = decode_token(gen, rows, hkv, g, d, dtype, dv=dv)
+                (a, out_a), (b, out_b) = [
+                    flow_decode_step(FlowState(*(x.clone() for x in pool)),
+                                     tq, tk, tv, cfg) for _ in range(2)]
+                if not (torch.equal(out_a, out_b)
+                        and all(torch.equal(x, y) for x, y in zip(a, b))):
+                    raise AssertionError(f"{what}: two steps from one pool "
+                                         "differ")
+                torch.cuda.synchronize()
+                print(f"[K3] {what} x 32 steps: out {e3:.3e}, state "
+                      f"{worst:.3e}; against flow_decode_split (teacher-"
+                      f"forced) out {e_split:.3e}; two steps from clones "
+                      "bitwise equal", flush=True)
+                if dtype == torch.bfloat16:
+                    errs[f"flow_fused_{tag}"] = e1
+                    errs[f"flow_decode_{tag}"] = e3
+        # the MoE's combine: no atomics, two calls bitwise equal
+        arch = wide_arch("deepseek_v2_lite_16b")
+        mcfg, d_model = arch.moe, arch.d_model
+        params = moe.moe_init(torch.Generator(device=DEVICE).manual_seed(
+            SEED + 73), d_model, arch.d_ff, arch.act, mcfg)
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 74)
+        for dtype in (torch.bfloat16, torch.float32):
+            for b, n in ((16, 384), (16, 1)):
+                x = torch.randn((b, n, d_model), generator=gen,
+                                device=DEVICE).to(dtype)
+                w = tree_cast(params, dtype)
+                (a, aux_a), (b_, aux_b) = [moe.moe(w, x, arch.act, mcfg)
+                                           for _ in range(2)]
+                if not (torch.equal(a, b_) and torch.equal(aux_a, aux_b)):
+                    raise AssertionError(f"moe {dtype} {b} x {n}: two calls "
+                                         "differ")
+        del params
+        torch.cuda.synchronize()
+        print("[MoE] DeepSeek-V2-Lite's MoE (64 experts top-6, 2 shared, d "
+              "2,048) at 16 x 384 and 16 x 1 tokens, bf16 and fp32: two "
+              "calls bitwise equal", flush=True)
+    return errs
+
+
+def serve_wide_full_width(name: str, fp32: bool = True,
+                          profile: bool = True) -> dict:
+    """Phases 28-30: ``name`` at full width, its depth cut to WIDE_LAYERS,
+    random weights drawn on the card from a seed: phase 5's traffic
+    through the bf16 Engine (exactly one K1 a layer and admission round
+    and one K3 a layer and decode step), decode and prefill tokens/s,
+    then ``torch.profiler`` over decode steps (the device's busy share);
+    then phase 6 in fp32 (28b, 29b): greedy tokens, and on a MoE stack
+    every live token's chosen experts, on the kernels equal to the plain
+    path's."""
+    from repro_torch.models import lm
+    from repro_torch.utils import tree_leaves
+
+    cfg = wide_arch(name)
+    params = lm.init(cfg, torch.Generator(device=DEVICE).manual_seed(SEED),
+                     device=DEVICE)
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    torch.cuda.reset_peak_memory_stats()
+    stats = serve_full_width(params, cfg)
+    stats["n_params"] = n_params
+    stats["depth"] = f"{WIDE_LAYERS} layers"
+    if profile:
+        stats["profile"] = profile_decode(
+            params, cfg, 1e3 * stats["decode_s"] / stats["decode_steps"])
+    stats["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    busy = stats.get("profile", {}).get("device_busy_share")
+    print(f"[{cfg.name} serving] {n_params:,} parameters, {stats['depth']}: "
+          f"decode {stats['decode_tok_per_s']:.1f} tok/s, prefill "
+          f"{stats['prefill_tok_per_s']:.1f} tok/s, device busy share of a "
+          f"decode step {busy}, peak {stats['peak_gb']:.1f} GB", flush=True)
+    if fp32:
+        serve_fp32_both_paths(params, cfg)
+    del params
+    torch.cuda.empty_cache()
+    return stats
+
+
+def time_wide_kernels(runs: dict, errs: dict) -> list:
+    """Phase 9, the new shapes: K1 at one admission of 16 prompts of N =
+    384 (phase 3h's ragged lengths, bf16) and K3 at one decode step of the
+    16-slot pool (bf16 tokens) at each of WIDE_SHAPES, each beside its
+    plain version and its bound, K1's with the device ms of each of its
+    four CUDA kernels (``breakdown_ms``); ``launches`` are phase 28's (D = 192, Dv
+    = 128) and 29's (G = 8), and 0 at Nemotron-4-340B's shape, which no
+    model run reaches (its full width does not fit the script's time)."""
+    from repro_torch.attention.recurrent import decode_step
+    from repro_torch.core.flow_attention import FlowConfig
+    from repro_torch.kernels.flow_decode import flow_decode_call
+    from repro_torch.kernels.flow_fused import flow_fused_call, flow_fused_ref
+
+    rows = []
+    cfg = FlowConfig(causal=True, strict_causal=True)
+    launched = {"d192_dv128": runs["deepseek"]["launches"],
+                "g8_d128": runs["qwen2_vl"]["launches"]}
+    with torch.inference_mode():
+        for tag, n_rows, hkv, g, d, dv in WIDE_SHAPES:
+            counts = launched.get(tag, {"flow_fused": 0, "flow_decode": 0})
+            q, k, v, lens = k1_inputs(torch.bfloat16, rows=n_rows, hkv=hkv,
+                                      g=g, n=384, d=d, seed=SEED + 70, dv=dv)
+            bh, n = q.shape[0], q.shape[2]
+            valid = int(lens.sum())
+            st_bytes = bh * (4 * d + 1 + d * dv) * 4
+            b_k1 = (valid * (g * d + d + dv) * 2 + bh * g * n * dv * 2
+                    + st_bytes + bh * 4)
+            bound_ms, by = bound(b_k1, valid * flow_ops_per_position(g, d, dv))
+            shape = (f"{n_rows} prompts x {hkv} kv heads, G = {g}, N = 384, "
+                     f"D = {d}, Dv = {dv}, bf16")
+            rows.append({
+                "name": f"flow_fused_{tag}", "route": "cuda",
+                "source": "src/repro_torch/csrc/flow_fused.cu",
+                "replaces": "src/repro/kernels/flow_fused/flow_fused.py:207",
+                "launches": counts["flow_fused"],
+                "max_abs_err": errs[f"flow_fused_{tag}"],
+                "ms": time_ms(lambda: flow_fused_call(q, k, v, lens,
+                                                      chunk=128)),
+                "plain_ms": time_ms(lambda: flow_fused_ref(q, k, v, lens,
+                                                           chunk=128)),
+                "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
+                "shape": shape,
+                "breakdown_ms": chunk_breakdown(
+                    lambda: flow_fused_call(q, k, v, lens, chunk=128),
+                    "flow_fwd_")})
+            pool = decode_pool(n_rows, hkv, d, SEED + 75, dv=dv)
+            gen = torch.Generator(device=DEVICE).manual_seed(SEED + 76)
+            tq, tk, tv = decode_token(gen, n_rows, hkv, g, d, torch.bfloat16,
+                                      dv=dv)
+            bh = n_rows * hkv
+            args = (pool.t, tq.reshape(bh, g, d), tk.reshape(bh, d),
+                    tv.reshape(bh, dv), *flat_pool(pool))
+            b_k3 = (2 * bh * (4 * d + 1 + d * dv) * 4
+                    + bh * (g * d + d + dv + g * dv) * 2 + n_rows * 4)
+            bound_ms, by = bound(b_k3, bh * flow_ops_per_position(g, d, dv))
+            rows.append({
+                "name": f"flow_decode_{tag}", "route": "cuda",
+                "source": "src/repro_torch/csrc/flow_decode.cu",
+                "replaces": "src/repro/kernels/flow_decode/flow_decode.py:137",
+                "launches": counts["flow_decode"],
+                "max_abs_err": errs[f"flow_decode_{tag}"],
+                "ms": time_ms(lambda: flow_decode_call(*args, hkv=hkv)),
+                "plain_ms": time_ms(lambda: decode_step(pool, tq, tk, tv,
+                                                        cfg)),
+                "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
+                "shape": f"{n_rows} slots x {hkv} kv heads, G = {g}, D = {d}, "
+                         f"Dv = {dv}, bf16 tokens"})
+    print("[MoE, MLA and M-RoPE shapes] " + json.dumps(rows), flush=True)
     return rows
 
 
@@ -4906,7 +5265,8 @@ def main() -> int:
             "flow_decode_q": check_flow_decode_q()["max_abs_err"],
             **check_ssd(),
             **check_paged_gather(),
-            **check_whisper_granite_shapes()}
+            **check_whisper_granite_shapes(),
+            **check_wide_shapes()}
     mark("kernel checks")
 
     from repro_torch.configs import get_config
@@ -4996,6 +5356,13 @@ def main() -> int:
     mark("whisper_small serving and training")
     granite = serve_granite_full_width(get_config("granite_8b"))
     mark("granite_8b serving")
+    deepseek = serve_wide_full_width("deepseek_v2_lite_16b")
+    mark("deepseek_v2_lite_16b serving")
+    qwen = serve_wide_full_width("qwen2_vl_72b")
+    mark("qwen2_vl_72b serving")
+    granite_moe = serve_wide_full_width("granite_moe_3b_a800m", fp32=False,
+                                        profile=False)
+    mark("granite_moe_3b_a800m serving")
     mamba = get_config("mamba2_1p3b")
     params = lm.init(mamba, torch.Generator().manual_seed(SEED),
                      device=DEVICE)
@@ -5018,13 +5385,15 @@ def main() -> int:
         stats, quantized, trained, classified, paper, served, ssd_trained,
         paged, paged_q, seen, series, *speculative, lin_served, lin_quant,
         dt, *(table7[kind] for kind in ("flow", "linear", "softmax")),
-        heard, taught, granite))
+        heard, taught, granite, deepseek, qwen, granite_moe))
         for name in stats["launches"]}
     torch.cuda.empty_cache()
     rows = (time_kernels(launches, errs) + time_paged_kernels(launches, errs)
             + time_ssd_kernels(launches, errs)
             + time_d24_kernels(table7, errs)
-            + time_whisper_granite_kernels(heard, granite, errs))
+            + time_whisper_granite_kernels(heard, granite, errs)
+            + time_wide_kernels({"deepseek": deepseek, "qwen2_vl": qwen},
+                                errs))
     mark("kernel times")
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -25,7 +25,13 @@ result does not depend on the chunk; N is padded to K1's chunk and
 ``lens`` masks the tail) and ``cuda_chunk`` for every causal mode (K5a's
 chunk; zero rows add nothing to the dot).  Both also take the head dims of
 ``_lib.PADDED_HEAD_DIMS`` (the Table 7 harness's D = 24) by zero-padding
-to the stored width; the decode kernels do not.  On the CPU the
+to the stored width; the decode kernels do not.  ``cuda_fused`` and
+``cuda_decode`` also take ``_lib.WIDE_PAIRS`` (D = 192 beside Dv = 128 or
+192: the MLA and Nemotron-4-340B heads), where K2 and K4 do not: a plan
+that needs gradients there is refused by ``cuda_fused``'s
+``grad_support`` naming K2, and an int8 pool by ``cuda_decode``'s
+``quant_capable`` naming K4, so ``auto`` raises on the card rather than
+fail in a backward or a decode.  On the CPU the
 plain versions apply; on a CUDA device they apply only when pinned
 (``backend="plain"`` or by name).  So ``auto`` resolves to the kernels on
 a GPU, and a shape no kernel takes raises there with the kernel's own
@@ -70,7 +76,8 @@ from repro_torch.attention import fused, pipeline, recurrent
 from repro_torch.attention.chunked import chunked_causal_dot_grouped
 from repro_torch.attention.dots import causal_dot_grouped
 from repro_torch.attention.registry import Backend, register_backend
-from repro_torch.kernels._lib import HEAD_DIMS, NC_HEAD_DIMS, stored_width
+from repro_torch.kernels._lib import (FUSED_PAIRS, HEAD_DIMS, NC_HEAD_DIMS,
+                                      WIDE_PAIRS, stored_width)
 from repro_torch.kernels.flow_chunk.ops import check_dims
 from repro_torch.serving.quant import (QuantizedPool, dequantize_state,
                                        platform_support, quantize_like)
@@ -112,9 +119,9 @@ class _ChunkedVerifyQuant:
     carry-in once at entry and runs the whole window in fp32, so any
     platform that can store the pool can verify from it."""
 
-    def quant_capable(self, platform, dtype, op="decode"):
+    def quant_capable(self, platform, dtype, op="decode", shapes=None):
         if op != "verify":
-            return super().quant_capable(platform, dtype, op)
+            return super().quant_capable(platform, dtype, op, shapes)
         ok, why = platform_support(dtype, platform)
         if not ok:
             return False, why
@@ -142,21 +149,34 @@ def _check_device(platform):
 
 
 def _check_kernel(shapes, platform):
+    """The device and the (D, Dv) of K1 and K3: D == Dv in ``HEAD_DIMS``,
+    or a pair of ``_lib.WIDE_PAIRS`` (D = 192)."""
     if platform != "cuda":
         return f"CUDA kernel needs a CUDA device (platform={platform!r})"
-    if shapes.d != shapes.dv or shapes.d not in HEAD_DIMS:
-        return (f"kernel takes D == Dv in {HEAD_DIMS}, got "
-                f"D={shapes.d} Dv={shapes.dv}")
+    if (shapes.d, shapes.dv) not in FUSED_PAIRS:
+        return (f"kernel takes D == Dv in {HEAD_DIMS}, or (D, Dv) in "
+                f"{WIDE_PAIRS}, got D={shapes.d} Dv={shapes.dv}")
     return None
 
 
 def _check_fused_kernel(shapes, platform):
-    """``_check_kernel`` for K1 and K2, which also take the head dims of
-    ``_lib.PADDED_HEAD_DIMS`` at their stored width (the wrappers pad)."""
+    """``_check_kernel`` for K1, which takes ``_lib.WIDE_PAIRS`` and the
+    head dims of ``_lib.PADDED_HEAD_DIMS`` at their stored width (the
+    wrappers pad)."""
     if shapes.d == shapes.dv:
         wide = stored_width(shapes.d)
         shapes = dataclasses.replace(shapes, d=wide, dv=wide)
     return _check_kernel(shapes, platform)
+
+
+def _check_k2(shapes):
+    """K2 at K1's ``_lib.WIDE_PAIRS``, which it does not take: K2 stays at
+    D == Dv in ``HEAD_DIMS`` (24 padded to 32)."""
+    if (shapes.d, shapes.dv) in WIDE_PAIRS:
+        return (f"the backward kernel K2 (flow_fused_bwd) takes D == Dv in "
+                f"{HEAD_DIMS} (24 padded to 32), got D={shapes.d} "
+                f"Dv={shapes.dv}: K1 serves these heads forward-only")
+    return None
 
 
 def _check_nc_dims(shapes, platform):
@@ -278,6 +298,12 @@ class CudaFused(_ChunkedVerifyQuant, FusedCausal):
     provides = frozenset({"forward", "prefill", "prefill_packed", "verify"})
     differentiable = frozenset({"forward", "prefill"})
 
+    def grad_support(self, op="forward", shapes=None):
+        # K1 serves _lib.WIDE_PAIRS (D = 192) forward-only: K2 stays at
+        # HEAD_DIMS, so a training plan is refused here, before a forward
+        why = None if shapes is None else _check_k2(shapes)
+        return (False, why) if why else super().grad_support(op, shapes)
+
     def supports(self, cfg, shapes, platform, *, op="forward"):
         if op == "verify":
             # causal_verify launches no kernel, so no kernel shape applies
@@ -397,9 +423,9 @@ class Recurrent(Backend):
             return False, why
         return True, "O(d^2) recurrence"
 
-    def quant_capable(self, platform, dtype, op="decode"):
+    def quant_capable(self, platform, dtype, op="decode", shapes=None):
         if op != "decode":
-            return super().quant_capable(platform, dtype, op)
+            return super().quant_capable(platform, dtype, op, shapes)
         ok, why = platform_support(dtype, platform)
         if not ok:
             return False, why
@@ -442,12 +468,18 @@ class CudaDecode(Recurrent):
             return False, why
         return True, "flow_decode CUDA kernel, state updated in place"
 
-    def quant_capable(self, platform, dtype, op="decode"):
+    def quant_capable(self, platform, dtype, op="decode", shapes=None):
         if op != "decode":
-            return Backend.quant_capable(self, platform, dtype, op)
+            return Backend.quant_capable(self, platform, dtype, op, shapes)
         ok, why = platform_support(dtype, platform)
         if not ok:
             return False, why
+        if shapes is not None and (shapes.d, shapes.dv) in WIDE_PAIRS:
+            # K3 serves these heads from fp32 pools; K4 stays at HEAD_DIMS
+            return False, (f"the int8 pools' kernel K4 (flow_decode_q) takes "
+                           f"D == Dv in {HEAD_DIMS}, got D={shapes.d} "
+                           f"Dv={shapes.dv}: K3 serves these heads from "
+                           "fp32 pools only")
         return True, ("in-kernel dequantize / fp32 accumulate / requantize "
                       f"(flow_decode_q; {why})")
 

@@ -80,15 +80,19 @@ class Backend:
         """Return (applicable: bool, reason: str)."""
         raise NotImplementedError
 
-    def grad_support(self, op: str = "forward"):
-        """(ok, reason): whether autograd flows through ``op``."""
+    def grad_support(self, op: str = "forward", shapes=None):
+        """(ok, reason): whether autograd flows through ``op`` (at
+        ``shapes``, where a backward kernel takes fewer shapes than its
+        forward)."""
         if op in self.differentiable:
             return True, f"differentiable {op}"
         return False, (f"no backward for {op} (forward-only; differentiable "
                        f"ops: {sorted(self.differentiable) or 'none'})")
 
-    def quant_capable(self, platform: str, dtype: str, op: str = "decode"):
-        """(ok, reason): can ``op`` serve a quantized state pool directly?
+    def quant_capable(self, platform: str, dtype: str, op: str = "decode",
+                      shapes=None):
+        """(ok, reason): can ``op`` serve a quantized state pool directly
+        (at ``shapes``, where the quantized kernel takes fewer shapes)?
 
         A quantized plan (``ExecutionPlan.state_dtype`` of int8 or fp8)
         hands the op a ``QuantizedPool`` instead of a ``FlowState``.  The
@@ -194,11 +198,11 @@ def _judge(be: Backend, cfg: FlowConfig, shapes: ShapeInfo, platform: str,
         if not ok:
             return False, why
     if needs_grad:
-        ok, why = be.grad_support(op)
+        ok, why = be.grad_support(op, shapes)
         if not ok:
             return False, why
     if quant is not None:
-        ok, why = be.quant_capable(platform, quant, op=op)
+        ok, why = be.quant_capable(platform, quant, op=op, shapes=shapes)
         if not ok:
             return False, why
     return be.supports(cfg, shapes, platform, op=op)

@@ -8,10 +8,11 @@ from __future__ import annotations
 import dataclasses
 import importlib
 
-PORTED_CONFIGS = ("deepseek_coder_33b", "flowformer_dt", "flowformer_lm",
-                  "flowformer_lra", "flowformer_timeseries",
-                  "flowformer_vision", "granite_8b", "mamba2_1p3b",
-                  "nemotron_4_15b", "whisper_small")
+PORTED_CONFIGS = ("deepseek_coder_33b", "deepseek_v2_lite_16b",
+                  "flowformer_dt", "flowformer_lm", "flowformer_lra",
+                  "flowformer_timeseries", "flowformer_vision", "granite_8b",
+                  "granite_moe_3b_a800m", "mamba2_1p3b", "nemotron_4_15b",
+                  "nemotron_4_340b", "qwen2_vl_72b", "whisper_small")
 
 
 def _module(name: str):

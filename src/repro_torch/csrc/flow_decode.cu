@@ -44,6 +44,16 @@
 // No float atomics: the sums run in a fixed order, and two calls give
 // bitwise-equal results.  Nothing is allocated but the output, which the
 // wrapper allocates.
+//
+// D = 192 (DeepSeek-V2's MLA heads with Dv = 128, Nemotron-4-340B's with
+// Dv = 192) holds S by columns instead (ColShape): each S warp owns eight
+// columns of every row, lane l rows l, l + 32, .. (six of them), so a
+// warp's partial of phi(q) @ S is already the sum over all D rows once a
+// shuffle reduce-scatter has folded its lanes.  One G x Dv row of partials
+// in shared memory, not one per warp: at Nemotron's G = 12 the per-warp
+// partials of the row layout would need 221 KB.  Dv / 8 S warps (16 or 24:
+// 544 or 800 threads a CTA), the chain warp as above with six features a
+// lane, one barrier, the same update and output order.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
@@ -104,11 +114,15 @@ __device__ __forceinline__ void load_f(const float* p, float (&x)[N]) {
       const float4 u = reinterpret_cast<const float4*>(p)[j];
       x[4 * j] = u.x, x[4 * j + 1] = u.y, x[4 * j + 2] = u.z, x[4 * j + 3] = u.w;
     }
-  } else if constexpr (N == 2) {
-    const float2 u = *reinterpret_cast<const float2*>(p);
-    x[0] = u.x, x[1] = u.y;
+  } else if constexpr (N % 2 == 0) {
+#pragma unroll
+    for (int j = 0; j < N / 2; ++j) {
+      const float2 u = reinterpret_cast<const float2*>(p)[j];
+      x[2 * j] = u.x, x[2 * j + 1] = u.y;
+    }
   } else {
-    x[0] = p[0];
+#pragma unroll
+    for (int j = 0; j < N; ++j) x[j] = p[j];
   }
 }
 
@@ -119,10 +133,13 @@ __device__ __forceinline__ void store_f(float* p, const float (&x)[N]) {
     for (int j = 0; j < N / 4; ++j)
       reinterpret_cast<float4*>(p)[j] =
           make_float4(x[4 * j], x[4 * j + 1], x[4 * j + 2], x[4 * j + 3]);
-  } else if constexpr (N == 2) {
-    *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
+  } else if constexpr (N % 2 == 0) {
+#pragma unroll
+    for (int j = 0; j < N / 2; ++j)
+      reinterpret_cast<float2*>(p)[j] = make_float2(x[2 * j], x[2 * j + 1]);
   } else {
-    p[0] = x[0];
+#pragma unroll
+    for (int j = 0; j < N; ++j) p[j] = x[j];
   }
 }
 
@@ -140,14 +157,22 @@ __device__ __forceinline__ void load_f(const __nv_bfloat16* p, float (&x)[N]) {
 #pragma unroll
       for (int h = 0; h < 4; ++h) x[8 * j + 2 * h] = bf_lo(w[h]), x[8 * j + 2 * h + 1] = bf_hi(w[h]);
     }
-  } else if constexpr (N == 4) {
-    const uint2 u = *reinterpret_cast<const uint2*>(p);
-    x[0] = bf_lo(u.x), x[1] = bf_hi(u.x), x[2] = bf_lo(u.y), x[3] = bf_hi(u.y);
-  } else if constexpr (N == 2) {
-    const unsigned u = *reinterpret_cast<const unsigned*>(p);
-    x[0] = bf_lo(u), x[1] = bf_hi(u);
+  } else if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < N / 4; ++j) {
+      const uint2 u = reinterpret_cast<const uint2*>(p)[j];
+      x[4 * j] = bf_lo(u.x), x[4 * j + 1] = bf_hi(u.x), x[4 * j + 2] = bf_lo(u.y),
+      x[4 * j + 3] = bf_hi(u.y);
+    }
+  } else if constexpr (N % 2 == 0) {
+#pragma unroll
+    for (int j = 0; j < N / 2; ++j) {
+      const unsigned u = reinterpret_cast<const unsigned*>(p)[j];
+      x[2 * j] = bf_lo(u), x[2 * j + 1] = bf_hi(u);
+    }
   } else {
-    x[0] = __bfloat162float(p[0]);
+#pragma unroll
+    for (int j = 0; j < N; ++j) x[j] = __bfloat162float(p[j]);
   }
 }
 
@@ -157,6 +182,7 @@ __device__ __forceinline__ void load_f(const __nv_bfloat16* p, float (&x)[N]) {
 // row bits are the top RB bits of the lane.
 template <int D>
 struct Shape {
+  static constexpr bool COLS = false;
   static constexpr int SW = D == 128 ? 16 : 8;  // S warps
   static constexpr int ST = 32 * SW;            // S threads
   static constexpr int THREADS = 32 + ST;       // warp 0 runs the chain
@@ -166,9 +192,43 @@ struct Shape {
   static constexpr int SPR = D / VB, RPW = 32 / SPR, RPL = ST / SPR;
   static constexpr int RB = RPW == 4 ? 2 : RPW == 2 ? 1 : 0;
   static constexpr int NOUT = VB >> RB;  // partial columns a lane ends with
+  static constexpr int PARTS = SW;       // rows of G x Dv partials in shared memory
+  static constexpr int NS = NV, WS = VB;  // S values a thread holds: NS x WS
+  static constexpr int MIN_CTAS = D <= 64 ? 4 : 1;
   static_assert(D % 32 == 0 && F >= 1 && F <= 4 && NV >= 1 && NV * ST * VB == D * D &&
                     (1 << RB) == RPW && ST % D == 0,
                 "S layout");
+};
+
+// How a CTA holds a DK x DV fp32 S by columns (DK = 192): S warp w owns
+// columns [8 w, 8 w + 8) of every row, lane l rows l + 32 i (i < NR); a
+// warp's sums over its lanes are sums over every row.
+template <int DK, int DV>
+struct ColShape {
+  static constexpr bool COLS = true;
+  static constexpr int CW = 8;              // columns an S warp owns
+  static constexpr int SW = DV / CW;        // S warps
+  static constexpr int ST = 32 * SW;        // S threads
+  static constexpr int THREADS = 32 + ST;   // warp 0 runs the chain
+  static constexpr int F = DK / 32;         // features a lane owns in the chain
+  static constexpr int NR = DK / 32;        // rows an S lane owns
+  static constexpr int PARTS = 1;           // the warps' sums are whole
+  static constexpr int NS = NR, WS = CW;    // S values a thread holds: NS x WS
+  static constexpr int MIN_CTAS = 1;
+  static_assert(DK % 32 == 0 && DV % CW == 0 && ST % DV == 0 && THREADS <= 1024, "S layout");
+};
+
+template <int DK, int DV>
+struct ShapeOf {
+  using type = ColShape<DK, DV>;
+};
+template <int D>
+struct ShapeOf<D, D> {
+  using type = Shape<D>;
+};
+template <>
+struct ShapeOf<192, 192> {
+  using type = ColShape<192, 192>;
 };
 
 // Sum x over the warp's row bits (lane bits SPR, 2 SPR, ...), leaving each
@@ -195,48 +255,51 @@ __device__ __forceinline__ int reduce_scatter(float (&x)[VB], int lane) {
   return off;
 }
 
-__host__ __device__ constexpr size_t smem_floats(int sw, int g, int d, bool g1) {
-  return (size_t)sw * g * d        // per-warp partials of phi(q) @ S
-         + 3 * (size_t)g + 2       // sink_in, alloc, phi(q) . phi(k); e, t / z
-         + (g1 ? 0 : (size_t)g * d);  // the chain's phi(q), one lane's own slots
+__host__ __device__ constexpr size_t smem_floats(int parts, int g, int dk, int dv, bool g1,
+                                                bool cols) {
+  return (size_t)parts * g * dv     // partials of phi(q) @ S (per warp in the row layout)
+         + 3 * (size_t)g + 2        // sink_in, alloc, phi(q) . phi(k); e, t / z
+         + (g1 ? 0 : (size_t)g * dk)  // the chain's phi(q), one lane's own slots
+         + (cols ? dv : 0);           // v (the column layout)
 }
 
-template <typename T, int D, bool G1>
-__global__ void __launch_bounds__(Shape<D>::THREADS, D <= 64 ? 4 : 1)
+template <typename T, int DK, int DV, bool G1>
+__global__ void __launch_bounds__(ShapeOf<DK, DV>::type::THREADS,
+                                  ShapeOf<DK, DV>::type::MIN_CTAS)
 flow_decode_kernel(const int* __restrict__ t, const T* __restrict__ q,
                    const T* __restrict__ k, const T* __restrict__ v,
                    float* __restrict__ k_sum, float* __restrict__ q_sum,
                    float* __restrict__ ko_sum, float* __restrict__ qi_sum,
                    float* __restrict__ z, float* __restrict__ s, T* __restrict__ out,
                    int hkv, int G, int phi, int use_alloc, float eps) {
-  using SH = Shape<D>;
-  constexpr int F = SH::F, VB = SH::VB, NV = SH::NV, SW = SH::SW, ST = SH::ST;
+  using SH = typename ShapeOf<DK, DV>::type;
+  constexpr int F = SH::F, SW = SH::SW, ST = SH::ST;
   extern __shared__ float sm[];
-  float* part = sm;                  // SW x G x D
-  float* sink = part + SW * G * D;
+  float* part = sm;                  // PARTS x G x DV
+  float* sink = part + SH::PARTS * G * DV;
   float* alloc = sink + G;
   float* dqk = alloc + G;
   float* scal = dqk + G;             // [0] e, [1] t / z
-  float* qch = scal + 2;             // G x D, G > 1 only
+  float* qch = scal + 2;             // G x DK, G > 1 only
+  float* vsm = qch + (G1 ? 0 : G * DK);  // DV: v (the column layout)
   const int row = blockIdx.x;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int si = threadIdx.x - 32, sw = warp - 1;  // S warps: thread si of ST
-  const T* qb = q + (size_t)row * G * D;
-  const T* kb = k + (size_t)row * D;
-  const T* vb = v + (size_t)row * D;
+  const T* qb = q + (size_t)row * G * DK;
+  const T* kb = k + (size_t)row * DK;
+  const T* vb = v + (size_t)row * DV;
   const int GG = G1 ? 1 : G;
-  float* sb = s + (size_t)row * D * D;
+  float* sb = s + (size_t)row * DK * DV;
 
   // the S warps' values: S, then S_new; phi(k) at their rows, v at their
-  // columns
-  float sn[NV][VB];
-  float kr[NV], vc[VB], v_out = 0.f;
-  const int c0 = (si % SH::SPR) * VB;
+  // columns (the row layout; the column layout reads v from vsm)
+  float sn[SH::NS][SH::WS];
+  float kr[SH::NS], vc[SH::WS], v_out = 0.f;
 
   if (warp == 0) {
     // ---- the flow chain, lane l owning features f0 .. f0 + F - 1 ----
     const int f0 = lane * F;
-    const size_t o = (size_t)row * D + f0;
+    const size_t o = (size_t)row * DK + f0;
     float ks[F], qs[F], kos[F], qis[F];
     load_f<F>(k_sum + o, ks);
     load_f<F>(q_sum + o, qs);
@@ -252,12 +315,12 @@ flow_decode_kernel(const int* __restrict__ t, const T* __restrict__ q,
     if (!G1) {
       for (int g = 0; g < G; ++g) {
         float x[F];
-        load_f<F>(qb + (size_t)g * D + f0, x);
+        load_f<F>(qb + (size_t)g * DK + f0, x);
 #pragma unroll
-        for (int f = 0; f < F; ++f) qch[g * D + f0 + f] = phi_fn(x[f], phi);
+        for (int f = 0; f < F; ++f) qch[g * DK + f0 + f] = phi_fn(x[f], phi);
       }
     }
-    auto pq = [&](int g, int f) { return G1 ? pq0[f] : qch[g * D + f0 + f]; };
+    auto pq = [&](int g, int f) { return G1 ? pq0[f] : qch[g * DK + f0 + f]; };
 
     // level 1: the k and q sums; sink_in, src_out and phi(q) . phi(k)
     float a0 = 0.f, a_out = 0.f, d0 = 0.f;
@@ -324,19 +387,51 @@ flow_decode_kernel(const int* __restrict__ t, const T* __restrict__ q,
       scal[0] = ex;  // e
       scal[1] = r3;  // t / z
     }
+  } else if constexpr (SH::COLS) {
+    // ---- entry of the S warps, column layout: S (two 16-byte loads a
+    // row), phi(k) at the lane's rows, v into shared memory ----
+    constexpr int CW = SH::CW, NR = SH::NR;
+    const int cw0 = sw * CW;
+#pragma unroll
+    for (int i = 0; i < NR; ++i) load_f<CW>(sb + (size_t)(i * 32 + lane) * DV + cw0, sn[i]);
+#pragma unroll
+    for (int i = 0; i < NR; ++i) kr[i] = to_f32(kb[i * 32 + lane]);
+    if (si < DV) vsm[si] = to_f32(vb[si]);
+#pragma unroll
+    for (int i = 0; i < NR; ++i) kr[i] = phi_fn(kr[i], phi);
+    // the warp's columns of phi(q) @ S over every row, from the old S
+    for (int g = 0; g < G; ++g) {
+      float acc[CW];
+#pragma unroll
+      for (int j = 0; j < CW; ++j) acc[j] = 0.f;
+#pragma unroll
+      for (int i = 0; i < NR; ++i) {
+        const float p = phi_fn(to_f32(qb[(size_t)g * DK + i * 32 + lane]), phi);
+#pragma unroll
+        for (int j = 0; j < CW; ++j) acc[j] += p * sn[i][j];
+      }
+      // lane bits 0-2 scatter the eight columns, bits 3-4 sum the rest
+      const int off = reduce_scatter<CW, 3, 1>(acc, lane);
+      acc[0] += __shfl_xor_sync(kFull, acc[0], 8);
+      acc[0] += __shfl_xor_sync(kFull, acc[0], 16);
+      if (lane < CW) part[(size_t)g * DV + cw0 + off] = acc[0];
+    }
   } else {
     // ---- entry of the S warps: every global read, as vector loads ----
+    using RS = SH;
+    constexpr int VB = RS::VB, NV = RS::NV;
+    const int c0 = (si % RS::SPR) * VB;
     float qr[NV];
 #pragma unroll
     for (int i = 0; i < NV; ++i) load_f<VB>(sb + (size_t)(i * ST + si) * VB, sn[i]);
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
-      const int r = i * SH::RPL + si / SH::SPR;
+      const int r = i * RS::RPL + si / RS::SPR;
       kr[i] = to_f32(kb[r]);
       qr[i] = to_f32(qb[r]);  // group 0
     }
     load_f<VB>(vb + c0, vc);
-    v_out = to_f32(vb[si % D]);  // the column of this thread's outputs
+    v_out = to_f32(vb[si % DV]);  // the column of this thread's outputs
     // this warp's partials of phi(q) @ S, from the old S
 #pragma unroll
     for (int i = 0; i < NV; ++i) kr[i] = phi_fn(kr[i], phi);
@@ -347,14 +442,14 @@ flow_decode_kernel(const int* __restrict__ t, const T* __restrict__ q,
 #pragma unroll
       for (int i = 0; i < NV; ++i) {
         const float p = phi_fn(
-            g == 0 ? qr[i] : to_f32(qb[(size_t)g * D + i * SH::RPL + si / SH::SPR]), phi);
+            g == 0 ? qr[i] : to_f32(qb[(size_t)g * DK + i * RS::RPL + si / RS::SPR]), phi);
 #pragma unroll
         for (int j = 0; j < VB; ++j) acc[j] += p * sn[i][j];
       }
-      const int off = reduce_scatter<VB, SH::RB, SH::SPR>(acc, lane);
-      float* dst = part + ((size_t)sw * G + g) * D + c0 + off;
+      const int off = reduce_scatter<VB, RS::RB, RS::SPR>(acc, lane);
+      float* dst = part + ((size_t)sw * G + g) * DV + c0 + off;
 #pragma unroll
-      for (int j = 0; j < SH::NOUT; ++j) dst[j] = acc[j];
+      for (int j = 0; j < RS::NOUT; ++j) dst[j] = acc[j];
     }
   }
   __syncthreads();  // the chain's scalars and every partial
@@ -362,33 +457,54 @@ flow_decode_kernel(const int* __restrict__ t, const T* __restrict__ q,
   if (warp > 0) {
     const float e = scal[0], ratio = scal[1];
     // S_new = S + phi(k) (v e)^T, in place with 16-byte stores
+    if constexpr (SH::COLS) {
+      constexpr int CW = SH::CW, NR = SH::NR;
+      const int cw0 = sw * CW;
 #pragma unroll
-    for (int j = 0; j < VB; ++j) vc[j] = __fmul_rn(vc[j], e);
+      for (int j = 0; j < CW; ++j) vc[j] = __fmul_rn(vsm[cw0 + j], e);
+      v_out = vsm[si % DV];  // the column of this thread's outputs
 #pragma unroll
-    for (int i = 0; i < NV; ++i) {
+      for (int i = 0; i < NR; ++i) {
 #pragma unroll
-      for (int j = 0; j < VB; ++j) sn[i][j] = __fadd_rn(sn[i][j], __fmul_rn(kr[i], vc[j]));
-      store_f<VB>(sb + (size_t)(i * ST + si) * VB, sn[i]);
+        for (int j = 0; j < CW; ++j) sn[i][j] = __fadd_rn(sn[i][j], __fmul_rn(kr[i], vc[j]));
+        store_f<CW>(sb + (size_t)(i * 32 + lane) * DV + cw0, sn[i]);
+      }
+    } else {
+      constexpr int VB = SH::VB, NV = SH::NV;
+#pragma unroll
+      for (int j = 0; j < VB; ++j) vc[j] = __fmul_rn(vc[j], e);
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+#pragma unroll
+        for (int j = 0; j < VB; ++j) sn[i][j] = __fadd_rn(sn[i][j], __fmul_rn(kr[i], vc[j]));
+        store_f<VB>(sb + (size_t)(i * ST + si) * VB, sn[i]);
+      }
     }
-    for (int i = si; i < G * D; i += ST) {
-      const int g = i / D, c = i - g * D;
-      float acc = part[(size_t)g * D + c];
+    for (int i = si; i < G * DV; i += ST) {
+      const int g = i / DV, c = i - g * DV;
+      float acc = part[(size_t)g * DV + c];
 #pragma unroll
-      for (int w = 1; w < SW; ++w) acc += part[((size_t)w * G + g) * D + c];
+      for (int w = 1; w < SH::PARTS; ++w) acc += part[((size_t)w * G + g) * DV + c];
       const float y = sink[g] * (acc + dqk[g] * __fmul_rn(v_out, e));
-      out[(size_t)row * G * D + i] = from_f32<T>(y * ratio * alloc[g]);
+      out[(size_t)row * G * DV + i] = from_f32<T>(y * ratio * alloc[g]);
     }
   }
 }
 
-template <typename T, int D, bool G1>
+template <typename T, int DK, int DV, bool G1>
+size_t smem_bytes(int g) {
+  using SH = typename ShapeOf<DK, DV>::type;
+  return smem_floats(SH::PARTS, g, DK, DV, G1, SH::COLS) * sizeof(float);
+}
+
+template <typename T, int DK, int DV, bool G1>
 cudaError_t launch_g(const void* t, const void* q, const void* k, const void* v, void* k_sum,
                      void* q_sum, void* ko_sum, void* qi_sum, void* z, void* s, void* out,
                      int bh, int hkv, int g, int phi, int use_alloc, float eps,
                      cudaStream_t stream) {
-  using SH = Shape<D>;
-  auto kern = flow_decode_kernel<T, D, G1>;
-  const size_t bytes = smem_floats(SH::SW, g, D, G1) * sizeof(float);
+  using SH = typename ShapeOf<DK, DV>::type;
+  auto kern = flow_decode_kernel<T, DK, DV, G1>;
+  const size_t bytes = smem_bytes<T, DK, DV, G1>(g);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
@@ -399,46 +515,75 @@ cudaError_t launch_g(const void* t, const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int DK, int DV>
 cudaError_t launch(const void* t, const void* q, const void* k, const void* v, void* k_sum,
                    void* q_sum, void* ko_sum, void* qi_sum, void* z, void* s, void* out,
                    int bh, int hkv, int g, int phi, int use_alloc, float eps,
                    cudaStream_t stream) {
   if (g == 1)
-    return launch_g<T, D, true>(t, q, k, v, k_sum, q_sum, ko_sum, qi_sum, z, s, out, bh, hkv,
-                                g, phi, use_alloc, eps, stream);
-  return launch_g<T, D, false>(t, q, k, v, k_sum, q_sum, ko_sum, qi_sum, z, s, out, bh, hkv,
-                               g, phi, use_alloc, eps, stream);
+    return launch_g<T, DK, DV, true>(t, q, k, v, k_sum, q_sum, ko_sum, qi_sum, z, s, out, bh,
+                                     hkv, g, phi, use_alloc, eps, stream);
+  return launch_g<T, DK, DV, false>(t, q, k, v, k_sum, q_sum, ko_sum, qi_sum, z, s, out, bh,
+                                    hkv, g, phi, use_alloc, eps, stream);
+}
+
+// The (D, Dv) pairs with an instantiation: D == Dv in {32, 64, 128}, and
+// D = 192 beside Dv = 128 or 192.
+inline bool takes(int d, int dv) {
+  if (d == 192) return dv == 128 || dv == 192;
+  return d == dv && (d == 32 || d == 64 || d == 128);
 }
 
 template <typename T>
-cudaError_t dispatch(int d, const void* t, const void* q, const void* k, const void* v,
-                     void* k_sum, void* q_sum, void* ko_sum, void* qi_sum, void* z, void* s,
-                     void* out, int bh, int hkv, int g, int phi, int use_alloc, float eps,
-                     cudaStream_t stream) {
+cudaError_t dispatch(int d, int dv, const void* t, const void* q, const void* k,
+                     const void* v, void* k_sum, void* q_sum, void* ko_sum, void* qi_sum,
+                     void* z, void* s, void* out, int bh, int hkv, int g, int phi,
+                     int use_alloc, float eps, cudaStream_t stream) {
+  if (d == 192)
+    return dv == 128 ? launch<T, 192, 128>(t, q, k, v, k_sum, q_sum, ko_sum, qi_sum, z, s, out,
+                                           bh, hkv, g, phi, use_alloc, eps, stream)
+                     : launch<T, 192, 192>(t, q, k, v, k_sum, q_sum, ko_sum, qi_sum, z, s, out,
+                                           bh, hkv, g, phi, use_alloc, eps, stream);
   switch (d) {
-    case 32: return launch<T, 32>(t, q, k, v, k_sum, q_sum, ko_sum, qi_sum, z, s, out, bh,
-                                  hkv, g, phi, use_alloc, eps, stream);
-    case 64: return launch<T, 64>(t, q, k, v, k_sum, q_sum, ko_sum, qi_sum, z, s, out, bh,
-                                  hkv, g, phi, use_alloc, eps, stream);
-    case 128: return launch<T, 128>(t, q, k, v, k_sum, q_sum, ko_sum, qi_sum, z, s, out, bh,
-                                    hkv, g, phi, use_alloc, eps, stream);
+    case 32: return launch<T, 32, 32>(t, q, k, v, k_sum, q_sum, ko_sum, qi_sum, z, s, out, bh,
+                                      hkv, g, phi, use_alloc, eps, stream);
+    case 64: return launch<T, 64, 64>(t, q, k, v, k_sum, q_sum, ko_sum, qi_sum, z, s, out, bh,
+                                      hkv, g, phi, use_alloc, eps, stream);
+    case 128: return launch<T, 128, 128>(t, q, k, v, k_sum, q_sum, ko_sum, qi_sum, z, s, out,
+                                         bh, hkv, g, phi, use_alloc, eps, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <typename T, int D>
-int occupancy_of(int g) {
-  using SH = Shape<D>;
+// The kernel's dynamic shared memory is allowed first, as a launch allows
+// it: above 48 KB the calculator otherwise answers 0.
+template <typename T, int DK, int DV, bool G1>
+int occupancy_g(int g) {
+  using SH = typename ShapeOf<DK, DV>::type;
+  auto kern = flow_decode_kernel<T, DK, DV, G1>;
+  const size_t bytes = smem_bytes<T, DK, DV, G1>(g);
   int n = 0;
-  cudaError_t err =
-      g == 1 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                   &n, flow_decode_kernel<T, D, true>, SH::THREADS,
-                   smem_floats(SH::SW, g, D, true) * sizeof(float))
-             : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                   &n, flow_decode_kernel<T, D, false>, SH::THREADS,
-                   smem_floats(SH::SW, g, D, false) * sizeof(float));
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, SH::THREADS, bytes);
   return err == cudaSuccess ? n : -(int)err;
+}
+
+template <typename T, int DK, int DV>
+int occupancy_of(int g) {
+  return g == 1 ? occupancy_g<T, DK, DV, true>(g) : occupancy_g<T, DK, DV, false>(g);
+}
+
+template <typename T>
+int occupancy_at(int d, int dv, int g) {
+  if (d == 192 && dv == 128) return occupancy_of<T, 192, 128>(g);
+  if (d == 192 && dv == 192) return occupancy_of<T, 192, 192>(g);
+  if (d != dv) return -(int)cudaErrorInvalidValue;
+  if (d == 32) return occupancy_of<T, 32, 32>(g);
+  if (d == 64) return occupancy_of<T, 64, 64>(g);
+  if (d == 128) return occupancy_of<T, 128, 128>(g);
+  return -(int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -446,39 +591,38 @@ int occupancy_of(int g) {
 // t (B,) int32: each slot's count AFTER this token; q (BH, G, D), k (BH, D),
 // v (BH, Dv) in `dtype` (0 fp32, 1 bf16) with BH = B * hkv; the fp32 state
 // k/q/ko/qi sums (BH, D), z (BH,), s (BH, D, Dv) is updated in place; out
-// (BH, G, Dv) in `dtype`.  D == Dv in {32, 64, 128}; q, k, v, the sums and
-// s 16-byte aligned.  Returns a cudaError_t.
+// (BH, G, Dv) in `dtype`.  D == Dv in {32, 64, 128}, or D = 192 with Dv =
+// 128 or 192; q, k, v, the sums and s 16-byte aligned.  Returns a
+// cudaError_t.
 extern "C" int flow_decode_fwd(const void* t, const void* q, const void* k, const void* v,
                                void* k_sum, void* q_sum, void* ko_sum, void* qi_sum,
                                void* z, void* s, void* out, int bh, int hkv, int g, int d,
                                int dv, int dtype, int phi, int use_alloc, float eps,
                                void* stream) {
-  if (d != dv || g < 1 || hkv < 1 || phi < 0 || phi > 2) return (int)cudaErrorInvalidValue;
+  if (!takes(d, dv) || g < 1 || hkv < 1 || phi < 0 || phi > 2) return (int)cudaErrorInvalidValue;
   if (bh == 0) return (int)cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
-    return (int)dispatch<float>(d, t, q, k, v, k_sum, q_sum, ko_sum, qi_sum, z, s, out, bh,
+    return (int)dispatch<float>(d, dv, t, q, k, v, k_sum, q_sum, ko_sum, qi_sum, z, s, out, bh,
                                 hkv, g, phi, use_alloc, eps, st);
   if (dtype == 1)
-    return (int)dispatch<__nv_bfloat16>(d, t, q, k, v, k_sum, q_sum, ko_sum, qi_sum, z, s,
+    return (int)dispatch<__nv_bfloat16>(d, dv, t, q, k, v, k_sum, q_sum, ko_sum, qi_sum, z, s,
                                         out, bh, hkv, g, phi, use_alloc, eps, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// CTAs of the kernel an SM holds at once for (D, dtype, G), by its
+// CTAs of the kernel an SM holds at once for (D, Dv, dtype, G), by its
 // registers and shared memory; minus a cudaError_t on failure.
-extern "C" int flow_decode_occupancy(int d, int dtype, int g) {
+extern "C" int flow_decode_occupancy_dv(int d, int dv, int dtype, int g) {
   if (g < 1) return -(int)cudaErrorInvalidValue;
-  if (dtype == 0) {
-    if (d == 32) return occupancy_of<float, 32>(g);
-    if (d == 64) return occupancy_of<float, 64>(g);
-    if (d == 128) return occupancy_of<float, 128>(g);
-  } else if (dtype == 1) {
-    if (d == 32) return occupancy_of<__nv_bfloat16, 32>(g);
-    if (d == 64) return occupancy_of<__nv_bfloat16, 64>(g);
-    if (d == 128) return occupancy_of<__nv_bfloat16, 128>(g);
-  }
+  if (dtype == 0) return occupancy_at<float>(d, dv, g);
+  if (dtype == 1) return occupancy_at<__nv_bfloat16>(d, dv, g);
   return -(int)cudaErrorInvalidValue;
+}
+
+// flow_decode_occupancy_dv at D == Dv.
+extern "C" int flow_decode_occupancy(int d, int dtype, int g) {
+  return flow_decode_occupancy_dv(d, d, dtype, g);
 }
 
 extern "C" const char* flow_decode_error_string(int err) {

@@ -38,6 +38,14 @@
 // chunk.  Shared memory per block at D = 64, G = 1: 204 KB (flows), 32 KB
 // (state), 80 KB (out, two blocks an SM).
 //
+// D = 192 (DeepSeek-V2's MLA heads beside Dv = 128, Nemotron-4-340B's with
+// Dv = 192) runs its own instantiations: the flows in super-chunks of a
+// multiple of five positions (five scan segments of 192 columns), the
+// products over Dv in panels of 64 (panel_of), chunks of C = 32.  Shared
+// memory per block at D = 192: 143 KB (flows, G = 12, T = 10) and 196 KB
+// (G = 1, T = 40); 40 KB (state, Dv = 128); 164 KB (out, Dv = 128) and
+// 220 KB (out, Dv = 192), one block an SM.
+//
 // D = 24 (the Table 7 harness's heads) runs the D = 32 instantiation on
 // rows the wrapper zero-pads to 32, with the real width dr = 24 passed
 // down: phi is 0 on lanes 24-31 and the flow dots skip them
@@ -54,11 +62,11 @@ __global__ void __launch_bounds__(kFlowThreads) flow_fwd_flows(FlowArgs<TT> a) {
   flows_body<TT, D, T>(a, smem);
 }
 
-template <typename TT, int D>
+template <typename TT, int D, int DV>
 __global__ void __launch_bounds__(kThreads) flow_fwd_state(StateArgs<TT, D> a, int rows) {
   extern __shared__ float smem[];
   const int2 rc = row_chunk(blockIdx.x, rows);
-  state_block<TT, D>(a, 0, rc.x, rc.y, smem);
+  state_block<TT, D, DV>(a, 0, rc.x, rc.y, smem);
 }
 
 __global__ void __launch_bounds__(kThreads) flow_fwd_pass(PassArgs a) { pass_body(a, false); }
@@ -72,15 +80,15 @@ struct OutArgs {
   int G, N, phi, rows, dr;
 };
 
-template <int D>
+template <int D, int DV>
 constexpr int out_smem_floats() {
   constexpr int C = chunk_of<D>();
-  return 2 * C * D + C * D + D * D + C * C;
+  return 2 * C * D + C * DV + D * DV + C * C;
 }
 
-template <typename TT, int D>
+template <typename TT, int D, int DV>
 __global__ void __launch_bounds__(kThreads, 2) flow_fwd_out(OutArgs<TT> a) {
-  constexpr int C = chunk_of<D>(), DV = D;
+  constexpr int C = chunk_of<D>(), PW = panel_of<D, DV>(), NP = DV / PW;
   extern __shared__ float smem[];
   float* Q = smem;         // C x D: q_in of one group
   float* K = Q + C * D;    // C x D: phi(k)
@@ -114,7 +122,7 @@ __global__ void __launch_bounds__(kThreads, 2) flow_fwd_out(OutArgs<TT> a) {
   const float* slot = a.states + ((size_t)row * nc + ci) * D * DV;
   stage<D, DV>(S, [&](int t, int c) { return ld4(slot + t * DV + c); });
   using OP = Own<C, C>;
-  using OY = Own<C, DV>;
+  using OY = Own<C, PW>;  // one panel of Dv
   const OP op;
   const OY oy;
   const int kmax = min(C, (oy.r0 + OY::RM + 3) & ~3);  // the panel's causal extent
@@ -135,17 +143,20 @@ __global__ void __launch_bounds__(kThreads, 2) flow_fwd_out(OutArgs<TT> a) {
       put_tile<OP::RM, C, true>(P, acc, op.r0, op.c0);
     }
     __syncthreads();
-    float acc[OY::RM][4];
-    zero_acc(acc);
-    mm_mk<OY::RM, C, DV>(acc, P, V, oy.r0, oy.c0, kmax);
-    mm_mk<OY::RM, D, DV>(acc, Q, S, oy.r0, oy.c0, D);
+    for (int pn = 0; pn < NP; ++pn) {
+      const int cy = pn * PW + oy.c0;
+      float acc[OY::RM][4];
+      zero_acc(acc);
+      mm_mk<OY::RM, C, DV>(acc, P, V, oy.r0, cy, kmax);
+      mm_mk<OY::RM, D, DV>(acc, Q, S, oy.r0, cy, D);
 #pragma unroll
-    for (int i = 0; i < OY::RM; ++i) {
-      const int n = c0 + oy.r0 + i;
-      if (n >= N) continue;
-      const float s = n < len ? a.scale[rg * N + n] : 0.f;
-      store4(orow + ((size_t)g * N + n) * DV + oy.c0,
-             make_float4(acc[i][0] * s, acc[i][1] * s, acc[i][2] * s, acc[i][3] * s));
+      for (int i = 0; i < OY::RM; ++i) {
+        const int n = c0 + oy.r0 + i;
+        if (n >= N) continue;
+        const float s = n < len ? a.scale[rg * N + n] : 0.f;
+        store4(orow + ((size_t)g * N + n) * DV + cy,
+               make_float4(acc[i][0] * s, acc[i][1] * s, acc[i][2] * s, acc[i][3] * s));
+      }
     }
     __syncthreads();  // Q and P are restaged for the next group
   }
@@ -163,22 +174,23 @@ cudaError_t flows_at(const FlowArgs<TT>& fa, int bh, cudaStream_t st) {
 // Stage 1 at the super-chunk t (a flows_tile).
 template <typename TT, int D>
 cudaError_t flows(const FlowArgs<TT>& fa, int t, int bh, cudaStream_t st) {
-  if (t == 8192 / D) return flows_at<TT, D, 8192 / D>(fa, bh, st);
-  if (t == 4096 / D) return flows_at<TT, D, 4096 / D>(fa, bh, st);
-  return flows_at<TT, D, 2048 / D>(fa, bh, st);
+  constexpr int S = flow_segs<D>();
+  if (t == 8 * S) return flows_at<TT, D, 8 * S>(fa, bh, st);
+  if (t == 4 * S) return flows_at<TT, D, 4 * S>(fa, bh, st);
+  return flows_at<TT, D, 2 * S>(fa, bh, st);
 }
 
 struct Work {
   float *sink, *scale, *e, *states;
 };
 
-// Floats of scratch for (bh, g, n, d), d the stored width: sink_in, the
-// output scale, e and the chunk states.
-long long work_floats(int bh, int g, int n, int d, Work& w, float* base) {
+// Floats of scratch for (bh, g, n, d, dv), d and dv the stored widths:
+// sink_in, the output scale, e and the chunk states.
+long long work_floats(int bh, int g, int n, int d, int dv, Work& w, float* base) {
   const int c = d >= 128 ? 32 : 64;
   const long long nc = (n + c - 1) / c;
   const long long sizes[4] = {align4((long long)bh * g * n), align4((long long)bh * g * n),
-                              align4((long long)bh * n), (long long)bh * nc * d * d};
+                              align4((long long)bh * n), (long long)bh * nc * d * dv};
   float** slots[4] = {&w.sink, &w.scale, &w.e, &w.states};
   long long off = 0;
   for (int i = 0; i < 4; ++i) {
@@ -188,7 +200,7 @@ long long work_floats(int bh, int g, int n, int d, Work& w, float* base) {
   return off;
 }
 
-template <typename TT, int D>
+template <typename TT, int D, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* lens, void* out,
                    void* q_sum, void* k_sum, void* ko_sum, void* qi_sum, void* z, void* s,
                    void* work, int bh, int g, int n, int phi, int use_alloc, float eps, int dr,
@@ -200,7 +212,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* lens
   const int T = flows_tile<D>(g, limit);
   if (T == 0) return cudaErrorInvalidValue;
   Work w;
-  work_floats(bh, g, n, D, w, (float*)work);
+  work_floats(bh, g, n, D, DV, w, (float*)work);
 
   FlowArgs<TT> fa{(const TT*)q, (const TT*)k, (const int*)lens, w.sink, w.scale, w.e, nullptr, T,
                   (float*)q_sum, (float*)k_sum, (float*)ko_sum, (float*)qi_sum, (float*)z,
@@ -210,37 +222,49 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* lens
   const int nc = (n + C - 1) / C;
   StateArgs<TT, D> sa{(const TT*)q, (const TT*)k, (const TT*)v, nullptr, (const int*)lens,
                       w.sink, w.scale, w.e, w.states, nullptr, g, n, phi, dr};
-  constexpr int fs = state_smem_floats<D>();
-  if ((err = allow_smem(flow_fwd_state<TT, D>, fs)) != cudaSuccess) return err;
-  flow_fwd_state<TT, D><<<bh * nc, kThreads, fs * sizeof(float), st>>>(sa, bh);
+  constexpr int fs = state_smem_floats<D, DV>();
+  if ((err = allow_smem(flow_fwd_state<TT, D, DV>, fs)) != cudaSuccess) return err;
+  flow_fwd_state<TT, D, DV><<<bh * nc, kThreads, fs * sizeof(float), st>>>(sa, bh);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  PassArgs pa{(const int*)lens, w.states, nullptr, (float*)s, nullptr, bh, n, C, D * D / 4};
-  const long long q4 = (long long)bh * D * D / 4;
+  PassArgs pa{(const int*)lens, w.states, nullptr, (float*)s, nullptr, bh, n, C, D * DV / 4};
+  const long long q4 = (long long)bh * D * DV / 4;
   flow_fwd_pass<<<(unsigned)((q4 + kThreads - 1) / kThreads), kThreads, 0, st>>>(pa);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   OutArgs<TT> oa{(const TT*)q, (const TT*)k, (const TT*)v, (const int*)lens, w.sink, w.scale,
                  w.e, w.states, (TT*)out, g, n, phi, bh, dr};
-  constexpr int fo = out_smem_floats<D>();
-  if ((err = allow_smem(flow_fwd_out<TT, D>, fo)) != cudaSuccess) return err;
-  flow_fwd_out<TT, D><<<bh * nc, kThreads, fo * sizeof(float), st>>>(oa);
+  constexpr int fo = out_smem_floats<D, DV>();
+  if ((err = allow_smem(flow_fwd_out<TT, D, DV>, fo)) != cudaSuccess) return err;
+  flow_fwd_out<TT, D, DV><<<bh * nc, kThreads, fo * sizeof(float), st>>>(oa);
   return cudaGetLastError();
 }
 
+// The (D, Dv) pairs with an instantiation: D == Dv in {32, 64, 128} (24
+// stored as 32), and D = 192 beside Dv = 128 or 192.
+inline bool takes(int d, int dv) {
+  if (d == 192) return dv == 128 || dv == 192;
+  return d == dv && (d == 24 || d == 32 || d == 64 || d == 128);
+}
+
 template <typename TT>
-cudaError_t dispatch(int d, const void* q, const void* k, const void* v, const void* lens,
+cudaError_t dispatch(int d, int dv, const void* q, const void* k, const void* v, const void* lens,
                      void* out, void* q_sum, void* k_sum, void* ko_sum, void* qi_sum, void* z,
                      void* s, void* work, int bh, int g, int n, int phi, int use_alloc,
                      float eps, cudaStream_t st) {
+  if (d == 192)
+    return dv == 128 ? launch<TT, 192, 128>(q, k, v, lens, out, q_sum, k_sum, ko_sum, qi_sum, z,
+                                            s, work, bh, g, n, phi, use_alloc, eps, d, st)
+                     : launch<TT, 192, 192>(q, k, v, lens, out, q_sum, k_sum, ko_sum, qi_sum, z,
+                                            s, work, bh, g, n, phi, use_alloc, eps, d, st);
   switch (d) {
     case 24:  // rows stored 32 wide, zero past 24
-    case 32: return launch<TT, 32>(q, k, v, lens, out, q_sum, k_sum, ko_sum, qi_sum, z, s, work,
-                                   bh, g, n, phi, use_alloc, eps, d, st);
-    case 64: return launch<TT, 64>(q, k, v, lens, out, q_sum, k_sum, ko_sum, qi_sum, z, s, work,
-                                   bh, g, n, phi, use_alloc, eps, d, st);
-    case 128: return launch<TT, 128>(q, k, v, lens, out, q_sum, k_sum, ko_sum, qi_sum, z, s,
-                                     work, bh, g, n, phi, use_alloc, eps, d, st);
+    case 32: return launch<TT, 32, 32>(q, k, v, lens, out, q_sum, k_sum, ko_sum, qi_sum, z, s,
+                                       work, bh, g, n, phi, use_alloc, eps, d, st);
+    case 64: return launch<TT, 64, 64>(q, k, v, lens, out, q_sum, k_sum, ko_sum, qi_sum, z, s,
+                                       work, bh, g, n, phi, use_alloc, eps, d, st);
+    case 128: return launch<TT, 128, 128>(q, k, v, lens, out, q_sum, k_sum, ko_sum, qi_sum, z,
+                                          s, work, bh, g, n, phi, use_alloc, eps, d, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -249,32 +273,32 @@ cudaError_t dispatch(int d, const void* q, const void* k, const void* v, const v
 
 // Floats of scratch flow_fused_fwd needs for these shapes (16-byte aligned
 // slices); -1 for shapes it refuses.
-extern "C" long long flow_fused_fwd_workspace(int bh, int g, int n, int d) {
-  if (bh < 0 || g < 1 || n < 1 || (d != 24 && d != 32 && d != 64 && d != 128)) return -1;
+extern "C" long long flow_fused_fwd_workspace(int bh, int g, int n, int d, int dv) {
+  if (bh < 0 || g < 1 || n < 1 || !takes(d, dv)) return -1;
   Work dummy;
-  return work_floats(bh, g, n, stored_width(d), dummy, nullptr);
+  return work_floats(bh, g, n, stored_width(d), stored_width(dv), dummy, nullptr);
 }
 
 // q (BH, G, N, D), k (BH, N, D), v (BH, N, Dv) in `dtype` (0 fp32, 1 bf16);
 // lens (BH,) int32 with 1 <= lens <= N; work flow_fused_fwd_workspace
 // floats.  Writes out (BH, G, N, Dv) in `dtype`, q/k/ko/qi sums (BH, D),
-// z (BH,) and s (BH, D, Dv) in fp32.  D == Dv in {24, 32, 64, 128}; at
-// D = 24 every row (and s) is stored 32 wide, q, k and v zero past 24, and
-// the outputs there are written 0.  Four launches on `stream`; returns a
-// cudaError_t.
+// z (BH,) and s (BH, D, Dv) in fp32.  D == Dv in {24, 32, 64, 128}, or
+// D = 192 with Dv = 128 or 192; at D = 24 every row (and s) is stored 32
+// wide, q, k and v zero past 24, and the outputs there are written 0.
+// Four launches on `stream`; returns a cudaError_t.
 extern "C" int flow_fused_fwd(const void* q, const void* k, const void* v, const void* lens,
                               void* out, void* q_sum, void* k_sum, void* ko_sum,
                               void* qi_sum, void* z, void* s, void* work, int bh, int g, int n,
                               int d, int dv, int dtype, int phi, int use_alloc, float eps,
                               void* stream) {
-  if (d != dv || g < 1 || n < 1 || phi < 0 || phi > 2) return (int)cudaErrorInvalidValue;
+  if (!takes(d, dv) || g < 1 || n < 1 || phi < 0 || phi > 2) return (int)cudaErrorInvalidValue;
   if (bh == 0) return (int)cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
-    return (int)dispatch<float>(d, q, k, v, lens, out, q_sum, k_sum, ko_sum, qi_sum, z, s, work,
+    return (int)dispatch<float>(d, dv, q, k, v, lens, out, q_sum, k_sum, ko_sum, qi_sum, z, s, work,
                                 bh, g, n, phi, use_alloc, eps, st);
   if (dtype == 1)
-    return (int)dispatch<__nv_bfloat16>(d, q, k, v, lens, out, q_sum, k_sum, ko_sum, qi_sum, z,
+    return (int)dispatch<__nv_bfloat16>(d, dv, q, k, v, lens, out, q_sum, k_sum, ko_sum, qi_sum, z,
                                         s, work, bh, g, n, phi, use_alloc, eps, st);
   return (int)cudaErrorInvalidValue;
 }

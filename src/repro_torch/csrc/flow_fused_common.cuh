@@ -21,6 +21,13 @@
 // and no operand is transposed.  Every sum runs in a fixed order and
 // nothing uses atomics: two calls on the same inputs are bitwise equal.
 //
+// The value width Dv may differ from D (MLA's heads: D = 192, Dv = 128) and
+// D need not divide the flows' 1024 threads (D = 192: five segments of 192
+// columns, the last 64 threads idle in the scans).  Where an output row of
+// the products would hold more than 32 float4s, or its accumulators would
+// crowd the registers (D = 192), the Dv axis is walked in panels of 64
+// columns (panel_of).
+//
 // Head widths below the instantiations (the Table 7 harness's D = 24) run
 // the D = 32 instantiation on rows stored 32 wide, zero past the real
 // width dr (the wrapper pads them).  Every stage then treats the lanes at
@@ -147,7 +154,9 @@ __device__ FlowSmem carve_flows(float* p, int G) {
 // per feature column d < D: out_k(t, d) = run_k[d] + sum of x_k(t', d) over
 // t' <= t (REV false) or t' >= t (REV true).  Thread (s, d) owns the PS
 // positions of segment s, sums them in order, then adds the carry and the
-// totals of the segments before (after) it, in segment order.  fx(k, t, d)
+// totals of the segments before (after) it, in segment order; the NSEG x D
+// threads hold every segment (where D does not divide the block, the rest
+// only pass the barriers).  fx(k, t, d)
 // gives the inputs, fu(k, t, d, out) takes each output (called by the
 // owning thread, so it may rewrite that thread's (t, d) entries).  The
 // carries run_k advance to the super-chunk's last (first) output after
@@ -157,38 +166,45 @@ __device__ __forceinline__ void seg_scan2(float* run0, float* run1, float* tot, 
   constexpr int NSEG = kFlowThreads / D, PS = T / NSEG;
   static_assert(PS >= 1 && PS * NSEG == T, "super-chunk");
   const int s = threadIdx.x / D, d = threadIdx.x % D;
+  const bool on = NSEG * D == kFlowThreads || s < NSEG;
   float loc0[PS], loc1[PS];
   float a0 = 0.f, a1 = 0.f;
+  if (on) {
 #pragma unroll
-  for (int i = 0; i < PS; ++i) {
-    const int t = REV ? s * PS + PS - 1 - i : s * PS + i;
-    a0 += fx(0, t, d);
-    a1 += fx(1, t, d);
-    loc0[i] = a0;
-    loc1[i] = a1;
+    for (int i = 0; i < PS; ++i) {
+      const int t = REV ? s * PS + PS - 1 - i : s * PS + i;
+      a0 += fx(0, t, d);
+      a1 += fx(1, t, d);
+      loc0[i] = a0;
+      loc1[i] = a1;
+    }
+    tot[s * D + d] = a0;
+    tot[kFlowThreads + s * D + d] = a1;
   }
-  tot[s * D + d] = a0;
-  tot[kFlowThreads + s * D + d] = a1;
   __syncthreads();
-  float o0 = run0[d], o1 = run1[d];
+  if (on) {
+    float o0 = run0[d], o1 = run1[d];
 #pragma unroll
-  for (int j = 0; j < NSEG; ++j) {
-    const int s2 = REV ? NSEG - 1 - j : j;
-    if (REV ? s2 > s : s2 < s) {
-      o0 += tot[s2 * D + d];
-      o1 += tot[kFlowThreads + s2 * D + d];
+    for (int j = 0; j < NSEG; ++j) {
+      const int s2 = REV ? NSEG - 1 - j : j;
+      if (REV ? s2 > s : s2 < s) {
+        o0 += tot[s2 * D + d];
+        o1 += tot[kFlowThreads + s2 * D + d];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < PS; ++i) {
+      const int t = REV ? s * PS + PS - 1 - i : s * PS + i;
+      loc0[i] += o0;
+      loc1[i] += o1;
+      fu(0, t, d, loc0[i]);
+      fu(1, t, d, loc1[i]);
     }
   }
-#pragma unroll
-  for (int i = 0; i < PS; ++i) {
-    const int t = REV ? s * PS + PS - 1 - i : s * PS + i;
-    fu(0, t, d, loc0[i] + o0);
-    fu(1, t, d, loc1[i] + o1);
-  }
   __syncthreads();
-  if (s == (REV ? 0 : NSEG - 1)) {
-    run0[d] = loc0[PS - 1] + o0;
-    run1[d] = loc1[PS - 1] + o1;
+  if (s == (REV ? 0 : NSEG - 1)) {  // loc holds the carried outputs
+    run0[d] = loc0[PS - 1];
+    run1[d] = loc1[PS - 1];
   }
 }
 
@@ -607,37 +623,70 @@ __device__ __forceinline__ void stage(float* dst, F f) {
   }
 }
 
-// The chunk length of the per-chunk stages: 64 positions, 32 at D = 128
+// The chunk length of the per-chunk stages: 64 positions, 32 at D >= 128
 // (the backward's eight staged tiles must fit one block's shared memory).
 template <int D>
 __host__ __device__ constexpr int chunk_of() { return D >= 128 ? 32 : 64; }
+
+// The columns of Dv one product pass owns: all of them up to D = 128, else
+// panels of 64 (an Own<D, 64> of the chunk state holds 48 accumulators a
+// thread at D = 192, an Own<D, 128> 96).
+template <int D, int DV>
+__host__ __device__ constexpr int panel_of() { return D <= 128 ? DV : 64; }
 
 // Stage 2 (flow_fwd_state, flow_bwd_state): the chunk state, the sum over
 // the chunk's positions j (and the group) of a_j^T b_j, D x Dv, of each
 // live (row, chunk) into its slot.  Mode 0 (forward): a = phi(k), b = v e.
 // Mode 1 (K2's cotangent state): a = q_in = phi(q) sink_in, b = dY = g_out
 // scale, summed over the group.  Both zero at and past the length.  One
-// block per (row, chunk).
+// block per (row, chunk).  Where Dv is walked in panels (forward only),
+// the operands are staged once and each panel's sums are stored in turn.
 template <typename TT, int D>
 struct StateArgs {
   const TT *q, *k, *v, *g_out;
   const int* lens;
   const float *sink, *scale, *e;
-  float *states, *dstates;  // (BH, nc, D, D) each
+  float *states, *dstates;  // (BH, nc, D, Dv) each
   int G, N, phi, dr;
 };
 
-template <typename TT, int D>
+template <typename TT, int D, int DV = D>
 __device__ __forceinline__ void state_block(const StateArgs<TT, D>& a, int mode, int row,
                                             int ci, float* smem) {
-  constexpr int C = chunk_of<D>(), DV = D;
-  using O = Own<D, DV>;
+  constexpr int C = chunk_of<D>(), PW = panel_of<D, DV>(), NP = DV / PW;
+  static_assert(NP * PW == DV, "panels");
+  using O = Own<D, PW>;
   const int G = a.G, N = a.N, len = min(a.lens[row], N), c0 = ci * C;
   if (c0 >= len) return;  // a dead chunk: the pass never reads its slot
   float* A = smem;           // C x D
   float* B = smem + C * D;   // C x DV
   const O o;
   float acc[O::RM][4];
+  const int nc = (N + C - 1) / C;
+  float* out = (mode == 0 ? a.states : a.dstates) + ((size_t)row * nc + ci) * D * DV;
+  if constexpr (NP > 1) {  // mode 0: one staging, the panels in turn
+    const TT* kr = a.k + (size_t)row * N * D;
+    const TT* vr = a.v + (size_t)row * N * DV;
+    stage<C, D>(A, [&](int t, int c) {
+      const int n = c0 + t;
+      return n < len && c < a.dr ? phi4(load4(kr + (size_t)n * D + c), a.phi) : zero4();
+    });
+    stage<C, DV>(B, [&](int t, int c) {
+      const int n = c0 + t;
+      return n < len ? scale4(load4(vr + (size_t)n * DV + c), a.e[(size_t)row * N + n])
+                     : zero4();
+    });
+    __syncthreads();
+    for (int p = 0; p < NP; ++p) {
+      const int cp = p * PW + o.c0;
+      zero_acc(acc);
+      mm_kk<O::RM, D, DV>(acc, A, B, o.r0, cp, 0, C);
+#pragma unroll
+      for (int i = 0; i < O::RM; ++i)
+        st4(out + (o.r0 + i) * DV + cp, make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
+    }
+    return;
+  }
   zero_acc(acc);
   const int gs = mode == 0 ? 1 : G;
   for (int g = 0; g < gs; ++g) {
@@ -672,15 +721,13 @@ __device__ __forceinline__ void state_block(const StateArgs<TT, D>& a, int mode,
     mm_kk<O::RM, D, DV>(acc, A, B, o.r0, o.c0, 0, C);
     __syncthreads();
   }
-  const int nc = (N + C - 1) / C;
-  float* out = (mode == 0 ? a.states : a.dstates) + ((size_t)row * nc + ci) * D * DV;
 #pragma unroll
   for (int i = 0; i < O::RM; ++i)
     st4(out + (o.r0 + i) * DV + o.c0, make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
 }
 
-template <int D>
-constexpr int state_smem_floats() { return chunk_of<D>() * 2 * D; }
+template <int D, int DV = D>
+constexpr int state_smem_floats() { return chunk_of<D>() * (D + DV); }
 
 // The (row, chunk) of block b of a chunk-major grid over `rows` rows: the
 // blocks in flight share their chunk's positions.
@@ -728,11 +775,16 @@ __device__ __forceinline__ void pass_body(const PassArgs& a, bool rev) {
   if (!rev && a.s_out) reinterpret_cast<float4*>(a.s_out)[(long long)row * a.q4 + q] = h;
 }
 
-// Super-chunk of the flows: 8192 / D positions where the block's shared
-// memory holds them, else 4096 / D or 2048 / D; 0 where none fits.
+// Super-chunk of the flows: 8 segments of the scans' layout a segment
+// (kFlowThreads / D of them; 8192 / D positions where D divides the block)
+// where the block's shared memory holds them, else 4 or 2; 0 where none
+// fits.
+template <int D>
+constexpr int flow_segs() { return kFlowThreads / D; }
+
 template <int D>
 int flows_tile(int g, int limit) {
-  for (int t = 8192 / D; t >= 2048 / D; t /= 2)
+  for (int t = 8 * flow_segs<D>(); t >= 2 * flow_segs<D>(); t /= 2)
     if (flow_smem_floats_at<D>(t, g) * sizeof(float) <= (size_t)limit) return t;
   return 0;
 }

@@ -53,7 +53,14 @@ its layer counts checked against ``cfg.n_encoder_layers`` (or
 ``cfg.n_layers`` where that is 0) and ``cfg.n_layers``.
 
 The FFN's leaves follow ``cfg.act``: a swiglu block also carries
-``w_gate`` beside ``w_in`` and ``w_out``, in every layout.
+``w_gate`` beside ``w_in`` and ``w_out``, in every layout.  A MoE block
+carries ``moe`` (``router``, ``experts`` and, with shared experts,
+``shared``) in place of ``ffn``: under ``scan`` the reference stacks the
+expert leaves as (L, E, d, f), and each block takes its (E, d, f) slice;
+back, the blocks' slices are stacked again.  An MLA attention block
+carries ``kv_down``, ``kv_up``, ``wo`` and ``wq`` (or ``q_down`` and
+``q_up`` with a query LoRA) in place of ``wq``, ``wk``, ``wv``, ``wo``.
+Every leaf is carried by the same rule, bit for bit in both directions.
 """
 from __future__ import annotations
 

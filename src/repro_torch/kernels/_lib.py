@@ -44,6 +44,14 @@ HEAD_DIMS = (32, 64, 128)
 #: width, so that phi is 0 on the padded lanes; K5a and K5b given
 #: operands that phi was applied to before the padding)
 PADDED_HEAD_DIMS = {24: 32}
+#: the (D, Dv) pairs beyond ``HEAD_DIMS``' D == Dv that K1 (flow_fused)
+#: and K3 (flow_decode) take: DeepSeek-V2's MLA heads (q and k 192 wide, v
+#: 128) and Nemotron-4-340B's 192-wide ones.  K2, K4, K5a and K5b stay at
+#: ``HEAD_DIMS`` (and ``PADDED_HEAD_DIMS``), so a plan that needs them at
+#: these widths (training, int8 pools) is refused by name
+WIDE_PAIRS = ((192, 128), (192, 192))
+#: the (D, Dv) pairs of K1 and K3: ``HEAD_DIMS`` square, then ``WIDE_PAIRS``
+FUSED_PAIRS = tuple((d, d) for d in HEAD_DIMS) + WIDE_PAIRS
 #: the small-head route of the non-causal kernels (K6, K7a, K7b; the vision
 #: and time-series encoders' heads, on the CUDA cores): rows of one block
 #: at each D, one row a thread (``Small<D>::THREADS`` in

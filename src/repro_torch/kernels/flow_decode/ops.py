@@ -21,7 +21,8 @@ import torch
 from repro_torch.attention.recurrent import FlowState
 from repro_torch.core.flow_attention import FlowConfig
 from repro_torch.kernels import _lib
-from repro_torch.kernels._lib import DTYPE_CODES, HEAD_DIMS, LAUNCHES, PHI_CODES
+from repro_torch.kernels._lib import (DTYPE_CODES, FUSED_PAIRS, HEAD_DIMS,
+                                      LAUNCHES, PHI_CODES, WIDE_PAIRS)
 from repro_torch.kernels.flow_decode.quant import flow_decode_q_call
 from repro_torch.kernels.flow_decode.ref import flow_decode_ref
 
@@ -39,7 +40,9 @@ def flow_decode_call(t, q, k, v, k_sum, q_sum, ko_sum, qi_sum, z, s, *,
 
     t: (B,) int32 count AFTER this token; q: (BH, G, D); k: (BH, D);
     v: (BH, Dv); k/q/ko/qi sums (BH, D), z (BH,), s (BH, D, Dv) fp32 with
-    BH = B * hkv.  Returns out (BH, G, Dv) in q's dtype.
+    BH = B * hkv; (D, Dv) in ``_lib.FUSED_PAIRS`` (D == Dv in
+    ``HEAD_DIMS``, or D = 192 beside Dv = 128 or 192).  Returns out
+    (BH, G, Dv) in q's dtype.
     """
     state = (k_sum, q_sum, ko_sum, qi_sum, z, s)
     bh, g, d = q.shape
@@ -78,8 +81,9 @@ def flow_decode_call(t, q, k, v, k_sum, q_sum, ko_sum, qi_sum, z, s, *,
         if tuple(x.shape) != want[name]:
             raise ValueError(f"{name} has shape {tuple(x.shape)}, "
                              f"want {want[name]}")
-    if d != dv or d not in HEAD_DIMS:
-        raise ValueError(f"kernel takes D == Dv in {HEAD_DIMS}, got {d}/{dv}")
+    if (d, dv) not in FUSED_PAIRS:
+        raise ValueError(f"kernel takes D == Dv in {HEAD_DIMS}, or (D, Dv) in "
+                         f"{WIDE_PAIRS}, got {d}/{dv}")
     if phi not in PHI_CODES:
         raise ValueError(f"unknown phi {phi!r}")
 

@@ -13,6 +13,13 @@ reference.  The kernel's output records no autograd history, so the CUDA
 path refuses inputs that autograd would differentiate rather than cut the
 gradient silently.
 
+Beside D == Dv in ``HEAD_DIMS`` the kernel takes ``_lib.WIDE_PAIRS``
+(D = 192 with Dv = 128 or 192: the MLA and Nemotron-4-340B heads) in
+instantiations of their own.  K2 does not: on CUDA,
+``flow_fused_forward`` refuses to start a forward at such a width that
+autograd would differentiate, naming K2, instead of failing in the
+backward.
+
 Two routes serve shapes the kernel's instantiations do not:
 
 * a head dim in ``_lib.PADDED_HEAD_DIMS`` (the Table 7 harness's D = 24):
@@ -36,7 +43,7 @@ from repro_torch.attention.recurrent import FlowState
 from repro_torch.core.flow_attention import FlowConfig, _group, _ungroup
 from repro_torch.kernels import _lib
 from repro_torch.kernels._lib import (DTYPE_CODES, HEAD_DIMS, LAUNCHES,
-                                      PADDED_HEAD_DIMS, PHI_CODES,
+                                      PADDED_HEAD_DIMS, PHI_CODES, WIDE_PAIRS,
                                       kernel_chunk, pad_lanes, stored_width)
 from repro_torch.kernels.flow_fused.ref import flow_fused_ref
 
@@ -47,23 +54,25 @@ _ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [ctypes.c_float,
 
 
 def workspace(name: str, q: torch.Tensor, bh: int, g: int, n: int,
-              d: int) -> torch.Tensor:
-    """The fp32 scratch the kernels of source ``name`` (``flow_fused`` or
-    ``flow_fused_bwd``) need at these shapes, from the library's own
-    ``<symbol>_workspace`` count; the kernels allocate nothing."""
+              *dims: int) -> torch.Tensor:
+    """The fp32 scratch the kernels of source ``name`` need at these
+    shapes, from the library's own ``<symbol>_workspace`` count (``dims``:
+    D and Dv for ``flow_fused``, D for ``flow_fused_bwd``); the kernels
+    allocate nothing."""
     symbol = {"flow_fused": "flow_fused_fwd"}.get(name, name) + "_workspace"
-    size = _lib.function(name, symbol, [ctypes.c_int] * 4, ctypes.c_longlong)(
-        bh, g, n, d)
+    size = _lib.function(name, symbol, [ctypes.c_int] * (3 + len(dims)),
+                         ctypes.c_longlong)(bh, g, n, *dims)
     if size < 0:
-        raise ValueError(f"{name} refuses G={g}, N={n}, D={d}")
+        raise ValueError(f"{name} refuses G={g}, N={n}, D/Dv={dims}")
     return torch.empty(max(size, 4), dtype=torch.float32, device=q.device)
 
 
 def check_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               lens: torch.Tensor, phi: str):
+               lens: torch.Tensor, phi: str, *, wide: bool = False):
     """Raise unless (q, k, v, lens) are what the flow_fused wrappers take:
     one CUDA device, contiguous, fp32 or bf16 alike, flat shapes, D == Dv
-    in ``HEAD_DIMS`` or ``PADDED_HEAD_DIMS``.  Returns (BH, G, N, D)."""
+    in ``HEAD_DIMS`` or ``PADDED_HEAD_DIMS``, or with ``wide`` (K1, not
+    K2) a (D, Dv) of ``WIDE_PAIRS``.  Returns (BH, G, N, D)."""
     bh, g, n, d = q.shape
     dv = v.shape[-1]
     if q.device.type != "cuda":
@@ -82,12 +91,20 @@ def check_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape != (bh, n, d) or v.shape != (bh, n, dv):
         raise ValueError(f"bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
                          f"v{tuple(v.shape)}")
-    if d != dv or stored_width(d) not in HEAD_DIMS:
+    if not takes(d, dv, wide=wide):
         raise ValueError(f"kernel takes D == Dv in {HEAD_DIMS} or "
-                         f"{tuple(PADDED_HEAD_DIMS)}, got {d}/{dv}")
+                         f"{tuple(PADDED_HEAD_DIMS)}"
+                         + (f", or (D, Dv) in {WIDE_PAIRS}" if wide else "")
+                         + f", got {d}/{dv}")
     if phi not in PHI_CODES:
         raise ValueError(f"unknown phi {phi!r}")
     return bh, g, n, d
+
+
+def takes(d: int, dv: int, *, wide: bool = True) -> bool:
+    """Whether K1 (``wide``) or K2 (not) has a route at (D, Dv)."""
+    return ((d == dv and stored_width(d) in HEAD_DIMS)
+            or (wide and (d, dv) in WIDE_PAIRS))
 
 
 _DENSE = "flow_fused_forward without lengths (FlowFusedDot, backward kernel K2)"
@@ -114,30 +131,31 @@ def flow_fused_call(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flow_fused_ref(q, k, v, lens, chunk=chunk, eps=eps, phi=phi,
                               use_alloc=use_alloc)
-    bh, g, n, d = check_flat(q, k, v, lens, phi)
+    bh, g, n, d = check_flat(q, k, v, lens, phi, wide=True)
+    dv = v.shape[-1]
     _lib.refuse_autograd(q, k, v, why="the flow_fused kernel's output has "
                          "no autograd graph", instead=_DENSE)
-    w = stored_width(d)
+    w, wv = stored_width(d), stored_width(dv)
     q, k, v = (pad_lanes(x) for x in (q, k, v))
 
     f32 = dict(dtype=torch.float32, device=q.device)
-    out = torch.empty((bh, g, n, w), dtype=q.dtype, device=q.device)
+    out = torch.empty((bh, g, n, wv), dtype=q.dtype, device=q.device)
     sums = torch.empty((4, bh, w), **f32)
     z = torch.empty((bh,), **f32)
-    s = torch.empty((bh, w, w), **f32)
-    work = workspace("flow_fused", q, bh, g, n, d)
+    s = torch.empty((bh, w, wv), **f32)
+    work = workspace("flow_fused", q, bh, g, n, d, dv)
     fn = _lib.function("flow_fused", "flow_fused_fwd", _ARGTYPES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
              out.data_ptr(), sums[0].data_ptr(), sums[1].data_ptr(),
              sums[2].data_ptr(), sums[3].data_ptr(), z.data_ptr(),
-             s.data_ptr(), work.data_ptr(), bh, g, n, d, d,
+             s.data_ptr(), work.data_ptr(), bh, g, n, d, dv,
              DTYPE_CODES[q.dtype], PHI_CODES[phi], int(use_alloc), eps, stream)
     _lib.check(fn, err, "flow_fused")
     LAUNCHES["flow_fused"] += 1
-    if w != d:  # the real lanes of the padded route
-        out = out[..., :d].contiguous()
-        sums, s = sums[..., :d].contiguous(), s[:, :d, :d].contiguous()
+    if (w, wv) != (d, dv):  # the real lanes of the padded route
+        out = out[..., :dv].contiguous()
+        sums, s = sums[..., :d].contiguous(), s[:, :d, :dv].contiguous()
     return out, (sums[0], sums[1], sums[2], sums[3], z, s)
 
 
@@ -165,6 +183,14 @@ def flow_fused_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qf, kf, vf = qf.contiguous(), kf.contiguous(), vf.contiguous()
     if lengths is None:
         from repro_torch.attention.vjp import FlowFusedDot  # lazy: cycle
+
+        if (q.device.type == "cuda" and not takes(d, dv, wide=False)
+                and torch.is_grad_enabled()
+                and any(x.requires_grad for x in (q, k, v))):
+            raise RuntimeError(
+                f"the backward kernel K2 (flow_fused_bwd) takes D == Dv in "
+                f"{HEAD_DIMS} or {tuple(PADDED_HEAD_DIMS)}, not D={d}, "
+                f"Dv={dv}: K1 serves these heads forward-only")
 
         t = torch.full((b,), n, dtype=torch.int32, device=q.device)
         out, *sums = FlowFusedDot.apply(qf, kf, vf, n, c, cfg.eps, cfg.phi,

@@ -35,10 +35,21 @@ update)::
 
     python -m repro_torch.launch.serve --attn linear [--state-dtype int8]
 
+The MoE, MLA and M-RoPE archs (K1 and K3 at D = 192 beside Dv = 128 for
+DeepSeek-V2-Lite's MLA heads, at G = 8, D = 128 for Qwen2-VL's M-RoPE
+heads)::
+
+    python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b
+    python -m repro_torch.launch.serve --arch granite-moe-3b-a800m
+
 Random weights from seed 0, random prompts from ``numpy`` seed 0.  The
-paths not ported yet are refused by name: the local and MLA attention
-branches (``--attn local``) and fleet serving (``--fleet``, which the
-reference also refuses with ``--speculate-k``).
+paths not ported yet are refused by name: the local attention branch and
+MLA's softmax branch (``--attn local``; ``--attn softmax`` on an MLA arch,
+whose decode is the absorbed form over a compressed latent cache), int8
+pools at D = 192 (``--state-dtype int8`` on DeepSeek-V2-Lite or
+Nemotron-4-340B: the int8 decode kernel K4 takes D <= 128), and fleet
+serving (``--fleet``, which the reference also refuses with
+``--speculate-k``).
 ``--paged`` on a stack with no softmax layer serves unpaged, as in the
 reference.  A mixer that cannot meet the serving plan (an SSD stack with
 int8 pools, whose mixer is not ``quant_capable`` here) exits with the
@@ -63,7 +74,8 @@ from repro_torch.serving.quant import STATE_DTYPES, pool_bytes
 #: options of the reference CLI whose paths are not ported yet, with what
 #: each needs
 _NOT_PORTED = {
-    "attn": "the local and MLA attention branches",
+    "attn": "the local and MLA attention branches (local windows; MLA's "
+            "softmax decode)",
     "fleet": "fleet serving",
 }
 
@@ -78,6 +90,23 @@ def _refuse_unported(args):
         if on:
             raise SystemExit(f"--{opt.replace('_', '-')} is not ported yet: "
                              f"it needs {_NOT_PORTED[opt]}")
+
+
+def _refuse_unported_arch(cfg, args):
+    """Exit naming what an arch's plan would need that is not ported: MLA
+    with softmax (its absorbed decode over an ``MLACache``) and int8
+    pools at D = 192 (K4 takes D == Dv <= 128)."""
+    if cfg.mla is not None and cfg.attention.kind != "flow":
+        raise SystemExit(f"--attn {cfg.attention.kind} on an MLA arch is not "
+                         "ported yet: it needs MLA's absorbed decode over a "
+                         "compressed latent cache (MLACache)")
+    if args.state_dtype in ("int8", "fp8"):
+        d = (cfg.mla.nope_head_dim + cfg.mla.rope_head_dim
+             if cfg.mla is not None else cfg.dim_head)
+        if d > 128 and cfg.attention.kind == "flow":
+            raise SystemExit(f"--state-dtype {args.state_dtype} at D = {d} "
+                             "is not ported yet: the int8 decode kernel K4 "
+                             "(flow_decode_q) takes D == Dv <= 128")
 
 
 def main(argv=None) -> dict:
@@ -127,6 +156,7 @@ def main(argv=None) -> dict:
     if args.attn:
         cfg = dataclasses.replace(cfg, attention=dataclasses.replace(
             cfg.attention, kind=args.attn))
+    _refuse_unported_arch(cfg, args)
     params = lm.init(cfg, torch.Generator().manual_seed(0), device=args.device)
     paged = (PagedSpec(page_size=args.page_size, num_pages=args.num_pages)
              if args.paged else None)

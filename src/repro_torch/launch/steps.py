@@ -39,11 +39,17 @@ def model_loss_fn(cfg: ModelConfig, *, dtype=torch.bfloat16, plan=None):
 
 
 def training_shapes(cfg: ModelConfig, shape: ShapeSpec) -> attention.ShapeInfo:
-    """Static attention shapes of one training step (for plan resolution)."""
-    d = cfg.dim_head
-    return attention.ShapeInfo(b=max(1, shape.global_batch), hq=cfg.n_heads,
-                               hkv=cfg.kv_heads, n=shape.seq_len,
-                               m=shape.seq_len, d=d, dv=d)
+    """Static attention shapes of one training step (for plan resolution):
+    with MLA, q and k nope + rope wide and v its own width, one kv head a
+    query head."""
+    if cfg.mla is not None:
+        d = cfg.mla.nope_head_dim + cfg.mla.rope_head_dim
+        dv, hq, hkv = cfg.mla.v_head_dim, cfg.n_heads, cfg.n_heads
+    else:
+        d = dv = cfg.dim_head
+        hq, hkv = cfg.n_heads, cfg.kv_heads
+    return attention.ShapeInfo(b=max(1, shape.global_batch), hq=hq, hkv=hkv,
+                               n=shape.seq_len, m=shape.seq_len, d=d, dv=dv)
 
 
 def check_flow_trainable(cfg: ModelConfig, shape: ShapeSpec, platform: str,

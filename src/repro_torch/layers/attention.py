@@ -3,7 +3,13 @@ branch (the Transformer baseline it replaces) and the linear branch (the
 paper's ablation baseline, Katharopoulos et al.).
 
 The counterpart of ``repro/layers/attention.py`` for ``kind`` "flow",
-"softmax" and "linear" (``local`` and MLA are refused by name).  Modes:
+"softmax" and "linear", and for DeepSeek-V2's MLA (multi-head latent
+attention) with "flow": q and k decompressed to [nope | rope] per head
+(D = nope + rope, Dv = v, one kv head a query head), the flow state its
+cache.  ``local`` is refused by name, and so is MLA with softmax, whose
+decode is the reference's absorbed form over a compressed ``MLACache``.
+Positions are RoPE, or M-RoPE (Qwen2-VL) on (B, 3, N) (t, h, w) streams.
+Modes:
 
   * full     -- whole sequence, no cache (``attention``); with
                ``kv_input`` the encoder-decoder's cross-attention, queries
@@ -70,7 +76,7 @@ from repro_torch.core.flow_attention import FlowConfig, phi_map
 from repro_torch.kernels.gather import paged_gather, paged_gather_quant
 from repro_torch.layers import mixer as mixer_lib
 from repro_torch.layers.linear import dense, dense_init
-from repro_torch.layers.rope import apply_rope
+from repro_torch.layers.rope import apply_mrope, apply_rope
 from repro_torch.serving import quant as quant_lib
 from repro_torch.serving.paged import PagedKVCache, PagedSpec, pages_for
 from repro_torch.utils import resolve_device
@@ -91,11 +97,16 @@ class LinearState(NamedTuple):
 
 
 def _require_ported(cfg: ModelConfig):
-    if cfg.attention.kind not in _PORTED or cfg.mla is not None:
+    if cfg.attention.kind not in _PORTED:
         raise NotImplementedError(
-            f"attention kind {cfg.attention.kind!r}"
-            + (" with MLA" if cfg.mla is not None else "")
-            + " is not ported yet (flow, softmax and linear attention only)")
+            f"attention kind {cfg.attention.kind!r} is not ported yet "
+            "(flow, softmax and linear attention only)")
+    if cfg.mla is not None and cfg.attention.kind != "flow":
+        raise NotImplementedError(
+            f"attention kind {cfg.attention.kind!r} with MLA is not ported "
+            "yet: its decode is the absorbed form over an MLACache "
+            "(compressed latent rows, int8 ones in int8 pools); MLA serves "
+            "with kind 'flow', whose cache is the FlowState")
 
 
 def flow_cfg_of(cfg: ModelConfig, causal: bool) -> FlowConfig:
@@ -144,9 +155,26 @@ def _flow_executor(cfg: ModelConfig, causal: bool,
 
 
 def attn_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    """``wq``, ``wk``, ``wv``, ``wo``; with MLA ``kv_down`` (d, kv_lora +
+    rope), ``kv_up`` (kv_lora, H (nope + v)), ``wo`` (H v, d) and ``wq``
+    (d, H (nope + rope)) or, with a query LoRA, ``q_down`` and ``q_up``,
+    drawn in the reference's order."""
     _require_ported(cfg)
     d, hd = cfg.d_model, cfg.dim_head
     nq, nkv = cfg.n_heads, cfg.kv_heads
+    if cfg.mla is not None:
+        m = cfg.mla
+        qdim = nq * (m.nope_head_dim + m.rope_head_dim)
+        p = {"kv_down": dense_init(gen, d, m.kv_lora_rank + m.rope_head_dim),
+             "kv_up": dense_init(gen, m.kv_lora_rank,
+                                 nq * (m.nope_head_dim + m.v_head_dim)),
+             "wo": dense_init(gen, nq * m.v_head_dim, d)}
+        if m.q_lora_rank:
+            p["q_down"] = dense_init(gen, d, m.q_lora_rank)
+            p["q_up"] = dense_init(gen, m.q_lora_rank, qdim)
+        else:
+            p["wq"] = dense_init(gen, d, qdim)
+        return p
     return {
         "wq": dense_init(gen, d, nq * hd),
         "wk": dense_init(gen, d, nkv * hd),
@@ -171,13 +199,49 @@ def _apply_positions(q, k, cfg: ModelConfig, positions):
     if cfg.rope == "rope":
         return (apply_rope(q, positions, theta=cfg.rope_theta),
                 apply_rope(k, positions, theta=cfg.rope_theta))
-    raise NotImplementedError(f"rope={cfg.rope!r} is not ported yet")
+    if cfg.rope == "mrope":  # positions (B, 3, N): the (t, h, w) streams
+        return (apply_mrope(q, positions, cfg.mrope_sections,
+                            theta=cfg.rope_theta),
+                apply_mrope(k, positions, cfg.mrope_sections,
+                            theta=cfg.rope_theta))
+    raise ValueError(cfg.rope)
+
+
+def _project_qkv_mla(params, x: torch.Tensor, cfg: ModelConfig, positions):
+    """DeepSeek-V2's MLA in its decompressed form: per head q and k =
+    [nope | rope], k's rope part the one shared rope head of the latent
+    projection broadcast over the heads, and v; q, k (B, H, N, nope +
+    rope), v (B, H, N, v)."""
+    m = cfg.mla
+    nq = cfg.n_heads
+    if m.q_lora_rank:
+        q = dense(params["q_up"], dense(params["q_down"], x))
+    else:
+        q = dense(params["wq"], x)
+    q = _split_heads(q, nq)
+    q_nope, q_rope = q.split([m.nope_head_dim, m.rope_head_dim], dim=-1)
+    ckv = dense(params["kv_down"], x)  # (B, N, kv_lora + rope)
+    c_kv, k_rope = ckv.split([m.kv_lora_rank, m.rope_head_dim], dim=-1)
+    kv = _split_heads(dense(params["kv_up"], c_kv), nq)
+    k_nope, v = kv.split([m.nope_head_dim, m.v_head_dim], dim=-1)
+    k_rope = k_rope[:, None]  # the shared rope head (B, 1, N, rope)
+    if positions is not None and cfg.rope != "none":
+        q_rope = apply_rope(q_rope, positions, theta=cfg.rope_theta)
+        k_rope = apply_rope(k_rope, positions, theta=cfg.rope_theta)
+    k_rope = k_rope.expand(*k_nope.shape[:-1], m.rope_head_dim)
+    return (torch.cat([q_nope, q_rope], dim=-1),
+            torch.cat([k_nope, k_rope], dim=-1), v)
 
 
 def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig, positions,
                  kv_input: torch.Tensor | None = None):
     """Per-head q, k, v with positional encoding applied; with
-    ``kv_input``, k and v from it and no positions (cross-attention)."""
+    ``kv_input``, k and v from it and no positions (cross-attention).
+    MLA projects through its latent (``_project_qkv_mla``)."""
+    if cfg.mla is not None:
+        if kv_input is not None:
+            raise ValueError("MLA cross-attention is used by no arch")
+        return _project_qkv_mla(params, x, cfg, positions)
     src = x if kv_input is None else kv_input
     q = _split_heads(dense(params["wq"], x), cfg.n_heads)
     k = _split_heads(dense(params["wk"], src), cfg.kv_heads)
@@ -283,7 +347,8 @@ def _attn_cache_init(cfg: ModelConfig, batch: int, max_len: int,
                      dtype=torch.bfloat16, *, paged: PagedSpec | None = None,
                      device="cuda"):
     """Decode cache for one layer on ``device`` (the card unless the caller
-    asks for the CPU): the O(d^2) FlowState, fp32, for flow; the
+    asks for the CPU): the O(d^2) FlowState, fp32, for flow (with MLA one
+    per query head, (nope + rope) x v); the
     ``LinearState`` (fp32, per query head) for linear; for softmax a
     dense ``KVCache`` of ``max_len`` positions in ``dtype``, or with
     ``paged`` a ``PagedKVCache`` of ``paged.num_pages`` pages (0: the
@@ -292,6 +357,11 @@ def _attn_cache_init(cfg: ModelConfig, batch: int, max_len: int,
     _require_ported(cfg)
     dev = resolve_device(device)
     hd, nkv = cfg.dim_head, cfg.kv_heads
+    if cfg.mla is not None:  # flow: a state per head, D = nope + rope
+        m = cfg.mla
+        return init_state(batch, cfg.n_heads,
+                          m.nope_head_dim + m.rope_head_dim, m.v_head_dim,
+                          device=dev)
     if cfg.attention.kind == "flow":
         return init_state(batch, nkv, hd, hd, device=dev)
     pos = torch.zeros((batch,), dtype=torch.int32, device=dev)
@@ -481,6 +551,10 @@ class AttentionMixer(mixer_lib.Mixer):
         if cfg.attention.kind == "local":
             return False, "bounded ring buffer (nothing to page)"
         return False, "constant-size O(d^2) recurrent state (nothing to page)"
+
+    def differentiable(self, cfg, platform):
+        return True, ("gradient capability is judged per execution strategy "
+                      "by the attention backend registry (needs_grad plans)")
 
     def verify_capable(self, cfg):
         kind = cfg.attention.kind

@@ -57,7 +57,7 @@ def _dims(cfg: ModelConfig):
 
 
 def _log_uniform(gen: torch.Generator, n: int, lo: float, hi: float):
-    u = torch.rand((n,), generator=gen)
+    u = torch.rand((n,), generator=gen, device=gen.device)
     return torch.exp(math.log(lo) + (math.log(hi) - math.log(lo)) * u)
 
 

@@ -1,11 +1,18 @@
-"""Decoder-only language model (flow- and softmax-attention and Mamba-2
-SSD stacks).
+"""Decoder-only language model: dense and MoE stacks of flow-, softmax-,
+linear- or MLA-attention, and Mamba-2 SSD stacks.
 
 The counterpart of ``repro/models/lm.py`` for the stacks the port
 serves: every layer is ``norm1 -> mixer -> residual``, followed by
 ``norm2 -> FFN -> residual`` where the config has an FFN and the mixer
 wants one (``block_ffn``; an SSD block is the whole layer), with the
-mixer resolved from ``cfg.block_kind`` through ``layers/mixer.py``.
+mixer resolved from ``cfg.block_kind`` through ``layers/mixer.py``.  With
+``cfg.moe`` the FFN is the mixture of experts (``layers/moe.py``), whose
+load-balancing ``aux`` loss ``forward`` sums over the layers; serving
+drops it, as the reference does.  ``cfg.rope == "mrope"`` (Qwen2-VL) gives
+every entry point the (B, 3, N) text positions
+(``default_mrope_positions``).  ``forward`` and ``loss_fn`` take int
+tokens (B, N) or, for the stub frontend, float embeddings (B, N, d), which
+skip the table; serving feeds token ids through the table.
 Parameters are a plain dict of tensors
 
     {"embed": {"table"}, "blocks": [per-layer dicts], "final_norm", "head"}
@@ -34,14 +41,10 @@ from repro_torch.config import ModelConfig
 from repro_torch.layers.embeddings import embed, embedding_init, unembed
 from repro_torch.layers.ffn import ffn, ffn_init
 from repro_torch.layers.mixer import get_mixer, resolve_mixers
+from repro_torch.layers.moe import moe, moe_init
 from repro_torch.layers.norms import apply_norm, norm_init
-from repro_torch.layers.rope import default_positions
+from repro_torch.layers.rope import default_mrope_positions, default_positions
 from repro_torch.utils import resolve_device, tree_map
-
-
-def _require_supported(cfg: ModelConfig):
-    if cfg.moe is not None or cfg.rope == "mrope":
-        raise NotImplementedError("MoE and mrope stacks are not ported yet")
 
 
 def _block_init(gen: torch.Generator, kind: str, cfg: ModelConfig) -> dict:
@@ -50,16 +53,33 @@ def _block_init(gen: torch.Generator, kind: str, cfg: ModelConfig) -> dict:
          mx.params_field: mx.init_params(gen, cfg)}
     if cfg.d_ff > 0 and mx.block_ffn:
         p["norm2"] = norm_init(cfg.d_model, cfg.norm)
-        p["ffn"] = ffn_init(gen, cfg.d_model, cfg.d_ff, cfg.act)
+        if cfg.moe is not None:
+            p["moe"] = moe_init(gen, cfg.d_model, cfg.d_ff, cfg.act, cfg.moe)
+        else:
+            p["ffn"] = ffn_init(gen, cfg.d_model, cfg.d_ff, cfg.act)
     return p
+
+
+def _positions(cfg: ModelConfig, b: int, n: int, offset=0, *, device=None):
+    """(B, N) positions, or (B, 3, N) text positions for M-RoPE."""
+    fn = default_mrope_positions if cfg.rope == "mrope" else default_positions
+    return fn(b, n, offset, device=device)
+
+
+def _embed_inputs(params, inputs: torch.Tensor, dtype) -> torch.Tensor:
+    """Token ids through the table; float inputs (the stub frontend's
+    precomputed embeddings, (B, N, d)) as they are, cast to ``dtype``."""
+    if inputs.is_floating_point():
+        return inputs.to(dtype)
+    return embed(params["embed"], inputs, dtype)
 
 
 def init(cfg: ModelConfig, generator: torch.Generator, device="cuda") -> dict:
     """Random parameters with the reference's shapes and initializer
     families (truncated normal, std 0.02, for the tables; LeCun normal for
-    dense weights), drawn on the CPU from ``generator`` and moved to
-    ``device``."""
-    _require_supported(cfg)
+    dense weights), drawn from ``generator`` on its device (a CPU
+    generator gives the same weights on every device; a CUDA one draws a
+    full-width model on the card) and moved to ``device``."""
     dev = resolve_device(device)
     p = {"embed": embedding_init(generator, cfg.vocab_size, cfg.d_model),
          "blocks": [_block_init(generator, cfg.block_kind(i), cfg)
@@ -85,44 +105,56 @@ def _head(params, cfg: ModelConfig):
 
 
 def _ffn_residual(bp, x, cfg: ModelConfig):
+    """x plus the block's FFN (dense or MoE) of norm2(x), and the MoE's aux
+    loss (None for a dense FFN or none)."""
     if "ffn" in bp:
-        x = x + ffn(bp["ffn"], apply_norm(bp["norm2"], x, cfg.norm), cfg.act)
-    return x
+        return x + ffn(bp["ffn"], apply_norm(bp["norm2"], x, cfg.norm),
+                       cfg.act), None
+    if "moe" in bp:
+        y, aux = moe(bp["moe"], apply_norm(bp["norm2"], x, cfg.norm),
+                     cfg.act, cfg.moe)
+        return x + y, aux
+    return x, None
 
 
 def _block(mx, bp, x, cfg: ModelConfig, positions, plan):
     h = apply_norm(bp["norm1"], x, cfg.norm)
     x = x + mx.forward(bp[mx.params_field], h, cfg, positions=positions,
                        plan=plan)
-    return _ffn_residual(bp, x, cfg)
+    x, aux = _ffn_residual(bp, x, cfg)
+    return x, (torch.zeros((), dtype=torch.float32, device=x.device)
+               if aux is None else aux)
 
 
 def forward(params, inputs: torch.Tensor, cfg: ModelConfig, *,
             positions=None, dtype=torch.bfloat16, plan=None):
-    """inputs: int tokens (B, N).  Returns (logits (B, N, vocab) fp32,
-    aux loss 0.0)."""
-    _require_supported(cfg)
-    b, n = inputs.shape
-    x = embed(params["embed"], inputs, dtype)
+    """inputs: int tokens (B, N) or stub embeddings (B, N, d).  Returns
+    (logits (B, N, vocab) fp32, the aux loss summed over the layers, an
+    fp32 scalar: 0 without MoE)."""
+    b, n = inputs.shape[:2]
+    x = _embed_inputs(params, inputs, dtype)
     if positions is None:
-        positions = default_positions(b, n, device=inputs.device)
+        positions = _positions(cfg, b, n, device=inputs.device)
     remat = cfg.remat and torch.is_grad_enabled()
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for mx, bp in zip(resolve_mixers(cfg), params["blocks"]):
         if remat:
-            x = checkpoint(_block, mx, bp, x, cfg, positions, plan,
-                           use_reentrant=False)
+            x, aux = checkpoint(_block, mx, bp, x, cfg, positions, plan,
+                                use_reentrant=False)
         else:
-            x = _block(mx, bp, x, cfg, positions, plan)
+            x, aux = _block(mx, bp, x, cfg, positions, plan)
+        aux_total = aux_total + aux
     x = apply_norm(params["final_norm"], x, cfg.norm)
     logits = unembed(_head(params, cfg), x, softcap=cfg.logit_softcap)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux_total
 
 
 def loss_fn(params, batch: dict, cfg: ModelConfig, *, dtype=torch.bfloat16,
             plan=None):
-    """batch: {"inputs": (B, N) tokens, "targets": (B, N) int, "mask":
-    (B, N) optional}.  Returns (loss, metrics): the mean next-token
-    cross-entropy over the mask, plus the aux loss."""
+    """batch: {"inputs": (B, N) tokens or (B, N, d) stub embeddings,
+    "targets": (B, N) int, "mask": (B, N) optional}.  Returns (loss,
+    metrics): the mean next-token cross-entropy over the mask, plus the
+    aux loss."""
     logits, aux = forward(params, batch["inputs"], cfg, dtype=dtype,
                           positions=batch.get("positions"), plan=plan)
     targets = batch["targets"].long()
@@ -165,17 +197,16 @@ def prefill(params, inputs: torch.Tensor, cfg: ModelConfig, max_len: int, *,
     each row's state lands at its own boundary, and the logits are taken
     at position ``lengths[i] - 1`` of each row.
     """
-    _require_supported(cfg)
-    b, n = inputs.shape
-    x = embed(params["embed"], inputs, dtype)
-    positions = default_positions(b, n, device=inputs.device)
+    b, n = inputs.shape[:2]
+    x = _embed_inputs(params, inputs, dtype)
+    positions = _positions(cfg, b, n, device=inputs.device)
     caches = []
     for mx, bp in zip(resolve_mixers(cfg), params["blocks"]):
         h = apply_norm(bp["norm1"], x, cfg.norm)
         y, cache = mx.prefill(bp[mx.params_field], h, cfg, max_len,
                               positions=positions, lengths=lengths, plan=plan)
         caches.append(cache)
-        x = _ffn_residual(bp, x + y, cfg)
+        x = _ffn_residual(bp, x + y, cfg)[0]
     x = apply_norm(params["final_norm"], x, cfg.norm)
     if lengths is None:
         x_last = x[:, -1:]
@@ -193,10 +224,9 @@ def decode(params, token: torch.Tensor, caches: list, cfg: ModelConfig, pos,
     serves every layer).  Returns (logits (B, 1, vocab), caches); on the
     GPU the FlowStates, and on every device the KV caches, are the given
     ones updated in place."""
-    _require_supported(cfg)
     b = token.shape[0]
-    x = embed(params["embed"], token, dtype)
-    positions = default_positions(b, 1, pos, device=token.device)
+    x = _embed_inputs(params, token, dtype)
+    positions = _positions(cfg, b, 1, pos, device=token.device)
     new_caches = []
     for mx, bp, state in zip(resolve_mixers(cfg), params["blocks"], caches):
         h = apply_norm(bp["norm1"], x, cfg.norm)
@@ -204,7 +234,7 @@ def decode(params, token: torch.Tensor, caches: list, cfg: ModelConfig, pos,
                                   positions=positions, page_table=page_table,
                                   plan=plan)
         new_caches.append(cache)
-        x = _ffn_residual(bp, x + y, cfg)
+        x = _ffn_residual(bp, x + y, cfg)[0]
     x = apply_norm(params["final_norm"], x, cfg.norm)
     return unembed(_head(params, cfg), x, softcap=cfg.logit_softcap), new_caches
 
@@ -224,10 +254,9 @@ def verify(params, tokens: torch.Tensor, caches: list, cfg: ModelConfig,
     layers' pools are only read; softmax layers write the window's K/V
     rows in place, as ``decode`` does.
     """
-    _require_supported(cfg)
-    b, n = tokens.shape
-    x = embed(params["embed"], tokens, dtype)
-    positions = default_positions(b, n, pos, device=tokens.device)
+    b, n = tokens.shape[:2]
+    x = _embed_inputs(params, tokens, dtype)
+    positions = _positions(cfg, b, n, pos, device=tokens.device)
     pending = []
     for mx, bp, state in zip(resolve_mixers(cfg), params["blocks"], caches):
         h = apply_norm(bp["norm1"], x, cfg.norm)
@@ -235,7 +264,7 @@ def verify(params, tokens: torch.Tensor, caches: list, cfg: ModelConfig,
                                   positions=positions, page_table=page_table,
                                   plan=plan)
         pending.append(cache)
-        x = _ffn_residual(bp, x + y, cfg)
+        x = _ffn_residual(bp, x + y, cfg)[0]
     x = apply_norm(params["final_norm"], x, cfg.norm)
     return unembed(_head(params, cfg), x, softcap=cfg.logit_softcap), pending
 

@@ -1,7 +1,9 @@
 """Small shared helpers: devices, parameter initializers, tree helpers.
 
-Initializers draw from an explicit CPU ``torch.Generator`` (never the
-global RNG), so the same seed gives the same weights on every device.
+Initializers draw from an explicit ``torch.Generator`` (never the global
+RNG), on the generator's own device: a CPU generator gives the same
+weights on every device, and a CUDA one draws a large model's weights on
+the card itself.
 Parameter trees are nested dicts and lists of tensors.
 """
 from __future__ import annotations
@@ -24,7 +26,8 @@ def resolve_device(device) -> torch.device:
 def trunc_normal(gen: torch.Generator, shape, stddev: float = 0.02):
     """``stddev`` times a standard normal truncated to [-2, 2] (inverse CDF)."""
     lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
-    u = torch.rand(shape, generator=gen, dtype=torch.float64)
+    u = torch.rand(shape, generator=gen, dtype=torch.float64,
+                   device=gen.device)
     p = lo + (1.0 - 2.0 * lo) * u
     x = math.sqrt(2.0) * torch.erfinv(2.0 * p - 1.0)
     return (stddev * x.clamp(-2.0, 2.0)).to(torch.float32)
@@ -33,7 +36,8 @@ def trunc_normal(gen: torch.Generator, shape, stddev: float = 0.02):
 def lecun_normal(gen: torch.Generator, shape, in_axis: int = -2):
     """Normal with std 1/sqrt(fan_in), fan_in = ``shape[in_axis]``."""
     fan_in = shape[in_axis] if len(shape) >= 2 else shape[0]
-    return torch.randn(shape, generator=gen) * (1.0 / math.sqrt(fan_in))
+    return torch.randn(shape, generator=gen, device=gen.device) * (
+        1.0 / math.sqrt(fan_in))
 
 
 def tree_map(fn, tree):

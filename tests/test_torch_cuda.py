@@ -1472,3 +1472,145 @@ def test_whisper_on_the_kernels_matches_plain(gen):
         scale = float(b_.abs().max())
         assert float((a - b_).abs().max()) <= 1e-4 * scale
     assert torch.equal(chosen["auto"], chosen["plain"])
+
+
+# --- K1 and K3 at D = 192: MLA (Dv = 128) and Nemotron-4-340B (Dv = 192) ----
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hkv,g,dv", [(4, 1, 128), (2, 12, 192)])
+def test_flow_fused_and_decode_at_d192(gen, hkv, g, dv, dtype):
+    """K1 (packed prefill, ragged lengths) and 8 K3 steps at D = 192:
+    DeepSeek-V2's MLA heads (Dv = 128, G = 1) and Nemotron-4-340B's (Dv =
+    192, G = 12), against their plain versions."""
+    b, n, d = 3, 200, 192
+    cfg = FlowConfig(causal=True, strict_causal=True, chunk_size=128)
+    q = torch.randn((b, hkv * g, n, d), generator=gen, device="cuda")
+    k = torch.randn((b, hkv, n, d), generator=gen, device="cuda")
+    v = torch.randn((b, hkv, n, dv), generator=gen, device="cuda")
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    lengths = torch.tensor([200, 1, 77], dtype=torch.int32, device="cuda")
+    tol = TOL if dtype == torch.float32 else dict(rtol=1e-2, atol=1e-2)
+    reset_launches()
+    out, st = flow_fused_forward(q, k, v, cfg, return_state=True,
+                                 lengths=lengths)
+    ref, ref_st = fused_causal_forward(q, k, v, cfg, return_state=True,
+                                       lengths=lengths)
+    assert out.shape == (b, hkv * g, n, dv) and st.s.shape == (b, hkv, d, dv)
+    for i, li in enumerate(lengths.tolist()):
+        torch.testing.assert_close(out[i, :, :li].float(),
+                                   ref[i, :, :li].float(), **tol)
+    for a, b_ in zip(st, ref_st):
+        torch.testing.assert_close(a, b_, **TOL)
+    plain = FlowState(*(x.clone() for x in st))
+    for _ in range(8):
+        tq = torch.randn((b, hkv * g, 1, d), generator=gen,
+                         device="cuda").to(dtype)
+        tk = torch.randn((b, hkv, 1, d), generator=gen,
+                         device="cuda").to(dtype)
+        tv = torch.randn((b, hkv, 1, dv), generator=gen,
+                         device="cuda").to(dtype)
+        _, got = flow_decode_step(st, tq, tk, tv, cfg)
+        plain, want = decode_step(plain, tq, tk, tv, cfg)
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+    for a, b_ in zip(st, plain):
+        torch.testing.assert_close(a, b_, **TOL)
+    assert LAUNCHES["flow_fused"] == 1 and LAUNCHES["flow_decode"] == 8
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,dv", [(1, 128), (12, 192), (3, 128)])
+def test_flow_decode_at_d192_is_deterministic_and_in_split_order(gen, g, dv,
+                                                                 dtype):
+    """K3 at D = 192: two steps from clones of one pool bitwise equal, and
+    the step against ``flow_decode_split`` from a copy of the pool."""
+    slots, hkv, d = 5, 2, 192
+    bh = slots * hkv
+    pool = decode_pool(gen, slots, hkv, d)
+    pool = pool._replace(s=torch.randn((slots, hkv, d, dv), generator=gen,
+                                       device="cuda"))
+    q = torch.randn((bh, g, d), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((bh, d), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((bh, dv), generator=gen, device="cuda").to(dtype)
+    before = [x.clone() for x in flat_state(pool)]
+    pool.t.add_(1)
+    runs = []
+    for _ in range(2):
+        state = [x.clone() for x in before]
+        runs.append((flow_decode_call(pool.t, q, k, v, *state, hkv=hkv),
+                     state))
+    (out_a, st_a), (out_b, st_b) = runs
+    assert torch.equal(out_a, out_b)
+    assert all(torch.equal(x, y) for x, y in zip(st_a, st_b))
+    want, want_st = flow_decode_split(pool.t, q, k, v, *before, hkv=hkv)
+    tol = TOL if dtype == torch.float32 else dict(rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(out_a.float(), want.float(), **tol)
+    for a, b_ in zip(st_a, want_st):
+        torch.testing.assert_close(a, b_, **TOL)
+
+
+def test_flow_fused_forward_refuses_gradients_at_d192_naming_k2(gen):
+    """At D = 192 K1 serves forward-only: a forward autograd would
+    differentiate raises naming K2 before any launch."""
+    q = torch.randn((2, 2, 32, 192), generator=gen, device="cuda",
+                    requires_grad=True)
+    v = torch.randn((2, 2, 32, 128), generator=gen, device="cuda")
+    reset_launches()
+    with pytest.raises(RuntimeError, match="K2"):
+        flow_fused_forward(q, q, v, FlowConfig(causal=True,
+                                               strict_causal=True))
+    assert LAUNCHES["flow_fused"] == 0
+    with torch.no_grad():
+        out, _ = flow_fused_forward(q, q, v, FlowConfig(causal=True,
+                                                        strict_causal=True))
+    assert out.shape == (2, 2, 32, 128) and LAUNCHES["flow_fused"] == 1
+
+
+def test_moe_combine_is_bitwise_repeatable_on_cuda(gen):
+    """The MoE's fixed-order combine (no atomics): two calls on the card
+    bitwise equal, bf16 and fp32, with tokens dropped at capacity."""
+    from repro_torch.config import MoEConfig
+    from repro_torch.layers import moe
+
+    mcfg = MoEConfig(n_experts=16, n_shared=1, top_k=4, d_ff_expert=96,
+                     capacity_factor=0.75)
+    params = tree_map(lambda x: x.cuda(), moe.moe_init(
+        torch.Generator().manual_seed(0), 128, 96, "swiglu", mcfg))
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn((4, 200, 128), generator=gen,
+                        device="cuda").to(dtype)
+        a, aux_a = moe.moe(params, x, "swiglu", mcfg)
+        b, aux_b = moe.moe(params, x, "swiglu", mcfg)
+        assert torch.equal(a, b) and torch.equal(aux_a, aux_b)
+        cpu, _ = moe.moe(tree_map(lambda t: t.cpu(), params), x.cpu().float(),
+                         "swiglu", mcfg)
+        if dtype == torch.float32:
+            torch.testing.assert_close(a.cpu(), cpu, **TOL)
+
+
+def test_mla_moe_engine_kernels_match_plain_greedy(gen):
+    """A one-layer DeepSeek-V2-Lite at its head widths (MLA q and k 192,
+    v 128; MoE with shared experts) served in fp32 on the kernels (K1 and
+    K3 at (192, 128)) and on the plain path: greedy tokens equal."""
+    cfg = get_config("deepseek_v2_lite_16b")
+    cfg = dataclasses.replace(
+        cfg, n_layers=1, d_model=256, n_heads=2, n_kv_heads=2,
+        vocab_size=512, moe=dataclasses.replace(cfg.moe, n_experts=8,
+                                                top_k=2, d_ff_expert=128))
+    params = lm.init(cfg, torch.Generator().manual_seed(0), device="cuda")
+    runs = {}
+    for backend in ("auto", "plain"):
+        c = dataclasses.replace(cfg, attention=dataclasses.replace(
+            cfg.attention, backend=backend))
+        engine = Engine(params, c, slots=2, max_len=64, dtype=torch.float32,
+                        device="cuda")
+        rng = np.random.default_rng(1)
+        for uid, n in enumerate((5, 17, 9)):
+            engine.submit(Request(uid=uid, prompt=rng.integers(
+                0, cfg.vocab_size, n).astype(np.int32), max_new_tokens=6))
+        reset_launches()
+        runs[backend] = {r.uid: r.generated for r in engine.run()}
+        if backend == "auto":
+            assert LAUNCHES["flow_fused"] > 0 and LAUNCHES["flow_decode"] > 0
+        else:
+            assert max(LAUNCHES.values()) == 0
+    assert runs["auto"] == runs["plain"]

@@ -651,3 +651,83 @@ def test_linear_is_accepted_and_local_and_mla_are_refused_by_name():
     for flag in ("local", "mla"):
         with pytest.raises(SystemExit, match="local and MLA attention"):
             serve.main(["--attn", flag, "--smoke", "--device", "cpu"])
+
+
+# --- K1 and K3 at D = 192 (MLA and Nemotron-4-340B heads) --------------------
+
+@pytest.mark.parametrize("d,dv,g", [(192, 128, 1), (192, 192, 12)])
+def test_auto_on_cuda_serves_d192_on_k1_and_k3(d, dv, g):
+    """Serving resolves K1 (packed prefill) and K3 (decode) at the new
+    pairs; the kernels' other shape checks keep refusing them."""
+    shapes = {op: dataclasses.replace(s, d=d, dv=dv, hq=8 * g, hkv=8)
+              for op, s in SHAPES.items()}
+    ex = attention.resolve(ExecutionPlan(flow=FlowConfig(), packed=True))
+    assert ex.backend("prefill_packed", shapes["prefill_packed"],
+                      "cuda").name == "cuda_fused"
+    assert ex.backend("decode", shapes["decode"], "cuda").name == \
+        "cuda_decode"
+    # K5a / K5b (the paper-causal mode) stay at HEAD_DIMS
+    paper = ExecutionPlan(flow=FlowConfig(strict_causal=False))
+    with pytest.raises(attention.ResolutionError, match="kernel takes"):
+        attention.resolve(paper).backend("forward", shapes["prefill_packed"],
+                                         "cuda")
+
+
+@pytest.mark.parametrize("dv", [128, 192])
+def test_a_gradient_plan_at_d192_raises_naming_k2(dv):
+    """Under ``auto`` on the card a training plan at D = 192 is refused by
+    cuda_fused naming K2 (before any forward runs), and nothing else takes
+    it; the launcher's build-time check raises the same way."""
+    shapes = dataclasses.replace(SHAPES["prefill_packed"], d=192, dv=dv)
+    causal = FlowConfig(causal=True, strict_causal=True)
+    plan = attention.resolve(ExecutionPlan(flow=causal, needs_grad=True))
+    for op in ("forward", "prefill"):
+        with pytest.raises(attention.ResolutionError, match="K2") as err:
+            plan.backend(op, shapes, "cuda")
+        why = dict(err.value.rejections)
+        assert "flow_fused_bwd" in why["cuda_fused"]
+    # serving (no gradients) still takes K1
+    assert attention.resolve(ExecutionPlan(flow=causal)).backend(
+        "forward", shapes, "cuda").name == "cuda_fused"
+    deepseek = get_smoke_config("deepseek_v2_lite_16b")
+    full = dataclasses.replace(deepseek, mla=dataclasses.replace(
+        deepseek.mla, nope_head_dim=128, rope_head_dim=64, v_head_dim=128))
+    with pytest.raises(attention.ResolutionError, match="K2"):
+        check_flow_trainable(full, ShapeSpec("t", 256, 4, "train"), "cuda")
+
+
+def test_an_int8_pool_at_d192_raises_naming_k4():
+    shapes = dataclasses.replace(SHAPES["decode"], d=192, dv=128)
+    with pytest.raises(attention.ResolutionError, match="K4") as err:
+        attention.resolve(quant_plan()).backend("decode", shapes, "cuda")
+    assert "flow_decode_q" in dict(err.value.rejections)["cuda_decode"]
+    # the fp32 pool decodes on K3; pinned plain, the int8 pool on the CPU path
+    assert attention.resolve(ExecutionPlan(flow=FlowConfig())).backend(
+        "decode", shapes, "cuda").name == "cuda_decode"
+    assert attention.resolve(quant_plan("plain")).backend(
+        "decode", shapes, "cuda").name == "recurrent"
+    with pytest.raises(SystemExit, match="K4"):
+        serve.main(["--arch", "deepseek-v2-lite-16b", "--state-dtype",
+                    "int8", "--device", "cpu"])
+
+
+def test_mla_with_softmax_raises_naming_the_absorbed_decode():
+    from repro_torch.layers import attention as attn
+
+    cfg = get_smoke_config("deepseek_v2_lite_16b")
+    soft = dataclasses.replace(cfg, attention=dataclasses.replace(
+        cfg.attention, kind="softmax"))
+    with pytest.raises(NotImplementedError, match="absorbed"):
+        lm.init(soft, torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(NotImplementedError, match="absorbed"):
+        attn._attn_cache_init(soft, 2, 16, device="cpu")
+    with pytest.raises(SystemExit, match="absorbed decode"):
+        serve.main(["--arch", "deepseek-v2-lite-16b", "--smoke", "--attn",
+                    "softmax", "--device", "cpu"])
+    # the flow branch builds: MoE, MLA and M-RoPE stacks are no longer
+    # refused by the model
+    for arch in ("deepseek_v2_lite_16b", "granite_moe_3b_a800m",
+                 "qwen2_vl_72b", "nemotron_4_340b"):
+        params = lm.init(get_smoke_config(arch),
+                         torch.Generator().manual_seed(0), device="cpu")
+        assert params["blocks"]
