@@ -102,6 +102,10 @@ any failure raises, so the exit code is non-zero:
      ``flow_decode_split``, and two steps from clones of one pool bitwise
      equal; DeepSeek-V2-Lite's full-width MoE at 16 x 384 and 16 x 1
      tokens: two calls bitwise equal (the fixed-order combine);
+  3i. K1 and K3 at RecurrentGemma-9B's flow heads, (D, Dv) = (256, 256)
+     with one kv head, G = 16 (``check_rg_shapes``), as 3h (K1 also two
+     calls bitwise equal); K9 at an RG-LRU admission (16 rows, Lb 512, W
+     4,096 bf16) exactly equal to its plain version, twice;
   4. K3 ``flow_decode`` against its plain version: 16 (the serving pool)
      and 64 slots x 8 kv heads, 32 steps from a non-zero state, updated
      in place; at every step also against ``flow_decode_split`` (the
@@ -304,6 +308,28 @@ any failure raises, so the exit code is non-zero:
      kv heads of 64: G = 3; 40 experts top-8, d_ff_expert 512; vocab
      49,155), 2 of 32 layers, served as phase 5 in bf16 with its K1 and K3
      counts;
+  31. ``recurrentgemma_9b`` in flow mode at full width and depth (38
+     layers: rglru, rglru, local; d 4,096; 16 query heads over one kv head
+     of 256; vocab 256,000; 9.63 B parameters drawn on the card in bf16),
+     phase 5's traffic in bf16: packed admission with exactly one K1 a
+     flow layer and one K9 an RG-LRU layer per round, one K3 a flow layer
+     per decode step, nothing else; decode and prefill tokens/s, pool
+     bytes a slot, then ``torch.profiler`` over decode steps as in 5b;
+     31b: one period (3 of 38 layers) in fp32, phase 6's greedy tokens on
+     the kernels equal to the plain path's (K9's plain version bound in);
+  32. the same config in softmax mode (the local slots are window rings
+     of 2,048), 3 of 38 layers, bf16: phase 5's traffic and two prompts of
+     4,096 tokens (the band path), one admission round a request and no
+     kernel launched; then in fp32 six requests (one of 4,096 tokens,
+     whose ring wraps) token for token equal to a solo loop of
+     ``lm.prefill`` and ``lm.decode`` a request;
+  33. int8 hybrid pools: (a) ``mamba2_1p3b`` at full width from int8
+     pools on phase 13's traffic (K9 as phase 13; pool bytes a slot
+     against the fp32 pools'); (b) the recurrentgemma smoke config (K1,
+     K9, and K4 at D = 32, G = 4) in fp32 from int8 pools, each decode
+     step teacher-forced against the same step from the pools dequantized
+     into fp32 pools (K3): logits within (1e-4, 1e-4 max |logit|), every
+     pool entry within one step of its scale plus 1e-5;
   13. the Engine serving the full-width mamba2_1p3b (48 layers of SSD,
      random weights from a seed) in bf16, phase 5's traffic: exactly 1 K9
      launch per layer and admission round (``boundary_gather_many`` of the
@@ -386,7 +412,12 @@ any failure raises, so the exit code is non-zero:
      ``flow_decode_g8_d128`` (Qwen2-VL's 8 kv heads, G = 8; phase 29's)
      and ``flow_fused_d192_g12``, ``flow_decode_d192_g12`` (Nemotron-4-
      340B's 8 kv heads of 192, G = 12; no model run reaches them, so 0
-     launches); the base rows' launches count phases 26-30 too;
+     launches); ``flow_fused_d256_g16``, ``flow_decode_d256_g16`` (K1 at
+     one recurrentgemma admission of 16 prompts, G = 16, D = 256, N =
+     384, with its four CUDA kernels' device ms; K3 at its 16-slot pool;
+     launches phase 31's) and ``boundary_gather_rglru`` (K9 at the RG-LRU
+     admission; phase 31's); the base rows' launches count phases 26-33
+     too;
   12. the last line: ``{"ok": true, "device": {...}}``.
 
 Tolerances (|kernel - plain| <= atol + rtol * |plain|, elementwise):
@@ -1681,10 +1712,14 @@ def serve_fp32_both_paths(params, cfg):
         routes[backend] = []
         undo = (recording_routes(engine, routes[backend])
                 if cfg.moe is not None else (lambda: None))
+        # the plain path's rglru conv histories: K9's plain version
+        undo_k9 = (bind_plain_boundary() if backend == "plain"
+                   and "rglru" in cfg.pattern else (lambda: None))
         try:
             runs[backend] = {r.uid: r for r in engine.run()}
         finally:
             undo()
+            undo_k9()
         serving = ([LAUNCHES["flow_chunk"]] if cfg.attention.kind == "linear"
                    else [LAUNCHES["flow_fused"], LAUNCHES["flow_decode"]])
         if (backend == "auto" and min(serving) == 0) or (
@@ -3086,31 +3121,24 @@ def wide_arch(name: str):
     return dataclasses.replace(get_config(name), n_layers=WIDE_LAYERS)
 
 
-def check_wide_shapes() -> dict:
-    """Phase 3h: K1 and K3 at the shapes of phases 28 and 29 and at
-    Nemotron-4-340B's, against their plain versions, bf16 and fp32: K1 on
-    ragged lengths (16 prompts, N = 384) at (D, Dv) = (192, 128) with 16
-    heads, G = 1 (DeepSeek-V2-Lite's MLA), (192, 192) with 8 kv heads, G =
-    12 (Nemotron-4-340B) and (128, 128) with 8 kv heads, G = 8 (Qwen2-VL);
-    K3 over 32 steps from a non-zero state at each of those pools (16
-    slots), at each step also against ``flow_decode_split`` from a copy of
-    the kernel's pre-step pool, and two steps from clones of one pool
-    bitwise equal at each; then DeepSeek-V2-Lite's MoE at full width (64
-    experts top-6, 2 shared, d 2,048, d_ff 1,408) at a prefill's and a
-    decode step's tokens: two calls bitwise equal (the fixed-order
-    combine), bf16 and fp32.  Returns the bf16 errors of the new rows."""
+def check_fused_decode(shapes) -> dict:
+    """K1 and K3 at each of ``shapes`` ((tag, prompts or slots, kv heads,
+    G, D, Dv)) against their plain versions, bf16 and fp32: K1 on ragged
+    lengths (N = 384) and two calls bitwise equal; K3 over 32 steps from a
+    non-zero pool, at each step also against ``flow_decode_split`` from a
+    copy of the kernel's pre-step pool, and two steps from clones of one
+    pool bitwise equal.  Returns the bf16 errors, keyed
+    ``flow_fused_<tag>`` and ``flow_decode_<tag>``."""
     from repro_torch.attention.recurrent import FlowState, decode_step
     from repro_torch.core.flow_attention import FlowConfig
     from repro_torch.kernels.flow_decode import (flow_decode_split,
                                                  flow_decode_step)
     from repro_torch.kernels.flow_fused import flow_fused_call, flow_fused_ref
-    from repro_torch.layers import moe
-    from repro_torch.utils import tree_cast
 
     errs = {}
     cfg = FlowConfig(causal=True, strict_causal=True)
     with torch.inference_mode():
-        for tag, rows, hkv, g, d, dv in WIDE_SHAPES:
+        for tag, rows, hkv, g, d, dv in shapes:
             for dtype in (torch.bfloat16, torch.float32):
                 name = str(dtype)[6:]
                 q, k, v, lens = k1_inputs(dtype, rows=rows, hkv=hkv, g=g,
@@ -3122,9 +3150,13 @@ def check_wide_shapes() -> dict:
                 e1 = max_err(f"{what} out", out, ref_out, TOL[dtype])
                 worst = max(max_err(f"{what} {n_}", a, b, STATE_TOL)
                             for n_, a, b in zip(STATE_FIELDS, sums, ref_sums))
+                out2, sums2 = flow_fused_call(q, k, v, lens, chunk=128)
+                if not (torch.equal(out, out2) and all(
+                        torch.equal(a, b) for a, b in zip(sums, sums2))):
+                    raise AssertionError(f"{what}: two calls differ")
                 torch.cuda.synchronize()
-                print(f"[K1] {what}: out {e1:.3e}, state {worst:.3e}",
-                      flush=True)
+                print(f"[K1] {what}: out {e1:.3e}, state {worst:.3e}; two "
+                      "calls bitwise equal", flush=True)
                 pool = decode_pool(rows, hkv, d, SEED + 71, dv=dv)
                 plain = FlowState(*(x.clone() for x in pool))
                 gen = torch.Generator(device=DEVICE).manual_seed(SEED + 72)
@@ -3170,6 +3202,27 @@ def check_wide_shapes() -> dict:
                 if dtype == torch.bfloat16:
                     errs[f"flow_fused_{tag}"] = e1
                     errs[f"flow_decode_{tag}"] = e3
+    return errs
+
+
+def check_wide_shapes() -> dict:
+    """Phase 3h: K1 and K3 at the shapes of phases 28 and 29 and at
+    Nemotron-4-340B's, against their plain versions, bf16 and fp32: K1 on
+    ragged lengths (16 prompts, N = 384) at (D, Dv) = (192, 128) with 16
+    heads, G = 1 (DeepSeek-V2-Lite's MLA), (192, 192) with 8 kv heads, G =
+    12 (Nemotron-4-340B) and (128, 128) with 8 kv heads, G = 8 (Qwen2-VL);
+    K3 over 32 steps from a non-zero state at each of those pools (16
+    slots), at each step also against ``flow_decode_split`` from a copy of
+    the kernel's pre-step pool, and two steps from clones of one pool
+    bitwise equal at each; then DeepSeek-V2-Lite's MoE at full width (64
+    experts top-6, 2 shared, d 2,048, d_ff 1,408) at a prefill's and a
+    decode step's tokens: two calls bitwise equal (the fixed-order
+    combine), bf16 and fp32.  Returns the bf16 errors of the new rows."""
+    from repro_torch.layers import moe
+    from repro_torch.utils import tree_cast
+
+    errs = check_fused_decode(WIDE_SHAPES)
+    with torch.inference_mode():
         # the MoE's combine: no atomics, two calls bitwise equal
         arch = wide_arch("deepseek_v2_lite_16b")
         mcfg, d_model = arch.moe, arch.d_model
@@ -3191,6 +3244,41 @@ def check_wide_shapes() -> dict:
         print("[MoE] DeepSeek-V2-Lite's MoE (64 experts top-6, 2 shared, d "
               "2,048) at 16 x 384 and 16 x 1 tokens, bf16 and fp32: two "
               "calls bitwise equal", flush=True)
+    return errs
+
+
+#: phase 3i's and the new rows' shape: RecurrentGemma-9B's local slots in
+#: flow mode, 16 prompts (or slots) over one kv head, G = 16, D = Dv = 256
+RG_SHAPES = (("d256_g16", 16, 1, 16, 256, 256),)
+#: the RG-LRU width (d_model) and conv width of recurrentgemma_9b: K9's
+#: stream at each rglru layer's packed admission
+RG_WIDTH, RG_CONV = 4096, 4
+
+
+def check_rg_shapes() -> dict:
+    """Phase 3i: K1 and K3 at RecurrentGemma-9B's flow heads (RG_SHAPES)
+    against their plain versions, bf16 and fp32, two calls bitwise equal
+    (``check_fused_decode``); K9 at the rglru admission's stream (16 rows,
+    Lb 512, W 4,096 bf16, lengths 16..384) exactly equal to its plain
+    version, twice."""
+    from repro_torch.kernels.gather import boundary_gather, boundary_gather_ref
+
+    errs = check_fused_decode(RG_SHAPES)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 77)
+    lens = torch.tensor(ragged_lens(np.random.default_rng(SEED + 77), 16, 16,
+                                    384), device=DEVICE)
+    xb = torch.randn((16, 512, RG_WIDTH), generator=gen,
+                     device=DEVICE).to(torch.bfloat16)
+    with torch.inference_mode():
+        got = [boundary_gather(xb, lens, RG_CONV) for _ in range(2)]
+        want = boundary_gather_ref(xb, lens, RG_CONV)
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, want) for x in got):
+        raise AssertionError("boundary_gather at the rglru admission: not "
+                             "exact")
+    print(f"[K9] rglru admission, 16 rows x Lb 512, W {RG_WIDTH} bf16: "
+          "exact, twice", flush=True)
+    errs["boundary_gather_rglru"] = 0.0
     return errs
 
 
@@ -3239,6 +3327,21 @@ def time_wide_kernels(runs: dict, errs: dict) -> list:
     four CUDA kernels (``breakdown_ms``); ``launches`` are phase 28's (D = 192, Dv
     = 128) and 29's (G = 8), and 0 at Nemotron-4-340B's shape, which no
     model run reaches (its full width does not fit the script's time)."""
+    launched = {"d192_dv128": runs["deepseek"]["launches"],
+                "g8_d128": runs["qwen2_vl"]["launches"]}
+    rows = fused_decode_rows(WIDE_SHAPES, launched, errs)
+    print("[MoE, MLA and M-RoPE shapes] " + json.dumps(rows), flush=True)
+    return rows
+
+
+def fused_decode_rows(shapes, launched: dict, errs: dict) -> list:
+    """The ``kernels`` rows of K1 and K3 at each of ``shapes`` (tag, prompts
+    or slots, kv heads, G, D, Dv): K1 at one admission of N = 384 (phase
+    3h's ragged lengths, bf16), with the device ms of each of its four
+    CUDA kernels (``breakdown_ms``), and K3 at one decode step of the pool
+    (bf16 tokens), each beside its plain version and its bound;
+    ``launched`` maps a tag to a serving run's launch counts (0 where no
+    run reaches the shape)."""
     from repro_torch.attention.recurrent import decode_step
     from repro_torch.core.flow_attention import FlowConfig
     from repro_torch.kernels.flow_decode import flow_decode_call
@@ -3246,10 +3349,8 @@ def time_wide_kernels(runs: dict, errs: dict) -> list:
 
     rows = []
     cfg = FlowConfig(causal=True, strict_causal=True)
-    launched = {"d192_dv128": runs["deepseek"]["launches"],
-                "g8_d128": runs["qwen2_vl"]["launches"]}
     with torch.inference_mode():
-        for tag, n_rows, hkv, g, d, dv in WIDE_SHAPES:
+        for tag, n_rows, hkv, g, d, dv in shapes:
             counts = launched.get(tag, {"flow_fused": 0, "flow_decode": 0})
             q, k, v, lens = k1_inputs(torch.bfloat16, rows=n_rows, hkv=hkv,
                                       g=g, n=384, d=d, seed=SEED + 70, dv=dv)
@@ -3298,7 +3399,396 @@ def time_wide_kernels(runs: dict, errs: dict) -> list:
                 "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
                 "shape": f"{n_rows} slots x {hkv} kv heads, G = {g}, D = {d}, "
                          f"Dv = {dv}, bf16 tokens"})
-    print("[MoE, MLA and M-RoPE shapes] " + json.dumps(rows), flush=True)
+    return rows
+
+
+# --- the RecurrentGemma hybrid stack: phases 31-33 ---------------------------
+
+#: phase 32's long prompts: two windows of the local slots (the band path)
+RG_LONG = 4096
+#: phase 31b's and 32's depth: one period of the pattern
+RG_PERIOD = 3
+#: phase 32's other prompts: phase 5's lengths, all below one window
+RG_SOFT_LENS = (16, 384)
+
+
+def init_serving_weights(cfg, seed: int) -> dict:
+    """``lm.init``'s tree drawn on the card from a CUDA generator seeded
+    with ``seed``, each block's matrices cast to bf16 as it is drawn (the
+    full-depth recurrentgemma_9b is 38.5 GB in fp32, 19.3 GB in bf16);
+    norms and the RG-LRU's ``lam`` and ``conv_b`` stay fp32, as
+    ``lm.for_serving`` leaves them."""
+    from repro_torch.layers.embeddings import embedding_init
+    from repro_torch.layers.norms import norm_init
+    from repro_torch.models import lm
+    from repro_torch.utils import tree_map
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def served(tree):
+        return tree_map(lambda x: x.to(DEVICE, torch.bfloat16
+                                       if x.ndim >= 2 else x.dtype), tree)
+
+    p = {"embed": served(embedding_init(gen, cfg.vocab_size, cfg.d_model)),
+         "blocks": [served(lm._block_init(gen, cfg.block_kind(i), cfg))
+                    for i in range(cfg.n_layers)],
+         "final_norm": served(norm_init(cfg.d_model, cfg.norm))}
+    if not cfg.tie_embeddings:
+        p["head"] = served(embedding_init(gen, cfg.vocab_size, cfg.d_model))
+    return p
+
+
+def hybrid_layers(cfg) -> tuple[int, int]:
+    """(flow attention layers, RG-LRU layers) of a hybrid stack: the local
+    slots are flow attention in flow mode, window rings otherwise."""
+    kinds = [cfg.block_kind(i) for i in range(cfg.n_layers)]
+    flow = sum(k in ("attn", "local") for k in kinds) \
+        if cfg.attention.kind == "flow" else 0
+    return flow, kinds.count("rglru")
+
+
+def rg_cfg(kind: str = "flow", n_layers: int | None = None):
+    """recurrentgemma_9b at full width, attention ``kind`` (the local
+    slots' mode), its depth cut to ``n_layers`` where given."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("recurrentgemma_9b")
+    cfg = dataclasses.replace(cfg, attention=dataclasses.replace(
+        cfg.attention, kind=kind))
+    return dataclasses.replace(cfg, n_layers=n_layers or cfg.n_layers)
+
+
+def serve_hybrid_full_width(params, cfg, reqs, max_len: int) -> dict:
+    """Phases 31 and 32: the bf16 Engine over ``reqs`` at full width, 16
+    slots: launch counts (flow mode packs: one K1 a flow layer and one K9
+    an RG-LRU layer per admission round, one K3 a flow layer per decode
+    step; softmax mode admits one request a round and launches nothing),
+    decode and prefill tokens/s and the pools' bytes a slot."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels._lib import KERNELS
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.quant import pool_bytes
+
+    engine = Engine(params, cfg, slots=16, max_len=max_len, seed=SEED,
+                    device=DEVICE)
+    worker = engine.worker
+    if worker.packable is not (cfg.attention.kind == "flow"):
+        raise AssertionError(f"{cfg.attention.kind} mode: packable "
+                             f"{worker.packable}")
+    for r in reqs:
+        engine.submit(r)
+    spent = timed_worker(worker)
+    torch.cuda.synchronize()
+    reset_launches()
+    done = engine.run()
+    launches = dict(LAUNCHES)
+    if len(done) != len(reqs):
+        raise AssertionError(f"{len(done)} of {len(reqs)} requests retired")
+    for r in done:
+        if not r.done or len(r.generated) != r.max_new_tokens or not all(
+                0 <= tok < cfg.vocab_size for tok in r.generated):
+            raise AssertionError(f"request {r.uid}: {r.generated}")
+    rounds, steps = worker.admission_rounds, worker.decode_steps
+    n_flow, n_rglru = hybrid_layers(cfg)
+    want = dict.fromkeys(KERNELS, 0)
+    if worker.packable:
+        want.update(flow_fused=n_flow * rounds, flow_decode=n_flow * steps,
+                    boundary_gather=n_rglru * rounds)
+    elif rounds != len(reqs):
+        raise AssertionError(f"{rounds} admission rounds for {len(reqs)} "
+                             "requests, want one a request")
+    if launches != want:
+        raise AssertionError(f"{cfg.attention.kind} hybrid launched "
+                             f"{launches}, want {want}")
+    n_bytes = pool_bytes(worker.caches)
+    prompt_tokens = sum(len(r.prompt) for r in reqs)
+    decode_tokens = sum(len(r.generated) - 1 for r in reqs)
+    stats = {
+        "layers": cfg.n_layers, "flow_layers": n_flow,
+        "rglru_layers": n_rglru, "requests": len(reqs),
+        "admission_rounds": rounds, "decode_steps": steps,
+        "prompt_tokens": prompt_tokens, "decode_tokens": decode_tokens,
+        "prefill_s": spent["prefill"], "decode_s": spent["step"],
+        "prefill_tok_per_s": prompt_tokens / spent["prefill"],
+        "decode_tok_per_s": decode_tokens / spent["step"],
+        "decode_ms_per_step": 1e3 * spent["step"] / steps,
+        "launches": launches, "pool_bytes_per_slot": n_bytes // 16,
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"[engine recurrentgemma {cfg.attention.kind} bf16] "
+          + json.dumps(stats), flush=True)
+    return stats
+
+
+def serve_rg_flow_full_width() -> dict:
+    """Phase 31: recurrentgemma_9b in flow mode at full width and depth
+    (38 layers, weights drawn on the card in bf16) on phase 5's traffic
+    (48 requests, prompts 16-384, budgets 32-64); then ``torch.profiler``
+    over decode steps of the full pool (device ms by kernel, the busy
+    share)."""
+    from repro_torch.utils import tree_leaves
+
+    cfg = rg_cfg("flow")
+    torch.cuda.reset_peak_memory_stats()
+    params = init_serving_weights(cfg, SEED)
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    reqs = requests(np.random.default_rng(SEED + 4), 48, cfg.vocab_size,
+                    (16, 384), (32, 64))
+    stats = serve_hybrid_full_width(params, cfg, reqs, 512)
+    stats["n_params"] = n_params
+    stats["profile"] = profile_decode(params, cfg,
+                                      stats["decode_ms_per_step"])
+    print(f"[recurrentgemma_9b flow serving] {n_params:,} parameters, "
+          f"{cfg.n_layers} layers: decode {stats['decode_tok_per_s']:.1f} "
+          f"tok/s, prefill {stats['prefill_tok_per_s']:.1f} tok/s, device "
+          f"busy share of a decode step "
+          f"{stats['profile']['device_busy_share']}, pools "
+          f"{stats['pool_bytes_per_slot']} bytes a slot", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return stats
+
+
+def serve_rg_fp32_both_paths() -> None:
+    """Phase 31b: one period (3 of 38 layers) in fp32, flow mode: phase
+    6's greedy tokens through the kernels (K1, K9, K3) equal to the
+    plain-pinned path's (K9's plain version bound in)."""
+    from repro_torch.models import lm
+
+    cfg = rg_cfg("flow", RG_PERIOD)
+    params = lm.init(cfg, torch.Generator(device=DEVICE).manual_seed(SEED),
+                     device=DEVICE)
+    serve_fp32_both_paths(params, cfg)
+    del params
+    torch.cuda.empty_cache()
+
+
+def rg_softmax_requests(cfg, seed: int, n: int, lens, budgets, long: int):
+    """``requests`` plus ``long`` prompts of RG_LONG tokens (the local
+    slots' band path, 4,096 = 2 windows), budgets as the others'."""
+    from repro_torch.serving.engine import Request
+
+    reqs = requests(np.random.default_rng(seed), n, cfg.vocab_size, lens,
+                    budgets)
+    rng = np.random.default_rng(seed + 1)
+    return reqs + [Request(uid=n + i, prompt=rng.integers(
+        0, cfg.vocab_size, RG_LONG).astype(np.int32),
+        max_new_tokens=int(rng.integers(budgets[0], budgets[1] + 1)))
+        for i in range(long)]
+
+
+def serve_rg_softmax() -> dict:
+    """Phase 32: softmax mode (the local slots are window rings of 2,048)
+    at full width, one period (3 of 38 layers), bf16: phase 5's traffic
+    plus two prompts of 4,096 tokens, admitted one request a round; the
+    long prompts' decode writes over a full ring.  Then fp32 (32b): every
+    request's greedy tokens equal to a solo per-request loop's
+    (``lm.prefill`` of the prompt alone, then ``lm.decode``)."""
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import Engine
+
+    cfg = rg_cfg("softmax", RG_PERIOD)
+    max_len = RG_LONG + 64 + 8
+    params = init_serving_weights(cfg, SEED)
+    reqs = rg_softmax_requests(cfg, SEED + 4, 48, RG_SOFT_LENS, (32, 64), 2)
+    stats = serve_hybrid_full_width(params, cfg, reqs, max_len)
+    print(f"[recurrentgemma_9b softmax serving] {cfg.n_layers} layers: "
+          f"{stats['admission_rounds']} admission rounds for "
+          f"{stats['requests']} requests, decode "
+          f"{stats['decode_tok_per_s']:.1f} tok/s", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    params = lm.for_serving(lm.init(cfg, torch.Generator(
+        device=DEVICE).manual_seed(SEED), device=DEVICE), DEVICE,
+        torch.float32)
+    reqs = rg_softmax_requests(cfg, SEED + 6, 5, RG_SOFT_LENS, (16, 16), 1)
+    engine = Engine(params, cfg, slots=4, max_len=max_len, seed=SEED,
+                    dtype=torch.float32, device=DEVICE)
+    for r in reqs:
+        engine.submit(r)
+    got = {r.uid: r.generated for r in engine.run()}
+    with torch.inference_mode():
+        for r in reqs:
+            logits, caches = lm.prefill(
+                params, torch.tensor(r.prompt[None], device=DEVICE), cfg,
+                max_len, dtype=torch.float32)
+            solo = [int(logits[0, -1].argmax())]
+            for i in range(r.max_new_tokens - 1):
+                logits, caches = lm.decode(
+                    params, torch.tensor([[solo[-1]]], dtype=torch.int32,
+                                         device=DEVICE), caches, cfg,
+                    torch.tensor([len(r.prompt) + i], dtype=torch.int32,
+                                 device=DEVICE), dtype=torch.float32)
+                solo.append(int(logits[0, 0].argmax()))
+            if got[r.uid] != solo:
+                raise AssertionError(f"softmax fp32 request {r.uid} (prompt "
+                                     f"{len(r.prompt)}): engine "
+                                     f"{got[r.uid]}, solo {solo}")
+    n_tok = sum(len(g) for g in got.values())
+    print(f"[fp32 softmax hybrid] the per-request Engine and the solo loop "
+          f"agree on all {n_tok} greedy tokens of {len(reqs)} requests "
+          f"(one prompt of {RG_LONG}: its ring wraps)", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return stats
+
+
+def deq_close(name: str, pool, ref) -> float:
+    """An int8 pool, dequantized, against the fp32 state ``ref`` of the
+    same step: every quantized entry within one step of its new scale plus
+    1e-5 (``tests/test_torch_quant.py``'s bound for int8 pools), the raw
+    leaves (FlowState's z, the counts) at TOL; returns the largest gap in
+    units of the scale."""
+    from repro_torch.serving.quant import QuantizedPool, dequantize_state
+    from repro_torch.utils import tree_leaves
+
+    if not isinstance(pool, QuantizedPool):
+        raise AssertionError(f"{name}: not an int8 pool")
+    worst = 0.0
+    for pay, sc, deq, want in zip(tree_leaves(pool.payload),
+                                  tree_leaves(pool.scale),
+                                  tree_leaves(dequantize_state(pool)),
+                                  tree_leaves(ref)):
+        if pay.dtype != torch.int8:
+            if not pay.is_floating_point():
+                if not torch.equal(pay, want.to(pay.dtype)):
+                    raise AssertionError(f"{name}: counts differ")
+                continue
+            max_err(f"{name} raw leaf", deq, want, TOL[torch.float32])
+            continue
+        gap = (deq - want.float()).abs()
+        if not (gap <= sc + 1e-5).all():
+            raise AssertionError(f"{name}: dequantized entries "
+                                 f"{float((gap / sc).max()):.2f} scales from "
+                                 "the fp32 step")
+        worst = max(worst, float((gap / sc).max()))
+    return worst
+
+
+def rg_int8_teacher_forced() -> dict:
+    """Phase 33b: the reference's recurrentgemma_9b ``smoke_config()`` (3
+    layers, d 128, the flow slot at D = 32, G = 4) served in fp32 from
+    int8 pools: the RG-LRU pools dequantized, stepped and requantized,
+    the flow slot on K4.  Before every decode step the same step runs
+    from the pools dequantized into fp32 pools (K3, the fp32 RG-LRU
+    step): the int8 step's logits within (1e-4, 1e-4 max |logit|) of it,
+    and every pool within one scale step of it."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.layers.attention import executor_of
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.quant import dequantize_state
+    from repro_torch.utils import tree_map
+
+    cfg = get_smoke_config("recurrentgemma_9b")
+    n_flow, n_rglru = hybrid_layers(cfg)
+    params = lm.init(cfg, torch.Generator(device=DEVICE).manual_seed(SEED),
+                     device=DEVICE)
+    engine = Engine(params, cfg, slots=4, max_len=96, seed=SEED,
+                    dtype=torch.float32, state_dtype="int8", device=DEVICE)
+    worker = engine.worker
+    fp32_ex = executor_of(cfg, dataclasses.replace(worker.plan,
+                                                   state_dtype=None))
+    for r in requests(np.random.default_rng(SEED + 9), 6, cfg.vocab_size,
+                      (5, 40), (8, 8)):
+        engine.submit(r)
+    real_decode, real_step, seen = lm.decode, worker.step, {}
+    checked = {"steps": 0, "logit_err": 0.0, "scale_steps": 0.0}
+
+    def recording_decode(*a, **kw):
+        seen["logits"], caches = real_decode(*a, **kw)
+        return seen["logits"], caches
+
+    def checked_step(tokens, pos, temps, live):
+        with torch.inference_mode():
+            # copies: K3 updates its pool in place, and dequantizing
+            # passes the raw leaves (the counts, z) through uncopied
+            fp32 = [tree_map(torch.clone, dequantize_state(c))
+                    for c in worker.caches]
+            want, want_pools = real_decode(
+                worker.params, torch.as_tensor(tokens, dtype=torch.int32,
+                                               device=DEVICE)[:, None],
+                fp32, cfg, torch.as_tensor(pos, dtype=torch.int32,
+                                           device=DEVICE),
+                plan=fp32_ex, dtype=torch.float32)
+        launched = dict(LAUNCHES)
+        toks = real_step(tokens, pos, temps, live)
+        step = checked["steps"]
+        got, want = seen["logits"][:, -1].float(), want[:, -1].float()
+        scale = float(want.abs().max())
+        checked["logit_err"] = max(checked["logit_err"], max_err(
+            f"int8 hybrid step {step} logits", got, want,
+            (1e-4, 1e-4 * scale)))
+        for i, (pool, ref) in enumerate(zip(worker.caches, want_pools)):
+            checked["scale_steps"] = max(checked["scale_steps"], deq_close(
+                f"int8 hybrid step {step} layer {i}", pool, ref))
+        if LAUNCHES["flow_decode_q"] != launched["flow_decode_q"] + n_flow:
+            raise AssertionError("the int8 step did not run K4 once a flow "
+                                 "layer")
+        checked["steps"] += 1
+        return toks
+
+    worker.step = checked_step
+    lm.decode = recording_decode
+    reset_launches()
+    try:
+        done = engine.run()
+    finally:
+        lm.decode = real_decode
+    rounds, steps = worker.admission_rounds, worker.decode_steps
+    want = {"flow_fused": n_flow * rounds, "boundary_gather": n_rglru * rounds,
+            "flow_decode_q": n_flow * steps, "flow_decode": n_flow * steps}
+    if {k: v for k, v in LAUNCHES.items() if v} != want:
+        raise AssertionError(f"int8 hybrid launches {LAUNCHES}, want {want} "
+                             "(K3: the fp32 reference steps)")
+    # the main path's launches: K3's ran the fp32 reference steps
+    launches = {k: (0 if k == "flow_decode" else v)
+                for k, v in LAUNCHES.items()}
+    stats = {"requests": len(done), "steps": checked["steps"],
+             "logit_err": checked["logit_err"],
+             "max_gap_in_scales": checked["scale_steps"],
+             "launches": launches}
+    print("[int8 hybrid smoke, teacher-forced against fp32 pools] "
+          + json.dumps(stats), flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return stats
+
+
+def time_rg_kernels(rg: dict, errs: dict) -> list:
+    """Phase 9, RecurrentGemma-9B's rows: K1 and K3 at RG_SHAPES (launches
+    from phase 31) and K9 at one rglru admission (16 rows, Lb 512, W
+    4,096 bf16; lengths 16..384), beside its plain version and the pad +
+    gather library call."""
+    from repro_torch.kernels.gather import boundary_gather, boundary_gather_ref
+
+    rows = fused_decode_rows(RG_SHAPES, {"d256_g16": rg["launches"]}, errs)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 78)
+    lens = torch.tensor(ragged_lens(np.random.default_rng(SEED + 78), 16, 16,
+                                    384), device=DEVICE)
+    xb = torch.randn((16, 512, RG_WIDTH), generator=gen,
+                     device=DEVICE).to(torch.bfloat16)
+    padded = torch.cat([torch.zeros((16, RG_CONV - 1, RG_WIDTH),
+                                    dtype=xb.dtype, device=DEVICE), xb], dim=1)
+    idx = (lens.long()[:, None] + torch.arange(
+        RG_CONV - 1, device=DEVICE))[..., None]
+    with torch.inference_mode():
+        bound_ms, by = bound(2 * 16 * (RG_CONV - 1) * RG_WIDTH * 2 + 16 * 4,
+                             0)
+        rows.append({
+            "name": "boundary_gather_rglru", "route": "cuda",
+            "source": "src/repro_torch/csrc/boundary_gather.cu",
+            "replaces": "src/repro/kernels/gather/boundary.py:67",
+            "launches": rg["launches"]["boundary_gather"],
+            "max_abs_err": errs["boundary_gather_rglru"],
+            "ms": time_ms(lambda: boundary_gather(xb, lens, RG_CONV)),
+            "plain_ms": time_ms(lambda: boundary_gather_ref(xb, lens,
+                                                            RG_CONV)),
+            "bound_ms": bound_ms, "bound_by": by,
+            "library_ms": time_ms(lambda: torch.take_along_dim(
+                padded, idx, dim=1)),
+            "shape": f"16 rows x Lb 512, W {RG_WIDTH}, bf16, one stream"})
+    print("[RecurrentGemma shapes] " + json.dumps(rows), flush=True)
     return rows
 
 
@@ -3430,16 +3920,17 @@ def ssd_state_bytes_per_slot(cfg) -> int:
     return cfg.n_layers * (h + conv)
 
 
-def serve_ssd_full_width(params, cfg) -> dict:
-    """Phase 13: the bf16 Engine serving the full-width mamba2_1p3b; K9
-    launches, rates and the pools' bytes."""
+def serve_ssd_full_width(params, cfg, state_dtype=None) -> dict:
+    """Phase 13 (33a with ``state_dtype="int8"``): the bf16 Engine serving
+    the full-width mamba2_1p3b; K9 launches, rates and the pools' bytes
+    (int8 pools: payloads and scales, beside the fp32 pools' bytes)."""
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.kernels._lib import KERNELS
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.quant import pool_bytes
 
     engine = Engine(params, cfg, slots=16, max_len=512, seed=SEED,
-                    device=DEVICE)
+                    state_dtype=state_dtype, device=DEVICE)
     reqs = requests(np.random.default_rng(SEED + 4), 48, cfg.vocab_size,
                     (16, 384), (32, 64))
     for r in reqs:
@@ -3464,8 +3955,11 @@ def serve_ssd_full_width(params, cfg) -> dict:
                              f"{want}")
     per_slot = ssd_state_bytes_per_slot(cfg)
     n_bytes = pool_bytes(worker.caches)
-    if n_bytes != 16 * per_slot:
+    if state_dtype is None and n_bytes != 16 * per_slot:
         raise AssertionError(f"pool_bytes {n_bytes} != 16 x {per_slot}")
+    if state_dtype is not None and not n_bytes < 16 * per_slot / 3:
+        raise AssertionError(f"{state_dtype} pool_bytes {n_bytes}, fp32 "
+                             f"16 x {per_slot}")
     prompt_tokens = sum(len(r.prompt) for r in reqs)
     decode_tokens = sum(len(r.generated) - 1 for r in reqs)
     stats = {
@@ -3477,8 +3971,10 @@ def serve_ssd_full_width(params, cfg) -> dict:
         "decode_tok_per_s": decode_tokens / spent["step"],
         "decode_ms_per_step": 1e3 * spent["step"] / steps,
         "launches": launches, "pool_bytes": n_bytes,
-        "pool_bytes_per_slot": n_bytes // 16}
-    print("[engine mamba2 bf16] " + json.dumps(stats), flush=True)
+        "pool_bytes_per_slot": n_bytes // 16,
+        "fp32_pool_bytes_per_slot": per_slot}
+    tag = "" if state_dtype is None else f", {state_dtype} pools"
+    print(f"[engine mamba2 bf16{tag}] " + json.dumps(stats), flush=True)
     return stats
 
 
@@ -3941,6 +4437,21 @@ def serve_paged_full_width(params, cfg, state_dtype=None) -> dict:
     tag = "" if state_dtype is None else f", {state_dtype} pools"
     print(f"[engine softmax paged bf16{tag}] " + json.dumps(stats), flush=True)
     return stats
+
+
+def bind_plain_boundary():
+    """Bind ``interpret=True`` into the RG-LRU layer's conv-history gather
+    (K9's plain version on the card); returns the restoring call."""
+    import functools
+
+    from repro_torch.layers import rglru as rglru_layer
+
+    real = rglru_layer.boundary_gather
+    rglru_layer.boundary_gather = functools.partial(real, interpret=True)
+
+    def restore():
+        rglru_layer.boundary_gather = real
+    return restore
 
 
 def bind_plain_gathers():
@@ -5266,7 +5777,8 @@ def main() -> int:
             **check_ssd(),
             **check_paged_gather(),
             **check_whisper_granite_shapes(),
-            **check_wide_shapes()}
+            **check_wide_shapes(),
+            **check_rg_shapes()}
     mark("kernel checks")
 
     from repro_torch.configs import get_config
@@ -5363,10 +5875,17 @@ def main() -> int:
     granite_moe = serve_wide_full_width("granite_moe_3b_a800m", fp32=False,
                                         profile=False)
     mark("granite_moe_3b_a800m serving")
+    rg_flow = serve_rg_flow_full_width()
+    serve_rg_fp32_both_paths()
+    mark("recurrentgemma_9b flow serving")
+    rg_soft = serve_rg_softmax()
+    rg_int8 = rg_int8_teacher_forced()
+    mark("recurrentgemma_9b softmax and int8 serving")
     mamba = get_config("mamba2_1p3b")
     params = lm.init(mamba, torch.Generator().manual_seed(SEED),
                      device=DEVICE)
     served = serve_ssd_full_width(params, mamba)
+    served_q = serve_ssd_full_width(params, mamba, state_dtype="int8")
     profile_decode(params, mamba, served["decode_ms_per_step"])
     serve_ssd_fp32_against_oracle(params, mamba)
     serve_ssd_fp32_against_oracle(params, mamba, torch.bfloat16,
@@ -5385,7 +5904,8 @@ def main() -> int:
         stats, quantized, trained, classified, paper, served, ssd_trained,
         paged, paged_q, seen, series, *speculative, lin_served, lin_quant,
         dt, *(table7[kind] for kind in ("flow", "linear", "softmax")),
-        heard, taught, granite, deepseek, qwen, granite_moe))
+        heard, taught, granite, deepseek, qwen, granite_moe, rg_flow,
+        rg_soft, rg_int8, served_q))
         for name in stats["launches"]}
     torch.cuda.empty_cache()
     rows = (time_kernels(launches, errs) + time_paged_kernels(launches, errs)
@@ -5393,7 +5913,8 @@ def main() -> int:
             + time_d24_kernels(table7, errs)
             + time_whisper_granite_kernels(heard, granite, errs)
             + time_wide_kernels({"deepseek": deepseek, "qwen2_vl": qwen},
-                                errs))
+                                errs)
+            + time_rg_kernels(rg_flow, errs))
     mark("kernel times")
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -27,7 +27,8 @@ chunk; zero rows add nothing to the dot).  Both also take the head dims of
 ``_lib.PADDED_HEAD_DIMS`` (the Table 7 harness's D = 24) by zero-padding
 to the stored width; the decode kernels do not.  ``cuda_fused`` and
 ``cuda_decode`` also take ``_lib.WIDE_PAIRS`` (D = 192 beside Dv = 128 or
-192: the MLA and Nemotron-4-340B heads), where K2 and K4 do not: a plan
+192: the MLA and Nemotron-4-340B heads; D = Dv = 256: RecurrentGemma's),
+where K2 and K4 do not: a plan
 that needs gradients there is refused by ``cuda_fused``'s
 ``grad_support`` naming K2, and an int8 pool by ``cuda_decode``'s
 ``quant_capable`` naming K4, so ``auto`` raises on the card rather than
@@ -150,7 +151,7 @@ def _check_device(platform):
 
 def _check_kernel(shapes, platform):
     """The device and the (D, Dv) of K1 and K3: D == Dv in ``HEAD_DIMS``,
-    or a pair of ``_lib.WIDE_PAIRS`` (D = 192)."""
+    or a pair of ``_lib.WIDE_PAIRS`` (D = 192, 256)."""
     if platform != "cuda":
         return f"CUDA kernel needs a CUDA device (platform={platform!r})"
     if (shapes.d, shapes.dv) not in FUSED_PAIRS:
@@ -299,7 +300,7 @@ class CudaFused(_ChunkedVerifyQuant, FusedCausal):
     differentiable = frozenset({"forward", "prefill"})
 
     def grad_support(self, op="forward", shapes=None):
-        # K1 serves _lib.WIDE_PAIRS (D = 192) forward-only: K2 stays at
+        # K1 serves _lib.WIDE_PAIRS (D = 192, 256) forward-only: K2 stays at
         # HEAD_DIMS, so a training plan is refused here, before a forward
         why = None if shapes is None else _check_k2(shapes)
         return (False, why) if why else super().grad_support(op, shapes)

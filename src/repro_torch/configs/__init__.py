@@ -12,7 +12,8 @@ PORTED_CONFIGS = ("deepseek_coder_33b", "deepseek_v2_lite_16b",
                   "flowformer_dt", "flowformer_lm", "flowformer_lra",
                   "flowformer_timeseries", "flowformer_vision", "granite_8b",
                   "granite_moe_3b_a800m", "mamba2_1p3b", "nemotron_4_15b",
-                  "nemotron_4_340b", "qwen2_vl_72b", "whisper_small")
+                  "nemotron_4_340b", "qwen2_vl_72b", "recurrentgemma_9b",
+                  "whisper_small")
 
 
 def _module(name: str):

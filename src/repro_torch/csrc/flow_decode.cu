@@ -54,10 +54,26 @@
 // partials of the row layout would need 221 KB.  Dv / 8 S warps (16 or 24:
 // 544 or 800 threads a CTA), the chain warp as above with six features a
 // lane, one barrier, the same update and output order.
+//
+// D = 256 (RecurrentGemma's heads, Dv = 256, G = 16) does not fit one CTA:
+// S is 256 KB fp32, more than the register file or the shared memory, and
+// the column layout would need 32 S warps plus the chain warp (1,056
+// threads).  So Dv is split over a cluster of NP = 4 CTAs, each holding the
+// column layout of one panel of PV = 64 columns (eight S warps, 288
+// threads, 64 floats of S a thread).  Every CTA of a cluster runs the same
+// flow chain on the same inputs in the same order, so its scalars are
+// bitwise those of the others; each updates and writes only its own columns
+// of S and of the G outputs.  The four sums and z are read by every CTA and
+// written in place, so they are written only by the CTA of the first panel
+// and only after a cluster barrier, which every CTA reaches once its chain
+// warp has read them.  No distributed shared memory is needed.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cooperative_groups.h>
 
 namespace {
+
+namespace cgrp = cooperative_groups;
 
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -195,19 +211,23 @@ struct Shape {
   static constexpr int PARTS = SW;       // rows of G x Dv partials in shared memory
   static constexpr int NS = NV, WS = VB;  // S values a thread holds: NS x WS
   static constexpr int MIN_CTAS = D <= 64 ? 4 : 1;
+  static constexpr int PV = D, NP = 1;   // one CTA holds every column
   static_assert(D % 32 == 0 && F >= 1 && F <= 4 && NV >= 1 && NV * ST * VB == D * D &&
                     (1 << RB) == RPW && ST % D == 0,
                 "S layout");
 };
 
-// How a CTA holds a DK x DV fp32 S by columns (DK = 192): S warp w owns
-// columns [8 w, 8 w + 8) of every row, lane l rows l + 32 i (i < NR); a
-// warp's sums over its lanes are sums over every row.
-template <int DK, int DV>
+// How a CTA holds a DK x PV panel of a DK x DV fp32 S by columns (DK =
+// 192, 256): S warp w owns columns [8 w, 8 w + 8) of the panel in every
+// row, lane l rows l + 32 i (i < NR); a warp's sums over its lanes are sums
+// over every row.  NP = DV / PV CTAs (a cluster where NP > 1) hold the
+// panels.
+template <int DK, int DV, int PV_ = DV>
 struct ColShape {
   static constexpr bool COLS = true;
+  static constexpr int PV = PV_, NP = DV / PV_;  // panel width, panels (CTAs)
   static constexpr int CW = 8;              // columns an S warp owns
-  static constexpr int SW = DV / CW;        // S warps
+  static constexpr int SW = PV / CW;        // S warps
   static constexpr int ST = 32 * SW;        // S threads
   static constexpr int THREADS = 32 + ST;   // warp 0 runs the chain
   static constexpr int F = DK / 32;         // features a lane owns in the chain
@@ -215,7 +235,9 @@ struct ColShape {
   static constexpr int PARTS = 1;           // the warps' sums are whole
   static constexpr int NS = NR, WS = CW;    // S values a thread holds: NS x WS
   static constexpr int MIN_CTAS = 1;
-  static_assert(DK % 32 == 0 && DV % CW == 0 && ST % DV == 0 && THREADS <= 1024, "S layout");
+  static_assert(DK % 32 == 0 && PV % CW == 0 && NP * PV == DV && ST % PV == 0 &&
+                    THREADS <= 1024 && NP <= 8,
+                "S layout");
 };
 
 template <int DK, int DV>
@@ -229,6 +251,10 @@ struct ShapeOf<D, D> {
 template <>
 struct ShapeOf<192, 192> {
   using type = ColShape<192, 192>;
+};
+template <>
+struct ShapeOf<256, 256> {
+  using type = ColShape<256, 256, 64>;
 };
 
 // Sum x over the warp's row bits (lane bits SPR, 2 SPR, ...), leaving each
@@ -255,12 +281,12 @@ __device__ __forceinline__ int reduce_scatter(float (&x)[VB], int lane) {
   return off;
 }
 
-__host__ __device__ constexpr size_t smem_floats(int parts, int g, int dk, int dv, bool g1,
+__host__ __device__ constexpr size_t smem_floats(int parts, int g, int dk, int pv, bool g1,
                                                 bool cols) {
-  return (size_t)parts * g * dv     // partials of phi(q) @ S (per warp in the row layout)
+  return (size_t)parts * g * pv     // partials of phi(q) @ S (per warp in the row layout)
          + 3 * (size_t)g + 2        // sink_in, alloc, phi(q) . phi(k); e, t / z
          + (g1 ? 0 : (size_t)g * dk)  // the chain's phi(q), one lane's own slots
-         + (cols ? dv : 0);           // v (the column layout)
+         + (cols ? pv : 0);           // v (the column layout): the panel's columns
 }
 
 template <typename T, int DK, int DV, bool G1>
@@ -273,16 +299,17 @@ flow_decode_kernel(const int* __restrict__ t, const T* __restrict__ q,
                    float* __restrict__ z, float* __restrict__ s, T* __restrict__ out,
                    int hkv, int G, int phi, int use_alloc, float eps) {
   using SH = typename ShapeOf<DK, DV>::type;
-  constexpr int F = SH::F, SW = SH::SW, ST = SH::ST;
+  constexpr int F = SH::F, SW = SH::SW, ST = SH::ST, PV = SH::PV, NP = SH::NP;
   extern __shared__ float sm[];
-  float* part = sm;                  // PARTS x G x DV
-  float* sink = part + SH::PARTS * G * DV;
+  float* part = sm;                  // PARTS x G x PV
+  float* sink = part + SH::PARTS * G * PV;
   float* alloc = sink + G;
   float* dqk = alloc + G;
   float* scal = dqk + G;             // [0] e, [1] t / z
   float* qch = scal + 2;             // G x DK, G > 1 only
-  float* vsm = qch + (G1 ? 0 : G * DK);  // DV: v (the column layout)
-  const int row = blockIdx.x;
+  float* vsm = qch + (G1 ? 0 : G * DK);  // PV: v (the column layout)
+  // NP CTAs (one cluster) a row, each the PV columns from p0
+  const int row = blockIdx.x / NP, p0 = (blockIdx.x % NP) * PV;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int si = threadIdx.x - 32, sw = warp - 1;  // S warps: thread si of ST
   const T* qb = q + (size_t)row * G * DK;
@@ -295,12 +322,14 @@ flow_decode_kernel(const int* __restrict__ t, const T* __restrict__ q,
   // columns (the row layout; the column layout reads v from vsm)
   float sn[SH::NS][SH::WS];
   float kr[SH::NS], vc[SH::WS], v_out = 0.f;
+  // the chain's new sums and z + e, held past the cluster barrier where
+  // NP > 1 (written there by the first panel's CTA alone)
+  float ks[F], qs[F], kos[F], qis[F], z_new = 0.f;
 
   if (warp == 0) {
     // ---- the flow chain, lane l owning features f0 .. f0 + F - 1 ----
     const int f0 = lane * F;
     const size_t o = (size_t)row * DK + f0;
-    float ks[F], qs[F], kos[F], qis[F];
     load_f<F>(k_sum + o, ks);
     load_f<F>(q_sum + o, qs);
     load_f<F>(ko_sum + o, kos);
@@ -362,11 +391,12 @@ flow_decode_kernel(const int* __restrict__ t, const T* __restrict__ q,
       c_src += (pk[f] + eps) * (qis[f] + eps);
     }
     warp_sum2(c0s, c_src);
-    // the four sums, in place
-    store_f<F>(k_sum + o, ks);
-    store_f<F>(q_sum + o, qs);
-    store_f<F>(ko_sum + o, kos);
-    store_f<F>(qi_sum + o, qis);
+    if constexpr (NP == 1) {  // the four sums, in place
+      store_f<F>(k_sum + o, ks);
+      store_f<F>(q_sum + o, qs);
+      store_f<F>(ko_sum + o, kos);
+      store_f<F>(qi_sum + o, qis);
+    }
     const float n_q = tf * fG;
     // lane 0: alloc = sigmoid(c0s / n_q); lane 1: e = exp(clip(c_src / t)),
     // z + e and t / (z + e) -- each step one division or exp for both
@@ -383,7 +413,8 @@ flow_decode_kernel(const int* __restrict__ t, const T* __restrict__ q,
       if (lane == 0) alloc[g] = use_alloc ? 1.f / (1.f + expf(-(a / n_q))) : 1.f;
     }
     if (lane == 1) {
-      z[row] = den;  // z + e
+      if constexpr (NP == 1) z[row] = den;  // z + e
+      z_new = den;
       scal[0] = ex;  // e
       scal[1] = r3;  // t / z
     }
@@ -391,12 +422,12 @@ flow_decode_kernel(const int* __restrict__ t, const T* __restrict__ q,
     // ---- entry of the S warps, column layout: S (two 16-byte loads a
     // row), phi(k) at the lane's rows, v into shared memory ----
     constexpr int CW = SH::CW, NR = SH::NR;
-    const int cw0 = sw * CW;
+    const int cw0 = sw * CW;  // within the panel
 #pragma unroll
-    for (int i = 0; i < NR; ++i) load_f<CW>(sb + (size_t)(i * 32 + lane) * DV + cw0, sn[i]);
+    for (int i = 0; i < NR; ++i) load_f<CW>(sb + (size_t)(i * 32 + lane) * DV + p0 + cw0, sn[i]);
 #pragma unroll
     for (int i = 0; i < NR; ++i) kr[i] = to_f32(kb[i * 32 + lane]);
-    if (si < DV) vsm[si] = to_f32(vb[si]);
+    if (si < PV) vsm[si] = to_f32(vb[p0 + si]);
 #pragma unroll
     for (int i = 0; i < NR; ++i) kr[i] = phi_fn(kr[i], phi);
     // the warp's columns of phi(q) @ S over every row, from the old S
@@ -414,7 +445,7 @@ flow_decode_kernel(const int* __restrict__ t, const T* __restrict__ q,
       const int off = reduce_scatter<CW, 3, 1>(acc, lane);
       acc[0] += __shfl_xor_sync(kFull, acc[0], 8);
       acc[0] += __shfl_xor_sync(kFull, acc[0], 16);
-      if (lane < CW) part[(size_t)g * DV + cw0 + off] = acc[0];
+      if (lane < CW) part[(size_t)g * PV + cw0 + off] = acc[0];
     }
   } else {
     // ---- entry of the S warps: every global read, as vector loads ----
@@ -447,12 +478,25 @@ flow_decode_kernel(const int* __restrict__ t, const T* __restrict__ q,
         for (int j = 0; j < VB; ++j) acc[j] += p * sn[i][j];
       }
       const int off = reduce_scatter<VB, RS::RB, RS::SPR>(acc, lane);
-      float* dst = part + ((size_t)sw * G + g) * DV + c0 + off;
+      float* dst = part + ((size_t)sw * G + g) * PV + c0 + off;
 #pragma unroll
       for (int j = 0; j < RS::NOUT; ++j) dst[j] = acc[j];
     }
   }
-  __syncthreads();  // the chain's scalars and every partial
+  if constexpr (NP == 1) {
+    __syncthreads();  // the chain's scalars and every partial
+  } else {
+    // the block's barrier, and every CTA of the row has read the sums and z
+    cgrp::this_cluster().sync();
+    if (warp == 0 && p0 == 0) {
+      const size_t o = (size_t)row * DK + lane * F;
+      store_f<F>(k_sum + o, ks);
+      store_f<F>(q_sum + o, qs);
+      store_f<F>(ko_sum + o, kos);
+      store_f<F>(qi_sum + o, qis);
+      if (lane == 1) z[row] = z_new;
+    }
+  }
 
   if (warp > 0) {
     const float e = scal[0], ratio = scal[1];
@@ -462,12 +506,12 @@ flow_decode_kernel(const int* __restrict__ t, const T* __restrict__ q,
       const int cw0 = sw * CW;
 #pragma unroll
       for (int j = 0; j < CW; ++j) vc[j] = __fmul_rn(vsm[cw0 + j], e);
-      v_out = vsm[si % DV];  // the column of this thread's outputs
+      v_out = vsm[si % PV];  // the column of this thread's outputs
 #pragma unroll
       for (int i = 0; i < NR; ++i) {
 #pragma unroll
         for (int j = 0; j < CW; ++j) sn[i][j] = __fadd_rn(sn[i][j], __fmul_rn(kr[i], vc[j]));
-        store_f<CW>(sb + (size_t)(i * 32 + lane) * DV + cw0, sn[i]);
+        store_f<CW>(sb + (size_t)(i * 32 + lane) * DV + p0 + cw0, sn[i]);
       }
     } else {
       constexpr int VB = SH::VB, NV = SH::NV;
@@ -480,13 +524,13 @@ flow_decode_kernel(const int* __restrict__ t, const T* __restrict__ q,
         store_f<VB>(sb + (size_t)(i * ST + si) * VB, sn[i]);
       }
     }
-    for (int i = si; i < G * DV; i += ST) {
-      const int g = i / DV, c = i - g * DV;
-      float acc = part[(size_t)g * DV + c];
+    for (int i = si; i < G * PV; i += ST) {
+      const int g = i / PV, c = i - g * PV;
+      float acc = part[(size_t)g * PV + c];
 #pragma unroll
-      for (int w = 1; w < SH::PARTS; ++w) acc += part[((size_t)w * G + g) * DV + c];
+      for (int w = 1; w < SH::PARTS; ++w) acc += part[((size_t)w * G + g) * PV + c];
       const float y = sink[g] * (acc + dqk[g] * __fmul_rn(v_out, e));
-      out[(size_t)row * G * DV + i] = from_f32<T>(y * ratio * alloc[g]);
+      out[((size_t)row * G + g) * DV + p0 + c] = from_f32<T>(y * ratio * alloc[g]);
     }
   }
 }
@@ -494,7 +538,7 @@ flow_decode_kernel(const int* __restrict__ t, const T* __restrict__ q,
 template <typename T, int DK, int DV, bool G1>
 size_t smem_bytes(int g) {
   using SH = typename ShapeOf<DK, DV>::type;
-  return smem_floats(SH::PARTS, g, DK, DV, G1, SH::COLS) * sizeof(float);
+  return smem_floats(SH::PARTS, g, DK, SH::PV, G1, SH::COLS) * sizeof(float);
 }
 
 template <typename T, int DK, int DV, bool G1>
@@ -508,10 +552,30 @@ cudaError_t launch_g(const void* t, const void* q, const void* k, const void* v,
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
-  kern<<<bh, SH::THREADS, bytes, stream>>>(
-      (const int*)t, (const T*)q, (const T*)k, (const T*)v, (float*)k_sum, (float*)q_sum,
-      (float*)ko_sum, (float*)qi_sum, (float*)z, (float*)s, (T*)out, hkv, g, phi,
-      use_alloc, eps);
+  if constexpr (SH::NP == 1) {
+    kern<<<bh, SH::THREADS, bytes, stream>>>(
+        (const int*)t, (const T*)q, (const T*)k, (const T*)v, (float*)k_sum, (float*)q_sum,
+        (float*)ko_sum, (float*)qi_sum, (float*)z, (float*)s, (T*)out, hkv, g, phi,
+        use_alloc, eps);
+  } else {  // a cluster of NP CTAs a row, one a panel of Dv
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(bh * SH::NP, 1, 1);
+    cfg.blockDim = dim3(SH::THREADS, 1, 1);
+    cfg.dynamicSmemBytes = bytes;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = SH::NP;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, kern, (const int*)t, (const T*)q, (const T*)k,
+                             (const T*)v, (float*)k_sum, (float*)q_sum, (float*)ko_sum,
+                             (float*)qi_sum, (float*)z, (float*)s, (T*)out, hkv, g, phi,
+                             use_alloc, eps);
+    if (err != cudaSuccess) return err;
+  }
   return cudaGetLastError();
 }
 
@@ -527,10 +591,11 @@ cudaError_t launch(const void* t, const void* q, const void* k, const void* v, v
                                     hkv, g, phi, use_alloc, eps, stream);
 }
 
-// The (D, Dv) pairs with an instantiation: D == Dv in {32, 64, 128}, and
-// D = 192 beside Dv = 128 or 192.
+// The (D, Dv) pairs with an instantiation: D == Dv in {32, 64, 128, 256},
+// and D = 192 beside Dv = 128 or 192.
 inline bool takes(int d, int dv) {
   if (d == 192) return dv == 128 || dv == 192;
+  if (d == 256) return dv == 256;
   return d == dv && (d == 32 || d == 64 || d == 128);
 }
 
@@ -545,6 +610,8 @@ cudaError_t dispatch(int d, int dv, const void* t, const void* q, const void* k,
                      : launch<T, 192, 192>(t, q, k, v, k_sum, q_sum, ko_sum, qi_sum, z, s, out,
                                            bh, hkv, g, phi, use_alloc, eps, stream);
   switch (d) {
+    case 256: return launch<T, 256, 256>(t, q, k, v, k_sum, q_sum, ko_sum, qi_sum, z, s, out,
+                                         bh, hkv, g, phi, use_alloc, eps, stream);
     case 32: return launch<T, 32, 32>(t, q, k, v, k_sum, q_sum, ko_sum, qi_sum, z, s, out, bh,
                                       hkv, g, phi, use_alloc, eps, stream);
     case 64: return launch<T, 64, 64>(t, q, k, v, k_sum, q_sum, ko_sum, qi_sum, z, s, out, bh,
@@ -583,6 +650,7 @@ int occupancy_at(int d, int dv, int g) {
   if (d == 32) return occupancy_of<T, 32, 32>(g);
   if (d == 64) return occupancy_of<T, 64, 64>(g);
   if (d == 128) return occupancy_of<T, 128, 128>(g);
+  if (d == 256) return occupancy_of<T, 256, 256>(g);
   return -(int)cudaErrorInvalidValue;
 }
 
@@ -591,8 +659,8 @@ int occupancy_at(int d, int dv, int g) {
 // t (B,) int32: each slot's count AFTER this token; q (BH, G, D), k (BH, D),
 // v (BH, Dv) in `dtype` (0 fp32, 1 bf16) with BH = B * hkv; the fp32 state
 // k/q/ko/qi sums (BH, D), z (BH,), s (BH, D, Dv) is updated in place; out
-// (BH, G, Dv) in `dtype`.  D == Dv in {32, 64, 128}, or D = 192 with Dv =
-// 128 or 192; q, k, v, the sums and s 16-byte aligned.  Returns a
+// (BH, G, Dv) in `dtype`.  D == Dv in {32, 64, 128, 256}, or D = 192 with
+// Dv = 128 or 192; q, k, v, the sums and s 16-byte aligned.  Returns a
 // cudaError_t.
 extern "C" int flow_decode_fwd(const void* t, const void* q, const void* k, const void* v,
                                void* k_sum, void* q_sum, void* ko_sum, void* qi_sum,

@@ -46,6 +46,17 @@
 // (G = 1, T = 40); 40 KB (state, Dv = 128); 164 KB (out, Dv = 128) and
 // 220 KB (out, Dv = 192), one block an SM.
 //
+// D = 256 (RecurrentGemma's heads, Dv = 256, G = 16) runs its own
+// instantiation the same way: flows in super-chunks of a multiple of four
+// positions (four scan segments of 256 columns; T = 8 at G = 16, 185 KB),
+// the chunk state in panels of 64 columns (64 accumulators a thread, 64 KB
+// of operands), chunks of C = 32.  The out stage cannot hold S_<c (256 KB
+// fp32), so it streams S_<c one panel of 64 columns at a time (64 KB),
+// restaged for each group and panel from L2: 164 KB of shared memory, one
+// block an SM.  A G whose flows do not fit the block's shared memory even
+// at the smallest super-chunk (G > 21 at D = 256) is refused by the
+// workspace count.
+//
 // D = 24 (the Table 7 harness's heads) runs the D = 32 instantiation on
 // rows the wrapper zero-pads to 32, with the real width dr = 24 passed
 // down: phi is 0 on lanes 24-31 and the flow dots skip them
@@ -80,21 +91,30 @@ struct OutArgs {
   int G, N, phi, rows, dr;
 };
 
+// Whether the out stage streams S_<c in panels of Dv (D = 256: the whole
+// state, 256 KB fp32, does not fit a block's shared memory) or stages it
+// once.
+template <int D, int DV>
+__host__ __device__ constexpr bool streams_state() { return D * DV > 192 * 192; }
+
 template <int D, int DV>
 constexpr int out_smem_floats() {
   constexpr int C = chunk_of<D>();
-  return 2 * C * D + C * DV + D * DV + C * C;
+  constexpr int SW = streams_state<D, DV>() ? panel_of<D, DV>() : DV;
+  return 2 * C * D + C * DV + D * SW + C * C;
 }
 
 template <typename TT, int D, int DV>
 __global__ void __launch_bounds__(kThreads, 2) flow_fwd_out(OutArgs<TT> a) {
   constexpr int C = chunk_of<D>(), PW = panel_of<D, DV>(), NP = DV / PW;
+  constexpr bool SS = streams_state<D, DV>();
+  constexpr int SW = SS ? PW : DV;  // the staged width of S_<c
   extern __shared__ float smem[];
   float* Q = smem;         // C x D: q_in of one group
   float* K = Q + C * D;    // C x D: phi(k)
   float* V = K + C * D;    // C x DV: v e
-  float* S = V + C * DV;   // D x DV: S_<c
-  float* P = S + D * DV;   // C x C: the causal panel
+  float* S = V + C * DV;   // D x SW: S_<c, or one panel of it
+  float* P = S + D * SW;   // C x C: the causal panel
   const int2 rc = row_chunk(blockIdx.x, a.rows);
   const int row = rc.x, ci = rc.y, G = a.G, N = a.N, c0 = ci * C;
   const int len = min(a.lens[row], N);
@@ -120,7 +140,7 @@ __global__ void __launch_bounds__(kThreads, 2) flow_fwd_out(OutArgs<TT> a) {
   });
   const int nc = (N + C - 1) / C;
   const float* slot = a.states + ((size_t)row * nc + ci) * D * DV;
-  stage<D, DV>(S, [&](int t, int c) { return ld4(slot + t * DV + c); });
+  if constexpr (!SS) stage<D, DV>(S, [&](int t, int c) { return ld4(slot + t * DV + c); });
   using OP = Own<C, C>;
   using OY = Own<C, PW>;  // one panel of Dv
   const OP op;
@@ -145,10 +165,14 @@ __global__ void __launch_bounds__(kThreads, 2) flow_fwd_out(OutArgs<TT> a) {
     __syncthreads();
     for (int pn = 0; pn < NP; ++pn) {
       const int cy = pn * PW + oy.c0;
+      if constexpr (SS) {  // this panel of S_<c
+        stage<D, PW>(S, [&](int t, int c) { return ld4(slot + t * DV + pn * PW + c); });
+        __syncthreads();
+      }
       float acc[OY::RM][4];
       zero_acc(acc);
       mm_mk<OY::RM, C, DV>(acc, P, V, oy.r0, cy, kmax);
-      mm_mk<OY::RM, D, DV>(acc, Q, S, oy.r0, cy, D);
+      mm_mk<OY::RM, D, SW>(acc, Q, S, oy.r0, SS ? oy.c0 : cy, D);
 #pragma unroll
       for (int i = 0; i < OY::RM; ++i) {
         const int n = c0 + oy.r0 + i;
@@ -157,6 +181,7 @@ __global__ void __launch_bounds__(kThreads, 2) flow_fwd_out(OutArgs<TT> a) {
         store4(orow + ((size_t)g * N + n) * DV + cy,
                make_float4(acc[i][0] * s, acc[i][1] * s, acc[i][2] * s, acc[i][3] * s));
       }
+      if constexpr (SS) __syncthreads();  // S is restaged for the next panel
     }
     __syncthreads();  // Q and P are restaged for the next group
   }
@@ -240,10 +265,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* lens
   return cudaGetLastError();
 }
 
-// The (D, Dv) pairs with an instantiation: D == Dv in {32, 64, 128} (24
-// stored as 32), and D = 192 beside Dv = 128 or 192.
+// The (D, Dv) pairs with an instantiation: D == Dv in {32, 64, 128, 256}
+// (24 stored as 32), and D = 192 beside Dv = 128 or 192.
 inline bool takes(int d, int dv) {
   if (d == 192) return dv == 128 || dv == 192;
+  if (d == 256) return dv == 256;
   return d == dv && (d == 24 || d == 32 || d == 64 || d == 128);
 }
 
@@ -258,6 +284,8 @@ cudaError_t dispatch(int d, int dv, const void* q, const void* k, const void* v,
                      : launch<TT, 192, 192>(q, k, v, lens, out, q_sum, k_sum, ko_sum, qi_sum, z,
                                             s, work, bh, g, n, phi, use_alloc, eps, d, st);
   switch (d) {
+    case 256: return launch<TT, 256, 256>(q, k, v, lens, out, q_sum, k_sum, ko_sum, qi_sum, z,
+                                          s, work, bh, g, n, phi, use_alloc, eps, d, st);
     case 24:  // rows stored 32 wide, zero past 24
     case 32: return launch<TT, 32, 32>(q, k, v, lens, out, q_sum, k_sum, ko_sum, qi_sum, z, s,
                                        work, bh, g, n, phi, use_alloc, eps, d, st);
@@ -269,12 +297,30 @@ cudaError_t dispatch(int d, int dv, const void* q, const void* k, const void* v,
   }
 }
 
+// The flows' super-chunk at stored width d and group g on this device (0
+// where none fits a block's shared memory), or minus a cudaError_t.
+int flows_tile_at(int d, int g) {
+  int limit = 0;
+  const cudaError_t err = smem_limit(&limit);
+  if (err != cudaSuccess) return -(int)err;
+  switch (d) {
+    case 32: return flows_tile<32>(g, limit);
+    case 64: return flows_tile<64>(g, limit);
+    case 128: return flows_tile<128>(g, limit);
+    case 192: return flows_tile<192>(g, limit);
+    case 256: return flows_tile<256>(g, limit);
+    default: return 0;
+  }
+}
+
 }  // namespace
 
 // Floats of scratch flow_fused_fwd needs for these shapes (16-byte aligned
-// slices); -1 for shapes it refuses.
+// slices); -1 for shapes it refuses, a group whose flows do not fit a
+// block's shared memory included.
 extern "C" long long flow_fused_fwd_workspace(int bh, int g, int n, int d, int dv) {
   if (bh < 0 || g < 1 || n < 1 || !takes(d, dv)) return -1;
+  if (flows_tile_at(stored_width(d), g) <= 0) return -1;
   Work dummy;
   return work_floats(bh, g, n, stored_width(d), stored_width(dv), dummy, nullptr);
 }
@@ -282,8 +328,8 @@ extern "C" long long flow_fused_fwd_workspace(int bh, int g, int n, int d, int d
 // q (BH, G, N, D), k (BH, N, D), v (BH, N, Dv) in `dtype` (0 fp32, 1 bf16);
 // lens (BH,) int32 with 1 <= lens <= N; work flow_fused_fwd_workspace
 // floats.  Writes out (BH, G, N, Dv) in `dtype`, q/k/ko/qi sums (BH, D),
-// z (BH,) and s (BH, D, Dv) in fp32.  D == Dv in {24, 32, 64, 128}, or
-// D = 192 with Dv = 128 or 192; at D = 24 every row (and s) is stored 32
+// z (BH,) and s (BH, D, Dv) in fp32.  D == Dv in {24, 32, 64, 128, 256},
+// or D = 192 with Dv = 128 or 192; at D = 24 every row (and s) is stored 32
 // wide, q, k and v zero past 24, and the outputs there are written 0.
 // Four launches on `stream`; returns a cudaError_t.
 extern "C" int flow_fused_fwd(const void* q, const void* k, const void* v, const void* lens,

@@ -60,6 +60,11 @@ expert leaves as (L, E, d, f), and each block takes its (E, d, f) slice;
 back, the blocks' slices are stacked again.  An MLA attention block
 carries ``kv_down``, ``kv_up``, ``wo`` and ``wq`` (or ``q_down`` and
 ``q_up`` with a query LoRA) in place of ``wq``, ``wk``, ``wv``, ``wo``.
+An RG-LRU block (the hybrid stack's ``rglru`` slots) carries ``rglru``
+(``w_x``, ``w_gate``, ``conv_w``, ``conv_b``, ``gate_a``, ``gate_x``,
+``lam``, ``w_out``) in place of ``attn``; a hybrid stack's stacked layout
+holds one dict per pattern position, and the layers past the last whole
+period are its ``tail``.
 Every leaf is carried by the same rule, bit for bit in both directions.
 """
 from __future__ import annotations

@@ -46,10 +46,11 @@ HEAD_DIMS = (32, 64, 128)
 PADDED_HEAD_DIMS = {24: 32}
 #: the (D, Dv) pairs beyond ``HEAD_DIMS``' D == Dv that K1 (flow_fused)
 #: and K3 (flow_decode) take: DeepSeek-V2's MLA heads (q and k 192 wide, v
-#: 128) and Nemotron-4-340B's 192-wide ones.  K2, K4, K5a and K5b stay at
-#: ``HEAD_DIMS`` (and ``PADDED_HEAD_DIMS``), so a plan that needs them at
-#: these widths (training, int8 pools) is refused by name
-WIDE_PAIRS = ((192, 128), (192, 192))
+#: 128), Nemotron-4-340B's 192-wide ones and RecurrentGemma's 256-wide
+#: ones.  K2, K4, K5a and K5b stay at ``HEAD_DIMS`` (and
+#: ``PADDED_HEAD_DIMS``), so a plan that needs them at these widths
+#: (training, int8 pools) is refused by name
+WIDE_PAIRS = ((192, 128), (192, 192), (256, 256))
 #: the (D, Dv) pairs of K1 and K3: ``HEAD_DIMS`` square, then ``WIDE_PAIRS``
 FUSED_PAIRS = tuple((d, d) for d in HEAD_DIMS) + WIDE_PAIRS
 #: the small-head route of the non-causal kernels (K6, K7a, K7b; the vision

@@ -41,7 +41,8 @@ def flow_decode_call(t, q, k, v, k_sum, q_sum, ko_sum, qi_sum, z, s, *,
     t: (B,) int32 count AFTER this token; q: (BH, G, D); k: (BH, D);
     v: (BH, Dv); k/q/ko/qi sums (BH, D), z (BH,), s (BH, D, Dv) fp32 with
     BH = B * hkv; (D, Dv) in ``_lib.FUSED_PAIRS`` (D == Dv in
-    ``HEAD_DIMS``, or D = 192 beside Dv = 128 or 192).  Returns out
+    ``HEAD_DIMS``, D = 192 beside Dv = 128 or 192, or D = Dv = 256, which
+    runs as a cluster of four CTAs a row).  Returns out
     (BH, G, Dv) in q's dtype.
     """
     state = (k_sum, q_sum, ko_sum, qi_sum, z, s)

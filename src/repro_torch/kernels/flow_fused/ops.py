@@ -14,8 +14,10 @@ path refuses inputs that autograd would differentiate rather than cut the
 gradient silently.
 
 Beside D == Dv in ``HEAD_DIMS`` the kernel takes ``_lib.WIDE_PAIRS``
-(D = 192 with Dv = 128 or 192: the MLA and Nemotron-4-340B heads) in
-instantiations of their own.  K2 does not: on CUDA,
+(D = 192 with Dv = 128 or 192: the MLA and Nemotron-4-340B heads; D = Dv
+= 256: RecurrentGemma's) in instantiations of their own.  At D = 256 the
+flows of a large group do not fit a block's shared memory (G > 21): the
+workspace count refuses such a G, naming D and G.  K2 does not: on CUDA,
 ``flow_fused_forward`` refuses to start a forward at such a width that
 autograd would differentiate, naming K2, instead of failing in the
 backward.
@@ -63,7 +65,10 @@ def workspace(name: str, q: torch.Tensor, bh: int, g: int, n: int,
     size = _lib.function(name, symbol, [ctypes.c_int] * (3 + len(dims)),
                          ctypes.c_longlong)(bh, g, n, *dims)
     if size < 0:
-        raise ValueError(f"{name} refuses G={g}, N={n}, D/Dv={dims}")
+        raise ValueError(f"{name} refuses G={g}, N={n}, D/Dv={dims}: no "
+                         "instantiation takes the shape, or the group's "
+                         "flows (or pull-back) do not fit a block's shared "
+                         "memory at this D")
     return torch.empty(max(size, 4), dtype=torch.float32, device=q.device)
 
 

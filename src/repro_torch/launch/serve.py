@@ -42,18 +42,30 @@ heads)::
     python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b
     python -m repro_torch.launch.serve --arch granite-moe-3b-a800m
 
+The RecurrentGemma hybrid stack (rglru, rglru, local): in flow mode, the
+configuration's own, the local slots run causal flow attention (K1 and K3
+at D = Dv = 256, G = 16) and admission packs (K9 gathers each rglru
+layer's conv histories); with ``--attn softmax`` (or ``local``) they are
+sliding-window rings and admission runs one prefill a request::
+
+    python -m repro_torch.launch.serve --arch recurrentgemma-9b
+    python -m repro_torch.launch.serve --arch recurrentgemma-9b --attn softmax
+
+``--attn local`` on a plain stack serves every attention layer from a
+window ring.  int8 pools serve the SSD and RG-LRU mixers (dequantized,
+advanced in fp32, requantized each step).
+
 Random weights from seed 0, random prompts from ``numpy`` seed 0.  The
-paths not ported yet are refused by name: the local attention branch and
-MLA's softmax branch (``--attn local``; ``--attn softmax`` on an MLA arch,
-whose decode is the absorbed form over a compressed latent cache), int8
-pools at D = 192 (``--state-dtype int8`` on DeepSeek-V2-Lite or
-Nemotron-4-340B: the int8 decode kernel K4 takes D <= 128), and fleet
-serving (``--fleet``, which the reference also refuses with
-``--speculate-k``).
+paths not ported yet are refused by name: MLA's softmax branch (``--attn
+softmax`` on an MLA arch, whose decode is the absorbed form over a
+compressed latent cache), int8 flow pools at D > 128 (``--state-dtype
+int8`` on DeepSeek-V2-Lite, Nemotron-4-340B or RecurrentGemma-9B in flow
+mode: the int8 decode kernel K4 takes D <= 128; D = 192 and 256 are
+served by K3 from fp32 pools), and fleet serving (``--fleet``, which the
+reference also refuses with ``--speculate-k``).
 ``--paged`` on a stack with no softmax layer serves unpaged, as in the
-reference.  A mixer that cannot meet the serving plan (an SSD stack with
-int8 pools, whose mixer is not ``quant_capable`` here) exits with the
-mixer's reason.
+reference.  A mixer that cannot meet the serving plan (a local ring with
+int8 pools or a speculative window) exits with the mixer's reason.
 """
 from __future__ import annotations
 
@@ -74,17 +86,22 @@ from repro_torch.serving.quant import STATE_DTYPES, pool_bytes
 #: options of the reference CLI whose paths are not ported yet, with what
 #: each needs
 _NOT_PORTED = {
-    "attn": "the local and MLA attention branches (local windows; MLA's "
-            "softmax decode)",
+    "attn": "an attention kind of the port's attention branches (flow, "
+            "softmax, linear, local); MLA is an arch's own attention "
+            "(--arch deepseek-v2-lite-16b), not a kind",
     "fleet": "fleet serving",
 }
+
+
+#: the attention kinds ``--attn`` takes
+_KINDS = ("flow", "softmax", "linear", "local")
 
 
 def _refuse_unported(args):
     if args.fleet and args.speculate_k:
         raise SystemExit("--fleet serves plain decode only (speculative "
                          "windows stay a single-engine feature)")
-    given = {"attn": args.attn not in (None, "flow", "softmax", "linear"),
+    given = {"attn": args.attn not in (None, *_KINDS),
              "fleet": args.fleet is not None}
     for opt, on in given.items():
         if on:
@@ -94,19 +111,22 @@ def _refuse_unported(args):
 
 def _refuse_unported_arch(cfg, args):
     """Exit naming what an arch's plan would need that is not ported: MLA
-    with softmax (its absorbed decode over an ``MLACache``) and int8
-    pools at D = 192 (K4 takes D == Dv <= 128)."""
+    with softmax (its absorbed decode over an ``MLACache``) and int8 flow
+    pools at D = 192 or 256 (K4 takes D == Dv <= 128)."""
     if cfg.mla is not None and cfg.attention.kind != "flow":
         raise SystemExit(f"--attn {cfg.attention.kind} on an MLA arch is not "
                          "ported yet: it needs MLA's absorbed decode over a "
                          "compressed latent cache (MLACache)")
-    if args.state_dtype in ("int8", "fp8"):
+    has_flow = cfg.attention.kind == "flow" and any(
+        cfg.block_kind(i) in ("attn", "local") for i in range(cfg.n_layers))
+    if args.state_dtype in ("int8", "fp8") and has_flow:
         d = (cfg.mla.nope_head_dim + cfg.mla.rope_head_dim
              if cfg.mla is not None else cfg.dim_head)
-        if d > 128 and cfg.attention.kind == "flow":
+        if d > 128:
             raise SystemExit(f"--state-dtype {args.state_dtype} at D = {d} "
                              "is not ported yet: the int8 decode kernel K4 "
-                             "(flow_decode_q) takes D == Dv <= 128")
+                             "(flow_decode_q) takes D == Dv <= 128; K3 "
+                             f"serves D = {d} from fp32 pools")
 
 
 def main(argv=None) -> dict:
@@ -117,7 +137,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--attn", default=None,
                     help="attention kind: flow (the configuration's), "
-                    "softmax or linear; local is not ported yet")
+                    "softmax, linear or local (sliding-window rings); on a "
+                    "hybrid stack softmax and local make its local slots "
+                    "window rings")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=16)

@@ -62,14 +62,19 @@ def check_flow_trainable(cfg: ModelConfig, shape: ShapeSpec, platform: str,
     differentiate); then, only where some layer is an attention layer, the
     flow backend is resolved for training, raising ``ResolutionError``
     with every backend's reason when none is differentiable (a
-    forward-only pin, for instance).  An attention-free stack (an SSD
+    forward-only pin, for instance).  A hybrid stack's "local" slots are
+    attention layers in flow mode; in softmax mode they are local rings,
+    differentiated in plain PyTorch.  An attention-free stack (an SSD
     stack) resolves no backend: the reference resolves an unused
     ``xla_cumsum`` there, and the port has no such floor -- on the card no
     kernel takes the attention shape such a config implies.
     """
     xplan = xplan if xplan is not None else plan_of(cfg, needs_grad=True)
     resolve_mixers(cfg, xplan, platform)
-    if not any(cfg.block_kind(i) == "attn" for i in range(cfg.n_layers)):
+    kinds = {cfg.block_kind(i) for i in range(cfg.n_layers)}
+    # a hybrid stack's "local" slots are flow attention in flow mode only
+    if "attn" not in kinds and not ("local" in kinds
+                                    and cfg.attention.kind == "flow"):
         return None
     if cfg.attention.kind != "flow":
         raise NotImplementedError("only flow attention is ported")

@@ -1,13 +1,17 @@
 """Attention layer: the flow branch (the paper's mechanism), the softmax
-branch (the Transformer baseline it replaces) and the linear branch (the
-paper's ablation baseline, Katharopoulos et al.).
+branch (the Transformer baseline it replaces), the linear branch (the
+paper's ablation baseline, Katharopoulos et al.) and the local
+sliding-window branch (RecurrentGemma's attention slots in softmax mode).
 
 The counterpart of ``repro/layers/attention.py`` for ``kind`` "flow",
-"softmax" and "linear", and for DeepSeek-V2's MLA (multi-head latent
-attention) with "flow": q and k decompressed to [nope | rope] per head
-(D = nope + rope, Dv = v, one kv head a query head), the flow state its
-cache.  ``local`` is refused by name, and so is MLA with softmax, whose
-decode is the reference's absorbed form over a compressed ``MLACache``.
+"softmax", "linear" and "local", and for DeepSeek-V2's MLA (multi-head
+latent attention) with "flow": q and k decompressed to [nope | rope] per
+head (D = nope + rope, Dv = v, one kv head a query head), the flow state
+its cache.  MLA with softmax is refused by name: its decode is the
+reference's absorbed form over a compressed ``MLACache``.  The "local"
+pattern slots of a hybrid stack register their own mixer
+(``LocalSlotMixer``): sliding-window attention under softmax mode, flow
+attention in flow mode (``_local_cfg``).
 Positions are RoPE, or M-RoPE (Qwen2-VL) on (B, 3, N) (t, h, w) streams.
 Modes:
 
@@ -32,6 +36,13 @@ Caches:
   * linear   -- the O(d^2) ``LinearState`` (fp32 s and z per query head),
                or a ``QuantizedPool`` of one that each decode dequantizes,
                updates in fp32 and requantizes with a fresh amax;
+  * local    -- a ring ``KVCache`` of min(window, max_len) positions:
+               decode writes at t % window and attends the ring's valid
+               rows (softmax does not see their order); prefill keeps the
+               last window positions aligned to n % window.  It never
+               packs, pages, verifies or quantizes (the reference's
+               verdicts), so a hybrid stack with it admits one request at
+               a time;
   * softmax  -- a dense ``KVCache`` (B, Hkv, L, D) written at each slot's
                position, or a ``PagedKVCache`` page pool when the plan is
                paged (``serving/paged.py``), either one optionally a
@@ -63,6 +74,7 @@ re-resolves a backend.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import torch
@@ -81,7 +93,7 @@ from repro_torch.serving import quant as quant_lib
 from repro_torch.serving.paged import PagedKVCache, PagedSpec, pages_for
 from repro_torch.utils import resolve_device
 
-_PORTED = ("flow", "softmax", "linear")
+_PORTED = ("flow", "softmax", "linear", "local")
 
 
 class KVCache(NamedTuple):
@@ -100,13 +112,31 @@ def _require_ported(cfg: ModelConfig):
     if cfg.attention.kind not in _PORTED:
         raise NotImplementedError(
             f"attention kind {cfg.attention.kind!r} is not ported yet "
-            "(flow, softmax and linear attention only)")
+            f"(ported: {_PORTED})")
     if cfg.mla is not None and cfg.attention.kind != "flow":
         raise NotImplementedError(
             f"attention kind {cfg.attention.kind!r} with MLA is not ported "
             "yet: its decode is the absorbed form over an MLACache "
             "(compressed latent rows, int8 ones in int8 pools); MLA serves "
             "with kind 'flow', whose cache is the FlowState")
+
+
+@functools.lru_cache(maxsize=64)
+def _local_cfg(cfg: ModelConfig) -> ModelConfig:
+    """A hybrid stack's "local" slot: sliding-window attention under
+    softmax mode, flow attention in flow mode (the paper's replacement)."""
+    if cfg.attention.kind == "flow":
+        return cfg
+    att = dataclasses.replace(cfg.attention, kind="local")
+    return dataclasses.replace(cfg, attention=att)
+
+
+def dataclass_replace_attn(cfg: ModelConfig, kind: str) -> ModelConfig:
+    """Narrow a model config to one attention pattern slot ("attn" or
+    "local")."""
+    if kind == "local":
+        return _local_cfg(cfg)
+    return cfg
 
 
 def flow_cfg_of(cfg: ModelConfig, causal: bool) -> FlowConfig:
@@ -280,6 +310,45 @@ def _softmax_attn(q, k, v, *, causal: bool, softcap: float = 0.0,
     return out.reshape(b, hq, n, -1)
 
 
+def _local_attn(q, k, v, *, window: int, softcap: float = 0.0):
+    """Sliding-window causal attention (a band of ``window`` keys ending
+    at each query), O(n W).  Up to one window it is ``_softmax_attn``;
+    past it n must be a multiple of the window (``ValueError`` otherwise,
+    as the reference asserts): each window-sized block of queries attends
+    to [previous block | its own block] under the band mask, the first
+    block's previous one zero padding masked off.  Logits in fp32 from
+    the exact products, masked to -1e30, softmax in fp32 cast to v's
+    dtype, as the reference writes it."""
+    b, hq, n, d = q.shape
+    if n <= window:
+        return _softmax_attn(q, k, v, causal=True, softcap=softcap)
+    w = window
+    if n % w:
+        raise ValueError(f"seq {n} must be divisible by window {w} "
+                         "(local attention past one window)")
+    hkv, nc = k.shape[1], n // w
+    kp = torch.cat([torch.zeros_like(k[:, :, :w]), k], dim=2)
+    vp = torch.cat([torch.zeros_like(v[:, :, :w]), v], dim=2)
+    # block c of keys and values: padded positions [c w, (c + 2) w)
+    kc = kp.unfold(2, 2 * w, w).permute(0, 1, 2, 4, 3)  # (B, Hkv, nc, 2w, D)
+    vc = vp.unfold(2, 2 * w, w).permute(0, 1, 2, 4, 3)
+    qg = q.reshape(b, hkv, hq // hkv, nc, w, d)
+    logits = torch.einsum("bhgcnd,bhcmd->bhgcnm", qg.float(), kc.float()) \
+        * (d ** -0.5)
+    if softcap > 0:
+        logits = softcap * torch.tanh(logits / softcap)
+    qpos = torch.arange(w, device=q.device)[:, None] + w  # within the band
+    kpos = torch.arange(2 * w, device=q.device)[None, :]
+    mask = (qpos >= kpos) & (kpos > qpos - w)
+    first = kpos >= w  # the first block's "previous" block is padding
+    cmask = torch.where((torch.arange(nc, device=q.device) == 0)[:, None, None],
+                        (mask & first)[None], mask[None])  # (nc, w, 2w)
+    logits = torch.where(cmask, logits, -1e30)
+    wts = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bhgcnm,bhcme->bhgcne", wts, vc)
+    return out.reshape(b, hq, n, -1)
+
+
 def _repeat_kv(x: torch.Tensor, hq: int) -> torch.Tensor:
     """(B, Hkv, ...) -> (B, Hq, ...): each kv head for its query heads."""
     return x if x.shape[1] == hq else x.repeat_interleave(hq // x.shape[1], 1)
@@ -337,6 +406,9 @@ def attention(params, x: torch.Tensor, cfg: ModelConfig, *, causal: bool,
         out = _linear_attn(q, k, v, causal=causal,
                            chunk_size=cfg.attention.chunk_size,
                            use_kernel=_linear_kernel(cfg, plan))
+    elif kind == "local":
+        out = _local_attn(q, k, v, window=cfg.attention.window,
+                          softcap=cfg.attention.softcap)
     else:
         out = _softmax_attn(q, k, v, causal=causal,
                             softcap=cfg.attention.softcap)
@@ -353,7 +425,8 @@ def _attn_cache_init(cfg: ModelConfig, batch: int, max_len: int,
     dense ``KVCache`` of ``max_len`` positions in ``dtype``, or with
     ``paged`` a ``PagedKVCache`` of ``paged.num_pages`` pages (0: the
     dense-equivalent ``batch * ceil(max_len / page_size)``) plus the trash
-    page."""
+    page; for local a ring ``KVCache`` of min(window, max_len)
+    positions."""
     _require_ported(cfg)
     dev = resolve_device(device)
     hd, nkv = cfg.dim_head, cfg.kv_heads
@@ -372,6 +445,8 @@ def _attn_cache_init(cfg: ModelConfig, batch: int, max_len: int,
     if paged is not None:
         p = paged.num_pages or batch * pages_for(max_len, paged.page_size)
         shape = (p + 1, nkv, paged.page_size, hd)
+    elif cfg.attention.kind == "local":
+        shape = (batch, nkv, min(cfg.attention.window, max_len), hd)
     else:
         shape = (batch, nkv, max_len, hd)
     return (PagedKVCache if paged is not None else KVCache)(
@@ -388,7 +463,10 @@ def _attention_prefill(params, x: torch.Tensor, cfg: ModelConfig,
     at padded positions are never read.  Flow returns the FlowState;
     linear the ``LinearState`` of phi(k) masked past each row's length;
     softmax a dense ``KVCache`` padded to ``max_len`` in the activation
-    dtype; ``pos`` = ``lengths`` (or N)."""
+    dtype; local its ring of min(window, max_len) positions holding the
+    last ones, position i at i % window (it has no packed form: a
+    ``lengths`` raises ``MixerResolutionError``); ``pos`` = ``lengths`` (or
+    N)."""
     _require_ported(cfg)
     q, k, v = _project_qkv(params, x, cfg, positions)
     if cfg.attention.kind == "flow":
@@ -411,6 +489,26 @@ def _attention_prefill(params, x: torch.Tensor, cfg: ModelConfig,
                          _repeat_kv(v, cfg.n_heads).float())
         return (dense(params["wo"], _merge_heads(out)),
                 LinearState(s, pk.sum(dim=2), pos0))
+    if cfg.attention.kind == "local":
+        if lengths is not None:
+            raise mixer_lib.MixerResolutionError(
+                "local attention cannot satisfy packed prefill -- missing "
+                "capability packable: per-row ring alignment is "
+                "length-dependent",
+                (("local", "packable", "per-row ring alignment"),))
+        out = _local_attn(q, k, v, window=cfg.attention.window,
+                          softcap=cfg.attention.softcap)
+        w = min(cfg.attention.window, max_len)
+        # the last `take` positions, position i at ring index i % w
+        take = min(w, n)
+        idx = ((n - take) % w + torch.arange(take, device=x.device)) % w
+        ring = []
+        for t in (k, v):
+            r = torch.zeros((b, cfg.kv_heads, w, cfg.dim_head), dtype=t.dtype,
+                            device=x.device)
+            r[:, :, idx] = t[:, :, n - take:]
+            ring.append(r)
+        return dense(params["wo"], _merge_heads(out)), KVCache(*ring, pos0)
     out = _softmax_attn(q, k, v, causal=True, softcap=cfg.attention.softcap)
     pad = (0, 0, 0, max_len - n)
     cache = KVCache(F.pad(k, pad).to(x.dtype), F.pad(v, pad).to(x.dtype), pos0)
@@ -437,11 +535,13 @@ def _attention_decode(params, x: torch.Tensor, cache, cfg: ModelConfig, *,
     if isinstance(store, PagedKVCache):
         return _paged_decode(params, q, k, v, cache, cfg, page_table)
     # dense: each slot writes at its own position, clamped to the cache's
-    # end; then attend over the first kv_len positions
+    # end (a local ring: at t % window); then attend over the first kv_len
+    # positions
     t = store.pos
     cache_len = store.k.shape[2]
     rows = torch.arange(x.shape[0], device=x.device)
-    idx = t.clamp(max=cache_len - 1).long()
+    idx = (t % cache_len if cfg.attention.kind == "local"
+           else t.clamp(max=cache_len - 1)).long()
     kv_len = (t + 1).clamp(max=cache_len)
     _write_rows(pool, store, (rows, slice(None), idx), k, v)
     new_cache = KVCache(store.k, store.v, t + 1)
@@ -535,14 +635,23 @@ def _plan_paged(plan):
 
 class AttentionMixer(mixer_lib.Mixer):
     """The attention layer ("attn" pattern slots) as a sequence mixer;
-    ``cfg.attention.kind`` switches the mechanism."""
+    ``cfg.attention.kind`` switches the mechanism.  ``_cfg`` narrows the
+    model's config to the slot's (``LocalSlotMixer``); every capability is
+    judged on it."""
 
     params_field = "attn"
 
+    def _cfg(self, cfg: ModelConfig) -> ModelConfig:
+        return cfg
+
     def packable(self, cfg):
+        if self._cfg(cfg).attention.kind == "local":
+            return False, ("local ring buffers have no per-row packed form "
+                           "(ring alignment is length-dependent)")
         return True, "per-row boundary caches from one padded causal call"
 
     def paged_capable(self, cfg):
+        cfg = self._cfg(cfg)
         if cfg.mla is not None:
             return False, ("MLA keeps its compressed dense latent cache "
                            "(~an order smaller than raw KV)")
@@ -557,7 +666,7 @@ class AttentionMixer(mixer_lib.Mixer):
                       "by the attention backend registry (needs_grad plans)")
 
     def verify_capable(self, cfg):
-        kind = cfg.attention.kind
+        kind = self._cfg(cfg).attention.kind
         if kind == "local":
             return False, ("ring buffer overwrites history: a rejected "
                            "draft cannot be rolled back")
@@ -567,10 +676,10 @@ class AttentionMixer(mixer_lib.Mixer):
         if kind == "linear":
             return True, "trajectory rollback over scanned decode"
         return True, ("positional cache: rollback is per-slot position "
-                      "arithmetic (stale writes are masked, then "
-                      "overwritten)")
+                      "arithmetic (stale writes are masked/overwritten)")
 
     def quant_capable(self, cfg, platform, dtype):
+        cfg = self._cfg(cfg)
         kind = cfg.attention.kind
         if kind == "local":
             return False, ("bounded window ring stays full-precision "
@@ -589,11 +698,11 @@ class AttentionMixer(mixer_lib.Mixer):
         return True, f"per-token quantized KV rows ({why})"
 
     def init_params(self, gen, cfg):
-        return attn_init(gen, cfg)
+        return attn_init(gen, self._cfg(cfg))
 
     def forward(self, params, x, cfg, *, positions=None, plan=None):
-        return attention(params, x, cfg, causal=True, positions=positions,
-                         plan=plan)
+        return attention(params, x, self._cfg(cfg), causal=True,
+                         positions=positions, plan=plan)
 
     def state_init(self, cfg, batch, max_len, *, device="cuda", dtype=None,
                    plan=None):
@@ -605,22 +714,24 @@ class AttentionMixer(mixer_lib.Mixer):
             sd, dtype or torch.bfloat16)
         paged = _plan_paged(plan) if self.paged_capable(cfg)[0] else None
         return quant_lib.maybe_quantize(
-            _attn_cache_init(cfg, batch, max_len, cache_dtype, paged=paged,
-                             device=device), plan)
+            _attn_cache_init(self._cfg(cfg), batch, max_len, cache_dtype,
+                             paged=paged, device=device), plan)
 
     def prefill(self, params, x, cfg, max_len, *, positions=None,
                 lengths=None, plan=None):
-        return _attention_prefill(params, x, cfg, max_len,
+        return _attention_prefill(params, x, self._cfg(cfg), max_len,
                                   positions=positions, lengths=lengths,
                                   plan=plan)
 
     def decode_step(self, params, x, state, cfg, *, positions=None,
                     page_table=None, plan=None):
-        return _attention_decode(params, x, state, cfg, positions=positions,
-                                 page_table=page_table, plan=plan)
+        return _attention_decode(params, x, state, self._cfg(cfg),
+                                 positions=positions, page_table=page_table,
+                                 plan=plan)
 
     def verify_step(self, params, x, state, cfg, *, positions=None,
                     page_table=None, plan=None):
+        cfg = self._cfg(cfg)
         if cfg.attention.kind == "local":
             raise mixer_lib.MixerResolutionError(
                 "local attention cannot satisfy speculative verify: missing "
@@ -656,6 +767,7 @@ class AttentionMixer(mixer_lib.Mixer):
         return out, states[-1]
 
     def select_verified(self, pending, accepted, n, cfg, *, plan=None):
+        cfg = self._cfg(cfg)
         if isinstance(pending, quant_lib.QuantTraj):
             # gather the accepted fp32 boundary first, then quantize: the
             # rollback's single requantization
@@ -677,4 +789,14 @@ class AttentionMixer(mixer_lib.Mixer):
             else store
 
 
+class LocalSlotMixer(AttentionMixer):
+    """The "local" pattern slots (RecurrentGemma): sliding-window attention
+    under softmax mode, flow attention in flow mode; the narrowing happens
+    here, so call sites never re-derive it."""
+
+    def _cfg(self, cfg: ModelConfig) -> ModelConfig:
+        return _local_cfg(cfg)
+
+
 mixer_lib.register_mixer("attn", AttentionMixer())
+mixer_lib.register_mixer("local", LocalSlotMixer())

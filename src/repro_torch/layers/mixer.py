@@ -41,7 +41,8 @@ paged plan for a kind that cannot page.  ``stack_capabilities`` gives
 the whole stack's verdict per capability.  ``block_ffn``
 says whether a layer of the kind has an FFN sublayer after the mixer.
 The built-in kinds register on import of their layer modules
-(``layers/attention.py`` registers ``attn``, ``layers/ssd.py`` ``ssd``).
+(``layers/attention.py`` registers ``attn`` and ``local``,
+``layers/rglru.py`` ``rglru``, ``layers/ssd.py`` ``ssd``).
 """
 from __future__ import annotations
 
@@ -112,7 +113,7 @@ class Mixer:
         default: any kind with ``decode_step`` gets the sequential-decode
         verify with trajectory rollback; kinds whose caches destroy
         history (overwriting ring buffers) decline."""
-        return True, "trajectory rollback over sequential decode"
+        return True, "trajectory rollback over scanned decode"
 
     def quant_capable(self, cfg: ModelConfig, platform: str, dtype: str):
         """(ok, reason): can the decode state live in a quantized pool
@@ -200,7 +201,8 @@ def register_mixer(kind: str, impl: Mixer) -> Mixer:
 
 
 def get_mixer(kind: str) -> Mixer:
-    import repro_torch.layers.attention  # noqa: F401  registers attn
+    import repro_torch.layers.attention  # noqa: F401  registers attn, local
+    import repro_torch.layers.rglru  # noqa: F401  registers rglru
     import repro_torch.layers.ssd  # noqa: F401  registers ssd
 
     try:

@@ -21,7 +21,9 @@ scan's carry freezes there and the final carry is each row's boundary
 state; the conv histories of the x, B and C streams are gathered per
 row by one K9 launch (``kernels.gather.boundary_gather_many``).  Conv
 histories are stored in ``CONV_DTYPE``, bf16 whatever the activation
-dtype, as in the reference.
+dtype, as in the reference.  An int8 pool (``serving/quant.py``) is
+dequantized, advanced by the fp32 recurrence and requantized with a fresh
+amax each step, as the reference's ``decode_step`` does.
 """
 from __future__ import annotations
 
@@ -37,7 +39,8 @@ from repro_torch.kernels.ssd_chunk import ssd_scan
 from repro_torch.layers import mixer as mixer_lib
 from repro_torch.layers.linear import dense, dense_init
 from repro_torch.layers.norms import apply_norm, norm_init
-from repro_torch.layers.rglru import _causal_conv
+from repro_torch.layers.rglru import _causal_conv, _softplus
+from repro_torch.serving import quant as quant_lib
 from repro_torch.utils import lecun_normal, resolve_device
 
 
@@ -84,11 +87,6 @@ def ssd_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
         "norm": norm_init(d_in, "rmsnorm"),
         "out_proj": dense_init(gen, d_in, d),
     }
-
-
-def _softplus(x: torch.Tensor) -> torch.Tensor:
-    """log(1 + e^x), as ``jax.nn.softplus`` computes it (no threshold)."""
-    return torch.logaddexp(x, torch.zeros_like(x))
 
 
 def _split_in(params, x: torch.Tensor):
@@ -255,6 +253,13 @@ class SSDMixer(mixer_lib.Mixer):
         return True, ("boundary states via dt-masked chunked scan "
                       "+ per-row conv-history gathers")
 
+    def quant_capable(self, cfg, platform, dtype):
+        ok, why = quant_lib.platform_support(dtype, platform)
+        if not ok:
+            return False, why
+        return True, ("dequantize -> fp32 SSD recurrence -> requantize "
+                      f"per step ({why})")
+
     def differentiable(self, cfg, platform):
         if platform == "cuda":
             return True, ("ssd_chunk autograd.Function: reverse-scan CUDA "
@@ -269,7 +274,8 @@ class SSDMixer(mixer_lib.Mixer):
 
     def state_init(self, cfg, batch, max_len, *, device="cuda", dtype=None,
                    plan=None):
-        return _ssd_state_init(cfg, batch, device=device)
+        return quant_lib.maybe_quantize(
+            _ssd_state_init(cfg, batch, device=device), plan)
 
     def prefill(self, params, x, cfg, max_len, *, positions=None,
                 lengths=None, plan=None):
@@ -277,6 +283,12 @@ class SSDMixer(mixer_lib.Mixer):
 
     def decode_step(self, params, x, state, cfg, *, positions=None,
                     page_table=None, plan=None):
+        if isinstance(state, quant_lib.QuantizedPool):
+            # a constant-size state rewritten every step: the fp32 update
+            # between a dequantize and a fresh-amax requantize
+            out, new = _ssd_decode(params, x,
+                                   quant_lib.dequantize_state(state), cfg)
+            return out, quant_lib.quantize_like(state, new)
         return _ssd_decode(params, x, state, cfg)
 
 

@@ -1,5 +1,8 @@
 """Decoder-only language model: dense and MoE stacks of flow-, softmax-,
-linear- or MLA-attention, and Mamba-2 SSD stacks.
+linear- or MLA-attention, Mamba-2 SSD stacks, and RecurrentGemma's hybrid
+stack (the pattern rglru, rglru, local: RG-LRU blocks beside attention
+slots that are flow attention in flow mode, sliding-window rings in
+softmax mode).
 
 The counterpart of ``repro/models/lm.py`` for the stacks the port
 serves: every layer is ``norm1 -> mixer -> residual``, followed by
@@ -13,7 +16,8 @@ every entry point the (B, 3, N) text positions
 (``default_mrope_positions``).  ``forward`` and ``loss_fn`` take int
 tokens (B, N) or, for the stub frontend, float embeddings (B, N, d), which
 skip the table; serving feeds token ids through the table.
-Parameters are a plain dict of tensors
+Each layer's mixer kind is ``cfg.block_kind(i)``, the pattern repeated
+over the depth.  Parameters are a plain dict of tensors
 
     {"embed": {"table"}, "blocks": [per-layer dicts], "final_norm", "head"}
 

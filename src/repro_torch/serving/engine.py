@@ -20,8 +20,10 @@ batched before it; retirement returns the pages.
 (``serving/draft.py``): each iteration the draft source proposes k tokens
 a slot and one fused ``Worker.verify`` commits each slot's accepted
 prefix plus a bonus token, a variable number of tokens a step.  Greedy
-generations equal plain decoding's token for token.  fp8 pools and the
-per-request prefill fallback are not ported yet.
+generations equal plain decoding's token for token.  A stack with a
+layer that cannot pack (local attention rings) is admitted one request a
+round (``Worker.prefill``'s per-request fallback).  fp8 pools are refused
+off the TPU, as in the reference.
 """
 from __future__ import annotations
 

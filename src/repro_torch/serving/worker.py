@@ -9,7 +9,11 @@ and two device computations:
 * ``prefill`` — packed admission: every prompt of the admission batch is
   right-padded into one (R, Lb) prefill (``lm.prefill(..., lengths=)``),
   the per-row boundary states are written into their slots, and the first
-  tokens are sampled for the whole batch.
+  tokens are sampled for the whole batch.  A stack with a layer that
+  cannot pack (``stack_capabilities``' ``packable``: local attention
+  rings) admits one request at a time instead, as the reference does:
+  one prefill of the prompt alone, installed into its slot, and one host
+  transfer a request.
 * ``step`` — one decode of every slot (on a GPU the flow layers resolve to
   the ``flow_decode`` kernel, which updates the pool in place; the SSD
   layers run the plain recurrence and return new states) and one batched
@@ -126,6 +130,13 @@ def verify_tokens(gen: torch.Generator | None, logits: torch.Tensor,
     return emitted.to(torch.int32), accepted
 
 
+def _packable(cfg: ModelConfig, platform: str = "cuda") -> bool:
+    """Can prompts be right-padded into one prefill call?  Every layer's
+    mixer must be ``packable`` (per-row boundary states from one padded
+    call)."""
+    return stack_capabilities(cfg, platform)["packable"][0]
+
+
 def _bucket_len(n: int, max_len: int) -> int:
     """Pad admission batches to power-of-two buckets from 8 up to max_len."""
     b = 8
@@ -196,10 +207,14 @@ class Worker:
         pageable = stack_capabilities(cfg, self.device.type)["paged_capable"]
         #: the paged-pool spec, or None when unpaged (no pageable layer)
         self.paged = paged if (paged and pageable[0]) else None
+        #: whether admission packs a batch into one prefill, or runs one
+        #: prefill a request (a stack with a local attention ring)
+        self.packable = _packable(cfg, self.device.type)
         # bound once: every admission and step reuses the resolved backends
         self.executor = executor_of(cfg, dataclasses.replace(
-            base, packed=True, paged=self.paged, state_dtype=state_dtype
-            if state_dtype is not None else base.state_dtype))
+            base, packed=self.packable, paged=self.paged,
+            state_dtype=state_dtype if state_dtype is not None
+            else base.state_dtype))
         #: the serving plan every admission and step runs under
         self.plan = self.executor.plan
         #: the host-side page table and free list (paged pools only)
@@ -209,8 +224,9 @@ class Worker:
                                      dtype=dtype, device=self.device)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
-        #: admission rounds (packed prefills), decode steps and speculative
-        #: verify windows run so far
+        #: admission rounds (packed prefills, or one per request where the
+        #: stack does not pack), decode steps and speculative verify
+        #: windows run so far
         self.admission_rounds = 0
         self.decode_steps = 0
         self.verify_windows = 0
@@ -250,20 +266,36 @@ class Worker:
         budget; default the prompt): its pages are mapped up front, so an
         admitted request never exhausts the pool mid-decode."""
         lens = [len(p) for p in prompts]
-        pids = offs = None
-        lb = _bucket_len(max(lens), self.max_len)
         if self.allocator is not None:
             for slot, span in zip(slot_ids, spans or lens):
                 self.allocator.admit(slot, span)
+        if not self.packable:  # one prefill a request, at its own length
+            return np.concatenate([
+                self._admit([p], [slot], temps[i:i + 1], packed=False)
+                for i, (p, slot) in enumerate(zip(prompts, slot_ids))])
+        return self._admit(prompts, slot_ids, temps, packed=True)
+
+    def _admit(self, prompts, slot_ids, temps, *, packed: bool) -> np.ndarray:
+        """One prefill of ``prompts``, installed into ``slot_ids``, and their
+        first tokens sampled; one host transfer.  Packed: right-padded to
+        a bucket length with per-row ``lengths``; else one prompt at its
+        own length with caches of ``max_len``, as the reference's fallback
+        for stacks that cannot pack."""
+        lens = [len(p) for p in prompts]
+        lb = _bucket_len(max(lens), self.max_len) if packed else lens[0]
+        pids = offs = None
+        if self.allocator is not None:
             pids, offs = (self._tensor(a, torch.long) for a in
-                          self.allocator.install_indices(slot_ids, lens, lb))
+                          self.allocator.install_indices(
+                              slot_ids, lens, lb if packed else self.max_len))
         toks = np.zeros((len(prompts), lb), np.int32)
         for i, p in enumerate(prompts):
             toks[i, :len(p)] = p
         with torch.inference_mode():
             logits, new = lm.prefill(
                 self.params, self._tensor(toks, torch.int32), self.cfg,
-                max_len=lb, lengths=self._tensor(lens, torch.int32),
+                max_len=lb if packed else self.max_len,
+                lengths=self._tensor(lens, torch.int32) if packed else None,
                 plan=self.executor, dtype=self.dtype)
             ids = self._tensor(slot_ids, torch.long)
             for dst, src in zip(self.caches, new):

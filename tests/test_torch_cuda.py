@@ -1614,3 +1614,94 @@ def test_mla_moe_engine_kernels_match_plain_greedy(gen):
         else:
             assert max(LAUNCHES.values()) == 0
     assert runs["auto"] == runs["plain"]
+
+
+# --- K1 and K3 at D = Dv = 256, G = 16: RecurrentGemma-9B's flow heads -------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flow_fused_and_decode_at_d256_g16(gen, dtype):
+    """K1 (packed prefill, ragged lengths) and 8 K3 steps (a cluster of
+    four CTAs a row) at 16 query heads over one kv head of 256, against
+    their plain versions; two calls of each bitwise equal."""
+    b, hkv, g, n, d = 3, 1, 16, 200, 256
+    cfg = FlowConfig(causal=True, strict_causal=True, chunk_size=128)
+    q = torch.randn((b, hkv * g, n, d), generator=gen,
+                    device="cuda").to(dtype)
+    k = torch.randn((b, hkv, n, d), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((b, hkv, n, d), generator=gen, device="cuda").to(dtype)
+    lengths = torch.tensor([200, 1, 77], dtype=torch.int32, device="cuda")
+    tol = TOL if dtype == torch.float32 else dict(rtol=1e-2, atol=1e-2)
+    reset_launches()
+    out, st = flow_fused_forward(q, k, v, cfg, return_state=True,
+                                 lengths=lengths)
+    again, st2 = flow_fused_forward(q, k, v, cfg, return_state=True,
+                                    lengths=lengths)
+    assert torch.equal(out, again)
+    assert all(torch.equal(x, y) for x, y in zip(st, st2))
+    ref, ref_st = fused_causal_forward(q, k, v, cfg, return_state=True,
+                                       lengths=lengths)
+    for i, li in enumerate(lengths.tolist()):
+        torch.testing.assert_close(out[i, :, :li].float(),
+                                   ref[i, :, :li].float(), **tol)
+    for a, b_ in zip(st, ref_st):
+        torch.testing.assert_close(a, b_, **TOL)
+    plain = FlowState(*(x.clone() for x in st))
+    for _ in range(8):
+        tq = torch.randn((b, hkv * g, 1, d), generator=gen,
+                         device="cuda").to(dtype)
+        tk = torch.randn((b, hkv, 1, d), generator=gen,
+                         device="cuda").to(dtype)
+        tv = torch.randn((b, hkv, 1, d), generator=gen,
+                         device="cuda").to(dtype)
+        twin = FlowState(*(x.clone() for x in st))
+        _, got = flow_decode_step(st, tq, tk, tv, cfg)
+        _, got2 = flow_decode_step(twin, tq, tk, tv, cfg)
+        assert torch.equal(got, got2)
+        assert all(torch.equal(x, y) for x, y in zip(st, twin))
+        plain, want = decode_step(plain, tq, tk, tv, cfg)
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+    for a, b_ in zip(st, plain):
+        torch.testing.assert_close(a, b_, **TOL)
+    assert LAUNCHES["flow_fused"] == 2 and LAUNCHES["flow_decode"] == 16
+
+
+def test_flow_fused_refuses_a_group_whose_flows_do_not_fit_at_d256(gen):
+    """At D = 256 the flows of G = 24 do not fit a block's shared memory
+    at the smallest super-chunk: the workspace count refuses, naming D and
+    G, before any launch."""
+    q = torch.randn((1, 24, 16, 256), generator=gen, device="cuda")
+    k = torch.randn((1, 16, 256), generator=gen, device="cuda")
+    lens = torch.tensor([16], dtype=torch.int32, device="cuda")
+    reset_launches()
+    with pytest.raises(ValueError, match=r"G=24.*\(256, 256\)"):
+        flow_fused_call(q, k, k, lens, chunk=16)
+    assert LAUNCHES["flow_fused"] == 0
+
+
+@pytest.mark.parametrize("kind", ["flow", "softmax"])
+def test_hybrid_engine_kernels_match_plain_greedy(gen, kind):
+    """The RecurrentGemma smoke stack (rglru, rglru, local) at its kernel
+    head dim (D = 32, G = 4) in fp32: flow mode packs (K1, K9 at
+    admission, K3 at decode), softmax mode admits per request on window
+    rings; on the kernels and pinned plain, greedy tokens equal."""
+    cfg = get_smoke_config("recurrentgemma_9b")
+    cfg = dataclasses.replace(cfg, attention=dataclasses.replace(
+        cfg.attention, kind=kind))
+    params = lm.init(cfg, torch.Generator().manual_seed(0), device="cuda")
+    runs = {}
+    for backend in ("auto", "plain"):
+        c = dataclasses.replace(cfg, attention=dataclasses.replace(
+            cfg.attention, backend=backend))
+        engine = Engine(params, c, slots=2, max_len=96, dtype=torch.float32,
+                        device="cuda")
+        assert engine.worker.packable is (kind == "flow")
+        rng = np.random.default_rng(1)
+        for uid, n in enumerate((5, 64, 17)):
+            engine.submit(Request(uid=uid, prompt=rng.integers(
+                0, cfg.vocab_size, n).astype(np.int32), max_new_tokens=8))
+        reset_launches()
+        runs[backend] = {r.uid: r.generated for r in engine.run()}
+        if backend == "auto" and kind == "flow":
+            assert LAUNCHES["flow_fused"] > 0 and LAUNCHES["flow_decode"] > 0
+            assert LAUNCHES["boundary_gather"] > 0
+    assert runs["auto"] == runs["plain"]

@@ -510,10 +510,16 @@ def test_attention_free_stack_resolves_no_attention_backend(platform):
 
 
 def test_serve_refuses_int8_pools_for_an_ssd_stack_by_name():
+    """The SSD mixer serves int8 pools (dequantize, fp32 step, requantize)
+    and refuses by name what its platform cannot store: fp8 off the TPU."""
+    res = serve.main(["--arch", "mamba2_1p3b", "--smoke", "--device", "cpu",
+                      "--state-dtype", "int8", "--requests", "2",
+                      "--max-new", "3"])
+    assert all(r.done for r in res["requests"])
     with pytest.raises(SystemExit, match="missing quant_capable") as err:
         serve.main(["--arch", "mamba2_1p3b", "--smoke", "--device", "cpu",
-                    "--state-dtype", "int8"])
-    assert "mixer 'ssd'" in str(err.value)
+                    "--state-dtype", "fp8"])
+    assert "mixer 'ssd'" in str(err.value) and "TPU-only" in str(err.value)
 
 
 def test_main_path_never_passes_interpret():
@@ -629,6 +635,9 @@ def test_chunk_size_zero_resolves_to_the_fused_kernel_on_cuda(d, n):
 
 
 def test_linear_is_accepted_and_local_and_mla_are_refused_by_name():
+    """Linear and, since the hybrid stack's port, local are served; MLA
+    with softmax (the absorbed decode) and an ``--attn`` that names no
+    kind stay refused by name."""
     from repro_torch.config import MLAConfig
     from repro_torch.layers import attention as attn
 
@@ -641,16 +650,22 @@ def test_linear_is_accepted_and_local_and_mla_are_refused_by_name():
         x.shape
     assert isinstance(attn._attn_cache_init(kind("linear"), 2, 8,
                                             device="cpu"), attn.LinearState)
-    for cfg, what in ((kind("local"), "'local' is not ported"),
-                      (dataclasses.replace(kind("softmax"), mla=MLAConfig()),
-                       "with MLA is not ported")):
+    assert attn.attention(params, x, kind("local"), causal=True).shape == \
+        x.shape
+    assert attn._attn_cache_init(kind("local"), 2, 8,
+                                 device="cpu").k.shape[2] == 8
+    for cfg, what in (((dataclasses.replace(kind("softmax"), mla=MLAConfig()),
+                        "with MLA is not ported")),
+                      (kind("mla"), "'mla' is not ported")):
         with pytest.raises(NotImplementedError, match=what):
             attn.attn_init(torch.Generator().manual_seed(0), cfg)
         with pytest.raises(NotImplementedError, match=what):
             attn.attention(params, x, cfg, causal=True)
-    for flag in ("local", "mla"):
-        with pytest.raises(SystemExit, match="local and MLA attention"):
-            serve.main(["--attn", flag, "--smoke", "--device", "cpu"])
+    res = serve.main(["--attn", "local", "--smoke", "--device", "cpu",
+                      "--requests", "2", "--max-new", "3"])
+    assert all(r.done for r in res["requests"])
+    with pytest.raises(SystemExit, match="attention branches"):
+        serve.main(["--attn", "mla", "--smoke", "--device", "cpu"])
 
 
 # --- K1 and K3 at D = 192 (MLA and Nemotron-4-340B heads) --------------------
@@ -709,6 +724,58 @@ def test_an_int8_pool_at_d192_raises_naming_k4():
     with pytest.raises(SystemExit, match="K4"):
         serve.main(["--arch", "deepseek-v2-lite-16b", "--state-dtype",
                     "int8", "--device", "cpu"])
+
+
+# --- K1 and K3 at D = Dv = 256 (RecurrentGemma-9B's flow heads, G = 16) ----
+
+def test_auto_on_cuda_serves_d256_on_k1_and_k3():
+    """Serving resolves K1 (packed prefill) and K3 (decode) at (256, 256)
+    with 16 query heads over one kv head; the paper-causal kernels (K5a,
+    K5b) keep refusing the width."""
+    shapes = {op: dataclasses.replace(s, d=256, dv=256, hq=16, hkv=1)
+              for op, s in SHAPES.items()}
+    ex = attention.resolve(ExecutionPlan(flow=FlowConfig(), packed=True))
+    assert ex.backend("prefill_packed", shapes["prefill_packed"],
+                      "cuda").name == "cuda_fused"
+    assert ex.backend("decode", shapes["decode"], "cuda").name == \
+        "cuda_decode"
+    paper = ExecutionPlan(flow=FlowConfig(strict_causal=False))
+    with pytest.raises(attention.ResolutionError, match="kernel takes"):
+        attention.resolve(paper).backend("forward", shapes["prefill_packed"],
+                                         "cuda")
+
+
+def test_a_gradient_plan_at_d256_raises_naming_k2():
+    """A training plan at D = 256 is refused by cuda_fused naming K2 (the
+    refusal keyed on ``_lib.WIDE_PAIRS``), also at the launcher's check
+    on the full-width RecurrentGemma; serving still takes K1."""
+    shapes = dataclasses.replace(SHAPES["prefill_packed"], d=256, dv=256,
+                                 hq=16, hkv=1)
+    causal = FlowConfig(causal=True, strict_causal=True)
+    plan = attention.resolve(ExecutionPlan(flow=causal, needs_grad=True))
+    for op in ("forward", "prefill"):
+        with pytest.raises(attention.ResolutionError, match="K2") as err:
+            plan.backend(op, shapes, "cuda")
+        assert "flow_fused_bwd" in dict(err.value.rejections)["cuda_fused"]
+    assert attention.resolve(ExecutionPlan(flow=causal)).backend(
+        "forward", shapes, "cuda").name == "cuda_fused"
+    from repro_torch.configs import get_config
+
+    with pytest.raises(attention.ResolutionError, match="K2"):
+        check_flow_trainable(get_config("recurrentgemma_9b"),
+                             ShapeSpec("t", 256, 4, "train"), "cuda")
+
+
+def test_int8_pools_at_d256_exit_naming_k4():
+    shapes = dataclasses.replace(SHAPES["decode"], d=256, dv=256, hq=16,
+                                 hkv=1)
+    with pytest.raises(attention.ResolutionError, match="K4") as err:
+        attention.resolve(quant_plan()).backend("decode", shapes, "cuda")
+    assert "flow_decode_q" in dict(err.value.rejections)["cuda_decode"]
+    with pytest.raises(SystemExit, match="D = 256.*K4") as err:
+        serve.main(["--arch", "recurrentgemma-9b", "--state-dtype", "int8",
+                    "--device", "cpu"])
+    assert "K3 serves D = 256 from fp32 pools" in str(err.value)
 
 
 def test_mla_with_softmax_raises_naming_the_absorbed_decode():

@@ -376,8 +376,10 @@ def test_serve_cli_int8_on_the_cpu_retires_every_request(capsys):
 
 
 @pytest.mark.parametrize("argv,needs", [
-    (["--attn", "local", "--state-dtype", "int8"], "attention branches"),
-    (["--attn", "local"], "attention branches"),
+    (["--attn", "local", "--state-dtype", "int8"],
+     "missing quant_capable: bounded window ring"),
+    (["--attn", "local", "--speculate-k", "4"],
+     "missing verify_capable: ring buffer"),
     (["--attn", "mla"], "attention branches"),
     (["--fleet", "prefill:1,decode:1", "--speculate-k", "4"],
      "plain decode only"),
