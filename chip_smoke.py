@@ -330,6 +330,32 @@ any failure raises, so the exit code is non-zero:
      step teacher-forced against the same step from the pools dequantized
      into fp32 pools (K3): logits within (1e-4, 1e-4 max |logit|), every
      pool entry within one step of its scale plus 1e-5;
+  34. fleet serving (after phase 20, on phase 5's weights): phase 5's 48
+     requests and 16 slots a worker through ``FleetEngine(prefill=1,
+     decode=2)`` on the one card, bf16, the three workers sharing one
+     serving copy of the weights: exactly one K1 a layer per admission
+     round of the prefill worker, one K3 a layer per decode step of each
+     member with a live slot, nothing else; decode and prefill tokens/s
+     beside phase 5's Engine, the host time of the bundles' exports and
+     installs, migrations, KiB of state moved a request, ``loads()``;
+     then the same traffic from int8 pools (K4 in place of K3; the
+     bundles carry int8 payloads and fp32 scales);
+  34b. bundle bytes at full width: flow fp32 (predicted 835,800 B
+     whatever the length), flow int8 and bf16 paged softmax pools, one
+     prompt at each power-of-two bucket of phase 5's prompt lengths and
+     at 512 tokens, exported from one worker (``nbytes`` equal to the
+     manifest's sum), installed into another worker's free slot and
+     exported again: bitwise equal buffers;
+  34c. phase 6's 12 requests through the fp32 fleet on the kernels (8
+     slots a worker), with one forced ``migrate(uid)``, with one
+     ``kill_worker`` under ``replicate=True`` and under
+     ``replicate=False``: greedy tokens equal to the single fp32 Engine's
+     on the kernels for flow with fp32 pools, flow with int8 pools
+     (against the int8 Engine; an orphan whose int8 state is prefilled
+     again is held up to the kill and its later tokens counted, see
+     ``fleet_fp32_equal``), paged softmax on the dense-equivalent pool
+     and (after phase 33) ``recurrentgemma_9b`` at one period (phase
+     31b's weights), whose bundles carry bf16 conv histories;
   13. the Engine serving the full-width mamba2_1p3b (48 layers of SSD,
      random weights from a seed) in bf16, phase 5's traffic: exactly 1 K9
      launch per layer and admission round (``boundary_gather_many`` of the
@@ -369,7 +395,8 @@ any failure raises, so the exit code is non-zero:
      phases 17 and 17b
      for K8a and K8b, of phase 13 for K9 and of phase 15 for K10a and
      K10b, each plus the speculative runs of phases 19, 19b, 19c and 20:
-     K1, K3, K4, K8a and K9), K1's time and bound at the training shape (in its row),
+     K1, K3, K4, K8a and K9, and the fleet runs of phases 34 and 34c: K1,
+     K3, K4, K8a and K9), K1's time and bound at the training shape (in its row),
      the device time of each CUDA kernel of one K1 call (serving and
      training shape) and one K2 call (``k12_breakdown``: the ``flow_fwd_``
      and ``flow_bwd_`` kernels) with their registers and spill bytes from
@@ -3792,6 +3819,313 @@ def time_rg_kernels(rg: dict, errs: dict) -> list:
     return rows
 
 
+# --- fleet serving: phases 34-34c ----------------------------------------------
+
+#: phase 34b's prediction of an fp32 flow bundle of flowformer_lm: 6 layers
+#: x (8 kv heads x (4 x 64 + 1 + 64 x 64) x 4 B + 4 B of t)
+FLOW_BUNDLE_BYTES = 6 * (8 * (4 * 64 + 1 + 64 * 64) * 4 + 4)
+
+
+def fleet_launches_exact(fleet, launches: dict, decode: str, what: str):
+    """Phase 34's launch rule: exactly one K1 a layer per admission round
+    of the prefill workers, one ``decode`` (K3, or K4 from int8 pools) a
+    layer per decode step of each member that had a live slot, and
+    nothing else."""
+    from repro_torch.kernels._lib import KERNELS
+
+    n = fleet.cfg.n_layers
+    rounds = sum(w.admission_rounds for w in fleet.prefills)
+    steps = sum(w.decode_steps for w in fleet.workers)
+    if any(w.decode_steps for w in fleet.prefills):
+        raise AssertionError(f"{what}: a prefill worker decoded")
+    want = dict.fromkeys(KERNELS, 0)
+    want.update({"flow_fused": n * rounds, decode: n * steps})
+    if launches != want:
+        raise AssertionError(f"{what}: launches {launches}, want {want}")
+
+
+def keep_first_bundle(fleet) -> dict:
+    """Wrap the fleet's ``transport.export`` to keep the first bundle it
+    makes (under ``"bundle"``)."""
+    kept, export = {}, fleet.transport.export
+
+    def keep(*a, **kw):
+        bundle = export(*a, **kw)
+        kept.setdefault("bundle", bundle)
+        return bundle
+
+    fleet.transport.export = keep
+    return kept
+
+
+def serve_fleet_full_width(params, cfg, single: dict,
+                           state_dtype=None) -> dict:
+    """Phase 34 (its int8 half with ``state_dtype="int8"``): phase 5's 48
+    requests and 16 slots a worker through ``FleetEngine(prefill=1,
+    decode=2)`` on the one card, bf16, the workers sharing one serving
+    copy of phase 5's weights: exact launch counts, decode and prefill
+    tokens/s beside ``single`` (phase 5's or 5c's Engine), the host time
+    of the bundles' exports and installs, migrations, KiB of state moved
+    a request and ``loads()``; an int8 fleet's bundles carry int8
+    payloads and fp32 scales."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.serving.fleet import FleetEngine
+    from repro_torch.utils import tree_leaves
+
+    fleet = FleetEngine(params, cfg, prefill=1, decode=2, slots=16,
+                        max_len=512, seed=SEED, state_dtype=state_dtype)
+    served = {tuple(x.data_ptr() for x in tree_leaves(w.params))
+              for w in fleet.prefills + fleet.workers}
+    reqs = requests(np.random.default_rng(SEED + 4), 48, cfg.vocab_size,
+                    (16, 384), (32, 64))
+    for r in reqs:
+        fleet.submit(r)
+    prefill = timed_calls(fleet.prefills[0], ("prefill",))
+    steps = [timed_calls(w, ("step",)) for w in fleet.workers]
+    moved = timed_calls(fleet.transport, ("export", "install"))
+    kept = keep_first_bundle(fleet)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    fleet.step()
+    loads_admitted = fleet.loads()
+    done = fleet.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    tag = f"fleet bf16, {state_dtype or 'fp32'} pools"
+    if len(done) != len(reqs):
+        raise AssertionError(f"{tag}: {len(done)} of {len(reqs)} retired")
+    for r in done:
+        if not r.done or len(r.generated) != r.max_new_tokens or not all(
+                0 <= tok < cfg.vocab_size for tok in r.generated):
+            raise AssertionError(f"{tag}: request {r.uid}: {r.generated}")
+    fleet_launches_exact(fleet, launches, "flow_decode_q" if state_dtype
+                         else "flow_decode", tag)
+    bundle = kept["bundle"]
+    if bundle.nbytes != sum(e.nbytes for e in bundle.manifest):
+        raise AssertionError(f"{tag}: the manifest does not add up")
+    kinds = {(e.path.split(".")[1], e.dtype) for e in bundle.manifest}
+    if state_dtype and not {("payload", "int8"),
+                            ("scale", "float32")} <= kinds:
+        raise AssertionError(f"{tag}: bundle leaves {sorted(kinds)}")
+    prompt_tokens = sum(len(r.prompt) for r in reqs)
+    decode_tokens = sum(len(r.generated) - 1 for r in reqs)
+    decode_s = sum(s["step"] for s in steps)
+    kb = list(fleet.kb_by_uid.values())
+    stats = {
+        "requests": len(reqs), "serving_weight_copies": len(served),
+        "admission_rounds": fleet.prefills[0].admission_rounds,
+        "decode_steps": [w.decode_steps for w in fleet.workers],
+        "prefill_s": prefill["prefill"], "decode_s": decode_s,
+        "transport_s": moved["export"] + moved["install"],
+        "wall_s": wall,
+        "prefill_tok_per_s": prompt_tokens / prefill["prefill"],
+        "decode_tok_per_s": decode_tokens / decode_s,
+        "wall_tok_per_s": decode_tokens / wall,
+        "engine_prefill_tok_per_s": single["prefill_tok_per_s"],
+        "engine_decode_tok_per_s": single["decode_tok_per_s"],
+        "migrations": fleet.migrations, "bytes_migrated":
+        fleet.bytes_migrated, "kib_per_request": sum(kb) / len(kb),
+        "admission_bundle_bytes": bundle.nbytes,
+        "loads_after_first_step": loads_admitted,
+        "loads_after_drain": fleet.loads(), "launches": launches}
+    if len(served) != 1:
+        raise AssertionError(f"{tag}: {len(served)} serving copies of the "
+                             "weights on one card")
+    print(f"[{tag}] " + json.dumps(stats), flush=True)
+    return stats
+
+
+def fleet_bundle_bytes(params, cfg) -> dict:
+    """Phase 34b: bundle bytes at full width.  For flow fp32, flow int8
+    and bf16 paged softmax pools (``PagedSpec(PAGE)``), one prompt at each
+    power-of-two bucket of phase 5's prompt lengths and at 512 tokens:
+    export it from one worker (``bundle.nbytes`` equal to the manifest's
+    sum), install it into another worker's free slot (its other slots
+    busy) and export it again: the two buffers bitwise equal."""
+    from repro_torch.serving.engine import PagedSpec
+    from repro_torch.serving.transport import StateTransport
+    from repro_torch.serving.worker import Worker, _bucket_len
+
+    lens = [len(r.prompt) for r in requests(
+        np.random.default_rng(SEED + 4), 48, cfg.vocab_size, (16, 384),
+        (32, 64))]
+    buckets = sorted({_bucket_len(n, 512) for n in lens} | {512})
+    pools = {"flow fp32": (cfg, {}),
+             "flow int8": (cfg, {"state_dtype": "int8"}),
+             "softmax paged bf16": (softmax_cfg(cfg),
+                                    {"paged": PagedSpec(PAGE)})}
+    rng = np.random.default_rng(SEED + 34)
+    t, sizes = StateTransport(), {}
+    for tag, (c, kw) in pools.items():
+        src, dst = (Worker(params, c, slots=4, max_len=512, seed=SEED,
+                           device=DEVICE, **kw) for _ in range(2))
+        busy = [rng.integers(0, c.vocab_size, 100).astype(np.int32)
+                for _ in range(3)]
+        src.prefill(busy[:2], [0, 2], np.zeros(2, np.float32),
+                    spans=[100, 100])
+        dst.prefill(busy, [0, 1, 3], np.zeros(3, np.float32),
+                    spans=[100] * 3)
+        sizes[tag] = {}
+        for n in buckets:
+            prompt = rng.integers(0, c.vocab_size, n).astype(np.int32)
+            src.prefill([prompt], [1], np.zeros(1, np.float32), spans=[n])
+            first = t.export(src, 1, n)
+            if first.nbytes != sum(e.nbytes for e in first.manifest):
+                raise AssertionError(f"{tag} at {n}: manifest != buffer")
+            t.install(dst, 2, first, span=n)
+            again = t.export(dst, 2, n)
+            if again.manifest != first.manifest or not np.array_equal(
+                    again.buffer, first.buffer):
+                raise AssertionError(f"{tag} at {n} tokens: export, "
+                                     "install, export is not bitwise")
+            src.release_slot(1)
+            dst.release_slot(2)
+            sizes[tag][n] = first.nbytes
+        del src, dst
+    flow = set(sizes["flow fp32"].values())
+    flow_q = set(sizes["flow int8"].values())
+    if len(flow) != 1 or len(flow_q) != 1:
+        raise AssertionError(f"flow bundles vary with length: {sizes}")
+    paged = sizes["softmax paged bf16"]
+    per_token = (paged[512] - paged[256]) / 256
+    stats = {"flow_fp32_bytes": flow.pop(), "flow_int8_bytes": flow_q.pop(),
+             "flow_fp32_bytes_predicted": FLOW_BUNDLE_BYTES,
+             "paged_bf16_bytes_by_bucket": paged,
+             "paged_bf16_bytes_per_token": per_token,
+             "paged_bf16_mean_bytes_phase5_prompts": sum(
+                 paged[_bucket_len(n, 512)] for n in lens) / len(lens),
+             "round_trips_bitwise": len(buckets) * len(pools)}
+    stats["crossover_tokens"] = stats["flow_fp32_bytes"] / per_token
+    print("[fleet bundle bytes] " + json.dumps(stats), flush=True)
+    return stats
+
+
+def fleet_fp32_equal(params, cfg, tag: str, *, paged=None, state_dtype=None,
+                     need=("flow_fused", "flow_decode")) -> dict:
+    """Phase 34c: phase 6's 12 requests through the fp32 fleet on the
+    kernels (``FleetEngine(prefill=1, decode=2)``, 8 slots a worker, as
+    phase 6's Engine), three times: one forced ``migrate(uid)`` after 6
+    steps; one ``kill_worker`` of the busier member after 6 steps with
+    retained bundles (replay, and the orphans no survivor slot takes
+    prefilled again); and the same with ``replicate=False``.  Each run's
+    greedy tokens must equal the single fp32 Engine's on the kernels
+    (with the same pools), token for token, and each launches the
+    kernels of ``need``.  One exception, from int8 pools: an orphan whose
+    state is prefilled again (every orphan under ``replicate=False``, and
+    under ``replicate=True`` those no survivor slot took) is held equal
+    up to the kill and counted after it, not held: an int8 pool rounds
+    its state every decode step, and a state prefilled again is rounded
+    once from another fp32 state, so its later tokens may part, in the
+    reference as in the port (``tests/test_torch_fleet.py`` holds the
+    two fleets equal there).  Returns the runs' summed launches and the
+    admission bundle's bytes."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels._lib import KERNELS
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.fleet import FleetEngine
+
+    def traffic():
+        return requests(np.random.default_rng(SEED + 5), 12, cfg.vocab_size,
+                        (16, 128), (16, 16))
+
+    engine = Engine(params, cfg, slots=8, max_len=256, seed=SEED, paged=paged,
+                    dtype=torch.float32, state_dtype=state_dtype,
+                    device=DEVICE)
+    for r in traffic():
+        engine.submit(r)
+    want = {r.uid: r.generated for r in engine.run()}
+    del engine
+    launches, runs, kept = dict.fromkeys(KERNELS, 0), {}, {}
+    for mode in ("migrate", "kill, replicate", "kill, re-prefill"):
+        fleet = FleetEngine(params, cfg, prefill=1, decode=2, slots=8,
+                            max_len=256, seed=SEED, paged=paged,
+                            dtype=torch.float32, state_dtype=state_dtype,
+                            replicate=mode != "kill, re-prefill")
+        if mode == "migrate":
+            kept = keep_first_bundle(fleet)
+        reqs = traffic()
+        for r in reqs:
+            fleet.submit(r)
+        reset_launches()
+        for _ in range(6):
+            fleet.step()
+        committed = {r.uid: len(r.generated) for r in reqs}
+        refilled = set()
+        if mode == "migrate":
+            uid = next(r.uid for r in reqs if fleet.locate(r.uid))
+            fleet.migrate(uid)
+            event = f"request {uid} migrated"
+        else:
+            victim = max(range(2), key=lambda i: fleet.members[i].load)
+            orphans = fleet.kill_worker(victim)
+            refilled = ({r.uid for r in fleet.queue} if fleet.replicate
+                        else set(orphans))
+            event = (f"{len(orphans)} orphans, {len(refilled)} prefilled "
+                     "again")
+        fleet.run()
+        for name, n in LAUNCHES.items():
+            launches[name] += n
+        if any(LAUNCHES[name] == 0 for name in need):
+            raise AssertionError(f"{tag}, {mode}: launches {LAUNCHES}, "
+                                 f"need {need}")
+        got = {r.uid: r.generated for r in reqs}
+        # from int8 pools an orphan prefilled again is held up to the kill
+        loose = refilled if state_dtype else set()
+        parted = [0, 0]  # its tokens after the kill: equal, all
+        for uid, toks in want.items():
+            n = committed[uid] if uid in loose else len(toks)
+            parted[0] += sum(a == b for a, b in zip(got[uid][n:], toks[n:]))
+            parted[1] += len(toks) - n
+            if got[uid][:n] == toks[:n] and len(got[uid]) == len(toks):
+                continue
+            j = next((i for i, (a, b) in enumerate(zip(got[uid], toks))
+                      if a != b), min(len(got[uid]), len(toks)))
+            print(f"[fleet fp32] {tag}, {mode}: request {uid} diverges at "
+                  f"generated token {j}: fleet {got[uid][j:j + 4]}, engine "
+                  f"{toks[j:j + 4]}", flush=True)
+            raise AssertionError(f"{tag}, {mode}: fleet greedy tokens "
+                                 f"differ from the Engine's ({uid})")
+        runs[mode] = {"event": event, "migrations": fleet.migrations,
+                      "recoveries": fleet.recoveries,
+                      "bytes_migrated": fleet.bytes_migrated}
+        if loose:
+            runs[mode]["prefilled_again_tokens_equal_after_kill"] = parted
+        del fleet
+    bundle = kept["bundle"]
+    n_tok = sum(len(g) for g in want.values())
+    print(f"[fleet fp32] {tag}: the {n_tok} greedy tokens of "
+          f"{len(want)} requests equal the Engine's in every run"
+          + (" (int8 orphans prefilled again: up to the kill)"
+             if state_dtype else "") + ": "
+          + json.dumps(runs) + f"; admission bundle {bundle.nbytes} B ("
+          + ", ".join(sorted({e.dtype for e in bundle.manifest}))
+          + "); launches " + json.dumps({k: n for k, n in launches.items()
+                                         if n}), flush=True)
+    return {"launches": launches, "bundle_bytes": bundle.nbytes,
+            "dtypes": sorted({e.dtype for e in bundle.manifest})}
+
+
+def fleet_rg_fp32_equal() -> dict:
+    """Phase 34c's hybrid stack: ``recurrentgemma_9b`` at one period (3 of
+    38 layers, phase 31b's weights, fp32), whose bundles carry the
+    RG-LRU's bf16 conv histories beside a D = 256 FlowState."""
+    from repro_torch.models import lm
+
+    cfg = rg_cfg("flow", RG_PERIOD)
+    params = lm.init(cfg, torch.Generator(device=DEVICE).manual_seed(SEED),
+                     device=DEVICE)
+    out = fleet_fp32_equal(params, cfg, "recurrentgemma_9b, one period",
+                           need=("flow_fused", "flow_decode",
+                                 "boundary_gather"))
+    if "bfloat16" not in out["dtypes"]:
+        raise AssertionError(f"RG-LRU bundle dtypes {out['dtypes']}")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
 # --- the mamba2_1p3b slice: K9, K10a, K10b -----------------------------------
 
 SSD_SHAPE = dict(bsz=4, heads=64, n=4096, p=64, s=128)  # the training shape
@@ -5822,9 +6156,20 @@ def main() -> int:
         speculative_int8_against_fp32(params, cfg),
         speculative_fp32_equal(params, soft, "softmax paged, self draft",
                                paged=PagedSpec(PAGE))]
+    mark("speculative serving")
+    fleet = [serve_fleet_full_width(params, cfg, stats),
+             serve_fleet_full_width(params, cfg, quantized, "int8")]
+    fleet_bundle_bytes(params, cfg)
+    fleet += [fleet_fp32_equal(params, cfg, "flow, fp32 pools"),
+              fleet_fp32_equal(params, cfg, "flow, int8 pools",
+                               state_dtype="int8",
+                               need=("flow_fused", "flow_decode_q")),
+              fleet_fp32_equal(params, soft, "softmax paged",
+                               paged=PagedSpec(PAGE),
+                               need=("paged_gather",))]
     del params
     torch.cuda.empty_cache()
-    mark("speculative serving")
+    mark("fleet serving")
     trained = train_full_width(cfg)
     profile_train(cfg, trained["step_ms"])
     train_fp32_both_paths(cfg)
@@ -5881,6 +6226,8 @@ def main() -> int:
     rg_soft = serve_rg_softmax()
     rg_int8 = rg_int8_teacher_forced()
     mark("recurrentgemma_9b softmax and int8 serving")
+    fleet.append(fleet_rg_fp32_equal())
+    mark("recurrentgemma_9b fleet serving")
     mamba = get_config("mamba2_1p3b")
     params = lm.init(mamba, torch.Generator().manual_seed(SEED),
                      device=DEVICE)
@@ -5905,7 +6252,7 @@ def main() -> int:
         paged, paged_q, seen, series, *speculative, lin_served, lin_quant,
         dt, *(table7[kind] for kind in ("flow", "linear", "softmax")),
         heard, taught, granite, deepseek, qwen, granite_moe, rg_flow,
-        rg_soft, rg_int8, served_q))
+        rg_soft, rg_int8, served_q, *fleet))
         for name in stats["launches"]}
     torch.cuda.empty_cache()
     rows = (time_kernels(launches, errs) + time_paged_kernels(launches, errs)

@@ -55,14 +55,24 @@ sliding-window rings and admission runs one prefill a request::
 window ring.  int8 pools serve the SSD and RG-LRU mixers (dequantized,
 advanced in fp32, requantized each step).
 
+Disaggregated fleet serving (``serving/fleet.py``): a prefill group runs
+packed admission (K1) and hands each request's state to the least-loaded
+decode worker as a byte-accounted bundle; the decode group steps its
+pools (K3, or K4 from int8 pools).  The groups take every CUDA device,
+disjoint when there are enough, shared on one card::
+
+    python -m repro_torch.launch.serve --fleet prefill:1,decode:2
+
+``--fleet`` serves plain decode only and, as in the reference, refuses
+``--speculate-k``.
+
 Random weights from seed 0, random prompts from ``numpy`` seed 0.  The
 paths not ported yet are refused by name: MLA's softmax branch (``--attn
 softmax`` on an MLA arch, whose decode is the absorbed form over a
-compressed latent cache), int8 flow pools at D > 128 (``--state-dtype
+compressed latent cache) and int8 flow pools at D > 128 (``--state-dtype
 int8`` on DeepSeek-V2-Lite, Nemotron-4-340B or RecurrentGemma-9B in flow
 mode: the int8 decode kernel K4 takes D <= 128; D = 192 and 256 are
-served by K3 from fp32 pools), and fleet serving (``--fleet``, which the
-reference also refuses with ``--speculate-k``).
+served by K3 from fp32 pools).
 ``--paged`` on a stack with no softmax layer serves unpaged, as in the
 reference.  A mixer that cannot meet the serving plan (a local ring with
 int8 pools or a speculative window) exits with the mixer's reason.
@@ -81,6 +91,7 @@ from repro_torch.layers.attention import plan_of
 from repro_torch.layers.mixer import MixerResolutionError
 from repro_torch.models import lm
 from repro_torch.serving.engine import Engine, PagedSpec, Request
+from repro_torch.serving.fleet import FleetEngine
 from repro_torch.serving.quant import STATE_DTYPES, pool_bytes
 
 #: options of the reference CLI whose paths are not ported yet, with what
@@ -89,7 +100,6 @@ _NOT_PORTED = {
     "attn": "an attention kind of the port's attention branches (flow, "
             "softmax, linear, local); MLA is an arch's own attention "
             "(--arch deepseek-v2-lite-16b), not a kind",
-    "fleet": "fleet serving",
 }
 
 
@@ -97,12 +107,25 @@ _NOT_PORTED = {
 _KINDS = ("flow", "softmax", "linear", "local")
 
 
+def _parse_fleet(spec: str) -> tuple[int, int]:
+    """``prefill:N,decode:M`` -> (N, M), with loud errors; a group left out
+    keeps its default (1 prefill, 2 decode workers)."""
+    sizes = {"prefill": 1, "decode": 2}
+    for part in spec.split(","):
+        name, _, num = part.partition(":")
+        if name not in sizes or not num.isdigit() or int(num) < 1:
+            raise SystemExit(
+                f"--fleet expects 'prefill:N,decode:M' (got {spec!r}): "
+                "fleet serving needs at least one worker in each group")
+        sizes[name] = int(num)
+    return sizes["prefill"], sizes["decode"]
+
+
 def _refuse_unported(args):
     if args.fleet and args.speculate_k:
         raise SystemExit("--fleet serves plain decode only (speculative "
                          "windows stay a single-engine feature)")
-    given = {"attn": args.attn not in (None, *_KINDS),
-             "fleet": args.fleet is not None}
+    given = {"attn": args.attn not in (None, *_KINDS)}
     for opt, on in given.items():
         if on:
             raise SystemExit(f"--{opt.replace('_', '-')} is not ported yet: "
@@ -168,7 +191,9 @@ def main(argv=None) -> dict:
                     help="drafted tokens per verify window (0 = plain "
                     "decode; implies --draft self when unset)")
     ap.add_argument("--fleet", default=None, metavar="prefill:N,decode:M",
-                    help="fleet serving (not ported yet)")
+                    help="serve through FleetEngine: disaggregated "
+                    "prefill/decode worker groups with StateBundle hand-off "
+                    "over the CUDA devices (with --device cpu, on the CPU)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the plain versions)")
     args = ap.parse_args(argv)
@@ -190,12 +215,27 @@ def main(argv=None) -> dict:
     dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[args.dtype]
     max_len = args.prompt_len + args.max_new + 8
     try:
-        engine = Engine(params, cfg, slots=args.slots, max_len=max_len,
-                        plan=plan, dtype=dtype, draft=args.draft,
-                        speculate_k=args.speculate_k, device=args.device)
+        if args.fleet:
+            n_pre, n_dec = _parse_fleet(args.fleet)
+            # the default takes every CUDA device; another names the one
+            devices = None if args.device == "cuda" else [args.device]
+            engine = FleetEngine(params, cfg, prefill=n_pre, decode=n_dec,
+                                 slots=args.slots, max_len=max_len,
+                                 plan=plan, dtype=dtype, paged=paged,
+                                 state_dtype=args.state_dtype,
+                                 devices=devices)
+            worker = engine.workers[0]
+            n_devs = len({*engine.prefill_devices, *engine.decode_devices})
+            print(f"[serve] fleet: {n_pre} prefill + {n_dec} decode workers, "
+                  f"{n_devs} devices (decode group: "
+                  f"{[str(d) for d in engine.decode_devices]})")
+        else:
+            engine = Engine(params, cfg, slots=args.slots, max_len=max_len,
+                            plan=plan, dtype=dtype, draft=args.draft,
+                            speculate_k=args.speculate_k, device=args.device)
+            worker = engine.worker
     except MixerResolutionError as err:
         raise SystemExit(f"[serve] {err}") from None
-    worker = engine.worker
     mixers = sorted({cfg.block_kind(i) for i in range(cfg.n_layers)})
     print(f"[serve] mixers: {', '.join(mixers)}; attention plan: "
           f"{worker.plan.describe()}")
@@ -225,7 +265,15 @@ def main(argv=None) -> dict:
     total_tokens = sum(len(r.generated) for r in reqs)
     print(f"[serve] {args.requests} requests, {total_tokens} tokens in "
           f"{dt:.2f}s ({total_tokens / max(dt, 1e-9):.1f} tok/s, {steps} steps)")
-    if engine.draft is not None:
+    draft = getattr(engine, "draft", None)
+    if args.fleet:
+        kb_moved = engine.bytes_migrated / 1024.0
+        kb_req = np.mean(list(engine.kb_by_uid.values()) or [0.0])
+        print(f"[serve] fleet: loads={engine.loads()}, "
+              f"{engine.migrations} migrations ({kb_moved:.1f} KiB moved), "
+              f"{engine.recoveries} recoveries, "
+              f"~{kb_req:.1f} KiB of state moved per request")
+    elif draft is not None:
         print(f"[serve] speculative: k={engine.speculate_k}, "
               f"~{total_tokens / max(steps, 1):.2f} tokens committed per "
               f"step ({type(engine.draft).__name__}, {worker.verify_windows} "
@@ -238,7 +286,7 @@ def main(argv=None) -> dict:
     print(f"[serve] sample generation: {reqs[0].generated[:16]}")
     return {"requests": reqs, "steps": steps, "seconds": dt,
             "pool_bytes": n_bytes, "plan": worker.plan, "allocator": alloc,
-            "draft": engine.draft}
+            "draft": draft, "fleet": engine if args.fleet else None}
 
 
 if __name__ == "__main__":

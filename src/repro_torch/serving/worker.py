@@ -24,7 +24,9 @@ With ``state_dtype="int8"`` every layer's pool is a ``QuantizedPool``
 (``serving/quant.py``): int8 payloads plus fp32 per-(slot, head) scales.
 Admission quantizes each batch's fp32 boundary states once and scatters
 payload and scale into the slots; on a GPU each decode step runs the
-``flow_decode_q`` kernel (K4) on the pool in place.
+``flow_decode_q`` kernel (K4) on the pool in place.  A slot migrating
+between fleet workers (``serving/transport.py``) installs through the
+same scatter, an int8 one verbatim, payload and scales unrequantized.
 
 ``verify`` is the speculative window's step: one ``lm.verify`` scores
 each slot's last committed token and its k drafted candidates in one
@@ -153,26 +155,31 @@ def _install_layer(dst, src, slot_ids: torch.Tensor, pids=None, offs=None):
     dense ``KVCache`` takes the batch's (R, Hkv, L, D) prefill caches into
     its first L positions; a ``PagedKVCache`` takes them flattened into
     pages by ``pids`` and ``offs`` (R, L) from ``install_indices``, whose
-    padded positions point at the trash page.  A quantized pool takes the
-    batch's states quantized ONCE with its recipe (fresh per-(row, head)
-    or per-token scales), payload and scale scattered alike, so the pool's
-    tensors never move."""
+    padded positions point at the trash page.  A quantized pool takes a
+    full-precision source quantized ONCE with its recipe (fresh
+    per-(row, head) or per-token scales), and a source that is already a
+    ``QuantizedPool`` (a migrating slot's bundle) verbatim; payload and
+    scale are scattered alike, so the pool's tensors never move.  Source
+    leaves may lie on another device (a bundle unpacked on the host):
+    each is moved to its pool's device and dtype."""
     if isinstance(dst, QuantizedPool):
-        src = quantize_like(dst, src)
+        if not isinstance(src, QuantizedPool):
+            src = quantize_like(dst, src)
         _install_layer(dst.payload, src.payload, slot_ids, pids, offs)
         _install_layer(dst.scale, src.scale, slot_ids, pids, offs)
     elif isinstance(dst, PagedKVCache):
         n = src.k.shape[2]
         for d, s in ((dst.k, src.k), (dst.v, src.v)):
-            d[pids[:, :n], :, offs[:, :n]] = s.transpose(1, 2).to(d.dtype)
-        dst.pos[slot_ids] = src.pos.to(dst.pos.dtype)
+            d[pids[:, :n], :, offs[:, :n]] = s.transpose(1, 2).to(d.device,
+                                                                  d.dtype)
+        dst.pos[slot_ids] = src.pos.to(dst.pos.device, dst.pos.dtype)
     elif isinstance(dst, KVCache):
         n = src.k.shape[2]
-        dst.k[slot_ids, :, :n] = src.k.to(dst.k.dtype)
-        dst.v[slot_ids, :, :n] = src.v.to(dst.v.dtype)
-        dst.pos[slot_ids] = src.pos.to(dst.pos.dtype)
+        dst.k[slot_ids, :, :n] = src.k.to(dst.k.device, dst.k.dtype)
+        dst.v[slot_ids, :, :n] = src.v.to(dst.v.device, dst.v.dtype)
+        dst.pos[slot_ids] = src.pos.to(dst.pos.device, dst.pos.dtype)
     elif isinstance(dst, torch.Tensor):
-        dst[slot_ids] = src.to(dst.dtype)
+        dst[slot_ids] = src.to(dst.device, dst.dtype)
     else:
         for d, s in zip(dst, src, strict=True):
             _install_layer(d, s, slot_ids, pids, offs)

@@ -1705,3 +1705,91 @@ def test_hybrid_engine_kernels_match_plain_greedy(gen, kind):
             assert LAUNCHES["flow_fused"] > 0 and LAUNCHES["flow_decode"] > 0
             assert LAUNCHES["boundary_gather"] > 0
     assert runs["auto"] == runs["plain"]
+
+
+@pytest.mark.parametrize("kind,state_dtype", [("flow", None),
+                                              ("flow", "int8"),
+                                              ("softmax", None)])
+def test_bundle_round_trip_on_the_card(gen, kind, state_dtype):
+    """Export a slot off one worker on the card, install it into another
+    worker's free slot and export it again: the same bytes (fp32 and int8
+    flow pools, a paged softmax pool)."""
+    from repro_torch.serving.transport import StateTransport
+    from repro_torch.serving.worker import Worker
+
+    cfg = get_smoke_config("flowformer_lm")
+    cfg = dataclasses.replace(cfg, attention=dataclasses.replace(
+        cfg.attention, kind=kind))
+    params = lm.init(cfg, torch.Generator().manual_seed(0), device="cuda")
+    paged = PagedSpec(page_size=16) if kind == "softmax" else None
+    src, dst = (Worker(params, cfg, slots=3, max_len=96, dtype=torch.float32,
+                       paged=paged, state_dtype=state_dtype, device="cuda")
+                for _ in range(2))
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (40, 13)]
+    zeros = np.zeros(2, np.float32)
+    src.prefill(prompts, [0, 2], zeros, spans=[60, 30])
+    dst.prefill(prompts[::-1], [0, 1], zeros, spans=[30, 60])
+    t = StateTransport()
+    first = t.export(src, 2, 13)
+    t.install(dst, 2, first, span=30)
+    again = t.export(dst, 2, 13)
+    assert first.nbytes == sum(e.nbytes for e in first.manifest)
+    assert first.manifest == again.manifest
+    assert np.array_equal(first.buffer, again.buffer)
+    # the bundle's leaves unpacked on the host install into the card's
+    # pools through the admission scatter as they are
+    from repro_torch.serving.worker import _install_layer
+
+    if paged is not None:
+        dst.allocator.admit(2, 30)
+        pids, offs = (torch.as_tensor(a, dtype=torch.long, device="cuda")
+                      for a in dst.allocator.install_indices(
+                          [2], [13], first.padded_len))
+    else:
+        pids = offs = None
+    ids = torch.tensor([2], device="cuda")
+    with torch.inference_mode():
+        for pool, tree in zip(dst.caches, first.unpack()):
+            _install_layer(pool, tree, ids, pids, offs)
+    assert np.array_equal(t.export(dst, 2, 13).buffer, first.buffer)
+
+
+def test_fleet_on_the_card_matches_the_engine(gen):
+    """``FleetEngine(prefill=1, decode=2)`` on the card in fp32 (the smoke
+    flowformer_lm): with a migration mid-stream and then a
+    ``kill_worker``, every greedy token equals the single Engine's, and
+    admission and decode ran on K1 and K3."""
+    from repro_torch.serving.fleet import FleetEngine
+
+    cfg = get_smoke_config("flowformer_lm")
+    params = lm.init(cfg, torch.Generator().manual_seed(0), device="cuda")
+
+    def traffic():
+        rng = np.random.default_rng(3)
+        return [Request(uid=i, prompt=rng.integers(
+            0, cfg.vocab_size, n).astype(np.int32), max_new_tokens=10)
+            for i, n in enumerate((12, 7, 19, 9, 15, 11))]
+
+    engine = Engine(params, cfg, slots=4, max_len=64, dtype=torch.float32,
+                    device="cuda")
+    for r in traffic():
+        engine.submit(r)
+    want = {r.uid: r.generated for r in engine.run()}
+    fleet = FleetEngine(params, cfg, prefill=1, decode=2, slots=4,
+                        max_len=64, dtype=torch.float32)
+    reqs = traffic()
+    for r in reqs:
+        fleet.submit(r)
+    reset_launches()
+    for _ in range(3):
+        fleet.step()
+    assert fleet.migrate(1) > 0
+    fleet.step()
+    victim = max(range(2), key=lambda i: fleet.members[i].load)
+    assert fleet.kill_worker(victim)
+    fleet.run()
+    assert {r.uid: r.generated for r in reqs} == want
+    assert fleet.migrations >= 2
+    assert LAUNCHES["flow_fused"] > 0 and LAUNCHES["flow_decode"] > 0

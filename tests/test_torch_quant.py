@@ -383,7 +383,7 @@ def test_serve_cli_int8_on_the_cpu_retires_every_request(capsys):
     (["--attn", "mla"], "attention branches"),
     (["--fleet", "prefill:1,decode:1", "--speculate-k", "4"],
      "plain decode only"),
-    (["--fleet", "prefill:1,decode:1"], "fleet serving")])
+    (["--fleet", "prefill:1,decode:0"], "fleet serving")])
 def test_serve_cli_refuses_unported_paths_by_name(argv, needs):
     with pytest.raises(SystemExit, match=needs):
         serve.main(["--smoke", "--device", "cpu", *argv])
