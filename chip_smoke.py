@@ -212,6 +212,31 @@ any failure raises, so the exit code is non-zero:
   8b. phase 8 for the paper-causal variant (the plain path: the
      ``chunked`` scan), and for 1 step without competition
      (``use_competition=False``);
+  35. the training lifecycle, on phase 7's weights and shape (bf16, 16 x
+     512), checkpoints in a temporary directory removed at the end of
+     35d: crash-restart through ``launch/train.py::train`` (AdamW): run A
+     trains 4 steps with a checkpoint every 2 (async saves, then a final
+     synchronous one); run B trains 2 and a fresh ``train()`` resumes it
+     to 4: B resumes from step 2, its last two losses and every leaf of
+     its final TrainState equal A's bit for bit, exactly 12 K1 and 6 K2
+     a step and nothing else; a checkpoint's array bytes against
+     ``CKPT_ARRAY_BYTES``; the seconds of a synchronous save, of each
+     async save in the loop and of a restore;
+  35b. Adafactor (``make_train_step(TrainConfig(optimizer="adafactor"))``,
+     its moments in the reference's stacked layout), 3 steps: finite
+     losses, exactly ``ADAFACTOR_VALUES`` fp32 values of state, phase 7's
+     launches, a checkpoint round trip of the TrainState bit for bit; its
+     step time beside phase 7's AdamW step;
+  35c. Adafactor in fp32 at full width and 2 layers, 3 steps on the
+     kernels and on the plain path: phase 8's bounds on the losses and
+     on every parameter after step 3;
+  35d. ``--attn softmax`` and ``--attn linear`` (3 steps each through
+     ``train()``): finite losses, softmax launching no kernel of
+     ``KERNELS``, linear exactly ``ATTN_KIND_LAUNCHES`` (3 K5a and 1 K5b a
+     layer and step); then ``ElasticTrainer.recover(1)`` plans (1, 1),
+     restores phase 35's step-4 checkpoint into ``build_train``'s
+     template, and one more step equals step 5 of an uninterrupted
+     5-step run bit for bit;
   10. the LRA classifier at full width (``launch/classify.py::
      train_eval_classifier``, flowformer_lra, bf16, 5 steps of 32 x 4096
      ListOps tokens, random weights from a seed), then its evaluation over
@@ -395,8 +420,9 @@ any failure raises, so the exit code is non-zero:
      phases 17 and 17b
      for K8a and K8b, of phase 13 for K9 and of phase 15 for K10a and
      K10b, each plus the speculative runs of phases 19, 19b, 19c and 20:
-     K1, K3, K4, K8a and K9, and the fleet runs of phases 34 and 34c: K1,
-     K3, K4, K8a and K9), K1's time and bound at the training shape (in its row),
+     K1, K3, K4, K8a and K9, the fleet runs of phases 34 and 34c: K1,
+     K3, K4, K8a and K9, and the lifecycle runs of phases 35, 35b and
+     35d: K1, K2, K5a and K5b), K1's time and bound at the training shape (in its row),
      the device time of each CUDA kernel of one K1 call (serving and
      training shape) and one K2 call (``k12_breakdown``: the ``flow_fwd_``
      and ``flow_bwd_`` kernels) with their registers and spill bytes from
@@ -469,7 +495,8 @@ outputs, so an output that cancels (the dq of a unit cotangent) keeps an
 error of the terms' size, whatever the order.  fp32 training, kernels vs
 plain (the LM, both causal variants, and the classifier): losses rtol
 1e-4, and each attention weight's
-gradient within 1e-4 of that leaf's max |grad| -- the same fp32 sums in
+gradient within 1e-4 of that leaf's max |grad| (phase 35c: each parameter
+after three Adafactor steps within 1e-4 of that leaf's max |value|) -- the same fp32 sums in
 another order, carried through the residual stream and three Adam steps.
 K4 (and phase 6b's pools): outputs as K3's, z rtol 1e-5 and atol 1e-5, t
 exact, scales rtol 1e-5, payloads within one LSB with at most a share of
@@ -505,9 +532,11 @@ import hashlib
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -2041,6 +2070,342 @@ def train_paper_fp32_both_paths(cfg):
         cfg.attention, use_competition=False))
     train_fp32_both_paths(no_comp, steps=1, per_layer_step=K5,
                           tag="train no-competition")
+
+
+#: phases 35-35d: phase 7's shape (16 x 512 tokens a step)
+LIFE_BATCH, LIFE_SEQ = 16, 512
+#: phase 35's prediction: the arrays of one AdamW checkpoint of the
+#: full-width flowformer_lm, fp32 master, m and v (3 x 52,442,112 x 4 B),
+#: and the two int32 step counters
+CKPT_ARRAY_BYTES = 3 * 209_768_448 + 2 * 4
+#: phase 35b: fp32 values in Adafactor's vr and vc for the full-width
+#: flowformer_lm, in the reference's stacked layout (its adafactor_init)
+ADAFACTOR_VALUES = 124_954
+
+
+def bitwise_equal(a, b) -> bool:
+    """Two leaves (tensors or Python numbers) equal bit for bit."""
+    if not isinstance(b, torch.Tensor):
+        return type(a) is type(b) and a == b
+    return (isinstance(a, torch.Tensor) and a.dtype == b.dtype
+            and a.shape == b.shape
+            and torch.equal(a.reshape(-1).view(torch.uint8),
+                            b.reshape(-1).view(torch.uint8)))
+
+
+def states_bitwise(what: str, got, want):
+    """Every leaf of two TrainStates equal bit for bit."""
+    from repro_torch.utils import tree_leaves
+
+    a, b = tree_leaves(got), tree_leaves(want)
+    bad = sum(not bitwise_equal(x, y) for x, y in zip(a, b))
+    if len(a) != len(b) or bad:
+        raise AssertionError(f"{what}: {bad} of {len(b)} leaves differ "
+                             f"({len(a)} against {len(b)} leaves)")
+    return len(b)
+
+
+def blank_like(state):
+    """A restore target shaped as ``state``: empty tensors, int zeros."""
+    from repro_torch.utils import tree_map
+
+    return tree_map(lambda x: torch.empty_like(x)
+                    if isinstance(x, torch.Tensor) else 0, state)
+
+
+def state_array_bytes(state) -> int:
+    """Bytes of the arrays a checkpoint of ``state`` stores (a Python int
+    as an int32)."""
+    from repro_torch.utils import tree_leaves
+
+    return sum(x.numel() * x.element_size() if isinstance(x, torch.Tensor)
+               else 4 for x in tree_leaves(state))
+
+
+def train_crash_restart(cfg, params, root: Path) -> dict:
+    """Phase 35: crash-restart through ``launch/train.py::train`` at full
+    width in bf16 (phase 7's shape and weights from the seed): run A
+    trains 4 steps with a checkpoint every 2; run B trains 2, and a fresh
+    ``train()`` resumes B to 4.  B resumes from step 2; its last two losses
+    and every leaf of its final TrainState equal A's bit for bit (no
+    kernel adds floats atomically and nothing in the step draws random
+    numbers); exactly 12 K1 and 6 K2 a step and nothing else.  Then one
+    synchronous save and one restore of that state, timed, into a
+    directory of their own."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.train import train
+
+    kw = dict(batch=LIFE_BATCH, seq=LIFE_SEQ, seed=SEED, device=DEVICE,
+              params=params, ckpt_every=2)
+    torch.cuda.synchronize()
+    reset_launches()
+    full = train(cfg, steps=4, ckpt_dir=str(root / "a"), **kw)
+    first = train(cfg, steps=2, ckpt_dir=str(root / "b"), **kw)
+    resumed = train(cfg, steps=4, ckpt_dir=str(root / "b"), **kw)
+    launches = dict(LAUNCHES)
+    n = cfg.n_layers * (4 + 2 + 2)
+    expect_only(launches, {"flow_fused": 2 * n, "flow_fused_bwd": n},
+                "crash-restart training")
+    hist = full["history"]
+    if not all(math.isfinite(x) for x in hist):
+        raise AssertionError(f"crash-restart losses {hist}")
+    if (first["start_step"], resumed["start_step"]) != (0, 2):
+        raise AssertionError(f"run B resumed from step "
+                             f"{resumed['start_step']}, want 2")
+    if first["history"] != hist[:2] or resumed["history"] != hist[2:]:
+        raise AssertionError(f"losses: A {hist}, B {first['history']} then "
+                             f"{resumed['history']}")
+    leaves = states_bitwise("resumed run B's state against run A's",
+                            resumed["state"], full["state"])
+    shutil.rmtree(root / "a")
+    array_bytes = state_array_bytes(resumed["state"])
+    if array_bytes != CKPT_ARRAY_BYTES:
+        raise AssertionError(f"checkpoint arrays {array_bytes} B, predicted "
+                             f"{CKPT_ARRAY_BYTES}")
+    step_dir = root / "b" / f"step_{4:012d}"
+    file_bytes = sum(f.stat().st_size for f in step_dir.iterdir())
+    mgr = CheckpointManager(root / "sync")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.save(4, resumed["state"])
+    save_s = time.perf_counter() - t0
+    like = blank_like(resumed["state"])
+    t0 = time.perf_counter()
+    back, _ = mgr.restore(4, like)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    states_bitwise("a synchronous save and restore", back, resumed["state"])
+    shutil.rmtree(root / "sync")
+    stats = {"leaves_equal": leaves, "losses": hist,
+             "array_bytes": array_bytes, "file_bytes": file_bytes,
+             "sync_save_s": save_s, "restore_s": restore_s,
+             "resume_restore_s": resumed["ckpt"]["restore_s"],
+             "async_save_s": full["ckpt"]["async_save_s"],
+             "final_save_s": full["ckpt"]["save_s"],
+             "step_ms_a": [1e3 * t for t in full["step_s"]],
+             "step_ms_b_resumed": [1e3 * t for t in resumed["step_s"]],
+             "launches": launches}
+    print("[train crash-restart] " + json.dumps(stats), flush=True)
+    return stats
+
+
+def lifecycle_step(cfg, tcfg, params, layout=None):
+    """(step_fn, state) of ``make_train_step`` on ``cfg`` with ``tcfg``,
+    attention bound once for gradients; ``params`` are cloned."""
+    from repro_torch.layers.attention import executor_of, plan_of
+    from repro_torch.models import lm
+    from repro_torch.training.train_state import (init_train_state,
+                                                  make_train_step)
+    from repro_torch.utils import tree_map
+
+    loss = functools.partial(lm.loss_fn, cfg=cfg, dtype=tcfg.compute_dtype,
+                             plan=executor_of(cfg, plan_of(
+                                 cfg, needs_grad=True)))
+    return (make_train_step(loss, tcfg, layout=layout),
+            init_train_state(tree_map(torch.clone, params), tcfg, layout))
+
+
+def run_steps(step_fn, state, steps: int, batch: int, seq: int, vocab: int):
+    """``steps`` steps on ``lm_loader(SEED)``; (state, losses, step s)."""
+    from repro_torch.data.loader import lm_loader
+
+    loader = lm_loader(SEED, batch=batch, seq=seq, vocab=vocab)
+    hist, step_s = [], []
+    for _ in range(steps):
+        b = next(loader)
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, {k: torch.from_numpy(v).to(DEVICE)
+                                         for k, v in b.items()})
+        hist.append(float(metrics["loss"]))
+        step_s.append(time.perf_counter() - t0)
+    return state, hist, step_s
+
+
+def train_adafactor_full_width(cfg, params, adamw_step_ms: float,
+                               root: Path) -> dict:
+    """Phase 35b: Adafactor at full width in bf16, 3 steps of phase 7's
+    shape through ``make_train_step(TrainConfig(optimizer="adafactor"))``:
+    finite losses, exactly 124,954 fp32 values of state (the reference's
+    stacked layout), phase 7's launches (12 K1, 6 K2 a step), and a
+    checkpoint round trip of the TrainState bitwise; its step time beside
+    phase 7's AdamW step."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.training.train_state import TrainConfig
+    from repro_torch.utils import tree_leaves
+
+    steps = 3
+    tcfg = TrainConfig(optimizer="adafactor", total_steps=steps, warmup=1,
+                       fused_value_grad=True, compute_dtype=torch.bfloat16)
+    step_fn, state = lifecycle_step(cfg, tcfg, params, layout=cfg)
+    moments = tree_leaves((state.opt.vr, state.opt.vc))
+    values = sum(x.numel() for x in moments)
+    if values != ADAFACTOR_VALUES or any(x.dtype != torch.float32
+                                         for x in moments):
+        raise AssertionError(f"Adafactor state holds {values} values, want "
+                             f"{ADAFACTOR_VALUES} fp32")
+    torch.cuda.synchronize()
+    reset_launches()
+    state, hist, step_s = run_steps(step_fn, state, steps, LIFE_BATCH,
+                                    LIFE_SEQ, cfg.vocab_size)
+    launches = dict(LAUNCHES)
+    n = cfg.n_layers * steps
+    expect_only(launches, {"flow_fused": 2 * n, "flow_fused_bwd": n},
+                "Adafactor training")
+    if not all(math.isfinite(x) for x in hist):
+        raise AssertionError(f"Adafactor losses {hist}")
+    mgr = CheckpointManager(root / "adafactor")
+    t0 = time.perf_counter()
+    mgr.save(steps, state)
+    save_s = time.perf_counter() - t0
+    back, _ = mgr.restore(steps, blank_like(state))
+    leaves = states_bitwise("the Adafactor TrainState's checkpoint round "
+                            "trip", back, state)
+    shutil.rmtree(root / "adafactor")
+    step_ms = 1e3 * statistics.median(step_s[1:])
+    stats = {"steps": steps, "losses": hist, "state_values": values,
+             "state_bytes": 4 * values,
+             "adamw_state_bytes": 2 * 4 * sum(x.numel() for x in
+                                               tree_leaves(params)),
+             "first_step_ms": 1e3 * step_s[0], "step_ms": step_ms,
+             "adamw_step_ms": adamw_step_ms,
+             "checkpoint_leaves_equal": leaves, "sync_save_s": save_s,
+             "launches": launches}
+    print("[train adafactor bf16] " + json.dumps(stats), flush=True)
+    return stats
+
+
+def adafactor_fp32_both_paths(cfg):
+    """Phase 35c: Adafactor in fp32 at full width and 2 layers (still one
+    stacked leaf per weight), 3 steps on the kernels and on the plain
+    path: losses within rtol 1e-4 and every parameter after step 3 within
+    1e-4 of that leaf's max |plain| (phase 8's bounds)."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import lm
+    from repro_torch.training.train_state import TrainConfig
+    from repro_torch.utils import tree_leaves
+
+    cfg = dataclasses.replace(cfg, n_layers=2)
+    steps = 3
+    params = lm.init(cfg, torch.Generator().manual_seed(SEED + 2),
+                     device=DEVICE)
+    tcfg = TrainConfig(optimizer="adafactor", total_steps=steps, warmup=1,
+                       fused_value_grad=True, compute_dtype=torch.float32)
+    hist, master = {}, {}
+    for backend in ("auto", "plain"):
+        c = dataclasses.replace(cfg, attention=dataclasses.replace(
+            cfg.attention, backend=backend))
+        step_fn, state = lifecycle_step(c, tcfg, params, layout=c)
+        torch.cuda.synchronize()
+        reset_launches()
+        state, hist[backend], _ = run_steps(step_fn, state, steps, LIFE_BATCH,
+                                            LIFE_SEQ, c.vocab_size)
+        n = c.n_layers * steps
+        expect_only(dict(LAUNCHES), {"flow_fused": 2 * n,
+                                     "flow_fused_bwd": n}
+                    if backend == "auto" else {},
+                    f"Adafactor fp32 backend={backend}")
+        master[backend] = tree_leaves(state.master)
+    for i, (a, b) in enumerate(zip(hist["auto"], hist["plain"])):
+        if not abs(a - b) <= 1e-4 * abs(b):
+            raise AssertionError(f"Adafactor fp32 step {i} loss: kernels "
+                                 f"{a}, plain {b}")
+    worst = worst_move = 0.0
+    for a, b, p0 in zip(master["auto"], master["plain"],
+                        tree_leaves(params)):
+        scale, err = float(b.abs().max()), float((a - b).abs().max())
+        if not err <= 1e-4 * scale:
+            raise AssertionError(f"Adafactor fp32 master after {steps} "
+                                 f"steps: |diff| {err:.3e}, max |plain| "
+                                 f"{scale:.3e}")
+        worst = max(worst, err / scale)
+        move = float((b - p0).abs().max())
+        worst_move = max(worst_move, err / move if move else 0.0)
+    print(f"[adafactor fp32] kernels vs plain, 2 layers x {steps} steps: "
+          f"losses {hist['auto']} vs {hist['plain']}; every parameter "
+          f"within {worst:.3e} of its max (worst |diff| / max |update| "
+          f"{worst_move:.3e}, not gated)", flush=True)
+
+
+#: phase 35d: each --attn kind's launches a layer and step (linear: K5a in
+#: the forward, its remat recompute and the backward's dq, K5b for dk, dv)
+ATTN_KIND_LAUNCHES = {"softmax": {}, "linear": {"flow_chunk": 3,
+                                                "flow_chunk_dkv": 1}}
+
+
+def train_attn_kinds_full_width(cfg, params) -> dict:
+    """Phase 35d: ``--attn softmax`` and ``--attn linear`` at full width in
+    bf16, 3 steps each through ``train()`` (the same leaves as flow, phase
+    7's weights): finite losses, softmax launching no kernel of
+    ``KERNELS``, linear exactly ``ATTN_KIND_LAUNCHES`` a layer and step."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.train import train
+
+    steps, runs, total = 3, {}, {}
+    for kind, per in ATTN_KIND_LAUNCHES.items():
+        c = dataclasses.replace(cfg, attention=dataclasses.replace(
+            cfg.attention, kind=kind))
+        torch.cuda.synchronize()
+        reset_launches()
+        out = train(c, steps=steps, batch=LIFE_BATCH, seq=LIFE_SEQ,
+                    seed=SEED, device=DEVICE, params=params)
+        launches = dict(LAUNCHES)
+        n = c.n_layers * steps
+        expect_only(launches, {k: v * n for k, v in per.items()},
+                    f"--attn {kind} training")
+        if not all(math.isfinite(x) for x in out["history"]):
+            raise AssertionError(f"--attn {kind} losses {out['history']}")
+        runs[kind] = {"losses": out["history"],
+                      "first_step_ms": 1e3 * out["step_s"][0],
+                      "step_ms": 1e3 * statistics.median(out["step_s"][1:]),
+                      "launches_per_step": {k: launches[k] // steps
+                                            for k in per}}
+        total = {k: total.get(k, 0) + v for k, v in launches.items()}
+    print("[train --attn] " + json.dumps(runs), flush=True)
+    return {**runs, "launches": total}
+
+
+def elastic_resume(cfg, params, root: Path) -> dict:
+    """Phase 35d's end: ``ElasticTrainer.recover(1)`` plans (1, 1) and
+    restores phase 35's step-4 checkpoint (run B's) into the template of
+    a 5-step run; one more step equals step 5 of an uninterrupted 5-step
+    run, its loss and every leaf of its TrainState bit for bit."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data.loader import lm_loader
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.train import build_train, train
+    from repro_torch.runtime import ElasticTrainer, MeshPlan
+
+    steps = 5
+    kw = dict(steps=steps, batch=LIFE_BATCH, seq=LIFE_SEQ, seed=SEED,
+              device=DEVICE, params=params)
+    torch.cuda.synchronize()
+    reset_launches()
+    full = train(cfg, **kw)
+    trainer = ElasticTrainer(lambda plan: build_train(cfg, **kw),
+                             CheckpointManager(root / "b"))
+    plan, step_fn, state, step = trainer.recover(n_healthy=1)
+    if plan != MeshPlan((1, 1), ("data", "model")) or step != 4:
+        raise AssertionError(f"recover(1) planned {plan} at step {step}")
+    loader = lm_loader(SEED, batch=LIFE_BATCH, seq=LIFE_SEQ,
+                       vocab=cfg.vocab_size, start_step=step)
+    state, metrics = step_fn(state, {k: torch.from_numpy(v).to(DEVICE)
+                                     for k, v in next(loader).items()})
+    loss = float(metrics["loss"])
+    launches = dict(LAUNCHES)
+    n = cfg.n_layers * (steps + 1)
+    expect_only(launches, {"flow_fused": 2 * n, "flow_fused_bwd": n},
+                "elastic resume")
+    if loss != full["history"][-1]:
+        raise AssertionError(f"step 5 after recover(1): loss {loss}, "
+                             f"uninterrupted {full['history'][-1]}")
+    leaves = states_bitwise("the state after recover(1) and one step",
+                            state, full["state"])
+    print(f"[elastic] recover(1): plan {plan.shape}, restored step {step}; "
+          f"step 5 loss {loss} equal to the uninterrupted run's, {leaves} "
+          "state leaves bitwise", flush=True)
+    return {"launches": launches}
 
 
 def expect_launches(launches: dict, k6: int, k7b: int, what: str):
@@ -6180,6 +6545,18 @@ def main() -> int:
                   tag="train paper-causal")
     train_paper_fp32_both_paths(cfg)
     mark("flowformer_lm training")
+    params = lm.init(cfg, torch.Generator().manual_seed(SEED), device=DEVICE)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        root = Path(tmp)
+        restarted = train_crash_restart(cfg, params, root)
+        factored = train_adafactor_full_width(cfg, params,
+                                              trained["step_ms"], root)
+        adafactor_fp32_both_paths(cfg)
+        kinds = train_attn_kinds_full_width(cfg, params)
+        resumed = elastic_resume(cfg, params, root)
+    del params
+    torch.cuda.empty_cache()
+    mark("flowformer_lm training lifecycle")
     lra = get_config("flowformer_lra")
     classified = train_classifier_full_width(lra)
     profile_classifier(lra, classified["step_ms"])
@@ -6252,7 +6629,8 @@ def main() -> int:
         paged, paged_q, seen, series, *speculative, lin_served, lin_quant,
         dt, *(table7[kind] for kind in ("flow", "linear", "softmax")),
         heard, taught, granite, deepseek, qwen, granite_moe, rg_flow,
-        rg_soft, rg_int8, served_q, *fleet))
+        rg_soft, rg_int8, served_q, *fleet, restarted, factored, kinds,
+        resumed))
         for name in stats["launches"]}
     torch.cuda.empty_cache()
     rows = (time_kernels(launches, errs) + time_paged_kernels(launches, errs)

@@ -66,6 +66,12 @@ An RG-LRU block (the hybrid stack's ``rglru`` slots) carries ``rglru``
 holds one dict per pattern position, and the layers past the last whole
 period are its ``tail``.
 Every leaf is carried by the same rule, bit for bit in both directions.
+
+``train_state_from_numpy`` and ``train_state_to_numpy`` carry a
+``TrainState`` (master, optimizer state, step) of either optimizer: the
+master and AdamW's ``m`` and ``v`` by the parameters' rule, Adafactor's
+``vr`` and ``vc`` as they are, since the port holds them in the
+reference's stacked layout too (``training/optimizer.py``).
 """
 from __future__ import annotations
 
@@ -77,6 +83,9 @@ from repro_torch.config import ModelConfig
 from repro_torch.layers.attention import KVCache
 from repro_torch.serving.paged import PagedKVCache
 from repro_torch.serving.quant import QuantizedPool, spec_of
+from repro_torch.training.optimizer import (AdafactorState, AdamWState,
+                                            stack_layers)
+from repro_torch.training.train_state import TrainState
 from repro_torch.utils import tree_map
 
 
@@ -183,6 +192,51 @@ def params_to_numpy(params: dict, cfg: ModelConfig) -> dict:
     if "head" in p:
         out["head"] = p["head"]
     return out
+
+
+def _in_layout_of(like, tree):
+    """``tree``'s numpy leaves as tensors, in the structure and dict-key
+    order of ``like`` (the port zips trees leaf by leaf in that order)."""
+    if isinstance(like, dict):
+        return {k: _in_layout_of(v, tree[k]) for k, v in like.items()}
+    if isinstance(like, list):
+        return [_in_layout_of(v, t) for v, t in zip(like, tree)]
+    return _as_tensor(tree)
+
+
+def train_state_from_numpy(state, cfg: ModelConfig) -> TrainState:
+    """The port's ``TrainState`` (CPU tensors, Python int steps) from the
+    reference's, given with numpy leaves (``jax.tree.map(np.asarray,
+    state)``); its optimizer state is AdamW's (``m``, ``v``) or
+    Adafactor's (``vr``, ``vc``)."""
+    master = params_from_numpy(state.master, cfg)
+    opt = state.opt
+    if hasattr(opt, "m"):
+        new_opt = AdamWState(params_from_numpy(opt.m, cfg),
+                             params_from_numpy(opt.v, cfg), int(opt.step))
+    else:
+        layout = stack_layers(tree_map(lambda x: x.to("meta"), master), cfg)
+        new_opt = AdafactorState(_in_layout_of(layout, opt.vr),
+                                 _in_layout_of(layout, opt.vc), int(opt.step))
+    return TrainState(master, new_opt, int(state.step))
+
+
+def train_state_to_numpy(state: TrainState, cfg: ModelConfig) -> TrainState:
+    """The reference's ``TrainState`` layout with numpy leaves (int32
+    steps), in the port's NamedTuples: leaf for leaf the reference's
+    under ``jax.tree.leaves``."""
+    opt = state.opt
+    if isinstance(opt, AdamWState):
+        new_opt = AdamWState(params_to_numpy(opt.m, cfg),
+                             params_to_numpy(opt.v, cfg), np.int32(opt.step))
+    else:
+        def host(tree):
+            return tree_map(lambda x: x.detach().cpu().numpy(), tree)
+
+        new_opt = AdafactorState(host(opt.vr), host(opt.vc),
+                                 np.int32(opt.step))
+    return TrainState(params_to_numpy(state.master, cfg), new_opt,
+                      np.int32(state.step))
 
 
 def _stack(group: list):

@@ -54,8 +54,12 @@ def training_shapes(cfg: ModelConfig, shape: ShapeSpec) -> attention.ShapeInfo:
 
 def check_flow_trainable(cfg: ModelConfig, shape: ShapeSpec, platform: str,
                          xplan: attention.ExecutionPlan | None = None):
-    """The attention backend a training step will differentiate on
-    ``platform``, or None for a stack without attention layers.
+    """The flow attention backend a training step will differentiate on
+    ``platform``, or None for a stack without attention layers and for the
+    softmax and linear branches, which resolve no flow backend (as in the
+    reference): softmax attention is plain PyTorch, and the linear
+    branch's causal dot runs K5a and K5b on a CUDA tensor
+    (``layers.attention._linear_kernel``).
 
     In the reference's order: first every layer's mixer is resolved for
     gradients (``MixerResolutionError`` names a mixer that cannot
@@ -77,7 +81,7 @@ def check_flow_trainable(cfg: ModelConfig, shape: ShapeSpec, platform: str,
                                     and cfg.attention.kind == "flow"):
         return None
     if cfg.attention.kind != "flow":
-        raise NotImplementedError("only flow attention is ported")
+        return None
 
     def resolve(causal):
         plan = attention.ExecutionPlan(flow=flow_cfg_of(cfg, causal=causal),

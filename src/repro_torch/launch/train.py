@@ -1,7 +1,7 @@
 """Train the LM on one GPU: the counterpart of ``repro/launch/train.py``.
 
-    python -m repro_torch.launch.train --arch flowformer-lm --steps 5 \\
-        --batch 16 --seq 512
+    python -m repro_torch.launch.train --arch flowformer-lm --steps 200 \\
+        --batch 16 --seq 512 --ckpt-dir runs/lm --ckpt-every 50
     python -m repro_torch.launch.train --arch mamba2_1p3b --steps 5 \\
         --batch 4 --seq 4096
 
@@ -11,40 +11,48 @@ warmup-cosine schedule, bf16 compute.  The attention backend is resolved
 once, for gradients: on a GPU every attention forward runs kernel K1 and
 every attention backward kernel K2; in the paper-faithful causal mode
 (``attention.strict_causal=False``) and without competition, every
-forward runs K5a and every backward K5a (dq) and K5b (dk, dv).  An SSD
-stack (``mamba2_1p3b``) has no attention: every SSD forward and its remat
+forward runs K5a and every backward K5a (dq) and K5b (dk, dv).
+``--attn`` sets ``attention.kind``: ``linear`` runs its causal dot on K5a
+and K5b likewise, ``softmax`` is plain PyTorch.  An SSD stack
+(``mamba2_1p3b``) has no attention: every SSD forward and its remat
 recompute run K10a with carry-ins, every backward K10b.
-Checkpointing, elastic restart and meshes are not ported yet.
+
+Crash-restart: with ``--ckpt-dir`` the state (parameters, optimizer,
+step) is saved every ``--ckpt-every`` steps by an async writer and once
+more at the end, and rerunning the same command resumes from the last
+committed checkpoint, the loader replaying from the next batch
+(``checkpoint/manager.py``).  Device meshes are not ported: one device.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import time
 
 import torch
 
+from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.config import ModelConfig, ShapeSpec
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data.loader import lm_loader
 from repro_torch.launch.steps import check_flow_trainable, microbatch_for
 from repro_torch.layers.attention import executor_of, plan_of
 from repro_torch.models import lm
+from repro_torch.runtime.elastic import StepMonitor
 from repro_torch.training.optimizer import decay_mask
 from repro_torch.training.train_state import (TrainConfig, init_train_state,
                                               make_train_step)
 from repro_torch.utils import resolve_device, tree_leaves, tree_map
 
 
-def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int, seed: int = 0,
-          peak_lr: float = 3e-4, device="cuda", dtype=torch.bfloat16,
-          params: dict | None = None, log_every: int = 10) -> dict:
-    """Train ``steps`` steps of ``batch`` x ``seq`` tokens.
-
-    ``params`` (fp32, any device) replaces the random init from ``seed``.
-    Returns {"history": per-step losses, "final_loss", "wall_s",
-    "step_s": per-step wall seconds, "state": the final TrainState}.
-    """
+def build_train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
+                seed: int = 0, peak_lr: float = 3e-4, device="cuda",
+                dtype=torch.bfloat16, params: dict | None = None):
+    """``train``'s step function and fresh ``TrainState`` for a run of
+    ``steps`` steps of ``batch`` x ``seq`` tokens (the warmup-cosine
+    schedule spans ``steps``): the template that a restore fills, as
+    ``runtime.elastic.ElasticTrainer``'s ``build`` returns it."""
     dev = resolve_device(device)
     shape = ShapeSpec("custom", seq, batch, "train")
     tcfg = TrainConfig(microbatch=microbatch_for(cfg, shape),
@@ -59,55 +67,110 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int, seed: int = 0,
     n_params = sum(x.numel() for x in tree_leaves(params))
     print(f"[train] {cfg.name}: {n_params:,} params on {dev}, "
           f"{str(dtype)[6:]} compute, microbatch={tcfg.microbatch}")
-    mixers = sorted({cfg.block_kind(i) for i in range(cfg.n_layers)})
-    print(f"[train] attention {xplan.describe()} -> "
-          + (be.name if be is not None else
-             f"no attention backend (mixers: {', '.join(mixers)})"))
+    kinds = sorted({cfg.block_kind(i) for i in range(cfg.n_layers)})
+    if be is not None:
+        route = be.name
+    elif "attn" in kinds:
+        route = f"{cfg.attention.kind} branch (no flow backend)"
+    else:
+        route = f"no attention backend (mixers: {', '.join(kinds)})"
+    print(f"[train] attention {xplan.describe()} -> {route}")
 
     loss = functools.partial(lm.loss_fn, cfg=cfg, dtype=dtype,
                              plan=executor_of(cfg, xplan))
-    step_fn = make_train_step(loss, tcfg, decay=decay_mask(params, cfg))
-    state = init_train_state(params, tcfg)
-    loader = lm_loader(seed, batch=batch, seq=seq, vocab=cfg.vocab_size)
+    return (make_train_step(loss, tcfg, decay=decay_mask(params, cfg)),
+            init_train_state(params, tcfg))
+
+
+def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
+          ckpt_dir: str | None = None, ckpt_every: int = 50, seed: int = 0,
+          peak_lr: float = 3e-4, device="cuda", dtype=torch.bfloat16,
+          params: dict | None = None, log_every: int = 10) -> dict:
+    """Train up to step ``steps`` with batches of ``batch`` x ``seq``
+    tokens, resuming from the latest checkpoint under ``ckpt_dir`` if it
+    holds one.
+
+    ``params`` (fp32, any device) replaces the random init from ``seed``.
+    Returns {"history": the losses of the steps run here, "final_loss",
+    "wall_s", "step_s": their wall seconds, "state": the final TrainState,
+    "start_step", "ckpt": {"restore_s", "async_save_s": the seconds each
+    async save held the loop, "save_s": the last, synchronous save's}}.
+    """
+    dev = resolve_device(device)
+    step_fn, state = build_train(cfg, steps=steps, batch=batch, seq=seq,
+                                 seed=seed, peak_lr=peak_lr, device=dev,
+                                 dtype=dtype, params=params)
+    start_step, mgr = 0, None
+    ckpt = {"restore_s": None, "async_save_s": [], "save_s": None}
+    if ckpt_dir:
+        mgr = CheckpointManager(ckpt_dir, keep=3)
+        t0 = time.perf_counter()
+        restored = mgr.restore_latest(state)
+        if restored is not None:
+            start_step, state, _ = restored
+            ckpt["restore_s"] = time.perf_counter() - t0
+            print(f"[train] resumed from step {start_step}")
+    loader = lm_loader(seed, batch=batch, seq=seq, vocab=cfg.vocab_size,
+                       start_step=start_step)
+    monitor = StepMonitor()
     history, step_s = [], []
     t_start = time.perf_counter()
-    for step in range(steps):
+    for step in range(start_step, steps):
         batch_np = next(loader)
-        t0 = time.perf_counter()
+        monitor.start()
         state, metrics = step_fn(state, {k: torch.from_numpy(v).to(dev)
                                          for k, v in batch_np.items()})
         loss_value = float(metrics["loss"])  # waits for the step
-        step_s.append(time.perf_counter() - t0)
+        step_s.append(monitor.stop(step))
         history.append(loss_value)
         if step % log_every == 0 or step == steps - 1:
             print(f"  step {step:5d} loss={loss_value:.4f} "
                   f"ppl={float(metrics['ppl']):.2f} "
                   f"gnorm={float(metrics['grad_norm']):.3f} "
                   f"{step_s[-1] * 1000:.0f}ms")
+        if mgr and (step + 1) % ckpt_every == 0:
+            t0 = time.perf_counter()
+            mgr.save(step + 1, state, extra=loader.state(), async_=True)
+            ckpt["async_save_s"].append(time.perf_counter() - t0)
+    if mgr:
+        t0 = time.perf_counter()
+        mgr.save(steps, state, extra=loader.state())
+        mgr.wait()
+        ckpt["save_s"] = time.perf_counter() - t0
     return {"history": history, "final_loss": history[-1] if history else None,
             "wall_s": time.perf_counter() - t_start, "step_s": step_s,
-            "state": state}
+            "state": state, "start_step": start_step, "ckpt": ckpt}
 
 
-def main():
+def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(
         description="Train the LM on one GPU (random weights, synthetic "
-        "zipf_text batches).  Checkpointing (--ckpt-dir), elastic restart "
-        "and device meshes are not ported yet.")
+        "zipf_text batches), resuming from --ckpt-dir's last checkpoint.  "
+        "Device meshes are not ported yet.")
     ap.add_argument("--arch", default="flowformer-lm")
     ap.add_argument("--smoke", action="store_true", help="reduced config")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--attn", default=None, help="override attention kind")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the plain versions)")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.attn:
+        cfg = dataclasses.replace(
+            cfg, attention=dataclasses.replace(cfg.attention, kind=args.attn))
     out = train(cfg, steps=args.steps, batch=args.batch, seq=args.seq,
+                ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
                 device=args.device)
-    print(f"[train] done: final_loss={out['final_loss']:.4f} "
-          f"({out['wall_s']:.1f}s)")
+    last = out["final_loss"]
+    print(f"[train] done at step {out['state'].step}: final_loss="
+          + ("none (nothing left to run)" if last is None else f"{last:.4f}")
+          + f" ({out['wall_s']:.1f}s)")
+    return out
 
 
 if __name__ == "__main__":

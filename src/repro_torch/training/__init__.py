@@ -1,1 +1,2 @@
-"""Training: schedules, AdamW and the train step (``train_state.py``)."""
+"""Training: schedules, AdamW and Adafactor, and the train step
+(``train_state.py``)."""

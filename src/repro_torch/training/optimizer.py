@@ -1,13 +1,23 @@
-"""AdamW on fp32 master parameters, the counterpart of
-``repro/training/optimizer.py`` (Adafactor is not ported yet).
+"""AdamW and Adafactor on fp32 master parameters, the counterpart of
+``repro/training/optimizer.py``.
 
-State trees mirror the parameter tree.  Weight decay applies to the
-leaves ``decay_mask`` marks: the reference decays every leaf with
-``ndim >= 2`` *in its own layout*, where the layers of a scanned stack are
-stacked along a leading axis (``repro/models/lm.py:91-101``).  So its
-per-layer norm scales and biases, (n_rep, d) there, are decayed while
-``final_norm`` is not.  The port keeps layers unstacked, so the mask
-reproduces the stacked layout's rule rather than the leaves' own ndim.
+The reference computes on its own layout, where the layers of a scanned
+stack are stacked along a leading axis (``repro/models/lm.py:91-101``):
+layers ``r * period + j`` for ``r < n_rep`` form one (n_rep, ...) leaf per
+pattern position ``j``, when ``cfg.scan_layers`` and ``n_rep > 1``; the
+tail layers, the tables and ``final_norm`` keep their own shape.  The port
+keeps layers unstacked, so:
+
+  * AdamW's state trees mirror the parameter tree, and its weight decay
+    applies to the leaves ``decay_mask`` marks: every leaf with ``ndim >=
+    2`` in the stacked layout, so the per-layer norm scales and biases,
+    (n_rep, d) there, are decayed while ``final_norm`` is not;
+  * Adafactor factors and clips each leaf of the stacked layout
+    (``stack_layers``): a per-layer norm scale is one (n_rep, d) leaf, so
+    it is factored and its column moment is a mean over the layers; a
+    (n_rep, d, f) weight takes one RMS clip over all its layers; MoE
+    experts stack as (n_rep, E, d, f).  Its ``vr`` and ``vc`` stay in that
+    layout, leaf for leaf the reference's.
 """
 from __future__ import annotations
 
@@ -18,6 +28,59 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.utils import global_norm, tree_leaves, tree_map
+
+
+def _stacking(cfg: ModelConfig | None) -> tuple[int, int]:
+    """(period, n_rep) of the reference's stacked layers; n_rep is 0 where
+    it keeps a plain list of blocks."""
+    if cfg is None:
+        return 0, 0
+    period = len(cfg.pattern)
+    n_rep = cfg.n_layers // period
+    return period, n_rep if cfg.scan_layers and n_rep > 1 else 0
+
+
+def _stack(group: list):
+    if isinstance(group[0], dict):
+        return {k: _stack([g[k] for g in group]) for k in group[0]}
+    return torch.stack(group)
+
+
+def stack_layers(tree: dict, cfg: ModelConfig | None) -> dict:
+    """An LM tree (``embed``, ``blocks``, ``final_norm``, ``head``) in the
+    reference's layout: ``blocks`` becomes ``scan``, one stacked dict per
+    pattern position, and ``tail``, the layers past the last whole period.
+    The tree itself where the reference keeps a list of blocks (or
+    ``cfg`` is None)."""
+    period, n_rep = _stacking(cfg)
+    if not n_rep:
+        return tree
+    out = {}
+    for k, v in tree.items():
+        if k == "blocks":
+            out["scan"] = [_stack([v[r * period + j] for r in range(n_rep)])
+                           for j in range(period)]
+            out["tail"] = list(v[n_rep * period:])
+        else:
+            out[k] = v
+    return out
+
+
+def unstack_layers(tree: dict, cfg: ModelConfig | None) -> dict:
+    """The inverse of ``stack_layers``: the port's list of blocks, each
+    layer's leaves views of the stacked ones."""
+    period, n_rep = _stacking(cfg)
+    if not n_rep:
+        return tree
+    out = {}
+    for k, v in tree.items():
+        if k == "scan":
+            out["blocks"] = [tree_map(lambda x, r=r: x[r], v[j])
+                             for r in range(n_rep) for j in range(period)
+                             ] + list(tree["tail"])
+        elif k != "tail":
+            out[k] = v
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,9 +113,8 @@ def decay_mask(params: dict, cfg: ModelConfig) -> dict:
     as >= 2-D there; the tail layers, the final norm and the tables keep
     their own ndim."""
     mask = tree_map(lambda x: x.ndim >= 2, params)
-    period = len(cfg.pattern)
-    n_rep = cfg.n_layers // period
-    if cfg.scan_layers and n_rep > 1:
+    period, n_rep = _stacking(cfg)
+    if n_rep:
         for i in range(n_rep * period):
             mask["blocks"][i] = tree_map(lambda x: True, params["blocks"][i])
     return mask
@@ -92,3 +154,83 @@ def adamw_update(grads, opt: AdamWState, master, lr, cfg: AdamWConfig =
 
     return (rebuild(0), AdamWState(rebuild(1), rebuild(2), step),
             {"grad_norm": gnorm})
+
+
+# ---------------------------------------------------------------------------
+# Adafactor (factored second moment: sublinear optimizer memory; Shazeer &
+# Stern 2018)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class AdafactorConfig:
+    decay: float = 0.8
+    eps: float = 1e-30
+    clip_threshold: float = 1.0
+    weight_decay: float = 0.0
+
+
+class AdafactorState(NamedTuple):
+    vr: dict  # row second moment (the whole moment for < 2-D leaves)
+    vc: dict  # column second moment (a 0-d zero for < 2-D leaves)
+    step: int
+
+
+def adafactor_init(master, layout: ModelConfig | None = None
+                   ) -> AdafactorState:
+    """Zero moments for ``master`` in the stacked layout of ``layout`` (the
+    LM's config; None for a tree the reference never stacks), on
+    ``master``'s device (the layout is worked out on meta tensors; a meta
+    ``master`` counts the state's size from shapes alone)."""
+    device = tree_leaves(master)[0].device
+
+    def zeros(shape):
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+
+    shapes = stack_layers(tree_map(lambda x: x.to("meta"), master), layout)
+    vr = tree_map(lambda x: zeros(x.shape[:-1] if x.ndim >= 2 else x.shape),
+                  shapes)
+    vc = tree_map(lambda x: zeros(x.shape[:-2] + x.shape[-1:]
+                                  if x.ndim >= 2 else ()), shapes)
+    return AdafactorState(vr=vr, vc=vc, step=0)
+
+
+def adafactor_update(grads, opt: AdafactorState, master, lr,
+                     cfg: AdafactorConfig = AdafactorConfig(),
+                     layout: ModelConfig | None = None):
+    """One Adafactor step on fp32 master params, each leaf of ``layout``'s
+    stacked layout factored, clipped and decayed as one (as
+    ``adafactor_init`` laid out ``opt``).  No gradient clipping;
+    ``grad_norm`` is that of the unscaled gradients.  Returns
+    (new_master, state, stats)."""
+    step = opt.step + 1
+    beta = 1.0 - torch.tensor(float(step), dtype=torch.float32) ** -cfg.decay
+
+    def upd(g, vr, vc, p):
+        g = g.float()
+        g2 = g.square() + cfg.eps
+        if p.ndim >= 2:
+            vr = beta * vr + (1 - beta) * g2.mean(dim=-1)
+            vc = beta * vc + (1 - beta) * g2.mean(dim=-2)
+            rfac = torch.rsqrt(vr / vr.mean(dim=-1, keepdim=True).clamp(
+                min=cfg.eps))
+            update = g * rfac[..., None] * torch.rsqrt(vc)[..., None, :]
+        else:
+            vr = beta * vr + (1 - beta) * g2
+            update = g * torch.rsqrt(vr)
+        rms = torch.sqrt(update.square().mean() + 1e-12)
+        update = update / (rms / cfg.clip_threshold).clamp(min=1.0)
+        if cfg.weight_decay and p.ndim >= 2:
+            update = update + cfg.weight_decay * p
+        return p - lr * update, vr, vc
+
+    stacked = stack_layers(master, layout)
+    leaves = zip(*(tree_leaves(x) for x in (stack_layers(grads, layout),
+                                            opt.vr, opt.vc, stacked)))
+    results = [upd(*leaf) for leaf in leaves]
+
+    def rebuild(i):
+        it = iter([r[i] for r in results])
+        return tree_map(lambda _: next(it), stacked)
+
+    return (unstack_layers(rebuild(0), layout),
+            AdafactorState(rebuild(1), rebuild(2), step),
+            {"grad_norm": global_norm(grads)})

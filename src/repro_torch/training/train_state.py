@@ -3,7 +3,8 @@
 
 The step casts the fp32 master parameters to ``compute_dtype`` (bf16 by
 default), differentiates the loss with respect to the cast parameters,
-casts the gradients to fp32 and runs AdamW on the master.  With
+casts the gradients to fp32 and runs the optimizer (AdamW, or Adafactor
+in the reference's stacked layout) on the master.  With
 ``microbatch`` the batch is split and the fp32 gradients accumulated, as
 the reference's scan over microbatches does.  Sharding the step over a
 mesh (``shard_train_step``) is not ported yet.
@@ -22,7 +23,7 @@ from repro_torch.utils import tree_cast, tree_leaves, tree_map
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    optimizer: str = "adamw"  # adamw (adafactor is not ported yet)
+    optimizer: str = "adamw"  # adamw | adafactor
     peak_lr: float = 3e-4
     warmup: int = 100
     total_steps: int = 10_000
@@ -42,12 +43,17 @@ class TrainState(NamedTuple):
     step: int
 
 
-def init_train_state(params_fp32: dict, tcfg: TrainConfig) -> TrainState:
-    if tcfg.optimizer != "adamw":
-        raise NotImplementedError(f"optimizer {tcfg.optimizer!r} is not "
-                                  "ported yet (adamw only)")
-    return TrainState(master=params_fp32, opt=opt_lib.adamw_init(params_fp32),
-                      step=0)
+def init_train_state(params_fp32: dict, tcfg: TrainConfig,
+                     layout=None) -> TrainState:
+    """``layout`` is the LM's config, whose stacked layout Adafactor's
+    moments take (``optimizer.adafactor_init``); AdamW ignores it."""
+    if tcfg.optimizer == "adamw":
+        opt = opt_lib.adamw_init(params_fp32)
+    elif tcfg.optimizer == "adafactor":
+        opt = opt_lib.adafactor_init(params_fp32, layout)
+    else:
+        raise ValueError(tcfg.optimizer)
+    return TrainState(master=params_fp32, opt=opt, step=0)
 
 
 def _lr(step, tcfg: TrainConfig) -> torch.Tensor:
@@ -66,13 +72,16 @@ def _tree_add(a, b):
     return tree_map(lambda _: next(it), a)
 
 
-def make_train_step(loss_fn: Callable, tcfg: TrainConfig, *, decay=None):
+def make_train_step(loss_fn: Callable, tcfg: TrainConfig, *, decay=None,
+                    layout=None):
     """Build the train step: (state, batch) -> (state, metrics).
 
     ``loss_fn(params, batch) -> (loss, metrics)`` takes the parameters in
     ``compute_dtype``; ``decay`` is the weight-decay mask for
-    ``adamw_update`` (``optimizer.decay_mask``).  Metrics are detached
-    tensors: reading one is the step's only host synchronization.
+    ``adamw_update`` (``optimizer.decay_mask``), ``layout`` the LM config
+    whose stacked layout ``adafactor_update`` computes on (as
+    ``init_train_state`` was given it).  Metrics are detached tensors:
+    reading one is the step's only host synchronization.
     """
     adamw_cfg = opt_lib.AdamWConfig(grad_clip=tcfg.grad_clip,
                                     weight_decay=tcfg.weight_decay)
@@ -116,8 +125,14 @@ def make_train_step(loss_fn: Callable, tcfg: TrainConfig, *, decay=None):
             metrics = detached(metrics)
 
         lr = _lr(state.step, tcfg)
-        new_master, new_opt, stats = opt_lib.adamw_update(
-            grads, state.opt, state.master, lr, adamw_cfg, decay)
+        if tcfg.optimizer == "adamw":
+            new_master, new_opt, stats = opt_lib.adamw_update(
+                grads, state.opt, state.master, lr, adamw_cfg, decay)
+        else:
+            new_master, new_opt, stats = opt_lib.adafactor_update(
+                grads, state.opt, state.master, lr,
+                opt_lib.AdafactorConfig(weight_decay=tcfg.weight_decay),
+                layout)
         metrics = {**metrics, **stats, "lr": lr}
         return TrainState(new_master, new_opt, state.step + 1), metrics
 

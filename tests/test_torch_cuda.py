@@ -1793,3 +1793,49 @@ def test_fleet_on_the_card_matches_the_engine(gen):
     assert {r.uid: r.generated for r in reqs} == want
     assert fleet.migrations >= 2
     assert LAUNCHES["flow_fused"] > 0 and LAUNCHES["flow_decode"] > 0
+
+
+def test_checkpoint_round_trip_of_cuda_tensors_is_bitwise(gen, tmp_path):
+    """A tree of CUDA tensors (fp32, bf16, int) and Python ints saves
+    (sync and async) and restores onto the card bit for bit."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.utils import tree_leaves
+
+    tree = {"w": torch.randn((64, 32), generator=gen, device="cuda"),
+            "h": [torch.randn((8, 5), generator=gen, device="cuda"
+                              ).to(torch.bfloat16)],
+            "ids": torch.arange(7, device="cuda"), "step": 9}
+    like = tree_map(lambda x: torch.zeros_like(x)
+                    if isinstance(x, torch.Tensor) else 0, tree)
+    mgr = CheckpointManager(tmp_path)
+    mgr.save(1, tree)
+    mgr.save(2, tree, async_=True)
+    tree["w"].add_(1.0)  # after the host copy: not in step 2
+    mgr.wait()
+    for step in (1, 2):
+        back, _ = mgr.restore(step, like)
+        for a, b in zip(tree_leaves(back), tree_leaves(like)):
+            if isinstance(b, torch.Tensor):
+                assert a.device == b.device and a.dtype == b.dtype
+        assert back["step"] == 9
+        assert torch.equal(back["w"] + 1.0, tree["w"])
+        assert torch.equal(back["h"][0].view(torch.int16),
+                           tree["h"][0].view(torch.int16))
+
+
+def test_linear_training_resolves_to_k5a_and_k5b(gen):
+    """``--attn linear`` on the card under ``auto``: every causal dot runs
+    K5a (forward, remat recompute, dq) and K5b (dk, dv), never a plain
+    version; ``softmax`` launches no kernel."""
+    base = get_smoke_config("flowformer_lm")
+    for kind, per_layer in (("linear", {"flow_chunk": 3,
+                                        "flow_chunk_dkv": 1}),
+                            ("softmax", {})):
+        cfg = dataclasses.replace(base, attention=dataclasses.replace(
+            base.attention, kind=kind))
+        reset_launches()
+        out = train(cfg, steps=2, batch=2, seq=64, device="cuda")
+        assert all(np.isfinite(out["history"]))
+        want = {k: 0 for k in KERNELS}
+        want.update({k: v * cfg.n_layers * 2 for k, v in per_layer.items()})
+        assert dict(LAUNCHES) == want, kind
