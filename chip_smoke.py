@@ -237,6 +237,34 @@ any failure raises, so the exit code is non-zero:
      restores phase 35's step-4 checkpoint into ``build_train``'s
      template, and one more step equals step 5 of an uninterrupted
      5-step run bit for bit;
+  36. distribution and context parallelism, on one card (a mesh is run
+     from one process: every position of it is ``cuda:0``): ``cp_causal``
+     on 4- and 8-way ``seq`` meshes at flowformer_lm's attention (B = 4,
+     8 heads of 64, N = 4,096, chunk 128: local N 1,024 and 512) and at
+     granite_8b's G = 4, D = 128: ``explain`` shows inner ``cuda_chunk``;
+     forward, prefill and packed prefill (lens 512-4,096) against the
+     unsharded K1 path and the pinned plain ``cumsum``, and the gradient
+     of sum(out^2) (K5a, K5b) against K1 + K2, within phase 3d's K5a
+     tolerance; exactly ``ways`` K5a a forward and ``2 ways`` K5a +
+     ``ways`` K5b a backward; ``cp_nc`` at the LRA shape against K6,
+     its gradients against the plain ``nc``'s and K6 + K7b's within
+     ``CP_NC_GRAD_BOUND``;
+  36b. ``build_prefill_step(seq_shard=True)``, flowformer_lm at full
+     width and depth on a (1, 4) mesh, 4 x 2,048 tokens, fp32: 4 K5a a
+     layer and no K1; logits and every boundary FlowState against the
+     unsharded ``lm.prefill``; both wall times;
+  36c. ``build_train_step`` at phase 7's shape in bf16 on (1, 1), (4, 1)
+     and (2, 2) meshes, 3 steps each: losses within
+     ``CP_TRAIN_LOSS_RTOL`` and one step's gradient norm within
+     ``CP_TRAIN_GNORM_RTOL`` of (1, 1)'s, exactly 12 K1 and 6 K2 a
+     data-parallel position and step; then ``compressed_psum`` on 4
+     positions' full-width gradients: each leaf's error against the exact
+     mean within half the shared int8 step, the residuals' norms, the wall
+     ms a call;
+  36d. ``train(mesh=make_mesh((2, 1)))`` for 3 steps with a checkpoint,
+     ``ElasticTrainer.recover(1)`` onto (1, 1) restores it bit for bit,
+     and one more step equals one from the run's own final state bit for
+     bit;
   10. the LRA classifier at full width (``launch/classify.py::
      train_eval_classifier``, flowformer_lra, bf16, 5 steps of 32 x 4096
      ListOps tokens, random weights from a seed), then its evaluation over
@@ -526,6 +554,7 @@ paths sum it at other GEMM shapes) moves the state, and the gap grew by
 from __future__ import annotations
 
 import ctypes
+import collections
 import dataclasses
 import functools
 import hashlib
@@ -2376,6 +2405,7 @@ def elastic_resume(cfg, params, root: Path) -> dict:
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.launch.train import build_train, train
     from repro_torch.runtime import ElasticTrainer, MeshPlan
+    from repro_torch.training.train_state import gather_state
 
     steps = 5
     kw = dict(steps=steps, batch=LIFE_BATCH, seq=LIFE_SEQ, seed=SEED,
@@ -2401,11 +2431,448 @@ def elastic_resume(cfg, params, root: Path) -> dict:
         raise AssertionError(f"step 5 after recover(1): loss {loss}, "
                              f"uninterrupted {full['history'][-1]}")
     leaves = states_bitwise("the state after recover(1) and one step",
-                            state, full["state"])
+                            gather_state(state, cfg), full["state"])
     print(f"[elastic] recover(1): plan {plan.shape}, restored step {step}; "
           f"step 5 loss {loss} equal to the uninterrupted run's, {leaves} "
           "state leaves bitwise", flush=True)
     return {"launches": launches}
+
+
+#: phase 36: the context-parallel kernels at flowformer_lm's attention
+#: (B = 4, 8 kv heads, G = 1, D = 64) and granite_8b's (B = 2, 8 kv heads,
+#: G = 4, D = 128), N = 4,096, chunk 128, split 4 and 8 ways on cuda:0
+#: (local N 1,024 and 512); cp_nc at the LRA shape (32 x 4 heads of 64)
+CP_CAUSAL_SHAPES = (("flowformer_lm", 4, 8, 1, 64),
+                    ("granite_8b G=4", 2, 8, 4, 128))
+CP_N, CP_CHUNK, CP_WAYS = 4096, 128, (4, 8)
+CP_PACKED_LENS = (512, 4096)
+CP_NC_SHAPE = (32, 4, 4096, 64)
+#: phase 36b: sequence-parallel prefill, rows x tokens on a (1, 4) mesh
+CP_PREFILL = (4, 2048)
+#: phase 36c: the meshes of the sharded train step, and its steps
+CP_TRAIN_MESHES = ((4, 1), (2, 2))
+CP_TRAIN_STEPS = 3
+#: phase 36c: sharded bf16 training against the (1, 1) step, relative
+#: bounds on the losses and on one step's gradient norm (PR 32's chip run
+#: read 2.4e-6 and 1.5e-3: bf16 slices of 4 rows round otherwise than 16)
+CP_TRAIN_LOSS_RTOL = 1e-3
+CP_TRAIN_GNORM_RTOL = 1e-2
+#: phase 36: cp_nc's gradients against the unsharded plain nc's (and K6 +
+#: K7b's), each leaf's max |diff| over its max |grad|.  PR 32's chip run
+#: read dq 4.8e-4, dk 1.1e-2, dv 7.8e-7 (3.8e-6 against K7b);
+#: tools/cp_nc_grad_precision.py puts the fp32 paths 5e-3 (dq), 13.9 % (dk)
+#: and 6e-7 (dv) of each max from an fp64 run: dk's clamp kinks at every
+#: source, so its bound is twice that distance
+CP_NC_GRAD_BOUND = {"q": 1e-2, "k": 0.3, "v": 1e-4}
+
+
+def cp_mesh(shape, axes):
+    """A mesh of ``shape`` over every CUDA device (all of it ``cuda:0`` on
+    one card), or of CPU positions in a rehearsal."""
+    from repro_torch.launch.mesh import make_mesh
+
+    return make_mesh(shape, axes,
+                     devices=None if DEVICE == "cuda" else [DEVICE])
+
+
+def cp_inputs(b, hkv, g, n, d, seed):
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    mk = lambda *s: torch.randn(s, generator=gen, device=DEVICE)  # noqa: E731
+    return mk(b, hkv * g, n, d), mk(b, hkv, n, d), mk(b, hkv, n, d)
+
+
+def wall_ms(fn, reps: int = 3) -> float:
+    """Mean wall ms of ``reps`` synchronized runs of ``fn`` after one warm
+    run: the host's part counts (a sharded op is host-driven)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def state_close(name: str, got, want) -> float:
+    """Every FlowState field within phase 3d's K5a tolerance (``t``
+    exactly)."""
+    if not torch.equal(got.t.long().cpu(), want.t.long().cpu()):
+        raise AssertionError(f"{name}: t {got.t.tolist()} != "
+                             f"{want.t.tolist()}")
+    return max(dot_close(f"{name} {f}", getattr(got, f), getattr(want, f))
+               for f in STATE_FIELDS)
+
+
+def sq_grads(ex, q, k, v):
+    """The gradients of sum(out^2) through ``ex.forward``."""
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out = ex.forward(*leaves)
+    return torch.autograd.grad((out.float() ** 2).sum(), leaves)
+
+
+def check_context_parallel() -> dict:
+    """Phase 36: ``cp_causal`` on 4- and 8-way meshes of the card resolves
+    its shard-local inner to ``cuda_chunk`` (K5a), and its forward,
+    prefill and packed prefill (lens spread over 512-4,096) match the
+    unsharded K1 path and the pinned plain ``cumsum``, and its gradient
+    of sum(out^2) (K5a forward; K5a and K5b backward) the unsharded K1 +
+    K2 gradient, all within phase 3d's K5a tolerance; at flowformer_lm's
+    shape and granite_8b's G = 4, D = 128.  ``cp_nc`` at the LRA shape
+    against the unsharded K6 (its gradients printed against the plain
+    ``nc``'s and K6 + K7b's).  Exactly ``ways`` K5a a
+    forward or prefill and ``2 ways`` K5a + ``ways`` K5b a step with
+    gradients, no other kernel; ``cp_nc`` launches none."""
+    from repro_torch import attention
+    from repro_torch.attention import (ExecutionPlan, FlowConfig, ShapeInfo,
+                                       ShardSpec)
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    launched = collections.Counter()
+    errs, times = {}, {}
+    rng = np.random.default_rng(SEED + 360)
+    for tag, b, hkv, g, d in CP_CAUSAL_SHAPES:
+        q, k, v = cp_inputs(b, hkv, g, CP_N, d, SEED + 361 + d)
+        lens = torch.tensor(rng.integers(CP_PACKED_LENS[0],
+                                         CP_PACKED_LENS[1] + 1, b),
+                            dtype=torch.int32, device=DEVICE)
+        cfg = FlowConfig(causal=True, strict_causal=True, chunk_size=CP_CHUNK)
+        fused = attention.resolve(ExecutionPlan(flow=cfg))
+        plain = attention.resolve(ExecutionPlan(
+            flow=dataclasses.replace(cfg, backend="cumsum")))
+        shapes = ShapeInfo.from_qkv(q, k, v)
+        with torch.no_grad():
+            want = {"forward": fused.forward(q, k, v),
+                    "prefill": fused.prefill(q, k, v),
+                    "packed": fused.prefill(q, k, v, lengths=lens)}
+            floor = {"forward": plain.forward(q, k, v),
+                     "prefill": plain.prefill(q, k, v),
+                     "packed": plain.prefill(q, k, v, lengths=lens)}
+        want_g = sq_grads(attention.resolve(ExecutionPlan(
+            flow=cfg, needs_grad=True)), q, k, v)
+        torch.cuda.synchronize()
+        for ways in CP_WAYS:
+            plan = ExecutionPlan(flow=cfg, shard=ShardSpec(
+                axis="seq", mesh=cp_mesh((ways,), ("seq",))))
+            ex = attention.resolve(plan)
+            rows = dict((n, (ok, w)) for n, ok, w in attention.explain(
+                plan, shapes, platform=DEVICE, op="forward").sections[0][1])
+            ok, why = rows["cp_causal"]
+            if not ok or "inner=cuda_chunk" not in why:
+                raise AssertionError(f"cp_causal {tag} {ways}-way: {why}")
+            print(f"[cp] {tag} {ways}-way: explain cp_causal: {why}",
+                  flush=True)
+            name = f"cp_causal {tag} {ways}-way local N={CP_N // ways}"
+            torch.cuda.synchronize()
+            reset_launches()
+            with torch.no_grad():
+                got = {"forward": ex.forward(q, k, v),
+                       "prefill": ex.prefill(q, k, v),
+                       "packed": ex.prefill(q, k, v, lengths=lens)}
+            torch.cuda.synchronize()
+            la = dict(LAUNCHES)
+            expect_only(la, {"flow_chunk": 3 * ways}, f"{name} forwards")
+            launched.update(la)
+            e = {"out_vs_k1": dot_close(f"{name} out vs K1", got["forward"],
+                                        want["forward"]),
+                 "out_vs_cumsum": dot_close(f"{name} out vs cumsum",
+                                            got["forward"], floor["forward"])}
+            # a packed row's outputs past its length are padding, which
+            # K1 leaves at zero
+            live = (torch.arange(CP_N, device=DEVICE)[None, :]
+                    < lens[:, None].long())[:, None, :, None]
+            for op in ("prefill", "packed"):
+                keep = live if op == "packed" else True
+                e[f"{op}_out_vs_k1"] = dot_close(
+                    f"{name} {op} out vs K1", got[op][0] * keep,
+                    want[op][0] * keep)
+                e[f"{op}_state_vs_k1"] = state_close(
+                    f"{name} {op} state vs K1", got[op][1], want[op][1])
+                e[f"{op}_state_vs_cumsum"] = state_close(
+                    f"{name} {op} state vs cumsum", got[op][1],
+                    floor[op][1])
+            reset_launches()
+            got_g = sq_grads(attention.resolve(dataclasses.replace(
+                plan, needs_grad=True)), q, k, v)
+            torch.cuda.synchronize()
+            la = dict(LAUNCHES)
+            expect_only(la, {"flow_chunk": 2 * ways, "flow_chunk_dkv": ways},
+                        f"{name} gradients")
+            launched.update(la)
+            e["grad_vs_k2"] = max(dot_close(f"{name} d{n} vs K1 + K2", a, b_)
+                                  for n, a, b_ in zip("qkv", got_g, want_g))
+            e["grad_vs_k2_of_max"] = max(
+                float((a - b_).abs().max() / b_.abs().max())
+                for a, b_ in zip(got_g, want_g))
+            with torch.no_grad():
+                times[f"{tag} {ways}-way"] = {
+                    "cp_forward_ms": wall_ms(lambda: ex.forward(q, k, v)),
+                    "k1_forward_ms": wall_ms(lambda: fused.forward(q, k,
+                                                                   v))}
+            errs[f"{tag} {ways}-way"] = e
+            print(f"[cp] {name}: " + json.dumps(
+                {n: f"{x:.3e}" for n, x in e.items()}), flush=True)
+        del q, k, v, want, floor, want_g
+        torch.cuda.empty_cache()
+    rows_n, h, n, d = CP_NC_SHAPE
+    q, k, v = cp_inputs(rows_n, h, 1, n, d, SEED + 369)
+    cfg = FlowConfig()
+    with torch.no_grad():
+        want = attention.resolve(ExecutionPlan(flow=cfg)).forward(q, k, v)
+    kernel_g = sq_grads(attention.resolve(ExecutionPlan(flow=cfg,
+                                                        needs_grad=True)),
+                        q, k, v)
+    # cp_nc differentiates plain einsums: its own plain version is the
+    # unsharded plain nc
+    want_g = sq_grads(attention.resolve(ExecutionPlan(
+        flow=dataclasses.replace(cfg, backend="nc"), needs_grad=True)),
+        q, k, v)
+    plan = ExecutionPlan(flow=cfg, shard=ShardSpec(
+        axis="seq", mesh=cp_mesh((4,), ("seq",))))
+    name = f"cp_nc LRA {rows_n}x{h} N={n} 4-way"
+    torch.cuda.synchronize()
+    reset_launches()
+    with torch.no_grad():
+        got = attention.resolve(plan).forward(q, k, v)
+    got_g = sq_grads(attention.resolve(dataclasses.replace(
+        plan, needs_grad=True)), q, k, v)
+    torch.cuda.synchronize()
+    expect_only(dict(LAUNCHES), {}, name)
+    # every source's conserved flow cons_src sits at 1, where its clamp
+    # kinks, so roundings on either side move single dk entries by their
+    # whole size (the plain fp32 path against an fp64 run alike): dk's
+    # bound only catches a wrong or missing gradient
+    e = {"out_vs_k6": max_err_scaled(f"{name} out vs K6", got, want,
+                                     TOL[torch.float32])}
+    for tag_, ref_g in (("nc", want_g), ("k7b", kernel_g)):
+        for n_, a, b_ in zip("qkv", got_g, ref_g):
+            rel = float((a - b_).abs().max() / b_.abs().max())
+            e[f"d{n_}_vs_{tag_}_of_max"] = rel
+            if not rel <= CP_NC_GRAD_BOUND[n_]:
+                raise AssertionError(
+                    f"{name} d{n_} vs {tag_}: {rel:.3e} of its max, bound "
+                    f"{CP_NC_GRAD_BOUND[n_]}")
+    errs[name] = e
+    print(f"[cp] {name}: " + json.dumps({x: f"{y:.3e}" for x, y in
+                                         e.items()}), flush=True)
+    del q, k, v, want, want_g, kernel_g, got, got_g
+    torch.cuda.empty_cache()
+    print("[cp] forward wall ms (mean of 3 synchronized runs): "
+          + json.dumps(times), flush=True)
+    return {"launches": dict(launched), "errs": errs, "times": times}
+
+
+def cp_prefill_full_width(cfg, params) -> dict:
+    """Phase 36b: ``build_prefill_step(seq_shard=True)`` for flowformer_lm
+    at full width and depth on a (1, 4) mesh of the card, 4 x 2,048
+    tokens, fp32: every flow layer binds ``cp_causal`` (exactly 4 K5a a
+    layer, no K1); its last-token logits and every layer's boundary
+    FlowState against the unsharded ``lm.prefill`` (K1, one a layer)
+    within phase 3d's K5a tolerance; both wall times."""
+    from repro_torch.config import ShapeSpec
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.steps import RunPlan, build_prefill_step
+    from repro_torch.models import lm
+
+    rows, n = CP_PREFILL
+    f32 = torch.float32
+    toks = torch.from_numpy(np.random.default_rng(SEED + 370).integers(
+        0, cfg.vocab_size, (rows, n))).to(DEVICE)
+    step, _, _, _ = build_prefill_step(
+        cfg, ShapeSpec("prefill", n, rows, "prefill"),
+        cp_mesh((1, 4), ("data", "model")), RunPlan(), seq_shard=True,
+        dtype=f32)
+    wall = {}
+
+    def run(name, fn):
+        fn()  # warm
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall[name] = 1e3 * (time.perf_counter() - t0)
+        return out, dict(LAUNCHES)
+
+    with torch.no_grad():
+        (logits, caches), la = run("sharded_ms", lambda: step(
+            params, {"inputs": toks}))
+        (ul, uc), lu = run("unsharded_ms", lambda: lm.prefill(
+            params, toks, cfg, n, dtype=f32))
+    expect_only(la, {"flow_chunk": 4 * cfg.n_layers}, "seq-sharded prefill")
+    expect_only(lu, {"flow_fused": cfg.n_layers}, "unsharded prefill")
+    e = {"logits": dot_close("seq-sharded prefill logits", logits, ul)}
+    e["states"] = max(state_close(f"seq-sharded prefill layer {i}", a, b)
+                      for i, (a, b) in enumerate(zip(caches, uc)))
+    stats = {"errs": e, **wall, "launches": la}
+    print("[cp prefill] " + json.dumps(stats), flush=True)
+    return stats
+
+
+def cp_train_full_width(cfg, params) -> dict:
+    """Phase 36c: ``build_train_step`` for flowformer_lm at full width, 16
+    x 512 in bf16 (phase 7's batches), 3 steps each on (1, 1), and on
+    (4, 1) and (2, 2) meshes of the card: losses within
+    ``CP_TRAIN_LOSS_RTOL`` and gradient norms within
+    ``CP_TRAIN_GNORM_RTOL`` of the (1, 1) run's, exactly 12 K1 and 6 K2
+    per data-parallel position a step.  Then ``compressed_psum`` on the
+    full-width gradients of 4 positions: each leaf's error against the
+    exact mean within half its shared int8 step (pmax |g| / 254), the
+    residual's norm and the ms a call."""
+    from repro_torch.config import ShapeSpec
+    from repro_torch.distribution.sharding import dp_axes
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.steps import RunPlan, build_train_step
+    from repro_torch.layers.attention import executor_of, plan_of
+    from repro_torch.models import lm
+    from repro_torch.training.compression import compressed_psum
+    from repro_torch.utils import global_norm, tree_cast, tree_leaves, tree_map
+
+    shape = ShapeSpec("train", LIFE_SEQ, LIFE_BATCH, "train")
+    over = {"total_steps": CP_TRAIN_STEPS, "fused_value_grad": True}
+    runs, launched = {}, collections.Counter()
+    for ms in ((1, 1), *CP_TRAIN_MESHES):
+        mesh = cp_mesh(ms, ("data", "model"))
+        step, init_state, _, _ = build_train_step(cfg, shape, mesh,
+                                                  RunPlan(), over)
+        torch.cuda.synchronize()
+        reset_launches()
+        state, hist, step_s = run_steps(
+            lambda st, b: step(st, b), init_state(params), CP_TRAIN_STEPS,
+            LIFE_BATCH, LIFE_SEQ, cfg.vocab_size)
+        del state
+        la = dict(LAUNCHES)
+        dp = mesh.axes_size(dp_axes(mesh))
+        n = cfg.n_layers * CP_TRAIN_STEPS * dp
+        expect_only(la, {"flow_fused": 2 * n, "flow_fused_bwd": n},
+                    f"sharded training {ms}")
+        launched.update(la)
+        runs[str(ms)] = {"losses": hist, "step_ms": [1e3 * t for t in step_s]}
+        torch.cuda.empty_cache()
+    base = runs["(1, 1)"]["losses"]
+    for key, run in runs.items():
+        rel = max(abs(a - b) / abs(b) for a, b in zip(run["losses"], base))
+        run["loss_rel_vs_1x1"] = rel
+        if not rel <= CP_TRAIN_LOSS_RTOL:
+            raise AssertionError(f"sharded training {key}: losses "
+                                 f"{run['losses']} vs (1, 1) {base}")
+    # the gradient norms of one step from the same state: (1, 1) against
+    # each mesh
+    from repro_torch.data.loader import lm_loader
+
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in next(lm_loader(
+        SEED, batch=LIFE_BATCH, seq=LIFE_SEQ, vocab=cfg.vocab_size)).items()}
+    gnorms = {}
+    for ms in ((1, 1), *CP_TRAIN_MESHES):
+        step, init_state, _, _ = build_train_step(
+            cfg, shape, cp_mesh(ms, ("data", "model")), RunPlan(), over)
+        reset_launches()
+        _, m = step(init_state(params), batch)
+        gnorms[str(ms)] = float(m["grad_norm"])
+        launched.update(dict(LAUNCHES))
+        torch.cuda.empty_cache()
+    g0 = gnorms["(1, 1)"]
+    for key, gn in gnorms.items():
+        runs[key]["grad_norm"] = gn
+        if not abs(gn - g0) <= CP_TRAIN_GNORM_RTOL * g0:
+            raise AssertionError(f"sharded training {key}: grad norm {gn} "
+                                 f"vs (1, 1) {g0}")
+    # compressed_psum on 4 positions' full-width gradients
+    loss = functools.partial(lm.loss_fn, cfg=cfg, dtype=torch.bfloat16,
+                             plan=executor_of(cfg, plan_of(cfg,
+                                                           needs_grad=True)))
+    compute = tree_cast(params, torch.bfloat16)
+    leaves = tree_leaves(compute)
+    grads = []
+    reset_launches()
+    for i in range(4):
+        rows = slice(i * LIFE_BATCH // 4, (i + 1) * LIFE_BATCH // 4)
+        ps = [x.detach().requires_grad_(True) for x in leaves]
+        it = iter(ps)
+        tree = tree_map(lambda _: next(it), compute)
+        value, _ = loss(tree, {k: v[rows] for k, v in batch.items()})
+        grads.append([gr.float() for gr in torch.autograd.grad(value, ps)])
+    launched.update(dict(LAUNCHES))
+    mesh = cp_mesh((4, 1), ("data", "model"))
+    zeros = [[torch.zeros_like(x) for x in grads[0]] for _ in range(4)]
+    means, resid = compressed_psum(grads, zeros, mesh, "data")
+    exact = [((grads[0][j] + grads[1][j]) + grads[2][j] + grads[3][j]) / 4
+             for j in range(len(grads[0]))]
+    # each position's rounding is at most half the shared step pmax|g| /
+    # 127 of its leaf, so their mean's is too; 1e-3 of it for the fp32
+    # roundings of the exact mean and of the dequantized payloads (a few
+    # ulp of pmax|g|, 254 half-steps)
+    errs = [float((a - b).abs().max()) for a, b in zip(means[0], exact)]
+    steps_ = [max(float(g[j].abs().max()) for g in grads) / 127
+              for j in range(len(exact))]
+    worst = max(e / (s / 2) if s else (0.0 if e == 0 else math.inf)
+                for e, s in zip(errs, steps_))
+    ms_call = wall_ms(lambda: compressed_psum(grads, zeros, mesh, "data"))
+    comp = {"max_err_vs_exact_mean": max(errs),
+            "max_abs_exact_mean": max(float(b.abs().max()) for b in exact),
+            "worst_err_of_half_step": worst,
+            "residual_norm": [float(global_norm(r)) for r in resid],
+            "grad_norm": [float(global_norm(gr)) for gr in grads],
+            "ms_per_call": ms_call, "leaves": len(exact),
+            "values": sum(x.numel() for x in exact)}
+    if not worst <= 1 + 1e-3:
+        raise AssertionError(f"compressed_psum: {comp}")
+    del grads, zeros, means, resid, exact
+    torch.cuda.empty_cache()
+    stats = {"runs": runs, "compressed_psum": comp,
+             "launches": dict(launched)}
+    print("[cp train] " + json.dumps(stats), flush=True)
+    return stats
+
+
+def cp_elastic_remesh(cfg, params, root: Path) -> dict:
+    """Phase 36d: ``train(mesh=make_mesh((2, 1)))`` for 3 steps of phase
+    7's shape, checkpointed; ``ElasticTrainer.recover(1)`` re-plans onto
+    (1, 1), builds its mesh and restores that checkpoint bitwise; one more
+    step from the restored state equals one step from the run's own final
+    state bit for bit."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data.loader import lm_loader
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.train import build_train, train
+    from repro_torch.runtime import ElasticTrainer, MeshPlan
+    from repro_torch.training.train_state import gather_state, place_state
+
+    kw = dict(batch=LIFE_BATCH, seq=LIFE_SEQ, seed=SEED, device=DEVICE,
+              params=params)
+    torch.cuda.synchronize()
+    reset_launches()
+    run = train(cfg, steps=3, ckpt_dir=str(root / "cp"), ckpt_every=3,
+                mesh=cp_mesh((2, 1), ("data", "model")), **kw)
+    trainer = ElasticTrainer(
+        lambda plan: build_train(cfg, steps=4, mesh=trainer.mesh, **kw),
+        CheckpointManager(root / "cp"),
+        devices=None if DEVICE == "cuda" else [DEVICE])
+    plan, step_fn, state, step = trainer.recover(n_healthy=1)
+    if plan != MeshPlan((1, 1), ("data", "model")) or step != 3:
+        raise AssertionError(f"recover(1) planned {plan} at step {step}")
+    leaves = states_bitwise("the restored state", gather_state(state, cfg),
+                            run["state"])
+    b = {k: torch.from_numpy(v).to(DEVICE) for k, v in next(lm_loader(
+        SEED, batch=LIFE_BATCH, seq=LIFE_SEQ, vocab=cfg.vocab_size,
+        start_step=step)).items()}
+    resumed, m1 = step_fn(state, b)
+    direct, m2 = step_fn(place_state(run["state"], trainer.mesh, cfg), b)
+    states_bitwise("one step after recover(1) against one from the run's "
+                   "own state", gather_state(resumed, cfg),
+                   gather_state(direct, cfg))
+    if float(m1["loss"]) != float(m2["loss"]):
+        raise AssertionError(f"losses {float(m1['loss'])} != "
+                             f"{float(m2['loss'])}")
+    launches = dict(LAUNCHES)
+    n = cfg.n_layers * (3 * 2 + 2)
+    expect_only(launches, {"flow_fused": 2 * n, "flow_fused_bwd": n},
+                "elastic re-mesh")
+    shutil.rmtree(root / "cp")
+    stats = {"losses_2x1": run["history"], "plan": list(plan.shape),
+             "restored_step": step, "leaves_equal": leaves,
+             "step4_loss": float(m1["loss"]), "launches": launches}
+    print("[cp elastic] " + json.dumps(stats), flush=True)
+    return stats
 
 
 def expect_launches(launches: dict, k6: int, k7b: int, what: str):
@@ -6554,9 +7021,14 @@ def main() -> int:
         adafactor_fp32_both_paths(cfg)
         kinds = train_attn_kinds_full_width(cfg, params)
         resumed = elastic_resume(cfg, params, root)
+        mark("flowformer_lm training lifecycle")
+        distributed = [check_context_parallel(),
+                       cp_prefill_full_width(cfg, params),
+                       cp_train_full_width(cfg, params),
+                       cp_elastic_remesh(cfg, params, root)]
     del params
     torch.cuda.empty_cache()
-    mark("flowformer_lm training lifecycle")
+    mark("distribution and context parallelism")
     lra = get_config("flowformer_lra")
     classified = train_classifier_full_width(lra)
     profile_classifier(lra, classified["step_ms"])
@@ -6630,7 +7102,7 @@ def main() -> int:
         dt, *(table7[kind] for kind in ("flow", "linear", "softmax")),
         heard, taught, granite, deepseek, qwen, granite_moe, rg_flow,
         rg_soft, rg_int8, served_q, *fleet, restarted, factored, kinds,
-        resumed))
+        resumed, *distributed))
         for name in stats["launches"]}
     torch.cuda.empty_cache()
     rows = (time_kernels(launches, errs) + time_paged_kernels(launches, errs)

@@ -22,6 +22,12 @@ each backend's verdict and reason.  ``ExecutionPlan(needs_grad=True)``
 op: on a GPU a strict-causal forward then runs K1 and its backward K2,
 a paper-causal one K5a and its backward K5a and K5b, a non-causal one K6
 and its backward K7b.
+
+A plan with ``shard=ShardSpec(axis=..., mesh=...)`` (a
+``distribution.mesh.Mesh``) splits the sequence over that mesh axis and
+resolves to the context-parallel glue (``cp_nc``, ``cp_causal``;
+``attention/cp.py``), which runs every position from this one process;
+``cp_causal``'s shard-local causal dot is K5a on a GPU.
 """
 from repro_torch.attention.plan import (
     BoundExecutor,
@@ -36,6 +42,7 @@ from repro_torch.attention.registry import (
     Backend,
     ResolutionError,
     ShapeInfo,
+    ShardSpec,
     register_backend,
 )
 from repro_torch.attention import backends as _backends  # registers the builtins
@@ -50,6 +57,7 @@ __all__ = [
     "PlanExplanation",
     "ResolutionError",
     "ShapeInfo",
+    "ShardSpec",
     "explain",
     "init_state",
     "register_backend",

@@ -3,7 +3,12 @@
 Registration order is the ``backend="auto"`` preference order:
 
     cuda_nc > nc > cuda_fused > cuda_chunk > fused_causal > chunked
-    > cumsum > cuda_decode > recurrent
+    > cumsum > cuda_decode > recurrent > cp_nc > cp_causal
+
+(the ``cp_*`` context-parallel glue of ``attention/cp.py`` is
+``shard_only``: a candidate only for a plan with a ``ShardSpec``, where
+every single-device backend is rejected with a "no collective glue"
+reason, so its place in the order never touches an unsharded plan.)
 
 ``cuda_nc``, ``cuda_fused``, ``cuda_chunk`` and ``cuda_decode`` are the
 hand-written CUDA kernels (``kernels/flow_nc``, ``kernels/flow_fused``,
@@ -357,6 +362,12 @@ class Cumsum(_ChunkedVerifyQuant, Backend):
     def _dot(self, cfg):
         return _cumsum_dot
 
+    def causal_dot_fn(self, cfg):
+        """The grouped causal aggregation dot: also the shard-local inner
+        strategy that the context-parallel glue (``attention/cp.py``)
+        wraps (``cumsum``, ``chunked`` and ``cuda_chunk``: K5a)."""
+        return self._dot(cfg)
+
     def forward(self, q, k, v, cfg):
         return pipeline.causal_forward(q, k, v, cfg, self._dot(cfg))
 
@@ -503,3 +514,11 @@ register_backend("chunked", Chunked())
 register_backend("cumsum", Cumsum())
 register_backend("cuda_decode", CudaDecode())
 register_backend("recurrent", Recurrent())
+
+# context-parallel collective glue (attention/cp.py): candidates only for
+# sharded plans, rejected everywhere else (shard_only)
+from repro_torch.attention.cp import (ContextParallelCausal,  # noqa: E402
+                                      ContextParallelNC)
+
+register_backend("cp_nc", ContextParallelNC())
+register_backend("cp_causal", ContextParallelCausal())

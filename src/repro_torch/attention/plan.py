@@ -7,9 +7,13 @@ KV caches live in a page pool), ``needs_grad`` (a training step will
 differentiate through every op, so only differentiable backends apply),
 ``speculate_k`` (drafted tokens a speculative verify window scores: mixer
 resolution demands ``verify_capable`` and the registry triages the
-``verify`` op) and ``state_dtype`` (the serving state pools' dtype: int8
+``verify`` op), ``state_dtype`` (the serving state pools' dtype: int8
 or fp8 pools make ``decode`` and ``verify`` resolve only to backends that
-are ``quant_capable``).
+are ``quant_capable``) and ``shard`` (a ``ShardSpec``: the mesh and the
+axis the sequence is split over, so forward, prefill and packed prefill
+resolve to the context-parallel glue of ``attention/cp.py``; decode and
+verify drop it, as in the reference: one position or a drafted handful
+has no sequence axis left to shard).
 The platform is the device of the tensors each op is given.
 ``resolve(plan)`` returns a ``BoundExecutor`` whose ops resolve through
 the registry once per call signature (op, shapes, device) and reuse that
@@ -22,7 +26,7 @@ import dataclasses
 from typing import Any
 
 from repro_torch.attention import registry
-from repro_torch.attention.registry import Backend, ShapeInfo
+from repro_torch.attention.registry import Backend, ShapeInfo, ShardSpec
 from repro_torch.core.flow_attention import FlowConfig
 from repro_torch.serving.quant import QUANT_DTYPES, STATE_DTYPES
 
@@ -39,6 +43,13 @@ def _quant_of(plan, op: str) -> str | None:
     """
     sd = plan.state_dtype
     return sd if (sd in QUANT_DTYPES and op in ("decode", "verify")) else None
+
+
+def _shard_of(plan, op: str) -> ShardSpec | None:
+    """The plan's ``ShardSpec`` for ``op``: decode consumes one position
+    and verify a drafted handful, so both drop it (the state is
+    batch-led)."""
+    return None if op in ("decode", "verify") else plan.shard
 
 
 def _op_cfg(cfg: FlowConfig, op: str) -> FlowConfig:
@@ -67,6 +78,9 @@ class ExecutionPlan:
     #: pool in a ``serving.quant.QuantizedPool`` and make decode resolution
     #: demand ``quant_capable`` from backends and mixers
     state_dtype: str | None = None
+    #: context parallelism: the mesh and the axis the sequence is split
+    #: over; resolution then binds the ``cp_*`` glue
+    shard: ShardSpec | None = None
 
     def __post_init__(self):
         if self.state_dtype is not None and \
@@ -77,6 +91,8 @@ class ExecutionPlan:
     def describe(self) -> str:
         """One-line summary of the plan's non-default fields."""
         bits = [f"backend={self.flow.backend!r}" if self.flow else "flow=?"]
+        if self.shard is not None:
+            bits.append(f"shard[{self.shard.describe()}]")
         if self.packed:
             bits.append("packed")
         if self.paged is not None:
@@ -111,7 +127,8 @@ class BoundExecutor:
         """Resolve and return the backend the plan binds for ``op``."""
         return registry.resolve(self._cfgs[op], shapes, platform, op=op,
                                 needs_grad=self.plan.needs_grad,
-                                quant=_quant_of(self.plan, op))
+                                quant=_quant_of(self.plan, op),
+                                shard=_shard_of(self.plan, op))
 
     def _bind(self, op, q, k, v):
         key = (op, q.shape, k.shape, v.shape, q.device.type,
@@ -125,6 +142,8 @@ class BoundExecutor:
     def forward(self, q, k, v):
         """Full-sequence Flow-Attention: (B,Hq,N,D) -> (B,Hq,N,Dv)."""
         be, cfg = self._bind("forward", q, k, v)
+        if self.plan.shard is not None:
+            return be.forward(q, k, v, cfg, shard=self.plan.shard)
         return be.forward(q, k, v, cfg)
 
     def prefill(self, q, k, v, *, lengths=None):
@@ -135,6 +154,9 @@ class BoundExecutor:
         """
         op = "prefill" if lengths is None else "prefill_packed"
         be, cfg = self._bind(op, q, k, v)
+        if self.plan.shard is not None:
+            return be.prefill(q, k, v, cfg, lengths=lengths,
+                              shard=self.plan.shard)
         return be.prefill(q, k, v, cfg, lengths=lengths)
 
     def decode_step(self, state, q, k, v):
@@ -184,6 +206,10 @@ class PlanExplanation:
     def __str__(self) -> str:
         """Render the triage: plan header, then per-op OK/no rows."""
         lines = [f"{self.plan.describe()} on {self.platform!r}"]
+        if self.plan.shard is not None:
+            lines.append(f"  sharded over {self.plan.shard.describe()}")
+        elif self.plan.flow is not None:
+            lines.append("  unsharded (no ShardSpec)")
         for op, rows in self.sections:
             lines.append(f" op={op!r}:")
             lines.extend(f"  {'OK ' if ok else 'no '} {name}: {why}"
@@ -209,6 +235,7 @@ def explain_plan(plan: ExecutionPlan, shapes: ShapeInfo, *, platform: str,
         (one, tuple(registry.explain(_op_cfg(plan.flow, one), shapes,
                                      platform, op=one,
                                      needs_grad=plan.needs_grad,
-                                     quant=_quant_of(plan, one))))
+                                     quant=_quant_of(plan, one),
+                                     shard=_shard_of(plan, one))))
         for one in ops)
     return PlanExplanation(plan=plan, platform=platform, sections=sections)

@@ -24,6 +24,16 @@ decoding: score a drafted window from a ``FlowState`` and return every
 position's boundary state) asks each backend's ``verify_support``, so a
 backend without it is rejected with its own reason.
 
+Shard capability works the same way.  A ``ShardSpec`` (a mesh and the
+mesh axis the sequence is split over) in the request asks for
+context-parallel execution, and backends self-report whether they carry
+the collective glue for it in ``Backend.shardable`` / ``shard_support``.
+Single-device strategies leave ``shardable`` empty and are rejected for a
+sharded plan with a "no collective glue" reason; the context-parallel
+backends (``cp_nc``, ``cp_causal`` in ``attention/cp.py``) declare it and
+are rejected for an unsharded one (``shard_only``).  The port's mesh is
+``distribution.mesh.Mesh``, run from one process (``attention/cp.py``).
+
 A failed resolution raises ``ResolutionError`` carrying every candidate's
 rejection reason in the message and as structured ``.rejections``.
 """
@@ -34,6 +44,40 @@ import dataclasses
 import torch
 
 from repro_torch.core.flow_attention import FlowConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardSpec:
+    """How the sequence axis is sharded over a mesh.
+
+    ``axis`` names the mesh axis the (B, H, N, D) sequence dimension is
+    split over; ``batch_axis`` optionally names the axis (or axis tuple)
+    the batch is split over (replicated when None).  ``inner`` selects the
+    shard-local strategy a context-parallel backend wraps in collective
+    glue: ``"auto"`` resolves it over the registry at the shard-local
+    shapes as an unsharded plan would, so on a GPU the shard-local causal
+    dot is the K5a kernel (``cuda_chunk``).
+    """
+
+    axis: str = "model"
+    mesh: object | None = None  # distribution.mesh.Mesh (hashed by identity)
+    batch_axis: object = None  # mesh axis name or tuple of names
+    inner: str = "auto"
+
+    @property
+    def axis_size(self) -> int | None:
+        """Positions along the sharded axis (None without a mesh)."""
+        if self.mesh is None:
+            return None
+        return int(self.mesh.shape[self.axis])
+
+    def describe(self) -> str:
+        """One-line summary: axis name, way-ness, batch axis, inner pick."""
+        size = self.axis_size
+        return (f"axis {self.axis!r}" + (f" ({size}-way)" if size else "")
+                + (f", batch over {self.batch_axis!r}" if self.batch_axis
+                   else "")
+                + (f", inner={self.inner!r}" if self.inner != "auto" else ""))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,6 +118,13 @@ class Backend:
     #: Forward-only kernels leave it empty; ``resolve(..., needs_grad=True)``
     #: skips them.
     differentiable: frozenset = frozenset()
+    #: subset of ``provides`` that runs with the sequence axis sharded over
+    #: a mesh (``ShardSpec``): the backend carries the collective glue.
+    #: Single-device strategies leave it empty.
+    shardable: frozenset = frozenset()
+    #: True for backends that only run sharded (context-parallel glue):
+    #: unsharded resolution skips them
+    shard_only: bool = False
 
     def supports(self, cfg: FlowConfig, shapes: ShapeInfo, platform: str,
                  *, op: str = "forward"):
@@ -88,6 +139,20 @@ class Backend:
             return True, f"differentiable {op}"
         return False, (f"no backward for {op} (forward-only; differentiable "
                        f"ops: {sorted(self.differentiable) or 'none'})")
+
+    def shard_support(self, op: str = "forward", shard: ShardSpec | None = None,
+                      *, cfg=None, shapes: ShapeInfo | None = None,
+                      platform: str | None = None):
+        """(ok, reason): can ``op`` run with the sequence axis sharded?
+        The default answer is the declarative ``shardable`` set; backends
+        with collective glue override it to also check the mesh axis,
+        divisibility and their shard-local inner strategy."""
+        if op in self.shardable:
+            return True, f"collective glue for sharded {op}"
+        return False, (
+            f"no collective glue for sharded {op} (single-device strategy"
+            + (f"; shardable ops: {sorted(self.shardable)}" if self.shardable
+               else "") + ")")
 
     def quant_capable(self, platform: str, dtype: str, op: str = "decode",
                       shapes=None):
@@ -145,6 +210,20 @@ _REGISTRY: dict[str, Backend] = {}
 _ORDER: list[str] = []
 
 
+def get_backend(name: str) -> Backend:
+    """A registered backend by name (ValueError when unknown)."""
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise ValueError(f"unknown backend {name!r}; registered: "
+                         f"{tuple(_ORDER)}") from None
+
+
+def list_backends() -> tuple:
+    """Registered backend names in auto-resolution order."""
+    return tuple(_ORDER)
+
+
 def register_backend(name: str, impl: Backend):
     """Register ``impl`` under ``name``, last in auto order."""
     if name in _REGISTRY:
@@ -156,8 +235,9 @@ def register_backend(name: str, impl: Backend):
 
 
 def _is_plain(name: str) -> bool:
-    """A plain PyTorch backend: one that launches no CUDA kernel."""
-    return not name.startswith("cuda_")
+    """A plain PyTorch backend: one that launches no CUDA kernel (the
+    context-parallel glue launches whatever its inner strategy does)."""
+    return not name.startswith(("cuda_", "cp_"))
 
 
 def pins_plain(cfg: FlowConfig) -> bool:
@@ -175,7 +255,8 @@ def _candidates(cfg: FlowConfig, op: str) -> list:
     if sel == "auto":
         return list(_ORDER)
     if sel == "plain":
-        return [n for n in _ORDER if _is_plain(n)]
+        # the glue stays a candidate: under "plain" its inner is plain too
+        return [n for n in _ORDER if _is_plain(n) or n.startswith("cp_")]
     if sel not in _REGISTRY:
         raise ValueError(f"unknown FlowConfig.backend {sel!r}; expected "
                          f"'auto', 'plain' or one of {tuple(_ORDER)}")
@@ -185,10 +266,12 @@ def _candidates(cfg: FlowConfig, op: str) -> list:
 
 
 def _judge(be: Backend, cfg: FlowConfig, shapes: ShapeInfo, platform: str,
-           op: str, needs_grad: bool, quant: str | None = None):
+           op: str, needs_grad: bool, quant: str | None = None,
+           shard: ShardSpec | None = None):
     """The one triage order of ``resolve`` and ``explain``: provides (a
     backend without ``verify`` answers with its ``verify_support`` reason)
-    -> gradients -> quantized-state capability -> supports."""
+    -> gradients -> shard capability -> quantized-state capability ->
+    supports."""
     if op not in be.provides:
         if op == "verify":
             return be.verify_support(op)
@@ -201,29 +284,46 @@ def _judge(be: Backend, cfg: FlowConfig, shapes: ShapeInfo, platform: str,
         ok, why = be.grad_support(op, shapes)
         if not ok:
             return False, why
+    shard_why = None
+    if shard is not None:
+        ok, why = be.shard_support(op, shard, cfg=cfg, shapes=shapes,
+                                   platform=platform)
+        if not ok:
+            return False, why
+        shard_why = why
+    elif be.shard_only:
+        return False, ("context-parallel glue requires a sharded "
+                       "ExecutionPlan (no ShardSpec in this resolution)")
     if quant is not None:
         ok, why = be.quant_capable(platform, quant, op=op, shapes=shapes)
         if not ok:
             return False, why
-    return be.supports(cfg, shapes, platform, op=op)
+    ok, why = be.supports(cfg, shapes, platform, op=op)
+    if ok and shard_why:
+        why = f"{why}; {shard_why}"
+    return ok, why
 
 
 def resolve(cfg: FlowConfig, shapes: ShapeInfo, platform: str, *,
             op: str = "forward", needs_grad: bool = False,
-            quant: str | None = None) -> Backend:
+            quant: str | None = None,
+            shard: ShardSpec | None = None) -> Backend:
     """Deterministically pick the backend that runs ``op``; with
     ``needs_grad`` only a backend that differentiates ``op``, with
-    ``quant`` only one that serves a ``quant`` state pool."""
+    ``quant`` only one that serves a ``quant`` state pool, with ``shard``
+    only one whose ``shard_support`` accepts the spec (the
+    context-parallel glue)."""
     rejections = []
     for name in _candidates(cfg, op):
         ok, why = _judge(_REGISTRY[name], cfg, shapes, platform, op,
-                         needs_grad, quant)
+                         needs_grad, quant, shard)
         if ok:
             return _REGISTRY[name]
         rejections.append((name, why))
     raise ResolutionError(
         f"no applicable Flow-Attention backend for op={op!r}"
         + (" with gradients" if needs_grad else "")
+        + (f" sharded over {shard.describe()}" if shard is not None else "")
         + (f" with {quant} state pools" if quant is not None else "")
         + f" on platform={platform!r} with {shapes}:\n  "
         + "\n  ".join(f"{n}: {w}" for n, w in rejections), rejections)
@@ -231,9 +331,12 @@ def resolve(cfg: FlowConfig, shapes: ShapeInfo, platform: str, *,
 
 def explain(cfg: FlowConfig, shapes: ShapeInfo, platform: str, *,
             op: str = "forward", needs_grad: bool = False,
-            quant: str | None = None) -> list:
-    """``[(name, applicable, reason)]`` for every registered backend."""
+            quant: str | None = None,
+            shard: ShardSpec | None = None) -> list:
+    """``[(name, applicable, reason)]`` for every registered backend; with
+    ``shard`` the reasons include each backend's ``shard_support``
+    verdict."""
     _candidates(cfg, op)  # rejects an unknown backend name
     return [(name, *_judge(_REGISTRY[name], cfg, shapes, platform, op,
-                           needs_grad, quant))
+                           needs_grad, quant, shard))
             for name in _ORDER]

@@ -20,7 +20,10 @@ bits (uint16) and listed under ``bf16``; a Python int (the port's step
 counters) as a 0-d int32 array.  So either package's manager restores a
 directory the other wrote.  ``restore`` puts each leaf on the device of
 the ``like`` leaf it replaces, and gives a Python int back where
-``like`` holds one.
+``like`` holds one.  A ``Placed`` leaf (``distribution.sharding``: a
+tensor split over a mesh) is saved whole and restored onto the ``like``
+leaf's placement, as the reference restores onto the ``like`` leaf's
+sharding.
 
 An async save copies the tree to the host before its writer thread
 starts, so the caller may go on with the tensors; a writer's exception is
@@ -38,6 +41,8 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from repro_torch.distribution.sharding import Placed, gather, place
 
 
 def _leaf_paths(tree: Any, prefix: str = "") -> list[tuple[str, Any]]:
@@ -61,6 +66,8 @@ def _leaf_paths(tree: Any, prefix: str = "") -> list[tuple[str, Any]]:
 
 def _to_host(leaf) -> tuple[np.ndarray, bool]:
     """(numpy copy of ``leaf``, whether it is bf16 bits)."""
+    if isinstance(leaf, Placed):
+        leaf = gather(leaf)
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
@@ -72,8 +79,11 @@ def _to_host(leaf) -> tuple[np.ndarray, bool]:
 
 
 def _from_host(arr: np.ndarray, bf16: bool, like):
-    """``arr`` as the kind of leaf ``like`` is: a tensor on its device, a
-    Python int, or the array itself."""
+    """``arr`` as the kind of leaf ``like`` is: a tensor on its device (or
+    placed as it is), a Python int, or the array itself."""
+    if isinstance(like, Placed):
+        whole = _from_host(arr, bf16, like.pieces[0])
+        return place(whole, like.spec, like.mesh)
     if isinstance(like, torch.Tensor):
         t = torch.from_numpy(arr.view(np.int16) if bf16 else arr)
         return (t.view(torch.bfloat16) if bf16 else t).to(like.device)

@@ -1,4 +1,4 @@
-"""Train the LM on one GPU: the counterpart of ``repro/launch/train.py``.
+"""Train the LM: the counterpart of ``repro/launch/train.py``.
 
     python -m repro_torch.launch.train --arch flowformer-lm --steps 200 \\
         --batch 16 --seq 512 --ckpt-dir runs/lm --ckpt-every 50
@@ -7,7 +7,11 @@
 
 Random weights from ``--seed`` (or given ``params``), batches from
 ``data.loader.lm_loader(seed)``, AdamW on fp32 master parameters with a
-warmup-cosine schedule, bf16 compute.  The attention backend is resolved
+warmup-cosine schedule, bf16 compute, over ``mesh`` (default a (1, 1)
+("data", "model") mesh on ``device``) through ``launch.steps.
+build_train_step``: a (2, 1) mesh runs two data-parallel positions in
+turn on the same card and averages their gradients
+(``training.train_state.shard_train_step``).  The attention backend is resolved
 once, for gradients: on a GPU every attention forward runs kernel K1 and
 every attention backward kernel K2; in the paper-faithful causal mode
 (``attention.strict_causal=False``) and without competition, every
@@ -21,13 +25,15 @@ Crash-restart: with ``--ckpt-dir`` the state (parameters, optimizer,
 step) is saved every ``--ckpt-every`` steps by an async writer and once
 more at the end, and rerunning the same command resumes from the last
 committed checkpoint, the loader replaying from the next batch
-(``checkpoint/manager.py``).  Device meshes are not ported: one device.
+(``checkpoint/manager.py``).  The state stays as ZeRO-1 pieces over the
+mesh from step to step; a checkpoint holds its leaves whole, in the
+reference's stacked layout, so a run restores onto another mesh; the
+state ``train`` returns is gathered whole, in the port's layout.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
-import functools
 import time
 
 import torch
@@ -36,37 +42,45 @@ from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.config import ModelConfig, ShapeSpec
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data.loader import lm_loader
-from repro_torch.launch.steps import check_flow_trainable, microbatch_for
-from repro_torch.layers.attention import executor_of, plan_of
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.steps import (RunPlan, build_train_step,
+                                      check_flow_trainable)
+from repro_torch.layers.attention import plan_of
 from repro_torch.models import lm
 from repro_torch.runtime.elastic import StepMonitor
-from repro_torch.training.optimizer import decay_mask
-from repro_torch.training.train_state import (TrainConfig, init_train_state,
-                                              make_train_step)
+from repro_torch.training.train_state import gather_state
 from repro_torch.utils import resolve_device, tree_leaves, tree_map
 
 
 def build_train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
                 seed: int = 0, peak_lr: float = 3e-4, device="cuda",
-                dtype=torch.bfloat16, params: dict | None = None):
+                dtype=torch.bfloat16, params: dict | None = None,
+                mesh=None):
     """``train``'s step function and fresh ``TrainState`` for a run of
     ``steps`` steps of ``batch`` x ``seq`` tokens (the warmup-cosine
-    schedule spans ``steps``): the template that a restore fills, as
-    ``runtime.elastic.ElasticTrainer``'s ``build`` returns it."""
+    schedule spans ``steps``) over ``mesh`` (default (1, 1) on
+    ``device``): the template that a restore fills, as
+    ``runtime.elastic.ElasticTrainer``'s ``build`` returns it.  The step
+    is ``build_train_step``'s on every mesh, and it takes and returns the
+    placed state (ZeRO-1 pieces; ``training.train_state.gather_state(
+    state, cfg)`` gives it whole)."""
     dev = resolve_device(device)
+    mesh = mesh or make_mesh((1, 1), ("data", "model"), devices=[dev])
+    dev = mesh.devices.flat[0]
     shape = ShapeSpec("custom", seq, batch, "train")
-    tcfg = TrainConfig(microbatch=microbatch_for(cfg, shape),
-                       total_steps=steps, warmup=max(5, steps // 10),
-                       peak_lr=peak_lr, fused_value_grad=True,
-                       compute_dtype=dtype)
+    plan = RunPlan.choose(cfg, shape, mesh)
+    overrides = {"total_steps": steps, "warmup": max(5, steps // 10),
+                 "peak_lr": peak_lr, "fused_value_grad": True,
+                 "compute_dtype": dtype}
     xplan = plan_of(cfg, needs_grad=True)
     be = check_flow_trainable(cfg, shape, dev.type, xplan)
     if params is None:
         params = lm.init(cfg, torch.Generator().manual_seed(seed), device=dev)
     params = tree_map(lambda x: x.detach().to(dev, torch.float32), params)
     n_params = sum(x.numel() for x in tree_leaves(params))
-    print(f"[train] {cfg.name}: {n_params:,} params on {dev}, "
-          f"{str(dtype)[6:]} compute, microbatch={tcfg.microbatch}")
+    print(f"[train] {cfg.name}: {n_params:,} params on {mesh}, "
+          f"{str(dtype)[6:]} compute, microbatch={plan.microbatch}, "
+          f"params {plan.param_mode}")
     kinds = sorted({cfg.block_kind(i) for i in range(cfg.n_layers)})
     if be is not None:
         route = be.name
@@ -76,30 +90,37 @@ def build_train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
         route = f"no attention backend (mixers: {', '.join(kinds)})"
     print(f"[train] attention {xplan.describe()} -> {route}")
 
-    loss = functools.partial(lm.loss_fn, cfg=cfg, dtype=dtype,
-                             plan=executor_of(cfg, xplan))
-    return (make_train_step(loss, tcfg, decay=decay_mask(params, cfg)),
-            init_train_state(params, tcfg))
+    step, init_state, _, _ = build_train_step(cfg, shape, mesh, plan,
+                                              overrides)
+    return step, init_state(params)
 
 
 def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
-          ckpt_dir: str | None = None, ckpt_every: int = 50, seed: int = 0,
-          peak_lr: float = 3e-4, device="cuda", dtype=torch.bfloat16,
-          params: dict | None = None, log_every: int = 10) -> dict:
+          ckpt_dir: str | None = None, ckpt_every: int = 50, mesh=None,
+          seed: int = 0, peak_lr: float = 3e-4, device="cuda",
+          dtype=torch.bfloat16, params: dict | None = None,
+          log_every: int = 10) -> dict:
     """Train up to step ``steps`` with batches of ``batch`` x ``seq``
     tokens, resuming from the latest checkpoint under ``ckpt_dir`` if it
     holds one.
 
-    ``params`` (fp32, any device) replaces the random init from ``seed``.
+    ``mesh`` (a ``distribution.mesh.Mesh``; default (1, 1) ("data",
+    "model") on ``device``) is the mesh the step runs over, its batches
+    moved to the mesh's first device.  ``params`` (fp32, any device)
+    replaces the random init from ``seed``.
+    The state stays placed across the steps and is checkpointed placed.
     Returns {"history": the losses of the steps run here, "final_loss",
-    "wall_s", "step_s": their wall seconds, "state": the final TrainState,
+    "wall_s", "step_s": their wall seconds, "state": the final TrainState
+    (whole, the port's layout),
     "start_step", "ckpt": {"restore_s", "async_save_s": the seconds each
     async save held the loop, "save_s": the last, synchronous save's}}.
     """
     dev = resolve_device(device)
+    mesh = mesh or make_mesh((1, 1), ("data", "model"), devices=[dev])
+    dev = mesh.devices.flat[0]
     step_fn, state = build_train(cfg, steps=steps, batch=batch, seq=seq,
                                  seed=seed, peak_lr=peak_lr, device=dev,
-                                 dtype=dtype, params=params)
+                                 dtype=dtype, params=params, mesh=mesh)
     start_step, mgr = 0, None
     ckpt = {"restore_s": None, "async_save_s": [], "save_s": None}
     if ckpt_dir:
@@ -139,14 +160,15 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
         ckpt["save_s"] = time.perf_counter() - t0
     return {"history": history, "final_loss": history[-1] if history else None,
             "wall_s": time.perf_counter() - t_start, "step_s": step_s,
-            "state": state, "start_step": start_step, "ckpt": ckpt}
+            "state": gather_state(state, cfg), "start_step": start_step,
+            "ckpt": ckpt}
 
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(
-        description="Train the LM on one GPU (random weights, synthetic "
-        "zipf_text batches), resuming from --ckpt-dir's last checkpoint.  "
-        "Device meshes are not ported yet.")
+        description="Train the LM (random weights, synthetic zipf_text "
+        "batches) on a (1, 1) mesh, resuming from --ckpt-dir's last "
+        "checkpoint.")
     ap.add_argument("--arch", default="flowformer-lm")
     ap.add_argument("--smoke", action="store_true", help="reduced config")
     ap.add_argument("--steps", type=int, default=100)

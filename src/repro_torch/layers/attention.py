@@ -82,7 +82,8 @@ import torch.nn.functional as F
 
 from repro_torch.attention import BoundExecutor, ExecutionPlan, init_state
 from repro_torch.attention.dots import causal_dot_grouped
-from repro_torch.attention.registry import pins_plain
+from repro_torch.attention.registry import ShardSpec, pins_plain
+from repro_torch.distribution.act_sharding import constrain_heads
 from repro_torch.config import ModelConfig
 from repro_torch.core.flow_attention import FlowConfig, phi_map
 from repro_torch.kernels.gather import paged_gather, paged_gather_quant
@@ -155,17 +156,19 @@ def flow_cfg_of(cfg: ModelConfig, causal: bool) -> FlowConfig:
 
 def plan_of(cfg: ModelConfig, *, causal: bool = True, packed: bool = False,
             paged: PagedSpec | None = None, needs_grad: bool = False,
-            state_dtype: str | None = None) -> ExecutionPlan:
+            state_dtype: str | None = None,
+            shard: ShardSpec | None = None) -> ExecutionPlan:
     """Build the model-level ``ExecutionPlan`` once; ``flow`` comes from
     ``cfg.attention``; ``paged`` a ``PagedSpec`` for softmax KV caches
     (layers that cannot page serve unpaged); ``needs_grad`` for a
     training step; ``state_dtype`` the serving state pools' dtype (None,
     "bf16" and "fp32" keep the fp32 FlowState and set the KV caches'
-    dtype, "int8" and "fp8" quantize every pool).  The plan's
-    ``speculate_k`` is the serving ``Engine``'s to set."""
+    dtype, "int8" and "fp8" quantize every pool); ``shard`` a
+    ``ShardSpec`` for sequence-parallel execution (the ``cp_*`` glue).
+    The plan's ``speculate_k`` is the serving ``Engine``'s to set."""
     return ExecutionPlan(flow=flow_cfg_of(cfg, causal), packed=packed,
                          paged=paged, needs_grad=needs_grad,
-                         state_dtype=state_dtype)
+                         state_dtype=state_dtype, shard=shard)
 
 
 def executor_of(cfg: ModelConfig, plan: ExecutionPlan | None = None, *,
@@ -273,9 +276,9 @@ def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig, positions,
             raise ValueError("MLA cross-attention is used by no arch")
         return _project_qkv_mla(params, x, cfg, positions)
     src = x if kv_input is None else kv_input
-    q = _split_heads(dense(params["wq"], x), cfg.n_heads)
-    k = _split_heads(dense(params["wk"], src), cfg.kv_heads)
-    v = _split_heads(dense(params["wv"], src), cfg.kv_heads)
+    q = constrain_heads(_split_heads(dense(params["wq"], x), cfg.n_heads))
+    k = constrain_heads(_split_heads(dense(params["wk"], src), cfg.kv_heads))
+    v = constrain_heads(_split_heads(dense(params["wv"], src), cfg.kv_heads))
     if kv_input is None:
         q, k = _apply_positions(q, k, cfg, positions)
     return q, k, v

@@ -4,6 +4,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distribution.act_sharding import constrain_ffn_hidden
 from repro_torch.layers.linear import dense, dense_init
 
 ACTS = ("squared_relu", "swiglu", "gelu", "relu")
@@ -22,9 +23,9 @@ def ffn_init(gen: torch.Generator, d_model: int, d_ff: int, act: str) -> dict:
 
 
 def ffn(params: dict, x: torch.Tensor, act: str) -> torch.Tensor:
-    h = dense(params["w_in"], x)
+    h = constrain_ffn_hidden(dense(params["w_in"], x))
     if act == "swiglu":
-        h = F.silu(dense(params["w_gate"], x)) * h
+        h = F.silu(constrain_ffn_hidden(dense(params["w_gate"], x))) * h
     elif act == "squared_relu":
         h = torch.square(F.relu(h))
     elif act == "gelu":

@@ -42,6 +42,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
+from repro_torch.distribution.act_sharding import constrain_residual
 from repro_torch.layers.embeddings import embed, embedding_init, unembed
 from repro_torch.layers.ffn import ffn, ffn_init
 from repro_torch.layers.mixer import get_mixer, resolve_mixers
@@ -123,11 +124,12 @@ def _ffn_residual(bp, x, cfg: ModelConfig):
 
 def _block(mx, bp, x, cfg: ModelConfig, positions, plan):
     h = apply_norm(bp["norm1"], x, cfg.norm)
-    x = x + mx.forward(bp[mx.params_field], h, cfg, positions=positions,
-                       plan=plan)
+    x = constrain_residual(x + mx.forward(bp[mx.params_field], h, cfg,
+                                          positions=positions, plan=plan))
     x, aux = _ffn_residual(bp, x, cfg)
-    return x, (torch.zeros((), dtype=torch.float32, device=x.device)
-               if aux is None else aux)
+    return constrain_residual(x), (
+        torch.zeros((), dtype=torch.float32, device=x.device)
+        if aux is None else aux)
 
 
 def forward(params, inputs: torch.Tensor, cfg: ModelConfig, *,

@@ -6,8 +6,11 @@ largest (pod, data, model) factorization that the healthy devices hold,
 the model axis kept largest first; ``ElasticTrainer.recover`` rebuilds the
 step for that plan and restores the last committed checkpoint
 (``CheckpointManager.restore_latest``) into the template state that its
-``build`` returns.  On one GPU ``recover(1)`` plans (1, 1); the port
-shards nothing yet, so a plan's axes name no device mesh.
+``build`` returns.  The plan's mesh is ``ElasticTrainer.mesh``:
+``launch.mesh.make_mesh(plan.shape, plan.axes, devices)``, which ``build``
+reads (``launch.train.build_train(..., mesh=trainer.mesh)``).  On one GPU
+``recover(1)`` plans (1, 1), and a larger plan reuses the card for every
+position.
 
 ``StepMonitor`` keeps an EWMA of step wall time and flags a step slower
 than ``threshold`` times it (``launch/train.py`` times every step with
@@ -90,19 +93,33 @@ class ElasticTrainer:
     """The recovery loop's re-plan, rebuild and restore.
 
     ``build(mesh_plan) -> (step_fn, state)`` builds the train step and a
-    template state for a plan; ``recover(n_healthy)`` returns (plan,
-    step_fn, state, step): the latest checkpoint restored into the
-    template, or the template at step 0 where there is none.
+    template state for a plan (reading ``self.mesh``, the plan's mesh over
+    ``devices``); ``recover(n_healthy)`` returns (plan, step_fn, state,
+    step): the latest checkpoint restored into the template, or the
+    template at step 0 where there is none.
     """
 
-    def __init__(self, build: Callable, checkpoint_mgr, *, pod_size: int = 256):
+    def __init__(self, build: Callable, checkpoint_mgr, *, pod_size: int = 256,
+                 devices=None):
         self.build = build
         self.ckpt = checkpoint_mgr
         self.pod_size = pod_size
+        self.devices = devices
+        self.plan: MeshPlan | None = None
         self.rebuilds = 0
 
+    @property
+    def mesh(self):
+        """The mesh of the current plan over ``devices`` (every CUDA device
+        when None), built by ``launch.mesh.make_mesh``."""
+        from repro_torch.launch.mesh import make_mesh
+
+        if self.plan is None:
+            raise ValueError("no plan yet: call recover() first")
+        return make_mesh(self.plan.shape, self.plan.axes, self.devices)
+
     def recover(self, n_healthy: int):
-        plan = plan_mesh(n_healthy, pod_size=self.pod_size)
+        plan = self.plan = plan_mesh(n_healthy, pod_size=self.pod_size)
         step_fn, state_template = self.build(plan)
         restored = self.ckpt.restore_latest(state_template)
         self.rebuilds += 1

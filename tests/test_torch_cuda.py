@@ -1839,3 +1839,108 @@ def test_linear_training_resolves_to_k5a_and_k5b(gen):
         want = {k: 0 for k in KERNELS}
         want.update({k: v * cfg.n_layers * 2 for k, v in per_layer.items()})
         assert dict(LAUNCHES) == want, kind
+
+
+# --- distribution and context parallelism (one card, single controller) ------
+
+def test_cp_causal_resolves_k5a_on_cuda_and_names_it_where_none_applies(gen):
+    """On the card ``cp_causal``'s ``auto`` inner is ``cuda_chunk`` (K5a);
+    at a head width no kernel takes it raises naming K5a rather than run
+    a plain dot; a pinned plain inner runs."""
+    from repro_torch.attention import ExecutionPlan, ShapeInfo, ShardSpec
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh((4,), ("seq",))
+    assert {str(d) for d in mesh.devices.flat} == {"cuda:0"}
+    cfg = FlowConfig(causal=True, strict_causal=True, chunk_size=128)
+    plan = ExecutionPlan(flow=cfg, shard=ShardSpec(axis="seq", mesh=mesh))
+    q = torch.randn(2, 8, 1024, 64, generator=gen, device="cuda")
+    k, v = torch.randn(2, 2, 8, 1024, 64, generator=gen, device="cuda")
+    shapes = ShapeInfo.from_qkv(q, k, v)
+    rows = dict((n, w) for n, ok, w in attention.explain(
+        plan, shapes, platform="cuda", op="forward").sections[0][1])
+    assert "inner=cuda_chunk" in rows["cp_causal"]
+    reset_launches()
+    with torch.no_grad():
+        out = attention.resolve(plan).forward(q, k, v)
+        want = attention.resolve(ExecutionPlan(flow=cfg)).forward(q, k, v)
+    assert LAUNCHES["flow_chunk"] == 4
+    scale = float(want.abs().max())
+    torch.testing.assert_close(out, want, rtol=1e-4, atol=1e-4 + 1e-4 * scale)
+    odd = dataclasses.replace(shapes, d=16, dv=16)
+    with pytest.raises(attention.ResolutionError) as ei:
+        attention.resolve(plan).backend("forward", odd, "cuda")
+    why = dict(ei.value.rejections)["cp_causal"]
+    assert "K5a" in why and "cuda_chunk" in why
+    pinned = dataclasses.replace(plan, shard=ShardSpec(
+        axis="seq", mesh=mesh, inner="chunked"))
+    assert attention.resolve(pinned).backend("forward", odd,
+                                             "cuda").name == "cp_causal"
+
+
+@pytest.mark.parametrize("g,d,n", [(1, 64, 1024), (1, 64, 512),
+                                   (4, 128, 1024), (4, 128, 512)])
+def test_k5a_at_the_cp_shard_local_shapes(gen, g, d, n):
+    """K5a and K5b against their plain versions at phase 36's shard-local
+    shapes: flowformer_lm's (B 4 x 8 kv heads, G = 1, D = 64) and
+    granite_8b's (B 2 x 8 kv heads, G = 4, D = 128), local N 1,024 and
+    512."""
+    from repro_torch.kernels.flow_chunk import (flow_chunk_call,
+                                                flow_chunk_dkv_call,
+                                                flow_chunk_dkv_ref,
+                                                flow_chunk_ref)
+
+    bh = (4 if g == 1 else 2) * 8
+    pq = torch.sigmoid(torch.randn(bh, g, n, d, generator=gen, device="cuda"))
+    pk = torch.sigmoid(torch.randn(bh, n, d, generator=gen, device="cuda"))
+    pos = torch.arange(1, n + 1, device="cuda", dtype=torch.float32)
+    q = pq * (pos / torch.einsum("bgnd,bnd->bgn", pq, torch.cumsum(pk, 1))
+              )[..., None]
+    v = torch.randn(bh, n, d, generator=gen, device="cuda")
+    cot = torch.randn(bh, g, n, d, generator=gen, device="cuda")
+
+    def close(got, want):
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=1e-4,
+                                   atol=1e-4 + 1e-4 * scale)
+
+    with torch.no_grad():
+        close(flow_chunk_call(q.contiguous(), pk, v),
+              flow_chunk_ref(q, pk, v))
+        for a, b in zip(flow_chunk_dkv_call(q.contiguous(), pk, v, cot),
+                        flow_chunk_dkv_ref(q, pk, v, cot)):
+            close(a, b)
+
+
+def test_sharded_train_step_on_a_2x1_mesh_of_the_card(gen):
+    """One fp32 step of ``build_train_step`` on a (2, 1) mesh of cuda:0
+    against the (1, 1) step: the same loss, gradient norm and update,
+    and 2 K1 (the metrics pass and the gradient pass) and 1 K2 a layer
+    per data-parallel position."""
+    from repro_torch.config import ShapeSpec
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import RunPlan, build_train_step
+    from repro_torch.training.train_state import gather_state
+    from repro_torch.utils import tree_leaves
+
+    cfg = dataclasses.replace(get_smoke_config("flowformer_lm"), remat=False)
+    params = lm.init(cfg, torch.Generator().manual_seed(0), device="cuda")
+    batch = {k: torch.randint(0, cfg.vocab_size, (8, 64), generator=gen,
+                              device="cuda") for k in ("inputs", "targets")}
+    shape = ShapeSpec("t", 64, 8, "train")
+    outs = {}
+    for ms in ((1, 1), (2, 1)):
+        step, init_state, _, _ = build_train_step(
+            cfg, shape, make_mesh(ms, ("data", "model")), RunPlan(),
+            {"compute_dtype": torch.float32, "warmup": 0})
+        reset_launches()
+        new, m = step(init_state(params), batch)
+        outs[ms] = (float(m["loss"]), float(m["grad_norm"]),
+                    gather_state(new, cfg).master, dict(LAUNCHES))
+    (l1, g1, w1, la1), (l2, g2, w2, la2) = outs[(1, 1)], outs[(2, 1)]
+    assert abs(l2 - l1) <= 1e-5 * l1 and abs(g2 - g1) <= 1e-4 * g1
+    for a, b in zip(tree_leaves(w2), tree_leaves(w1)):
+        torch.testing.assert_close(a, b, rtol=0, atol=3e-5)
+    assert la1["flow_fused"] == 2 * cfg.n_layers
+    assert la2["flow_fused"] == 2 * la1["flow_fused"]
+    assert la2["flow_fused_bwd"] == 2 * la1["flow_fused_bwd"] > 0
