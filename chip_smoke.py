@@ -557,6 +557,7 @@ import ctypes
 import collections
 import dataclasses
 import functools
+import gc
 import hashlib
 import json
 import math
@@ -638,8 +639,8 @@ def build_kernels() -> float:
     secs = time.perf_counter() - t0
     for name, log in logs.items():
         usage = [ln.strip() for ln in log.splitlines() if "Used" in ln]
-        print(f"[build] {name}: {len(usage)} kernel variants; "
-              + (usage[0] if usage else "cached"), flush=True)
+        print(f"[build] {name}: {log.splitlines()[0]}, {len(usage)} kernel "
+              "variants; " + (usage[0] if usage else "cached"), flush=True)
         if name.startswith(("ssd_chunk", "flow_fused", "flow_nc",
                             "flow_chunk", "flow_decode", "paged_gather")):
             PTXAS[name] = ptxas_usage(log)
@@ -653,20 +654,21 @@ def build_kernels() -> float:
 
 def decode_occupancy(name: str) -> dict:
     """CTAs of K3 (``name`` flow_decode) or K4 (flow_decode_q) an SM holds
-    at once, per (dtype, D) at G = 1, from the library's
-    ``<name>_occupancy`` (the CUDA occupancy calculator on the built
-    kernel)."""
+    at once, per (dtype, D) at G = 1 and at the wide pairs' groups, from
+    the library's ``<name>_occupancy`` and ``<name>_occupancy_dv`` (the
+    CUDA occupancy calculator on the built kernel)."""
     from repro_torch.kernels import _lib
 
     fn = _lib.function(name, f"{name}_occupancy", [ctypes.c_int] * 3)
     out = {f"{dt}<{d}>": fn(d, code, 1) for dt, code in (("f32", 0),
                                                          ("bf16", 1))
            for d in (32, 64, 128)}
-    if name == "flow_decode":  # K3 at phase 3h's pairs and groups
-        wide = _lib.function(name, f"{name}_occupancy_dv", [ctypes.c_int] * 4)
-        out.update({f"{dt}<{d},{dv}> G={g}": wide(d, dv, code, g)
-                    for dt, code in (("f32", 0), ("bf16", 1))
-                    for _, _, _, g, d, dv in WIDE_SHAPES})
+    # K3 at phase 3h's pairs and groups, K4 at phase 3j's
+    shapes = WIDE_SHAPES if name == "flow_decode" else WIDE_Q_SHAPES
+    wide = _lib.function(name, f"{name}_occupancy_dv", [ctypes.c_int] * 4)
+    out.update({f"{dt}<{d},{dv}> G={g}": wide(d, dv, code, g)
+                for dt, code in (("f32", 0), ("bf16", 1))
+                for _, _, _, g, d, dv in shapes})
     return out
 
 
@@ -679,8 +681,9 @@ def ptxas_usage(log: str) -> dict:
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
             sym = m.group(1)
-            k = re.search(r"\d+((?:ssd|flow)_(?:fwd|bwd)_[a-z0-9]+|"
-                          r"chunk_(?:fwd|bwd)_[a-z]+|flow_decode(?:_q)?_kernel|"
+            k = re.search(r"\d+((?:ssd|flow)_(?:fwd|bwd)_[a-z0-9]+(?:_wide)?|"
+                          r"chunk_(?:fwd|bwd)_[a-z]+|"
+                          r"flow_decode(?:_q)?(?:_cols)?_kernel|"
                           r"flow_nc_(?:fused|qside|qside_bwd)_kernel(?:_small)?|"
                           r"paged_gather"
                           r"(?:_quant(?:_page)?)?_kernel)(I\w*?E(?=v))?", sym)
@@ -1246,8 +1249,11 @@ def int8_pool(state):
 
 
 def clone_pool(pool):
-    return pool.with_state(type(pool.payload)(*(x.clone() for x in pool.payload)),
-                           type(pool.scale)(*(x.clone() for x in pool.scale)))
+    """A copy of an int8 pool of any state type (FlowState, RG-LRU, SSD)."""
+    from repro_torch.utils import tree_map
+
+    return pool.with_state(tree_map(torch.clone, pool.payload),
+                           tree_map(torch.clone, pool.scale))
 
 
 def flat_q_pool(pool):
@@ -1839,10 +1845,45 @@ def serve_fp32_both_paths(params, cfg):
           flush=True)
 
 
+def int8_pools_close(name: str, got, want) -> float:
+    """``q_pool_close`` for a flow pool; for another int8 pool (an RG-LRU
+    or SSD layer's, stepped by plain code on both paths from inputs that
+    differ by the flow layers' rounding) every int8 payload at most 1 LSB
+    apart on at most 1e-3 of its entries, the scales within 1e-5 and the
+    raw leaves at TOL.  Returns the share of payload entries that differ."""
+    from repro_torch.attention.recurrent import FlowState
+    from repro_torch.utils import tree_leaves
+
+    if isinstance(got.payload, FlowState):
+        return q_pool_close(name, got, want)[1]
+    n, differ = 0, 0
+    for i, (a, b) in enumerate(zip(tree_leaves(got.payload),
+                                   tree_leaves(want.payload))):
+        if a.dtype == torch.int8:
+            diff = (a.int() - b.int()).abs()
+            if int(diff.max()) > 1:
+                raise AssertionError(f"{name} leaf {i}: payloads "
+                                     f"{int(diff.max())} LSB apart")
+            n, differ = n + diff.numel(), differ + int((diff > 0).sum())
+        elif a.is_floating_point():
+            max_err(f"{name} raw leaf {i}", a, b, TOL[torch.float32])
+        elif not torch.equal(a, b):
+            raise AssertionError(f"{name} leaf {i}: counts differ")
+    for i, (a, b) in enumerate(zip(tree_leaves(got.scale),
+                                   tree_leaves(want.scale))):
+        max_err(f"{name} scale {i}", a, b, (1e-5, 0.0))
+    if differ > 1e-3 * max(n, 1):
+        raise AssertionError(f"{name}: {differ} of {n} payload entries "
+                             "differ")
+    return differ / max(n, 1)
+
+
 def serve_int8_fp32_against_plain(params, cfg):
-    """Phase 6b: the int8 Engine in fp32 at full width on the kernels;
-    before every decode step the plain path takes the same step from a
-    copy of the same pools, with the same tokens and positions."""
+    """Phase 6b (and 39b, 39d): the int8 Engine in fp32 at full width on
+    the kernels; before every decode step the plain path takes the same
+    step from a copy of the same pools, with the same tokens and
+    positions.  On a hybrid stack the RG-LRU pools step in plain code on
+    both paths (``int8_pools_close``)."""
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.layers.attention import executor_of
     from repro_torch.models import lm
@@ -1881,8 +1922,9 @@ def serve_int8_fp32_against_plain(params, cfg):
         checked["logit_err"] = max(checked["logit_err"], max_err(
             f"int8 fp32 step {step} logits", got, want, (1e-4, 1e-4 * scale)))
         for i, (pool, ref) in enumerate(zip(worker.caches, want_pools)):
-            checked["payload_share"] = max(checked["payload_share"], q_pool_close(
-                f"int8 fp32 step {step} layer {i}", pool, ref)[1])
+            checked["payload_share"] = max(
+                checked["payload_share"], int8_pools_close(
+                    f"int8 fp32 step {step} layer {i}", pool, ref))
         top = torch.topk(want, 2, dim=-1)
         margin = (top.values[:, 0] - top.values[:, 1]).cpu().numpy()
         tol = (1e-4 * scale + 1e-4 * top.values[:, 0].abs()).cpu().numpy()
@@ -1906,8 +1948,12 @@ def serve_int8_fp32_against_plain(params, cfg):
         kernel_run = {r.uid: r.generated for r in engine.run()}
     finally:
         lm.decode = real_decode
-    want = {"flow_fused": cfg.n_layers * worker.admission_rounds,
-            "flow_decode_q": cfg.n_layers * worker.decode_steps}
+        worker.step = real_step  # no cycle keeps the Engine's weights
+    n_flow, n_rglru = hybrid_layers(cfg)
+    want = {"flow_fused": n_flow * worker.admission_rounds,
+            "flow_decode_q": n_flow * worker.decode_steps}
+    if n_rglru:
+        want["boundary_gather"] = n_rglru * worker.admission_rounds
     if {k: v for k, v in LAUNCHES.items() if v} != want:
         raise AssertionError(f"int8 fp32 launches {LAUNCHES}, want {want}")
     plain = Engine(params, plain_cfg, slots=8, max_len=256, seed=SEED,
@@ -1919,7 +1965,8 @@ def serve_int8_fp32_against_plain(params, cfg):
     same = sum(a == b for uid, gen in plain_run.items()
                for a, b in zip(gen, kernel_run[uid]))
     total = sum(len(gen) for gen in plain_run.values())
-    print(f"[int8 fp32] kernels vs plain step by step over "
+    print(f"[int8 fp32 {cfg.name}, {cfg.n_layers} layers] kernels vs "
+          f"plain step by step over "
           f"{checked['steps']} steps: logits {checked['logit_err']:.3e}, "
           f"pools within tolerance (payload share differing <= "
           f"{checked['payload_share']:.2e}), {checked['tokens']} greedy "
@@ -4142,7 +4189,7 @@ def check_rg_shapes() -> dict:
 
 
 def serve_wide_full_width(name: str, fp32: bool = True,
-                          profile: bool = True) -> dict:
+                          profile: bool = True, int8: bool = False) -> dict:
     """Phases 28-30: ``name`` at full width, its depth cut to WIDE_LAYERS,
     random weights drawn on the card from a seed: phase 5's traffic
     through the bf16 Engine (exactly one K1 a layer and admission round
@@ -4150,7 +4197,9 @@ def serve_wide_full_width(name: str, fp32: bool = True,
     then ``torch.profiler`` over decode steps (the device's busy share);
     then phase 6 in fp32 (28b, 29b): greedy tokens, and on a MoE stack
     every live token's chosen experts, on the kernels equal to the plain
-    path's."""
+    path's.  With ``int8`` (39, 39b) also phase 5c's traffic from int8
+    pools (one K4 a layer and decode step, no K3), kept under ``"int8"``,
+    and phase 6b in fp32 against the plain int8 step."""
     from repro_torch.models import lm
     from repro_torch.utils import tree_leaves
 
@@ -4173,6 +4222,13 @@ def serve_wide_full_width(name: str, fp32: bool = True,
           f"decode step {busy}, peak {stats['peak_gb']:.1f} GB", flush=True)
     if fp32:
         serve_fp32_both_paths(params, cfg)
+    if int8:
+        stats["int8"] = serve_full_width(params, cfg, state_dtype="int8")
+        print(f"[{cfg.name} serving, int8 pools] decode "
+              f"{stats['int8']['decode_tok_per_s']:.1f} tok/s ("
+              f"{stats['decode_tok_per_s']:.1f} from fp32 pools), pools "
+              f"{stats['int8']['pool_bytes']} bytes", flush=True)
+        serve_int8_fp32_against_plain(params, cfg)
     del params
     torch.cuda.empty_cache()
     return stats
@@ -4317,19 +4373,21 @@ def rg_cfg(kind: str = "flow", n_layers: int | None = None):
     return dataclasses.replace(cfg, n_layers=n_layers or cfg.n_layers)
 
 
-def serve_hybrid_full_width(params, cfg, reqs, max_len: int) -> dict:
-    """Phases 31 and 32: the bf16 Engine over ``reqs`` at full width, 16
-    slots: launch counts (flow mode packs: one K1 a flow layer and one K9
-    an RG-LRU layer per admission round, one K3 a flow layer per decode
-    step; softmax mode admits one request a round and launches nothing),
-    decode and prefill tokens/s and the pools' bytes a slot."""
+def serve_hybrid_full_width(params, cfg, reqs, max_len: int,
+                            state_dtype=None) -> dict:
+    """Phases 31, 32 and 39c: the bf16 Engine over ``reqs`` at full width,
+    16 slots: launch counts (flow mode packs: one K1 a flow layer and one
+    K9 an RG-LRU layer per admission round, one K3 -- K4 from int8 pools
+    -- a flow layer per decode step; softmax mode admits one request a
+    round and launches nothing), decode and prefill tokens/s and the
+    pools' bytes a slot."""
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.kernels._lib import KERNELS
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.quant import pool_bytes
 
     engine = Engine(params, cfg, slots=16, max_len=max_len, seed=SEED,
-                    device=DEVICE)
+                    state_dtype=state_dtype, device=DEVICE)
     worker = engine.worker
     if worker.packable is not (cfg.attention.kind == "flow"):
         raise AssertionError(f"{cfg.attention.kind} mode: packable "
@@ -4350,9 +4408,10 @@ def serve_hybrid_full_width(params, cfg, reqs, max_len: int) -> dict:
     rounds, steps = worker.admission_rounds, worker.decode_steps
     n_flow, n_rglru = hybrid_layers(cfg)
     want = dict.fromkeys(KERNELS, 0)
+    decode = "flow_decode_q" if state_dtype == "int8" else "flow_decode"
     if worker.packable:
-        want.update(flow_fused=n_flow * rounds, flow_decode=n_flow * steps,
-                    boundary_gather=n_rglru * rounds)
+        want.update({"flow_fused": n_flow * rounds, decode: n_flow * steps,
+                     "boundary_gather": n_rglru * rounds})
     elif rounds != len(reqs):
         raise AssertionError(f"{rounds} admission rounds for {len(reqs)} "
                              "requests, want one a request")
@@ -4373,8 +4432,8 @@ def serve_hybrid_full_width(params, cfg, reqs, max_len: int) -> dict:
         "decode_ms_per_step": 1e3 * spent["step"] / steps,
         "launches": launches, "pool_bytes_per_slot": n_bytes // 16,
         "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
-    print(f"[engine recurrentgemma {cfg.attention.kind} bf16] "
-          + json.dumps(stats), flush=True)
+    print(f"[engine recurrentgemma {cfg.attention.kind} bf16, "
+          f"{state_dtype or 'fp32'} pools] " + json.dumps(stats), flush=True)
     return stats
 
 
@@ -4383,7 +4442,10 @@ def serve_rg_flow_full_width() -> dict:
     (38 layers, weights drawn on the card in bf16) on phase 5's traffic
     (48 requests, prompts 16-384, budgets 32-64); then ``torch.profiler``
     over decode steps of the full pool (device ms by kernel, the busy
-    share)."""
+    share); then (39c) the same traffic from int8 pools on the same
+    weights: the flow slots on K4 (D = Dv = 256, G = 16), the RG-LRU
+    pools dequantized and requantized around their fp32 step, kept under
+    ``"int8"``."""
     from repro_torch.utils import tree_leaves
 
     cfg = rg_cfg("flow")
@@ -4402,6 +4464,15 @@ def serve_rg_flow_full_width() -> dict:
           f"busy share of a decode step "
           f"{stats['profile']['device_busy_share']}, pools "
           f"{stats['pool_bytes_per_slot']} bytes a slot", flush=True)
+    reqs = requests(np.random.default_rng(SEED + 4), 48, cfg.vocab_size,
+                    (16, 384), (32, 64))  # fresh: a Request keeps its tokens
+    stats["int8"] = serve_hybrid_full_width(params, cfg, reqs, 512,
+                                            state_dtype="int8")
+    print(f"[recurrentgemma_9b flow serving, int8 pools] {cfg.n_layers} "
+          f"layers: decode {stats['int8']['decode_tok_per_s']:.1f} tok/s "
+          f"({stats['int8']['decode_ms_per_step']:.3f} ms a step, "
+          f"{stats['decode_ms_per_step']:.3f} from fp32 pools), pools "
+          f"{stats['int8']['pool_bytes_per_slot']} bytes a slot", flush=True)
     del params
     torch.cuda.empty_cache()
     return stats
@@ -4410,13 +4481,16 @@ def serve_rg_flow_full_width() -> dict:
 def serve_rg_fp32_both_paths() -> None:
     """Phase 31b: one period (3 of 38 layers) in fp32, flow mode: phase
     6's greedy tokens through the kernels (K1, K9, K3) equal to the
-    plain-pinned path's (K9's plain version bound in)."""
+    plain-pinned path's (K9's plain version bound in); then (39d) phase
+    6b from int8 pools, K4 at D = Dv = 256, G = 16, step by step against
+    the plain int8 step."""
     from repro_torch.models import lm
 
     cfg = rg_cfg("flow", RG_PERIOD)
     params = lm.init(cfg, torch.Generator(device=DEVICE).manual_seed(SEED),
                      device=DEVICE)
     serve_fp32_both_paths(params, cfg)
+    serve_int8_fp32_against_plain(params, cfg)
     del params
     torch.cuda.empty_cache()
 
@@ -4648,6 +4722,437 @@ def time_rg_kernels(rg: dict, errs: dict) -> list:
                 padded, idx, dim=1)),
             "shape": f"16 rows x Lb 512, W {RG_WIDTH}, bf16, one stream"})
     print("[RecurrentGemma shapes] " + json.dumps(rows), flush=True)
+    return rows
+
+
+# --- the wide heads in training and from int8 pools: phases 3j, 37-39 ------
+
+#: phase 3j's K2 shapes: (tag, prompts, kv heads, G, D, Dv) -- DeepSeek-V2-
+#: Lite's MLA heads at G = 1 and 2, Nemotron-4-340B's at G = 12 and
+#: RecurrentGemma-9B's at G = 16; N = 384, ragged lengths 16..384
+WIDE_K2_SHAPES = (("d192_dv128", 4, 4, 1, 192, 128),
+                  ("d192_dv128_g2", 4, 2, 2, 192, 128),
+                  ("d192_g12", 4, 2, 12, 192, 192),
+                  ("d256_g16", 4, 1, 16, 256, 256))
+#: phase 3j's K4 pools and phase 9's K2 / K4 rows: (tag, slots or batch,
+#: kv heads, G, D, Dv) of the three head shapes
+WIDE_Q_SHAPES = (("d192_dv128", 16, 16, 1, 192, 128),
+                 ("d192_g12", 16, 8, 12, 192, 192),
+                 ("d256_g16", 16, 1, 16, 256, 256))
+#: phases 37 and 38: (config, depth, batch, optimizer) of the wide
+#: training runs at full width (5 bf16 steps of batch x 512 tokens).
+#: RecurrentGemma-9B's 2.69 B parameters at 3 layers (2.1 B of them its
+#: embedding and head) take 32 GB of AdamW state, and the update holds the
+#: old and the new state at once beside 10.8 GB of gradients: out of
+#: memory on 80 GB; Adafactor's factored moments fit
+WIDE_TRAIN = (("deepseek_v2_lite_16b", 2, 4, "adamw"),
+              ("recurrentgemma_9b", 3, 4, "adafactor"))
+WIDE_TRAIN_STEPS, WIDE_TRAIN_SEQ = 5, 512
+
+
+def k2_wide_case(dtype, rows, hkv, g, d, dv, seed, state_cot):
+    """K2's inputs at a wide pair: q, k, v, g_out on the card (N = 384,
+    each prompt's length drawn in 16..384 and shared by its kv heads), K1's
+    totals and the six state cotangents (random, or zeros as in
+    training)."""
+    from repro_torch.kernels.flow_fused import flow_fused_call
+
+    q, k, v, lens = k1_inputs(dtype, rows=rows, hkv=hkv, g=g, n=384, d=d,
+                              seed=seed, dv=dv)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 1)
+    g_out = torch.randn((q.shape[0], g, 384, dv), generator=gen,
+                        device=DEVICE).to(dtype)
+    with torch.no_grad():
+        _, totals = flow_fused_call(q, k, v, lens, chunk=128)
+    g_sums = [torch.randn(x.shape, generator=gen, device=DEVICE) if state_cot
+              else torch.zeros_like(x) for x in totals]
+    return q, k, v, lens, totals, g_out, g_sums
+
+
+def check_wide_k2() -> dict:
+    """Phase 3j, K2: at each of WIDE_K2_SHAPES on ragged lengths, bf16 (the
+    training step's zero state cotangents) and fp32 (random ones), against
+    ``flow_fused_bwd_ref`` (autograd through K1's plain version) at phase
+    3b's tolerances, and in fp32 also against ``flow_fused_bwd_parallel``
+    (the kernel's own decomposition at its super-chunk); zero past each
+    row's length; two calls bitwise equal.  Returns the bf16 errors, keyed
+    ``flow_fused_bwd_<tag>``."""
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.flow_fused import (flow_fused_bwd_call,
+                                                flow_fused_bwd_parallel,
+                                                flow_fused_bwd_ref)
+
+    tile = _lib.function("flow_fused_bwd", "flow_fused_bwd_tile",
+                         [ctypes.c_int] * 2)
+    errs = {}
+    for i, (tag, rows, hkv, g, d, dv) in enumerate(WIDE_K2_SHAPES):
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype)[6:]
+            cot = dtype == torch.float32
+            q, k, v, lens, totals, g_out, g_sums = k2_wide_case(
+                dtype, rows, hkv, g, d, dv, SEED + 80 + i, cot)
+            with torch.no_grad():
+                got = flow_fused_bwd_call(q, k, v, lens, totals, g_out,
+                                          g_sums, chunk=128)
+                again = flow_fused_bwd_call(q, k, v, lens, totals, g_out,
+                                            g_sums, chunk=128)
+            want = flow_fused_bwd_ref(q, k, v, lens, g_out, g_sums,
+                                      chunk=128)
+            torch.cuda.synchronize()
+            what = (f"flow_fused_bwd {name} BH={q.shape[0]} G={g} N=384 "
+                    f"ragged D={d} Dv={dv}")
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{what}: two calls differ")
+            err = max(max_err(f"{what} {n_}", a, b, TOL[dtype])
+                      for n_, a, b in zip(("dq", "dk", "dv"), got, want))
+            line = f"grads {err:.3e} against the autograd twin"
+            if cot:
+                t = tile(g, d)
+                twin = flow_fused_bwd_parallel(q, k, v, lens, g_out, g_sums,
+                                               chunk=32, tile=t)
+                e2 = max(max_err(f"{what} {n_} vs parallel twin", a, b,
+                                 TOL[dtype])
+                         for n_, a, b in zip(("dq", "dk", "dv"), got, twin))
+                line += (f", {e2:.3e} against the decomposition twin "
+                         f"(super-chunk {t})")
+            for n_, x in zip(("dq", "dk", "dv"), got):
+                for r, li in enumerate(lens.tolist()):
+                    if x[r, ..., li:, :].any():
+                        raise AssertionError(f"{what} {n_}: non-zero past "
+                                             f"row {r}'s length {li}")
+            print(f"[K2] {what}: {line}; two calls bitwise equal",
+                  flush=True)
+            if dtype == torch.bfloat16:
+                errs[f"flow_fused_bwd_{tag}"] = err
+    # a group whose pull-back does not fit is refused, naming D and G
+    for d in (192, 256):
+        g = next(g for g in range(1, 64) if not _lib.k2_group_fits(d, g))
+        if tile(g, d) != 0 or tile(g - 1, d) == 0:
+            raise AssertionError(f"K2's tile count at D={d}: G={g - 1} -> "
+                                 f"{tile(g - 1, d)}, G={g} -> {tile(g, d)}; "
+                                 "_lib.k2_group_fits disagrees")
+        q, k, v, lens = k1_inputs(torch.bfloat16, rows=1, hkv=1, g=g,
+                                  n=64, d=d, seed=SEED + 89)
+        # K1 may refuse the group too: K2 reads no totals, only checks them
+        totals = [torch.zeros(s, device=DEVICE)
+                  for s in [(1, d)] * 4 + [(1,), (1, d, d)]]
+        g_out, g_sums = torch.zeros_like(q), [torch.zeros_like(x)
+                                              for x in totals]
+        try:
+            flow_fused_bwd_call(q, k, v, lens, totals, g_out, g_sums,
+                                chunk=64)
+        except ValueError as e:
+            if f"G={g}" not in str(e) or f"({d}, {d})" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"K2 took G={g} at D={d}")
+        print(f"[K2] D={d}: G={g - 1} fits a block, G={g} is refused by the "
+              "workspace count, naming D and G (as _lib.k2_group_fits says)",
+              flush=True)
+    return errs
+
+
+def check_wide_k4() -> dict:
+    """Phase 3j, K4: 32 teacher-forced steps from a non-zero int8 pool of
+    16 slots at each of WIDE_Q_SHAPES, bf16 and fp32 tokens, against its
+    plain version (``flow_decode_q_ref`` on a copy of the pool: out at
+    TOL, payloads at most 1 LSB apart on at most 1e-3 of the entries, as
+    phase 4b counts them) and at each step against ``flow_decode_q_split``
+    (the kernel's order); the pool updated in place; two steps from clones
+    of one pool bitwise equal.  Returns the bf16 errors, keyed
+    ``flow_decode_q_<tag>``."""
+    from repro_torch.core.flow_attention import FlowConfig
+    from repro_torch.kernels.flow_decode import (flow_decode_q_split,
+                                                 flow_decode_q_step)
+
+    cfg = FlowConfig(causal=True, strict_causal=True)
+    errs = {}
+    with torch.inference_mode():
+        for i, (tag, slots, hkv, g, d, dv) in enumerate(WIDE_Q_SHAPES):
+            bh = slots * hkv
+            for dtype in (torch.bfloat16, torch.float32):
+                pool = int8_pool(decode_pool(slots, hkv, d, SEED + 90 + i,
+                                             dv=dv))
+                ptrs = [x.data_ptr() for x in pool.payload + pool.scale]
+                gen = torch.Generator(device=DEVICE).manual_seed(SEED + 95)
+                what = (f"flow_decode_q {str(dtype)[6:]} {slots} slots x "
+                        f"{hkv} kv heads G={g} D={d} Dv={dv}")
+                err, e_split, flips = 0.0, 0.0, 0.0
+                for step in range(32):
+                    q, k, v = decode_token(gen, slots, hkv, g, d, dtype,
+                                           dv=dv)
+                    want, ref = plain_q_step(pool, q, k, v, cfg)
+                    before = clone_pool(pool)
+                    before.payload.t.add_(1)
+                    pays, s_pay, scs, s_sc, z = flat_q_pool(before)
+                    split, *_ = flow_decode_q_split(
+                        before.payload.t, q.reshape(bh, g, d),
+                        k.reshape(bh, d), v.reshape(bh, dv), pays, s_pay,
+                        scs, s_sc, z, hkv=hkv)
+                    same, out = flow_decode_q_step(pool, q, k, v, cfg)
+                    torch.cuda.synchronize()
+                    if same is not pool:
+                        raise AssertionError(f"{what}: returned a new pool")
+                    err = max(err, max_err(f"{what} out step {step}", out,
+                                           ref, TOL[dtype]))
+                    e_split = max(e_split, max_err(
+                        f"{what} out step {step} vs split",
+                        out.reshape(split.shape), split, TOL[dtype]))
+                    flips = max(flips, q_pool_close(f"{what} step {step}",
+                                                    pool, want)[1])
+                if [x.data_ptr() for x in pool.payload + pool.scale] != ptrs:
+                    raise AssertionError(f"{what}: the pool moved")
+                q, k, v = decode_token(gen, slots, hkv, g, d, dtype, dv=dv)
+                (a, out_a), (b, out_b) = [
+                    flow_decode_q_step(clone_pool(pool), q, k, v, cfg)
+                    for _ in range(2)]
+                if not (torch.equal(out_a, out_b) and all(
+                        torch.equal(x, y) for x, y in zip(
+                            a.payload + a.scale, b.payload + b.scale))):
+                    raise AssertionError(f"{what}: two steps from one pool "
+                                         "differ")
+                print(f"[K4] {what} x 32 steps (teacher-forced): out "
+                      f"{err:.3e}, against flow_decode_q_split {e_split:.3e},"
+                      f" payload share differing <= {flips:.2e}, pool "
+                      "updated in place; two steps from clones bitwise "
+                      "equal", flush=True)
+                if dtype == torch.bfloat16:
+                    errs[f"flow_decode_q_{tag}"] = err
+    return errs
+
+
+def check_wide_train_shapes() -> dict:
+    """Phase 3j: K2 and K4 at the wide pairs (``check_wide_k2``,
+    ``check_wide_k4``)."""
+    return {**check_wide_k2(), **check_wide_k4()}
+
+
+def wide_train_cfg(name: str, depth: int):
+    """``name`` at full width, its depth cut to ``depth`` (RecurrentGemma in
+    flow mode, one period of its pattern)."""
+    if name == "recurrentgemma_9b":
+        return rg_cfg("flow", depth)
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(name), n_layers=depth)
+
+
+def train_wide_full_width(name: str, depth: int, batch: int,
+                          optimizer: str) -> dict:
+    """Phases 37 and 38: ``name`` at full width, depth cut to ``depth``,
+    weights drawn on the card from a seed, through ``launch.train.train``
+    with ``optimizer``: WIDE_TRAIN_STEPS bf16 steps of ``batch`` x
+    WIDE_TRAIN_SEQ tokens on K1 and K2 under ``auto`` (exactly 2 K1 -- forward and remat recompute
+    -- and 1 K2 a flow layer and step, nothing else); step ms, tokens/s
+    and peak memory.  Then ``wide_train_both_paths``."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels._lib import KERNELS
+    from repro_torch.launch.train import train
+    from repro_torch.models import lm
+    from repro_torch.utils import tree_leaves
+
+    cfg = wide_train_cfg(name, depth)
+    n_flow = hybrid_layers(cfg)[0]
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 1e9  # what earlier phases hold
+    params = lm.init(cfg, torch.Generator(device=DEVICE).manual_seed(SEED),
+                     device=DEVICE)
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    out = train(cfg, steps=WIDE_TRAIN_STEPS, batch=batch, seq=WIDE_TRAIN_SEQ,
+                seed=SEED, device=DEVICE, params=params, optimizer=optimizer)
+    launches = dict(LAUNCHES)
+    hist = out["history"]
+    if len(hist) != WIDE_TRAIN_STEPS or not all(math.isfinite(x)
+                                                for x in hist):
+        raise AssertionError(f"{name} training losses {hist}")
+    n = n_flow * WIDE_TRAIN_STEPS
+    want = {**dict.fromkeys(KERNELS, 0), "flow_fused": 2 * n,
+            "flow_fused_bwd": n}
+    if launches != want:
+        raise AssertionError(f"{name} training launched {launches}, want "
+                             f"{want}")
+    step_ms = 1e3 * statistics.median(out["step_s"][1:])
+    full = get_config(name).n_layers
+    stats = {"config": cfg.name, "depth": f"{depth} of {full} layers",
+             "n_params": n_params, "optimizer": optimizer,
+             "flow_layers": n_flow, "steps":
+             WIDE_TRAIN_STEPS, "batch": batch, "seq": WIDE_TRAIN_SEQ,
+             "first_step_ms": 1e3 * out["step_s"][0], "step_ms": step_ms,
+             "tokens_per_s": batch * WIDE_TRAIN_SEQ / step_ms * 1e3,
+             "history": hist, "launches": launches, "held_before_gb": held,
+             "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"[train {name} bf16] " + json.dumps(stats), flush=True)
+    del out
+    torch.cuda.empty_cache()
+    wide_train_both_paths(cfg, params, n_flow)
+    del params
+    torch.cuda.empty_cache()
+    return stats
+
+
+def wide_train_both_paths(cfg, params, n_flow: int, batch: int = 2):
+    """Phases 37b and 38b: one fp32 step of ``batch`` x WIDE_TRAIN_SEQ
+    tokens at the run's full width and depth, on the kernels (K1 twice
+    with remat, and K2, a flow layer) and pinned to ``backend="plain"`` (no launch): the
+    loss within rtol 1e-4, every gradient leaf within 1e-4 of the plain
+    path's max |grad| (phase 11's bounds), the attention projections'
+    gradients non-zero on the kernels."""
+    from repro_torch.data.loader import lm_loader
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels._lib import KERNELS
+    from repro_torch.layers.attention import executor_of, plan_of
+    from repro_torch.models import lm
+    from repro_torch.utils import tree_map
+
+    first = {k: torch.from_numpy(v).to(DEVICE) for k, v in
+             next(lm_loader(SEED, batch=batch, seq=WIDE_TRAIN_SEQ,
+                            vocab=cfg.vocab_size)).items()}
+    losses, grads = {}, {}
+    for backend in ("auto", "plain"):
+        c = dataclasses.replace(cfg, attention=dataclasses.replace(
+            cfg.attention, backend=backend))
+        leaves = tree_map(lambda x: x.detach().clone().requires_grad_(True),
+                          params)
+        torch.cuda.synchronize()
+        reset_launches()
+        loss, _ = lm.loss_fn(leaves, first, c, dtype=torch.float32,
+                             plan=executor_of(c, plan_of(c, needs_grad=True)))
+        loss.backward()
+        torch.cuda.synchronize()
+        want = dict.fromkeys(KERNELS, 0)
+        if backend == "auto":
+            # with remat the backward runs each block's forward again
+            want.update(flow_fused=(2 if cfg.remat else 1) * n_flow,
+                        flow_fused_bwd=n_flow)
+        if dict(LAUNCHES) != want:
+            raise AssertionError(f"{cfg.name} fp32 backend={backend}: "
+                                 f"launches {LAUNCHES}, want {want}")
+        losses[backend] = float(loss)
+        grads[backend] = [(path, x.grad) for path, x in named_leaves(leaves)]
+        del leaves, loss
+    a, b = losses["auto"], losses["plain"]
+    if not abs(a - b) <= 1e-4 * abs(b):
+        raise AssertionError(f"{cfg.name} fp32 loss: kernels {a}, plain {b}")
+    worst, attn_ok = 0.0, []
+    for (path, g), (_, ref) in zip(grads["auto"], grads["plain"]):
+        if g is None or ref is None:
+            if (g is None) != (ref is None):
+                raise AssertionError(f"{cfg.name} {path}: a gradient on one "
+                                     "path only")
+            continue
+        scale, err = float(ref.abs().max()), float((g - ref).abs().max())
+        if not err <= 1e-4 * scale:
+            raise AssertionError(f"{cfg.name} fp32 {path} grad: |diff| "
+                                 f"{err:.3e}, max |plain| {scale:.3e}")
+        if scale > 0:
+            worst = max(worst, err / scale)
+        if path.endswith((".attn.wq.w", ".attn.wk.w", ".attn.wv.w",
+                          ".attn.kv_down.w", ".attn.kv_up.w")):
+            attn_ok.append(float(g.abs().max()) > 0)
+    if not attn_ok or not all(attn_ok):
+        raise AssertionError(f"{cfg.name}: attention projections' gradients "
+                             f"on the kernels {attn_ok}")
+    print(f"[train {cfg.name} fp32] kernels vs plain, one step of {batch} x "
+          f"{WIDE_TRAIN_SEQ}: loss {a:.6f} vs {b:.6f}; {len(grads['auto'])} "
+          f"gradient leaves, worst |diff| / max |grad| {worst:.3e}; "
+          f"{len(attn_ok)} attention projections' gradients non-zero",
+          flush=True)
+
+
+def named_leaves(tree, prefix=""):
+    """(dotted path, tensor) of every tensor of a nested dict / list."""
+    if isinstance(tree, torch.Tensor):
+        return [(prefix, tree)]
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    return [x for k, v in items
+            for x in named_leaves(v, f"{prefix}.{k}" if prefix else str(k))]
+
+
+def time_wide_train_kernels(runs: dict, errs: dict) -> list:
+    """Phase 9, the wide training and int8 rows: K2 at one layer's
+    backward of a training step at each of WIDE_Q_SHAPES' heads (batch x
+    kv heads rows, N = 512 all valid, bf16, zero state cotangents as in
+    training: 8 x 16 MLA heads, 4 x 8 Nemotron heads at G = 12, 4 x 1
+    RecurrentGemma heads at G = 16), with the device ms of each of its
+    five CUDA kernels; K4 at one decode step of the 16-slot int8 pool
+    (bf16 tokens) at each.  ``runs`` maps a tag to the runs whose launches
+    count (phases 37-39; 0 at Nemotron-4-340B's shape, which no model run
+    reaches)."""
+    from repro_torch.kernels.flow_decode import (flow_decode_q_call,
+                                                 flow_decode_q_ref)
+    from repro_torch.kernels.flow_fused import (flow_fused_bwd_call,
+                                                flow_fused_bwd_ref,
+                                                flow_fused_call)
+
+    batch = {"d192_dv128": 8, "d192_g12": 4, "d256_g16": 4}
+    rows = []
+    for tag, slots, hkv, g, d, dv in WIDE_Q_SHAPES:
+        train_run, serve_run = runs.get(tag, (None, None))
+        bh, n = batch[tag] * hkv, WIDE_TRAIN_SEQ
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 97)
+        mk = lambda *s_: torch.randn(s_, generator=gen,  # noqa: E731
+                                     device=DEVICE).to(torch.bfloat16)
+        q, k, v, g_out = mk(bh, g, n, d), mk(bh, n, d), mk(bh, n, dv), \
+            mk(bh, g, n, dv)
+        lens = torch.full((bh,), n, dtype=torch.int32, device=DEVICE)
+        with torch.no_grad():
+            _, totals = flow_fused_call(q, k, v, lens, chunk=128)
+        g_sums = [torch.zeros_like(x) for x in totals]
+        args = (q, k, v, lens, totals, g_out, g_sums)
+        st_bytes = bh * (4 * d + 1 + d * dv) * 4
+        b_k2 = (bh * n * (g * d + d + dv + g * dv) * 2
+                + bh * n * (g * d + d + dv) * 2 + 2 * st_bytes + bh * 4)
+        bound_ms, by = bound(b_k2, bh * n * bwd_ops_per_position(g, d, dv))
+        with torch.no_grad():
+            rows.append({
+                "name": f"flow_fused_bwd_{tag}", "route": "cuda",
+                "source": "src/repro_torch/csrc/flow_fused_bwd_wide.cu",
+                "replaces": "src/repro/kernels/flow_fused/bwd.py:178",
+                "launches": train_run["launches"]["flow_fused_bwd"]
+                if train_run else 0,
+                "max_abs_err": errs[f"flow_fused_bwd_{tag}"],
+                "ms": time_ms(lambda: flow_fused_bwd_call(*args, chunk=128)),
+                "plain_ms": time_ms(lambda: flow_fused_bwd_ref(
+                    q, k, v, lens, g_out, g_sums, chunk=128)),
+                "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
+                "shape": f"{batch[tag]} x {hkv} kv heads, G = {g}, N = {n} "
+                         f"all valid, D = {d}, Dv = {dv}, bf16",
+                "breakdown_ms": chunk_breakdown(
+                    lambda: flow_fused_bwd_call(*args, chunk=128),
+                    "flow_bwd_")})
+        del q, k, v, g_out, args, totals, g_sums
+        qpool = int8_pool(decode_pool(slots, hkv, d, SEED + 98, dv=dv))
+        tq, tk, tv = decode_token(gen, slots, hkv, g, d, torch.bfloat16,
+                                  dv=dv)
+        bh = slots * hkv
+        tok = (tq.reshape(bh, g, d), tk.reshape(bh, d), tv.reshape(bh, dv))
+        qflat = flat_q_pool(qpool)
+        plain = [x.clone() for x in (*qflat[0], qflat[1], *qflat[2],
+                                     qflat[3], qflat[4])]
+        bound_ms, by = bound(q_step_bytes(slots, hkv, g, d, 2, dv),
+                             bh * q_step_ops(g, d, dv))
+        with torch.inference_mode():
+            rows.append({
+                "name": f"flow_decode_q_{tag}", "route": "cuda",
+                "source": "src/repro_torch/csrc/flow_decode_q.cu",
+                "replaces": "src/repro/kernels/flow_decode/quant.py:158",
+                "launches": serve_run["launches"]["flow_decode_q"]
+                if serve_run else 0,
+                "max_abs_err": errs[f"flow_decode_q_{tag}"],
+                "ms": time_ms(lambda: flow_decode_q_call(
+                    qpool.payload.t, *tok, *qflat, hkv=hkv)),
+                "plain_ms": time_ms(lambda: flow_decode_q_ref(
+                    qpool.payload.t, *tok, tuple(plain[:4]), plain[4],
+                    tuple(plain[5:9]), plain[9], plain[10], hkv=hkv)),
+                "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
+                "shape": f"{slots} slots x {hkv} kv heads, G = {g}, D = {d},"
+                         f" Dv = {dv}, int8 pool, bf16 tokens"})
+    print("[wide training and int8 shapes] " + json.dumps(rows), flush=True)
     return rows
 
 
@@ -6337,8 +6842,8 @@ def time_kernels(launches: dict, errs: dict) -> list:
     print("[K1/K2 kernels] device ms per call of each CUDA kernel: "
           + json.dumps(k12_breakdown(serve, train, kw)), flush=True)
     print("[K1/K2 kernels] registers and spill bytes: " + json.dumps(
-        {name: PTXAS.get(name, "cached") for name in ("flow_fused",
-                                                      "flow_fused_bwd")}),
+        {name: PTXAS.get(name, "cached") for name in (
+            "flow_fused", "flow_fused_bwd", "flow_fused_bwd_wide")}),
           flush=True)
     # K5a's profiler breakdown before K6's ablation builds and timings: late
     # in the script a profiler session may see no device time at all
@@ -6347,20 +6852,23 @@ def time_kernels(launches: dict, errs: dict) -> list:
     return rows
 
 
-def q_step_bytes(slots: int, hkv: int, g: int, d: int, act: int) -> int:
-    """Bytes one K4 launch must move: the int8 payloads and fp32 scales
-    and z read and written, q, k, v read and out written in the activation
-    dtype (``act`` bytes), t read."""
-    bh = slots * hkv
-    pool = bh * (4 * d + d * d + 5 * 4 + 4)
-    return 2 * pool + bh * (g * d + 2 * d + g * d) * act + slots * 4
+def q_step_bytes(slots: int, hkv: int, g: int, d: int, act: int,
+                 dv: int | None = None) -> int:
+    """Bytes one K4 launch must move: the int8 payloads (four sums of D, S
+    of D x Dv; Dv = D unless given) and fp32 scales and z read and
+    written, q, k, v read and out written in the activation dtype (``act``
+    bytes), t read."""
+    bh, dv = slots * hkv, dv or d
+    pool = bh * (4 * d + d * dv + 5 * 4 + 4)
+    return 2 * pool + bh * (g * d + d + dv + g * dv) * act + slots * 4
 
 
-def q_step_ops(g: int, d: int) -> int:
+def q_step_ops(g: int, d: int, dv: int | None = None) -> int:
     """Operations of K4 for one (slot, kv head): K3's recurrence
     (``flow_ops_per_position``) plus 3 per payload element (dequantizing
     multiply, amax, requantizing divide)."""
-    return flow_ops_per_position(g, d, d) + 3 * (4 * d + d * d)
+    dv = dv or d
+    return flow_ops_per_position(g, d, dv) + 3 * (4 * d + d * dv)
 
 
 def time_flow_decode_q(launches: dict, errs: dict) -> tuple[dict, dict]:
@@ -6930,6 +7438,10 @@ def main() -> int:
     def mark(what):
         print(f"[time] {what}: {time.perf_counter() - t0:.1f} s since the "
               "build began", flush=True)
+        # a phase's reference cycles (a patched bound method, a closure)
+        # may hold its weights until the next collection: free them now
+        gc.collect()
+        torch.cuda.empty_cache()
 
     build_kernels()
     k1, k2 = check_flow_fused(), check_flow_fused_bwd()
@@ -6944,7 +7456,8 @@ def main() -> int:
             **check_paged_gather(),
             **check_whisper_granite_shapes(),
             **check_wide_shapes(),
-            **check_rg_shapes()}
+            **check_rg_shapes(),
+            **check_wide_train_shapes()}
     mark("kernel checks")
 
     from repro_torch.configs import get_config
@@ -7029,6 +7542,8 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     mark("distribution and context parallelism")
+    wide_trained = {w[0]: train_wide_full_width(*w) for w in WIDE_TRAIN}
+    mark("deepseek_v2_lite_16b and recurrentgemma_9b training")
     lra = get_config("flowformer_lra")
     classified = train_classifier_full_width(lra)
     profile_classifier(lra, classified["step_ms"])
@@ -7062,8 +7577,8 @@ def main() -> int:
     mark("whisper_small serving and training")
     granite = serve_granite_full_width(get_config("granite_8b"))
     mark("granite_8b serving")
-    deepseek = serve_wide_full_width("deepseek_v2_lite_16b")
-    mark("deepseek_v2_lite_16b serving")
+    deepseek = serve_wide_full_width("deepseek_v2_lite_16b", int8=True)
+    mark("deepseek_v2_lite_16b serving, fp32 and int8 pools")
     qwen = serve_wide_full_width("qwen2_vl_72b")
     mark("qwen2_vl_72b serving")
     granite_moe = serve_wide_full_width("granite_moe_3b_a800m", fp32=False,
@@ -7071,7 +7586,7 @@ def main() -> int:
     mark("granite_moe_3b_a800m serving")
     rg_flow = serve_rg_flow_full_width()
     serve_rg_fp32_both_paths()
-    mark("recurrentgemma_9b flow serving")
+    mark("recurrentgemma_9b flow serving, fp32 and int8 pools")
     rg_soft = serve_rg_softmax()
     rg_int8 = rg_int8_teacher_forced()
     mark("recurrentgemma_9b softmax and int8 serving")
@@ -7102,7 +7617,8 @@ def main() -> int:
         dt, *(table7[kind] for kind in ("flow", "linear", "softmax")),
         heard, taught, granite, deepseek, qwen, granite_moe, rg_flow,
         rg_soft, rg_int8, served_q, *fleet, restarted, factored, kinds,
-        resumed, *distributed))
+        resumed, *distributed, deepseek["int8"], rg_flow["int8"],
+        *wide_trained.values()))
         for name in stats["launches"]}
     torch.cuda.empty_cache()
     rows = (time_kernels(launches, errs) + time_paged_kernels(launches, errs)
@@ -7111,7 +7627,12 @@ def main() -> int:
             + time_whisper_granite_kernels(heard, granite, errs)
             + time_wide_kernels({"deepseek": deepseek, "qwen2_vl": qwen},
                                 errs)
-            + time_rg_kernels(rg_flow, errs))
+            + time_rg_kernels(rg_flow, errs)
+            + time_wide_train_kernels(
+                {"d192_dv128": (wide_trained["deepseek_v2_lite_16b"],
+                                deepseek["int8"]),
+                 "d256_g16": (wide_trained["recurrentgemma_9b"],
+                              rg_flow["int8"])}, errs))
     mark("kernel times")
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -33,11 +33,11 @@ chunk; zero rows add nothing to the dot).  Both also take the head dims of
 to the stored width; the decode kernels do not.  ``cuda_fused`` and
 ``cuda_decode`` also take ``_lib.WIDE_PAIRS`` (D = 192 beside Dv = 128 or
 192: the MLA and Nemotron-4-340B heads; D = Dv = 256: RecurrentGemma's),
-where K2 and K4 do not: a plan
-that needs gradients there is refused by ``cuda_fused``'s
-``grad_support`` naming K2, and an int8 pool by ``cuda_decode``'s
-``quant_capable`` naming K4, so ``auto`` raises on the card rather than
-fail in a backward or a decode.  On the CPU the
+gradients (K2) and int8 pools (K4) included.  K2's pull-back takes a
+group of at most 9-10 at D <= 128, 23 at D = 192 and 21 at D = 256
+(``_lib.k2_group_fits``): a plan that needs gradients at a larger group
+is refused by ``cuda_fused``'s ``grad_support`` naming K2, D and G, so
+``auto`` raises on the card rather than fail in a backward.  On the CPU the
 plain versions apply; on a CUDA device they apply only when pinned
 (``backend="plain"`` or by name).  So ``auto`` resolves to the kernels on
 a GPU, and a shape no kernel takes raises there with the kernel's own
@@ -83,7 +83,8 @@ from repro_torch.attention.chunked import chunked_causal_dot_grouped
 from repro_torch.attention.dots import causal_dot_grouped
 from repro_torch.attention.registry import Backend, register_backend
 from repro_torch.kernels._lib import (FUSED_PAIRS, HEAD_DIMS, NC_HEAD_DIMS,
-                                      WIDE_PAIRS, stored_width)
+                                      WIDE_PAIRS, k2_group_fits,
+                                      stored_width)
 from repro_torch.kernels.flow_chunk.ops import check_dims
 from repro_torch.serving.quant import (QuantizedPool, dequantize_state,
                                        platform_support, quantize_like)
@@ -155,7 +156,7 @@ def _check_device(platform):
 
 
 def _check_kernel(shapes, platform):
-    """The device and the (D, Dv) of K1 and K3: D == Dv in ``HEAD_DIMS``,
+    """The device and the (D, Dv) of K1 to K4: D == Dv in ``HEAD_DIMS``,
     or a pair of ``_lib.WIDE_PAIRS`` (D = 192, 256)."""
     if platform != "cuda":
         return f"CUDA kernel needs a CUDA device (platform={platform!r})"
@@ -176,12 +177,13 @@ def _check_fused_kernel(shapes, platform):
 
 
 def _check_k2(shapes):
-    """K2 at K1's ``_lib.WIDE_PAIRS``, which it does not take: K2 stays at
-    D == Dv in ``HEAD_DIMS`` (24 padded to 32)."""
-    if (shapes.d, shapes.dv) in WIDE_PAIRS:
-        return (f"the backward kernel K2 (flow_fused_bwd) takes D == Dv in "
-                f"{HEAD_DIMS} (24 padded to 32), got D={shapes.d} "
-                f"Dv={shapes.dv}: K1 serves these heads forward-only")
+    """K2's group at the head width: its pull-back's shared memory bounds
+    the group (``_lib.k2_group_fits``)."""
+    g = shapes.hq // max(1, shapes.hkv)
+    if not k2_group_fits(shapes.d, g):
+        return (f"the backward kernel K2 (flow_fused_bwd) does not take "
+                f"G={g} at D={shapes.d}: its pull-back does not fit a "
+                "block's shared memory")
     return None
 
 
@@ -305,8 +307,8 @@ class CudaFused(_ChunkedVerifyQuant, FusedCausal):
     differentiable = frozenset({"forward", "prefill"})
 
     def grad_support(self, op="forward", shapes=None):
-        # K1 serves _lib.WIDE_PAIRS (D = 192, 256) forward-only: K2 stays at
-        # HEAD_DIMS, so a training plan is refused here, before a forward
+        # a training plan at a group K2's pull-back does not fit is refused
+        # here, before a forward
         why = None if shapes is None else _check_k2(shapes)
         return (False, why) if why else super().grad_support(op, shapes)
 
@@ -486,12 +488,6 @@ class CudaDecode(Recurrent):
         ok, why = platform_support(dtype, platform)
         if not ok:
             return False, why
-        if shapes is not None and (shapes.d, shapes.dv) in WIDE_PAIRS:
-            # K3 serves these heads from fp32 pools; K4 stays at HEAD_DIMS
-            return False, (f"the int8 pools' kernel K4 (flow_decode_q) takes "
-                           f"D == Dv in {HEAD_DIMS}, got D={shapes.d} "
-                           f"Dv={shapes.dv}: K3 serves these heads from "
-                           "fp32 pools only")
         return True, ("in-kernel dequantize / fp32 accumulate / requantize "
                       f"(flow_decode_q; {why})")
 

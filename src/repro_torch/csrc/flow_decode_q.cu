@@ -52,11 +52,24 @@
 // No float atomics: the sums run in a fixed order, and two calls give
 // bitwise-equal results.  Nothing is allocated but the output, which the
 // wrapper allocates.
+//
+// The wide pairs follow K3's designs (flow_decode.cu): D = 192 (Dv = 128 or
+// 192: DeepSeek-V2's MLA heads, Nemotron-4-340B's) holds S by columns,
+// Dv / 8 S warps of eight columns each, lane l rows l, l + 32, .. (six),
+// eight payload bytes a row in one load; D = Dv = 256 (RecurrentGemma's)
+// splits Dv over a cluster of four CTAs a row, one panel of 64 columns each
+// (flow_decode_q_cols_kernel).  The chain warp is the same code at six or
+// eight features a lane.  The cluster's CTAs must share S's fresh scale:
+// their amaxes meet through distributed shared memory after a cluster
+// barrier, before any CTA writes a payload (see the kernel).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+#include <cooperative_groups.h>
 
 namespace {
+
+namespace cgrp = cooperative_groups;
 
 constexpr int kSWarps = 8;                   // the warps that hold S
 constexpr int kSThreads = 32 * kSWarps;
@@ -146,11 +159,15 @@ __device__ __forceinline__ void load_f(const float* p, float (&x)[N]) {
       const float4 u = reinterpret_cast<const float4*>(p)[j];
       x[4 * j] = u.x, x[4 * j + 1] = u.y, x[4 * j + 2] = u.z, x[4 * j + 3] = u.w;
     }
-  } else if constexpr (N == 2) {
-    const float2 u = *reinterpret_cast<const float2*>(p);
-    x[0] = u.x, x[1] = u.y;
+  } else if constexpr (N % 2 == 0) {
+#pragma unroll
+    for (int j = 0; j < N / 2; ++j) {
+      const float2 u = reinterpret_cast<const float2*>(p)[j];
+      x[2 * j] = u.x, x[2 * j + 1] = u.y;
+    }
   } else {
-    x[0] = p[0];
+#pragma unroll
+    for (int j = 0; j < N; ++j) x[j] = p[j];
   }
 }
 
@@ -167,26 +184,41 @@ __device__ __forceinline__ void load_f(const __nv_bfloat16* p, float (&x)[N]) {
 #pragma unroll
       for (int h = 0; h < 4; ++h) x[8 * j + 2 * h] = bf_lo(w[h]), x[8 * j + 2 * h + 1] = bf_hi(w[h]);
     }
-  } else if constexpr (N == 4) {
-    const uint2 u = *reinterpret_cast<const uint2*>(p);
-    x[0] = bf_lo(u.x), x[1] = bf_hi(u.x), x[2] = bf_lo(u.y), x[3] = bf_hi(u.y);
-  } else if constexpr (N == 2) {
-    const unsigned u = *reinterpret_cast<const unsigned*>(p);
-    x[0] = bf_lo(u), x[1] = bf_hi(u);
+  } else if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < N / 4; ++j) {
+      const uint2 u = reinterpret_cast<const uint2*>(p)[j];
+      x[4 * j] = bf_lo(u.x), x[4 * j + 1] = bf_hi(u.x), x[4 * j + 2] = bf_lo(u.y),
+      x[4 * j + 3] = bf_hi(u.y);
+    }
+  } else if constexpr (N % 2 == 0) {
+#pragma unroll
+    for (int j = 0; j < N / 2; ++j) {
+      const unsigned u = reinterpret_cast<const unsigned*>(p)[j];
+      x[2 * j] = bf_lo(u), x[2 * j + 1] = bf_hi(u);
+    }
   } else {
-    x[0] = __bfloat162float(p[0]);
+#pragma unroll
+    for (int j = 0; j < N; ++j) x[j] = __bfloat162float(p[j]);
   }
 }
 
-// N int8 payload bytes (N in {1, 2, 4, 16}) in one load, as 32-bit words.
+// N int8 payload bytes (N in {1, 2, 4, 8, 16}: one load; 6: three 2-byte
+// loads, the chain's lanes at D = 192) as 32-bit words.
 template <int N>
 struct Bytes {
-  static constexpr int W = N < 4 ? 1 : N / 4;
+  static constexpr int W = N < 4 ? 1 : (N + 3) / 4;
   unsigned w[W];
   __device__ __forceinline__ void load(const int8_t* p) {
     if constexpr (N == 16) {
       const uint4 u = *reinterpret_cast<const uint4*>(p);
       w[0] = u.x, w[1] = u.y, w[2] = u.z, w[3] = u.w;
+    } else if constexpr (N == 8) {
+      const uint2 u = *reinterpret_cast<const uint2*>(p);
+      w[0] = u.x, w[1] = u.y;
+    } else if constexpr (N == 6) {
+      const unsigned short* h = reinterpret_cast<const unsigned short*>(p);
+      w[0] = (unsigned)h[0] | (unsigned)h[1] << 16, w[1] = h[2];
     } else if constexpr (N == 4) {
       w[0] = *reinterpret_cast<const unsigned*>(p);
     } else if constexpr (N == 2) {
@@ -198,6 +230,12 @@ struct Bytes {
   __device__ __forceinline__ void store(int8_t* p) const {
     if constexpr (N == 16) {
       *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+    } else if constexpr (N == 8) {
+      *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+    } else if constexpr (N == 6) {
+      unsigned short* h = reinterpret_cast<unsigned short*>(p);
+      h[0] = (unsigned short)w[0], h[1] = (unsigned short)(w[0] >> 16),
+      h[2] = (unsigned short)w[1];
     } else if constexpr (N == 4) {
       *reinterpret_cast<unsigned*>(p) = w[0];
     } else if constexpr (N == 2) {
@@ -237,6 +275,25 @@ struct Shape {
                 "S layout");
 };
 
+// How a CTA holds a DK x PV panel of a DK x DV int8 S by columns (DK = 192,
+// 256; K3's ColShape in flow_decode.cu): S warp w owns columns [8 w, 8 w +
+// 8) of the panel in every row, lane l rows l + 32 i (i < NR), eight payload
+// bytes a row in one load; a warp's sums over its lanes are sums over every
+// row.  NP = DV / PV CTAs (a cluster where NP > 1) hold the panels.
+template <int DK, int DV, int PV_>
+struct ColShape {
+  static constexpr int PV = PV_, NP = DV / PV_;  // panel width, panels (CTAs)
+  static constexpr int CW = 8;              // columns an S warp owns
+  static constexpr int SW = PV / CW;        // S warps
+  static constexpr int ST = 32 * SW;        // S threads
+  static constexpr int THREADS = 32 + ST;   // warp 0 runs the chain
+  static constexpr int F = DK / 32;         // features a lane owns in the chain
+  static constexpr int NR = DK / 32;        // rows an S lane owns
+  static_assert(DK % 32 == 0 && PV % CW == 0 && NP * PV == DV && ST % PV == 0 &&
+                    THREADS <= 1024 && NP <= 8,
+                "S layout");
+};
+
 // Sum x over the warp's row bits (lane bits SPR, 2 SPR, ...), leaving each
 // lane VB >> RB of the VB column sums: the lane keeps the upper half where
 // its row bit is set, the lower half where it is clear, at each step.
@@ -268,22 +325,184 @@ __host__ __device__ constexpr size_t smem_floats(int g, int d, bool g1) {
          + (g1 ? 0 : (size_t)g * d);  // the chain's phi(q), one lane's own slots
 }
 
+// The pool's pointers and the step's scalars, as the kernels take them.
+template <typename T>
+struct QArgs {
+  const int* __restrict__ t;
+  const T *__restrict__ q, *__restrict__ k, *__restrict__ v;
+  int8_t *__restrict__ k_pay, *__restrict__ q_pay, *__restrict__ ko_pay, *__restrict__ qi_pay,
+      *__restrict__ s_pay;
+  float *__restrict__ k_sc, *__restrict__ q_sc, *__restrict__ ko_sc, *__restrict__ qi_sc,
+      *__restrict__ s_sc, *__restrict__ z;
+  T* __restrict__ out;
+  int hkv, G, phi, use_alloc;
+  float eps;
+};
+
+// Warp 0's new sums (lane l owning features l F .. l F + F - 1) and, on
+// lane 1, z + e.
+template <int F>
+struct Chain {
+  float ks[F], qs[F], kos[F], qis[F], den;
+};
+
+// Warp 0's flow chain for (slot, kv head) `row`, with shuffles only: the four
+// sums dequantized and advanced, the inflow/outflow dots with phi(q) .
+// phi(k) in one interleaved butterfly, ko/qi, the conserved dots, alloc, e
+// and z; the scalar divisions of a step run on separate lanes at once.  Its
+// reads (the four sum payloads, F bytes a lane, their scales, z, t, the
+// token's features) are issued first.  Leaves sink_in, alloc, phi(q) .
+// phi(k) (G each) and e, t / z in shared memory; writes nothing global.
+template <typename T, int DK, bool G1>
+__device__ __forceinline__ void flow_chain(const QArgs<T>& a, int row, int lane, float* sink,
+                                           float* alloc, float* dqk, float* scal, float* qch,
+                                           Chain<DK / 32>& c) {
+  constexpr int F = DK / 32;
+  const int G = a.G, GG = G1 ? 1 : G, phi = a.phi;
+  const float eps = a.eps;
+  const T* qb = a.q + (size_t)row * G * DK;
+  const T* kb = a.k + (size_t)row * DK;
+  const size_t o = (size_t)row * DK + lane * F;
+  const int f0 = lane * F;
+  Bytes<F> kp, qp, kop, qip;
+  kp.load(a.k_pay + o);
+  qp.load(a.q_pay + o);
+  kop.load(a.ko_pay + o);
+  qip.load(a.qi_pay + o);
+  const float k_old = a.k_sc[row], q_old = a.q_sc[row], ko_old = a.ko_sc[row],
+              qi_old = a.qi_sc[row];
+  const float z_old = a.z[row];
+  const float tf = (float)a.t[row / a.hkv], fG = (float)G;  // count after this token
+  float pk[F], pq0[F];
+  load_f<F>(kb + f0, pk);
+  load_f<F>(qb + f0, pq0);
+#pragma unroll
+  for (int f = 0; f < F; ++f) pk[f] = phi_fn(pk[f], phi), pq0[f] = phi_fn(pq0[f], phi);
+  if (!G1) {
+    for (int g = 0; g < G; ++g) {
+      float x[F];
+      load_f<F>(qb + (size_t)g * DK + f0, x);
+#pragma unroll
+      for (int f = 0; f < F; ++f) qch[g * DK + f0 + f] = phi_fn(x[f], phi);
+    }
+  }
+  auto pq = [&](int g, int f) { return G1 ? pq0[f] : qch[g * DK + f0 + f]; };
+
+  // level 1: the k and q sums; sink_in, src_out and phi(q) . phi(k)
+  float a0 = 0.f, a_out = 0.f, d0 = 0.f;
+#pragma unroll
+  for (int f = 0; f < F; ++f) {
+    float x = 0.f;
+    for (int g = 0; g < GG; ++g) x += pq(g, f);
+    c.ks[f] = deq_add(kp.at(f), k_old, pk[f]);
+    c.qs[f] = deq_add(qp.at(f), q_old, x);
+    a0 += (pq(0, f) + eps) * (c.ks[f] + eps);
+    a_out += (pk[f] + eps) * (c.qs[f] + eps);
+    d0 += pq(0, f) * pk[f];
+  }
+  warp_sum3(a0, a_out, d0);
+  // two divisions at once: lane 0 sink_in of group 0, lane 1 src_out
+  const float r1 = (lane == 1 ? tf * fG : tf) / (lane == 1 ? a_out : a0);
+  const float sink0 = __shfl_sync(kFull, r1, 0), src = __shfl_sync(kFull, r1, 1);
+  if (lane == 0) sink[0] = sink0, dqk[0] = d0;
+  for (int g = 1; g < GG; ++g) {
+    float s = 0.f, dd = 0.f;
+#pragma unroll
+    for (int f = 0; f < F; ++f) {
+      s += (pq(g, f) + eps) * (c.ks[f] + eps);
+      dd += pq(g, f) * pk[f];
+    }
+    warp_sum2(s, dd);
+    if (lane == 0) sink[g] = tf / s, dqk[g] = dd;
+  }
+  __syncwarp();
+  // level 2: the ko and qi sums, the conserved flows
+  float c0s = 0.f, c_src = 0.f;
+#pragma unroll
+  for (int f = 0; f < F; ++f) {
+    float x = 0.f;
+    for (int g = 0; g < GG; ++g) x += __fmul_rn(pq(g, f), G1 ? sink0 : sink[g]);
+    c.kos[f] = deq_add(kop.at(f), ko_old, __fmul_rn(pk[f], src));
+    c.qis[f] = deq_add(qip.at(f), qi_old, x);
+    c0s += (pq(0, f) + eps) * (c.kos[f] + eps);
+    c_src += (pk[f] + eps) * (c.qis[f] + eps);
+  }
+  warp_sum2(c0s, c_src);
+  const float n_q = tf * fG;
+  // lane 0: alloc = sigmoid(c0s / n_q); lane 1: e = exp(clip(c_src / t)),
+  // z + e and t / (z + e) -- each step one division or exp for both
+  const float r2 = (lane == 1 ? c_src : c0s) / (lane == 1 ? tf : n_q);
+  const float ex = expf(lane == 1 ? fminf(fmaxf(r2, -1.f), 1.f) : -r2);
+  const float den = (lane == 1 ? z_old : 1.f) + ex;
+  const float r3 = (lane == 1 ? tf : 1.f) / den;
+  const float alloc0 = __shfl_sync(kFull, r3, 0);
+  if (lane == 0) alloc[0] = a.use_alloc ? alloc0 : 1.f;
+  for (int g = 1; g < GG; ++g) {
+    float s = 0.f;
+#pragma unroll
+    for (int f = 0; f < F; ++f) s += (pq(g, f) + eps) * (c.kos[f] + eps);
+    s = warp_sum(s);
+    if (lane == 0) alloc[g] = a.use_alloc ? 1.f / (1.f + expf(-(s / n_q))) : 1.f;
+  }
+  c.den = den;
+  if (lane == 1) {
+    scal[0] = ex;  // e
+    scal[1] = r3;  // t / z
+  }
+}
+
+// Warp 0 after barrier 1: the four sums' fresh amaxes, lane j < 4 dividing
+// for leaf j's scale; returns lane j's scale and all four in `sc`.
+template <int F>
+__device__ __forceinline__ float sum_scales(const Chain<F>& c, int lane, float (&sc)[4]) {
+  float m[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int f = 0; f < F; ++f) {
+    m[0] = fmaxf(m[0], fabsf(c.ks[f]));
+    m[1] = fmaxf(m[1], fabsf(c.qs[f]));
+    m[2] = fmaxf(m[2], fabsf(c.kos[f]));
+    m[3] = fmaxf(m[3], fabsf(c.qis[f]));
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) m[j] = fmaxf(m[j], __shfl_xor_sync(kFull, m[j], off));
+  const float mine = lane == 0 ? m[0] : lane == 1 ? m[1] : lane == 2 ? m[2] : m[3];
+  const float sc_l = new_scale(mine);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) sc[j] = __shfl_sync(kFull, sc_l, j);
+  return sc_l;
+}
+
+// Warp 0 after barrier 2: the sums' payloads in place, lane j < 4 leaf j's
+// scale.
+template <typename T, int F>
+__device__ __forceinline__ void write_sums(const QArgs<T>& a, const Chain<F>& c, int row,
+                                           int lane, float sc_l, const float (&sc)[4]) {
+  const size_t o = (size_t)row * (32 * F) + lane * F;
+  auto requant = [&](const float(&x)[F], float scale, int8_t* pay) {
+    Bytes<F> b;
+    b.clear();
+#pragma unroll
+    for (int f = 0; f < F; ++f) b.set(f, quantize(x[f], scale));
+    b.store(pay + o);
+  };
+  requant(c.ks, sc[0], a.k_pay);
+  requant(c.qs, sc[1], a.q_pay);
+  requant(c.kos, sc[2], a.ko_pay);
+  requant(c.qis, sc[3], a.qi_pay);
+  if (lane < 4) (lane == 0 ? a.k_sc : lane == 1 ? a.q_sc : lane == 2 ? a.ko_sc : a.qi_sc)[row] = sc_l;
+}
+
 // Four CTAs an SM at D <= 64: ptxas then spills a few words at D = 64;
 // three CTAs an SM, without the spill, ran slower at 1,024 slots.
 template <typename T, int D, bool G1>
 __global__ void __launch_bounds__(kThreads, D <= 64 ? 4 : 1)
-flow_decode_q_kernel(const int* __restrict__ t, const T* __restrict__ q,
-                     const T* __restrict__ k, const T* __restrict__ v,
-                     int8_t* __restrict__ k_pay, int8_t* __restrict__ q_pay,
-                     int8_t* __restrict__ ko_pay, int8_t* __restrict__ qi_pay,
-                     int8_t* __restrict__ s_pay, float* __restrict__ k_sc,
-                     float* __restrict__ q_sc, float* __restrict__ ko_sc,
-                     float* __restrict__ qi_sc, float* __restrict__ s_sc,
-                     float* __restrict__ z, T* __restrict__ out, int hkv, int G,
-                     int phi, int use_alloc, float eps) {
+flow_decode_q_kernel(const QArgs<T> a) {
   using SH = Shape<D>;
   constexpr int F = SH::F, VB = SH::VB, NV = SH::NV;
   extern __shared__ float sm[];
+  const int G = a.G, phi = a.phi;
   float* part = sm;                  // kSWarps x G x D
   float* sink = part + kSWarps * G * D;
   float* alloc = sink + G;
@@ -294,15 +513,13 @@ flow_decode_q_kernel(const int* __restrict__ t, const T* __restrict__ q,
   const int row = blockIdx.x;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int s = threadIdx.x - 32, sw = warp - 1;  // S warps: thread s of 256
-  const T* qb = q + (size_t)row * G * D;
-  const T* kb = k + (size_t)row * D;
-  const T* vb = v + (size_t)row * D;
-  const int GG = G1 ? 1 : G;
-  int8_t* sb = s_pay + (size_t)row * D * D;
+  const T* qb = a.q + (size_t)row * G * D;
+  const T* kb = a.k + (size_t)row * D;
+  const T* vb = a.v + (size_t)row * D;
+  int8_t* sb = a.s_pay + (size_t)row * D * D;
 
   // warp 0's chain values, kept across barrier 1
-  float ks[F], qs[F], kos[F], qis[F];
-  const size_t o = (size_t)row * D + lane * F;
+  Chain<F> c;
   // the S warps' values: S's payload bytes, then deq(S), then S_new
   Bytes<VB> sp[NV];
   float sn[NV][VB];
@@ -310,97 +527,13 @@ flow_decode_q_kernel(const int* __restrict__ t, const T* __restrict__ q,
   const int c0 = (s % SH::SPR) * VB;
 
   if (warp == 0) {
-    // ---- the flow chain, lane l owning features f0 .. f0 + F - 1 ----
-    const int f0 = lane * F;
-    Bytes<F> kp, qp, kop, qip;
-    kp.load(k_pay + o);
-    qp.load(q_pay + o);
-    kop.load(ko_pay + o);
-    qip.load(qi_pay + o);
-    const float k_old = k_sc[row], q_old = q_sc[row], ko_old = ko_sc[row], qi_old = qi_sc[row];
-    const float z_old = z[row];
-    const float tf = (float)t[row / hkv], fG = (float)G;  // count after this token
-    float pk[F], pq0[F];
-    load_f<F>(kb + f0, pk);
-    load_f<F>(qb + f0, pq0);
-#pragma unroll
-    for (int f = 0; f < F; ++f) pk[f] = phi_fn(pk[f], phi), pq0[f] = phi_fn(pq0[f], phi);
-    if (!G1) {
-      for (int g = 0; g < G; ++g) {
-        float x[F];
-        load_f<F>(qb + (size_t)g * D + f0, x);
-#pragma unroll
-        for (int f = 0; f < F; ++f) qch[g * D + f0 + f] = phi_fn(x[f], phi);
-      }
-    }
-    auto pq = [&](int g, int f) { return G1 ? pq0[f] : qch[g * D + f0 + f]; };
-
-    // level 1: the k and q sums; sink_in, src_out and phi(q) . phi(k)
-    float a0 = 0.f, a_out = 0.f, d0 = 0.f;
-#pragma unroll
-    for (int f = 0; f < F; ++f) {
-      float x = 0.f;
-      for (int g = 0; g < GG; ++g) x += pq(g, f);
-      ks[f] = deq_add(kp.at(f), k_old, pk[f]);
-      qs[f] = deq_add(qp.at(f), q_old, x);
-      a0 += (pq(0, f) + eps) * (ks[f] + eps);
-      a_out += (pk[f] + eps) * (qs[f] + eps);
-      d0 += pq(0, f) * pk[f];
-    }
-    warp_sum3(a0, a_out, d0);
-    // two divisions at once: lane 0 sink_in of group 0, lane 1 src_out
-    const float r1 = (lane == 1 ? tf * fG : tf) / (lane == 1 ? a_out : a0);
-    const float sink0 = __shfl_sync(kFull, r1, 0), src = __shfl_sync(kFull, r1, 1);
-    if (lane == 0) sink[0] = sink0, dqk[0] = d0;
-    for (int g = 1; g < GG; ++g) {
-      float a = 0.f, dd = 0.f;
-#pragma unroll
-      for (int f = 0; f < F; ++f) {
-        a += (pq(g, f) + eps) * (ks[f] + eps);
-        dd += pq(g, f) * pk[f];
-      }
-      warp_sum2(a, dd);
-      if (lane == 0) sink[g] = tf / a, dqk[g] = dd;
-    }
-    __syncwarp();
-    // level 2: the ko and qi sums, the conserved flows
-    float c0s = 0.f, c_src = 0.f;
-#pragma unroll
-    for (int f = 0; f < F; ++f) {
-      float x = 0.f;
-      for (int g = 0; g < GG; ++g) x += __fmul_rn(pq(g, f), G1 ? sink0 : sink[g]);
-      kos[f] = deq_add(kop.at(f), ko_old, __fmul_rn(pk[f], src));
-      qis[f] = deq_add(qip.at(f), qi_old, x);
-      c0s += (pq(0, f) + eps) * (kos[f] + eps);
-      c_src += (pk[f] + eps) * (qis[f] + eps);
-    }
-    warp_sum2(c0s, c_src);
-    const float n_q = tf * fG;
-    // lane 0: alloc = sigmoid(c0s / n_q); lane 1: e = exp(clip(c_src / t)),
-    // z + e and t / (z + e) -- each step one division or exp for both
-    const float r2 = (lane == 1 ? c_src : c0s) / (lane == 1 ? tf : n_q);
-    const float ex = expf(lane == 1 ? fminf(fmaxf(r2, -1.f), 1.f) : -r2);
-    const float den = (lane == 1 ? z_old : 1.f) + ex;
-    const float r3 = (lane == 1 ? tf : 1.f) / den;
-    const float alloc0 = __shfl_sync(kFull, r3, 0);
-    if (lane == 0) alloc[0] = use_alloc ? alloc0 : 1.f;
-    for (int g = 1; g < GG; ++g) {
-      float a = 0.f;
-#pragma unroll
-      for (int f = 0; f < F; ++f) a += (pq(g, f) + eps) * (kos[f] + eps);
-      a = warp_sum(a);
-      if (lane == 0) alloc[g] = use_alloc ? 1.f / (1.f + expf(-(a / n_q))) : 1.f;
-    }
-    if (lane == 1) {
-      z[row] = den;  // z + e
-      scal[0] = ex;  // e
-      scal[1] = r3;  // t / z
-    }
+    flow_chain<T, D, G1>(a, row, lane, sink, alloc, dqk, scal, qch, c);
+    if (lane == 1) a.z[row] = c.den;  // z + e
   } else {
     // ---- entry of the S warps: every global read, as vector loads ----
 #pragma unroll
     for (int i = 0; i < NV; ++i) sp[i].load(sb + (size_t)(i * kSThreads + s) * VB);
-    s_old = s_sc[row];
+    s_old = a.s_sc[row];
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
       const int r = i * SH::RPL + s / SH::SPR;
@@ -439,12 +572,12 @@ flow_decode_q_kernel(const int* __restrict__ t, const T* __restrict__ q,
   if (warp > 0) {
     const float e = scal[0], ratio = scal[1];
     for (int i = s; i < G * D; i += kSThreads) {
-      const int g = i / D, c = i - g * D;
-      float acc = part[(size_t)g * D + c];
+      const int g = i / D, cc = i - g * D;
+      float acc = part[(size_t)g * D + cc];
 #pragma unroll
-      for (int w = 1; w < kSWarps; ++w) acc += part[((size_t)w * G + g) * D + c];
+      for (int w = 1; w < kSWarps; ++w) acc += part[((size_t)w * G + g) * D + cc];
       const float y = sink[g] * (acc + dqk[g] * __fmul_rn(v_out, e));
-      out[(size_t)row * G * D + i] = from_f32<T>(y * ratio * alloc[g]);
+      a.out[(size_t)row * G * D + i] = from_f32<T>(y * ratio * alloc[g]);
     }
     // S_new = deq(S) + phi(k) (v e)^T and this warp's amax
     float m = 0.f;
@@ -460,24 +593,8 @@ flow_decode_q_kernel(const int* __restrict__ t, const T* __restrict__ q,
     m = warp_max(m);
     if (lane == 0) red[sw] = m;
   } else {
-    // the sums' fresh amaxes and scales while the S warps work; lane j < 4
-    // divides for leaf j
-    float m[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int f = 0; f < F; ++f) {
-      m[0] = fmaxf(m[0], fabsf(ks[f]));
-      m[1] = fmaxf(m[1], fabsf(qs[f]));
-      m[2] = fmaxf(m[2], fabsf(kos[f]));
-      m[3] = fmaxf(m[3], fabsf(qis[f]));
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) m[j] = fmaxf(m[j], __shfl_xor_sync(kFull, m[j], off));
-    const float mine = lane == 0 ? m[0] : lane == 1 ? m[1] : lane == 2 ? m[2] : m[3];
-    sc_l = new_scale(mine);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) sum_sc[j] = __shfl_sync(kFull, sc_l, j);
+    // the sums' fresh amaxes and scales while the S warps work
+    sc_l = sum_scales<F>(c, lane, sum_sc);
   }
   __syncthreads();  // 2: S's amax
 
@@ -493,75 +610,288 @@ flow_decode_q_kernel(const int* __restrict__ t, const T* __restrict__ q,
       for (int j = 0; j < VB; ++j) sp[i].set(j, quantize(sn[i][j], sc));
       sp[i].store(sb + (size_t)(i * kSThreads + s) * VB);
     }
-    if (s == 0) s_sc[row] = sc;
+    if (s == 0) a.s_sc[row] = sc;
   } else {
     // the sums' payloads, in place (their scales are the chain warp's sc)
-    auto requant = [&](const float(&x)[F], float scale, int8_t* pay) {
-      Bytes<F> b;
-      b.clear();
-#pragma unroll
-      for (int f = 0; f < F; ++f) b.set(f, quantize(x[f], scale));
-      b.store(pay + o);
-    };
-    requant(ks, sum_sc[0], k_pay);
-    requant(qs, sum_sc[1], q_pay);
-    requant(kos, sum_sc[2], ko_pay);
-    requant(qis, sum_sc[3], qi_pay);
-    if (lane < 4) (lane == 0 ? k_sc : lane == 1 ? q_sc : lane == 2 ? ko_sc : qi_sc)[row] = sc_l;
+    write_sums<T, F>(a, c, row, lane, sc_l, sum_sc);
   }
 }
 
-struct Args {
-  const void *t, *q, *k, *v;
-  void *k_pay, *q_pay, *ko_pay, *qi_pay, *s_pay;
-  void *k_sc, *q_sc, *ko_sc, *qi_sc, *s_sc, *z, *out;
-};
+// The column layout (ColShape): D = 192 beside Dv = 128 or 192 in one CTA of
+// Dv / 8 S warps (544 or 800 threads), D = Dv = 256 as a cluster of four
+// CTAs a row, one panel of 64 columns each (288 threads).  The chain warp is
+// the row layout's; the S warps hold S by columns, so one G x PV row of
+// partials suffices.  The requantize takes one amax over the whole (D, Dv)
+// state: in a cluster each CTA's S warps leave their amaxes in shared
+// memory, and after a cluster barrier every CTA reads all NP x SW of them
+// through distributed shared memory, in rank and warp order, before any
+// payload is written; all four then hold the same scale.  The four sums, z
+// and the S scale, which every CTA reads at entry, are written only by the
+// first panel's CTA and only after that barrier; a last cluster barrier
+// keeps every CTA's shared memory alive until the others have read it.
+template <typename T, int DK, int DV, int PV, bool G1>
+__global__ void __launch_bounds__(ColShape<DK, DV, PV>::THREADS, 1)
+flow_decode_q_cols_kernel(const QArgs<T> a) {
+  using SH = ColShape<DK, DV, PV>;
+  constexpr int F = SH::F, CW = SH::CW, NR = SH::NR, SW = SH::SW, ST = SH::ST, NP = SH::NP;
+  extern __shared__ float sm[];
+  const int G = a.G, phi = a.phi;
+  float* part = sm;                  // G x PV
+  float* sink = part + G * PV;
+  float* alloc = sink + G;
+  float* dqk = alloc + G;
+  float* scal = dqk + G;             // [0] e, [1] t / z
+  float* red = scal + 2;             // SW: the S warps' amaxes
+  float* qch = red + SW;             // G x DK, G > 1 only
+  float* vsm = qch + (G1 ? 0 : G * DK);  // PV: v at the panel's columns
+  // NP CTAs (one cluster) a row, each the PV columns from p0
+  const int row = blockIdx.x / NP, p0 = (blockIdx.x % NP) * PV;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int si = threadIdx.x - 32, sw = warp - 1;  // S warps: thread si of ST
+  const int cw0 = sw * CW;  // the S warp's columns within the panel
+  const T* qb = a.q + (size_t)row * G * DK;
+  const T* kb = a.k + (size_t)row * DK;
+  const T* vb = a.v + (size_t)row * DV;
+  int8_t* sb = a.s_pay + (size_t)row * DK * DV;
+
+  Chain<F> c;
+  Bytes<CW> sp[NR];
+  float sn[NR][CW];
+  float kr[NR], vc[CW];
+
+  if (warp == 0) {
+    flow_chain<T, DK, G1>(a, row, lane, sink, alloc, dqk, scal, qch, c);
+    if constexpr (NP == 1)
+      if (lane == 1) a.z[row] = c.den;  // z + e
+  } else {
+    // ---- entry of the S warps: S (eight bytes a row), phi(k) at the
+    // lane's rows, v into shared memory ----
+#pragma unroll
+    for (int i = 0; i < NR; ++i) sp[i].load(sb + (size_t)(i * 32 + lane) * DV + p0 + cw0);
+    const float s_old = a.s_sc[row];
+#pragma unroll
+    for (int i = 0; i < NR; ++i) kr[i] = to_f32(kb[i * 32 + lane]);
+    if (si < PV) vsm[si] = to_f32(vb[p0 + si]);
+#pragma unroll
+    for (int i = 0; i < NR; ++i) {
+      kr[i] = phi_fn(kr[i], phi);
+#pragma unroll
+      for (int j = 0; j < CW; ++j) sn[i][j] = __fmul_rn(sp[i].at(j), s_old);
+    }
+    // the warp's columns of phi(q) @ deq(S) over every row
+    for (int g = 0; g < G; ++g) {
+      float acc[CW];
+#pragma unroll
+      for (int j = 0; j < CW; ++j) acc[j] = 0.f;
+#pragma unroll
+      for (int i = 0; i < NR; ++i) {
+        const float p = phi_fn(to_f32(qb[(size_t)g * DK + i * 32 + lane]), phi);
+#pragma unroll
+        for (int j = 0; j < CW; ++j) acc[j] += p * sn[i][j];
+      }
+      // lane bits 0-2 scatter the eight columns, bits 3-4 sum the rest
+      const int off = reduce_scatter<CW, 3, 1>(acc, lane);
+      acc[0] += __shfl_xor_sync(kFull, acc[0], 8);
+      acc[0] += __shfl_xor_sync(kFull, acc[0], 16);
+      if (lane < CW) part[(size_t)g * PV + cw0 + off] = acc[0];
+    }
+  }
+  __syncthreads();  // 1: the chain's scalars and every partial
+
+  float sc_l = 0.f, sum_sc[4];  // warp 0: lane j's leaf scale; all four
+  if (warp > 0) {
+    const float e = scal[0], ratio = scal[1];
+    const float v_out = vsm[si % PV];  // the column of this thread's outputs
+    for (int i = si; i < G * PV; i += ST) {
+      const int g = i / PV, cc = i - g * PV;
+      const float y = sink[g] * (part[(size_t)g * PV + cc] + dqk[g] * __fmul_rn(v_out, e));
+      a.out[((size_t)row * G + g) * DV + p0 + cc] = from_f32<T>(y * ratio * alloc[g]);
+    }
+    // S_new = deq(S) + phi(k) (v e)^T and this warp's amax
+    float m = 0.f;
+#pragma unroll
+    for (int j = 0; j < CW; ++j) vc[j] = __fmul_rn(vsm[cw0 + j], e);
+#pragma unroll
+    for (int i = 0; i < NR; ++i)
+#pragma unroll
+      for (int j = 0; j < CW; ++j) {
+        sn[i][j] = __fadd_rn(sn[i][j], __fmul_rn(kr[i], vc[j]));
+        m = fmaxf(m, fabsf(sn[i][j]));
+      }
+    m = warp_max(m);
+    if (lane == 0) red[sw] = m;
+  } else {
+    sc_l = sum_scales<F>(c, lane, sum_sc);
+  }
+  float amax = 0.f;
+  if constexpr (NP == 1) {
+    __syncthreads();  // 2: S's amax
+    if (warp > 0) {
+      amax = red[0];
+#pragma unroll
+      for (int w = 1; w < SW; ++w) amax = fmaxf(amax, red[w]);
+    }
+  } else {
+    // 2: every CTA's S amaxes, and every CTA has read the sums, z and the
+    // old scales
+    cgrp::cluster_group cluster = cgrp::this_cluster();
+    cluster.sync();
+    if (warp > 0) {
+#pragma unroll
+      for (int r = 0; r < NP; ++r) {
+        const float* rr = cluster.map_shared_rank(red, r);
+#pragma unroll
+        for (int w = 0; w < SW; ++w) amax = fmaxf(amax, rr[w]);  // every amax >= 0
+      }
+    }
+  }
+
+  if (warp > 0) {  // this panel of S requantized in place
+    const float sc = new_scale(amax);
+#pragma unroll
+    for (int i = 0; i < NR; ++i) {
+      sp[i].clear();
+#pragma unroll
+      for (int j = 0; j < CW; ++j) sp[i].set(j, quantize(sn[i][j], sc));
+      sp[i].store(sb + (size_t)(i * 32 + lane) * DV + p0 + cw0);
+    }
+    if (si == 0 && p0 == 0) a.s_sc[row] = sc;
+  } else if (p0 == 0) {
+    // the sums' payloads and scales in place, and z + e where a cluster
+    // deferred it
+    write_sums<T, F>(a, c, row, lane, sc_l, sum_sc);
+    if constexpr (NP > 1)
+      if (lane == 1) a.z[row] = c.den;
+  }
+  if constexpr (NP > 1) cgrp::this_cluster().sync();  // the others read red
+}
 
 template <typename T, int D, bool G1>
-cudaError_t launch_g(const Args& a, int bh, int hkv, int g, int phi, int use_alloc, float eps,
-                     cudaStream_t stream) {
+cudaError_t launch_rows(const QArgs<T>& a, int bh, cudaStream_t stream) {
   auto kern = flow_decode_q_kernel<T, D, G1>;
-  const size_t bytes = smem_floats(g, D, G1) * sizeof(float);
+  const size_t bytes = smem_floats(a.G, D, G1) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
-  kern<<<bh, kThreads, bytes, stream>>>(
-      (const int*)a.t, (const T*)a.q, (const T*)a.k, (const T*)a.v, (int8_t*)a.k_pay,
-      (int8_t*)a.q_pay, (int8_t*)a.ko_pay, (int8_t*)a.qi_pay, (int8_t*)a.s_pay,
-      (float*)a.k_sc, (float*)a.q_sc, (float*)a.ko_sc, (float*)a.qi_sc, (float*)a.s_sc,
-      (float*)a.z, (T*)a.out, hkv, g, phi, use_alloc, eps);
+  kern<<<bh, kThreads, bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch(const Args& a, int bh, int hkv, int g, int phi, int use_alloc, float eps,
-                   cudaStream_t stream) {
-  if (g == 1) return launch_g<T, D, true>(a, bh, hkv, g, phi, use_alloc, eps, stream);
-  return launch_g<T, D, false>(a, bh, hkv, g, phi, use_alloc, eps, stream);
+__host__ __device__ constexpr size_t cols_smem_floats(int g, int dk, int pv, int sw, bool g1) {
+  return (size_t)g * pv        // partials of phi(q) @ deq(S): whole sums
+         + 3 * (size_t)g + 2   // sink_in, alloc, phi(q) . phi(k); e, t / z
+         + sw                  // S's per-warp amax
+         + (g1 ? 0 : (size_t)g * dk)  // the chain's phi(q)
+         + pv;                 // v at the panel's columns
 }
 
-template <typename T>
-cudaError_t dispatch(int d, const Args& a, int bh, int hkv, int g, int phi, int use_alloc,
-                     float eps, cudaStream_t stream) {
+template <typename T, int DK, int DV, int PV, bool G1>
+cudaError_t launch_cols(const QArgs<T>& a, int bh, cudaStream_t stream) {
+  using SH = ColShape<DK, DV, PV>;
+  auto kern = flow_decode_q_cols_kernel<T, DK, DV, PV, G1>;
+  const size_t bytes = cols_smem_floats(a.G, DK, PV, SH::SW, G1) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  if constexpr (SH::NP == 1) {
+    kern<<<bh, SH::THREADS, bytes, stream>>>(a);
+  } else {  // a cluster of NP CTAs a row, one a panel of Dv
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(bh * SH::NP, 1, 1);
+    cfg.blockDim = dim3(SH::THREADS, 1, 1);
+    cfg.dynamicSmemBytes = bytes;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = SH::NP;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, kern, a);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaGetLastError();
+}
+
+// The (D, Dv) pairs with an instantiation: D == Dv in {32, 64, 128, 256},
+// and D = 192 beside Dv = 128 or 192 (K3's, flow_decode.cu).
+inline bool takes(int d, int dv) {
+  if (d == 192) return dv == 128 || dv == 192;
+  if (d == 256) return dv == 256;
+  return d == dv && (d == 32 || d == 64 || d == 128);
+}
+
+template <typename T, bool G1>
+cudaError_t dispatch_g(int d, int dv, const QArgs<T>& a, int bh, cudaStream_t st) {
+  if (d == 192)
+    return dv == 128 ? launch_cols<T, 192, 128, 128, G1>(a, bh, st)
+                     : launch_cols<T, 192, 192, 192, G1>(a, bh, st);
   switch (d) {
-    case 32: return launch<T, 32>(a, bh, hkv, g, phi, use_alloc, eps, stream);
-    case 64: return launch<T, 64>(a, bh, hkv, g, phi, use_alloc, eps, stream);
-    case 128: return launch<T, 128>(a, bh, hkv, g, phi, use_alloc, eps, stream);
+    case 256: return launch_cols<T, 256, 256, 64, G1>(a, bh, st);
+    case 32: return launch_rows<T, 32, G1>(a, bh, st);
+    case 64: return launch_rows<T, 64, G1>(a, bh, st);
+    case 128: return launch_rows<T, 128, G1>(a, bh, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <typename T, int D>
-int occupancy_of(int g) {
+template <typename T>
+cudaError_t dispatch(int d, int dv, const QArgs<T>& a, int bh, cudaStream_t st) {
+  return a.G == 1 ? dispatch_g<T, true>(d, dv, a, bh, st) : dispatch_g<T, false>(d, dv, a, bh, st);
+}
+
+template <typename T>
+QArgs<T> args_of(const void* t, const void* q, const void* k, const void* v, void* k_pay,
+                 void* q_pay, void* ko_pay, void* qi_pay, void* s_pay, void* k_sc, void* q_sc,
+                 void* ko_sc, void* qi_sc, void* s_sc, void* z, void* out, int hkv, int g,
+                 int phi, int use_alloc, float eps) {
+  return QArgs<T>{(const int*)t, (const T*)q, (const T*)k, (const T*)v, (int8_t*)k_pay,
+                  (int8_t*)q_pay, (int8_t*)ko_pay, (int8_t*)qi_pay, (int8_t*)s_pay,
+                  (float*)k_sc, (float*)q_sc, (float*)ko_sc, (float*)qi_sc, (float*)s_sc,
+                  (float*)z, (T*)out, hkv, g, phi, use_alloc, eps};
+}
+
+// The kernel's dynamic shared memory is allowed first, as a launch allows
+// it: above 48 KB the calculator otherwise answers 0.
+template <class K>
+int occupancy(K kern, int threads, size_t bytes) {
   int n = 0;
-  cudaError_t err =
-      g == 1 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                   &n, flow_decode_q_kernel<T, D, true>, kThreads,
-                   smem_floats(g, D, true) * sizeof(float))
-             : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                   &n, flow_decode_q_kernel<T, D, false>, kThreads,
-                   smem_floats(g, D, false) * sizeof(float));
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)bytes);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, threads, bytes);
   return err == cudaSuccess ? n : -(int)err;
+}
+
+template <typename T, bool G1>
+int occupancy_g(int d, int dv, int g) {
+  auto cols = [&](auto kern, int dk, int pv, int sw, int threads) {
+    return occupancy(kern, threads, cols_smem_floats(g, dk, pv, sw, G1) * sizeof(float));
+  };
+  if (d == 192 && dv == 128) {
+    using SH = ColShape<192, 128, 128>;
+    return cols(flow_decode_q_cols_kernel<T, 192, 128, 128, G1>, 192, 128, SH::SW, SH::THREADS);
+  }
+  if (d == 192 && dv == 192) {
+    using SH = ColShape<192, 192, 192>;
+    return cols(flow_decode_q_cols_kernel<T, 192, 192, 192, G1>, 192, 192, SH::SW, SH::THREADS);
+  }
+  if (d == 256 && dv == 256) {
+    using SH = ColShape<256, 256, 64>;
+    return cols(flow_decode_q_cols_kernel<T, 256, 256, 64, G1>, 256, 64, SH::SW, SH::THREADS);
+  }
+  if (d != dv) return -(int)cudaErrorInvalidValue;
+  const size_t bytes = smem_floats(g, d, G1) * sizeof(float);
+  if (d == 32) return occupancy(flow_decode_q_kernel<T, 32, G1>, kThreads, bytes);
+  if (d == 64) return occupancy(flow_decode_q_kernel<T, 64, G1>, kThreads, bytes);
+  if (d == 128) return occupancy(flow_decode_q_kernel<T, 128, G1>, kThreads, bytes);
+  return -(int)cudaErrorInvalidValue;
+}
+
+template <typename T>
+int occupancy_at(int d, int dv, int g) {
+  return g == 1 ? occupancy_g<T, true>(d, dv, g) : occupancy_g<T, false>(d, dv, g);
 }
 
 }  // namespace
@@ -570,39 +900,44 @@ int occupancy_of(int g) {
 // v (BH, Dv) in `dtype` (0 fp32, 1 bf16) with BH = B * hkv; the int8
 // payloads of the k/q/ko/qi sums (BH, D) and of S (BH, D, Dv), their fp32
 // scales (BH,) each and the raw fp32 z (BH,) are updated in place; out
-// (BH, G, Dv) in `dtype`.  D == Dv in {32, 64, 128}; every pointer 16-byte
-// aligned.  Returns a cudaError_t.
+// (BH, G, Dv) in `dtype`.  D == Dv in {32, 64, 128, 256}, or D = 192 with
+// Dv = 128 or 192 (D = 256 as a cluster of four CTAs a row); every pointer
+// 16-byte aligned.  Returns a cudaError_t.
 extern "C" int flow_decode_q_fwd(const void* t, const void* q, const void* k, const void* v,
                                  void* k_pay, void* q_pay, void* ko_pay, void* qi_pay,
                                  void* s_pay, void* k_sc, void* q_sc, void* ko_sc,
                                  void* qi_sc, void* s_sc, void* z, void* out, int bh,
                                  int hkv, int g, int d, int dv, int dtype, int phi,
                                  int use_alloc, float eps, void* stream) {
-  if (d != dv || g < 1 || hkv < 1 || phi < 0 || phi > 2) return (int)cudaErrorInvalidValue;
+  if (!takes(d, dv) || g < 1 || hkv < 1 || phi < 0 || phi > 2) return (int)cudaErrorInvalidValue;
   if (bh == 0) return (int)cudaSuccess;
-  const Args a{t, q, k, v, k_pay, q_pay, ko_pay, qi_pay, s_pay,
-               k_sc, q_sc, ko_sc, qi_sc, s_sc, z, out};
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) return (int)dispatch<float>(d, a, bh, hkv, g, phi, use_alloc, eps, st);
+  if (dtype == 0)
+    return (int)dispatch<float>(d, dv, args_of<float>(t, q, k, v, k_pay, q_pay, ko_pay, qi_pay,
+                                                      s_pay, k_sc, q_sc, ko_sc, qi_sc, s_sc, z,
+                                                      out, hkv, g, phi, use_alloc, eps),
+                                bh, st);
   if (dtype == 1)
-    return (int)dispatch<__nv_bfloat16>(d, a, bh, hkv, g, phi, use_alloc, eps, st);
+    return (int)dispatch<__nv_bfloat16>(
+        d, dv, args_of<__nv_bfloat16>(t, q, k, v, k_pay, q_pay, ko_pay, qi_pay, s_pay, k_sc,
+                                      q_sc, ko_sc, qi_sc, s_sc, z, out, hkv, g, phi, use_alloc,
+                                      eps),
+        bh, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// CTAs of the kernel an SM holds at once for (D, dtype, G), by its
+// CTAs of the kernel an SM holds at once for (D, Dv, dtype, G), by its
 // registers and shared memory; minus a cudaError_t on failure.
-extern "C" int flow_decode_q_occupancy(int d, int dtype, int g) {
+extern "C" int flow_decode_q_occupancy_dv(int d, int dv, int dtype, int g) {
   if (g < 1) return -(int)cudaErrorInvalidValue;
-  if (dtype == 0) {
-    if (d == 32) return occupancy_of<float, 32>(g);
-    if (d == 64) return occupancy_of<float, 64>(g);
-    if (d == 128) return occupancy_of<float, 128>(g);
-  } else if (dtype == 1) {
-    if (d == 32) return occupancy_of<__nv_bfloat16, 32>(g);
-    if (d == 64) return occupancy_of<__nv_bfloat16, 64>(g);
-    if (d == 128) return occupancy_of<__nv_bfloat16, 128>(g);
-  }
+  if (dtype == 0) return occupancy_at<float>(d, dv, g);
+  if (dtype == 1) return occupancy_at<__nv_bfloat16>(d, dv, g);
   return -(int)cudaErrorInvalidValue;
+}
+
+// flow_decode_q_occupancy_dv at D == Dv.
+extern "C" int flow_decode_q_occupancy(int d, int dtype, int g) {
+  return flow_decode_q_occupancy_dv(d, d, dtype, g);
 }
 
 extern "C" const char* flow_decode_q_error_string(int err) {

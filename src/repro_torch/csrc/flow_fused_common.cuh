@@ -639,8 +639,9 @@ __host__ __device__ constexpr int panel_of() { return D <= 128 ? DV : 64; }
 // live (row, chunk) into its slot.  Mode 0 (forward): a = phi(k), b = v e.
 // Mode 1 (K2's cotangent state): a = q_in = phi(q) sink_in, b = dY = g_out
 // scale, summed over the group.  Both zero at and past the length.  One
-// block per (row, chunk).  Where Dv is walked in panels (forward only),
-// the operands are staged once and each panel's sums are stored in turn.
+// block per (row, chunk).  Where Dv is walked in panels, mode 0 stages its
+// operands once and stores each panel's sums in turn; mode 1 is one block
+// per panel (`panel`), its accumulators carried over the group.
 template <typename TT, int D>
 struct StateArgs {
   const TT *q, *k, *v, *g_out;
@@ -652,7 +653,7 @@ struct StateArgs {
 
 template <typename TT, int D, int DV = D>
 __device__ __forceinline__ void state_block(const StateArgs<TT, D>& a, int mode, int row,
-                                            int ci, float* smem) {
+                                            int ci, float* smem, int panel = 0) {
   constexpr int C = chunk_of<D>(), PW = panel_of<D, DV>(), NP = DV / PW;
   static_assert(NP * PW == DV, "panels");
   using O = Own<D, PW>;
@@ -664,7 +665,36 @@ __device__ __forceinline__ void state_block(const StateArgs<TT, D>& a, int mode,
   float acc[O::RM][4];
   const int nc = (N + C - 1) / C;
   float* out = (mode == 0 ? a.states : a.dstates) + ((size_t)row * nc + ci) * D * DV;
-  if constexpr (NP > 1) {  // mode 0: one staging, the panels in turn
+  if constexpr (NP > 1) {
+    if (mode == 1) {  // one panel of the cotangent state, summed over the group
+      const int cp = panel * PW;
+      zero_acc(acc);
+      for (int g = 0; g < G; ++g) {
+        const size_t rg = (size_t)row * G + g;
+        const TT* qr = a.q + rg * N * D;
+        const TT* gr = a.g_out + rg * N * DV;
+        stage<C, D>(A, [&](int t, int c) {
+          const int n = c0 + t;
+          return n < len && c < a.dr
+                     ? scale4(phi4(load4(qr + (size_t)n * D + c), a.phi), a.sink[rg * N + n])
+                     : zero4();
+        });
+        stage<C, PW>(B, [&](int t, int c) {
+          const int n = c0 + t;
+          return n < len ? scale4(load4(gr + (size_t)n * DV + cp + c), a.scale[rg * N + n])
+                         : zero4();
+        });
+        __syncthreads();
+        mm_kk<O::RM, D, PW>(acc, A, B, o.r0, o.c0, 0, C);
+        __syncthreads();
+      }
+#pragma unroll
+      for (int i = 0; i < O::RM; ++i)
+        st4(out + (o.r0 + i) * DV + cp + o.c0,
+            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
+      return;
+    }
+    // mode 0: one staging, the panels in turn
     const TT* kr = a.k + (size_t)row * N * D;
     const TT* vr = a.v + (size_t)row * N * DV;
     stage<C, D>(A, [&](int t, int c) {

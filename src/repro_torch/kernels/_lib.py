@@ -7,7 +7,10 @@ source, the shared ``csrc/*.cuh`` headers and the flags, so an edited
 source rebuilds), then loaded with ``ctypes``.  ``KERNELS`` names the
 kernels whose launches are counted: one source may hold several
 (``flow_nc_qside.cu`` holds K7a and K7b; ``ssd_chunk.cu`` K10a with and
-without carry-ins, counted apart; ``paged_gather.cu`` K8a and K8b).
+without carry-ins, counted apart; ``paged_gather.cu`` K8a and K8b), and one
+kernel may span two sources (K2: ``flow_fused_bwd.cu`` at D <= 128,
+``flow_fused_bwd_wide.cu`` at the wide pairs, one ``flow_fused_bwd``
+count).
 Nothing here runs at import.
 """
 from __future__ import annotations
@@ -17,6 +20,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
+import time
 from pathlib import Path
 
 import torch
@@ -24,7 +29,8 @@ import torch
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("flow_fused", "flow_fused_bwd", "flow_decode", "flow_decode_q",
+SOURCES = ("flow_fused", "flow_fused_bwd", "flow_fused_bwd_wide",
+           "flow_decode", "flow_decode_q",
            "flow_nc_fused", "flow_nc_qside", "flow_chunk", "flow_chunk_bwd",
            "boundary_gather", "ssd_chunk", "ssd_chunk_bwd", "paged_gather")
 KERNELS = ("flow_fused", "flow_fused_bwd", "flow_decode", "flow_decode_q",
@@ -44,15 +50,19 @@ HEAD_DIMS = (32, 64, 128)
 #: width, so that phi is 0 on the padded lanes; K5a and K5b given
 #: operands that phi was applied to before the padding)
 PADDED_HEAD_DIMS = {24: 32}
-#: the (D, Dv) pairs beyond ``HEAD_DIMS``' D == Dv that K1 (flow_fused)
-#: and K3 (flow_decode) take: DeepSeek-V2's MLA heads (q and k 192 wide, v
-#: 128), Nemotron-4-340B's 192-wide ones and RecurrentGemma's 256-wide
-#: ones.  K2, K4, K5a and K5b stay at ``HEAD_DIMS`` (and
-#: ``PADDED_HEAD_DIMS``), so a plan that needs them at these widths
-#: (training, int8 pools) is refused by name
+#: the (D, Dv) pairs beyond ``HEAD_DIMS``' D == Dv that K1 (flow_fused),
+#: K2 (flow_fused_bwd), K3 (flow_decode) and K4 (flow_decode_q) take:
+#: DeepSeek-V2's MLA heads (q and k 192 wide, v 128), Nemotron-4-340B's
+#: 192-wide ones and RecurrentGemma's 256-wide ones.  K5a and K5b stay at
+#: ``HEAD_DIMS`` (and ``PADDED_HEAD_DIMS``), so a plan that needs them at
+#: these widths (the paper-causal mode, the linear branch) is refused by
+#: name
 WIDE_PAIRS = ((192, 128), (192, 192), (256, 256))
-#: the (D, Dv) pairs of K1 and K3: ``HEAD_DIMS`` square, then ``WIDE_PAIRS``
+#: the (D, Dv) pairs of K1 to K4: ``HEAD_DIMS`` square, then ``WIDE_PAIRS``
 FUSED_PAIRS = tuple((d, d) for d in HEAD_DIMS) + WIDE_PAIRS
+#: the opt-in shared memory of one block on the H100 (bytes): what K1's and
+#: K2's super-chunks are sized against on the card
+H100_SMEM_PER_BLOCK = 232_448
 #: the small-head route of the non-causal kernels (K6, K7a, K7b; the vision
 #: and time-series encoders' heads, on the CUDA cores): rows of one block
 #: at each D, one row a thread (``Small<D>::THREADS`` in
@@ -75,6 +85,32 @@ def pad_lanes(x: torch.Tensor) -> torch.Tensor:
     d = x.shape[-1]
     return torch.nn.functional.pad(x, (0, stored_width(d) - d)) \
         if stored_width(d) != d else x
+
+
+def _flow_smem_floats(d: int, t: int, g: int) -> int:
+    """Shared floats of the flows' block (``flow_smem_floats_at`` in
+    ``csrc/flow_fused_common.cuh``)."""
+    return (g + 5) * t * d + 2 * g * t + 4 * t + 2 * 1024 + 4 * d + 4
+
+
+def k2_group_fits(d: int, g: int, limit: int = H100_SMEM_PER_BLOCK) -> bool:
+    """Whether K2 takes a group of ``g`` at head width ``d`` within
+    ``limit`` bytes of shared memory a block: its pull-back (the flows plus
+    (G + 1) T D + 3 G T + 4 T + 4 D + 4 floats, ``pull_smem_floats`` in
+    ``csrc/flow_fused_bwd.cuh``) at a super-chunk of 4 or 2 scan segments
+    (and of one at D = 192, 256), and the flows at one of 8, 4 or 2 no
+    shorter.  A mirror of the C entry's count (``flow_fused_bwd_tile``,
+    which the card tests hold it to): 9 at D = 32, 10 at 64 and 128, 23 at
+    192, 21 at 256 on the H100."""
+    w = stored_width(d)
+    segs = 1024 // w
+    tiles = (4 * segs, 2 * segs) + ((segs,) if w > 128 else ())
+    pull = next((t for t in tiles if 4 * (
+        _flow_smem_floats(w, t, g) + (g + 1) * t * w + 3 * g * t + 4 * t
+        + 4 * w + 4) <= limit), 0)
+    flows = next((t for t in (8 * segs, 4 * segs, 2 * segs)
+                  if 4 * _flow_smem_floats(w, t, g) <= limit), 0)
+    return pull > 0 and flows >= pull
 
 
 def kernel_chunk(n: int, chunk: int, d: int, dv: int) -> int:
@@ -120,7 +156,8 @@ def build(names=SOURCES) -> dict[str, str]:
 
     All ``nvcc`` processes start together and are waited on together.
     Returns the compiler's output (``-Xptxas -v`` register and shared
-    memory report) per source built; raises if any build fails.
+    memory report) per source built, after a first line "built in <s> s"
+    (that source's wall time); raises if any build fails.
     """
     BUILD_DIR.mkdir(exist_ok=True)
     jobs = {}
@@ -133,9 +170,21 @@ def build(names=SOURCES) -> dict[str, str]:
         jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True),
                       tmp, out)
+    t0, done = time.perf_counter(), {}
+
+    def wait(name, proc):  # the output, and when this source finished
+        done[name] = (proc.communicate()[0], time.perf_counter() - t0)
+
+    waiters = [threading.Thread(target=wait, args=(name, proc))
+               for name, (proc, _, _) in jobs.items()]
+    for w in waiters:
+        w.start()
+    for w in waiters:
+        w.join()
     logs, failed = {}, []
     for name, (proc, tmp, out) in jobs.items():
-        logs[name], _ = proc.communicate()
+        text, secs = done[name]
+        logs[name] = f"built in {secs:.1f} s\n{text}"
         if proc.returncode == 0:
             os.replace(tmp, out)
         else:

@@ -17,7 +17,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _lib
-from repro_torch.kernels._lib import DTYPE_CODES, HEAD_DIMS, LAUNCHES, PHI_CODES
+from repro_torch.kernels._lib import (DTYPE_CODES, FUSED_PAIRS, HEAD_DIMS,
+                                      LAUNCHES, PHI_CODES, WIDE_PAIRS)
 from repro_torch.kernels.flow_decode.ref import flow_decode_q_ref
 
 __all__ = ["LAUNCHES", "flow_decode_q_call"]
@@ -36,7 +37,9 @@ def flow_decode_q_call(t, q, k, v, sum_payloads, s_payload, sum_scales,
     v: (BH, Dv); ``sum_payloads`` the (k, q, ko, qi) sums' int8 payloads
     (BH, D) and ``sum_scales`` their fp32 scales (BH, 1), in that order;
     s_payload (BH, D, Dv) int8; s_scale (BH, 1) fp32; z (BH,) fp32; with
-    BH = B * hkv.  Returns out (BH, G, Dv) in q's dtype.
+    BH = B * hkv; (D, Dv) in ``_lib.FUSED_PAIRS`` (D = Dv = 256 runs as a
+    cluster of four CTAs a row, sharing one fresh S scale).  Returns out
+    (BH, G, Dv) in q's dtype.
     """
     pays = (*sum_payloads, s_payload)
     scales = (*sum_scales, s_scale)
@@ -83,8 +86,9 @@ def flow_decode_q_call(t, q, k, v, sum_payloads, s_payload, sum_scales,
         if tuple(x.shape) != want[name]:
             raise ValueError(f"{name} has shape {tuple(x.shape)}, "
                              f"want {want[name]}")
-    if d != dv or d not in HEAD_DIMS:
-        raise ValueError(f"kernel takes D == Dv in {HEAD_DIMS}, got {d}/{dv}")
+    if (d, dv) not in FUSED_PAIRS:
+        raise ValueError(f"kernel takes D == Dv in {HEAD_DIMS}, or (D, Dv) "
+                         f"in {WIDE_PAIRS}, got {d}/{dv}")
     if phi not in PHI_CODES:
         raise ValueError(f"unknown phi {phi!r}")
 

@@ -1,4 +1,6 @@
-"""Wrapper of the flow_fused backward CUDA kernel (``csrc/flow_fused_bwd.cu``).
+"""Wrapper of the flow_fused backward CUDA kernel (``csrc/flow_fused_bwd.cu``
+at D <= 128, ``csrc/flow_fused_bwd_wide.cu`` at ``_lib.WIDE_PAIRS``; both
+instantiate ``csrc/flow_fused_bwd.cuh``).
 
 ``flow_fused_bwd_call`` is K2, the counterpart of
 ``repro/kernels/flow_fused/bwd.py::flow_fused_bwd_call``: the gradients of
@@ -16,7 +18,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import _lib
 from repro_torch.kernels._lib import (DTYPE_CODES, LAUNCHES, PHI_CODES,
-                                      pad_lanes, stored_width)
+                                      WIDE_PAIRS, pad_lanes, stored_width)
 from repro_torch.kernels.flow_fused.ops import check_flat, workspace
 from repro_torch.kernels.flow_fused.ref import flow_fused_bwd_ref
 
@@ -52,10 +54,13 @@ def flow_fused_bwd_call(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     chunk each) and the chunk stage's d q_in, d phi(k) and per-position
     scalars for the flows' pull-back.  One call is one count in
     ``LAUNCHES`` and five CUDA kernels.  Returns (dq, dk, dv) in the
-    primal dtypes; positions past ``lens`` get zeros.  A D of
-    ``PADDED_HEAD_DIMS`` runs on its stored width, as ``flow_fused_call``
-    does: q, k, v, ``g_out`` and ``g_sums`` zero-padded, the gradients
-    sliced back to D.
+    primal dtypes; positions past ``lens`` get zeros.  (D, Dv) as
+    ``flow_fused_call`` takes them (``check_flat``), the wide pairs
+    included; a group whose pull-back does not fit a block's shared memory
+    (``_lib.k2_group_fits``) is refused by the workspace count, naming D
+    and G.  A D of ``PADDED_HEAD_DIMS`` runs on its stored width, as
+    ``flow_fused_call`` does: q, k, v, ``g_out`` and ``g_sums``
+    zero-padded, the gradients sliced back to D.
     """
     if q.shape[2] % chunk:
         raise ValueError(f"N={q.shape[2]} is not a multiple of chunk={chunk}")
@@ -63,26 +68,30 @@ def flow_fused_bwd_call(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flow_fused_bwd_ref(q, k, v, lens, g_out, g_sums, chunk=chunk,
                                   eps=eps, phi=phi, use_alloc=use_alloc)
     bh, g, n, d = check_flat(q, k, v, lens, phi)
+    dv_dim = v.shape[-1]
+    want = (bh, g, n, dv_dim)
     if (g_out.device != q.device or g_out.dtype != q.dtype
-            or g_out.shape != q.shape or not g_out.is_contiguous()):
+            or tuple(g_out.shape) != want or not g_out.is_contiguous()):
         raise ValueError(f"g_out must be contiguous {q.dtype} of shape "
-                         f"{tuple(q.shape)} on {q.device}")
-    shapes = [(bh, d)] * 4 + [(bh,), (bh, d, d)]
+                         f"{want} on {q.device}")
+    shapes = [(bh, d)] * 4 + [(bh,), (bh, d, dv_dim)]
     _check_state("totals", totals, shapes, q.device)
     _check_state("g_sums", g_sums, shapes, q.device)
 
     w = stored_width(d)
-    if w != d:  # the kernel reads no totals, only the cotangents
+    if w != d:  # the kernel reads no totals, only the cotangents (D == Dv)
         q, k, v, g_out = (pad_lanes(x) for x in (q, k, v, g_out))
         g_sums = (*(pad_lanes(x) for x in g_sums[:4]), g_sums[4],
                   F.pad(g_sums[5], (0, w - d, 0, w - d)))
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
-    work = workspace("flow_fused_bwd", q, bh, g, n, d)
-    fn = _lib.function("flow_fused_bwd", "flow_fused_bwd", _ARGTYPES)
+    src = "flow_fused_bwd_wide" if (d, dv_dim) in WIDE_PAIRS \
+        else "flow_fused_bwd"
+    work = workspace(src, q, bh, g, n, d, dv_dim)
+    fn = _lib.function(src, src, _ARGTYPES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
              g_out.data_ptr(), *(x.data_ptr() for x in g_sums), dq.data_ptr(),
-             dk.data_ptr(), dv.data_ptr(), work.data_ptr(), bh, g, n, d, d,
+             dk.data_ptr(), dv.data_ptr(), work.data_ptr(), bh, g, n, d, dv_dim,
              DTYPE_CODES[q.dtype], PHI_CODES[phi], int(use_alloc), eps, stream)
     _lib.check(fn, err, "flow_fused_bwd")
     LAUNCHES["flow_fused_bwd"] += 1

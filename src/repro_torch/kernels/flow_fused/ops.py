@@ -13,14 +13,16 @@ reference.  The kernel's output records no autograd history, so the CUDA
 path refuses inputs that autograd would differentiate rather than cut the
 gradient silently.
 
-Beside D == Dv in ``HEAD_DIMS`` the kernel takes ``_lib.WIDE_PAIRS``
-(D = 192 with Dv = 128 or 192: the MLA and Nemotron-4-340B heads; D = Dv
-= 256: RecurrentGemma's) in instantiations of their own.  At D = 256 the
-flows of a large group do not fit a block's shared memory (G > 21): the
-workspace count refuses such a G, naming D and G.  K2 does not: on CUDA,
-``flow_fused_forward`` refuses to start a forward at such a width that
-autograd would differentiate, naming K2, instead of failing in the
-backward.
+Beside D == Dv in ``HEAD_DIMS`` the kernel and its backward K2 take
+``_lib.WIDE_PAIRS`` (D = 192 with Dv = 128 or 192: the MLA and
+Nemotron-4-340B heads; D = Dv = 256: RecurrentGemma's) in instantiations
+of their own.  At D = 256 the flows of a large group do not fit a block's
+shared memory (G > 21): the workspace count refuses such a G, naming D
+and G.  K2's pull-back takes fewer (``_lib.k2_group_fits``: 9-10 at D <=
+128, 23 at 192, 21 at 256; at D <= 128 K1 takes larger groups
+forward-only): on CUDA, ``flow_fused_forward`` refuses to start a forward
+that autograd would differentiate at a group K2 does not take, naming
+K2, D and G, instead of failing in the backward.
 
 Two routes serve shapes the kernel's instantiations do not:
 
@@ -59,8 +61,7 @@ def workspace(name: str, q: torch.Tensor, bh: int, g: int, n: int,
               *dims: int) -> torch.Tensor:
     """The fp32 scratch the kernels of source ``name`` need at these
     shapes, from the library's own ``<symbol>_workspace`` count (``dims``:
-    D and Dv for ``flow_fused``, D for ``flow_fused_bwd``); the kernels
-    allocate nothing."""
+    D and Dv); the kernels allocate nothing."""
     symbol = {"flow_fused": "flow_fused_fwd"}.get(name, name) + "_workspace"
     size = _lib.function(name, symbol, [ctypes.c_int] * (3 + len(dims)),
                          ctypes.c_longlong)(bh, g, n, *dims)
@@ -73,11 +74,11 @@ def workspace(name: str, q: torch.Tensor, bh: int, g: int, n: int,
 
 
 def check_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               lens: torch.Tensor, phi: str, *, wide: bool = False):
-    """Raise unless (q, k, v, lens) are what the flow_fused wrappers take:
-    one CUDA device, contiguous, fp32 or bf16 alike, flat shapes, D == Dv
-    in ``HEAD_DIMS`` or ``PADDED_HEAD_DIMS``, or with ``wide`` (K1, not
-    K2) a (D, Dv) of ``WIDE_PAIRS``.  Returns (BH, G, N, D)."""
+               lens: torch.Tensor, phi: str):
+    """Raise unless (q, k, v, lens) are what the flow_fused wrappers (K1
+    and K2) take: one CUDA device, contiguous, fp32 or bf16 alike, flat
+    shapes, D == Dv in ``HEAD_DIMS`` or ``PADDED_HEAD_DIMS``, or a (D, Dv)
+    of ``WIDE_PAIRS``.  Returns (BH, G, N, D)."""
     bh, g, n, d = q.shape
     dv = v.shape[-1]
     if q.device.type != "cuda":
@@ -96,20 +97,18 @@ def check_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape != (bh, n, d) or v.shape != (bh, n, dv):
         raise ValueError(f"bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
                          f"v{tuple(v.shape)}")
-    if not takes(d, dv, wide=wide):
+    if not takes(d, dv):
         raise ValueError(f"kernel takes D == Dv in {HEAD_DIMS} or "
-                         f"{tuple(PADDED_HEAD_DIMS)}"
-                         + (f", or (D, Dv) in {WIDE_PAIRS}" if wide else "")
-                         + f", got {d}/{dv}")
+                         f"{tuple(PADDED_HEAD_DIMS)}, or (D, Dv) in "
+                         f"{WIDE_PAIRS}, got {d}/{dv}")
     if phi not in PHI_CODES:
         raise ValueError(f"unknown phi {phi!r}")
     return bh, g, n, d
 
 
-def takes(d: int, dv: int, *, wide: bool = True) -> bool:
-    """Whether K1 (``wide``) or K2 (not) has a route at (D, Dv)."""
-    return ((d == dv and stored_width(d) in HEAD_DIMS)
-            or (wide and (d, dv) in WIDE_PAIRS))
+def takes(d: int, dv: int) -> bool:
+    """Whether K1 and K2 have a route at (D, Dv)."""
+    return (d == dv and stored_width(d) in HEAD_DIMS) or (d, dv) in WIDE_PAIRS
 
 
 _DENSE = "flow_fused_forward without lengths (FlowFusedDot, backward kernel K2)"
@@ -136,7 +135,7 @@ def flow_fused_call(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flow_fused_ref(q, k, v, lens, chunk=chunk, eps=eps, phi=phi,
                               use_alloc=use_alloc)
-    bh, g, n, d = check_flat(q, k, v, lens, phi, wide=True)
+    bh, g, n, d = check_flat(q, k, v, lens, phi)
     dv = v.shape[-1]
     _lib.refuse_autograd(q, k, v, why="the flow_fused kernel's output has "
                          "no autograd graph", instead=_DENSE)
@@ -189,13 +188,13 @@ def flow_fused_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if lengths is None:
         from repro_torch.attention.vjp import FlowFusedDot  # lazy: cycle
 
-        if (q.device.type == "cuda" and not takes(d, dv, wide=False)
+        if (q.device.type == "cuda" and not _lib.k2_group_fits(d, grp)
                 and torch.is_grad_enabled()
                 and any(x.requires_grad for x in (q, k, v))):
             raise RuntimeError(
-                f"the backward kernel K2 (flow_fused_bwd) takes D == Dv in "
-                f"{HEAD_DIMS} or {tuple(PADDED_HEAD_DIMS)}, not D={d}, "
-                f"Dv={dv}: K1 serves these heads forward-only")
+                f"the backward kernel K2 (flow_fused_bwd) does not take "
+                f"G={grp} at D={d}: its pull-back does not fit a block's "
+                "shared memory")
 
         t = torch.full((b,), n, dtype=torch.int32, device=q.device)
         out, *sums = FlowFusedDot.apply(qf, kf, vf, n, c, cfg.eps, cfg.phi,

@@ -53,7 +53,10 @@ sliding-window rings and admission runs one prefill a request::
 
 ``--attn local`` on a plain stack serves every attention layer from a
 window ring.  int8 pools serve the SSD and RG-LRU mixers (dequantized,
-advanced in fp32, requantized each step).
+advanced in fp32, requantized each step), and the flow heads at every
+width K3 takes, D = 192 and 256 included, on K4::
+
+    python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b --state-dtype int8
 
 Disaggregated fleet serving (``serving/fleet.py``): a prefill group runs
 packed admission (K1) and hands each request's state to the least-loaded
@@ -67,12 +70,9 @@ disjoint when there are enough, shared on one card::
 ``--speculate-k``.
 
 Random weights from seed 0, random prompts from ``numpy`` seed 0.  The
-paths not ported yet are refused by name: MLA's softmax branch (``--attn
+path not ported yet is refused by name: MLA's softmax branch (``--attn
 softmax`` on an MLA arch, whose decode is the absorbed form over a
-compressed latent cache) and int8 flow pools at D > 128 (``--state-dtype
-int8`` on DeepSeek-V2-Lite, Nemotron-4-340B or RecurrentGemma-9B in flow
-mode: the int8 decode kernel K4 takes D <= 128; D = 192 and 256 are
-served by K3 from fp32 pools).
+compressed latent cache).
 ``--paged`` on a stack with no softmax layer serves unpaged, as in the
 reference.  A mixer that cannot meet the serving plan (a local ring with
 int8 pools or a speculative window) exits with the mixer's reason.
@@ -134,22 +134,11 @@ def _refuse_unported(args):
 
 def _refuse_unported_arch(cfg, args):
     """Exit naming what an arch's plan would need that is not ported: MLA
-    with softmax (its absorbed decode over an ``MLACache``) and int8 flow
-    pools at D = 192 or 256 (K4 takes D == Dv <= 128)."""
+    with softmax (its absorbed decode over an ``MLACache``)."""
     if cfg.mla is not None and cfg.attention.kind != "flow":
         raise SystemExit(f"--attn {cfg.attention.kind} on an MLA arch is not "
                          "ported yet: it needs MLA's absorbed decode over a "
                          "compressed latent cache (MLACache)")
-    has_flow = cfg.attention.kind == "flow" and any(
-        cfg.block_kind(i) in ("attn", "local") for i in range(cfg.n_layers))
-    if args.state_dtype in ("int8", "fp8") and has_flow:
-        d = (cfg.mla.nope_head_dim + cfg.mla.rope_head_dim
-             if cfg.mla is not None else cfg.dim_head)
-        if d > 128:
-            raise SystemExit(f"--state-dtype {args.state_dtype} at D = {d} "
-                             "is not ported yet: the int8 decode kernel K4 "
-                             "(flow_decode_q) takes D == Dv <= 128; K3 "
-                             f"serves D = {d} from fp32 pools")
 
 
 def main(argv=None) -> dict:

@@ -4,6 +4,10 @@
         --batch 16 --seq 512 --ckpt-dir runs/lm --ckpt-every 50
     python -m repro_torch.launch.train --arch mamba2_1p3b --steps 5 \\
         --batch 4 --seq 4096
+    python -m repro_torch.launch.train --arch deepseek-v2-lite-16b \\
+        --layers 2 --steps 5 --batch 8 --seq 512
+    python -m repro_torch.launch.train --arch recurrentgemma-9b \\
+        --layers 3 --optimizer adafactor --steps 5 --batch 4 --seq 512
 
 Random weights from ``--seed`` (or given ``params``), batches from
 ``data.loader.lm_loader(seed)``, AdamW on fp32 master parameters with a
@@ -15,7 +19,11 @@ turn on the same card and averages their gradients
 once, for gradients: on a GPU every attention forward runs kernel K1 and
 every attention backward kernel K2; in the paper-faithful causal mode
 (``attention.strict_causal=False``) and without competition, every
-forward runs K5a and every backward K5a (dq) and K5b (dk, dv).
+forward runs K5a and every backward K5a (dq) and K5b (dk, dv).  The
+wide-head archs train on K1 and K2 at their widths: DeepSeek-V2-Lite's
+MLA heads (192, 128), Nemotron-4-340B's (192, 192) at G = 12 and
+RecurrentGemma-9B's flow heads (256, 256) at G = 16; ``--layers`` cuts
+the depth at full width.
 ``--attn`` sets ``attention.kind``: ``linear`` runs its causal dot on K5a
 and K5b likewise, ``softmax`` is plain PyTorch.  An SSD stack
 (``mamba2_1p3b``) has no attention: every SSD forward and its remat
@@ -55,7 +63,7 @@ from repro_torch.utils import resolve_device, tree_leaves, tree_map
 def build_train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
                 seed: int = 0, peak_lr: float = 3e-4, device="cuda",
                 dtype=torch.bfloat16, params: dict | None = None,
-                mesh=None):
+                mesh=None, optimizer: str | None = None):
     """``train``'s step function and fresh ``TrainState`` for a run of
     ``steps`` steps of ``batch`` x ``seq`` tokens (the warmup-cosine
     schedule spans ``steps``) over ``mesh`` (default (1, 1) on
@@ -63,12 +71,15 @@ def build_train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
     ``runtime.elastic.ElasticTrainer``'s ``build`` returns it.  The step
     is ``build_train_step``'s on every mesh, and it takes and returns the
     placed state (ZeRO-1 pieces; ``training.train_state.gather_state(
-    state, cfg)`` gives it whole)."""
+    state, cfg)`` gives it whole).  ``optimizer`` ("adamw" or "adafactor")
+    replaces ``RunPlan.choose``'s (AdamW)."""
     dev = resolve_device(device)
     mesh = mesh or make_mesh((1, 1), ("data", "model"), devices=[dev])
     dev = mesh.devices.flat[0]
     shape = ShapeSpec("custom", seq, batch, "train")
     plan = RunPlan.choose(cfg, shape, mesh)
+    if optimizer is not None:
+        plan = dataclasses.replace(plan, optimizer=optimizer)
     overrides = {"total_steps": steps, "warmup": max(5, steps // 10),
                  "peak_lr": peak_lr, "fused_value_grad": True,
                  "compute_dtype": dtype}
@@ -80,7 +91,7 @@ def build_train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
     n_params = sum(x.numel() for x in tree_leaves(params))
     print(f"[train] {cfg.name}: {n_params:,} params on {mesh}, "
           f"{str(dtype)[6:]} compute, microbatch={plan.microbatch}, "
-          f"params {plan.param_mode}")
+          f"params {plan.param_mode}, {plan.optimizer}")
     kinds = sorted({cfg.block_kind(i) for i in range(cfg.n_layers)})
     if be is not None:
         route = be.name
@@ -99,7 +110,7 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
           ckpt_dir: str | None = None, ckpt_every: int = 50, mesh=None,
           seed: int = 0, peak_lr: float = 3e-4, device="cuda",
           dtype=torch.bfloat16, params: dict | None = None,
-          log_every: int = 10) -> dict:
+          log_every: int = 10, optimizer: str | None = None) -> dict:
     """Train up to step ``steps`` with batches of ``batch`` x ``seq``
     tokens, resuming from the latest checkpoint under ``ckpt_dir`` if it
     holds one.
@@ -107,7 +118,8 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
     ``mesh`` (a ``distribution.mesh.Mesh``; default (1, 1) ("data",
     "model") on ``device``) is the mesh the step runs over, its batches
     moved to the mesh's first device.  ``params`` (fp32, any device)
-    replaces the random init from ``seed``.
+    replaces the random init from ``seed``; ``optimizer`` ("adamw", the
+    default, or "adafactor") is ``build_train``'s.
     The state stays placed across the steps and is checkpointed placed.
     Returns {"history": the losses of the steps run here, "final_loss",
     "wall_s", "step_s": their wall seconds, "state": the final TrainState
@@ -120,7 +132,8 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
     dev = mesh.devices.flat[0]
     step_fn, state = build_train(cfg, steps=steps, batch=batch, seq=seq,
                                  seed=seed, peak_lr=peak_lr, device=dev,
-                                 dtype=dtype, params=params, mesh=mesh)
+                                 dtype=dtype, params=params, mesh=mesh,
+                                 optimizer=optimizer)
     start_step, mgr = 0, None
     ckpt = {"restore_s": None, "async_save_s": [], "save_s": None}
     if ckpt_dir:
@@ -179,15 +192,24 @@ def main(argv=None) -> dict:
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the plain versions)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers (full width)")
+    ap.add_argument("--optimizer", default=None,
+                    choices=["adamw", "adafactor"],
+                    help="default adamw; adafactor keeps factored moments "
+                    "(RecurrentGemma-9B at full width: AdamW's update holds "
+                    "the old and the new state at once)")
     args = ap.parse_args(argv)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.attn:
         cfg = dataclasses.replace(
             cfg, attention=dataclasses.replace(cfg.attention, kind=args.attn))
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     out = train(cfg, steps=args.steps, batch=args.batch, seq=args.seq,
                 ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
-                device=args.device)
+                device=args.device, optimizer=args.optimizer)
     last = out["final_loss"]
     print(f"[train] done at step {out['state'].step}: final_loss="
           + ("none (nothing left to run)" if last is None else f"{last:.4f}")

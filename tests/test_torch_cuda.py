@@ -1549,20 +1549,139 @@ def test_flow_decode_at_d192_is_deterministic_and_in_split_order(gen, g, dv,
 
 
 def test_flow_fused_forward_refuses_gradients_at_d192_naming_k2(gen):
-    """At D = 192 K1 serves forward-only: a forward autograd would
-    differentiate raises naming K2 before any launch."""
-    q = torch.randn((2, 2, 32, 192), generator=gen, device="cuda",
-                    requires_grad=True)
-    v = torch.randn((2, 2, 32, 128), generator=gen, device="cuda")
+    """At D = 192 (MLA's (192, 128), G = 1) gradients run through
+    ``FlowFusedDot``: one K1 and one K2, against autograd through the plain
+    scan at the stated tolerance.  A group K2's pull-back does not fit (G
+    = 24) raises naming K2 before any launch."""
+    cfg = FlowConfig(causal=True, strict_causal=True)
+    q = torch.randn((2, 2, 96, 192), generator=gen, device="cuda")
+    k = torch.randn((2, 2, 96, 192), generator=gen, device="cuda")
+    v = torch.randn((2, 2, 96, 128), generator=gen, device="cuda")
+    g_out = torch.randn((2, 2, 96, 128), generator=gen, device="cuda")
+    grads = {}
+    for how in ("kernels", "plain"):
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        reset_launches()
+        fwd = flow_fused_forward if how == "kernels" else fused_causal_forward
+        out, _ = fwd(*leaves, cfg, return_state=True)
+        torch.autograd.backward(out, g_out)
+        if how == "kernels":
+            assert LAUNCHES["flow_fused"] == 1
+            assert LAUNCHES["flow_fused_bwd"] == 1
+        grads[how] = [x.grad for x in leaves]
+    for a, b_ in zip(grads["kernels"], grads["plain"]):
+        torch.testing.assert_close(a, b_, **TOL)
+    wide = torch.randn((1, 24, 32, 192), generator=gen, device="cuda",
+                       requires_grad=True)
+    kv = torch.randn((1, 1, 32, 192), generator=gen, device="cuda")
     reset_launches()
-    with pytest.raises(RuntimeError, match="K2"):
-        flow_fused_forward(q, q, v, FlowConfig(causal=True,
-                                               strict_causal=True))
+    with pytest.raises(RuntimeError, match="K2.*G=24 at D=192"):
+        flow_fused_forward(wide, kv, kv, cfg)
     assert LAUNCHES["flow_fused"] == 0
-    with torch.no_grad():
-        out, _ = flow_fused_forward(q, q, v, FlowConfig(causal=True,
-                                                        strict_causal=True))
-    assert out.shape == (2, 2, 32, 128) and LAUNCHES["flow_fused"] == 1
+
+
+#: K2's and K4's wide pairs at the archs' groups: (D, Dv, kv heads, G)
+WIDE_PAIRS_AT = [(192, 128, 4, 1), (192, 128, 2, 2), (192, 192, 2, 12),
+                 (256, 256, 1, 16)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,dv,hkv,g", WIDE_PAIRS_AT)
+def test_flow_fused_bwd_at_the_wide_pairs(gen, d, dv, hkv, g, dtype):
+    """K2 at the wide pairs on ragged lengths, random state cotangents,
+    against its plain version (autograd through K1's), zero past each
+    row's length; two calls bitwise equal."""
+    rows, n = 3, 160
+    bh = rows * hkv
+    mk = lambda *s: torch.randn(s, generator=gen,  # noqa: E731
+                                device="cuda").to(dtype)
+    q, k, v, g_out = mk(bh, g, n, d), mk(bh, n, d), mk(bh, n, dv), \
+        mk(bh, g, n, dv)
+    lens = torch.tensor([160, 1, 77], dtype=torch.int32,
+                        device="cuda").repeat_interleave(hkv)
+    _, totals = flow_fused_call(q, k, v, lens, chunk=32)
+    g_sums = [torch.randn(x.shape, generator=gen, device="cuda")
+              for x in totals]
+    reset_launches()
+    got = flow_fused_bwd_call(q, k, v, lens, totals, g_out, g_sums, chunk=32)
+    again = flow_fused_bwd_call(q, k, v, lens, totals, g_out, g_sums,
+                                chunk=32)
+    assert LAUNCHES["flow_fused_bwd"] == 2
+    want = flow_fused_bwd_ref(q, k, v, lens, g_out, g_sums, chunk=32)
+    tol = TOL if dtype == torch.float32 else dict(rtol=1e-2, atol=1e-2)
+    for a, a2, b_ in zip(got, again, want):
+        assert torch.equal(a, a2)
+        torch.testing.assert_close(a.float(), b_.float(), **tol)
+        for r, li in enumerate(lens.tolist()):
+            assert not a[r, ..., li:, :].any()
+
+
+def wide_int8_pool(gen, slots, hkv, d, dv):
+    """``int8_pool`` with S of D x Dv."""
+    st = dequantize_state(int8_pool(gen, slots, hkv, d))
+    st = st._replace(s=torch.randn((slots, hkv, d, dv), generator=gen,
+                                   device="cuda"))
+    return quantize_state(st, spec_of("int8"), granularity="head",
+                          exempt=("z",))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,dv,hkv,g", WIDE_PAIRS_AT)
+def test_flow_decode_q_at_the_wide_pairs(gen, d, dv, hkv, g, dtype):
+    """Four K4 steps at the wide pairs (D = 256 a cluster of four CTAs a
+    row, sharing one S scale), each against the plain version from a copy
+    of the kernel's pre-step pool, in place; then two steps from clones of
+    one pool bitwise equal."""
+    slots = 5
+    cfg = FlowConfig(causal=True, strict_causal=True)
+    pool = wide_int8_pool(gen, slots, hkv, d, dv)
+    ptrs = [x.data_ptr() for x in pool.payload + pool.scale]
+    tol = TOL if dtype == torch.float32 else dict(rtol=1e-2, atol=1e-2)
+
+    def token():
+        return (torch.randn((slots, hkv * g, 1, d), generator=gen,
+                            device="cuda").to(dtype),
+                torch.randn((slots, hkv, 1, d), generator=gen,
+                            device="cuda").to(dtype),
+                torch.randn((slots, hkv, 1, dv), generator=gen,
+                            device="cuda").to(dtype))
+
+    def copy(p):
+        return p.with_state(FlowState(*(x.clone() for x in p.payload)),
+                            FlowState(*(x.clone() for x in p.scale)))
+
+    reset_launches()
+    for _ in range(4):
+        q, k, v = token()
+        before = copy(pool)
+        same, out = flow_decode_q_step(pool, q, k, v, cfg)
+        new, ref = decode_step(dequantize_state(before), q, k, v, cfg)
+        assert same is pool and out.shape == (slots, hkv * g, 1, dv)
+        torch.testing.assert_close(out.float(), ref.float(), **tol)
+        assert_int8_pool_close(pool, quantize_like(before, new))
+    assert LAUNCHES == {**dict.fromkeys(KERNELS, 0), "flow_decode_q": 4}
+    assert [x.data_ptr() for x in pool.payload + pool.scale] == ptrs
+    q, k, v = token()
+    (a, out_a), (b, out_b) = [flow_decode_q_step(copy(pool), q, k, v, cfg)
+                              for _ in range(2)]
+    assert torch.equal(out_a, out_b)
+    for x, y in zip(a.payload + a.scale, b.payload + b.scale):
+        assert torch.equal(x, y)
+
+
+def test_k2_group_limit_matches_the_library(gen):
+    """``_lib.k2_group_fits`` (the registry's refusal) against the C
+    entry's count on this card: the last group that fits and the first
+    that does not, at every head width K2 takes."""
+    import ctypes
+
+    from repro_torch.kernels import _lib
+
+    tile = _lib.function("flow_fused_bwd", "flow_fused_bwd_tile",
+                         [ctypes.c_int] * 2)
+    for d in (24, 32, 64, 128, 192, 256):
+        g = next(g for g in range(1, 64) if not _lib.k2_group_fits(d, g))
+        assert tile(g - 1, d) > 0 and tile(g, d) == 0, (d, g)
 
 
 def test_moe_combine_is_bitwise_repeatable_on_cuda(gen):

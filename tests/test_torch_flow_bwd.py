@@ -108,3 +108,66 @@ def test_flow_fused_backward_matches_jax_vjp(phi, g, use_alloc, n_valid,
             pad = a[..., n_valid:, :]
             assert torch.equal(pad, torch.zeros_like(pad)), \
                 f"{how} {name}: non-zero gradient past n_valid"
+
+
+#: the wide pairs at their groups (DeepSeek-V2-Lite's MLA heads at G = 1
+#: and 2, Nemotron-4-340B's at G = 12, RecurrentGemma-9B's at G = 16), with
+#: the pull-back's super-chunk the kernel takes there
+#: (``csrc/flow_fused_bwd.cuh::bwd_tile``): 20 at D = 192 and a small group,
+#: one scan segment (5 at D = 192, 4 at 256) at the large ones
+WIDE = [(192, 128, 1, 20), (192, 128, 2, 20), (192, 192, 12, 5),
+        (256, 256, 16, 4)]
+
+
+@pytest.mark.parametrize("d,dv,g,tile", WIDE)
+@pytest.mark.parametrize("phi", ["sigmoid", "elu1", "relu"])
+def test_wide_flow_fused_backward_matches_jax_vjp(phi, d, dv, g, tile):
+    """K2's plain versions at the wide pairs -- autograd through K1's
+    plain version and the kernel's decomposition at its chunk (32) and
+    super-chunk -- against ``jax.vjp`` of the reference's
+    ``flow_fused_dot`` (its Pallas K2 in interpret mode): BH = 2, N = 64,
+    chunk 32, 50 valid positions, random cotangents on every output.
+
+    Tolerance: the module's rtol 2e-4, and its atol 2e-5 taken relative to
+    the gradient's largest entry (at least 1).  Here an entry sums up to G
+    x D = 4,096 products and the gradients reach ~230 at unit-normal
+    inputs, so an entry that cancels to near 0 keeps the rounding of its
+    large terms: the worst seen is 1.8e-4 on a dv of up to 234, 8e-7 of
+    the largest entry (fp32 terms summed in another order)."""
+    rng = np.random.default_rng(d + dv + g + len(phi))
+    bh, n, n_valid, chunk = 2, 64, 50, 32
+    q = rng.standard_normal((bh, g, n, d)).astype(np.float32)
+    k = rng.standard_normal((bh, n, d)).astype(np.float32)
+    v = rng.standard_normal((bh, n, dv)).astype(np.float32)
+    g_out = rng.standard_normal((bh, g, n, dv)).astype(np.float32)
+    g_sums = [rng.standard_normal(s).astype(np.float32)
+              for s in [(bh, d)] * 4 + [(bh,), (bh, d, dv)]]
+
+    def jfn(qx, kx, vx):
+        return flow_fused_dot(qx, kx, vx, n_valid, chunk, EPS, phi, True,
+                              True)
+
+    (_, j_sums), pull = jax.vjp(jfn, jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v))
+    j_cot = [jnp.asarray(x).reshape(y.shape) for x, y in zip(g_sums, j_sums)]
+    want = pull((jnp.asarray(g_out), tuple(j_cot)))
+    lens = torch.full((bh,), n_valid, dtype=torch.int32)
+    kw = dict(eps=EPS, phi=phi, use_alloc=True)
+    got = {
+        "bwd_ref": flow_fused_bwd_ref(t(q), t(k), t(v), lens, t(g_out),
+                                      [t(x) for x in g_sums], chunk=chunk,
+                                      **kw),
+        "bwd_parallel": flow_fused_bwd_parallel(
+            t(q), t(k), t(v), lens, t(g_out), [t(x) for x in g_sums],
+            chunk=32, tile=tile, **kw),
+    }
+    for how, grads in got.items():
+        for name, a, b in zip(("dq", "dk", "dv"), grads, want):
+            scale = max(1.0, float(np.abs(np.asarray(b)).max()))
+            np.testing.assert_allclose(np.asarray(a, np.float32),
+                                       np.asarray(b, np.float32), rtol=RTOL,
+                                       atol=ATOL * scale,
+                                       err_msg=f"{how} {name}")
+            pad = a[..., n_valid:, :]
+            assert torch.equal(pad, torch.zeros_like(pad)), \
+                f"{how} {name}: non-zero gradient past n_valid"

@@ -690,40 +690,65 @@ def test_auto_on_cuda_serves_d192_on_k1_and_k3(d, dv, g):
 
 @pytest.mark.parametrize("dv", [128, 192])
 def test_a_gradient_plan_at_d192_raises_naming_k2(dv):
-    """Under ``auto`` on the card a training plan at D = 192 is refused by
-    cuda_fused naming K2 (before any forward runs), and nothing else takes
-    it; the launcher's build-time check raises the same way."""
-    shapes = dataclasses.replace(SHAPES["prefill_packed"], d=192, dv=dv)
+    """Under ``auto`` on the card a training plan at D = 192 resolves to
+    cuda_fused (K1 forward, K2 backward) at the archs' groups -- G = 1 for
+    MLA's (192, 128), G = 12 for Nemotron-4-340B's (192, 192) -- as
+    ``explain`` shows; only a group K2's pull-back does not fit (G = 24)
+    is refused, by cuda_fused naming K2, D and G, before any forward runs.
+    The launcher's build-time check passes for the full-width MLA heads."""
+    g = 1 if dv == 128 else 12
+    shapes = dataclasses.replace(SHAPES["prefill_packed"], d=192, dv=dv,
+                                 hq=8 * g, hkv=8)
     causal = FlowConfig(causal=True, strict_causal=True)
     plan = attention.resolve(ExecutionPlan(flow=causal, needs_grad=True))
     for op in ("forward", "prefill"):
-        with pytest.raises(attention.ResolutionError, match="K2") as err:
-            plan.backend(op, shapes, "cuda")
-        why = dict(err.value.rejections)
-        assert "flow_fused_bwd" in why["cuda_fused"]
-    # serving (no gradients) still takes K1
+        assert plan.backend(op, shapes, "cuda").name == "cuda_fused"
+        verdicts = {name: (ok, why) for name, ok, why in
+                    attention.registry.explain(causal, shapes, "cuda", op=op,
+                                               needs_grad=True)}
+        assert verdicts["cuda_fused"][0], verdicts["cuda_fused"]
+    big = dataclasses.replace(shapes, hq=8 * 24)
+    with pytest.raises(attention.ResolutionError, match="K2") as err:
+        plan.backend("forward", big, "cuda")
+    why = dict(err.value.rejections)["cuda_fused"]
+    assert "flow_fused_bwd" in why and "G=24 at D=192" in why
+    # serving (no gradients) takes K1
     assert attention.resolve(ExecutionPlan(flow=causal)).backend(
         "forward", shapes, "cuda").name == "cuda_fused"
     deepseek = get_smoke_config("deepseek_v2_lite_16b")
     full = dataclasses.replace(deepseek, mla=dataclasses.replace(
         deepseek.mla, nope_head_dim=128, rope_head_dim=64, v_head_dim=128))
-    with pytest.raises(attention.ResolutionError, match="K2"):
-        check_flow_trainable(full, ShapeSpec("t", 256, 4, "train"), "cuda")
+    assert check_flow_trainable(full, ShapeSpec("t", 256, 4, "train"),
+                                "cuda").name == "cuda_fused"
 
 
 def test_an_int8_pool_at_d192_raises_naming_k4():
+    """An int8 pool at MLA's (192, 128) now resolves to cuda_decode, whose
+    ``quant_capable`` names K4 (flow_decode_q); pinned plain it takes the
+    dequantizing ``recurrent`` step; the serve CLI serves DeepSeek-V2-Lite
+    from int8 pools on the CPU (K4's plain version)."""
     shapes = dataclasses.replace(SHAPES["decode"], d=192, dv=128)
-    with pytest.raises(attention.ResolutionError, match="K4") as err:
-        attention.resolve(quant_plan()).backend("decode", shapes, "cuda")
-    assert "flow_decode_q" in dict(err.value.rejections)["cuda_decode"]
+    assert attention.resolve(quant_plan()).backend(
+        "decode", shapes, "cuda").name == "cuda_decode"
+    verdicts = {name: (ok, why) for name, ok, why in
+                attention.registry.explain(
+                    FlowConfig(causal=True, strict_causal=True), shapes,
+                    "cuda", op="decode", quant="int8")}
+    assert verdicts["cuda_decode"][0], verdicts["cuda_decode"]
+    ok, why = attention.registry.get_backend("cuda_decode").quant_capable(
+        "cuda", "int8", "decode", shapes)
+    assert ok and "flow_decode_q" in why
     # the fp32 pool decodes on K3; pinned plain, the int8 pool on the CPU path
     assert attention.resolve(ExecutionPlan(flow=FlowConfig())).backend(
         "decode", shapes, "cuda").name == "cuda_decode"
     assert attention.resolve(quant_plan("plain")).backend(
         "decode", shapes, "cuda").name == "recurrent"
-    with pytest.raises(SystemExit, match="K4"):
-        serve.main(["--arch", "deepseek-v2-lite-16b", "--state-dtype",
-                    "int8", "--device", "cpu"])
+    res = serve.main(["--arch", "deepseek-v2-lite-16b", "--smoke",
+                      "--state-dtype", "int8", "--device", "cpu",
+                      "--requests", "3", "--slots", "2", "--max-new", "3",
+                      "--prompt-len", "10"])
+    assert all(r.done and len(r.generated) == 3 for r in res["requests"])
+    assert res["plan"].state_dtype == "int8"
 
 
 # --- K1 and K3 at D = Dv = 256 (RecurrentGemma-9B's flow heads, G = 16) ----
@@ -746,36 +771,42 @@ def test_auto_on_cuda_serves_d256_on_k1_and_k3():
 
 
 def test_a_gradient_plan_at_d256_raises_naming_k2():
-    """A training plan at D = 256 is refused by cuda_fused naming K2 (the
-    refusal keyed on ``_lib.WIDE_PAIRS``), also at the launcher's check
-    on the full-width RecurrentGemma; serving still takes K1."""
+    """A training plan at (256, 256) with 16 query heads over one kv head
+    resolves to cuda_fused (K2 at G = 16), also at the launcher's check on
+    the full-width RecurrentGemma; a group K2's pull-back does not fit (G
+    = 22, where the flows bind) is refused naming K2, D and G."""
     shapes = dataclasses.replace(SHAPES["prefill_packed"], d=256, dv=256,
                                  hq=16, hkv=1)
     causal = FlowConfig(causal=True, strict_causal=True)
     plan = attention.resolve(ExecutionPlan(flow=causal, needs_grad=True))
     for op in ("forward", "prefill"):
-        with pytest.raises(attention.ResolutionError, match="K2") as err:
-            plan.backend(op, shapes, "cuda")
-        assert "flow_fused_bwd" in dict(err.value.rejections)["cuda_fused"]
-    assert attention.resolve(ExecutionPlan(flow=causal)).backend(
-        "forward", shapes, "cuda").name == "cuda_fused"
+        assert plan.backend(op, shapes, "cuda").name == "cuda_fused"
+    with pytest.raises(attention.ResolutionError, match="K2") as err:
+        plan.backend("forward", dataclasses.replace(shapes, hq=22), "cuda")
+    why = dict(err.value.rejections)["cuda_fused"]
+    assert "flow_fused_bwd" in why and "G=22 at D=256" in why
     from repro_torch.configs import get_config
 
-    with pytest.raises(attention.ResolutionError, match="K2"):
-        check_flow_trainable(get_config("recurrentgemma_9b"),
-                             ShapeSpec("t", 256, 4, "train"), "cuda")
+    assert check_flow_trainable(get_config("recurrentgemma_9b"),
+                                ShapeSpec("t", 256, 4, "train"),
+                                "cuda").name == "cuda_fused"
 
 
 def test_int8_pools_at_d256_exit_naming_k4():
+    """int8 pools at RecurrentGemma's (256, 256), G = 16, resolve to
+    cuda_decode (K4, a cluster of four CTAs a row on the card); the serve
+    CLI serves the hybrid stack from int8 pools on the CPU."""
     shapes = dataclasses.replace(SHAPES["decode"], d=256, dv=256, hq=16,
                                  hkv=1)
-    with pytest.raises(attention.ResolutionError, match="K4") as err:
-        attention.resolve(quant_plan()).backend("decode", shapes, "cuda")
-    assert "flow_decode_q" in dict(err.value.rejections)["cuda_decode"]
-    with pytest.raises(SystemExit, match="D = 256.*K4") as err:
-        serve.main(["--arch", "recurrentgemma-9b", "--state-dtype", "int8",
-                    "--device", "cpu"])
-    assert "K3 serves D = 256 from fp32 pools" in str(err.value)
+    be = attention.resolve(quant_plan()).backend("decode", shapes, "cuda")
+    assert be.name == "cuda_decode"
+    ok, why = be.quant_capable("cuda", "int8", "decode", shapes)
+    assert ok and "flow_decode_q" in why
+    res = serve.main(["--arch", "recurrentgemma-9b", "--smoke",
+                      "--state-dtype", "int8", "--device", "cpu",
+                      "--requests", "3", "--slots", "2", "--max-new", "3",
+                      "--prompt-len", "10"])
+    assert all(r.done and len(r.generated) == 3 for r in res["requests"])
 
 
 def test_mla_with_softmax_raises_naming_the_absorbed_decode():

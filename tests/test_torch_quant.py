@@ -159,15 +159,16 @@ def test_maybe_quantize_follows_the_plan():
 # ---------------------------------------------------------------------------
 # The quantized decode step (K4's plain version) against the Pallas kernel
 # ---------------------------------------------------------------------------
-def decode_case(hq, hkv, seed=0, b=3, d=16):
+def decode_case(hq, hkv, seed=0, b=3, d=16, dv=None):
     """The pool of ``tests/test_quant_pools.py:185-222`` (b=3, d=16,
     counts 3, 1, 5) with ``hkv`` kv heads and ``hq`` query heads, and one
-    token; numpy."""
-    st = random_flow_state(seed, b=b, hkv=hkv, d=d, dv=d)
+    token; S is D x Dv (Dv = D unless given); numpy."""
+    dv = dv or d
+    st = random_flow_state(seed, b=b, hkv=hkv, d=d, dv=dv)
     rng = np.random.default_rng(seed + 100)
     q = rng.standard_normal((b, hq, 1, d)).astype(np.float32)
     k = rng.standard_normal((b, hkv, 1, d)).astype(np.float32)
-    v = rng.standard_normal((b, hkv, 1, d)).astype(np.float32)
+    v = rng.standard_normal((b, hkv, 1, dv)).astype(np.float32)
     return st, q, k, v
 
 
@@ -211,12 +212,14 @@ def test_flow_decode_q_step_matches_reference_kernel(phi, hq, hkv):
         assert (err <= np.broadcast_to(sc + 1e-5, err.shape)).all(), name
 
 
-def flat_reference_step(phi, hq, hkv, seed, d, port_fn):
-    """One step at the kernel's flat (BH, ...) shapes through ``port_fn``
-    (``flow_decode_q_ref`` or ``flow_decode_q_split``) and through the
-    reference's ``flow_decode_q_call`` (interpret mode), held together with
-    the module's tolerances."""
-    st, q, k, v = decode_case(hq, hkv, seed=seed, d=d)
+def flat_reference_step(phi, hq, hkv, seed, d, port_fn, dv=None):
+    """One step at the kernel's flat (BH, ...) shapes (S D x Dv, Dv = D
+    unless given) through ``port_fn`` (``flow_decode_q_ref`` or
+    ``flow_decode_q_split``) and through the reference's
+    ``flow_decode_q_call`` (interpret mode), held together with the
+    module's tolerances."""
+    dv = dv or d
+    st, q, k, v = decode_case(hq, hkv, seed=seed, d=d, dv=dv)
     _, jpool = both_pools(st)
     p, sc = jpool.payload, jpool.scale
     b = q.shape[0]
@@ -227,18 +230,18 @@ def flat_reference_step(phi, hq, hkv, seed, d, port_fn):
                                               "qi_sum")]
     scs = [flat(getattr(sc, n), 1) for n in ("k_sum", "q_sum", "ko_sum",
                                             "qi_sum")]
-    qf, kf, vf = q.reshape(bh, g, d), k.reshape(bh, d), v.reshape(bh, d)
+    qf, kf, vf = q.reshape(bh, g, d), k.reshape(bh, d), v.reshape(bh, dv)
     tf = np.repeat(t, hkv).astype(np.float32).reshape(bh, 1)
     jres = j_decode_q_call(
         jnp.asarray(tf), *map(jnp.asarray, (qf, kf, vf)),
-        tuple(map(jnp.asarray, pays)), jnp.asarray(flat(p.s, d, d)),
+        tuple(map(jnp.asarray, pays)), jnp.asarray(flat(p.s, d, dv)),
         tuple(map(jnp.asarray, scs)), jnp.asarray(flat(sc.s, 1)),
         jnp.asarray(flat(p.z, 1)), eps=1e-6, phi=phi, use_allocation=True,
         qmax=127.0, is_int=True, interpret=True)
     tt = lambda x: torch.from_numpy(np.array(x))  # noqa: E731  writable
     out, new_pays, s_pay, new_scs, s_sc, z = port_fn(
         tt(t), tt(qf), tt(kf), tt(vf), tuple(map(tt, pays)),
-        tt(flat(p.s, d, d)), tuple(map(tt, scs)), tt(flat(sc.s, 1)),
+        tt(flat(p.s, d, dv)), tuple(map(tt, scs)), tt(flat(sc.s, 1)),
         tt(flat(p.z)), hkv=hkv, phi=phi)
     np.testing.assert_allclose(out.numpy(), np.asarray(jres[0]), rtol=1e-4,
                                atol=1e-4)
@@ -264,6 +267,24 @@ def test_flow_decode_q_split_matches_reference_call(phi, hq, hkv, d):
     deq(S) and phi(q) . phi(k) instead of the new S) against the
     reference's ``flow_decode_q_call`` (interpret mode), G = 1 and 2."""
     flat_reference_step(phi, hq, hkv, 5 + d, d, flow_decode_q_split)
+
+
+#: K4's wide pairs at their groups: DeepSeek-V2-Lite's MLA heads (192,
+#: 128) at G = 1 and 2, Nemotron-4-340B's (192, 192) at G = 12 (one kv
+#: head here) and RecurrentGemma-9B's (256, 256) at G = 16
+WIDE = [(192, 128, 2, 2), (192, 128, 4, 2), (192, 192, 12, 1),
+        (256, 256, 16, 1)]
+
+
+@pytest.mark.parametrize("port_fn", [flow_decode_q_ref, flow_decode_q_split],
+                         ids=["ref", "split"])
+@pytest.mark.parametrize("d,dv,hq,hkv", WIDE)
+@pytest.mark.parametrize("phi", ["sigmoid", "elu1", "relu"])
+def test_flow_decode_q_twins_match_reference_call_at_wide_pairs(
+        phi, d, dv, hq, hkv, port_fn):
+    """K4's plain version and its kernel-order twin at the wide pairs
+    against the reference's ``flow_decode_q_call`` (interpret mode)."""
+    flat_reference_step(phi, hq, hkv, 11 + d + hq, d, port_fn, dv=dv)
 
 
 @pytest.mark.parametrize("phi", ["sigmoid", "relu"])
@@ -330,6 +351,35 @@ def test_int8_engine_matches_reference_int8_engine(weights):
     fp32 = Engine(params, cfg, slots=2, max_len=96, dtype=torch.float32,
                   device="cpu")
     assert generate(fp32, Request, cfg.vocab_size) == got
+
+
+def test_int8_engine_at_mla_widths_matches_reference_int8_engine():
+    """A one-layer DeepSeek-V2-Lite smoke stack at its full head widths
+    (MLA q and k 128 + 64 = 192 wide, v 128; G = 1), served from int8
+    pools: K4's route at (192, 128) (its plain version on the CPU) and the
+    packed admission, greedy tokens exact against the reference's int8
+    Engine."""
+    def wide(c):
+        return dataclasses.replace(c, n_layers=1, n_heads=2, n_kv_heads=2,
+                                   mla=dataclasses.replace(
+                                       c.mla, nope_head_dim=128,
+                                       rope_head_dim=64, v_head_dim=128))
+
+    jcfg = wide(j_smoke_config("deepseek_v2_lite_16b"))
+    cfg = wide(get_smoke_config("deepseek_v2_lite_16b"))
+    jparams = jlm.init(jax.random.PRNGKey(3), jcfg)
+    params = params_from_numpy(jax.tree.map(np.asarray, jparams), cfg)
+    jeng = JEngine(jparams, jcfg, slots=2, max_len=96, dtype=jnp.float32,
+                   plan=j_plan_of(jcfg, packed=True, state_dtype="int8"))
+    want = generate(jeng, JRequest, cfg.vocab_size, n_req=3, max_new=5)
+    engine = Engine(params, cfg, slots=2, max_len=96, dtype=torch.float32,
+                    plan=plan_of(cfg, packed=True, state_dtype="int8"),
+                    device="cpu")
+    got = generate(engine, Request, cfg.vocab_size, n_req=3, max_new=5)
+    assert got == want
+    pool = engine.worker.caches[0]
+    assert isinstance(pool, quant.QuantizedPool)
+    assert tuple(pool.payload.s.shape[2:]) == (192, 128)
 
 
 def test_worker_installs_into_the_pool_in_place(weights):
