@@ -106,6 +106,14 @@ any failure raises, so the exit code is non-zero:
      with one kv head, G = 16 (``check_rg_shapes``), as 3h (K1 also two
      calls bitwise equal); K9 at an RG-LRU admission (16 rows, Lb 512, W
      4,096 bf16) exactly equal to its plain version, twice;
+  3j. K2 and K4 at the wide pairs (``check_wide_train_shapes``);
+  3k. K5a and K5b at the wide pairs (``check_wide_chunk``): (192, 128) at
+     DeepSeek-V2-Lite's 4 x 16 MLA heads, (128, 192) (their dq call),
+     (192, 192) at Nemotron-4-340B's 4 x 8 kv heads, G = 12, and (256, 256)
+     at RecurrentGemma-9B's 4 x 1, G = 16, N = 512, and at N = 200 of 6
+     rows: against their plain versions (K5a also on its dq operands) and
+     their decompositions at the chunk of 32, two calls of each bitwise
+     equal, fp32;
   4. K3 ``flow_decode`` against its plain version: 16 (the serving pool)
      and 64 slots x 8 kv heads, 32 steps from a non-zero state, updated
      in place; at every step also against ``flow_decode_split`` (the
@@ -265,6 +273,24 @@ any failure raises, so the exit code is non-zero:
      ``ElasticTrainer.recover(1)`` onto (1, 1) restores it bit for bit,
      and one more step equals one from the run's own final state bit for
      bit;
+  37, 38 (and 37b, 38b). ``deepseek_v2_lite_16b`` (2 of 27 layers, 4 x
+     512, AdamW) and ``recurrentgemma_9b`` in flow mode (3 of 38 layers,
+     4 x 512, Adafactor) at full width, 5 bf16 steps on K1 and K2, then
+     one fp32 step against the plain path (``train_wide_full_width``);
+  40, 41 (and 40b, 41b). the same runs on the same weights in the
+     paper-causal mode (``strict_causal=False``): exactly 3 K5a (forward,
+     remat recompute, dq) and 1 K5b a flow layer and step, no K1 or K2,
+     at (192, 128) / (128, 192) and at (256, 256), G = 16; step ms,
+     tokens/s, peak memory; then one fp32 step's loss and every gradient
+     leaf against the pinned plain path;
+  42. phase 36's ``cp_causal`` checks at DeepSeek-V2-Lite's attention (B
+     4, 16 heads of (192, 128)) and RecurrentGemma-9B's (B 4, one kv
+     head, G = 16, (256, 256)), 4- and 8-way, against the unsharded K1 /
+     K2 path (rows of ``CP_CAUSAL_SHAPES``, run with phase 36);
+  42b. ``build_prefill_step(seq_shard=True)`` for phase 40's 2-layer
+     ``deepseek_v2_lite_16b`` and weights, 4 x 2,048 tokens, fp32: no
+     fall-back line, 4 K5a a layer and no K1, logits and boundary states
+     against the unsharded ``lm.prefill``, both wall times;
   10. the LRA classifier at full width (``launch/classify.py::
      train_eval_classifier``, flowformer_lra, bf16, 5 steps of 32 x 4096
      ListOps tokens, random weights from a seed), then its evaluation over
@@ -498,7 +524,14 @@ any failure raises, so the exit code is non-zero:
      384, with its four CUDA kernels' device ms; K3 at its 16-slot pool;
      launches phase 31's) and ``boundary_gather_rglru`` (K9 at the RG-LRU
      admission; phase 31's); the base rows' launches count phases 26-33
-     too;
+     too; rows ``flow_chunk_<tag>`` and ``flow_chunk_dkv_<tag>`` for the
+     tags of ``WIDE_CHUNK_SHAPES``: K5a and K5b at phase 3k's shapes,
+     with the device ms of their three CUDA kernels, launches those the
+     wrappers counted at the pair (``PAIR_LAUNCHES``) in the main-path
+     runs of phases 40, 41, 42 and 42b (0 at Nemotron-4-340B's, which no
+     model run reaches; 40b's and 41b's fp32 checks against the plain
+     path are not counted, as no phase's fp32 check is), bound with every
+     operation a 3xTF32 product on the tensor cores (``tf32_bound``);
   12. the last line: ``{"ok": true, "device": {...}}``.
 
 Tolerances (|kernel - plain| <= atol + rtol * |plain|, elementwise):
@@ -2487,10 +2520,15 @@ def elastic_resume(cfg, params, root: Path) -> dict:
 
 #: phase 36: the context-parallel kernels at flowformer_lm's attention
 #: (B = 4, 8 kv heads, G = 1, D = 64) and granite_8b's (B = 2, 8 kv heads,
-#: G = 4, D = 128), N = 4,096, chunk 128, split 4 and 8 ways on cuda:0
-#: (local N 1,024 and 512); cp_nc at the LRA shape (32 x 4 heads of 64)
-CP_CAUSAL_SHAPES = (("flowformer_lm", 4, 8, 1, 64),
-                    ("granite_8b G=4", 2, 8, 4, 128))
+#: G = 4, D = 128), and phase 42: at DeepSeek-V2-Lite's (B = 4, 16 MLA
+#: heads of (192, 128), G = 1) and RecurrentGemma-9B's (B = 4, one kv head,
+#: G = 16, (256, 256)); N = 4,096, chunk 128, split 4 and 8 ways on cuda:0
+#: (local N 1,024 and 512); cp_nc at the LRA shape (32 x 4 heads of 64).
+#: (tag, B, kv heads, G, D, Dv)
+CP_CAUSAL_SHAPES = (("flowformer_lm", 4, 8, 1, 64, 64),
+                    ("granite_8b G=4", 2, 8, 4, 128, 128),
+                    ("deepseek_v2_lite_16b", 4, 16, 1, 192, 128),
+                    ("recurrentgemma_9b G=16", 4, 1, 16, 256, 256))
 CP_N, CP_CHUNK, CP_WAYS = 4096, 128, (4, 8)
 CP_PACKED_LENS = (512, 4096)
 CP_NC_SHAPE = (32, 4, 4096, 64)
@@ -2522,10 +2560,10 @@ def cp_mesh(shape, axes):
                      devices=None if DEVICE == "cuda" else [DEVICE])
 
 
-def cp_inputs(b, hkv, g, n, d, seed):
+def cp_inputs(b, hkv, g, n, d, seed, dv=None):
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     mk = lambda *s: torch.randn(s, generator=gen, device=DEVICE)  # noqa: E731
-    return mk(b, hkv * g, n, d), mk(b, hkv, n, d), mk(b, hkv, n, d)
+    return mk(b, hkv * g, n, d), mk(b, hkv, n, d), mk(b, hkv, n, dv or d)
 
 
 def wall_ms(fn, reps: int = 3) -> float:
@@ -2558,27 +2596,31 @@ def sq_grads(ex, q, k, v):
 
 
 def check_context_parallel() -> dict:
-    """Phase 36: ``cp_causal`` on 4- and 8-way meshes of the card resolves
-    its shard-local inner to ``cuda_chunk`` (K5a), and its forward,
-    prefill and packed prefill (lens spread over 512-4,096) match the
-    unsharded K1 path and the pinned plain ``cumsum``, and its gradient
-    of sum(out^2) (K5a forward; K5a and K5b backward) the unsharded K1 +
-    K2 gradient, all within phase 3d's K5a tolerance; at flowformer_lm's
-    shape and granite_8b's G = 4, D = 128.  ``cp_nc`` at the LRA shape
-    against the unsharded K6 (its gradients printed against the plain
-    ``nc``'s and K6 + K7b's).  Exactly ``ways`` K5a a
-    forward or prefill and ``2 ways`` K5a + ``ways`` K5b a step with
-    gradients, no other kernel; ``cp_nc`` launches none."""
+    """Phases 36 and 42: ``cp_causal`` on 4- and 8-way meshes of the card
+    resolves its shard-local inner to ``cuda_chunk`` (K5a), and its
+    forward, prefill and packed prefill (lens spread over 512-4,096) match
+    the unsharded K1 path (and, at D <= 128, the pinned plain ``cumsum``,
+    whose (B, H, N, D, Dv) running states take 26 GB at DeepSeek's shape),
+    and its gradient of sum(out^2) (K5a forward; K5a and K5b backward) the
+    unsharded K1 + K2 gradient, all within phase 3d's K5a tolerance; at
+    CP_CAUSAL_SHAPES (phase 36: flowformer_lm's and granite_8b's; phase
+    42: the wide pairs of DeepSeek-V2-Lite and RecurrentGemma-9B).
+    ``cp_nc`` at the LRA shape against the unsharded K6 (its gradients
+    printed against the plain ``nc``'s and K6 + K7b's).  Exactly ``ways``
+    K5a a forward or prefill and ``2 ways`` K5a + ``ways`` K5b a step with
+    gradients (K5a at (D, Dv), the gradients' dq at (Dv, D), K5b at (D,
+    Dv)), no other kernel; ``cp_nc`` launches none."""
     from repro_torch import attention
     from repro_torch.attention import (ExecutionPlan, FlowConfig, ShapeInfo,
                                        ShardSpec)
-    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels import LAUNCHES, PAIR_LAUNCHES, reset_launches
 
-    launched = collections.Counter()
+    launched, pairs = collections.Counter(), collections.Counter()
     errs, times = {}, {}
     rng = np.random.default_rng(SEED + 360)
-    for tag, b, hkv, g, d in CP_CAUSAL_SHAPES:
-        q, k, v = cp_inputs(b, hkv, g, CP_N, d, SEED + 361 + d)
+    for tag, b, hkv, g, d, dv in CP_CAUSAL_SHAPES:
+        q, k, v = cp_inputs(b, hkv, g, CP_N, d, SEED + 361 + d, dv)
+        wide = max(d, dv) > 128
         lens = torch.tensor(rng.integers(CP_PACKED_LENS[0],
                                          CP_PACKED_LENS[1] + 1, b),
                             dtype=torch.int32, device=DEVICE)
@@ -2591,9 +2633,10 @@ def check_context_parallel() -> dict:
             want = {"forward": fused.forward(q, k, v),
                     "prefill": fused.prefill(q, k, v),
                     "packed": fused.prefill(q, k, v, lengths=lens)}
-            floor = {"forward": plain.forward(q, k, v),
-                     "prefill": plain.prefill(q, k, v),
-                     "packed": plain.prefill(q, k, v, lengths=lens)}
+            floor = {} if wide else {
+                "forward": plain.forward(q, k, v),
+                "prefill": plain.prefill(q, k, v),
+                "packed": plain.prefill(q, k, v, lengths=lens)}
         want_g = sq_grads(attention.resolve(ExecutionPlan(
             flow=cfg, needs_grad=True)), q, k, v)
         torch.cuda.synchronize()
@@ -2616,13 +2659,18 @@ def check_context_parallel() -> dict:
                        "prefill": ex.prefill(q, k, v),
                        "packed": ex.prefill(q, k, v, lengths=lens)}
             torch.cuda.synchronize()
-            la = dict(LAUNCHES)
+            la, lp = dict(LAUNCHES), dict(PAIR_LAUNCHES)
             expect_only(la, {"flow_chunk": 3 * ways}, f"{name} forwards")
+            expect_pairs(lp, chunk_pairs(d, dv, k5a=3 * ways),
+                         f"{name} forwards")
             launched.update(la)
+            pairs.update(lp)
             e = {"out_vs_k1": dot_close(f"{name} out vs K1", got["forward"],
-                                        want["forward"]),
-                 "out_vs_cumsum": dot_close(f"{name} out vs cumsum",
-                                            got["forward"], floor["forward"])}
+                                        want["forward"])}
+            if floor:
+                e["out_vs_cumsum"] = dot_close(f"{name} out vs cumsum",
+                                               got["forward"],
+                                               floor["forward"])
             # a packed row's outputs past its length are padding, which
             # K1 leaves at zero
             live = (torch.arange(CP_N, device=DEVICE)[None, :]
@@ -2634,17 +2682,21 @@ def check_context_parallel() -> dict:
                     want[op][0] * keep)
                 e[f"{op}_state_vs_k1"] = state_close(
                     f"{name} {op} state vs K1", got[op][1], want[op][1])
-                e[f"{op}_state_vs_cumsum"] = state_close(
-                    f"{name} {op} state vs cumsum", got[op][1],
-                    floor[op][1])
+                if floor:
+                    e[f"{op}_state_vs_cumsum"] = state_close(
+                        f"{name} {op} state vs cumsum", got[op][1],
+                        floor[op][1])
             reset_launches()
             got_g = sq_grads(attention.resolve(dataclasses.replace(
                 plan, needs_grad=True)), q, k, v)
             torch.cuda.synchronize()
-            la = dict(LAUNCHES)
+            la, lp = dict(LAUNCHES), dict(PAIR_LAUNCHES)
             expect_only(la, {"flow_chunk": 2 * ways, "flow_chunk_dkv": ways},
                         f"{name} gradients")
+            expect_pairs(lp, chunk_pairs(d, dv, k5a=ways, dq=ways, k5b=ways),
+                         f"{name} gradients")
             launched.update(la)
+            pairs.update(lp)
             e["grad_vs_k2"] = max(dot_close(f"{name} d{n} vs K1 + K2", a, b_)
                                   for n, a, b_ in zip("qkv", got_g, want_g))
             e["grad_vs_k2_of_max"] = max(
@@ -2705,29 +2757,43 @@ def check_context_parallel() -> dict:
     torch.cuda.empty_cache()
     print("[cp] forward wall ms (mean of 3 synchronized runs): "
           + json.dumps(times), flush=True)
-    return {"launches": dict(launched), "errs": errs, "times": times}
+    return {"launches": dict(launched), "pair_launches": dict(pairs),
+            "errs": errs, "times": times}
 
 
 def cp_prefill_full_width(cfg, params) -> dict:
-    """Phase 36b: ``build_prefill_step(seq_shard=True)`` for flowformer_lm
-    at full width and depth on a (1, 4) mesh of the card, 4 x 2,048
-    tokens, fp32: every flow layer binds ``cp_causal`` (exactly 4 K5a a
-    layer, no K1); its last-token logits and every layer's boundary
+    """Phase 36b (and 42b): ``build_prefill_step(seq_shard=True)`` for
+    ``cfg`` at full width (flowformer_lm at full depth; 42b:
+    deepseek_v2_lite_16b at phase 40's 2 layers and weights) on a (1, 4)
+    mesh of the card, 4 x 2,048 tokens, fp32: every flow layer binds
+    ``cp_causal`` (no fall-back line from the build; exactly 4 K5a a
+    layer, at the heads' (D, Dv), no K1); its last-token logits and every layer's boundary
     FlowState against the unsharded ``lm.prefill`` (K1, one a layer)
     within phase 3d's K5a tolerance; both wall times."""
+    import contextlib
+    import io
+
     from repro_torch.config import ShapeSpec
-    from repro_torch.kernels import LAUNCHES, reset_launches
-    from repro_torch.launch.steps import RunPlan, build_prefill_step
+    from repro_torch.kernels import LAUNCHES, PAIR_LAUNCHES, reset_launches
+    from repro_torch.launch.steps import (RunPlan, build_prefill_step,
+                                          training_shapes)
     from repro_torch.models import lm
 
     rows, n = CP_PREFILL
     f32 = torch.float32
+    n_flow = hybrid_layers(cfg)[0]
+    shape = ShapeSpec("prefill", n, rows, "prefill")
+    heads = training_shapes(cfg, shape)
     toks = torch.from_numpy(np.random.default_rng(SEED + 370).integers(
         0, cfg.vocab_size, (rows, n))).to(DEVICE)
-    step, _, _, _ = build_prefill_step(
-        cfg, ShapeSpec("prefill", n, rows, "prefill"),
-        cp_mesh((1, 4), ("data", "model")), RunPlan(), seq_shard=True,
-        dtype=f32)
+    said = io.StringIO()
+    with contextlib.redirect_stdout(said):
+        step, _, _, _ = build_prefill_step(
+            cfg, shape, cp_mesh((1, 4), ("data", "model")), RunPlan(),
+            seq_shard=True, dtype=f32)
+    print(said.getvalue(), end="", flush=True)
+    if "fell back" in said.getvalue():
+        raise AssertionError(f"{cfg.name}: the seq-shard plan fell back")
     wall = {}
 
     def run(name, fn):
@@ -2738,19 +2804,22 @@ def cp_prefill_full_width(cfg, params) -> dict:
         out = fn()
         torch.cuda.synchronize()
         wall[name] = 1e3 * (time.perf_counter() - t0)
-        return out, dict(LAUNCHES)
+        return out, dict(LAUNCHES), dict(PAIR_LAUNCHES)
 
     with torch.no_grad():
-        (logits, caches), la = run("sharded_ms", lambda: step(
+        (logits, caches), la, lp = run("sharded_ms", lambda: step(
             params, {"inputs": toks}))
-        (ul, uc), lu = run("unsharded_ms", lambda: lm.prefill(
+        (ul, uc), lu, _ = run("unsharded_ms", lambda: lm.prefill(
             params, toks, cfg, n, dtype=f32))
-    expect_only(la, {"flow_chunk": 4 * cfg.n_layers}, "seq-sharded prefill")
-    expect_only(lu, {"flow_fused": cfg.n_layers}, "unsharded prefill")
+    expect_only(la, {"flow_chunk": 4 * n_flow}, "seq-sharded prefill")
+    expect_pairs(lp, chunk_pairs(heads.d, heads.dv, k5a=4 * n_flow),
+                 "seq-sharded prefill")
+    expect_only(lu, {"flow_fused": n_flow}, "unsharded prefill")
     e = {"logits": dot_close("seq-sharded prefill logits", logits, ul)}
     e["states"] = max(state_close(f"seq-sharded prefill layer {i}", a, b)
                       for i, (a, b) in enumerate(zip(caches, uc)))
-    stats = {"errs": e, **wall, "launches": la}
+    stats = {"config": cfg.name, "errs": e, **wall, "launches": la,
+             "pair_launches": lp}
     print("[cp prefill] " + json.dumps(stats), flush=True)
     return stats
 
@@ -2935,6 +3004,24 @@ def expect_only(launches: dict, want: dict, what: str):
     full = {**dict.fromkeys(KERNELS, 0), **want}
     if launches != full:
         raise AssertionError(f"{what} launched {launches}, want {full}")
+
+
+def chunk_pairs(d: int, dv: int, *, k5a: int = 0, dq: int = 0,
+                k5b: int = 0) -> dict:
+    """The ``PAIR_LAUNCHES`` of a run of ``k5a`` K5a at (d, dv), ``dq`` K5a
+    at (dv, d) (``FlowChunkDot``'s dq) and ``k5b`` K5b at (d, dv)."""
+    want = collections.Counter({f"flow_chunk_{d}x{dv}": k5a,
+                                f"flow_chunk_dkv_{d}x{dv}": k5b})
+    want[f"flow_chunk_{dv}x{d}"] += dq
+    return {key: n for key, n in want.items() if n}
+
+
+def expect_pairs(pairs: dict, want: dict, what: str):
+    """Exactly the ``want`` K5a / K5b launches by (D, Dv), as the wrappers
+    counted them (``PAIR_LAUNCHES``)."""
+    if dict(pairs) != want:
+        raise AssertionError(f"{what} launched K5a / K5b at {dict(pairs)}, "
+                             f"want {want}")
 
 
 def first_step_grads(loss_fn, params, batch, cfg, backend, names):
@@ -4739,14 +4826,16 @@ WIDE_K2_SHAPES = (("d192_dv128", 4, 4, 1, 192, 128),
 WIDE_Q_SHAPES = (("d192_dv128", 16, 16, 1, 192, 128),
                  ("d192_g12", 16, 8, 12, 192, 192),
                  ("d256_g16", 16, 1, 16, 256, 256))
-#: phases 37 and 38: (config, depth, batch, optimizer) of the wide
-#: training runs at full width (5 bf16 steps of batch x 512 tokens).
+#: phases 37 and 38 (and 40, 41 in the paper-causal mode): (config, depth,
+#: batch, optimizer, seq-sharded prefill on the same weights: phase 42b)
+#: of the wide training runs at full width (5 bf16 steps of batch x 512
+#: tokens).
 #: RecurrentGemma-9B's 2.69 B parameters at 3 layers (2.1 B of them its
 #: embedding and head) take 32 GB of AdamW state, and the update holds the
 #: old and the new state at once beside 10.8 GB of gradients: out of
 #: memory on 80 GB; Adafactor's factored moments fit
-WIDE_TRAIN = (("deepseek_v2_lite_16b", 2, 4, "adamw"),
-              ("recurrentgemma_9b", 3, 4, "adafactor"))
+WIDE_TRAIN = (("deepseek_v2_lite_16b", 2, 4, "adamw", True),
+              ("recurrentgemma_9b", 3, 4, "adafactor", False))
 WIDE_TRAIN_STEPS, WIDE_TRAIN_SEQ = 5, 512
 
 
@@ -4938,21 +5027,27 @@ def wide_train_cfg(name: str, depth: int):
 
 
 def train_wide_full_width(name: str, depth: int, batch: int,
-                          optimizer: str) -> dict:
+                          optimizer: str, seq_shard_prefill: bool) -> dict:
     """Phases 37 and 38: ``name`` at full width, depth cut to ``depth``,
     weights drawn on the card from a seed, through ``launch.train.train``
     with ``optimizer``: WIDE_TRAIN_STEPS bf16 steps of ``batch`` x
-    WIDE_TRAIN_SEQ tokens on K1 and K2 under ``auto`` (exactly 2 K1 -- forward and remat recompute
-    -- and 1 K2 a flow layer and step, nothing else); step ms, tokens/s
-    and peak memory.  Then ``wide_train_both_paths``."""
+    WIDE_TRAIN_SEQ tokens on K1 and K2 under ``auto`` (exactly 2 K1 --
+    forward and remat recompute -- and 1 K2 a flow layer and step, nothing
+    else); step ms, tokens/s and peak memory.  Then ``wide_train_both_paths``
+    (37b, 38b), and on the same weights the paper-causal mode (phases 40
+    and 41, ``train_wide_run``: exactly 3 K5a and 1 K5b a flow layer and
+    step, no K1 or K2; 40b and 41b, one fp32 step against the pinned plain
+    path) and, where ``seq_shard_prefill``, its sequence-parallel prefill
+    (42b, ``cp_prefill_full_width``)."""
+    from repro_torch.config import ShapeSpec
     from repro_torch.configs import get_config
-    from repro_torch.kernels import LAUNCHES, reset_launches
-    from repro_torch.kernels._lib import KERNELS
-    from repro_torch.launch.train import train
+    from repro_torch.launch.steps import training_shapes
     from repro_torch.models import lm
     from repro_torch.utils import tree_leaves
 
     cfg = wide_train_cfg(name, depth)
+    heads = training_shapes(cfg, ShapeSpec("train", WIDE_TRAIN_SEQ, batch,
+                                           "train"))
     n_flow = hybrid_layers(cfg)[0]
     gc.collect()
     torch.cuda.empty_cache()
@@ -4960,48 +5055,86 @@ def train_wide_full_width(name: str, depth: int, batch: int,
     params = lm.init(cfg, torch.Generator(device=DEVICE).manual_seed(SEED),
                      device=DEVICE)
     n_params = sum(x.numel() for x in tree_leaves(params))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    out = train(cfg, steps=WIDE_TRAIN_STEPS, batch=batch, seq=WIDE_TRAIN_SEQ,
-                seed=SEED, device=DEVICE, params=params, optimizer=optimizer)
-    launches = dict(LAUNCHES)
-    hist = out["history"]
-    if len(hist) != WIDE_TRAIN_STEPS or not all(math.isfinite(x)
-                                                for x in hist):
-        raise AssertionError(f"{name} training losses {hist}")
-    n = n_flow * WIDE_TRAIN_STEPS
-    want = {**dict.fromkeys(KERNELS, 0), "flow_fused": 2 * n,
-            "flow_fused_bwd": n}
-    if launches != want:
-        raise AssertionError(f"{name} training launched {launches}, want "
-                             f"{want}")
-    step_ms = 1e3 * statistics.median(out["step_s"][1:])
-    full = get_config(name).n_layers
-    stats = {"config": cfg.name, "depth": f"{depth} of {full} layers",
-             "n_params": n_params, "optimizer": optimizer,
-             "flow_layers": n_flow, "steps":
-             WIDE_TRAIN_STEPS, "batch": batch, "seq": WIDE_TRAIN_SEQ,
-             "first_step_ms": 1e3 * out["step_s"][0], "step_ms": step_ms,
-             "tokens_per_s": batch * WIDE_TRAIN_SEQ / step_ms * 1e3,
-             "history": hist, "launches": launches, "held_before_gb": held,
-             "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
-    print(f"[train {name} bf16] " + json.dumps(stats), flush=True)
-    del out
-    torch.cuda.empty_cache()
+    fwd = 2 if cfg.remat else 1  # the forward and its remat recompute
+    stats = {"config": cfg.name,
+             "depth": f"{depth} of {get_config(name).n_layers} layers",
+             "n_params": n_params, "held_before_gb": held,
+             **train_wide_run(cfg, params, batch, optimizer,
+                              {"flow_fused": fwd, "flow_fused_bwd": 1},
+                              f"{name} bf16")}
     wide_train_both_paths(cfg, params, n_flow)
+    paper = paper_causal(cfg)
+    stats["paper"] = train_wide_run(
+        paper, params, batch, optimizer,
+        {"flow_chunk": fwd + 1, "flow_chunk_dkv": 1},
+        f"{name} paper-causal bf16",
+        per_pair=chunk_pairs(heads.d, heads.dv, k5a=fwd, dq=1, k5b=1))
+    wide_train_both_paths(paper, params, n_flow,
+                          per_layer={"flow_chunk": fwd + 1,
+                                     "flow_chunk_dkv": 1})
+    if seq_shard_prefill:
+        stats["cp_prefill"] = cp_prefill_full_width(cfg, params)
     del params
     torch.cuda.empty_cache()
     return stats
 
 
-def wide_train_both_paths(cfg, params, n_flow: int, batch: int = 2):
-    """Phases 37b and 38b: one fp32 step of ``batch`` x WIDE_TRAIN_SEQ
-    tokens at the run's full width and depth, on the kernels (K1 twice
-    with remat, and K2, a flow layer) and pinned to ``backend="plain"`` (no launch): the
-    loss within rtol 1e-4, every gradient leaf within 1e-4 of the plain
-    path's max |grad| (phase 11's bounds), the attention projections'
-    gradients non-zero on the kernels."""
+def train_wide_run(cfg, params, batch: int, optimizer: str,
+                   per_layer: dict, tag: str,
+                   per_pair: dict | None = None) -> dict:
+    """WIDE_TRAIN_STEPS bf16 steps of ``cfg`` from ``params`` through
+    ``launch.train.train``: finite losses and exactly ``per_layer``
+    launches a flow layer and step, nothing else, and of K5a and K5b
+    exactly ``per_pair`` by (D, Dv) (``chunk_pairs``; none by default);
+    step ms, tokens/s and peak memory."""
+    from repro_torch.kernels import LAUNCHES, PAIR_LAUNCHES, reset_launches
+    from repro_torch.kernels._lib import KERNELS
+    from repro_torch.launch.train import train
+
+    n_flow = hybrid_layers(cfg)[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    out = train(cfg, steps=WIDE_TRAIN_STEPS, batch=batch, seq=WIDE_TRAIN_SEQ,
+                seed=SEED, device=DEVICE, params=params, optimizer=optimizer)
+    launches, pairs = dict(LAUNCHES), dict(PAIR_LAUNCHES)
+    hist = out["history"]
+    if len(hist) != WIDE_TRAIN_STEPS or not all(math.isfinite(x)
+                                                for x in hist):
+        raise AssertionError(f"{tag} training losses {hist}")
+    n = n_flow * WIDE_TRAIN_STEPS
+    want = {**dict.fromkeys(KERNELS, 0),
+            **{k: per * n for k, per in per_layer.items()}}
+    if launches != want:
+        raise AssertionError(f"{tag} training launched {launches}, want "
+                             f"{want}")
+    expect_pairs(pairs, {k: per * n for k, per in (per_pair or {}).items()},
+                 f"{tag} training")
+    step_ms = 1e3 * statistics.median(out["step_s"][1:])
+    stats = {"optimizer": optimizer, "flow_layers": n_flow,
+             "strict_causal": cfg.attention.strict_causal,
+             "steps": WIDE_TRAIN_STEPS, "batch": batch,
+             "seq": WIDE_TRAIN_SEQ, "first_step_ms": 1e3 * out["step_s"][0],
+             "step_ms": step_ms,
+             "tokens_per_s": batch * WIDE_TRAIN_SEQ / step_ms * 1e3,
+             "history": hist, "launches": launches, "pair_launches": pairs,
+             "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"[train {tag}] " + json.dumps(stats), flush=True)
+    del out
+    torch.cuda.empty_cache()
+    return stats
+
+
+def wide_train_both_paths(cfg, params, n_flow: int, batch: int = 2,
+                          per_layer: dict | None = None):
+    """Phases 37b and 38b (40b and 41b in the paper-causal mode): one fp32
+    step of ``batch`` x WIDE_TRAIN_SEQ tokens at the run's full width and
+    depth, on the kernels (``per_layer`` launches a flow layer: by
+    default K1 twice with remat, and K2) and pinned to
+    ``backend="plain"`` (no launch): the loss within rtol 1e-4, every
+    gradient leaf within 1e-4 of the plain path's max |grad| (phase 11's
+    bounds), the attention projections' gradients non-zero on the
+    kernels."""
     from repro_torch.data.loader import lm_loader
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.kernels._lib import KERNELS
@@ -5027,8 +5160,9 @@ def wide_train_both_paths(cfg, params, n_flow: int, batch: int = 2):
         want = dict.fromkeys(KERNELS, 0)
         if backend == "auto":
             # with remat the backward runs each block's forward again
-            want.update(flow_fused=(2 if cfg.remat else 1) * n_flow,
-                        flow_fused_bwd=n_flow)
+            want.update({k: per * n_flow for k, per in (per_layer or {
+                "flow_fused": 2 if cfg.remat else 1,
+                "flow_fused_bwd": 1}).items()})
         if dict(LAUNCHES) != want:
             raise AssertionError(f"{cfg.name} fp32 backend={backend}: "
                                  f"launches {LAUNCHES}, want {want}")
@@ -5057,7 +5191,9 @@ def wide_train_both_paths(cfg, params, n_flow: int, batch: int = 2):
     if not attn_ok or not all(attn_ok):
         raise AssertionError(f"{cfg.name}: attention projections' gradients "
                              f"on the kernels {attn_ok}")
-    print(f"[train {cfg.name} fp32] kernels vs plain, one step of {batch} x "
+    mode = "" if cfg.attention.strict_causal else " paper-causal"
+    print(f"[train {cfg.name}{mode} fp32] kernels vs plain, one step of "
+          f"{batch} x "
           f"{WIDE_TRAIN_SEQ}: loss {a:.6f} vs {b:.6f}; {len(grads['auto'])} "
           f"gradient leaves, worst |diff| / max |grad| {worst:.3e}; "
           f"{len(attn_ok)} attention projections' gradients non-zero",
@@ -5153,6 +5289,136 @@ def time_wide_train_kernels(runs: dict, errs: dict) -> list:
                 "shape": f"{slots} slots x {hkv} kv heads, G = {g}, D = {d},"
                          f" Dv = {dv}, int8 pool, bf16 tokens"})
     print("[wide training and int8 shapes] " + json.dumps(rows), flush=True)
+    return rows
+
+
+# --- K5a and K5b at the wide pairs: phases 3k, 40-42b -------------------------
+
+#: phase 3k's shapes and phase 9's wide K5a / K5b rows: (tag, rows = batch
+#: x kv heads, G, N, D, Dv) of one flow layer of the paper-causal training
+#: steps of phases 40 and 41 -- DeepSeek-V2-Lite's 4 x 16 MLA heads, their
+#: dq call (D and Dv swapped) and RecurrentGemma-9B's 4 x 1 kv head at G =
+#: 16 -- and of Nemotron-4-340B's 4 x 8 kv heads of 192 at G = 12, which no
+#: model run reaches
+WIDE_CHUNK_SHAPES = (("d192_dv128", 64, 1, 512, 192, 128),
+                     ("d128_dv192", 64, 1, 512, 128, 192),
+                     ("d192_g12", 32, 12, 512, 192, 192),
+                     ("d256_g16", 4, 16, 512, 256, 256))
+#: phase 3k's second case at each pair: rows and an N no multiple of the
+#: kernels' chunk of 32
+WIDE_CHUNK_RAGGED = (6, 200)
+
+
+def check_wide_chunk() -> dict:
+    """Phase 3k: K5a and K5b at each of WIDE_CHUNK_SHAPES, and at N = 200
+    of 6 rows at the same pair and group, against their plain versions
+    (K5a also on the swapped operands of its dq call) and their
+    decompositions (``flow_chunk_parallel``, ``flow_chunk_dkv_parallel``
+    at the kernels' chunk of 32), within phase 3d's K5a tolerance; two
+    calls of each bitwise equal.  Returns each row's max |error| against
+    the plain versions."""
+    from repro_torch.kernels.flow_chunk import (flow_chunk_call,
+                                                flow_chunk_dkv_call,
+                                                flow_chunk_dkv_parallel,
+                                                flow_chunk_dkv_ref,
+                                                flow_chunk_parallel,
+                                                flow_chunk_ref)
+
+    errs = {}
+    for tag, rows, g, n, d, dv in WIDE_CHUNK_SHAPES:
+        e5a = e5b = edq = 0.0
+        for r, nn in ((rows, n), WIDE_CHUNK_RAGGED):
+            q, k, v, cot = chunk_operands(r, g, nn, d, dv,
+                                          SEED + 110 + d + dv + g + nn)
+            name = f"{tag} rows={r} G={g} N={nn} ({d}, {dv})"
+            with torch.no_grad():
+                out = flow_chunk_call(q, k, v)
+                e5a = max(e5a, dot_close(f"flow_chunk {name}", out,
+                                         flow_chunk_ref(q, k, v)))
+                dot_close(f"flow_chunk {name} vs flow_chunk_parallel", out,
+                          flow_chunk_parallel(q, k, v, 32))
+                if not torch.equal(flow_chunk_call(q, k, v), out):
+                    raise AssertionError(f"flow_chunk {name}: two calls "
+                                         "differ")
+                edq = max(edq, dot_close(f"flow_chunk {name} dq (g, v, k)",
+                                         flow_chunk_call(cot, v, k),
+                                         flow_chunk_ref(cot, v, k)))
+                dkv = flow_chunk_dkv_call(q, k, v, cot)
+                for x, a, b in zip("kv", dkv,
+                                   flow_chunk_dkv_ref(q, k, v, cot)):
+                    e5b = max(e5b, dot_close(f"flow_chunk_dkv {name} d{x}",
+                                             a, b))
+                for x, a, b in zip("kv", dkv, flow_chunk_dkv_parallel(
+                        q, k, v, cot, 32)):
+                    dot_close(f"flow_chunk_dkv {name} d{x} vs "
+                              "flow_chunk_dkv_parallel", a, b)
+                if not all(map(torch.equal, flow_chunk_dkv_call(q, k, v, cot),
+                               dkv)):
+                    raise AssertionError(f"flow_chunk_dkv {name}: two calls "
+                                         "differ")
+            torch.cuda.synchronize()
+            del q, k, v, cot, out, dkv
+            torch.cuda.empty_cache()
+        errs[f"flow_chunk_{tag}"], errs[f"flow_chunk_dkv_{tag}"] = e5a, e5b
+        print(f"[K5 wide] {tag} (rows {rows}, G = {g}, N = {n}; and 6 rows "
+              f"at N = 200): K5a {e5a:.3e}, its dq operands {edq:.3e}, K5b "
+              f"{e5b:.3e}; both within their decompositions' bound, two "
+              "calls of each bitwise equal", flush=True)
+    return errs
+
+
+def time_wide_chunk_kernels(pairs: dict, errs: dict) -> list:
+    """Phase 9, the wide K5a and K5b rows: each at one flow layer of
+    WIDE_CHUNK_SHAPES (fp32, the pipeline's operands), with the device ms
+    of each of its three CUDA kernels; the plain versions as
+    ``time_chunk_kernels``'s (the chunked scan, and for K5b the backward of
+    autograd through it); launches the main path's ``PAIR_LAUNCHES`` at
+    the row's (D, Dv), ``pairs`` (0 at Nemotron-4-340B's shape, which no
+    model run reaches); bounds with every operation a 3xTF32 product
+    (``tf32_bound``)."""
+    from repro_torch.attention.chunked import chunked_causal_dot_grouped
+    from repro_torch.kernels.flow_chunk import (flow_chunk_call,
+                                                flow_chunk_dkv_call)
+
+    rows = []
+    for tag, bh, g, n, d, dv in WIDE_CHUNK_SHAPES:
+        q, k, v, cot = chunk_operands(bh, g, n, d, dv, SEED + 120)
+        kl, vl = k.clone().requires_grad_(True), v.clone().requires_grad_(True)
+        graph = chunked_causal_dot_grouped(q, kl, vl, 128)
+        io = 4 * bh * n * (g * d + d + dv + g * dv)  # q, k, v read; out
+        io_dkv = io + 4 * bh * n * (d + dv)  # g read; dk, dv written
+        shape = (f"{bh} rows, G = {g}, N = {n}, D = {d}, Dv = {dv}, fp32")
+        for name, source, replaces, run, plain, bytes_moved, ops, key in (
+                ("flow_chunk", "src/repro_torch/csrc/flow_chunk_wide.cu",
+                 "src/repro/kernels/flow_chunk/flow_chunk.py:72",
+                 lambda: flow_chunk_call(q, k, v),
+                 lambda: chunked_causal_dot_grouped(q, k, v, 128),
+                 io, bh * n * chunk_ops(g, d, dv), K5A_KEY),
+                ("flow_chunk_dkv",
+                 "src/repro_torch/csrc/flow_chunk_bwd_wide.cu",
+                 "src/repro/kernels/flow_chunk/bwd.py:114",
+                 lambda: flow_chunk_dkv_call(q, k, v, cot),
+                 lambda: torch.autograd.grad(graph, (kl, vl), cot,
+                                             retain_graph=True),
+                 io_dkv, bh * n * chunk_dkv_ops(g, d, dv), K5B_KEY)):
+            bound_ms, by = tf32_bound(bytes_moved, ops)
+            with torch.no_grad():
+                ms = time_ms(run)
+            rows.append({
+                "name": f"{name}_{tag}", "route": "cuda", "source": source,
+                "replaces": replaces,
+                "launches": pairs.get(f"{name}_{d}x{dv}", 0),
+                "max_abs_err": errs[f"{name}_{tag}"], "ms": ms,
+                "plain_ms": time_ms(plain), "bound_ms": bound_ms,
+                "bound_by": by, "library_ms": None, "shape": shape,
+                "breakdown_ms": chunk_breakdown(run, key)})
+        del q, k, v, cot, kl, vl, graph
+        torch.cuda.empty_cache()
+    print("[wide K5a/K5b shapes] " + json.dumps(rows), flush=True)
+    print("[wide K5a/K5b kernels] registers and spill bytes: " + json.dumps(
+        {name: PTXAS.get(name, "cached")
+         for name in ("flow_chunk_wide", "flow_chunk_bwd_wide")}),
+        flush=True)
     return rows
 
 
@@ -6923,7 +7189,8 @@ def time_chunk_kernels(launches: dict, errs: dict) -> list:
     """Phase 9, K5a/K5b: one layer's causal dot of the paper-causal
     training step (fp32, 16 rows x 8 kv heads, G = 1, N = 512, D = 64).
     The plain version is the chunked scan, and for K5b the backward of
-    autograd through it (dk and dv only: q does not require grad)."""
+    autograd through it (dk and dv only: q does not require grad).  Bounds
+    with every operation a 3xTF32 product (``tf32_bound``)."""
     from repro_torch.attention.chunked import chunked_causal_dot_grouped
     from repro_torch.kernels.flow_chunk import (flow_chunk_call,
                                                 flow_chunk_dkv_call)
@@ -6949,7 +7216,7 @@ def time_chunk_kernels(launches: dict, errs: dict) -> list:
     ]
     rows = []
     for name, source, replaces, run, plain, bytes_moved, ops in cases:
-        bound_ms, by = bound(bytes_moved, ops)
+        bound_ms, by = tf32_bound(bytes_moved, ops)
         with torch.no_grad():
             ms = time_ms(run)
         rows.append({
@@ -7035,7 +7302,7 @@ def time_d24_kernels(table7: dict, errs: dict) -> list:
              lambda: torch.autograd.grad(graph, (kl, vl), cot,
                                          retain_graph=True), io_dkv,
              bh * nv * chunk_dkv_ops(g, w, w))):
-        bound_ms, by = bound(bytes_moved, ops)
+        bound_ms, by = tf32_bound(bytes_moved, ops)
         with torch.no_grad():
             ms = time_ms(run)
         rows.append({
@@ -7085,6 +7352,15 @@ def tensor_core_bound(ops: float, products: float,
     return 1e3 * max(bytes_moved / HBM_BYTES_PER_S,
                      (ops - products) / FP32_FLOPS
                      + 3 * products / TF32_FLOPS)
+
+
+def tf32_bound(bytes_moved: float, ops: float) -> tuple[float, str]:
+    """``bound`` for a kernel whose every operation is a product run on
+    the tensor cores in 3xTF32 (K5a, K5b): ``tensor_core_bound`` with all
+    of ``ops`` products, and what bounds it."""
+    ms = tensor_core_bound(ops, ops, bytes_moved)
+    return ms, ("bytes" if ms <= 1e3 * bytes_moved / HBM_BYTES_PER_S
+                else "operations")
 
 
 def time_nc_kernels(launches: dict, errs: dict) -> list:
@@ -7457,7 +7733,8 @@ def main() -> int:
             **check_whisper_granite_shapes(),
             **check_wide_shapes(),
             **check_rg_shapes(),
-            **check_wide_train_shapes()}
+            **check_wide_train_shapes(),
+            **check_wide_chunk()}
     mark("kernel checks")
 
     from repro_torch.configs import get_config
@@ -7543,7 +7820,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     mark("distribution and context parallelism")
     wide_trained = {w[0]: train_wide_full_width(*w) for w in WIDE_TRAIN}
-    mark("deepseek_v2_lite_16b and recurrentgemma_9b training")
+    # K5a / K5b by (D, Dv) over the main-path runs that count them
+    pairs = collections.Counter()
+    for run in (*distributed, *wide_trained.values(),
+                *(w["paper"] for w in wide_trained.values()),
+                *(w["cp_prefill"] for w in wide_trained.values()
+                  if "cp_prefill" in w)):
+        pairs.update(run.get("pair_launches", {}))
+    mark("deepseek_v2_lite_16b and recurrentgemma_9b training, strict and "
+         "paper-causal; deepseek_v2_lite_16b seq-sharded prefill")
     lra = get_config("flowformer_lra")
     classified = train_classifier_full_width(lra)
     profile_classifier(lra, classified["step_ms"])
@@ -7618,7 +7903,8 @@ def main() -> int:
         heard, taught, granite, deepseek, qwen, granite_moe, rg_flow,
         rg_soft, rg_int8, served_q, *fleet, restarted, factored, kinds,
         resumed, *distributed, deepseek["int8"], rg_flow["int8"],
-        *wide_trained.values()))
+        *wide_trained.values(), *(w["paper"] for w in wide_trained.values()),
+        wide_trained["deepseek_v2_lite_16b"]["cp_prefill"]))
         for name in stats["launches"]}
     torch.cuda.empty_cache()
     rows = (time_kernels(launches, errs) + time_paged_kernels(launches, errs)
@@ -7632,7 +7918,8 @@ def main() -> int:
                 {"d192_dv128": (wide_trained["deepseek_v2_lite_16b"],
                                 deepseek["int8"]),
                  "d256_g16": (wide_trained["recurrentgemma_9b"],
-                              rg_flow["int8"])}, errs))
+                              rg_flow["int8"])}, errs)
+            + time_wide_chunk_kernels(pairs, errs))
     mark("kernel times")
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

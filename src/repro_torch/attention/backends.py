@@ -33,7 +33,8 @@ chunk; zero rows add nothing to the dot).  Both also take the head dims of
 to the stored width; the decode kernels do not.  ``cuda_fused`` and
 ``cuda_decode`` also take ``_lib.WIDE_PAIRS`` (D = 192 beside Dv = 128 or
 192: the MLA and Nemotron-4-340B heads; D = Dv = 256: RecurrentGemma's),
-gradients (K2) and int8 pools (K4) included.  K2's pull-back takes a
+gradients (K2) and int8 pools (K4) included; ``cuda_chunk`` takes
+``_lib.CHUNK_PAIRS`` (those pairs too, at any G).  K2's pull-back takes a
 group of at most 9-10 at D <= 128, 23 at D = 192 and 21 at D = 256
 (``_lib.k2_group_fits``): a plan that needs gradients at a larger group
 is refused by ``cuda_fused``'s ``grad_support`` naming K2, D and G, so
@@ -199,8 +200,8 @@ def _check_nc_dims(shapes, platform):
 
 
 def _check_chunk_kernel(shapes, platform):
-    """K5a's and K5b's device and head dims, a width of
-    ``_lib.PADDED_HEAD_DIMS`` at its stored width (the glue pads it)."""
+    """K5a's and K5b's device and (D, Dv) (``_lib.CHUNK_PAIRS``), a width
+    of ``_lib.PADDED_HEAD_DIMS`` at its stored width (the glue pads it)."""
     if platform != "cuda":
         return f"CUDA kernel needs a CUDA device (platform={platform!r})"
     return check_dims(stored_width(shapes.d), stored_width(shapes.dv))
@@ -399,11 +400,11 @@ class Chunked(Cumsum):
 
 
 class CudaChunk(Cumsum):
-    """The causal pipeline on the flow_chunk CUDA kernel K5a (one block
-    per (row, kv head) and Dv slice, the (D, Dv) state in shared memory),
+    """The causal pipeline on the flow_chunk CUDA kernel K5a (chunk states,
+    their prefix and the per-chunk products, the chunk axis in parallel),
     differentiated through ``FlowChunkDot`` (K5a for dq, K5b for dk and
-    dv).  Any N: the glue pads to the chunk, K5a's own at ``chunk_size <=
-    0``, and D or Dv = 24 to 32."""
+    dv), at the (D, Dv) of ``_lib.CHUNK_PAIRS``.  Any N: the glue pads to
+    the chunk, K5a's own at ``chunk_size <= 0``, and D or Dv = 24 to 32."""
 
     verdict = "flow_chunk CUDA kernels"
 

@@ -1,15 +1,27 @@
 // flow_chunk_common.cuh — pieces shared by the chunked causal-dot kernels
-// for Hopper (sm_90a): flow_chunk.cu (K5a, the forward and dq) and
-// flow_chunk_bwd.cu (K5b, dk and dv).
+// for Hopper (sm_90a): K5a, the forward and dq (flow_chunk_fwd.cuh,
+// instantiated by flow_chunk.cu and flow_chunk_wide.cu), and K5b, dk and
+// dv (flow_chunk_bwd.cuh, instantiated by flow_chunk_bwd.cu and
+// flow_chunk_bwd_wide.cu).
 //
 // Both run the chunk axis in parallel in three launches over one workspace
 // of per-(row, chunk) D x Dv states: a state kernel (the body
 // `chunk_state` below: K5a's H_c = k_c^T v_c, K5b's U_c = sum_g
 // q_{c,g}^T g_{c,g}), a pass that turns the states into running sums in
 // place (`chunk_pass`: K5a's prefix in chunk order, K5b's suffix in
-// reverse order), and a per-chunk output kernel of each source's own.
+// reverse order), and a per-chunk output kernel of each kernel's own.
 // Every product runs on the tensor cores in 3xTF32 (tensor_core.cuh), every
 // sum in a fixed order and without atomics, so two calls are bitwise equal.
+//
+// The (Dk, Dv) pairs taken (`pair_ok`, mirrored by _lib.CHUNK_PAIRS): every
+// product of {32, 64, 128} (the narrow sources), and the wide pairs
+// (192, 128) and (128, 192) (DeepSeek-V2's MLA heads; the second is K5a's
+// dq call, which swaps k and v), (192, 192) (Nemotron-4-340B's) and
+// (256, 256) (RecurrentGemma's), which the *_wide sources instantiate.  At
+// the wide pairs every kernel tiles its output columns across blocks
+// (grid y, tiles of kWideTile = 64 columns), so that a state's
+// accumulators fit in registers and the output kernels' tiles in shared
+// memory.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -29,10 +41,18 @@ __device__ __forceinline__ float4 ld4(const float* p) {
 constexpr int kThreads = 128;  // the state kernels and K5a's output kernel
 constexpr int kWarps = kThreads / 32;
 
-// Positions per chunk: 64, 32 where a width is 128 (shared memory).
+// Positions per chunk: 64, 32 where a width is 128 or more (shared memory).
 template <int DK, int DV>
 __host__ __device__ constexpr int chunk_of() {
   return DK >= 128 || DV >= 128 ? 32 : 64;
+}
+
+// Output columns a block owns: all of Dv at the narrow pairs, 64-column
+// tiles (grid y) at the wide ones.
+constexpr int kWideTile = 64;
+template <int DK, int DV>
+__host__ __device__ constexpr int col_tile() {
+  return DK > 128 || DV > 128 ? kWideTile : DV;
 }
 
 // The (row, chunk) of block b of a chunk-major grid over `rows` rows.
@@ -96,52 +116,56 @@ __device__ __forceinline__ void a_frag_kmajor(const float* X, int m0, int ks, ui
   split_tf32(x[LD + 8], ah[3], al[3]);  // (g + 8, t + 4)
 }
 
-// Copy rows t0 <= t < t1 of a row-major (rows, W) matrix at src into a tile
-// of stride LD, NT threads sharing the copies; rows at or past `valid`
-// become zeros.  No commit, no wait.
-template <int W, int LD, int NT = kThreads>
+// Copy W columns of rows t0 <= t < t1 of a row-major matrix of row stride
+// SW at src into a tile of stride LD, NT threads sharing the copies; rows
+// at or past `valid` become zeros.  No commit, no wait.
+template <int W, int LD, int NT = kThreads, int SW = W>
 __device__ __forceinline__ void issue_rows(float* dst, const float* __restrict__ src, int t0,
                                            int t1, int valid) {
   constexpr int Q = W / 4;
   for (int i = threadIdx.x; i < (t1 - t0) * Q; i += NT) {
     const int t = t0 + i / Q, c = (i % Q) * 4;
     const bool ok = t < valid;
-    cp_async16(dst + t * LD + c, ok ? src + (size_t)t * W + c : src, ok);
+    cp_async16(dst + t * LD + c, ok ? src + (size_t)t * SW + c : src, ok);
   }
 }
 
 // --- the state kernels' body ----------------------------------------------------
 //
-// slot = sum_{gi < grp} A_gi^T B_gi over one chunk, A_gi the (C, DK) rows at
-// a + gi a_step and B_gi the (C, DV) rows at b + gi b_step (rows at or past
-// `valid` read as zeros).  Warp w owns the 16-row blocks w, w + 4, ... of
-// the DK x DV state and all its columns; A is read down its columns (the
-// reduction runs over positions), so both tiles are staged with a stride
-// of W + 4 floats, each group's positions in four cp.async groups summed
-// as each lands.
+// slot[:, :TN] = sum_{gi < grp} A_gi^T B_gi over one chunk, A_gi the (C,
+// DK) rows at a + gi a_step and B_gi the first TN columns of the (C, DV)
+// rows at b + gi b_step (rows at or past `valid` read as zeros); slot is
+// a DK x DV state, rows DV apart.  A wide pair's block owns one
+// col_tile-wide column tile (the caller offsets b and slot), so that at
+// Dk = 256 its accumulators are 128 floats a thread, as at (128, 128).
+// Warp w owns the 16-row blocks w, w + 4, ... of the state and all TN
+// columns; A is read down its columns (the reduction runs over
+// positions), so both tiles are staged with a stride of W + 4 floats,
+// each group's positions in four cp.async groups summed as each lands.
 
-template <int DK, int DV>
+template <int DK, int DV, int TN = DV>
 struct StateTiles {
   static constexpr int C = chunk_of<DK, DV>();
-  static constexpr int LK = DK + 4, LV = DV + 4;
+  static constexpr int LK = DK + 4, LV = TN + 4;
   static constexpr int MB = DK / 16;              // 16-row blocks of the state
   static constexpr int PASSES = (MB + kWarps - 1) / kWarps;
-  static constexpr int NT = DV / 8;               // 8-column tiles
+  static constexpr int NT = TN / 8;               // 8-column tiles
   static constexpr int FLOATS = C * LK + C * LV;
   static constexpr int NS = 4, TS = C / NS;      // copy groups of TS positions
   static_assert(TS % 8 == 0, "whole k-steps per copy group");
+  static_assert(DV % TN == 0 && TN % 8 == 0, "whole column tiles");
 };
 
-template <int DK, int DV>
+template <int DK, int DV, int TN = DV>
 __device__ __forceinline__ void chunk_state(const float* __restrict__ a,
                                             const float* __restrict__ b, size_t a_step,
                                             size_t b_step, int grp, int valid,
                                             float* __restrict__ slot) {
-  using ST = StateTiles<DK, DV>;
+  using ST = StateTiles<DK, DV, TN>;
   constexpr int LK = ST::LK, LV = ST::LV, NT = ST::NT, NS = ST::NS, TS = ST::TS;
   extern __shared__ float smem[];
   float* K = smem;              // C x DK
-  float* V = K + ST::C * LK;    // C x DV
+  float* V = K + ST::C * LK;    // C x TN
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g8 = lane >> 2, t4 = lane & 3;
   float acc[ST::PASSES][NT][4];
 #pragma unroll
@@ -154,7 +178,7 @@ __device__ __forceinline__ void chunk_state(const float* __restrict__ a,
 #pragma unroll
     for (int st = 0; st < NS; ++st) {
       issue_rows<DK, LK>(K, a + gi * a_step, st * TS, (st + 1) * TS, valid);
-      issue_rows<DV, LV>(V, b + gi * b_step, st * TS, (st + 1) * TS, valid);
+      issue_rows<TN, LV, kThreads, DV>(V, b + gi * b_step, st * TS, (st + 1) * TS, valid);
       cp_async_commit();
     }
 #pragma unroll
@@ -229,10 +253,23 @@ __device__ __forceinline__ void chunk_pass(float* __restrict__ states, int rows,
 
 inline bool width_ok(int d) { return d == 32 || d == 64 || d == 128; }
 
-// Floats of workspace the three launches need: one DK x DV state per row
-// and chunk but one; -1 for shapes the kernels refuse.
+// The narrow sources' pairs: every product of {32, 64, 128}.
+inline bool narrow_pair(int dk, int dv) { return width_ok(dk) && width_ok(dv); }
+
+// The wide sources' pairs.
+inline bool wide_pair(int dk, int dv) {
+  return (dk == 192 && (dv == 128 || dv == 192)) || (dk == 128 && dv == 192) ||
+         (dk == 256 && dv == 256);
+}
+
+// Every pair K5a and K5b take (_lib.CHUNK_PAIRS).
+inline bool pair_ok(int dk, int dv) { return narrow_pair(dk, dv) || wide_pair(dk, dv); }
+
+// Floats of workspace the three launches need, at any pair_ok pair: one
+// DK x DV state per row and chunk but one; -1 for shapes the kernels
+// refuse.
 inline long long workspace_floats(int bh, int grp, int n, int dk, int dv) {
-  if (bh < 0 || grp < 1 || n < 1 || !width_ok(dk) || !width_ok(dv)) return -1;
+  if (bh < 0 || grp < 1 || n < 1 || !pair_ok(dk, dv)) return -1;
   const int c = dk >= 128 || dv >= 128 ? 32 : 64;
   return (long long)bh * ((n + c - 1) / c - 1) * dk * dv;
 }

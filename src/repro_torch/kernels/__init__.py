@@ -6,6 +6,7 @@ CPU tensors runs the plain version; given CUDA tensors it launches the
 kernel or raises.  The kernels are compiled from ``repro_torch/csrc`` with
 ``nvcc`` at first use (``_lib.build``), never at import.
 """
-from repro_torch.kernels._lib import LAUNCHES, build, reset_launches
+from repro_torch.kernels._lib import (LAUNCHES, PAIR_LAUNCHES, build,
+                                      reset_launches)
 
-__all__ = ["LAUNCHES", "build", "reset_launches"]
+__all__ = ["LAUNCHES", "PAIR_LAUNCHES", "build", "reset_launches"]

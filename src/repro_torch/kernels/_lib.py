@@ -10,11 +10,13 @@ kernels whose launches are counted: one source may hold several
 without carry-ins, counted apart; ``paged_gather.cu`` K8a and K8b), and one
 kernel may span two sources (K2: ``flow_fused_bwd.cu`` at D <= 128,
 ``flow_fused_bwd_wide.cu`` at the wide pairs, one ``flow_fused_bwd``
-count).
+count; K5a and K5b likewise over ``flow_chunk.cu`` / ``flow_chunk_wide.cu``
+and ``flow_chunk_bwd.cu`` / ``flow_chunk_bwd_wide.cu``).
 Nothing here runs at import.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -31,8 +33,9 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("flow_fused", "flow_fused_bwd", "flow_fused_bwd_wide",
            "flow_decode", "flow_decode_q",
-           "flow_nc_fused", "flow_nc_qside", "flow_chunk", "flow_chunk_bwd",
-           "boundary_gather", "ssd_chunk", "ssd_chunk_bwd", "paged_gather")
+           "flow_nc_fused", "flow_nc_qside", "flow_chunk", "flow_chunk_wide",
+           "flow_chunk_bwd", "flow_chunk_bwd_wide", "boundary_gather",
+           "ssd_chunk", "ssd_chunk_bwd", "paged_gather")
 KERNELS = ("flow_fused", "flow_fused_bwd", "flow_decode", "flow_decode_q",
            "flow_nc_fused", "flow_nc_qside", "flow_nc_qside_bwd", "flow_chunk",
            "flow_chunk_dkv", "boundary_gather", "ssd_chunk", "ssd_chunk_hins",
@@ -53,13 +56,19 @@ PADDED_HEAD_DIMS = {24: 32}
 #: the (D, Dv) pairs beyond ``HEAD_DIMS``' D == Dv that K1 (flow_fused),
 #: K2 (flow_fused_bwd), K3 (flow_decode) and K4 (flow_decode_q) take:
 #: DeepSeek-V2's MLA heads (q and k 192 wide, v 128), Nemotron-4-340B's
-#: 192-wide ones and RecurrentGemma's 256-wide ones.  K5a and K5b stay at
-#: ``HEAD_DIMS`` (and ``PADDED_HEAD_DIMS``), so a plan that needs them at
-#: these widths (the paper-causal mode, the linear branch) is refused by
-#: name
+#: 192-wide ones and RecurrentGemma's 256-wide ones
 WIDE_PAIRS = ((192, 128), (192, 192), (256, 256))
 #: the (D, Dv) pairs of K1 to K4: ``HEAD_DIMS`` square, then ``WIDE_PAIRS``
 FUSED_PAIRS = tuple((d, d) for d in HEAD_DIMS) + WIDE_PAIRS
+#: the (D, Dv) pairs of K5a (flow_chunk) and K5b (flow_chunk_dkv): every
+#: product of ``HEAD_DIMS`` (``flow_chunk.cu``, ``flow_chunk_bwd.cu``),
+#: then ``WIDE_PAIRS`` with (128, 192), K5a's dq call at the MLA heads
+#: (``FlowChunkDot`` swaps k and v), in ``flow_chunk_wide.cu`` and
+#: ``flow_chunk_bwd_wide.cu``.  ``pair_ok`` in ``csrc/flow_chunk_common.cuh``
+#: mirrors it (the card tests hold the two equal); a D of
+#: ``PADDED_HEAD_DIMS`` is taken at its stored width
+CHUNK_PAIRS = tuple((d, dv) for d in HEAD_DIMS for dv in HEAD_DIMS) + (
+    (192, 128), (128, 192), (192, 192), (256, 256))
 #: the opt-in shared memory of one block on the H100 (bytes): what K1's and
 #: K2's super-chunks are sized against on the card
 H100_SMEM_PER_BLOCK = 232_448
@@ -117,8 +126,9 @@ def kernel_chunk(n: int, chunk: int, d: int, dv: int) -> int:
     """The chunk N is padded to for the causal kernels (K1 and K2, K5a and
     K5b): ``chunk`` capped at N, or where the caller has none (``chunk <=
     0``: ``flowformer_dt``) the kernels' own -- 64 positions, 32 where a
-    stored width is 128 (``chunk_of`` in ``csrc/flow_fused_common.cuh``
-    and ``csrc/flow_chunk_common.cuh``) -- never a chunk of 1."""
+    stored width is 128 or more (``chunk_of`` in
+    ``csrc/flow_fused_common.cuh`` and ``csrc/flow_chunk_common.cuh``) --
+    never a chunk of 1."""
     if chunk <= 0:
         return 32 if max(stored_width(d), stored_width(dv)) >= 128 else 64
     return max(1, min(chunk, n))
@@ -126,6 +136,9 @@ def kernel_chunk(n: int, chunk: int, d: int, dv: int) -> int:
 
 #: launches per kernel: each wrapper adds one where it launches its kernel
 LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
+#: launches of K5a and K5b by the (D, Dv) they ran at, keyed
+#: ``"<kernel>_<D>x<Dv>"``: each wrapper adds one beside its LAUNCHES count
+PAIR_LAUNCHES: collections.Counter = collections.Counter()
 
 _FUNCS: dict[str, ctypes._CFuncPtr] = {}
 
@@ -133,6 +146,7 @@ _FUNCS: dict[str, ctypes._CFuncPtr] = {}
 def reset_launches():
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    PAIR_LAUNCHES.clear()
 
 
 def _nvcc() -> str:

@@ -1,5 +1,9 @@
-"""Wrappers of the flow_chunk CUDA kernels: K5a (``csrc/flow_chunk.cu``)
-and K5b (``csrc/flow_chunk_bwd.cu``).
+"""Wrappers of the flow_chunk CUDA kernels: K5a (``csrc/flow_chunk.cu``,
+``csrc/flow_chunk_wide.cu``) and K5b (``csrc/flow_chunk_bwd.cu``,
+``csrc/flow_chunk_bwd_wide.cu``), at the (D, Dv) pairs of
+``_lib.CHUNK_PAIRS``: each wrapper launches from the narrow library at D
+and Dv in ``HEAD_DIMS`` and from the wide one at the wide pairs, one count
+either way.
 
 * ``flow_chunk_call`` (K5a): ``out[g, i] = q[g, i] . sum_{j<=i} k_j^T v_j``
   over a flat (BH, G, N, D) batch -- the forward, and dq with k and v
@@ -23,11 +27,13 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _lib
-from repro_torch.kernels._lib import HEAD_DIMS, LAUNCHES
+from repro_torch.kernels._lib import (CHUNK_PAIRS, HEAD_DIMS, LAUNCHES,
+                                      PAIR_LAUNCHES)
 from repro_torch.kernels.flow_chunk.bwd import flow_chunk_dkv_ref
 from repro_torch.kernels.flow_chunk.ref import flow_chunk_ref
 
-__all__ = ["LAUNCHES", "check_dims", "flow_chunk_call", "flow_chunk_dkv_call"]
+__all__ = ["LAUNCHES", "PAIR_LAUNCHES", "check_dims", "flow_chunk_call",
+           "flow_chunk_dkv_call"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _FWD_ARGTYPES = [_P] * 5 + [_I] * 5 + [_P]
@@ -36,11 +42,21 @@ _DKV_ARGTYPES = [_P] * 7 + [_I] * 5 + [_P]
 
 def check_dims(d: int, dv: int) -> str | None:
     """Why the flow_chunk kernels refuse key width ``d`` and value width
-    ``dv``, or None.  Shared memory holds for every pair of these widths
-    at any G (the kernels loop over the group)."""
-    if d not in HEAD_DIMS or dv not in HEAD_DIMS:
-        return f"kernel takes D and Dv in {HEAD_DIMS}, got D={d} Dv={dv}"
+    ``dv`` (``_lib.CHUNK_PAIRS``), or None.  Shared memory holds for every
+    pair at any G (the kernels loop over the group)."""
+    if (d, dv) not in CHUNK_PAIRS:
+        wide = tuple(p for p in CHUNK_PAIRS if max(p) > max(HEAD_DIMS))
+        return (f"kernel takes D and Dv in {HEAD_DIMS}, or (D, Dv) in "
+                f"{wide}, got D={d} Dv={dv}")
     return None
+
+
+def _entry(d: int, dv: int, narrow: tuple[str, str],
+           wide: tuple[str, str], argtypes):
+    """The C entry (source, symbol) launching at (d, dv): ``narrow`` at D
+    and Dv in ``HEAD_DIMS``, else ``wide``."""
+    source, symbol = narrow if d in HEAD_DIMS and dv in HEAD_DIMS else wide
+    return _lib.function(source, symbol, argtypes)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -77,8 +93,8 @@ def workspace(q: torch.Tensor, bh: int, g: int, n: int, d: int, dv: int,
               source: str = "flow_chunk",
               symbol: str = "flow_chunk_workspace") -> torch.Tensor:
     """The fp32 scratch K5a (or, by ``source`` and ``symbol``, K5b) needs at
-    these shapes (its chunk states), from the library's own count; the
-    kernels allocate nothing."""
+    these shapes (its chunk states), from the narrow library's own count,
+    which covers every pair; the kernels allocate nothing."""
     size = _lib.function(source, symbol, [_I] * 5, ctypes.c_longlong)(
         bh, g, n, d, dv)
     if size < 0:
@@ -90,8 +106,9 @@ def flow_chunk_call(q: torch.Tensor, k: torch.Tensor,
                     v: torch.Tensor) -> torch.Tensor:
     """The causal dot (K5a).  q: (BH, G, N, D); k: (BH, N, D); v: (BH, N,
     Dv) -> (BH, G, N, Dv) in q's dtype.  One call is one count in
-    ``LAUNCHES`` and up to three CUDA kernels (chunk states, their prefix,
-    the per-chunk products) on one ``workspace``."""
+    ``LAUNCHES`` (and in ``PAIR_LAUNCHES`` at (D, Dv)) and up to three
+    CUDA kernels (chunk states, their prefix, the per-chunk products) on
+    one ``workspace``."""
     if q.device.type == "cpu":
         return flow_chunk_ref(q, k, v)
     bh, g, n, d, dv = _check(q, k, v)
@@ -102,12 +119,14 @@ def flow_chunk_call(q: torch.Tensor, k: torch.Tensor,
     if bh == 0:
         return out
     work = workspace(q, bh, g, n, d, dv)
-    fn = _lib.function("flow_chunk", "flow_chunk_fwd", _FWD_ARGTYPES)
+    fn = _entry(d, dv, ("flow_chunk", "flow_chunk_fwd"),
+                ("flow_chunk_wide", "flow_chunk_wide_fwd"), _FWD_ARGTYPES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              work.data_ptr(), bh, g, n, d, dv, stream)
     _lib.check(fn, err, "flow_chunk")
     LAUNCHES["flow_chunk"] += 1
+    PAIR_LAUNCHES[f"flow_chunk_{d}x{dv}"] += 1
     return out
 
 
@@ -117,9 +136,10 @@ def flow_chunk_dkv_call(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q: (BH, G, N, D); k: (BH, N, D); v: (BH, N, Dv); g: (BH, G, N, Dv) ->
     dk (BH, N, D), dv (BH, N, Dv).  One call is one count in ``LAUNCHES``
-    and up to three CUDA kernels (chunk states, their suffix, the
-    per-chunk products; ``bwd.py::flow_chunk_dkv_parallel`` is that
-    decomposition) on one ``workspace``, every sum in a fixed order.
+    (and in ``PAIR_LAUNCHES`` at (D, Dv)) and up to three CUDA kernels
+    (chunk states, their suffix, the per-chunk products;
+    ``bwd.py::flow_chunk_dkv_parallel`` is that decomposition) on one
+    ``workspace``, every sum in a fixed order.
     """
     if q.device.type == "cpu":
         return flow_chunk_dkv_ref(q, k, v, g)
@@ -132,11 +152,13 @@ def flow_chunk_dkv_call(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return dk, dvv
     work = workspace(q, bh, grp, n, d, dv, "flow_chunk_bwd",
                      "flow_chunk_dkv_workspace")
-    fn = _lib.function("flow_chunk_bwd", "flow_chunk_dkv", _DKV_ARGTYPES)
+    fn = _entry(d, dv, ("flow_chunk_bwd", "flow_chunk_dkv"),
+                ("flow_chunk_bwd_wide", "flow_chunk_dkv_wide"), _DKV_ARGTYPES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
              dk.data_ptr(), dvv.data_ptr(), work.data_ptr(), bh, grp, n, d, dv,
              stream)
     _lib.check(fn, err, "flow_chunk_dkv")
     LAUNCHES["flow_chunk_dkv"] += 1
+    PAIR_LAUNCHES[f"flow_chunk_dkv_{d}x{dv}"] += 1
     return dk, dvv

@@ -24,6 +24,7 @@ the causal dot (a chunk sums C S products as large as its outputs); the
 boundary gather (K9) and the page-table gathers (K8a, K8b): exact (a
 copy, and one fp32 product rounded once).
 """
+import collections
 import dataclasses
 
 import numpy as np
@@ -39,7 +40,8 @@ from repro_torch.attention.fused import fused_causal_forward  # noqa: E402
 from repro_torch.attention.recurrent import FlowState, decode_step  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.core.flow_attention import FlowConfig  # noqa: E402
-from repro_torch.kernels import LAUNCHES, reset_launches  # noqa: E402
+from repro_torch.kernels import (LAUNCHES, PAIR_LAUNCHES,  # noqa: E402
+                                 reset_launches)
 from repro_torch.kernels._lib import KERNELS  # noqa: E402
 from repro_torch.kernels.flow_chunk import (flow_chunk_call,  # noqa: E402
                                             flow_chunk_dkv_call,
@@ -2063,3 +2065,67 @@ def test_sharded_train_step_on_a_2x1_mesh_of_the_card(gen):
     assert la1["flow_fused"] == 2 * cfg.n_layers
     assert la2["flow_fused"] == 2 * la1["flow_fused"]
     assert la2["flow_fused_bwd"] == 2 * la1["flow_fused_bwd"] > 0
+
+
+# --- K5a and K5b at the wide pairs: DeepSeek-V2-Lite's MLA heads (192, 128)
+# and their dq call (128, 192), Nemotron-4-340B's (192, 192), G = 12, and
+# RecurrentGemma-9B's (256, 256), G = 16 ----------------------------------
+
+@pytest.mark.parametrize("g,n,d,dv", [
+    (1, 512, 192, 128), (2, 200, 192, 128), (1, 97, 128, 192),
+    (2, 70, 128, 192), (12, 130, 192, 192), (1, 33, 192, 192),
+    (16, 200, 256, 256), (3, 1, 256, 256)])
+def test_flow_chunk_kernels_at_the_wide_pairs(gen, g, n, d, dv):
+    """K5a (forward and the dq operands) and K5b at the wide pairs against
+    their plain versions and their decompositions at the kernels' chunk of
+    32: G up to 16, N ragged against the chunk and N = 1; one count a call,
+    and one at the pair the call ran at; two calls bitwise equal."""
+    q, k, v, cot = dot_operands(gen, 4, g, n, d, dv)
+    reset_launches()
+    out = flow_chunk_call(q, k, v)
+    dq = flow_chunk_call(cot, v, k)
+    dk, dvv = flow_chunk_dkv_call(q, k, v, cot)
+    assert LAUNCHES == {**dict.fromkeys(KERNELS, 0), "flow_chunk": 2,
+                        "flow_chunk_dkv": 1}
+    assert PAIR_LAUNCHES == collections.Counter([
+        f"flow_chunk_{d}x{dv}", f"flow_chunk_{dv}x{d}",
+        f"flow_chunk_dkv_{d}x{dv}"])
+    for got, want in ((out, flow_chunk_ref(q, k, v)),
+                      (out, flow_chunk_parallel(q, k, v, 32)),
+                      (dq, flow_chunk_ref(cot, v, k)),
+                      (dq, flow_chunk_parallel(cot, v, k, 32))):
+        assert_dot_close(got, want)
+    for want in (flow_chunk_dkv_ref(q, k, v, cot),
+                 flow_chunk_dkv_parallel(q, k, v, cot, 32)):
+        for a, b_ in zip((dk, dvv), want):
+            assert_dot_close(a, b_)
+    assert torch.equal(flow_chunk_call(q, k, v), out)
+    assert all(torch.equal(a, b_) for a, b_ in zip(
+        flow_chunk_dkv_call(q, k, v, cot), (dk, dvv)))
+
+
+def test_chunk_pairs_are_the_pairs_the_c_side_takes(gen):
+    """``_lib.CHUNK_PAIRS`` is the set of (D, Dv) at which the C
+    ``flow_chunk_workspace`` and ``flow_chunk_dkv_workspace`` count a
+    workspace (``pair_ok``); each library's launch entry refuses the
+    other's pairs without launching."""
+    import ctypes
+
+    from repro_torch.kernels import _lib
+
+    widths = (16, 24, 32, 48, 64, 96, 128, 160, 192, 224, 256, 320)
+    for source, symbol in (("flow_chunk", "flow_chunk_workspace"),
+                           ("flow_chunk_bwd", "flow_chunk_dkv_workspace")):
+        count = _lib.function(source, symbol, [ctypes.c_int] * 5,
+                              ctypes.c_longlong)
+        assert {(d, dv) for d in widths for dv in widths
+                if count(4, 3, 100, d, dv) >= 0} == set(_lib.CHUNK_PAIRS)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for source, symbol, ptrs in (
+            ("flow_chunk", "flow_chunk_fwd", 5),
+            ("flow_chunk_wide", "flow_chunk_wide_fwd", 5),
+            ("flow_chunk_bwd", "flow_chunk_dkv", 7),
+            ("flow_chunk_bwd_wide", "flow_chunk_dkv_wide", 7)):
+        fn = _lib.function(source, symbol, [p] * ptrs + [i] * 5 + [p])
+        other = (192, 128) if "wide" not in source else (64, 64)
+        assert fn(*([None] * ptrs), 4, 1, 64, *other, None) != 0

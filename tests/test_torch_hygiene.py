@@ -673,7 +673,8 @@ def test_linear_is_accepted_and_local_and_mla_are_refused_by_name():
 @pytest.mark.parametrize("d,dv,g", [(192, 128, 1), (192, 192, 12)])
 def test_auto_on_cuda_serves_d192_on_k1_and_k3(d, dv, g):
     """Serving resolves K1 (packed prefill) and K3 (decode) at the new
-    pairs; the kernels' other shape checks keep refusing them."""
+    pairs; the paper-causal mode resolves K5a and K5b (``cuda_chunk``),
+    and the non-causal kernels keep refusing the pair."""
     shapes = {op: dataclasses.replace(s, d=d, dv=dv, hq=8 * g, hkv=8)
               for op, s in SHAPES.items()}
     ex = attention.resolve(ExecutionPlan(flow=FlowConfig(), packed=True))
@@ -681,11 +682,13 @@ def test_auto_on_cuda_serves_d192_on_k1_and_k3(d, dv, g):
                       "cuda").name == "cuda_fused"
     assert ex.backend("decode", shapes["decode"], "cuda").name == \
         "cuda_decode"
-    # K5a / K5b (the paper-causal mode) stay at HEAD_DIMS
-    paper = ExecutionPlan(flow=FlowConfig(strict_causal=False))
+    paper = ExecutionPlan(flow=FlowConfig(causal=True, strict_causal=False))
+    assert attention.resolve(paper).backend(
+        "forward", shapes["prefill_packed"], "cuda").name == "cuda_chunk"
+    non_causal = ExecutionPlan(flow=FlowConfig(strict_causal=False))
     with pytest.raises(attention.ResolutionError, match="kernel takes"):
-        attention.resolve(paper).backend("forward", shapes["prefill_packed"],
-                                         "cuda")
+        attention.resolve(non_causal).backend(
+            "forward", shapes["prefill_packed"], "cuda")
 
 
 @pytest.mark.parametrize("dv", [128, 192])
@@ -693,9 +696,11 @@ def test_a_gradient_plan_at_d192_raises_naming_k2(dv):
     """Under ``auto`` on the card a training plan at D = 192 resolves to
     cuda_fused (K1 forward, K2 backward) at the archs' groups -- G = 1 for
     MLA's (192, 128), G = 12 for Nemotron-4-340B's (192, 192) -- as
-    ``explain`` shows; only a group K2's pull-back does not fit (G = 24)
-    is refused, by cuda_fused naming K2, D and G, before any forward runs.
-    The launcher's build-time check passes for the full-width MLA heads."""
+    ``explain`` shows; a group K2's pull-back does not fit (G = 24) is
+    refused by cuda_fused naming K2, D and G (a pin to it raises before
+    any forward runs), and ``auto`` then takes cuda_chunk (K5a, K5b), which
+    take the pair at any group.  The launcher's build-time check passes
+    for the full-width MLA heads."""
     g = 1 if dv == 128 else 12
     shapes = dataclasses.replace(SHAPES["prefill_packed"], d=192, dv=dv,
                                  hq=8 * g, hkv=8)
@@ -708,8 +713,11 @@ def test_a_gradient_plan_at_d192_raises_naming_k2(dv):
                                                needs_grad=True)}
         assert verdicts["cuda_fused"][0], verdicts["cuda_fused"]
     big = dataclasses.replace(shapes, hq=8 * 24)
+    assert plan.backend("forward", big, "cuda").name == "cuda_chunk"
+    pinned = attention.resolve(ExecutionPlan(flow=dataclasses.replace(
+        causal, backend="cuda_fused"), needs_grad=True))
     with pytest.raises(attention.ResolutionError, match="K2") as err:
-        plan.backend("forward", big, "cuda")
+        pinned.backend("forward", big, "cuda")
     why = dict(err.value.rejections)["cuda_fused"]
     assert "flow_fused_bwd" in why and "G=24 at D=192" in why
     # serving (no gradients) takes K1
@@ -755,8 +763,9 @@ def test_an_int8_pool_at_d192_raises_naming_k4():
 
 def test_auto_on_cuda_serves_d256_on_k1_and_k3():
     """Serving resolves K1 (packed prefill) and K3 (decode) at (256, 256)
-    with 16 query heads over one kv head; the paper-causal kernels (K5a,
-    K5b) keep refusing the width."""
+    with 16 query heads over one kv head, and the paper-causal mode K5a
+    and K5b (``cuda_chunk``); the non-causal kernels keep refusing the
+    width."""
     shapes = {op: dataclasses.replace(s, d=256, dv=256, hq=16, hkv=1)
               for op, s in SHAPES.items()}
     ex = attention.resolve(ExecutionPlan(flow=FlowConfig(), packed=True))
@@ -764,25 +773,33 @@ def test_auto_on_cuda_serves_d256_on_k1_and_k3():
                       "cuda").name == "cuda_fused"
     assert ex.backend("decode", shapes["decode"], "cuda").name == \
         "cuda_decode"
-    paper = ExecutionPlan(flow=FlowConfig(strict_causal=False))
+    paper = ExecutionPlan(flow=FlowConfig(causal=True, strict_causal=False))
+    assert attention.resolve(paper).backend(
+        "forward", shapes["prefill_packed"], "cuda").name == "cuda_chunk"
+    non_causal = ExecutionPlan(flow=FlowConfig(strict_causal=False))
     with pytest.raises(attention.ResolutionError, match="kernel takes"):
-        attention.resolve(paper).backend("forward", shapes["prefill_packed"],
-                                         "cuda")
+        attention.resolve(non_causal).backend(
+            "forward", shapes["prefill_packed"], "cuda")
 
 
 def test_a_gradient_plan_at_d256_raises_naming_k2():
     """A training plan at (256, 256) with 16 query heads over one kv head
     resolves to cuda_fused (K2 at G = 16), also at the launcher's check on
     the full-width RecurrentGemma; a group K2's pull-back does not fit (G
-    = 22, where the flows bind) is refused naming K2, D and G."""
+    = 22, where the flows bind) is refused naming K2, D and G (a pin to
+    cuda_fused raises), and ``auto`` then takes cuda_chunk (K5a, K5b)."""
     shapes = dataclasses.replace(SHAPES["prefill_packed"], d=256, dv=256,
                                  hq=16, hkv=1)
     causal = FlowConfig(causal=True, strict_causal=True)
     plan = attention.resolve(ExecutionPlan(flow=causal, needs_grad=True))
     for op in ("forward", "prefill"):
         assert plan.backend(op, shapes, "cuda").name == "cuda_fused"
+    big = dataclasses.replace(shapes, hq=22)
+    assert plan.backend("forward", big, "cuda").name == "cuda_chunk"
+    pinned = attention.resolve(ExecutionPlan(flow=dataclasses.replace(
+        causal, backend="cuda_fused"), needs_grad=True))
     with pytest.raises(attention.ResolutionError, match="K2") as err:
-        plan.backend("forward", dataclasses.replace(shapes, hq=22), "cuda")
+        pinned.backend("forward", big, "cuda")
     why = dict(err.value.rejections)["cuda_fused"]
     assert "flow_fused_bwd" in why and "G=22 at D=256" in why
     from repro_torch.configs import get_config
